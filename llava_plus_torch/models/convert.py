@@ -1,0 +1,24 @@
+"""Parameter trees from numpy into the port.
+
+The JAX package's parameters (``init_params`` or ``hf_import``) are nested
+dicts and lists of arrays with stacked per-layer weights ``[L, in, out]``;
+the port uses the same keys and layout with torch tensors, so one numpy tree
+feeds both implementations.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def from_numpy(tree, device, dtype=None):
+    """Map a nested dict/list/tuple of numpy arrays to torch tensors on
+    ``device``, cast to ``dtype`` when given. Goes through float32, since
+    torch cannot take a numpy bfloat16 (ml_dtypes) array directly."""
+    if isinstance(tree, dict):
+        return {k: from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(from_numpy(v, device, dtype) for v in tree)
+    return torch.tensor(np.asarray(tree, dtype=np.float32), device=device,
+                        dtype=dtype or torch.float32)

@@ -1,0 +1,111 @@
+"""LLaVA multimodal model in PyTorch: vision tower -> projector -> LLaMA.
+
+Counterpart of ``llava_plus_tpu/models/llava.py`` for the LLaMA backbone
+(MPT is not ported yet). The image splice follows the position map that
+``llava_plus_tpu.data.multimodal`` plans: image features are written into the
+token embeddings at ``image_pos``, and positions >= T (pad images, truncated
+spans) are left out.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from llava_plus_torch.models.configs import LlavaConfig
+from llava_plus_torch.models import clip_vit, llama, projector
+
+
+@dataclasses.dataclass
+class MultimodalBatch:
+    """One fused multimodal batch, as tensors on one device.
+
+    tokens [B, T]; positions [B, T]; segment_ids [B, T] (0 = padding);
+    images [B, N, H, W, 3]; image_pos [B, N * num_patches] (>= T: dropped).
+    """
+
+    tokens: torch.Tensor
+    positions: torch.Tensor
+    segment_ids: torch.Tensor
+    images: torch.Tensor
+    image_pos: torch.Tensor
+
+
+def _llama_only(cfg: LlavaConfig):
+    if cfg.language_model_type != "llama":
+        raise NotImplementedError(
+            f"the {cfg.language_model_type} backbone is not ported yet")
+
+
+def init_params(cfg: LlavaConfig, generator: torch.Generator, device,
+                dtype=torch.bfloat16):
+    """Full random parameter tree made on ``device`` from ``generator``."""
+    _llama_only(cfg)
+    return {
+        "language_model": llama.init_params(cfg.text, generator, device, dtype),
+        "vision_tower": clip_vit.init_params(cfg.vision, generator, device, dtype),
+        "mm_projector": projector.init_params(
+            cfg.mm_projector_type, cfg.mm_hidden_size, cfg.hidden_size,
+            generator, device, dtype),
+    }
+
+
+def encode_images(params, cfg: LlavaConfig, images: torch.Tensor) -> torch.Tensor:
+    """[B*, H, W, 3] -> [B*, num_patches, lm_hidden]."""
+    feats = clip_vit.encode(params["vision_tower"], cfg.vision, images)
+    return projector.apply(params["mm_projector"], cfg.mm_projector_type, feats)
+
+
+def fuse(params, cfg: LlavaConfig, batch: MultimodalBatch) -> torch.Tensor:
+    """The fused embedding sequence [B, T, D]."""
+    _llama_only(cfg)
+    embeds = llama.embed_tokens(params["language_model"], batch.tokens)
+    B, T = batch.tokens.shape
+    N = batch.images.shape[1]
+    if N == 0:
+        return embeds
+    b, j = torch.nonzero(batch.image_pos < T, as_tuple=True)
+    if b.numel() == 0:
+        return embeds  # no image slot lands inside T: skip the tower
+    images = batch.images.reshape((B * N,) + batch.images.shape[2:])
+    feats = encode_images(params, cfg, images)               # [B*N, P, D]
+    feats = feats.reshape(B, N * feats.shape[1], feats.shape[2]).to(embeds.dtype)
+    embeds[b, batch.image_pos[b, j]] = feats[b, j]
+    return embeds
+
+
+def forward(
+    params,
+    cfg: LlavaConfig,
+    batch: MultimodalBatch,
+    *,
+    cache: Optional[llama.KVCache] = None,
+    fresh_prefill: bool = False,
+    logits_positions: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[llama.KVCache]]:
+    """Multimodal forward -> (f32 logits, cache updated in place)."""
+    embeds = fuse(params, cfg, batch)
+    return llama.forward(
+        params["language_model"], cfg.text,
+        inputs_embeds=embeds, positions=batch.positions,
+        segment_ids=batch.segment_ids, cache=cache,
+        fresh_prefill=fresh_prefill, logits_positions=logits_positions,
+    )
+
+
+def decode_step(
+    params,
+    cfg: LlavaConfig,
+    token: torch.Tensor,        # [B, 1]
+    position: torch.Tensor,     # [B, 1]
+    segment_ids: torch.Tensor,  # [B, 1]
+    cache: llama.KVCache,
+) -> Tuple[torch.Tensor, llama.KVCache]:
+    """One text-only decode step over the cache: (logits [B, 1, V], cache)."""
+    _llama_only(cfg)
+    return llama.forward(
+        params["language_model"], cfg.text, token,
+        positions=position, segment_ids=segment_ids, cache=cache,
+    )

@@ -1,0 +1,149 @@
+"""Flash-decode attention over the dense KV cache: the CUDA kernel
+``csrc/decode_attention.cu`` and its plain PyTorch version.
+
+Counterpart of ``llava_plus_tpu/ops/decode_attention.py`` (the Pallas kernel
+it replaces is ``_kernel``). One query token per sequence (Tq == 1) attends
+over the cache in the model's own layout [B, S, Hkv, D], read in place
+through strides: bf16, or int8 with f32 per-(token, kv-head) scales
+[B, S, Hkv, 1] folded into the scores (k) and the probabilities (v). Slots
+with seg == 0 are masked (finite mask value, as in the JAX kernel); slots
+past the query position take no part at all, so the kernel never reads them.
+
+The kernel runs for CUDA tensors (bf16 q, D = 128, at most 8 query heads per
+kv head); the plain version for CPU tensors; anything else raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from llava_plus_torch.kernels import build
+from llava_plus_torch.ops.attention import DEFAULT_MASK_VALUE
+
+HEAD_DIM = 128
+MAX_GROUP = 8  # query heads per kv head the kernel holds
+
+
+def decode_attention_reference(q, k_cache, v_cache, seg, q_pos,
+                               k_scale=None, v_scale=None, *,
+                               sm_scale: float) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, in f32 (f64 for f64 inputs).
+
+    q [B, 1, H, D]; caches [B, S, Hkv, D]; seg [B, S]; q_pos [B];
+    scales [B, S, Hkv, 1] or None. Returns [B, 1, H, D] in q's dtype.
+    """
+    B, _, H, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hkv
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qg = q[:, 0].to(acc).reshape(B, Hkv, G, D)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.to(acc))
+    if k_scale is not None:
+        scores = scores * k_scale[..., 0].to(acc).permute(0, 2, 1)[:, :, None, :]
+    scores = scores * sm_scale
+    pos = torch.arange(S, device=q.device)
+    used = (pos[None, :] <= q_pos[:, None])[:, None, None, :]       # [B, 1, 1, S]
+    scores = torch.where((seg != 0)[:, None, None, :], scores, DEFAULT_MASK_VALUE)
+    scores = torch.where(used, scores, -torch.inf)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if v_scale is not None:
+        p = p * v_scale[..., 0].to(acc).permute(0, 2, 1)[:, :, None, :]
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(acc)) / l.clamp_min(1e-9)
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def _check_kernel_inputs(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale):
+    B, Tq, H, D = q.shape
+    if Tq != 1:
+        raise ValueError(f"decode kernel takes one query token, got {Tq}")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"decode kernel takes a bf16 query, got {q.dtype}")
+    quantized = k_scale is not None
+    want = torch.int8 if quantized else torch.bfloat16
+    if k_cache.dtype != want or v_cache.dtype != want:
+        raise TypeError(f"decode kernel takes a {want} cache here, got {k_cache.dtype}")
+    if D != HEAD_DIM:
+        raise ValueError(f"decode kernel needs head dim {HEAD_DIM}, got {D}")
+    Hkv = k_cache.shape[2]
+    if H % Hkv or H // Hkv > MAX_GROUP:
+        raise ValueError(f"{H} query heads over {Hkv} kv heads: need a group of 1..{MAX_GROUP}")
+    S = k_cache.shape[1]
+    if (k_cache.shape != (B, S, Hkv, D) or v_cache.shape != k_cache.shape
+            or k_cache.stride() != v_cache.stride()):
+        raise ValueError("k/v caches must be [B, S, Hkv, D] with equal strides")
+    if seg.shape != (B, S) or seg.dtype != torch.int32 or seg.stride(1) != 1:
+        raise ValueError("seg must be int32 [B, S] with contiguous rows")
+    if q_pos.shape != (B,) or q_pos.dtype != torch.int32 or not q_pos.is_contiguous():
+        raise ValueError("q_pos must be a contiguous int32 [B]")
+    tensors = [("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+               ("seg", seg), ("q_pos", q_pos)]
+    if quantized:
+        if v_scale is None:
+            raise ValueError("an int8 cache needs both scales")
+        for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if s.dtype != torch.float32 or s.shape != (B, S, Hkv, 1):
+                raise ValueError(f"{name} must be f32 [B, S, Hkv, 1]")
+        if k_scale.stride() != v_scale.stride():
+            raise ValueError("k and v scales must share strides")
+        tensors += [("k_scale", k_scale), ("v_scale", v_scale)]
+    for name, x in tensors:
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if not build.int32_offsets(x):
+            raise ValueError(f"{name} is too large for 32-bit offsets")
+    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) or x.data_ptr() % 16:
+            raise ValueError(f"{name}: last dim must be contiguous, rows 16-byte aligned")
+
+
+def _launch(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale, sm_scale):
+    _check_kernel_inputs(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale)
+    B, _, H, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    quantized = k_scale is not None
+    out = torch.empty(B, 1, H, D, dtype=q.dtype, device=q.device)
+    ss = k_scale.stride() if quantized else (0, 0, 0)
+    err = build.lib().decode_attention_fwd(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        k_scale.data_ptr() if quantized else None,
+        v_scale.data_ptr() if quantized else None,
+        seg.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+        B, S, H, Hkv, int(quantized),
+        q.stride(0), q.stride(2),
+        k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
+        ss[0], ss[1], ss[2], seg.stride(0),
+        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(err, "decode_attention_fwd")
+    return out
+
+
+def decode_attention(
+    q: torch.Tensor,                  # [B, 1, H, D]
+    k_cache: torch.Tensor,            # [B, S, Hkv, D] bf16 or int8
+    v_cache: torch.Tensor,
+    seg: torch.Tensor,                # [B, S] int32, 0 = empty slot
+    q_pos: torch.Tensor,              # [B] int32 position of the query
+    k_scale: Optional[torch.Tensor] = None,   # [B, S, Hkv, 1] f32 for int8
+    v_scale: Optional[torch.Tensor] = None,
+    *,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-step attention over the cache. Returns [B, 1, H, D]."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if q.is_cuda:
+        out = _launch(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale, sm_scale)
+        decode_attention.launches += 1
+        return out
+    if q.device.type == "cpu":
+        return decode_attention_reference(q, k_cache, v_cache, seg, q_pos,
+                                          k_scale, v_scale, sm_scale=sm_scale)
+    raise ValueError(f"decode_attention: no path for device {q.device}")
+
+
+decode_attention.launches = 0

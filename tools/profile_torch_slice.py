@@ -1,0 +1,185 @@
+"""Where the time of the PyTorch port's 7B serving slice goes, on one CUDA card.
+
+Builds LLaVA-1.5-7B (``llava_plus_torch``) at full width and depth with
+random bf16 weights (``torch.Generator`` seed 0, as ``chip_smoke.py`` does)
+and a ``Generator`` with ``max_seq_len`` 2048, then, for a bf16 and an int8
+KV cache:
+
+  prefill  the 768-token image request (CLIP encode, projector, splice,
+           LLaMA prefill into a fresh cache): host clock over three warm
+           calls, then one call under ``torch.profiler``;
+  decode   single-token steps after that prefill, each ending with the
+           token fetched to the host as ``Generator.stream`` does: host
+           clock over ``--steps`` steps, then ``--steps`` more under
+           ``torch.profiler``.
+
+Every host clock is taken before the first profiler session.
+
+For each it prints the host-clock ms per call or step, the device busy ms
+(the sum of the device time of every kernel, copy and memset in the trace,
+per call or step), the idle share (1 - busy / host), the device time by
+class of kernel, and the kernels with the most device time. The full
+``key_averages`` tables go to ``--out``. The last line is one JSON object
+with the numbers printed.
+
+Usage: python tools/profile_torch_slice.py [--steps 16] [--out profile_out]
+"""
+
+import argparse
+import collections
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+CLASSES = (
+    ("flash_fwd (kernel)", ("flash_fwd_kernel",)),
+    ("decode_attention (kernel)", ("decode_kernel",)),
+    ("GEMM/GEMV (cuBLAS)", ("gemm", "gemv", "cutlass", "nvjet", "xmma", "splitk")),
+    ("copies and casts", ("copy", "memcpy", "memset")),
+    ("reductions", ("reduce",)),
+)
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    for label, keys in CLASSES:
+        if any(k in low for k in keys):
+            return label
+    return "other elementwise"
+
+
+def device_events(prof):
+    """(name, calls, self device µs) of every device-side event."""
+    out = []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            out.append((e.key, e.count, e.self_device_time_total))
+    return out
+
+
+def summarize(tag, prof, host_ms, per, out_dir, top=12):
+    """Print and return the breakdown of one profiled phase, ``per`` calls."""
+    events = device_events(prof)
+    busy_ms = sum(us for _, _, us in events) / 1e3 / per
+    by_class = collections.Counter()
+    for name, _, us in events:
+        by_class[kernel_class(name)] += us / 1e3 / per
+    print(f"[{tag}] host {host_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
+          f"idle share {1 - busy_ms / host_ms:.3f} (per {'step' if per > 1 else 'call'})")
+    for label, ms in by_class.most_common():
+        print(f"[{tag}]   {label}: {ms:.3f} ms ({ms / busy_ms:.1%})")
+    for name, calls, us in sorted(events, key=lambda x: -x[2])[:top]:
+        print(f"[{tag}]     {us / 1e3 / per:8.3f} ms  {calls // per:5d} calls  {name[:90]}")
+    with open(os.path.join(out_dir, f"{tag}.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    return {"host_ms": host_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / host_ms,
+            "by_class_ms": dict(by_class.most_common())}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--out", default="profile_out")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_slice: no CUDA device", file=sys.stderr)
+        return 1
+    os.makedirs(args.out, exist_ok=True)
+
+    from llava_plus_torch.data import DebugTokenizer
+    from llava_plus_torch.generate import Generator, sample_token
+    from llava_plus_torch.models import llama, llava as llava_model
+    from llava_plus_torch.models.configs import LLAVA_15_7B
+
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    cfg, dev = LLAVA_15_7B, "cuda:0"
+    params = llava_model.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tok = DebugTokenizer(vocab_size=cfg.text.vocab_size)
+    size = cfg.vision.image_size
+    image = np.random.default_rng(0).standard_normal((1, size, size, 3)).astype(np.float32)
+    prompt = "<image>\n" + " ".join(f"word{i}" for i in range(184))
+    result = {"card": smi, "steps": args.steps}
+    runs = {}
+    for cache_dtype in (torch.bfloat16, torch.int8):
+        gen = Generator(params, cfg, tok, device=dev, max_seq_len=2048,
+                        cache_dtype=cache_dtype)
+        batch, plan = gen.prepare_batch([prompt], [image])
+        runs["int8" if cache_dtype == torch.int8 else "bf16"] = (
+            gen, batch, int(plan.lengths[0]))
+
+    def prefill(gen, batch):
+        cache = llama.KVCache.create(cfg.text, 1, gen.max_seq_len, gen.cache_dtype,
+                                     device=dev)
+        logits = gen._prefill(cache, batch)
+        token = sample_token(logits, None, 0.0, 1.0)[:, None]
+        int(token[0, 0])
+        return cache, token
+
+    def decode(gen, cache, token, pos, n):
+        for i in range(n):
+            token = gen._decode_n(cache, token, pos + i, 1, None, 0.0, 1.0)
+            int(token[0, 0])
+
+    # Host clocks first: once a profiler session has run, CUPTI may stay
+    # attached and slow every later launch.
+    host = {}
+    with torch.inference_mode():
+        for kv, (gen, batch, prompt_len) in runs.items():
+            for _ in range(3):                      # warm-up: allocator, cuBLAS, kernels
+                cache, token = prefill(gen, batch)
+                decode(gen, cache, token, prompt_len, 4)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                prefill(gen, batch)
+            prefill_ms = (time.perf_counter() - t0) / 3 * 1e3
+            cache, token = prefill(gen, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode(gen, cache, token, prompt_len, args.steps)
+            host[kv] = (prefill_ms, (time.perf_counter() - t0) / args.steps * 1e3)
+
+        for kv, (gen, batch, prompt_len) in runs.items():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                prefill(gen, batch)
+                torch.cuda.synchronize()
+            pre = summarize(f"prefill-{kv}", prof, host[kv][0], 1, args.out)
+            cache, token = prefill(gen, batch)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                decode(gen, cache, token, prompt_len, args.steps)
+                torch.cuda.synchronize()
+            dec = summarize(f"decode-{kv}", prof, host[kv][1], args.steps, args.out)
+            result[kv] = {"prompt_len": prompt_len, "prefill": pre, "decode": dec}
+
+        # the decode host clock again, now after the profiler sessions
+        gen, batch, prompt_len = runs["bf16"]
+        cache, token = prefill(gen, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode(gen, cache, token, prompt_len, args.steps)
+        after = (time.perf_counter() - t0) / args.steps * 1e3
+        print(f"[decode-bf16] host {after:.3f} ms per step after profiling "
+              f"(before: {host['bf16'][1]:.3f} ms)")
+        result["bf16"]["decode"]["host_ms_after_profiler"] = after
+
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
