@@ -21,21 +21,29 @@ from llava_plus_torch.models import llama, llava as llava_model
 from llava_plus_torch.models.llava import MultimodalBatch
 
 
+def nucleus(scaled: torch.Tensor, top_p) -> torch.Tensor:
+    """``scaled`` [B, V] with the logits outside the top-p nucleus set to
+    -inf: the fewest top tokens whose probability mass reaches ``top_p`` (a
+    float, or a [B, 1] tensor); the top token always stays.
+
+    The cutoff is the smallest kept logit. The JAX package takes the largest
+    (``llava_plus_tpu/generate.py:sample_token`` and the engine's
+    ``_sample_batch``), which keeps only the argmax, so its sampling is
+    greedy at every temperature; the port samples the nucleus instead."""
+    sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
+    sorted_probs = torch.softmax(sorted_logits, dim=-1)
+    keep = (torch.cumsum(sorted_probs, dim=-1) - sorted_probs) < top_p
+    cutoff = torch.where(keep, sorted_logits, torch.inf).amin(dim=-1, keepdim=True)
+    return torch.where(scaled >= cutoff, scaled, -torch.inf)
+
+
 def sample_token(logits: torch.Tensor, generator: torch.Generator,
                  temperature: float, top_p: float) -> torch.Tensor:
     """[B, V] f32 logits -> [B] token ids: argmax when temperature <= 0,
     else temperature + nucleus (top-p) sampling."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
-    scaled = logits / max(temperature, 1e-6)
-    sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
-    sorted_probs = torch.softmax(sorted_logits, dim=-1)
-    cum = torch.cumsum(sorted_probs, dim=-1)
-    # keep tokens while the mass before them is < top_p; top-1 always stays
-    keep = (cum - sorted_probs) < top_p
-    cutoff = torch.where(keep, sorted_logits, -torch.inf).amax(dim=-1, keepdim=True)
-    filtered = torch.where(scaled >= cutoff, scaled, -torch.inf)
-    probs = torch.softmax(filtered, dim=-1)
+    probs = torch.softmax(nucleus(logits / max(temperature, 1e-6), top_p), dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 

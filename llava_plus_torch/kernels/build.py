@@ -36,10 +36,21 @@ F = ctypes.c_float
 SIGNATURES = {
     "flash_fwd_bf16": [P, P, P, P, P, P, P] + [I] * 11 + [F, P],
     "decode_attention_fwd": [P] * 8 + [I] * 14 + [F, P],
+    "quant_matmul_int8": [P] * 4 + [I] * 5 + [P],
+    "quant_matmul_int4": [P] * 4 + [I] * 5 + [P],
 }
 
 _lib = None
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``. The serving engine launches kernels
+    from its prefill and decode threads, and ``+=`` on an attribute is not
+    atomic across threads."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def _nvcc() -> str:

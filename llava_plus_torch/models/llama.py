@@ -10,12 +10,17 @@ Attention: a fresh prefill attends over its own chunk through
 decode step goes through :func:`ops.decode_attention.decode_attention`,
 which reads the cache in place (the kernel on the card, its plain version on
 the CPU); any other cached chunk uses the reference attention.
+
+Projections go through :func:`ops.quant.matmul`, so a weight may be a bf16
+tensor or an int8 / int4 dict (``ops/quant.py``, the kernels of
+``ops/quant_matmul.py`` on the card), unfused or fused (``wqkv``,
+``w_gateup``) as ``quant.fuse_llama_matrices`` leaves it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +30,7 @@ from llava_plus_torch.ops.attention import (
     attention, quant_cache_attention, reference_attention,
 )
 from llava_plus_torch.ops.decode_attention import decode_attention
+from llava_plus_torch.ops.quant import is_quantized, matmul
 
 
 # ---------------------------------------------------------------------------
@@ -79,18 +85,62 @@ def quantize_kv(new: torch.Tensor):
     return q, scale
 
 
+class _Step(NamedTuple):
+    """The slots of a one-token step: row b writes flat slot ``b * S + pos``;
+    rows with ``keep`` False write their slot's own contents back."""
+
+    flat: torch.Tensor
+    keep: torch.Tensor
+
+
+def _put_rows(buf: torch.Tensor, step: _Step, vals: torch.Tensor):
+    """buf [B, S, ...] <- vals [B, ...], one row each, at ``step``'s slots."""
+    rows = buf.view(-1, *buf.shape[2:])
+    keep = step.keep.view(-1, *[1] * (vals.dim() - 1))
+    rows.index_copy_(0, step.flat, torch.where(keep, vals, rows.index_select(0, step.flat)))
+
+
+def _write_slots(cache: KVCache, positions, segment_ids):
+    """The cache slots a call writes, with their segment ids already
+    written. Tokens at positions >= max_len (padding rows; engine slots that
+    are idle or past their budget) are left out, as the JAX package's
+    dropping scatter leaves them out.
+
+    A one-token step (decode) returns a :class:`_Step`: such a row is clamped
+    onto its last slot and writes that slot's own contents back, which needs
+    no host sync and one flat index for every layer. A longer chunk returns
+    ``(b, t, pos)``, its in-range tokens selected with ``nonzero``."""
+    B, T = positions.shape
+    S = cache.max_len
+    if T == 1:
+        step = _Step(torch.arange(B, device=positions.device) * S
+                     + positions[:, 0].clamp(max=S - 1), positions[:, 0] < S)
+        _put_rows(cache.seg, step, segment_ids[:, 0].to(torch.int32))
+        return step
+    b, t = torch.nonzero(positions < S, as_tuple=True)
+    pos = positions[b, t]
+    cache.seg[b, pos] = segment_ids[b, t].to(torch.int32)
+    return b, t, pos
+
+
 def _cache_write(all_vals, all_scales, new, idx, sel):
     """Write new [B, T, H, D] rows into layer ``idx`` of the stacked cache at
-    the slots ``sel = (b, t, pos)`` (rows whose position lies inside the
-    cache; padding rows carry position == max_len and are left out, which
-    the JAX package gets from a dropping scatter)."""
-    b, t, pos = sel
+    the slots ``sel`` of :func:`_write_slots` (quantized per (token, head)
+    when the cache carries scales)."""
+    step = isinstance(sel, _Step)
+    vals = new[:, 0] if step else new[sel[0], sel[1]]
+    scales = None
     if all_scales is None:
-        all_vals[idx, b, pos] = new[b, t].to(all_vals.dtype)
-        return
-    q, scale = quantize_kv(new[b, t])
-    all_vals[idx, b, pos] = q
-    all_scales[idx, b, pos] = scale
+        vals = vals.to(all_vals.dtype)
+    else:
+        vals, scales = quantize_kv(vals)
+    for buf, x in ((all_vals, vals), (all_scales, scales)):
+        if x is None:
+            continue
+        if step:
+            _put_rows(buf[idx], sel, x)
+        else:
+            buf[idx, sel[0], sel[2]] = x
 
 
 # ---------------------------------------------------------------------------
@@ -185,12 +235,17 @@ def embed_tokens(params, input_ids: torch.Tensor) -> torch.Tensor:
 # Decoder
 # ---------------------------------------------------------------------------
 
+def _at(w, i: int):
+    """Layer ``i`` of a stacked weight, plain or quantized (a dict of leaves)."""
+    return {k: v[i] for k, v in w.items()} if isinstance(w, dict) else w[i]
+
+
 def _layer(params, i: int):
     """Layer ``i``'s weights: views into the stacked tensors."""
     lay = params["layers"]
     return {
-        "attn": {n: w[i] for n, w in lay["attn"].items()},
-        "mlp": {n: w[i] for n, w in lay["mlp"].items()},
+        "attn": {n: _at(w, i) for n, w in lay["attn"].items()},
+        "mlp": {n: _at(w, i) for n, w in lay["mlp"].items()},
         "input_norm": lay["input_norm"][i],
         "post_attn_norm": lay["post_attn_norm"][i],
     }
@@ -219,9 +274,15 @@ def _layer_forward(lp, h, cos, sin, segment_ids, positions, cfg: LlamaConfig,
     H, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
     hn = rms_norm(h, lp["input_norm"], cfg.rms_norm_eps)
-    q = (hn @ lp["attn"]["wq"]).reshape(B, T, H, Dh)
-    k = (hn @ lp["attn"]["wk"]).reshape(B, T, Hkv, Dh)
-    v = (hn @ lp["attn"]["wv"]).reshape(B, T, Hkv, Dh)
+    wa = lp["attn"]
+    if "wqkv" in wa:
+        # inference-fused projection (quant.fuse_llama_matrices): one launch
+        q, k, v = torch.split(matmul(hn, wa["wqkv"]), [H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
+    else:
+        q, k, v = matmul(hn, wa["wq"]), matmul(hn, wa["wk"]), matmul(hn, wa["wv"])
+    q = q.reshape(B, T, H, Dh)
+    k = k.reshape(B, T, Hkv, Dh)
+    v = v.reshape(B, T, Hkv, Dh).contiguous()  # the fused split leaves a strided view
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
@@ -237,11 +298,16 @@ def _layer_forward(lp, h, cos, sin, segment_ids, positions, cfg: LlamaConfig,
     else:
         attn_out = _cached_attention(q, cache, idx, segment_ids, positions)
 
-    h = h + attn_out.reshape(B, T, H * Dh) @ lp["attn"]["wo"]
+    h = h + matmul(attn_out.reshape(B, T, H * Dh), wa["wo"])
     hn = rms_norm(h, lp["post_attn_norm"], cfg.rms_norm_eps)
-    gate = F.silu((hn @ lp["mlp"]["w_gate"]).float()).to(hn.dtype)
-    up = hn @ lp["mlp"]["w_up"]
-    return h + (gate * up) @ lp["mlp"]["w_down"]
+    wm = lp["mlp"]
+    if "w_gateup" in wm:
+        # inference-fused gate|up projection: one launch
+        gate, up = torch.split(matmul(hn, wm["w_gateup"]), [cfg.intermediate_size] * 2, dim=-1)
+    else:
+        gate, up = matmul(hn, wm["w_gate"]), matmul(hn, wm["w_up"])
+    gate = F.silu(gate.float()).to(hn.dtype)
+    return h + matmul(gate * up, wm["w_down"])
 
 
 def decoder_forward(
@@ -264,11 +330,7 @@ def decoder_forward(
     h = inputs_embeds
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling_type, cfg.rope_scaling_factor)
-    sel = None
-    if cache is not None:
-        b, t = torch.nonzero(positions < cache.max_len, as_tuple=True)
-        sel = (b, t, positions[b, t])
-        cache.seg[b, sel[2]] = segment_ids[b, t].to(torch.int32)
+    sel = None if cache is None else _write_slots(cache, positions, segment_ids)
     for i in range(cfg.num_hidden_layers):
         h = _layer_forward(_layer(params, i), h, cos, sin, segment_ids,
                            positions, cfg, cache, i, sel, fresh_prefill)
@@ -279,8 +341,12 @@ def lm_head(params, cfg: LlamaConfig, hidden: torch.Tensor) -> torch.Tensor:
     """f32 logits: the products of the (bf16) operands summed and kept in
     f32, as the JAX package's ``preferred_element_type=f32`` asks. On the
     card the GEMM takes the bf16 operands and writes f32, with no copy of the
-    weight; the CPU has no mixed-dtype product, so there both are upcast."""
+    weight; the CPU has no mixed-dtype product, so there both are upcast. A
+    quantized head writes f32 straight from the kernel's f32 accumulator
+    (the JAX package rounds the product to the activation dtype first)."""
     w = params["embed_tokens"].T if cfg.tie_word_embeddings else params["lm_head"]
+    if is_quantized(w):
+        return matmul(hidden, w, out_dtype=torch.float32)
     h = hidden.reshape(-1, hidden.shape[-1])
     if h.is_cuda:
         logits = torch.mm(h, w, out_dtype=torch.float32)

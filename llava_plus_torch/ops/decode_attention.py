@@ -138,7 +138,7 @@ def decode_attention(
         sm_scale = q.shape[-1] ** -0.5
     if q.is_cuda:
         out = _launch(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale, sm_scale)
-        decode_attention.launches += 1
+        build.count_launch(decode_attention)
         return out
     if q.device.type == "cpu":
         return decode_attention_reference(q, k_cache, v_cache, seg, q_pos,

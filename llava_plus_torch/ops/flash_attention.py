@@ -132,7 +132,7 @@ def flash_attention(
     qp, kp, vp, qs, ks = _pad_inputs(q, k, v, q_segment_ids, kv_segment_ids)
     if q.is_cuda:
         out, lse = _launch(qp, kp, vp, qs, ks, causal, scale)
-        flash_attention.launches += 1
+        build.count_launch(flash_attention)
     elif q.device.type == "cpu":
         out, lse = flash_attention_reference(qp, kp, vp, qs, ks,
                                              causal=causal, sm_scale=scale)

@@ -1,0 +1,660 @@
+"""Continuous-batching inference engine over a dense KV cache.
+
+Counterpart of ``llava_plus_tpu/serve/engine.py`` (``BatchedEngine``'s dense
+path). One engine thread decodes a fixed pool of ``max_slots`` slots in
+chunks of ``decode_chunk`` steps; a prefill thread tokenizes, prefills
+arrivals in batches (padded to a power-of-two batch size, one bucket-sized
+cache per batch), emits each request's first token and hands it to the
+engine thread, which copies its cache stripe into a free slot between
+chunks. Requests leave on eos, a stop string or their token budget.
+
+PyTorch runs eagerly, so the JAX package's compiled prefill / insert /
+decode programs become plain calls that update the pool cache in place.
+Both threads queue their work on the device's default CUDA stream, so the
+card runs prefill and decode kernels one after another in the order they
+were queued; a prefill on a side stream, overlapping decode, is later work.
+
+Sampling: greedy rows take the argmax. A sampled row draws by Gumbel-max
+from counter-based uniforms keyed on (request seed, position), so its
+tokens depend only on its seed and positions, never on which requests
+share the batch or how decode is chunked (the JAX engine folds the
+position into the request's key for the same reason; its random bits are
+not reproduced).
+
+Not ported (the arguments raise): the paged pool and prefix cache,
+speculative decoding, the tensor-parallel mesh, W8A8 prefill, and the MPT
+backbone.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import queue
+import threading
+import time
+from collections import deque
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from llava_plus_tpu.constants import IMAGE_TOKEN_INDEX
+from llava_plus_tpu.mm_utils import tokenizer_image_token
+from llava_plus_torch.generate import nucleus, prepare_multimodal_request
+from llava_plus_torch.models import llama, llava as llava_model
+from llava_plus_torch.models.configs import LlavaConfig
+from llava_plus_torch.models.llava import MultimodalBatch
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: str
+    images: Optional[np.ndarray] = None
+    max_new_tokens: int = 256
+    temperature: float = 0.0
+    top_p: float = 1.0
+    stop_strings: Sequence[str] = ()
+    seed: int = 0
+
+    # filled by the engine
+    submit_ts: float = 0.0
+    first_token_ts: float = 0.0
+    _chunks: "queue.Queue" = dataclasses.field(default_factory=queue.Queue, repr=False)
+    _done: threading.Event = dataclasses.field(default_factory=threading.Event, repr=False)
+
+    @property
+    def ttft(self) -> Optional[float]:
+        if self.first_token_ts and self.submit_ts:
+            return self.first_token_ts - self.submit_ts
+        return None
+
+
+@dataclasses.dataclass
+class _Slot:
+    request: Optional[Request] = None
+    out_ids: List[int] = dataclasses.field(default_factory=list)
+    pos: int = 0
+    budget: int = 0
+    # the prefill already emitted this slot's first token; the next decode
+    # column for it is that same token and must not be emitted twice
+    skip_next_emit: bool = False
+    # prompt + generated token ids
+    history: List[int] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class _Prepared:
+    """A request whose prefill finished (first token already emitted to the
+    client), waiting for the engine loop to insert it into a slot."""
+
+    req: Request
+    cache1: llama.KVCache   # bucket-sized prefill cache, maybe a whole batch's
+    row: int                # this request's row of it
+    first_id: int
+    prompt_len: int
+    budget: int
+    out_ids: List[int]
+    history: List[int]
+
+
+@dataclasses.dataclass
+class _InflightPrefill:
+    """A prefill batch whose kernels are queued but whose first tokens are
+    not fetched yet. The prefill loop keeps up to two in flight, so batch
+    N+1's host work is queued while batch N still runs on the card."""
+
+    reqs: List[Request]
+    firsts: torch.Tensor    # [N] sampled first tokens, on the device
+    cacheN: llama.KVCache   # bucket-sized prefill cache
+    plan: object            # host token plan (lengths, tokens)
+    t0: float               # host clock at the start (for the debug log)
+    t_host: float
+    t_dispatch: float
+
+
+# ---------------------------------------------------------------------------
+# Sampling
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (two multiply-xorshift rounds) on int64 values
+    in [0, 2^32); every product stays below 2^59."""
+    x = x ^ (x >> 16)
+    x = (x * 0x45D9F3B) & _MASK32
+    x = x ^ (x >> 16)
+    x = (x * 0x45D9F3B) & _MASK32
+    return x ^ (x >> 16)
+
+
+def counter_uniform(seeds: torch.Tensor, positions: torch.Tensor, n: int) -> torch.Tensor:
+    """Uniforms in (0, 1), [B, n] f32, a function of (seed, position, column)
+    only: row b is the same whatever other rows the call holds."""
+    key = _mix32((_mix32(seeds.long() & _MASK32) + positions.long()) & _MASK32)
+    cols = (torch.arange(n, device=seeds.device, dtype=torch.int64) * 0x9E3779B1) & _MASK32
+    bits = _mix32(key[:, None] ^ cols[None, :])
+    return ((bits >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
+def sample_batch(logits: torch.Tensor, temperature: torch.Tensor, top_p: torch.Tensor,
+                 seeds: torch.Tensor, positions: torch.Tensor, any_sampled: bool) -> torch.Tensor:
+    """[B, V] f32 logits -> [B] token ids. Rows with temperature <= 0 take
+    the argmax; the others draw from the temperature-scaled nucleus (top-p)
+    by Gumbel-max over :func:`counter_uniform` noise. ``any_sampled`` is the
+    host's knowledge that some row samples (all-greedy batches skip the
+    sort)."""
+    greedy = torch.argmax(logits, dim=-1)
+    if not any_sampled:
+        return greedy
+    filtered = nucleus(logits / temperature.clamp_min(1e-6)[:, None], top_p[:, None])
+    gumbel = -torch.log(-torch.log(counter_uniform(seeds, positions, logits.shape[-1])))
+    sampled = torch.argmax(filtered + gumbel, dim=-1)
+    return torch.where(temperature > 0.0, sampled, greedy)
+
+
+# ---------------------------------------------------------------------------
+# Engine
+# ---------------------------------------------------------------------------
+
+class BatchedEngine:
+    def __init__(
+        self,
+        params,
+        cfg: LlavaConfig,
+        tokenizer,
+        *,
+        max_slots: int = 8,
+        max_seq_len: int = 2048,
+        prefill_bucket: int = 256,
+        prefill_batch: int = 4,
+        cache_dtype=torch.bfloat16,
+        idle_sleep: float = 0.002,
+        decode_chunk: int = 4,
+        mesh=None,
+        paged: bool = False,
+        speculate: int = 0,
+        w8a8: bool = False,
+    ):
+        for name, value in (("mesh", mesh), ("paged", paged), ("speculate", speculate),
+                            ("w8a8", w8a8)):
+            if value:
+                raise NotImplementedError(f"BatchedEngine({name}=...) is not ported yet")
+        if cfg.language_model_type != "llama":
+            raise NotImplementedError(f"the {cfg.language_model_type} backbone is not ported yet")
+        self.params = params
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.device = params["language_model"]["embed_tokens"].device
+        self.max_slots = max_slots
+        self.max_seq_len = max_seq_len
+        self.prefill_bucket = prefill_bucket
+        self.prefill_batch = max(int(prefill_batch), 1)
+        self.cache_dtype = cache_dtype
+        self.idle_sleep = idle_sleep
+        self.decode_chunk = max(decode_chunk, 1)
+        self._prefix = None  # no prefix cache on the dense path (worker metrics read it)
+
+        self._queue: "queue.Queue[Request]" = queue.Queue()
+        self._ready: "queue.Queue[_Prepared]" = queue.Queue()
+        self._slots = [_Slot() for _ in range(max_slots)]
+        self._stop = threading.Event()
+        self.ttfts: "deque[float]" = deque(maxlen=512)
+        # burst admission shows as prefill_requests > prefill_dispatches
+        self.prefill_dispatches = 0
+        self.prefill_requests = 0
+        # batched decode steps (one forward each), and how many of them ran
+        # with more than one active slot
+        self.decode_steps = 0
+        self.multi_slot_steps = 0
+        self.warmup_s = 0.0  # set by warmup()
+
+        self.cache = self._make_cache()
+        self.tokens = torch.zeros(max_slots, 1, dtype=torch.int64, device=self.device)
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+        self._prefill_thread = threading.Thread(target=self._prefill_loop, daemon=True)
+        self._prefill_thread.start()
+
+    # ------------------------------------------------------------------
+
+    def _make_cache(self, batch=None, seq_len=None) -> llama.KVCache:
+        return llama.KVCache.create(self.cfg.text, batch or self.max_slots,
+                                    seq_len or self.max_seq_len, self.cache_dtype,
+                                    device=self.device)
+
+    def _prefill(self, batch: MultimodalBatch, cache1: llama.KVCache) -> torch.Tensor:
+        """Logits [N, V] at each row's last valid token (the lm_head runs
+        only there), the bucket cache filled in place."""
+        last = (batch.segment_ids.sum(dim=1) - 1).clamp_min(0)
+        logits, _ = llava_model.forward(self.params, self.cfg, batch, cache=cache1,
+                                        fresh_prefill=True, logits_positions=last)
+        return logits[:, 0]
+
+    def _insert(self, cache1: llama.KVCache, row: int, slot: int, first_token: int):
+        """Copy row ``row``'s stripe of a bucket-sized prefill cache into
+        slots [0, S1) of pool slot ``slot``, and rebuild the slot's seg row
+        from zeros so stale entries of its previous occupant are never
+        attended."""
+        S1 = cache1.max_len
+        c = self.cache
+        c.k[:, slot, :S1] = cache1.k[:, row]
+        c.v[:, slot, :S1] = cache1.v[:, row]
+        if c.k_scale is not None:
+            c.k_scale[:, slot, :S1] = cache1.k_scale[:, row]
+            c.v_scale[:, slot, :S1] = cache1.v_scale[:, row]
+        c.seg[slot].zero_()
+        c.seg[slot, :S1] = cache1.seg[row]
+        self.tokens[slot, 0] = first_token
+
+    def _set_token(self, tid: int, slot: int):
+        self.tokens[slot, 0] = tid
+
+    def _decode_n(self, positions, active, temps, tops, seeds, any_sampled: bool,
+                  n_steps: int):
+        """``n_steps`` batched decode steps from ``self.tokens``. Inactive
+        slots carry seg 0 and position max_seq_len (their cache writes are
+        dropped) and their tokens are forced to 0. Slots whose request ends
+        mid-chunk keep stepping; the host discards their tail. Returns the
+        tokens [B, n_steps] and the last column [B, 1], on the device."""
+        seg = active[:, None].to(torch.int32)
+        tokens, cols = self.tokens, []
+        for _ in range(n_steps):
+            logits, _ = llava_model.decode_step(self.params, self.cfg, tokens,
+                                                positions[:, None], seg, self.cache)
+            nxt = sample_batch(logits[:, 0], temps, tops, seeds, positions, any_sampled)
+            tokens = torch.where(active, nxt, 0)[:, None]
+            cols.append(tokens)
+            positions = positions + 1
+            self.decode_steps += 1
+        return torch.cat(cols, dim=1), tokens
+
+    # -- public API ----------------------------------------------------
+
+    def submit(self, request: Request) -> Request:
+        request.submit_ts = time.time()
+        self._queue.put(request)
+        return request
+
+    def stream(self, request: Request):
+        """Yield cumulative text for a request (submitted here)."""
+        self.submit(request)
+        while True:
+            try:
+                item = request._chunks.get(timeout=600)
+            except queue.Empty:
+                return
+            if item is None:
+                return
+            yield item
+
+    def drain(self, request: Request) -> str:
+        """Block until an already-``submit``ted request finishes; its final text."""
+        text = ""
+        while True:
+            try:
+                item = request._chunks.get(timeout=600)
+            except queue.Empty:
+                return text
+            if item is None:
+                return text
+            text = item
+
+    def generate(self, request: Request) -> str:
+        self.submit(request)
+        return self.drain(request)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self._prefill_thread.join(timeout=5)
+
+    @property
+    def num_active(self) -> int:
+        return sum(1 for s in self._slots if s.request is not None)
+
+    # -- warmup ----------------------------------------------------------
+
+    def _warmup_prompt(self, prompt_len: int, image: bool) -> str:
+        """A prompt whose fused length (text tokens + image patches) lands in
+        the same prefill bucket as ``prompt_len``."""
+        npatch = self.cfg.num_image_tokens
+        prompt_len = min(prompt_len, self.max_seq_len - 8)
+        bucket = -(-prompt_len // self.prefill_bucket) * self.prefill_bucket
+        lo, hi = bucket - self.prefill_bucket + 1, min(bucket, self.max_seq_len - 2)
+        target = hi - 4
+        prefix = "<image>\n" if image else ""
+        n_words = max(target - (npatch if image else 0), 4)
+        for _ in range(12):
+            prompt = prefix + " ".join(f"w{i % 31}" for i in range(n_words))
+            ids = tokenizer_image_token(prompt, self.tokenizer)
+            n_img = sum(1 for t in ids if t == IMAGE_TOKEN_INDEX)
+            fused = len(ids) + n_img * (npatch - 1)
+            if lo <= fused <= hi:
+                return prompt
+            # Newton step on the measured tokens-per-word rate
+            per = max(fused / max(n_words, 1), 0.25)
+            step = int(round((target - fused) / per))
+            n_words = max(n_words + (step or (1 if fused < lo else -1)), 1)
+        return prompt  # best effort: worst case warms a neighbouring bucket
+
+    @torch.inference_mode()
+    def warmup(self, prompt_len: int = 768, *, image: bool = True) -> float:
+        """Run every prefill batch size at ``prompt_len``'s bucket (with the
+        vision tower when ``image``), the insert, and both decode chunk
+        lengths once before serving: the first use builds the CUDA kernels
+        and warms cuBLAS and the allocator. Call on an idle engine (it
+        writes into slot 0 without occupying it). Returns the seconds spent,
+        also kept as ``warmup_s``."""
+        t0 = time.perf_counter()
+        image = image and self.cfg.num_image_tokens > 0
+        prompt = self._warmup_prompt(prompt_len, image)
+        img_shape = (1, self.cfg.vision.image_size, self.cfg.vision.image_size, 3)
+        rng = np.random.default_rng(0)
+        for n in self._prefill_batch_sizes():
+            reqs = [Request(prompt=prompt, max_new_tokens=4, temperature=0.0,
+                            images=(rng.normal(size=img_shape).astype(np.float32)
+                                    if image else None))
+                    for _ in range(n)]
+            prep = next((p for p in self._prepare(reqs) if p is not None), None)
+            if prep is not None:
+                # slot 0 gets a stale seg row, the state a finished request
+                # leaves behind; the next insert rebuilds it
+                self._insert(prep.cache1, prep.row, 0, prep.first_id)
+        B = self.max_slots
+        positions = torch.full((B,), self.max_seq_len, dtype=torch.int32, device=self.device)
+        active = torch.zeros(B, dtype=torch.bool, device=self.device)
+        temps = torch.zeros(B, device=self.device)
+        tops = torch.ones(B, device=self.device)
+        seeds = torch.zeros(B, dtype=torch.int64, device=self.device)
+        for k in sorted({1, self.decode_chunk}):
+            self._decode_n(positions, active, temps, tops, seeds, False, k)
+        self._set_token(0, 0)
+        self.tokens.cpu()  # wait for all of it
+        self.warmup_s = time.perf_counter() - t0
+        logger.info("warmup: %.1fs (prompt bucket for len %d, image=%s, batch sizes %s)",
+                    self.warmup_s, prompt_len, image, self._prefill_batch_sizes())
+        return self.warmup_s
+
+    # -- prefill thread ---------------------------------------------------
+
+    def _prefill_loop(self):
+        """Admission pipeline: take everything waiting (up to
+        ``prefill_batch``) into one batched prefill, keep up to two batches
+        in flight, and fetch the oldest one's first tokens when the pipeline
+        is full or nothing new arrived."""
+        with torch.inference_mode():
+            inflight: "deque[_InflightPrefill]" = deque()
+            while not self._stop.is_set():
+                dispatched = False
+                if len(inflight) < 2 and self._ready.qsize() < 2:
+                    reqs: List[Request] = []
+                    try:
+                        if inflight:
+                            reqs.append(self._queue.get_nowait())
+                        else:  # idle: block briefly instead of spinning
+                            reqs.append(self._queue.get(timeout=0.05))
+                    except queue.Empty:
+                        pass
+                    while reqs and len(reqs) < self.prefill_batch:
+                        try:
+                            reqs.append(self._queue.get_nowait())
+                        except queue.Empty:
+                            break
+                    if reqs:
+                        try:
+                            inflight.append(self._dispatch_prefill(reqs))
+                            self.prefill_dispatches += 1
+                            self.prefill_requests += len(reqs)
+                            dispatched = True
+                        except Exception:
+                            logger.exception("prefill dispatch failed")
+                            self._end(reqs)
+                if inflight and (len(inflight) >= 2 or not dispatched):
+                    inf = inflight.popleft()
+                    try:
+                        preps = self._finish_prefill(inf)
+                    except Exception:
+                        logger.exception("prefill failed")
+                        self._end(inf.reqs)
+                        continue
+                    for prep in preps:
+                        if prep is not None:
+                            self._ready.put(prep)
+                elif not dispatched and not inflight and self._ready.qsize() >= 2:
+                    time.sleep(self.idle_sleep)
+            # stop() raced a queued but unfetched batch: its requests still
+            # get their terminal chunk, or their readers stall until timeout
+            while inflight:
+                self._end(inflight.popleft().reqs)
+
+    @staticmethod
+    def _end(reqs: List[Request]):
+        for req in reqs:
+            req._chunks.put(None)
+            req._done.set()
+
+    def _prefill_batch_sizes(self) -> List[int]:
+        """The batch sizes a prefill pads to: powers of two up to
+        ``prefill_batch``, and ``prefill_batch`` itself."""
+        sizes, p = [], 1
+        while p < self.prefill_batch:
+            sizes.append(p)
+            p *= 2
+        sizes.append(self.prefill_batch)
+        return sizes
+
+    def _prepare(self, reqs: List[Request]) -> List[Optional[_Prepared]]:
+        """Dispatch and finish in one call (warmup and tests; the serving
+        loop pipelines the two phases across batches)."""
+        return self._finish_prefill(self._dispatch_prefill(reqs))
+
+    def _dispatch_prefill(self, reqs: List[Request]) -> _InflightPrefill:
+        """Host prep (tokenize, plan, pad to a batch size), then queue the
+        prefill and the first-token sampling without waiting for them."""
+        n_real = len(reqs)
+        N = next(s for s in self._prefill_batch_sizes() if s >= n_real)
+        pad = N - n_real
+        t0 = time.perf_counter()
+        prompts = [r.prompt for r in reqs] + [reqs[-1].prompt] * pad
+        images = None
+        if any(r.images is not None for r in reqs):
+            images = [r.images for r in reqs] + [reqs[-1].images] * pad
+        batch, plan = prepare_multimodal_request(
+            self.cfg, self.tokenizer, prompts, images, max_seq_len=self.max_seq_len,
+            device=self.device, prefill_bucket=self.prefill_bucket)
+        t_host = time.perf_counter()
+
+        cacheN = self._make_cache(batch=N, seq_len=int(batch.tokens.shape[1]))
+        last_logits = self._prefill(batch, cacheN)
+        padded = reqs + [reqs[-1]] * pad
+
+        def dev(values, dtype):
+            return torch.tensor(values, dtype=dtype, device=self.device)
+
+        temps = [r.temperature if i < n_real else 0.0 for i, r in enumerate(padded)]
+        firsts = sample_batch(
+            last_logits, dev(temps, torch.float32),
+            dev([r.top_p for r in padded], torch.float32),
+            dev([r.seed & _MASK32 for r in padded], torch.int64),
+            dev(np.maximum(np.asarray(plan.lengths) - 1, 0).tolist(), torch.int64),
+            any(t > 0.0 for t in temps))
+        return _InflightPrefill(reqs=reqs, firsts=firsts, cacheN=cacheN, plan=plan, t0=t0,
+                                t_host=t_host, t_dispatch=time.perf_counter())
+
+    def _finish_prefill(self, inf: _InflightPrefill) -> List[Optional[_Prepared]]:
+        """Fetch the batch's first tokens (the wait for its prefill), emit
+        each client's first token, and build the slot-insertion records."""
+        tids = inf.firsts.tolist()
+        now = time.time()
+        logger.debug("prepare n=%d: host=%.3fs queue=%.3fs fetch=%.3fs", len(tids),
+                     inf.t_host - inf.t0, inf.t_dispatch - inf.t_host,
+                     time.perf_counter() - inf.t_dispatch)
+        tokens_host = np.asarray(inf.plan.tokens)
+        preps: List[Optional[_Prepared]] = []
+        for i, req in enumerate(inf.reqs):
+            prompt_len = int(inf.plan.lengths[i])
+            # the Generator's clamp: as many tokens as the window holds
+            budget = min(req.max_new_tokens, self.max_seq_len - prompt_len)
+            tid = int(tids[i])
+            req.first_token_ts = now
+            if req.submit_ts:
+                self.ttfts.append(now - req.submit_ts)
+            out_ids, budget, finished = self._emit_first(req, tid, budget)
+            if finished:
+                preps.append(None)  # never occupies a slot
+                continue
+            history = [int(t) for t in tokens_host[i][:prompt_len]] + [tid]
+            preps.append(_Prepared(req=req, cache1=inf.cacheN, row=i, first_id=tid,
+                                   prompt_len=prompt_len, budget=budget, out_ids=out_ids,
+                                   history=history))
+        return preps
+
+    # -- engine thread ----------------------------------------------------
+
+    def _emit_first(self, req: Request, tid: int, budget: int):
+        """eos / budget / stop-string checks on the first sampled token.
+        Returns (out_ids, budget, finished); finished requests are complete."""
+        out_ids: List[int] = []
+        finished = False
+        if tid == self.tokenizer.eos_token_id or budget <= 0:
+            finished = True
+        else:
+            out_ids.append(tid)
+            budget -= 1
+            text = self.tokenizer.decode(out_ids, skip_special_tokens=True)
+            for stop_s in req.stop_strings:
+                if stop_s and stop_s in text:
+                    text = text.split(stop_s)[0]
+                    finished = True
+            req._chunks.put(text)
+        if finished:
+            req._chunks.put(None)
+            req._done.set()
+        return out_ids, budget, finished
+
+    def _admit(self) -> int:
+        inserted = 0
+        free = [i for i, s in enumerate(self._slots) if s.request is None]
+        while free:
+            try:
+                prep = self._ready.get_nowait()
+            except queue.Empty:
+                break
+            slot_id = free.pop(0)
+            try:
+                self._insert_prepared(slot_id, prep)
+                inserted += 1
+            except Exception:
+                logger.exception("insert failed")
+                self._end([prep.req])
+        return inserted
+
+    def _insert_prepared(self, slot_id: int, prep: _Prepared):
+        self._insert(prep.cache1, prep.row, slot_id, prep.first_id)
+        slot = self._slots[slot_id]
+        slot.request = prep.req
+        slot.out_ids = prep.out_ids
+        slot.pos = prep.prompt_len
+        slot.budget = prep.budget
+        slot.history = prep.history
+        slot.skip_next_emit = True
+
+    def _emit_token(self, slot: _Slot, tid: int) -> bool:
+        """Emit one decoded token for a slot (eos / budget / stop strings
+        matched on the decoded text). Frees the slot and returns True when
+        the request finished."""
+        req = slot.request
+        finished = False
+        if tid == self.tokenizer.eos_token_id or slot.budget <= 0:
+            finished = True
+        else:
+            slot.out_ids.append(tid)
+            slot.history.append(tid)
+            slot.budget -= 1
+            text = self.tokenizer.decode(slot.out_ids, skip_special_tokens=True)
+            for stop_s in req.stop_strings:
+                if stop_s and stop_s in text:
+                    text = text.split(stop_s)[0]
+                    finished = True
+            req._chunks.put(text)
+        if finished:
+            self._finish_slot(slot)
+        return finished
+
+    def _finish_slot(self, slot: _Slot):
+        slot.request._chunks.put(None)
+        slot.request._done.set()
+        slot.request = None
+
+    def _emit_column(self, tokens_host):
+        """Emit one decoded column: each active slot's token, with eos /
+        budget / stop handling; finished slots are freed."""
+        for i, slot in enumerate(self._slots):
+            if slot.request is None:
+                continue
+            if slot.skip_next_emit:
+                slot.skip_next_emit = False
+                continue
+            self._emit_token(slot, int(tokens_host[i]))
+
+    def _current_tokens(self) -> np.ndarray:
+        """Host mirror of each slot's current token (its history's tail)."""
+        return np.array([slot.history[-1] if slot.request is not None and slot.history else 0
+                         for slot in self._slots], np.int64)
+
+    def _loop(self):
+        with torch.inference_mode():
+            while not self._stop.is_set():
+                self._admit()
+                active_idx = [i for i, s in enumerate(self._slots) if s.request is not None]
+                if not active_idx:
+                    time.sleep(self.idle_sleep)
+                    continue
+                try:
+                    self._decode_chunk(active_idx)
+                except Exception:
+                    logger.exception("decode failed; ending the active requests")
+                    for i in active_idx:
+                        if self._slots[i].request is not None:
+                            self._finish_slot(self._slots[i])
+
+    def _decode_chunk(self, active_idx: List[int]):
+        # A prepared request waiting to insert gets the next admission point
+        # after one step (its first token was already emitted).
+        k = 1 if not self._ready.empty() else self.decode_chunk
+        B = self.max_slots
+        active = np.zeros(B, bool)
+        temps = np.zeros(B, np.float32)
+        tops = np.ones(B, np.float32)
+        positions = np.full(B, self.max_seq_len, np.int32)  # idle: writes dropped
+        seeds = np.zeros(B, np.int64)
+        for i in active_idx:
+            req = self._slots[i].request
+            active[i] = True
+            temps[i] = req.temperature
+            tops[i] = req.top_p
+            positions[i] = self._slots[i].pos
+            seeds[i] = req.seed & _MASK32
+        if len(active_idx) > 1:
+            self.multi_slot_steps += k
+
+        def dev(a):
+            return torch.from_numpy(a).to(self.device)
+
+        prev = self.tokens
+        toks, self.tokens = self._decode_n(dev(positions), dev(active), dev(temps), dev(tops),
+                                           dev(seeds), bool((temps > 0).any()), k)
+        # The column held over from the previous chunk (or a fresh slot's
+        # first token, skipped), then this chunk's columns but its last,
+        # which is held in self.tokens and emitted next time.
+        self._emit_column(prev[:, 0].tolist())
+        cols = toks.tolist()
+        for j in range(k - 1):
+            self._emit_column([row[j] for row in cols])
+        for i in active_idx:
+            self._slots[i].pos += k

@@ -66,7 +66,7 @@ size = cfg.vision.image_size
 params = llava.init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
 backend = TorchBackend(params, cfg, DebugTokenizer(vocab_size=cfg.text.vocab_size),
                        ClipImageProcessor(shortest_edge=size, crop_size=size),
-                       device="cpu", kv_int8=False, max_seq_len=128)
+                       device="cpu", use_engine=False, kv_int8=False, max_seq_len=128)
 with socket.socket() as s:
     s.bind(("127.0.0.1", 0))
     port = s.getsockname()[1]

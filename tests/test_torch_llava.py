@@ -86,15 +86,24 @@ def test_sample_token_greedy_matches_jax():
 
 @pytest.mark.parametrize("top_p", [0.5, 0.9, 0.99])
 def test_top_p_support_matches_jax(top_p):
-    """Same logits: the set of tokens nucleus sampling can draw is the same."""
+    """Same logits: the tokens nucleus sampling can draw are the top-p
+    nucleus that the JAX ``sample_token`` is written to keep (exclusive
+    cumulative mass below top_p). The JAX function's own cutoff takes the
+    largest kept logit, so its draws are only ever the argmax (ROADMAP
+    Queue 3); they lie inside the port's support."""
     logits = np.array([[0.0, 5.0, 1.0, -2.0, 4.5, 3.0, 2.0, -1.0]], np.float32)
     gen = torch.Generator().manual_seed(0)
     got = {int(generate.sample_token(torch.from_numpy(logits), gen, 1.0, top_p)[0])
-           for _ in range(300)}
+           for _ in range(2000)}
+    p = np.exp(logits[0].astype(np.float64) - logits.max())
+    p /= p.sum()
+    order = np.argsort(-p)
+    nucleus = {int(order[i]) for i in range(len(p)) if p[order[:i]].sum() < top_p}
+    assert got == nucleus
     want = {int(jax_generate.sample_token(jnp.asarray(logits), jax.random.PRNGKey(i),
                                           jnp.float32(1.0), jnp.float32(top_p))[0])
-            for i in range(300)}
-    assert got == want
+            for i in range(50)}
+    assert want <= got
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,9 @@
 """The port behind the shared HTTP model worker, on the CPU: a tiny
-``TorchBackend`` served by the unchanged ``ModelWorker``/``build_app`` over
-real HTTP, checked for the wire format, ``error_code == 0`` on every chunk,
-and text equal to the port's ``Generator.stream``."""
+single-stream ``TorchBackend`` (``use_engine=False``) served by the
+unchanged ``ModelWorker``/``build_app`` over real HTTP, checked for the wire
+format, ``error_code == 0`` on every chunk, and text equal to the port's
+``Generator.stream``. The engine-backed worker is tested in
+``test_torch_engine.py``."""
 
 import asyncio
 import base64
@@ -69,7 +71,8 @@ def served():
     params = from_numpy(jax.tree.map(np.asarray, p), "cpu")
     processor = ClipImageProcessor(shortest_edge=SIZE, crop_size=SIZE)
     backend = TorchBackend(params, CFG, DebugTokenizer(vocab_size=CFG.text.vocab_size),
-                           processor, device="cpu", kv_int8=True, max_seq_len=128)
+                           processor, device="cpu", use_engine=False, kv_int8=True,
+                           max_seq_len=128)
     port = _free_port()
     worker = ModelWorker("http://127.0.0.1:9", f"http://127.0.0.1:{port}", backend,
                          ["tiny-llava-torch"], no_register=True, heartbeats=False)

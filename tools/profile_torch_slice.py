@@ -15,6 +15,16 @@ KV cache:
 
 Every host clock is taken before the first profiler session.
 
+With ``--engine`` it profiles the continuous-batching engine's path instead,
+as ``chip_smoke.py`` phase 6 serves it: the weights quantized in place to
+``--quantize`` (int8 or int4, fused), an int8 KV cache, 16 slots of 2048:
+
+  prefill  one batched prefill of 4 image requests (768 tokens each) with
+           the first-token fetch (``BatchedEngine._prepare``);
+  decode   chunks of 4 batched steps with all 16 slots active (8 image and
+           8 text prompts inserted from such prefills), each chunk ending
+           with its tokens fetched to the host, as the engine loop does.
+
 For each it prints the host-clock ms per call or step, the device busy ms
 (the sum of the device time of every kernel, copy and memset in the trace,
 per call or step), the idle share (1 - busy / host), the device time by
@@ -23,6 +33,7 @@ class of kernel, and the kernels with the most device time. The full
 with the numbers printed.
 
 Usage: python tools/profile_torch_slice.py [--steps 16] [--out profile_out]
+       python tools/profile_torch_slice.py --engine [--quantize int8|int4]
 """
 
 import argparse
@@ -43,6 +54,7 @@ from torch.profiler import ProfilerActivity, profile
 CLASSES = (
     ("flash_fwd (kernel)", ("flash_fwd_kernel",)),
     ("decode_attention (kernel)", ("decode_kernel",)),
+    ("quant_matmul (kernel)", ("quant_matmul_kernel",)),
     ("GEMM/GEMV (cuBLAS)", ("gemm", "gemv", "cutlass", "nvjet", "xmma", "splitk")),
     ("copies and casts", ("copy", "memcpy", "memset")),
     ("reductions", ("reduce",)),
@@ -90,11 +102,16 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--out", default="profile_out")
+    ap.add_argument("--engine", action="store_true",
+                    help="profile the batching engine with quantized weights")
+    ap.add_argument("--quantize", default="int8", choices=("int8", "int4"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_slice: no CUDA device", file=sys.stderr)
         return 1
     os.makedirs(args.out, exist_ok=True)
+    if args.engine:
+        return profile_engine(args)
 
     from llava_plus_torch.data import DebugTokenizer
     from llava_plus_torch.generate import Generator, sample_token
@@ -177,6 +194,90 @@ def main():
               f"(before: {host['bf16'][1]:.3f} ms)")
         result["bf16"]["decode"]["host_ms_after_profiler"] = after
 
+    print(json.dumps(result))
+    return 0
+
+
+def profile_engine(args):
+    from llava_plus_torch.data import DebugTokenizer
+    from llava_plus_torch.models import llava as llava_model
+    from llava_plus_torch.models.configs import LLAVA_15_7B
+    from llava_plus_torch.ops.quant import quantize_llava_params
+    from llava_plus_torch.serve.engine import BatchedEngine, Request
+
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    cfg, dev, B, chunk = LLAVA_15_7B, "cuda:0", 16, 4
+    params = llava_model.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    params = quantize_llava_params(params, bits=8 if args.quantize == "int8" else 4, fuse=True)
+    tok = DebugTokenizer(vocab_size=cfg.text.vocab_size)
+    tok.eos_token_id = -1  # random weights: every prefill fills its slot
+    engine = BatchedEngine(params, cfg, tok, max_slots=B, max_seq_len=2048,
+                           decode_chunk=chunk, cache_dtype=torch.int8)
+    size = cfg.vision.image_size
+    rng = np.random.default_rng(0)
+
+    def image_reqs(tag):
+        return [Request(prompt="<image>\n" + " ".join(f"{tag}{j}w{i}" for i in range(184)),
+                        images=rng.standard_normal((1, size, size, 3)).astype(np.float32),
+                        max_new_tokens=64) for j in range(4)]
+
+    def text_reqs(tag):
+        return [Request(prompt=" ".join(f"{tag}{j}w{i}" for i in range(60 + 80 * j)),
+                        max_new_tokens=64) for j in range(4)]
+
+    result = {"card": smi, "quantize": args.quantize, "slots": B, "chunk": chunk}
+    with torch.inference_mode():
+        for _ in range(2):                          # warm-up: kernels, allocator, cuBLAS
+            engine._prepare(image_reqs("warm"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(3):
+            engine._prepare(image_reqs(f"p{i}"))
+        prefill_ms = (time.perf_counter() - t0) / 3 * 1e3
+        # fill the 16 slots' caches (the loop thread sees no occupant and idles)
+        positions = []
+        for k, reqs in enumerate([image_reqs("a"), image_reqs("b"), text_reqs("c"),
+                                  text_reqs("d")]):
+            for j, prep in enumerate(engine._prepare(reqs)):
+                engine._insert(prep.cache1, prep.row, 4 * k + j, prep.first_id)
+                positions.append(prep.prompt_len)
+        dev_t = lambda a: torch.tensor(a, device=dev)
+        pos = dev_t(positions).to(torch.int32)
+        active = torch.ones(B, dtype=torch.bool, device=dev)
+        temps, tops = torch.zeros(B, device=dev), torch.ones(B, device=dev)
+        seeds = torch.zeros(B, dtype=torch.int64, device=dev)
+
+        def decode(n_chunks):
+            nonlocal pos
+            for _ in range(n_chunks):
+                toks, engine.tokens = engine._decode_n(pos, active, temps, tops, seeds,
+                                                       False, chunk)
+                toks.tolist()
+                pos = pos + chunk
+
+        n = max(args.steps // chunk, 1)
+        decode(2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode(n)
+        step_ms = (time.perf_counter() - t0) / (n * chunk) * 1e3
+        print(f"mean fill at the profiled steps: {float(pos.float().mean()):.0f} of 2048")
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            engine._prepare(image_reqs("q"))
+            torch.cuda.synchronize()
+        result["prefill"] = summarize(f"engine-prefill-{args.quantize}", prof, prefill_ms, 1,
+                                      args.out)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            decode(n)
+            torch.cuda.synchronize()
+        result["decode"] = summarize(f"engine-decode-{args.quantize}", prof, step_ms,
+                                     n * chunk, args.out)
+    engine.stop()
     print(json.dumps(result))
     return 0
 
