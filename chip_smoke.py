@@ -10,9 +10,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 2. build the CUDA kernels from ``llava_plus_torch/csrc``;
 3. each kernel against its plain PyTorch version at the main path's shapes,
    both measured against an f64 ground truth, with CUDA-event timings: flash
-   forward, decode attention (bf16 and int8 cache), and the int8 / int4
+   forward, decode attention (bf16 and int8 cache), the int8 / int4
    weight-only matmuls at the 7B fused matrices (wqkv, w_down, lm_head) for
-   1, 16 and 768 rows;
+   1, 16 and 768 rows, and the paged kernels at 16 slots of 16 pages;
 4. a narrow LLaMA (head dim 128, GQA) on the card against the same weights
    on the CPU plain path: 16 greedy tokens, and the logits of the prefill and
    of every decode step, with bf16 weights (bf16 and int8 KV) and with fused
@@ -28,13 +28,24 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    requests (8 image, 8 text) of 32 greedy tokens, with TTFT p50 and
    aggregate tokens/s; then int4 weights on a fresh backend (4 requests).
    Every chunk, every request's token count, batched admission, shared
-   decode steps and every kernel's launch count are checked.
+   decode steps and every kernel's launch count are checked;
+7. the paged engine (``TorchBackend(paged=True)``) on fresh int8 weights:
+   an int8 KV pool of 256 pages shared by 16 slots of up to 4096 tokens,
+   the prefix cache on; 16 concurrent requests (one of 3,000 tokens), then 8
+   multi-turn follow-ups that reuse their pooled prefixes, with prefix hits,
+   vision encodes, launch counts and page accounting checked.
+
+Phase 3 also holds both paged kernels (decode1 and general) against their
+plain version, and phase 4 runs the narrow model over a paged cache with a
+bf16 and an int8 pool. Each kernel's line gives its bound (bytes over the
+H100's 3.35 TB/s or bf16 flops over 989 TFLOP/s, whichever is larger) and,
+where one PyTorch call computes the same function, that call's time.
 
 The script reaches the model, tokenizer, image processor and worker only
-through ``llava_plus_torch`` and checks at the end that no JAX module was
-imported. The line before the last is a JSON summary of the kernels; the
-last line is the JSON result. Without a CUDA device it prints no result and
-exits 1.
+through ``llava_plus_torch`` and checks at the end that no module of JAX or
+of the JAX package (``llava_plus_tpu``) was imported. The line before the
+last is a JSON summary of the kernels; the last line is the JSON result.
+Without a CUDA device it prints no result and exits 1.
 """
 
 import base64
@@ -57,6 +68,14 @@ FLASH_REPLACES = "llava_plus_tpu/ops/flash_attention.py:46"
 DECODE_REPLACES = "llava_plus_tpu/ops/decode_attention.py:41"
 INT8_REPLACES = "llava_plus_tpu/ops/quant_matmul.py:71"
 INT4_REPLACES = "llava_plus_tpu/ops/quant_matmul.py:127"
+PAGED_DECODE1_REPLACES = "llava_plus_tpu/ops/paged_attention.py:305"
+PAGED_GENERAL_REPLACES = "llava_plus_tpu/ops/paged_attention.py:95"
+
+# Published peaks of one H100 SXM (dense): HBM3 bytes/s and bf16 tensor-core
+# flop/s. A kernel's bound is the larger of its bytes over the first and its
+# flops over the second.
+HBM_BYTES_S = 3.35e12
+BF16_FLOPS_S = 989e12
 
 
 def log(phase, msg):
@@ -82,6 +101,14 @@ def time_ms(fn, iters=20, warmup=3):
 
 def within(kernel_err, ref_err):
     return kernel_err <= max(2.5 * ref_err, 2e-3)
+
+
+def bound(nbytes, flops):
+    """The least time (ms) the card could take to move ``nbytes`` and do
+    ``flops`` bf16 operations, and which of the two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / BF16_FLOPS_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 # ---------------------------------------------------------------------------
@@ -147,14 +174,29 @@ def check_flash(tag, B, T, H, Hkv, pad_tail, gen):
     ms = time_ms(lambda: flash_attention(q, k, v, q_segment_ids=seg, kv_segment_ids=seg))
     plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, seg, seg, causal=True,
                                                          sm_scale=scale))
+    # the library's causal attention on the same tensors, heads-major as it
+    # takes them (the copies are made before the timing); on every row that
+    # is not padding it computes the kernel's function
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=Hkv != H))
+    # q, k, v read once, out and lse written once; the causal pairs of the
+    # rows that are not padding, 4 flops per pair and head dim
+    valid = seg.sum(dim=1).double()
+    nbytes = 2 * (2 * B * T * H * D + 2 * B * T * Hkv * D) + 4 * B * H * T + 2 * 4 * B * T
+    flops = 4 * H * D * float((valid * (valid + 1) / 2).sum())
+    b = bound(nbytes, flops)
     ok = within(k_err, r_err) and within(k_lse, r_lse)
     log("kernels", f"flash_fwd {tag} B={B} T={T} H={H} Hkv={Hkv} D={D} pad={pad_tail}: "
                    f"out err {k_err:.3e} (plain {r_err:.3e}), lse err {k_lse:.3e} "
-                   f"(plain {r_lse:.3e}), {ms:.4f} ms vs plain {plain_ms:.4f} ms "
-                   f"-> {'ok' if ok else 'FAIL'}")
+                   f"(plain {r_lse:.3e}), {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+                   f"library (sdpa) {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                   f"({b['bound_by']}) -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"flash_fwd {tag} disagrees with its plain version")
-    return {"max_abs_err": k_err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": k_err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": library_ms}
 
 
 def check_decode(tag, B, S, H, Hkv, gen, rng):
@@ -197,18 +239,34 @@ def check_decode(tag, B, S, H, Hkv, gen, rng):
     k_err = (out.double() - truth).abs().max().item()
     r_err = (p_out.double() - truth).abs().max().item()
     ms, plain_ms = time_ms(kernel), time_ms(plain)
+    library_ms = None
+    if ks is None:
+        # the library's attention with a boolean mask over the filled slots
+        # (heads-major copies made before the timing); an int8 cache has no
+        # single library call
+        import torch.nn.functional as F
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
+        mask = (torch.arange(S, device=dev)[None, :] <= q_pos[:, None])[:, None, None, :]
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=Hkv != H))
     # the kernel reads the slots up to each query's position, k and v (+ scales)
     rows = int(fills.sum()) * Hkv
     nbytes = 2 * rows * (D * kc.element_size() + (0 if ks is None else 4))
+    b = bound(nbytes + 2 * 2 * B * H * D + 4 * B * (S + 1),
+              4 * H * D * float(fills.sum()))
     ok = within(k_err, r_err)
     log("kernels", f"decode_attention {tag} B={B} S={S} H={H} Hkv={Hkv} D={D} "
                    f"(mean fill {fills.mean():.0f}): "
                    f"err {k_err:.3e} (plain {r_err:.3e}), {ms:.4f} ms "
-                   f"({nbytes / ms / 1e6:.1f} GB/s of cache read) vs plain {plain_ms:.4f} ms "
+                   f"({nbytes / ms / 1e6:.1f} GB/s of cache read) vs plain {plain_ms:.4f} ms, "
+                   f"library {'none' if library_ms is None else f'(sdpa) {library_ms:.4f} ms'}, "
+                   f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}) "
                    f"-> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"decode_attention {tag} disagrees with its plain version")
-    return {"max_abs_err": k_err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": k_err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": library_ms}
 
 
 # 7B matrices with fused weights (K x N) and the row counts the engine gives
@@ -249,18 +307,60 @@ def check_quant(bits, name, K, N, gen):
         r_err = (p_out.double() - truth).abs().max().item() / top
         ms = time_ms(lambda: kernel_fn(x, q, s, out_dtype=out_dtype))
         plain_ms = time_ms(lambda: plain_fn(x, q, s, out_dtype=out_dtype))
+        out_bytes = R * N * (4 if out_dtype == torch.float32 else 2)
+        b = bound(nbytes + 2 * R * K + out_bytes, 2 * R * K * N)
         ok = within(k_err, r_err)
         rate = f", {nbytes / ms / 1e6:.0f} GB/s of weights" if R <= 16 else (
             f", {2 * R * K * N / ms / 1e9:.1f} TFLOP/s")
         log("kernels", f"quant_matmul int{bits} {name} R={R} K={K} N={N} -> "
                        f"{str(out_dtype)[6:]}: rel err {k_err:.3e} (plain {r_err:.3e}), "
-                       f"{ms:.4f} ms{rate} vs plain {plain_ms:.4f} ms "
-                       f"-> {'ok' if ok else 'FAIL'}")
+                       f"{ms:.4f} ms{rate} vs plain {plain_ms:.4f} ms, bound "
+                       f"{b['bound_ms']:.4f} ms ({b['bound_by']}) -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"quant_matmul[int{bits}] {name} R={R} disagrees with "
                                  "its plain version")
-        rows[R] = {"max_abs_err": k_err, "ms": ms, "plain_ms": plain_ms}
+        rows[R] = {"max_abs_err": k_err, "ms": ms, "plain_ms": plain_ms, **b}
+    if name == "wqkv":
+        rows[16]["library_ms"] = library_quant(bits, q, s, gen)
     return rows
+
+
+def library_quant(bits, q, s, gen, R=16):
+    """Time the library's weight-only product at R rows on the same weight,
+    after checking that it computes the same function: int8 through
+    ``torch._weight_int8pack_mm`` (int8 [N, K], bf16 per-channel scales),
+    int4 through ``torch._weight_int4pack_mm`` (the weight repacked as its
+    unsigned nibbles minus 8, bf16 scales and zero points per 32-row group).
+    Both round the f32 scales to bf16, so the check allows 2% of the largest
+    output (a wrong layout is off by far more)."""
+    import torch
+    from llava_plus_torch.ops import quant
+    from llava_plus_torch.ops import quant_matmul as qm
+
+    K, N = q.shape[0] * (2 if bits == 4 else 1), q.shape[1]
+    x = torch.randn(R, K, generator=gen, device="cuda").bfloat16()
+    if bits == 8:
+        wt = q.t().contiguous()
+        scales = s.reshape(-1).bfloat16()
+        call = lambda: torch._weight_int8pack_mm(x, wt, scales)
+        qw = {quant.QKEY: q, quant.SKEY: s}
+    else:
+        vals = qm.unpack_int4(q).reshape(K, N).int() + 8              # [K, N] in 1..15
+        u = vals.t().contiguous()                                       # [N, K]
+        packed = ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8)       # [N, K / 2]
+        wpack = torch._convert_weight_to_int4pack(packed, 8)
+        sz = torch.stack([s, torch.zeros_like(s)], dim=-1).bfloat16().contiguous()
+        call = lambda: torch._weight_int4pack_mm(x, wpack, qm.INT4_BLOCK, sz)
+        qw = {quant.Q4KEY: q, quant.SKEY: s}
+    truth = x.double() @ quant.dequantize_array(qw, torch.float64)
+    err = (call().double() - truth).abs().max().item() / truth.abs().max().item()
+    if err > 2e-2:
+        raise AssertionError(f"library int{bits} product differs from the kernel's function "
+                             f"(rel err {err:.3e})")
+    ms = time_ms(call)
+    log("kernels", f"library int{bits} weight-only product R={R} K={K} N={N}: rel err "
+                   f"{err:.3e}, {ms:.4f} ms")
+    return ms
 
 
 def phase_quant_kernels():
@@ -278,6 +378,101 @@ def phase_quant_kernels():
     return stats
 
 
+def check_paged(tag, Hkv, Tq, quantized, gen, rng, B=16, H=32, P=128, pages_per_slot=16):
+    """A paged kernel at a 7B-wide batch: B slots of ``pages_per_slot``
+    pages, page ids a random permutation of the pool, ragged past lengths
+    and chunk prefixes from a seed, the last slot dead (no past tokens, no
+    valid chunk token). Kernel and plain version against the f64 truth on
+    the live slots."""
+    import torch
+    from llava_plus_torch.models.llama import _paged_quant
+    from llava_plus_torch.ops import paged_attention as pa
+
+    dev, D = "cuda", 128
+    NP = B * pages_per_slot
+    page_ids = torch.as_tensor(rng.permutation(NP).reshape(B, pages_per_slot),
+                               dtype=torch.int32, device=dev)
+    lengths = rng.integers(1, pages_per_slot * P + 1, size=B)
+    valid = rng.integers(1, Tq + 1, size=B)
+    lengths[-1] = valid[-1] = 0
+    pool = torch.randn(NP, 2, P, Hkv, D, generator=gen, device=dev).bfloat16()
+    scale = None
+    if quantized:
+        pool, scale = _paged_quant(pool)
+        scale = scale.transpose(2, 3).contiguous()      # head-major [NP, 2, Hkv, P]
+    q = torch.randn(B, Tq, H, D, generator=gen, device=dev).bfloat16()
+    ck = torch.randn(B, Tq, Hkv, D, generator=gen, device=dev).bfloat16()
+    cv = torch.randn(B, Tq, Hkv, D, generator=gen, device=dev).bfloat16()
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    vals = torch.as_tensor(valid, dtype=torch.int32, device=dev)
+    sm = D ** -0.5
+    wrapper = pa.paged_decode1 if (H // Hkv) * Tq == 1 else pa.paged_attention_general
+
+    def kernel():
+        return pa.paged_decode_attention(q, pool, page_ids, lens, scale, ck, cv, vals)
+
+    def plain():
+        return pa.paged_attention_reference(q, pool, page_ids, lens, scale, ck, cv, vals,
+                                            sm_scale=sm)
+
+    truth = pa.paged_attention_reference(q.double(), pool, page_ids, lens,
+                                         None if scale is None else scale.double(),
+                                         ck.double(), cv.double(), vals, sm_scale=sm)
+    n0 = wrapper.launches
+    out, p_out = kernel(), plain()
+    torch.cuda.synchronize()
+    if wrapper.launches != n0 + 1:
+        raise AssertionError(f"paged {tag}: the call did not launch {wrapper.__name__}")
+    live = slice(0, B - 1)
+    k_err = (out.double() - truth)[live].abs().max().item()
+    r_err = (p_out.double() - truth)[live].abs().max().item()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"paged {tag}: non-finite output (dead slot included)")
+    ms, plain_ms = time_ms(kernel), time_ms(plain)
+    # the pages the slots use, read once (k and v, + scales), the page ids,
+    # q and the chunk read once, the output written once
+    elem = pool.element_size()
+    page_bytes = 2 * int(lengths.sum()) * Hkv * (D * elem + (4 if quantized else 0))
+    small = (4 * int(np.ceil(lengths / P).sum()) + 2 * B * Tq * H * D * 2
+             + 2 * B * Tq * Hkv * D * 2 + 8 * B)
+    t = np.arange(Tq)
+    self_pairs = sum(int(np.minimum(t + 1, v).sum()) for v in valid)
+    b = bound(page_bytes + small,
+              4 * D * (H // Hkv) * Hkv * (Tq * int(lengths.sum()) + self_pairs))
+    ok = within(k_err, r_err)
+    log("kernels", f"paged {tag} ({wrapper.__name__}) {'int8' if quantized else 'bf16'} pool "
+                   f"B={B} H={H} Hkv={Hkv} Tq={Tq} D={D} P={P} pages/slot={pages_per_slot} "
+                   f"(mean past {lengths[:-1].mean():.0f}, one dead slot): err {k_err:.3e} "
+                   f"(plain {r_err:.3e}), {ms:.4f} ms ({page_bytes / ms / 1e6:.1f} GB/s of "
+                   f"pages read) vs plain {plain_ms:.4f} ms, library none, bound "
+                   f"{b['bound_ms']:.4f} ms ({b['bound_by']}; pages alone "
+                   f"{page_bytes / HBM_BYTES_S * 1e3:.4f} ms) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"paged {tag} disagrees with its plain version")
+    # no single library call reads a paged pool (it would need a gather first)
+    return {"max_abs_err": k_err, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
+
+
+def phase_paged_kernels(gen, rng):
+    """Both paged kernels: decode1 at H = Hkv = 32, Tq = 1; the general one
+    for GQA (Hkv = 8, Tq = 1) and for 4-token chunks (Hkv = 32); bf16 and
+    int8 pools. The line reports decode1 with an int8 pool (the 7B paged
+    engine's) and the general kernel at the GQA int8 case, with the largest
+    error over every case."""
+    runs = {}
+    for tag, Hkv, Tq in (("decode1", 32, 1), ("general GQA", 8, 1), ("general chunk", 32, 4)):
+        for quantized in (False, True):
+            runs[tag, quantized] = check_paged(tag, Hkv, Tq, quantized, gen, rng)
+    d1 = [runs["decode1", qz] for qz in (False, True)]
+    gen_runs = [r for (tag, _), r in runs.items() if tag.startswith("general")]
+    return {
+        "paged_attention[decode1]": dict(runs["decode1", True],
+                                         max_abs_err=max(r["max_abs_err"] for r in d1)),
+        "paged_attention[general]": dict(runs["general GQA", True],
+                                         max_abs_err=max(r["max_abs_err"] for r in gen_runs)),
+    }
+
+
 def phase_kernels():
     import torch
 
@@ -290,7 +485,8 @@ def phase_kernels():
     flash = dict(flash_mha, max_abs_err=max(flash_mha["max_abs_err"],
                                             flash_gqa["max_abs_err"]))
     return {"flash_fwd": flash, "decode_attention[bf16]": dec_bf16,
-            "decode_attention[int8]": dec_int8, **phase_quant_kernels()}
+            "decode_attention[int8]": dec_int8, **phase_quant_kernels(),
+            **phase_paged_kernels(gen, rng)}
 
 
 # ---------------------------------------------------------------------------
@@ -364,7 +560,7 @@ def phase_narrow_model():
                 ("bf16 weights, int8 KV", None, torch.int8, tol),
                 ("int8 weights, bf16 KV", 8, torch.bfloat16, 3e-2),
                 ("int4 weights, bf16 KV", 4, torch.bfloat16, 3e-2)]
-    for name, bits, cache_dtype, bound in variants:
+    for name, bits, cache_dtype, limit in variants:
         cpu_tree = cpu_params
         if bits:
             cpu_tree = quant.quantize_llava_params(copy.deepcopy(cpu_params), bits=bits,
@@ -394,11 +590,80 @@ def phase_narrow_model():
         log("narrow", f"{name}, T={T}: greedy tokens equal={ids['cuda'] == ids['cpu']} "
                       f"({len(ids['cpu'])} tokens); logits max diff / max |logit|: "
                       f"prefill {ratios[0]:.3e}, decode steps up to {max(ratios[1:]):.3e} "
-                      f"(bound {bound}); smallest top-2 margin {min_margin:.3f} of the top logit")
+                      f"(bound {limit}); smallest top-2 margin {min_margin:.3f} of the top logit")
         if ids["cuda"] != ids["cpu"]:
             raise AssertionError(f"greedy tokens differ: {ids['cuda']} vs {ids['cpu']}")
-        if max(ratios) > bound:
+        if max(ratios) > limit:
             raise AssertionError(f"logits differ beyond the tolerance ({name})")
+    return phase_narrow_paged(cfg, cpu_params, tok, prompt, new, tol)
+
+
+def _paged_steps(cfg, params, tok, prompt, dev, cache_dtype, n, feed=None):
+    """A prefill into a paged cache (page size 128, the slot's 8 pages
+    scattered over a pool of 11), then ``n - 1`` decode steps, each fed
+    ``feed`` (or its own greedy token). Returns the logits of every step and
+    the greedy token of each."""
+    import torch
+    from llava_plus_torch.generate import prepare_multimodal_request
+    from llava_plus_torch.models import llama, llava as llava_model
+
+    P, S = 128, 1024
+    cache = llama.PagedKVCache.create(cfg.text, 1, num_pages=11, max_pages_per_slot=S // P,
+                                      page_size=P, dtype=cache_dtype, device=dev)
+    cache.page_table[0] = torch.tensor([9, 2, 7, 0, 5, 10, 3, 1], dtype=torch.int32)
+    batch, plan = prepare_multimodal_request(cfg, tok, [prompt], None, max_seq_len=S,
+                                             device=dev, prefill_bucket=P)
+    n0 = int(plan.lengths[0])
+    seg = torch.ones(1, 1, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        logits, _ = llava_model.forward(params, cfg, batch, cache=cache, fresh_prefill=True,
+                                        logits_positions=torch.tensor([n0 - 1], device=dev))
+        out = [logits[:, 0].float().cpu()]
+        for i in range(n - 1):
+            t = feed[i] if feed is not None else int(out[-1].argmax())
+            logits, _ = llava_model.decode_step(
+                params, cfg, torch.tensor([[t]], device=dev),
+                torch.tensor([[n0 + i]], dtype=torch.int32, device=dev), seg, cache)
+            out.append(logits[:, 0].float().cpu())
+    return out, [int(x.argmax()) for x in out]
+
+
+def phase_narrow_paged(cfg, cpu_params, tok, prompt, new, tol):
+    """The narrow model over a paged KV cache, card against CPU, with a bf16
+    and an int8 pool: the CPU's greedy tokens are fed to both, the logits of
+    the prefill and of every decode step compared against ``tol`` of the
+    largest logit, and the card's own greedy tokens against the CPU's. Its 4
+    query heads over 2 kv heads take the general paged kernel. Returns the
+    general kernel's launches on this path."""
+    import torch
+    from llava_plus_torch.ops.flash_attention import flash_attention
+    from llava_plus_torch.ops.paged_attention import paged_attention_general, paged_decode1
+
+    L = cfg.text.num_hidden_layers
+    cuda_params = _tree_to(cpu_params, "cuda")
+    total = 0
+    for name, cache_dtype in (("paged bf16 KV", torch.bfloat16), ("paged int8 KV", torch.int8)):
+        cpu_logits, cpu_ids = _paged_steps(cfg, cpu_params, tok, prompt, "cpu", cache_dtype, new)
+        flash_attention.launches = paged_attention_general.launches = paged_decode1.launches = 0
+        logits, ids = _paged_steps(cfg, cuda_params, tok, prompt, "cuda", cache_dtype, new,
+                                   feed=cpu_ids)
+        launched = (flash_attention.launches, paged_attention_general.launches,
+                    paged_decode1.launches)
+        if launched != (L, (new - 1) * L, 0):
+            raise AssertionError(f"narrow model ({name}) launches {launched}, want "
+                                 f"{(L, (new - 1) * L, 0)}")
+        total += launched[1]
+        ratios = [(c - g).abs().max().item() / c.abs().max().item()
+                  for c, g in zip(cpu_logits, logits)]
+        log("narrow", f"bf16 weights, {name}: greedy tokens equal={ids == cpu_ids} ({new} "
+                      f"steps); logits max diff / max |logit|: prefill {ratios[0]:.3e}, decode "
+                      f"steps up to {max(ratios[1:]):.3e} (bound {tol}); flash +{launched[0]}, "
+                      f"paged general +{launched[1]}")
+        if ids != cpu_ids:
+            raise AssertionError(f"greedy tokens differ ({name}): {ids} vs {cpu_ids}")
+        if max(ratios) > tol:
+            raise AssertionError(f"logits differ beyond the tolerance ({name})")
+    return total
 
 
 def _tree_to(tree, device):
@@ -664,12 +929,7 @@ def serve_engine(smi, params, quantize, n_image, n_text):
         worker.stop()
         backend.stop()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    for body, (chunks, _, _) in zip(bodies, results):
-        bad = [c for c in chunks if c["error_code"] != 0]
-        if bad:
-            raise AssertionError(f"worker error: {bad[0]['text']}")
-        if len(chunks) != new_tokens or not chunks[-1]["text"].startswith(body["prompt"]):
-            raise AssertionError(f"a request ended with {len(chunks)} of {new_tokens} tokens")
+    _check_streams(bodies, results, new_tokens)
     want = {"flash": L * dp, "decode": L * ds, "quant": (4 * L + 1) * (dp + ds)}
     log("engine", f"{quantize}: {len(bodies)} requests in {dp} prefill dispatches, "
                   f"{ds} decode steps ({dm} with more than one active slot); launches "
@@ -690,6 +950,160 @@ def serve_engine(smi, params, quantize, n_image, n_text):
                   f"{new_tokens} tokens "
                   f"({n_image} image, {n_text} text); peak device memory {peak:.2f} GiB; "
                   f"card {smi}")
+    return launches
+
+
+def _paged_bodies(rng, size, new_tokens):
+    """Round 1 of the paged phase: 8 image prompts of 762 fused tokens, 7
+    text prompts of 61..301, and one text prompt of 3,000 tokens, which no
+    dense 2048 slot could hold."""
+    bodies = _engine_bodies(rng, size, 8, 7, new_tokens)
+    bodies.append({"prompt": " ".join(f"long{i}" for i in range(2999)),
+                   "temperature": 0.0, "max_new_tokens": new_tokens})
+    return bodies
+
+
+def _check_streams(bodies, results, new_tokens):
+    for body, (chunks, _, _) in zip(bodies, results):
+        bad = [c for c in chunks if c["error_code"] != 0]
+        if bad:
+            raise AssertionError(f"worker error: {bad[0]['text']}")
+        if len(chunks) != new_tokens or not chunks[-1]["text"].startswith(body["prompt"]):
+            raise AssertionError(f"a request ended with {len(chunks)} of {new_tokens} tokens")
+
+
+def serve_paged_engine(smi):
+    """The paged engine at full width behind the HTTP worker, as the JAX
+    worker's ``--paged`` serves: fresh random 7B weights (seed 0) quantized
+    to int8 and fused, an int8 KV pool of 256 pages of 128 tokens (the
+    memory a dense 16 x 2048 cache would take, shared by 16 slots that may
+    each reach 4096 tokens), the prefix cache on, decode chunks of 4, warmed
+    at 768 tokens. Round 1: 16 concurrent requests of 32 greedy tokens (8
+    image, 7 text, one of 3,000 tokens). Round 2: 8 follow-ups, each a round-1
+    image prompt, its answer and a new user turn of 40 words, as the
+    LLaVA-Plus loop re-sends its history. Checks every chunk and token
+    count, the prefix hits (at least 5 pages of each follow-up), that round
+    2 runs no vision encode, every kernel's launch count against the
+    engine's counts, and that every page is free or held only by the prefix
+    cache at the end. Returns the launch counts of both rounds."""
+    import torch
+    from llava_plus_torch.data import ClipImageProcessor, DebugTokenizer
+    from llava_plus_torch.models import llava as llava_model
+    from llava_plus_torch.models.configs import LLAVA_15_7B
+    from llava_plus_torch.ops import quant_matmul as qm
+    from llava_plus_torch.ops.decode_attention import decode_attention
+    from llava_plus_torch.ops.flash_attention import flash_attention
+    from llava_plus_torch.ops.paged_attention import paged_attention_general, paged_decode1
+    from llava_plus_torch.serve.model_worker import ModelWorker, TorchBackend, build_app
+
+    cfg = LLAVA_15_7B
+    L, new_tokens, P = cfg.text.num_hidden_layers, 32, 128
+    tok = DebugTokenizer(vocab_size=cfg.text.vocab_size)
+    tok.eos_token_id = -1  # random weights give eos no meaning: every request runs 32 tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    backend = TorchBackend(_init_7b("cuda:0"), cfg, tok, ClipImageProcessor(), device="cuda",
+                           use_engine=True, max_slots=16, decode_chunk=4, quantize="int8",
+                           kv_int8=True, max_seq_len=4096, paged=True, pool_tokens=32768,
+                           prefix_cache=True, warmup_len=768)
+    engine = backend.engine
+    if engine.num_pages != 256:
+        raise AssertionError(f"pool of {engine.num_pages} pages, want 256")
+    log("paged", f"int8 weights, fused; int8 KV pool of {engine.num_pages} pages x {P} "
+                 f"tokens, 16 slots up to 4096 tokens, prefix cache on, decode chunks of 4: "
+                 f"built and warmed in {time.perf_counter() - t0:.1f} s (warmup "
+                 f"{engine.warmup_s:.1f} s)")
+    encodes = [0]
+    encode_images = llava_model.encode_images
+
+    def counted_encode(*args, **kwargs):
+        encodes[0] += 1
+        return encode_images(*args, **kwargs)
+
+    llava_model.encode_images = counted_encode
+    rng = np.random.default_rng(2)
+    bodies1 = _paged_bodies(rng, cfg.vision.image_size, new_tokens)
+    worker = ModelWorker("http://127.0.0.1:9", "http://127.0.0.1:0", backend,
+                         ["llava-1.5-7b-random"], limit_model_concurrency=len(bodies1),
+                         no_register=True, heartbeats=False)
+    server = _Server(build_app(worker), threads=len(bodies1) + 4)
+    url = f"http://127.0.0.1:{server.port}/worker_generate_stream"
+    kernels = {"flash": flash_attention, "decode1": paged_decode1,
+               "general": paged_attention_general, "dense decode": decode_attention,
+               "quant": qm.matmul_int8}
+    counts = lambda: (engine.prefill_dispatches, engine.decode_steps, engine.prefix_hit_tokens,
+                      engine._prefix.hit_requests, encodes[0])
+    rounds = []
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        for r, bodies in enumerate((bodies1, None)):
+            if bodies is None:
+                # each follow-up re-sends a round-1 image prompt, the answer it
+                # got and a new user turn
+                bodies = []
+                for j in range(8):
+                    answer = rounds[0]["results"][j][0][-1]["text"][len(bodies1[j]["prompt"]):]
+                    turn = " ".join(f"turn{j}word{i}" for i in range(40))
+                    bodies.append(dict(bodies1[j], prompt=bodies1[j]["prompt"] + " " + answer
+                                       + " " + turn))
+            c0 = counts()
+            t_start = time.perf_counter()
+            results = _post_all(url, bodies)
+            t_end = max(stamps[-1] for _, _, stamps in results)
+            rounds.append({"bodies": bodies, "results": results,
+                           "delta": [b - a for a, b in zip(c0, counts())],
+                           "seconds": t_end - t_start,
+                           "ttfts": sorted(st[0] - ts for _, ts, st in results)})
+        launches = {n: k.launches for n, k in kernels.items()}
+        deadline = time.time() + 30
+        while (engine.num_active or engine._waiting is not None) and time.time() < deadline:
+            time.sleep(0.05)
+        with engine._page_lock:
+            refs = list(engine._page_refs)
+            cached = set(engine._prefix._entries.values())
+            free = len(engine._free_pages)
+    finally:
+        llava_model.encode_images = encode_images
+        server.stop()
+        worker.stop()
+        backend.stop()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for rd in rounds:
+        _check_streams(rd["bodies"], rd["results"], new_tokens)
+    (dp1, ds1, hit1, hr1, enc1), (dp2, ds2, hit2, hr2, enc2) = (rd["delta"] for rd in rounds)
+    dp, ds, hits = dp1 + dp2, ds1 + ds2, hr1 + hr2
+    want = {"flash": L * dp, "decode1": L * ds, "general": 0, "dense decode": 0,
+            "quant": (4 * L + 1) * (dp + ds + hits)}
+    held = sum(1 for p in cached if refs[p] == 1)
+    log("paged", f"round 1: {len(bodies1)} requests in {dp1} prefill dispatches, {ds1} decode "
+                 f"steps, {enc1} vision encodes; round 2: 8 follow-ups in {dp2} prefill "
+                 f"dispatches, {hr2} prefix hits of {hit2} tokens, {ds2} decode steps, {enc2} "
+                 f"vision encodes; launches {launches} (want {want}); pages at the end: "
+                 f"{free} free + {held} held only by the prefix cache ({len(cached)} entries) "
+                 f"of {engine.num_pages}")
+    if hit2 < 8 * 5 * P or hr2 != 8 or dp2 != 0:
+        raise AssertionError(f"round 2 did not reuse the pooled prefixes ({hr2} hits, "
+                             f"{hit2} tokens, {dp2} full prefills)")
+    if enc2 != 0 or enc1 <= 0:
+        raise AssertionError(f"vision encodes: round 1 {enc1}, round 2 {enc2} (want 0)")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} differ from {want}")
+    if (free + held != engine.num_pages or any(r > 1 for r in refs)
+            or any(refs[p] != 1 for p in cached)):
+        raise AssertionError(f"page accounting: {free} free + {held} cached of "
+                             f"{engine.num_pages}, refcounts {sorted(set(refs))}")
+    for r, rd in enumerate(rounds, 1):
+        n = len(rd["bodies"])
+        log("paged", f"round {r}: TTFT p50 {np.median(rd['ttfts']) * 1e3:.1f} ms (min "
+                     f"{rd['ttfts'][0] * 1e3:.1f}, max {rd['ttfts'][-1] * 1e3:.1f}); "
+                     f"{n * new_tokens / rd['seconds']:.1f} tokens/s aggregate over {n} "
+                     f"requests of {new_tokens} tokens in {rd['seconds']:.2f} s")
+    total_s = sum(rd["seconds"] for rd in rounds)
+    log("paged", f"both rounds: {(len(bodies1) + 8) * new_tokens / total_s:.1f} tokens/s "
+                 f"aggregate; peak device memory {peak:.2f} GiB; card {smi}")
     return launches
 
 
@@ -717,7 +1131,7 @@ def main():
     smi = phase_env()
     phase_build()
     stats = phase_kernels()
-    phase_narrow_model()
+    narrow_general = phase_narrow_model()
     dev = "cuda:0"
     params = _init_7b(dev)
     single = phase_full_slice(smi, params, dev)
@@ -725,27 +1139,32 @@ def main():
     int8 = serve_engine(smi, params, "int8", n_image=8, n_text=8)
     del params
     int4 = serve_engine(smi, _init_7b(dev), "int4", n_image=2, n_text=2)
+    paged = serve_paged_engine(smi)
 
     entries = []
+    paged_src = "llava_plus_torch/csrc/paged_attention.cu"
     for name, source, replaces, count in (
         ("flash_fwd", "llava_plus_torch/csrc/flash_fwd.cu", FLASH_REPLACES,
-         single["flash"] + int8["flash"] + int4["flash"]),
+         single["flash"] + int8["flash"] + int4["flash"] + paged["flash"]),
         ("decode_attention[bf16]", "llava_plus_torch/csrc/decode_attention.cu",
          DECODE_REPLACES, single["bf16"]),
         ("decode_attention[int8]", "llava_plus_torch/csrc/decode_attention.cu",
          DECODE_REPLACES, single["int8"] + int8["decode"] + int4["decode"]),
         ("quant_matmul[int8]", "llava_plus_torch/csrc/quant_matmul.cu", INT8_REPLACES,
-         int8["quant"]),
+         int8["quant"] + paged["quant"]),
         ("quant_matmul[int4]", "llava_plus_torch/csrc/quant_matmul.cu", INT4_REPLACES,
          int4["quant"]),
+        ("paged_attention[decode1]", paged_src, PAGED_DECODE1_REPLACES, paged["decode1"]),
+        ("paged_attention[general]", paged_src, PAGED_GENERAL_REPLACES, narrow_general),
     ):
         if count <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": count, **stats[name]})
-    jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
-    if jax_modules:
-        raise AssertionError(f"the port pulled in JAX: {jax_modules[:5]}")
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "llava_plus_tpu"))
+    if foreign:
+        raise AssertionError(f"the port pulled in JAX or the JAX package: {foreign[:5]}")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Tokenizer and image preprocessing: the JAX package's framework-free
-implementations, used as they are."""
+"""Tokenizer and image preprocessing: the port's own copies of the JAX
+package's framework-free implementations."""
 
-from llava_plus_tpu.data.debug_tokenizer import DebugTokenizer  # noqa: F401
-from llava_plus_tpu.data.image_processing import ClipImageProcessor  # noqa: F401
+from llava_plus_torch.data.debug_tokenizer import DebugTokenizer  # noqa: F401
+from llava_plus_torch.data.image_processing import ClipImageProcessor  # noqa: F401

@@ -14,8 +14,8 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from llava_plus_tpu.data.multimodal import pad_images, plan_multimodal_batch
-from llava_plus_tpu.mm_utils import tokenizer_image_token
+from llava_plus_torch.data.multimodal import pad_images, plan_multimodal_batch
+from llava_plus_torch.mm_utils import tokenizer_image_token
 from llava_plus_torch.models.configs import LlavaConfig
 from llava_plus_torch.models import llama, llava as llava_model
 from llava_plus_torch.models.llava import MultimodalBatch

@@ -38,6 +38,8 @@ SIGNATURES = {
     "decode_attention_fwd": [P] * 8 + [I] * 14 + [F, P],
     "quant_matmul_int8": [P] * 4 + [I] * 5 + [P],
     "quant_matmul_int4": [P] * 4 + [I] * 5 + [P],
+    "paged_decode1_fwd": [P] * 9 + [I] * 15 + [F, P],
+    "paged_attention_fwd": [P] * 9 + [I] * 15 + [F, P],
 }
 
 _lib = None

@@ -1,4 +1,4 @@
-"""LLaMA/Vicuna decoder in PyTorch, dense KV cache.
+"""LLaMA/Vicuna decoder in PyTorch, dense or paged KV cache.
 
 Counterpart of ``llava_plus_tpu/models/llama.py``: plain functions over the
 same parameter tree (stacked per-layer weights ``[L, in, out]``, ``x @ w``),
@@ -6,10 +6,14 @@ explicit ``positions`` and ``segment_ids``, so prefill, padded batches and
 cache decode share one code path. Layers run as a Python loop.
 
 Attention: a fresh prefill attends over its own chunk through
-:func:`ops.attention.attention` (the flash kernel on the card); a one-token
-decode step goes through :func:`ops.decode_attention.decode_attention`,
-which reads the cache in place (the kernel on the card, its plain version on
-the CPU); any other cached chunk uses the reference attention.
+:func:`ops.attention.attention` (the flash kernel on the card). Over the
+dense :class:`KVCache`, a one-token decode step goes through
+:func:`ops.decode_attention.decode_attention`, which reads the cache in
+place; any other cached chunk uses the reference attention. Over the paged
+:class:`PagedKVCache`, chunks of up to 8 tokens go through
+:func:`ops.paged_attention.paged_decode_attention` (the paged kernels on the
+card), longer ones through the gathered pages and the reference attention.
+Kernels run on the card, their plain versions on the CPU.
 
 Projections go through :func:`ops.quant.matmul`, so a weight may be a bf16
 tensor or an int8 / int4 dict (``ops/quant.py``, the kernels of
@@ -20,7 +24,7 @@ tensor or an int8 / int4 dict (``ops/quant.py``, the kernels of
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +34,9 @@ from llava_plus_torch.ops.attention import (
     attention, quant_cache_attention, reference_attention,
 )
 from llava_plus_torch.ops.decode_attention import decode_attention
+from llava_plus_torch.ops.paged_attention import (
+    MAX_CHUNK, gather_pages, paged_decode_attention,
+)
 from llava_plus_torch.ops.quant import is_quantized, matmul
 
 
@@ -141,6 +148,172 @@ def _cache_write(all_vals, all_scales, new, idx, sel):
             _put_rows(buf[idx], sel, x)
         else:
             buf[idx, sel[0], sel[2]] = x
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Paged KV cache: one page pool shared by every slot, and a page table
+    per slot (counterpart of the JAX ``PagedKVCache``), updated IN PLACE.
+
+    The JAX layouts, read through the properties: ``kv`` [L, Np, 2, P, Hkv,
+    Dh] (dim 2 selects K (0) / V (1); token-major within a page), ``kv_scale``
+    [L, Np, 2, Hkv, P] f32 per-(token, head) scales of an int8 pool
+    (head-major), ``seg`` [B, maxp * P] segment ids by logical position.
+    ``page_table`` [B, maxp] int32 holds each slot's page ids (the same id in
+    every layer); ``alloc`` [B] the tokens allocated to a slot.
+
+    The buffers behind them carry one more page (``pool`` [L, Np + 1, ...],
+    ``scale_pool``) and one more seg column (``seg_buf``): writes that the
+    JAX package drops (positions >= max_len or >= alloc, padding and idle
+    rows; its scatter sends them out of range) land there instead, with no
+    host sync. No page table names the scratch page, so nothing reads it.
+    """
+
+    pool: torch.Tensor
+    seg_buf: torch.Tensor
+    page_table: torch.Tensor
+    alloc: torch.Tensor
+    scale_pool: Optional[torch.Tensor] = None
+
+    @classmethod
+    def create(cls, cfg: LlamaConfig, batch: int, *, num_pages: int,
+               max_pages_per_slot: int, page_size: int = 128,
+               dtype=torch.bfloat16, device) -> "PagedKVCache":
+        L, Hkv = cfg.num_hidden_layers, cfg.num_key_value_heads
+        quantized = dtype == torch.int8
+        max_len = max_pages_per_slot * page_size
+        return cls(
+            pool=torch.zeros(L, num_pages + 1, 2, page_size, Hkv, cfg.head_dim,
+                             dtype=dtype, device=device),
+            seg_buf=torch.zeros(batch, max_len + 1, dtype=torch.int32, device=device),
+            page_table=torch.zeros(batch, max_pages_per_slot, dtype=torch.int32,
+                                   device=device),
+            alloc=torch.full((batch,), max_len, dtype=torch.int32, device=device),
+            scale_pool=(torch.zeros(L, num_pages + 1, 2, Hkv, page_size, device=device)
+                        if quantized else None),
+        )
+
+    @property
+    def kv(self) -> torch.Tensor:
+        return self.pool[:, :-1]
+
+    @property
+    def kv_scale(self) -> Optional[torch.Tensor]:
+        return None if self.scale_pool is None else self.scale_pool[:, :-1]
+
+    @property
+    def seg(self) -> torch.Tensor:
+        return self.seg_buf[:, :-1]
+
+    @property
+    def page_size(self) -> int:
+        return self.pool.shape[3]
+
+    @property
+    def num_pages(self) -> int:
+        return self.pool.shape[1] - 1
+
+    @property
+    def max_len(self) -> int:
+        return self.page_table.shape[1] * self.page_size
+
+    @property
+    def quantized(self) -> bool:
+        return self.scale_pool is not None
+
+    def row(self, slot: int) -> "PagedKVCache":
+        """Slot ``slot`` alone, as a batch of one: views into this cache, so
+        a forward over it writes here."""
+        return PagedKVCache(pool=self.pool, seg_buf=self.seg_buf[slot:slot + 1],
+                            page_table=self.page_table[slot:slot + 1],
+                            alloc=self.alloc[slot:slot + 1], scale_pool=self.scale_pool)
+
+
+def _paged_quant(new: torch.Tensor):
+    """Per-(token, head) symmetric int8: [.., Hkv, D] -> (int8, scale [.., Hkv]).
+    The scale is ``max(amax, 1e-8) * f32(1/127)``: the JAX package computes
+    its paged writes inside jitted programs, where XLA turns the division by
+    127 into that product."""
+    nf = new.float()
+    scale = nf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) * (1.0 / 127.0)
+    q = torch.clamp(torch.round(nf / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+class _PagedStep(NamedTuple):
+    """A call's page addressing, computed once on the device and shared by
+    every layer: each token's K row in the flat pool view of layer 0
+    ([L * (Np + 1) * 2 * P, Hkv * D]; the V row is P further) and its first
+    scale element in the flat scale pool (the scratch page for the writes
+    the JAX package drops), the slots' past tokens, the valid chunk tokens,
+    and the pool segment ids the gather path masks with."""
+
+    rows: torch.Tensor        # [B * T] int64
+    srows: torch.Tensor       # [B * T, Hkv] int64, or None without scales
+    past_len: torch.Tensor    # [B] int32
+    cur_valid: torch.Tensor   # [B] int32
+    pool_seg: torch.Tensor    # [B, maxp * P] int32: seg * (position < past_len)
+
+
+def _paged_step(cache: PagedKVCache, positions, segment_ids) -> _PagedStep:
+    """The page addressing of a call (JAX ``decoder_forward``'s paged
+    ``pages``, ``offsets``, ``valid`` and ``past_len``), and the chunk's
+    segment ids written into ``cache.seg``."""
+    B, T = positions.shape
+    P, maxp, S = cache.page_size, cache.page_table.shape[1], cache.max_len
+    Np, Hkv = cache.num_pages, cache.pool.shape[4]
+    dev = positions.device
+    pos = positions.long()
+    pages = torch.gather(cache.page_table, 1, (pos // P).clamp(0, maxp - 1)).long()
+    valid = (pos < S) & (segment_ids > 0) & (pos < cache.alloc[:, None])
+    pages = torch.where(valid, pages, Np)        # dropped writes: the scratch page
+    offsets = pos % P
+    rows = (pages * 2 * P + offsets).reshape(-1)
+    srows = None
+    if cache.quantized:
+        h = torch.arange(Hkv, device=dev)
+        srows = ((pages * 2 * Hkv)[..., None] + h) * P + offsets[..., None]
+        srows = srows.reshape(-1, Hkv)
+    past_len = torch.where(segment_ids[:, 0] > 0, positions[:, 0], 0).clamp(max=S)
+    past_len = past_len.to(torch.int32)
+    pool_seg = cache.seg * (torch.arange(S, device=dev)[None] < past_len[:, None])
+    flat = torch.arange(B, device=dev)[:, None] * (S + 1) + pos.clamp(max=S)
+    cache.seg_buf.view(-1).index_copy_(0, flat.reshape(-1),
+                                       segment_ids.reshape(-1).to(torch.int32))
+    return _PagedStep(rows, srows, past_len, segment_ids.sum(dim=1).to(torch.int32),
+                      pool_seg)
+
+
+def _paged_write_all(cache: PagedKVCache, staged, step: _PagedStep):
+    """Write every layer's staged chunk (k, v [B, T, Hkv, D] in the pool's
+    dtype, and for an int8 pool their scales [B, T, Hkv]) into the pool, one
+    ``index_copy_`` per tensor for all layers: the deferred write of the JAX
+    package. Nothing reads these rows before the next call: each layer
+    attends its own chunk directly."""
+    L, Np1 = cache.pool.shape[:2]
+    P, Hkv, D = cache.page_size, cache.pool.shape[4], cache.pool.shape[5]
+    dev = cache.pool.device
+    layer = torch.arange(L, device=dev)[:, None] * (Np1 * 2 * P)
+    rows = (layer + step.rows[None]).reshape(-1)
+    flat = cache.pool.view(-1, Hkv * D)
+    ks, vs, kss, vss = zip(*staged)
+    flat.index_copy_(0, rows, torch.stack(ks).reshape(-1, Hkv * D))
+    flat.index_copy_(0, rows + P, torch.stack(vs).reshape(-1, Hkv * D))
+    if cache.quantized:
+        layer = torch.arange(L, device=dev)[:, None, None] * (Np1 * 2 * Hkv * P)
+        srows = (layer + step.srows[None]).reshape(-1)
+        sflat = cache.scale_pool.view(-1)
+        sflat.index_copy_(0, srows, torch.stack(kss).reshape(-1))
+        sflat.index_copy_(0, srows + Hkv * P, torch.stack(vss).reshape(-1))
+
+
+def _stage(cache: PagedKVCache, k, v):
+    """A layer's chunk as the pool stores it (quantized here, per layer, as
+    the JAX package does, so the staging is int8 with small scales)."""
+    if cache.quantized:
+        (qk, sk), (qv, sv) = _paged_quant(k), _paged_quant(v)
+        return qk, qv, sk, sv
+    return k.to(cache.pool.dtype), v.to(cache.pool.dtype), None, None
 
 
 # ---------------------------------------------------------------------------
@@ -268,8 +441,40 @@ def _cached_attention(q, cache: KVCache, idx, segment_ids, positions):
                                kv_segment_ids=cache.seg, q_positions=positions)
 
 
+def _paged_layer_attention(q, k_cur, v_cur, cache: PagedKVCache, idx: int,
+                           step: _PagedStep, segment_ids, positions, gather: bool):
+    """One layer's attention over the paged pool (past tokens only) and the
+    current chunk ``k_cur`` / ``v_cur``, which is written after the layer
+    loop. A chunk of up to ``MAX_CHUNK`` tokens (contiguous positions from
+    ``past_len``, a valid prefix) goes through ``paged_decode_attention``,
+    reading the layer's pool in place through the page table; a longer one,
+    or any chunk with ``gather``, through the gathered pages and the
+    reference attention, as the JAX package's generic path does."""
+    kv = cache.pool[idx]
+    ks = None if cache.scale_pool is None else cache.scale_pool[idx]
+    if q.shape[1] <= MAX_CHUNK and not gather:
+        return paged_decode_attention(q, kv, cache.page_table, step.past_len, ks,
+                                      k_cur, v_cur, step.cur_valid)
+    k, v = gather_pages(kv, cache.page_table, ks)
+    B, S = k.shape[:2]
+    k = torch.cat([k.to(q.dtype), k_cur.to(q.dtype)], dim=1)
+    v = torch.cat([v.to(q.dtype), v_cur.to(q.dtype)], dim=1)
+    # The pool holds past tokens only; entries at positions >= past_len (a
+    # rejected chunk's writes) stay masked so nothing is counted twice.
+    kv_seg = torch.cat([step.pool_seg, segment_ids.to(torch.int32)], dim=1)
+    kv_positions = torch.cat([
+        torch.arange(S, dtype=torch.int32, device=q.device).expand(B, S),
+        positions.to(torch.int32)], dim=1)
+    return attention(q, k, v, causal=True, q_segment_ids=segment_ids,
+                     kv_segment_ids=kv_seg, q_positions=positions,
+                     kv_positions=kv_positions)
+
+
 def _layer_forward(lp, h, cos, sin, segment_ids, positions, cfg: LlamaConfig,
-                   cache: Optional[KVCache], idx: int, sel, fresh_prefill: bool):
+                   cache, idx: int, sel, fresh_prefill: bool, paged_gather: bool):
+    """One decoder layer. Returns (h, staged): ``staged`` is the layer's
+    chunk as a paged pool stores it (None for the dense cache, which is
+    written here)."""
     B, T, _ = h.shape
     H, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
@@ -286,7 +491,9 @@ def _layer_forward(lp, h, cos, sin, segment_ids, positions, cfg: LlamaConfig,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    if cache is not None:
+    paged = isinstance(cache, PagedKVCache)
+    staged = None
+    if cache is not None and not paged:
         _cache_write(cache.k, cache.k_scale, k, idx, sel)
         _cache_write(cache.v, cache.v_scale, v, idx, sel)
     if cache is None or (fresh_prefill and T > 1):
@@ -295,8 +502,13 @@ def _layer_forward(lp, h, cos, sin, segment_ids, positions, cfg: LlamaConfig,
         # flash-eligible.
         attn_out = attention(q, k, v, causal=True,
                              q_segment_ids=segment_ids, kv_segment_ids=segment_ids)
+    elif paged:
+        attn_out = _paged_layer_attention(q, k, v, cache, idx, sel, segment_ids,
+                                          positions, paged_gather)
     else:
         attn_out = _cached_attention(q, cache, idx, segment_ids, positions)
+    if paged:
+        staged = _stage(cache, k, v)
 
     h = h + matmul(attn_out.reshape(B, T, H * Dh), wa["wo"])
     hn = rms_norm(h, lp["post_attn_norm"], cfg.rms_norm_eps)
@@ -307,7 +519,10 @@ def _layer_forward(lp, h, cos, sin, segment_ids, positions, cfg: LlamaConfig,
     else:
         gate, up = matmul(hn, wm["w_gate"]), matmul(hn, wm["w_up"])
     gate = F.silu(gate.float()).to(hn.dtype)
-    return h + matmul(gate * up, wm["w_down"])
+    return h + matmul(gate * up, wm["w_down"]), staged
+
+
+Cache = Union[KVCache, PagedKVCache]
 
 
 def decoder_forward(
@@ -317,23 +532,36 @@ def decoder_forward(
     *,
     positions: torch.Tensor,
     segment_ids: torch.Tensor,
-    cache: Optional[KVCache] = None,
+    cache: Optional[Cache] = None,
     fresh_prefill: bool = False,
-) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    paged_gather: bool = False,
+) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Run the decoder stack; returns (hidden_states, cache), the cache
     updated in place.
 
     positions [B, T]: absolute positions (RoPE and cache slots);
     segment_ids [B, T]: 0 = padding, >0 real tokens. ``fresh_prefill=True``
-    asserts the cache is empty before the call.
+    asserts the cache is empty before the call. ``paged_gather`` sends every
+    chunk over a paged cache through the gathered pages (the engine's suffix
+    prefill, as the JAX package forces ``attn_impl="xla"`` there).
     """
     h = inputs_embeds
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling_type, cfg.rope_scaling_factor)
-    sel = None if cache is None else _write_slots(cache, positions, segment_ids)
+    paged = isinstance(cache, PagedKVCache)
+    if cache is None:
+        sel = None
+    elif paged:
+        sel = _paged_step(cache, positions, segment_ids)
+    else:
+        sel = _write_slots(cache, positions, segment_ids)
+    staged = []
     for i in range(cfg.num_hidden_layers):
-        h = _layer_forward(_layer(params, i), h, cos, sin, segment_ids,
-                           positions, cfg, cache, i, sel, fresh_prefill)
+        h, st = _layer_forward(_layer(params, i), h, cos, sin, segment_ids, positions,
+                               cfg, cache, i, sel, fresh_prefill, paged_gather)
+        staged.append(st)
+    if paged:
+        _paged_write_all(cache, staged, sel)
     return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), cache
 
 
@@ -363,10 +591,11 @@ def forward(
     inputs_embeds: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
-    cache: Optional[KVCache] = None,
+    cache: Optional[Cache] = None,
     fresh_prefill: bool = False,
     logits_positions: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    paged_gather: bool = False,
+) -> Tuple[torch.Tensor, Optional[Cache]]:
     """ids/embeds -> f32 logits [B, T, V] (or [B, 1, V] at
     ``logits_positions`` [B]), and the cache updated in place."""
     if inputs_embeds is None:
@@ -379,7 +608,7 @@ def forward(
         segment_ids = torch.ones(B, T, dtype=torch.int32, device=device)
     h, cache = decoder_forward(params, cfg, inputs_embeds, positions=positions,
                                segment_ids=segment_ids, cache=cache,
-                               fresh_prefill=fresh_prefill)
+                               fresh_prefill=fresh_prefill, paged_gather=paged_gather)
     if logits_positions is not None:
         h = h[torch.arange(B, device=device), logits_positions][:, None]
     return lm_head(params, cfg, h), cache

@@ -2,7 +2,7 @@
 
 Counterpart of ``llava_plus_tpu/models/llava.py`` for the LLaMA backbone
 (MPT is not ported yet). The image splice follows the position map that
-``llava_plus_tpu.data.multimodal`` plans: image features are written into the
+``data/multimodal.py`` plans: image features are written into the
 token embeddings at ``image_pos``, and positions >= T (pad images, truncated
 spans) are left out.
 """
@@ -81,11 +81,13 @@ def forward(
     cfg: LlavaConfig,
     batch: MultimodalBatch,
     *,
-    cache: Optional[llama.KVCache] = None,
+    cache: Optional[llama.Cache] = None,
     fresh_prefill: bool = False,
     logits_positions: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, Optional[llama.KVCache]]:
-    """Multimodal forward -> (f32 logits, cache updated in place)."""
+) -> Tuple[torch.Tensor, Optional[llama.Cache]]:
+    """Multimodal forward -> (f32 logits, cache updated in place); the cache
+    is a dense :class:`~llava_plus_torch.models.llama.KVCache` or a paged
+    :class:`~llava_plus_torch.models.llama.PagedKVCache`."""
     embeds = fuse(params, cfg, batch)
     return llama.forward(
         params["language_model"], cfg.text,
@@ -101,9 +103,10 @@ def decode_step(
     token: torch.Tensor,        # [B, 1]
     position: torch.Tensor,     # [B, 1]
     segment_ids: torch.Tensor,  # [B, 1]
-    cache: llama.KVCache,
-) -> Tuple[torch.Tensor, llama.KVCache]:
-    """One text-only decode step over the cache: (logits [B, 1, V], cache)."""
+    cache: llama.Cache,
+) -> Tuple[torch.Tensor, llama.Cache]:
+    """One text-only decode step over the cache (dense or paged):
+    (logits [B, 1, V], cache)."""
     _llama_only(cfg)
     return llama.forward(
         params["language_model"], cfg.text, token,

@@ -1,12 +1,21 @@
-"""Continuous-batching inference engine over a dense KV cache.
+"""Continuous-batching inference engine over a dense or paged KV cache.
 
-Counterpart of ``llava_plus_tpu/serve/engine.py`` (``BatchedEngine``'s dense
-path). One engine thread decodes a fixed pool of ``max_slots`` slots in
-chunks of ``decode_chunk`` steps; a prefill thread tokenizes, prefills
-arrivals in batches (padded to a power-of-two batch size, one bucket-sized
-cache per batch), emits each request's first token and hands it to the
-engine thread, which copies its cache stripe into a free slot between
-chunks. Requests leave on eos, a stop string or their token budget.
+Counterpart of ``llava_plus_tpu/serve/engine.py`` (``BatchedEngine``). One
+engine thread decodes a fixed pool of ``max_slots`` slots in chunks of
+``decode_chunk`` steps; a prefill thread tokenizes, prefills arrivals in
+batches (padded to a power-of-two batch size, one bucket-sized dense cache
+per batch), emits each request's first token and hands it to the engine
+thread, which copies its cache stripe into a free slot between chunks.
+Requests leave on eos, a stop string or their token budget.
+
+With ``paged=True`` the slots share one pool of KV pages
+(:class:`~llava_plus_torch.models.llama.PagedKVCache`): a request gets
+pages for its prompt and token budget at insert (refcounted, under one
+lock), and waits while the pool is exhausted. With the prefix cache on
+(the default), the pages of every full prompt page are published under
+chain hashes of their content (``serve/prefix_cache.py``); a later prompt
+that starts with a published prefix, images included, shares those pages
+and prefills only its suffix, on the engine thread, with no vision encode.
 
 PyTorch runs eagerly, so the JAX package's compiled prefill / insert /
 decode programs become plain calls that update the pool cache in place.
@@ -21,9 +30,8 @@ share the batch or how decode is chunked (the JAX engine folds the
 position into the request's key for the same reason; its random bits are
 not reproduced).
 
-Not ported (the arguments raise): the paged pool and prefix cache,
-speculative decoding, the tensor-parallel mesh, W8A8 prefill, and the MPT
-backbone.
+Not ported (the arguments raise): speculative decoding, the
+tensor-parallel mesh, W8A8 prefill, and the MPT backbone.
 """
 
 from __future__ import annotations
@@ -34,17 +42,19 @@ import queue
 import threading
 import time
 from collections import deque
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from llava_plus_tpu.constants import IMAGE_TOKEN_INDEX
-from llava_plus_tpu.mm_utils import tokenizer_image_token
+from llava_plus_torch.constants import IMAGE_TOKEN_INDEX
+from llava_plus_torch.data.multimodal import plan_multimodal_batch
 from llava_plus_torch.generate import nucleus, prepare_multimodal_request
+from llava_plus_torch.mm_utils import tokenizer_image_token
 from llava_plus_torch.models import llama, llava as llava_model
 from llava_plus_torch.models.configs import LlavaConfig
 from llava_plus_torch.models.llava import MultimodalBatch
+from llava_plus_torch.serve.prefix_cache import PagePrefixCache, image_digest, page_keys
 
 logger = logging.getLogger(__name__)
 
@@ -83,6 +93,11 @@ class _Slot:
     skip_next_emit: bool = False
     # prompt + generated token ids
     history: List[int] = dataclasses.field(default_factory=list)
+    pages: List[int] = dataclasses.field(default_factory=list)  # paged: its pool pages
+
+
+class _PoolExhausted(Exception):
+    """Not enough free KV pages to admit; retry after slots finish."""
 
 
 @dataclasses.dataclass
@@ -98,6 +113,30 @@ class _Prepared:
     budget: int
     out_ids: List[int]
     history: List[int]
+    needed_pages: int = 0   # paged: pages to allocate at insert
+    # paged + prefix cache: chain hashes of the prompt's full pages,
+    # published at insert so later requests can share the pages
+    page_keys: List[bytes] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class _PreparedSuffix:
+    """A request whose prompt prefix was found in the page prefix cache:
+    pages ``hit_pages`` already hold positions [0, prefix_len), so only the
+    suffix still needs a prefill, which runs on the engine thread (it owns
+    the pool) and emits the first token there. No device work has happened
+    yet. ``hit_pages`` were pinned at match time and stay pinned until the
+    slot finishes (or the insert fails)."""
+
+    req: Request
+    hit_pages: List[int]
+    prefix_len: int
+    suffix_ids: np.ndarray   # fused ids of positions [prefix_len, prompt_len)
+    prompt_len: int
+    budget: int
+    history: List[int]       # the full fused prompt ids
+    needed_pages: int        # fresh pages beyond the hits
+    page_keys: List[bytes]
 
 
 @dataclasses.dataclass
@@ -110,6 +149,7 @@ class _InflightPrefill:
     firsts: torch.Tensor    # [N] sampled first tokens, on the device
     cacheN: llama.KVCache   # bucket-sized prefill cache
     plan: object            # host token plan (lengths, tokens)
+    keymap: Dict[int, List[bytes]]  # paged: id(request) -> its page keys
     t0: float               # host clock at the start (for the debug log)
     t_host: float
     t_dispatch: float
@@ -177,15 +217,26 @@ class BatchedEngine:
         decode_chunk: int = 4,
         mesh=None,
         paged: bool = False,
+        page_size: int = 128,
+        pool_tokens: Optional[int] = None,
+        prefix_cache: bool = True,
         speculate: int = 0,
         w8a8: bool = False,
     ):
-        for name, value in (("mesh", mesh), ("paged", paged), ("speculate", speculate),
-                            ("w8a8", w8a8)):
+        """``paged=True`` keeps the KV cache in a pool of ``page_size``-token
+        pages shared by the slots: pages are allocated per request for
+        prompt + budget, so long contexts and short chats share one pool.
+        ``pool_tokens`` sizes it (default ``max_slots * max_seq_len``, no
+        overcommit); requests wait while it is exhausted. ``prefix_cache``
+        (paged only) shares the pages of identical prompt prefixes."""
+        for name, value in (("mesh", mesh), ("speculate", speculate), ("w8a8", w8a8)):
             if value:
                 raise NotImplementedError(f"BatchedEngine({name}=...) is not ported yet")
         if cfg.language_model_type != "llama":
             raise NotImplementedError(f"the {cfg.language_model_type} backbone is not ported yet")
+        if paged and (max_seq_len % page_size or prefill_bucket % page_size):
+            raise ValueError(f"max_seq_len {max_seq_len} and prefill_bucket {prefill_bucket} "
+                             f"must be multiples of page_size {page_size}")
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -197,12 +248,30 @@ class BatchedEngine:
         self.cache_dtype = cache_dtype
         self.idle_sleep = idle_sleep
         self.decode_chunk = max(decode_chunk, 1)
-        self._prefix = None  # no prefix cache on the dense path (worker metrics read it)
+        self.paged = paged
+        self.page_size = page_size
+        self.num_pages = 0
+        self._prefix: Optional[PagePrefixCache] = None  # the worker's metrics read it
+        if paged:
+            total = pool_tokens or max_slots * max_seq_len
+            self.num_pages = max(total // page_size, max_seq_len // page_size)
+            self._free_pages = list(range(self.num_pages))
+            # A page's refcount: one per slot page table that holds it, plus
+            # one while the prefix cache publishes it; it returns to the
+            # free list at 0. Refcounts, the free list and the prefix cache
+            # are guarded by _page_lock (the prefill thread matches
+            # prefixes, the engine thread allocates and publishes).
+            self._page_refs = [0] * self.num_pages
+            self._page_lock = threading.Lock()
+            if prefix_cache:
+                self._prefix = PagePrefixCache(incref=self._incref_page,
+                                               decref=self._decref_page)
 
         self._queue: "queue.Queue[Request]" = queue.Queue()
         self._ready: "queue.Queue[_Prepared]" = queue.Queue()
         self._slots = [_Slot() for _ in range(max_slots)]
         self._stop = threading.Event()
+        self._waiting = None  # a prepared request held back: the pool is exhausted
         self.ttfts: "deque[float]" = deque(maxlen=512)
         # burst admission shows as prefill_requests > prefill_dispatches
         self.prefill_dispatches = 0
@@ -211,6 +280,8 @@ class BatchedEngine:
         # with more than one active slot
         self.decode_steps = 0
         self.multi_slot_steps = 0
+        # prompt tokens whose KV came from the page prefix cache (paged)
+        self.prefix_hit_tokens = 0
         self.warmup_s = 0.0  # set by warmup()
 
         self.cache = self._make_cache()
@@ -222,10 +293,71 @@ class BatchedEngine:
 
     # ------------------------------------------------------------------
 
-    def _make_cache(self, batch=None, seq_len=None) -> llama.KVCache:
+    def _make_cache(self, batch=None, seq_len=None, force_dense=False) -> llama.Cache:
+        """The slot pool's cache (paged when the engine is), or with
+        ``force_dense`` a dense one (a prefill batch's bucket-sized cache)."""
+        if self.paged and not force_dense:
+            return llama.PagedKVCache.create(
+                self.cfg.text, batch or self.max_slots, num_pages=self.num_pages,
+                max_pages_per_slot=self.max_seq_len // self.page_size,
+                page_size=self.page_size, dtype=self.cache_dtype, device=self.device)
         return llama.KVCache.create(self.cfg.text, batch or self.max_slots,
                                     seq_len or self.max_seq_len, self.cache_dtype,
                                     device=self.device)
+
+    # -- paged-pool page accounting ----------------------------------------
+
+    def _incref_page(self, pid: int):
+        """Caller holds _page_lock. Only a referenced page gains references
+        (a page at refcount 0 is on the free list)."""
+        if self._page_refs[pid] <= 0:
+            raise RuntimeError(f"page {pid} is free and cannot be shared")
+        self._page_refs[pid] += 1
+
+    def _decref_page(self, pid: int):
+        """Caller holds _page_lock."""
+        if self._page_refs[pid] <= 0:
+            raise RuntimeError(f"page {pid} released more often than taken")
+        self._page_refs[pid] -= 1
+        if self._page_refs[pid] == 0:
+            self._free_pages.append(pid)
+
+    def _alloc_pages(self, n: int) -> List[int]:
+        """Take ``n`` free pages at refcount 1, evicting least recently used
+        prefix-cache entries if needed (an evicted entry frees its page only
+        when no live slot holds it). Raises :class:`_PoolExhausted`."""
+        with self._page_lock:
+            while (len(self._free_pages) < n and self._prefix is not None
+                   and self._prefix.evict_lru()):
+                pass
+            if len(self._free_pages) < n:
+                raise _PoolExhausted(n)
+            pages = [self._free_pages.pop() for _ in range(n)]
+            for p in pages:
+                self._page_refs[p] = 1
+            return pages
+
+    def _release_pages(self, pages: List[int]):
+        with self._page_lock:
+            for p in pages:
+                self._decref_page(p)
+
+    def _match_prefix(self, keys: List[bytes]) -> List[int]:
+        """Longest published prefix of ``keys``, its pages pinned for the
+        caller (released when its slot finishes or its insert fails)."""
+        if self._prefix is None or not keys:
+            return []
+        with self._page_lock:
+            pages = self._prefix.match(keys)
+            for p in pages:
+                self._incref_page(p)
+            return pages
+
+    def _publish_prefix(self, keys: List[bytes], pages: List[int]):
+        if self._prefix is None or not keys:
+            return
+        with self._page_lock:
+            self._prefix.publish(keys, pages[:len(keys)])
 
     def _prefill(self, batch: MultimodalBatch, cache1: llama.KVCache) -> torch.Tensor:
         """Logits [N, V] at each row's last valid token (the lm_head runs
@@ -250,6 +382,56 @@ class BatchedEngine:
         c.seg[slot].zero_()
         c.seg[slot, :S1] = cache1.seg[row]
         self.tokens[slot, 0] = first_token
+
+    def _insert_paged(self, cache1: llama.KVCache, row: int, slot: int, pages: List[int],
+                      first_token: int):
+        """Copy row ``row`` of a bucket-sized dense prefill cache into the
+        pool pages ``pages`` (the first S1 / P of them; token-major pages make
+        each a plain reshape of the dense stripe), and give slot ``slot`` its
+        page table, allocation and a seg row rebuilt from zeros."""
+        c, P = self.cache, self.page_size
+        L, _, S1, Hkv, D = cache1.k.shape
+        n1 = S1 // P
+        ids = torch.tensor(pages[:n1], dtype=torch.int64, device=self.device)
+        c.pool[:, ids, 0] = cache1.k[:, row].reshape(L, n1, P, Hkv, D).to(c.pool.dtype)
+        c.pool[:, ids, 1] = cache1.v[:, row].reshape(L, n1, P, Hkv, D).to(c.pool.dtype)
+        if c.quantized:
+            # scale pages are head-major [L, Np, 2, Hkv, P]
+            c.scale_pool[:, ids, 0] = cache1.k_scale[:, row].reshape(L, n1, P, Hkv).transpose(2, 3)
+            c.scale_pool[:, ids, 1] = cache1.v_scale[:, row].reshape(L, n1, P, Hkv).transpose(2, 3)
+        c.seg_buf[slot].zero_()
+        c.seg_buf[slot, :S1] = cache1.seg[row]
+        self._attach_pages(slot, pages)
+        self.tokens[slot, 0] = first_token
+
+    def _attach_pages(self, slot: int, pages: List[int]):
+        """Slot ``slot``'s page table (filler entries 0: positions past its
+        allocation are never written or read) and allocation."""
+        maxp = self.max_seq_len // self.page_size
+        table = torch.tensor((pages + [0] * maxp)[:maxp], dtype=torch.int32)
+        self.cache.page_table[slot] = table.to(self.device)
+        self.cache.alloc[slot] = len(pages) * self.page_size
+
+    def _prefill_suffix(self, slot: int, pages: List[int], prefix_len: int,
+                        tokens: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+        """Prefill only a prompt's suffix over the pool: pages
+        ``pages[:prefix_len // P]`` already hold the prefix (shared, read
+        only here). Attaches the slot's pages and prefix seg, then runs the
+        suffix [1, Tb] (right-padded to a bucket) as a cache continuation
+        from ``prefix_len`` through the gathered pages, as the JAX package
+        forces its XLA path there. Writes land in the fresh pages only.
+        Returns the logits [1, V] at the last valid suffix token."""
+        self._attach_pages(slot, pages)
+        self.cache.seg_buf[slot].zero_()
+        self.cache.seg_buf[slot, :prefix_len] = 1
+        Tb = tokens.shape[1]
+        positions = prefix_len + torch.arange(Tb, dtype=torch.int32, device=self.device)[None]
+        last = (seg.sum(dim=1) - 1).clamp_min(0)
+        logits, _ = llama.forward(self.params["language_model"], self.cfg.text, tokens,
+                                  positions=positions, segment_ids=seg,
+                                  cache=self.cache.row(slot), logits_positions=last,
+                                  paged_gather=True)
+        return logits[:, 0]
 
     def _set_token(self, tid: int, slot: int):
         self.tokens[slot, 0] = tid
@@ -345,11 +527,12 @@ class BatchedEngine:
     @torch.inference_mode()
     def warmup(self, prompt_len: int = 768, *, image: bool = True) -> float:
         """Run every prefill batch size at ``prompt_len``'s bucket (with the
-        vision tower when ``image``), the insert, and both decode chunk
-        lengths once before serving: the first use builds the CUDA kernels
-        and warms cuBLAS and the allocator. Call on an idle engine (it
-        writes into slot 0 without occupying it). Returns the seconds spent,
-        also kept as ``warmup_s``."""
+        vision tower when ``image``), the insert, both decode chunk lengths
+        and, paged with the prefix cache, a suffix prefill once before
+        serving: the first use builds the CUDA kernels and warms cuBLAS and
+        the allocator. Call on an idle engine (it writes into slot 0 without
+        occupying it). Returns the seconds spent, also kept as
+        ``warmup_s``."""
         t0 = time.perf_counter()
         image = image and self.cfg.num_image_tokens > 0
         prompt = self._warmup_prompt(prompt_len, image)
@@ -361,9 +544,15 @@ class BatchedEngine:
                                     if image else None))
                     for _ in range(n)]
             prep = next((p for p in self._prepare(reqs) if p is not None), None)
-            if prep is not None:
-                # slot 0 gets a stale seg row, the state a finished request
-                # leaves behind; the next insert rebuilds it
+            if prep is None:
+                continue
+            # slot 0 gets a stale seg row (and page table), the state a
+            # finished request leaves behind; the next insert rebuilds it
+            if self.paged:
+                pages = self._alloc_pages(prep.needed_pages)
+                self._insert_paged(prep.cache1, prep.row, 0, pages, prep.first_id)
+                self._release_pages(pages)
+            else:
                 self._insert(prep.cache1, prep.row, 0, prep.first_id)
         B = self.max_slots
         positions = torch.full((B,), self.max_seq_len, dtype=torch.int32, device=self.device)
@@ -373,6 +562,15 @@ class BatchedEngine:
         seeds = torch.zeros(B, dtype=torch.int64, device=self.device)
         for k in sorted({1, self.decode_chunk}):
             self._decode_n(positions, active, temps, tops, seeds, False, k)
+        if self.paged and self._prefix is not None:
+            # a suffix prefill of 8 tokens after one page, in a single bucket,
+            # and its first-token sampling (nothing else is live: page 0 is
+            # free, and slot 0's state is rebuilt at its next insert)
+            toks = torch.zeros(1, self.prefill_bucket, dtype=torch.int64, device=self.device)
+            seg = torch.zeros(1, self.prefill_bucket, dtype=torch.int32, device=self.device)
+            toks[0, :8], seg[0, :8] = 1, 1
+            last = self._prefill_suffix(0, [0, 0], self.page_size, toks, seg)
+            sample_batch(last, temps[:1], tops[:1], seeds[:1], positions[:1].long(), False)
         self._set_token(0, 0)
         self.tokens.cpu()  # wait for all of it
         self.warmup_s = time.perf_counter() - t0
@@ -405,9 +603,28 @@ class BatchedEngine:
                             reqs.append(self._queue.get_nowait())
                         except queue.Empty:
                             break
+                    # Prefix-cache routing (paged): a request whose prompt
+                    # prefix is pooled skips the full prefill; only host
+                    # hashing happens here, its suffix prefill runs on the
+                    # engine thread, which owns the pool.
+                    keymap: Dict[int, List[bytes]] = {}
+                    if reqs and self._prefix is not None:
+                        remaining = []
+                        for r in reqs:
+                            try:
+                                route = self._route_prefix(r)
+                            except Exception:
+                                logger.exception("prefix routing failed")
+                                route = []
+                            if isinstance(route, _PreparedSuffix):
+                                self._ready.put(route)
+                            else:
+                                keymap[id(r)] = route
+                                remaining.append(r)
+                        reqs = remaining
                     if reqs:
                         try:
-                            inflight.append(self._dispatch_prefill(reqs))
+                            inflight.append(self._dispatch_prefill(reqs, keymap))
                             self.prefill_dispatches += 1
                             self.prefill_requests += len(reqs)
                             dispatched = True
@@ -448,12 +665,55 @@ class BatchedEngine:
         sizes.append(self.prefill_batch)
         return sizes
 
-    def _prepare(self, reqs: List[Request]) -> List[Optional[_Prepared]]:
+    def _route_prefix(self, req: Request):
+        """A request's admission path: a :class:`_PreparedSuffix` when a
+        usable pooled prefix exists (its pages pinned), else the chain hashes
+        of the prompt's full pages, for the full prefill to publish.
+
+        A hit is usable when at least one full page matched, every image's
+        feature span lies inside the matched prefix (the suffix prefill is
+        text only: a multi-turn follow-up skips the vision tower), and at
+        least one prompt token remains to give the first token's logits."""
+        ids = np.asarray(tokenizer_image_token(req.prompt, self.tokenizer), np.int64)
+        npatch = self.cfg.num_image_tokens
+        plan = plan_multimodal_batch([ids], num_patches=npatch, max_len=self.max_seq_len)
+        prompt_len = int(plan.lengths[0])
+        fused = np.asarray(plan.tokens[0][:prompt_len])
+        n_img = int(plan.num_images[0])
+        imgs = None if req.images is None else np.asarray(req.images)
+        if n_img and (imgs is None or imgs.shape[0] < n_img):
+            return []  # malformed: the full prefill path raises or handles it
+        spans = [(int(plan.image_pos[0][j * npatch]), image_digest(imgs[j]))
+                 for j in range(n_img)]
+        P = self.page_size
+        keys = page_keys(fused, spans, npatch, P, n_pages=prompt_len // P)
+        # the Generator's clamp, as on the full prefill path
+        budget = min(req.max_new_tokens, self.max_seq_len - prompt_len)
+        n_max = (prompt_len - 1) // P
+        n_lo = max((-(-(s + npatch) // P) for s, _ in spans), default=1)
+        if budget <= 0 or n_max < n_lo:
+            return keys
+        hit = self._match_prefix(keys[:n_max])
+        if len(hit) < n_lo:
+            if hit:
+                self._release_pages(hit)
+            return keys
+        prefix_len = len(hit) * P
+        total_pages = -(-(prompt_len + budget + 1) // P)
+        return _PreparedSuffix(
+            req=req, hit_pages=hit, prefix_len=prefix_len,
+            suffix_ids=fused[prefix_len:prompt_len].astype(np.int64),
+            prompt_len=prompt_len, budget=budget, history=[int(t) for t in fused],
+            needed_pages=max(total_pages - len(hit), 0), page_keys=keys)
+
+    def _prepare(self, reqs: List[Request],
+                 keymap: Optional[Dict[int, List[bytes]]] = None) -> List[Optional[_Prepared]]:
         """Dispatch and finish in one call (warmup and tests; the serving
         loop pipelines the two phases across batches)."""
-        return self._finish_prefill(self._dispatch_prefill(reqs))
+        return self._finish_prefill(self._dispatch_prefill(reqs, keymap))
 
-    def _dispatch_prefill(self, reqs: List[Request]) -> _InflightPrefill:
+    def _dispatch_prefill(self, reqs: List[Request],
+                          keymap: Optional[Dict[int, List[bytes]]] = None) -> _InflightPrefill:
         """Host prep (tokenize, plan, pad to a batch size), then queue the
         prefill and the first-token sampling without waiting for them."""
         n_real = len(reqs)
@@ -469,22 +729,27 @@ class BatchedEngine:
             device=self.device, prefill_bucket=self.prefill_bucket)
         t_host = time.perf_counter()
 
-        cacheN = self._make_cache(batch=N, seq_len=int(batch.tokens.shape[1]))
+        cacheN = self._make_cache(batch=N, seq_len=int(batch.tokens.shape[1]), force_dense=True)
         last_logits = self._prefill(batch, cacheN)
-        padded = reqs + [reqs[-1]] * pad
+        firsts = self._sample_first(last_logits, reqs + [reqs[-1]] * pad, n_real,
+                                    np.maximum(np.asarray(plan.lengths) - 1, 0).tolist())
+        return _InflightPrefill(reqs=reqs, firsts=firsts, cacheN=cacheN, plan=plan,
+                                keymap=keymap or {}, t0=t0, t_host=t_host,
+                                t_dispatch=time.perf_counter())
 
+    def _sample_first(self, logits: torch.Tensor, reqs: List[Request], n_real: int,
+                      positions: List[int]) -> torch.Tensor:
+        """First tokens [N] from the last-token logits [N, V] of ``reqs``
+        (rows from ``n_real`` on are batch padding and take the argmax),
+        keyed on (seed, position) as every decode step samples."""
         def dev(values, dtype):
             return torch.tensor(values, dtype=dtype, device=self.device)
 
-        temps = [r.temperature if i < n_real else 0.0 for i, r in enumerate(padded)]
-        firsts = sample_batch(
-            last_logits, dev(temps, torch.float32),
-            dev([r.top_p for r in padded], torch.float32),
-            dev([r.seed & _MASK32 for r in padded], torch.int64),
-            dev(np.maximum(np.asarray(plan.lengths) - 1, 0).tolist(), torch.int64),
+        temps = [r.temperature if i < n_real else 0.0 for i, r in enumerate(reqs)]
+        return sample_batch(
+            logits, dev(temps, torch.float32), dev([r.top_p for r in reqs], torch.float32),
+            dev([r.seed & _MASK32 for r in reqs], torch.int64), dev(positions, torch.int64),
             any(t > 0.0 for t in temps))
-        return _InflightPrefill(reqs=reqs, firsts=firsts, cacheN=cacheN, plan=plan, t0=t0,
-                                t_host=t_host, t_dispatch=time.perf_counter())
 
     def _finish_prefill(self, inf: _InflightPrefill) -> List[Optional[_Prepared]]:
         """Fetch the batch's first tokens (the wait for its prefill), emit
@@ -500,6 +765,10 @@ class BatchedEngine:
             prompt_len = int(inf.plan.lengths[i])
             # the Generator's clamp: as many tokens as the window holds
             budget = min(req.max_new_tokens, self.max_seq_len - prompt_len)
+            needed_pages = 0
+            if self.paged:
+                P = self.page_size
+                needed_pages = max(inf.cacheN.max_len // P, -(-(prompt_len + budget + 1) // P))
             tid = int(tids[i])
             req.first_token_ts = now
             if req.submit_ts:
@@ -511,7 +780,8 @@ class BatchedEngine:
             history = [int(t) for t in tokens_host[i][:prompt_len]] + [tid]
             preps.append(_Prepared(req=req, cache1=inf.cacheN, row=i, first_id=tid,
                                    prompt_len=prompt_len, budget=budget, out_ids=out_ids,
-                                   history=history))
+                                   history=history, needed_pages=needed_pages,
+                                   page_keys=inf.keymap.get(id(req), [])))
         return preps
 
     # -- engine thread ----------------------------------------------------
@@ -541,27 +811,90 @@ class BatchedEngine:
         inserted = 0
         free = [i for i, s in enumerate(self._slots) if s.request is None]
         while free:
-            try:
-                prep = self._ready.get_nowait()
-            except queue.Empty:
-                break
+            prep, self._waiting = self._waiting, None
+            if prep is None:
+                try:
+                    prep = self._ready.get_nowait()
+                except queue.Empty:
+                    break
             slot_id = free.pop(0)
             try:
                 self._insert_prepared(slot_id, prep)
                 inserted += 1
+            except _PoolExhausted:
+                # hold the prepared request until finished slots free pages
+                self._waiting = prep
+                break
             except Exception:
                 logger.exception("insert failed")
                 self._end([prep.req])
         return inserted
 
-    def _insert_prepared(self, slot_id: int, prep: _Prepared):
-        self._insert(prep.cache1, prep.row, slot_id, prep.first_id)
+    def _insert_prepared(self, slot_id: int, prep):
+        if isinstance(prep, _PreparedSuffix):
+            return self._insert_suffix(slot_id, prep)
+        pages: List[int] = []
+        if self.paged:
+            pages = self._alloc_pages(prep.needed_pages)  # may raise _PoolExhausted
+            try:
+                self._insert_paged(prep.cache1, prep.row, slot_id, pages, prep.first_id)
+            except Exception:
+                self._release_pages(pages)
+                raise
+            self._publish_prefix(prep.page_keys, pages)
+        else:
+            self._insert(prep.cache1, prep.row, slot_id, prep.first_id)
         slot = self._slots[slot_id]
+        slot.pages = pages
         slot.request = prep.req
         slot.out_ids = prep.out_ids
         slot.pos = prep.prompt_len
         slot.budget = prep.budget
         slot.history = prep.history
+        slot.skip_next_emit = True
+
+    def _insert_suffix(self, slot_id: int, prep: _PreparedSuffix):
+        """Admit a prefix-cache hit: attach the shared prefix pages and fresh
+        ones to the slot, prefill only the suffix over the pool, emit the
+        first token (so a hit's TTFT is the suffix prefill's, with no vision
+        encode) and activate the slot."""
+        req = prep.req
+        fresh = self._alloc_pages(prep.needed_pages)  # may raise _PoolExhausted
+        pages = prep.hit_pages + fresh
+        suffix_len = prep.prompt_len - prep.prefix_len
+        Tb = -(-suffix_len // self.prefill_bucket) * self.prefill_bucket
+        toks = np.zeros((1, Tb), np.int64)
+        toks[0, :suffix_len] = prep.suffix_ids
+        seg = np.zeros((1, Tb), np.int32)
+        seg[0, :suffix_len] = 1
+        try:
+            last = self._prefill_suffix(slot_id, pages, prep.prefix_len,
+                                        torch.from_numpy(toks).to(self.device),
+                                        torch.from_numpy(seg).to(self.device))
+            tid = int(self._sample_first(last, [req], 1, [prep.prompt_len - 1])[0])
+        except Exception:
+            self._release_pages(pages)  # the pinned hits are this request's too
+            raise
+        now = time.time()
+        req.first_token_ts = now
+        if req.submit_ts:
+            self.ttfts.append(now - req.submit_ts)
+        self.prefix_hit_tokens += prep.prefix_len
+        out_ids, budget, finished = self._emit_first(req, tid, prep.budget)
+        self._publish_prefix(prep.page_keys, pages)
+        if finished:
+            # the slot stays free; its next occupant's insert rebuilds its
+            # seg row and page table
+            self._release_pages(pages)
+            return
+        self.tokens[slot_id, 0] = tid
+        slot = self._slots[slot_id]
+        slot.request = req
+        slot.out_ids = out_ids
+        slot.pos = prep.prompt_len
+        slot.budget = budget
+        slot.pages = pages
+        slot.history = prep.history + [tid]
         slot.skip_next_emit = True
 
     def _emit_token(self, slot: _Slot, tid: int) -> bool:
@@ -590,6 +923,9 @@ class BatchedEngine:
         slot.request._chunks.put(None)
         slot.request._done.set()
         slot.request = None
+        if slot.pages:
+            self._release_pages(slot.pages)
+            slot.pages = []
 
     def _emit_column(self, tokens_host):
         """Emit one decoded column: each active slot's token, with eos /
@@ -626,7 +962,7 @@ class BatchedEngine:
     def _decode_chunk(self, active_idx: List[int]):
         # A prepared request waiting to insert gets the next admission point
         # after one step (its first token was already emitted).
-        k = 1 if not self._ready.empty() else self.decode_chunk
+        k = 1 if (self._waiting is not None or not self._ready.empty()) else self.decode_chunk
         B = self.max_slots
         active = np.zeros(B, bool)
         temps = np.zeros(B, np.float32)

@@ -1,32 +1,49 @@
-"""PyTorch backend for the shared model worker.
+"""Model worker: the HTTP surface of one served model, and the PyTorch backend.
 
-The HTTP worker (``llava_plus_tpu.serve.model_worker``: ``ModelWorker``,
-``build_app``, the wire protocol) is framework-free and is used as it is;
-:class:`TorchBackend` plugs the port in behind its backend seam. By default
-requests go through the continuous-batching :class:`~llava_plus_torch.serve.engine.BatchedEngine`,
-as the JAX worker serves them; ``use_engine=False`` serves one request at a
-time through the single-stream :class:`~llava_plus_torch.generate.Generator`.
-``ModelWorker``, ``build_app`` and the client's chunk reader are re-exported
-here for callers of the port.
+The port's own copy of ``llava_plus_tpu/serve/model_worker.py``'s
+``ModelWorker``, ``heart_beat_worker`` and ``build_app`` (wire-compatible with
+the reference's worker: registration, heartbeats, semaphore-limited
+``/worker_generate_stream`` with b"\\0"-delimited cumulative-text chunks), with
+``/worker_profile_start|stop`` on ``torch.profiler``. :class:`TorchBackend`
+sits behind the worker's backend seam: by default requests go through the
+continuous-batching :class:`~llava_plus_torch.serve.engine.BatchedEngine`
+(dense or paged KV), as the JAX worker serves them; ``use_engine=False``
+serves one request at a time through the single-stream
+:class:`~llava_plus_torch.generate.Generator`.
 """
 
 from __future__ import annotations
 
+import asyncio
+import logging
+import os
+import threading
+import time
+import uuid
 from typing import Iterator, Optional
 
 import torch
 
-from llava_plus_tpu.constants import (
+from llava_plus_torch.constants import (
     DEFAULT_IM_END_TOKEN,
     DEFAULT_IM_START_TOKEN,
     DEFAULT_IMAGE_TOKEN,
+    WORKER_HEART_BEAT_INTERVAL,
 )
-from llava_plus_tpu.mm_utils import load_image_from_base64, process_images
-from llava_plus_tpu.serve.model_worker import ModelWorker, build_app  # noqa: F401
-from llava_plus_tpu.serve.protocol import iter_chunks_requests  # noqa: F401
 from llava_plus_torch.generate import Generator
+from llava_plus_torch.mm_utils import load_image_from_base64, process_images
 from llava_plus_torch.ops.quant import quantize_llava_params
 from llava_plus_torch.serve.engine import BatchedEngine, Request
+from llava_plus_torch.serve.protocol import encode_chunk, iter_chunks_requests  # noqa: F401
+from llava_plus_torch.utils.logging import (
+    build_logger,
+    pretty_print_semaphore,
+    server_error_msg,
+)
+
+worker_id = str(uuid.uuid4())[:6]
+# handlers (console and a log file) are attached when a ModelWorker is made
+logger = logging.getLogger("model_worker")
 
 
 class TorchBackend:
@@ -36,14 +53,20 @@ class TorchBackend:
     in place (the caller's tree is consumed) and fuses them (``wqkv``,
     ``w_gateup``): the port's ``--load-8bit`` / ``--load-4bit``.
     ``kv_int8`` stores the KV cache as int8 with per-(token, head) scales.
-    ``warmup_len`` > 0 warms the engine at that prompt length before the
-    first request."""
+    ``paged=True`` serves over a paged KV pool of ``pool_tokens`` tokens
+    (default ``max_slots * max_seq_len``) with the prefix cache on unless
+    ``prefix_cache=False``, as the JAX worker's ``--paged``. ``max_seq_len``
+    overrides the context length (a paged pool makes contexts past 2048
+    practical). ``warmup_len`` > 0 warms the engine at that prompt length
+    before the first request."""
 
     def __init__(self, params, cfg, tokenizer, image_processor=None, *,
                  device, use_engine: bool = True, max_slots: int = 8,
                  decode_chunk: int = 4, quantize: Optional[str] = None,
                  kv_int8: bool = False, max_seq_len: Optional[int] = None,
-                 warmup_len: int = 0, stream_interval: int = 1):
+                 paged: bool = False, pool_tokens: Optional[int] = None,
+                 prefix_cache: bool = True, warmup_len: int = 0,
+                 stream_interval: int = 1):
         if quantize not in (None, "int8", "int4"):
             raise ValueError(f"quantize must be None, 'int8' or 'int4', got {quantize!r}")
         self.cfg = cfg
@@ -61,7 +84,9 @@ class TorchBackend:
         if use_engine:
             self.engine = BatchedEngine(params, cfg, tokenizer, max_slots=max_slots,
                                         max_seq_len=self.context_len,
-                                        decode_chunk=decode_chunk, cache_dtype=cache_dtype)
+                                        decode_chunk=decode_chunk, cache_dtype=cache_dtype,
+                                        paged=paged, pool_tokens=pool_tokens,
+                                        prefix_cache=prefix_cache)
             if warmup_len:
                 self.engine.warmup(prompt_len=warmup_len, image=self.is_multimodal)
         else:
@@ -129,3 +154,255 @@ class TorchBackend:
                 last = text
         if last is not None:
             yield ori_prompt + last
+
+
+def heart_beat_worker(worker: "ModelWorker"):
+    while not worker._stop.wait(WORKER_HEART_BEAT_INTERVAL):
+        worker.send_heart_beat()
+
+
+class ModelWorker:
+    def __init__(
+        self,
+        controller_addr: str,
+        worker_addr: str,
+        backend,
+        model_names,
+        *,
+        limit_model_concurrency: int = 5,
+        no_register: bool = False,
+        heartbeats: bool = True,
+    ):
+        build_logger("model_worker", f"model_worker_{worker_id}.log")
+        self.controller_addr = controller_addr
+        self.worker_addr = worker_addr
+        self.worker_id = worker_id
+        self.backend = backend
+        self.model_names = list(model_names)
+        self.limit_model_concurrency = limit_model_concurrency
+        self.semaphore: Optional[asyncio.Semaphore] = None
+        self.global_counter = 0
+        self.metrics: dict = {}
+        self.profiler = None  # a running torch.profiler session (/worker_profile_*)
+        self._stop = threading.Event()
+        self.no_register = no_register
+        if not no_register:
+            self.register_to_controller()
+            if heartbeats:
+                t = threading.Thread(
+                    target=heart_beat_worker, args=(self,), daemon=True
+                )
+                t.start()
+
+    # -- control plane ------------------------------------------------------
+
+    def register_to_controller(self):
+        import requests
+
+        logger.info("Register to controller")
+        url = self.controller_addr + "/register_worker"
+        data = {
+            "worker_name": self.worker_addr,
+            "check_heart_beat": True,
+            "worker_status": self.get_status(),
+        }
+        r = requests.post(url, json=data)
+        assert r.status_code == 200
+
+    def send_heart_beat(self):
+        import requests
+
+        logger.info(
+            f"Send heart beat. Models: {self.model_names}. "
+            f"Semaphore: {pretty_print_semaphore(self.semaphore)}. "
+            f"global_counter: {self.global_counter}"
+        )
+        url = self.controller_addr + "/receive_heart_beat"
+        while True:
+            try:
+                ret = requests.post(url, json={
+                    "worker_name": self.worker_addr,
+                    "queue_length": self.get_queue_length(),
+                }, timeout=5)
+                exist = ret.json()["exist"]
+                break
+            except Exception as e:
+                logger.error(f"heart beat error: {e}")
+            time.sleep(5)
+        if not exist:
+            self.register_to_controller()
+
+    def get_queue_length(self) -> int:
+        if (
+            self.semaphore is None
+            or self.semaphore._value is None
+            or self.semaphore._waiters is None
+        ):
+            return 0
+        return (
+            self.limit_model_concurrency
+            - self.semaphore._value
+            + len(self.semaphore._waiters)
+        )
+
+    def get_status(self) -> dict:
+        return {
+            "model_names": self.model_names,
+            "speed": 1,
+            "queue_length": self.get_queue_length(),
+        }
+
+    def stop(self):
+        self._stop.set()
+
+    # -- observability ------------------------------------------------------
+    # (the reference has none beyond heartbeat logs — SURVEY.md §5)
+
+    def get_metrics(self) -> dict:
+        m = dict(self.metrics)
+        n = max(m.pop("_requests", 0), 1)
+        m["requests"] = self.metrics.get("_requests", 0)
+        m["mean_ttft_s"] = m.pop("_ttft_sum", 0.0) / n
+        total_decode = m.pop("_decode_time_sum", 0.0)
+        m["decode_tok_s"] = (
+            m.get("_tokens_sum", 0) / total_decode if total_decode else 0.0
+        )
+        m["total_tokens"] = m.pop("_tokens_sum", 0)
+        engine = getattr(self.backend, "engine", None)
+        if engine is not None:
+            m["engine_active_slots"] = engine.num_active
+            m["engine_max_slots"] = engine.max_slots
+            m["engine_prefill_dispatches"] = engine.prefill_dispatches
+            m["engine_prefill_requests"] = engine.prefill_requests
+            if engine._prefix is not None:
+                m["engine_prefix_entries"] = len(engine._prefix)
+                m["engine_prefix_lookups"] = engine._prefix.lookups
+                m["engine_prefix_hits"] = engine._prefix.hit_requests
+                m["engine_prefix_hit_tokens"] = engine.prefix_hit_tokens
+        return m
+
+    # -- profiling ----------------------------------------------------------
+
+    def profile_start(self, log_dir: str) -> None:
+        """Start a ``torch.profiler`` session (the card too, when there is
+        one); :meth:`profile_stop` writes its Chrome trace into ``log_dir``."""
+        if self.profiler is not None:
+            raise RuntimeError("a profile is already running")
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        self.profiler, self.profile_dir = prof, log_dir
+
+    def profile_stop(self) -> str:
+        prof, self.profiler = self.profiler, None
+        if prof is None:
+            raise RuntimeError("no profile is running")
+        prof.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        path = os.path.join(self.profile_dir, f"worker_{self.worker_id}_trace.json")
+        prof.export_chrome_trace(path)
+        return path
+
+    # -- data plane ---------------------------------------------------------
+
+    def generate_stream_gate(self, params: dict) -> Iterator[bytes]:
+        """Error-gated stream: text chunks -> wire chunks
+        (ref model_worker.py:194-218), with TTFT/decode-rate accounting."""
+        t0 = time.perf_counter()
+        first_t = None
+        n_chunks = 0
+        try:
+            for text in self.backend.generate_stream(params):
+                if first_t is None:
+                    first_t = time.perf_counter()
+                n_chunks += 1
+                yield encode_chunk({"text": text, "error_code": 0})
+        except ValueError as e:
+            logger.error(f"Caught ValueError: {e}")
+            yield encode_chunk({
+                "text": f"{server_error_msg}\n\n({e})", "error_code": 1,
+            })
+        except Exception as e:
+            logger.error(f"Caught Unknown Error: {e}")
+            yield encode_chunk({
+                "text": f"{server_error_msg}\n\n({e})", "error_code": 1,
+            })
+        finally:
+            end = time.perf_counter()
+            self.metrics["_requests"] = self.metrics.get("_requests", 0) + 1
+            if first_t is not None:
+                self.metrics["_ttft_sum"] = (
+                    self.metrics.get("_ttft_sum", 0.0) + (first_t - t0)
+                )
+                self.metrics["_decode_time_sum"] = (
+                    self.metrics.get("_decode_time_sum", 0.0) + (end - first_t)
+                )
+                self.metrics["_tokens_sum"] = (
+                    self.metrics.get("_tokens_sum", 0) + n_chunks
+                )
+
+
+# ---------------------------------------------------------------------------
+# HTTP app (aiohttp)
+# ---------------------------------------------------------------------------
+
+def build_app(worker: ModelWorker):
+    from aiohttp import web
+
+    routes = web.RouteTableDef()
+
+    @routes.post("/worker_generate_stream")
+    async def worker_generate_stream(request):
+        params = await request.json()
+        worker.global_counter += 1
+        if worker.semaphore is None:
+            worker.semaphore = asyncio.Semaphore(worker.limit_model_concurrency)
+        await worker.semaphore.acquire()
+        if not worker.no_register:
+            # per-request queue-length heartbeat (ref model_worker.py:239);
+            # skipped standalone — the reference retries a nonexistent
+            # controller forever here, wedging the response (ref bug)
+            worker.send_heart_beat()
+        resp = web.StreamResponse()
+        await resp.prepare(request)
+        loop = asyncio.get_event_loop()
+        try:
+            gen = worker.generate_stream_gate(params)
+            while True:
+                chunk = await loop.run_in_executor(None, next, gen, None)
+                if chunk is None:
+                    break
+                await resp.write(chunk)
+        finally:
+            worker.semaphore.release()
+            if not worker.no_register:
+                worker.send_heart_beat()
+        await resp.write_eof()
+        return resp
+
+    @routes.post("/worker_get_status")
+    async def worker_get_status(request):
+        return web.json_response(worker.get_status())
+
+    @routes.post("/worker_metrics")
+    async def worker_metrics(request):
+        return web.json_response(worker.get_metrics())
+
+    @routes.post("/worker_profile_start")
+    async def worker_profile_start(request):
+        """Start a torch.profiler trace (open the JSON in chrome://tracing
+        or Perfetto)."""
+        data = await request.json()
+        log_dir = data.get("log_dir", "profile_out")
+        worker.profile_start(log_dir)
+        return web.json_response({"log_dir": log_dir})
+
+    @routes.post("/worker_profile_stop")
+    async def worker_profile_stop(request):
+        return web.json_response({"trace": worker.profile_stop()})
+
+    app = web.Application(client_max_size=64 * 1024 * 1024)
+    app.add_routes(routes)
+    return app

@@ -23,10 +23,11 @@ import jax
 import jax.numpy as jnp
 
 from llava_plus_tpu.models import llava as jax_llava
-from llava_plus_tpu.models.configs import tiny_llava_config
+from llava_plus_tpu.models.configs import tiny_llava_config as jax_tiny_config
 from llava_plus_tpu.ops import quant as jax_quant
 from llava_plus_tpu.serve import engine as jax_engine
 from llava_plus_torch.generate import Generator
+from llava_plus_torch.models.configs import LlavaConfig, tiny_llava_config
 from llava_plus_torch.models.convert import from_numpy
 from llava_plus_torch.serve.engine import BatchedEngine, Request, counter_uniform
 
@@ -35,6 +36,7 @@ from .test_generate import CharTokenizer
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
 CFG = tiny_llava_config()
+JCFG = jax_tiny_config()  # the same config, the JAX package's own
 S = 96
 
 
@@ -49,14 +51,14 @@ def _text(gen, prompt, n, **kw):
 
 @pytest.fixture(scope="module")
 def setup():
-    jp = jax_llava.init_params(CFG, jax.random.PRNGKey(0), dtype=jnp.float32)
+    jp = jax_llava.init_params(JCFG, jax.random.PRNGKey(0), dtype=jnp.float32)
     tp = from_numpy(_np(jp), "cpu")
     tok = CharTokenizer()
     engine = BatchedEngine(tp, CFG, tok, max_slots=4, max_seq_len=S, prefill_bucket=32,
                            cache_dtype=torch.float32)
     gen = Generator(tp, CFG, tok, device="cpu", max_seq_len=S, prefill_bucket=32,
                     cache_dtype=torch.float32)
-    jeng = jax_engine.BatchedEngine(jp, CFG, tok, max_slots=4, max_seq_len=S,
+    jeng = jax_engine.BatchedEngine(jp, JCFG, tok, max_slots=4, max_seq_len=S,
                                     prefill_bucket=32, cache_dtype=jnp.float32)
     yield engine, gen, jeng
     engine.stop()
@@ -258,7 +260,8 @@ def test_counter_uniform_rows_are_independent():
 def test_quantized_engine_matches_jax_engine(bits):
     """Fused quantized weights (MHA: wqkv and w_gateup fuse), the JAX tree
     carried across: the engines' greedy text is the same."""
-    cfg = dataclasses.replace(CFG, text=dataclasses.replace(CFG.text, num_key_value_heads=4))
+    cfg = dataclasses.replace(JCFG, text=dataclasses.replace(JCFG.text, num_key_value_heads=4))
+    tcfg = LlavaConfig.from_json(cfg.to_json())  # the port's own copy of cfg
     jp = jax_quant.quantize_llava_params(
         jax_llava.init_params(cfg, jax.random.PRNGKey(2), dtype=jnp.float32),
         bits=bits, fuse=True)
@@ -267,7 +270,7 @@ def test_quantized_engine_matches_jax_engine(bits):
     tok = CharTokenizer()
     kw = dict(max_slots=2, max_seq_len=S, prefill_bucket=32)
     jeng = jax_engine.BatchedEngine(jp, cfg, tok, cache_dtype=jnp.float32, **kw)
-    eng = BatchedEngine(tp, cfg, tok, cache_dtype=torch.float32, **kw)
+    eng = BatchedEngine(tp, tcfg, tok, cache_dtype=torch.float32, **kw)
     try:
         for prompt in ["hello", "quantized"]:
             want = jeng.generate(jax_engine.Request(prompt=prompt, max_new_tokens=8))
@@ -279,7 +282,7 @@ def test_quantized_engine_matches_jax_engine(bits):
 
 def test_unported_engine_options_raise(setup):
     engine, _, _ = setup
-    for kw in (dict(paged=True), dict(speculate=4), dict(w8a8=True), dict(mesh=object())):
+    for kw in (dict(speculate=4), dict(w8a8=True), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             BatchedEngine(engine.params, CFG, engine.tokenizer, **kw)
     mpt = dataclasses.replace(CFG, language_model_type="mpt")
@@ -381,14 +384,14 @@ def test_engine_backend_over_http_matches_jax_backend(tmp_path):
     from llava_plus_tpu.serve.model_worker import JaxBackend
 
     ctx = 256  # the engine's default 256-token prefill bucket fits the window
-    jp = jax_llava.init_params(CFG, jax.random.PRNGKey(0), dtype=jnp.float32)
+    jp = jax_llava.init_params(JCFG, jax.random.PRNGKey(0), dtype=jnp.float32)
     tok = CharTokenizer()
     size = CFG.vision.image_size
     jb = object.__new__(JaxBackend)  # a loaded backend, without the checkpoint
-    jb.tokenizer, jb.cfg, jb.context_len, jb.is_multimodal = tok, CFG, ctx, True
+    jb.tokenizer, jb.cfg, jb.context_len, jb.is_multimodal = tok, JCFG, ctx, True
     jb.image_processor = ClipImageProcessor(shortest_edge=size, crop_size=size)
     jb.stream_interval, jb.generator = 2, None
-    jb.engine = jax_engine.BatchedEngine(jp, CFG, tok, max_slots=8, max_seq_len=ctx,
+    jb.engine = jax_engine.BatchedEngine(jp, JCFG, tok, max_slots=8, max_seq_len=ctx,
                                          cache_dtype=jnp.bfloat16)
     png = _png_b64(0, size)
     text = {"prompt": "tell me about the sea", "temperature": 0.0, "max_new_tokens": 12}

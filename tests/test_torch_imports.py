@@ -1,15 +1,27 @@
-"""The port imports without JAX: in a fresh interpreter, import every
+"""The port stands alone: in a fresh interpreter, import every
 ``llava_plus_torch`` module and run the tiny slice on the CPU (through
-``Generator.stream``, and through the shared HTTP worker as a client reaches
-it), then check that neither ``jax`` nor ``triton`` was imported and that no
-kernel build (``nvcc``) ran."""
+``Generator.stream``, and through the port's HTTP worker as a client reaches
+it, single stream and on the paged engine with a prefix hit), then check
+that neither ``jax`` nor ``triton`` nor any module of the JAX package
+(``llava_plus_tpu``) was imported and that no kernel build (``nvcc``) ran.
+And the port's own copies of the JAX package's framework-free modules
+(configs, the multimodal planner, tokenizer, image processing, prompt
+tokenization, the prefix-cache hashing, the wire framing) give what the
+originals give on seeded inputs."""
 
+import dataclasses
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+import pytest
+from PIL import Image
+
 ROOT = Path(__file__).resolve().parent.parent
+# top-level module names the port must never load
+FOREIGN = ("jax", "jaxlib", "triton", "llava_plus_tpu")
 
 SCRIPT = r"""
 import importlib, pkgutil, sys
@@ -36,7 +48,7 @@ gen = Generator(params, cfg, DebugTokenizer(vocab_size=cfg.text.vocab_size),
 img = torch.randn(1, 28, 28, 3).numpy()
 text = list(gen.stream("<image>\ndescribe it", img, max_new_tokens=4))
 assert text and len(gen._last_output_ids) >= 1
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "triton"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
 assert not bad, bad
 assert build._lib is None
 print("modules", len(names))
@@ -61,12 +73,14 @@ def no_build(*args, **kwargs):
     raise AssertionError("a kernel build (nvcc) was attempted")
 
 build.build = no_build
+paged = sys.argv[1] == "paged"
 cfg = tiny_llava_config()
 size = cfg.vision.image_size
 params = llava.init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
 backend = TorchBackend(params, cfg, DebugTokenizer(vocab_size=cfg.text.vocab_size),
                        ClipImageProcessor(shortest_edge=size, crop_size=size),
-                       device="cpu", use_engine=False, kv_int8=False, max_seq_len=128)
+                       device="cpu", use_engine=paged, paged=paged, kv_int8=paged,
+                       max_seq_len=256 if paged else 128)
 with socket.socket() as s:
     s.bind(("127.0.0.1", 0))
     port = s.getsockname()[1]
@@ -88,33 +102,125 @@ assert started.wait(10)
 buf = io.BytesIO()
 pixels = np.random.default_rng(0).integers(0, 256, size=(size, size, 3), dtype=np.uint8)
 Image.fromarray(pixels).save(buf, format="PNG")
-body = {"prompt": "<image>\nwhat is shown", "temperature": 0.0, "max_new_tokens": 4,
+prompt = "<image>\nwhat is shown " + " ".join(f"w{i}" for i in range(140 if paged else 2))
+body = {"prompt": prompt, "temperature": 0.0, "max_new_tokens": 4,
         "images": [base64.b64encode(buf.getvalue()).decode()]}
-r = requests.post(f"http://127.0.0.1:{port}/worker_generate_stream", json=body,
-                  stream=True, timeout=60)
-chunks = list(iter_chunks_requests(r))
-assert chunks and all(c["error_code"] == 0 for c in chunks), chunks
+chunks = []
+# on the paged engine the second turn re-sends the first: a prefix hit
+for turn in ([body, dict(body, prompt=prompt + " and then")] if paged else [body]):
+    r = requests.post(f"http://127.0.0.1:{port}/worker_generate_stream", json=turn,
+                      stream=True, timeout=60)
+    got = list(iter_chunks_requests(r))
+    assert got and all(c["error_code"] == 0 for c in got), got
+    chunks += got
+if paged:
+    metrics = requests.post(f"http://127.0.0.1:{port}/worker_metrics", timeout=10).json()
+    assert metrics["engine_prefix_hit_tokens"] >= 128, metrics
+    backend.stop()
 worker.stop()
 loop.call_soon_threadsafe(loop.stop)
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "triton"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
 assert not bad, bad
 assert build._lib is None
 print("chunks", len(chunks))
 """
 
 
-def _run(script):
+def _run(script, *args):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
-    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+    script = f"FOREIGN = {FOREIGN!r}\n" + script
+    out = subprocess.run([sys.executable, "-c", script, *args], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     return int(out.stdout.strip().splitlines()[-1].split()[-1])
 
 
 def test_port_imports_no_jax_and_runs_without_kernels():
-    assert _run(SCRIPT) >= 12  # every module of the package was imported
+    assert _run(SCRIPT) >= 20  # every module of the package was imported
 
 
 def test_port_http_path_imports_no_jax():
-    assert _run(HTTP_SCRIPT) >= 1
+    assert _run(HTTP_SCRIPT, "generator") >= 1
+
+
+def test_port_paged_engine_over_http_imports_no_jax():
+    assert _run(HTTP_SCRIPT, "paged") >= 2
+
+
+# -- the port's own copies against the JAX package's originals -------------
+
+@pytest.mark.parametrize("name", ["LLAVA_15_7B", "LLAVA_15_13B", "tiny_llava_config"])
+def test_configs_match_jax_field_for_field(name):
+    from llava_plus_tpu.models import configs as jax_configs
+    from llava_plus_torch.models import configs
+
+    mine, theirs = getattr(configs, name), getattr(jax_configs, name)
+    if callable(mine):
+        mine, theirs = mine(), theirs()
+    assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+    assert mine.num_image_tokens == theirs.num_image_tokens
+    assert mine.text.head_dim == theirs.text.head_dim
+
+
+def test_planner_matches_jax():
+    from llava_plus_tpu.data import multimodal as jax_mm
+    from llava_plus_torch.data import multimodal
+
+    rng = np.random.default_rng(0)
+    ids = [np.concatenate([[1], rng.integers(3, 500, size=n), [-200], rng.integers(3, 500, 4)])
+           for n in (3, 9, 20)]
+    labels = [np.where(x < 0, -100, x) for x in ids]
+    for kw in (dict(num_patches=4, max_len=16, pad_to_multiple=8),
+               dict(num_patches=6, max_len=64, padding_side="left", max_images=2),
+               dict(num_patches=4, max_len=12, pad_to=12)):
+        a = multimodal.plan_multimodal_batch(ids, labels, **kw)
+        b = jax_mm.plan_multimodal_batch(ids, labels, **kw)
+        for field in dataclasses.fields(a):
+            np.testing.assert_array_equal(getattr(a, field.name), getattr(b, field.name))
+    imgs = [rng.normal(size=(1, 4, 4, 3)), None, rng.normal(size=(3, 4, 4, 3))]
+    np.testing.assert_array_equal(multimodal.pad_images(imgs, 2, (4, 4, 3)),
+                                  jax_mm.pad_images(imgs, 2, (4, 4, 3)))
+
+
+def test_tokenizers_and_image_processing_match_jax():
+    from llava_plus_tpu import mm_utils as jax_mm_utils
+    from llava_plus_tpu.data.debug_tokenizer import DebugTokenizer as JaxTok
+    from llava_plus_tpu.data.image_processing import ClipImageProcessor as JaxProc
+    from llava_plus_tpu.models.configs import LLAVA_15_7B as JAX_7B
+    from llava_plus_torch import mm_utils
+    from llava_plus_torch.data import ClipImageProcessor, DebugTokenizer
+    from llava_plus_torch.models.configs import LLAVA_15_7B
+
+    mine, theirs = DebugTokenizer(vocab_size=32000), JaxTok(vocab_size=32000)
+    prompt = "USER: <image>\nwhat is in it </s> ASSISTANT: a cat \n<image> and more "
+    ids = mm_utils.tokenizer_image_token(prompt, mine)
+    assert ids == jax_mm_utils.tokenizer_image_token(prompt, theirs)
+    np.testing.assert_array_equal(mm_utils.tokenizer_image_token(prompt, mine, return_tensors="np"),
+                                  jax_mm_utils.tokenizer_image_token(prompt, theirs,
+                                                                     return_tensors="np"))
+    assert mine.decode(ids) == theirs.decode(ids)
+    rng = np.random.default_rng(1)
+    images = [Image.fromarray(rng.integers(0, 256, size=s, dtype=np.uint8))
+              for s in ((300, 420, 3), (336, 336, 3), (500, 200, 3))]
+    np.testing.assert_array_equal(
+        mm_utils.process_images(images, ClipImageProcessor(), LLAVA_15_7B),
+        jax_mm_utils.process_images(images, JaxProc(), JAX_7B))
+    assert mm_utils.expand2square(images[0], (1, 2, 3)).size == (420, 420)
+
+
+def test_prefix_hashing_and_wire_framing_match_jax():
+    from llava_plus_tpu.serve import prefix_cache as jax_pc
+    from llava_plus_tpu.serve import protocol as jax_protocol
+    from llava_plus_torch.serve import prefix_cache, protocol
+
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, 32000, size=700)
+    img = rng.normal(size=(336, 336, 3)).astype(np.float32)
+    assert prefix_cache.image_digest(img) == jax_pc.image_digest(img)
+    spans = [(1, prefix_cache.image_digest(img))]
+    for kw in (dict(), dict(n_pages=3)):
+        assert (prefix_cache.page_keys(toks, spans, 576, 128, **kw)
+                == jax_pc.page_keys(toks, spans, 576, 128, **kw))
+    payload = {"text": "hi \u00e9", "error_code": 0}
+    assert protocol.encode_chunk(payload) == jax_protocol.encode_chunk(payload)

@@ -14,17 +14,19 @@ import jax
 import jax.numpy as jnp
 
 from llava_plus_tpu.models import llama as jax_llama
-from llava_plus_tpu.models.configs import tiny_llava_config
+from llava_plus_tpu.models.configs import tiny_llava_config as jax_tiny_config
 from llava_plus_torch.models import llama
+from llava_plus_torch.models.configs import tiny_llava_config
 from llava_plus_torch.models.convert import from_numpy
 
 torch.set_num_threads(1)
 CFG = tiny_llava_config().text  # GQA: 4 query heads over 2 kv heads
+JCFG = jax_tiny_config().text   # the same config, the JAX package's own
 
 
 @pytest.fixture(scope="module")
 def params():
-    p = jax_llama.init_params(CFG, jax.random.PRNGKey(0), dtype=jnp.float32)
+    p = jax_llama.init_params(JCFG, jax.random.PRNGKey(0), dtype=jnp.float32)
     npp = jax.tree.map(np.asarray, p)
     return p, from_numpy(npp, "cpu")
 
@@ -101,7 +103,7 @@ def test_prefill_and_decode_match_jax(params, cache_kind):
     ids, seg, pos, S = _prompt_batch()
     B = ids.shape[0]
     if cache_kind == "none":
-        want, _ = jax_llama.forward(jp, CFG, jnp.asarray(ids), segment_ids=jnp.asarray(seg))
+        want, _ = jax_llama.forward(jp, JCFG, jnp.asarray(ids), segment_ids=jnp.asarray(seg))
         got, _ = llama.forward(tp, CFG, torch.from_numpy(ids),
                                segment_ids=torch.from_numpy(seg))
         rows = seg > 0
@@ -110,11 +112,11 @@ def test_prefill_and_decode_match_jax(params, cache_kind):
         return
     jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if cache_kind == "bf16"
                 else (jnp.int8, torch.int8))
-    jcache = jax_llama.KVCache.create(CFG, B, S, jdt)
+    jcache = jax_llama.KVCache.create(JCFG, B, S, jdt)
     tcache = llama.KVCache.create(CFG, B, S, tdt, device="cpu")
     last = seg.sum(1) - 1
     want, jcache = jax_llama.forward(
-        jp, CFG, jnp.asarray(ids), positions=jnp.asarray(pos),
+        jp, JCFG, jnp.asarray(ids), positions=jnp.asarray(pos),
         segment_ids=jnp.asarray(seg), cache=jcache, fresh_prefill=True,
         logits_positions=jnp.asarray(last))
     got, _ = llama.forward(
@@ -127,7 +129,7 @@ def test_prefill_and_decode_match_jax(params, cache_kind):
     for _ in range(4):
         p = p + 1
         one = np.ones((B, 1), np.int32)
-        want, jcache = jax_llama.forward(jp, CFG, jnp.asarray(tok), positions=jnp.asarray(p),
+        want, jcache = jax_llama.forward(jp, JCFG, jnp.asarray(tok), positions=jnp.asarray(p),
                                          segment_ids=jnp.asarray(one), cache=jcache)
         got, _ = llama.forward(tp, CFG, torch.from_numpy(tok), positions=torch.from_numpy(p),
                                segment_ids=torch.from_numpy(one), cache=tcache)

@@ -11,23 +11,26 @@ import jax
 import jax.numpy as jnp
 
 from llava_plus_tpu import generate as jax_generate
-from llava_plus_tpu.data.debug_tokenizer import DebugTokenizer
+from llava_plus_tpu.data.debug_tokenizer import DebugTokenizer as JaxDebugTokenizer
 from llava_plus_tpu.models import clip_vit as jax_clip
 from llava_plus_tpu.models import llava as jax_llava
 from llava_plus_tpu.models import projector as jax_projector
-from llava_plus_tpu.models.configs import tiny_llava_config
+from llava_plus_tpu.models.configs import tiny_llava_config as jax_tiny_config
 from llava_plus_torch import generate
+from llava_plus_torch.data import DebugTokenizer
+from llava_plus_torch.models.configs import tiny_llava_config
 from llava_plus_torch.models import clip_vit, llava, projector
 from llava_plus_torch.models.convert import from_numpy
 
 torch.set_num_threads(1)
 CFG = tiny_llava_config()
+JCFG = jax_tiny_config()  # the same config, the JAX package's own
 TOL = dict(atol=1e-5, rtol=1e-4)
 
 
 @pytest.fixture(scope="module")
 def params():
-    p = jax_llava.init_params(CFG, jax.random.PRNGKey(0), dtype=jnp.float32)
+    p = jax_llava.init_params(JCFG, jax.random.PRNGKey(0), dtype=jnp.float32)
     return p, from_numpy(jax.tree.map(np.asarray, p), "cpu")
 
 
@@ -39,7 +42,7 @@ def _images(n, seed=0):
 def test_clip_encode_matches_jax(params):
     jp, tp = params
     imgs = _images(2)
-    want = jax_clip.encode(jp["vision_tower"], CFG.vision, jnp.asarray(imgs))
+    want = jax_clip.encode(jp["vision_tower"], JCFG.vision, jnp.asarray(imgs))
     got = clip_vit.encode(tp["vision_tower"], CFG.vision, torch.from_numpy(imgs))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     assert got.shape == (2, CFG.vision.num_patches, CFG.vision.hidden_size)
@@ -61,9 +64,10 @@ def test_fuse_matches_jax_with_dropped_image_positions(params):
     is text only (its pad image drops entirely)."""
     jp, tp = params
     tok = DebugTokenizer(vocab_size=CFG.text.vocab_size)
+    jtok = JaxDebugTokenizer(vocab_size=CFG.text.vocab_size)
     prompts = ["hello <image>\nwhat is it", "just some words here"]
     batch_j, plan = jax_generate.prepare_multimodal_request(
-        CFG, tok, prompts, [_images(1), None], max_seq_len=5, prefill_bucket=1)
+        JCFG, jtok, prompts, [_images(1), None], max_seq_len=5, prefill_bucket=1)
     batch_t, _ = generate.prepare_multimodal_request(
         CFG, tok, prompts, [_images(1), None], max_seq_len=5, prefill_bucket=1,
         device="cpu")
@@ -71,7 +75,7 @@ def test_fuse_matches_jax_with_dropped_image_positions(params):
     for name in ("tokens", "positions", "segment_ids", "images", "image_pos"):
         np.testing.assert_array_equal(getattr(batch_t, name).numpy(),
                                       np.asarray(getattr(batch_j, name)))
-    want = jax_llava.fuse(jp, CFG, batch_j)
+    want = jax_llava.fuse(jp, JCFG, batch_j)
     got = llava.fuse(tp, CFG, batch_t)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
@@ -110,11 +114,12 @@ def test_top_p_support_matches_jax(top_p):
 def generators(params):
     jp, tp = params
     tok = DebugTokenizer(vocab_size=CFG.text.vocab_size)
+    jtok = JaxDebugTokenizer(vocab_size=CFG.text.vocab_size)
     out = {}
     for kv, jdt, tdt in (("bf16", jnp.bfloat16, torch.bfloat16),
                          ("int8", jnp.int8, torch.int8)):
         out[kv] = (
-            jax_generate.Generator(jp, CFG, tok, max_seq_len=128, prefill_bucket=32,
+            jax_generate.Generator(jp, JCFG, jtok, max_seq_len=128, prefill_bucket=32,
                                    cache_dtype=jdt),
             generate.Generator(tp, CFG, tok, device="cpu", max_seq_len=128,
                                prefill_bucket=32, cache_dtype=tdt),

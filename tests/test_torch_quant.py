@@ -21,13 +21,16 @@ import jax
 import jax.numpy as jnp
 
 from llava_plus_tpu import generate as jax_generate
-from llava_plus_tpu.data.debug_tokenizer import DebugTokenizer
+from llava_plus_tpu.data.debug_tokenizer import DebugTokenizer as JaxDebugTokenizer
 from llava_plus_tpu.models import llama as jax_llama
 from llava_plus_tpu.models import llava as jax_llava
 from llava_plus_tpu.models.configs import tiny_llava_config
 from llava_plus_tpu.ops import quant as jq
 from llava_plus_tpu.ops import quant_matmul as jqm
 from llava_plus_torch import generate
+from llava_plus_torch.data import DebugTokenizer
+from llava_plus_torch.models.configs import LlavaConfig
+from llava_plus_torch.models.configs import tiny_llava_config as torch_tiny_config
 from llava_plus_torch.models import llama, llava
 from llava_plus_torch.models.convert import from_numpy
 from llava_plus_torch.ops import quant, quant_matmul
@@ -192,21 +195,23 @@ def test_quantized_llava_prefill_and_decode_match_jax(bits, kv_heads):
     jp = jq.quantize_llava_params(p, bits=bits, fuse=True)
     tp = from_numpy(_np(jp), "cpu")
     assert ("wqkv" in tp["language_model"]["layers"]["attn"]) == (kv_heads == 4)
+    tcfg = LlavaConfig.from_json(cfg.to_json())  # the port's own copy of cfg
     tok = DebugTokenizer(vocab_size=cfg.text.vocab_size)
+    jtok = JaxDebugTokenizer(vocab_size=cfg.text.vocab_size)
     img = np.random.default_rng(6).normal(size=(1, 28, 28, 3)).astype(np.float32)
     prompt = ["<image>\ndescribe this picture please"]
     S = 96
     batch_j, plan = jax_generate.prepare_multimodal_request(
-        cfg, tok, prompt, [img], max_seq_len=S, prefill_bucket=32)
+        cfg, jtok, prompt, [img], max_seq_len=S, prefill_bucket=32)
     batch_t, _ = generate.prepare_multimodal_request(
-        cfg, tok, prompt, [img], max_seq_len=S, prefill_bucket=32, device="cpu")
+        tcfg, tok, prompt, [img], max_seq_len=S, prefill_bucket=32, device="cpu")
     n = int(plan.lengths[0])
     last = np.array([n - 1], np.int32)
     cache_j = jax_llama.KVCache.create(cfg.text, 1, S, jnp.float32)
-    cache_t = llama.KVCache.create(cfg.text, 1, S, torch.float32, device="cpu")
+    cache_t = llama.KVCache.create(tcfg.text, 1, S, torch.float32, device="cpu")
     want, cache_j = jax_llava.forward(jp, cfg, batch_j, cache=cache_j, fresh_prefill=True,
                                       logits_positions=jnp.asarray(last))
-    got, _ = llava.forward(tp, cfg, batch_t, cache=cache_t, fresh_prefill=True,
+    got, _ = llava.forward(tp, tcfg, batch_t, cache=cache_t, fresh_prefill=True,
                            logits_positions=torch.from_numpy(last).long())
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGITS)
     seg = np.ones((1, 1), np.int32)
@@ -215,13 +220,13 @@ def test_quantized_llava_prefill_and_decode_match_jax(bits, kv_heads):
         pos = np.array([[n + i]], np.int32)
         want, cache_j = jax_llava.decode_step(jp, cfg, jnp.asarray(token), jnp.asarray(pos),
                                               jnp.asarray(seg), cache_j)
-        got, _ = llava.decode_step(tp, cfg, torch.from_numpy(token).long(),
+        got, _ = llava.decode_step(tp, tcfg, torch.from_numpy(token).long(),
                                    torch.from_numpy(pos), torch.from_numpy(seg), cache_t)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGITS)
 
 
 def test_quantize_is_in_place_and_mpt_raises():
-    cfg = tiny_llava_config()
+    cfg = torch_tiny_config()
     params = llava.init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
     lm = params["language_model"]
     out = quant.quantize_llava_params(params, bits=8)

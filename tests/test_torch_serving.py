@@ -1,6 +1,6 @@
-"""The port behind the shared HTTP model worker, on the CPU: a tiny
-single-stream ``TorchBackend`` (``use_engine=False``) served by the
-unchanged ``ModelWorker``/``build_app`` over real HTTP, checked for the wire
+"""The port behind its HTTP model worker, on the CPU: a tiny single-stream
+``TorchBackend`` (``use_engine=False``) served by the port's
+``ModelWorker``/``build_app`` over real HTTP, checked for the wire
 format, ``error_code == 0`` on every chunk, and text equal to the port's
 ``Generator.stream``. The engine-backed worker is tested in
 ``test_torch_engine.py``."""
@@ -20,15 +20,15 @@ from PIL import Image
 import jax
 import jax.numpy as jnp
 
-from llava_plus_tpu.data.debug_tokenizer import DebugTokenizer
-from llava_plus_tpu.data.image_processing import ClipImageProcessor
-from llava_plus_tpu.mm_utils import process_images
 from llava_plus_tpu.models import llava as jax_llava
-from llava_plus_tpu.models.configs import tiny_llava_config
-from llava_plus_tpu.serve.model_worker import ModelWorker, build_app
-from llava_plus_tpu.serve.protocol import iter_chunks_requests
+from llava_plus_tpu.models.configs import tiny_llava_config as jax_tiny_config
+from llava_plus_torch.data import ClipImageProcessor, DebugTokenizer
+from llava_plus_torch.mm_utils import process_images
+from llava_plus_torch.models.configs import tiny_llava_config
 from llava_plus_torch.models.convert import from_numpy
-from llava_plus_torch.serve.model_worker import TorchBackend
+from llava_plus_torch.serve.model_worker import (
+    ModelWorker, TorchBackend, build_app, iter_chunks_requests,
+)
 
 torch.set_num_threads(1)
 CFG = tiny_llava_config()
@@ -67,7 +67,7 @@ class AppThread:
 
 @pytest.fixture(scope="module")
 def served():
-    p = jax_llava.init_params(CFG, jax.random.PRNGKey(0), dtype=jnp.float32)
+    p = jax_llava.init_params(jax_tiny_config(), jax.random.PRNGKey(0), dtype=jnp.float32)
     params = from_numpy(jax.tree.map(np.asarray, p), "cpu")
     processor = ClipImageProcessor(shortest_edge=SIZE, crop_size=SIZE)
     backend = TorchBackend(params, CFG, DebugTokenizer(vocab_size=CFG.text.vocab_size),

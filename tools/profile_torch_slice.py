@@ -25,6 +25,11 @@ as ``chip_smoke.py`` phase 6 serves it: the weights quantized in place to
            8 text prompts inserted from such prefills), each chunk ending
            with its tokens fetched to the host, as the engine loop does.
 
+``--engine --paged`` profiles the same on the paged engine, as
+``chip_smoke.py`` phase 7 serves it: an int8 KV pool of 256 pages of 128
+tokens (``pool_tokens`` 32768), slots of up to 4096 tokens, the prefills'
+stripes inserted into pool pages.
+
 For each it prints the host-clock ms per call or step, the device busy ms
 (the sum of the device time of every kernel, copy and memset in the trace,
 per call or step), the idle share (1 - busy / host), the device time by
@@ -33,7 +38,7 @@ class of kernel, and the kernels with the most device time. The full
 with the numbers printed.
 
 Usage: python tools/profile_torch_slice.py [--steps 16] [--out profile_out]
-       python tools/profile_torch_slice.py --engine [--quantize int8|int4]
+       python tools/profile_torch_slice.py --engine [--quantize int8|int4] [--paged]
 """
 
 import argparse
@@ -52,6 +57,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 CLASSES = (
+    ("paged_attention (kernel)", ("paged_decode1_kernel", "paged_general_kernel")),
     ("flash_fwd (kernel)", ("flash_fwd_kernel",)),
     ("decode_attention (kernel)", ("decode_kernel",)),
     ("quant_matmul (kernel)", ("quant_matmul_kernel",)),
@@ -105,6 +111,8 @@ def main():
     ap.add_argument("--engine", action="store_true",
                     help="profile the batching engine with quantized weights")
     ap.add_argument("--quantize", default="int8", choices=("int8", "int4"))
+    ap.add_argument("--paged", action="store_true",
+                    help="with --engine: the paged engine (256 pages of 128 tokens)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_slice: no CUDA device", file=sys.stderr)
@@ -215,8 +223,11 @@ def profile_engine(args):
     params = quantize_llava_params(params, bits=8 if args.quantize == "int8" else 4, fuse=True)
     tok = DebugTokenizer(vocab_size=cfg.text.vocab_size)
     tok.eos_token_id = -1  # random weights: every prefill fills its slot
-    engine = BatchedEngine(params, cfg, tok, max_slots=B, max_seq_len=2048,
-                           decode_chunk=chunk, cache_dtype=torch.int8)
+    S = 4096 if args.paged else 2048
+    engine = BatchedEngine(params, cfg, tok, max_slots=B, max_seq_len=S,
+                           decode_chunk=chunk, cache_dtype=torch.int8, paged=args.paged,
+                           pool_tokens=32768 if args.paged else None)
+    tag = f"{args.quantize}{'-paged' if args.paged else ''}"
     size = cfg.vision.image_size
     rng = np.random.default_rng(0)
 
@@ -229,7 +240,8 @@ def profile_engine(args):
         return [Request(prompt=" ".join(f"{tag}{j}w{i}" for i in range(60 + 80 * j)),
                         max_new_tokens=64) for j in range(4)]
 
-    result = {"card": smi, "quantize": args.quantize, "slots": B, "chunk": chunk}
+    result = {"card": smi, "quantize": args.quantize, "paged": args.paged, "slots": B,
+              "chunk": chunk}
     with torch.inference_mode():
         for _ in range(2):                          # warm-up: kernels, allocator, cuBLAS
             engine._prepare(image_reqs("warm"))
@@ -243,7 +255,11 @@ def profile_engine(args):
         for k, reqs in enumerate([image_reqs("a"), image_reqs("b"), text_reqs("c"),
                                   text_reqs("d")]):
             for j, prep in enumerate(engine._prepare(reqs)):
-                engine._insert(prep.cache1, prep.row, 4 * k + j, prep.first_id)
+                if args.paged:
+                    engine._insert_paged(prep.cache1, prep.row, 4 * k + j,
+                                         engine._alloc_pages(prep.needed_pages), prep.first_id)
+                else:
+                    engine._insert(prep.cache1, prep.row, 4 * k + j, prep.first_id)
                 positions.append(prep.prompt_len)
         dev_t = lambda a: torch.tensor(a, device=dev)
         pos = dev_t(positions).to(torch.int32)
@@ -265,18 +281,17 @@ def profile_engine(args):
         t0 = time.perf_counter()
         decode(n)
         step_ms = (time.perf_counter() - t0) / (n * chunk) * 1e3
-        print(f"mean fill at the profiled steps: {float(pos.float().mean()):.0f} of 2048")
+        print(f"mean fill at the profiled steps: {float(pos.float().mean()):.0f} of {S}")
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             engine._prepare(image_reqs("q"))
             torch.cuda.synchronize()
-        result["prefill"] = summarize(f"engine-prefill-{args.quantize}", prof, prefill_ms, 1,
-                                      args.out)
+        result["prefill"] = summarize(f"engine-prefill-{tag}", prof, prefill_ms, 1, args.out)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             decode(n)
             torch.cuda.synchronize()
-        result["decode"] = summarize(f"engine-decode-{args.quantize}", prof, step_ms,
-                                     n * chunk, args.out)
+        result["decode"] = summarize(f"engine-decode-{tag}", prof, step_ms, n * chunk,
+                                     args.out)
     engine.stop()
     print(json.dumps(result))
     return 0
