@@ -33,11 +33,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    an int8 KV pool of 256 pages shared by 16 slots of up to 4096 tokens,
    the prefix cache on; 16 concurrent requests (one of 3,000 tokens), then 8
    multi-turn follow-ups that reuse their pooled prefixes, with prefix hits,
-   vision encodes, launch counts and page accounting checked.
+   vision encodes, launch counts and page accounting checked;
+8. training on the narrow model, card (bf16, the flash forward and both
+   backward kernels, remat) against the CPU (f32, plain): the loss, the
+   gradient of the projector and of every language-model leaf, one AdamW
+   step and the kernels' launch counts, on packed and padded rows;
+9. LLaVA-1.5-7B stage 1 through the port's ``train()`` with the
+   ``scripts/v1_5/pretrain.sh`` recipe (projector only, batch 32) on 96
+   synthetic image-caption records: 3 steps, frozen bytes, the
+   ``mm_projector.bin`` export and the launch counts;
+10. LLaVA-1.5-7B stage 2 through ``make_train_step`` with the
+   ``scripts/v1_5/finetune.sh`` recipe reduced to batch 4 with gradient
+   accumulation 2, on 24 synthetic multi-turn image records of 700-2048
+   tokens: 3 steps, every trained leaf updated, the vision tower frozen, the
+   launch counts and the peak memory.
 
-Phase 3 also holds both paged kernels (decode1 and general) against their
-plain version, and phase 4 runs the narrow model over a paged cache with a
-bf16 and an int8 pool. Each kernel's line gives its bound (bytes over the
+Phase 3 also holds both paged kernels (decode1 and general) and both flash
+backward kernels (dK/dV and dQ, at T = 2048, MHA and GQA, a padded and a
+packed row) against their plain version, and phase 4 runs the narrow model
+over a paged cache with a bf16 and an int8 pool. Each kernel's line gives its bound (bytes over the
 H100's 3.35 TB/s or bf16 flops over 989 TFLOP/s, whichever is larger) and,
 where one PyTorch call computes the same function, that call's time.
 
@@ -54,6 +68,7 @@ import gc
 import io
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -63,8 +78,12 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# git-ignored scratch for the training phases' synthetic corpora and outputs
+SMOKE_DIR = os.path.join(HERE, ".smoke")
 
 FLASH_REPLACES = "llava_plus_tpu/ops/flash_attention.py:46"
+DKV_REPLACES = "llava_plus_tpu/ops/flash_attention.py:217"
+DQ_REPLACES = "llava_plus_tpu/ops/flash_attention.py:310"
 DECODE_REPLACES = "llava_plus_tpu/ops/decode_attention.py:41"
 INT8_REPLACES = "llava_plus_tpu/ops/quant_matmul.py:71"
 INT4_REPLACES = "llava_plus_tpu/ops/quant_matmul.py:127"
@@ -197,6 +216,90 @@ def check_flash(tag, B, T, H, Hkv, pad_tail, gen):
         raise AssertionError(f"flash_fwd {tag} disagrees with its plain version")
     return {"max_abs_err": k_err, "ms": ms, "plain_ms": plain_ms, **b,
             "library_ms": library_ms}
+
+
+def check_flash_bwd(tag, B, T, H, Hkv, gen):
+    """Both backward kernels at a training shape: causal, the first row
+    padded over its last 100 tokens, the second packed as two segments of
+    T/2. dq, dk and dv of the kernels (fed the forward kernel's output and
+    lse) and of the plain backward (fed the plain forward's) against the
+    f64 gradient of the f64 forward, every row included (padding rows and
+    padded keys must come out 0). The library yardstick is the backward of
+    ``scaled_dot_product_attention(is_causal=True)`` on the same q/k/v and
+    dO, heads-major: one call that computes what both kernels compute."""
+    import torch
+    import torch.nn.functional as F
+    from llava_plus_torch.ops import flash_attention as fa
+
+    dev, D = "cuda", 128
+    scale = D ** -0.5
+    q = torch.randn(B, T, H, D, generator=gen, device=dev).bfloat16()
+    k = torch.randn(B, T, Hkv, D, generator=gen, device=dev).bfloat16()
+    v = torch.randn(B, T, Hkv, D, generator=gen, device=dev).bfloat16()
+    do = torch.randn(B, T, H, D, generator=gen, device=dev).bfloat16()
+    seg = torch.ones(B, T, dtype=torch.int32, device=dev)
+    seg[0, T - 100:] = 0
+    seg[1, T // 2:] = 2
+    kw = dict(causal=True, sm_scale=scale)
+
+    out, lse = fa._launch(q, k, v, seg, seg, True, scale)
+    grads = fa.flash_attention_backward(q, k, v, seg, seg, out, lse, do, **kw)
+    p_out, p_lse = fa.flash_attention_reference(q, k, v, seg, seg, **kw)
+    plain = fa.flash_attention_backward_reference(q, k, v, seg, seg, p_out, p_lse, do, **kw)
+    q64, k64, v64 = q.double(), k.double(), v.double()
+    t_out, t_lse = fa.flash_attention_reference(q64, k64, v64, seg, seg, **kw)
+    truth = fa.flash_attention_backward_reference(q64, k64, v64, seg, seg, t_out, t_lse,
+                                                  do.double(), **kw)
+    del t_out, t_lse
+    torch.cuda.synchronize()
+    names = ("dq", "dk", "dv")
+    k_err = {n: (g.double() - t).abs().max().item() for n, g, t in zip(names, grads, truth)}
+    r_err = {n: (g.double() - t).abs().max().item() for n, g, t in zip(names, plain, truth)}
+    pad_rows = (seg == 0)
+    zero_pad = all(float(g[pad_rows].abs().max()) == 0.0 for g in grads)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    del plain, truth, q64, k64, v64
+
+    delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    dkv_ms = time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, seg, seg, lse, delta, **kw))
+    dq_ms = time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, seg, seg, lse, delta, **kw))
+    plain_ms = time_ms(lambda: fa.flash_attention_backward_reference(
+        q, k, v, seg, seg, p_out, p_lse, do, **kw), iters=5, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=Hkv != H)
+    g_lib = do.transpose(1, 2).contiguous()
+    library_ms = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), g_lib,
+                                                     retain_graph=True))
+    del o_lib, qt, kt, vt
+
+    # the causal pairs within each segment; dK/dV does 4 products of 2*D
+    # flops per pair and head (JAX's 8*T*T*D), dQ 3 (6*T*T*D)
+    pairs = 0
+    for row in seg.cpu().numpy():
+        for s_id in set(row.tolist()) - {0}:
+            n = int((row == s_id).sum())
+            pairs += n * (n + 1) // 2
+    qo_bytes = 2 * 2 * B * T * H * D             # q and dO
+    kv_bytes = 2 * 2 * B * T * Hkv * D           # k and v
+    small = 2 * 4 * B * H * T + 2 * 4 * B * T    # lse, delta; segment ids
+    b_dkv = bound(qo_bytes + kv_bytes + small + kv_bytes, 8 * D * H * pairs)
+    b_dq = bound(qo_bytes + kv_bytes + small + qo_bytes // 2, 6 * D * H * pairs)
+    ok_dkv = within(k_err["dk"], r_err["dk"]) and within(k_err["dv"], r_err["dv"])
+    ok_dq = within(k_err["dq"], r_err["dq"])
+    errs = ", ".join(f"{n} err {k_err[n]:.3e} (plain {r_err[n]:.3e})" for n in names)
+    log("kernels", f"flash_bwd {tag} B={B} T={T} H={H} Hkv={Hkv} D={D} causal, row 0 padded "
+                   f"over 100, row 1 two segments: {errs}; padding rows zero={zero_pad}; "
+                   f"dkv {dkv_ms:.4f} ms (bound {b_dkv['bound_ms']:.4f}, {b_dkv['bound_by']}; "
+                   f"{8 * D * H * pairs / dkv_ms / 1e9:.1f} TFLOP/s), dq {dq_ms:.4f} ms (bound "
+                   f"{b_dq['bound_ms']:.4f}; {6 * D * H * pairs / dq_ms / 1e9:.1f} TFLOP/s) vs "
+                   f"plain backward {plain_ms:.4f} ms, library (sdpa backward) {library_ms:.4f} "
+                   f"ms -> {'ok' if ok_dkv and ok_dq and zero_pad and finite else 'FAIL'}")
+    if not (ok_dkv and ok_dq and zero_pad and finite):
+        raise AssertionError(f"flash_bwd {tag} disagrees with its plain version")
+    return ({"max_abs_err": max(k_err["dk"], k_err["dv"]), "ms": dkv_ms, "plain_ms": plain_ms,
+             **b_dkv, "library_ms": library_ms},
+            {"max_abs_err": k_err["dq"], "ms": dq_ms, "plain_ms": plain_ms, **b_dq,
+             "library_ms": library_ms})
 
 
 def check_decode(tag, B, S, H, Hkv, gen, rng):
@@ -484,7 +587,16 @@ def phase_kernels():
     dec_int8 = check_decode("int8", B=16, S=1024, H=32, Hkv=32, gen=gen, rng=rng)
     flash = dict(flash_mha, max_abs_err=max(flash_mha["max_abs_err"],
                                             flash_gqa["max_abs_err"]))
-    return {"flash_fwd": flash, "decode_attention[bf16]": dec_bf16,
+    # the backward at the 7B stage-2 row length; the lines report MHA (the
+    # 7B model's) with the largest error of both
+    dkv_mha, dq_mha = check_flash_bwd("MHA", B=2, T=2048, H=32, Hkv=32, gen=gen)
+    dkv_gqa, dq_gqa = check_flash_bwd("GQA", B=2, T=2048, H=32, Hkv=8, gen=gen)
+    return {"flash_fwd": flash,
+            "flash_bwd[dkv]": dict(dkv_mha, max_abs_err=max(dkv_mha["max_abs_err"],
+                                                            dkv_gqa["max_abs_err"])),
+            "flash_bwd[dq]": dict(dq_mha, max_abs_err=max(dq_mha["max_abs_err"],
+                                                          dq_gqa["max_abs_err"])),
+            "decode_attention[bf16]": dec_bf16,
             "decode_attention[int8]": dec_int8, **phase_quant_kernels(),
             **phase_paged_kernels(gen, rng)}
 
@@ -493,18 +605,12 @@ def phase_kernels():
 # 4. the kernels inside a narrow model, card against CPU
 # ---------------------------------------------------------------------------
 
-def phase_narrow_model():
-    import torch
-    from llava_plus_torch.data import DebugTokenizer
-    from llava_plus_torch.generate import Generator
-    from llava_plus_torch.models import llama, llava as llava_model
+def _narrow_cfg():
+    """A narrow LLaVA: LLaMA hidden 512 with head dim 128 (4 query heads over
+    2 kv heads), 2 layers, vocab 32000; a 2-layer CLIP tower on 28 px."""
     from llava_plus_torch.models.configs import ClipVisionConfig, LlamaConfig, LlavaConfig
-    from llava_plus_torch.ops import quant
-    from llava_plus_torch.ops import quant_matmul as qm
-    from llava_plus_torch.ops.decode_attention import decode_attention
-    from llava_plus_torch.ops.flash_attention import flash_attention
 
-    cfg = LlavaConfig(
+    return LlavaConfig(
         text=LlamaConfig(vocab_size=32000, hidden_size=512, intermediate_size=1024,
                          num_hidden_layers=2, num_attention_heads=4,
                          num_key_value_heads=2),
@@ -513,6 +619,19 @@ def phase_narrow_model():
                                 image_size=28, patch_size=14),
         mm_hidden_size=64, max_sequence_length=1024,
     )
+
+
+def phase_narrow_model():
+    import torch
+    from llava_plus_torch.data import DebugTokenizer
+    from llava_plus_torch.generate import Generator
+    from llava_plus_torch.models import llama, llava as llava_model
+    from llava_plus_torch.ops import quant
+    from llava_plus_torch.ops import quant_matmul as qm
+    from llava_plus_torch.ops.decode_attention import decode_attention
+    from llava_plus_torch.ops.flash_attention import flash_attention
+
+    cfg = _narrow_cfg()
     cpu_params = llava_model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     # With plain random weights the top two of 32000 logits lie ~1e-2 apart,
     # which is also the size of the bf16 difference between the card's and
@@ -666,12 +785,12 @@ def phase_narrow_paged(cfg, cpu_params, tok, prompt, new, tol):
     return total
 
 
-def _tree_to(tree, device):
+def _tree_to(tree, device, dtype=None):
     if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
+        return {k: _tree_to(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_tree_to(v, device) for v in tree]
-    return tree.to(device)
+        return [_tree_to(v, device, dtype) for v in tree]
+    return tree.to(device, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -1107,6 +1226,338 @@ def serve_paged_engine(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 8-10. training: the narrow model card vs CPU, LLaVA-1.5-7B stages 1 and 2
+# ---------------------------------------------------------------------------
+
+def _fingerprint(x):
+    """An integer that changes when any element of ``x`` changes: the sum
+    of its bit patterns."""
+    import torch
+
+    bits = x.view({torch.bfloat16: torch.int16, torch.float32: torch.int32}[x.dtype])
+    return int(torch.sum(bits, dtype=torch.int64))
+
+
+def _fingerprints(tree):
+    return [_fingerprint(x) for x in _leaves(tree)]
+
+
+def _bwd_counters():
+    from llava_plus_torch.ops import flash_attention as fa
+
+    return fa.flash_attention, fa.flash_bwd_dkv, fa.flash_bwd_dq
+
+
+def _reset_counts():
+    for k in _bwd_counters():
+        k.launches = 0
+
+
+def _counts():
+    return tuple(k.launches for k in _bwd_counters())
+
+
+def _narrow_train_arrays(cfg, rng):
+    """Two rows of 320 tokens from the port's packer: row 0 packs three
+    image-text samples (segment ids 1-3), row 1 holds one sample and a
+    padded tail of 115 tokens."""
+    from llava_plus_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+    from llava_plus_torch.data.packing import pack_instances
+
+    inst = []
+    for n in (90, 120, 60, 200):
+        ids = np.array([1, IMAGE_TOKEN_INDEX] + list(rng.integers(3, cfg.text.vocab_size, n)))
+        labels = np.where(np.arange(len(ids)) < 8, IGNORE_INDEX, ids)
+        size = cfg.vision.image_size
+        inst.append({"input_ids": ids, "labels": labels,
+                     "images": rng.normal(size=(1, size, size, 3)).astype(np.float32)})
+    arrays, consumed = pack_instances(inst, rows=2, max_len=320,
+                                      num_patches=cfg.num_image_tokens,
+                                      image_size=cfg.vision.image_size, max_images_per_row=3)
+    if consumed != 4 or arrays["segment_ids"][0].max() != 3 or arrays["segment_ids"][1].min():
+        raise AssertionError("the narrow training batch is not packed and padded as planned")
+    return arrays
+
+
+def _batch_on(arrays, device):
+    import torch
+    from llava_plus_torch.models.llava import MultimodalBatch
+
+    return MultimodalBatch(**{k: torch.from_numpy(np.asarray(v)).to(device)
+                              for k, v in arrays.items()})
+
+
+def phase_narrow_training():
+    """The narrow model's training step on the card (bf16, the flash
+    forward and both backward kernels, remat) against the same weights in
+    f32 on the CPU plain path, on one batch of packed and padded rows: the
+    loss within 2%; the gradient of the projector and of every language-model
+    leaf at cosine similarity >= 0.99 and nonzero; then one stage-2 AdamW
+    update on both sides, after which every parameter agrees within bf16
+    rounding (2**-7 of its size) plus twice the step (an element whose
+    gradient is near 0 may move the other way); the kernels' launch
+    counts exact (remat runs the forward twice per layer)."""
+    import torch
+    from llava_plus_torch.models import llava as llava_model
+    from llava_plus_torch.models.convert import per_layer
+    from llava_plus_torch.train import step as step_lib
+    from llava_plus_torch.train.optimizer import OptimizerConfig, build_optimizer
+
+    cfg = _narrow_cfg()
+    L = cfg.text.num_hidden_layers
+    keys = ("language_model", "mm_projector")
+    base = llava_model.init_params(cfg, torch.Generator().manual_seed(3), "cpu", torch.bfloat16)
+    trees = {"cpu": per_layer(_tree_to(base, "cpu", torch.float32)),
+             "cuda": per_layer(_tree_to(base, "cuda"))}
+    arrays = _narrow_train_arrays(cfg, np.random.default_rng(3))
+    opt_cfg = OptimizerConfig(learning_rate=1e-4, total_steps=10, warmup_ratio=0.0)
+    loss_of = lambda p, mb: step_lib.loss_fn(p, cfg, mb, remat=True)  # noqa: E731
+    grads, metrics = {}, {}
+    for dev, params in trees.items():
+        batch = _batch_on(arrays, dev)
+        _reset_counts()
+        grads[dev], metrics[dev] = step_lib.grads_and_metrics(loss_of, params, batch, keys=keys)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launched = _counts()
+        opt = build_optimizer(params, opt_cfg)
+        opt.update(grads[dev], opt.init(params), params)
+    want = (2 * L, L, L)
+    loss = {d: float(m["loss"]) for d, m in metrics.items()}
+    rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    cos, zero = [], 0
+    for key in keys:
+        for a, b in zip(_leaves(grads["cpu"][key]), _leaves(grads["cuda"][key])):
+            a, b = a.double().flatten(), b.double().cpu().flatten()
+            na, nb = float(a.norm()), float(b.norm())
+            zero += na == 0.0 or nb == 0.0
+            cos.append(float(a @ b) / max(na * nb, 1e-300))
+    worst = 0.0
+    for a, b in zip(_leaves(trees["cpu"]), _leaves(trees["cuda"])):
+        b = b.float().cpu()
+        # Adam's first update moves each element by at most lr (in bf16,
+        # lr and the moment ratio are rounded: < 1% more)
+        excess = (a - b).abs() - (2.0 ** -7 * a.abs() + 2.02 * opt_cfg.learning_rate)
+        worst = max(worst, float(excess.max()))
+    log("train", f"narrow LLaVA (hidden 512, 4 heads over 2, 2 layers), 2 rows x 320 (one "
+                 f"packed as 3 samples, one padded): loss card {loss['cuda']:.5f} vs CPU "
+                 f"{loss['cpu']:.5f} (rel {rel:.2e}, bound 2e-2); gradient cosine over "
+                 f"{len(cos)} leaves: min {min(cos):.5f} (bound 0.99), {zero} zero; after one "
+                 f"AdamW step every parameter within bound (worst excess {worst:.2e}); "
+                 f"launches flash fwd/dkv/dq {launched} (want {want})")
+    if rel > 2e-2 or min(cos) < 0.99 or zero or worst > 0 or launched != want:
+        raise AssertionError("narrow training on the card disagrees with the CPU")
+
+
+def _write_corpus(root, n, rng, size, turns_of):
+    """``n`` records with a ``size`` px PNG of noise each, under ``root``."""
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    records = []
+    for i in range(n):
+        name = f"{i}.png"
+        Image.fromarray(rng.integers(0, 256, (size, size, 3), dtype=np.uint8)).save(
+            os.path.join(root, name), compress_level=1)
+        records.append({"image": name, "conversations": turns_of(i)})
+    path = os.path.join(root, "data.json")
+    with open(path, "w") as f:
+        json.dump(records, f)
+    return path
+
+
+def _words(rng, n):
+    return " ".join(f"w{int(j)}" for j in rng.integers(0, 20000, n))
+
+
+def phase_train_stage1(smi):
+    """LLaVA-1.5-7B stage 1 through the port's ``train()``: the recipe of
+    ``scripts/v1_5/pretrain.sh`` (plain template, projector only, mlp2x_gelu,
+    square images, batch 32, max length 2048, lr 1e-3, no weight decay,
+    warmup 0.03, cosine, gradient checkpointing, bf16) on 96 synthetic
+    image-caption records (3 steps), random bf16 weights from seed 0 in place
+    of a checkpoint. Checks every logged loss, that the language model and
+    the vision tower keep their bytes and the projector moves, the
+    ``mm_projector.bin`` keys and shapes, and the launch counts."""
+    import torch
+    from llava_plus_torch.data import DebugTokenizer
+    from llava_plus_torch.models.configs import LLAVA_15_7B
+    from llava_plus_torch.train import train as train_lib
+
+    cfg, L = LLAVA_15_7B, LLAVA_15_7B.text.num_hidden_layers
+    root = os.path.join(SMOKE_DIR, "stage1")
+    rng = np.random.default_rng(4)
+    data = _write_corpus(root, 96, rng, cfg.vision.image_size, lambda i: [
+        {"from": "human", "value": "<image>\n"},
+        {"from": "gpt", "value": _words(rng, int(rng.integers(10, 61)))}])
+    before = {}
+
+    def build_model(model_args, dtype, device):
+        params = _init_7b(device)
+        before.update({k: _fingerprints(params[k]) for k in params})
+        return params, cfg, DebugTokenizer(vocab_size=cfg.text.vocab_size)
+
+    steps = []
+
+    def on_step(step, metrics, seconds, arrays):
+        tokens = int((arrays["segment_ids"] > 0).sum())
+        steps.append((metrics, seconds, tokens, arrays["tokens"].shape))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    out = os.path.join(root, "out")
+    params, _ = train_lib.train(
+        train_lib.ModelArguments(version="plain", tune_mm_mlp_adapter=True,
+                                 mm_projector_type="mlp2x_gelu"),
+        train_lib.DataArguments(data_path=data, image_folder=root, image_aspect_ratio="square"),
+        train_lib.TrainingArguments(output_dir=out, per_device_train_batch_size=32,
+                                    model_max_length=2048, learning_rate=1e-3,
+                                    weight_decay=0.0, warmup_ratio=0.03,
+                                    lr_scheduler_type="cosine", gradient_checkpointing=True,
+                                    bf16=True, save_steps=1000, device="cuda"),
+        build_model=build_model, on_step=on_step)
+    torch.cuda.synchronize()
+    launched = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = (3 * 2 * L, 3 * L, 3 * L)
+    for i, (m, dt, tokens, shape) in enumerate(steps, 1):
+        log("stage1", f"step {i}: batch {shape[0]} x {shape[1]}, {tokens} non-pad tokens, "
+                      f"loss {m['loss']:.4f}, grad_norm {m['grad_norm']:.4f}, host "
+                      f"{dt * 1e3:.1f} ms, {tokens / dt:.0f} non-pad tokens/s")
+    after = {k: _fingerprints(params[k]) for k in params}
+    sd = torch.load(os.path.join(out, "mm_projector.bin"), weights_only=True)
+    shapes = {k: tuple(v.shape) for k, v in sd.items()}
+    want_shapes = {"model.mm_projector.0.weight": (4096, 1024), "model.mm_projector.0.bias": (4096,),
+                   "model.mm_projector.2.weight": (4096, 4096), "model.mm_projector.2.bias": (4096,)}
+    moved = sum(a != b for a, b in zip(before["mm_projector"], after["mm_projector"]))
+    log("stage1", f"{len(steps)} steps; language model and vision tower bytes unchanged: "
+                  f"{after['language_model'] == before['language_model']}, "
+                  f"{after['vision_tower'] == before['vision_tower']}; projector leaves moved "
+                  f"{moved} of {len(after['mm_projector'])}; mm_projector.bin {shapes}; "
+                  f"launches flash fwd/dkv/dq {launched} (want {want}); peak device memory "
+                  f"{peak:.2f} GiB; card {smi}")
+    if (len(steps) != 3 or not all(np.isfinite(m["loss"]) for m, *_ in steps)
+            or after["language_model"] != before["language_model"]
+            or after["vision_tower"] != before["vision_tower"]
+            or moved != len(after["mm_projector"]) or shapes != want_shapes
+            or launched != want):
+        raise AssertionError("7B stage 1 failed its checks")
+    return dict(zip(("flash", "dkv", "dq"), launched))
+
+
+def phase_train_stage2(smi):
+    """LLaVA-1.5-7B stage 2 through ``make_train_step`` with batches from
+    the port's dataset and collator (what ``train()`` runs, without its
+    final HF export): the recipe of ``scripts/v1_5/finetune.sh`` (v1
+    template, language model and projector trained, lr 2e-5, no weight
+    decay, warmup 0.03, cosine, gradient checkpointing, bf16 parameters and
+    moments), reduced for one card to batch 4 with gradient accumulation 2
+    (the recipe has 16 a device on 8 cards); 3 steps on 24 synthetic
+    multi-turn image records of 700 to 2048 fused tokens, some truncated at
+    2048. Checks the loss, that every language-model and projector leaf
+    received an update (a nonzero first moment) and every matrix moved (a
+    norm weight of 1.0 cannot move by lr 2e-5 in bf16), that the vision
+    tower keeps its bytes, and the launch counts."""
+    import torch
+    from llava_plus_torch import conversation
+    from llava_plus_torch.data import ClipImageProcessor, DebugTokenizer
+    from llava_plus_torch.data.dataset import DataConfig, collate_batch, make_supervised_dataset
+    from llava_plus_torch.models.configs import LLAVA_15_7B
+    from llava_plus_torch.models.convert import per_layer
+    from llava_plus_torch.train import step as step_lib
+    from llava_plus_torch.train import train as train_lib
+    from llava_plus_torch.train.optimizer import OptimizerConfig, build_optimizer
+
+    cfg, L = LLAVA_15_7B, LLAVA_15_7B.text.num_hidden_layers
+    B, K, n_steps = 4, 2, 3
+    root = os.path.join(SMOKE_DIR, "stage2")
+    rng = np.random.default_rng(5)
+
+    def turns(i):
+        n = int(rng.integers(90, 1600))        # about n + 610 fused tokens
+        first = int(rng.integers(20, 60))
+        out = [{"from": "human", "value": "<image>\n" + _words(rng, first)}]
+        rest, k = n - first, 0
+        while rest > 0:
+            w = min(rest, int(rng.integers(40, 400)))
+            out.append({"from": "gpt" if k % 2 == 0 else "human", "value": _words(rng, w)})
+            rest, k = rest - w, k + 1
+        if out[-1]["from"] == "human":
+            out.append({"from": "gpt", "value": _words(rng, 20)})
+        return out
+
+    data = _write_corpus(root, B * K * n_steps, rng, cfg.vision.image_size, turns)
+    tok = DebugTokenizer(vocab_size=cfg.text.vocab_size)
+    conv = conversation.conv_templates["v1"]
+    ds = make_supervised_dataset(tok, DataConfig(data_path=data, image_folder=root,
+                                                 conv_version=conv.version),
+                                 ClipImageProcessor(shortest_edge=cfg.vision.image_size,
+                                                    crop_size=cfg.vision.image_size), conv)
+    fused = []
+    batches = []
+    for s in range(n_steps):
+        micro = []
+        for j in range(K):
+            items = [ds[(s * K + j) * B + r] for r in range(B)]
+            fused += [len(it["input_ids"]) + cfg.num_image_tokens - 1 for it in items]
+            micro.append(collate_batch(items, num_patches=cfg.num_image_tokens, max_len=2048,
+                                       image_size=cfg.vision.image_size,
+                                       pad_token_id=tok.pad_token_id))
+        batches.append(train_lib.stack_micro_batches(micro, tok.pad_token_id, 2048))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = per_layer(_init_7b("cuda:0"))   # each layer's weights are their own leaves
+    before = {k: _fingerprints(params[k]) for k in params}
+    opt = build_optimizer(params, OptimizerConfig(
+        learning_rate=2e-5, weight_decay=0.0, warmup_ratio=0.03, total_steps=n_steps,
+        schedule="cosine"))
+    state = opt.init(params)
+    step_fn = step_lib.make_train_step(cfg, opt, remat=True, accum_steps=K)
+    _reset_counts()
+    logs = []
+    for s, arrays in enumerate(batches, 1):
+        batch = _batch_on(arrays, "cuda")
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        m = {k: float(v) for k, v in m.items()}
+        dt = time.perf_counter() - t0
+        tokens = int((arrays["segment_ids"] > 0).sum())
+        logs.append(m)
+        log("stage2", f"step {s}: {K} x {B} x {arrays['tokens'].shape[-1]} (rows "
+                      f"{', '.join(str(int(x)) for x in (arrays['segment_ids'] > 0).sum(-1).ravel())}"
+                      f" tokens), loss {m['loss']:.4f}, grad_norm {m['grad_norm']:.4f}, host "
+                      f"{dt * 1e3:.1f} ms, {tokens / dt:.0f} non-pad tokens/s")
+    torch.cuda.synchronize()
+    launched = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    after = {k: _fingerprints(params[k]) for k in params}
+    want = (n_steps * K * 2 * L, n_steps * K * L, n_steps * K * L)
+    mu_zero = sum(int(float(m.abs().max()) == 0.0) for key in ("language_model", "mm_projector")
+                  for m in state["mu"][key])
+    unmoved = [i for i, (a, b, x) in enumerate(zip(before["language_model"],
+                                                   after["language_model"],
+                                                   _leaves(params["language_model"])))
+               if a == b and x.dim() == 2]
+    moved_proj = sum(a != b for a, b in zip(before["mm_projector"], after["mm_projector"]))
+    log("stage2", f"{n_steps} steps of {K} x {B} rows ({min(fused)}-{max(fused)} fused tokens "
+                  f"a record, {sum(f > 2048 for f in fused)} truncated at 2048); leaves with a "
+                  f"zero first moment {mu_zero}; language-model matrices unmoved {len(unmoved)}; "
+                  f"projector leaves moved {moved_proj} of {len(after['mm_projector'])}; vision "
+                  f"tower bytes unchanged {after['vision_tower'] == before['vision_tower']}; "
+                  f"launches flash fwd/dkv/dq {launched} (want {want}); peak device memory "
+                  f"{peak:.2f} GiB; card {smi}")
+    if (not all(np.isfinite(m["loss"]) for m in logs) or mu_zero or unmoved
+            or moved_proj != len(after["mm_projector"])
+            or after["vision_tower"] != before["vision_tower"] or launched != want):
+        raise AssertionError("7B stage 2 failed its checks")
+    return dict(zip(("flash", "dkv", "dq"), launched))
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1140,12 +1591,20 @@ def main():
     del params
     int4 = serve_engine(smi, _init_7b(dev), "int4", n_image=2, n_text=2)
     paged = serve_paged_engine(smi)
+    phase_narrow_training()
+    stage1 = phase_train_stage1(smi)
+    stage2 = phase_train_stage2(smi)
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
 
     entries = []
     paged_src = "llava_plus_torch/csrc/paged_attention.cu"
+    bwd_src = "llava_plus_torch/csrc/flash_bwd.cu"
     for name, source, replaces, count in (
         ("flash_fwd", "llava_plus_torch/csrc/flash_fwd.cu", FLASH_REPLACES,
-         single["flash"] + int8["flash"] + int4["flash"] + paged["flash"]),
+         single["flash"] + int8["flash"] + int4["flash"] + paged["flash"] + stage1["flash"]
+         + stage2["flash"]),
+        ("flash_bwd[dkv]", bwd_src, DKV_REPLACES, stage1["dkv"] + stage2["dkv"]),
+        ("flash_bwd[dq]", bwd_src, DQ_REPLACES, stage1["dq"] + stage2["dq"]),
         ("decode_attention[bf16]", "llava_plus_torch/csrc/decode_attention.cu",
          DECODE_REPLACES, single["bf16"]),
         ("decode_attention[int8]", "llava_plus_torch/csrc/decode_attention.cu",

@@ -1,4 +1,5 @@
-"""Multimodal utilities: image-aware tokenization and image batching.
+"""Multimodal utilities: image-aware tokenization, image batching and the
+tool-use turn format of the training data.
 
 The port's own copy of what it uses from ``llava_plus_tpu/mm_utils.py``
 (parity target: reference ``llava/mm_utils.py``). Host-side numpy / PIL only.
@@ -7,8 +8,9 @@ The port's own copy of what it uses from ``llava_plus_tpu/mm_utils.py``
 from __future__ import annotations
 
 import base64
+import json
 from io import BytesIO
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 from PIL import Image
@@ -87,3 +89,28 @@ def tokenizer_image_token(
     if return_tensors == "np":
         return np.asarray(input_ids, dtype=np.int32)
     raise ValueError(f"Unsupported tensor type: {return_tensors}")
+
+
+def reorganize_source_for_tool_use(source: List[Dict]) -> List[Dict]:
+    """Merge {thoughts, actions, value} assistant fields into the emoji
+    grammar string the model is trained to emit (ref mm_utils.py:117-149).
+    Byte-format must match ``conversation.parse_tool_output``."""
+    new_source = []
+    for conv in source:
+        if conv["from"].lower() == "human":
+            new_source.append(conv)
+            continue
+        merged = ""
+        if "thoughts" in conv:
+            merged += '"{}" {}'.format("thoughts🤔", conv.pop("thoughts")) + "\n"
+        if "actions" in conv:
+            merged += '"{}" {}'.format("actions🚀", json.dumps(conv.pop("actions"))) + "\n"
+        if "value" in conv:
+            merged += '"{}" {}'.format("value👉", conv.pop("value")) + "\n"
+        conv["value"] = merged
+        new_source.append(conv)
+    return new_source
+
+
+def reorganize_source_for_tool_use_batch(sources: List[List[Dict]]) -> List[List[Dict]]:
+    return [reorganize_source_for_tool_use(s) for s in sources]

@@ -19,6 +19,16 @@ Projections go through :func:`ops.quant.matmul`, so a weight may be a bf16
 tensor or an int8 / int4 dict (``ops/quant.py``, the kernels of
 ``ops/quant_matmul.py`` on the card), unfused or fused (``wqkv``,
 ``w_gateup``) as ``quant.fuse_llama_matrices`` leaves it.
+
+Training (no cache) differentiates through the same code: the flash
+kernels' ``autograd.Function``, per-layer remat with
+``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint`` over the
+layer scan), and an ``lm_head`` whose backward rounds the f32 cotangent to
+the weight dtype, as JAX's dot transpose does. The trainer holds the layers
+as a list of per-layer dicts (``models/convert.py:per_layer``) so that each
+layer's weights are their own autograd leaves: a view ``w[i]`` of a stacked
+leaf would make autograd add a zero tensor the size of the whole stack into
+its gradient for every layer.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from llava_plus_torch.models.configs import LlamaConfig
 from llava_plus_torch.ops.attention import (
@@ -414,8 +425,11 @@ def _at(w, i: int):
 
 
 def _layer(params, i: int):
-    """Layer ``i``'s weights: views into the stacked tensors."""
+    """Layer ``i``'s weights: the trainer's per-layer dict, or views into
+    the stacked tensors."""
     lay = params["layers"]
+    if isinstance(lay, list):
+        return lay[i]
     return {
         "attn": {n: _at(w, i) for n, w in lay["attn"].items()},
         "mlp": {n: _at(w, i) for n, w in lay["mlp"].items()},
@@ -522,6 +536,12 @@ def _layer_forward(lp, h, cos, sin, segment_ids, positions, cfg: LlamaConfig,
     return h + matmul(gate * up, wm["w_down"]), staged
 
 
+def _train_layer(lp, h, cos, sin, segment_ids, cfg: LlamaConfig):
+    """One layer without a cache: the body that remat recomputes."""
+    return _layer_forward(lp, h, cos, sin, segment_ids, None, cfg, None, 0, None,
+                          False, False)[0]
+
+
 Cache = Union[KVCache, PagedKVCache]
 
 
@@ -535,6 +555,7 @@ def decoder_forward(
     cache: Optional[Cache] = None,
     fresh_prefill: bool = False,
     paged_gather: bool = False,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Run the decoder stack; returns (hidden_states, cache), the cache
     updated in place.
@@ -544,6 +565,8 @@ def decoder_forward(
     asserts the cache is empty before the call. ``paged_gather`` sends every
     chunk over a paged cache through the gathered pages (the engine's suffix
     prefill, as the JAX package forces ``attn_impl="xla"`` there).
+    ``remat`` (without a cache) keeps only each layer's input for the
+    backward and recomputes the layer there.
     """
     h = inputs_embeds
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
@@ -557,12 +580,38 @@ def decoder_forward(
         sel = _write_slots(cache, positions, segment_ids)
     staged = []
     for i in range(cfg.num_hidden_layers):
+        if remat and cache is None:
+            h = checkpoint(_train_layer, _layer(params, i), h, cos, sin, segment_ids, cfg,
+                           use_reentrant=False)
+            continue
         h, st = _layer_forward(_layer(params, i), h, cos, sin, segment_ids, positions,
                                cfg, cache, i, sel, fresh_prefill, paged_gather)
         staged.append(st)
     if paged:
         _paged_write_all(cache, staged, sel)
     return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), cache
+
+
+class _Head(torch.autograd.Function):
+    """f32 logits of ``h @ w``; the backward rounds the f32 cotangent to the
+    operands' dtype and runs its products in it (bf16 on the card), as JAX's
+    dot transpose casts the cotangent back at this boundary. No f32 copy of
+    the weight or of the activations is made for the backward."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        if h.is_cuda:
+            return torch.mm(h, w, out_dtype=torch.float32)
+        return h.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        g = g.to(h.dtype)
+        dh = g @ w.T if ctx.needs_input_grad[0] else None
+        dw = h.T @ g if ctx.needs_input_grad[1] else None
+        return dh, dw
 
 
 def lm_head(params, cfg: LlamaConfig, hidden: torch.Tensor) -> torch.Tensor:
@@ -575,11 +624,7 @@ def lm_head(params, cfg: LlamaConfig, hidden: torch.Tensor) -> torch.Tensor:
     w = params["embed_tokens"].T if cfg.tie_word_embeddings else params["lm_head"]
     if is_quantized(w):
         return matmul(hidden, w, out_dtype=torch.float32)
-    h = hidden.reshape(-1, hidden.shape[-1])
-    if h.is_cuda:
-        logits = torch.mm(h, w, out_dtype=torch.float32)
-    else:
-        logits = h.float() @ w.float()
+    logits = _Head.apply(hidden.reshape(-1, hidden.shape[-1]), w)
     return logits.reshape(*hidden.shape[:-1], w.shape[1])
 
 
@@ -595,6 +640,7 @@ def forward(
     fresh_prefill: bool = False,
     logits_positions: Optional[torch.Tensor] = None,
     paged_gather: bool = False,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """ids/embeds -> f32 logits [B, T, V] (or [B, 1, V] at
     ``logits_positions`` [B]), and the cache updated in place."""
@@ -608,7 +654,8 @@ def forward(
         segment_ids = torch.ones(B, T, dtype=torch.int32, device=device)
     h, cache = decoder_forward(params, cfg, inputs_embeds, positions=positions,
                                segment_ids=segment_ids, cache=cache,
-                               fresh_prefill=fresh_prefill, paged_gather=paged_gather)
+                               fresh_prefill=fresh_prefill, paged_gather=paged_gather,
+                               remat=remat)
     if logits_positions is not None:
         h = h[torch.arange(B, device=device), logits_positions][:, None]
     return lm_head(params, cfg, h), cache

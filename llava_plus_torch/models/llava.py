@@ -4,7 +4,9 @@ Counterpart of ``llava_plus_tpu/models/llava.py`` for the LLaMA backbone
 (MPT is not ported yet). The image splice follows the position map that
 ``data/multimodal.py`` plans: image features are written into the
 token embeddings at ``image_pos``, and positions >= T (pad images, truncated
-spans) are left out.
+spans) are left out. The vision tower is frozen: it runs under
+``torch.no_grad()`` (the JAX package's ``stop_gradient``), so training builds
+no graph for it.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ class MultimodalBatch:
     """One fused multimodal batch, as tensors on one device.
 
     tokens [B, T]; positions [B, T]; segment_ids [B, T] (0 = padding);
-    images [B, N, H, W, 3]; image_pos [B, N * num_patches] (>= T: dropped).
+    images [B, N, H, W, 3]; image_pos [B, N * num_patches] (>= T: dropped);
+    labels [B, T] or None: IGNORE_INDEX-masked next-token targets.
     """
 
     tokens: torch.Tensor
@@ -31,6 +34,7 @@ class MultimodalBatch:
     segment_ids: torch.Tensor
     images: torch.Tensor
     image_pos: torch.Tensor
+    labels: Optional[torch.Tensor] = None
 
 
 def _llama_only(cfg: LlavaConfig):
@@ -53,8 +57,10 @@ def init_params(cfg: LlavaConfig, generator: torch.Generator, device,
 
 
 def encode_images(params, cfg: LlavaConfig, images: torch.Tensor) -> torch.Tensor:
-    """[B*, H, W, 3] -> [B*, num_patches, lm_hidden]."""
-    feats = clip_vit.encode(params["vision_tower"], cfg.vision, images)
+    """[B*, H, W, 3] -> [B*, num_patches, lm_hidden]; gradients reach the
+    projector, never the vision tower."""
+    with torch.no_grad():
+        feats = clip_vit.encode(params["vision_tower"], cfg.vision, images)
     return projector.apply(params["mm_projector"], cfg.mm_projector_type, feats)
 
 
@@ -84,16 +90,18 @@ def forward(
     cache: Optional[llama.Cache] = None,
     fresh_prefill: bool = False,
     logits_positions: Optional[torch.Tensor] = None,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[llama.Cache]]:
     """Multimodal forward -> (f32 logits, cache updated in place); the cache
     is a dense :class:`~llava_plus_torch.models.llama.KVCache` or a paged
-    :class:`~llava_plus_torch.models.llama.PagedKVCache`."""
+    :class:`~llava_plus_torch.models.llama.PagedKVCache`. ``remat``
+    recomputes each decoder layer in the backward (training)."""
     embeds = fuse(params, cfg, batch)
     return llama.forward(
         params["language_model"], cfg.text,
         inputs_embeds=embeds, positions=batch.positions,
         segment_ids=batch.segment_ids, cache=cache,
-        fresh_prefill=fresh_prefill, logits_positions=logits_positions,
+        fresh_prefill=fresh_prefill, logits_positions=logits_positions, remat=remat,
     )
 
 

@@ -152,8 +152,10 @@ def attention(
     softmax_scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Dispatching attention. On CUDA tensors a self-attention call (the
-    prefill's) always runs the flash kernel, which raises for inputs it does
-    not take (head dim other than 128, dtype other than bf16). Calls with a
+    prefill's and the training forward's) always runs the flash kernel,
+    which raises for inputs it does not take (head dim other than 128, dtype
+    other than bf16); its output carries a gradient through the backward
+    kernels (``flash_attention``'s ``autograd.Function``). Calls with a
     bias or explicit positions, and every call on the CPU, take the
     reference, as the JAX package sends them to XLA."""
     if q.is_cuda and _is_flash_call(q, k, bias, q_positions, kv_positions):

@@ -1,16 +1,21 @@
-"""Flash-attention forward: the CUDA kernel ``csrc/flash_fwd.cu`` and its
-plain PyTorch version.
+"""Flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` (forward) and
+``csrc/flash_bwd.cu`` (backward), their plain PyTorch versions, and the
+``torch.autograd.Function`` that joins them.
 
-Counterpart of ``llava_plus_tpu/ops/flash_attention.py`` (forward only; the
-Pallas kernel it replaces is ``_fwd_kernel``). Inputs are [B, T, H, D],
-causal, with optional segment ids (0 = padding). T is padded to the kernel's
-64-row tile with segment 0, as ``_pad_inputs`` pads to the Pallas block.
-Returns the output [B, T, H, D] and the per-row logsumexp [B, H, T] f32,
-which a backward pass replays.
+Counterpart of ``llava_plus_tpu/ops/flash_attention.py``: the Pallas kernels
+it replaces are ``_fwd_kernel``, ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``.
+Inputs are [B, T, H, D], causal or not, with optional segment ids (0 =
+padding). T is padded to the kernels' 64-row tile with segment 0, as
+``_pad_inputs`` pads to the Pallas block. :func:`flash_attention` returns
+the output [B, T, H, D], which carries a gradient, and the per-row
+logsumexp [B, H, T] f32, which does not. The backward is recompute-free:
+like the JAX ``custom_vjp`` it saves the padded q/k/v, segment ids, output
+and lse, and replays the softmax from the lse (``_flash_bwd_rule``).
 
-The kernel runs for CUDA tensors (bf16, D = 128); the plain version for CPU
-tensors; anything else raises. Rows that see no valid key come out as zeros
-from both (the reference attention gives them a uniform average instead).
+The kernels run for CUDA tensors (bf16, D = 128); the plain versions for
+CPU tensors; anything else raises. Rows that see no valid key come out as
+zeros from both (the reference attention gives them a uniform average
+instead), and their gradients are zero.
 """
 
 from __future__ import annotations
@@ -72,6 +77,40 @@ def flash_attention_reference(q, k, v, q_seg, kv_seg, *, causal: bool,
     return out.permute(0, 2, 1, 3).to(q.dtype), lse.to(acc_dtype)
 
 
+def flash_attention_backward_reference(q, k, v, q_seg, kv_seg, out, lse, do, *,
+                                       causal: bool, sm_scale: float):
+    """The backward kernels' function in plain PyTorch, in q's float
+    precision (f32 for bf16 inputs): the Pallas ``_bwd`` with the GQA fold
+    of ``_flash_bwd_rule``. q, out, do [B, T, H, D]; k, v [B, T, Hkv, D];
+    segment ids [B, T]; lse [B, H, T]. P is replayed from lse and masked by
+    select after the exp (causal, equal segments, neither segment 0), so a
+    row that saw no key contributes nothing. Returns (dq, dk, dv) in q's
+    dtype; dk and dv sum the G query heads of each kv head."""
+    B, T, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    acc_dtype = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf = q.to(acc_dtype).permute(0, 2, 1, 3)                     # [B, H, T, D]
+    kf = k.to(acc_dtype).permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+    vf = v.to(acc_dtype).permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+    dof = do.to(acc_dtype).permute(0, 2, 1, 3)
+    delta = (dof * out.to(acc_dtype).permute(0, 2, 1, 3)).sum(dim=-1)   # [B, H, T]
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale        # [B, H, T, T]
+    mask = ((q_seg[:, :, None] == kv_seg[:, None, :])
+            & (kv_seg[:, None, :] != 0) & (q_seg[:, :, None] != 0))[:, None]
+    if causal:
+        pos = torch.arange(T, device=q.device)
+        mask = mask & (pos[None, :] <= pos[:, None])[None, None]
+    p = torch.where(mask, torch.exp(s - lse.to(acc_dtype)[..., None]), 0.0)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta[..., None]) * sm_scale
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    dk = dk.reshape(B, Hkv, G, T, D).sum(dim=2)
+    dv = dv.reshape(B, Hkv, G, T, D).sum(dim=2)
+    return tuple(x.permute(0, 2, 1, 3).to(q.dtype) for x in (dq, dk, dv))
+
+
 def _check_kernel_inputs(q, k, v, seg):
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash kernel takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -112,6 +151,108 @@ def _launch(q, k, v, q_seg, kv_seg, causal, sm_scale):
     return out, lse
 
 
+def _bwd_args(q, k, v, do, q_seg, kv_seg, lse, delta, causal, sm_scale):
+    """The pointer / shape / stride arguments both backward entry points
+    share, after checking what the kernels take: q, k, v as the forward
+    takes them, T a multiple of BLOCK, ``do`` of q's shape and contiguous
+    (the Function makes the cotangent contiguous), lse and delta f32."""
+    _check_kernel_inputs(q, k, v, q_seg)
+    if do.dtype != q.dtype or do.shape != q.shape or not do.is_contiguous():
+        raise ValueError(f"dO must be contiguous {q.dtype} {tuple(q.shape)}, got "
+                         f"{do.dtype} {tuple(do.shape)}")
+    B, T, H, _ = q.shape
+    if T % BLOCK:
+        raise ValueError(f"the backward kernels need T padded to {BLOCK}, got {T}")
+    for x in (lse, delta):
+        if x.dtype != torch.float32 or x.shape != (B, H, T) or not x.is_contiguous():
+            raise ValueError("lse and delta must be contiguous f32 [B, H, T]")
+    for x in (do, kv_seg, lse, delta):
+        if x.device != q.device:
+            raise ValueError(f"a backward input is on {x.device}, q on {q.device}")
+    for x in (q_seg, kv_seg):
+        if x.shape != (B, T) or x.dtype != torch.int32 or not x.is_contiguous():
+            raise ValueError("segment ids must be contiguous int32 [B, T]")
+    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             q_seg.data_ptr(), kv_seg.data_ptr(), lse.data_ptr(), delta.data_ptr()),
+            (B, T, H, k.shape[2], int(causal),
+             q.stride(0), q.stride(1), q.stride(2),
+             k.stride(0), k.stride(1), k.stride(2),
+             do.stride(0), do.stride(1), do.stride(2),
+             float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream))
+
+
+def flash_bwd_dkv(q, k, v, do, q_seg, kv_seg, lse, delta, *, causal, sm_scale):
+    """dK, dV [B, T, Hkv, D] bf16 from the dK/dV kernel (CUDA tensors only;
+    T a multiple of BLOCK, as the forward's padding leaves it)."""
+    ptrs, rest = _bwd_args(q, k, v, do, q_seg, kv_seg, lse, delta, causal, sm_scale)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    build.check(build.lib().flash_bwd_dkv_bf16(*ptrs, dk.data_ptr(), dv.data_ptr(), *rest),
+                "flash_bwd_dkv_bf16")
+    build.count_launch(flash_bwd_dkv)
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, do, q_seg, kv_seg, lse, delta, *, causal, sm_scale):
+    """dQ [B, T, H, D] bf16 from the dQ kernel (CUDA tensors only)."""
+    ptrs, rest = _bwd_args(q, k, v, do, q_seg, kv_seg, lse, delta, causal, sm_scale)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    build.check(build.lib().flash_bwd_dq_bf16(*ptrs, dq.data_ptr(), *rest), "flash_bwd_dq_bf16")
+    build.count_launch(flash_bwd_dq)
+    return dq
+
+
+def flash_attention_backward(q, k, v, q_seg, kv_seg, out, lse, do, *, causal, sm_scale):
+    """(dq, dk, dv) of padded inputs: the two kernels on the card (delta =
+    rowsum(dO * O) in f32 by torch, as the JAX rule leaves it to XLA), the
+    plain version on the CPU."""
+    if q.is_cuda:
+        do = do.contiguous()
+        delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+        kw = dict(causal=causal, sm_scale=sm_scale)
+        dk, dv = flash_bwd_dkv(q, k, v, do, q_seg, kv_seg, lse, delta, **kw)
+        return flash_bwd_dq(q, k, v, do, q_seg, kv_seg, lse, delta, **kw), dk, dv
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, q_seg, kv_seg, out, lse, do,
+                                                  causal=causal, sm_scale=sm_scale)
+    raise ValueError(f"flash_attention_backward: no path for device {q.device}")
+
+
+class _Flash(torch.autograd.Function):
+    """Forward kernel (or plain forward) with the recompute-free backward.
+    Saves the padded q/k/v, segment ids, output and lse, as the JAX
+    residuals (``_flash_fwd_rule``) do."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_segment_ids, kv_segment_ids, causal, scale):
+        T = q.shape[1]
+        qp, kp, vp, qs, ks = _pad_inputs(q, k, v, q_segment_ids, kv_segment_ids)
+        if q.is_cuda:
+            out, lse = _launch(qp, kp, vp, qs, ks, causal, scale)
+            build.count_launch(flash_attention)
+        elif q.device.type == "cpu":
+            out, lse = flash_attention_reference(qp, kp, vp, qs, ks,
+                                                 causal=causal, sm_scale=scale)
+        else:
+            raise ValueError(f"flash_attention: no path for device {q.device}")
+        ctx.save_for_backward(qp, kp, vp, qs, ks, out, lse)
+        ctx.causal, ctx.scale, ctx.T = causal, scale, T
+        lse_t = lse[:, :, :T]
+        ctx.mark_non_differentiable(lse_t)
+        return out[:, :T], lse_t
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        qp, kp, vp, qs, ks, out, lse = ctx.saved_tensors
+        pad = qp.shape[1] - ctx.T
+        if pad:
+            g = F.pad(g, (0, 0, 0, 0, 0, pad))   # padded rows: zero cotangent
+        dq, dk, dv = flash_attention_backward(qp, kp, vp, qs, ks, out, lse, g.to(qp.dtype),
+                                              causal=ctx.causal, sm_scale=ctx.scale)
+        T = ctx.T
+        return dq[:, :T], dk[:, :T], dv[:, :T], None, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -123,22 +264,15 @@ def flash_attention(
     softmax_scale: Optional[float] = None,
     alibi_nheads: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused attention over [B, T, H, D]: returns (out, lse [B, H, T])."""
+    """Fused attention over [B, T, H, D]: returns (out, lse [B, H, T]); the
+    output carries a gradient through the backward kernels."""
     if alibi_nheads:
         raise NotImplementedError(
-            "the ALiBi variant of the flash kernel (MPT) is not ported yet")
-    T, D = q.shape[1], q.shape[3]
-    scale = softmax_scale if softmax_scale is not None else D ** -0.5
-    qp, kp, vp, qs, ks = _pad_inputs(q, k, v, q_segment_ids, kv_segment_ids)
-    if q.is_cuda:
-        out, lse = _launch(qp, kp, vp, qs, ks, causal, scale)
-        build.count_launch(flash_attention)
-    elif q.device.type == "cpu":
-        out, lse = flash_attention_reference(qp, kp, vp, qs, ks,
-                                             causal=causal, sm_scale=scale)
-    else:
-        raise ValueError(f"flash_attention: no path for device {q.device}")
-    return out[:, :T], lse[:, :, :T]
+            "the ALiBi variant of the flash kernels (MPT) is not ported yet")
+    scale = softmax_scale if softmax_scale is not None else q.shape[3] ** -0.5
+    return _Flash.apply(q, k, v, q_segment_ids, kv_segment_ids, causal, scale)
 
 
 flash_attention.launches = 0
+flash_bwd_dkv.launches = 0
+flash_bwd_dq.launches = 0

@@ -1,7 +1,8 @@
 """The port stands alone: in a fresh interpreter, import every
 ``llava_plus_torch`` module and run the tiny slice on the CPU (through
 ``Generator.stream``, and through the port's HTTP worker as a client reaches
-it, single stream and on the paged engine with a prefix hit), then check
+it, single stream and on the paged engine with a prefix hit, and the
+training CLI for a stage-1 and a stage-2 run), then check
 that neither ``jax`` nor ``triton`` nor any module of the JAX package
 (``llava_plus_tpu``) was imported and that no kernel build (``nvcc``) ran.
 And the port's own copies of the JAX package's framework-free modules
@@ -125,6 +126,41 @@ assert build._lib is None
 print("chunks", len(chunks))
 """
 
+TRAIN_SCRIPT = r"""
+import json, sys, tempfile
+from pathlib import Path
+import numpy as np
+from PIL import Image
+from llava_plus_torch.kernels import build
+from llava_plus_torch.train import train
+
+def no_build(*args, **kwargs):
+    raise AssertionError("a kernel build (nvcc) was attempted")
+
+build.build = no_build
+tmp = Path(tempfile.mkdtemp())
+rng = np.random.default_rng(0)
+records = []
+for i in range(4):
+    Image.fromarray(rng.integers(0, 255, (30, 40, 3), dtype=np.uint8)).save(tmp / f"{i}.png")
+    records.append({"image": f"{i}.png", "conversations": [
+        {"from": "human", "value": "<image>\nwhat is it"}, {"from": "gpt", "value": f"thing {i}"}]})
+(tmp / "data.json").write_text(json.dumps(records))
+argv = ["--tiny-debug-model", "true", "--data_path", str(tmp / "data.json"),
+        "--image-folder", str(tmp), "--max-steps", "2", "--per-device-train-batch-size", "2",
+        "--bf16", "false", "--gradient-checkpointing", "true", "--device", "cpu",
+        "--output-dir", str(tmp / "out")]
+if sys.argv[1] == "stage1":
+    argv += ["--tune-mm-mlp-adapter", "true", "--version", "plain"]
+train.main(argv)
+out = tmp / "out"
+assert (out / ("mm_projector.bin" if sys.argv[1] == "stage1" else "checkpoint-2/state.pt")).exists()
+bad = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
+assert not bad, bad
+assert build._lib is None
+print("steps", 2)
+"""
+
 
 def _run(script, *args):
     env = dict(os.environ)
@@ -146,6 +182,13 @@ def test_port_http_path_imports_no_jax():
 
 def test_port_paged_engine_over_http_imports_no_jax():
     assert _run(HTTP_SCRIPT, "paged") >= 2
+
+
+@pytest.mark.parametrize("stage", ["stage1", "stage2"])
+def test_port_trainer_cli_imports_no_jax(stage):
+    """The training CLI (dataset, collator, remat, the flash Function's
+    plain path, AdamW, checkpoints and exports) in a fresh interpreter."""
+    assert _run(TRAIN_SCRIPT, stage) == 2
 
 
 # -- the port's own copies against the JAX package's originals -------------

@@ -37,8 +37,17 @@ class of kernel, and the kernels with the most device time. The full
 ``key_averages`` tables go to ``--out``. The last line is one JSON object
 with the numbers printed.
 
+``--train --stage 1|2`` profiles one 7B training step as ``chip_smoke.py``
+phases 9 and 10 run it (gradient checkpointing, bf16 weights and moments):
+stage 1 trains the projector on 32 rows of ~600 fused tokens (an image and
+a 10-60 word caption), stage 2 the language model and the projector on 2
+micro-batches of 4 rows of 700-2048 fused tokens. It times the gradients
+(forward, recompute, backward) and the AdamW update apart: host clock over
+two steps after a warm-up step, then one step under ``torch.profiler``.
+
 Usage: python tools/profile_torch_slice.py [--steps 16] [--out profile_out]
        python tools/profile_torch_slice.py --engine [--quantize int8|int4] [--paged]
+       python tools/profile_torch_slice.py --train [--stage 1|2]
 """
 
 import argparse
@@ -59,6 +68,7 @@ from torch.profiler import ProfilerActivity, profile
 CLASSES = (
     ("paged_attention (kernel)", ("paged_decode1_kernel", "paged_general_kernel")),
     ("flash_fwd (kernel)", ("flash_fwd_kernel",)),
+    ("flash_bwd (kernel)", ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
     ("decode_attention (kernel)", ("decode_kernel",)),
     ("quant_matmul (kernel)", ("quant_matmul_kernel",)),
     ("GEMM/GEMV (cuBLAS)", ("gemm", "gemv", "cutlass", "nvjet", "xmma", "splitk")),
@@ -113,6 +123,8 @@ def main():
     ap.add_argument("--quantize", default="int8", choices=("int8", "int4"))
     ap.add_argument("--paged", action="store_true",
                     help="with --engine: the paged engine (256 pages of 128 tokens)")
+    ap.add_argument("--train", action="store_true", help="profile a 7B training step")
+    ap.add_argument("--stage", type=int, default=1, choices=(1, 2))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_slice: no CUDA device", file=sys.stderr)
@@ -120,6 +132,8 @@ def main():
     os.makedirs(args.out, exist_ok=True)
     if args.engine:
         return profile_engine(args)
+    if args.train:
+        return profile_train(args)
 
     from llava_plus_torch.data import DebugTokenizer
     from llava_plus_torch.generate import Generator, sample_token
@@ -293,6 +307,104 @@ def profile_engine(args):
         result["decode"] = summarize(f"engine-decode-{tag}", prof, step_ms, n * chunk,
                                      args.out)
     engine.stop()
+    print(json.dumps(result))
+    return 0
+
+
+def _train_arrays(cfg, rng, rows, lo, hi):
+    """Collated arrays of ``rows`` image records of ``lo``-``hi`` text
+    tokens each (random ids), labels on the text, padded to a multiple of
+    64, as the dataset's collator gives them."""
+    from llava_plus_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+    from llava_plus_torch.data.multimodal import pad_images, plan_multimodal_batch
+
+    ids, labels = [], []
+    for _ in range(rows):
+        text = rng.integers(3, cfg.text.vocab_size, int(rng.integers(lo, hi + 1)))
+        x = np.concatenate([[1, IMAGE_TOKEN_INDEX], text])
+        ids.append(x)
+        labels.append(np.where(np.arange(len(x)) < 2, IGNORE_INDEX, x))
+    plan = plan_multimodal_batch(ids, labels, num_patches=cfg.num_image_tokens,
+                                 max_len=2048, pad_to_multiple=64)
+    size = cfg.vision.image_size
+    images = [rng.standard_normal((1, size, size, 3)).astype(np.float32) for _ in ids]
+    return {"tokens": plan.tokens, "positions": plan.positions,
+            "segment_ids": plan.segment_ids, "image_pos": plan.image_pos,
+            "labels": plan.labels, "images": pad_images(images, 1, (size, size, 3))}
+
+
+def profile_train(args):
+    from llava_plus_torch.models import llava as llava_model
+    from llava_plus_torch.models.configs import LLAVA_15_7B
+    from llava_plus_torch.models.convert import per_layer
+    from llava_plus_torch.models.llava import MultimodalBatch
+    from llava_plus_torch.train import step as step_lib
+    from llava_plus_torch.train.optimizer import OptimizerConfig, build_optimizer
+    from llava_plus_torch.train.train import stack_micro_batches
+
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    cfg, dev = LLAVA_15_7B, "cuda:0"
+    rng = np.random.default_rng(args.stage)
+    if args.stage == 1:
+        K, arrays = 1, _train_arrays(cfg, rng, 32, 12, 62)
+        opt_cfg = OptimizerConfig(learning_rate=1e-3, total_steps=100,
+                                  train_language_model=False)
+    else:
+        K = 2
+        arrays = stack_micro_batches([_train_arrays(cfg, rng, 4, 90, 1500) for _ in range(K)],
+                                     0, 2048)
+        opt_cfg = OptimizerConfig(learning_rate=2e-5, total_steps=100)
+    batch = MultimodalBatch(**{k: torch.from_numpy(v).to(dev) for k, v in arrays.items()})
+    tokens = int((arrays["segment_ids"] > 0).sum())
+    params = per_layer(llava_model.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                               dev))
+    opt = build_optimizer(params, opt_cfg)
+    state = opt.init(params)
+    keys = tuple(k for k in opt.trained_keys if k != "vision_tower")
+    if "mm_projector" not in keys:
+        keys += ("mm_projector",)
+    tag = f"train-stage{args.stage}"
+
+    def grads():
+        g, m = step_lib.grads_and_metrics(
+            lambda p, mb: step_lib.loss_fn(p, cfg, mb, remat=True), params, batch, K, keys)
+        float(m["loss"])
+        return g
+
+    def update(g):
+        opt.update(g, state, params)
+        torch.cuda.synchronize()
+
+    update(grads())                                 # warm-up: allocator, cuBLAS, kernels
+    torch.cuda.synchronize()
+    host_g, host_u = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        g = grads()
+        host_g.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        update(g)
+        host_u.append(time.perf_counter() - t0)
+        del g
+    grads_ms, update_ms = np.mean(host_g) * 1e3, np.mean(host_u) * 1e3
+    print(f"[{tag}] {K} x {batch.tokens.shape[-2]} x {batch.tokens.shape[-1]} rows, {tokens} "
+          f"non-pad tokens: host {grads_ms + update_ms:.1f} ms a step (gradients "
+          f"{grads_ms:.1f}, AdamW {update_ms:.1f}), {tokens / (grads_ms + update_ms) * 1e3:.0f} "
+          f"non-pad tokens/s; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    result = {"card": smi, "stage": args.stage, "non_pad_tokens": tokens,
+              "host_step_ms": grads_ms + update_ms,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        g = grads()
+        torch.cuda.synchronize()
+    result["gradients"] = summarize(f"{tag}-gradients", prof, grads_ms, 1, args.out)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        update(g)
+    result["optimizer"] = summarize(f"{tag}-optimizer", prof, update_ms, 1, args.out)
     print(json.dumps(result))
     return 0
 
