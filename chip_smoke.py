@@ -12,11 +12,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    both measured against an f64 ground truth, with CUDA-event timings: flash
    forward, decode attention (bf16 and int8 cache), the int8 / int4
    weight-only matmuls at the 7B fused matrices (wqkv, w_down, lm_head) for
-   1, 16 and 768 rows, and the paged kernels at 16 slots of 16 pages;
+   1, 16 and 768 rows, and the paged kernels at 16 slots of 16 pages; and
+   the ALiBi variants (MPT) of the flash forward, the dense decode and both
+   paged kernels;
 4. a narrow LLaMA (head dim 128, GQA) on the card against the same weights
    on the CPU plain path: 16 greedy tokens, and the logits of the prefill and
    of every decode step, with bf16 weights (bf16 and int8 KV) and with fused
-   int8 and int4 weights;
+   int8 and int4 weights; then a narrow MPT (ALiBi, MHA and MQA) the same
+   way, with int8 weights and over paged pools;
 5. LLaVA-1.5-7B at full width, random bf16 weights, behind the HTTP model
    worker on the single-stream path: an image request and three text
    requests, one of them short enough for a single 128-token prefill (and a
@@ -46,14 +49,24 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    ``scripts/v1_5/finetune.sh`` recipe reduced to batch 4 with gradient
    accumulation 2, on 24 synthetic multi-turn image records of 700-2048
    tokens: 3 steps, every trained leaf updated, the vision tower frozen, the
-   launch counts and the peak memory.
+   launch counts and the peak memory;
+11. (run after 7, before the training phases) LLaVA-MPT-7B at full width,
+   random bf16 weights quantized to int8, int8 KV, behind the HTTP worker:
+   the dense engine (8 concurrent ``conv_mpt`` requests, 4 image and 4 text,
+   of 32 greedy tokens), then the paged engine with the prefix cache (128
+   pages of 128; 8 requests, then 4 multi-turn follow-ups that hit their
+   pooled prefixes), with TTFT p50, tokens/s, peak memory, page accounting
+   and every ALiBi kernel's launch count checked.
 
 Phase 3 also holds both paged kernels (decode1 and general) and both flash
 backward kernels (dK/dV and dQ, at T = 2048, MHA and GQA, a padded and a
 packed row) against their plain version, and phase 4 runs the narrow model
-over a paged cache with a bf16 and an int8 pool. Each kernel's line gives its bound (bytes over the
-H100's 3.35 TB/s or bf16 flops over 989 TFLOP/s, whichever is larger) and,
-where one PyTorch call computes the same function, that call's time.
+over a paged cache with a bf16 and an int8 pool. Each kernel's line gives
+its bound (bytes over the H100's 3.35 TB/s or bf16 flops over 989 TFLOP/s,
+whichever is larger) and, where one PyTorch call computes the same
+function, that call's time (with ALiBi: ``scaled_dot_product_attention``
+with the bias as a float mask). The kernels build with one ``nvcc`` for
+each source, all started together.
 
 The script reaches the model, tokenizer, image processor and worker only
 through ``llava_plus_torch`` and checks at the end that no module of JAX or
@@ -89,6 +102,13 @@ INT8_REPLACES = "llava_plus_tpu/ops/quant_matmul.py:71"
 INT4_REPLACES = "llava_plus_tpu/ops/quant_matmul.py:127"
 PAGED_DECODE1_REPLACES = "llava_plus_tpu/ops/paged_attention.py:305"
 PAGED_GENERAL_REPLACES = "llava_plus_tpu/ops/paged_attention.py:95"
+# the ALiBi branches (MPT) of those Pallas kernels; the dense decode kernel
+# has none in Pallas: on the card its ALiBi variant stands in for XLA's
+# quant_cache_attention(bias=...) (llava_plus_tpu/models/mpt.py:175)
+FLASH_ALIBI_REPLACES = "llava_plus_tpu/ops/flash_attention.py:82"
+DECODE_ALIBI_REPLACES = "llava_plus_tpu/ops/decode_attention.py:41"
+PAGED_DECODE1_ALIBI_REPLACES = "llava_plus_tpu/ops/paged_attention.py:420"
+PAGED_GENERAL_ALIBI_REPLACES = "llava_plus_tpu/ops/paged_attention.py:209"
 
 # Published peaks of one H100 SXM (dense): HBM3 bytes/s and bf16 tensor-core
 # flop/s. A kernel's bound is the larger of its bytes over the first and its
@@ -165,13 +185,21 @@ def phase_build():
 # 3. kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_flash(tag, B, T, H, Hkv, pad_tail, gen):
+def _slopes(H, alibi):
+    """MPT's ALiBi slopes for H heads on the card (alibi_bias_max 8), or None."""
+    from llava_plus_torch.models.mpt import alibi_slopes
+
+    return alibi_slopes(H, 8, "cuda") if alibi else None
+
+
+def check_flash(tag, B, T, H, Hkv, pad_tail, gen, alibi=False):
     import torch
     from llava_plus_torch.ops.flash_attention import (
         flash_attention, flash_attention_reference,
     )
 
     dev, D = "cuda", 128
+    slopes = _slopes(H, alibi)
     q = torch.randn(B, T, H, D, generator=gen, device=dev).bfloat16()
     k = torch.randn(B, T, Hkv, D, generator=gen, device=dev).bfloat16()
     v = torch.randn(B, T, Hkv, D, generator=gen, device=dev).bfloat16()
@@ -179,10 +207,15 @@ def check_flash(tag, B, T, H, Hkv, pad_tail, gen):
     seg[-1, T - pad_tail:] = 0
     scale = D ** -0.5
 
-    out, lse = flash_attention(q, k, v, q_segment_ids=seg, kv_segment_ids=seg)
-    p_out, p_lse = flash_attention_reference(q, k, v, seg, seg, causal=True, sm_scale=scale)
+    kw = dict(q_segment_ids=seg, kv_segment_ids=seg, alibi_slopes=slopes)
+    ref_kw = dict(causal=True, sm_scale=scale, alibi_slopes=slopes)
+    n0 = flash_attention.alibi_launches if alibi else flash_attention.launches
+    out, lse = flash_attention(q, k, v, **kw)
+    if (flash_attention.alibi_launches if alibi else flash_attention.launches) != n0 + 1:
+        raise AssertionError(f"flash_fwd {tag}: the call did not launch the kernel")
+    p_out, p_lse = flash_attention_reference(q, k, v, seg, seg, **ref_kw)
     t_out, t_lse = flash_attention_reference(q.double(), k.double(), v.double(), seg, seg,
-                                             causal=True, sm_scale=scale)
+                                             **ref_kw)
     torch.cuda.synchronize()
     rows = seg > 0
     lse_rows = rows[:, None, :].expand(B, H, T)
@@ -190,16 +223,25 @@ def check_flash(tag, B, T, H, Hkv, pad_tail, gen):
     r_err = (p_out.double() - t_out)[rows].abs().max().item()
     k_lse = (lse.double() - t_lse)[lse_rows].abs().max().item()
     r_lse = (p_lse.double() - t_lse)[lse_rows].abs().max().item()
-    ms = time_ms(lambda: flash_attention(q, k, v, q_segment_ids=seg, kv_segment_ids=seg))
-    plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, seg, seg, causal=True,
-                                                         sm_scale=scale))
+    ms = time_ms(lambda: flash_attention(q, k, v, **kw))
+    plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, seg, seg, **ref_kw))
     # the library's causal attention on the same tensors, heads-major as it
     # takes them (the copies are made before the timing); on every row that
-    # is not padding it computes the kernel's function
+    # is not padding it computes the kernel's function. With ALiBi the bias
+    # goes in as a float mask (-inf above the diagonal), made beforehand.
     import torch.nn.functional as F
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=Hkv != H))
+    if alibi:
+        pos = torch.arange(T, device=dev)
+        dist = (pos[:, None] - pos[None, :]).float()
+        mask = torch.where(dist >= 0, -dist * slopes[:, None, None], -torch.inf)
+        mask = mask[None].bfloat16()
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=Hkv != H))
+        del mask
+    else:
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=Hkv != H))
     # q, k, v read once, out and lse written once; the causal pairs of the
     # rows that are not padding, 4 flops per pair and head dim
     valid = seg.sum(dim=1).double()
@@ -207,13 +249,15 @@ def check_flash(tag, B, T, H, Hkv, pad_tail, gen):
     flops = 4 * H * D * float((valid * (valid + 1) / 2).sum())
     b = bound(nbytes, flops)
     ok = within(k_err, r_err) and within(k_lse, r_lse)
-    log("kernels", f"flash_fwd {tag} B={B} T={T} H={H} Hkv={Hkv} D={D} pad={pad_tail}: "
+    log("kernels", f"flash_fwd{'[alibi]' if alibi else ''} {tag} B={B} T={T} H={H} "
+                   f"Hkv={Hkv} D={D} pad={pad_tail}: "
                    f"out err {k_err:.3e} (plain {r_err:.3e}), lse err {k_lse:.3e} "
                    f"(plain {r_lse:.3e}), {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
                    f"library (sdpa) {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
                    f"({b['bound_by']}) -> {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"flash_fwd {tag} disagrees with its plain version")
+        raise AssertionError(f"flash_fwd {tag} (alibi={alibi}) disagrees with its plain "
+                             "version")
     return {"max_abs_err": k_err, "ms": ms, "plain_ms": plain_ms, **b,
             "library_ms": library_ms}
 
@@ -302,7 +346,7 @@ def check_flash_bwd(tag, B, T, H, Hkv, gen):
              "library_ms": library_ms})
 
 
-def check_decode(tag, B, S, H, Hkv, gen, rng):
+def check_decode(tag, B, S, H, Hkv, gen, rng, alibi=False):
     import torch
     from llava_plus_torch.models.llama import quantize_kv
     from llava_plus_torch.ops.decode_attention import (
@@ -327,30 +371,40 @@ def check_decode(tag, B, S, H, Hkv, gen, rng):
         ks, vs = ks[1], vs[1]
     kc, vc = k_all[1], v_all[1]
     scale = D ** -0.5
+    slopes = _slopes(H, alibi)
+    counter = "alibi_launches" if alibi else "launches"
 
     def kernel():
-        return decode_attention(q, kc, vc, seg, q_pos, ks, vs)
+        return decode_attention(q, kc, vc, seg, q_pos, ks, vs, alibi_slopes=slopes)
 
     def plain():
-        return decode_attention_reference(q, kc, vc, seg, q_pos, ks, vs, sm_scale=scale)
+        return decode_attention_reference(q, kc, vc, seg, q_pos, ks, vs, sm_scale=scale,
+                                          alibi_slopes=slopes)
 
     dbl = lambda x: None if x is None else x.double()
     truth = decode_attention_reference(q.double(), kc, vc, seg, q_pos, dbl(ks), dbl(vs),
-                                       sm_scale=scale)
+                                       sm_scale=scale, alibi_slopes=slopes)
+    n0 = getattr(decode_attention, counter)
     out, p_out = kernel(), plain()
     torch.cuda.synchronize()
+    if getattr(decode_attention, counter) != n0 + 1:
+        raise AssertionError(f"decode_attention {tag}: the call did not launch the kernel")
     k_err = (out.double() - truth).abs().max().item()
     r_err = (p_out.double() - truth).abs().max().item()
     ms, plain_ms = time_ms(kernel), time_ms(plain)
     library_ms = None
     if ks is None:
         # the library's attention with a boolean mask over the filled slots
-        # (heads-major copies made before the timing); an int8 cache has no
-        # single library call
+        # (heads-major copies made before the timing), with ALiBi a float
+        # mask carrying the bias; an int8 cache has no single library call
         import torch.nn.functional as F
         qt = q.transpose(1, 2).contiguous()
         kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
         mask = (torch.arange(S, device=dev)[None, :] <= q_pos[:, None])[:, None, None, :]
+        if alibi:
+            dist = (q_pos[:, None] - torch.arange(S, device=dev)[None, :]).float()
+            bias = -dist[:, None, None, :] * slopes[None, :, None, None]       # [B, H, 1, S]
+            mask = torch.where(mask, bias, -torch.inf).bfloat16()
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=Hkv != H))
     # the kernel reads the slots up to each query's position, k and v (+ scales)
@@ -359,7 +413,8 @@ def check_decode(tag, B, S, H, Hkv, gen, rng):
     b = bound(nbytes + 2 * 2 * B * H * D + 4 * B * (S + 1),
               4 * H * D * float(fills.sum()))
     ok = within(k_err, r_err)
-    log("kernels", f"decode_attention {tag} B={B} S={S} H={H} Hkv={Hkv} D={D} "
+    log("kernels", f"decode_attention{'[alibi]' if alibi else ''} {tag} B={B} S={S} H={H} "
+                   f"Hkv={Hkv} D={D} "
                    f"(mean fill {fills.mean():.0f}): "
                    f"err {k_err:.3e} (plain {r_err:.3e}), {ms:.4f} ms "
                    f"({nbytes / ms / 1e6:.1f} GB/s of cache read) vs plain {plain_ms:.4f} ms, "
@@ -367,14 +422,19 @@ def check_decode(tag, B, S, H, Hkv, gen, rng):
                    f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}) "
                    f"-> {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"decode_attention {tag} disagrees with its plain version")
+        raise AssertionError(f"decode_attention {tag} (alibi={alibi}) disagrees with its "
+                             "plain version")
     return {"max_abs_err": k_err, "ms": ms, "plain_ms": plain_ms, **b,
             "library_ms": library_ms}
 
 
 # 7B matrices with fused weights (K x N) and the row counts the engine gives
 # the quantized kernels: one decode row, 16 decode slots, one 768-token prefill.
+# LLaVA-1.5-7B's, then LLaVA-MPT-7B's other three (its wqkv is 4096 x 12288
+# too; the int8 kernel only: MPT's int4 path runs on no card phase).
 QUANT_SHAPES = (("wqkv", 4096, 12288), ("w_down", 11008, 4096), ("lm_head", 4096, 32000))
+MPT_QUANT_SHAPES = (("mpt out_proj", 4096, 4096), ("mpt up_proj", 4096, 16384),
+                    ("mpt down_proj", 16384, 4096))
 QUANT_ROWS = (1, 16, 768)
 
 
@@ -472,7 +532,8 @@ def phase_quant_kernels():
     gen = torch.Generator(device="cuda").manual_seed(1)
     stats = {}
     for bits in (8, 4):
-        per = {name: check_quant(bits, name, K, N, gen) for name, K, N in QUANT_SHAPES}
+        shapes = QUANT_SHAPES + (MPT_QUANT_SHAPES if bits == 8 else ())
+        per = {name: check_quant(bits, name, K, N, gen) for name, K, N in shapes}
         # the line reports the engine's decode call (wqkv at 16 slots) and the
         # largest relative error over every shape and row count
         stats[f"quant_matmul[int{bits}]"] = dict(
@@ -481,7 +542,8 @@ def phase_quant_kernels():
     return stats
 
 
-def check_paged(tag, Hkv, Tq, quantized, gen, rng, B=16, H=32, P=128, pages_per_slot=16):
+def check_paged(tag, Hkv, Tq, quantized, gen, rng, B=16, H=32, P=128, pages_per_slot=16,
+                alibi=False):
     """A paged kernel at a 7B-wide batch: B slots of ``pages_per_slot``
     pages, page ids a random permutation of the pool, ragged past lengths
     and chunk prefixes from a seed, the last slot dead (no past tokens, no
@@ -510,21 +572,25 @@ def check_paged(tag, Hkv, Tq, quantized, gen, rng, B=16, H=32, P=128, pages_per_
     vals = torch.as_tensor(valid, dtype=torch.int32, device=dev)
     sm = D ** -0.5
     wrapper = pa.paged_decode1 if (H // Hkv) * Tq == 1 else pa.paged_attention_general
+    slopes = _slopes(H, alibi)
+    counter = "alibi_launches" if alibi else "launches"
 
     def kernel():
-        return pa.paged_decode_attention(q, pool, page_ids, lens, scale, ck, cv, vals)
+        return pa.paged_decode_attention(q, pool, page_ids, lens, scale, ck, cv, vals,
+                                         alibi_slopes=slopes)
 
     def plain():
         return pa.paged_attention_reference(q, pool, page_ids, lens, scale, ck, cv, vals,
-                                            sm_scale=sm)
+                                            sm_scale=sm, alibi_slopes=slopes)
 
     truth = pa.paged_attention_reference(q.double(), pool, page_ids, lens,
                                          None if scale is None else scale.double(),
-                                         ck.double(), cv.double(), vals, sm_scale=sm)
-    n0 = wrapper.launches
+                                         ck.double(), cv.double(), vals, sm_scale=sm,
+                                         alibi_slopes=slopes)
+    n0 = getattr(wrapper, counter)
     out, p_out = kernel(), plain()
     torch.cuda.synchronize()
-    if wrapper.launches != n0 + 1:
+    if getattr(wrapper, counter) != n0 + 1:
         raise AssertionError(f"paged {tag}: the call did not launch {wrapper.__name__}")
     live = slice(0, B - 1)
     k_err = (out.double() - truth)[live].abs().max().item()
@@ -543,7 +609,8 @@ def check_paged(tag, Hkv, Tq, quantized, gen, rng, B=16, H=32, P=128, pages_per_
     b = bound(page_bytes + small,
               4 * D * (H // Hkv) * Hkv * (Tq * int(lengths.sum()) + self_pairs))
     ok = within(k_err, r_err)
-    log("kernels", f"paged {tag} ({wrapper.__name__}) {'int8' if quantized else 'bf16'} pool "
+    log("kernels", f"paged {tag} ({wrapper.__name__}{', alibi' if alibi else ''}) "
+                   f"{'int8' if quantized else 'bf16'} pool "
                    f"B={B} H={H} Hkv={Hkv} Tq={Tq} D={D} P={P} pages/slot={pages_per_slot} "
                    f"(mean past {lengths[:-1].mean():.0f}, one dead slot): err {k_err:.3e} "
                    f"(plain {r_err:.3e}), {ms:.4f} ms ({page_bytes / ms / 1e6:.1f} GB/s of "
@@ -559,13 +626,19 @@ def check_paged(tag, Hkv, Tq, quantized, gen, rng, B=16, H=32, P=128, pages_per_
 def phase_paged_kernels(gen, rng):
     """Both paged kernels: decode1 at H = Hkv = 32, Tq = 1; the general one
     for GQA (Hkv = 8, Tq = 1) and for 4-token chunks (Hkv = 32); bf16 and
-    int8 pools. The line reports decode1 with an int8 pool (the 7B paged
-    engine's) and the general kernel at the GQA int8 case, with the largest
-    error over every case."""
+    int8 pools. Their ALiBi variants (MPT) on int8 pools: decode1 at Hkv =
+    32 (LLaVA-MPT-7B's paged decode), the general kernel for 4-token chunks
+    (Hkv = 32) and for MQA (4 query heads over one kv head, the narrow MQA
+    MPT). The lines report decode1 with an int8 pool (the 7B paged engines')
+    and the general kernel at the GQA int8 case and at the MQA one, with the
+    largest error over every case of the variant."""
     runs = {}
     for tag, Hkv, Tq in (("decode1", 32, 1), ("general GQA", 8, 1), ("general chunk", 32, 4)):
         for quantized in (False, True):
             runs[tag, quantized] = check_paged(tag, Hkv, Tq, quantized, gen, rng)
+    alibi = {tag: check_paged(tag, Hkv, Tq, True, gen, rng, H=H, alibi=True)
+             for tag, H, Hkv, Tq in (("decode1", 32, 32, 1), ("general chunk", 32, 32, 4),
+                                     ("general MQA", 4, 1, 1))}
     d1 = [runs["decode1", qz] for qz in (False, True)]
     gen_runs = [r for (tag, _), r in runs.items() if tag.startswith("general")]
     return {
@@ -573,6 +646,10 @@ def phase_paged_kernels(gen, rng):
                                          max_abs_err=max(r["max_abs_err"] for r in d1)),
         "paged_attention[general]": dict(runs["general GQA", True],
                                          max_abs_err=max(r["max_abs_err"] for r in gen_runs)),
+        "paged_attention[decode1,alibi]": alibi["decode1"],
+        "paged_attention[general,alibi]": dict(
+            alibi["general MQA"], max_abs_err=max(alibi["general MQA"]["max_abs_err"],
+                                                  alibi["general chunk"]["max_abs_err"])),
     }
 
 
@@ -587,6 +664,15 @@ def phase_kernels():
     dec_int8 = check_decode("int8", B=16, S=1024, H=32, Hkv=32, gen=gen, rng=rng)
     flash = dict(flash_mha, max_abs_err=max(flash_mha["max_abs_err"],
                                             flash_gqa["max_abs_err"]))
+    # the ALiBi variants at LLaVA-MPT-7B's widths (MHA, 32 heads of 128); the
+    # decode line reports the bf16 cache (it has a library call) with the
+    # largest error of both caches
+    flash_alibi = check_flash("MHA", B=2, T=768, H=32, Hkv=32, pad_tail=100, gen=gen,
+                              alibi=True)
+    dec_alibi_bf16 = check_decode("bf16", B=16, S=1024, H=32, Hkv=32, gen=gen, rng=rng,
+                                  alibi=True)
+    dec_alibi_int8 = check_decode("int8", B=16, S=1024, H=32, Hkv=32, gen=gen, rng=rng,
+                                  alibi=True)
     # the backward at the 7B stage-2 row length; the lines report MHA (the
     # 7B model's) with the largest error of both
     dkv_mha, dq_mha = check_flash_bwd("MHA", B=2, T=2048, H=32, Hkv=32, gen=gen)
@@ -597,7 +683,11 @@ def phase_kernels():
             "flash_bwd[dq]": dict(dq_mha, max_abs_err=max(dq_mha["max_abs_err"],
                                                           dq_gqa["max_abs_err"])),
             "decode_attention[bf16]": dec_bf16,
-            "decode_attention[int8]": dec_int8, **phase_quant_kernels(),
+            "decode_attention[int8]": dec_int8,
+            "flash_fwd[alibi]": flash_alibi,
+            "decode_attention[alibi]": dict(dec_alibi_bf16, max_abs_err=max(
+                dec_alibi_bf16["max_abs_err"], dec_alibi_int8["max_abs_err"])),
+            **phase_quant_kernels(),
             **phase_paged_kernels(gen, rng)}
 
 
@@ -655,21 +745,6 @@ def phase_narrow_model():
     # ~0.5-0.9% of the largest logit, so 2% of it is the bound.
     tol = 2e-2
 
-    def step_logits(g, params, dev, tokens):
-        """Prefill logits, then those of each decode step fed ``tokens``."""
-        batch, plan = g.prepare_batch([prompt])
-        cache = llama.KVCache.create(cfg.text, 1, 1024, g.cache_dtype, device=dev)
-        seg = torch.ones(1, 1, dtype=torch.int32, device=dev)
-        pos = int(plan.lengths[0])
-        with torch.inference_mode():
-            out = [g._prefill(cache, batch).float().cpu()]
-            for i, t in enumerate(tokens[:-1]):
-                logits, _ = llava_model.decode_step(
-                    params, cfg, torch.tensor([[t]], device=dev),
-                    torch.tensor([[pos + i]], dtype=torch.int32, device=dev), seg, cache)
-                out.append(logits[:, 0].float().cpu())
-        return out, int(batch.tokens.shape[1])
-
     # Quantized weights (fused as the worker fuses them; this GQA model keeps
     # wq/wk/wv apart, so 6 products a layer and the head): the same quantized
     # tree on both sides. The CPU's plain product rounds each dequantized
@@ -701,7 +776,7 @@ def phase_narrow_model():
                         or decode_attention.launches - d0 != steps * L
                         or (counter.launches - q0 if counter else 0) != want_q):
                     raise AssertionError(f"narrow model ({name}) did not run through the kernels")
-            logits[dev], T = step_logits(g, params, dev, ids["cpu"])
+            logits[dev], T = _step_logits(cfg, g, params, dev, prompt, ids["cpu"])
         ratios = [(c - g).abs().max().item() / c.abs().max().item()
                   for c, g in zip(logits["cpu"], logits["cuda"])]
         margins = [c.topk(2).values[0] for c in logits["cpu"]]
@@ -717,6 +792,27 @@ def phase_narrow_model():
     return phase_narrow_paged(cfg, cpu_params, tok, prompt, new, tol)
 
 
+def _step_logits(cfg, g, params, dev, prompt, tokens):
+    """Prefill logits of ``prompt`` through the generator ``g``, then those of
+    each decode step fed ``tokens``, over a dense cache of 1024."""
+    import torch
+    from llava_plus_torch.models import llama, llava as llava_model
+
+    batch, plan = g.prepare_batch([prompt])
+    cache = llama.KVCache.create(llava_model.backbone(cfg)[1], 1, 1024, g.cache_dtype,
+                                 device=dev)
+    seg = torch.ones(1, 1, dtype=torch.int32, device=dev)
+    pos = int(plan.lengths[0])
+    with torch.inference_mode():
+        out = [g._prefill(cache, batch).float().cpu()]
+        for i, t in enumerate(tokens[:-1]):
+            logits, _ = llava_model.decode_step(
+                params, cfg, torch.tensor([[t]], device=dev),
+                torch.tensor([[pos + i]], dtype=torch.int32, device=dev), seg, cache)
+            out.append(logits[:, 0].float().cpu())
+    return out, int(batch.tokens.shape[1])
+
+
 def _paged_steps(cfg, params, tok, prompt, dev, cache_dtype, n, feed=None):
     """A prefill into a paged cache (page size 128, the slot's 8 pages
     scattered over a pool of 11), then ``n - 1`` decode steps, each fed
@@ -727,8 +823,9 @@ def _paged_steps(cfg, params, tok, prompt, dev, cache_dtype, n, feed=None):
     from llava_plus_torch.models import llama, llava as llava_model
 
     P, S = 128, 1024
-    cache = llama.PagedKVCache.create(cfg.text, 1, num_pages=11, max_pages_per_slot=S // P,
-                                      page_size=P, dtype=cache_dtype, device=dev)
+    cache = llama.PagedKVCache.create(llava_model.backbone(cfg)[1], 1, num_pages=11,
+                                      max_pages_per_slot=S // P, page_size=P,
+                                      dtype=cache_dtype, device=dev)
     cache.page_table[0] = torch.tensor([9, 2, 7, 0, 5, 10, 3, 1], dtype=torch.int32)
     batch, plan = prepare_multimodal_request(cfg, tok, [prompt], None, max_seq_len=S,
                                              device=dev, prefill_bucket=P)
@@ -783,6 +880,128 @@ def phase_narrow_paged(cfg, cpu_params, tok, prompt, new, tol):
         if max(ratios) > tol:
             raise AssertionError(f"logits differ beyond the tolerance ({name})")
     return total
+
+
+def _narrow_mpt_cfg(multiquery):
+    """A narrow LLaVA-MPT: d_model 512 with head dim 128 (4 heads over 4 kv
+    heads, or over one with ``multiquery``), 2 layers, vocab 50432, ALiBi; a
+    2-layer CLIP tower on 28 px and a linear projector."""
+    from llava_plus_torch.models.configs import ClipVisionConfig, LlavaConfig, MptConfig
+
+    return LlavaConfig(
+        language_model_type="mpt",
+        mpt=MptConfig(vocab_size=50432, d_model=512, n_layers=2, n_heads=4,
+                      expansion_ratio=4, multiquery=multiquery),
+        vision=ClipVisionConfig(hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                                num_attention_heads=2, image_size=28, patch_size=14),
+        mm_hidden_size=64, mm_projector_type="linear", max_sequence_length=1024,
+    )
+
+
+def phase_narrow_mpt():
+    """The ALiBi kernels inside a narrow MPT (``_narrow_mpt_cfg``), card
+    against the same weights on the CPU plain path, in both forms: MHA (the
+    dense decode kernel at G = 1, paged decode1) and MQA (G = 4: the dense
+    decode kernel's group, the general paged kernel). Through ``Generator``:
+    bf16 weights with a bf16 and an int8 KV cache, and int8 weights (the
+    four MPT matrices of each layer), 16 greedy tokens with every ALiBi
+    launch counted; then the logits of the prefill and of every decode step,
+    both sides fed the CPU's greedy tokens, within 2% of the largest logit
+    (3% with int8 weights, as phase 4's LLaMA). Then over a paged cache,
+    bf16 and int8 pools, the same way. The head is tied to the random
+    embeddings, so top-2 margins are ~0.2% of the top logit, below bf16
+    GEMM noise: the card's own greedy tokens may split from the CPU's on a
+    near tie and are reported, not required equal. The logits check is
+    sensitive: on the CPU, dropping ALiBi, flipping its sign or shifting the
+    slopes by one head moves them by more than the top logit. Returns the
+    ALiBi launches of the dense decode, decode1 and general kernels."""
+    import torch
+    from llava_plus_torch.data import DebugTokenizer
+    from llava_plus_torch.generate import Generator
+    from llava_plus_torch.models import llava as llava_model
+    from llava_plus_torch.ops import quant
+    from llava_plus_torch.ops import quant_matmul as qm
+    from llava_plus_torch.ops.decode_attention import decode_attention
+    from llava_plus_torch.ops.flash_attention import flash_attention
+    from llava_plus_torch.ops.paged_attention import paged_attention_general, paged_decode1
+
+    prompt = " ".join(f"token{i}" for i in range(320))
+    new, tol = 16, 2e-2
+    totals = {"decode": 0, "decode1": 0, "general": 0}
+    for multiquery in (False, True):
+        cfg = _narrow_mpt_cfg(multiquery)
+        form = "MQA" if multiquery else "MHA"
+        L = cfg.mpt.n_layers
+        tok = DebugTokenizer(vocab_size=cfg.mpt.vocab_size)
+        tok.bos_token_id = None   # GPT-NeoX style, as MPT's tokenizer
+        cpu_params = llava_model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        for name, bits, cache_dtype, limit in (
+                ("bf16 weights, bf16 KV", None, torch.bfloat16, tol),
+                ("bf16 weights, int8 KV", None, torch.int8, tol),
+                ("int8 weights, int8 KV", 8, torch.int8, 3e-2)):
+            cpu_tree = cpu_params
+            if bits:
+                cpu_tree = quant.quantize_llava_params(copy.deepcopy(cpu_params), "mpt",
+                                                       bits=bits, fuse=True)
+            ids, logits = {}, {}
+            for dev, params in (("cpu", cpu_tree), ("cuda", _tree_to(cpu_tree, "cuda"))):
+                g = Generator(params, cfg, tok, device=dev, max_seq_len=1024,
+                              cache_dtype=cache_dtype)
+                counters = (flash_attention, decode_attention, qm.matmul_int8)
+                for k in counters:
+                    k.launches = k.alibi_launches = 0
+                for _ in g.stream(prompt, max_new_tokens=new):
+                    pass
+                ids[dev] = list(g._last_output_ids)
+                if dev == "cuda":
+                    steps = len(ids[dev]) - 1 if len(ids[dev]) == new else len(ids[dev])
+                    got = (flash_attention.alibi_launches, decode_attention.alibi_launches,
+                           qm.matmul_int8.launches, flash_attention.launches,
+                           decode_attention.launches)
+                    want = (L, steps * L, (steps + 1) * 4 * L if bits else 0, 0, 0)
+                    if got != want:
+                        raise AssertionError(f"narrow MPT {form} ({name}): launches {got}, "
+                                             f"want {want}")
+                    totals["decode"] += got[1]
+                logits[dev], T = _step_logits(cfg, g, params, dev, prompt, ids["cpu"])
+            ratios = [(c - g).abs().max().item() / c.abs().max().item()
+                      for c, g in zip(logits["cpu"], logits["cuda"])]
+            margins = [c.topk(2).values[0] for c in logits["cpu"]]
+            min_margin = min((m[0] - m[1]).item() / m[0].abs().item() for m in margins)
+            log("narrow", f"MPT {form}, {name}, T={T}: greedy tokens equal="
+                          f"{ids['cuda'] == ids['cpu']} ({len(ids['cpu'])} tokens); logits max "
+                          f"diff / max |logit|: prefill {ratios[0]:.3e}, decode steps up to "
+                          f"{max(ratios[1:]):.3e} (bound {limit}); smallest top-2 margin "
+                          f"{min_margin:.3f} of the top logit")
+            if max(ratios) > limit:
+                raise AssertionError(f"logits differ beyond the tolerance (MPT {form}, {name})")
+        cuda_params = _tree_to(cpu_params, "cuda")
+        paged_kernel = paged_attention_general if multiquery else paged_decode1
+        for name, cache_dtype in (("paged bf16 KV", torch.bfloat16),
+                                  ("paged int8 KV", torch.int8)):
+            cpu_logits, cpu_ids = _paged_steps(cfg, cpu_params, tok, prompt, "cpu", cache_dtype,
+                                               new)
+            for k in (flash_attention, paged_decode1, paged_attention_general):
+                k.launches = k.alibi_launches = 0
+            logits, ids = _paged_steps(cfg, cuda_params, tok, prompt, "cuda", cache_dtype, new,
+                                       feed=cpu_ids)
+            got = (flash_attention.alibi_launches, paged_kernel.alibi_launches,
+                   paged_decode1.launches + paged_attention_general.launches
+                   + (paged_decode1 if multiquery else paged_attention_general).alibi_launches)
+            if got != (L, (new - 1) * L, 0):
+                raise AssertionError(f"narrow MPT {form} ({name}) launches {got}, want "
+                                     f"{(L, (new - 1) * L, 0)}")
+            totals["general" if multiquery else "decode1"] += got[1]
+            ratios = [(c - g).abs().max().item() / c.abs().max().item()
+                      for c, g in zip(cpu_logits, logits)]
+            log("narrow", f"MPT {form}, bf16 weights, {name}: greedy tokens equal="
+                          f"{ids == cpu_ids} ({new} steps); logits max diff / max |logit|: "
+                          f"prefill {ratios[0]:.3e}, decode steps up to {max(ratios[1:]):.3e} "
+                          f"(bound {tol}); flash[alibi] +{got[0]}, "
+                          f"{paged_kernel.__name__}[alibi] +{got[1]}")
+            if max(ratios) > tol:
+                raise AssertionError(f"logits differ beyond the tolerance (MPT {form}, {name})")
+    return totals
 
 
 def _tree_to(tree, device, dtype=None):
@@ -1227,6 +1446,222 @@ def serve_paged_engine(smi):
 
 
 # ---------------------------------------------------------------------------
+# 11. LLaVA-MPT-7B at full width behind the HTTP worker, dense and paged
+# ---------------------------------------------------------------------------
+
+def _init_mpt_7b(dev):
+    """LLaVA-MPT-7B at full width and depth, random bf16 weights from seed 0."""
+    import torch
+    from llava_plus_torch.models import llava as llava_model
+    from llava_plus_torch.models.configs import LLAVA_MPT_7B
+
+    t0 = time.perf_counter()
+    params = llava_model.init_params(LLAVA_MPT_7B, torch.Generator(device=dev).manual_seed(0),
+                                     dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    log("mpt", f"random bf16 weights on {dev}: {n_params / 1e9:.3f} B parameters in "
+               f"{time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def _mpt_prompt(text):
+    """One user turn in the ``conv_mpt`` template, the assistant's turn open."""
+    from llava_plus_torch.conversation import conv_templates
+
+    conv = conv_templates["mpt"].copy()
+    conv.append_message(conv.roles[0], text)
+    conv.append_message(conv.roles[1], None)
+    return conv.get_prompt()
+
+
+def _mpt_bodies(rng, size, n_image, n_text, new_tokens):
+    """``conv_mpt`` prompts: image turns of ~480 fused tokens (256 image
+    slots between the start / end tokens, 200 words; one 512 bucket) and
+    text turns of 60..300 words."""
+    bodies = []
+    for j in range(n_image):
+        words = " ".join(f"img{j}word{i}" for i in range(200))
+        bodies.append({"prompt": _mpt_prompt("<image>\n" + words),
+                       "images": [_png_b64(rng, size)]})
+    for j, n in enumerate(np.linspace(60, 300, n_text).round().astype(int)):
+        bodies.append({"prompt": _mpt_prompt(" ".join(f"txt{j}word{i}" for i in range(n)))})
+    for b in bodies:
+        b.update(temperature=0.0, max_new_tokens=new_tokens)
+    return bodies
+
+
+def serve_mpt_7b(smi):
+    """Phase 11: LLaVA-MPT-7B on the dense engine, then on the paged engine
+    (:func:`_serve_mpt_engine`, each on fresh weights, the first freed
+    before the second is made). Returns the launch counts of both."""
+    return {mode: _serve_mpt_engine(smi, mode) for mode in ("dense", "paged")}
+
+
+def _serve_mpt_engine(smi, mode):
+    """LLaVA-MPT-7B (``LLAVA_MPT_7B``: mosaicml/mpt-7b-chat's decoder with
+    ALiBi, CLIP ViT-L/14 at 224 px, a linear projector, image start / end
+    tokens) at full width, random bf16 weights, behind the HTTP worker, as
+    the JAX worker serves it: weights quantized in place to int8 (the four
+    matrices of each layer; the tied ``wte`` stays bf16), an int8 KV cache,
+    16 slots, decode chunks of 4, warmed at 512 tokens, ``conv_mpt`` prompts,
+    the GPT-NeoX-style tokenizer (no BOS) at vocab 50432.
+
+    1. the dense engine (16 slots x 2048): 8 concurrent requests of 32
+       greedy tokens (4 image, 4 text);
+    2. the paged engine with the prefix cache on fresh weights: an int8 pool
+       of 128 pages of 128 tokens, 8 requests, then 4 multi-turn follow-ups
+       (a round-1 image prompt, its answer, a new user turn) that must hit
+       their pooled prefixes (3 pages each, no full prefill, no vision
+       encode).
+
+    ``mode`` is "dense" (1) or "paged" (2). Checks every chunk and token
+    count, batched admission, the prefix hits, the page accounting, and every
+    kernel's launch count against the engine's own counts: the ALiBi flash
+    forward 32 a prefill (32 layers), the ALiBi dense decode (1) or decode1
+    (2) 32 a decode step, the int8 matmul 4 x 32 a forward, no launch of a
+    kernel's plain (LLaMA) variant. Returns the launch counts."""
+    import torch
+    from llava_plus_torch.data import ClipImageProcessor, DebugTokenizer
+    from llava_plus_torch.models import llava as llava_model
+    from llava_plus_torch.models.configs import LLAVA_MPT_7B
+    from llava_plus_torch.ops import quant_matmul as qm
+    from llava_plus_torch.ops.decode_attention import decode_attention
+    from llava_plus_torch.ops.flash_attention import flash_attention
+    from llava_plus_torch.ops.paged_attention import paged_attention_general, paged_decode1
+    from llava_plus_torch.serve.model_worker import ModelWorker, TorchBackend, build_app
+
+    cfg = LLAVA_MPT_7B
+    L, new_tokens, P, size = cfg.mpt.n_layers, 32, 128, cfg.vision.image_size
+    tok = DebugTokenizer(vocab_size=cfg.mpt.vocab_size)
+    tok.bos_token_id = None   # GPT-NeoX style, as MPT's tokenizer
+    tok.eos_token_id = -1     # random weights give eos no meaning: every request runs 32 tokens
+    wrappers = (flash_attention, decode_attention, paged_decode1, paged_attention_general,
+                qm.matmul_int8, qm.matmul_int4)
+
+    def counts():
+        return {f"{k.__name__}{'' if a == 'launches' else '[alibi]'}": getattr(k, a)
+                for k in wrappers for a in ("launches", "alibi_launches") if hasattr(k, a)}
+
+    encodes = [0]
+    encode_images = llava_model.encode_images
+
+    def counted_encode(*args, **kwargs):
+        encodes[0] += 1
+        return encode_images(*args, **kwargs)
+
+    paged = mode == "paged"
+    gc.collect()   # an earlier backend's engine threads hold it in a cycle
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before_gib = torch.cuda.memory_allocated() / 2 ** 30   # left by earlier phases
+    t0 = time.perf_counter()
+    backend = TorchBackend(_init_mpt_7b("cuda:0"), cfg, tok,
+                           ClipImageProcessor(shortest_edge=size, crop_size=size),
+                           device="cuda", use_engine=True, max_slots=16, decode_chunk=4,
+                           quantize="int8", kv_int8=True, max_seq_len=2048, paged=paged,
+                           pool_tokens=128 * P if paged else None, prefix_cache=paged,
+                           warmup_len=512)
+    engine = backend.engine
+    log("mpt", f"{mode} engine: int8 weights, int8 KV "
+               f"{f'pool of {engine.num_pages} pages x {P}' if paged else '16 x 2048'}, 16 "
+               f"slots, decode chunks of 4: built and warmed in "
+               f"{time.perf_counter() - t0:.1f} s (warmup {engine.warmup_s:.1f} s)")
+    rng = np.random.default_rng(11)
+    bodies1 = _mpt_bodies(rng, size, 4, 4, new_tokens)
+    worker = ModelWorker("http://127.0.0.1:9", "http://127.0.0.1:0", backend,
+                         ["llava-mpt-7b-random"], limit_model_concurrency=len(bodies1),
+                         no_register=True, heartbeats=False)
+    server = _Server(build_app(worker), threads=len(bodies1) + 4)
+    url = f"http://127.0.0.1:{server.port}/worker_generate_stream"
+    state = lambda: (engine.prefill_dispatches, engine.prefill_requests,  # noqa: E731
+                     engine.decode_steps, engine.multi_slot_steps,
+                     engine.prefix_hit_tokens,
+                     engine._prefix.hit_requests if paged else 0, encodes[0])
+    rounds = []
+    llava_model.encode_images = counted_encode
+    try:
+        for w in wrappers:
+            w.launches = 0
+            if hasattr(w, "alibi_launches"):
+                w.alibi_launches = 0
+        for bodies in (bodies1, None) if paged else (bodies1,):
+            if bodies is None:
+                bodies = []
+                for j in range(4):   # the image requests, each with its answer
+                    prev = rounds[0]["bodies"][j]
+                    answer = rounds[0]["results"][j][0][-1]["text"][len(prev["prompt"]):]
+                    turn = " ".join(f"turn{j}word{i}" for i in range(40))
+                    bodies.append(dict(prev, prompt=prev["prompt"] + answer
+                                       + "<|im_end|><|im_start|>user\n" + turn
+                                       + "<|im_end|><|im_start|>assistant\n"))
+            c0 = state()
+            t_start = time.perf_counter()
+            results = _post_all(url, bodies)
+            t_end = max(stamps[-1] for _, _, stamps in results)
+            rounds.append({"bodies": bodies, "results": results,
+                           "delta": [b - a for a, b in zip(c0, state())],
+                           "seconds": t_end - t_start,
+                           "ttfts": sorted(st[0] - ts for _, ts, st in results)})
+        launches = counts()
+        deadline = time.time() + 30
+        while (engine.num_active or engine._waiting is not None) and time.time() < deadline:
+            time.sleep(0.05)
+        if paged:
+            with engine._page_lock:
+                refs = list(engine._page_refs)
+                cached = set(engine._prefix._entries.values())
+                free = len(engine._free_pages)
+    finally:
+        llava_model.encode_images = encode_images
+        server.stop()
+        worker.stop()
+        backend.stop()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for rd in rounds:
+        _check_streams(rd["bodies"], rd["results"], new_tokens)
+    dp, dr, ds, dm, hit_tok, hits, enc = (sum(rd["delta"][i] for rd in rounds)
+                                          for i in range(7))
+    want = {k: 0 for k in launches}
+    want["flash_attention[alibi]"] = L * dp
+    want["paged_decode1[alibi]" if paged else "decode_attention[alibi]"] = L * ds
+    want["matmul_int8"] = 4 * L * (dp + ds + hits)
+    log("mpt", f"{mode}: {dr} requests in {dp} prefill dispatches, {ds} decode steps "
+               f"({dm} with more than one active slot), {enc} vision encodes"
+               + (f", {hits} prefix hits of {hit_tok} tokens" if paged else "")
+               + f"; launches {launches} (want {want})")
+    if launches != want:
+        raise AssertionError(f"MPT {mode}: launch counts {launches} differ from {want}")
+    if rounds[0]["delta"][1] != len(bodies1) or rounds[0]["delta"][0] >= len(bodies1) \
+            or dm <= 0:
+        raise AssertionError(f"MPT {mode}: no batched admission or no shared decode steps")
+    if paged:
+        dp2, _, _, _, hit2, hr2, enc2 = rounds[1]["delta"]
+        held = sum(1 for p_ in cached if refs[p_] == 1)
+        log("mpt", f"paged round 2: {hr2} prefix hits of {hit2} tokens, {dp2} full "
+                   f"prefills, {enc2} vision encodes; pages at the end: {free} free + "
+                   f"{held} held only by the prefix cache ({len(cached)} entries) of "
+                   f"{engine.num_pages}")
+        if hr2 != 4 or hit2 < 4 * 3 * P or dp2 != 0 or enc2 != 0:
+            raise AssertionError(f"MPT paged round 2 did not reuse the pooled prefixes "
+                                 f"({hr2} hits, {hit2} tokens, {dp2} full prefills, "
+                                 f"{enc2} encodes)")
+        if (free + held != engine.num_pages or any(r > 1 for r in refs)
+                or any(refs[p_] != 1 for p_ in cached)):
+            raise AssertionError(f"MPT page accounting: {free} free + {held} cached of "
+                                 f"{engine.num_pages}, refcounts {sorted(set(refs))}")
+    for r, rd in enumerate(rounds, 1):
+        n = len(rd["bodies"])
+        log("mpt", f"{mode} round {r}: TTFT p50 {np.median(rd['ttfts']) * 1e3:.1f} ms (min "
+                   f"{rd['ttfts'][0] * 1e3:.1f}, max {rd['ttfts'][-1] * 1e3:.1f}); "
+                   f"{n * new_tokens / rd['seconds']:.1f} tokens/s aggregate over {n} "
+                   f"requests of {new_tokens} tokens in {rd['seconds']:.2f} s")
+    log("mpt", f"{mode}: peak device memory {peak:.2f} GiB ({before_gib:.2f} GiB held before "
+               f"the phase); card {smi}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # 8-10. training: the narrow model card vs CPU, LLaVA-1.5-7B stages 1 and 2
 # ---------------------------------------------------------------------------
 
@@ -1583,6 +2018,7 @@ def main():
     phase_build()
     stats = phase_kernels()
     narrow_general = phase_narrow_model()
+    narrow_mpt = phase_narrow_mpt()
     dev = "cuda:0"
     params = _init_7b(dev)
     single = phase_full_slice(smi, params, dev)
@@ -1591,6 +2027,7 @@ def main():
     del params
     int4 = serve_engine(smi, _init_7b(dev), "int4", n_image=2, n_text=2)
     paged = serve_paged_engine(smi)
+    mpt = serve_mpt_7b(smi)   # phase 11, before training (the LLaMA weights are gone)
     phase_narrow_training()
     stage1 = phase_train_stage1(smi)
     stage2 = phase_train_stage2(smi)
@@ -1610,11 +2047,20 @@ def main():
         ("decode_attention[int8]", "llava_plus_torch/csrc/decode_attention.cu",
          DECODE_REPLACES, single["int8"] + int8["decode"] + int4["decode"]),
         ("quant_matmul[int8]", "llava_plus_torch/csrc/quant_matmul.cu", INT8_REPLACES,
-         int8["quant"] + paged["quant"]),
+         int8["quant"] + paged["quant"] + mpt["dense"]["matmul_int8"]
+         + mpt["paged"]["matmul_int8"]),
         ("quant_matmul[int4]", "llava_plus_torch/csrc/quant_matmul.cu", INT4_REPLACES,
          int4["quant"]),
         ("paged_attention[decode1]", paged_src, PAGED_DECODE1_REPLACES, paged["decode1"]),
         ("paged_attention[general]", paged_src, PAGED_GENERAL_REPLACES, narrow_general),
+        ("flash_fwd[alibi]", "llava_plus_torch/csrc/flash_fwd.cu", FLASH_ALIBI_REPLACES,
+         mpt["dense"]["flash_attention[alibi]"] + mpt["paged"]["flash_attention[alibi]"]),
+        ("decode_attention[alibi]", "llava_plus_torch/csrc/decode_attention.cu",
+         DECODE_ALIBI_REPLACES, mpt["dense"]["decode_attention[alibi]"] + narrow_mpt["decode"]),
+        ("paged_attention[decode1,alibi]", paged_src, PAGED_DECODE1_ALIBI_REPLACES,
+         mpt["paged"]["paged_decode1[alibi]"] + narrow_mpt["decode1"]),
+        ("paged_attention[general,alibi]", paged_src, PAGED_GENERAL_ALIBI_REPLACES,
+         narrow_mpt["general"]),
     ):
         if count <= 0:
             raise AssertionError(f"{name} was not launched on the main path")

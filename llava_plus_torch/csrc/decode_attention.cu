@@ -8,6 +8,10 @@
 // the query position take no part, as in the XLA path it stands in for
 // (llava_plus_tpu/ops/attention.py:quant_cache_attention); they are never
 // read. (Only a row with no valid slot at all could tell the two apart.)
+// With per-head f32 slopes (MPT's ALiBi, or null) each visible slot's scaled
+// score loses `slope_h * (q_pos - s)`; s <= q_pos always, so this is the
+// JAX bias -slope_h * |q_pos - s| that MPT's dense decode adds to XLA's
+// quant_cache_attention (llava_plus_tpu/models/mpt.py).
 //
 // What bounds it on the card: a decode step reads every cache byte once and
 // does ~2 flops per byte per query row, far below the H100's bf16 ridge, so
@@ -63,6 +67,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
               const CacheT* __restrict__ kc, const CacheT* __restrict__ vc,
               const float* __restrict__ ks, const float* __restrict__ vs,
               const int* __restrict__ seg, const int* __restrict__ q_pos,
+              const float* __restrict__ slopes,
               __nv_bfloat16* __restrict__ out,
               int S, int H, int G,
               int q_sb, int q_sh,
@@ -85,15 +90,17 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
     if (g < G) load4(q + (size_t)b * q_sb + (size_t)(kvh * G + g) * q_sh + d0, qr[g]);
   }
 
-  float m[MAXG], l[MAXG], acc[MAXG][4];
+  float m[MAXG], l[MAXG], acc[MAXG][4], slope[MAXG];
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
+    slope[g] = (slopes != nullptr && g < G) ? slopes[kvh * G + g] : 0.f;
     m[g] = NEG_INF;
     l[g] = 0.f;
     acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
   }
 
-  const int S_used = min(S, q_pos[b] + 1);  // slots past the query never count
+  const int qp = q_pos[b];
+  const int S_used = min(S, qp + 1);  // slots past the query never count
   const CacheT* kb = kc + (size_t)b * c_sb + (size_t)kvh * c_sh + d0;
   const CacheT* vb = vc + (size_t)b * c_sb + (size_t)kvh * c_sh + d0;
   const int* segb = seg + (size_t)b * seg_sb;
@@ -135,7 +142,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
                     qr[g][2] * kx[j][2] + qr[g][3] * kx[j][3];
         dot = warp_sum(dot);
         if (QUANT) dot *= kscale[j];
-        dot *= sm_scale;
+        dot = dot * sm_scale - slope[g] * static_cast<float>(qp - (s0 + j));
         // masked slots take the finite mask value (as in the JAX kernel);
         // slots past the query get a true -inf, so exp gives 0
         sc[j] = !present[j] ? -CUDART_INF_F : (valid[j] ? dot : NEG_INF);
@@ -193,10 +200,12 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched). `quantized`
-// selects the int8 cache (k, v int8; ks, vs f32 scales) over bf16.
+// selects the int8 cache (k, v int8; ks, vs f32 scales) over bf16; `slopes`
+// (f32 [H], or null) adds ALiBi.
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* ks, const void* vs,
-                                    const void* seg, const void* q_pos, void* out,
+                                    const void* seg, const void* q_pos, const void* slopes,
+                                    void* out,
                                     int B, int S, int H, int Hkv, int quantized,
                                     int q_sb, int q_sh,
                                     int c_sb, int c_ss, int c_sh,
@@ -211,14 +220,14 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
         qq, static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
         static_cast<const float*>(ks), static_cast<const float*>(vs),
         static_cast<const int*>(seg), static_cast<const int*>(q_pos),
-        static_cast<__nv_bfloat16*>(out), S, H, G, q_sb, q_sh, c_sb, c_ss, c_sh,
-        s_sb, s_ss, s_sh, seg_sb, sm_scale);
+        static_cast<const float*>(slopes), static_cast<__nv_bfloat16*>(out), S, H, G,
+        q_sb, q_sh, c_sb, c_ss, c_sh, s_sb, s_ss, s_sh, seg_sb, sm_scale);
   } else {
     decode_kernel<__nv_bfloat16, false><<<grid, NTHREADS, 0, st>>>(
         qq, static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
         nullptr, nullptr, static_cast<const int*>(seg), static_cast<const int*>(q_pos),
-        static_cast<__nv_bfloat16*>(out), S, H, G, q_sb, q_sh, c_sb, c_ss, c_sh,
-        s_sb, s_ss, s_sh, seg_sb, sm_scale);
+        static_cast<const float*>(slopes), static_cast<__nv_bfloat16*>(out), S, H, G,
+        q_sb, q_sh, c_sb, c_ss, c_sh, s_sb, s_ss, s_sh, seg_sb, sm_scale);
   }
   return (int)cudaGetLastError();
 }

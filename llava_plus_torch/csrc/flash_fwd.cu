@@ -4,7 +4,12 @@
 // (launched by _fwd, wrapper flash_attention). Same function: causal
 // online-softmax attention over [B, T, H, D] with segment-id masking
 // (segment 0 = padding, masked), per-row logsumexp written beside the output.
-// The ALiBi variant of the Pallas kernel is not ported.
+// The ALiBi variant (MPT; the Pallas kernel's use_alibi, slope of query head
+// h) is the template instance ALIBI = true: per-head f32 slopes come in by
+// pointer and `slope_h * |q_pos - k_pos|` is subtracted from each scaled
+// score before the mask and the running max. Positions are token indices:
+// ALiBi is translation-invariant, so this equals the JAX bias for any
+// contiguous positions.
 //
 // What bounds it on the card: prefill attention is compute-bound
 // (4*T*T*D flops per head against 4*T*D*2 bytes; at T=768, D=128 about 384
@@ -73,12 +78,14 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
+template <bool ALIBI>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  const int* __restrict__ q_seg,
                  const int* __restrict__ kv_seg,
+                 const float* __restrict__ slopes,
                  __nv_bfloat16* __restrict__ o,
                  float* __restrict__ lse,
                  int T, int H, int G, int causal,
@@ -95,6 +102,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
   const int kvh = h / G;
+  const float slope = ALIBI ? slopes[h] : 0.f;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -168,7 +176,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
         const int ksg = kseg_s[col];
         const bool valid = (!causal || kpos <= qpos) && ksg == qsg && ksg != 0;
         ok[nt][e] = valid;
-        s[nt][e] = valid ? s[nt][e] * sm_scale : MASK_VALUE;
+        float sc = s[nt][e] * sm_scale;
+        if (ALIBI) sc -= slope * fabsf(static_cast<float>(qpos - kpos));
+        s[nt][e] = valid ? sc : MASK_VALUE;
       }
       mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
       mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
@@ -244,26 +254,37 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <bool ALIBI>
+int launch(const void* q, const void* k, const void* v, const void* q_seg,
+           const void* kv_seg, const void* slopes, void* o, void* lse, int B, int T,
+           int H, int Hkv, int causal, int q_sb, int q_st, int q_sh, int k_sb,
+           int k_st, int k_sh, float sm_scale, void* stream) {
+  const int smem = (BM + 2 * BN) * LD * (int)sizeof(__nv_bfloat16) + BN * (int)sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<ALIBI>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(T / BM, B * H);
+  flash_fwd_kernel<ALIBI><<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(q_seg),
+      static_cast<const int*>(kv_seg), static_cast<const float*>(slopes),
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), T, H, H / Hkv, causal,
+      q_sb, q_st, q_sh, k_sb, k_st, k_sh, sm_scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Returns cudaGetLastError() after the launch (0 = launched). `slopes`
+// (f32 [H], or null) selects the ALiBi variant.
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
-                              const void* q_seg, const void* kv_seg,
+                              const void* q_seg, const void* kv_seg, const void* slopes,
                               void* o, void* lse,
                               int B, int T, int H, int Hkv, int causal,
                               int q_sb, int q_st, int q_sh,
                               int k_sb, int k_st, int k_sh,
                               float sm_scale, void* stream) {
-  const int smem = (BM + 2 * BN) * LD * (int)sizeof(__nv_bfloat16) + BN * (int)sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(T / BM, B * H);
-  flash_fwd_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(q_seg),
-      static_cast<const int*>(kv_seg), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), T, H, H / Hkv, causal, q_sb, q_st, q_sh,
-      k_sb, k_st, k_sh, sm_scale);
-  return (int)cudaGetLastError();
+  return (slopes ? launch<true> : launch<false>)(
+      q, k, v, q_seg, kv_seg, slopes, o, lse, B, T, H, Hkv, causal, q_sb, q_st, q_sh,
+      k_sb, k_st, k_sh, sm_scale, stream);
 }

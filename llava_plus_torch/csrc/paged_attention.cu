@@ -14,7 +14,13 @@
 // through its page list; for int8 the k scale is folded into the scores and
 // the v scale into the probabilities; the current chunk (cur_k / cur_v, chunk
 // token j at position lengths + j, valid prefix cur_valid[b]) is folded in as
-// a final self block, exactly as the Pallas kernels' _finish does. The Mosaic
+// a final self block, exactly as the Pallas kernels' _finish does. With
+// per-head f32 slopes (MPT's ALiBi, the Pallas kernels' has_alibi) each
+// scaled score loses `slope_h * (q_pos - kv_pos)`: a query row of chunk token
+// t sits at q_pos = lengths + t (at lengths - 1 without a current chunk, its
+// own KV already pooled), pool token s at kv_pos = s, chunk token j at
+// lengths + j (so t - j in the self block); the row of column c = g * Tq + t
+// takes head kvh * G + g's slope. The Mosaic
 // layout workarounds of the Pallas kernels (the block-diagonal query, the
 // head-major relayout of each page block) are not carried over.
 //
@@ -79,6 +85,7 @@ struct Args {
   const int* page_ids;
   const int* lengths;
   const int* valid;
+  const float* slopes;   // [H] f32 ALiBi slopes, or null
   __nv_bfloat16* out;
   int P, H, Hkv, Tq, maxp, has_cur;
   int q_sb, q_st, q_sh, c_sb, c_st, c_sh, pt_sb;
@@ -87,10 +94,12 @@ struct Args {
 
 // Online softmax of `nrows` query rows (this lane's 4 columns in qr) over
 // the slot's first `len` pool tokens; each warp takes every NWARPS-th run of
-// KB tokens. Tokens past `len` take no part (never read).
+// KB tokens. Tokens past `len` take no part (never read). Row r's ALiBi term
+// is slope[r] * (qpos[r] - s) (slope 0 without ALiBi).
 template <typename CacheT, bool QUANT, int ROWS>
 __device__ __forceinline__ void sweep_pool(const Args& a, int b, int kvh, int len,
                                            int nrows, const float (&qr)[ROWS][4],
+                                           const float (&slope)[ROWS], const int (&qpos)[ROWS],
                                            float (&m)[ROWS], float (&l)[ROWS],
                                            float (&acc)[ROWS][4]) {
   const int warp = threadIdx.x >> 5;
@@ -138,7 +147,9 @@ __device__ __forceinline__ void sweep_pool(const Args& a, int b, int kvh, int le
                     qr[r][2] * kx[j][2] + qr[r][3] * kx[j][3];
         dot = warp_sum(dot);
         if (QUANT) dot *= ks[j];
-        sc[j] = present[j] ? dot * a.sm_scale : -CUDART_INF_F;
+        sc[j] = present[j]
+                    ? dot * a.sm_scale - slope[r] * static_cast<float>(qpos[r] - (s0 + j))
+                    : -CUDART_INF_F;
         mb = fmaxf(mb, sc[j]);
       }
       const float alpha = expf(m[r] - mb);
@@ -216,11 +227,15 @@ __global__ void __launch_bounds__(NTHREADS) paged_decode1_kernel(const Args a) {
   const int len = min(a.lengths[b], a.maxp * a.P);
 
   float qr[1][4], m[1] = {NEG_INF}, l[1] = {0.f}, acc[1][4] = {{0.f, 0.f, 0.f, 0.f}};
+  const float slope[1] = {a.slopes != nullptr ? a.slopes[kvh] : 0.f};
+  // the query sits at `lengths` with a current chunk, else at lengths - 1
+  const int qpos[1] = {a.has_cur ? a.lengths[b] : a.lengths[b] - 1};
   load4(a.q + (size_t)b * a.q_sb + (size_t)kvh * a.q_sh + d0, qr[0]);
-  sweep_pool<CacheT, QUANT, 1>(a, b, kvh, len, 1, qr, m, l, acc);
+  sweep_pool<CacheT, QUANT, 1>(a, b, kvh, len, 1, qr, slope, qpos, m, l, acc);
   store_partials<1>(sm, 1, m, l, acc);
   if (a.has_cur && warp == 0) {
-    // the current token, at position len: a single-entry self block
+    // the current token, at the query's own position (ALiBi distance 0): a
+    // single-entry self block
     float kx[4];
     load4(a.cur_k + (size_t)b * a.c_sb + (size_t)kvh * a.c_sh + d0, kx);
     const float dot = warp_sum(qr[0][0] * kx[0] + qr[0][1] * kx[1] +
@@ -257,20 +272,25 @@ __global__ void __launch_bounds__(NTHREADS) paged_general_kernel(const Args a) {
   const int d0 = lane * 4;
   const int len = min(a.lengths[b], a.maxp * a.P);
 
-  float qr[MAXR][4], m[MAXR], l[MAXR], acc[MAXR][4];
+  float qr[MAXR][4], m[MAXR], l[MAXR], acc[MAXR][4], slope[MAXR];
+  int qpos[MAXR];
 #pragma unroll
   for (int r = 0; r < MAXR; ++r) {
     m[r] = NEG_INF;
     l[r] = 0.f;
     acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
     qr[r][0] = qr[r][1] = qr[r][2] = qr[r][3] = 0.f;
+    slope[r] = 0.f;
+    qpos[r] = 0;
     if (r < nrows) {
       const int c = row0 + r, g = c / a.Tq, t = c - g * a.Tq;
       load4(a.q + (size_t)b * a.q_sb + (size_t)t * a.q_st + (size_t)(kvh * G + g) * a.q_sh + d0,
             qr[r]);
+      if (a.slopes != nullptr) slope[r] = a.slopes[kvh * G + g];
+      qpos[r] = a.has_cur ? a.lengths[b] + t : a.lengths[b] - 1;
     }
   }
-  sweep_pool<CacheT, QUANT, MAXR>(a, b, kvh, len, nrows, qr, m, l, acc);
+  sweep_pool<CacheT, QUANT, MAXR>(a, b, kvh, len, nrows, qr, slope, qpos, m, l, acc);
   store_partials<MAXR>(sm, nrows, m, l, acc);
   if (a.has_cur) {
     // self-block scores: chunk token j is visible to row (g, t) when
@@ -285,7 +305,10 @@ __global__ void __launch_bounds__(NTHREADS) paged_general_kernel(const Args a) {
         load4(a.cur_k + (size_t)b * a.c_sb + (size_t)j * a.c_st + (size_t)kvh * a.c_sh + d0, kx);
         const float dot = warp_sum(qr[r][0] * kx[0] + qr[r][1] * kx[1] +
                                    qr[r][2] * kx[2] + qr[r][3] * kx[3]);
-        if (lane == 0) s_self[r][j] = (j <= t && j < nvalid) ? dot * a.sm_scale : -CUDART_INF_F;
+        if (lane == 0)
+          s_self[r][j] = (j <= t && j < nvalid)
+                             ? dot * a.sm_scale - slope[r] * static_cast<float>(t - j)
+                             : -CUDART_INF_F;
       }
     }
   }
@@ -317,7 +340,8 @@ __global__ void __launch_bounds__(NTHREADS) paged_general_kernel(const Args a) {
 
 Args make_args(const void* q, const void* cur_k, const void* cur_v, const void* pool,
                const void* scale, const void* page_ids, const void* lengths,
-               const void* valid, void* out, int P, int H, int Hkv, int Tq, int maxp,
+               const void* valid, const void* slopes, void* out, int P, int H, int Hkv,
+               int Tq, int maxp,
                int has_cur, int q_sb, int q_st, int q_sh, int c_sb, int c_st, int c_sh,
                int pt_sb, float sm_scale) {
   Args a;
@@ -329,6 +353,7 @@ Args make_args(const void* q, const void* cur_k, const void* cur_v, const void* 
   a.page_ids = static_cast<const int*>(page_ids);
   a.lengths = static_cast<const int*>(lengths);
   a.valid = static_cast<const int*>(valid);
+  a.slopes = static_cast<const float*>(slopes);
   a.out = static_cast<__nv_bfloat16*>(out);
   a.P = P; a.H = H; a.Hkv = Hkv; a.Tq = Tq; a.maxp = maxp; a.has_cur = has_cur;
   a.q_sb = q_sb; a.q_st = q_st; a.q_sh = q_sh;
@@ -341,18 +366,19 @@ Args make_args(const void* q, const void* cur_k, const void* cur_v, const void* 
 
 // Both entry points return cudaGetLastError() after the launch (0 =
 // launched). `quantized` selects the int8 pool (with f32 scales) over bf16;
-// without `has_cur` there is no current chunk (cur_k, cur_v, valid unused).
+// without `has_cur` there is no current chunk (cur_k, cur_v, valid unused);
+// `slopes` (f32 [H], or null) adds ALiBi.
 extern "C" int paged_decode1_fwd(const void* q, const void* cur_k, const void* cur_v,
                                  const void* pool, const void* scale, const void* page_ids,
-                                 const void* lengths, const void* valid, void* out,
-                                 int B, int P, int H, int Hkv, int Tq, int maxp,
+                                 const void* lengths, const void* valid, const void* slopes,
+                                 void* out, int B, int P, int H, int Hkv, int Tq, int maxp,
                                  int quantized, int has_cur,
                                  int q_sb, int q_st, int q_sh, int c_sb, int c_st, int c_sh,
                                  int pt_sb, float sm_scale, void* stream) {
   if (H != Hkv || Tq != 1) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(q, cur_k, cur_v, pool, scale, page_ids, lengths, valid, out, P, H,
-                           Hkv, Tq, maxp, has_cur, q_sb, q_st, q_sh, c_sb, c_st, c_sh, pt_sb,
-                           sm_scale);
+  const Args a = make_args(q, cur_k, cur_v, pool, scale, page_ids, lengths, valid, slopes, out,
+                           P, H, Hkv, Tq, maxp, has_cur, q_sb, q_st, q_sh, c_sb, c_st, c_sh,
+                           pt_sb, sm_scale);
   const dim3 grid(Hkv, B);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (quantized) {
@@ -365,15 +391,16 @@ extern "C" int paged_decode1_fwd(const void* q, const void* cur_k, const void* c
 
 extern "C" int paged_attention_fwd(const void* q, const void* cur_k, const void* cur_v,
                                    const void* pool, const void* scale, const void* page_ids,
-                                   const void* lengths, const void* valid, void* out,
+                                   const void* lengths, const void* valid,
+                                   const void* slopes, void* out,
                                    int B, int P, int H, int Hkv, int Tq, int maxp,
                                    int quantized, int has_cur,
                                    int q_sb, int q_st, int q_sh, int c_sb, int c_st, int c_sh,
                                    int pt_sb, float sm_scale, void* stream) {
   if (H % Hkv || Tq < 1 || Tq > MAXT) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(q, cur_k, cur_v, pool, scale, page_ids, lengths, valid, out, P, H,
-                           Hkv, Tq, maxp, has_cur, q_sb, q_st, q_sh, c_sb, c_st, c_sh, pt_sb,
-                           sm_scale);
+  const Args a = make_args(q, cur_k, cur_v, pool, scale, page_ids, lengths, valid, slopes, out,
+                           P, H, Hkv, Tq, maxp, has_cur, q_sb, q_st, q_sh, c_sb, c_st, c_sh,
+                           pt_sb, sm_scale);
   const dim3 grid(Hkv, B, ((H / Hkv) * Tq + MAXR - 1) / MAXR);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (quantized) {

@@ -161,7 +161,7 @@ class Generator:
         self._last_output_ids: List[int] = []
         budget = min(max_new_tokens, self.max_seq_len - prompt_len)
 
-        cache = llama.KVCache.create(self.cfg.text, 1, self.max_seq_len,
+        cache = llama.KVCache.create(llava_model.backbone(self.cfg)[1], 1, self.max_seq_len,
                                      self.cache_dtype, device=self.device)
         last_logits = self._prefill(cache, batch)
         # reference CLIs pass None for "disabled"

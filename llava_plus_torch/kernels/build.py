@@ -1,10 +1,12 @@
 """Build the hand-written CUDA kernels under ``csrc/`` and load them.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds), loaded with
-``ctypes``. The build runs at first use, into ``llava_plus_torch/build/``;
-the library's file name carries a hash of the sources and flags, so an edit
-to any source rebuilds and an unchanged tree reuses the library.
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` process, all started
+together, into an object; one more ``nvcc`` links them into a shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds),
+loaded with ``ctypes``. The build runs at first use, into
+``llava_plus_torch/build/``; the library's file name carries a hash of the
+sources and flags, so an edit to any source rebuilds and an unchanged tree
+reuses the library.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on anything but 0, since a refused launch never runs
@@ -26,7 +28,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 P = ctypes.c_void_p
@@ -34,14 +36,14 @@ I = ctypes.c_int
 F = ctypes.c_float
 # C signatures of the entry points (pointers and the stream as void*).
 SIGNATURES = {
-    "flash_fwd_bf16": [P, P, P, P, P, P, P] + [I] * 11 + [F, P],
+    "flash_fwd_bf16": [P] * 8 + [I] * 11 + [F, P],
     "flash_bwd_dkv_bf16": [P] * 10 + [I] * 14 + [F, P],
     "flash_bwd_dq_bf16": [P] * 9 + [I] * 14 + [F, P],
-    "decode_attention_fwd": [P] * 8 + [I] * 14 + [F, P],
+    "decode_attention_fwd": [P] * 9 + [I] * 14 + [F, P],
     "quant_matmul_int8": [P] * 4 + [I] * 5 + [P],
     "quant_matmul_int4": [P] * 4 + [I] * 5 + [P],
-    "paged_decode1_fwd": [P] * 9 + [I] * 15 + [F, P],
-    "paged_attention_fwd": [P] * 9 + [I] * 15 + [F, P],
+    "paged_decode1_fwd": [P] * 10 + [I] * 15 + [F, P],
+    "paged_attention_fwd": [P] * 10 + [I] * 15 + [F, P],
 }
 
 _lib = None
@@ -49,12 +51,13 @@ _lock = threading.Lock()
 _count_lock = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``. The serving engine launches kernels
-    from its prefill and decode threads, and ``+=`` on an attribute is not
-    atomic across threads."""
+def count_launch(wrapper, counter: str = "launches") -> None:
+    """Add one to ``wrapper.<counter>`` (``launches``, or ``alibi_launches``
+    for a kernel's ALiBi variant). The serving engine launches kernels from
+    its prefill and decode threads, and ``+=`` on an attribute is not atomic
+    across threads."""
     with _count_lock:
-        wrapper.launches += 1
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
 def _nvcc() -> str:
@@ -89,15 +92,32 @@ def build(extra_flags=()) -> Path:
     if out.exists():
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in _sources():
+        obj = BUILD / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append((src.name, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, proc in procs:
+        text = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode}):\n{text}")
+        elif text.strip():
+            print(f"{name}:\n{text}", flush=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
-           *[str(s) for s in _sources()]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    if proc.stderr.strip() or proc.stdout.strip():
-        print(proc.stdout + proc.stderr, flush=True)
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 

@@ -1,6 +1,5 @@
 """Model configuration dataclasses (the port's own copy of
-``llava_plus_tpu/models/configs.py``, without the tiny MPT config: the MPT
-backbone is not ported yet).
+``llava_plus_tpu/models/configs.py``).
 
 Replaces the reference's mutable-HF-config-as-registry pattern
 (``llava/model/llava_arch.py:48-68``) with frozen dataclasses that fully
@@ -184,6 +183,31 @@ class LlavaConfig:
 
 LLAVA_15_7B = LlavaConfig()
 LLAVA_15_13B = LlavaConfig(text=LLAMA_13B)
+# LLaVA-MPT-7B as ``hf_import.llava_config_from_hf_dir`` reads the config of
+# liuhaotian/LLaVA-Lightning-MPT-7B-preview: mosaicml/mpt-7b-chat's decoder,
+# CLIP ViT-L/14 at 224 px (256 patches), a linear projector, image start/end
+# tokens.
+LLAVA_MPT_7B = LlavaConfig(
+    language_model_type="mpt", mpt=MPT_7B, vision=CLIP_VIT_L_224,
+    mm_projector_type="linear", mm_use_im_start_end=True,
+)
+
+
+def tiny_llava_mpt_config() -> "LlavaConfig":
+    """Tiny MPT-backbone llava for tests (ALiBi, MQA-free 4-head)."""
+    return LlavaConfig(
+        language_model_type="mpt",
+        mpt=MptConfig(
+            vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+            expansion_ratio=2, max_seq_len=256, alibi=True,
+        ),
+        vision=ClipVisionConfig(
+            hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+            num_attention_heads=2, image_size=28, patch_size=14,
+        ),
+        mm_hidden_size=32,
+        max_sequence_length=256,
+    )
 
 
 def tiny_llava_config(

@@ -4,8 +4,12 @@ layouts.
 The JAX package's parameters (``init_params`` or ``hf_import``) are nested
 dicts and lists of arrays with stacked per-layer weights ``[L, in, out]``;
 the port uses the same keys and layout with torch tensors, so one numpy tree
-feeds both implementations. Quantized matrices (``ops.quant``) are dicts of
-int8 values and f32 scales and come across byte for byte.
+feeds both implementations, for either backbone: LLaMA (``embed_tokens``,
+``layers.attn.wq`` ..., ``lm_head``) or MPT (``wte``, ``layers.norm1`` /
+``norm2``, ``layers.attn.wqkv`` / ``out_proj``, ``layers.mlp.up_proj`` /
+``down_proj``, optional ``q_ln`` / ``k_ln`` and ``wpe``, ``norm_f``).
+Quantized matrices (``ops.quant``) are dicts of int8 values and f32 scales
+and come across byte for byte.
 
 The trainer holds the language model's layers as a list of per-layer dicts
 (:func:`per_layer`), so each layer's weights are separate autograd leaves;

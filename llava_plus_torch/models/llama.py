@@ -40,9 +40,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from llava_plus_torch.models.configs import LlamaConfig
+from llava_plus_torch.models.configs import LlamaConfig, MptConfig
 from llava_plus_torch.ops.attention import (
-    attention, quant_cache_attention, reference_attention,
+    alibi_bias, attention, quant_cache_attention, reference_attention,
 )
 from llava_plus_torch.ops.decode_attention import decode_attention
 from llava_plus_torch.ops.paged_attention import (
@@ -54,6 +54,15 @@ from llava_plus_torch.ops.quant import is_quantized, matmul
 # ---------------------------------------------------------------------------
 # KV cache
 # ---------------------------------------------------------------------------
+
+def cache_dims(cfg: Union[LlamaConfig, MptConfig]) -> Tuple[int, int, int]:
+    """(layers, kv heads, head dim) of a LLaMA or an MPT decoder: both
+    backbones share the cache layouts (the JAX package reads the two
+    configs' fields with ``getattr``)."""
+    if isinstance(cfg, MptConfig):
+        return cfg.n_layers, cfg.kv_heads, cfg.head_dim
+    return cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+
 
 @dataclasses.dataclass
 class KVCache:
@@ -74,10 +83,10 @@ class KVCache:
     v_scale: Optional[torch.Tensor] = None
 
     @classmethod
-    def create(cls, cfg: LlamaConfig, batch: int, max_len: int,
+    def create(cls, cfg: Union[LlamaConfig, MptConfig], batch: int, max_len: int,
                dtype=torch.bfloat16, *, device) -> "KVCache":
-        shape = (cfg.num_hidden_layers, batch, max_len,
-                 cfg.num_key_value_heads, cfg.head_dim)
+        L, Hkv, Dh = cache_dims(cfg)
+        shape = (L, batch, max_len, Hkv, Dh)
         quantized = dtype == torch.int8
         scales = shape[:-1] + (1,)
         return cls(
@@ -187,14 +196,14 @@ class PagedKVCache:
     scale_pool: Optional[torch.Tensor] = None
 
     @classmethod
-    def create(cls, cfg: LlamaConfig, batch: int, *, num_pages: int,
+    def create(cls, cfg: Union[LlamaConfig, MptConfig], batch: int, *, num_pages: int,
                max_pages_per_slot: int, page_size: int = 128,
                dtype=torch.bfloat16, device) -> "PagedKVCache":
-        L, Hkv = cfg.num_hidden_layers, cfg.num_key_value_heads
+        L, Hkv, Dh = cache_dims(cfg)
         quantized = dtype == torch.int8
         max_len = max_pages_per_slot * page_size
         return cls(
-            pool=torch.zeros(L, num_pages + 1, 2, page_size, Hkv, cfg.head_dim,
+            pool=torch.zeros(L, num_pages + 1, 2, page_size, Hkv, Dh,
                              dtype=dtype, device=device),
             seg_buf=torch.zeros(batch, max_len + 1, dtype=torch.int32, device=device),
             page_table=torch.zeros(batch, max_pages_per_slot, dtype=torch.int32,
@@ -438,37 +447,51 @@ def _layer(params, i: int):
     }
 
 
-def _cached_attention(q, cache: KVCache, idx, segment_ids, positions):
+def _cached_attention(q, cache: KVCache, idx, segment_ids, positions,
+                      alibi_slopes=None, sm_scale=None):
     """Attention of one layer's queries over the cache (whose slots already
-    hold this chunk's k/v)."""
+    hold this chunk's k/v). MPT passes its ALiBi slopes and softmax scale:
+    the decode kernel takes the slopes, the other paths the explicit bias
+    over the cache slots (JAX ``mpt.py:169-190``)."""
     ks = None if cache.k_scale is None else cache.k_scale[idx]
     vs = None if cache.v_scale is None else cache.v_scale[idx]
     if q.shape[1] == 1:
         return decode_attention(q, cache.k[idx], cache.v[idx], cache.seg,
-                                positions[:, 0].to(torch.int32), ks, vs)
+                                positions[:, 0].to(torch.int32), ks, vs,
+                                sm_scale=sm_scale, alibi_slopes=alibi_slopes)
     if ks is not None:
+        bias = None
+        if alibi_slopes is not None:
+            B, S = cache.seg.shape
+            bias = alibi_bias(alibi_slopes, positions,
+                              torch.arange(S, device=q.device).expand(B, S))
         return quant_cache_attention(q, cache.k[idx], ks, cache.v[idx], vs,
-                                     kv_segment_ids=cache.seg,
-                                     q_positions=positions)
+                                     kv_segment_ids=cache.seg, q_positions=positions,
+                                     bias=bias, softmax_scale=sm_scale)
     return reference_attention(q, cache.k[idx], cache.v[idx],
                                causal=True, q_segment_ids=segment_ids,
-                               kv_segment_ids=cache.seg, q_positions=positions)
+                               kv_segment_ids=cache.seg, q_positions=positions,
+                               softmax_scale=sm_scale, alibi_slopes=alibi_slopes)
 
 
 def _paged_layer_attention(q, k_cur, v_cur, cache: PagedKVCache, idx: int,
-                           step: _PagedStep, segment_ids, positions, gather: bool):
+                           step: _PagedStep, segment_ids, positions, gather: bool,
+                           alibi_slopes=None, sm_scale=None):
     """One layer's attention over the paged pool (past tokens only) and the
     current chunk ``k_cur`` / ``v_cur``, which is written after the layer
     loop. A chunk of up to ``MAX_CHUNK`` tokens (contiguous positions from
     ``past_len``, a valid prefix) goes through ``paged_decode_attention``,
     reading the layer's pool in place through the page table; a longer one,
     or any chunk with ``gather``, through the gathered pages and the
-    reference attention, as the JAX package's generic path does."""
+    reference attention, as the JAX package's generic path does. MPT passes
+    its ALiBi slopes and softmax scale; on the gather path the ALiBi bias
+    is taken over the explicit q / kv positions (JAX ``llama.py:484-490``)."""
     kv = cache.pool[idx]
     ks = None if cache.scale_pool is None else cache.scale_pool[idx]
     if q.shape[1] <= MAX_CHUNK and not gather:
         return paged_decode_attention(q, kv, cache.page_table, step.past_len, ks,
-                                      k_cur, v_cur, step.cur_valid)
+                                      k_cur, v_cur, step.cur_valid, sm_scale=sm_scale,
+                                      alibi_slopes=alibi_slopes)
     k, v = gather_pages(kv, cache.page_table, ks)
     B, S = k.shape[:2]
     k = torch.cat([k.to(q.dtype), k_cur.to(q.dtype)], dim=1)
@@ -481,7 +504,8 @@ def _paged_layer_attention(q, k_cur, v_cur, cache: PagedKVCache, idx: int,
         positions.to(torch.int32)], dim=1)
     return attention(q, k, v, causal=True, q_segment_ids=segment_ids,
                      kv_segment_ids=kv_seg, q_positions=positions,
-                     kv_positions=kv_positions)
+                     kv_positions=kv_positions, softmax_scale=sm_scale,
+                     alibi_slopes=alibi_slopes)
 
 
 def _layer_forward(lp, h, cos, sin, segment_ids, positions, cfg: LlamaConfig,
@@ -545,6 +569,17 @@ def _train_layer(lp, h, cos, sin, segment_ids, cfg: LlamaConfig):
 Cache = Union[KVCache, PagedKVCache]
 
 
+def cache_selection(cache: Optional[Cache], positions, segment_ids):
+    """What a call's layers share about the cache: None without one, the
+    paged addressing (:func:`_paged_step`) or the dense write slots
+    (:func:`_write_slots`), with the chunk's segment ids already written."""
+    if cache is None:
+        return None
+    if isinstance(cache, PagedKVCache):
+        return _paged_step(cache, positions, segment_ids)
+    return _write_slots(cache, positions, segment_ids)
+
+
 def decoder_forward(
     params,
     cfg: LlamaConfig,
@@ -572,12 +607,7 @@ def decoder_forward(
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling_type, cfg.rope_scaling_factor)
     paged = isinstance(cache, PagedKVCache)
-    if cache is None:
-        sel = None
-    elif paged:
-        sel = _paged_step(cache, positions, segment_ids)
-    else:
-        sel = _write_slots(cache, positions, segment_ids)
+    sel = cache_selection(cache, positions, segment_ids)
     staged = []
     for i in range(cfg.num_hidden_layers):
         if remat and cache is None:

@@ -1,10 +1,10 @@
-"""LLaVA multimodal model in PyTorch: vision tower -> projector -> LLaMA.
+"""LLaVA multimodal model in PyTorch: vision tower -> projector -> language
+decoder (LLaMA, ``models/llama.py``, or MPT, ``models/mpt.py``).
 
-Counterpart of ``llava_plus_tpu/models/llava.py`` for the LLaMA backbone
-(MPT is not ported yet). The image splice follows the position map that
-``data/multimodal.py`` plans: image features are written into the
-token embeddings at ``image_pos``, and positions >= T (pad images, truncated
-spans) are left out. The vision tower is frozen: it runs under
+Counterpart of ``llava_plus_tpu/models/llava.py``. The image splice follows
+the position map that ``data/multimodal.py`` plans: image features are
+written into the token embeddings at ``image_pos``, and positions >= T (pad
+images, truncated spans) are left out. The vision tower is frozen: it runs under
 ``torch.no_grad()`` (the JAX package's ``stop_gradient``), so training builds
 no graph for it.
 """
@@ -12,12 +12,12 @@ no graph for it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
-from llava_plus_torch.models.configs import LlavaConfig
-from llava_plus_torch.models import clip_vit, llama, projector
+from llava_plus_torch.models.configs import LlavaConfig, LlamaConfig, MptConfig
+from llava_plus_torch.models import clip_vit, llama, mpt, projector
 
 
 @dataclasses.dataclass
@@ -37,18 +37,22 @@ class MultimodalBatch:
     labels: Optional[torch.Tensor] = None
 
 
-def _llama_only(cfg: LlavaConfig):
-    if cfg.language_model_type != "llama":
-        raise NotImplementedError(
-            f"the {cfg.language_model_type} backbone is not ported yet")
+def backbone(cfg: LlavaConfig) -> Tuple[object, Union[LlamaConfig, MptConfig]]:
+    """The language model's decoder module (``llama`` or ``mpt``, which share
+    ``init_params`` / ``embed_tokens`` / ``forward``) and its config."""
+    if cfg.language_model_type == "llama":
+        return llama, cfg.text
+    if cfg.language_model_type == "mpt":
+        return mpt, cfg.mpt
+    raise ValueError(f"unknown language_model_type {cfg.language_model_type!r}")
 
 
 def init_params(cfg: LlavaConfig, generator: torch.Generator, device,
                 dtype=torch.bfloat16):
     """Full random parameter tree made on ``device`` from ``generator``."""
-    _llama_only(cfg)
+    lm, lm_cfg = backbone(cfg)
     return {
-        "language_model": llama.init_params(cfg.text, generator, device, dtype),
+        "language_model": lm.init_params(lm_cfg, generator, device, dtype),
         "vision_tower": clip_vit.init_params(cfg.vision, generator, device, dtype),
         "mm_projector": projector.init_params(
             cfg.mm_projector_type, cfg.mm_hidden_size, cfg.hidden_size,
@@ -66,8 +70,7 @@ def encode_images(params, cfg: LlavaConfig, images: torch.Tensor) -> torch.Tenso
 
 def fuse(params, cfg: LlavaConfig, batch: MultimodalBatch) -> torch.Tensor:
     """The fused embedding sequence [B, T, D]."""
-    _llama_only(cfg)
-    embeds = llama.embed_tokens(params["language_model"], batch.tokens)
+    embeds = backbone(cfg)[0].embed_tokens(params["language_model"], batch.tokens)
     B, T = batch.tokens.shape
     N = batch.images.shape[1]
     if N == 0:
@@ -95,8 +98,20 @@ def forward(
     """Multimodal forward -> (f32 logits, cache updated in place); the cache
     is a dense :class:`~llava_plus_torch.models.llama.KVCache` or a paged
     :class:`~llava_plus_torch.models.llama.PagedKVCache`. ``remat``
-    recomputes each decoder layer in the backward (training)."""
+    recomputes each decoder layer in the backward (training, LLaMA only:
+    MPT training is not ported). Unlike the JAX package, the MPT branch
+    takes ``fresh_prefill`` and ``logits_positions`` too: the same numbers
+    (over a bf16 cache), through the flash kernel and one head row."""
     embeds = fuse(params, cfg, batch)
+    if cfg.language_model_type == "mpt":
+        if remat:
+            raise NotImplementedError("MPT training is not ported yet: ROADMAP Queue 1 "
+                                      "item 13")
+        return mpt.forward(
+            params["language_model"], cfg.mpt, inputs_embeds=embeds,
+            positions=batch.positions, segment_ids=batch.segment_ids, cache=cache,
+            fresh_prefill=fresh_prefill, logits_positions=logits_positions,
+        )
     return llama.forward(
         params["language_model"], cfg.text,
         inputs_embeds=embeds, positions=batch.positions,
@@ -115,8 +130,8 @@ def decode_step(
 ) -> Tuple[torch.Tensor, llama.Cache]:
     """One text-only decode step over the cache (dense or paged):
     (logits [B, 1, V], cache)."""
-    _llama_only(cfg)
-    return llama.forward(
-        params["language_model"], cfg.text, token,
+    lm, lm_cfg = backbone(cfg)
+    return lm.forward(
+        params["language_model"], lm_cfg, token,
         positions=position, segment_ids=segment_ids, cache=cache,
     )

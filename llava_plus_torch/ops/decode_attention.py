@@ -8,9 +8,14 @@ through strides: bf16, or int8 with f32 per-(token, kv-head) scales
 [B, S, Hkv, 1] folded into the scores (k) and the probabilities (v). Slots
 with seg == 0 are masked (finite mask value, as in the JAX kernel); slots
 past the query position take no part at all, so the kernel never reads them.
+With ``alibi_slopes`` [H] (MPT) each visible slot's scaled score loses
+``slope_h * (q_pos - s)``: the bias that the JAX package's MPT decode builds
+for XLA (``quant_cache_attention(bias=...)`` over an int8 cache, ``attention``
+over a bf16 one); those launches count in ``decode_attention.alibi_launches``.
 
 The kernel runs for CUDA tensors (bf16 q, D = 128, at most 8 query heads per
-kv head); the plain version for CPU tensors; anything else raises.
+kv head: MQA with more than 8 query heads raises); the plain version for CPU
+tensors; anything else raises.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from typing import Optional
 import torch
 
 from llava_plus_torch.kernels import build
-from llava_plus_torch.ops.attention import DEFAULT_MASK_VALUE
+from llava_plus_torch.ops.attention import DEFAULT_MASK_VALUE, check_slopes
 
 HEAD_DIM = 128
 MAX_GROUP = 8  # query heads per kv head the kernel holds
@@ -28,11 +33,12 @@ MAX_GROUP = 8  # query heads per kv head the kernel holds
 
 def decode_attention_reference(q, k_cache, v_cache, seg, q_pos,
                                k_scale=None, v_scale=None, *,
-                               sm_scale: float) -> torch.Tensor:
+                               sm_scale: float, alibi_slopes=None) -> torch.Tensor:
     """The kernel's function in plain PyTorch, in f32 (f64 for f64 inputs).
 
     q [B, 1, H, D]; caches [B, S, Hkv, D]; seg [B, S]; q_pos [B];
-    scales [B, S, Hkv, 1] or None. Returns [B, 1, H, D] in q's dtype.
+    scales [B, S, Hkv, 1] or None; ``alibi_slopes`` [H] or None. Returns
+    [B, 1, H, D] in q's dtype.
     """
     B, _, H, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
@@ -44,6 +50,10 @@ def decode_attention_reference(q, k_cache, v_cache, seg, q_pos,
         scores = scores * k_scale[..., 0].to(acc).permute(0, 2, 1)[:, :, None, :]
     scores = scores * sm_scale
     pos = torch.arange(S, device=q.device)
+    if alibi_slopes is not None:
+        dist = (q_pos.long()[:, None] - pos[None, :]).to(acc)                 # [B, S]
+        scores = scores - (alibi_slopes.to(acc).reshape(Hkv, G)[None, :, :, None]
+                           * dist[:, None, None, :])
     used = (pos[None, :] <= q_pos[:, None])[:, None, None, :]       # [B, 1, 1, S]
     scores = torch.where((seg != 0)[:, None, None, :], scores, DEFAULT_MASK_VALUE)
     scores = torch.where(used, scores, -torch.inf)
@@ -100,7 +110,7 @@ def _check_kernel_inputs(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale):
             raise ValueError(f"{name}: last dim must be contiguous, rows 16-byte aligned")
 
 
-def _launch(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale, sm_scale):
+def _launch(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale, sm_scale, slopes):
     _check_kernel_inputs(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale)
     B, _, H, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
@@ -111,7 +121,8 @@ def _launch(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale, sm_scale):
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
-        seg.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+        seg.data_ptr(), q_pos.data_ptr(),
+        None if slopes is None else slopes.data_ptr(), out.data_ptr(),
         B, S, H, Hkv, int(quantized),
         q.stride(0), q.stride(2),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
@@ -132,18 +143,23 @@ def decode_attention(
     v_scale: Optional[torch.Tensor] = None,
     *,
     sm_scale: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,   # [H] f32 (MPT)
 ) -> torch.Tensor:
     """Single-step attention over the cache. Returns [B, 1, H, D]."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
+    check_slopes(alibi_slopes, q.shape[2], q.device)
     if q.is_cuda:
-        out = _launch(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale, sm_scale)
-        build.count_launch(decode_attention)
+        out = _launch(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale, sm_scale,
+                      alibi_slopes)
+        build.count_launch(decode_attention,
+                           "launches" if alibi_slopes is None else "alibi_launches")
         return out
     if q.device.type == "cpu":
-        return decode_attention_reference(q, k_cache, v_cache, seg, q_pos,
-                                          k_scale, v_scale, sm_scale=sm_scale)
+        return decode_attention_reference(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale,
+                                          sm_scale=sm_scale, alibi_slopes=alibi_slopes)
     raise ValueError(f"decode_attention: no path for device {q.device}")
 
 
 decode_attention.launches = 0
+decode_attention.alibi_launches = 0

@@ -16,6 +16,13 @@ The kernels run for CUDA tensors (bf16, D = 128); the plain versions for
 CPU tensors; anything else raises. Rows that see no valid key come out as
 zeros from both (the reference attention gives them a uniform average
 instead), and their gradients are zero.
+
+ALiBi (MPT): ``alibi_slopes`` [H] f32 selects the forward kernel's ALiBi
+variant (the Pallas ``use_alibi``), which subtracts ``slope_h * |i - j|``
+from the scaled score of query row i and key j. Its launches are counted
+apart, in ``flash_attention.alibi_launches``. The ALiBi backward (Pallas
+``_bwd_dkv_kernel`` / ``_bwd_dq_kernel`` with ``use_alibi``) is not ported:
+differentiating an ALiBi forward raises.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from llava_plus_torch.kernels import build
-from llava_plus_torch.ops.attention import DEFAULT_MASK_VALUE
+from llava_plus_torch.ops.attention import DEFAULT_MASK_VALUE, check_slopes
 
 BLOCK = 64      # q and kv tile of the kernel
 HEAD_DIM = 128  # the kernel's only head dim
@@ -49,12 +56,13 @@ def _pad_inputs(q, k, v, q_segment_ids, kv_segment_ids):
     return q, k, v, q_segment_ids.contiguous(), kv_segment_ids.contiguous()
 
 
-def flash_attention_reference(q, k, v, q_seg, kv_seg, *, causal: bool,
-                              sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_attention_reference(q, k, v, q_seg, kv_seg, *, causal: bool, sm_scale: float,
+                              alibi_slopes=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch, in q's float precision
     (f32 for bf16 inputs). q [B, T, H, D]; k, v [B, T, Hkv, D]; segment ids
-    [B, T]. Masked probabilities are 0, a row with none valid outputs 0, and
-    lse = m + log(l) with l taken as 1 where it is 0."""
+    [B, T]; ``alibi_slopes`` [H] or None. Masked probabilities are 0, a row
+    with none valid outputs 0, and lse = m + log(l) with l taken as 1 where
+    it is 0."""
     B, T, H, D = q.shape
     Hkv = k.shape[2]
     acc_dtype = torch.float64 if q.dtype == torch.float64 else torch.float32
@@ -62,10 +70,13 @@ def flash_attention_reference(q, k, v, q_seg, kv_seg, *, causal: bool,
     kf = k.to(acc_dtype).permute(0, 2, 1, 3).repeat_interleave(H // Hkv, dim=1)
     vf = v.to(acc_dtype).permute(0, 2, 1, 3).repeat_interleave(H // Hkv, dim=1)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale        # [B, H, T, T]
+    pos = torch.arange(T, device=q.device)
+    if alibi_slopes is not None:
+        dist = (pos[:, None] - pos[None, :]).abs().to(acc_dtype)
+        s = s - alibi_slopes.to(acc_dtype)[:, None, None] * dist
     mask = ((q_seg[:, :, None] == kv_seg[:, None, :])
             & (kv_seg[:, None, :] != 0))[:, None]
     if causal:
-        pos = torch.arange(T, device=q.device)
         mask = mask & (pos[None, :] <= pos[:, None])[None, None]
     s = torch.where(mask, s, DEFAULT_MASK_VALUE)
     m = s.amax(dim=-1, keepdim=True)
@@ -134,14 +145,16 @@ def _check_kernel_inputs(q, k, v, seg):
         raise ValueError("segment ids must be on q's device")
 
 
-def _launch(q, k, v, q_seg, kv_seg, causal, sm_scale):
+def _launch(q, k, v, q_seg, kv_seg, causal, sm_scale, slopes=None):
     _check_kernel_inputs(q, k, v, q_seg)
     B, T, H, D = q.shape
+    check_slopes(slopes, H, q.device)
     out = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     err = build.lib().flash_fwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        q_seg.data_ptr(), kv_seg.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(),
+        None if slopes is None else slopes.data_ptr(),
+        out.data_ptr(), lse.data_ptr(),
         B, T, H, k.shape[2], int(causal),
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
@@ -224,25 +237,32 @@ class _Flash(torch.autograd.Function):
     residuals (``_flash_fwd_rule``) do."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_segment_ids, kv_segment_ids, causal, scale):
+    def forward(ctx, q, k, v, q_segment_ids, kv_segment_ids, slopes, causal, scale):
         T = q.shape[1]
         qp, kp, vp, qs, ks = _pad_inputs(q, k, v, q_segment_ids, kv_segment_ids)
         if q.is_cuda:
-            out, lse = _launch(qp, kp, vp, qs, ks, causal, scale)
-            build.count_launch(flash_attention)
+            out, lse = _launch(qp, kp, vp, qs, ks, causal, scale, slopes)
+            build.count_launch(flash_attention,
+                               "launches" if slopes is None else "alibi_launches")
         elif q.device.type == "cpu":
-            out, lse = flash_attention_reference(qp, kp, vp, qs, ks,
-                                                 causal=causal, sm_scale=scale)
+            out, lse = flash_attention_reference(qp, kp, vp, qs, ks, causal=causal,
+                                                 sm_scale=scale, alibi_slopes=slopes)
         else:
             raise ValueError(f"flash_attention: no path for device {q.device}")
         ctx.save_for_backward(qp, kp, vp, qs, ks, out, lse)
         ctx.causal, ctx.scale, ctx.T = causal, scale, T
+        ctx.alibi = slopes is not None
         lse_t = lse[:, :, :T]
         ctx.mark_non_differentiable(lse_t)
         return out[:, :T], lse_t
 
     @staticmethod
     def backward(ctx, g, _g_lse):
+        if ctx.alibi:
+            raise NotImplementedError(
+                "the ALiBi variant of the flash backward kernels (Pallas _bwd_dkv_kernel / "
+                "_bwd_dq_kernel with use_alibi) is not ported yet: ROADMAP Queue 2 items 2-3, "
+                "with MPT training (Queue 1 item 13)")
         qp, kp, vp, qs, ks, out, lse = ctx.saved_tensors
         pad = qp.shape[1] - ctx.T
         if pad:
@@ -250,7 +270,7 @@ class _Flash(torch.autograd.Function):
         dq, dk, dv = flash_attention_backward(qp, kp, vp, qs, ks, out, lse, g.to(qp.dtype),
                                               causal=ctx.causal, sm_scale=ctx.scale)
         T = ctx.T
-        return dq[:, :T], dk[:, :T], dv[:, :T], None, None, None, None
+        return dq[:, :T], dk[:, :T], dv[:, :T], None, None, None, None, None
 
 
 def flash_attention(
@@ -262,17 +282,17 @@ def flash_attention(
     q_segment_ids: Optional[torch.Tensor] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
     softmax_scale: Optional[float] = None,
-    alibi_nheads: int = 0,
+    alibi_slopes: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused attention over [B, T, H, D]: returns (out, lse [B, H, T]); the
-    output carries a gradient through the backward kernels."""
-    if alibi_nheads:
-        raise NotImplementedError(
-            "the ALiBi variant of the flash kernels (MPT) is not ported yet")
+    output carries a gradient through the backward kernels (not with
+    ``alibi_slopes`` [H] f32, MPT's ALiBi, whose backward raises)."""
+    check_slopes(alibi_slopes, q.shape[2], q.device)
     scale = softmax_scale if softmax_scale is not None else q.shape[3] ** -0.5
-    return _Flash.apply(q, k, v, q_segment_ids, kv_segment_ids, causal, scale)
+    return _Flash.apply(q, k, v, q_segment_ids, kv_segment_ids, alibi_slopes, causal, scale)
 
 
 flash_attention.launches = 0
+flash_attention.alibi_launches = 0
 flash_bwd_dkv.launches = 0
 flash_bwd_dq.launches = 0

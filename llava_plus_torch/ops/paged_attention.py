@@ -18,14 +18,16 @@ function as :func:`paged_attention_reference`:
   position ``lengths + j``, causal within the chunk, with a valid prefix of
   ``cur_valid`` [B] tokens. Without a current chunk the (single) query sits
   at ``lengths - 1``, already in the pool;
+- with ``alibi_slopes`` [H] (MPT) each score loses ``slope_h * |q_pos -
+  kv_pos|`` over those positions (pool token s at position s); the kernels'
+  ALiBi launches count in ``<kernel>.alibi_launches``;
 - masked entries take the finite mask value ``-0.7 * f32 max``.
 
 The JAX package's Mosaic workarounds (the 128-lane head-dim gate and the
 f32 block-diagonal query of ``_kernel_decode1``) are not carried over. On
 CUDA tensors :func:`paged_decode_attention` launches a kernel or raises (for
-ALiBi, which waits for the MPT backbone, a non-bf16 query, a head dim other
-than 128, or more than 8 chunk tokens); on CPU tensors it runs the plain
-version.
+a non-bf16 query, a head dim other than 128, or more than 8 chunk tokens);
+on CPU tensors it runs the plain version.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from typing import Optional
 import torch
 
 from llava_plus_torch.kernels import build
-from llava_plus_torch.ops.attention import DEFAULT_MASK_VALUE
+from llava_plus_torch.ops.attention import DEFAULT_MASK_VALUE, check_slopes
 
 HEAD_DIM = 128
 MAX_CHUNK = 8   # chunk tokens the kernels fold into the self block
@@ -59,11 +61,12 @@ def gather_pages(kv_pages, page_ids, kv_scale=None, dtype=torch.float32):
 
 def paged_attention_reference(q, kv_pages, page_ids, lengths, kv_scale=None,
                               cur_k=None, cur_v=None, cur_valid=None, *,
-                              sm_scale: Optional[float] = None) -> torch.Tensor:
+                              sm_scale: Optional[float] = None,
+                              alibi_slopes=None) -> torch.Tensor:
     """The kernels' function in plain PyTorch: gather the pages, append the
     current chunk, masked softmax in f32 (f64 for an f64 query). Returns
-    [B, Tq, H, D] in q's dtype. Same masks as the JAX package's
-    ``paged_attention_reference``."""
+    [B, Tq, H, D] in q's dtype. Same masks and ALiBi positions as the JAX
+    package's ``paged_attention_reference``."""
     B, Tq, H, D = q.shape
     acc = torch.float64 if q.dtype == torch.float64 else torch.float32
     scale = D ** -0.5 if sm_scale is None else sm_scale
@@ -72,10 +75,12 @@ def paged_attention_reference(q, kv_pages, page_ids, lengths, kv_scale=None,
     dev = q.device
     lengths = lengths.long()
     pool_ok = torch.arange(S, device=dev)[None, None, :] < lengths[:, None, None]  # [B, 1, S]
+    kv_pos = torch.arange(S, device=dev).expand(B, S)
     if cur_k is None:
         if Tq != 1:
             raise ValueError("a query of several tokens needs the current chunk")
         allowed = pool_ok            # the query sits at lengths - 1, in the pool
+        q_pos = (lengths - 1)[:, None]
     else:
         valid = (torch.full((B,), Tq, device=dev) if cur_valid is None
                  else cur_valid.long())
@@ -85,9 +90,16 @@ def paged_attention_reference(q, kv_pages, page_ids, lengths, kv_scale=None,
         allowed = torch.cat([pool_ok.expand(B, Tq, S), self_ok], dim=-1)
         k = torch.cat([k, cur_k.to(acc)], dim=1)
         v = torch.cat([v, cur_v.to(acc)], dim=1)
+        q_pos = lengths[:, None] + t[None]
+        kv_pos = torch.cat([kv_pos, q_pos], dim=1)
     Hkv = k.shape[2]
-    qg = q.to(acc).reshape(B, Tq, Hkv, H // Hkv, D)
+    G = H // Hkv
+    qg = q.to(acc).reshape(B, Tq, Hkv, G, D)
     scores = torch.einsum("btkgd,bskd->bkgts", qg, k) * scale
+    if alibi_slopes is not None:
+        dist = (q_pos[:, :, None] - kv_pos[:, None, :]).abs().to(acc)       # [B, Tq, S']
+        scores = scores - (alibi_slopes.to(acc).reshape(Hkv, G)[None, :, :, None, None]
+                           * dist[:, None, None])
     scores = torch.where(allowed[:, None, None], scores, DEFAULT_MASK_VALUE)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgts,bskd->btkgd", probs, v)
@@ -152,8 +164,9 @@ def _check_kernel_inputs(q, kv_pages, page_ids, lengths, kv_scale, cur_k, cur_v,
 
 
 def _launch(fn_name, q, kv_pages, page_ids, lengths, kv_scale, cur_k, cur_v, cur_valid,
-            sm_scale):
+            sm_scale, slopes):
     _check_kernel_inputs(q, kv_pages, page_ids, lengths, kv_scale, cur_k, cur_v, cur_valid)
+    check_slopes(slopes, q.shape[2], q.device)
     B, Tq, H, D = q.shape
     _, _, P, Hkv, _ = kv_pages.shape
     quantized = kv_scale is not None
@@ -165,7 +178,8 @@ def _launch(fn_name, q, kv_pages, page_ids, lengths, kv_scale, cur_k, cur_v, cur
         cur_k.data_ptr() if has_cur else None, cur_v.data_ptr() if has_cur else None,
         kv_pages.data_ptr(), kv_scale.data_ptr() if quantized else None,
         page_ids.data_ptr(), lengths.data_ptr(),
-        cur_valid.data_ptr() if has_cur else None, out.data_ptr(),
+        cur_valid.data_ptr() if has_cur else None,
+        None if slopes is None else slopes.data_ptr(), out.data_ptr(),
         B, P, H, Hkv, Tq, page_ids.shape[1], int(quantized), int(has_cur),
         q.stride(0), q.stride(1), q.stride(2), cs[0], cs[1], cs[2], page_ids.stride(0),
         float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
@@ -174,28 +188,33 @@ def _launch(fn_name, q, kv_pages, page_ids, lengths, kv_scale, cur_k, cur_v, cur
     return out
 
 
+def _counter(slopes) -> str:
+    return "launches" if slopes is None else "alibi_launches"
+
+
 def paged_decode1(q, kv_pages, page_ids, lengths, kv_scale=None, cur_k=None, cur_v=None,
-                  cur_valid=None, *, sm_scale: float) -> torch.Tensor:
+                  cur_valid=None, *, sm_scale: float, alibi_slopes=None) -> torch.Tensor:
     """The decode1 kernel (``csrc/paged_attention.cu``, one query row per kv
     head: ``G * Tq == 1``) on CUDA tensors."""
     out = _launch("paged_decode1_fwd", q, kv_pages, page_ids, lengths, kv_scale,
-                  cur_k, cur_v, cur_valid, sm_scale)
-    build.count_launch(paged_decode1)
+                  cur_k, cur_v, cur_valid, sm_scale, alibi_slopes)
+    build.count_launch(paged_decode1, _counter(alibi_slopes))
     return out
 
 
 def paged_attention_general(q, kv_pages, page_ids, lengths, kv_scale=None, cur_k=None,
-                            cur_v=None, cur_valid=None, *, sm_scale: float) -> torch.Tensor:
+                            cur_v=None, cur_valid=None, *, sm_scale: float,
+                            alibi_slopes=None) -> torch.Tensor:
     """The general kernel (``csrc/paged_attention.cu``: the ``G * Tq``
     query rows of a kv head, causal within the chunk) on CUDA tensors."""
     out = _launch("paged_attention_fwd", q, kv_pages, page_ids, lengths, kv_scale,
-                  cur_k, cur_v, cur_valid, sm_scale)
-    build.count_launch(paged_attention_general)
+                  cur_k, cur_v, cur_valid, sm_scale, alibi_slopes)
+    build.count_launch(paged_attention_general, _counter(alibi_slopes))
     return out
 
 
-paged_decode1.launches = 0
-paged_attention_general.launches = 0
+paged_decode1.launches = paged_decode1.alibi_launches = 0
+paged_attention_general.launches = paged_attention_general.alibi_launches = 0
 
 
 def paged_decode_attention(
@@ -209,14 +228,13 @@ def paged_decode_attention(
     cur_valid: Optional[torch.Tensor] = None,  # [B] int32 valid chunk tokens
     *,
     sm_scale: Optional[float] = None,
-    alibi_slopes=None,
+    alibi_slopes: Optional[torch.Tensor] = None,   # [H] f32 (MPT)
 ) -> torch.Tensor:
     """Attention over the paged pool plus the current chunk's self block.
     Returns [B, Tq, H, D]."""
-    if alibi_slopes is not None:
-        raise NotImplementedError("ALiBi paged attention waits for the MPT backbone")
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
+    check_slopes(alibi_slopes, q.shape[2], q.device)
     if q.is_cuda:
         if cur_k is not None and cur_valid is None:
             cur_valid = torch.full((q.shape[0],), q.shape[1], dtype=torch.int32,
@@ -224,8 +242,9 @@ def paged_decode_attention(
         H, Hkv = q.shape[2], kv_pages.shape[3]
         kernel = paged_decode1 if (H // Hkv) * q.shape[1] == 1 else paged_attention_general
         return kernel(q, kv_pages, page_ids, lengths, kv_scale, cur_k, cur_v, cur_valid,
-                      sm_scale=sm_scale)
+                      sm_scale=sm_scale, alibi_slopes=alibi_slopes)
     if q.device.type == "cpu":
         return paged_attention_reference(q, kv_pages, page_ids, lengths, kv_scale,
-                                         cur_k, cur_v, cur_valid, sm_scale=sm_scale)
+                                         cur_k, cur_v, cur_valid, sm_scale=sm_scale,
+                                         alibi_slopes=alibi_slopes)
     raise ValueError(f"paged_decode_attention: no path for device {q.device}")

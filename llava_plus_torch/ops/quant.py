@@ -106,6 +106,15 @@ LLAMA_QUANT_PATHS = (
     ("lm_head",),
 )
 
+# Paths of the MPT matrices worth quantizing. ``wqkv`` is one matrix already,
+# and the head is tied to ``wte``, which stays as it is (an embedding).
+MPT_QUANT_PATHS = (
+    ("layers", "attn", "wqkv"),
+    ("layers", "attn", "out_proj"),
+    ("layers", "mlp", "up_proj"),
+    ("layers", "mlp", "down_proj"),
+)
+
 
 def _get(tree, path):
     for p in path:
@@ -179,11 +188,13 @@ def fuse_llama_matrices(lm_params):
 
 def quantize_llava_params(params, model_type: str = "llama", *, bits: int = 8,
                           fuse: bool = False):
-    """Quantize the language model of a LLaVA tree in place (and fuse its
-    matrices when ``fuse``); the vision tower and projector stay as they are."""
-    if model_type != "llama":
-        raise NotImplementedError(f"quantizing the {model_type} backbone is not ported yet")
-    lm = quantize_lm_params(params["language_model"], bits=bits)
-    if fuse:
+    """Quantize the language model of a LLaVA tree in place (and, for LLaMA,
+    fuse its matrices when ``fuse``; MPT's are fused already); the vision
+    tower and projector stay as they are."""
+    if model_type not in ("llama", "mpt"):
+        raise ValueError(f"unknown model type {model_type!r}")
+    paths = MPT_QUANT_PATHS if model_type == "mpt" else LLAMA_QUANT_PATHS
+    lm = quantize_lm_params(params["language_model"], paths, bits=bits)
+    if fuse and model_type == "llama":
         lm = fuse_llama_matrices(lm)
     return dict(params, language_model=lm)

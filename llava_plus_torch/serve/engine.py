@@ -30,8 +30,10 @@ share the batch or how decode is chunked (the JAX engine folds the
 position into the request's key for the same reason; its random bits are
 not reproduced).
 
+Both backbones serve: LLaMA and MPT (ALiBi slopes ride the same kernels).
+
 Not ported (the arguments raise): speculative decoding, the
-tensor-parallel mesh, W8A8 prefill, and the MPT backbone.
+tensor-parallel mesh and W8A8 prefill.
 """
 
 from __future__ import annotations
@@ -232,15 +234,15 @@ class BatchedEngine:
         for name, value in (("mesh", mesh), ("speculate", speculate), ("w8a8", w8a8)):
             if value:
                 raise NotImplementedError(f"BatchedEngine({name}=...) is not ported yet")
-        if cfg.language_model_type != "llama":
-            raise NotImplementedError(f"the {cfg.language_model_type} backbone is not ported yet")
         if paged and (max_seq_len % page_size or prefill_bucket % page_size):
             raise ValueError(f"max_seq_len {max_seq_len} and prefill_bucket {prefill_bucket} "
                              f"must be multiples of page_size {page_size}")
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
-        self.device = params["language_model"]["embed_tokens"].device
+        self.lm, self.lm_cfg = llava_model.backbone(cfg)
+        lm = params["language_model"]
+        self.device = (lm["embed_tokens"] if "embed_tokens" in lm else lm["wte"]).device
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
         self.prefill_bucket = prefill_bucket
@@ -298,10 +300,10 @@ class BatchedEngine:
         ``force_dense`` a dense one (a prefill batch's bucket-sized cache)."""
         if self.paged and not force_dense:
             return llama.PagedKVCache.create(
-                self.cfg.text, batch or self.max_slots, num_pages=self.num_pages,
+                self.lm_cfg, batch or self.max_slots, num_pages=self.num_pages,
                 max_pages_per_slot=self.max_seq_len // self.page_size,
                 page_size=self.page_size, dtype=self.cache_dtype, device=self.device)
-        return llama.KVCache.create(self.cfg.text, batch or self.max_slots,
+        return llama.KVCache.create(self.lm_cfg, batch or self.max_slots,
                                     seq_len or self.max_seq_len, self.cache_dtype,
                                     device=self.device)
 
@@ -419,18 +421,19 @@ class BatchedEngine:
         only here). Attaches the slot's pages and prefix seg, then runs the
         suffix [1, Tb] (right-padded to a bucket) as a cache continuation
         from ``prefix_len`` through the gathered pages, as the JAX package
-        forces its XLA path there. Writes land in the fresh pages only.
-        Returns the logits [1, V] at the last valid suffix token."""
+        forces its XLA path there (for MPT too, JAX ``engine.py:569-577``).
+        Writes land in the fresh pages only. Returns the logits [1, V] at the
+        last valid suffix token."""
         self._attach_pages(slot, pages)
         self.cache.seg_buf[slot].zero_()
         self.cache.seg_buf[slot, :prefix_len] = 1
         Tb = tokens.shape[1]
         positions = prefix_len + torch.arange(Tb, dtype=torch.int32, device=self.device)[None]
         last = (seg.sum(dim=1) - 1).clamp_min(0)
-        logits, _ = llama.forward(self.params["language_model"], self.cfg.text, tokens,
-                                  positions=positions, segment_ids=seg,
-                                  cache=self.cache.row(slot), logits_positions=last,
-                                  paged_gather=True)
+        logits, _ = self.lm.forward(self.params["language_model"], self.lm_cfg, tokens,
+                                    positions=positions, segment_ids=seg,
+                                    cache=self.cache.row(slot), logits_positions=last,
+                                    paged_gather=True)
         return logits[:, 0]
 
     def _set_token(self, tid: int, slot: int):

@@ -50,8 +50,9 @@ class TorchBackend:
     """Backend over in-memory parameters on ``device``.
 
     ``quantize="int8"`` / ``"int4"`` quantizes the language model's matrices
-    in place (the caller's tree is consumed) and fuses them (``wqkv``,
-    ``w_gateup``): the port's ``--load-8bit`` / ``--load-4bit``.
+    in place (the caller's tree is consumed) and fuses LLaMA's (``wqkv``,
+    ``w_gateup``; MPT's ``wqkv`` is one matrix already): the port's
+    ``--load-8bit`` / ``--load-4bit``. ``cfg`` may name either backbone.
     ``kv_int8`` stores the KV cache as int8 with per-(token, head) scales.
     ``paged=True`` serves over a paged KV pool of ``pool_tokens`` tokens
     (default ``max_slots * max_seq_len``) with the prefix cache on unless

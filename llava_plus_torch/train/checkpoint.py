@@ -199,7 +199,8 @@ def export_hf_llava(params, cfg: LlavaConfig, out_dir, tokenizer=None) -> Path:
     from safetensors.torch import save_file
 
     if cfg.language_model_type != "llama":
-        raise NotImplementedError("the MPT backbone is not ported yet (ROADMAP Queue 1)")
+        raise NotImplementedError("the HF export of the MPT backbone is not ported yet "
+                                  "(ROADMAP Queue 1 item 13)")
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     sd = llama_state_dict_from_params(params["language_model"], cfg.text)

@@ -20,8 +20,9 @@ stacked tensors), so the stacked tree that :func:`train` returns is the
 trained one.
 
 Not ported yet, each raising ``NotImplementedError``: LoRA / QLoRA
-(``--lora-enable``, ``--bits 4|8``; ROADMAP Queue 1 item 14), the MPT
-backbone (``--tiny-debug-arch mpt``; item 13), loading a checkpoint
+(``--lora-enable``, ``--bits 4|8``; ROADMAP Queue 1 item 14), training the
+MPT backbone, which serves but has no ALiBi flash backward yet
+(``--tiny-debug-arch mpt``; item 13), loading a checkpoint
 (``--model-name-or-path``, ``--pretrain-mm-mlp-adapter``; item 6) and the
 (dp, fsdp, tp) mesh (``--dp``,
 ``--fsdp-axis``, ``--tp`` other than 1; item 15).
@@ -75,7 +76,7 @@ class ModelArguments:
     mm_use_im_start_end: bool = False
     mm_use_im_patch_token: bool = False
     tiny_debug_model: bool = False  # tests/CI: random tiny model
-    tiny_debug_arch: str = "llama"  # "mpt" is not ported yet
+    tiny_debug_arch: str = "llama"  # "mpt" training is not ported yet
     # accepted for recipe compatibility; attention is the flash kernels
     mpt_attn_impl: Optional[str] = "triton"
 
@@ -142,7 +143,8 @@ def _unported(model_args: ModelArguments, training_args: TrainingArguments):
         raise NotImplementedError("LoRA / QLoRA training (train/lora.py) is not ported yet: "
                                   "ROADMAP Queue 1 item 14")
     if model_args.tiny_debug_arch != "llama":
-        raise NotImplementedError("the MPT backbone is not ported yet: ROADMAP Queue 1 item 13")
+        raise NotImplementedError("training the MPT backbone (the ALiBi flash backward) is not "
+                                  "ported yet: ROADMAP Queue 1 item 13")
     if ((model_args.model_name_or_path is not None and not model_args.tiny_debug_model)
             or model_args.pretrain_mm_mlp_adapter):
         raise NotImplementedError("loading a checkpoint (--model-name-or-path, "

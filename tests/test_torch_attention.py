@@ -176,9 +176,27 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda():
 
 
 def test_flash_rejects_alibi():
-    q = torch.zeros(1, 8, 2, 128)
+    """What the ALiBi variant does not take raises: slopes that are not f32
+    [H], and the backward of an ALiBi forward (the ALiBi backward kernels are
+    not ported). Its forward is the JAX function (``test_torch_alibi.py``
+    holds it to the Pallas kernel); here, to the f32 reference with the
+    dense JAX bias."""
+    from llava_plus_tpu.models import mpt as jax_mpt
+    from llava_plus_torch.models.mpt import alibi_slopes
+
+    rng = np.random.default_rng(9)
+    q, k, v = _qkv(rng, 1, 20, 20, 2, 2, 128)
+    for bad in (torch.ones(3), torch.ones(2, dtype=torch.float64)):
+        with pytest.raises(ValueError):
+            flash_attention(_t(q), _t(k), _t(v), alibi_slopes=bad)
+    qt = _t(q).requires_grad_()
+    out, _ = flash_attention(qt, _t(k), _t(v), alibi_slopes=alibi_slopes(2))
+    pos = jnp.arange(20, dtype=jnp.int32)[None]
+    want = jax_attn.xla_attention(q, k, v, causal=True,
+                                  bias=jax_mpt.alibi_bias_from_positions(pos, pos, 2))
+    _close(out, want)
     with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q, alibi_nheads=2)
+        out.sum().backward()
 
 
 @pytest.mark.parametrize("case,want", [

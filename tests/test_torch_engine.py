@@ -285,9 +285,10 @@ def test_unported_engine_options_raise(setup):
     for kw in (dict(speculate=4), dict(w8a8=True), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             BatchedEngine(engine.params, CFG, engine.tokenizer, **kw)
-    mpt = dataclasses.replace(CFG, language_model_type="mpt")
-    with pytest.raises(NotImplementedError):
-        BatchedEngine(engine.params, mpt, engine.tokenizer)
+    # both backbones serve (tests/test_torch_mpt.py); another one raises
+    other = dataclasses.replace(CFG, language_model_type="gpt2")
+    with pytest.raises(ValueError):
+        BatchedEngine(engine.params, other, engine.tokenizer)
 
 
 HTTP_SCRIPT = r"""

@@ -1,10 +1,11 @@
 """The port stands alone: in a fresh interpreter, import every
 ``llava_plus_torch`` module and run the tiny slice on the CPU (through
-``Generator.stream``, and through the port's HTTP worker as a client reaches
-it, single stream and on the paged engine with a prefix hit, and the
-training CLI for a stage-1 and a stage-2 run), then check
-that neither ``jax`` nor ``triton`` nor any module of the JAX package
-(``llava_plus_tpu``) was imported and that no kernel build (``nvcc``) ran.
+``Generator.stream`` on the LLaMA and the MPT backbone, and through the
+port's HTTP worker as a client reaches it, single stream and on the paged
+engine with a prefix hit, and the training CLI for a stage-1 and a stage-2
+run), then check that neither ``jax`` nor ``triton`` nor any module of the
+JAX package (``llava_plus_tpu``) was imported and that no kernel build
+(``nvcc``) ran.
 And the port's own copies of the JAX package's framework-free modules
 (configs, the multimodal planner, tokenizer, image processing, prompt
 tokenization, the prefix-cache hashing, the wire framing) give what the
@@ -36,19 +37,22 @@ from llava_plus_torch.data import DebugTokenizer
 from llava_plus_torch.generate import Generator
 from llava_plus_torch.kernels import build
 from llava_plus_torch.models import llava
-from llava_plus_torch.models.configs import tiny_llava_config
+from llava_plus_torch.models.configs import tiny_llava_config, tiny_llava_mpt_config
 
 def no_build(*args, **kwargs):
     raise AssertionError("a kernel build (nvcc) was attempted")
 
 build.build = no_build
-cfg = tiny_llava_config()
-params = llava.init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
-gen = Generator(params, cfg, DebugTokenizer(vocab_size=cfg.text.vocab_size),
-                device="cpu", max_seq_len=128, prefill_bucket=32, cache_dtype=torch.int8)
-img = torch.randn(1, 28, 28, 3).numpy()
-text = list(gen.stream("<image>\ndescribe it", img, max_new_tokens=4))
-assert text and len(gen._last_output_ids) >= 1
+for cfg in (tiny_llava_config(), tiny_llava_mpt_config()):
+    params = llava.init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
+    tok = DebugTokenizer(vocab_size=512)
+    if cfg.language_model_type == "mpt":
+        tok.bos_token_id = None   # GPT-NeoX style, as MPT's tokenizer
+    gen = Generator(params, cfg, tok, device="cpu", max_seq_len=128, prefill_bucket=32,
+                    cache_dtype=torch.int8)
+    img = torch.randn(1, 28, 28, 3).numpy()
+    text = list(gen.stream("<image>\ndescribe it", img, max_new_tokens=4))
+    assert text and len(gen._last_output_ids) >= 1
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
 assert not bad, bad
 assert build._lib is None
@@ -193,7 +197,8 @@ def test_port_trainer_cli_imports_no_jax(stage):
 
 # -- the port's own copies against the JAX package's originals -------------
 
-@pytest.mark.parametrize("name", ["LLAVA_15_7B", "LLAVA_15_13B", "tiny_llava_config"])
+@pytest.mark.parametrize("name", ["LLAVA_15_7B", "LLAVA_15_13B", "tiny_llava_config",
+                                  "tiny_llava_mpt_config"])
 def test_configs_match_jax_field_for_field(name):
     from llava_plus_tpu.models import configs as jax_configs
     from llava_plus_torch.models import configs
@@ -204,6 +209,31 @@ def test_configs_match_jax_field_for_field(name):
     assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
     assert mine.num_image_tokens == theirs.num_image_tokens
     assert mine.text.head_dim == theirs.text.head_dim
+    assert mine.hidden_size == theirs.hidden_size
+
+
+def test_llava_mpt_7b_is_what_hf_import_reads(tmp_path):
+    """``LLAVA_MPT_7B`` is the JAX ``llava_config_from_hf_dir`` reading of a
+    LLaVA-Lightning-MPT-7B config (mosaicml/mpt-7b-chat's decoder fields,
+    CLIP ViT-L/14 at 224 px, image start/end tokens) in every field that
+    shapes the model."""
+    import json
+
+    from llava_plus_tpu.models.hf_import import llava_config_from_hf_dir
+    from llava_plus_torch.models.configs import LLAVA_MPT_7B
+
+    (tmp_path / "config.json").write_text(json.dumps({
+        "model_type": "llava_mpt", "d_model": 4096, "n_layers": 32, "n_heads": 32,
+        "expansion_ratio": 4, "max_seq_len": 2048, "vocab_size": 50432, "no_bias": True,
+        "attn_config": {"alibi": True, "alibi_bias_max": 8, "attn_impl": "torch"},
+        "mm_vision_tower": "openai/clip-vit-large-patch14", "mm_hidden_size": 1024,
+        "mm_use_im_start_end": True, "mm_vision_select_layer": -2}))
+    theirs = llava_config_from_hf_dir(tmp_path)
+    for field in ("language_model_type", "mpt", "vision", "mm_projector_type",
+                  "mm_hidden_size", "mm_use_im_start_end", "max_sequence_length"):
+        assert (dataclasses.asdict(LLAVA_MPT_7B)[field]
+                == dataclasses.asdict(theirs)[field]), field
+    assert LLAVA_MPT_7B.num_image_tokens == 256 and LLAVA_MPT_7B.hidden_size == 4096
 
 
 def test_planner_matches_jax():

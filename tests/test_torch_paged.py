@@ -114,14 +114,27 @@ def test_gather_pages_matches_jax():
 
 
 def test_dead_slot_output_is_finite_and_alibi_raises():
+    """A slot with no past token and no valid chunk token comes out finite,
+    with ALiBi too (whose live rows equal the JAX reference); slopes that
+    are not f32 [H] raise."""
+    from llava_plus_torch.models.mpt import alibi_slopes
+
     rng = np.random.default_rng(6)
     q, kv, pt, lengths, scale, ck, cv, valid = _pool_inputs(
         rng, 2, 2, 4, 2, 16, 8, 2, True, True)
     lengths[1], valid[1] = 0, 0
     args = [_t(x) for x in (q, kv, pt, lengths, scale, ck, cv, valid)]
     assert torch.isfinite(paged.paged_decode_attention(*args)).all()
-    with pytest.raises(NotImplementedError):
-        paged.paged_decode_attention(*args, alibi_slopes=torch.ones(4))
+    got = paged.paged_decode_attention(*args, alibi_slopes=alibi_slopes(4))
+    assert torch.isfinite(got).all()
+    from llava_plus_tpu.models import mpt as jax_mpt
+    want = jax_paged.paged_attention_reference(
+        *(_j(x) for x in (q, kv, pt, lengths, scale)), cur_k=_j(ck), cur_v=_j(cv),
+        cur_valid=_j(valid), alibi_slopes=jax_mpt.alibi_slopes(4))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want)[0], atol=1e-5, rtol=1e-4)
+    for bad in (torch.ones(3), torch.ones(4, dtype=torch.float64)):
+        with pytest.raises(ValueError):
+            paged.paged_decode_attention(*args, alibi_slopes=bad)
 
 
 def test_kernel_input_checks():

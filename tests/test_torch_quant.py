@@ -234,5 +234,25 @@ def test_quantize_is_in_place_and_mpt_raises():
     assert quant.is_quantized(lm["layers"]["attn"]["wq"])
     assert lm["layers"]["attn"]["wq"]["qvalue"].shape == (2, 64, 64)
     assert not quant.is_quantized(lm["embed_tokens"])
-    with pytest.raises(NotImplementedError):
-        quant.quantize_llava_params(copy.deepcopy(params), "mpt")
+    # MPT: the four matrices of JAX MPT_QUANT_PATHS, byte for byte equal to
+    # the JAX quantizer's, unfused (``wqkv`` is one matrix), the tied ``wte``
+    # left as it is; a backbone that is neither raises
+    from llava_plus_tpu.models.configs import tiny_llava_mpt_config as jax_mpt_config
+    from llava_plus_torch.models.configs import tiny_llava_mpt_config
+
+    jp = jax_llava.init_params(jax_mpt_config(), jax.random.PRNGKey(1), dtype=jnp.float32)
+    np_params = jax.tree.map(np.asarray, jp)
+    want = jq.quantize_llava_params(jp, "mpt", fuse=True)["language_model"]
+    mp = from_numpy(np_params, "cpu")
+    mlm = mp["language_model"]
+    out = quant.quantize_llava_params(mp, "mpt", fuse=True)
+    assert out["language_model"] is mlm
+    assert not quant.is_quantized(mlm["wte"])
+    for path in quant.MPT_QUANT_PATHS:
+        got_w, want_w = quant._get(mlm, path), jq._get(want, path)
+        for key in ("qvalue", "scale"):
+            np.testing.assert_array_equal(got_w[key].numpy(), np.asarray(want_w[key]))
+    assert set(mlm["layers"]["attn"]) == {"wqkv", "out_proj"}
+    assert dataclasses.asdict(tiny_llava_mpt_config()) == dataclasses.asdict(jax_mpt_config())
+    with pytest.raises(ValueError):
+        quant.quantize_llava_params(copy.deepcopy(params), "gpt2")

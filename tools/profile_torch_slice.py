@@ -30,6 +30,12 @@ as ``chip_smoke.py`` phase 6 serves it: the weights quantized in place to
 tokens (``pool_tokens`` 32768), slots of up to 4096 tokens, the prefills'
 stripes inserted into pool pages.
 
+``--engine --mpt [--paged]`` profiles LLaVA-MPT-7B instead, as
+``chip_smoke.py`` phase 11 serves it: the ALiBi kernels, int8 weights (its
+four matrices a layer), image prompts of 200 words (~460 fused tokens with
+its 256 image slots, one 512 bucket), slots of 2048, a paged pool of 128
+pages of 128 tokens.
+
 For each it prints the host-clock ms per call or step, the device busy ms
 (the sum of the device time of every kernel, copy and memset in the trace,
 per call or step), the idle share (1 - busy / host), the device time by
@@ -46,7 +52,7 @@ micro-batches of 4 rows of 700-2048 fused tokens. It times the gradients
 two steps after a warm-up step, then one step under ``torch.profiler``.
 
 Usage: python tools/profile_torch_slice.py [--steps 16] [--out profile_out]
-       python tools/profile_torch_slice.py --engine [--quantize int8|int4] [--paged]
+       python tools/profile_torch_slice.py --engine [--quantize int8|int4] [--paged] [--mpt]
        python tools/profile_torch_slice.py --train [--stage 1|2]
 """
 
@@ -123,6 +129,8 @@ def main():
     ap.add_argument("--quantize", default="int8", choices=("int8", "int4"))
     ap.add_argument("--paged", action="store_true",
                     help="with --engine: the paged engine (256 pages of 128 tokens)")
+    ap.add_argument("--mpt", action="store_true",
+                    help="with --engine: LLaVA-MPT-7B (the ALiBi kernels)")
     ap.add_argument("--train", action="store_true", help="profile a 7B training step")
     ap.add_argument("--stage", type=int, default=1, choices=(1, 2))
     args = ap.parse_args()
@@ -223,7 +231,7 @@ def main():
 def profile_engine(args):
     from llava_plus_torch.data import DebugTokenizer
     from llava_plus_torch.models import llava as llava_model
-    from llava_plus_torch.models.configs import LLAVA_15_7B
+    from llava_plus_torch.models.configs import LLAVA_15_7B, LLAVA_MPT_7B
     from llava_plus_torch.ops.quant import quantize_llava_params
     from llava_plus_torch.serve.engine import BatchedEngine, Request
 
@@ -232,21 +240,25 @@ def profile_engine(args):
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    cfg, dev, B, chunk = LLAVA_15_7B, "cuda:0", 16, 4
+    cfg, dev, B, chunk = LLAVA_MPT_7B if args.mpt else LLAVA_15_7B, "cuda:0", 16, 4
     params = llava_model.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    params = quantize_llava_params(params, bits=8 if args.quantize == "int8" else 4, fuse=True)
-    tok = DebugTokenizer(vocab_size=cfg.text.vocab_size)
+    params = quantize_llava_params(params, cfg.language_model_type,
+                                   bits=8 if args.quantize == "int8" else 4, fuse=True)
+    tok = DebugTokenizer(vocab_size=llava_model.backbone(cfg)[1].vocab_size)
     tok.eos_token_id = -1  # random weights: every prefill fills its slot
-    S = 4096 if args.paged else 2048
+    if args.mpt:
+        tok.bos_token_id = None  # GPT-NeoX style, as MPT's tokenizer
+    S = 4096 if args.paged and not args.mpt else 2048
     engine = BatchedEngine(params, cfg, tok, max_slots=B, max_seq_len=S,
                            decode_chunk=chunk, cache_dtype=torch.int8, paged=args.paged,
-                           pool_tokens=32768 if args.paged else None)
-    tag = f"{args.quantize}{'-paged' if args.paged else ''}"
+                           pool_tokens=(16384 if args.mpt else 32768) if args.paged else None)
+    tag = f"{'mpt-' if args.mpt else ''}{args.quantize}{'-paged' if args.paged else ''}"
+    words = 200 if args.mpt else 184
     size = cfg.vision.image_size
     rng = np.random.default_rng(0)
 
     def image_reqs(tag):
-        return [Request(prompt="<image>\n" + " ".join(f"{tag}{j}w{i}" for i in range(184)),
+        return [Request(prompt="<image>\n" + " ".join(f"{tag}{j}w{i}" for i in range(words)),
                         images=rng.standard_normal((1, size, size, 3)).astype(np.float32),
                         max_new_tokens=64) for j in range(4)]
 
@@ -254,8 +266,8 @@ def profile_engine(args):
         return [Request(prompt=" ".join(f"{tag}{j}w{i}" for i in range(60 + 80 * j)),
                         max_new_tokens=64) for j in range(4)]
 
-    result = {"card": smi, "quantize": args.quantize, "paged": args.paged, "slots": B,
-              "chunk": chunk}
+    result = {"card": smi, "model": "llava-mpt-7b" if args.mpt else "llava-1.5-7b",
+              "quantize": args.quantize, "paged": args.paged, "slots": B, "chunk": chunk}
     with torch.inference_mode():
         for _ in range(2):                          # warm-up: kernels, allocator, cuBLAS
             engine._prepare(image_reqs("warm"))
