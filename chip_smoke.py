@@ -13,13 +13,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    forward, decode attention (bf16 and int8 cache), the int8 / int4
    weight-only matmuls at the 7B fused matrices (wqkv, w_down, lm_head) for
    1, 16 and 768 rows, and the paged kernels at 16 slots of 16 pages; and
-   the ALiBi variants (MPT) of the flash forward, the dense decode and both
-   paged kernels;
+   the ALiBi variants (MPT) of the flash forward, both flash backward
+   kernels (T = 2048, MPT-7B's 32 slopes, MHA and 32 heads over one kv
+   head, and a non-causal call), the dense decode and both paged kernels;
+   and the dense decode kernel for a group wider than 8 (32 heads over one
+   kv head, bf16 and int8 caches, with and without slopes);
 4. a narrow LLaMA (head dim 128, GQA) on the card against the same weights
    on the CPU plain path: 16 greedy tokens, and the logits of the prefill and
    of every decode step, with bf16 weights (bf16 and int8 KV) and with fused
    int8 and int4 weights; then a narrow MPT (ALiBi, MHA and MQA) the same
-   way, with int8 weights and over paged pools;
+   way, with int8 weights and over paged pools, and a wide MQA MPT (16 heads
+   over one kv head) over dense and paged bf16 and int8 caches;
 5. LLaVA-1.5-7B at full width, random bf16 weights, behind the HTTP model
    worker on the single-stream path: an image request and three text
    requests, one of them short enough for a single 128-token prefill (and a
@@ -37,10 +41,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    the prefix cache on; 16 concurrent requests (one of 3,000 tokens), then 8
    multi-turn follow-ups that reuse their pooled prefixes, with prefix hits,
    vision encodes, launch counts and page accounting checked;
-8. training on the narrow model, card (bf16, the flash forward and both
+8. training on the narrow models, card (bf16, the flash forward and both
    backward kernels, remat) against the CPU (f32, plain): the loss, the
    gradient of the projector and of every language-model leaf, one AdamW
-   step and the kernels' launch counts, on packed and padded rows;
+   step and the kernels' launch counts, on packed and padded rows, for the
+   narrow LLaMA and for the narrow MPT (MHA and MQA, the ALiBi kernels);
+   then LoRA and QLoRA (int8 and int4 base) on the narrow LLaMA: the
+   gradient of every adapter leaf, the base's bytes and the launch counts
+   of the quantized kernels and of their backward;
 9. LLaVA-1.5-7B stage 1 through the port's ``train()`` with the
    ``scripts/v1_5/pretrain.sh`` recipe (projector only, batch 32) on 96
    synthetic image-caption records: 3 steps, frozen bytes, the
@@ -56,7 +64,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    of 32 greedy tokens), then the paged engine with the prefix cache (128
    pages of 128; 8 requests, then 4 multi-turn follow-ups that hit their
    pooled prefixes), with TTFT p50, tokens/s, peak memory, page accounting
-   and every ALiBi kernel's launch count checked.
+   and every ALiBi kernel's launch count checked;
+12. LLaVA-MPT-7B stage 1 through ``train()`` at full width and depth with
+   the ``scripts/pretrain.sh`` recipe (projector only, batch 32) on 96
+   synthetic image-caption records: 3 steps, frozen bytes, the
+   ``mm_projector.bin`` export and the ALiBi kernels' launch counts (the
+   backward to the projector runs both ALiBi backward kernels);
+13. LLaVA-1.5-7B QLoRA through ``train()`` with the
+   ``scripts/finetune_qlora.sh`` recipe (``--lora-enable --bits 4``, r 128,
+   alpha 256, remat) reduced to batch 4 and 3 steps on records of 700-2048
+   tokens: every adapter leaf updated, the int4 base unchanged, the PEFT
+   export, the peak memory and the int4 kernel's forward launches and
+   backward calls.
 
 Phase 3 also holds both paged kernels (decode1 and general) and both flash
 backward kernels (dK/dV and dQ, at T = 2048, MHA and GQA, a padded and a
@@ -109,6 +128,9 @@ FLASH_ALIBI_REPLACES = "llava_plus_tpu/ops/flash_attention.py:82"
 DECODE_ALIBI_REPLACES = "llava_plus_tpu/ops/decode_attention.py:41"
 PAGED_DECODE1_ALIBI_REPLACES = "llava_plus_tpu/ops/paged_attention.py:420"
 PAGED_GENERAL_ALIBI_REPLACES = "llava_plus_tpu/ops/paged_attention.py:209"
+# the use_alibi branches of the Pallas backward kernels (MPT training)
+DKV_ALIBI_REPLACES = "llava_plus_tpu/ops/flash_attention.py:258"
+DQ_ALIBI_REPLACES = "llava_plus_tpu/ops/flash_attention.py:348"
 
 # Published peaks of one H100 SXM (dense): HBM3 bytes/s and bf16 tensor-core
 # flop/s. A kernel's bound is the larger of its bytes over the first and its
@@ -262,21 +284,26 @@ def check_flash(tag, B, T, H, Hkv, pad_tail, gen, alibi=False):
             "library_ms": library_ms}
 
 
-def check_flash_bwd(tag, B, T, H, Hkv, gen):
-    """Both backward kernels at a training shape: causal, the first row
-    padded over its last 100 tokens, the second packed as two segments of
-    T/2. dq, dk and dv of the kernels (fed the forward kernel's output and
+def check_flash_bwd(tag, B, T, H, Hkv, gen, alibi=False, causal=True):
+    """Both backward kernels at a training shape: causal (or not), the first
+    row padded over its last 100 tokens, the second packed as two segments
+    of T/2. dq, dk and dv of the kernels (fed the forward kernel's output and
     lse) and of the plain backward (fed the plain forward's) against the
     f64 gradient of the f64 forward, every row included (padding rows and
-    padded keys must come out 0). The library yardstick is the backward of
-    ``scaled_dot_product_attention(is_causal=True)`` on the same q/k/v and
-    dO, heads-major: one call that computes what both kernels compute."""
+    padded keys must come out 0). With ``alibi`` MPT's slopes for H heads
+    select the ALiBi kernels, whose launches must count apart. The library
+    yardstick is the backward of ``scaled_dot_product_attention`` on the same
+    q/k/v and dO, heads-major (``is_causal``, or with ALiBi the bias as a
+    float mask made beforehand): one call that computes what both kernels
+    compute."""
     import torch
     import torch.nn.functional as F
     from llava_plus_torch.ops import flash_attention as fa
 
     dev, D = "cuda", 128
     scale = D ** -0.5
+    slopes = _slopes(H, alibi)
+    counter = "alibi_launches" if alibi else "launches"
     q = torch.randn(B, T, H, D, generator=gen, device=dev).bfloat16()
     k = torch.randn(B, T, Hkv, D, generator=gen, device=dev).bfloat16()
     v = torch.randn(B, T, Hkv, D, generator=gen, device=dev).bfloat16()
@@ -284,10 +311,14 @@ def check_flash_bwd(tag, B, T, H, Hkv, gen):
     seg = torch.ones(B, T, dtype=torch.int32, device=dev)
     seg[0, T - 100:] = 0
     seg[1, T // 2:] = 2
-    kw = dict(causal=True, sm_scale=scale)
+    kw = dict(causal=causal, sm_scale=scale, alibi_slopes=slopes)
 
-    out, lse = fa._launch(q, k, v, seg, seg, True, scale)
+    out, lse = fa._launch(q, k, v, seg, seg, causal, scale, slopes)
+    n0 = (getattr(fa.flash_bwd_dkv, counter), getattr(fa.flash_bwd_dq, counter))
     grads = fa.flash_attention_backward(q, k, v, seg, seg, out, lse, do, **kw)
+    if (getattr(fa.flash_bwd_dkv, counter), getattr(fa.flash_bwd_dq, counter)) != (n0[0] + 1,
+                                                                                  n0[1] + 1):
+        raise AssertionError(f"flash_bwd {tag}: the call did not launch both {counter} kernels")
     p_out, p_lse = fa.flash_attention_reference(q, k, v, seg, seg, **kw)
     plain = fa.flash_attention_backward_reference(q, k, v, seg, seg, p_out, p_lse, do, **kw)
     q64, k64, v64 = q.double(), k.double(), v.double()
@@ -310,19 +341,29 @@ def check_flash_bwd(tag, B, T, H, Hkv, gen):
     plain_ms = time_ms(lambda: fa.flash_attention_backward_reference(
         q, k, v, seg, seg, p_out, p_lse, do, **kw), iters=5, warmup=1)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
-    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=Hkv != H)
+    mask = None
+    if alibi:
+        pos = torch.arange(T, device=dev)
+        dist = (pos[:, None] - pos[None, :]).float()
+        mask = -dist.abs() * slopes[:, None, None]
+        if causal:
+            mask = torch.where(dist >= 0, mask, -torch.inf)
+        mask = mask[None].bfloat16()
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                           is_causal=causal and not alibi, enable_gqa=Hkv != H)
     g_lib = do.transpose(1, 2).contiguous()
     library_ms = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), g_lib,
                                                      retain_graph=True))
-    del o_lib, qt, kt, vt
+    del o_lib, qt, kt, vt, mask
 
-    # the causal pairs within each segment; dK/dV does 4 products of 2*D
-    # flops per pair and head (JAX's 8*T*T*D), dQ 3 (6*T*T*D)
+    # the (causal) pairs within each segment; dK/dV does 4 products of 2*D
+    # flops per pair and head (JAX's 8*T*T*D), dQ 3 (6*T*T*D); the slopes add
+    # one multiply-add per pair, no bytes worth counting
     pairs = 0
     for row in seg.cpu().numpy():
         for s_id in set(row.tolist()) - {0}:
             n = int((row == s_id).sum())
-            pairs += n * (n + 1) // 2
+            pairs += n * (n + 1) // 2 if causal else n * n
     qo_bytes = 2 * 2 * B * T * H * D             # q and dO
     kv_bytes = 2 * 2 * B * T * Hkv * D           # k and v
     small = 2 * 4 * B * H * T + 2 * 4 * B * T    # lse, delta; segment ids
@@ -331,7 +372,8 @@ def check_flash_bwd(tag, B, T, H, Hkv, gen):
     ok_dkv = within(k_err["dk"], r_err["dk"]) and within(k_err["dv"], r_err["dv"])
     ok_dq = within(k_err["dq"], r_err["dq"])
     errs = ", ".join(f"{n} err {k_err[n]:.3e} (plain {r_err[n]:.3e})" for n in names)
-    log("kernels", f"flash_bwd {tag} B={B} T={T} H={H} Hkv={Hkv} D={D} causal, row 0 padded "
+    log("kernels", f"flash_bwd{'[alibi]' if alibi else ''} {tag} B={B} T={T} H={H} Hkv={Hkv} "
+                   f"D={D} {'causal' if causal else 'non-causal'}, row 0 padded "
                    f"over 100, row 1 two segments: {errs}; padding rows zero={zero_pad}; "
                    f"dkv {dkv_ms:.4f} ms (bound {b_dkv['bound_ms']:.4f}, {b_dkv['bound_by']}; "
                    f"{8 * D * H * pairs / dkv_ms / 1e9:.1f} TFLOP/s), dq {dq_ms:.4f} ms (bound "
@@ -339,7 +381,8 @@ def check_flash_bwd(tag, B, T, H, Hkv, gen):
                    f"plain backward {plain_ms:.4f} ms, library (sdpa backward) {library_ms:.4f} "
                    f"ms -> {'ok' if ok_dkv and ok_dq and zero_pad and finite else 'FAIL'}")
     if not (ok_dkv and ok_dq and zero_pad and finite):
-        raise AssertionError(f"flash_bwd {tag} disagrees with its plain version")
+        raise AssertionError(f"flash_bwd {tag} (alibi={alibi}) disagrees with its plain "
+                             "version")
     return ({"max_abs_err": max(k_err["dk"], k_err["dv"]), "ms": dkv_ms, "plain_ms": plain_ms,
              **b_dkv, "library_ms": library_ms},
             {"max_abs_err": k_err["dq"], "ms": dq_ms, "plain_ms": plain_ms, **b_dq,
@@ -350,7 +393,7 @@ def check_decode(tag, B, S, H, Hkv, gen, rng, alibi=False):
     import torch
     from llava_plus_torch.models.llama import quantize_kv
     from llava_plus_torch.ops.decode_attention import (
-        decode_attention, decode_attention_reference,
+        ROW_CHUNK, decode_attention, decode_attention_reference,
     )
 
     dev, D = "cuda", 128
@@ -372,7 +415,8 @@ def check_decode(tag, B, S, H, Hkv, gen, rng, alibi=False):
     kc, vc = k_all[1], v_all[1]
     scale = D ** -0.5
     slopes = _slopes(H, alibi)
-    counter = "alibi_launches" if alibi else "launches"
+    counter = ("wide_launches" if H // Hkv > ROW_CHUNK else
+               "alibi_launches" if alibi else "launches")
 
     def kernel():
         return decode_attention(q, kc, vc, seg, q_pos, ks, vs, alibi_slopes=slopes)
@@ -677,7 +721,27 @@ def phase_kernels():
     # 7B model's) with the largest error of both
     dkv_mha, dq_mha = check_flash_bwd("MHA", B=2, T=2048, H=32, Hkv=32, gen=gen)
     dkv_gqa, dq_gqa = check_flash_bwd("GQA", B=2, T=2048, H=32, Hkv=8, gen=gen)
+    # their ALiBi variants with LLaVA-MPT-7B's 32 slopes at the same row
+    # length, MHA (the 7B model's) and MQA (32 heads over one kv head), and a
+    # non-causal MQA call (MPT's prefix-LM without a prefix mask); the lines
+    # report MHA with the largest error of the three
+    alibi_bwd = [check_flash_bwd(tag, B=2, T=T, H=32, Hkv=Hkv, gen=gen, alibi=True,
+                                 causal=causal)
+                 for tag, T, Hkv, causal in (("MHA", 2048, 32, True), ("MQA", 2048, 1, True),
+                                             ("MQA", 512, 1, False))]
+    # the dense decode kernel for a group wider than one block's 8 rows: 32
+    # query heads over one kv head (an MQA MPT), bf16 and int8 caches, with
+    # and without slopes; the line reports the bf16 cache without slopes
+    # (it has a library call) with the largest error of the four
+    wide = [check_decode(tag, B=16, S=1024, H=32, Hkv=1, gen=gen, rng=rng, alibi=alibi)
+            for alibi in (False, True) for tag in ("bf16", "int8")]
     return {"flash_fwd": flash,
+            "flash_bwd[dkv,alibi]": dict(alibi_bwd[0][0], max_abs_err=max(
+                r[0]["max_abs_err"] for r in alibi_bwd)),
+            "flash_bwd[dq,alibi]": dict(alibi_bwd[0][1], max_abs_err=max(
+                r[1]["max_abs_err"] for r in alibi_bwd)),
+            "decode_attention[G>8]": dict(wide[0], max_abs_err=max(
+                r["max_abs_err"] for r in wide)),
             "flash_bwd[dkv]": dict(dkv_mha, max_abs_err=max(dkv_mha["max_abs_err"],
                                                             dkv_gqa["max_abs_err"])),
             "flash_bwd[dq]": dict(dq_mha, max_abs_err=max(dq_mha["max_abs_err"],
@@ -882,15 +946,16 @@ def phase_narrow_paged(cfg, cpu_params, tok, prompt, new, tol):
     return total
 
 
-def _narrow_mpt_cfg(multiquery):
-    """A narrow LLaVA-MPT: d_model 512 with head dim 128 (4 heads over 4 kv
-    heads, or over one with ``multiquery``), 2 layers, vocab 50432, ALiBi; a
-    2-layer CLIP tower on 28 px and a linear projector."""
+def _narrow_mpt_cfg(multiquery, n_heads=4):
+    """A narrow LLaVA-MPT: head dim 128 (``n_heads`` heads over as many kv
+    heads, or over one with ``multiquery``; d_model 512 at 4 heads), 2
+    layers, vocab 50432, ALiBi; a 2-layer CLIP tower on 28 px and a linear
+    projector."""
     from llava_plus_torch.models.configs import ClipVisionConfig, LlavaConfig, MptConfig
 
     return LlavaConfig(
         language_model_type="mpt",
-        mpt=MptConfig(vocab_size=50432, d_model=512, n_layers=2, n_heads=4,
+        mpt=MptConfig(vocab_size=50432, d_model=128 * n_heads, n_layers=2, n_heads=n_heads,
                       expansion_ratio=4, multiquery=multiquery),
         vision=ClipVisionConfig(hidden_size=64, intermediate_size=128, num_hidden_layers=2,
                                 num_attention_heads=2, image_size=28, patch_size=14),
@@ -913,8 +978,13 @@ def phase_narrow_mpt():
     GEMM noise: the card's own greedy tokens may split from the CPU's on a
     near tie and are reported, not required equal. The logits check is
     sensitive: on the CPU, dropping ALiBi, flipping its sign or shifting the
-    slopes by one head moves them by more than the top logit. Returns the
-    ALiBi launches of the dense decode, decode1 and general kernels."""
+    slopes by one head moves them by more than the top logit. Last, a wide
+    MQA MPT (16 heads over one kv head, d_model 2048: a group of 16, two
+    blocks of 8 query rows per kv head in the dense decode kernel) with bf16
+    weights over a dense bf16 and int8 cache and over both pools, the same
+    way. Returns the
+    ALiBi launches of the dense decode, decode1 and general kernels, and
+    the wide-group launches of the dense decode kernel."""
     import torch
     from llava_plus_torch.data import DebugTokenizer
     from llava_plus_torch.generate import Generator
@@ -927,18 +997,19 @@ def phase_narrow_mpt():
 
     prompt = " ".join(f"token{i}" for i in range(320))
     new, tol = 16, 2e-2
-    totals = {"decode": 0, "decode1": 0, "general": 0}
-    for multiquery in (False, True):
-        cfg = _narrow_mpt_cfg(multiquery)
-        form = "MQA" if multiquery else "MHA"
+    totals = {"decode": 0, "decode1": 0, "general": 0, "wide": 0}
+    for multiquery, n_heads in ((False, 4), (True, 4), (True, 16)):
+        cfg = _narrow_mpt_cfg(multiquery, n_heads)
+        wide = n_heads > 8
+        form = f"MQA {n_heads} heads" if wide else "MQA" if multiquery else "MHA"
         L = cfg.mpt.n_layers
         tok = DebugTokenizer(vocab_size=cfg.mpt.vocab_size)
         tok.bos_token_id = None   # GPT-NeoX style, as MPT's tokenizer
         cpu_params = llava_model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-        for name, bits, cache_dtype, limit in (
-                ("bf16 weights, bf16 KV", None, torch.bfloat16, tol),
-                ("bf16 weights, int8 KV", None, torch.int8, tol),
-                ("int8 weights, int8 KV", 8, torch.int8, 3e-2)):
+        variants = (("bf16 weights, bf16 KV", None, torch.bfloat16, tol),
+                    ("bf16 weights, int8 KV", None, torch.int8, tol),
+                    ("int8 weights, int8 KV", 8, torch.int8, 3e-2))
+        for name, bits, cache_dtype, limit in variants[:2] if wide else variants:
             cpu_tree = cpu_params
             if bits:
                 cpu_tree = quant.quantize_llava_params(copy.deepcopy(cpu_params), "mpt",
@@ -950,19 +1021,22 @@ def phase_narrow_mpt():
                 counters = (flash_attention, decode_attention, qm.matmul_int8)
                 for k in counters:
                     k.launches = k.alibi_launches = 0
+                decode_attention.wide_launches = 0
                 for _ in g.stream(prompt, max_new_tokens=new):
                     pass
                 ids[dev] = list(g._last_output_ids)
                 if dev == "cuda":
                     steps = len(ids[dev]) - 1 if len(ids[dev]) == new else len(ids[dev])
                     got = (flash_attention.alibi_launches, decode_attention.alibi_launches,
-                           qm.matmul_int8.launches, flash_attention.launches,
-                           decode_attention.launches)
-                    want = (L, steps * L, (steps + 1) * 4 * L if bits else 0, 0, 0)
+                           decode_attention.wide_launches, qm.matmul_int8.launches,
+                           flash_attention.launches, decode_attention.launches)
+                    want = (L, 0 if wide else steps * L, steps * L if wide else 0,
+                            (steps + 1) * 4 * L if bits else 0, 0, 0)
                     if got != want:
                         raise AssertionError(f"narrow MPT {form} ({name}): launches {got}, "
                                              f"want {want}")
                     totals["decode"] += got[1]
+                    totals["wide"] += got[2]
                 logits[dev], T = _step_logits(cfg, g, params, dev, prompt, ids["cpu"])
             ratios = [(c - g).abs().max().item() / c.abs().max().item()
                       for c, g in zip(logits["cpu"], logits["cuda"])]
@@ -1670,7 +1744,8 @@ def _fingerprint(x):
     of its bit patterns."""
     import torch
 
-    bits = x.view({torch.bfloat16: torch.int16, torch.float32: torch.int32}[x.dtype])
+    bits = x.view({torch.bfloat16: torch.int16, torch.float32: torch.int32,
+                   torch.int8: torch.int8}[x.dtype])
     return int(torch.sum(bits, dtype=torch.int64))
 
 
@@ -1685,12 +1760,16 @@ def _bwd_counters():
 
 
 def _reset_counts():
+    from llava_plus_torch.ops import quant_matmul as qm
+
     for k in _bwd_counters():
-        k.launches = 0
+        k.launches = k.alibi_launches = 0
+    for k in (qm.matmul_int8, qm.matmul_int4):
+        k.launches = k.backward_calls = 0
 
 
-def _counts():
-    return tuple(k.launches for k in _bwd_counters())
+def _counts(alibi=False):
+    return tuple(getattr(k, "alibi_launches" if alibi else "launches") for k in _bwd_counters())
 
 
 def _narrow_train_arrays(cfg, rng):
@@ -1699,10 +1778,12 @@ def _narrow_train_arrays(cfg, rng):
     padded tail of 115 tokens."""
     from llava_plus_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
     from llava_plus_torch.data.packing import pack_instances
+    from llava_plus_torch.models.llava import backbone
 
+    vocab = backbone(cfg)[1].vocab_size
     inst = []
     for n in (90, 120, 60, 200):
-        ids = np.array([1, IMAGE_TOKEN_INDEX] + list(rng.integers(3, cfg.text.vocab_size, n)))
+        ids = np.array([1, IMAGE_TOKEN_INDEX] + list(rng.integers(3, vocab, n)))
         labels = np.where(np.arange(len(ids)) < 8, IGNORE_INDEX, ids)
         size = cfg.vision.image_size
         inst.append({"input_ids": ids, "labels": labels,
@@ -1723,66 +1804,172 @@ def _batch_on(arrays, device):
                               for k, v in arrays.items()})
 
 
+def _cosines(cpu_tree, cuda_tree):
+    """Each leaf pair's cosine similarity, and how many leaves are all 0."""
+    cos, zero = [], 0
+    for a, b in zip(_leaves(cpu_tree), _leaves(cuda_tree)):
+        a, b = a.double().flatten(), b.double().cpu().flatten()
+        na, nb = float(a.norm()), float(b.norm())
+        zero += na == 0.0 or nb == 0.0
+        cos.append(float(a @ b) / max(na * nb, 1e-300))
+    return cos, zero
+
+
 def phase_narrow_training():
-    """The narrow model's training step on the card (bf16, the flash
+    """The narrow models' training step on the card (bf16, the flash
     forward and both backward kernels, remat) against the same weights in
     f32 on the CPU plain path, on one batch of packed and padded rows: the
-    loss within 2%; the gradient of the projector and of every language-model
-    leaf at cosine similarity >= 0.99 and nonzero; then one stage-2 AdamW
-    update on both sides, after which every parameter agrees within bf16
-    rounding (2**-7 of its size) plus twice the step (an element whose
-    gradient is near 0 may move the other way); the kernels' launch
-    counts exact (remat runs the forward twice per layer)."""
+    narrow LLaMA, then the narrow MPT (``_narrow_mpt_cfg``) in MHA and MQA,
+    through the ALiBi kernels. For each: the loss within 2%; the gradient of
+    the projector and of every language-model leaf at cosine similarity >=
+    0.99 and nonzero; then one stage-2 AdamW update on both sides, after
+    which every parameter agrees within bf16 rounding (2**-7 of its size)
+    plus twice the step (an element whose gradient is near 0 may move the
+    other way); the kernels' launch counts exact (remat runs the forward
+    twice per layer), ALiBi launches counted apart. Then LoRA and QLoRA
+    (``phase_narrow_lora``). Returns the ALiBi backward launches."""
     import torch
     from llava_plus_torch.models import llava as llava_model
     from llava_plus_torch.models.convert import per_layer
     from llava_plus_torch.train import step as step_lib
     from llava_plus_torch.train.optimizer import OptimizerConfig, build_optimizer
 
+    alibi_total = {"dkv": 0, "dq": 0}
+    for name, cfg in (("LLaVA (hidden 512, 4 heads over 2, 2 layers)", _narrow_cfg()),
+                      ("LLaVA-MPT MHA (d_model 512, 4 heads, 2 layers)", _narrow_mpt_cfg(False)),
+                      ("LLaVA-MPT MQA (d_model 512, 4 heads over 1, 2 layers)",
+                       _narrow_mpt_cfg(True))):
+        alibi = cfg.language_model_type == "mpt"
+        L = llava_model.backbone(cfg)[1].n_layers if alibi else cfg.text.num_hidden_layers
+        keys = ("language_model", "mm_projector")
+        base = llava_model.init_params(cfg, torch.Generator().manual_seed(3), "cpu",
+                                       torch.bfloat16)
+        trees = {"cpu": per_layer(_tree_to(base, "cpu", torch.float32)),
+                 "cuda": per_layer(_tree_to(base, "cuda"))}
+        arrays = _narrow_train_arrays(cfg, np.random.default_rng(3))
+        opt_cfg = OptimizerConfig(learning_rate=1e-4, total_steps=10, warmup_ratio=0.0)
+        loss_of = lambda p, mb, cfg=cfg: step_lib.loss_fn(p, cfg, mb, remat=True)  # noqa: E731
+        grads, metrics = {}, {}
+        for dev, params in trees.items():
+            batch = _batch_on(arrays, dev)
+            _reset_counts()
+            grads[dev], metrics[dev] = step_lib.grads_and_metrics(loss_of, params, batch,
+                                                                  keys=keys)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launched, other = _counts(alibi), _counts(not alibi)
+            opt = build_optimizer(params, opt_cfg)
+            opt.update(grads[dev], opt.init(params), params)
+        want = (2 * L, L, L)
+        loss = {d: float(m["loss"]) for d, m in metrics.items()}
+        rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+        cos, zero = _cosines([grads["cpu"][k] for k in keys], [grads["cuda"][k] for k in keys])
+        worst = 0.0
+        for a, b in zip(_leaves(trees["cpu"]), _leaves(trees["cuda"])):
+            b = b.float().cpu()
+            # Adam's first update moves each element by at most lr (in bf16,
+            # lr and the moment ratio are rounded: < 1% more)
+            excess = (a - b).abs() - (2.0 ** -7 * a.abs() + 2.02 * opt_cfg.learning_rate)
+            worst = max(worst, float(excess.max()))
+        log("train", f"narrow {name}, 2 rows x 320 (one packed as 3 samples, one padded): "
+                     f"loss card {loss['cuda']:.5f} vs CPU {loss['cpu']:.5f} (rel {rel:.2e}, "
+                     f"bound 2e-2); gradient cosine over {len(cos)} leaves: min {min(cos):.5f} "
+                     f"(bound 0.99), {zero} zero; after one AdamW step every parameter within "
+                     f"bound (worst excess {worst:.2e}); launches flash fwd/dkv/dq"
+                     f"{'[alibi]' if alibi else ''} {launched} (want {want}), others {other}")
+        if (rel > 2e-2 or min(cos) < 0.99 or zero or worst > 0 or launched != want
+                or any(other)):
+            raise AssertionError(f"narrow training ({name}) on the card disagrees with the CPU")
+        if alibi:
+            alibi_total["dkv"] += launched[1]
+            alibi_total["dq"] += launched[2]
+    return alibi_total
+
+
+def _to_keep_ints(tree, device, dtype=None):
+    """``tree`` on ``device``, its float leaves cast to ``dtype`` (if given)
+    and its integer leaves (quantized weights) as they are."""
+    if isinstance(tree, dict):
+        return {k: _to_keep_ints(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_keep_ints(v, device, dtype) for v in tree]
+    return tree.to(device, dtype if tree.is_floating_point() else None)
+
+
+def phase_narrow_lora():
+    """LoRA and QLoRA on the narrow LLaMA, card (bf16 activations, f32
+    adapters, the flash kernels and, on a quantized base, the int8 / int4
+    kernels and their backward Function) against the same base and adapters
+    on the CPU (f32, plain): a bf16 base, then the same base quantized to
+    int8 and to int4 (the LLaMA matrices and the head, unfused, as ``--bits``
+    does). The adapters (r 16, alpha 32) have a nonzero ``b`` so that every
+    leaf takes a gradient. Checks the loss within 2%, the gradient of every
+    adapter leaf at cosine >= 0.99 and nonzero, that the base keeps its
+    bytes, and the launch counts: per step the quantized kernel runs 7
+    products a layer twice (remat) and the head once; the backward Function
+    runs once for each product whose input carries a gradient (all but the
+    first layer's q/k/v, whose input comes from the frozen embeddings).
+    Returns the quantized kernels' forward launches and backward calls."""
+    import torch
+    from llava_plus_torch.models import llava as llava_model
+    from llava_plus_torch.models.convert import per_layer
+    from llava_plus_torch.ops import quant
+    from llava_plus_torch.ops import quant_matmul as qm
+    from llava_plus_torch.train import lora as lora_lib
+    from llava_plus_torch.train import step as step_lib
+
     cfg = _narrow_cfg()
     L = cfg.text.num_hidden_layers
-    keys = ("language_model", "mm_projector")
-    base = llava_model.init_params(cfg, torch.Generator().manual_seed(3), "cpu", torch.bfloat16)
-    trees = {"cpu": per_layer(_tree_to(base, "cpu", torch.float32)),
-             "cuda": per_layer(_tree_to(base, "cuda"))}
-    arrays = _narrow_train_arrays(cfg, np.random.default_rng(3))
-    opt_cfg = OptimizerConfig(learning_rate=1e-4, total_steps=10, warmup_ratio=0.0)
-    loss_of = lambda p, mb: step_lib.loss_fn(p, cfg, mb, remat=True)  # noqa: E731
-    grads, metrics = {}, {}
-    for dev, params in trees.items():
-        batch = _batch_on(arrays, dev)
-        _reset_counts()
-        grads[dev], metrics[dev] = step_lib.grads_and_metrics(loss_of, params, batch, keys=keys)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            launched = _counts()
-        opt = build_optimizer(params, opt_cfg)
-        opt.update(grads[dev], opt.init(params), params)
-    want = (2 * L, L, L)
-    loss = {d: float(m["loss"]) for d, m in metrics.items()}
-    rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
-    cos, zero = [], 0
-    for key in keys:
-        for a, b in zip(_leaves(grads["cpu"][key]), _leaves(grads["cuda"][key])):
-            a, b = a.double().flatten(), b.double().cpu().flatten()
-            na, nb = float(a.norm()), float(b.norm())
-            zero += na == 0.0 or nb == 0.0
-            cos.append(float(a @ b) / max(na * nb, 1e-300))
-    worst = 0.0
-    for a, b in zip(_leaves(trees["cpu"]), _leaves(trees["cuda"])):
-        b = b.float().cpu()
-        # Adam's first update moves each element by at most lr (in bf16,
-        # lr and the moment ratio are rounded: < 1% more)
-        excess = (a - b).abs() - (2.0 ** -7 * a.abs() + 2.02 * opt_cfg.learning_rate)
-        worst = max(worst, float(excess.max()))
-    log("train", f"narrow LLaVA (hidden 512, 4 heads over 2, 2 layers), 2 rows x 320 (one "
-                 f"packed as 3 samples, one padded): loss card {loss['cuda']:.5f} vs CPU "
-                 f"{loss['cpu']:.5f} (rel {rel:.2e}, bound 2e-2); gradient cosine over "
-                 f"{len(cos)} leaves: min {min(cos):.5f} (bound 0.99), {zero} zero; after one "
-                 f"AdamW step every parameter within bound (worst excess {worst:.2e}); "
-                 f"launches flash fwd/dkv/dq {launched} (want {want})")
-    if rel > 2e-2 or min(cos) < 0.99 or zero or worst > 0 or launched != want:
-        raise AssertionError("narrow training on the card disagrees with the CPU")
+    lcfg = lora_lib.LoraConfig(r=16, alpha=32)
+    base = llava_model.init_params(cfg, torch.Generator().manual_seed(6), "cpu", torch.bfloat16)
+    arrays = _narrow_train_arrays(cfg, np.random.default_rng(6))
+    adapters = lora_lib.init_lora_params(base["language_model"], lcfg,
+                                         torch.Generator().manual_seed(7))
+    gen = torch.Generator().manual_seed(8)
+    for ab in adapters.values():
+        ab["b"].normal_(0.0, 0.02, generator=gen)
+    totals = {8: [0, 0], 4: [0, 0]}
+    for bits in (None, 8, 4):
+        tree = copy.deepcopy(base)
+        if bits:
+            tree = quant.quantize_llava_params(tree, "llama", bits=bits)
+        wrapper = {None: None, 8: qm.matmul_int8, 4: qm.matmul_int4}[bits]
+        grads, loss = {}, {}
+        for dev in ("cpu", "cuda"):
+            params = per_layer(_to_keep_ints(tree, dev, torch.float32 if dev == "cpu" else None))
+            layers = lora_lib.lora_per_layer(_tree_to(adapters, dev))
+
+            def loss_of(p, mb, params=params):
+                lm = lora_lib.apply_lora(params["language_model"], p["lora"], lcfg)
+                return step_lib.loss_fn(dict(params, language_model=lm), cfg, mb, remat=True)
+
+            before = _fingerprints(params["language_model"])
+            _reset_counts()
+            g, m = step_lib.grads_and_metrics(loss_of, {"lora": layers}, _batch_on(arrays, dev),
+                                              keys=("lora",))
+            grads[dev], loss[dev] = g["lora"], float(m["loss"])
+            if _fingerprints(params["language_model"]) != before:
+                raise AssertionError(f"LoRA (bits={bits}) changed its base on {dev}")
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                flash = _counts()
+                q = (wrapper.launches, wrapper.backward_calls) if wrapper else (0, 0)
+        want_q = (2 * 7 * L + 1, 7 * L + 1 - 3) if bits else (0, 0)
+        rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+        cos, zero = _cosines(grads["cpu"], grads["cuda"])
+        tag = f"int{bits}" if bits else "bf16"
+        log("train", f"narrow {'QLoRA' if bits else 'LoRA'} on a {tag} base (r 16, "
+                     f"{len(cos)} adapter leaves): loss card {loss['cuda']:.5f} vs CPU "
+                     f"{loss['cpu']:.5f} (rel {rel:.2e}, bound 2e-2); adapter gradient cosine "
+                     f"min {min(cos):.5f} (bound 0.99), {zero} zero; base bytes unchanged; "
+                     f"launches flash fwd/dkv/dq {flash} (want {(2 * L, L, L)}), quantized "
+                     f"kernel forward / backward calls {q} (want {want_q})")
+        if (rel > 2e-2 or min(cos) < 0.99 or zero or flash != (2 * L, L, L) or q != want_q
+                or len(cos) != 2 * 7 * L):
+            raise AssertionError(f"narrow LoRA (bits={bits}) on the card disagrees with the CPU")
+        if bits:
+            totals[bits] = [totals[bits][0] + q[0], totals[bits][1] + q[1]]
+    return totals
 
 
 def _write_corpus(root, n, rng, size, turns_of):
@@ -1804,6 +1991,22 @@ def _write_corpus(root, n, rng, size, turns_of):
 
 def _words(rng, n):
     return " ".join(f"w{int(j)}" for j in rng.integers(0, 20000, n))
+
+
+def _long_turns(rng):
+    """A multi-turn image conversation of about 700 to 2200 fused tokens
+    (``rng`` draws its length and words)."""
+    n = int(rng.integers(90, 1600))        # about n + 610 fused tokens
+    first = int(rng.integers(20, 60))
+    out = [{"from": "human", "value": "<image>\n" + _words(rng, first)}]
+    rest, k = n - first, 0
+    while rest > 0:
+        w = min(rest, int(rng.integers(40, 400)))
+        out.append({"from": "gpt" if k % 2 == 0 else "human", "value": _words(rng, w)})
+        rest, k = rest - w, k + 1
+    if out[-1]["from"] == "human":
+        out.append({"from": "gpt", "value": _words(rng, 20)})
+    return out
 
 
 def phase_train_stage1(smi):
@@ -1911,20 +2114,8 @@ def phase_train_stage2(smi):
     root = os.path.join(SMOKE_DIR, "stage2")
     rng = np.random.default_rng(5)
 
-    def turns(i):
-        n = int(rng.integers(90, 1600))        # about n + 610 fused tokens
-        first = int(rng.integers(20, 60))
-        out = [{"from": "human", "value": "<image>\n" + _words(rng, first)}]
-        rest, k = n - first, 0
-        while rest > 0:
-            w = min(rest, int(rng.integers(40, 400)))
-            out.append({"from": "gpt" if k % 2 == 0 else "human", "value": _words(rng, w)})
-            rest, k = rest - w, k + 1
-        if out[-1]["from"] == "human":
-            out.append({"from": "gpt", "value": _words(rng, 20)})
-        return out
-
-    data = _write_corpus(root, B * K * n_steps, rng, cfg.vision.image_size, turns)
+    data = _write_corpus(root, B * K * n_steps, rng, cfg.vision.image_size,
+                         lambda i: _long_turns(rng))
     tok = DebugTokenizer(vocab_size=cfg.text.vocab_size)
     conv = conversation.conv_templates["v1"]
     ds = make_supervised_dataset(tok, DataConfig(data_path=data, image_folder=root,
@@ -1993,6 +2184,240 @@ def phase_train_stage2(smi):
     return dict(zip(("flash", "dkv", "dq"), launched))
 
 
+class _LastStepProfile:
+    """Profiles the last of ``n_steps`` steps of a ``train()`` run from its
+    ``on_step`` hook: ``torch.profiler`` starts when step n - 1 has been
+    reported and stops when step n has, so the window is step n's host work
+    (its batch, its step, its metrics). The earlier steps' host clocks are
+    taken before the profiler starts. Device busy is the sum of the device
+    events, by kernel class as ``tools/profile_torch_slice.py`` sorts them."""
+
+    def __init__(self, n_steps):
+        self.n_steps, self.prof, self.result = n_steps, None, None
+
+    def after(self, step, seconds):
+        import importlib.util
+
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        if step == self.n_steps - 1:
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        elif step == self.n_steps and self.prof is not None:
+            torch.cuda.synchronize()
+            self.prof.__exit__(None, None, None)
+            # the profile tool's own helpers, loaded from its file
+            spec = importlib.util.spec_from_file_location(
+                "profile_torch_slice", os.path.join(HERE, "tools", "profile_torch_slice.py"))
+            tool = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(tool)
+            events = tool.device_events(self.prof)
+            busy = sum(us for _, _, us in events) / 1e3
+            by_class = {}
+            for name, _, us in events:
+                label = tool.kernel_class(name)
+                by_class[label] = by_class.get(label, 0.0) + us / 1e3
+            host = seconds * 1e3
+            self.result = {"host_ms": host, "device_busy_ms": busy, "idle_share": 1 - busy / host,
+                           "by_class_ms": dict(sorted(by_class.items(), key=lambda kv: -kv[1]))}
+
+    def line(self):
+        r = self.result
+        parts = ", ".join(f"{k} {v:.3f}" for k, v in r["by_class_ms"].items())
+        return (f"profiled step {self.n_steps}: host {r['host_ms']:.3f} ms, device busy "
+                f"{r['device_busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}; {parts}")
+
+
+def phase_train_mpt_stage1(smi):
+    """LLaVA-MPT-7B stage 1 through the port's ``train()`` at full width
+    and depth (d_model 4096, 32 layers of 32 heads, vocab 50432, CLIP-L/224,
+    linear projector; random bf16 weights from seed 0): the recipe of
+    ``scripts/pretrain.sh`` (plain template, projector only, batch 32, max
+    length 2048, lr 1e-3, no weight decay, warmup 0.03, cosine, gradient
+    checkpointing, bf16) on 96 synthetic image-caption records, 3 steps. The
+    backward through the frozen language model (to the projector's output)
+    runs the ALiBi flash backward kernels. Checks every loss, that the
+    language model and the vision tower keep their bytes and the projector
+    moves, the ``mm_projector.bin`` keys and shapes, and the launch counts:
+    ALiBi flash forward 2 x 32 per step (remat), each ALiBi backward 32 per
+    step, no launch of the kernels without ALiBi."""
+    import torch
+    from llava_plus_torch.data import DebugTokenizer
+    from llava_plus_torch.models.configs import LLAVA_MPT_7B
+    from llava_plus_torch.train import train as train_lib
+
+    cfg, L = LLAVA_MPT_7B, LLAVA_MPT_7B.mpt.n_layers
+    root = os.path.join(SMOKE_DIR, "mpt_stage1")
+    rng = np.random.default_rng(7)
+    data = _write_corpus(root, 96, rng, cfg.vision.image_size, lambda i: [
+        {"from": "human", "value": "<image>\n"},
+        {"from": "gpt", "value": _words(rng, int(rng.integers(10, 61)))}])
+    before = {}
+
+    def build_model(model_args, dtype, device):
+        params = _init_mpt_7b(device)
+        before.update({k: _fingerprints(params[k]) for k in params})
+        tok = DebugTokenizer(vocab_size=cfg.mpt.vocab_size)
+        tok.bos_token_id = None
+        return params, cfg, tok
+
+    steps, prof = [], _LastStepProfile(3)
+
+    def on_step(step, metrics, seconds, arrays):
+        tokens = int((arrays["segment_ids"] > 0).sum())
+        steps.append((metrics, seconds, tokens, arrays["tokens"].shape))
+        prof.after(step, seconds)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    out = os.path.join(root, "out")
+    params, _ = train_lib.train(
+        train_lib.ModelArguments(version="plain", tune_mm_mlp_adapter=True,
+                                 mm_projector_type="linear", tiny_debug_arch="mpt"),
+        train_lib.DataArguments(data_path=data, image_folder=root, image_aspect_ratio="square"),
+        train_lib.TrainingArguments(output_dir=out, per_device_train_batch_size=32,
+                                    model_max_length=2048, learning_rate=1e-3,
+                                    weight_decay=0.0, warmup_ratio=0.03,
+                                    lr_scheduler_type="cosine", gradient_checkpointing=True,
+                                    bf16=True, save_steps=1000, device="cuda"),
+        build_model=build_model, on_step=on_step)
+    torch.cuda.synchronize()
+    launched, plain = _counts(alibi=True), _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = (3 * 2 * L, 3 * L, 3 * L)
+    for i, (m, dt, tokens, shape) in enumerate(steps, 1):
+        log("mpt-stage1", f"step {i}: batch {shape[0]} x {shape[1]}, {tokens} non-pad tokens, "
+                          f"loss {m['loss']:.4f}, grad_norm {m['grad_norm']:.4f}, host "
+                          f"{dt * 1e3:.1f} ms, {tokens / dt:.0f} non-pad tokens/s")
+    log("mpt-stage1", prof.line())
+    after = {k: _fingerprints(params[k]) for k in params}
+    sd = torch.load(os.path.join(out, "mm_projector.bin"), weights_only=True)
+    shapes = {k: tuple(v.shape) for k, v in sd.items()}
+    want_shapes = {"model.mm_projector.0.weight": (4096, 1024),
+                   "model.mm_projector.0.bias": (4096,)}
+    moved = sum(a != b for a, b in zip(before["mm_projector"], after["mm_projector"]))
+    log("mpt-stage1", f"{len(steps)} steps; language model and vision tower bytes unchanged: "
+                      f"{after['language_model'] == before['language_model']}, "
+                      f"{after['vision_tower'] == before['vision_tower']}; projector leaves moved "
+                      f"{moved} of {len(after['mm_projector'])}; mm_projector.bin {shapes}; "
+                      f"launches flash fwd/dkv/dq[alibi] {launched} (want {want}), without "
+                      f"ALiBi {plain}; peak device memory {peak:.2f} GiB; card {smi}")
+    if (len(steps) != 3 or not all(np.isfinite(m["loss"]) for m, *_ in steps)
+            or after["language_model"] != before["language_model"]
+            or after["vision_tower"] != before["vision_tower"]
+            or moved != len(after["mm_projector"]) or shapes != want_shapes
+            or launched != want or any(plain)):
+        raise AssertionError("LLaVA-MPT-7B stage 1 failed its checks")
+    return dict(zip(("flash", "dkv", "dq"), launched))
+
+
+def phase_train_qlora(smi):
+    """LLaVA-1.5-7B QLoRA through the port's ``train()``: the recipe of
+    ``scripts/finetune_qlora.sh`` (``--lora-enable --bits 4``, r 128, alpha
+    256, v1 template, gradient checkpointing, bf16) reduced for one card to
+    batch 4 and 3 steps on 12 synthetic multi-turn image records of 700 to
+    2048 fused tokens (phase 10's), random bf16 weights from seed 0 in place
+    of a checkpoint. ``--bits 4`` quantizes the language model to int4 (the
+    seven LLaMA matrices and the head) before the adapters are made; only
+    the adapters train (the JAX package's ``optax.adamw(lr)``). Checks every
+    loss, that every adapter leaf moved, that the int4 base, the vision tower
+    and the projector keep their bytes, the PEFT export (448 tensors of the
+    adapters' shapes) and ``non_lora_trainables.bin``, the peak memory, and
+    the launch counts: per step the int4 kernel runs 7 products a layer
+    twice (remat) and the head once, its backward Function once for each
+    product whose input carries a gradient (all but layer 0's q/k/v)."""
+    import torch
+    from safetensors.torch import load_file
+    from llava_plus_torch.data import DebugTokenizer
+    from llava_plus_torch.models.configs import LLAVA_15_7B
+    from llava_plus_torch.ops import quant_matmul as qm
+    from llava_plus_torch.train import lora as lora_lib
+    from llava_plus_torch.train import train as train_lib
+
+    cfg, L = LLAVA_15_7B, LLAVA_15_7B.text.num_hidden_layers
+    B, n_steps, r = 4, 3, 128
+    root = os.path.join(SMOKE_DIR, "qlora")
+    rng = np.random.default_rng(8)
+    data = _write_corpus(root, B * n_steps, rng, cfg.vision.image_size,
+                         lambda i: _long_turns(rng))
+    state = {}
+
+    def build_model(model_args, dtype, device):
+        params = _init_7b(device)
+        state["vision_tower"] = _fingerprints(params["vision_tower"])
+        state["mm_projector"] = _fingerprints(params["mm_projector"])
+        return params, cfg, DebugTokenizer(vocab_size=cfg.text.vocab_size)
+
+    def init_lora(lm, lora_cfg, generator):
+        # the base the adapters are made on: int4 already
+        state["lm"] = lm
+        state["lm_before"] = _fingerprints(lm)
+        ad = lora_lib.init_lora_params(lm, lora_cfg, generator)
+        state["adapters"] = ad
+        state["ad_before"] = _fingerprints(ad)
+        return ad
+
+    steps, prof = [], _LastStepProfile(n_steps)
+
+    def on_step(step, metrics, seconds, arrays):
+        tokens = int((arrays["segment_ids"] > 0).sum())
+        steps.append((metrics, seconds, tokens, arrays["tokens"].shape))
+        prof.after(step, seconds)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    out = os.path.join(root, "out")
+    params, _ = train_lib.train(
+        train_lib.ModelArguments(version="v1"),
+        train_lib.DataArguments(data_path=data, image_folder=root),
+        train_lib.TrainingArguments(output_dir=out, per_device_train_batch_size=B,
+                                    max_steps=n_steps, model_max_length=2048,
+                                    learning_rate=2e-5, gradient_checkpointing=True, bf16=True,
+                                    lora_enable=True, bits=4, lora_r=r, lora_alpha=2 * r,
+                                    save_steps=1000, device="cuda"),
+        build_model=build_model, init_lora=init_lora, on_step=on_step)
+    torch.cuda.synchronize()
+    flash = _counts()
+    q = (qm.matmul_int4.launches, qm.matmul_int4.backward_calls)
+    other = qm.matmul_int8.launches + qm.matmul_int8.backward_calls
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, (m, dt, tokens, shape) in enumerate(steps, 1):
+        log("qlora", f"step {i}: batch {shape[0]} x {shape[1]}, {tokens} non-pad tokens, loss "
+                     f"{m['loss']:.4f}, adapter grad_norm {m['grad_norm']:.4f}, host "
+                     f"{dt * 1e3:.1f} ms, {tokens / dt:.0f} non-pad tokens/s")
+    log("qlora", prof.line())
+    ad_after = _fingerprints(state["adapters"])
+    unmoved = sum(a == b for a, b in zip(state["ad_before"], ad_after))
+    base_same = _fingerprints(state["lm"]) == state["lm_before"]
+    wq = state["lm"]["layers"]["attn"]["wq"]
+    int4_base = isinstance(wq, dict) and "qvalue4" in wq
+    frozen = (_fingerprints(params["vision_tower"]) == state["vision_tower"]
+              and _fingerprints(params["mm_projector"]) == state["mm_projector"])
+    sd = load_file(os.path.join(out, "adapter_model.safetensors"))
+    shapes_ok = all(v.shape[0 if k.endswith("lora_A.weight") else 1] == r for k, v in sd.items())
+    extra = torch.load(os.path.join(out, "non_lora_trainables.bin"), weights_only=True)
+    want_flash = (n_steps * 2 * L, n_steps * L, n_steps * L)
+    want_q = (n_steps * (2 * 7 * L + 1), n_steps * (7 * L + 1 - 3))
+    log("qlora", f"{len(steps)} steps; adapter leaves unmoved {unmoved} of {len(ad_after)}; "
+                 f"int4 base {int4_base}, its bytes unchanged {base_same}; vision tower and "
+                 f"projector bytes unchanged {frozen}; export: {len(sd)} adapter tensors "
+                 f"(rank {r}: {shapes_ok}), non_lora_trainables {sorted(extra)}; launches flash "
+                 f"fwd/dkv/dq {flash} (want {want_flash}); int4 kernel forward launches / "
+                 f"backward calls {q} (want {want_q}), int8 {other}; peak device memory "
+                 f"{peak:.2f} GiB; card {smi}")
+    if (len(steps) != n_steps or not all(np.isfinite(m["loss"]) for m, *_ in steps) or unmoved
+            or not int4_base or not base_same or not frozen or len(sd) != 2 * 7 * L
+            or not shapes_ok or len(extra) != 4 or flash != want_flash or q != want_q
+            or other):
+        raise AssertionError("LLaVA-1.5-7B QLoRA failed its checks")
+    return {"flash": flash[0], "dkv": flash[1], "dq": flash[2], "int4": q[0]}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2028,9 +2453,12 @@ def main():
     int4 = serve_engine(smi, _init_7b(dev), "int4", n_image=2, n_text=2)
     paged = serve_paged_engine(smi)
     mpt = serve_mpt_7b(smi)   # phase 11, before training (the LLaMA weights are gone)
-    phase_narrow_training()
+    narrow_alibi_bwd = phase_narrow_training()
+    narrow_lora = phase_narrow_lora()
     stage1 = phase_train_stage1(smi)
     stage2 = phase_train_stage2(smi)
+    mpt_stage1 = phase_train_mpt_stage1(smi)
+    qlora = phase_train_qlora(smi)
     shutil.rmtree(SMOKE_DIR, ignore_errors=True)
 
     entries = []
@@ -2039,22 +2467,29 @@ def main():
     for name, source, replaces, count in (
         ("flash_fwd", "llava_plus_torch/csrc/flash_fwd.cu", FLASH_REPLACES,
          single["flash"] + int8["flash"] + int4["flash"] + paged["flash"] + stage1["flash"]
-         + stage2["flash"]),
-        ("flash_bwd[dkv]", bwd_src, DKV_REPLACES, stage1["dkv"] + stage2["dkv"]),
-        ("flash_bwd[dq]", bwd_src, DQ_REPLACES, stage1["dq"] + stage2["dq"]),
+         + stage2["flash"] + qlora["flash"]),
+        ("flash_bwd[dkv]", bwd_src, DKV_REPLACES, stage1["dkv"] + stage2["dkv"] + qlora["dkv"]),
+        ("flash_bwd[dq]", bwd_src, DQ_REPLACES, stage1["dq"] + stage2["dq"] + qlora["dq"]),
         ("decode_attention[bf16]", "llava_plus_torch/csrc/decode_attention.cu",
          DECODE_REPLACES, single["bf16"]),
         ("decode_attention[int8]", "llava_plus_torch/csrc/decode_attention.cu",
          DECODE_REPLACES, single["int8"] + int8["decode"] + int4["decode"]),
         ("quant_matmul[int8]", "llava_plus_torch/csrc/quant_matmul.cu", INT8_REPLACES,
          int8["quant"] + paged["quant"] + mpt["dense"]["matmul_int8"]
-         + mpt["paged"]["matmul_int8"]),
+         + mpt["paged"]["matmul_int8"] + narrow_lora[8][0]),
         ("quant_matmul[int4]", "llava_plus_torch/csrc/quant_matmul.cu", INT4_REPLACES,
-         int4["quant"]),
+         int4["quant"] + narrow_lora[4][0] + qlora["int4"]),
         ("paged_attention[decode1]", paged_src, PAGED_DECODE1_REPLACES, paged["decode1"]),
         ("paged_attention[general]", paged_src, PAGED_GENERAL_REPLACES, narrow_general),
         ("flash_fwd[alibi]", "llava_plus_torch/csrc/flash_fwd.cu", FLASH_ALIBI_REPLACES,
-         mpt["dense"]["flash_attention[alibi]"] + mpt["paged"]["flash_attention[alibi]"]),
+         mpt["dense"]["flash_attention[alibi]"] + mpt["paged"]["flash_attention[alibi]"]
+         + mpt_stage1["flash"]),
+        ("flash_bwd[dkv,alibi]", bwd_src, DKV_ALIBI_REPLACES,
+         narrow_alibi_bwd["dkv"] + mpt_stage1["dkv"]),
+        ("flash_bwd[dq,alibi]", bwd_src, DQ_ALIBI_REPLACES,
+         narrow_alibi_bwd["dq"] + mpt_stage1["dq"]),
+        ("decode_attention[G>8]", "llava_plus_torch/csrc/decode_attention.cu",
+         DECODE_REPLACES, narrow_mpt["wide"]),
         ("decode_attention[alibi]", "llava_plus_torch/csrc/decode_attention.cu",
          DECODE_ALIBI_REPLACES, mpt["dense"]["decode_attention[alibi]"] + narrow_mpt["decode"]),
         ("paged_attention[decode1,alibi]", paged_src, PAGED_DECODE1_ALIBI_REPLACES,

@@ -19,10 +19,13 @@
 // through strides (no transposed copy), each warp streams whole 256-byte (bf16)
 // or 128-byte (int8) key/value rows with one coalesced load per lane, keeps 8
 // keys in flight per warp, and reads int8 directly (the scales touch only the
-// score and probability scalars). One block per (kv head, batch row) holds all
-// G query rows, so each cache row is read once for the whole group.
-// At batch 1 that is only Hkv blocks (32 at 7B), well short of the 132 SMs;
-// splitting S across blocks is later work.
+// score and probability scalars). One block per (kv head, batch row, chunk of
+// 8 query rows) holds its chunk's rows in registers (qr[8][4], acc[8][4]), so
+// each cache row is read once per chunk: once for a group of up to 8 (LLaMA's
+// MHA and GQA), and G / 8 times, mostly from L2, for a wider MQA group (the
+// Pallas kernel takes any G as one block; 32 rows here would spill). At batch
+// 1 that is only Hkv blocks (32 at 7B), well short of the 132 SMs; splitting S
+// across blocks is later work.
 //
 // Layout: q [B, H, D] strided, D = 128; cache [B, S, Hkv, D] strided; scales
 // [B, S, Hkv] f32 strided; seg [B, S] int32; q_pos [B] int32; out [B, H, D]
@@ -39,7 +42,7 @@ constexpr int HD = 128;
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int KB = 8;     // keys in flight per warp
-constexpr int MAXG = 8;   // query rows per kv head
+constexpr int MAXG = 8;   // query rows a block holds (blockIdx.z picks the chunk)
 constexpr float NEG_INF = -0.7f * 3.4028234663852886e38f;  // the JAX mask value
 
 __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* x) {
@@ -80,6 +83,8 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
+  const int h0 = kvh * G + blockIdx.z * MAXG;  // this block's first query head
+  const int GC = min(MAXG, G - (int)blockIdx.z * MAXG);  // and how many it holds
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int d0 = lane * 4;  // this lane's 4 columns of D
@@ -87,13 +92,13 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
   float qr[MAXG][4];
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
-    if (g < G) load4(q + (size_t)b * q_sb + (size_t)(kvh * G + g) * q_sh + d0, qr[g]);
+    if (g < GC) load4(q + (size_t)b * q_sb + (size_t)(h0 + g) * q_sh + d0, qr[g]);
   }
 
   float m[MAXG], l[MAXG], acc[MAXG][4], slope[MAXG];
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
-    slope[g] = (slopes != nullptr && g < G) ? slopes[kvh * G + g] : 0.f;
+    slope[g] = (slopes != nullptr && g < GC) ? slopes[h0 + g] : 0.f;
     m[g] = NEG_INF;
     l[g] = 0.f;
     acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
@@ -133,7 +138,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
     }
 #pragma unroll
     for (int g = 0; g < MAXG; ++g) {
-      if (g >= G) break;
+      if (g >= GC) break;
       float sc[KB];
       float mb = m[g];
 #pragma unroll
@@ -172,7 +177,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
   // Merge the warps' partial softmax states.
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
-    if (g >= G) break;
+    if (g >= GC) break;
     if (lane == 0) {
       sm_m[warp][g] = m[g];
       sm_l[warp][g] = l[g];
@@ -182,7 +187,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
   const int d = threadIdx.x;  // NTHREADS == HD: one output column per thread
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GC; ++g) {
     float mx = sm_m[0][g];
 #pragma unroll
     for (int w = 1; w < NWARPS; ++w) mx = fmaxf(mx, sm_m[w][g]);
@@ -193,7 +198,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
       lt += sm_l[w][g] * f;
       o += sm_acc[w][g][d] * f;
     }
-    out[((size_t)b * H + kvh * G + g) * HD + d] = __float2bfloat16(o / fmaxf(lt, 1e-9f));
+    out[((size_t)b * H + h0 + g) * HD + d] = __float2bfloat16(o / fmaxf(lt, 1e-9f));
   }
 }
 
@@ -211,9 +216,9 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     int c_sb, int c_ss, int c_sh,
                                     int s_sb, int s_ss, int s_sh,
                                     int seg_sb, float sm_scale, void* stream) {
-  const dim3 grid(Hkv, B);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int G = H / Hkv;
+  const dim3 grid(Hkv, B, (G + MAXG - 1) / MAXG);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* qq = static_cast<const __nv_bfloat16*>(q);
   if (quantized) {
     decode_kernel<int8_t, true><<<grid, NTHREADS, 0, st>>>(

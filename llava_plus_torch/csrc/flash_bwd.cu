@@ -9,8 +9,13 @@
 //       saw no key (exp overflows to inf) never reaches a product;
 //   dV = P^T dO,  dP = dO V^T,  dS = P (dP - delta) * scale,
 //   dK = dS^T Q,  dQ = dS K,
-// with delta = rowsum(dO * O) computed by the caller (f32). The ALiBi
-// variant of the Pallas kernels is not ported.
+// with delta = rowsum(dO * O) computed by the caller (f32). With per-head
+// f32 slopes (MPT's ALiBi: the Pallas use_alibi branches, _bwd_dkv_kernel
+// :258-260 and _bwd_dq_kernel :348-350) the scaled score loses
+// slope_h * |q_pos - k_pos| before the exp, positions taken from the tile
+// indices in the padded T as the forward takes them; the absolute value
+// serves the non-causal calls too. ALiBi is a template parameter, so the
+// LLaMA instances compile to the code without it.
 //
 // What bounds them on the card: at training shapes both are compute-bound
 // (dK/dV does 8*T*T*D flops per head, dQ 6*T*T*D, halved when causal, over
@@ -158,6 +163,7 @@ struct BwdArgs {
   const int* kv_seg;
   const float* lse;
   const float* delta;
+  const float* slopes;   // [H] f32, read only by the ALiBi instances
   int T, H, G, causal;
   int q_sb, q_st, q_sh;
   int k_sb, k_st, k_sh;
@@ -169,6 +175,7 @@ struct BwdArgs {
 // query heads of the group. Each warp owns 16 kv rows and computes the
 // transposed products (S^T = K Q^T, dP^T = V dO^T) so its rows accumulate
 // in registers over the whole loop.
+template <bool ALIBI>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_dkv_kernel(BwdArgs p, __nv_bfloat16* __restrict__ dk,
                      __nv_bfloat16* __restrict__ dv) {
@@ -212,6 +219,7 @@ flash_bwd_dkv_kernel(BwdArgs p, __nv_bfloat16* __restrict__ dk,
   const int first = p.causal ? blockIdx.x : 0;   // q tiles below the diagonal see nothing
   for (int gi = 0; gi < p.G; ++gi) {
     const int h = kvh * p.G + gi;
+    const float slope = ALIBI ? p.slopes[h] : 0.f;
     const __nv_bfloat16* qb = p.q + (size_t)b * p.q_sb + (size_t)h * p.q_sh;
     const __nv_bfloat16* ob = p.dout + (size_t)b * p.o_sb + (size_t)h * p.o_sh;
     const float* lrow = p.lse + ((size_t)b * p.H + h) * T;
@@ -241,7 +249,9 @@ flash_bwd_dkv_kernel(BwdArgs p, __nv_bfloat16* __restrict__ dk,
           const int ksg = (e < 2) ? ks0 : ks1;
           const int qsg = qseg_s[col];
           const bool valid = (!p.causal || kpos <= qpos) && ksg == qsg && ksg != 0;
-          const float pe = expf(s[nt][e] * p.sm_scale - lse_s[col]);
+          float sc = s[nt][e] * p.sm_scale;
+          if (ALIBI) sc -= slope * fabsf(static_cast<float>(qpos - kpos));
+          const float pe = expf(sc - lse_s[col]);
           s[nt][e] = valid ? pe : 0.f;   // select: pe may be inf on a padding row
         }
       }
@@ -273,6 +283,7 @@ flash_bwd_dkv_kernel(BwdArgs p, __nv_bfloat16* __restrict__ dk,
 // dQ of one 64-row q tile of one (batch, query head). Each warp owns 16 q
 // rows, holds their Q fragments in registers and accumulates dQ over the kv
 // tiles up to the diagonal.
+template <bool ALIBI>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_dq_kernel(BwdArgs p, __nv_bfloat16* __restrict__ dq) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -287,6 +298,7 @@ flash_bwd_dq_kernel(BwdArgs p, __nv_bfloat16* __restrict__ dq) {
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
   const int kvh = h / p.G;
+  const float slope = ALIBI ? p.slopes[h] : 0.f;   // the Pallas slopes[bh % H]
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -347,7 +359,9 @@ flash_bwd_dq_kernel(BwdArgs p, __nv_bfloat16* __restrict__ dq) {
         const int qsg = (e < 2) ? qs0 : qs1;
         const int ksg = kseg_s[col];
         const bool valid = (!p.causal || kpos <= qpos) && ksg == qsg && ksg != 0;
-        const float pe = expf(s[nt][e] * p.sm_scale - ((e < 2) ? lse0 : lse1));
+        float sc = s[nt][e] * p.sm_scale;
+        if (ALIBI) sc -= slope * fabsf(static_cast<float>(qpos - kpos));
+        const float pe = expf(sc - ((e < 2) ? lse0 : lse1));
         s[nt][e] = valid ? pe : 0.f;   // select: pe may be inf on a padding row
       }
     }
@@ -372,7 +386,7 @@ flash_bwd_dq_kernel(BwdArgs p, __nv_bfloat16* __restrict__ dq) {
 
 BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
                   const void* q_seg, const void* kv_seg, const void* lse,
-                  const void* delta, int T, int H, int Hkv, int causal,
+                  const void* delta, const void* slopes, int T, int H, int Hkv, int causal,
                   int q_sb, int q_st, int q_sh, int k_sb, int k_st, int k_sh,
                   int o_sb, int o_st, int o_sh, float sm_scale) {
   BwdArgs a;
@@ -384,6 +398,7 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
   a.kv_seg = static_cast<const int*>(kv_seg);
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
+  a.slopes = static_cast<const float*>(slopes);
   a.T = T;
   a.H = H;
   a.G = H / Hkv;
@@ -395,45 +410,60 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
   return a;
 }
 
+template <bool ALIBI>
+int launch_dkv(const BwdArgs& a, int B, void* dk, void* dv, void* stream) {
+  const int smem = 4 * BM * LD * (int)sizeof(__nv_bfloat16) + 4 * BM * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<ALIBI>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.T / BM, B * (a.H / a.G));
+  flash_bwd_dkv_kernel<ALIBI><<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv));
+  return (int)cudaGetLastError();
+}
+
+template <bool ALIBI>
+int launch_dq(const BwdArgs& a, int B, void* dq, void* stream) {
+  const int smem = 4 * BM * LD * (int)sizeof(__nv_bfloat16) + BM * (int)sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<ALIBI>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.T / BM, B * a.H);
+  flash_bwd_dq_kernel<ALIBI><<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<__nv_bfloat16*>(dq));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Both return cudaGetLastError() after the launch (0 = launched).
+// Both return cudaGetLastError() after the launch (0 = launched). `slopes`
+// (f32 [H], or null) selects the ALiBi instance.
 extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                   const void* dout, const void* q_seg, const void* kv_seg,
-                                  const void* lse, const void* delta, void* dk, void* dv,
+                                  const void* lse, const void* delta, const void* slopes,
+                                  void* dk, void* dv,
                                   int B, int T, int H, int Hkv, int causal,
                                   int q_sb, int q_st, int q_sh,
                                   int k_sb, int k_st, int k_sh,
                                   int o_sb, int o_st, int o_sh,
                                   float sm_scale, void* stream) {
-  const int smem = 4 * BM * LD * (int)sizeof(__nv_bfloat16) + 4 * BM * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const BwdArgs a = make_args(q, k, v, dout, q_seg, kv_seg, lse, delta, T, H, Hkv, causal,
-                              q_sb, q_st, q_sh, k_sb, k_st, k_sh, o_sb, o_st, o_sh, sm_scale);
-  const dim3 grid(T / BM, B * Hkv);
-  flash_bwd_dkv_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv));
-  return (int)cudaGetLastError();
+  const BwdArgs a = make_args(q, k, v, dout, q_seg, kv_seg, lse, delta, slopes, T, H, Hkv,
+                              causal, q_sb, q_st, q_sh, k_sb, k_st, k_sh, o_sb, o_st, o_sh,
+                              sm_scale);
+  return (slopes ? launch_dkv<true> : launch_dkv<false>)(a, B, dk, dv, stream);
 }
 
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                  const void* dout, const void* q_seg, const void* kv_seg,
-                                 const void* lse, const void* delta, void* dq,
+                                 const void* lse, const void* delta, const void* slopes,
+                                 void* dq,
                                  int B, int T, int H, int Hkv, int causal,
                                  int q_sb, int q_st, int q_sh,
                                  int k_sb, int k_st, int k_sh,
                                  int o_sb, int o_st, int o_sh,
                                  float sm_scale, void* stream) {
-  const int smem = 4 * BM * LD * (int)sizeof(__nv_bfloat16) + BM * (int)sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const BwdArgs a = make_args(q, k, v, dout, q_seg, kv_seg, lse, delta, T, H, Hkv, causal,
-                              q_sb, q_st, q_sh, k_sb, k_st, k_sh, o_sb, o_st, o_sh, sm_scale);
-  const dim3 grid(T / BM, B * H);
-  flash_bwd_dq_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<__nv_bfloat16*>(dq));
-  return (int)cudaGetLastError();
+  const BwdArgs a = make_args(q, k, v, dout, q_seg, kv_seg, lse, delta, slopes, T, H, Hkv,
+                              causal, q_sb, q_st, q_sh, k_sb, k_st, k_sh, o_sb, o_st, o_sh,
+                              sm_scale);
+  return (slopes ? launch_dq<true> : launch_dq<false>)(a, B, dq, stream);
 }

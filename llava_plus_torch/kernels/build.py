@@ -37,8 +37,8 @@ F = ctypes.c_float
 # C signatures of the entry points (pointers and the stream as void*).
 SIGNATURES = {
     "flash_fwd_bf16": [P] * 8 + [I] * 11 + [F, P],
-    "flash_bwd_dkv_bf16": [P] * 10 + [I] * 14 + [F, P],
-    "flash_bwd_dq_bf16": [P] * 9 + [I] * 14 + [F, P],
+    "flash_bwd_dkv_bf16": [P] * 11 + [I] * 14 + [F, P],
+    "flash_bwd_dq_bf16": [P] * 10 + [I] * 14 + [F, P],
     "decode_attention_fwd": [P] * 9 + [I] * 14 + [F, P],
     "quant_matmul_int8": [P] * 4 + [I] * 5 + [P],
     "quant_matmul_int4": [P] * 4 + [I] * 5 + [P],

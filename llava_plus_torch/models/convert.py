@@ -46,9 +46,20 @@ def per_layer(params):
     lm = dict(params["language_model"])
     lay = lm["layers"]
     if not isinstance(lay, list):
-        L = lay["input_norm"].shape[0]
+        L = next(_leaves(lay)).shape[0]   # any stacked leaf: LLaMA's or MPT's tree
         lm["layers"] = [tree_map(lambda x, i=i: x[i], lay) for i in range(L)]
     return dict(params, language_model=lm)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def stacked(params):

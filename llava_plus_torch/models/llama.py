@@ -105,9 +105,11 @@ class KVCache:
 def quantize_kv(new: torch.Tensor):
     """Per-(token, head) symmetric int8: scale = max(absmax, 1e-8) / 127,
     round half to even, clip to +-127. Returns (int8 values, f32 scale
-    [..., 1])."""
+    [..., 1]). The scale is ``max(amax, 1e-8) * f32(1/127)``, as the jitted
+    JAX ``_cache_write`` computes it (XLA turns its division by 127 into
+    that product, which can differ from a division in the last bit)."""
     nf = new.float()
-    scale = nf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    scale = nf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) * (1.0 / 127.0)
     q = torch.clamp(torch.round(nf / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -250,13 +252,9 @@ class PagedKVCache:
 
 
 def _paged_quant(new: torch.Tensor):
-    """Per-(token, head) symmetric int8: [.., Hkv, D] -> (int8, scale [.., Hkv]).
-    The scale is ``max(amax, 1e-8) * f32(1/127)``: the JAX package computes
-    its paged writes inside jitted programs, where XLA turns the division by
-    127 into that product."""
-    nf = new.float()
-    scale = nf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) * (1.0 / 127.0)
-    q = torch.clamp(torch.round(nf / scale), -127, 127).to(torch.int8)
+    """Per-(token, head) symmetric int8: [.., Hkv, D] -> (int8, scale [.., Hkv]),
+    :func:`quantize_kv` with the scale's last dim dropped."""
+    q, scale = quantize_kv(new)
     return q, scale[..., 0]
 
 
@@ -448,28 +446,30 @@ def _layer(params, i: int):
 
 
 def _cached_attention(q, cache: KVCache, idx, segment_ids, positions,
-                      alibi_slopes=None, sm_scale=None):
+                      alibi_slopes=None, sm_scale=None, bias=None):
     """Attention of one layer's queries over the cache (whose slots already
     hold this chunk's k/v). MPT passes its ALiBi slopes and softmax scale:
     the decode kernel takes the slopes, the other paths the explicit bias
-    over the cache slots (JAX ``mpt.py:169-190``)."""
+    over the cache slots (JAX ``mpt.py:169-190``); and, with a prefix-LM or
+    sequence-id mask, that additive ``bias`` over the slots, which only the
+    reference paths take."""
     ks = None if cache.k_scale is None else cache.k_scale[idx]
     vs = None if cache.v_scale is None else cache.v_scale[idx]
-    if q.shape[1] == 1:
+    if q.shape[1] == 1 and bias is None:
         return decode_attention(q, cache.k[idx], cache.v[idx], cache.seg,
                                 positions[:, 0].to(torch.int32), ks, vs,
                                 sm_scale=sm_scale, alibi_slopes=alibi_slopes)
     if ks is not None:
-        bias = None
         if alibi_slopes is not None:
             B, S = cache.seg.shape
-            bias = alibi_bias(alibi_slopes, positions,
-                              torch.arange(S, device=q.device).expand(B, S))
+            extra = alibi_bias(alibi_slopes, positions,
+                               torch.arange(S, device=q.device).expand(B, S))
+            bias = extra if bias is None else extra + bias
         return quant_cache_attention(q, cache.k[idx], ks, cache.v[idx], vs,
                                      kv_segment_ids=cache.seg, q_positions=positions,
                                      bias=bias, softmax_scale=sm_scale)
     return reference_attention(q, cache.k[idx], cache.v[idx],
-                               causal=True, q_segment_ids=segment_ids,
+                               causal=True, bias=bias, q_segment_ids=segment_ids,
                                kv_segment_ids=cache.seg, q_positions=positions,
                                softmax_scale=sm_scale, alibi_slopes=alibi_slopes)
 

@@ -98,19 +98,16 @@ def forward(
     """Multimodal forward -> (f32 logits, cache updated in place); the cache
     is a dense :class:`~llava_plus_torch.models.llama.KVCache` or a paged
     :class:`~llava_plus_torch.models.llama.PagedKVCache`. ``remat``
-    recomputes each decoder layer in the backward (training, LLaMA only:
-    MPT training is not ported). Unlike the JAX package, the MPT branch
-    takes ``fresh_prefill`` and ``logits_positions`` too: the same numbers
-    (over a bf16 cache), through the flash kernel and one head row."""
+    recomputes each decoder layer in the backward (training, either
+    backbone). Unlike the JAX package, the MPT branch takes
+    ``fresh_prefill`` and ``logits_positions`` too: the same numbers (over a
+    bf16 cache), through the flash kernel and one head row."""
     embeds = fuse(params, cfg, batch)
     if cfg.language_model_type == "mpt":
-        if remat:
-            raise NotImplementedError("MPT training is not ported yet: ROADMAP Queue 1 "
-                                      "item 13")
         return mpt.forward(
             params["language_model"], cfg.mpt, inputs_embeds=embeds,
             positions=batch.positions, segment_ids=batch.segment_ids, cache=cache,
-            fresh_prefill=fresh_prefill, logits_positions=logits_positions,
+            fresh_prefill=fresh_prefill, logits_positions=logits_positions, remat=remat,
         )
     return llama.forward(
         params["language_model"], cfg.text,

@@ -22,15 +22,26 @@ indices. Attention, by path:
   cache that holds only this chunk: the same function, except that over an
   int8 cache JAX attends the chunk's quantized copy and the port, as on its
   LLaMA path, the chunk itself.)
-- a dense cache, one token: the decode kernel with slopes; several tokens:
-  the reference attention (``quant_cache_attention`` over an int8 cache)
-  with the explicit ALiBi bias, as the JAX package does.
+- a dense cache, one token: the decode kernel with slopes (any number of
+  query heads per kv head); several tokens: the reference attention
+  (``quant_cache_attention`` over an int8 cache) with the explicit ALiBi
+  bias, as the JAX package does.
 - a paged cache: ``llama._paged_layer_attention`` with slopes (the paged
   kernels for chunks of up to 8 tokens, the gathered pages above).
 
 The prefix-LM and sequence-id masks are an additive bias that no kernel
-takes: they go through the reference attention, without a cache only (the
-JAX package's training and scoring use); with a cache they raise.
+takes: they go through the reference attention, as the JAX package sends
+them to XLA. Without a cache the bias spans the chunk's positions; over the
+dense cache it spans the cache's slots (``arange(max_len)``, JAX
+``mpt.py:266``), with JAX's broadcasting, so it is defined where JAX defines
+it (a chunk as long as the cache, or one token). Over a paged cache they
+raise: JAX builds no such bias over the pool (its paged attention drops it).
+
+Training runs through the same code without a cache: on the card the ALiBi
+variants of the flash forward and backward kernels, and ``remat`` recomputes
+each layer in the backward (``torch.utils.checkpoint``, as ``llama.py``
+does). The trainer holds the layers as a list of per-layer dicts
+(``models/convert.py:per_layer``).
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from llava_plus_torch.models import llama
 from llava_plus_torch.models.configs import MptConfig
@@ -68,8 +80,10 @@ def _device_slopes(n_heads: int, alibi_bias_max: int, device: torch.device) -> t
     """:func:`alibi_slopes` made once per device: a forward then issues no
     host-to-device copy (a pageable one would hold the host until the card
     reaches it, every decode step). Every caller gets the same tensor, which
-    nothing writes to."""
-    return alibi_slopes(n_heads, alibi_bias_max, device)
+    nothing writes to. It is made outside inference mode even when the
+    first caller serves, so that training (remat saves it) can use it too."""
+    with torch.inference_mode(False):
+        return alibi_slopes(n_heads, alibi_bias_max, device)
 
 
 def alibi_bias_from_positions(q_pos: torch.Tensor, kv_pos: torch.Tensor, n_heads: int,
@@ -121,8 +135,11 @@ def embed_tokens(params, input_ids: torch.Tensor) -> torch.Tensor:
 
 
 def _layer(params, i: int):
-    """Layer ``i``'s weights: views into the stacked tensors."""
+    """Layer ``i``'s weights: the trainer's per-layer dict, or views into
+    the stacked tensors."""
     lay = params["layers"]
+    if isinstance(lay, list):
+        return lay[i]
     out = {
         "attn": {n: llama._at(w, i) for n, w in lay["attn"].items()},
         "mlp": {n: llama._at(w, i) for n, w in lay["mlp"].items()},
@@ -161,7 +178,7 @@ def _layer_forward(lp, h, bias, slopes, segment_ids, positions, cfg: MptConfig,
     if cache is not None and not paged:
         llama._cache_write(cache.k, cache.k_scale, k, idx, sel)
         llama._cache_write(cache.v, cache.v_scale, v, idx, sel)
-    if cache is None or (fresh_prefill and T > 1):
+    if cache is None or (fresh_prefill and T > 1 and bias is None):
         # prefix-LM without a cache is bidirectional up to its bias
         attn_out = attention(q, k, v, causal=cache is not None or not cfg.prefix_lm,
                              bias=bias, q_segment_ids=segment_ids,
@@ -173,7 +190,7 @@ def _layer_forward(lp, h, bias, slopes, segment_ids, positions, cfg: MptConfig,
                                                 alibi_slopes=slopes, sm_scale=scale)
     else:
         attn_out = llama._cached_attention(q, cache, idx, segment_ids, positions,
-                                           alibi_slopes=slopes, sm_scale=scale)
+                                           alibi_slopes=slopes, sm_scale=scale, bias=bias)
     staged = llama._stage(cache, k, v) if paged else None
 
     h = h + matmul(attn_out.reshape(B, T, D), lp["attn"]["out_proj"])
@@ -182,13 +199,20 @@ def _layer_forward(lp, h, bias, slopes, segment_ids, positions, cfg: MptConfig,
     return h + matmul(inner.to(hn.dtype), lp["mlp"]["down_proj"]), staged
 
 
-def _mask_bias(cfg: MptConfig, positions, prefix_mask, sequence_id):
+def _train_layer(lp, h, bias, slopes, segment_ids, cfg: MptConfig):
+    """One layer without a cache: the body that remat recomputes."""
+    return _layer_forward(lp, h, bias, slopes, segment_ids, None, cfg, None, 0, None, False,
+                          False)[0]
+
+
+def _mask_bias(cfg: MptConfig, positions, kv_pos, prefix_mask, sequence_id):
     """The prefix-LM and sequence-id restrictions as one additive bias
-    [B, 1, T, T] (0 visible, -1e9 hidden), or None (JAX ``mpt.py:277-289``)."""
+    [B, 1, T, S] (0 visible, -1e9 hidden) over the keys at ``kv_pos`` [B, S],
+    or None (JAX ``mpt.py:277-289``, broadcasting as it does)."""
     bias = None
     if cfg.prefix_lm and prefix_mask is not None:
         # visible where causal OR key in the prefix (ref modeling_mpt.py:119-131)
-        causal_ok = positions[:, None, :] <= positions[:, :, None]
+        causal_ok = kv_pos[:, None, :] <= positions[:, :, None]
         visible = causal_ok | prefix_mask[:, None, :].bool()
         bias = torch.where(visible, 0.0, MASK_BIAS)[:, None]
     if cfg.attn_uses_sequence_id and sequence_id is not None:
@@ -210,24 +234,40 @@ def decoder_forward(
     sequence_id: Optional[torch.Tensor] = None,
     fresh_prefill: bool = False,
     paged_gather: bool = False,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Run the decoder stack; returns (hidden_states, cache), the cache
     updated in place. Arguments as ``llama.decoder_forward``; ``prefix_mask``
     [B, T] (1 = prefix) and ``sequence_id`` [B, T] apply when the config
-    asks for them, without a cache."""
+    asks for them, without a cache or over the dense one."""
     h = inputs_embeds
+    B = h.shape[0]
     if cfg.learned_pos_emb and not cfg.alibi:
         # idle engine rows sit at max_len: clamp as a gather that drops nothing
         h = h + params["wpe"][positions.long().clamp(0, cfg.max_seq_len - 1)]
     slopes = _device_slopes(cfg.n_heads, cfg.alibi_bias_max, h.device) if cfg.alibi else None
-    bias = _mask_bias(cfg, positions, prefix_mask, sequence_id)
-    if bias is not None and cache is not None:
-        raise NotImplementedError("the prefix-LM / sequence-id bias over a KV cache is not "
-                                  "ported (ROADMAP Queue 1 item 13)")
     paged = isinstance(cache, PagedKVCache)
+    kv_pos = positions
+    if cache is not None and not paged:
+        kv_pos = torch.arange(cache.max_len, device=h.device).expand(B, cache.max_len)
+    masked = (cfg.prefix_lm and prefix_mask is not None) or (
+        cfg.attn_uses_sequence_id and sequence_id is not None)
+    if masked and paged:
+        raise NotImplementedError("the prefix-LM / sequence-id bias over a paged cache: the "
+                                  "JAX package defines none there")
+    T = h.shape[1]
+    if masked and cache is not None and T not in (1, cache.max_len):
+        raise ValueError(f"a prefix-LM / sequence-id mask over a dense cache needs one token "
+                         f"or a chunk of the cache's {cache.max_len} slots, got {T} (the "
+                         f"JAX package's bias does not broadcast otherwise)")
+    bias = _mask_bias(cfg, positions, kv_pos, prefix_mask, sequence_id)
     sel = llama.cache_selection(cache, positions, segment_ids)
     staged = []
     for i in range(cfg.n_layers):
+        if remat and cache is None:
+            h = checkpoint(_train_layer, _layer(params, i), h, bias, slopes, segment_ids, cfg,
+                           use_reentrant=False)
+            continue
         h, st = _layer_forward(_layer(params, i), h, bias, slopes, segment_ids, positions, cfg,
                                cache, i, sel, fresh_prefill, paged_gather)
         staged.append(st)
@@ -261,6 +301,7 @@ def forward(
     fresh_prefill: bool = False,
     logits_positions: Optional[torch.Tensor] = None,
     paged_gather: bool = False,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """ids/embeds -> f32 logits [B, T, V] (or [B, 1, V] at
     ``logits_positions`` [B]), and the cache updated in place."""
@@ -275,7 +316,7 @@ def forward(
     h, cache = decoder_forward(params, cfg, inputs_embeds, positions=positions,
                                segment_ids=segment_ids, cache=cache, prefix_mask=prefix_mask,
                                sequence_id=sequence_id, fresh_prefill=fresh_prefill,
-                               paged_gather=paged_gather)
+                               paged_gather=paged_gather, remat=remat)
     if logits_positions is not None:
         h = h[torch.arange(B, device=device), logits_positions][:, None]
     return lm_head(params, cfg, h), cache

@@ -205,7 +205,7 @@ def attention(
     always runs the flash kernel, which raises for inputs it does not take
     (head dim other than 128, dtype other than bf16); its output carries a
     gradient through the backward kernels (``flash_attention``'s
-    ``autograd.Function``; not yet for ALiBi). Calls with an additive bias
+    ``autograd.Function``, ALiBi included). Calls with an additive bias
     (MPT's prefix-LM and sequence-id masks) or explicit positions, and every
     call on the CPU, take the reference, as the JAX package sends them to
     XLA."""

@@ -13,9 +13,11 @@ With ``alibi_slopes`` [H] (MPT) each visible slot's scaled score loses
 for XLA (``quant_cache_attention(bias=...)`` over an int8 cache, ``attention``
 over a bf16 one); those launches count in ``decode_attention.alibi_launches``.
 
-The kernel runs for CUDA tensors (bf16 q, D = 128, at most 8 query heads per
-kv head: MQA with more than 8 query heads raises); the plain version for CPU
-tensors; anything else raises.
+The kernel runs for CUDA tensors (bf16 q, D = 128, any number of query heads
+per kv head: a block holds 8 query rows, and a wider group takes G / 8 blocks
+per kv head); the plain version for CPU tensors; anything else raises.
+Launches with more than 8 query heads per kv head (an MQA MPT), with or
+without slopes, count in ``decode_attention.wide_launches`` only.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from llava_plus_torch.kernels import build
 from llava_plus_torch.ops.attention import DEFAULT_MASK_VALUE, check_slopes
 
 HEAD_DIM = 128
-MAX_GROUP = 8  # query heads per kv head the kernel holds
+ROW_CHUNK = 8  # query rows a kernel block holds; wider groups take more blocks
 
 
 def decode_attention_reference(q, k_cache, v_cache, seg, q_pos,
@@ -79,8 +81,8 @@ def _check_kernel_inputs(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale):
     if D != HEAD_DIM:
         raise ValueError(f"decode kernel needs head dim {HEAD_DIM}, got {D}")
     Hkv = k_cache.shape[2]
-    if H % Hkv or H // Hkv > MAX_GROUP:
-        raise ValueError(f"{H} query heads over {Hkv} kv heads: need a group of 1..{MAX_GROUP}")
+    if H % Hkv:
+        raise ValueError(f"{H} query heads do not group over {Hkv} kv heads")
     S = k_cache.shape[1]
     if (k_cache.shape != (B, S, Hkv, D) or v_cache.shape != k_cache.shape
             or k_cache.stride() != v_cache.stride()):
@@ -152,7 +154,8 @@ def decode_attention(
     if q.is_cuda:
         out = _launch(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale, sm_scale,
                       alibi_slopes)
-        build.count_launch(decode_attention,
+        wide = q.shape[2] // k_cache.shape[2] > ROW_CHUNK
+        build.count_launch(decode_attention, "wide_launches" if wide else
                            "launches" if alibi_slopes is None else "alibi_launches")
         return out
     if q.device.type == "cpu":
@@ -163,3 +166,4 @@ def decode_attention(
 
 decode_attention.launches = 0
 decode_attention.alibi_launches = 0
+decode_attention.wide_launches = 0

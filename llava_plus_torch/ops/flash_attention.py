@@ -17,12 +17,10 @@ CPU tensors; anything else raises. Rows that see no valid key come out as
 zeros from both (the reference attention gives them a uniform average
 instead), and their gradients are zero.
 
-ALiBi (MPT): ``alibi_slopes`` [H] f32 selects the forward kernel's ALiBi
-variant (the Pallas ``use_alibi``), which subtracts ``slope_h * |i - j|``
-from the scaled score of query row i and key j. Its launches are counted
-apart, in ``flash_attention.alibi_launches``. The ALiBi backward (Pallas
-``_bwd_dkv_kernel`` / ``_bwd_dq_kernel`` with ``use_alibi``) is not ported:
-differentiating an ALiBi forward raises.
+ALiBi (MPT): ``alibi_slopes`` [H] f32 selects the ALiBi variants of the
+forward and both backward kernels (the Pallas ``use_alibi`` branches), which
+subtract ``slope_h * |i - j|`` from the scaled score of query row i and key
+j. Their launches are counted apart, in ``<wrapper>.alibi_launches``.
 """
 
 from __future__ import annotations
@@ -89,14 +87,16 @@ def flash_attention_reference(q, k, v, q_seg, kv_seg, *, causal: bool, sm_scale:
 
 
 def flash_attention_backward_reference(q, k, v, q_seg, kv_seg, out, lse, do, *,
-                                       causal: bool, sm_scale: float):
+                                       causal: bool, sm_scale: float, alibi_slopes=None):
     """The backward kernels' function in plain PyTorch, in q's float
     precision (f32 for bf16 inputs): the Pallas ``_bwd`` with the GQA fold
     of ``_flash_bwd_rule``. q, out, do [B, T, H, D]; k, v [B, T, Hkv, D];
-    segment ids [B, T]; lse [B, H, T]. P is replayed from lse and masked by
-    select after the exp (causal, equal segments, neither segment 0), so a
-    row that saw no key contributes nothing. Returns (dq, dk, dv) in q's
-    dtype; dk and dv sum the G query heads of each kv head."""
+    segment ids [B, T]; lse [B, H, T]; ``alibi_slopes`` [H] or None. P is
+    replayed from lse (the scaled score less ``slope_h * |i - j|`` with
+    slopes) and masked by select after the exp (causal, equal segments,
+    neither segment 0), so a row that saw no key contributes nothing.
+    Returns (dq, dk, dv) in q's dtype; dk and dv sum the G query heads of
+    each kv head."""
     B, T, H, D = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
@@ -107,10 +107,13 @@ def flash_attention_backward_reference(q, k, v, q_seg, kv_seg, out, lse, do, *,
     dof = do.to(acc_dtype).permute(0, 2, 1, 3)
     delta = (dof * out.to(acc_dtype).permute(0, 2, 1, 3)).sum(dim=-1)   # [B, H, T]
     s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale        # [B, H, T, T]
+    pos = torch.arange(T, device=q.device)
+    if alibi_slopes is not None:
+        dist = (pos[:, None] - pos[None, :]).abs().to(acc_dtype)
+        s = s - alibi_slopes.to(acc_dtype)[:, None, None] * dist
     mask = ((q_seg[:, :, None] == kv_seg[:, None, :])
             & (kv_seg[:, None, :] != 0) & (q_seg[:, :, None] != 0))[:, None]
     if causal:
-        pos = torch.arange(T, device=q.device)
         mask = mask & (pos[None, :] <= pos[:, None])[None, None]
     p = torch.where(mask, torch.exp(s - lse.to(acc_dtype)[..., None]), 0.0)
     dv = torch.matmul(p.transpose(-1, -2), dof)
@@ -164,12 +167,14 @@ def _launch(q, k, v, q_seg, kv_seg, causal, sm_scale, slopes=None):
     return out, lse
 
 
-def _bwd_args(q, k, v, do, q_seg, kv_seg, lse, delta, causal, sm_scale):
+def _bwd_args(q, k, v, do, q_seg, kv_seg, lse, delta, causal, sm_scale, slopes):
     """The pointer / shape / stride arguments both backward entry points
     share, after checking what the kernels take: q, k, v as the forward
     takes them, T a multiple of BLOCK, ``do`` of q's shape and contiguous
-    (the Function makes the cotangent contiguous), lse and delta f32."""
+    (the Function makes the cotangent contiguous), lse and delta f32, the
+    slopes f32 [H] or None."""
     _check_kernel_inputs(q, k, v, q_seg)
+    check_slopes(slopes, q.shape[2], q.device)
     if do.dtype != q.dtype or do.shape != q.shape or not do.is_contiguous():
         raise ValueError(f"dO must be contiguous {q.dtype} {tuple(q.shape)}, got "
                          f"{do.dtype} {tuple(do.shape)}")
@@ -186,7 +191,8 @@ def _bwd_args(q, k, v, do, q_seg, kv_seg, lse, delta, causal, sm_scale):
         if x.shape != (B, T) or x.dtype != torch.int32 or not x.is_contiguous():
             raise ValueError("segment ids must be contiguous int32 [B, T]")
     return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             q_seg.data_ptr(), kv_seg.data_ptr(), lse.data_ptr(), delta.data_ptr()),
+             q_seg.data_ptr(), kv_seg.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+             None if slopes is None else slopes.data_ptr()),
             (B, T, H, k.shape[2], int(causal),
              q.stride(0), q.stride(1), q.stride(2),
              k.stride(0), k.stride(1), k.stride(2),
@@ -194,40 +200,48 @@ def _bwd_args(q, k, v, do, q_seg, kv_seg, lse, delta, causal, sm_scale):
              float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream))
 
 
-def flash_bwd_dkv(q, k, v, do, q_seg, kv_seg, lse, delta, *, causal, sm_scale):
+def _counter(slopes):
+    return "launches" if slopes is None else "alibi_launches"
+
+
+def flash_bwd_dkv(q, k, v, do, q_seg, kv_seg, lse, delta, *, causal, sm_scale,
+                  alibi_slopes=None):
     """dK, dV [B, T, Hkv, D] bf16 from the dK/dV kernel (CUDA tensors only;
     T a multiple of BLOCK, as the forward's padding leaves it)."""
-    ptrs, rest = _bwd_args(q, k, v, do, q_seg, kv_seg, lse, delta, causal, sm_scale)
+    ptrs, rest = _bwd_args(q, k, v, do, q_seg, kv_seg, lse, delta, causal, sm_scale,
+                           alibi_slopes)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     build.check(build.lib().flash_bwd_dkv_bf16(*ptrs, dk.data_ptr(), dv.data_ptr(), *rest),
                 "flash_bwd_dkv_bf16")
-    build.count_launch(flash_bwd_dkv)
+    build.count_launch(flash_bwd_dkv, _counter(alibi_slopes))
     return dk, dv
 
 
-def flash_bwd_dq(q, k, v, do, q_seg, kv_seg, lse, delta, *, causal, sm_scale):
+def flash_bwd_dq(q, k, v, do, q_seg, kv_seg, lse, delta, *, causal, sm_scale,
+                 alibi_slopes=None):
     """dQ [B, T, H, D] bf16 from the dQ kernel (CUDA tensors only)."""
-    ptrs, rest = _bwd_args(q, k, v, do, q_seg, kv_seg, lse, delta, causal, sm_scale)
+    ptrs, rest = _bwd_args(q, k, v, do, q_seg, kv_seg, lse, delta, causal, sm_scale,
+                           alibi_slopes)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     build.check(build.lib().flash_bwd_dq_bf16(*ptrs, dq.data_ptr(), *rest), "flash_bwd_dq_bf16")
-    build.count_launch(flash_bwd_dq)
+    build.count_launch(flash_bwd_dq, _counter(alibi_slopes))
     return dq
 
 
-def flash_attention_backward(q, k, v, q_seg, kv_seg, out, lse, do, *, causal, sm_scale):
+def flash_attention_backward(q, k, v, q_seg, kv_seg, out, lse, do, *, causal, sm_scale,
+                             alibi_slopes=None):
     """(dq, dk, dv) of padded inputs: the two kernels on the card (delta =
     rowsum(dO * O) in f32 by torch, as the JAX rule leaves it to XLA), the
     plain version on the CPU."""
+    kw = dict(causal=causal, sm_scale=sm_scale, alibi_slopes=alibi_slopes)
     if q.is_cuda:
         do = do.contiguous()
         delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
-        kw = dict(causal=causal, sm_scale=sm_scale)
         dk, dv = flash_bwd_dkv(q, k, v, do, q_seg, kv_seg, lse, delta, **kw)
         return flash_bwd_dq(q, k, v, do, q_seg, kv_seg, lse, delta, **kw), dk, dv
     if q.device.type == "cpu":
-        return flash_attention_backward_reference(q, k, v, q_seg, kv_seg, out, lse, do,
-                                                  causal=causal, sm_scale=sm_scale)
+        return flash_attention_backward_reference(q, k, v, q_seg, kv_seg, out, lse, do, **kw)
     raise ValueError(f"flash_attention_backward: no path for device {q.device}")
 
 
@@ -242,33 +256,27 @@ class _Flash(torch.autograd.Function):
         qp, kp, vp, qs, ks = _pad_inputs(q, k, v, q_segment_ids, kv_segment_ids)
         if q.is_cuda:
             out, lse = _launch(qp, kp, vp, qs, ks, causal, scale, slopes)
-            build.count_launch(flash_attention,
-                               "launches" if slopes is None else "alibi_launches")
+            build.count_launch(flash_attention, _counter(slopes))
         elif q.device.type == "cpu":
             out, lse = flash_attention_reference(qp, kp, vp, qs, ks, causal=causal,
                                                  sm_scale=scale, alibi_slopes=slopes)
         else:
             raise ValueError(f"flash_attention: no path for device {q.device}")
-        ctx.save_for_backward(qp, kp, vp, qs, ks, out, lse)
+        ctx.save_for_backward(qp, kp, vp, qs, ks, out, lse, slopes)
         ctx.causal, ctx.scale, ctx.T = causal, scale, T
-        ctx.alibi = slopes is not None
         lse_t = lse[:, :, :T]
         ctx.mark_non_differentiable(lse_t)
         return out[:, :T], lse_t
 
     @staticmethod
     def backward(ctx, g, _g_lse):
-        if ctx.alibi:
-            raise NotImplementedError(
-                "the ALiBi variant of the flash backward kernels (Pallas _bwd_dkv_kernel / "
-                "_bwd_dq_kernel with use_alibi) is not ported yet: ROADMAP Queue 2 items 2-3, "
-                "with MPT training (Queue 1 item 13)")
-        qp, kp, vp, qs, ks, out, lse = ctx.saved_tensors
+        qp, kp, vp, qs, ks, out, lse, slopes = ctx.saved_tensors
         pad = qp.shape[1] - ctx.T
         if pad:
             g = F.pad(g, (0, 0, 0, 0, 0, pad))   # padded rows: zero cotangent
         dq, dk, dv = flash_attention_backward(qp, kp, vp, qs, ks, out, lse, g.to(qp.dtype),
-                                              causal=ctx.causal, sm_scale=ctx.scale)
+                                              causal=ctx.causal, sm_scale=ctx.scale,
+                                              alibi_slopes=slopes)
         T = ctx.T
         return dq[:, :T], dk[:, :T], dv[:, :T], None, None, None, None, None
 
@@ -285,8 +293,8 @@ def flash_attention(
     alibi_slopes: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused attention over [B, T, H, D]: returns (out, lse [B, H, T]); the
-    output carries a gradient through the backward kernels (not with
-    ``alibi_slopes`` [H] f32, MPT's ALiBi, whose backward raises)."""
+    output carries a gradient through the backward kernels, with
+    ``alibi_slopes`` [H] f32 (MPT's ALiBi) through their ALiBi variants."""
     check_slopes(alibi_slopes, q.shape[2], q.device)
     scale = softmax_scale if softmax_scale is not None else q.shape[3] ** -0.5
     return _Flash.apply(q, k, v, q_segment_ids, kv_segment_ids, alibi_slopes, causal, scale)
@@ -295,4 +303,6 @@ def flash_attention(
 flash_attention.launches = 0
 flash_attention.alibi_launches = 0
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.alibi_launches = 0
 flash_bwd_dq.launches = 0
+flash_bwd_dq.alibi_launches = 0

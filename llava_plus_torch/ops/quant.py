@@ -10,9 +10,13 @@ split-half order). :func:`matmul` dispatches on the leaf, so model code is
 the same for plain and quantized weights; on CUDA tensors every quantized
 product runs the kernels of ``ops/quant_matmul.py``, at every row count.
 
-Not ported: the W8A8 path (int8 activations for large row counts) and the
-QLoRA ``x @ base + (x @ a) @ b`` branch; a weight carrying LoRA adapters
-raises.
+A weight that carries LoRA adapters (``train/lora.py``'s lazy attach: the
+base under ``"w"`` or the quantized leaves, ``lora_a`` [in, r] and
+``lora_b`` [r, out] pre-scaled by alpha / r) is ``x @ base + (x @ a) @ b``
+(JAX ``quant.py:190-199``): the frozen int8 / int4 base stays quantized on
+the card and runs the kernels, whose gradient reaches x.
+
+Not ported: the W8A8 path (int8 activations for large row counts).
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ QKEY = "qvalue"
 Q4KEY = "qvalue4"
 SKEY = "scale"
 LORA_A = "lora_a"
+LORA_B = "lora_b"
+WKEY = "w"
 
 
 def is_quantized(w: Any) -> bool:
@@ -81,7 +87,12 @@ def matmul(x: torch.Tensor, w, *, out_dtype=None) -> torch.Tensor:
     quantized product runs the int8 / int4 kernel on the card (which raises
     for shapes it does not take) and its plain version on the CPU."""
     if isinstance(w, dict) and LORA_A in w:
-        raise NotImplementedError("LoRA / QLoRA weights are not ported yet")
+        base = {k: v for k, v in w.items() if k not in (LORA_A, LORA_B)}
+        y = matmul(x, base.get(WKEY, base), out_dtype=out_dtype)
+        # each product summed in f32 and rounded once, as JAX's
+        # preferred_element_type=f32 then astype
+        xa = x @ w[LORA_A].to(x.dtype)
+        return y + (xa @ w[LORA_B].to(x.dtype)).to(y.dtype)
     if not is_quantized(w):
         out = x @ w
         return out if out_dtype is None else out.to(out_dtype)

@@ -16,6 +16,15 @@ Both return ``x @ dequant(w)`` as [R, N] in ``out_dtype`` (x's dtype by
 default; f32 for the lm_head's logits). The kernels run for CUDA tensors
 (bf16 x, K % 128 == 0, N % 64 == 0) at every row count; the plain versions
 for CPU tensors; anything else raises.
+
+Both products carry a gradient to x (QLoRA trains adapters under a frozen
+quantized base): a ``torch.autograd.Function`` whose backward is ``dx = dy
+@ dequant(w)^T``, one matrix dequantized to x's dtype per call, then a
+library product, as the JAX package leaves that product to XLA's autodiff
+outside any Pallas kernel. The kernel fills a fresh buffer through a raw
+pointer, so without the Function its output would have no ``grad_fn`` and
+every adapter below the top layer would lose its gradient silently. The
+weight takes no gradient. Backward calls count in ``<wrapper>.backward_calls``.
 """
 
 from __future__ import annotations
@@ -46,20 +55,25 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo, hi], dim=-2).to(torch.int8)
 
 
+def dequantize(bits: int, qw, scale, dtype) -> torch.Tensor:
+    """The [K, N] weight, values times scales in f32 (f64 for f64), cast to
+    ``dtype``."""
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    if bits == 8:
+        return (qw.to(acc) * scale.reshape(1, -1).to(acc)).to(dtype)
+    q = unpack_int4(qw).to(acc)                              # [K/32, 32, N]
+    return (q * scale.to(acc)[:, None, :]).reshape(-1, q.shape[-1]).to(dtype)
+
+
 def matmul_int8_reference(x, qw, scale, *, out_dtype=None) -> torch.Tensor:
     """``x @ dequant(qw)`` in plain PyTorch, the weight dequantized to x's
     dtype (products in f32, or f64 for f64 inputs) and multiplied in it."""
-    acc = _acc_dtype(x)
-    w = (qw.to(acc) * scale.reshape(1, -1).to(acc)).to(x.dtype)
-    return (x @ w).to(out_dtype or x.dtype)
+    return (x @ dequantize(8, qw, scale, x.dtype)).to(out_dtype or x.dtype)
 
 
 def matmul_int4_reference(x, qw, scale, *, out_dtype=None) -> torch.Tensor:
     """``x @ dequant(qw)`` for split-half packed int4 in plain PyTorch."""
-    acc = _acc_dtype(x)
-    q = unpack_int4(qw).to(acc)                              # [K/32, 32, N]
-    w = (q * scale.to(acc)[:, None, :]).reshape(-1, q.shape[-1]).to(x.dtype)
-    return (x @ w).to(out_dtype or x.dtype)
+    return (x @ dequantize(4, qw, scale, x.dtype)).to(out_dtype or x.dtype)
 
 
 def _check_kernel_inputs(x, qw, scale, bits, out_dtype):
@@ -104,31 +118,60 @@ def _launch(bits, x, qw, scale, out_dtype):
     return out
 
 
-def matmul_int8(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, *,
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """x [R, K] @ int8 qw [K, N] times scale [1, N] -> [R, N]."""
-    out_dtype = out_dtype or x.dtype
+def _product(bits, x, qw, scale, out_dtype):
+    """The kernel on the card, its plain version on the CPU."""
+    wrapper = matmul_int8 if bits == 8 else matmul_int4
     if x.is_cuda:
-        out = _launch(8, x, qw, scale, out_dtype)
-        build.count_launch(matmul_int8)
+        out = _launch(bits, x, qw, scale, out_dtype)
+        build.count_launch(wrapper)
         return out
     if x.device.type == "cpu":
-        return matmul_int8_reference(x, qw, scale, out_dtype=out_dtype)
-    raise ValueError(f"matmul_int8: no path for device {x.device}")
+        plain = matmul_int8_reference if bits == 8 else matmul_int4_reference
+        return plain(x, qw, scale, out_dtype=out_dtype)
+    raise ValueError(f"{wrapper.__name__}: no path for device {x.device}")
+
+
+class _QuantMatmul(torch.autograd.Function):
+    """:func:`_product` forward; ``dx = dy @ dequant(w)^T`` backward, the
+    cotangent rounded to x's dtype first (as JAX's dot transpose casts it
+    back at this boundary)."""
+
+    @staticmethod
+    def forward(ctx, x, qw, scale, bits, out_dtype):
+        ctx.save_for_backward(qw, scale)
+        ctx.bits, ctx.x_dtype = bits, x.dtype
+        return _product(bits, x, qw, scale, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        qw, scale = ctx.saved_tensors
+        build.count_launch(matmul_int8 if ctx.bits == 8 else matmul_int4, "backward_calls")
+        dx = dy.to(ctx.x_dtype) @ dequantize(ctx.bits, qw, scale, ctx.x_dtype).T
+        return dx, None, None, None, None
+
+
+def _matmul(bits, x, qw, scale, out_dtype):
+    # the Function only where a gradient is asked for: serving skips its
+    # bookkeeping on every projection
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _QuantMatmul.apply(x, qw, scale, bits, out_dtype)
+    return _product(bits, x, qw, scale, out_dtype)
+
+
+def matmul_int8(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, *,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x [R, K] @ int8 qw [K, N] times scale [1, N] -> [R, N], with a
+    gradient to x."""
+    return _matmul(8, x, qw, scale, out_dtype or x.dtype)
 
 
 def matmul_int4(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, *,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """x [R, K] @ packed int4 qw [K/2, N] with block scales [K/32, N] -> [R, N]."""
-    out_dtype = out_dtype or x.dtype
-    if x.is_cuda:
-        out = _launch(4, x, qw, scale, out_dtype)
-        build.count_launch(matmul_int4)
-        return out
-    if x.device.type == "cpu":
-        return matmul_int4_reference(x, qw, scale, out_dtype=out_dtype)
-    raise ValueError(f"matmul_int4: no path for device {x.device}")
+    """x [R, K] @ packed int4 qw [K/2, N] with block scales [K/32, N] -> [R, N],
+    with a gradient to x."""
+    return _matmul(4, x, qw, scale, out_dtype or x.dtype)
 
 
-matmul_int8.launches = 0
-matmul_int4.launches = 0
+for _wrapper in (matmul_int8, matmul_int4):
+    _wrapper.launches = 0
+    _wrapper.backward_calls = 0

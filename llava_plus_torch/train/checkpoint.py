@@ -145,6 +145,30 @@ def llama_state_dict_from_params(lm, cfg) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def mpt_state_dict_from_params(lm, cfg) -> Dict[str, torch.Tensor]:
+    """LLaVA-MPT's decoder keys (``transformer.wte`` / ``blocks.N`` /
+    ``norm_f``, the reference ``llava_mpt.py``), as the JAX package writes
+    them."""
+    sd = {
+        "transformer.wte.weight": _t(lm["wte"]),
+        "transformer.norm_f.weight": _t(lm["norm_f"]),
+    }
+    if "wpe" in lm:
+        sd["transformer.wpe.weight"] = _t(lm["wpe"])
+    layer_map = [
+        ("norm_1.weight", ("norm1",), False),
+        ("norm_2.weight", ("norm2",), False),
+        ("attn.Wqkv.weight", ("attn", "wqkv"), True),
+        ("attn.out_proj.weight", ("attn", "out_proj"), True),
+        ("ffn.up_proj.weight", ("mlp", "up_proj"), True),
+        ("ffn.down_proj.weight", ("mlp", "down_proj"), True),
+    ]
+    for hf_name, path, transpose in layer_map:
+        for i, m in enumerate(_per_layer(lm["layers"], path, cfg.n_layers)):
+            sd[f"transformer.blocks.{i}.{hf_name}"] = _t(m.T if transpose else m)
+    return sd
+
+
 def clip_state_dict_from_params(vt, cfg,
                                 prefix="model.vision_tower.vision_tower.vision_model."
                                 ) -> Dict[str, torch.Tensor]:
@@ -194,24 +218,35 @@ def projector_state_dict_from_params(proj, prefix="model.mm_projector.") -> Dict
     return sd
 
 
-def export_hf_llava(params, cfg: LlavaConfig, out_dir, tokenizer=None) -> Path:
-    """Write a full HF-layout LLaVA checkpoint (safetensors + config.json)."""
-    from safetensors.torch import save_file
+def _mpt_hf_config(m) -> dict:
+    return {
+        "architectures": ["LlavaMPTForCausalLM"],
+        "model_type": "llava_mpt",
+        "vocab_size": m.vocab_size,
+        "d_model": m.d_model,
+        "n_layers": m.n_layers,
+        "n_heads": m.n_heads,
+        "expansion_ratio": m.expansion_ratio,
+        "max_seq_len": m.max_seq_len,
+        "attn_config": {
+            "alibi": m.alibi,
+            "alibi_bias_max": m.alibi_bias_max,
+            "attn_type": "multiquery_attention" if m.multiquery else "multihead_attention",
+            "prefix_lm": m.prefix_lm,
+            "attn_uses_sequence_id": m.attn_uses_sequence_id,
+            "clip_qkv": m.clip_qkv,
+            "qk_ln": m.qk_ln,
+            "softmax_scale": m.softmax_scale,
+        },
+        "no_bias": m.no_bias,
+        "learned_pos_emb": m.learned_pos_emb,
+        "layer_norm_epsilon": m.layer_norm_eps,
+        "logit_scale": m.logit_scale,
+    }
 
-    if cfg.language_model_type != "llama":
-        raise NotImplementedError("the HF export of the MPT backbone is not ported yet "
-                                  "(ROADMAP Queue 1 item 13)")
-    out_dir = Path(out_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    sd = llama_state_dict_from_params(params["language_model"], cfg.text)
-    if params.get("vision_tower"):
-        sd.update(clip_state_dict_from_params(params["vision_tower"], cfg.vision))
-    if params.get("mm_projector"):
-        sd.update(projector_state_dict_from_params(params["mm_projector"]))
-    save_file(sd, str(out_dir / "model.safetensors"))
 
-    t = cfg.text
-    hf_cfg = {
+def _llama_hf_config(t) -> dict:
+    return {
         "architectures": ["LlavaLlamaForCausalLM"],
         "model_type": "llava",
         "vocab_size": t.vocab_size,
@@ -226,6 +261,33 @@ def export_hf_llava(params, cfg: LlavaConfig, out_dir, tokenizer=None) -> Path:
         **({"rope_scaling": {"type": t.rope_scaling_type, "factor": t.rope_scaling_factor}}
            if t.rope_scaling_type else {}),
         "tie_word_embeddings": t.tie_word_embeddings,
+    }
+
+
+def export_hf_llava(params, cfg: LlavaConfig, out_dir, tokenizer=None) -> Path:
+    """Write a full HF-layout LLaVA checkpoint (safetensors + config.json);
+    for the MPT backbone the reference LLaVA-MPT layout, with the tower and
+    the projector under ``transformer.*`` as well."""
+    from safetensors.torch import save_file
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if cfg.language_model_type == "mpt":
+        sd = mpt_state_dict_from_params(params["language_model"], cfg.mpt)
+        prefix, hf_cfg = "transformer.", _mpt_hf_config(cfg.mpt)
+    else:
+        sd = llama_state_dict_from_params(params["language_model"], cfg.text)
+        prefix, hf_cfg = "model.", _llama_hf_config(cfg.text)
+    if params.get("vision_tower"):
+        sd.update(clip_state_dict_from_params(
+            params["vision_tower"], cfg.vision,
+            prefix=prefix + "vision_tower.vision_tower.vision_model."))
+    if params.get("mm_projector"):
+        sd.update(projector_state_dict_from_params(params["mm_projector"],
+                                                   prefix=prefix + "mm_projector."))
+    save_file(sd, str(out_dir / "model.safetensors"))
+
+    hf_cfg.update({
         "mm_vision_tower": "openai/clip-vit-large-patch14-336"
             if cfg.vision.image_size == 336 else "openai/clip-vit-large-patch14",
         "mm_projector_type": cfg.mm_projector_type,
@@ -239,7 +301,7 @@ def export_hf_llava(params, cfg: LlavaConfig, out_dir, tokenizer=None) -> Path:
         "torch_dtype": "bfloat16",
         # the vision tower's own dims, so an import never guesses them
         "mm_vision_config": dataclasses.asdict(cfg.vision),
-    }
+    })
     (out_dir / "config.json").write_text(json.dumps(hf_cfg, indent=2))
     if tokenizer is not None and hasattr(tokenizer, "save_pretrained"):
         tokenizer.save_pretrained(str(out_dir))

@@ -17,15 +17,31 @@ Stage 1 (``--tune-mm-mlp-adapter true``) trains the projector and saves
 and saves the training state and a final HF export. The trainer holds the
 language model per layer (``models/convert.py:per_layer``, views of the
 stacked tensors), so the stacked tree that :func:`train` returns is the
-trained one.
+trained one. Either backbone trains: ``--tiny-debug-arch mpt`` builds the
+tiny LLaVA-MPT (with ``--version mpt``).
 
-Not ported yet, each raising ``NotImplementedError``: LoRA / QLoRA
-(``--lora-enable``, ``--bits 4|8``; ROADMAP Queue 1 item 14), training the
-MPT backbone, which serves but has no ALiBi flash backward yet
-(``--tiny-debug-arch mpt``; item 13), loading a checkpoint
-(``--model-name-or-path``, ``--pretrain-mm-mlp-adapter``; item 6) and the
-(dp, fsdp, tp) mesh (``--dp``,
-``--fsdp-axis``, ``--tp`` other than 1; item 15).
+LoRA / QLoRA (``--lora-enable``, ``--bits 4|8``) follows the JAX trainer,
+surprises included: ``--bits`` quantizes the language model (unfused, the
+LLaMA matrices and the head) before the adapters are made, and only with
+``--lora-enable``; only the adapters train, with ``optax.adamw(lr)``'s
+defaults (betas 0.9 / 0.999, eps 1e-8, weight decay 1e-4 on every adapter,
+no clipping, a constant lr; the projector stays frozen and
+``--mm-projector-lr`` is ignored); ``grad_norm`` is the adapters' norm;
+``--lora-dropout`` is recorded, not applied; the save writes the PEFT
+adapter, ``non_lora_trainables.bin`` (the projector) and ``config.json``,
+and no training state. The adapters target LLaMA's matrices: LoRA on the MPT
+backbone raises ``ValueError``.
+
+    python -m llava_plus_torch.train.train --tiny-debug-model true \
+        --lora-enable true --bits 4 --lora-r 8 --lora-alpha 16 \
+        --data-path data.json --image-folder images --max-steps 2 \
+        --per-device-train-batch-size 2 --bf16 false --device cpu \
+        --output-dir out
+
+Not ported yet, each raising ``NotImplementedError``: loading a checkpoint
+(``--model-name-or-path``, ``--pretrain-mm-mlp-adapter``; ROADMAP Queue 1
+item 4) and the (dp, fsdp, tp) mesh (``--dp``, ``--fsdp-axis``, ``--tp``
+other than 1; item 10).
 """
 
 from __future__ import annotations
@@ -53,12 +69,16 @@ from llava_plus_torch.data.image_processing import (
     ClipImageProcessor,
     processor_for_vision_tower,
 )
-from llava_plus_torch.models.configs import tiny_llava_config
+from llava_plus_torch.models.configs import tiny_llava_config, tiny_llava_mpt_config
 from llava_plus_torch.models.convert import per_layer
 from llava_plus_torch.models.llava import MultimodalBatch
+from llava_plus_torch.ops.quant import quantize_llava_params
 from llava_plus_torch.train import checkpoint as ckpt_lib
+from llava_plus_torch.train import lora as lora_lib
 from llava_plus_torch.train import step as step_lib
-from llava_plus_torch.train.optimizer import OptimizerConfig, build_optimizer
+from llava_plus_torch.train.optimizer import (
+    OptimizerConfig, build_optimizer, global_norm, tree_leaves,
+)
 from llava_plus_torch.utils.logging import build_logger
 
 
@@ -76,7 +96,7 @@ class ModelArguments:
     mm_use_im_start_end: bool = False
     mm_use_im_patch_token: bool = False
     tiny_debug_model: bool = False  # tests/CI: random tiny model
-    tiny_debug_arch: str = "llama"  # "mpt" training is not ported yet
+    tiny_debug_arch: str = "llama"  # "llama" | "mpt" backbone for it
     # accepted for recipe compatibility; attention is the flash kernels
     mpt_attn_impl: Optional[str] = "triton"
 
@@ -121,7 +141,9 @@ class TrainingArguments:
     lora_alpha: int = 256
     lora_dropout: float = 0.05
     # accepted for recipe compatibility (the optimizer is AdamW as
-    # adamw_torch computes it; LoRA and QLoRA are not ported yet)
+    # adamw_torch computes it; QLoRA quantizes to blockwise int4 /
+    # per-channel int8, not nf4 double-quant; LoRA bias training is
+    # unsupported, "none" is what exports)
     optim: str = "adamw_torch"
     remove_unused_columns: bool = False
     double_quant: bool = True
@@ -139,32 +161,59 @@ class TrainingArguments:
 
 
 def _unported(model_args: ModelArguments, training_args: TrainingArguments):
-    if training_args.lora_enable or training_args.bits in (4, 8):
-        raise NotImplementedError("LoRA / QLoRA training (train/lora.py) is not ported yet: "
-                                  "ROADMAP Queue 1 item 14")
-    if model_args.tiny_debug_arch != "llama":
-        raise NotImplementedError("training the MPT backbone (the ALiBi flash backward) is not "
-                                  "ported yet: ROADMAP Queue 1 item 13")
     if ((model_args.model_name_or_path is not None and not model_args.tiny_debug_model)
             or model_args.pretrain_mm_mlp_adapter):
         raise NotImplementedError("loading a checkpoint (--model-name-or-path, "
                                   "--pretrain-mm-mlp-adapter) is not ported yet: ROADMAP "
-                                  "Queue 1 item 6")
+                                  "Queue 1 item 4")
     if training_args.dp != 1 or training_args.tp != 1 or training_args.fsdp_axis not in (None, 1):
         raise NotImplementedError("the (dp, fsdp, tp) mesh is not ported yet: one card "
-                                  "(ROADMAP Queue 1 item 15)")
+                                  "(ROADMAP Queue 1 item 10)")
 
 
 def build_model(model_args: ModelArguments, dtype: torch.dtype, device):
-    """(params, cfg, tokenizer): the tiny debug model with random weights
-    from seed 0, made on ``device`` in the stacked layout."""
+    """(params, cfg, tokenizer): the tiny debug model of ``tiny_debug_arch``
+    (LLaMA or MPT) with random weights from seed 0, made on ``device`` in
+    the stacked layout."""
     from llava_plus_torch.data.debug_tokenizer import DebugTokenizer
     from llava_plus_torch.models import llava as llava_model
 
-    cfg = tiny_llava_config()
+    mpt = model_args.tiny_debug_arch == "mpt"
+    cfg = tiny_llava_mpt_config() if mpt else tiny_llava_config()
     params = llava_model.init_params(cfg, torch.Generator(device=device).manual_seed(0),
                                      device, dtype)
-    return params, cfg, DebugTokenizer(vocab_size=cfg.text.vocab_size)
+    tok = DebugTokenizer(vocab_size=cfg.mpt.vocab_size if mpt else cfg.text.vocab_size)
+    if mpt:
+        tok.bos_token_id = None  # MPT tokenizers carry no BOS
+    return params, cfg, tok
+
+
+def _lora_step_fn(params, cfg, lora_cfg: lora_lib.LoraConfig, lora_layers, learning_rate,
+                  remat: bool, accum: int):
+    """The LoRA step of the JAX trainer: gradients of the adapters alone
+    (held per layer, views of the stacked adapters) through the frozen base
+    with the adapters attached lazily, then ``optax.adamw(lr)`` with its
+    defaults: weight decay 1e-4 on every adapter, no clipping, a constant
+    lr (the port's AdamW with that configuration). Returns ``step(batch) ->
+    metrics``; the adapters are updated in place."""
+    tree = {"language_model": {"lora": lora_layers}, "mm_projector": {}, "vision_tower": {}}
+    opt = build_optimizer(tree, OptimizerConfig(
+        learning_rate=learning_rate, weight_decay=1e-4, warmup_ratio=0.0, schedule="constant",
+        max_grad_norm=float("inf"), train_mm_projector=False))
+    state = opt.init(tree)
+
+    def loss_of(p, mb):
+        lm = lora_lib.apply_lora(params["language_model"], p["lora"], lora_cfg)
+        return step_lib.loss_fn(dict(params, language_model=lm), cfg, mb, remat=remat)
+
+    def step(batch):
+        grads, metrics = step_lib.grads_and_metrics(loss_of, {"lora": lora_layers}, batch,
+                                                    accum, keys=("lora",))
+        metrics["grad_norm"] = global_norm(tree_leaves(grads["lora"]))
+        opt.update({"language_model": grads}, state, tree)
+        return metrics
+
+    return step
 
 
 def stack_micro_batches(arrays, pad_token_id: int, max_len: int):
@@ -233,12 +282,15 @@ def _prefetched(items, depth: int):
 def train(model_args: ModelArguments, data_args: DataArguments,
           training_args: TrainingArguments, tokenizer=None, *,
           build_model: Callable = build_model,
+          init_lora: Callable = lora_lib.init_lora_params,
           on_step: Optional[Callable] = None):
-    """Run the recipe; returns (params in the stacked layout, cfg).
-    ``build_model(model_args, dtype, device) -> (params, cfg, tokenizer)``
-    gives the initial weights; ``on_step(step, metrics, seconds, batch)``,
-    if given, sees every step's metrics (floats), its host time and the
-    batch arrays."""
+    """Run the recipe; returns (params in the stacked layout, cfg); with
+    LoRA the base as it was, and the trained adapters are what the save
+    writes. ``build_model(model_args, dtype, device) -> (params, cfg,
+    tokenizer)`` gives the initial weights, ``init_lora(lm_params, lora_cfg,
+    generator)`` the initial stacked adapters (updated in place by the
+    training); ``on_step(step, metrics, seconds, batch)``, if given, sees
+    every step's metrics (floats), its host time and the batch arrays."""
     _unported(model_args, training_args)
     logger = build_logger("train", "train.log")
     device = torch.device(training_args.device)
@@ -286,17 +338,34 @@ def train(model_args: ModelArguments, data_args: DataArguments,
         train_mm_projector=not training_args.freeze_mm_mlp_adapter,
         train_vision_tower=False,
     )
+    accum = max(int(training_args.gradient_accumulation_steps), 1)
+    remat = training_args.gradient_checkpointing
+    lora_cfg = lora_params = lora_step = None
+    if training_args.lora_enable:
+        if cfg.language_model_type != "llama":
+            raise ValueError("LoRA targets the LLaMA backbone's matrices (the JAX package's "
+                             f"LLAMA_TARGETS), not {cfg.language_model_type!r}")
+        lora_cfg = lora_lib.LoraConfig(r=training_args.lora_r, alpha=training_args.lora_alpha,
+                                       dropout=training_args.lora_dropout)
+        if training_args.bits in (4, 8):
+            params = quantize_llava_params(params, "llama", bits=training_args.bits)
+        lora_params = init_lora(params["language_model"], lora_cfg,
+                                torch.Generator(device=device).manual_seed(1))
+        opt_cfg = dataclasses.replace(opt_cfg, train_language_model=False)
     stacked_params = params
     params = per_layer(params)  # views: updates reach stacked_params
-    optimizer = build_optimizer(params, opt_cfg)
-    opt_state = optimizer.init(params)
-    accum = max(int(training_args.gradient_accumulation_steps), 1)
-    step_fn = step_lib.make_train_step(cfg, optimizer, remat=training_args.gradient_checkpointing,
-                                       accum_steps=accum)
+    if lora_params is not None:
+        lora_step = _lora_step_fn(params, cfg, lora_cfg, lora_lib.lora_per_layer(lora_params),
+                                  training_args.learning_rate, remat, accum)
+        opt_state = None
+    else:
+        optimizer = build_optimizer(params, opt_cfg)
+        opt_state = optimizer.init(params)
+        step_fn = step_lib.make_train_step(cfg, optimizer, remat=remat, accum_steps=accum)
 
     # resume --------------------------------------------------------------
     start_step = 0
-    if training_args.resume:
+    if training_args.resume and lora_params is None:   # a LoRA run saves no state
         latest = ckpt_lib.latest_checkpoint(training_args.output_dir)
         if latest is not None:
             state, start_step = ckpt_lib.restore_train_state(latest, params, opt_state)
@@ -361,7 +430,10 @@ def train(model_args: ModelArguments, data_args: DataArguments,
                 break
             batch = MultimodalBatch(**{k: torch.from_numpy(np.asarray(v)).to(device)
                                        for k, v in arrays.items()})
-            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            if lora_step is not None:
+                metrics = lora_step(batch)
+            else:
+                params, opt_state, metrics = step_fn(params, opt_state, batch)
             step += 1
             if step % training_args.logging_steps == 0 or on_step is not None:
                 m = {k: float(v) for k, v in metrics.items()}
@@ -372,14 +444,16 @@ def train(model_args: ModelArguments, data_args: DataArguments,
                 if on_step is not None:
                     on_step(step, m, dt, arrays)
             if step % training_args.save_steps == 0:
-                _save(params, opt_state, step, cfg, training_args, model_args, tokenizer)
+                _save(params, opt_state, step, cfg, training_args, model_args, tokenizer,
+                      lora_params, lora_cfg)
 
-    _save(params, opt_state, step, cfg, training_args, model_args, tokenizer, final=True)
+    _save(params, opt_state, step, cfg, training_args, model_args, tokenizer, lora_params,
+          lora_cfg, final=True)
     return stacked_params, cfg
 
 
 def _save(params, opt_state, step, cfg, training_args, model_args, tokenizer,
-          final: bool = False):
+          lora_params=None, lora_cfg=None, final: bool = False):
     out_dir = Path(training_args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     if model_args.tune_mm_mlp_adapter:
@@ -388,6 +462,11 @@ def _save(params, opt_state, step, cfg, training_args, model_args, tokenizer,
             params, out_dir / f"{ckpt_lib.CKPT_PREFIX}{step}" / "mm_projector.bin")
         if final:
             ckpt_lib.export_mm_projector_bin(params, out_dir / "mm_projector.bin")
+        return
+    if lora_params is not None:
+        extra = ckpt_lib.projector_state_dict_from_params(params["mm_projector"])
+        lora_lib.save_peft_adapter(lora_params, lora_cfg, out_dir, extra)
+        cfg.save(out_dir / "config.json")
         return
     ckpt_lib.save_train_state(out_dir, step, params, opt_state, cfg)
     if final:

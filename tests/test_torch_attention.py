@@ -177,10 +177,10 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda():
 
 def test_flash_rejects_alibi():
     """What the ALiBi variant does not take raises: slopes that are not f32
-    [H], and the backward of an ALiBi forward (the ALiBi backward kernels are
-    not ported). Its forward is the JAX function (``test_torch_alibi.py``
-    holds it to the Pallas kernel); here, to the f32 reference with the
-    dense JAX bias."""
+    [H]. Its forward and its gradient (through the ALiBi backward's plain
+    version) are the JAX function's (``test_torch_alibi.py`` and
+    ``test_torch_alibi_bwd.py`` hold them to the Pallas kernels); here, to
+    the f32 reference with the dense JAX bias and its ``jax.grad``."""
     from llava_plus_tpu.models import mpt as jax_mpt
     from llava_plus_torch.models.mpt import alibi_slopes
 
@@ -192,11 +192,13 @@ def test_flash_rejects_alibi():
     qt = _t(q).requires_grad_()
     out, _ = flash_attention(qt, _t(k), _t(v), alibi_slopes=alibi_slopes(2))
     pos = jnp.arange(20, dtype=jnp.int32)[None]
-    want = jax_attn.xla_attention(q, k, v, causal=True,
-                                  bias=jax_mpt.alibi_bias_from_positions(pos, pos, 2))
+    bias = jax_mpt.alibi_bias_from_positions(pos, pos, 2)
+    want = jax_attn.xla_attention(q, k, v, causal=True, bias=bias)
     _close(out, want)
-    with pytest.raises(NotImplementedError):
-        out.sum().backward()
+    out.sum().backward()
+    want_dq = jax.grad(lambda x: jax_attn.xla_attention(x, k, v, causal=True,
+                                                        bias=bias).sum())(jnp.asarray(q))
+    _close(qt.grad, want_dq)
 
 
 @pytest.mark.parametrize("case,want", [

@@ -2,8 +2,8 @@
 ``llava_plus_torch`` module and run the tiny slice on the CPU (through
 ``Generator.stream`` on the LLaMA and the MPT backbone, and through the
 port's HTTP worker as a client reaches it, single stream and on the paged
-engine with a prefix hit, and the training CLI for a stage-1 and a stage-2
-run), then check that neither ``jax`` nor ``triton`` nor any module of the
+engine with a prefix hit, and the training CLI for a stage-1, a stage-2, a
+QLoRA and an MPT run), then check that neither ``jax`` nor ``triton`` nor any module of the
 JAX package (``llava_plus_tpu``) was imported and that no kernel build
 (``nvcc``) ran.
 And the port's own copies of the JAX package's framework-free modules
@@ -30,6 +30,7 @@ import importlib, pkgutil, sys
 import torch
 import llava_plus_torch
 names = [m.name for m in pkgutil.walk_packages(llava_plus_torch.__path__, "llava_plus_torch.")]
+assert "llava_plus_torch.train.lora" in names
 for name in names:
     importlib.import_module(name)
 
@@ -154,11 +155,21 @@ argv = ["--tiny-debug-model", "true", "--data_path", str(tmp / "data.json"),
         "--image-folder", str(tmp), "--max-steps", "2", "--per-device-train-batch-size", "2",
         "--bf16", "false", "--gradient-checkpointing", "true", "--device", "cpu",
         "--output-dir", str(tmp / "out")]
+want = "checkpoint-2/state.pt"
 if sys.argv[1] == "stage1":
     argv += ["--tune-mm-mlp-adapter", "true", "--version", "plain"]
+    want = "mm_projector.bin"
+elif sys.argv[1] == "qlora":
+    argv += ["--lora-enable", "true", "--bits", "4", "--lora-r", "4", "--lora-alpha", "8"]
+    want = "adapter_model.safetensors"
+elif sys.argv[1] == "mpt":
+    argv += ["--tiny-debug-arch", "mpt", "--version", "mpt"]
+    want = "hf_export/model.safetensors"
 train.main(argv)
 out = tmp / "out"
-assert (out / ("mm_projector.bin" if sys.argv[1] == "stage1" else "checkpoint-2/state.pt")).exists()
+assert (out / want).exists()
+assert ("llava_plus_torch.train.lora" in sys.modules) and (
+    sys.argv[1] != "mpt" or "llava_plus_torch.models.mpt" in sys.modules)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
 assert not bad, bad
 assert build._lib is None
@@ -188,10 +199,13 @@ def test_port_paged_engine_over_http_imports_no_jax():
     assert _run(HTTP_SCRIPT, "paged") >= 2
 
 
-@pytest.mark.parametrize("stage", ["stage1", "stage2"])
+@pytest.mark.parametrize("stage", ["stage1", "stage2", "qlora", "mpt"])
 def test_port_trainer_cli_imports_no_jax(stage):
     """The training CLI (dataset, collator, remat, the flash Function's
-    plain path, AdamW, checkpoints and exports) in a fresh interpreter."""
+    plain path, AdamW, checkpoints and exports) in a fresh interpreter; also
+    QLoRA (``train/lora.py``, the quantized matmuls' backward Function, the
+    PEFT export) and the MPT backbone (the ALiBi backward's plain path, the
+    MPT HF export)."""
     assert _run(TRAIN_SCRIPT, stage) == 2
 
 

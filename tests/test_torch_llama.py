@@ -66,7 +66,10 @@ def test_embed_tokens_clamps_negative_ids(params):
 
 
 def test_int8_cache_write_is_exact():
-    """Same int8 bytes and f32 scales as the JAX write, padding dropped."""
+    """Same int8 bytes and f32 scales as the JAX write, padding dropped. The
+    JAX write runs jitted, as its engine and ``Generator`` run it (XLA turns
+    its division by 127 into a product by ``f32(1/127)``, which the port
+    computes)."""
     rng = np.random.default_rng(2)
     L, B, S, H, D = 2, 2, 8, 2, 16
     new = (rng.normal(size=(B, 3, H, D)) * rng.uniform(0.01, 10, size=(B, 3, H, 1))
@@ -75,9 +78,10 @@ def test_int8_cache_write_is_exact():
     positions = np.array([[0, 1, 2], [5, 6, S]], np.int32)  # last row: padding
     vals = np.zeros((L, B, S, H, D), np.int8)
     scales = np.zeros((L, B, S, H, 1), np.float32)
-    jv, js = jax_llama._cache_write(jnp.asarray(vals), jnp.asarray(scales),
-                                    jnp.asarray(new), 1, jnp.arange(B)[:, None],
-                                    jnp.asarray(positions))
+    write = jax.jit(lambda v, s, n, p: jax_llama._cache_write(v, s, n, 1,
+                                                              jnp.arange(B)[:, None], p))
+    jv, js = write(jnp.asarray(vals), jnp.asarray(scales), jnp.asarray(new),
+                   jnp.asarray(positions))
     tv, ts = torch.from_numpy(vals.copy()), torch.from_numpy(scales.copy())
     pos = torch.from_numpy(positions)
     b, t = torch.nonzero(pos < S, as_tuple=True)

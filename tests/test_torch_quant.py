@@ -136,8 +136,13 @@ def test_kernel_input_checks_raise():
         q4 = quant.quantize_array_int4(torch.randn(256, 128))
         quant_matmul._check_kernel_inputs(x, q4["qvalue4"], q4["scale"][:4], 4, torch.bfloat16)
     quant_matmul._check_kernel_inputs(x, q["qvalue"], q["scale"], 8, torch.float32)
-    with pytest.raises(NotImplementedError):
-        quant.matmul(x, {"w": q, "lora_a": torch.zeros(256, 4), "lora_b": torch.zeros(4, 128)})
+    # a quantized base with LoRA adapters is no kernel input of its own: the
+    # base goes to the kernel, the adapters' products beside it
+    # (tests/test_torch_lora.py holds the branch to JAX)
+    a, b = torch.randn(256, 4), torch.randn(4, 128)
+    got = quant.matmul(x.float(), {**q, "lora_a": a, "lora_b": b})
+    want = quant.matmul(x.float(), q) + (x.float() @ a) @ b
+    torch.testing.assert_close(got, want)
 
 
 def _tiny(kv_heads):
