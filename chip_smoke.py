@@ -11,8 +11,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 3. each kernel against its plain PyTorch version at the main path's shapes,
    both measured against an f64 ground truth, with CUDA-event timings: flash
    forward, decode attention (bf16 and int8 cache), the int8 / int4
-   weight-only matmuls at the 7B fused matrices (wqkv, w_down, lm_head) for
-   1, 16 and 768 rows, and the paged kernels at 16 slots of 16 pages; and
+   weight-only matmuls at the 7B fused matrices (wqkv, w_down, lm_head) and
+   MPT-7B's (out_proj, up_proj, down_proj) for 1, 16 and 768 rows, the
+   native int4 matmul (the int4 tools' kernel) at their five shapes for the
+   same rows, and the paged kernels at 16 slots of 16 pages; and
    the ALiBi variants (MPT) of the flash forward, both flash backward
    kernels (T = 2048, MPT-7B's 32 slopes, MHA and 32 heads over one kv
    head, and a non-causal call), the dense decode and both paged kernels;
@@ -75,7 +77,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    alpha 256, remat) reduced to batch 4 and 3 steps on records of 700-2048
    tokens: every adapter leaf updated, the int4 base unchanged, the PEFT
    export, the peak memory and the int4 kernel's forward launches and
-   backward calls.
+   backward calls;
+14. the port's int4 measurement tools (``llava_plus_torch.tools.
+   bench_int4_variants`` and ``bench_int4``) in-process through their
+   ``main``: split-half int4, native int4 and int8 kernels at the five
+   shapes of the JAX tool and at LLaVA-1.5-7B's three, each checked against
+   its plain version and timed, with exact launch counts.
 
 Phase 3 also holds both paged kernels (decode1 and general) and both flash
 backward kernels (dK/dV and dQ, at T = 2048, MHA and GQA, a padded and a
@@ -119,6 +126,7 @@ DQ_REPLACES = "llava_plus_tpu/ops/flash_attention.py:310"
 DECODE_REPLACES = "llava_plus_tpu/ops/decode_attention.py:41"
 INT8_REPLACES = "llava_plus_tpu/ops/quant_matmul.py:71"
 INT4_REPLACES = "llava_plus_tpu/ops/quant_matmul.py:127"
+INT4N_REPLACES = "tools/bench_int4_variants.py:74"
 PAGED_DECODE1_REPLACES = "llava_plus_tpu/ops/paged_attention.py:305"
 PAGED_GENERAL_REPLACES = "llava_plus_tpu/ops/paged_attention.py:95"
 # the ALiBi branches (MPT) of those Pallas kernels; the dense decode kernel
@@ -475,113 +483,143 @@ def check_decode(tag, B, S, H, Hkv, gen, rng, alibi=False):
 # 7B matrices with fused weights (K x N) and the row counts the engine gives
 # the quantized kernels: one decode row, 16 decode slots, one 768-token prefill.
 # LLaVA-1.5-7B's, then LLaVA-MPT-7B's other three (its wqkv is 4096 x 12288
-# too; the int8 kernel only: MPT's int4 path runs on no card phase).
+# too), which it serves in int8 or, with --load-4bit, in int4.
 QUANT_SHAPES = (("wqkv", 4096, 12288), ("w_down", 11008, 4096), ("lm_head", 4096, 32000))
 MPT_QUANT_SHAPES = (("mpt out_proj", 4096, 4096), ("mpt up_proj", 4096, 16384),
                     ("mpt down_proj", 16384, 4096))
+# the native int4 kernel at the int4 measurement tools' five shapes
+# (LLaVA-1.5-7B's unfused projections, then LLaVA-1.5-13B's MLP)
+INT4N_SHAPES = (("7B q/o", 4096, 4096), ("7B gate/up", 4096, 11008), ("7B down", 11008, 4096),
+                ("13B gate/up", 5120, 13824), ("13B down", 13824, 5120))
 QUANT_ROWS = (1, 16, 768)
 
 
-def check_quant(bits, name, K, N, gen):
+def _quantize(kind, w):
+    """(packed weight, scale) of ``w`` in the layout of ``kind``: int8,
+    int4 (split-half) or int4n (native)."""
+    from llava_plus_torch.ops import quant
+
+    if kind == "int4n":
+        return quant.quantize_array_int4_native(w)
+    qw = quant.quantize_array(w) if kind == "int8" else quant.quantize_array_int4(w)
+    return qw[quant.QKEY if kind == "int8" else quant.Q4KEY], qw[quant.SKEY]
+
+
+def _dequant64(kind, q, s):
+    import torch
+    from llava_plus_torch.ops import quant_matmul as qm
+
+    if kind == "int4n":
+        return qm.dequantize_int4_native(q, s, torch.float64)
+    return qm.dequantize(8 if kind == "int8" else 4, q, s, torch.float64)
+
+
+def check_quant(kind, name, K, N, gen):
     """One weight, every row count: kernel and plain version against the f64
     product of the dequantized weight, errors relative to the largest output."""
     import torch
-    from llava_plus_torch.ops import quant
     from llava_plus_torch.ops import quant_matmul as qm
 
     dev = "cuda"
     w = torch.randn(K, N, generator=gen, device=dev).mul_(0.02).bfloat16()
-    qw = quant.quantize_array(w) if bits == 8 else quant.quantize_array_int4(w)
+    q, s = _quantize(kind, w)
     del w
-    q = qw[quant.QKEY if bits == 8 else quant.Q4KEY]
-    s = qw[quant.SKEY]
-    w64 = quant.dequantize_array(qw, torch.float64)
-    kernel_fn = qm.matmul_int8 if bits == 8 else qm.matmul_int4
-    plain_fn = qm.matmul_int8_reference if bits == 8 else qm.matmul_int4_reference
-    out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
+    w64 = _dequant64(kind, q, s)
+    kernel_fn, plain_fn = {
+        "int8": (qm.matmul_int8, qm.matmul_int8_reference),
+        "int4": (qm.matmul_int4, qm.matmul_int4_reference),
+        "int4n": (qm.matmul_int4_native, qm.matmul_int4_native_reference)}[kind]
+    # the native kernel always writes f32, as its Pallas variant does
+    out_dtype = torch.float32 if name == "lm_head" or kind == "int4n" else torch.bfloat16
+    kw = {} if kind == "int4n" else {"out_dtype": out_dtype}
     nbytes = q.numel() + s.numel() * 4
     rows = {}
     for R in QUANT_ROWS:
         x = torch.randn(R, K, generator=gen, device=dev).bfloat16()
         truth = x.double() @ w64
         top = truth.abs().max().item()
-        out = kernel_fn(x, q, s, out_dtype=out_dtype)
-        p_out = plain_fn(x, q, s, out_dtype=out_dtype)
+        out = kernel_fn(x, q, s, **kw)
+        p_out = plain_fn(x, q, s, **kw)
         torch.cuda.synchronize()
         if out.shape != (R, N) or out.dtype != out_dtype:
-            raise AssertionError(f"quant_matmul[int{bits}] {name}: {out.shape} {out.dtype}")
+            raise AssertionError(f"quant_matmul[{kind}] {name}: {out.shape} {out.dtype}")
         k_err = (out.double() - truth).abs().max().item() / top
         r_err = (p_out.double() - truth).abs().max().item() / top
-        ms = time_ms(lambda: kernel_fn(x, q, s, out_dtype=out_dtype))
-        plain_ms = time_ms(lambda: plain_fn(x, q, s, out_dtype=out_dtype))
+        ms = time_ms(lambda: kernel_fn(x, q, s, **kw))
+        plain_ms = time_ms(lambda: plain_fn(x, q, s, **kw))
         out_bytes = R * N * (4 if out_dtype == torch.float32 else 2)
         b = bound(nbytes + 2 * R * K + out_bytes, 2 * R * K * N)
         ok = within(k_err, r_err)
         rate = f", {nbytes / ms / 1e6:.0f} GB/s of weights" if R <= 16 else (
             f", {2 * R * K * N / ms / 1e9:.1f} TFLOP/s")
-        log("kernels", f"quant_matmul int{bits} {name} R={R} K={K} N={N} -> "
+        log("kernels", f"quant_matmul {kind} {name} R={R} K={K} N={N} -> "
                        f"{str(out_dtype)[6:]}: rel err {k_err:.3e} (plain {r_err:.3e}), "
                        f"{ms:.4f} ms{rate} vs plain {plain_ms:.4f} ms, bound "
                        f"{b['bound_ms']:.4f} ms ({b['bound_by']}) -> {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"quant_matmul[int{bits}] {name} R={R} disagrees with "
+            raise AssertionError(f"quant_matmul[{kind}] {name} R={R} disagrees with "
                                  "its plain version")
         rows[R] = {"max_abs_err": k_err, "ms": ms, "plain_ms": plain_ms, **b}
-    if name == "wqkv":
-        rows[16]["library_ms"] = library_quant(bits, q, s, gen)
+    if name in ("wqkv", "7B q/o"):
+        rows[16]["library_ms"] = library_quant(kind, q, s, gen)
     return rows
 
 
-def library_quant(bits, q, s, gen, R=16):
+def library_quant(kind, q, s, gen, R=16):
     """Time the library's weight-only product at R rows on the same weight,
     after checking that it computes the same function: int8 through
     ``torch._weight_int8pack_mm`` (int8 [N, K], bf16 per-channel scales),
     int4 through ``torch._weight_int4pack_mm`` (the weight repacked as its
-    unsigned nibbles minus 8, bf16 scales and zero points per 32-row group).
-    Both round the f32 scales to bf16, so the check allows 2% of the largest
-    output (a wrong layout is off by far more)."""
+    unsigned nibbles minus 8, bf16 scales and zero points per 32-row group;
+    the native layout's values are repacked the same way). Both round the f32
+    scales to bf16, so the check allows 2% of the largest output (a wrong
+    layout is off by far more)."""
     import torch
-    from llava_plus_torch.ops import quant
     from llava_plus_torch.ops import quant_matmul as qm
 
-    K, N = q.shape[0] * (2 if bits == 4 else 1), q.shape[1]
+    K = q.shape[0] * (2 if kind == "int4" else 1)
+    N = q.shape[1] * (2 if kind == "int4n" else 1)
     x = torch.randn(R, K, generator=gen, device="cuda").bfloat16()
-    if bits == 8:
+    if kind == "int8":
         wt = q.t().contiguous()
         scales = s.reshape(-1).bfloat16()
         call = lambda: torch._weight_int8pack_mm(x, wt, scales)
-        qw = {quant.QKEY: q, quant.SKEY: s}
     else:
-        vals = qm.unpack_int4(q).reshape(K, N).int() + 8              # [K, N] in 1..15
+        vals = (qm.unpack_int4(q).reshape(K, N) if kind == "int4"
+                else qm.unpack_int4_native(q)).int() + 8                 # [K, N] in 0..15
         u = vals.t().contiguous()                                       # [N, K]
         packed = ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8)       # [N, K / 2]
         wpack = torch._convert_weight_to_int4pack(packed, 8)
         sz = torch.stack([s, torch.zeros_like(s)], dim=-1).bfloat16().contiguous()
         call = lambda: torch._weight_int4pack_mm(x, wpack, qm.INT4_BLOCK, sz)
-        qw = {quant.Q4KEY: q, quant.SKEY: s}
-    truth = x.double() @ quant.dequantize_array(qw, torch.float64)
+    truth = x.double() @ _dequant64(kind, q, s)
     err = (call().double() - truth).abs().max().item() / truth.abs().max().item()
     if err > 2e-2:
-        raise AssertionError(f"library int{bits} product differs from the kernel's function "
+        raise AssertionError(f"library {kind} product differs from the kernel's function "
                              f"(rel err {err:.3e})")
     ms = time_ms(call)
-    log("kernels", f"library int{bits} weight-only product R={R} K={K} N={N}: rel err "
+    log("kernels", f"library {kind} weight-only product R={R} K={K} N={N}: rel err "
                    f"{err:.3e}, {ms:.4f} ms")
     return ms
 
 
 def phase_quant_kernels():
+    """The int8 and int4 kernels at LLaVA-1.5-7B's and LLaVA-MPT-7B's shapes,
+    the native int4 kernel at the int4 tools' five. A line reports the
+    engine's decode call (wqkv at 16 slots; the native kernel: 4096 x 4096
+    at 16 rows, the tools' default) with the largest relative error over
+    every shape and row count."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     stats = {}
-    for bits in (8, 4):
-        shapes = QUANT_SHAPES + (MPT_QUANT_SHAPES if bits == 8 else ())
-        per = {name: check_quant(bits, name, K, N, gen) for name, K, N in shapes}
-        # the line reports the engine's decode call (wqkv at 16 slots) and the
-        # largest relative error over every shape and row count
-        stats[f"quant_matmul[int{bits}]"] = dict(
-            per["wqkv"][16], shape="wqkv K=4096 N=12288 R=16",
+    for kind, shapes, head in (("int8", QUANT_SHAPES + MPT_QUANT_SHAPES, "wqkv"),
+                               ("int4", QUANT_SHAPES + MPT_QUANT_SHAPES, "wqkv"),
+                               ("int4n", INT4N_SHAPES, "7B q/o")):
+        per = {name: check_quant(kind, name, K, N, gen) for name, K, N in shapes}
+        K, N = next((K, N) for name, K, N in shapes if name == head)
+        stats[f"quant_matmul[{kind}]"] = dict(
+            per[head][16], shape=f"{head} K={K} N={N} R=16",
             max_abs_err=max(r["max_abs_err"] for rows in per.values() for r in rows.values()))
     return stats
 
@@ -1766,6 +1804,7 @@ def _reset_counts():
         k.launches = k.alibi_launches = 0
     for k in (qm.matmul_int8, qm.matmul_int4):
         k.launches = k.backward_calls = 0
+    qm.matmul_int4_native.launches = 0
 
 
 def _counts(alibi=False):
@@ -2418,6 +2457,38 @@ def phase_train_qlora(smi):
     return {"flash": flash[0], "dkv": flash[1], "dq": flash[2], "int4": q[0]}
 
 
+# ---------------------------------------------------------------------------
+# 14. the int4 measurement tools
+# ---------------------------------------------------------------------------
+
+def phase_int4_tools():
+    """The port's int4 measurement tools end to end, in-process through
+    their ``main(argv)`` at 16 rows: ``bench_int4_variants`` (the five
+    shapes: split-half int4, native int4, int8) and ``bench_int4`` (the
+    three 7B shapes: both kernels and two library baselines). Each tool
+    checks every kernel against its plain version before it times it. The
+    launch counts must be exact: for each shape and kernel one check, the
+    warm-up calls and the timed ones."""
+    import torch
+    from llava_plus_torch.ops import quant_matmul as qm
+    from llava_plus_torch.tools import bench_int4, bench_int4_variants
+
+    argv = ["--rows", "16"]
+    per = 1 + bench_int4_variants.WARMUP + bench_int4_variants.ITERS
+    n5, n3 = len(bench_int4_variants.SHAPES), len(bench_int4.SHAPES)
+    _reset_counts()
+    t0 = time.perf_counter()
+    rc = (bench_int4_variants.main(argv), bench_int4.main(argv))
+    torch.cuda.synchronize()
+    got = (qm.matmul_int4_native.launches, qm.matmul_int4.launches, qm.matmul_int8.launches)
+    want = (n5 * per, (n5 + n3) * per, (n5 + n3) * per)
+    log("int4 tools", f"exit codes {rc} in {time.perf_counter() - t0:.1f} s; launches native "
+                      f"int4 / int4 / int8 {got} (want {want})")
+    if rc != (0, 0) or got != want:
+        raise AssertionError("the int4 tools failed their checks")
+    return {"int4n": got[0], "int4": got[1], "int8": got[2]}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2460,6 +2531,7 @@ def main():
     mpt_stage1 = phase_train_mpt_stage1(smi)
     qlora = phase_train_qlora(smi)
     shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    tools = phase_int4_tools()
 
     entries = []
     paged_src = "llava_plus_torch/csrc/paged_attention.cu"
@@ -2476,9 +2548,11 @@ def main():
          DECODE_REPLACES, single["int8"] + int8["decode"] + int4["decode"]),
         ("quant_matmul[int8]", "llava_plus_torch/csrc/quant_matmul.cu", INT8_REPLACES,
          int8["quant"] + paged["quant"] + mpt["dense"]["matmul_int8"]
-         + mpt["paged"]["matmul_int8"] + narrow_lora[8][0]),
+         + mpt["paged"]["matmul_int8"] + narrow_lora[8][0] + tools["int8"]),
         ("quant_matmul[int4]", "llava_plus_torch/csrc/quant_matmul.cu", INT4_REPLACES,
-         int4["quant"] + narrow_lora[4][0] + qlora["int4"]),
+         int4["quant"] + narrow_lora[4][0] + qlora["int4"] + tools["int4"]),
+        ("quant_matmul[int4n]", "llava_plus_torch/csrc/quant_matmul.cu", INT4N_REPLACES,
+         tools["int4n"]),
         ("paged_attention[decode1]", paged_src, PAGED_DECODE1_REPLACES, paged["decode1"]),
         ("paged_attention[general]", paged_src, PAGED_GENERAL_REPLACES, narrow_general),
         ("flash_fwd[alibi]", "llava_plus_torch/csrc/flash_fwd.cu", FLASH_ALIBI_REPLACES,

@@ -2,14 +2,20 @@
 //
 // Replaces the Pallas TPU kernels llava_plus_tpu/ops/quant_matmul.py
 // _int8_kernel (launched by matmul_int8) and _int4_kernel (launched by
-// matmul_int4). Same functions:
+// matmul_int4), and tools/bench_int4_variants.py _int4n_kernel (launched by
+// matmul_int4_native). Same functions:
 //   int8: x [R, K] bf16 @ qw [K, N] int8, f32 accumulation, times the
 //         per-output-channel scale [N] f32 (the Pallas kernel leaves the
 //         scale to its caller; here it is applied in the epilogue);
 //   int4: x [R, K] bf16 @ packed qw [K/2, N] int8 with per-32-row-block
 //         scales [K/32, N] f32 applied while the tile is converted. Within
 //         each 32-row block the packing is split-half: the low nibble of
-//         packed row j holds row j, the high nibble row j + 16.
+//         packed row j holds row j, the high nibble row j + 16;
+//   int4 native: packed qw [K, N/2] uint8, element (k, n) in byte (k, n/2),
+//         the low nibble for even n, the high one for odd n, with the same
+//         block scales; f32 out. The Pallas variant's grid takes K / bk
+//         steps of bk = min(K, 4096) and drops the last K % bk rows; this
+//         kernel runs over all of K.
 // The output is bf16 or f32 (the lm_head's logits), [R, N] row-major.
 //
 // What bounds it on the card: at decode (R = the engine's slots, 1..16) the
@@ -23,7 +29,7 @@
 // over the SMs), 64 by 64 for larger R. This first version has no split-K,
 // no wgmma and no TMA; those are later work.
 //
-// Shapes: K % 128 == 0, N % 64 == 0; x rows with a 16-byte aligned stride,
+// Shapes (every layout): K % 128 == 0, N % 64 == 0; x rows with a 16-byte aligned stride,
 // the last dimension contiguous; qw, scales and out contiguous.
 
 #include <cuda_bf16.h>
@@ -72,7 +78,9 @@ __device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
 }
 
 // BITS: 8 or 4. BM x BN: the block's output tile. OUT_F32: f32 or bf16 out.
-template <int BITS, int BM, int BN, bool OUT_F32>
+// NATIVE (BITS 4 only): the [K, N/2] column-pair layout instead of split-half;
+// it changes only the weight tile's fetch and its unpack into Ws.
+template <int BITS, int BM, int BN, bool OUT_F32, bool NATIVE = false>
 __global__ void __launch_bounds__(NTHREADS)
 quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                     const int8_t* __restrict__ qw,
@@ -84,11 +92,13 @@ quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
   constexpr int NT = BN / WN / 8;         // 8-column mma tiles per warp
   constexpr int LDW = BN + 8;             // smem row stride of the weight tile
   constexpr int XCH = BM * BK / 8 / NTHREADS;              // uint4 of x a thread loads
-  constexpr int WROWS = BITS == 8 ? BK : BK / 2;           // stored rows of a tile
-  constexpr int WCH = WROWS * BN / 16 / NTHREADS;          // uint4 of weights a thread loads
+  constexpr int WROWS = BITS == 8 || NATIVE ? BK : BK / 2; // stored rows of a tile
+  constexpr int WROWB = NATIVE ? BN / 2 : BN;              // stored bytes of a tile row
+  constexpr int WCH = WROWS * WROWB / 16 / NTHREADS;       // uint4 of weights a thread loads
   constexpr int SCH = BK / QBLOCK * BN / 4;                // uint4 of int4 scales a tile has
   static_assert(WM * WN == 4 && NT >= 1, "warp layout");
   static_assert(XCH >= 1 && WCH >= 1 && SCH <= NTHREADS, "tile shape");
+  static_assert(!NATIVE || BITS == 4, "the native layout is int4");
 
   __shared__ __align__(16) __nv_bfloat16 Xs[BM * LDX];
   __shared__ __align__(16) __nv_bfloat16 Ws[BK * LDW];
@@ -117,12 +127,14 @@ quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
           ? *reinterpret_cast<const uint4*>(x + (size_t)row * ldx + k0 + c)
           : make_uint4(0, 0, 0, 0);
     }
-    const int wrow0 = BITS == 8 ? k0 : k0 / 2;
+    const int wrow0 = BITS == 8 || NATIVE ? k0 : k0 / 2;
+    const int ldw = NATIVE ? N / 2 : N;                     // bytes of a stored row
 #pragma unroll
     for (int j = 0; j < WCH; ++j) {
       const int i = tid + j * NTHREADS;
-      const int r = i / (BN / 16), c = (i % (BN / 16)) * 16;
-      wr[j] = *reinterpret_cast<const uint4*>(qw + (size_t)(wrow0 + r) * N + n0 + c);
+      const int r = i / (WROWB / 16), c = (i % (WROWB / 16)) * 16;
+      wr[j] = *reinterpret_cast<const uint4*>(qw + (size_t)(wrow0 + r) * ldw
+                                              + (NATIVE ? n0 / 2 : n0) + c);
     }
     if (BITS == 4 && tid < SCH) {
       const int r = tid / (BN / 4), c = (tid % (BN / 4)) * 4;
@@ -154,8 +166,26 @@ quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < WCH; ++j) {
       const int i = tid + j * NTHREADS;
-      const int r = i / (BN / 16), c = (i % (BN / 16)) * 16;
-      if (BITS == 8) {
+      const int r = i / (WROWB / 16), c = (i % (WROWB / 16)) * 16;
+      if (NATIVE) {
+        // 16 bytes of row r hold columns 2c .. 2c + 31: byte e is column
+        // 2c + 2e (low nibble) and 2c + 2e + 1 (high); value = nibble *
+        // scale[r / 32], rounded to bf16 once, as the Pallas kernel does.
+        const float* srow = Ss + (r / QBLOCK) * BN + 2 * c;
+        uint32_t packed[16];
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          const int p = sbyte(word_of(wr[j], e / 4), e % 4);
+          const int lo = static_cast<int>(static_cast<uint32_t>(p) << 28) >> 28;
+          const int hi = p >> 4;
+          packed[e] = pack_bf16((float)lo * srow[2 * e], (float)hi * srow[2 * e + 1]);
+        }
+        uint4* dst = reinterpret_cast<uint4*>(Ws + r * LDW + 2 * c);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          dst[q] = make_uint4(packed[4 * q], packed[4 * q + 1], packed[4 * q + 2],
+                              packed[4 * q + 3]);
+      } else if (BITS == 8) {
         // 16 int8 of row r -> 16 bf16 (exact: |q| <= 127)
         uint32_t packed[8];
 #pragma unroll
@@ -239,7 +269,7 @@ quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int BITS, bool OUT_F32>
+template <int BITS, bool OUT_F32, bool NATIVE = false>
 int launch(const void* x, const void* qw, const void* scale, void* out,
            int R, int K, int N, int ldx, cudaStream_t stream) {
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
@@ -247,11 +277,11 @@ int launch(const void* x, const void* qw, const void* scale, void* out,
   const auto* sp = static_cast<const float*>(scale);
   if (R <= 16) {
     constexpr int BM = 16, BN = 32;
-    quant_matmul_kernel<BITS, BM, BN, OUT_F32>
+    quant_matmul_kernel<BITS, BM, BN, OUT_F32, NATIVE>
         <<<dim3(N / BN, 1), NTHREADS, 0, stream>>>(xp, qp, sp, out, R, K, N, ldx);
   } else {
     constexpr int BM = 64, BN = 64;
-    quant_matmul_kernel<BITS, BM, BN, OUT_F32>
+    quant_matmul_kernel<BITS, BM, BN, OUT_F32, NATIVE>
         <<<dim3(N / BN, (R + BM - 1) / BM), NTHREADS, 0, stream>>>(xp, qp, sp, out, R, K, N, ldx);
   }
   return (int)cudaGetLastError();
@@ -278,4 +308,12 @@ extern "C" int quant_matmul_int4(const void* x, const void* qw, const void* scal
                                  void* out, int R, int K, int N, int ldx,
                                  int out_f32, void* stream) {
   return dispatch<4>(x, qw, scale, out, R, K, N, ldx, out_f32, stream);
+}
+
+// qw: the native [K, N/2] layout; out is always f32, as the Pallas variant's.
+extern "C" int quant_matmul_int4_native(const void* x, const void* qw, const void* scale,
+                                        void* out, int R, int K, int N, int ldx,
+                                        void* stream) {
+  return launch<4, true, true>(x, qw, scale, out, R, K, N, ldx,
+                               static_cast<cudaStream_t>(stream));
 }

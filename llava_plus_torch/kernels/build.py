@@ -42,6 +42,7 @@ SIGNATURES = {
     "decode_attention_fwd": [P] * 9 + [I] * 14 + [F, P],
     "quant_matmul_int8": [P] * 4 + [I] * 5 + [P],
     "quant_matmul_int4": [P] * 4 + [I] * 5 + [P],
+    "quant_matmul_int4_native": [P] * 4 + [I] * 4 + [P],
     "paged_decode1_fwd": [P] * 10 + [I] * 15 + [F, P],
     "paged_attention_fwd": [P] * 10 + [I] * 15 + [F, P],
 }

@@ -16,6 +16,10 @@ base under ``"w"`` or the quantized leaves, ``lora_a`` [in, r] and
 (JAX ``quant.py:190-199``): the frozen int8 / int4 base stays quantized on
 the card and runs the kernels, whose gradient reaches x.
 
+:func:`quantize_array_int4_native` gives the int4 measurement tools'
+native layout (``ops/quant_matmul.matmul_int4_native``), which no model
+path uses.
+
 Not ported: the W8A8 path (int8 activations for large row counts).
 """
 
@@ -27,6 +31,7 @@ import torch
 
 from llava_plus_torch.ops import quant_matmul
 from llava_plus_torch.ops.quant_matmul import INT4_BLOCK, unpack_int4 as _unpack_int4  # noqa: F401
+from llava_plus_torch.ops.quant_matmul import pack_int4_native, unpack_int4_native  # noqa: F401
 
 QKEY = "qvalue"
 Q4KEY = "qvalue4"
@@ -69,6 +74,18 @@ def quantize_array_int4(w: torch.Tensor) -> Dict[str, torch.Tensor]:
         Q4KEY: packed.to(torch.uint8).view(torch.int8).reshape(*lead, d_in // 2, d_out),
         SKEY: scale.reshape(*lead, d_in // INT4_BLOCK, d_out),
     }
+
+
+def quantize_array_int4_native(w: torch.Tensor):
+    """The int4 measurement tools' native layout of ``w [..., K, N]``: the
+    scales of :func:`quantize_array_int4`, values ``round_half_even(w /
+    scale)`` in f32 clipped to [-8, 7], packed by :func:`pack_int4_native`.
+    Returns ``(uint8 [..., K, N/2], f32 scale [..., K/32, N])``."""
+    *lead, d_in, d_out = w.shape
+    scale = quantize_array_int4(w)[SKEY]
+    wf = w.float().reshape(*lead, d_in // INT4_BLOCK, INT4_BLOCK, d_out)
+    q = torch.clamp(torch.round(wf / scale.unsqueeze(-2)), -8, 7).to(torch.int8)
+    return pack_int4_native(q.reshape(*lead, d_in, d_out)), scale
 
 
 def dequantize_array(qw: Dict[str, torch.Tensor], dtype=torch.bfloat16) -> torch.Tensor:

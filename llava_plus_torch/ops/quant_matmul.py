@@ -25,6 +25,13 @@ outside any Pallas kernel. The kernel fills a fresh buffer through a raw
 pointer, so without the Function its output would have no ``grad_fn`` and
 every adapter below the top layer would lose its gradient silently. The
 weight takes no gradient. Backward calls count in ``<wrapper>.backward_calls``.
+
+A third layout, native int4 (:func:`matmul_int4_native`), is the int4
+measurement tools' variant (Pallas ``_int4n_kernel`` in
+``tools/bench_int4_variants.py``): ``qw4n [K, N/2] uint8``, element (k, n)
+in byte (k, n // 2), the low nibble for even n and the high one for odd n,
+two's complement in [-8, 7], with the int4 block scales ``[K/32, N]``. It
+is forward only and always writes f32, as the Pallas kernel does.
 """
 
 from __future__ import annotations
@@ -175,3 +182,100 @@ def matmul_int4(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, *,
 for _wrapper in (matmul_int8, matmul_int4):
     _wrapper.launches = 0
     _wrapper.backward_calls = 0
+
+
+# -- native int4 (the measurement tools' layout) ----------------------------
+
+def pack_int4_native(values: torch.Tensor) -> torch.Tensor:
+    """int8 [..., K, N] in [-8, 7] -> uint8 [..., K, N/2]: element (k, n) in
+    byte (k, n // 2), the low nibble for even n, the high one for odd n."""
+    if values.shape[-1] % 2:
+        raise ValueError(f"native int4 packs pairs of columns, got N={values.shape[-1]}")
+    v = values.to(torch.int32) & 0x0F
+    return (v[..., 0::2] | (v[..., 1::2] << 4)).to(torch.uint8)
+
+
+def unpack_int4_native(packed: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., K, N/2] -> int8 [..., K, N], nibbles sign-extended."""
+    p = packed.to(torch.int32)
+    lo = ((p & 0x0F) ^ 8) - 8
+    hi = ((p >> 4) ^ 8) - 8
+    return torch.stack([lo, hi], dim=-1).flatten(-2).to(torch.int8)
+
+
+def dequantize_int4_native(qw4n, scale, dtype) -> torch.Tensor:
+    """The [K, N] weight of the native layout, values times block scales in
+    f32 (f64 for f64), cast to ``dtype``."""
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    K = qw4n.shape[0]
+    q = unpack_int4_native(qw4n).to(acc).reshape(K // INT4_BLOCK, INT4_BLOCK, -1)
+    return (q * scale.to(acc)[:, None, :]).reshape(K, -1).to(dtype)
+
+
+def matmul_int4_native_reference(x, qw4n, scale) -> torch.Tensor:
+    """Plain ``_int4n_kernel``: each value times its block scale in f32,
+    rounded to x's dtype, then ``x @ w`` summed in f32 (f64 for f64 inputs),
+    over the whole contraction."""
+    acc = _acc_dtype(x)
+    return x.to(acc) @ dequantize_int4_native(qw4n, scale, x.dtype).to(acc)
+
+
+def _check_native_layout(x, qw4n, scale):
+    """What the native layout needs on any device: x [R, K], uint8 [K, N/2]
+    with K % 32 == 0, f32 scales [K/32, N]."""
+    if x.dim() != 2 or x.shape[0] < 1:
+        raise ValueError(f"matmul_int4_native takes x [R >= 1, K], got {tuple(x.shape)}")
+    K = x.shape[1]
+    if qw4n.dtype != torch.uint8 or qw4n.dim() != 2:
+        raise TypeError(f"native int4 weight must be uint8 [K, N/2], got {qw4n.dtype} "
+                        f"{tuple(qw4n.shape)}")
+    if qw4n.shape[0] != K or K % INT4_BLOCK:
+        raise ValueError(f"weight {tuple(qw4n.shape)} does not fit x {tuple(x.shape)} "
+                         f"(K % {INT4_BLOCK} == 0)")
+    want = [K // INT4_BLOCK, 2 * qw4n.shape[1]]
+    if scale.dtype != torch.float32 or list(scale.shape) != want:
+        raise ValueError(f"scale must be f32 {want}, got {scale.dtype} {tuple(scale.shape)}")
+
+
+def _launch_native(x, qw4n, scale):
+    R, K = x.shape
+    N = 2 * qw4n.shape[1]
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the native int4 kernel takes a bf16 x, got {x.dtype}")
+    if K % K_TILE or N % N_TILE:
+        raise ValueError(f"the native int4 kernel needs K % {K_TILE} == 0 and "
+                         f"N % {N_TILE} == 0, got K={K} N={N}")
+    for name, t in (("x", x), ("qw4n", qw4n), ("scale", scale)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if not (qw4n.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("qw4n and scale must be contiguous")
+    if x.stride(1) != 1 or x.stride(0) % 8:
+        raise ValueError("x: last dim must be contiguous, rows 16-byte aligned")
+    if max(R * x.stride(0), K * N, R * N) >= 2 ** 31:
+        raise ValueError("the native int4 kernel takes 32-bit row offsets")
+    out = torch.empty(R, N, dtype=torch.float32, device=x.device)
+    err = build.lib().quant_matmul_int4_native(
+        x.data_ptr(), qw4n.data_ptr(), scale.data_ptr(), out.data_ptr(), R, K, N, x.stride(0),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "quant_matmul_int4_native")
+    return out
+
+
+def matmul_int4_native(x: torch.Tensor, qw4n: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x [R, K] @ native int4 qw4n [K, N/2] with block scales [K/32, N] ->
+    f32 [R, N], over all K (the kernel on the card, its plain version on
+    the CPU; any shape the kernel cannot take raises)."""
+    _check_native_layout(x, qw4n, scale)
+    if x.is_cuda:
+        out = _launch_native(x, qw4n, scale)
+        build.count_launch(matmul_int4_native)
+        return out
+    if x.device.type == "cpu":
+        return matmul_int4_native_reference(x, qw4n, scale)
+    raise ValueError(f"matmul_int4_native: no path for device {x.device}")
+
+
+matmul_int4_native.launches = 0

@@ -2,10 +2,10 @@
 ``llava_plus_torch`` module and run the tiny slice on the CPU (through
 ``Generator.stream`` on the LLaMA and the MPT backbone, and through the
 port's HTTP worker as a client reaches it, single stream and on the paged
-engine with a prefix hit, and the training CLI for a stage-1, a stage-2, a
-QLoRA and an MPT run), then check that neither ``jax`` nor ``triton`` nor any module of the
-JAX package (``llava_plus_tpu``) was imported and that no kernel build
-(``nvcc``) ran.
+engine with a prefix hit, the training CLI for a stage-1, a stage-2, a
+QLoRA and an MPT run, and the int4 measurement tools), then check that
+neither ``jax`` nor ``triton`` nor any module of the JAX package
+(``llava_plus_tpu``) was imported and that no kernel build (``nvcc``) ran.
 And the port's own copies of the JAX package's framework-free modules
 (configs, the multimodal planner, tokenizer, image processing, prompt
 tokenization, the prefix-cache hashing, the wire framing) give what the
@@ -177,6 +177,27 @@ print("steps", 2)
 """
 
 
+TOOL_SCRIPT = r"""
+import runpy, sys
+from llava_plus_torch.kernels import build
+
+def no_build(*args, **kwargs):
+    raise AssertionError("a kernel build (nvcc) was attempted")
+
+build.build = no_build
+module = f"llava_plus_torch.tools.{sys.argv[1]}"
+sys.argv = [module, "--device", "cpu", "--rows", "2", "--shape", "256x256"]
+try:   # as `python -m <module> ...` runs it
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
+assert not bad, bad
+assert build._lib is None
+print("tool", 1)
+"""
+
+
 def _run(script, *args):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -207,6 +228,13 @@ def test_port_trainer_cli_imports_no_jax(stage):
     PEFT export) and the MPT backbone (the ALiBi backward's plain path, the
     MPT HF export)."""
     assert _run(TRAIN_SCRIPT, stage) == 2
+
+
+@pytest.mark.parametrize("tool", ["bench_int4_variants", "bench_int4"])
+def test_port_int4_tools_import_no_jax(tool):
+    """``python -m llava_plus_torch.tools.<tool> --device cpu ...`` at one
+    small shape: the plain versions run, nothing of JAX is loaded."""
+    assert _run(TOOL_SCRIPT, tool) == 1
 
 
 # -- the port's own copies against the JAX package's originals -------------
