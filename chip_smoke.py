@@ -9,7 +9,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
 2. build the CUDA kernels from ``llava_plus_torch/csrc``;
 3. each kernel against its plain PyTorch version at the main path's shapes,
-   both measured against an f64 ground truth, with CUDA-event timings: flash
+   both measured against an f64 ground truth (the flash kernels launched
+   twice, bit for bit the same), with CUDA-event timings: flash
    forward, decode attention (bf16 and int8 cache), the int8 / int4
    weight-only matmuls at the 7B fused matrices (wqkv, w_down, lm_head) and
    MPT-7B's (out_proj, up_proj, down_proj) for 1, 16 and 768 rows, the
@@ -19,7 +20,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    kernels (T = 2048, MPT-7B's 32 slopes, MHA and 32 heads over one kv
    head, and a non-causal call), the dense decode and both paged kernels;
    and the dense decode kernel for a group wider than 8 (32 heads over one
-   kv head, bf16 and int8 caches, with and without slopes);
+   kv head, bf16 and int8 caches, with and without slopes); the flash
+   forward's edges (T = 704, where the last 128-row tile lies half past T,
+   with a row packed as 3 segments; the training shape T = 2048) and a
+   backward row at T = 1984 (MQA with slopes: the head split and the ragged
+   kv tile);
 4. a narrow LLaMA (head dim 128, GQA) on the card against the same weights
    on the CPU plain path: 16 greedy tokens, and the logits of the prefill and
    of every decode step, with bf16 weights (bf16 and int8 KV) and with fused
@@ -82,7 +87,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    bench_int4_variants`` and ``bench_int4``) in-process through their
    ``main``: split-half int4, native int4 and int8 kernels at the five
    shapes of the JAX tool and at LLaVA-1.5-7B's three, each checked against
-   its plain version and timed, with exact launch counts.
+   its plain version and timed, with exact launch counts;
+15. (phase 3's device times, taken last because a ``torch.profiler``
+   session can leave CUPTI attached and slow the host clocks of later
+   phases) the flash forward and dK/dV rows timed by the kernel's own
+   device time from ``torch.profiler``, so the host path around the wrapper
+   drops out, alternated with the library call (kernel, library, library,
+   kernel) in one process, with TFLOP/s and the share of the bound.
 
 Phase 3 also holds both paged kernels (decode1 and general) and both flash
 backward kernels (dK/dV and dQ, at T = 2048, MHA and GQA, a padded and a
@@ -222,7 +233,10 @@ def _slopes(H, alibi):
     return alibi_slopes(H, 8, "cuda") if alibi else None
 
 
-def check_flash(tag, B, T, H, Hkv, pad_tail, gen, alibi=False):
+def check_flash(tag, B, T, H, Hkv, pad_tail, gen, alibi=False, packed=1):
+    """The forward kernel against its plain version and the f64 truth: the
+    last row padded over its last ``pad_tail`` tokens; with ``packed`` > 1
+    the first row packed as that many segments of about equal length."""
     import torch
     from llava_plus_torch.ops.flash_attention import (
         flash_attention, flash_attention_reference,
@@ -235,6 +249,8 @@ def check_flash(tag, B, T, H, Hkv, pad_tail, gen, alibi=False):
     v = torch.randn(B, T, Hkv, D, generator=gen, device=dev).bfloat16()
     seg = torch.ones(B, T, dtype=torch.int32, device=dev)
     seg[-1, T - pad_tail:] = 0
+    for i in range(1, packed):
+        seg[0, i * T // packed:] = i + 1
     scale = D ** -0.5
 
     kw = dict(q_segment_ids=seg, kv_segment_ids=seg, alibi_slopes=slopes)
@@ -243,16 +259,25 @@ def check_flash(tag, B, T, H, Hkv, pad_tail, gen, alibi=False):
     out, lse = flash_attention(q, k, v, **kw)
     if (flash_attention.alibi_launches if alibi else flash_attention.launches) != n0 + 1:
         raise AssertionError(f"flash_fwd {tag}: the call did not launch the kernel")
+    # a second launch on the same inputs must give the same bits: each block
+    # computes its rows alone, in a fixed order
+    out2, lse2 = flash_attention(q, k, v, **kw)
+    same = torch.equal(out, out2) and torch.equal(lse, lse2)
+    del out2, lse2
     p_out, p_lse = flash_attention_reference(q, k, v, seg, seg, **ref_kw)
     t_out, t_lse = flash_attention_reference(q.double(), k.double(), v.double(), seg, seg,
                                              **ref_kw)
     torch.cuda.synchronize()
-    rows = seg > 0
-    lse_rows = rows[:, None, :].expand(B, H, T)
-    k_err = (out.double() - t_out)[rows].abs().max().item()
-    r_err = (p_out.double() - t_out)[rows].abs().max().item()
-    k_lse = (lse.double() - t_lse)[lse_rows].abs().max().item()
-    r_lse = (p_lse.double() - t_lse)[lse_rows].abs().max().item()
+    # the largest error over the rows that are not padding (a masked maximum,
+    # so no data-dependent gather)
+    rows = (seg > 0)[:, :, None, None]
+    lse_rows = (seg > 0)[:, None, :]
+
+    def err(x, truth, live):
+        return torch.where(live, (x.double() - truth).abs(), 0.0).amax().item()
+
+    k_err, r_err = err(out, t_out, rows), err(p_out, t_out, rows)
+    k_lse, r_lse = err(lse, t_lse, lse_rows), err(p_lse, t_lse, lse_rows)
     ms = time_ms(lambda: flash_attention(q, k, v, **kw))
     plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, seg, seg, **ref_kw))
     # the library's causal attention on the same tensors, heads-major as it
@@ -274,15 +299,15 @@ def check_flash(tag, B, T, H, Hkv, pad_tail, gen, alibi=False):
             qt, kt, vt, is_causal=True, enable_gqa=Hkv != H))
     # q, k, v read once, out and lse written once; the causal pairs of the
     # rows that are not padding, 4 flops per pair and head dim
-    valid = seg.sum(dim=1).double()
     nbytes = 2 * (2 * B * T * H * D + 2 * B * T * Hkv * D) + 4 * B * H * T + 2 * 4 * B * T
-    flops = 4 * H * D * float((valid * (valid + 1) / 2).sum())
+    flops = 4 * H * D * _causal_pairs(seg, True)
     b = bound(nbytes, flops)
-    ok = within(k_err, r_err) and within(k_lse, r_lse)
+    ok = within(k_err, r_err) and within(k_lse, r_lse) and same
     log("kernels", f"flash_fwd{'[alibi]' if alibi else ''} {tag} B={B} T={T} H={H} "
-                   f"Hkv={Hkv} D={D} pad={pad_tail}: "
+                   f"Hkv={Hkv} D={D} pad={pad_tail} segments in row 0: {packed}: "
                    f"out err {k_err:.3e} (plain {r_err:.3e}), lse err {k_lse:.3e} "
-                   f"(plain {r_lse:.3e}), {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+                   f"(plain {r_lse:.3e}), a second launch bit-identical {same}, "
+                   f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, "
                    f"library (sdpa) {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
                    f"({b['bound_by']}) -> {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -290,6 +315,17 @@ def check_flash(tag, B, T, H, Hkv, pad_tail, gen, alibi=False):
                              "version")
     return {"max_abs_err": k_err, "ms": ms, "plain_ms": plain_ms, **b,
             "library_ms": library_ms}
+
+
+def _causal_pairs(seg, causal):
+    """The (causal) query-key pairs within each non-zero segment of the
+    [B, T] ids: the pairs the attention kernels must compute."""
+    pairs = 0
+    for row in seg.cpu().numpy():
+        for s_id in set(row.tolist()) - {0}:
+            n = int((row == s_id).sum())
+            pairs += n * (n + 1) // 2 if causal else n * n
+    return pairs
 
 
 def check_flash_bwd(tag, B, T, H, Hkv, gen, alibi=False, causal=True):
@@ -327,6 +363,10 @@ def check_flash_bwd(tag, B, T, H, Hkv, gen, alibi=False, causal=True):
     if (getattr(fa.flash_bwd_dkv, counter), getattr(fa.flash_bwd_dq, counter)) != (n0[0] + 1,
                                                                                   n0[1] + 1):
         raise AssertionError(f"flash_bwd {tag}: the call did not launch both {counter} kernels")
+    # a second call must give the same bits (the head split sums its
+    # partials in a fixed order; nothing is accumulated by atomics)
+    same = all(torch.equal(a, b) for a, b in zip(
+        grads, fa.flash_attention_backward(q, k, v, seg, seg, out, lse, do, **kw)))
     p_out, p_lse = fa.flash_attention_reference(q, k, v, seg, seg, **kw)
     plain = fa.flash_attention_backward_reference(q, k, v, seg, seg, p_out, p_lse, do, **kw)
     q64, k64, v64 = q.double(), k.double(), v.double()
@@ -338,8 +378,8 @@ def check_flash_bwd(tag, B, T, H, Hkv, gen, alibi=False, causal=True):
     names = ("dq", "dk", "dv")
     k_err = {n: (g.double() - t).abs().max().item() for n, g, t in zip(names, grads, truth)}
     r_err = {n: (g.double() - t).abs().max().item() for n, g, t in zip(names, plain, truth)}
-    pad_rows = (seg == 0)
-    zero_pad = all(float(g[pad_rows].abs().max()) == 0.0 for g in grads)
+    pad_rows = (seg == 0)[:, :, None, None]
+    zero_pad = all(torch.where(pad_rows, g.abs(), 0).amax().item() == 0.0 for g in grads)
     finite = all(bool(torch.isfinite(g).all()) for g in grads)
     del plain, truth, q64, k64, v64
 
@@ -367,11 +407,7 @@ def check_flash_bwd(tag, B, T, H, Hkv, gen, alibi=False, causal=True):
     # the (causal) pairs within each segment; dK/dV does 4 products of 2*D
     # flops per pair and head (JAX's 8*T*T*D), dQ 3 (6*T*T*D); the slopes add
     # one multiply-add per pair, no bytes worth counting
-    pairs = 0
-    for row in seg.cpu().numpy():
-        for s_id in set(row.tolist()) - {0}:
-            n = int((row == s_id).sum())
-            pairs += n * (n + 1) // 2 if causal else n * n
+    pairs = _causal_pairs(seg, causal)
     qo_bytes = 2 * 2 * B * T * H * D             # q and dO
     kv_bytes = 2 * 2 * B * T * Hkv * D           # k and v
     small = 2 * 4 * B * H * T + 2 * 4 * B * T    # lse, delta; segment ids
@@ -379,16 +415,19 @@ def check_flash_bwd(tag, B, T, H, Hkv, gen, alibi=False, causal=True):
     b_dq = bound(qo_bytes + kv_bytes + small + qo_bytes // 2, 6 * D * H * pairs)
     ok_dkv = within(k_err["dk"], r_err["dk"]) and within(k_err["dv"], r_err["dv"])
     ok_dq = within(k_err["dq"], r_err["dq"])
+    ok = ok_dkv and ok_dq and zero_pad and finite and same
     errs = ", ".join(f"{n} err {k_err[n]:.3e} (plain {r_err[n]:.3e})" for n in names)
     log("kernels", f"flash_bwd{'[alibi]' if alibi else ''} {tag} B={B} T={T} H={H} Hkv={Hkv} "
-                   f"D={D} {'causal' if causal else 'non-causal'}, row 0 padded "
-                   f"over 100, row 1 two segments: {errs}; padding rows zero={zero_pad}; "
+                   f"D={D} S={fa.flash_bwd_dkv.last_splits} "
+                   f"{'causal' if causal else 'non-causal'}, row 0 padded "
+                   f"over 100, row 1 two segments: {errs}; padding rows zero={zero_pad}; a second "
+                   f"call bit-identical {same}; "
                    f"dkv {dkv_ms:.4f} ms (bound {b_dkv['bound_ms']:.4f}, {b_dkv['bound_by']}; "
                    f"{8 * D * H * pairs / dkv_ms / 1e9:.1f} TFLOP/s), dq {dq_ms:.4f} ms (bound "
                    f"{b_dq['bound_ms']:.4f}; {6 * D * H * pairs / dq_ms / 1e9:.1f} TFLOP/s) vs "
                    f"plain backward {plain_ms:.4f} ms, library (sdpa backward) {library_ms:.4f} "
-                   f"ms -> {'ok' if ok_dkv and ok_dq and zero_pad and finite else 'FAIL'}")
-    if not (ok_dkv and ok_dq and zero_pad and finite):
+                   f"ms -> {'ok' if ok else 'FAIL'}")
+    if not ok:
         raise AssertionError(f"flash_bwd {tag} (alibi={alibi}) disagrees with its plain "
                              "version")
     return ({"max_abs_err": max(k_err["dk"], k_err["dv"]), "ms": dkv_ms, "plain_ms": plain_ms,
@@ -744,8 +783,16 @@ def phase_kernels():
     flash_gqa = check_flash("GQA", B=2, T=768, H=32, Hkv=8, pad_tail=100, gen=gen)
     dec_bf16 = check_decode("bf16", B=16, S=1024, H=32, Hkv=32, gen=gen, rng=rng)
     dec_int8 = check_decode("int8", B=16, S=1024, H=32, Hkv=32, gen=gen, rng=rng)
-    flash = dict(flash_mha, max_abs_err=max(flash_mha["max_abs_err"],
-                                            flash_gqa["max_abs_err"]))
+    # the forward's edges: T % 128 = 64 (the last 128-row tile half past T)
+    # with a row packed as 3 segments, and the training shape (T = 2048);
+    # drawn from a generator of their own, so every earlier row keeps its
+    # inputs
+    gen_edges = torch.Generator(device="cuda").manual_seed(1)
+    flash_ragged = check_flash("MHA", B=2, T=704, H=32, Hkv=32, pad_tail=100, gen=gen_edges,
+                               packed=3)
+    flash_train = check_flash("MHA", B=2, T=2048, H=32, Hkv=32, pad_tail=100, gen=gen_edges)
+    flash = dict(flash_mha, max_abs_err=max(
+        r["max_abs_err"] for r in (flash_mha, flash_gqa, flash_ragged, flash_train)))
     # the ALiBi variants at LLaVA-MPT-7B's widths (MHA, 32 heads of 128); the
     # decode line reports the bf16 cache (it has a library call) with the
     # largest error of both caches
@@ -761,12 +808,15 @@ def phase_kernels():
     dkv_gqa, dq_gqa = check_flash_bwd("GQA", B=2, T=2048, H=32, Hkv=8, gen=gen)
     # their ALiBi variants with LLaVA-MPT-7B's 32 slopes at the same row
     # length, MHA (the 7B model's) and MQA (32 heads over one kv head), and a
-    # non-causal MQA call (MPT's prefix-LM without a prefix mask); the lines
-    # report MHA with the largest error of the three
-    alibi_bwd = [check_flash_bwd(tag, B=2, T=T, H=32, Hkv=Hkv, gen=gen, alibi=True,
+    # non-causal MQA call (MPT's prefix-LM without a prefix mask), and MQA at
+    # T = 1984 (T % 128 = 64: the last 128-row kv tile half past T); the
+    # lines report MHA with the largest error of the four
+    alibi_bwd = [check_flash_bwd(tag, B=2, T=T, H=32, Hkv=Hkv, gen=g, alibi=True,
                                  causal=causal)
-                 for tag, T, Hkv, causal in (("MHA", 2048, 32, True), ("MQA", 2048, 1, True),
-                                             ("MQA", 512, 1, False))]
+                 for tag, T, Hkv, causal, g in (("MHA", 2048, 32, True, gen),
+                                                ("MQA", 2048, 1, True, gen),
+                                                ("MQA", 512, 1, False, gen),
+                                                ("MQA", 1984, 1, True, gen_edges))]
     # the dense decode kernel for a group wider than one block's 8 rows: 32
     # query heads over one kv head (an MQA MPT), bf16 and int8 caches, with
     # and without slopes; the line reports the bf16 cache without slopes
@@ -791,6 +841,153 @@ def phase_kernels():
                 dec_alibi_bf16["max_abs_err"], dec_alibi_int8["max_abs_err"])),
             **phase_quant_kernels(),
             **phase_paged_kernels(gen, rng)}
+
+
+def device_ms(fn, names=None, iters=20, warmup=3, sessions=3):
+    """Mean device time of ``fn`` per call in ms, read from ``torch.profiler``:
+    the kernels whose name holds one of ``names``, or every device event the
+    call launches (``names`` None: a library call's whole work). A session
+    in which CUPTI delivered no device event (seen once in a long run) is
+    taken again, up to ``sessions`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and (names is None or any(n in e.key for n in names)))
+        if us > 0:
+            return us / iters / 1e3
+    raise AssertionError(f"the profiler saw no device time of {names or 'the call'} "
+                         f"in {sessions} sessions")
+
+
+def _alternated(kernel, names, library):
+    """Kernel-alone and library device ms, taken kernel, library, library,
+    kernel and averaged, so drift in the card's clocks falls on both."""
+    k1 = device_ms(kernel, names)
+    l1, l2 = device_ms(library), device_ms(library)
+    k2 = device_ms(kernel, names)
+    return (k1 + k2) / 2, (l1 + l2) / 2
+
+
+FWD_KERNEL = ("flash_fwd_kernel",)
+DKV_KERNEL = ("flash_bwd_dkv_kernel", "dkv_sum_kernel")
+DQ_KERNEL = ("flash_bwd_dq_kernel",)
+
+
+def phase_device_times(stats):
+    """Phase 3's flash rows timed by the kernel's own device time (the host
+    path around the wrapper drops out), alternated with the library call in
+    one process. Run after every other phase: once a profiler session has
+    run, CUPTI may stay attached and slow the host clocks of later phases.
+    Adds ``device_ms`` / ``library_device_ms`` to the rows of ``stats``."""
+    import torch
+    import torch.nn.functional as F
+    from llava_plus_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dev, D, B, H = "cuda", 128, 2, 32
+    scale = D ** -0.5
+    fwd = {}
+    for tag, T, Hkv, alibi in (("MHA", 768, 32, False), ("GQA", 768, 8, False),
+                               ("MHA", 768, 32, True), ("MHA", 2048, 32, False)):
+        slopes = _slopes(H, alibi)
+        q = torch.randn(B, T, H, D, generator=gen, device=dev).bfloat16()
+        k = torch.randn(B, T, Hkv, D, generator=gen, device=dev).bfloat16()
+        v = torch.randn(B, T, Hkv, D, generator=gen, device=dev).bfloat16()
+        seg = torch.ones(B, T, dtype=torch.int32, device=dev)
+        seg[-1, T - 100:] = 0
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        mask = None
+        if alibi:
+            pos = torch.arange(T, device=dev)
+            dist = (pos[:, None] - pos[None, :]).float()
+            mask = torch.where(dist >= 0, -dist * slopes[:, None, None], -torch.inf)[None]
+            mask = mask.bfloat16()
+        kern_ms, lib_ms = _alternated(
+            lambda: fa.flash_attention(q, k, v, q_segment_ids=seg, kv_segment_ids=seg,
+                                       alibi_slopes=slopes),
+            FWD_KERNEL,
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                   is_causal=not alibi,
+                                                   enable_gqa=Hkv != H))
+        flops = 4 * H * D * _causal_pairs(seg, True)
+        nbytes = 2 * (2 * B * T * H * D + 2 * B * T * Hkv * D) + 4 * B * H * T + 2 * 4 * B * T
+        b = bound(nbytes, flops)
+        fwd[(tag, T, alibi)] = kern_ms
+        log("device", f"flash_fwd{'[alibi]' if alibi else ''} {tag} B={B} T={T}: kernel "
+                      f"{kern_ms:.4f} ms device, library (sdpa) {lib_ms:.4f} ms device, "
+                      f"x{kern_ms / lib_ms:.2f} of the library, "
+                      f"{flops / kern_ms / 1e9:.1f} TFLOP/s, {b['bound_ms'] / kern_ms:.1%} of "
+                      f"the bound ({b['bound_ms']:.4f} ms, {b['bound_by']})")
+        row = {("MHA", 768, False): "flash_fwd",
+               ("MHA", 768, True): "flash_fwd[alibi]"}.get((tag, T, alibi))
+        if row:
+            stats[row].update(device_ms=kern_ms, library_device_ms=lib_ms)
+        del q, k, v, qt, kt, vt, mask
+    log("device", f"flash_fwd[alibi] / flash_fwd (MHA, T=768, device): "
+                  f"{fwd[('MHA', 768, True)] / fwd[('MHA', 768, False)]:.3f}")
+
+    dkv = {}
+    for tag, Hkv, alibi in (("MHA", 32, False), ("GQA", 8, False), ("MHA", 32, True),
+                            ("MQA", 1, True)):
+        T = 2048
+        slopes = _slopes(H, alibi)
+        q = torch.randn(B, T, H, D, generator=gen, device=dev).bfloat16()
+        k = torch.randn(B, T, Hkv, D, generator=gen, device=dev).bfloat16()
+        v = torch.randn(B, T, Hkv, D, generator=gen, device=dev).bfloat16()
+        do = torch.randn(B, T, H, D, generator=gen, device=dev).bfloat16()
+        seg = torch.ones(B, T, dtype=torch.int32, device=dev)
+        seg[0, T - 100:] = 0
+        seg[1, T // 2:] = 2
+        kw = dict(causal=True, sm_scale=scale, alibi_slopes=slopes)
+        out, lse = fa._launch(q, k, v, seg, seg, True, scale, slopes)
+        delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        mask = None
+        if alibi:
+            pos = torch.arange(T, device=dev)
+            dist = (pos[:, None] - pos[None, :]).float()
+            mask = torch.where(dist >= 0, -dist.abs() * slopes[:, None, None], -torch.inf)
+            mask = mask[None].bfloat16()
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, is_causal=not alibi,
+                                               enable_gqa=Hkv != H)
+        g_lib = do.transpose(1, 2).contiguous()
+        kern_ms, lib_ms = _alternated(
+            lambda: fa.flash_bwd_dkv(q, k, v, do, seg, seg, lse, delta, **kw), DKV_KERNEL,
+            lambda: torch.autograd.grad(o_lib, (qt, kt, vt), g_lib, retain_graph=True))
+        dq_ms = device_ms(lambda: fa.flash_bwd_dq(q, k, v, do, seg, seg, lse, delta, **kw),
+                          DQ_KERNEL)
+        pairs = _causal_pairs(seg, True)
+        kv_bytes = 2 * 2 * B * T * Hkv * D
+        nbytes = 2 * 2 * B * T * H * D + 2 * kv_bytes + 2 * 4 * B * H * T + 2 * 4 * B * T
+        b = bound(nbytes, 8 * D * H * pairs)
+        dkv[(tag, alibi)] = kern_ms
+        log("device", f"flash_bwd[dkv{',alibi' if alibi else ''}] {tag} B={B} T={T} "
+                      f"S={fa.flash_bwd_dkv.last_splits}: kernel {kern_ms:.4f} ms device, "
+                      f"library (sdpa backward: dq, dk, dv) {lib_ms:.4f} ms device, "
+                      f"x{kern_ms / lib_ms:.2f} of the library, "
+                      f"{8 * D * H * pairs / kern_ms / 1e9:.1f} TFLOP/s, "
+                      f"{b['bound_ms'] / kern_ms:.1%} of the bound ({b['bound_ms']:.4f} ms); "
+                      f"dq kernel {dq_ms:.4f} ms device, dkv + dq x{(kern_ms + dq_ms) / lib_ms:.2f} "
+                      f"of the library")
+        row = {("MHA", False): "flash_bwd[dkv]", ("MHA", True): "flash_bwd[dkv,alibi]"}
+        if (tag, alibi) in row:
+            stats[row[(tag, alibi)]].update(device_ms=kern_ms, library_device_ms=lib_ms)
+        if tag == "MQA":
+            stats["flash_bwd[dkv,alibi]"].update(mqa_device_ms=kern_ms,
+                                                 mqa_library_device_ms=lib_ms)
+        del q, k, v, do, out, lse, delta, qt, kt, vt, o_lib, g_lib, mask
+    log("device", f"flash_bwd[dkv,alibi] / flash_bwd[dkv] (MHA, T=2048, device): "
+                  f"{dkv[('MHA', True)] / dkv[('MHA', False)]:.3f}")
 
 
 # ---------------------------------------------------------------------------
@@ -2532,6 +2729,7 @@ def main():
     qlora = phase_train_qlora(smi)
     shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     tools = phase_int4_tools()
+    phase_device_times(stats)
 
     entries = []
     paged_src = "llava_plus_torch/csrc/paged_attention.cu"

@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels under ``csrc/`` and load them.
 
 Each ``csrc/*.cu`` file compiles with its own ``nvcc`` process, all started
-together, into an object; one more ``nvcc`` links them into a shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds),
+together, into an object (``csrc/*.cuh`` are headers they include); one
+more ``nvcc`` links them into a shared library with a plain C interface (no
+PyTorch headers, so a build takes seconds),
 loaded with ``ctypes``. The build runs at first use, into
 ``llava_plus_torch/build/``; the library's file name carries a hash of the
 sources and flags, so an edit to any source rebuilds and an unchanged tree
@@ -37,7 +38,7 @@ F = ctypes.c_float
 # C signatures of the entry points (pointers and the stream as void*).
 SIGNATURES = {
     "flash_fwd_bf16": [P] * 8 + [I] * 11 + [F, P],
-    "flash_bwd_dkv_bf16": [P] * 11 + [I] * 14 + [F, P],
+    "flash_bwd_dkv_bf16": [P] * 12 + [I] * 15 + [F, P],
     "flash_bwd_dq_bf16": [P] * 10 + [I] * 14 + [F, P],
     "decode_attention_fwd": [P] * 9 + [I] * 14 + [F, P],
     "quant_matmul_int8": [P] * 4 + [I] * 5 + [P],
@@ -78,7 +79,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD / f"libllava_kernels_{h.hexdigest()[:16]}.so"

@@ -21,6 +21,19 @@ ALiBi (MPT): ``alibi_slopes`` [H] f32 selects the ALiBi variants of the
 forward and both backward kernels (the Pallas ``use_alibi`` branches), which
 subtract ``slope_h * |i - j|`` from the scaled score of query row i and key
 j. Their launches are counted apart, in ``<wrapper>.alibi_launches``.
+
+Tiles: the forward takes 128 q rows a block (two warpgroups of 64) against
+128-row K/V tiles; T % 128 may be 64, whose rows past T the
+kernel neither reads nor writes. The dK/dV kernel takes 128 kv rows a block
+(``DKV_TILE``) against 64-row Q/dO tiles; the dQ kernel 64-row q and kv
+tiles. So the wrapper pads T to ``BLOCK`` = 64. The dK/dV grid also splits
+the G query heads of each kv head into ``dkv_head_splits(B, T, Hkv, G,
+n_sms)`` contiguous ranges, one block each: 1 (no split, no workspace)
+whenever the kv tiles alone give two blocks per SM, as every MHA call does;
+otherwise the smallest divisor of G that does, capped at G (MQA at B = 2,
+T = 2048, G = 32 on 132 SMs: 16). The split blocks write f32 partials to a
+workspace [2, S, B, T, Hkv, D] and a second kernel adds them in order, so
+the result stays deterministic.
 """
 
 from __future__ import annotations
@@ -33,8 +46,21 @@ import torch.nn.functional as F
 from llava_plus_torch.kernels import build
 from llava_plus_torch.ops.attention import DEFAULT_MASK_VALUE, check_slopes
 
-BLOCK = 64      # q and kv tile of the kernel
-HEAD_DIM = 128  # the kernel's only head dim
+BLOCK = 64      # the padding of T: the backward's q tile
+DKV_TILE = 128  # the dK/dV kernel's kv tile
+HEAD_DIM = 128  # the kernels' only head dim
+
+
+def dkv_head_splits(B: int, T: int, Hkv: int, G: int, n_sms: int) -> int:
+    """How many contiguous ranges the dK/dV kernel splits the G query heads
+    of a kv head into: 1 when the (T / DKV_TILE) * B * Hkv kv-tile blocks
+    already give two blocks per SM, else the smallest divisor S of G whose
+    S-fold grid does, G if none does."""
+    blocks = -(-T // DKV_TILE) * B * Hkv
+    for s in range(1, G + 1):
+        if G % s == 0 and blocks * s >= 2 * n_sms:
+            return s
+    return G
 
 
 def _pad_inputs(q, k, v, q_segment_ids, kv_segment_ids):
@@ -146,6 +172,8 @@ def _check_kernel_inputs(q, k, v, seg):
             raise ValueError(f"{name} is too large for 32-bit offsets")
     if seg.device != q.device:
         raise ValueError("segment ids must be on q's device")
+    if seg.data_ptr() % 16:
+        raise ValueError("segment ids must be 16-byte aligned (the kernels bulk-copy them)")
 
 
 def _launch(q, k, v, q_seg, kv_seg, causal, sm_scale, slopes=None):
@@ -190,6 +218,9 @@ def _bwd_args(q, k, v, do, q_seg, kv_seg, lse, delta, causal, sm_scale, slopes):
     for x in (q_seg, kv_seg):
         if x.shape != (B, T) or x.dtype != torch.int32 or not x.is_contiguous():
             raise ValueError("segment ids must be contiguous int32 [B, T]")
+    for x in (kv_seg, lse, delta):
+        if x.data_ptr() % 16:
+            raise ValueError("segment ids, lse and delta must be 16-byte aligned")
     return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              q_seg.data_ptr(), kv_seg.data_ptr(), lse.data_ptr(), delta.data_ptr(),
              None if slopes is None else slopes.data_ptr()),
@@ -207,13 +238,23 @@ def _counter(slopes):
 def flash_bwd_dkv(q, k, v, do, q_seg, kv_seg, lse, delta, *, causal, sm_scale,
                   alibi_slopes=None):
     """dK, dV [B, T, Hkv, D] bf16 from the dK/dV kernel (CUDA tensors only;
-    T a multiple of BLOCK, as the forward's padding leaves it)."""
+    T a multiple of BLOCK, as the forward's padding leaves it), with the
+    query heads split as :func:`dkv_head_splits` plans for the card."""
     ptrs, rest = _bwd_args(q, k, v, do, q_seg, kv_seg, lse, delta, causal, sm_scale,
                            alibi_slopes)
+    B, T, H, _ = q.shape
+    Hkv = k.shape[2]
+    n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits = dkv_head_splits(B, T, Hkv, H // Hkv, n_sms)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    build.check(build.lib().flash_bwd_dkv_bf16(*ptrs, dk.data_ptr(), dv.data_ptr(), *rest),
-                "flash_bwd_dkv_bf16")
+    ws = (torch.empty((2, splits) + tuple(k.shape), dtype=torch.float32, device=k.device)
+          if splits > 1 else None)
+    n_int = 5   # B, T, H, Hkv, causal come first in ``rest``; splits follows them
+    build.check(build.lib().flash_bwd_dkv_bf16(
+        *ptrs, dk.data_ptr(), dv.data_ptr(), None if ws is None else ws.data_ptr(),
+        *rest[:n_int], splits, *rest[n_int:]), "flash_bwd_dkv_bf16")
+    flash_bwd_dkv.last_splits = splits
     build.count_launch(flash_bwd_dkv, _counter(alibi_slopes))
     return dk, dv
 
@@ -304,5 +345,6 @@ flash_attention.launches = 0
 flash_attention.alibi_launches = 0
 flash_bwd_dkv.launches = 0
 flash_bwd_dkv.alibi_launches = 0
+flash_bwd_dkv.last_splits = 0   # the head splits of the latest dK/dV launch
 flash_bwd_dq.launches = 0
 flash_bwd_dq.alibi_launches = 0
