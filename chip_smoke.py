@@ -3,6 +3,8 @@
 Run from anywhere, on a machine with one NVIDIA Hopper card and nvcc:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --device-times [ROOT]   # phases 1, 2 and 15 only,
+                                                  # for the package under ROOT
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
@@ -20,8 +22,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    kernels (T = 2048, MPT-7B's 32 slopes, MHA and 32 heads over one kv
    head, and a non-causal call), the dense decode and both paged kernels;
    and the dense decode kernel for a group wider than 8 (32 heads over one
-   kv head, bf16 and int8 caches, with and without slopes); the flash
-   forward's edges (T = 704, where the last 128-row tile lies half past T,
+   kv head, bf16 and int8 caches, with and without slopes), and its cache
+   chunks at the engine's shapes (batch 1 over 2048 slots; 16 slots of 2048
+   filled 1-900, one at fill 1 and one whose visible slots all have segment
+   id 0; MHA and G = 32), every decode row launched twice, bit for bit the
+   same; the MHA backward on the draw where the dQ kernel that rounded dS to
+   bf16 failed; the flash forward's edges (T = 704, where the last 128-row tile lies half past T,
    with a row packed as 3 segments; the training shape T = 2048) and a
    backward row at T = 1984 (MQA with slopes: the head split and the ragged
    kv tile);
@@ -90,10 +96,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    its plain version and timed, with exact launch counts;
 15. (phase 3's device times, taken last because a ``torch.profiler``
    session can leave CUPTI attached and slow the host clocks of later
-   phases) the flash forward and dK/dV rows timed by the kernel's own
-   device time from ``torch.profiler``, so the host path around the wrapper
-   drops out, alternated with the library call (kernel, library, library,
-   kernel) in one process, with TFLOP/s and the share of the bound.
+   phases) the flash forward, dK/dV, dQ and dense decode rows timed by the
+   kernel's own device time from ``torch.profiler``, so the host path around
+   the wrapper drops out, alternated with the library call (kernel, library,
+   library, kernel) in one process, with TFLOP/s and the share of the bound.
 
 Phase 3 also holds both paged kernels (decode1 and general) and both flash
 backward kernels (dK/dV and dQ, at T = 2048, MHA and GQA, a padded and a
@@ -436,33 +442,80 @@ def check_flash_bwd(tag, B, T, H, Hkv, gen, alibi=False, causal=True):
              "library_ms": library_ms})
 
 
-def check_decode(tag, B, S, H, Hkv, gen, rng, alibi=False):
+def _decode_inputs(tag, B, S, H, Hkv, gen, rng, fills=None, masked_row=None):
+    """A dense-decode call at a 7B width: q, a layer slice of a stacked [L,
+    B, S, Hkv, D] cache (int8 with scales for ``tag`` "int8"), segment ids
+    and query positions. ``fills`` (slots each row has written) are drawn
+    from ``rng`` unless given, the first row full and the second at 1;
+    ``masked_row``: a row whose visible slots all have segment id 0."""
     import torch
     from llava_plus_torch.models.llama import quantize_kv
-    from llava_plus_torch.ops.decode_attention import (
-        ROW_CHUNK, decode_attention, decode_attention_reference,
-    )
 
     dev, D = "cuda", 128
     q = torch.randn(B, 1, H, D, generator=gen, device=dev).bfloat16()
-    # a layer slice of a stacked [L, B, S, Hkv, D] cache, as the model passes it
     k_all = torch.randn(2, B, S, Hkv, D, generator=gen, device=dev).bfloat16()
     v_all = torch.randn(2, B, S, Hkv, D, generator=gen, device=dev).bfloat16()
-    fills = rng.integers(1, S + 1, size=B)
-    fills[0], fills[1 % B] = S, 1
+    if fills is None:
+        fills = rng.integers(1, S + 1, size=B)
+        fills[0], fills[1 % B] = S, 1
+    fills = np.asarray(fills)
     seg = torch.zeros(B, S, dtype=torch.int32, device=dev)
     for b, f in enumerate(fills):
-        seg[b, :f] = 1
+        seg[b, :f] = 0 if b == masked_row else 1
     q_pos = torch.as_tensor(fills - 1, dtype=torch.int32, device=dev)
     ks = vs = None
     if tag == "int8":
         (kq, ks), (vq, vs) = quantize_kv(k_all), quantize_kv(v_all)
         k_all, v_all = kq, vq
         ks, vs = ks[1], vs[1]
-    kc, vc = k_all[1], v_all[1]
+    return q, k_all[1], v_all[1], seg, q_pos, ks, vs, fills
+
+
+def _decode_library(q, kc, vc, q_pos, slopes):
+    """The library's attention over the same bf16 cache (heads-major copies
+    made before the timing) with a boolean mask over the slots up to the
+    query, with ALiBi a float mask carrying the bias."""
+    import torch
+    import torch.nn.functional as F
+
+    S = kc.shape[1]
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
+    pos = torch.arange(S, device=q.device)
+    mask = (pos[None, :] <= q_pos[:, None])[:, None, None, :]
+    if slopes is not None:
+        dist = (q_pos[:, None] - pos[None, :]).float()
+        bias = -dist[:, None, None, :] * slopes[None, :, None, None]       # [B, H, 1, S]
+        mask = torch.where(mask, bias, -torch.inf).bfloat16()
+    gqa = kc.shape[2] != q.shape[2]
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=gqa)
+
+
+def _decode_bound(fills, B, H, Hkv, S, elem, quantized):
+    """The cache bytes up to each query (k and v, + scales), q, out, seg and
+    q_pos moved once, against 4 flops per visible slot, head and dim."""
+    D = 128
+    rows = int(np.sum(fills)) * Hkv
+    nbytes = 2 * rows * (D * elem + (4 if quantized else 0))
+    return nbytes, bound(nbytes + 2 * 2 * B * H * D + 4 * B * (S + 1),
+                         4 * H * D * float(np.sum(fills)))
+
+
+def check_decode(tag, B, S, H, Hkv, gen, rng, alibi=False, fills=None, masked_row=None):
+    """The dense decode kernel against its plain version and the f64 truth,
+    launched twice (every bit must repeat: the chunks' partials are summed
+    in a fixed order), with the cache chunks it was split into."""
+    import torch
+    from llava_plus_torch.ops.decode_attention import (
+        WIDE_GROUP, decode_attention, decode_attention_reference,
+    )
+
+    D = 128
+    q, kc, vc, seg, q_pos, ks, vs, fills = _decode_inputs(tag, B, S, H, Hkv, gen, rng, fills,
+                                                          masked_row)
     scale = D ** -0.5
     slopes = _slopes(H, alibi)
-    counter = ("wide_launches" if H // Hkv > ROW_CHUNK else
+    counter = ("wide_launches" if H // Hkv > WIDE_GROUP else
                "alibi_launches" if alibi else "launches")
 
     def kernel():
@@ -480,35 +533,23 @@ def check_decode(tag, B, S, H, Hkv, gen, rng, alibi=False):
     torch.cuda.synchronize()
     if getattr(decode_attention, counter) != n0 + 1:
         raise AssertionError(f"decode_attention {tag}: the call did not launch the kernel")
+    splits = decode_attention.last_splits
+    same = torch.equal(out, kernel())
     k_err = (out.double() - truth).abs().max().item()
     r_err = (p_out.double() - truth).abs().max().item()
+    finite = bool(torch.isfinite(out).all())
     ms, plain_ms = time_ms(kernel), time_ms(plain)
-    library_ms = None
-    if ks is None:
-        # the library's attention with a boolean mask over the filled slots
-        # (heads-major copies made before the timing), with ALiBi a float
-        # mask carrying the bias; an int8 cache has no single library call
-        import torch.nn.functional as F
-        qt = q.transpose(1, 2).contiguous()
-        kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
-        mask = (torch.arange(S, device=dev)[None, :] <= q_pos[:, None])[:, None, None, :]
-        if alibi:
-            dist = (q_pos[:, None] - torch.arange(S, device=dev)[None, :]).float()
-            bias = -dist[:, None, None, :] * slopes[None, :, None, None]       # [B, H, 1, S]
-            mask = torch.where(mask, bias, -torch.inf).bfloat16()
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=Hkv != H))
-    # the kernel reads the slots up to each query's position, k and v (+ scales)
-    rows = int(fills.sum()) * Hkv
-    nbytes = 2 * rows * (D * kc.element_size() + (0 if ks is None else 4))
-    b = bound(nbytes + 2 * 2 * B * H * D + 4 * B * (S + 1),
-              4 * H * D * float(fills.sum()))
-    ok = within(k_err, r_err)
+    # an int8 cache has no single library call
+    library_ms = None if ks is not None else time_ms(_decode_library(q, kc, vc, q_pos, slopes))
+    nbytes, b = _decode_bound(fills, B, H, Hkv, S, kc.element_size(), ks is not None)
+    ok = within(k_err, r_err) and same and finite
     log("kernels", f"decode_attention{'[alibi]' if alibi else ''} {tag} B={B} S={S} H={H} "
-                   f"Hkv={Hkv} D={D} "
-                   f"(mean fill {fills.mean():.0f}): "
-                   f"err {k_err:.3e} (plain {r_err:.3e}), {ms:.4f} ms "
-                   f"({nbytes / ms / 1e6:.1f} GB/s of cache read) vs plain {plain_ms:.4f} ms, "
+                   f"Hkv={Hkv} D={D} (fills {int(fills.min())}-{int(fills.max())}, mean "
+                   f"{fills.mean():.0f}{f', row {masked_row} all seg 0' if masked_row is not None else ''}"
+                   f"; {splits} chunks a row): "
+                   f"err {k_err:.3e} (plain {r_err:.3e}), a second launch bit-identical {same}, "
+                   f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s of cache read) vs plain "
+                   f"{plain_ms:.4f} ms, "
                    f"library {'none' if library_ms is None else f'(sdpa) {library_ms:.4f} ms'}, "
                    f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}) "
                    f"-> {'ok' if ok else 'FAIL'}")
@@ -774,6 +815,24 @@ def phase_paged_kernels(gen, rng):
     }
 
 
+def _dq_fault_generator():
+    """Generator seed 0 advanced past phase 3's earlier rows as they once
+    drew from it, the forward rows at T = 704 and 2048 included: the next
+    draw is the one on which the dQ kernel that rounded dS to bf16 read dq
+    err 3.199e-2 against the plain version's 1.141e-2."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    D = 128
+    decode = [(16, 1, 32, D), (2, 16, 1024, 32, D), (2, 16, 1024, 32, D)]
+    draws = ([(2, 768, 32, D)] * 3 + [(2, 768, 32, D), (2, 768, 8, D), (2, 768, 8, D)]
+             + decode * 2 + [(2, 704, 32, D)] * 3 + [(2, 2048, 32, D)] * 3
+             + [(2, 768, 32, D)] * 3 + decode * 2)
+    for shape in draws:
+        torch.randn(*shape, generator=gen, device="cuda")
+    return gen
+
+
 def phase_kernels():
     import torch
 
@@ -823,17 +882,40 @@ def phase_kernels():
     # (it has a library call) with the largest error of the four
     wide = [check_decode(tag, B=16, S=1024, H=32, Hkv=1, gen=gen, rng=rng, alibi=alibi)
             for alibi in (False, True) for tag in ("bf16", "int8")]
+    # the draw on which the dQ kernel that rounded dS to bf16 erred 2.8x the
+    # plain version (on its own generator: no earlier row's inputs move)
+    dkv_fault, dq_fault = check_flash_bwd("MHA (the bf16-dS failing draw)", B=2, T=2048, H=32,
+                                          Hkv=32, gen=_dq_fault_generator())
+    # the dense decode kernel's cache chunks at the engine's shapes (their own
+    # generator): batch 1 over S = 2048 (11 chunks a row), and 16 slots of
+    # 2048 filled 1-900 (chunks wholly past the query), one of them at fill 1
+    # and one whose visible slots all have segment id 0; MHA and G = 32
+    gen_dec = torch.Generator(device="cuda").manual_seed(2)
+    rng_dec = np.random.default_rng(2)
+    short = rng_dec.integers(1, 901, size=16)
+    short[0] = 1
+    dec_new = {(tag, Hkv, alibi, B): check_decode(
+                   tag, B=B, S=2048, H=32, Hkv=Hkv, gen=gen_dec, rng=rng_dec, alibi=alibi,
+                   fills=np.array([1700]) if B == 1 else short,
+                   masked_row=None if B == 1 else 1)
+               for tag, Hkv, alibi, B in (("bf16", 32, False, 1), ("int8", 32, False, 1),
+                                          ("bf16", 32, False, 16), ("int8", 32, False, 16),
+                                          ("bf16", 1, False, 16), ("int8", 1, True, 16))}
+
+    def worst(row, *more):
+        return dict(row, max_abs_err=max(r["max_abs_err"] for r in (row,) + more))
+
+    dec_bf16 = worst(dec_bf16, dec_new["bf16", 32, False, 1], dec_new["bf16", 32, False, 16])
+    dec_int8 = worst(dec_int8, dec_new["int8", 32, False, 1], dec_new["int8", 32, False, 16])
     return {"flash_fwd": flash,
             "flash_bwd[dkv,alibi]": dict(alibi_bwd[0][0], max_abs_err=max(
                 r[0]["max_abs_err"] for r in alibi_bwd)),
             "flash_bwd[dq,alibi]": dict(alibi_bwd[0][1], max_abs_err=max(
                 r[1]["max_abs_err"] for r in alibi_bwd)),
-            "decode_attention[G>8]": dict(wide[0], max_abs_err=max(
-                r["max_abs_err"] for r in wide)),
-            "flash_bwd[dkv]": dict(dkv_mha, max_abs_err=max(dkv_mha["max_abs_err"],
-                                                            dkv_gqa["max_abs_err"])),
-            "flash_bwd[dq]": dict(dq_mha, max_abs_err=max(dq_mha["max_abs_err"],
-                                                          dq_gqa["max_abs_err"])),
+            "decode_attention[G>8]": worst(*wide, dec_new["bf16", 1, False, 16],
+                                           dec_new["int8", 1, True, 16]),
+            "flash_bwd[dkv]": worst(dkv_mha, dkv_gqa, dkv_fault),
+            "flash_bwd[dq]": worst(dq_mha, dq_gqa, dq_fault),
             "decode_attention[bf16]": dec_bf16,
             "decode_attention[int8]": dec_int8,
             "flash_fwd[alibi]": flash_alibi,
@@ -964,8 +1046,9 @@ def phase_device_times(stats):
         kern_ms, lib_ms = _alternated(
             lambda: fa.flash_bwd_dkv(q, k, v, do, seg, seg, lse, delta, **kw), DKV_KERNEL,
             lambda: torch.autograd.grad(o_lib, (qt, kt, vt), g_lib, retain_graph=True))
-        dq_ms = device_ms(lambda: fa.flash_bwd_dq(q, k, v, do, seg, seg, lse, delta, **kw),
-                          DQ_KERNEL)
+        dq_ms, dq_lib_ms = _alternated(
+            lambda: fa.flash_bwd_dq(q, k, v, do, seg, seg, lse, delta, **kw), DQ_KERNEL,
+            lambda: torch.autograd.grad(o_lib, (qt, kt, vt), g_lib, retain_graph=True))
         pairs = _causal_pairs(seg, True)
         kv_bytes = 2 * 2 * B * T * Hkv * D
         nbytes = 2 * 2 * B * T * H * D + 2 * kv_bytes + 2 * 4 * B * H * T + 2 * 4 * B * T
@@ -977,17 +1060,62 @@ def phase_device_times(stats):
                       f"x{kern_ms / lib_ms:.2f} of the library, "
                       f"{8 * D * H * pairs / kern_ms / 1e9:.1f} TFLOP/s, "
                       f"{b['bound_ms'] / kern_ms:.1%} of the bound ({b['bound_ms']:.4f} ms); "
-                      f"dq kernel {dq_ms:.4f} ms device, dkv + dq x{(kern_ms + dq_ms) / lib_ms:.2f} "
-                      f"of the library")
-        row = {("MHA", False): "flash_bwd[dkv]", ("MHA", True): "flash_bwd[dkv,alibi]"}
-        if (tag, alibi) in row:
-            stats[row[(tag, alibi)]].update(device_ms=kern_ms, library_device_ms=lib_ms)
-        if tag == "MQA":
-            stats["flash_bwd[dkv,alibi]"].update(mqa_device_ms=kern_ms,
-                                                 mqa_library_device_ms=lib_ms)
+                      f"dq kernel {dq_ms:.4f} ms device (library {dq_lib_ms:.4f} in turns with "
+                      f"it), x{dq_ms / dq_lib_ms:.2f} of the library, "
+                      f"{6 * D * H * pairs / dq_ms / 1e9:.1f} TFLOP/s; dkv + dq "
+                      f"x{(kern_ms + dq_ms) / ((lib_ms + dq_lib_ms) / 2):.2f} of the library")
+        for kind, k_ms, l_ms in (("dkv", kern_ms, lib_ms), ("dq", dq_ms, dq_lib_ms)):
+            row = f"flash_bwd[{kind}{',alibi' if alibi else ''}]"
+            if tag == "MHA":
+                stats[row].update(device_ms=k_ms, library_device_ms=l_ms)
+            elif tag == "MQA":
+                stats[row].update(mqa_device_ms=k_ms, mqa_library_device_ms=l_ms)
         del q, k, v, do, out, lse, delta, qt, kt, vt, o_lib, g_lib, mask
     log("device", f"flash_bwd[dkv,alibi] / flash_bwd[dkv] (MHA, T=2048, device): "
                   f"{dkv[('MHA', True)] / dkv[('MHA', False)]:.3f}")
+    _device_times_decode(stats, gen)
+
+
+DECODE_KERNEL = ("decode_kernel",)
+
+
+def _device_times_decode(stats, gen):
+    """Phase 3's dense-decode rows (16 slots of 1024: bf16, int8, ALiBi bf16,
+    G = 32; and batch 1 over 2048 filled to 1700), the kernel alone
+    alternated with ``scaled_dot_product_attention`` over the same bf16
+    cache and masks (an int8 cache has no library call: the kernel alone,
+    taken twice)."""
+    from llava_plus_torch.ops.decode_attention import decode_attention
+
+    rng = np.random.default_rng(3)
+    for name, tag, B, S, Hkv, alibi, fills in (
+            ("decode_attention[bf16]", "bf16", 16, 1024, 32, False, None),
+            ("decode_attention[int8]", "int8", 16, 1024, 32, False, None),
+            ("decode_attention[alibi]", "bf16", 16, 1024, 32, True, None),
+            ("decode_attention[G>8]", "bf16", 16, 1024, 1, False, None),
+            ("decode_attention[bf16]", "bf16", 1, 2048, 32, False, np.array([1700]))):
+        H = 32
+        slopes = _slopes(H, alibi)
+        q, kc, vc, seg, q_pos, ks, vs, fills = _decode_inputs(tag, B, S, H, Hkv, gen, rng, fills)
+        kernel = lambda: decode_attention(q, kc, vc, seg, q_pos, ks, vs, alibi_slopes=slopes)
+        if ks is None:
+            kern_ms, lib_ms = _alternated(kernel, DECODE_KERNEL,
+                                          _decode_library(q, kc, vc, q_pos, slopes))
+        else:
+            kern_ms, lib_ms = (device_ms(kernel, DECODE_KERNEL)
+                               + device_ms(kernel, DECODE_KERNEL)) / 2, None
+        nbytes, b = _decode_bound(fills, B, H, Hkv, S, kc.element_size(), ks is not None)
+        lib = "none" if lib_ms is None else (f"{lib_ms:.4f} ms device, "
+                                             f"x{kern_ms / lib_ms:.2f} of the library")
+        log("device", f"{name} {tag} B={B} S={S} H={H} Hkv={Hkv} (mean fill "
+                      f"{fills.mean():.0f}; {getattr(decode_attention, 'last_splits', 1)} chunks "
+                      f"a row): kernel {kern_ms:.4f} ms device, library (sdpa) {lib}, "
+                      f"{nbytes / kern_ms / 1e6:.1f} GB/s of cache read, "
+                      f"{b['bound_ms'] / kern_ms:.1%} of the bound ({b['bound_ms']:.4f} ms, "
+                      f"{b['bound_by']})")
+        key = "b1_" if B == 1 else ""
+        stats[name].update({f"{key}device_ms": kern_ms, f"{key}library_device_ms": lib_ms})
+        del q, kc, vc, seg, q_pos, ks, vs
 
 
 # ---------------------------------------------------------------------------
@@ -2697,15 +2825,36 @@ def _leaves(tree):
         yield tree
 
 
+def device_times_only(root):
+    """Phases 1, 2 and 15 alone, for the ``llava_plus_torch`` package under
+    ``root``: run once for each of two checkouts in one call (A, B, B, A) to
+    compare their kernels' device times on one card."""
+    import collections
+
+    sys.path.insert(0, root)
+    phase_env()
+    phase_build()
+    stats = collections.defaultdict(dict)
+    phase_device_times(stats)
+    print(json.dumps({"root": root, "device_times": stats}), flush=True)
+    return 0
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 1
-    if not os.path.isdir(os.path.join(HERE, "llava_plus_torch")):
+    args = sys.argv[1:]
+    root = HERE
+    if args and args[0] == "--device-times":
+        root = os.path.abspath(args[1]) if len(args) > 1 else HERE
+    if not os.path.isdir(os.path.join(root, "llava_plus_torch")):
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 1
+    if args and args[0] == "--device-times":
+        return device_times_only(root)
     sys.path.insert(0, HERE)
     smi = phase_env()
     phase_build()

@@ -22,7 +22,7 @@
 // ~6*T*D*2 bytes). S, P, dP and dS stay in registers and never touch device
 // memory; tiles above the causal diagonal are skipped; the f32 accumulator
 // of P (and dS) is rounded to bf16 and fed straight in as the A operand of
-// the next product.
+// the next product (dQ's dS as two bf16 halves, below).
 //
 // dK/dV kernel (the Hopper design; hopper.cuh): one block per (batch x kv
 // head, head split, 128-row kv tile), kv tile slowest in the grid so the
@@ -52,10 +52,24 @@
 // splits > 1 each block writes f32 partials to a workspace and
 // dkv_sum_kernel adds them in split order: deterministic, no atomics.
 //
-// dQ kernel (the first port's design, Ampere's mma.sync m16n8k16): one block
-// per (batch, query head, 64-row q tile), 4 warps of 16 rows, looping over
-// the kv tiles up to the diagonal with plain 16-byte loads; each warp holds
-// its Q fragments in registers and accumulates dQ.
+// dQ kernel (the same Hopper pieces): one block per (batch x query head,
+// 128-row q tile), the last q tiles (the heaviest under causal masking)
+// first; two consumer warpgroups of 64 q rows, dQ in f32 registers over the
+// whole loop. TMA brings Q and dO once (thread 0 and thread 128), then the
+// 64-row K and V tiles of each step, with the kv segment ids (a bulk copy),
+// through a 3-stage ring (full / empty mbarriers), issued by threads 0 (K,
+// ids) and 128 (V) right after their warpgroup's first products; lse, delta
+// and the q segment ids of a thread's two rows are read once from global.
+//   S  = Q K^T       wgmma m64n64k16, A = Q, B = K, both K-major in smem;
+//   dP = dO V^T      wgmma m64n64k16 (with S, one group);
+//   dQ += dS K       wgmma m64n128k16, A = dS from registers, B = K MN-major,
+//                    twice: dS enters as hi = bf16(dS) and lo = bf16(dS - hi).
+// The split keeps ~16 bits of dS where one bf16 operand keeps 8: a
+// deliberate difference from the Pallas _bwd_dq_kernel (ds.astype(k.dtype)),
+// toward the f32 plain backward, for one product more per tile (4, like
+// dK/dV). P is replayed in base 2 and masked by select after the exp, per
+// element only on tiles that cross the diagonal of the warp's rows or mix
+// segments; a kv tile wholly above warpgroup 0's rows is skipped.
 //
 // Layout: q, k, v, dO are strided [B, T, H, D] / [B, T, Hkv, D] with
 // D = 128 and the last dimension contiguous; lse and delta [B, H, T] f32;
@@ -66,128 +80,8 @@
 
 namespace {
 
-constexpr int BM = 64;          // rows of a q tile; the dQ kernel's kv tile too
+constexpr int BM = 64;          // rows of a q tile of dK/dV, of a kv tile of dQ
 constexpr int HD = 128;         // head dim
-constexpr int NTHREADS = 128;   // the dQ kernel: 4 warps, 16 rows each
-constexpr int LD = HD + 8;      // smem row stride (bf16): 272 bytes, spreads banks
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two bf16 of one column from consecutive rows, packed low/high.
-__device__ __forceinline__ uint32_t ld_col2(const __nv_bfloat16* p) {
-  const uint16_t lo = *reinterpret_cast<const uint16_t*>(p);
-  const uint16_t hi = *reinterpret_cast<const uint16_t*>(p + LD);
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
-
-// The A fragment (16 rows x 16 of k) of rows r0, r0 + 8 at k-step kc.
-__device__ __forceinline__ void ld_a(uint32_t* a, const __nv_bfloat16* tile,
-                                     int r0, int kc, int tig) {
-  const int c = kc * 16 + tig * 2;
-  a[0] = ld32(tile + r0 * LD + c);
-  a[1] = ld32(tile + (r0 + 8) * LD + c);
-  a[2] = ld32(tile + r0 * LD + c + 8);
-  a[3] = ld32(tile + (r0 + 8) * LD + c + 8);
-}
-
-// The accumulators of n-tiles 2kc and 2kc + 1 as the A fragment of k-step kc.
-__device__ __forceinline__ void acc_to_a(uint32_t* a, const float (*s)[4], int kc) {
-  a[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-  a[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-  a[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-  a[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-}
-
-// C[16 x 64] = A[16 x 128] B^T where B's 64 rows (n) are rows of a smem tile
-// holding the 128 values of k contiguously: A rows from a smem tile too.
-__device__ __forceinline__ void mma_rows(float (*c)[4], const __nv_bfloat16* a_tile,
-                                         const __nv_bfloat16* b_tile, int r0, int g,
-                                         int tig) {
-#pragma unroll
-  for (int nt = 0; nt < BM / 8; ++nt)
-    c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < HD / 16; ++kc) {
-    uint32_t a[4];
-    ld_a(a, a_tile, r0, kc, tig);
-#pragma unroll
-    for (int nt = 0; nt < BM / 8; ++nt) {
-      const __nv_bfloat16* brow = b_tile + (nt * 8 + g) * LD + kc * 16 + tig * 2;
-      mma_16816(c[nt], a, ld32(brow), ld32(brow + 8));
-    }
-  }
-}
-
-// acc[16 x 128] += A[16 x 64] (from accumulators s) . B[64 x 128], B a smem
-// tile read down its columns.
-__device__ __forceinline__ void mma_acc_cols(float (*acc)[4], const float (*s)[4],
-                                             const __nv_bfloat16* b_tile, int g, int tig) {
-#pragma unroll
-  for (int kc = 0; kc < BM / 16; ++kc) {
-    uint32_t a[4];
-    acc_to_a(a, s, kc);
-    const __nv_bfloat16* col = b_tile + (kc * 16 + tig * 2) * LD + g;
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt)
-      mma_16816(acc[dt], a, ld_col2(col + dt * 8), ld_col2(col + 8 * LD + dt * 8));
-  }
-}
-
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          int row_stride, int tid) {
-  // 64 rows x 128 columns = 64 x 16 chunks of 16 bytes
-  for (int i = tid; i < BM * (HD / 8); i += NTHREADS) {
-    const int r = i / (HD / 8);
-    const int c = (i % (HD / 8)) * 8;
-    *reinterpret_cast<uint4*>(dst + r * LD + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * row_stride + c);
-  }
-}
-
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (*acc)[4],
-                                           size_t row0_off, size_t row1_off, int tig) {
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
-    *reinterpret_cast<uint32_t*>(out + row0_off + dt * 8 + tig * 2) =
-        pack_bf16(acc[dt][0], acc[dt][1]);
-    *reinterpret_cast<uint32_t*>(out + row1_off + dt * 8 + tig * 2) =
-        pack_bf16(acc[dt][2], acc[dt][3]);
-  }
-}
-
-struct BwdArgs {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* dout;
-  const int* q_seg;
-  const int* kv_seg;
-  const float* lse;
-  const float* delta;
-  const float* slopes;   // [H] f32, read only by the ALiBi instances
-  int T, H, G, causal;
-  int q_sb, q_st, q_sh;
-  int k_sb, k_st, k_sh;
-  int o_sb, o_st, o_sh;
-  float sm_scale;
-};
 
 // ---- dK / dV: TMA ring and wgmma (see the note at the top) ----
 
@@ -460,134 +354,231 @@ __global__ void dkv_sum_kernel(const float* __restrict__ ws, __nv_bfloat16* __re
   }
 }
 
-// dQ of one 64-row q tile of one (batch, query head). Each warp owns 16 q
-// rows, holds their Q fragments in registers and accumulates dQ over the kv
-// tiles up to the diagonal.
-template <bool ALIBI>
-__global__ void __launch_bounds__(NTHREADS, 1)
-flash_bwd_dq_kernel(BwdArgs p, __nv_bfloat16* __restrict__ dq) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Os = Qs + BM * LD;   // dO tile
-  __nv_bfloat16* Ks = Os + BM * LD;
-  __nv_bfloat16* Vs = Ks + BM * LD;
-  int* kseg_s = reinterpret_cast<int*>(Vs + BM * LD);
+// ---- dQ: TMA ring and wgmma (see the note at the top) ----
 
-  const int T = p.T;
-  const int q_start = blockIdx.x * BM;
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y % p.H;
-  const int kvh = h / p.G;
-  const float slope = ALIBI ? p.slopes[h] : 0.f;   // the Pallas slopes[bh % H]
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int r0 = warp * 16 + g;        // this thread's q rows: r0, r0 + 8
-  const int row0 = q_start + r0, row1 = row0 + 8;
+constexpr int DQ_ROWS = 128;            // q rows per block: 64 per consumer warpgroup
+constexpr int DQ_THREADS = 256;         // two consumer warpgroups
+constexpr int DQ_BOX = DQ_ROWS * 128;   // bytes of a 128-row x 64-column box
+constexpr int DQ_STAGE = 4 * Q_BOX;     // a 64-row K tile and V tile, two boxes each
+// Q and dO (two boxes each), the K / V ring, the kv tiles' segment ids, 1 +
+// 2 NS mbarriers, and slack to align the start to 1024 bytes
+constexpr int DQ_SMEM = 4 * DQ_BOX + NS * DQ_STAGE + NS * BM * 4 + 64 + 1024;
 
-  load_tile(Qs, p.q + (size_t)b * p.q_sb + (size_t)h * p.q_sh + (size_t)q_start * p.q_st,
-            p.q_st, tid);
-  load_tile(Os, p.dout + (size_t)b * p.o_sb + (size_t)h * p.o_sh + (size_t)q_start * p.o_st,
-            p.o_st, tid);
-  __syncthreads();
+struct DqArgs {
+  const int* q_seg;
+  const int* kv_seg;
+  const float* lse;
+  const float* delta;
+  const float* slopes;      // [H] f32, read only by the ALiBi instance
+  __nv_bfloat16* dq;        // [B, T, H, D] bf16
+  int T, H, G, causal;
+  float sm_scale, scale_log2;
+};
 
-  uint32_t qa[HD / 16][4];
+// P (MASKED: with the per-element mask) from S in place, replayed in base 2
+// from the lse (nl = -lse log2 e). Rows r0 and r0 + 8 (q), columns 8 j + 2
+// qd + {0, 1} (kv rows of the tile at k_start).
+template <bool ALIBI, bool MASKED>
+__device__ __forceinline__ void replay_p_dq(float (&sc)[32], const DqArgs& p, const int* kseg,
+                                            int r0, int k_start, int qd, float nl0, float nl1,
+                                            int qs0, int qs1, float slope_log2) {
 #pragma unroll
-  for (int kc = 0; kc < HD / 16; ++kc) ld_a(qa[kc], Qs, r0, kc, tig);
-  const float* lrow = p.lse + ((size_t)b * p.H + h) * T;
-  const float* drow = p.delta + ((size_t)b * p.H + h) * T;
-  const float lse0 = lrow[row0], lse1 = lrow[row1];
-  const float dl0 = drow[row0], dl1 = drow[row1];
-  const int qs0 = p.q_seg[(size_t)b * T + row0], qs1 = p.q_seg[(size_t)b * T + row1];
-
-  float dq_acc[HD / 8][4];
+  for (int j = 0; j < 8; ++j) {
 #pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt)
-    dq_acc[dt][0] = dq_acc[dt][1] = dq_acc[dt][2] = dq_acc[dt][3] = 0.f;
-
-  const __nv_bfloat16* kb = p.k + (size_t)b * p.k_sb + (size_t)kvh * p.k_sh;
-  const __nv_bfloat16* vb = p.v + (size_t)b * p.k_sb + (size_t)kvh * p.k_sh;
-  const int n_tiles = T / BM;
-  const int last = p.causal ? blockIdx.x : n_tiles - 1;
-  for (int j = 0; j <= last; ++j) {
-    const int k_start = j * BM;
-    __syncthreads();  // everyone is done with the previous K / V tile
-    load_tile(Ks, kb + (size_t)k_start * p.k_st, p.k_st, tid);
-    load_tile(Vs, vb + (size_t)k_start * p.k_st, p.k_st, tid);
-    if (tid < BM) kseg_s[tid] = p.kv_seg[(size_t)b * T + k_start + tid];
-    __syncthreads();
-
-    // S = Q K^T (16 q rows x 64 kv columns), then P.
-    float s[BM / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BM / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* krow = Ks + (nt * 8 + g) * LD + tig * 2;
-#pragma unroll
-      for (int kc = 0; kc < HD / 16; ++kc)
-        mma_16816(s[nt], qa[kc], ld32(krow + kc * 16), ld32(krow + kc * 16 + 8));
-    }
-#pragma unroll
-    for (int nt = 0; nt < BM / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + tig * 2 + (e & 1);
-        const int kpos = k_start + col;
-        const int qpos = (e < 2) ? row0 : row1;
-        const int qsg = (e < 2) ? qs0 : qs1;
-        const int ksg = kseg_s[col];
-        const bool valid = (!p.causal || kpos <= qpos) && ksg == qsg && ksg != 0;
-        float sc = s[nt][e] * p.sm_scale;
-        if (ALIBI) sc -= slope * fabsf(static_cast<float>(qpos - kpos));
-        const float pe = expf(sc - ((e < 2) ? lse0 : lse1));
-        s[nt][e] = valid ? pe : 0.f;   // select: pe may be inf on a padding row
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * qd + (e & 1);
+      const int kpos = k_start + col;
+      const int qpos = r0 + ((e & 2) ? 8 : 0);
+      float v = fmaf(sc[4 * j + e], p.scale_log2, (e & 2) ? nl1 : nl0);
+      if (ALIBI) v -= slope_log2 * fabsf(static_cast<float>(qpos - kpos));
+      float pe = hopper::ex2(v);
+      if (MASKED) {
+        const int ksg = kseg[col];
+        const bool valid = (!p.causal || kpos <= qpos) && ksg == ((e & 2) ? qs1 : qs0) &&
+                           ksg != 0;
+        pe = valid ? pe : 0.f;   // select: pe may be inf on a padding row
       }
+      sc[4 * j + e] = pe;
     }
-
-    // dP = dO V^T; dS = P (dP - delta) * scale
-    float dp[BM / 8][4];
-    mma_rows(dp, Os, Vs, r0, g, tig);
-#pragma unroll
-    for (int nt = 0; nt < BM / 8; ++nt) {
-      dp[nt][0] = s[nt][0] * (dp[nt][0] - dl0) * p.sm_scale;
-      dp[nt][1] = s[nt][1] * (dp[nt][1] - dl0) * p.sm_scale;
-      dp[nt][2] = s[nt][2] * (dp[nt][2] - dl1) * p.sm_scale;
-      dp[nt][3] = s[nt][3] * (dp[nt][3] - dl1) * p.sm_scale;
-    }
-    // dQ += dS K
-    mma_acc_cols(dq_acc, dp, Ks, g, tig);
   }
-
-  store_rows(dq, dq_acc, (((size_t)b * T + row0) * p.H + h) * HD,
-             (((size_t)b * T + row1) * p.H + h) * HD, tig);
 }
 
-BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
-                  const void* q_seg, const void* kv_seg, const void* lse,
-                  const void* delta, const void* slopes, int T, int H, int Hkv, int causal,
-                  int q_sb, int q_st, int q_sh, int k_sb, int k_st, int k_sh,
-                  int o_sb, int o_st, int o_sh, float sm_scale) {
-  BwdArgs a;
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const __nv_bfloat16*>(k);
-  a.v = static_cast<const __nv_bfloat16*>(v);
-  a.dout = static_cast<const __nv_bfloat16*>(dout);
-  a.q_seg = static_cast<const int*>(q_seg);
-  a.kv_seg = static_cast<const int*>(kv_seg);
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
-  a.slopes = static_cast<const float*>(slopes);
-  a.T = T;
-  a.H = H;
-  a.G = H / Hkv;
-  a.causal = causal;
-  a.q_sb = q_sb; a.q_st = q_st; a.q_sh = q_sh;
-  a.k_sb = k_sb; a.k_st = k_st; a.k_sh = k_sh;
-  a.o_sb = o_sb; a.o_st = o_st; a.o_sh = o_sh;
-  a.sm_scale = sm_scale;
-  return a;
+// dQ of one 128-row q tile of one (batch, query head), over the kv tiles up
+// to the diagonal.
+template <bool ALIBI>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap o_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const DqArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* q_tile = smem;                   // two boxes
+  unsigned char* o_tile = smem + 2 * DQ_BOX;      // two boxes
+  unsigned char* stages = smem + 4 * DQ_BOX;      // NS x (K, V)
+  int* kseg_s = reinterpret_cast<int*>(stages + NS * DQ_STAGE);   // NS x BM ids
+  uint64_t* qo_full = reinterpret_cast<uint64_t*>(kseg_s + NS * BM);
+  uint64_t* full = qo_full + 1;
+  uint64_t* empty = full + NS;
+
+  const int T = p.T, H = p.H;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int kvh = h / p.G;
+  const int n_qt = (T + DQ_ROWS - 1) / DQ_ROWS;
+  const int q_start = (n_qt - 1 - blockIdx.y) * DQ_ROWS;   // heaviest q tiles first
+  const int n_kt = T / BM;
+  const int last = p.causal ? min(n_kt - 1, (q_start + DQ_ROWS - 1) / BM) : n_kt - 1;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(qo_full, 2);     // one arrival per loading thread
+    for (int s = 0; s < NS; ++s) {
+      hopper::mbar_init(&full[s], 2);
+      hopper::mbar_init(&empty[s], 8);   // one arrival per consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Threads 0 and 128 (one each consumer warpgroup) issue the loads: Q (thread
+  // 0) and dO (thread 128) and the first NS - 1 kv tiles here, then in step
+  // j, once its first products are issued, kv tile j + NS - 1 (into the stage
+  // tile j - 1 freed): thread 0 K and its segment ids, thread 128 V.
+  auto load_step = [&](int j) {
+    const int s = j % NS;
+    unsigned char* st = stages + s * DQ_STAGE;
+    hopper::mbar_wait(&empty[s], ((j / NS) & 1) ^ 1);
+    if (threadIdx.x == 128) {
+      hopper::mbar_expect_tx(&full[s], 2 * Q_BOX);
+      hopper::tma_load_tile(st + 2 * Q_BOX, &v_map, &full[s], j * BM, kvh, b);
+      return;
+    }
+    hopper::mbar_expect_tx(&full[s], 2 * Q_BOX + BM * 4);
+    hopper::tma_load_tile(st, &k_map, &full[s], j * BM, kvh, b);
+    hopper::bulk_load(kseg_s + s * BM, p.kv_seg + (size_t)b * T + j * BM, BM * 4, &full[s]);
+  };
+  const bool loader = threadIdx.x % 128 == 0;
+  if (loader) {
+    const bool second = threadIdx.x != 0;
+    const CUtensorMap* row_map = second ? &o_map : &q_map;
+    hopper::prefetch_map(row_map);
+    hopper::prefetch_map(second ? &v_map : &k_map);
+    hopper::mbar_expect_tx(qo_full, 2 * DQ_BOX);
+    hopper::tma_load_tile(second ? o_tile : q_tile, row_map, qo_full, q_start, h, b);
+    for (int j = 0; j < NS - 1 && j <= last; ++j) load_step(j);
+  }
+  __syncwarp();
+
+  // warpgroup cw owns q rows 64 cw .. 64 cw + 63 of the tile; cw is
+  // warp-uniform as the compiler sees it (a branch on threadIdx would count
+  // as divergent and serialize the wgmma)
+  const int cw = __shfl_sync(FULL, threadIdx.x / 128, 0);
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int qd = lane % 4;
+  const int wg_q0 = q_start + 64 * cw;                 // this warpgroup's first row
+  const int warp_q0 = wg_q0 + 16 * warp;               // this warp's first row
+  const int r0 = warp_q0 + lane / 4;                   // this thread's rows: r0, r0 + 8
+  const int r1 = r0 + 8;
+  const size_t lrow = ((size_t)b * H + h) * T;
+  const float nl0 = r0 < T ? -p.lse[lrow + r0] * LOG2E : 0.f;
+  const float nl1 = r1 < T ? -p.lse[lrow + r1] * LOG2E : 0.f;
+  const float dl0 = r0 < T ? p.delta[lrow + r0] : 0.f;
+  const float dl1 = r1 < T ? p.delta[lrow + r1] : 0.f;
+  const int qs0 = r0 < T ? p.q_seg[(size_t)b * T + r0] : 0;
+  const int qs1 = r1 < T ? p.q_seg[(size_t)b * T + r1] : 0;
+  const int q_id = __shfl_sync(FULL, qs0, 0);
+  const bool q_uniform = __all_sync(FULL, qs0 == q_id && qs1 == q_id) && q_id != 0;
+  const float slope_log2 = ALIBI ? p.slopes[h] * LOG2E : 0.f;
+  const uint32_t q_addr = hopper::smem_u32(q_tile) + cw * 64 * 128;
+  const uint32_t o_addr = hopper::smem_u32(o_tile) + cw * 64 * 128;
+
+  float dq[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+
+  hopper::mbar_wait(qo_full, 0);
+  for (int j = 0; j <= last; ++j) {
+    const int s = j % NS;
+    const int k_start = j * BM;
+    const bool more = loader && j + NS - 1 <= last;
+    hopper::mbar_wait(&full[s], (j / NS) & 1);
+    const uint32_t st = hopper::smem_u32(stages + s * DQ_STAGE);
+    // a kv tile wholly above the diagonal of this warpgroup's rows adds
+    // nothing (the last tile of warpgroup 0 under causal masking)
+    if (!(p.causal && k_start > wg_q0 + 63)) {
+      // S = Q K^T and dP = dO V^T (64 q rows x 64 kv columns each)
+      float sc[32], dp[32];
+      hopper::wgmma_fence();
+      hopper::gemm_k128(sc, q_addr, DQ_BOX, st, Q_BOX, false);
+      hopper::gemm_k128(dp, o_addr, DQ_BOX, st + 2 * Q_BOX, Q_BOX, false);
+      hopper::wgmma_commit();
+      // while the tensor cores work: kv tile j + NS - 1 into the stage tile
+      // j - 1 freed
+      if (more) load_step(j + NS - 1);
+      __syncwarp();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+
+      // P, with the per-element mask only where the tile can hold a masked pair
+      const int* kseg = kseg_s + s * BM;
+      bool plain = q_uniform && !(p.causal && k_start + BM - 1 > warp_q0);
+      if (plain) {
+        const int2 ids = reinterpret_cast<const int2*>(kseg)[lane];
+        plain = __all_sync(FULL, ids.x == q_id && ids.y == q_id);
+      }
+      if (plain)
+        replay_p_dq<ALIBI, false>(sc, p, kseg, r0, k_start, qd, nl0, nl1, qs0, qs1, slope_log2);
+      else
+        replay_p_dq<ALIBI, true>(sc, p, kseg, r0, k_start, qd, nl0, nl1, qs0, qs1, slope_log2);
+
+      // dS = P (dP - delta) * scale, in f32; it enters dQ += dS K as two bf16
+      // halves, hi = bf16(dS) and lo = bf16(dS - hi), so about 16 bits of dS
+      // reach the product (the Pallas kernel rounds dS to bf16)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        dp[i] = sc[i] * (dp[i] - ((i & 2) ? dl1 : dl0)) * p.sm_scale;
+        sc[i] = dp[i] - __bfloat162float(__float2bfloat16_rn(dp[i]));
+      }
+      uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        hopper::acc_to_a(hi[ks], dp, ks);
+        hopper::acc_to_a(lo[ks], sc, ks);
+      }
+      // dQ += dS K: A from registers, K MN-major (transpose bit)
+      hopper::wgmma_fence();
+      hopper::gemm_rs(dq, hi, st, Q_BOX);
+      hopper::gemm_rs(dq, lo, st, Q_BOX);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dq);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        hopper::fence_regs(hi[ks]);
+        hopper::fence_regs(lo[ks]);
+      }
+    } else if (more) {
+      load_step(j + NS - 1);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+  // the rows inside T, bf16
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? r1 : r0;
+    if (r >= T) continue;
+    __nv_bfloat16* row = p.dq + (((size_t)b * T + r) * H + h) * HD + 2 * qd;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) =
+          hopper::pack_bf16(dq[4 * j + 2 * half], dq[4 * j + 2 * half + 1]);
+  }
 }
 
 template <bool ALIBI>
@@ -615,14 +606,21 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 }
 
 template <bool ALIBI>
-int launch_dq(const BwdArgs& a, int B, void* dq, void* stream) {
-  const int smem = 4 * BM * LD * (int)sizeof(__nv_bfloat16) + BM * (int)sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<ALIBI>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.T / BM, B * a.H);
-  flash_bwd_dq_kernel<ALIBI><<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<__nv_bfloat16*>(dq));
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const DqArgs& a,
+              int B, int Hkv, int q_sb, int q_st, int q_sh, int k_sb, int k_st, int k_sh,
+              int o_sb, int o_st, int o_sh, void* stream) {
+  CUtensorMap q_map, o_map, k_map, v_map;
+  int err = hopper::make_map(&q_map, q, B, a.T, a.H, q_sb, q_st, q_sh, DQ_ROWS);
+  if (!err) err = hopper::make_map(&o_map, dout, B, a.T, a.H, o_sb, o_st, o_sh, DQ_ROWS);
+  if (!err) err = hopper::make_map(&k_map, k, B, a.T, Hkv, k_sb, k_st, k_sh, BM);
+  if (!err) err = hopper::make_map(&v_map, v, B, a.T, Hkv, k_sb, k_st, k_sh, BM);
+  if (err) return err;
+  cudaError_t cerr = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<ALIBI>, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM);
+  if (cerr != cudaSuccess) return (int)cerr;
+  const dim3 grid(B * a.H, (a.T + DQ_ROWS - 1) / DQ_ROWS);
+  flash_bwd_dq_kernel<ALIBI><<<grid, DQ_THREADS, DQ_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      q_map, o_map, k_map, v_map, a);
   return (int)cudaGetLastError();
 }
 
@@ -667,8 +665,9 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                                           o_sh, stream);
 }
 
-// Returns cudaGetLastError() after the launch (0 = launched). `slopes`
-// (f32 [H], or null) selects the ALiBi instance.
+// Returns 0 once launched, else cudaGetLastError() after the launch or
+// hopper::TENSOR_MAP_ERROR (+ the CUDA driver's code) if a TMA map was refused.
+// `slopes` (f32 [H], or null) selects the ALiBi instance.
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                  const void* dout, const void* q_seg, const void* kv_seg,
                                  const void* lse, const void* delta, const void* slopes,
@@ -678,8 +677,20 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                  int k_sb, int k_st, int k_sh,
                                  int o_sb, int o_st, int o_sh,
                                  float sm_scale, void* stream) {
-  const BwdArgs a = make_args(q, k, v, dout, q_seg, kv_seg, lse, delta, slopes, T, H, Hkv,
-                              causal, q_sb, q_st, q_sh, k_sb, k_st, k_sh, o_sb, o_st, o_sh,
-                              sm_scale);
-  return (slopes ? launch_dq<true> : launch_dq<false>)(a, B, dq, stream);
+  DqArgs a;
+  a.q_seg = static_cast<const int*>(q_seg);
+  a.kv_seg = static_cast<const int*>(kv_seg);
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.slopes = static_cast<const float*>(slopes);
+  a.dq = static_cast<__nv_bfloat16*>(dq);
+  a.T = T;
+  a.H = H;
+  a.G = H / Hkv;
+  a.causal = causal;
+  a.sm_scale = sm_scale;
+  a.scale_log2 = sm_scale * LOG2E;
+  return (slopes ? launch_dq<true> : launch_dq<false>)(q, k, v, dout, a, B, Hkv, q_sb, q_st,
+                                                        q_sh, k_sb, k_st, k_sh, o_sb, o_st,
+                                                        o_sh, stream);
 }

@@ -40,7 +40,7 @@ SIGNATURES = {
     "flash_fwd_bf16": [P] * 8 + [I] * 11 + [F, P],
     "flash_bwd_dkv_bf16": [P] * 12 + [I] * 15 + [F, P],
     "flash_bwd_dq_bf16": [P] * 10 + [I] * 14 + [F, P],
-    "decode_attention_fwd": [P] * 9 + [I] * 14 + [F, P],
+    "decode_attention_fwd": [P] * 11 + [I] * 15 + [F, P],
     "quant_matmul_int8": [P] * 4 + [I] * 5 + [P],
     "quant_matmul_int4": [P] * 4 + [I] * 5 + [P],
     "quant_matmul_int4_native": [P] * 4 + [I] * 4 + [P],

@@ -14,10 +14,14 @@ for XLA (``quant_cache_attention(bias=...)`` over an int8 cache, ``attention``
 over a bf16 one); those launches count in ``decode_attention.alibi_launches``.
 
 The kernel runs for CUDA tensors (bf16 q, D = 128, any number of query heads
-per kv head: a block holds 8 query rows, and a wider group takes G / 8 blocks
-per kv head); the plain version for CPU tensors; anything else raises.
-Launches with more than 8 query heads per kv head (an MQA MPT), with or
-without slopes, count in ``decode_attention.wide_launches`` only.
+per kv head: a block holds up to 64 query rows, the whole group of every
+model in the repo); the plain version for CPU tensors; anything else raises.
+It splits each (batch row, kv head)'s cache into :func:`decode_splits`
+chunks, one block each, and the last block of a row to finish combines the
+chunks' f32 partials (a workspace the wrapper allocates, and a counter per
+row in a zeroed int32 buffer kept per device and stream). Launches with
+more than 8 query heads per kv head (an MQA MPT), with or without slopes,
+count in ``decode_attention.wide_launches`` only.
 """
 
 from __future__ import annotations
@@ -30,7 +34,35 @@ from llava_plus_torch.kernels import build
 from llava_plus_torch.ops.attention import DEFAULT_MASK_VALUE, check_slopes
 
 HEAD_DIM = 128
-ROW_CHUNK = 8  # query rows a kernel block holds; wider groups take more blocks
+WIDE_GROUP = 8      # launches of wider groups count in ``wide_launches``
+DECODE_TILE = 64    # cache slots of one stage of the kernel's ring
+MAX_ROWS = 64       # query rows a kernel block holds; wider groups take more
+BLOCKS_PER_SM = 2   # what decode_splits aims for
+MAX_SPLITS = 64     # chunks the kernel's combine takes
+
+
+def row_groups(G: int) -> int:
+    """Blocks a (batch row, kv head, chunk) takes: one for every G <= 64."""
+    return -(-G // MAX_ROWS)
+
+
+def decode_splits(B: int, Hkv: int, G: int, S: int, n_sms: int) -> int:
+    """How many chunks of whole 64-slot tiles the kernel cuts each (batch
+    row, kv head)'s cache of S slots into, one block each: 1 when the B *
+    Hkv blocks already give BLOCKS_PER_SM blocks per SM, else enough chunks
+    that they do, as far as S has tiles (and at most MAX_SPLITS; chunks of
+    two tiles or more for a group wider than 16). S is the static cache length (the
+    query positions live on the device), so the plan, the grid and the
+    workspace depend on shapes alone."""
+    blocks = B * Hkv * row_groups(G)
+    want = -(-BLOCKS_PER_SM * n_sms // blocks)
+    if want <= 1:
+        return 1
+    tiles = -(-S // DECODE_TILE)
+    # a group wider than 16 rows takes chunks of at least 2 tiles: the last
+    # block's combine reads G rows of every chunk
+    per = max(1 if G <= 16 else 2, tiles // want, -(-tiles // MAX_SPLITS))
+    return -(-tiles // per)
 
 
 def decode_attention_reference(q, k_cache, v_cache, seg, q_pos,
@@ -108,30 +140,57 @@ def _check_kernel_inputs(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale):
         if not build.int32_offsets(x):
             raise ValueError(f"{name} is too large for 32-bit offsets")
     for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) or x.data_ptr() % 16:
+        elem = x.element_size()
+        if (x.stride(-1) != 1 or any(s * elem % 16 for s in x.stride()[:-1])
+                or x.data_ptr() % 16):
             raise ValueError(f"{name}: last dim must be contiguous, rows 16-byte aligned")
+
+
+_counters = {}   # (device index, stream) -> zeroed int32 buffer of the combine
+
+
+def _counter_buffer(device, stream, n):
+    """A zeroed int32 buffer of at least n counters for launches on this
+    device and stream; the kernel leaves it zero, so it is made once."""
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
 
 
 def _launch(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale, sm_scale, slopes):
     _check_kernel_inputs(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale)
     B, _, H, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hkv
     quantized = k_scale is not None
     out = torch.empty(B, 1, H, D, dtype=q.dtype, device=q.device)
     ss = k_scale.stride() if quantized else (0, 0, 0)
+    n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits = decode_splits(B, Hkv, G, S, n_sms)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws = counters = None
+    if splits > 1:
+        ws = torch.empty(B, Hkv, splits, G, D + 2, dtype=torch.float32, device=q.device)
+        counters = _counter_buffer(q.device, stream, B * Hkv * row_groups(G))
     err = build.lib().decode_attention_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
         seg.data_ptr(), q_pos.data_ptr(),
         None if slopes is None else slopes.data_ptr(), out.data_ptr(),
-        B, S, H, Hkv, int(quantized),
+        None if ws is None else ws.data_ptr(),
+        None if counters is None else counters.data_ptr(),
+        B, S, H, Hkv, int(quantized), splits,
         q.stride(0), q.stride(2),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         ss[0], ss[1], ss[2], seg.stride(0),
-        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
+        float(sm_scale), stream,
     )
     build.check(err, "decode_attention_fwd")
+    decode_attention.last_splits = splits
     return out
 
 
@@ -154,7 +213,7 @@ def decode_attention(
     if q.is_cuda:
         out = _launch(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale, sm_scale,
                       alibi_slopes)
-        wide = q.shape[2] // k_cache.shape[2] > ROW_CHUNK
+        wide = q.shape[2] // k_cache.shape[2] > WIDE_GROUP
         build.count_launch(decode_attention, "wide_launches" if wide else
                            "launches" if alibi_slopes is None else "alibi_launches")
         return out
@@ -167,3 +226,4 @@ def decode_attention(
 decode_attention.launches = 0
 decode_attention.alibi_launches = 0
 decode_attention.wide_launches = 0
+decode_attention.last_splits = 0   # the cache chunks of the latest launch

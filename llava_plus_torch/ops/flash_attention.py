@@ -25,8 +25,11 @@ j. Their launches are counted apart, in ``<wrapper>.alibi_launches``.
 Tiles: the forward takes 128 q rows a block (two warpgroups of 64) against
 128-row K/V tiles; T % 128 may be 64, whose rows past T the
 kernel neither reads nor writes. The dK/dV kernel takes 128 kv rows a block
-(``DKV_TILE``) against 64-row Q/dO tiles; the dQ kernel 64-row q and kv
-tiles. So the wrapper pads T to ``BLOCK`` = 64. The dK/dV grid also splits
+(``DKV_TILE``) against 64-row Q/dO tiles; the dQ kernel 128 q rows a
+block against 64-row K/V tiles, with dS entering dQ = dS K as two bf16
+halves (hi = bf16(dS), lo = bf16(dS - hi)): ~16 bits of dS where the Pallas
+kernel keeps 8 (a deliberate difference, toward the plain version). So the
+wrapper pads T to ``BLOCK`` = 64. The dK/dV grid also splits
 the G query heads of each kv head into ``dkv_head_splits(B, T, Hkv, G,
 n_sms)`` contiguous ranges, one block each: 1 (no split, no workspace)
 whenever the kv tiles alone give two blocks per SM, as every MHA call does;
