@@ -15,9 +15,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    twice, bit for bit the same), with CUDA-event timings: flash
    forward, decode attention (bf16 and int8 cache), the int8 / int4
    weight-only matmuls at the 7B fused matrices (wqkv, w_down, lm_head) and
-   MPT-7B's (out_proj, up_proj, down_proj) for 1, 16 and 768 rows, the
-   native int4 matmul (the int4 tools' kernel) at their five shapes for the
-   same rows, and the paged kernels at 16 slots of 16 pages; and
+   MPT-7B's (out_proj, up_proj, down_proj) for 1, 16 and 768 rows (int8 also
+   at 64 and 3,072 rows and on both sides of its decode / prefill cut, each
+   row launched twice, bit for bit the same, beside the bf16 ``torch.matmul``
+   yardstick), the native int4 matmul (the int4 tools' kernel) at their five
+   shapes for 1, 16 and 768 rows, and the paged kernels at 16 slots of 16
+   pages (decode1 also over pages of 32 with a full and a 1-token slot;
+   every paged row launched twice, bit for bit the same); and
    the ALiBi variants (MPT) of the flash forward, both flash backward
    kernels (T = 2048, MPT-7B's 32 slopes, MHA and 32 heads over one kv
    head, and a non-causal call), the dense decode and both paged kernels;
@@ -48,7 +52,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    requests (8 image, 8 text) of 32 greedy tokens, with TTFT p50 and
    aggregate tokens/s; then int4 weights on a fresh backend (4 requests).
    Every chunk, every request's token count, batched admission, shared
-   decode steps and every kernel's launch count are checked;
+   decode steps and every kernel's launch count are checked, and that the
+   int8 matmul ran both its kernels (decode rows and prefill rows, counted
+   apart; so in phases 7 and 11);
 7. the paged engine (``TorchBackend(paged=True)``) on fresh int8 weights:
    an int8 KV pool of 256 pages shared by 16 slots of up to 4096 tokens,
    the prefix cache on; 16 concurrent requests (one of 3,000 tokens), then 8
@@ -96,10 +102,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    its plain version and timed, with exact launch counts;
 15. (phase 3's device times, taken last because a ``torch.profiler``
    session can leave CUPTI attached and slow the host clocks of later
-   phases) the flash forward, dK/dV, dQ and dense decode rows timed by the
-   kernel's own device time from ``torch.profiler``, so the host path around
-   the wrapper drops out, alternated with the library call (kernel, library,
-   library, kernel) in one process, with TFLOP/s and the share of the bound.
+   phases) the flash forward, dK/dV, dQ and dense decode rows, the int8
+   matmul on wqkv at 16, 768 and 3,072 rows and paged decode1 over an int8 pool
+   (plain and ALiBi) timed by the kernel's own device time from
+   ``torch.profiler``, so the host path around the wrapper drops out,
+   alternated with the library call or yardstick (kernel, library, library,
+   kernel) in one process, with TFLOP/s and the share of the bound.
 
 Phase 3 also holds both paged kernels (decode1 and general) and both flash
 backward kernels (dK/dV and dQ, at T = 2048, MHA and GQA, a padded and a
@@ -572,6 +580,10 @@ MPT_QUANT_SHAPES = (("mpt out_proj", 4096, 4096), ("mpt up_proj", 4096, 16384),
 INT4N_SHAPES = (("7B q/o", 4096, 4096), ("7B gate/up", 4096, 11008), ("7B down", 11008, 4096),
                 ("13B gate/up", 5120, 13824), ("13B down", 13824, 5120))
 QUANT_ROWS = (1, 16, 768)
+# the int8 kernel's rows: both regimes (decode rows up to the cut, wgmma
+# above it) at one row, 16 slots, 64, a 768-token prefill and the engine's
+# 4-prompt batch of 3,072, plus one row on each side of the cut
+INT8_ROWS = (1, 16, 64, 768, 3072)
 
 
 def _quantize(kind, w):
@@ -596,7 +608,11 @@ def _dequant64(kind, q, s):
 
 def check_quant(kind, name, K, N, gen):
     """One weight, every row count: kernel and plain version against the f64
-    product of the dequantized weight, errors relative to the largest output."""
+    product of the dequantized weight, errors relative to the largest output.
+    The int8 rows also launch the kernel a second time (every bit must
+    repeat: the K chunks' partials are summed in a fixed order) and time the
+    yardstick, ``torch.matmul`` on the same weight dequantized to bf16 (the
+    port never calls it)."""
     import torch
     from llava_plus_torch.ops import quant_matmul as qm
 
@@ -613,33 +629,46 @@ def check_quant(kind, name, K, N, gen):
     out_dtype = torch.float32 if name == "lm_head" or kind == "int4n" else torch.bfloat16
     kw = {} if kind == "int4n" else {"out_dtype": out_dtype}
     nbytes = q.numel() + s.numel() * 4
+    w16 = qm.dequantize(8, q, s, torch.bfloat16) if kind == "int8" else None
+    row_counts = (sorted(set(INT8_ROWS) | {qm.INT8_CUT, qm.INT8_CUT + 1}) if kind == "int8"
+                  else QUANT_ROWS)
     rows = {}
-    for R in QUANT_ROWS:
+    for R in row_counts:
         x = torch.randn(R, K, generator=gen, device=dev).bfloat16()
         truth = x.double() @ w64
         top = truth.abs().max().item()
         out = kernel_fn(x, q, s, **kw)
+        plan = getattr(kernel_fn, "last_plan", None)
+        same = torch.equal(out, kernel_fn(x, q, s, **kw)) if kind == "int8" else True
         p_out = plain_fn(x, q, s, **kw)
         torch.cuda.synchronize()
         if out.shape != (R, N) or out.dtype != out_dtype:
             raise AssertionError(f"quant_matmul[{kind}] {name}: {out.shape} {out.dtype}")
         k_err = (out.double() - truth).abs().max().item() / top
         r_err = (p_out.double() - truth).abs().max().item() / top
+        del truth, p_out
         ms = time_ms(lambda: kernel_fn(x, q, s, **kw))
         plain_ms = time_ms(lambda: plain_fn(x, q, s, **kw))
+        yard_ms = time_ms(lambda: torch.matmul(x, w16)) if w16 is not None else None
         out_bytes = R * N * (4 if out_dtype == torch.float32 else 2)
         b = bound(nbytes + 2 * R * K + out_bytes, 2 * R * K * N)
-        ok = within(k_err, r_err)
-        rate = f", {nbytes / ms / 1e6:.0f} GB/s of weights" if R <= 16 else (
-            f", {2 * R * K * N / ms / 1e9:.1f} TFLOP/s")
+        ok = within(k_err, r_err) and same
+        rate = (f", {nbytes / ms / 1e6:.0f} GB/s of weights" if R <= 64 else "") + (
+            f", {2 * R * K * N / ms / 1e9:.1f} TFLOP/s" if R >= 64 else "")
         log("kernels", f"quant_matmul {kind} {name} R={R} K={K} N={N} -> "
-                       f"{str(out_dtype)[6:]}: rel err {k_err:.3e} (plain {r_err:.3e}), "
-                       f"{ms:.4f} ms{rate} vs plain {plain_ms:.4f} ms, bound "
-                       f"{b['bound_ms']:.4f} ms ({b['bound_by']}) -> {'ok' if ok else 'FAIL'}")
+                       f"{str(out_dtype)[6:]}{f' {plan}' if kind == 'int8' else ''}: rel err "
+                       f"{k_err:.3e} (plain {r_err:.3e})"
+                       f"{f', a second launch bit-identical {same}' if kind == 'int8' else ''}, "
+                       f"{ms:.4f} ms{rate} vs plain {plain_ms:.4f} ms"
+                       f"{f', yardstick (bf16 matmul) {yard_ms:.4f} ms' if yard_ms else ''}, "
+                       f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}) -> "
+                       f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"quant_matmul[{kind}] {name} R={R} disagrees with "
-                                 "its plain version")
+                                 "its plain version or does not repeat its bits")
         rows[R] = {"max_abs_err": k_err, "ms": ms, "plain_ms": plain_ms, **b}
+        if yard_ms is not None:
+            rows[R]["yardstick_ms"] = yard_ms
     if name in ("wqkv", "7B q/o"):
         rows[16]["library_ms"] = library_quant(kind, q, s, gen)
     return rows
@@ -701,16 +730,23 @@ def phase_quant_kernels():
         stats[f"quant_matmul[{kind}]"] = dict(
             per[head][16], shape=f"{head} K={K} N={N} R=16",
             max_abs_err=max(r["max_abs_err"] for rows in per.values() for r in rows.values()))
+        if kind == "int8":
+            # the prefill regime's rows on the same weight
+            stats["quant_matmul[int8]"].update(
+                {f"r{R}_ms": per[head][R]["ms"] for R in (768, 3072)},
+                **{f"r{R}_yardstick_ms": per[head][R]["yardstick_ms"] for R in (768, 3072)})
     return stats
 
 
 def check_paged(tag, Hkv, Tq, quantized, gen, rng, B=16, H=32, P=128, pages_per_slot=16,
-                alibi=False):
+                alibi=False, edges=False):
     """A paged kernel at a 7B-wide batch: B slots of ``pages_per_slot``
     pages, page ids a random permutation of the pool, ragged past lengths
     and chunk prefixes from a seed, the last slot dead (no past tokens, no
-    valid chunk token). Kernel and plain version against the f64 truth on
-    the live slots."""
+    valid chunk token); with ``edges`` the first slot at its full length and
+    the second at one token. Kernel and plain version against the f64 truth
+    on the live slots; the kernel launched twice, bit for bit the same (the
+    decode1 kernel sums its chunks' partials in a fixed order)."""
     import torch
     from llava_plus_torch.models.llama import _paged_quant
     from llava_plus_torch.ops import paged_attention as pa
@@ -722,6 +758,8 @@ def check_paged(tag, Hkv, Tq, quantized, gen, rng, B=16, H=32, P=128, pages_per_
     lengths = rng.integers(1, pages_per_slot * P + 1, size=B)
     valid = rng.integers(1, Tq + 1, size=B)
     lengths[-1] = valid[-1] = 0
+    if edges:
+        lengths[0], lengths[1] = pages_per_slot * P, 1
     pool = torch.randn(NP, 2, P, Hkv, D, generator=gen, device=dev).bfloat16()
     scale = None
     if quantized:
@@ -754,6 +792,8 @@ def check_paged(tag, Hkv, Tq, quantized, gen, rng, B=16, H=32, P=128, pages_per_
     torch.cuda.synchronize()
     if getattr(wrapper, counter) != n0 + 1:
         raise AssertionError(f"paged {tag}: the call did not launch {wrapper.__name__}")
+    splits = getattr(wrapper, "last_splits", None)
+    same = torch.equal(out, kernel())
     live = slice(0, B - 1)
     k_err = (out.double() - truth)[live].abs().max().item()
     r_err = (p_out.double() - truth)[live].abs().max().item()
@@ -770,30 +810,36 @@ def check_paged(tag, Hkv, Tq, quantized, gen, rng, B=16, H=32, P=128, pages_per_
     self_pairs = sum(int(np.minimum(t + 1, v).sum()) for v in valid)
     b = bound(page_bytes + small,
               4 * D * (H // Hkv) * Hkv * (Tq * int(lengths.sum()) + self_pairs))
-    ok = within(k_err, r_err)
+    ok = within(k_err, r_err) and same
     log("kernels", f"paged {tag} ({wrapper.__name__}{', alibi' if alibi else ''}) "
                    f"{'int8' if quantized else 'bf16'} pool "
                    f"B={B} H={H} Hkv={Hkv} Tq={Tq} D={D} P={P} pages/slot={pages_per_slot} "
-                   f"(mean past {lengths[:-1].mean():.0f}, one dead slot): err {k_err:.3e} "
-                   f"(plain {r_err:.3e}), {ms:.4f} ms ({page_bytes / ms / 1e6:.1f} GB/s of "
+                   f"(mean past {lengths[:-1].mean():.0f}, one dead slot"
+                   f"{', one full, one of 1 token' if edges else ''}"
+                   f"{f'; {splits} chunks a slot' if splits else ''}): err {k_err:.3e} "
+                   f"(plain {r_err:.3e}), a second launch bit-identical {same}, "
+                   f"{ms:.4f} ms ({page_bytes / ms / 1e6:.1f} GB/s of "
                    f"pages read) vs plain {plain_ms:.4f} ms, library none, bound "
                    f"{b['bound_ms']:.4f} ms ({b['bound_by']}; pages alone "
                    f"{page_bytes / HBM_BYTES_S * 1e3:.4f} ms) -> {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"paged {tag} disagrees with its plain version")
+        raise AssertionError(f"paged {tag} disagrees with its plain version or does not "
+                             "repeat its bits")
     # no single library call reads a paged pool (it would need a gather first)
     return {"max_abs_err": k_err, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
 
 
 def phase_paged_kernels(gen, rng):
-    """Both paged kernels: decode1 at H = Hkv = 32, Tq = 1; the general one
-    for GQA (Hkv = 8, Tq = 1) and for 4-token chunks (Hkv = 32); bf16 and
-    int8 pools. Their ALiBi variants (MPT) on int8 pools: decode1 at Hkv =
-    32 (LLaVA-MPT-7B's paged decode), the general kernel for 4-token chunks
-    (Hkv = 32) and for MQA (4 query heads over one kv head, the narrow MQA
-    MPT). The lines report decode1 with an int8 pool (the 7B paged engines')
+    """Both paged kernels: decode1 at H = Hkv = 32, Tq = 1 (and over pages
+    of 32 with a full and a 1-token slot); the general one for GQA (Hkv = 8,
+    Tq = 1) and for 4-token chunks (Hkv = 32); bf16 and int8 pools. Their
+    ALiBi variants (MPT) on int8 pools: decode1 at Hkv = 32 (LLaVA-MPT-7B's
+    paged decode), the general kernel for 4-token chunks (Hkv = 32) and for
+    MQA (4 query heads over one kv head, the narrow MQA MPT). The lines report decode1 with an int8 pool (the 7B paged engines')
     and the general kernel at the GQA int8 case and at the MQA one, with the
     largest error over every case of the variant."""
+    import torch
+
     runs = {}
     for tag, Hkv, Tq in (("decode1", 32, 1), ("general GQA", 8, 1), ("general chunk", 32, 4)):
         for quantized in (False, True):
@@ -801,7 +847,13 @@ def phase_paged_kernels(gen, rng):
     alibi = {tag: check_paged(tag, Hkv, Tq, True, gen, rng, H=H, alibi=True)
              for tag, H, Hkv, Tq in (("decode1", 32, 32, 1), ("general chunk", 32, 32, 4),
                                      ("general MQA", 4, 1, 1))}
-    d1 = [runs["decode1", qz] for qz in (False, True)]
+    # decode1 over pages of 32 (a 64-token tile spans two pages), with a slot
+    # at its full 2,048 tokens and one of 1 token (its own generator: no
+    # earlier row's inputs move)
+    gen_p = torch.Generator(device="cuda").manual_seed(4)
+    edge = check_paged("decode1", 32, 1, True, gen_p, np.random.default_rng(4), P=32,
+                       pages_per_slot=64, edges=True)
+    d1 = [runs["decode1", qz] for qz in (False, True)] + [edge]
     gen_runs = [r for (tag, _), r in runs.items() if tag.startswith("general")]
     return {
         "paged_attention[decode1]": dict(runs["decode1", True],
@@ -1074,9 +1126,85 @@ def phase_device_times(stats):
     log("device", f"flash_bwd[dkv,alibi] / flash_bwd[dkv] (MHA, T=2048, device): "
                   f"{dkv[('MHA', True)] / dkv[('MHA', False)]:.3f}")
     _device_times_decode(stats, gen)
+    _device_times_int8(stats, gen)
+    _device_times_decode1(stats, gen)
 
 
 DECODE_KERNEL = ("decode_kernel",)
+# the int8 kernels of this tree and of an older one (--device-times ROOT)
+INT8_KERNEL = ("int8_stream_kernel", "int8_wgmma_kernel", "quant_matmul_kernel")
+DECODE1_KERNEL = ("paged_decode1_kernel",)
+
+
+def _device_times_int8(stats, gen):
+    """The int8 matmul on LLaVA-1.5-7B's wqkv at 16 decode slots, a 768-token
+    prefill and the engine's 4-prompt prefill (3,072 rows), the kernel alone
+    alternated with the yardstick, ``torch.matmul`` on the same weight
+    dequantized to bf16."""
+    import torch
+    from llava_plus_torch.ops import quant_matmul as qm
+
+    K, N = 4096, 12288
+    q, s = _quantize("int8", torch.randn(K, N, generator=gen, device="cuda").mul_(0.02)
+                     .bfloat16())
+    w16 = qm.dequantize(8, q, s, torch.bfloat16)
+    for R in (16, 768, 3072):
+        x = torch.randn(R, K, generator=gen, device="cuda").bfloat16()
+        kern_ms, yard_ms = _alternated(lambda: qm.matmul_int8(x, q, s), INT8_KERNEL,
+                                       lambda: torch.matmul(x, w16))
+        b = bound(K * N + 4 * N + 2 * R * K + 2 * R * N, 2 * R * K * N)
+        log("device", f"quant_matmul[int8] wqkv R={R} K={K} N={N} "
+                      f"({getattr(qm.matmul_int8, 'last_plan', None)}): kernel {kern_ms:.4f} ms "
+                      f"device, yardstick (bf16 matmul) {yard_ms:.4f} ms device, "
+                      f"x{kern_ms / yard_ms:.2f} of the yardstick, "
+                      f"{2 * R * K * N / kern_ms / 1e9:.1f} TFLOP/s, "
+                      f"{K * N / kern_ms / 1e6:.1f} GB/s of weights, "
+                      f"{b['bound_ms'] / kern_ms:.1%} of the bound ({b['bound_ms']:.4f} ms, "
+                      f"{b['bound_by']})")
+        key = "" if R == 16 else f"r{R}_"
+        stats["quant_matmul[int8]"].update({f"{key}device_ms": kern_ms,
+                                            f"{key}yardstick_device_ms": yard_ms})
+
+
+def _device_times_decode1(stats, gen):
+    """Phase 3's decode1 rows over an int8 pool (16 slots of 16 pages of 128,
+    lengths 1-2,048, a dead slot), plain and ALiBi: the kernel alone, taken
+    twice (no library call reads a paged pool)."""
+    import torch
+    from llava_plus_torch.models.llama import _paged_quant
+    from llava_plus_torch.ops import paged_attention as pa
+
+    rng = np.random.default_rng(5)
+    B, H, P, pages, D = 16, 32, 128, 16, 128
+    NP = B * pages
+    page_ids = torch.as_tensor(rng.permutation(NP).reshape(B, pages), dtype=torch.int32,
+                               device="cuda")
+    lengths = rng.integers(1, pages * P + 1, size=B)
+    lengths[-1] = 0
+    pool, scale = _paged_quant(torch.randn(NP, 2, P, H, D, generator=gen, device="cuda")
+                               .bfloat16())
+    scale = scale.transpose(2, 3).contiguous()
+    q = torch.randn(B, 1, H, D, generator=gen, device="cuda").bfloat16()
+    ck = torch.randn(B, 1, H, D, generator=gen, device="cuda").bfloat16()
+    cv = torch.randn(B, 1, H, D, generator=gen, device="cuda").bfloat16()
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+    vals = torch.ones(B, dtype=torch.int32, device="cuda")
+    vals[-1] = 0
+    page_bytes = 2 * int(lengths.sum()) * H * (D + 4)
+    b = bound(page_bytes, 4 * D * H * int(lengths.sum()))
+    for name, alibi in (("paged_attention[decode1]", False),
+                        ("paged_attention[decode1,alibi]", True)):
+        slopes = _slopes(H, alibi)
+        kernel = lambda: pa.paged_decode_attention(q, pool, page_ids, lens, scale, ck, cv,
+                                                   vals, alibi_slopes=slopes)
+        kern_ms = (device_ms(kernel, DECODE1_KERNEL) + device_ms(kernel, DECODE1_KERNEL)) / 2
+        log("device", f"{name} int8 pool B={B} H={H} P={P} pages/slot={pages} (mean past "
+                      f"{lengths[:-1].mean():.0f}; "
+                      f"{getattr(pa.paged_decode1, 'last_splits', 1)} chunks a slot): kernel "
+                      f"{kern_ms:.4f} ms device, {page_bytes / kern_ms / 1e6:.1f} GB/s of pages "
+                      f"read, {b['bound_ms'] / kern_ms:.1%} of the bound "
+                      f"({b['bound_ms']:.4f} ms, {b['bound_by']})")
+        stats[name].update(device_ms=kern_ms)
 
 
 def _device_times_decode(stats, gen):
@@ -1690,6 +1818,7 @@ def serve_engine(smi, params, quantize, n_image, n_text):
     url = f"http://127.0.0.1:{server.port}/worker_generate_stream"
     try:
         flash_attention.launches = decode_attention.launches = qmm.launches = 0
+        regimes0 = (qm.matmul_int8.decode_launches, qm.matmul_int8.prefill_launches)
         e0 = (engine.prefill_dispatches, engine.prefill_requests, engine.decode_steps,
               engine.multi_slot_steps)
         t_start = time.perf_counter()
@@ -1713,6 +1842,8 @@ def serve_engine(smi, params, quantize, n_image, n_text):
         raise AssertionError("no batched admission or no shared decode steps")
     if launches != want:
         raise AssertionError(f"launch counts {launches} differ from {want}")
+    if quantize == "int8":
+        launches["quant_regimes"] = _int8_regimes("engine", regimes0, launches["quant"])
     ttfts = sorted(stamps[0] - t_send for _, t_send, stamps in results)
     t_end = max(stamps[-1] for _, _, stamps in results)
     rate = len(bodies) * new_tokens / (t_end - t_start)
@@ -1726,6 +1857,21 @@ def serve_engine(smi, params, quantize, n_image, n_text):
                   f"({n_image} image, {n_text} text); peak device memory {peak:.2f} GiB; "
                   f"card {smi}")
     return launches
+
+
+def _int8_regimes(phase, before, total):
+    """The int8 launches at decode rows and at prefill rows since ``before``
+    (the counts ``matmul_int8`` keeps apart); an engine's path must run both
+    kernels, and together they are its ``total`` int8 launches."""
+    from llava_plus_torch.ops import quant_matmul as qm
+
+    got = (qm.matmul_int8.decode_launches - before[0],
+           qm.matmul_int8.prefill_launches - before[1])
+    log(phase, f"int8 launches by regime: {got[0]} at decode rows (R <= {qm.INT8_CUT}, the "
+               f"split-K stream), {got[1]} at prefill rows (wgmma); {total} in all")
+    if min(got) <= 0 or sum(got) != total:
+        raise AssertionError(f"{phase}: the int8 regimes ran {got} of {total} launches")
+    return got
 
 
 def _paged_bodies(rng, size, new_tokens):
@@ -1814,6 +1960,7 @@ def serve_paged_engine(smi):
     try:
         for k in kernels.values():
             k.launches = 0
+        regimes0 = (qm.matmul_int8.decode_launches, qm.matmul_int8.prefill_launches)
         for r, bodies in enumerate((bodies1, None)):
             if bodies is None:
                 # each follow-up re-sends a round-1 image prompt, the answer it
@@ -1866,6 +2013,7 @@ def serve_paged_engine(smi):
         raise AssertionError(f"vision encodes: round 1 {enc1}, round 2 {enc2} (want 0)")
     if launches != want:
         raise AssertionError(f"launch counts {launches} differ from {want}")
+    launches["quant_regimes"] = _int8_regimes("paged", regimes0, launches["quant"])
     if (free + held != engine.num_pages or any(r > 1 for r in refs)
             or any(refs[p] != 1 for p in cached)):
         raise AssertionError(f"page accounting: {free} free + {held} cached of "
@@ -2022,6 +2170,7 @@ def _serve_mpt_engine(smi, mode):
             w.launches = 0
             if hasattr(w, "alibi_launches"):
                 w.alibi_launches = 0
+        regimes0 = (qm.matmul_int8.decode_launches, qm.matmul_int8.prefill_launches)
         for bodies in (bodies1, None) if paged else (bodies1,):
             if bodies is None:
                 bodies = []
@@ -2069,6 +2218,7 @@ def _serve_mpt_engine(smi, mode):
                + f"; launches {launches} (want {want})")
     if launches != want:
         raise AssertionError(f"MPT {mode}: launch counts {launches} differ from {want}")
+    launches["matmul_int8 regimes"] = _int8_regimes("mpt", regimes0, launches["matmul_int8"])
     if rounds[0]["delta"][1] != len(bodies1) or rounds[0]["delta"][0] >= len(bodies1) \
             or dm <= 0:
         raise AssertionError(f"MPT {mode}: no batched admission or no shared decode steps")
@@ -2922,6 +3072,12 @@ def main():
             raise AssertionError(f"{name} was not launched on the main path")
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": count, **stats[name]})
+        if name == "quant_matmul[int8]":
+            # the serving engines' int8 launches by regime (phases 6, 7, 11)
+            regimes = [int8["quant_regimes"], paged["quant_regimes"],
+                       mpt["dense"]["matmul_int8 regimes"], mpt["paged"]["matmul_int8 regimes"]]
+            entries[-1].update(engine_decode_launches=sum(r[0] for r in regimes),
+                               engine_prefill_launches=sum(r[1] for r in regimes))
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "llava_plus_tpu"))
     if foreign:

@@ -58,12 +58,13 @@
 // q_pos [B] int32; out [B, H, D] contiguous bf16; workspace f32 [B, Hkv,
 // splits, G, D + 2] (acc, then m and l).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "warp_mma.cuh"
+
 #include <math_constants.h>
-#include <stdint.h>
 
 namespace {
+
+using namespace warp_mma;
 
 constexpr int HD = 128;
 constexpr int NWARPS = 4;
@@ -73,7 +74,6 @@ constexpr int MAX_ROWS = 64;   // query rows a block holds (4 m16 tiles)
 constexpr int ACC_LD = HD + 4; // f32 row stride of the warps' merge area
 constexpr int MAX_SPLITS = 64; // chunks a row's combine weighs in shared memory
 constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;  // the JAX mask value
-constexpr unsigned FULL = 0xffffffffu;
 
 struct DecodeArgs {
   const __nv_bfloat16* q;
@@ -90,96 +90,6 @@ struct DecodeArgs {
   int S, H, G, Hkv, splits;
   int q_sb, q_sh, c_sb, c_ss, c_sh, s_sb, s_ss, s_sh, seg_sb;
   float sm_scale;
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 4) bytes global -> shared, zero-filled when !pred (src unread).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(pred ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// bf16(x) rounded to nearest even, as the high half of a word whose low
-// half is 0 (so also the f32 bf16(x)); finite x. Integer work only: the
-// kernel's conversions would otherwise queue on the quarter-rate converter.
-__device__ __forceinline__ uint32_t bf16_bits(float x) {
-  uint32_t u = __float_as_uint(x);
-  u += 0x7FFFu + ((u >> 16) & 1u);
-  return u & 0xFFFF0000u;
-}
-
-// Two such words as a bf16 pair (the low half from `lo`).
-__device__ __forceinline__ uint32_t pack_hi(uint32_t lo, uint32_t hi) {
-  return __byte_perm(lo, hi, 0x7632);
-}
-
-// A signed byte (the low byte of `b`, the rest 0) as f32, exactly: the bits
-// (b ^ 0x80) | 0x4B000000 are 2^23 + 128 + b. Its bf16 is the high half.
-__device__ __forceinline__ uint32_t i8_f32_bits(uint32_t b) {
-  return __float_as_uint(__uint_as_float(b ^ 0x4B000080u) - 8388736.f);
-}
-
-// Cache element traits: bytes of a cache row, the padded shared-memory row
-// stride (272 / 144 bytes: the fragment loads below hit distinct banks), two
-// consecutive elements of a row as a bf16 pair, and two elements of one
-// column from rows r and r + 1 as a bf16 pair (the low half from row r).
-// int8 converts to bf16 exactly, with integer and add instructions only.
-template <typename CacheT>
-struct Elem;
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static constexpr int ROW = HD * 2;
-  static constexpr int LDS = ROW + 16;
-  __device__ static uint32_t pair(const unsigned char* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-  }
-  __device__ static uint32_t column(const unsigned char* p) {
-    const uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
-    const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + LDS);
-    return __byte_perm(lo, hi, 0x5410);
-  }
-};
-
-template <>
-struct Elem<int8_t> {
-  static constexpr int ROW = HD;
-  static constexpr int LDS = ROW + 16;
-  __device__ static uint32_t pair(const unsigned char* p) {
-    const uint32_t raw = *reinterpret_cast<const uint16_t*>(p);
-    return pack_hi(i8_f32_bits(raw & 0xffu), i8_f32_bits(raw >> 8));
-  }
-  __device__ static uint32_t column(const unsigned char* p) {
-    return pack_hi(i8_f32_bits(p[0]), i8_f32_bits(p[LDS]));
-  }
 };
 
 // ring stages: 3 (of 35 KB for bf16, of 19 KB for int8)

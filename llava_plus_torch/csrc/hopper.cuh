@@ -1,4 +1,4 @@
-// Hopper building blocks shared by the flash kernels (sm_90a): mbarriers,
+// Hopper building blocks shared by the flash kernels and the int8 matmul (sm_90a): mbarriers,
 // TMA tile loads and bulk copies, wgmma shared-memory descriptors and the
 // wgmma instructions the kernels issue, and the host side of a TMA tensor
 // map.
@@ -84,6 +84,18 @@ __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map,
       "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(row), "r"(0),
       "r"(head), "r"(batch)
+      : "memory");
+}
+
+// A box of a 2-d tensor map (make_map_2d) at element coordinates (inner,
+// outer) into shared memory; completion is reported to `bar` (the whole
+// box's bytes, elements past the tensor's edges zero-filled).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int inner, int outer) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(inner), "r"(outer)
       : "memory");
 }
 
@@ -232,6 +244,31 @@ __device__ __forceinline__ void wgmma_rs_m64n128_mn(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D[64 x 128] += A[64 x 16] B[16 x 128]: A from registers, B in shared
+// memory K-major (its 128 rows of 16 k each, as in gemm_k128).
+__device__ __forceinline__ void wgmma_rs_m64n128_k(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
 
 // ---- k-loops of wgmma ------------------------------------------------------
 
@@ -329,6 +366,27 @@ inline int make_map(CUtensorMap* map, const void* base, int B, int T, int heads,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
+}
+
+// A 2-d tensor (`inner` contiguous elements a row, `outer` rows of
+// `row_bytes`) as a map whose box is `box_inner` x `box_outer` elements,
+// 128-byte swizzled (box_inner elements must span 128 bytes). Elements past
+// the edges read as zeros. Returns 0 or TENSOR_MAP_ERROR (+ the CUDA
+// driver's code).
+inline int make_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                       int inner, int outer, long long row_bytes, int box_inner,
+                       int box_outer) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return TENSOR_MAP_ERROR;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  // a single row is never stepped: give the stride the CUDA driver takes
+  const cuuint64_t strides[1] = {(cuuint64_t)(outer == 1 ? 128 : row_bytes)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
 }
 

@@ -6,7 +6,7 @@
 // matmul_int4_native). Same functions:
 //   int8: x [R, K] bf16 @ qw [K, N] int8, f32 accumulation, times the
 //         per-output-channel scale [N] f32 (the Pallas kernel leaves the
-//         scale to its caller; here it is applied in the epilogue);
+//         scale to its caller; here it is applied after the f32 sums);
 //   int4: x [R, K] bf16 @ packed qw [K/2, N] int8 with per-32-row-block
 //         scales [K/32, N] f32 applied while the tile is converted. Within
 //         each 32-row block the packing is split-half: the low nibble of
@@ -18,23 +18,41 @@
 //         kernel runs over all of K.
 // The output is bf16 or f32 (the lm_head's logits), [R, N] row-major.
 //
-// What bounds it on the card: at decode (R = the engine's slots, 1..16) the
-// weight stream, K * N bytes (int8) or K * N / 2 (int4) per call, against
-// 3.35 TB/s; at prefill (R in the thousands) the products. The weights move
-// from device memory as int8 (half of bf16's bytes, a quarter for int4) and
-// are widened to bf16 only in shared memory, right before mma.sync m16n8k16
-// (bf16 operands, f32 accumulators). Each 128-deep K tile is fetched into
-// registers while the previous one is multiplied. Two tile shapes: 16 rows
-// by 32 columns for R <= 16 (decode: more blocks to spread the weight stream
-// over the SMs), 64 by 64 for larger R. This first version has no split-K,
-// no wgmma and no TMA; those are later work.
+// What bounds it on the card: at decode rows (R = the engine's slots, 1..16;
+// later speculation's up to 32) the weight stream, K * N bytes (int8) or
+// K * N / 2 (int4) per call, against 3.35 TB/s; at prefill and training rows
+// (768 a prompt, thousands in a batch) the products, against 989 bf16
+// TFLOP/s. The weights move from device memory as int8 (half of bf16's
+// bytes, a quarter for int4) and are widened to bf16 (exactly: masks and a
+// bf16x2 add, csrc/warp_mma.cuh) right before the tensor cores.
 //
+// int8 takes one of two kernels, by row count (ops/quant_matmul.int8_plan,
+// the cut INT8_CUT = 32 measured on the card):
+//   decode rows   int8_stream_kernel: 128-column strips of the weight, each
+//                 cut into K chunks so that every SM holds two or three
+//                 blocks streaming equal bytes; 64 x 128 weight tiles by TMA
+//                 through a 4-stage ring, x's rows beside them by cp.async;
+//                 mma.sync with the weight as the m16 side and x's rows as
+//                 n8 (out^T = W^T x^T: one row costs an n8 tile, not a
+//                 padded m16); the chunks' f32 parts summed in chunk order
+//                 by the last block of the strip (a counter it resets): one
+//                 launch, deterministic, no host sync;
+//   prefill rows  int8_wgmma_kernel: 128-row x 256-column output tiles, x
+//                 and the int8 weight by TMA into a 6-stage ring of 128-byte
+//                 swizzled tiles; each thread converts its weight bytes
+//                 straight into wgmma's register A operand (the transposed
+//                 product again: the weight's columns are M, x's rows N) while
+//                 the previous tile's wgmma m64n128k16 run; the tiles of a
+//                 last, partial wave cut into K chunks, combined as above.
+// The int4 kernels (split-half and native): mma.sync on one 128-deep tile at
+// a time, prefetched through registers, widened into shared memory with the
+// block scales; 16 x 32 output tiles at decode rows, 64 x 64 above.
+
 // Shapes (every layout): K % 128 == 0, N % 64 == 0; x rows with a 16-byte aligned stride,
 // the last dimension contiguous; qw, scales and out contiguous.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
+#include "warp_mma.cuh"
 
 namespace {
 
@@ -77,10 +95,10 @@ __device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// BITS: 8 or 4. BM x BN: the block's output tile. OUT_F32: f32 or bf16 out.
-// NATIVE (BITS 4 only): the [K, N/2] column-pair layout instead of split-half;
-// it changes only the weight tile's fetch and its unpack into Ws.
-template <int BITS, int BM, int BN, bool OUT_F32, bool NATIVE = false>
+// The int4 kernels. BM x BN: the block's output tile. OUT_F32: f32 or bf16
+// out. NATIVE: the [K, N/2] column-pair layout instead of split-half; it
+// changes only the weight tile's fetch and its unpack into Ws.
+template <int BM, int BN, bool OUT_F32, bool NATIVE = false>
 __global__ void __launch_bounds__(NTHREADS)
 quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                     const int8_t* __restrict__ qw,
@@ -92,17 +110,16 @@ quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
   constexpr int NT = BN / WN / 8;         // 8-column mma tiles per warp
   constexpr int LDW = BN + 8;             // smem row stride of the weight tile
   constexpr int XCH = BM * BK / 8 / NTHREADS;              // uint4 of x a thread loads
-  constexpr int WROWS = BITS == 8 || NATIVE ? BK : BK / 2; // stored rows of a tile
+  constexpr int WROWS = NATIVE ? BK : BK / 2;              // stored rows of a tile
   constexpr int WROWB = NATIVE ? BN / 2 : BN;              // stored bytes of a tile row
   constexpr int WCH = WROWS * WROWB / 16 / NTHREADS;       // uint4 of weights a thread loads
   constexpr int SCH = BK / QBLOCK * BN / 4;                // uint4 of int4 scales a tile has
   static_assert(WM * WN == 4 && NT >= 1, "warp layout");
   static_assert(XCH >= 1 && WCH >= 1 && SCH <= NTHREADS, "tile shape");
-  static_assert(!NATIVE || BITS == 4, "the native layout is int4");
 
   __shared__ __align__(16) __nv_bfloat16 Xs[BM * LDX];
   __shared__ __align__(16) __nv_bfloat16 Ws[BK * LDW];
-  __shared__ __align__(16) float Ss[BITS == 4 ? BK / QBLOCK * BN : 4];
+  __shared__ __align__(16) float Ss[BK / QBLOCK * BN];
 
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
@@ -127,7 +144,7 @@ quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
           ? *reinterpret_cast<const uint4*>(x + (size_t)row * ldx + k0 + c)
           : make_uint4(0, 0, 0, 0);
     }
-    const int wrow0 = BITS == 8 || NATIVE ? k0 : k0 / 2;
+    const int wrow0 = NATIVE ? k0 : k0 / 2;
     const int ldw = NATIVE ? N / 2 : N;                     // bytes of a stored row
 #pragma unroll
     for (int j = 0; j < WCH; ++j) {
@@ -136,7 +153,7 @@ quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
       wr[j] = *reinterpret_cast<const uint4*>(qw + (size_t)(wrow0 + r) * ldw
                                               + (NATIVE ? n0 / 2 : n0) + c);
     }
-    if (BITS == 4 && tid < SCH) {
+    if (tid < SCH) {
       const int r = tid / (BN / 4), c = (tid % (BN / 4)) * 4;
       sr = *reinterpret_cast<const uint4*>(scale + (size_t)(k0 / QBLOCK + r) * N + n0 + c);
     }
@@ -156,13 +173,11 @@ quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
       const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
       *reinterpret_cast<uint4*>(Xs + r * LDX + c) = xr[j];
     }
-    if (BITS == 4) {
-      if (tid < SCH) {
-        const int r = tid / (BN / 4), c = (tid % (BN / 4)) * 4;
-        *reinterpret_cast<uint4*>(Ss + r * BN + c) = sr;
-      }
-      __syncthreads();  // the scales are in place before the conversion
+    if (tid < SCH) {
+      const int r = tid / (BN / 4), c = (tid % (BN / 4)) * 4;
+      *reinterpret_cast<uint4*>(Ss + r * BN + c) = sr;
     }
+    __syncthreads();  // the scales are in place before the conversion
 #pragma unroll
     for (int j = 0; j < WCH; ++j) {
       const int i = tid + j * NTHREADS;
@@ -185,18 +200,6 @@ quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
         for (int q = 0; q < 4; ++q)
           dst[q] = make_uint4(packed[4 * q], packed[4 * q + 1], packed[4 * q + 2],
                               packed[4 * q + 3]);
-      } else if (BITS == 8) {
-        // 16 int8 of row r -> 16 bf16 (exact: |q| <= 127)
-        uint32_t packed[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const uint32_t w = word_of(wr[j], e / 2);
-          const int s = (e % 2) * 2;
-          packed[e] = pack_bf16((float)sbyte(w, s), (float)sbyte(w, s + 1));
-        }
-        uint4* dst = reinterpret_cast<uint4*>(Ws + r * LDW + c);
-        dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-        dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
       } else {
         // packed row r of the tile: block kb = r / 16, rows klo = 32 kb + r % 16
         // (low nibbles) and klo + 16 (high nibbles); value = nibble * scale,
@@ -243,17 +246,12 @@ quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
     }
   }
 
-  // Epilogue: the per-channel scale (int8), then bf16 or f32 pairs.
+  // Epilogue: bf16 or f32 pairs (the block scales were applied to the tile).
   const int row0 = m0 + rb + g, row1 = row0 + 8;
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
     const int col = n0 + cb + t * 8 + tig * 2;
-    float s0 = 1.f, s1 = 1.f;
-    if (BITS == 8) {
-      s0 = scale[col];
-      s1 = scale[col + 1];
-    }
-    const float v[4] = {acc[t][0] * s0, acc[t][1] * s1, acc[t][2] * s0, acc[t][3] * s1};
+    const float v[4] = {acc[t][0], acc[t][1], acc[t][2], acc[t][3]};
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = h == 0 ? row0 : row1;
@@ -269,7 +267,7 @@ quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int BITS, bool OUT_F32, bool NATIVE = false>
+template <bool OUT_F32, bool NATIVE = false>
 int launch(const void* x, const void* qw, const void* scale, void* out,
            int R, int K, int N, int ldx, cudaStream_t stream) {
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
@@ -277,43 +275,578 @@ int launch(const void* x, const void* qw, const void* scale, void* out,
   const auto* sp = static_cast<const float*>(scale);
   if (R <= 16) {
     constexpr int BM = 16, BN = 32;
-    quant_matmul_kernel<BITS, BM, BN, OUT_F32, NATIVE>
+    quant_matmul_kernel<BM, BN, OUT_F32, NATIVE>
         <<<dim3(N / BN, 1), NTHREADS, 0, stream>>>(xp, qp, sp, out, R, K, N, ldx);
   } else {
     constexpr int BM = 64, BN = 64;
-    quant_matmul_kernel<BITS, BM, BN, OUT_F32, NATIVE>
+    quant_matmul_kernel<BM, BN, OUT_F32, NATIVE>
         <<<dim3(N / BN, (R + BM - 1) / BM), NTHREADS, 0, stream>>>(xp, qp, sp, out, R, K, N, ldx);
   }
   return (int)cudaGetLastError();
 }
 
-template <int BITS>
-int dispatch(const void* x, const void* qw, const void* scale, void* out,
-             int R, int K, int N, int ldx, int out_f32, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  return out_f32 ? launch<BITS, true>(x, qw, scale, out, R, K, N, ldx, s)
-                 : launch<BITS, false>(x, qw, scale, out, R, K, N, ldx, s);
+
+
+// ---- int8: the two row regimes ------------------------------------------------
+
+namespace int8k {
+
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using warp_mma::FULL;
+using warp_mma::i8x_pair;
+
+// out[r, col .. col + 3] = v (times the columns' scales), bf16 or f32.
+template <bool OUT_F32>
+__device__ __forceinline__ void store4(void* out, int r, int col, int N, float4 v) {
+  if (OUT_F32) {
+    *reinterpret_cast<float4*>(static_cast<float*>(out) + (size_t)r * N + col) = v;
+  } else {
+    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(out) + (size_t)r * N + col) =
+        make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+  }
 }
+
+__device__ __forceinline__ float4 scaled(float4 v, const float* scale, int col) {
+  const float4 s = *reinterpret_cast<const float4*>(scale + col);
+  return make_float4(v.x * s.x, v.y * s.y, v.z * s.z, v.w * s.w);
+}
+
+// The last block of an output tile (rows r0 .., columns c0 .. of `cols`, a
+// multiple of 4) sums the tile's split-K partials in split order (element
+// (r, col) of split k at part[k * stride + (r - r0) * ld + col - c0]),
+// applies the scale and writes the tile: the same sums in the same order on
+// every launch. Four outputs a thread at once, so that many loads of the
+// partials are in flight (each waits on L2).
+template <bool OUT_F32>
+__device__ void finish_tile(const float* part, size_t stride, int ld, int splits,
+                            const float* scale, void* out, int R, int N, int r0, int rows,
+                            int c0, int cols, int tid, int nthreads) {
+  constexpr int U = 4;
+  const int q = cols / 4, n = rows * q;
+  for (int x0 = tid; x0 < n; x0 += U * nthreads) {
+    float4 v[U];
+    const float* src[U];
+    bool live[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = x0 + u * nthreads;
+      const int rr = e / q, cc = 4 * (e % q);
+      live[u] = e < n && r0 + rr < R && c0 + cc < N;
+      src[u] = part + (live[u] ? (size_t)rr * ld + cc : 0);
+      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll 4
+    for (int k = 0; k < splits; ++k)
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float4 p = __ldcg(reinterpret_cast<const float4*>(src[u] + k * stride));
+        v[u].x += p.x;
+        v[u].y += p.y;
+        v[u].z += p.z;
+        v[u].w += p.w;
+      }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (!live[u]) continue;
+      const int e = x0 + u * nthreads;
+      const int r = r0 + e / q, col = c0 + 4 * (e % q);
+      store4<OUT_F32>(out, r, col, N, scaled(v[u], scale, col));
+    }
+  }
+}
+
+// Count this block's partial of tile `tile` in; true for the last block of
+// the tile, which resets the counter for the next launch. Every thread of
+// the block calls it; the block's partial writes precede it.
+__device__ __forceinline__ bool last_of_tile(int* counters, int tile, int splits, int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    *flag = atomicAdd(counters + tile, 1) == splits - 1;
+    if (*flag) counters[tile] = 0;
+  }
+  __syncthreads();
+  const bool last = *flag;
+  if (last) __threadfence();
+  return last;
+}
+
+// -- decode rows: the weight stream over every SM ---------------------------------
+
+constexpr int SN = 128;             // weight columns of a strip: 32 per warp
+constexpr int SK = 64;              // k rows of a tile (one ring stage)
+constexpr int SST = 4;              // ring stages
+constexpr int SLDX = 2 * SK + 16;   // shared bytes of an x row
+constexpr int SNTHREADS = 128;      // 4 warps
+
+// A stage: the weight tile (64 rows x 128 bytes, 128-byte swizzled by TMA)
+// and the x tile, rounded to the 1024 bytes a swizzled tile starts on.
+template <int NR>
+__host__ __device__ constexpr int stream_stage() {
+  return (SK * SN + 8 * NR * SLDX + 1023) / 1024 * 1024;
+}
+
+template <int NR>
+__host__ __device__ constexpr int stream_smem() {
+  return SST * stream_stage<NR>() + SST * 8 + 1024;   // + the mbarriers, + alignment
+}
+
+// One block per (strip of 128 weight columns, K chunk); the plan
+// (ops/quant_matmul.int8_plan) picks the chunks so that two or three blocks
+// of every SM stream about the same bytes. Thread 0 brings each 64 x 128
+// weight tile with one TMA load (a map made once per weight and kept by the
+// wrapper), SST - 1 tiles ahead; the threads copy x's tile beside it with
+// cp.async. Warp w owns columns 32 w .. 32 w
+// + 31 of the strip over every k step of the chunk, so no sums cross warps.
+// The product is transposed, out^T = W^T x^T: the weight is mma's A side
+// (m16) and x's 8 NR rows the n8 side, so a decode row costs one n8 tile,
+// not a padded m16. A thread's A registers come from one 4-byte load at each
+// of its 4 k rows: columns 32 w + 4 g .. + 3, which are rows g and g + 8 of
+// m-tiles 0 and 1 (the columns permuted inside the warp, undone where the
+// sums are stored). With one chunk the block writes its columns scaled;
+// otherwise it writes its f32 part to the workspace, and the last block of
+// the strip to count in (a counter per strip, reset by that block) sums the
+// parts in chunk order, scales and writes: deterministic, one launch.
+template <int NR, bool OUT_F32>
+__global__ void __launch_bounds__(SNTHREADS)
+int8_stream_kernel(const __grid_constant__ CUtensorMap w_map,
+                   const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
+                   void* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
+                   int R, int K, int N, int ldx, int splits) {
+  constexpr int ROWS = 8 * NR;
+  constexpr int stage = stream_stage<NR>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + SST * stage);
+  __shared__ int is_last;
+
+  const int n0 = blockIdx.x * SN;
+  const int c = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kt_all = K / SK;
+  const int per = (kt_all + splits - 1) / splits;
+  const int kt0 = c * per;
+  const int nt = max(0, min(kt_all, kt0 + per) - kt0);
+
+  if (tid == 0) {
+    for (int s = 0; s < SST; ++s) mbar_init(&full[s], 1);
+    hopper::fence_barrier_init();
+    hopper::prefetch_map(&w_map);
+  }
+  __syncthreads();
+
+  // tile i into stage i % SST: the weight by TMA (thread 0; columns past N
+  // read as zeros), x by cp.async (rows past R zero-filled)
+  auto load_tile = [&](int i) {
+    unsigned char* st = smem + (i % SST) * stage;
+    const int k0 = (kt0 + i) * SK;
+    if (tid == 0) {
+      mbar_expect_tx(&full[i % SST], SK * SN);
+      hopper::tma_load_2d(st, &w_map, &full[i % SST], n0, k0);
+    }
+    for (int e = tid; e < ROWS * (SK / 8); e += SNTHREADS) {
+      const int r = e / (SK / 8), ch = e % (SK / 8);
+      const bool in = r < R;
+      warp_mma::cp_async16(st + SK * SN + r * SLDX + 16 * ch,
+                           x + (size_t)(in ? r : 0) * ldx + k0 + 8 * ch, in);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < SST - 1; ++i) {
+    if (i < nt) load_tile(i);
+    warp_mma::cp_async_commit();
+  }
+
+  float acc[2][NR][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int n = 0; n < NR; ++n) acc[j][n][0] = acc[j][n][1] = acc[j][n][2] = acc[j][n][3] = 0.f;
+  const int wc = 32 * warp + 4 * g;   // this thread's 4 columns of the strip
+
+  for (int i = 0; i < nt; ++i) {
+    warp_mma::cp_async_wait<SST - 2>();
+    __syncthreads();   // x tile i landed for all; tile i - 1's stage is free
+    if (i + SST - 1 < nt) {
+      // the stage's last readers were generic loads, its next writer is TMA
+      if (tid == 0) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      load_tile(i + SST - 1);
+    }
+    warp_mma::cp_async_commit();
+    mbar_wait(&full[i % SST], (i / SST) & 1);   // weight tile i landed
+
+    const unsigned char* wt = smem + (i % SST) * stage;
+    const unsigned char* xt = wt + SK * SN;
+#pragma unroll
+    for (int ks = 0; ks < SK / 16; ++ks) {
+      const int k = 16 * ks + 2 * t;   // this thread's rows k, k + 1, k + 8, k + 9
+      uint32_t wd[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = k + (q & 1) + 8 * (q >> 1);   // 128-byte swizzled rows
+        wd[q] = *reinterpret_cast<const uint32_t*>(wt + row * SN +
+                                                   ((((wc >> 4) ^ row) & 7) << 4) + (wc & 15));
+      }
+      // byte 0: m-tile 0 row g; 1: m-tile 0 row g + 8; 2, 3: m-tile 1
+      uint32_t a[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        a[j][0] = i8x_pair(wd[0], wd[1], 2 * j);
+        a[j][1] = i8x_pair(wd[0], wd[1], 2 * j + 1);
+        a[j][2] = i8x_pair(wd[2], wd[3], 2 * j);
+        a[j][3] = i8x_pair(wd[2], wd[3], 2 * j + 1);
+      }
+      // x's B fragments by ldmatrix: matrix 2 m + h is rows 8 (n + m) .. + 7,
+      // k 16 ks + 8 h .. + 7
+      uint32_t b[NR][2];
+      const int m8 = lane / 8;
+      if constexpr (NR == 1) {
+        warp_mma::ldmatrix_x2(b[0], xt + (lane % 8) * SLDX + 2 * (16 * ks + 8 * (m8 & 1)));
+      } else {
+#pragma unroll
+        for (int n = 0; n < NR; n += 2) {
+          uint32_t r[4];
+          warp_mma::ldmatrix_x4(r, xt + (8 * (n + m8 / 2) + lane % 8) * SLDX +
+                                       2 * (16 * ks + 8 * (m8 & 1)));
+          b[n][0] = r[0];
+          b[n][1] = r[1];
+          b[n + 1][0] = r[2];
+          b[n + 1][1] = r[3];
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NR; ++n) {
+        warp_mma::mma_16816(acc[0][n], a[0], b[n][0], b[n][1]);
+        warp_mma::mma_16816(acc[1][n], a[1], b[n][0], b[n][1]);
+      }
+    }
+  }
+
+  // acc[j][n] holds (column wc + 2 j, x row 8 n + 2 t), (that column, row +
+  // 1), then column + 1 for both rows
+  const int col = n0 + wc;
+  if (col < N) {
+#pragma unroll
+    for (int n = 0; n < NR; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 8 * n + 2 * t + e;
+        if (r >= R) continue;
+        const float4 v = make_float4(acc[0][n][e], acc[0][n][2 + e], acc[1][n][e],
+                                     acc[1][n][2 + e]);
+        if (splits == 1)
+          store4<OUT_F32>(out, r, col, N, scaled(v, scale, col));
+        else
+          *reinterpret_cast<float4*>(ws + ((size_t)c * R + r) * N + col) = v;
+      }
+  }
+  if (splits == 1) return;
+  if (last_of_tile(counters, blockIdx.x, splits, &is_last))
+    finish_tile<OUT_F32>(ws + n0, (size_t)R * N, N, splits, scale, out, R, N, 0, R, n0, SN, tid,
+                         SNTHREADS);
+}
+
+// -- prefill and training rows: wgmma -------------------------------------------
+
+constexpr int PW_COLS = 256;           // weight columns of a block: 128 per consumer warpgroup
+constexpr int PX_ROWS = 128;           // x rows of a block
+constexpr int PK = 64;                 // k of a ring stage (128 bytes of x rows)
+constexpr int PST = 6;                 // ring stages
+constexpr int PX_BYTES = PX_ROWS * 128;       // a stage's x tile: 128 rows x 64 bf16
+constexpr int PW_BYTES = PK * 128;            // a 128-column weight box: 64 rows x 128 int8
+constexpr int PSTAGE = PX_BYTES + 2 * PW_BYTES;
+constexpr int PNTHREADS = 256;         // two consumer warpgroups
+constexpr int PTILE = PX_ROWS * PW_COLS;   // f32 sums of a partial tile
+constexpr int PSMEM = PST * PSTAGE + 2 * PST * 8 + 1024;
+
+// One block per (256 weight columns, 128 x rows[, K chunk]) (which tiles
+// are cut into K chunks: quant_matmul_int8_wgmma). The product is
+// transposed, out^T = W^T x^T, so the weight is wgmma's register operand
+// A: each thread reads its int8 straight from the TMA-fed, 128-byte-swizzled
+// weight box of its warpgroup (one 4-byte load a row: columns 4 (8 w + g)
+// .. + 3, which are rows g and g + 8 of m-tiles 0 and 1, the columns
+// permuted inside the warpgroup's 128 and undone at the store), converts
+// them exactly to bf16 pairs in registers and issues m64n128k16 with x's
+// tile (128 rows, K-major, swizzled) as B from shared memory. The bf16
+// weights never touch shared memory. Two register sets of A: tile i + 1 is
+// converted while tile i's eight products run, and the set is written only
+// after the products that read it have retired (ptxas then keeps the wgmma
+// pipelined). Thread 0 issues the TMA loads, PST - 1 tiles ahead.
+__global__ void __launch_bounds__(PNTHREADS, 1)
+int8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                  const __grid_constant__ CUtensorMap w_map, const float* __restrict__ scale,
+                  void* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
+                  int R, int K, int N, int splits, int dp_tiles, int out_f32) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + PST * PSTAGE);
+  uint64_t* empty = full + PST;
+  __shared__ int is_last;
+
+  // output tiles in order (columns fastest): the first dp_tiles over all of
+  // K, one block each; every later one cut into `splits` K chunks
+  const int n_tiles = (N + PW_COLS - 1) / PW_COLS;
+  const int b = blockIdx.x;
+  const int tile = b < dp_tiles ? b : dp_tiles + (b - dp_tiles) / splits;
+  const int c = b < dp_tiles ? 0 : (b - dp_tiles) % splits;
+  const int chunks = b < dp_tiles ? 1 : splits;   // block-uniform
+  const int n0 = (tile % n_tiles) * PW_COLS;
+  const int m0 = (tile / n_tiles) * PX_ROWS;
+  // a cut tile's partial of chunk c (f32, 128 x 256)
+  float* part = chunks > 1 ? ws + ((size_t)(tile - dp_tiles) * splits + c) * PTILE : nullptr;
+  const int kt_all = K / PK;
+  const int per = (kt_all + chunks - 1) / chunks;
+  const int kt0 = c * per;
+  const int nt = max(0, min(kt_all, kt0 + per) - kt0);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+
+  if (tid == 0) {
+    for (int s = 0; s < PST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);   // one arrival per warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // stage j % PST gets x tile j and both weight boxes
+  auto load = [&](int j) {
+    const int s = j % PST;
+    const int k0 = (kt0 + j) * PK;
+    unsigned char* st = smem + s * PSTAGE;
+    mbar_expect_tx(&full[s], PSTAGE);
+    hopper::tma_load_2d(st, &x_map, &full[s], k0, m0);
+    hopper::tma_load_2d(st + PX_BYTES, &w_map, &full[s], n0, k0);
+    hopper::tma_load_2d(st + PX_BYTES + PW_BYTES, &w_map, &full[s], n0 + 128, k0);
+  };
+  if (tid == 0) {
+    hopper::prefetch_map(&x_map);
+    hopper::prefetch_map(&w_map);
+    for (int j = 0; j < PST && j < nt; ++j) load(j);
+  }
+  __syncwarp();
+
+  // warpgroup wg owns weight columns n0 + 128 wg .. + 127 (its box); wg is
+  // warp-uniform as the compiler sees it
+  const int wg = __shfl_sync(FULL, tid / 128, 0);
+  const int w = warp % 4;
+  const int g = lane / 4, t = lane % 4;
+  const int wcol = 4 * (8 * w + g);   // byte column of this thread's words in the box
+  float acc[2][64];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[j][e] = 0.f;
+
+  auto convert = [&](uint32_t (&A)[4][2][4], int i) {
+    const int s = i % PST;
+    mbar_wait(&full[s], (i / PST) & 1);
+    const unsigned char* box = smem + s * PSTAGE + PX_BYTES + wg * PW_BYTES;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t wd[4];   // rows k, k + 1, k + 8, k + 9 (the box is 128-byte swizzled)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = 16 * ks + 2 * t + (q & 1) + 8 * (q >> 1);
+        wd[q] = *reinterpret_cast<const uint32_t*>(
+            box + k * 128 + ((((wcol >> 4) ^ k) & 7) << 4) + (wcol & 15));
+      }
+      // byte 0: m-tile 0 row g; 1: m-tile 0 row g + 8; 2, 3: m-tile 1
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        A[ks][j][0] = i8x_pair(wd[0], wd[1], 2 * j);
+        A[ks][j][1] = i8x_pair(wd[0], wd[1], 2 * j + 1);
+        A[ks][j][2] = i8x_pair(wd[2], wd[3], 2 * j);
+        A[ks][j][3] = i8x_pair(wd[2], wd[3], 2 * j + 1);
+      }
+    }
+  };
+  auto issue = [&](uint32_t (&A)[4][2][4], int i) {
+    const uint32_t x_addr = hopper::smem_u32(smem + (i % PST) * PSTAGE);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint64_t db = hopper::desc_sw128(x_addr + 32 * ks, 16, 1024);
+      hopper::wgmma_rs_m64n128_k(acc[0], A[ks][0], db);
+      hopper::wgmma_rs_m64n128_k(acc[1], A[ks][1], db);
+    }
+    hopper::wgmma_commit();
+  };
+  auto retire = [&](uint32_t (&A)[4][2][4], int i) {
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc[0]);
+    hopper::fence_regs(acc[1]);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      hopper::fence_regs(A[ks][0]);
+      hopper::fence_regs(A[ks][1]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[i % PST]);
+    // tile i - 1 + PST into the stage that both warpgroups freed a tile ago
+    if (tid == 0 && i >= 1 && i - 1 + PST < nt) {
+      mbar_wait(&empty[(i - 1) % PST], ((i - 1) / PST) & 1);
+      load(i - 1 + PST);
+    }
+    __syncwarp();
+  };
+  uint32_t a0[4][2][4], a1[4][2][4];
+  if (nt > 0) convert(a0, 0);
+  for (int i = 0; i < nt; i += 2) {
+    issue(a0, i);
+    if (i + 1 < nt) convert(a1, i + 1);
+    retire(a0, i);
+    if (i + 1 >= nt) break;
+    issue(a1, i + 1);
+    if (i + 2 < nt) convert(a0, i + 2);
+    retire(a1, i + 1);
+  }
+
+  // acc[j][4 n + e]: weight column 4 (8 w + g) + 2 j (e < 2) or + 2 j + 1
+  // (e >= 2) of the warpgroup's 128, x row 8 n + 2 t + e % 2
+  const int col = n0 + 128 * wg + wcol;
+  if (col < N) {
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = m0 + 8 * n + 2 * t + e;
+        if (r >= R) continue;
+        const float4 v = make_float4(acc[0][4 * n + e], acc[0][4 * n + 2 + e],
+                                     acc[1][4 * n + e], acc[1][4 * n + 2 + e]);
+        if (chunks > 1)
+          *reinterpret_cast<float4*>(part + (r - m0) * PW_COLS + col - n0) = v;
+        else if (out_f32)
+          store4<true>(out, r, col, N, scaled(v, scale, col));
+        else
+          store4<false>(out, r, col, N, scaled(v, scale, col));
+      }
+  }
+  if (chunks == 1) return;
+  if (last_of_tile(counters, tile, chunks, &is_last)) {
+    const float* first = part - (size_t)c * PTILE;
+    if (out_f32)
+      finish_tile<true>(first, PTILE, PW_COLS, chunks, scale, out, R, N, m0, PX_ROWS, n0,
+                        PW_COLS, tid, PNTHREADS);
+    else
+      finish_tile<false>(first, PTILE, PW_COLS, chunks, scale, out, R, N, m0, PX_ROWS, n0,
+                         PW_COLS, tid, PNTHREADS);
+  }
+}
+
+template <int NR, bool OUT_F32>
+int launch_stream(const CUtensorMap& w_map, const void* x, const void* scale, void* out,
+                  void* ws, void* counters, int R, int K, int N, int ldx, int splits,
+                  cudaStream_t st) {
+  constexpr int smem = stream_smem<NR>();
+  auto kernel = int8_stream_kernel<NR, OUT_F32>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((N + SN - 1) / SN, splits), SNTHREADS, smem, st>>>(
+      w_map, static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(scale), out,
+      static_cast<float*>(ws), static_cast<int*>(counters), R, K, N, ldx, splits);
+  return (int)cudaGetLastError();
+}
+
+template <bool OUT_F32>
+int stream_rows(const CUtensorMap& w_map, const void* x, const void* scale, void* out,
+                void* ws, void* counters, int R, int K, int N, int ldx, int splits,
+                cudaStream_t st) {
+  if (R <= 8)
+    return launch_stream<1, OUT_F32>(w_map, x, scale, out, ws, counters, R, K, N, ldx, splits,
+                                     st);
+  if (R <= 16)
+    return launch_stream<2, OUT_F32>(w_map, x, scale, out, ws, counters, R, K, N, ldx, splits,
+                                     st);
+  return launch_stream<4, OUT_F32>(w_map, x, scale, out, ws, counters, R, K, N, ldx, splits,
+                                   st);
+}
+
+}  // namespace int8k
 
 }  // namespace
 
 // Each returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int quant_matmul_int8(const void* x, const void* qw, const void* scale,
-                                 void* out, int R, int K, int N, int ldx,
-                                 int out_f32, void* stream) {
-  return dispatch<8>(x, qw, scale, out, R, K, N, ldx, out_f32, stream);
+//
+// The TMA map of an int8 weight [K, N] as the decode kernel reads it (64 x
+// 128 tiles, 128-byte swizzled), written to `map` (128 bytes, 64-byte
+// aligned); made once per weight by the caller, who keeps it.
+extern "C" int quant_matmul_int8_weight_map(const void* qw, int K, int N, void* map) {
+  return hopper::make_map_2d(static_cast<CUtensorMap*>(map), CU_TENSOR_MAP_DATA_TYPE_UINT8, qw,
+                             N, K, N, int8k::SN, int8k::SK);
+}
+
+// int8, decode rows (R <= 32): 128-column strips, each cut into `splits` K
+// chunks of whole 64-row tiles; `w_map` is the weight's map from
+// quant_matmul_int8_weight_map; with splits > 1, `ws` is the f32 workspace
+// [splits, R, N] and `counters` an int32 buffer of ceil(N / 128) zeros,
+// left zero.
+extern "C" int quant_matmul_int8_stream(const void* w_map, const void* x, const void* scale,
+                                        void* out, void* ws, void* counters, int R, int K,
+                                        int N, int ldx, int out_f32, int splits,
+                                        void* stream) {
+  if (R < 1 || R > 32 || splits < 1 || (splits > 1 && (!ws || !counters)) || !w_map)
+    return (int)cudaErrorInvalidValue;
+  const CUtensorMap& map = *static_cast<const CUtensorMap*>(w_map);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return out_f32 ? int8k::stream_rows<true>(map, x, scale, out, ws, counters, R, K, N, ldx,
+                                            splits, st)
+                 : int8k::stream_rows<false>(map, x, scale, out, ws, counters, R, K, N, ldx,
+                                             splits, st);
+}
+
+// int8, prefill and training rows: 128-row x 256-column output tiles, the
+// first `dp_tiles` (in order, columns fastest) over all of K, every later one
+// cut into `splits` K chunks of whole 64-row steps (so that a last, partial
+// wave of tiles spreads over the SMs); with splits > 1, `ws` is the f32
+// workspace [tiles - dp_tiles, splits, 128, 256] and `counters` an int32
+// buffer of one zero per output tile, left zero. Returns hopper::TENSOR_MAP_ERROR (+ the CUDA
+// driver's code) if a TMA map was refused.
+extern "C" int quant_matmul_int8_wgmma(const void* qw, const void* x, const void* scale,
+                                       void* out, void* ws, void* counters, int R, int K,
+                                       int N, int ldx, int out_f32, int splits, int dp_tiles,
+                                       void* stream) {
+  const int tiles = ((N + int8k::PW_COLS - 1) / int8k::PW_COLS) *
+                    ((R + int8k::PX_ROWS - 1) / int8k::PX_ROWS);
+  if (R < 1 || splits < 1 || dp_tiles < 0 || dp_tiles > tiles ||
+      (splits > 1 && dp_tiles < tiles && (!ws || !counters)))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap x_map, w_map;
+  int err = hopper::make_map_2d(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, R,
+                                2ll * ldx, int8k::PK, int8k::PX_ROWS);
+  if (!err)
+    err = hopper::make_map_2d(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, qw, N, K, N, 128,
+                              int8k::PK);
+  if (err) return err;
+  const cudaError_t cerr = cudaFuncSetAttribute(
+      int8k::int8_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int8k::PSMEM);
+  if (cerr != cudaSuccess) return (int)cerr;
+  const int grid = dp_tiles + (tiles - dp_tiles) * splits;
+  int8k::int8_wgmma_kernel<<<grid, int8k::PNTHREADS, int8k::PSMEM,
+                             static_cast<cudaStream_t>(stream)>>>(
+      x_map, w_map, static_cast<const float*>(scale), out, static_cast<float*>(ws),
+      static_cast<int*>(counters), R, K, N, splits, dp_tiles, out_f32);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int quant_matmul_int4(const void* x, const void* qw, const void* scale,
                                  void* out, int R, int K, int N, int ldx,
                                  int out_f32, void* stream) {
-  return dispatch<4>(x, qw, scale, out, R, K, N, ldx, out_f32, stream);
+  auto s = static_cast<cudaStream_t>(stream);
+  return out_f32 ? launch<true>(x, qw, scale, out, R, K, N, ldx, s)
+                 : launch<false>(x, qw, scale, out, R, K, N, ldx, s);
 }
 
 // qw: the native [K, N/2] layout; out is always f32, as the Pallas variant's.
 extern "C" int quant_matmul_int4_native(const void* x, const void* qw, const void* scale,
                                         void* out, int R, int K, int N, int ldx,
                                         void* stream) {
-  return launch<4, true, true>(x, qw, scale, out, R, K, N, ldx,
+  return launch<true, true>(x, qw, scale, out, R, K, N, ldx,
                                static_cast<cudaStream_t>(stream));
 }

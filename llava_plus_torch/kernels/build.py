@@ -41,10 +41,12 @@ SIGNATURES = {
     "flash_bwd_dkv_bf16": [P] * 12 + [I] * 15 + [F, P],
     "flash_bwd_dq_bf16": [P] * 10 + [I] * 14 + [F, P],
     "decode_attention_fwd": [P] * 11 + [I] * 15 + [F, P],
-    "quant_matmul_int8": [P] * 4 + [I] * 5 + [P],
+    "quant_matmul_int8_weight_map": [P, I, I, P],
+    "quant_matmul_int8_stream": [P] * 6 + [I] * 6 + [P],
+    "quant_matmul_int8_wgmma": [P] * 6 + [I] * 7 + [P],
     "quant_matmul_int4": [P] * 4 + [I] * 5 + [P],
     "quant_matmul_int4_native": [P] * 4 + [I] * 4 + [P],
-    "paged_decode1_fwd": [P] * 10 + [I] * 15 + [F, P],
+    "paged_decode1_fwd": [P] * 12 + [I] * 16 + [F, P],
     "paged_attention_fwd": [P] * 10 + [I] * 15 + [F, P],
 }
 
@@ -60,6 +62,38 @@ def count_launch(wrapper, counter: str = "launches") -> None:
     across threads."""
     with _count_lock:
         setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+
+
+_scratch = {}
+_scratch_lock = threading.Lock()
+_sms = {}
+
+
+def scratch(name: str, device, stream: int, n: int, dtype, zeroed: bool = False):
+    """A buffer of at least ``n`` elements that a kernel's wrapper keeps for
+    launches on this device and stream (a workspace of partial sums, or
+    counters that the kernel leaves zero), made once and grown when a
+    launch needs more: no allocation or fill on the launch path. Launches
+    on one stream run in order, so they can share it."""
+    import torch
+
+    key = (name, device.index, stream)
+    with _scratch_lock:
+        buf = _scratch.get(key)
+        if buf is None or buf.numel() < n:
+            buf = (torch.zeros if zeroed else torch.empty)(n, dtype=dtype, device=device)
+            _scratch[key] = buf
+    return buf
+
+
+def sm_count(device) -> int:
+    """The card's streaming multiprocessors (the kernels' split plans)."""
+    import torch
+
+    n = _sms.get(device.index)
+    if n is None:
+        n = _sms[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
 
 
 def _nvcc() -> str:

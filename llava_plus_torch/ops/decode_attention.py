@@ -146,20 +146,6 @@ def _check_kernel_inputs(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale):
             raise ValueError(f"{name}: last dim must be contiguous, rows 16-byte aligned")
 
 
-_counters = {}   # (device index, stream) -> zeroed int32 buffer of the combine
-
-
-def _counter_buffer(device, stream, n):
-    """A zeroed int32 buffer of at least n counters for launches on this
-    device and stream; the kernel leaves it zero, so it is made once."""
-    key = (device.index, stream)
-    buf = _counters.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(n, dtype=torch.int32, device=device)
-        _counters[key] = buf
-    return buf
-
-
 def _launch(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale, sm_scale, slopes):
     _check_kernel_inputs(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale)
     B, _, H, D = q.shape
@@ -168,13 +154,15 @@ def _launch(q, k_cache, v_cache, seg, q_pos, k_scale, v_scale, sm_scale, slopes)
     quantized = k_scale is not None
     out = torch.empty(B, 1, H, D, dtype=q.dtype, device=q.device)
     ss = k_scale.stride() if quantized else (0, 0, 0)
-    n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    splits = decode_splits(B, Hkv, G, S, n_sms)
+    splits = decode_splits(B, Hkv, G, S, build.sm_count(q.device))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ws = counters = None
     if splits > 1:
         ws = torch.empty(B, Hkv, splits, G, D + 2, dtype=torch.float32, device=q.device)
-        counters = _counter_buffer(q.device, stream, B * Hkv * row_groups(G))
+        # the combine's counters, kept per device and stream (the kernel
+        # leaves them zero)
+        counters = build.scratch("decode_attention.counters", q.device, stream,
+                                 B * Hkv * row_groups(G), torch.int32, zeroed=True)
     err = build.lib().decode_attention_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if quantized else None,

@@ -42,6 +42,25 @@ from llava_plus_torch.ops.attention import DEFAULT_MASK_VALUE, check_slopes
 HEAD_DIM = 128
 MAX_CHUNK = 8   # chunk tokens the kernels fold into the self block
 ROW_GROUP = 8   # query rows one block of the general kernel holds
+D1_TILE = 64    # pool tokens of one stage of decode1's ring
+D1_CHUNK_TILES = 8    # tiles of a decode1 chunk where the card is full
+D1_MAX_SPLITS = 64    # chunks decode1 cuts a slot into, at most
+BLOCKS_PER_SM = 2
+
+
+def decode1_splits(B: int, Hkv: int, maxp: int, P: int, n_sms: int) -> int:
+    """How many chunks of whole 64-token tiles the decode1 kernel cuts each
+    (slot, kv head)'s ``maxp * P`` token positions into, one block each.
+    Lengths are ragged and live on the device, so the plan takes the static
+    shapes alone (a CUDA graph can capture the launch): chunks of
+    ``D1_CHUNK_TILES`` tiles, so that the longest slot is spread over many
+    SMs even where ``B * Hkv`` blocks already fill the card; shorter ones
+    where fewer (slot, head) pairs would leave SMs without two blocks; at
+    most ``D1_MAX_SPLITS`` chunks. Chunks past a slot's length exit at once."""
+    tiles = -(-(maxp * P) // D1_TILE)
+    fill = (tiles * B * Hkv) // (BLOCKS_PER_SM * n_sms)   # tiles a chunk may hold
+    per = max(-(-tiles // D1_MAX_SPLITS), min(D1_CHUNK_TILES, max(1, fill)))
+    return -(-tiles // per)
 
 
 def gather_pages(kv_pages, page_ids, kv_scale=None, dtype=torch.float32):
@@ -169,20 +188,33 @@ def _launch(fn_name, q, kv_pages, page_ids, lengths, kv_scale, cur_k, cur_v, cur
     check_slopes(slopes, q.shape[2], q.device)
     B, Tq, H, D = q.shape
     _, _, P, Hkv, _ = kv_pages.shape
+    maxp = page_ids.shape[1]
     quantized = kv_scale is not None
     has_cur = cur_k is not None
     out = torch.empty(B, Tq, H, D, dtype=q.dtype, device=q.device)
     cs = cur_k.stride() if has_cur else (0, 0, 0, 0)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs, ints = (), ()
+    if fn_name == "paged_decode1_fwd":
+        # the chunks' partials and the combine's counters, kept per device
+        # and stream (the kernel leaves the counters zero)
+        splits = decode1_splits(B, Hkv, maxp, P, build.sm_count(q.device))
+        ws = build.scratch("paged_decode1.ws", q.device, stream, B * Hkv * splits * (D + 2),
+                           torch.float32)
+        counters = build.scratch("paged_decode1.counters", q.device, stream, B * Hkv,
+                                 torch.int32, zeroed=True)
+        ptrs, ints = (ws.data_ptr(), counters.data_ptr()), (splits,)
+        paged_decode1.last_splits = splits
     err = getattr(build.lib(), fn_name)(
         q.data_ptr(),
         cur_k.data_ptr() if has_cur else None, cur_v.data_ptr() if has_cur else None,
         kv_pages.data_ptr(), kv_scale.data_ptr() if quantized else None,
         page_ids.data_ptr(), lengths.data_ptr(),
         cur_valid.data_ptr() if has_cur else None,
-        None if slopes is None else slopes.data_ptr(), out.data_ptr(),
-        B, P, H, Hkv, Tq, page_ids.shape[1], int(quantized), int(has_cur),
+        None if slopes is None else slopes.data_ptr(), out.data_ptr(), *ptrs,
+        B, P, H, Hkv, Tq, maxp, int(quantized), int(has_cur), *ints,
         q.stride(0), q.stride(1), q.stride(2), cs[0], cs[1], cs[2], page_ids.stride(0),
-        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
+        float(sm_scale), stream,
     )
     build.check(err, fn_name)
     return out
@@ -214,6 +246,7 @@ def paged_attention_general(q, kv_pages, page_ids, lengths, kv_scale=None, cur_k
 
 
 paged_decode1.launches = paged_decode1.alibi_launches = 0
+paged_decode1.last_splits = 0   # the chunks of a slot in the latest launch
 paged_attention_general.launches = paged_attention_general.alibi_launches = 0
 
 

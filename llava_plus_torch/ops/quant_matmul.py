@@ -36,6 +36,8 @@ is forward only and always writes f32, as the Pallas kernel does.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -45,6 +47,59 @@ from llava_plus_torch.kernels import build
 INT4_BLOCK = 32
 K_TILE = 128   # the kernel's K tile
 N_TILE = 64    # N must be a multiple of this (both tile shapes divide it)
+
+# int8: the row count at or below which matmul_int8 streams the weight
+# (decode rows: mma.sync with x's rows as n8) rather than running the wgmma
+# kernel (prefill and training rows); measured on the H100 (chip_smoke.py
+# phase 3's rows on both sides of it, PERF.md)
+INT8_CUT = 32
+STREAM_COLS, STREAM_K = 128, 64   # a decode block's strip and k tile
+STREAM_MAX_SPLITS = 16            # K chunks of a decode strip, at most
+STREAM_MIN_BLOCKS_PER_SM = 1.5    # decode blocks an SM should have, on average
+SPLIT_COST = 0.02        # a decode plan's cost grows by this for each chunk past one
+WGMMA_COLS, WGMMA_ROWS, WGMMA_K = 256, 128, 64   # a prefill block's tile and k step
+MIN_CHUNK_STEPS = 8      # k steps of a prefill K chunk, at least
+
+
+@functools.lru_cache(maxsize=None)
+def int8_plan(R: int, K: int, N: int, n_sms: int):
+    """(regime, splits, whole tiles) of an int8 product from static shapes
+    alone.
+
+    Decode rows (``"stream"``, R <= INT8_CUT) are bound by the weight stream:
+    a block streams a 128-column strip over one of ``splits`` K chunks, and
+    the plan takes the chunk count that gives the SMs STREAM_MIN_BLOCKS_PER_SM
+    blocks on average, then the least work on the busiest SM (in strips of
+    the whole K: ceil(blocks / SMs) / splits, SPLIT_COST more for each chunk
+    past one: its parts' round trip through L2, and another front of reads
+    in the weight), then the fewest chunks. On the H100 a decode SM streams
+    fastest with two or three such blocks (8-12 warps): wqkv at 16 rows
+    takes 96 strips in 4 chunks, w_down 32 strips in 8.
+    Prefill rows (``"wgmma"``) take 128-row x 256-column output tiles, one
+    block an SM: whole waves of tiles run over all of K, and the tiles of a
+    last, partial wave (or all of them, where they leave SMs idle) are cut
+    into ``splits`` K chunks so that they spread over the SMs, chunks of at
+    least MIN_CHUNK_STEPS 64-row steps (wqkv at 768 rows: 264 whole tiles,
+    then 24 in 5 chunks). The plan, the grid and the workspace depend on
+    shapes alone (a CUDA graph can capture the launch)."""
+    if R > INT8_CUT:
+        tiles = -(-N // WGMMA_COLS) * -(-R // WGMMA_ROWS)
+        whole = tiles - tiles % n_sms
+        steps = K // WGMMA_K
+        want = max(1, min(n_sms // (tiles - whole or n_sms), steps // MIN_CHUNK_STEPS))
+        splits = -(-steps // -(-steps // want))   # whole steps a chunk, none empty
+        return "wgmma", splits, whole if splits > 1 else tiles
+    strips = -(-N // STREAM_COLS)
+    tiles = K // STREAM_K
+    best = None
+    for want in range(1, min(tiles, STREAM_MAX_SPLITS) + 1):
+        splits = -(-tiles // -(-tiles // want))   # whole tiles a chunk, none empty
+        blocks = strips * splits
+        load = -(-blocks // n_sms) / splits * (1 + SPLIT_COST * (splits - 1))
+        key = (blocks < STREAM_MIN_BLOCKS_PER_SM * n_sms, load, splits)
+        if best is None or key < best[0]:
+            best = (key, splits)
+    return "stream", best[1], 0
 
 
 def _acc_dtype(x):
@@ -117,11 +172,69 @@ def _launch(bits, x, qw, scale, out_dtype):
     R, K = x.shape
     N = qw.shape[1]
     out = torch.empty(R, N, dtype=out_dtype, device=x.device)
-    fn = build.lib().quant_matmul_int8 if bits == 8 else build.lib().quant_matmul_int4
-    err = fn(x.data_ptr(), qw.data_ptr(), scale.data_ptr(), out.data_ptr(),
-             R, K, N, x.stride(0), int(out_dtype == torch.float32),
-             torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, f"quant_matmul_int{bits}")
+    out_f32 = int(out_dtype == torch.float32)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if bits == 4:
+        err = build.lib().quant_matmul_int4(x.data_ptr(), qw.data_ptr(), scale.data_ptr(),
+                                            out.data_ptr(), R, K, N, x.stride(0), out_f32,
+                                            stream)
+        build.check(err, "quant_matmul_int4")
+        return out
+    return _launch_int8(x, qw, scale, out, out_f32, stream, *int8_plan(
+        R, K, N, build.sm_count(x.device)))
+
+
+_weight_maps = {}   # (address, K, N) -> the decode kernel's TMA map of that weight
+
+
+def _weight_map(qw) -> int:
+    """The address of the TMA map of an int8 weight as the decode kernel
+    reads it, made once for each (address, K, N): a map holds only the
+    address and the shape, so it stays valid for any weight later stored
+    there with that shape."""
+    key = (qw.data_ptr(), *qw.shape)
+    held = _weight_maps.get(key)
+    if held is None:
+        buf = ctypes.create_string_buffer(128 + 64)   # a CUtensorMap, 64-byte aligned
+        addr = -(-ctypes.addressof(buf) // 64) * 64
+        build.check(build.lib().quant_matmul_int8_weight_map(qw.data_ptr(), qw.shape[0],
+                                                             qw.shape[1], addr),
+                    "quant_matmul_int8_weight_map")
+        held = _weight_maps[key] = (buf, addr)
+    return held[1]
+
+
+def _launch_int8(x, qw, scale, out, out_f32, stream, regime, splits, whole):
+    """One of the two int8 kernels (``int8_plan``'s regime, K chunks and, for
+    the prefill kernel, the output tiles run over all of K). K chunks' f32
+    parts go to a workspace and the combine's counters to a zeroed buffer,
+    both kept per device and stream (the kernels leave the counters zero)."""
+    R, K = x.shape
+    N = qw.shape[1]
+    ws = counters = None
+    if splits > 1:
+        if regime == "stream":
+            tiles, n_ws = -(-N // STREAM_COLS), splits * R * N
+        else:   # only the tiles cut into chunks keep parts
+            tiles = -(-N // WGMMA_COLS) * -(-R // WGMMA_ROWS)
+            n_ws = (tiles - whole) * splits * WGMMA_ROWS * WGMMA_COLS
+        ws = build.scratch("quant_matmul.ws", x.device, stream, n_ws, torch.float32).data_ptr()
+        counters = build.scratch("quant_matmul.counters", x.device, stream, tiles, torch.int32,
+                                 zeroed=True).data_ptr()
+    if regime == "stream":
+        # the decode kernel reads the weight through a TMA map made once per
+        # weight: no encode on the decode path
+        err = build.lib().quant_matmul_int8_stream(
+            _weight_map(qw), x.data_ptr(), scale.data_ptr(), out.data_ptr(), ws, counters,
+            R, K, N, x.stride(0), out_f32, splits, stream)
+    else:
+        err = build.lib().quant_matmul_int8_wgmma(
+            qw.data_ptr(), x.data_ptr(), scale.data_ptr(), out.data_ptr(), ws, counters,
+            R, K, N, x.stride(0), out_f32, splits, whole, stream)
+    build.check(err, f"quant_matmul_int8_{regime}")
+    build.count_launch(matmul_int8, "decode_launches" if regime == "stream"
+                       else "prefill_launches")
+    matmul_int8.last_plan = (regime, splits, whole)
     return out
 
 
@@ -182,6 +295,9 @@ def matmul_int4(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, *,
 for _wrapper in (matmul_int8, matmul_int4):
     _wrapper.launches = 0
     _wrapper.backward_calls = 0
+# the int8 launches of each regime (also counted in ``launches``)
+matmul_int8.decode_launches = matmul_int8.prefill_launches = 0
+matmul_int8.last_plan = None   # int8_plan of the latest int8 launch
 
 
 # -- native int4 (the measurement tools' layout) ----------------------------
