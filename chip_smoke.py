@@ -3,8 +3,11 @@
 Run from anywhere, on a machine with one NVIDIA Hopper card and nvcc:
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --device-times [ROOT]   # phases 1, 2 and 15 only,
-                                                  # for the package under ROOT
+    python3 chip_smoke.py --device-times [ROOT]   # phases 1, 2 and 15 only
+                                                  # (and the int8 and decode1
+                                                  # rows through their
+                                                  # wrappers), for the
+                                                  # package under ROOT
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
@@ -20,8 +23,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    row launched twice, bit for bit the same, beside the bf16 ``torch.matmul``
    yardstick), the native int4 matmul (the int4 tools' kernel) at their five
    shapes for 1, 16 and 768 rows, and the paged kernels at 16 slots of 16
-   pages (decode1 also over pages of 32 with a full and a 1-token slot;
-   every paged row launched twice, bit for bit the same); and
+   pages (decode1 also over pages of 32 with a full and a 1-token slot, and
+   at the paged engine's 32 pages of 128, plain and ALiBi; every paged row
+   launched twice, bit for bit the same); and
    the ALiBi variants (MPT) of the flash forward, both flash backward
    kernels (T = 2048, MPT-7B's 32 slopes, MHA and 32 heads over one kv
    head, and a non-causal call), the dense decode and both paged kernels;
@@ -103,11 +107,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 15. (phase 3's device times, taken last because a ``torch.profiler``
    session can leave CUPTI attached and slow the host clocks of later
    phases) the flash forward, dK/dV, dQ and dense decode rows, the int8
-   matmul on wqkv at 16, 768 and 3,072 rows and paged decode1 over an int8 pool
-   (plain and ALiBi) timed by the kernel's own device time from
-   ``torch.profiler``, so the host path around the wrapper drops out,
-   alternated with the library call or yardstick (kernel, library, library,
-   kernel) in one process, with TFLOP/s and the share of the bound.
+   matmul at every shape and row of phase 3 and paged decode1 at its phase-3
+   rows (bf16 and int8 pools, ALiBi, pages of 32, the paged engine's 32
+   pages) timed by the kernel's own device time from ``torch.profiler``, so
+   the host path around the wrapper drops out, alternated with the library
+   call or yardstick (kernel, library, library, kernel; int8 on wqkv at 16,
+   768 and 3,072 rows) in one process, with TFLOP/s and the share of the
+   bound.
 
 Phase 3 also holds both paged kernels (decode1 and general) and both flash
 backward kernels (dK/dV and dQ, at T = 2048, MHA and GQA, a padded and a
@@ -580,10 +586,11 @@ MPT_QUANT_SHAPES = (("mpt out_proj", 4096, 4096), ("mpt up_proj", 4096, 16384),
 INT4N_SHAPES = (("7B q/o", 4096, 4096), ("7B gate/up", 4096, 11008), ("7B down", 11008, 4096),
                 ("13B gate/up", 5120, 13824), ("13B down", 13824, 5120))
 QUANT_ROWS = (1, 16, 768)
-# the int8 kernel's rows: both regimes (decode rows up to the cut, wgmma
-# above it) at one row, 16 slots, 64, a 768-token prefill and the engine's
-# 4-prompt batch of 3,072, plus one row on each side of the cut
-INT8_ROWS = (1, 16, 64, 768, 3072)
+# the int8 kernel's rows (phases 3 and 15): both regimes (decode rows up to
+# the cut, wgmma above it) at one row, 16 slots, 64, a 768-token prefill and
+# the engine's 4-prompt batch of 3,072, plus one row on each side of the cut
+# (ops/quant_matmul.INT8_CUT = 32; phase 3 checks that it is there)
+INT8_ROWS = (1, 16, 32, 33, 64, 768, 3072)
 
 
 def _quantize(kind, w):
@@ -630,8 +637,9 @@ def check_quant(kind, name, K, N, gen):
     kw = {} if kind == "int4n" else {"out_dtype": out_dtype}
     nbytes = q.numel() + s.numel() * 4
     w16 = qm.dequantize(8, q, s, torch.bfloat16) if kind == "int8" else None
-    row_counts = (sorted(set(INT8_ROWS) | {qm.INT8_CUT, qm.INT8_CUT + 1}) if kind == "int8"
-                  else QUANT_ROWS)
+    if kind == "int8" and not {qm.INT8_CUT, qm.INT8_CUT + 1} <= set(INT8_ROWS):
+        raise AssertionError(f"INT8_ROWS must hold both sides of the cut {qm.INT8_CUT}")
+    row_counts = INT8_ROWS if kind == "int8" else QUANT_ROWS
     rows = {}
     for R in row_counts:
         x = torch.randn(R, K, generator=gen, device=dev).bfloat16()
@@ -738,24 +746,23 @@ def phase_quant_kernels():
     return stats
 
 
-def check_paged(tag, Hkv, Tq, quantized, gen, rng, B=16, H=32, P=128, pages_per_slot=16,
-                alibi=False, edges=False):
-    """A paged kernel at a 7B-wide batch: B slots of ``pages_per_slot``
-    pages, page ids a random permutation of the pool, ragged past lengths
-    and chunk prefixes from a seed, the last slot dead (no past tokens, no
-    valid chunk token); with ``edges`` the first slot at its full length and
-    the second at one token. Kernel and plain version against the f64 truth
-    on the live slots; the kernel launched twice, bit for bit the same (the
-    decode1 kernel sums its chunks' partials in a fixed order)."""
+def _paged_inputs(Hkv, Tq, quantized, gen, rng, B=16, H=32, P=128, pages_per_slot=16,
+                  edges=False, max_past=None):
+    """A paged kernel's inputs at a 7B-wide batch: B slots of
+    ``pages_per_slot`` pages, page ids a random permutation of the pool,
+    past lengths of 1 to ``max_past`` (every page by default) and chunk
+    prefixes from a seed, the last slot dead (no past tokens, no valid chunk
+    token); with ``edges`` the first slot at its full length and the second
+    at one token. Returns (q, pool, scale, page_ids, lens, ck, cv, vals) on
+    the card and the lengths and valid prefixes as numpy arrays."""
     import torch
     from llava_plus_torch.models.llama import _paged_quant
-    from llava_plus_torch.ops import paged_attention as pa
 
     dev, D = "cuda", 128
     NP = B * pages_per_slot
     page_ids = torch.as_tensor(rng.permutation(NP).reshape(B, pages_per_slot),
                                dtype=torch.int32, device=dev)
-    lengths = rng.integers(1, pages_per_slot * P + 1, size=B)
+    lengths = rng.integers(1, (max_past or pages_per_slot * P) + 1, size=B)
     valid = rng.integers(1, Tq + 1, size=B)
     lengths[-1] = valid[-1] = 0
     if edges:
@@ -770,6 +777,35 @@ def check_paged(tag, Hkv, Tq, quantized, gen, rng, B=16, H=32, P=128, pages_per_
     cv = torch.randn(B, Tq, Hkv, D, generator=gen, device=dev).bfloat16()
     lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
     vals = torch.as_tensor(valid, dtype=torch.int32, device=dev)
+    return (q, pool, scale, page_ids, lens, ck, cv, vals), lengths, valid
+
+
+def _paged_bound(lengths, valid, B, H, Hkv, Tq, P, quantized, elem):
+    """The pages the slots use, read once (k and v, + scales), the page ids,
+    q and the chunk read once, the output written once; and the products.
+    Returns (page bytes, bound)."""
+    D = 128
+    page_bytes = 2 * int(lengths.sum()) * Hkv * (D * elem + (4 if quantized else 0))
+    small = (4 * int(np.ceil(lengths / P).sum()) + 2 * B * Tq * H * D * 2
+             + 2 * B * Tq * Hkv * D * 2 + 8 * B)
+    t = np.arange(Tq)
+    self_pairs = sum(int(np.minimum(t + 1, v).sum()) for v in valid)
+    return page_bytes, bound(page_bytes + small,
+                             4 * D * (H // Hkv) * Hkv * (Tq * int(lengths.sum()) + self_pairs))
+
+
+def check_paged(tag, Hkv, Tq, quantized, gen, rng, B=16, H=32, P=128, pages_per_slot=16,
+                alibi=False, edges=False, max_past=None):
+    """A paged kernel on :func:`_paged_inputs`: kernel and plain version
+    against the f64 truth on the live slots; the kernel launched twice, bit
+    for bit the same (the decode1 kernel sums its chunks' partials in a
+    fixed order)."""
+    import torch
+    from llava_plus_torch.ops import paged_attention as pa
+
+    D = 128
+    (q, pool, scale, page_ids, lens, ck, cv, vals), lengths, valid = _paged_inputs(
+        Hkv, Tq, quantized, gen, rng, B, H, P, pages_per_slot, edges, max_past)
     sm = D ** -0.5
     wrapper = pa.paged_decode1 if (H // Hkv) * Tq == 1 else pa.paged_attention_general
     slopes = _slopes(H, alibi)
@@ -800,16 +836,8 @@ def check_paged(tag, Hkv, Tq, quantized, gen, rng, B=16, H=32, P=128, pages_per_
     if not torch.isfinite(out).all():
         raise AssertionError(f"paged {tag}: non-finite output (dead slot included)")
     ms, plain_ms = time_ms(kernel), time_ms(plain)
-    # the pages the slots use, read once (k and v, + scales), the page ids,
-    # q and the chunk read once, the output written once
-    elem = pool.element_size()
-    page_bytes = 2 * int(lengths.sum()) * Hkv * (D * elem + (4 if quantized else 0))
-    small = (4 * int(np.ceil(lengths / P).sum()) + 2 * B * Tq * H * D * 2
-             + 2 * B * Tq * Hkv * D * 2 + 8 * B)
-    t = np.arange(Tq)
-    self_pairs = sum(int(np.minimum(t + 1, v).sum()) for v in valid)
-    b = bound(page_bytes + small,
-              4 * D * (H // Hkv) * Hkv * (Tq * int(lengths.sum()) + self_pairs))
+    page_bytes, b = _paged_bound(lengths, valid, B, H, Hkv, Tq, P, quantized,
+                                 pool.element_size())
     ok = within(k_err, r_err) and same
     log("kernels", f"paged {tag} ({wrapper.__name__}{', alibi' if alibi else ''}) "
                    f"{'int8' if quantized else 'bf16'} pool "
@@ -831,7 +859,8 @@ def check_paged(tag, Hkv, Tq, quantized, gen, rng, B=16, H=32, P=128, pages_per_
 
 def phase_paged_kernels(gen, rng):
     """Both paged kernels: decode1 at H = Hkv = 32, Tq = 1 (and over pages
-    of 32 with a full and a 1-token slot); the general one for GQA (Hkv = 8,
+    of 32 with a full and a 1-token slot, and at the paged engine's 32
+    pages of 128, plain and ALiBi); the general one for GQA (Hkv = 8,
     Tq = 1) and for 4-token chunks (Hkv = 32); bf16 and int8 pools. Their
     ALiBi variants (MPT) on int8 pools: decode1 at Hkv = 32 (LLaVA-MPT-7B's
     paged decode), the general kernel for 4-token chunks (Hkv = 32) and for
@@ -853,14 +882,28 @@ def phase_paged_kernels(gen, rng):
     gen_p = torch.Generator(device="cuda").manual_seed(4)
     edge = check_paged("decode1", 32, 1, True, gen_p, np.random.default_rng(4), P=32,
                        pages_per_slot=64, edges=True)
-    d1 = [runs["decode1", qz] for qz in (False, True)] + [edge]
+    # decode1 at the paged engine's own page list (16 slots of 32 pages of
+    # 128, past lengths up to 1,024 as its prompts', a full and a 1-token
+    # slot), where its split cuts a slot into more chunks than at 16 pages
+    # and most of them start past the slot's length; int8 pool, plain and
+    # ALiBi (each its own generator)
+    engine = {}
+    for alibi_row in (False, True):
+        seed = 6 + alibi_row
+        engine[alibi_row] = check_paged(
+            "decode1 engine", 32, 1, True, torch.Generator(device="cuda").manual_seed(seed),
+            np.random.default_rng(seed), pages_per_slot=32, alibi=alibi_row, edges=True,
+            max_past=1024)
+    d1 = [runs["decode1", qz] for qz in (False, True)] + [edge, engine[False]]
     gen_runs = [r for (tag, _), r in runs.items() if tag.startswith("general")]
     return {
         "paged_attention[decode1]": dict(runs["decode1", True],
                                          max_abs_err=max(r["max_abs_err"] for r in d1)),
         "paged_attention[general]": dict(runs["general GQA", True],
                                          max_abs_err=max(r["max_abs_err"] for r in gen_runs)),
-        "paged_attention[decode1,alibi]": alibi["decode1"],
+        "paged_attention[decode1,alibi]": dict(
+            alibi["decode1"], max_abs_err=max(alibi["decode1"]["max_abs_err"],
+                                              engine[True]["max_abs_err"])),
         "paged_attention[general,alibi]": dict(
             alibi["general MQA"], max_abs_err=max(alibi["general MQA"]["max_abs_err"],
                                                   alibi["general chunk"]["max_abs_err"])),
@@ -1126,8 +1169,8 @@ def phase_device_times(stats):
     log("device", f"flash_bwd[dkv,alibi] / flash_bwd[dkv] (MHA, T=2048, device): "
                   f"{dkv[('MHA', True)] / dkv[('MHA', False)]:.3f}")
     _device_times_decode(stats, gen)
-    _device_times_int8(stats, gen)
-    _device_times_decode1(stats, gen)
+    _device_times_int8(stats)
+    _device_times_decode1(stats)
 
 
 DECODE_KERNEL = ("decode_kernel",)
@@ -1136,75 +1179,125 @@ INT8_KERNEL = ("int8_stream_kernel", "int8_wgmma_kernel", "quant_matmul_kernel")
 DECODE1_KERNEL = ("paged_decode1_kernel",)
 
 
-def _device_times_int8(stats, gen):
-    """The int8 matmul on LLaVA-1.5-7B's wqkv at 16 decode slots, a 768-token
-    prefill and the engine's 4-prompt prefill (3,072 rows), the kernel alone
-    alternated with the yardstick, ``torch.matmul`` on the same weight
-    dequantized to bf16."""
+def _int8_cases():
+    """Phase 3's int8 shapes and rows, one at a time, from their own seed:
+    (row name, R, K, N, out dtype, the wrapper's call, the bf16 weight for
+    the yardstick on wqkv, else None)."""
     import torch
     from llava_plus_torch.ops import quant_matmul as qm
 
-    K, N = 4096, 12288
-    q, s = _quantize("int8", torch.randn(K, N, generator=gen, device="cuda").mul_(0.02)
-                     .bfloat16())
-    w16 = qm.dequantize(8, q, s, torch.bfloat16)
-    for R in (16, 768, 3072):
-        x = torch.randn(R, K, generator=gen, device="cuda").bfloat16()
-        kern_ms, yard_ms = _alternated(lambda: qm.matmul_int8(x, q, s), INT8_KERNEL,
-                                       lambda: torch.matmul(x, w16))
-        b = bound(K * N + 4 * N + 2 * R * K + 2 * R * N, 2 * R * K * N)
-        log("device", f"quant_matmul[int8] wqkv R={R} K={K} N={N} "
-                      f"({getattr(qm.matmul_int8, 'last_plan', None)}): kernel {kern_ms:.4f} ms "
-                      f"device, yardstick (bf16 matmul) {yard_ms:.4f} ms device, "
-                      f"x{kern_ms / yard_ms:.2f} of the yardstick, "
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for name, K, N in QUANT_SHAPES + MPT_QUANT_SHAPES:
+        q, s = _quantize("int8", torch.randn(K, N, generator=gen, device="cuda").mul_(0.02)
+                         .bfloat16())
+        out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
+        w16 = qm.dequantize(8, q, s, torch.bfloat16) if name == "wqkv" else None
+        for R in INT8_ROWS:
+            x = torch.randn(R, K, generator=gen, device="cuda").bfloat16()
+            yield (f"{name} R={R}", R, K, N, out_dtype,
+                   lambda: qm.matmul_int8(x, q, s, out_dtype=out_dtype), x, w16)
+        del q, s, w16
+
+
+def _device_times_int8(stats):
+    """The int8 matmul at phase 3's shapes and rows, the kernel alone; on
+    LLaVA-1.5-7B's wqkv at 16 decode slots, a 768-token prefill and the
+    engine's 4-prompt prefill (3,072 rows) alternated with the yardstick,
+    ``torch.matmul`` on the same weight dequantized to bf16."""
+    import torch
+    from llava_plus_torch.ops import quant_matmul as qm
+
+    rows = stats.setdefault("int8 rows", {})
+    for row, R, K, N, out_dtype, call, x, w16 in _int8_cases():
+        yard = w16 is not None and R in (16, 768, 3072)
+        if yard:
+            kern_ms, yard_ms = _alternated(call, INT8_KERNEL, lambda: torch.matmul(x, w16))
+        else:
+            kern_ms = (device_ms(call, INT8_KERNEL) + device_ms(call, INT8_KERNEL)) / 2
+        out_bytes = R * N * (4 if out_dtype == torch.float32 else 2)
+        b = bound(K * N + 4 * N + 2 * R * K + out_bytes, 2 * R * K * N)
+        rows.setdefault(row, {}).update(device_ms=kern_ms, **b)
+        vs = (f", yardstick (bf16 matmul) {yard_ms:.4f} ms device, "
+              f"x{kern_ms / yard_ms:.2f} of the yardstick" if yard else "")
+        log("device", f"quant_matmul[int8] {row} K={K} N={N} "
+                      f"({getattr(qm.matmul_int8, 'last_plan', None)}): kernel "
+                      f"{kern_ms:.4f} ms device{vs}, "
                       f"{2 * R * K * N / kern_ms / 1e9:.1f} TFLOP/s, "
                       f"{K * N / kern_ms / 1e6:.1f} GB/s of weights, "
                       f"{b['bound_ms'] / kern_ms:.1%} of the bound ({b['bound_ms']:.4f} ms, "
                       f"{b['bound_by']})")
-        key = "" if R == 16 else f"r{R}_"
-        stats["quant_matmul[int8]"].update({f"{key}device_ms": kern_ms,
-                                            f"{key}yardstick_device_ms": yard_ms})
+        if yard:
+            key = "" if R == 16 else f"r{R}_"
+            stats["quant_matmul[int8]"].update({f"{key}device_ms": kern_ms,
+                                                f"{key}yardstick_device_ms": yard_ms})
 
 
-def _device_times_decode1(stats, gen):
-    """Phase 3's decode1 rows over an int8 pool (16 slots of 16 pages of 128,
-    lengths 1-2,048, a dead slot), plain and ALiBi: the kernel alone, taken
-    twice (no library call reads a paged pool)."""
+# phase 3's decode1 rows, all on int8 pools but the first: (tag, stats row,
+# ALiBi, page size, pages a slot, edges, largest past length)
+DECODE1_ROWS = (
+    ("bf16", None, False, 128, 16, False, None),
+    ("int8", "paged_attention[decode1]", False, 128, 16, False, None),
+    ("int8 alibi", "paged_attention[decode1,alibi]", True, 128, 16, False, None),
+    ("int8 P=32", None, False, 32, 64, True, None),
+    ("int8 engine", None, False, 128, 32, True, 1024),
+    ("int8 engine alibi", None, True, 128, 32, True, 1024),
+)
+
+
+def _decode1_cases():
+    """Phase 3's decode1 rows (16 slots, a dead slot), one at a time, each
+    from its own seed: (tag, stats row, the wrapper's call, P, pages a
+    slot, past lengths, page bytes, bound)."""
     import torch
-    from llava_plus_torch.models.llama import _paged_quant
     from llava_plus_torch.ops import paged_attention as pa
 
-    rng = np.random.default_rng(5)
-    B, H, P, pages, D = 16, 32, 128, 16, 128
-    NP = B * pages
-    page_ids = torch.as_tensor(rng.permutation(NP).reshape(B, pages), dtype=torch.int32,
-                               device="cuda")
-    lengths = rng.integers(1, pages * P + 1, size=B)
-    lengths[-1] = 0
-    pool, scale = _paged_quant(torch.randn(NP, 2, P, H, D, generator=gen, device="cuda")
-                               .bfloat16())
-    scale = scale.transpose(2, 3).contiguous()
-    q = torch.randn(B, 1, H, D, generator=gen, device="cuda").bfloat16()
-    ck = torch.randn(B, 1, H, D, generator=gen, device="cuda").bfloat16()
-    cv = torch.randn(B, 1, H, D, generator=gen, device="cuda").bfloat16()
-    lens = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
-    vals = torch.ones(B, dtype=torch.int32, device="cuda")
-    vals[-1] = 0
-    page_bytes = 2 * int(lengths.sum()) * H * (D + 4)
-    b = bound(page_bytes, 4 * D * H * int(lengths.sum()))
-    for name, alibi in (("paged_attention[decode1]", False),
-                        ("paged_attention[decode1,alibi]", True)):
+    B, H = 16, 32
+    for i, (tag, row, alibi, P, pages, edges, max_past) in enumerate(DECODE1_ROWS):
+        quantized = tag.startswith("int8")
+        (q, pool, scale, page_ids, lens, ck, cv, vals), lengths, valid = _paged_inputs(
+            H, 1, quantized, torch.Generator(device="cuda").manual_seed(10 + i),
+            np.random.default_rng(10 + i), B, H, P, pages, edges, max_past)
         slopes = _slopes(H, alibi)
-        kernel = lambda: pa.paged_decode_attention(q, pool, page_ids, lens, scale, ck, cv,
-                                                   vals, alibi_slopes=slopes)
+        page_bytes, b = _paged_bound(lengths, valid, B, H, H, 1, P, quantized,
+                                     pool.element_size())
+        yield (tag, row, lambda: pa.paged_decode_attention(
+            q, pool, page_ids, lens, scale, ck, cv, vals, alibi_slopes=slopes),
+            P, pages, lengths, page_bytes, b)
+        del q, pool, scale, page_ids, lens, ck, cv, vals
+
+
+def _device_times_decode1(stats):
+    """Phase 3's decode1 rows, the kernel alone, taken twice (no library
+    call reads a paged pool)."""
+    from llava_plus_torch.ops import paged_attention as pa
+
+    rows = stats.setdefault("decode1 rows", {})
+    for tag, row, kernel, P, pages, lengths, page_bytes, b in _decode1_cases():
         kern_ms = (device_ms(kernel, DECODE1_KERNEL) + device_ms(kernel, DECODE1_KERNEL)) / 2
-        log("device", f"{name} int8 pool B={B} H={H} P={P} pages/slot={pages} (mean past "
-                      f"{lengths[:-1].mean():.0f}; "
+        log("device", f"paged_attention[decode1] {tag} B=16 H=32 P={P} pages/slot={pages} "
+                      f"(mean past {lengths[:-1].mean():.0f}; "
                       f"{getattr(pa.paged_decode1, 'last_splits', 1)} chunks a slot): kernel "
                       f"{kern_ms:.4f} ms device, {page_bytes / kern_ms / 1e6:.1f} GB/s of pages "
                       f"read, {b['bound_ms'] / kern_ms:.1%} of the bound "
                       f"({b['bound_ms']:.4f} ms, {b['bound_by']})")
-        stats[name].update(device_ms=kern_ms)
+        rows.setdefault(tag, {}).update(device_ms=kern_ms, **b)
+        if row:
+            stats[row].update(device_ms=kern_ms)
+
+
+def wrapper_times(stats):
+    """Phase 3's int8 and decode1 rows timed through their wrappers (CUDA
+    events over 20 back-to-back calls, so the host path counts where it is
+    longer than the kernel), before any profiler session can slow the host
+    clocks: the A/B of ``--device-times``, where phase 3 does not run."""
+    rows = stats.setdefault("int8 rows", {})
+    for row, R, K, N, out_dtype, call, x, w16 in _int8_cases():
+        rows.setdefault(row, {})["wrapper_ms"] = ms = time_ms(call)
+        log("wrapper", f"quant_matmul[int8] {row} K={K} N={N}: {ms:.4f} ms")
+    rows = stats.setdefault("decode1 rows", {})
+    for tag, row, kernel, P, pages, lengths, page_bytes, b in _decode1_cases():
+        rows.setdefault(tag, {})["wrapper_ms"] = ms = time_ms(kernel)
+        log("wrapper", f"paged_attention[decode1] {tag} P={P} pages/slot={pages}: {ms:.4f} ms")
 
 
 def _device_times_decode(stats, gen):
@@ -2977,14 +3070,16 @@ def _leaves(tree):
 
 def device_times_only(root):
     """Phases 1, 2 and 15 alone, for the ``llava_plus_torch`` package under
-    ``root``: run once for each of two checkouts in one call (A, B, B, A) to
-    compare their kernels' device times on one card."""
+    ``root``, with phase 3's int8 and decode1 rows also timed through their
+    wrappers first: run once for each of two checkouts in one call (A, B, B,
+    A) to compare their kernels on one card."""
     import collections
 
     sys.path.insert(0, root)
     phase_env()
     phase_build()
     stats = collections.defaultdict(dict)
+    wrapper_times(stats)
     phase_device_times(stats)
     print(json.dumps({"root": root, "device_times": stats}), flush=True)
     return 0

@@ -638,16 +638,18 @@ Args make_args(const void* q, const void* cur_k, const void* cur_v, const void* 
 // `slopes` (f32 [H], or null) adds ALiBi. decode1 cuts each slot's maxp * P
 // token positions into `splits` chunks of whole 64-token tiles (at most
 // 64); `ws` is its f32 workspace [B * Hkv, splits, 130] and `counters` an
-// int32 buffer of B * Hkv zeros, left zero.
+// int32 buffer of B * Hkv zeros, left zero; `ws_elems` and `n_counters` are
+// their sizes, checked here.
 extern "C" int paged_decode1_fwd(const void* q, const void* cur_k, const void* cur_v,
                                  const void* pool, const void* scale, const void* page_ids,
                                  const void* lengths, const void* valid, const void* slopes,
-                                 void* out, void* ws, void* counters,
-                                 int B, int P, int H, int Hkv, int Tq, int maxp,
+                                 void* out, void* ws, int ws_elems, void* counters,
+                                 int n_counters, int B, int P, int H, int Hkv, int Tq, int maxp,
                                  int quantized, int has_cur, int splits,
                                  int q_sb, int q_st, int q_sh, int c_sb, int c_st, int c_sh,
                                  int pt_sb, float sm_scale, void* stream) {
-  if (H != Hkv || Tq != 1 || splits < 1 || splits > MAX_SPLITS || !ws || !counters)
+  if (H != Hkv || Tq != 1 || splits < 1 || splits > MAX_SPLITS || !ws || !counters ||
+      n_counters < B * Hkv || ws_elems < (long long)B * Hkv * splits * (HD + 2))
     return (int)cudaErrorInvalidValue;
   const Args a = make_args(q, cur_k, cur_v, pool, scale, page_ids, lengths, valid, slopes, out,
                            P, H, Hkv, Tq, maxp, has_cur, q_sb, q_st, q_sh, c_sb, c_st, c_sh,

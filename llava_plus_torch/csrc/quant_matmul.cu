@@ -786,12 +786,15 @@ extern "C" int quant_matmul_int8_weight_map(const void* qw, int K, int N, void* 
 // chunks of whole 64-row tiles; `w_map` is the weight's map from
 // quant_matmul_int8_weight_map; with splits > 1, `ws` is the f32 workspace
 // [splits, R, N] and `counters` an int32 buffer of ceil(N / 128) zeros,
-// left zero.
-extern "C" int quant_matmul_int8_stream(const void* w_map, const void* x, const void* scale,
-                                        void* out, void* ws, void* counters, int R, int K,
-                                        int N, int ldx, int out_f32, int splits,
-                                        void* stream) {
-  if (R < 1 || R > 32 || splits < 1 || (splits > 1 && (!ws || !counters)) || !w_map)
+// left zero. `ws_elems` and `n_counters` are the buffers' sizes: the
+// geometry lives here, so a caller that sized them by another is refused.
+extern "C" int quant_matmul_int8_stream(const void* x, void* out, const void* w_map,
+                                        const void* scale, void* ws, int ws_elems,
+                                        void* counters, int n_counters, int R, int K, int N,
+                                        int ldx, int out_f32, int splits, void* stream) {
+  if (R < 1 || R > 32 || splits < 1 || !w_map) return (int)cudaErrorInvalidValue;
+  if (splits > 1 && (!ws || !counters || ws_elems < (long long)splits * R * N ||
+                     n_counters < (N + int8k::SN - 1) / int8k::SN))
     return (int)cudaErrorInvalidValue;
   const CUtensorMap& map = *static_cast<const CUtensorMap*>(w_map);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -806,16 +809,22 @@ extern "C" int quant_matmul_int8_stream(const void* w_map, const void* x, const 
 // cut into `splits` K chunks of whole 64-row steps (so that a last, partial
 // wave of tiles spreads over the SMs); with splits > 1, `ws` is the f32
 // workspace [tiles - dp_tiles, splits, 128, 256] and `counters` an int32
-// buffer of one zero per output tile, left zero. Returns hopper::TENSOR_MAP_ERROR (+ the CUDA
-// driver's code) if a TMA map was refused.
-extern "C" int quant_matmul_int8_wgmma(const void* qw, const void* x, const void* scale,
-                                       void* out, void* ws, void* counters, int R, int K,
-                                       int N, int ldx, int out_f32, int splits, int dp_tiles,
+// buffer of one zero per output tile, left zero; `ws_elems` and
+// `n_counters` are their sizes, checked here. Returns
+// hopper::TENSOR_MAP_ERROR (+ the CUDA driver's code) if a TMA map was
+// refused.
+extern "C" int quant_matmul_int8_wgmma(const void* x, void* out, const void* qw,
+                                       const void* scale, void* ws, int ws_elems,
+                                       void* counters, int n_counters, int R, int K, int N,
+                                       int ldx, int out_f32, int splits, int dp_tiles,
                                        void* stream) {
   const int tiles = ((N + int8k::PW_COLS - 1) / int8k::PW_COLS) *
                     ((R + int8k::PX_ROWS - 1) / int8k::PX_ROWS);
-  if (R < 1 || splits < 1 || dp_tiles < 0 || dp_tiles > tiles ||
-      (splits > 1 && dp_tiles < tiles && (!ws || !counters)))
+  if (R < 1 || splits < 1 || dp_tiles < 0 || dp_tiles > tiles)
+    return (int)cudaErrorInvalidValue;
+  if (splits > 1 && dp_tiles < tiles &&
+      (!ws || !counters || n_counters < tiles ||
+       ws_elems < (long long)(tiles - dp_tiles) * splits * int8k::PTILE))
     return (int)cudaErrorInvalidValue;
   CUtensorMap x_map, w_map;
   int err = hopper::make_map_2d(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, R,

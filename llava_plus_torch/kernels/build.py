@@ -42,11 +42,12 @@ SIGNATURES = {
     "flash_bwd_dq_bf16": [P] * 10 + [I] * 14 + [F, P],
     "decode_attention_fwd": [P] * 11 + [I] * 15 + [F, P],
     "quant_matmul_int8_weight_map": [P, I, I, P],
-    "quant_matmul_int8_stream": [P] * 6 + [I] * 6 + [P],
-    "quant_matmul_int8_wgmma": [P] * 6 + [I] * 7 + [P],
+    # x and out lead, so that a wrapper can keep the rest of a launch's arguments
+    "quant_matmul_int8_stream": [P] * 5 + [I, P] + [I] * 7 + [P],
+    "quant_matmul_int8_wgmma": [P] * 5 + [I, P] + [I] * 8 + [P],
     "quant_matmul_int4": [P] * 4 + [I] * 5 + [P],
     "quant_matmul_int4_native": [P] * 4 + [I] * 4 + [P],
-    "paged_decode1_fwd": [P] * 12 + [I] * 16 + [F, P],
+    "paged_decode1_fwd": [P] * 11 + [I, P] + [I] * 17 + [F, P],
     "paged_attention_fwd": [P] * 10 + [I] * 15 + [F, P],
 }
 
@@ -55,13 +56,14 @@ _lock = threading.Lock()
 _count_lock = threading.Lock()
 
 
-def count_launch(wrapper, counter: str = "launches") -> None:
-    """Add one to ``wrapper.<counter>`` (``launches``, or ``alibi_launches``
-    for a kernel's ALiBi variant). The serving engine launches kernels from
-    its prefill and decode threads, and ``+=`` on an attribute is not atomic
-    across threads."""
+def count_launch(wrapper, *counters: str) -> None:
+    """Add one to each ``wrapper.<counter>`` (``launches`` when none is
+    named; ``alibi_launches`` for a kernel's ALiBi variant). The serving
+    engine launches kernels from its prefill and decode threads, and ``+=``
+    on an attribute is not atomic across threads."""
     with _count_lock:
-        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+        for counter in counters or ("launches",):
+            setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
 _scratch = {}
@@ -72,15 +74,18 @@ _sms = {}
 def scratch(name: str, device, stream: int, n: int, dtype, zeroed: bool = False):
     """A buffer of at least ``n`` elements that a kernel's wrapper keeps for
     launches on this device and stream (a workspace of partial sums, or
-    counters that the kernel leaves zero), made once and grown when a
-    launch needs more: no allocation or fill on the launch path. Launches
-    on one stream run in order, so they can share it."""
+    counters that the kernel leaves zero), made once and grown, at least
+    twofold, when a launch needs more: no allocation or fill on the launch
+    path. Launches on one stream run in order, so they can share it. A
+    caller that keeps the buffer's address keeps the buffer too: a grown
+    one replaces it here but not there."""
     import torch
 
     key = (name, device.index, stream)
     with _scratch_lock:
         buf = _scratch.get(key)
         if buf is None or buf.numel() < n:
+            n = n if buf is None else max(n, 2 * buf.numel())
             buf = (torch.zeros if zeroed else torch.empty)(n, dtype=dtype, device=device)
             _scratch[key] = buf
     return buf

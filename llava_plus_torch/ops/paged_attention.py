@@ -203,7 +203,9 @@ def _launch(fn_name, q, kv_pages, page_ids, lengths, kv_scale, cur_k, cur_v, cur
                            torch.float32)
         counters = build.scratch("paged_decode1.counters", q.device, stream, B * Hkv,
                                  torch.int32, zeroed=True)
-        ptrs, ints = (ws.data_ptr(), counters.data_ptr()), (splits,)
+        ptrs = (ws.data_ptr(), min(ws.numel(), 2 ** 31 - 1), counters.data_ptr(),
+                counters.numel())
+        ints = (splits,)
         paged_decode1.last_splits = splits
     err = getattr(build.lib(), fn_name)(
         q.data_ptr(),

@@ -167,50 +167,46 @@ def _check_kernel_inputs(x, qw, scale, bits, out_dtype):
         raise ValueError("quant matmul kernel takes 32-bit row offsets")
 
 
-def _launch(bits, x, qw, scale, out_dtype):
-    _check_kernel_inputs(x, qw, scale, bits, out_dtype)
+def _launch_int4(x, qw, scale, out_dtype):
+    _check_kernel_inputs(x, qw, scale, 4, out_dtype)
     R, K = x.shape
     N = qw.shape[1]
     out = torch.empty(R, N, dtype=out_dtype, device=x.device)
-    out_f32 = int(out_dtype == torch.float32)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if bits == 4:
-        err = build.lib().quant_matmul_int4(x.data_ptr(), qw.data_ptr(), scale.data_ptr(),
-                                            out.data_ptr(), R, K, N, x.stride(0), out_f32,
-                                            stream)
-        build.check(err, "quant_matmul_int4")
-        return out
-    return _launch_int8(x, qw, scale, out, out_f32, stream, *int8_plan(
-        R, K, N, build.sm_count(x.device)))
+    err = build.lib().quant_matmul_int4(x.data_ptr(), qw.data_ptr(), scale.data_ptr(),
+                                        out.data_ptr(), R, K, N, x.stride(0),
+                                        int(out_dtype == torch.float32),
+                                        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "quant_matmul_int4")
+    build.count_launch(matmul_int4)
+    return out
 
 
-_weight_maps = {}   # (address, K, N) -> the decode kernel's TMA map of that weight
+# what an int8 launch needs besides x's and out's addresses, kept per
+# _int8_key: the same weight at the same row count on the same stream (every
+# projection of a decode step) costs one lookup and the kernel's call
+_int8_launches = {}
 
 
-def _weight_map(qw) -> int:
-    """The address of the TMA map of an int8 weight as the decode kernel
-    reads it, made once for each (address, K, N): a map holds only the
-    address and the shape, so it stays valid for any weight later stored
-    there with that shape."""
-    key = (qw.data_ptr(), *qw.shape)
-    held = _weight_maps.get(key)
-    if held is None:
-        buf = ctypes.create_string_buffer(128 + 64)   # a CUtensorMap, 64-byte aligned
-        addr = -(-ctypes.addressof(buf) // 64) * 64
-        build.check(build.lib().quant_matmul_int8_weight_map(qw.data_ptr(), qw.shape[0],
-                                                             qw.shape[1], addr),
-                    "quant_matmul_int8_weight_map")
-        held = _weight_maps[key] = (buf, addr)
-    return held[1]
+def _int8_key(x, qw, scale, out_dtype, stream):
+    """Everything :func:`_check_kernel_inputs` and :func:`_int8_launch`
+    read, but x's address (checked on every call)."""
+    return (stream, out_dtype, x.get_device(), x.dtype, x.shape, x.stride(),
+            qw.get_device(), qw.data_ptr(), qw.dtype, qw.shape, qw.stride(),
+            scale.get_device(), scale.data_ptr(), scale.dtype, scale.shape, scale.stride())
 
 
-def _launch_int8(x, qw, scale, out, out_f32, stream, regime, splits, whole):
+def _int8_launch(x, qw, scale, out_dtype, stream):
     """One of the two int8 kernels (``int8_plan``'s regime, K chunks and, for
-    the prefill kernel, the output tiles run over all of K). K chunks' f32
-    parts go to a workspace and the combine's counters to a zeroed buffer,
-    both kept per device and stream (the kernels leave the counters zero)."""
+    the prefill kernel, the output tiles run over all of K), as (entry point,
+    its arguments after x and out, the regime's counter, the plan, the
+    buffers the arguments point into). K chunks' f32 parts go to a workspace
+    and the combine's counters to a zeroed buffer, both kept per device and
+    stream (the kernels leave the counters zero); the kernels check their
+    sizes."""
+    _check_kernel_inputs(x, qw, scale, 8, out_dtype)
     R, K = x.shape
     N = qw.shape[1]
+    regime, splits, whole = plan = int8_plan(R, K, N, build.sm_count(x.device))
     ws = counters = None
     if splits > 1:
         if regime == "stream":
@@ -218,36 +214,54 @@ def _launch_int8(x, qw, scale, out, out_f32, stream, regime, splits, whole):
         else:   # only the tiles cut into chunks keep parts
             tiles = -(-N // WGMMA_COLS) * -(-R // WGMMA_ROWS)
             n_ws = (tiles - whole) * splits * WGMMA_ROWS * WGMMA_COLS
-        ws = build.scratch("quant_matmul.ws", x.device, stream, n_ws, torch.float32).data_ptr()
+        ws = build.scratch("quant_matmul.ws", x.device, stream, n_ws, torch.float32)
         counters = build.scratch("quant_matmul.counters", x.device, stream, tiles, torch.int32,
-                                 zeroed=True).data_ptr()
+                                 zeroed=True)
+    weight, w_map = qw.data_ptr(), None
     if regime == "stream":
-        # the decode kernel reads the weight through a TMA map made once per
-        # weight: no encode on the decode path
-        err = build.lib().quant_matmul_int8_stream(
-            _weight_map(qw), x.data_ptr(), scale.data_ptr(), out.data_ptr(), ws, counters,
-            R, K, N, x.stride(0), out_f32, splits, stream)
-    else:
-        err = build.lib().quant_matmul_int8_wgmma(
-            qw.data_ptr(), x.data_ptr(), scale.data_ptr(), out.data_ptr(), ws, counters,
-            R, K, N, x.stride(0), out_f32, splits, whole, stream)
-    build.check(err, f"quant_matmul_int8_{regime}")
-    build.count_launch(matmul_int8, "decode_launches" if regime == "stream"
-                       else "prefill_launches")
-    matmul_int8.last_plan = (regime, splits, whole)
+        # the decode kernel reads the weight through a TMA map (a CUtensorMap,
+        # 64-byte aligned) made here, once per key: no encode on the decode path
+        w_map = ctypes.create_string_buffer(128 + 64)
+        weight = -(-ctypes.addressof(w_map) // 64) * 64
+        build.check(build.lib().quant_matmul_int8_weight_map(qw.data_ptr(), K, N, weight),
+                    "quant_matmul_int8_weight_map")
+    sizes = ((None, 0, None, 0) if ws is None else
+             (ws.data_ptr(), min(ws.numel(), 2 ** 31 - 1), counters.data_ptr(),
+              counters.numel()))
+    rest = (weight, scale.data_ptr(), *sizes, R, K, N, x.stride(0),
+            int(out_dtype == torch.float32), splits) + (
+            (stream,) if regime == "stream" else (whole, stream))
+    name = f"quant_matmul_int8_{regime}"
+    counter = "decode_launches" if regime == "stream" else "prefill_launches"
+    return getattr(build.lib(), name), name, rest, counter, plan, (ws, counters, w_map)
+
+
+def _launch_int8(x, qw, scale, out_dtype):
+    # the raw stream handle: a torch.cuda.Stream object costs microseconds
+    # on a path that launches ~130 times a decode step
+    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
+    key = _int8_key(x, qw, scale, out_dtype, stream)
+    held = _int8_launches.get(key)
+    if held is None:
+        held = _int8_launches[key] = _int8_launch(x, qw, scale, out_dtype, stream)
+    elif x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned")
+    fn, name, rest, counter, plan, _ = held
+    out = x.new_empty((x.shape[0], qw.shape[1]), dtype=out_dtype)
+    build.check(fn(x.data_ptr(), out.data_ptr(), *rest), name)
+    build.count_launch(matmul_int8, "launches", counter)
+    matmul_int8.last_plan = plan
     return out
 
 
 def _product(bits, x, qw, scale, out_dtype):
     """The kernel on the card, its plain version on the CPU."""
-    wrapper = matmul_int8 if bits == 8 else matmul_int4
     if x.is_cuda:
-        out = _launch(bits, x, qw, scale, out_dtype)
-        build.count_launch(wrapper)
-        return out
+        return (_launch_int8 if bits == 8 else _launch_int4)(x, qw, scale, out_dtype)
     if x.device.type == "cpu":
         plain = matmul_int8_reference if bits == 8 else matmul_int4_reference
         return plain(x, qw, scale, out_dtype=out_dtype)
+    wrapper = matmul_int8 if bits == 8 else matmul_int4
     raise ValueError(f"{wrapper.__name__}: no path for device {x.device}")
 
 

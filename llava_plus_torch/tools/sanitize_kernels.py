@@ -5,10 +5,11 @@ Runs the flash forward, dK/dV and dQ kernels (plain and ALiBi; MHA and MQA,
 whose dK/dV splits the query heads; a ragged T), the dense decode kernel
 (bf16 and int8 caches, one chunk and many, G = 1 and 32), both paged
 kernels (decode1 and the general one, bf16 and int8 pools, decode1 also
-over pages of 32) and both int8 weight-only kernels (decode rows with one K
-chunk and several, prefill rows with one and several, bf16 and f32 out) at
-the shapes ``chip_smoke.py`` phase 3 gives them, synchronizing after each,
-so that a checker wrapped around the process sees every kernel:
+over pages of 32 and over the paged engine's 32 pages of 128) and both
+int8 weight-only kernels (decode rows with one K chunk and several,
+prefill rows with one and several, bf16 and f32 out) at the shapes
+``chip_smoke.py`` phase 3 gives them, synchronizing after each, so that a
+checker wrapped around the process sees every kernel:
 
     compute-sanitizer --tool memcheck python3 -m llava_plus_torch.tools.sanitize_kernels
     compute-sanitizer --tool racecheck python3 -m llava_plus_torch.tools.sanitize_kernels --small
@@ -159,6 +160,8 @@ def main(argv=None) -> int:
                                  (32, 4, True, True)):
         _paged(launch, gen, rng, slots, Hkv, Tq, int8, alibi, pages)
     _paged(launch, gen, rng, slots, 32, 1, True, False, 4 * pages, P=32)
+    # decode1 at the paged engine's 32 pages a slot (twice the chunks)
+    _paged(launch, gen, rng, slots, 32, 1, True, True, 2 * pages)
     K, N = (1024, 1536) if args.small else (4096, 12288)
     for R, K_, N_, f32 in ((1, K, N, False), (16, K, N, False), (32, 11008, 4096, False),
                            (16, K, 32000, True), (33, K, N, False), (64, 11008, 4096, False),

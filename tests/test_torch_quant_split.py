@@ -153,3 +153,50 @@ def test_split_k_matches_the_pallas_kernel(case):
     want = jqm.matmul_int8(jnp.asarray(x.numpy()), jnp.asarray(qw.numpy()), block_k=128,
                            block_n=128, interpret=True) * scale.numpy().reshape(-1)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-4)
+
+
+def test_launch_key_separates_what_the_checks_read():
+    """The int8 wrapper keeps each launch's arguments under ``_int8_key``:
+    one entry for a weight at a row count (x's own address is checked on
+    every call), a new one for anything its checks or its plan read."""
+    from llava_plus_torch.ops.quant_matmul import _int8_key
+
+    x, qw, scale = _inputs(16, 256, 128, seed=0)
+    bf16 = torch.bfloat16
+    key = _int8_key(x, qw, scale, bf16, 7)
+    assert _int8_key(x.clone(), qw, scale, bf16, 7) == key
+    wide = torch.zeros(16, 384)[:, :256]                   # the same shape, another row stride
+    for other in (_int8_key(x[:15], qw, scale, bf16, 7),
+                  _int8_key(wide, qw, scale, bf16, 7),
+                  _int8_key(x.bfloat16(), qw, scale, bf16, 7),
+                  _int8_key(x, qw.clone(), scale, bf16, 7),
+                  _int8_key(x, qw, scale.clone(), bf16, 7),
+                  _int8_key(x, qw, scale, torch.float32, 7),
+                  _int8_key(x, qw, scale, bf16, 8)):
+        assert other != key
+
+
+def test_scratch_grows_twofold_and_keeps_its_zeros():
+    """A wrapper's kept buffer: made once, grown at least twofold when a
+    launch needs more (zeroed again for counters), reused when it fits."""
+    from llava_plus_torch.kernels import build
+
+    dev = torch.device("cpu")
+    first = build.scratch("test.counters", dev, 0, 10, torch.int32, zeroed=True)
+    assert first.numel() == 10 and not first.any()
+    assert build.scratch("test.counters", dev, 0, 4, torch.int32, zeroed=True) is first
+    grown = build.scratch("test.counters", dev, 0, 12, torch.int32, zeroed=True)
+    assert grown.numel() == 20 and not grown.any()
+    assert build.scratch("test.counters", dev, 1, 4, torch.int32, zeroed=True) is not grown
+
+
+def test_count_launch_adds_to_each_named_counter():
+    from llava_plus_torch.kernels import build
+
+    def wrapper():
+        pass
+
+    wrapper.launches = wrapper.decode_launches = 0
+    build.count_launch(wrapper)
+    build.count_launch(wrapper, "launches", "decode_launches")
+    assert (wrapper.launches, wrapper.decode_launches) == (2, 1)
