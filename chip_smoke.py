@@ -4,10 +4,10 @@ Run from anywhere, on a machine with one NVIDIA Hopper card and nvcc:
 
     python3 chip_smoke.py
     python3 chip_smoke.py --device-times [ROOT]   # phases 1, 2 and 15 only
-                                                  # (and the int8 and decode1
-                                                  # rows through their
-                                                  # wrappers), for the
-                                                  # package under ROOT
+                                                  # (and the int8, int4,
+                                                  # decode1 and general rows
+                                                  # through their wrappers),
+                                                  # for the package under ROOT
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
@@ -18,14 +18,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    twice, bit for bit the same), with CUDA-event timings: flash
    forward, decode attention (bf16 and int8 cache), the int8 / int4
    weight-only matmuls at the 7B fused matrices (wqkv, w_down, lm_head) and
-   MPT-7B's (out_proj, up_proj, down_proj) for 1, 16 and 768 rows (int8 also
-   at 64 and 3,072 rows and on both sides of its decode / prefill cut, each
-   row launched twice, bit for bit the same, beside the bf16 ``torch.matmul``
-   yardstick), the native int4 matmul (the int4 tools' kernel) at their five
-   shapes for 1, 16 and 768 rows, and the paged kernels at 16 slots of 16
-   pages (decode1 also over pages of 32 with a full and a 1-token slot, and
-   at the paged engine's 32 pages of 128, plain and ALiBi; every paged row
-   launched twice, bit for bit the same); and
+   MPT-7B's (out_proj, up_proj, down_proj) for 1, 16, 64, 768 and 3,072
+   rows and on both sides of each one's decode / prefill cut (int4 also at
+   QLoRA's 8,192), each row launched twice, bit for bit the same, beside the
+   bf16 ``torch.matmul`` yardstick, the native int4 matmul (the int4 tools'
+   kernel) at their five shapes for 1, 16 and 768 rows, and the paged
+   kernels at 16 slots of 16 pages (decode1 also over pages of 32 with a
+   full and a 1-token slot, and at the paged engine's 32 pages of 128, plain
+   and ALiBi; the general kernel also at a 7B engine's width, 8-token chunks
+   over 32 pages, plain and ALiBi; every paged row launched twice, bit for
+   bit the same); and
    the ALiBi variants (MPT) of the flash forward, both flash backward
    kernels (T = 2048, MPT-7B's 32 slopes, MHA and 32 heads over one kv
    head, and a non-causal call), the dense decode and both paged kernels;
@@ -57,8 +59,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    aggregate tokens/s; then int4 weights on a fresh backend (4 requests).
    Every chunk, every request's token count, batched admission, shared
    decode steps and every kernel's launch count are checked, and that the
-   int8 matmul ran both its kernels (decode rows and prefill rows, counted
-   apart; so in phases 7 and 11);
+   int8 (then the int4) matmul ran both its kernels (decode rows and
+   prefill rows, counted apart; int8 so in phases 7 and 11);
 7. the paged engine (``TorchBackend(paged=True)``) on fresh int8 weights:
    an int8 KV pool of 256 pages shared by 16 slots of up to 4096 tokens,
    the prefix cache on; 16 concurrent requests (one of 3,000 tokens), then 8
@@ -107,13 +109,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 15. (phase 3's device times, taken last because a ``torch.profiler``
    session can leave CUPTI attached and slow the host clocks of later
    phases) the flash forward, dK/dV, dQ and dense decode rows, the int8
-   matmul at every shape and row of phase 3 and paged decode1 at its phase-3
-   rows (bf16 and int8 pools, ALiBi, pages of 32, the paged engine's 32
-   pages) timed by the kernel's own device time from ``torch.profiler``, so
-   the host path around the wrapper drops out, alternated with the library
-   call or yardstick (kernel, library, library, kernel; int8 on wqkv at 16,
-   768 and 3,072 rows) in one process, with TFLOP/s and the share of the
-   bound.
+   and int4 matmuls at every shape and row of phase 3 and paged decode1 and
+   the general kernel at their phase-3 rows (bf16 and int8 pools, ALiBi,
+   pages of 32, the paged engine's 32 pages, GQA, MQA, chunks of 4 and 8)
+   timed by the kernel's own device time from ``torch.profiler``, so the
+   host path around the wrapper drops out, alternated with the library call
+   or yardstick (kernel, library, library, kernel; on wqkv at 16, 768 and
+   3,072 rows and, int4, w_down at 8,192) in one process, with TFLOP/s and
+   the share of the bound.
 
 Phase 3 also holds both paged kernels (decode1 and general) and both flash
 backward kernels (dK/dV and dQ, at T = 2048, MHA and GQA, a padded and a
@@ -591,6 +594,9 @@ QUANT_ROWS = (1, 16, 768)
 # the engine's 4-prompt batch of 3,072, plus one row on each side of the cut
 # (ops/quant_matmul.INT8_CUT = 32; phase 3 checks that it is there)
 INT8_ROWS = (1, 16, 32, 33, 64, 768, 3072)
+# the int4 kernel's rows: the same, with its own cut (ops/quant_matmul.
+# INT4_CUT; phase 3 checks that both sides are here) and QLoRA's 4 x 2048
+INT4_ROWS = (1, 16, 48, 49, 64, 768, 3072, 8192)
 
 
 def _quantize(kind, w):
@@ -616,10 +622,10 @@ def _dequant64(kind, q, s):
 def check_quant(kind, name, K, N, gen):
     """One weight, every row count: kernel and plain version against the f64
     product of the dequantized weight, errors relative to the largest output.
-    The int8 rows also launch the kernel a second time (every bit must
-    repeat: the K chunks' partials are summed in a fixed order) and time the
-    yardstick, ``torch.matmul`` on the same weight dequantized to bf16 (the
-    port never calls it)."""
+    The int8 and int4 rows also launch the kernel a second time (every bit
+    must repeat: the K chunks' partials are summed in a fixed order) and time
+    the yardstick, ``torch.matmul`` on the same weight dequantized to bf16
+    (the port never calls it)."""
     import torch
     from llava_plus_torch.ops import quant_matmul as qm
 
@@ -636,10 +642,12 @@ def check_quant(kind, name, K, N, gen):
     out_dtype = torch.float32 if name == "lm_head" or kind == "int4n" else torch.bfloat16
     kw = {} if kind == "int4n" else {"out_dtype": out_dtype}
     nbytes = q.numel() + s.numel() * 4
-    w16 = qm.dequantize(8, q, s, torch.bfloat16) if kind == "int8" else None
-    if kind == "int8" and not {qm.INT8_CUT, qm.INT8_CUT + 1} <= set(INT8_ROWS):
-        raise AssertionError(f"INT8_ROWS must hold both sides of the cut {qm.INT8_CUT}")
-    row_counts = INT8_ROWS if kind == "int8" else QUANT_ROWS
+    split = kind in ("int8", "int4")   # the kernels with two regimes and K chunks
+    w16 = qm.dequantize(8 if kind == "int8" else 4, q, s, torch.bfloat16) if split else None
+    for rows_, cut in ((INT8_ROWS, qm.INT8_CUT), (INT4_ROWS, qm.INT4_CUT)):
+        if not {cut, cut + 1} <= set(rows_):
+            raise AssertionError(f"the rows {rows_} must hold both sides of the cut {cut}")
+    row_counts = {"int8": INT8_ROWS, "int4": INT4_ROWS}.get(kind, QUANT_ROWS)
     rows = {}
     for R in row_counts:
         x = torch.randn(R, K, generator=gen, device=dev).bfloat16()
@@ -647,7 +655,7 @@ def check_quant(kind, name, K, N, gen):
         top = truth.abs().max().item()
         out = kernel_fn(x, q, s, **kw)
         plan = getattr(kernel_fn, "last_plan", None)
-        same = torch.equal(out, kernel_fn(x, q, s, **kw)) if kind == "int8" else True
+        same = torch.equal(out, kernel_fn(x, q, s, **kw)) if split else True
         p_out = plain_fn(x, q, s, **kw)
         torch.cuda.synchronize()
         if out.shape != (R, N) or out.dtype != out_dtype:
@@ -664,9 +672,9 @@ def check_quant(kind, name, K, N, gen):
         rate = (f", {nbytes / ms / 1e6:.0f} GB/s of weights" if R <= 64 else "") + (
             f", {2 * R * K * N / ms / 1e9:.1f} TFLOP/s" if R >= 64 else "")
         log("kernels", f"quant_matmul {kind} {name} R={R} K={K} N={N} -> "
-                       f"{str(out_dtype)[6:]}{f' {plan}' if kind == 'int8' else ''}: rel err "
+                       f"{str(out_dtype)[6:]}{f' {plan}' if split else ''}: rel err "
                        f"{k_err:.3e} (plain {r_err:.3e})"
-                       f"{f', a second launch bit-identical {same}' if kind == 'int8' else ''}, "
+                       f"{f', a second launch bit-identical {same}' if split else ''}, "
                        f"{ms:.4f} ms{rate} vs plain {plain_ms:.4f} ms"
                        f"{f', yardstick (bf16 matmul) {yard_ms:.4f} ms' if yard_ms else ''}, "
                        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}) -> "
@@ -738,9 +746,9 @@ def phase_quant_kernels():
         stats[f"quant_matmul[{kind}]"] = dict(
             per[head][16], shape=f"{head} K={K} N={N} R=16",
             max_abs_err=max(r["max_abs_err"] for rows in per.values() for r in rows.values()))
-        if kind == "int8":
+        if kind in ("int8", "int4"):
             # the prefill regime's rows on the same weight
-            stats["quant_matmul[int8]"].update(
+            stats[f"quant_matmul[{kind}]"].update(
                 {f"r{R}_ms": per[head][R]["ms"] for R in (768, 3072)},
                 **{f"r{R}_yardstick_ms": per[head][R]["yardstick_ms"] for R in (768, 3072)})
     return stats
@@ -864,9 +872,14 @@ def phase_paged_kernels(gen, rng):
     Tq = 1) and for 4-token chunks (Hkv = 32); bf16 and int8 pools. Their
     ALiBi variants (MPT) on int8 pools: decode1 at Hkv = 32 (LLaVA-MPT-7B's
     paged decode), the general kernel for 4-token chunks (Hkv = 32) and for
-    MQA (4 query heads over one kv head, the narrow MQA MPT). The lines report decode1 with an int8 pool (the 7B paged engines')
-    and the general kernel at the GQA int8 case and at the MQA one, with the
-    largest error over every case of the variant."""
+    MQA (4 query heads over one kv head, the narrow MQA MPT); and the
+    general kernel at a 7B engine's width (H = Hkv = 32, chunks of 8 tokens,
+    32 pages a slot, int8 pool, plain and ALiBi); and the general kernel's
+    rows of more than 8 a kv head (16 heads over one kv head, bf16 and int8
+    pools, plain and ALiBi; GQA chunks of 4 tokens). The lines report decode1
+    with an int8 pool (the 7B paged engines') and the general kernel at the
+    GQA int8 case and at the MQA one, with the largest error over every case
+    of the variant."""
     import torch
 
     runs = {}
@@ -894,8 +907,32 @@ def phase_paged_kernels(gen, rng):
             "decode1 engine", 32, 1, True, torch.Generator(device="cuda").manual_seed(seed),
             np.random.default_rng(seed), pages_per_slot=32, alibi=alibi_row, edges=True,
             max_past=1024)
+    # the general kernel at a 7B engine's width: H = Hkv = 32, chunks of 8
+    # tokens (a k = 7 speculation's verify step, the longest suffix that
+    # takes this kernel), the paged engine's 16 slots x 32 pages of 128,
+    # pasts up to 1,024, a full and a 1-token slot; int8 pool, plain and
+    # ALiBi (each its own generator)
+    wide = {}
+    for alibi_row in (False, True):
+        seed = 8 + alibi_row
+        wide[alibi_row] = check_paged(
+            "general 7B", 32, 8, True, torch.Generator(device="cuda").manual_seed(seed),
+            np.random.default_rng(seed), pages_per_slot=32, alibi=alibi_row, edges=True,
+            max_past=1024)
+    # the general kernel where a kv head's query rows are more than one n8
+    # tile holds: phase 15's rows of more than 8 (each from phase 15's seed)
+    groups = {False: [], True: []}
+    for i, (tag, _, H, Hkv, Tq, quantized, alibi_row, pages, edges, max_past) in enumerate(
+            GENERAL_ROWS):
+        if (H // Hkv) * Tq > 8:
+            groups[alibi_row].append(check_paged(
+                f"general {tag}", Hkv, Tq, quantized,
+                torch.Generator(device="cuda").manual_seed(30 + i),
+                np.random.default_rng(30 + i), H=H, pages_per_slot=pages, alibi=alibi_row,
+                edges=edges, max_past=max_past))
     d1 = [runs["decode1", qz] for qz in (False, True)] + [edge, engine[False]]
-    gen_runs = [r for (tag, _), r in runs.items() if tag.startswith("general")]
+    gen_runs = ([r for (tag, _), r in runs.items() if tag.startswith("general")] + [wide[False]]
+                + groups[False])
     return {
         "paged_attention[decode1]": dict(runs["decode1", True],
                                          max_abs_err=max(r["max_abs_err"] for r in d1)),
@@ -906,7 +943,9 @@ def phase_paged_kernels(gen, rng):
                                               engine[True]["max_abs_err"])),
         "paged_attention[general,alibi]": dict(
             alibi["general MQA"], max_abs_err=max(alibi["general MQA"]["max_abs_err"],
-                                                  alibi["general chunk"]["max_abs_err"])),
+                                                  alibi["general chunk"]["max_abs_err"],
+                                                  wide[True]["max_abs_err"],
+                                                  *(r["max_abs_err"] for r in groups[True]))),
     }
 
 
@@ -1020,12 +1059,12 @@ def phase_kernels():
             **phase_paged_kernels(gen, rng)}
 
 
-def device_ms(fn, names=None, iters=20, warmup=3, sessions=3):
+def device_ms(fn, names=None, iters=20, warmup=3, sessions=6):
     """Mean device time of ``fn`` per call in ms, read from ``torch.profiler``:
     the kernels whose name holds one of ``names``, or every device event the
     call launches (``names`` None: a library call's whole work). A session
-    in which CUPTI delivered no device event (seen once in a long run) is
-    taken again, up to ``sessions`` times."""
+    in which CUPTI delivered no device event (seen in long runs, three
+    sessions in a row once) is taken again, up to ``sessions`` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1169,67 +1208,86 @@ def phase_device_times(stats):
     log("device", f"flash_bwd[dkv,alibi] / flash_bwd[dkv] (MHA, T=2048, device): "
                   f"{dkv[('MHA', True)] / dkv[('MHA', False)]:.3f}")
     _device_times_decode(stats, gen)
-    _device_times_int8(stats)
-    _device_times_decode1(stats)
+    for kind in ("int8", "int4"):
+        _device_times_quant(stats, kind)
+    for kind in ("decode1", "general"):
+        _device_times_paged(stats, kind)
 
 
 DECODE_KERNEL = ("decode_kernel",)
-# the int8 kernels of this tree and of an older one (--device-times ROOT)
+# the quantized kernels of this tree and of an older one (--device-times ROOT:
+# before its redesign the int4 product ran quant_matmul_kernel)
 INT8_KERNEL = ("int8_stream_kernel", "int8_wgmma_kernel", "quant_matmul_kernel")
+INT4_KERNEL = ("int4_stream_kernel", "int4_wgmma_kernel", "quant_matmul_kernel")
 DECODE1_KERNEL = ("paged_decode1_kernel",)
+GENERAL_KERNEL = ("paged_general_kernel",)
 
 
-def _int8_cases():
-    """Phase 3's int8 shapes and rows, one at a time, from their own seed:
-    (row name, R, K, N, out dtype, the wrapper's call, the bf16 weight for
-    the yardstick on wqkv, else None)."""
+# the quantized rows timed beside the bf16 yardstick in phase 15, and the
+# key their times take in the kernel's stats row
+YARD_ROWS = {("wqkv", 16): "", ("wqkv", 768): "r768_", ("wqkv", 3072): "r3072_",
+             ("w_down", 8192): "w_down_r8192_"}
+
+
+def _quant_cases(kind):
+    """Phase 3's int8 or int4 shapes and rows, one at a time, from their own
+    seed: (row name, R, K, N, out dtype, the wrapper's call, x, the bf16
+    weight for the yardstick where YARD_ROWS has the shape, else None, the
+    weight's bytes, the shape's name)."""
     import torch
     from llava_plus_torch.ops import quant_matmul as qm
 
-    gen = torch.Generator(device="cuda").manual_seed(2)
+    gen = torch.Generator(device="cuda").manual_seed(2 if kind == "int8" else 3)
+    wrapper = qm.matmul_int8 if kind == "int8" else qm.matmul_int4
+    bits = 8 if kind == "int8" else 4
     for name, K, N in QUANT_SHAPES + MPT_QUANT_SHAPES:
-        q, s = _quantize("int8", torch.randn(K, N, generator=gen, device="cuda").mul_(0.02)
+        q, s = _quantize(kind, torch.randn(K, N, generator=gen, device="cuda").mul_(0.02)
                          .bfloat16())
         out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
-        w16 = qm.dequantize(8, q, s, torch.bfloat16) if name == "wqkv" else None
-        for R in INT8_ROWS:
+        yard = any(n == name for n, _ in YARD_ROWS)
+        w16 = qm.dequantize(bits, q, s, torch.bfloat16) if yard else None
+        for R in (INT8_ROWS if kind == "int8" else INT4_ROWS):
             x = torch.randn(R, K, generator=gen, device="cuda").bfloat16()
             yield (f"{name} R={R}", R, K, N, out_dtype,
-                   lambda: qm.matmul_int8(x, q, s, out_dtype=out_dtype), x, w16)
+                   lambda: wrapper(x, q, s, out_dtype=out_dtype), x, w16,
+                   q.numel() + 4 * s.numel(), name)
         del q, s, w16
 
 
-def _device_times_int8(stats):
-    """The int8 matmul at phase 3's shapes and rows, the kernel alone; on
-    LLaVA-1.5-7B's wqkv at 16 decode slots, a 768-token prefill and the
-    engine's 4-prompt prefill (3,072 rows) alternated with the yardstick,
-    ``torch.matmul`` on the same weight dequantized to bf16."""
+def _device_times_quant(stats, kind):
+    """The int8 or int4 matmul at phase 3's shapes and rows, the kernel
+    alone; on LLaVA-1.5-7B's wqkv at 16 decode slots, a 768-token prefill
+    and the engine's 4-prompt prefill (3,072 rows), and (int4) on w_down at
+    QLoRA's 8,192 rows, alternated with the yardstick, ``torch.matmul`` on
+    the same weight dequantized to bf16."""
     import torch
     from llava_plus_torch.ops import quant_matmul as qm
 
-    rows = stats.setdefault("int8 rows", {})
-    for row, R, K, N, out_dtype, call, x, w16 in _int8_cases():
-        yard = w16 is not None and R in (16, 768, 3072)
+    names = INT8_KERNEL if kind == "int8" else INT4_KERNEL
+    wrapper = qm.matmul_int8 if kind == "int8" else qm.matmul_int4
+    rows = stats.setdefault(f"{kind} rows", {})
+    for row, R, K, N, out_dtype, call, x, w16, wbytes, name in _quant_cases(kind):
+        yard = (name, R) in YARD_ROWS
         if yard:
-            kern_ms, yard_ms = _alternated(call, INT8_KERNEL, lambda: torch.matmul(x, w16))
+            kern_ms, yard_ms = _alternated(call, names, lambda: torch.matmul(x, w16))
         else:
-            kern_ms = (device_ms(call, INT8_KERNEL) + device_ms(call, INT8_KERNEL)) / 2
+            kern_ms = (device_ms(call, names) + device_ms(call, names)) / 2
         out_bytes = R * N * (4 if out_dtype == torch.float32 else 2)
-        b = bound(K * N + 4 * N + 2 * R * K + out_bytes, 2 * R * K * N)
+        b = bound(wbytes + 2 * R * K + out_bytes, 2 * R * K * N)
         rows.setdefault(row, {}).update(device_ms=kern_ms, **b)
         vs = (f", yardstick (bf16 matmul) {yard_ms:.4f} ms device, "
               f"x{kern_ms / yard_ms:.2f} of the yardstick" if yard else "")
-        log("device", f"quant_matmul[int8] {row} K={K} N={N} "
-                      f"({getattr(qm.matmul_int8, 'last_plan', None)}): kernel "
+        log("device", f"quant_matmul[{kind}] {row} K={K} N={N} "
+                      f"({getattr(wrapper, 'last_plan', None)}): kernel "
                       f"{kern_ms:.4f} ms device{vs}, "
                       f"{2 * R * K * N / kern_ms / 1e9:.1f} TFLOP/s, "
-                      f"{K * N / kern_ms / 1e6:.1f} GB/s of weights, "
+                      f"{wbytes / kern_ms / 1e6:.1f} GB/s of weights, "
                       f"{b['bound_ms'] / kern_ms:.1%} of the bound ({b['bound_ms']:.4f} ms, "
                       f"{b['bound_by']})")
         if yard:
-            key = "" if R == 16 else f"r{R}_"
-            stats["quant_matmul[int8]"].update({f"{key}device_ms": kern_ms,
-                                                f"{key}yardstick_device_ms": yard_ms})
+            key = YARD_ROWS[name, R]
+            stats[f"quant_matmul[{kind}]"].update({f"{key}device_ms": kern_ms,
+                                                   f"{key}yardstick_device_ms": yard_ms})
 
 
 # phase 3's decode1 rows, all on int8 pools but the first: (tag, stats row,
@@ -1266,17 +1324,64 @@ def _decode1_cases():
         del q, pool, scale, page_ids, lens, ck, cv, vals
 
 
-def _device_times_decode1(stats):
-    """Phase 3's decode1 rows, the kernel alone, taken twice (no library
-    call reads a paged pool)."""
+# phase 3's general rows: (tag, stats row, H, Hkv, Tq, int8 pool, ALiBi,
+# pages a slot, edges, largest past length)
+GENERAL_ROWS = (
+    ("GQA bf16", None, 32, 8, 1, False, False, 16, False, None),
+    ("GQA int8", "paged_attention[general]", 32, 8, 1, True, False, 16, False, None),
+    ("chunk bf16", None, 32, 32, 4, False, False, 16, False, None),
+    ("chunk int8", None, 32, 32, 4, True, False, 16, False, None),
+    ("chunk int8 alibi", None, 32, 32, 4, True, True, 16, False, None),
+    ("MQA int8 alibi", "paged_attention[general,alibi]", 4, 1, 1, True, True, 16, False, None),
+    ("7B Tq=8 int8", None, 32, 32, 8, True, False, 32, True, 1024),
+    ("7B Tq=8 int8 alibi", None, 32, 32, 8, True, True, 32, True, 1024),
+    # a kv head's rows past one n8 tile: the wide MQA MPT's 16 heads over one
+    # kv head, and GQA chunks of 4 tokens (4 x 4 rows)
+    ("MQA16 bf16", None, 16, 1, 1, False, False, 16, False, None),
+    ("MQA16 int8", None, 16, 1, 1, True, False, 16, False, None),
+    ("MQA16 bf16 alibi", None, 16, 1, 1, False, True, 16, False, None),
+    ("MQA16 int8 alibi", None, 16, 1, 1, True, True, 16, False, None),
+    ("GQA chunk int8", None, 32, 8, 4, True, False, 16, False, None),
+)
+
+
+def _general_cases():
+    """Phase 3's general rows (16 slots, a dead slot), one at a time, each
+    from its own seed: (tag, stats row, the wrapper's call, Tq, pages a
+    slot, past lengths, page bytes, bound)."""
+    import torch
     from llava_plus_torch.ops import paged_attention as pa
 
-    rows = stats.setdefault("decode1 rows", {})
-    for tag, row, kernel, P, pages, lengths, page_bytes, b in _decode1_cases():
-        kern_ms = (device_ms(kernel, DECODE1_KERNEL) + device_ms(kernel, DECODE1_KERNEL)) / 2
-        log("device", f"paged_attention[decode1] {tag} B=16 H=32 P={P} pages/slot={pages} "
+    B, P = 16, 128
+    for i, (tag, row, H, Hkv, Tq, quantized, alibi, pages, edges, max_past) in enumerate(
+            GENERAL_ROWS):
+        (q, pool, scale, page_ids, lens, ck, cv, vals), lengths, valid = _paged_inputs(
+            Hkv, Tq, quantized, torch.Generator(device="cuda").manual_seed(30 + i),
+            np.random.default_rng(30 + i), B, H, P, pages, edges, max_past)
+        slopes = _slopes(H, alibi)
+        page_bytes, b = _paged_bound(lengths, valid, B, H, Hkv, Tq, P, quantized,
+                                     pool.element_size())
+        yield (tag, row, lambda: pa.paged_decode_attention(
+            q, pool, page_ids, lens, scale, ck, cv, vals, alibi_slopes=slopes),
+            Tq, pages, lengths, page_bytes, b)
+        del q, pool, scale, page_ids, lens, ck, cv, vals
+
+
+def _device_times_paged(stats, kind):
+    """Phase 3's decode1 or general rows, the kernel alone, taken twice (no
+    library call reads a paged pool)."""
+    from llava_plus_torch.ops import paged_attention as pa
+
+    cases, names, wrapper = ((_decode1_cases, DECODE1_KERNEL, pa.paged_decode1)
+                             if kind == "decode1" else
+                             (_general_cases, GENERAL_KERNEL, pa.paged_attention_general))
+    rows = stats.setdefault(f"{kind} rows", {})
+    for tag, row, kernel, arg, pages, lengths, page_bytes, b in cases():
+        kern_ms = (device_ms(kernel, names) + device_ms(kernel, names)) / 2
+        log("device", f"paged_attention[{kind}] {tag} B=16 "
+                      f"{'P' if kind == 'decode1' else 'Tq'}={arg} pages/slot={pages} "
                       f"(mean past {lengths[:-1].mean():.0f}; "
-                      f"{getattr(pa.paged_decode1, 'last_splits', 1)} chunks a slot): kernel "
+                      f"{getattr(wrapper, 'last_splits', 1)} chunks a slot): kernel "
                       f"{kern_ms:.4f} ms device, {page_bytes / kern_ms / 1e6:.1f} GB/s of pages "
                       f"read, {b['bound_ms'] / kern_ms:.1%} of the bound "
                       f"({b['bound_ms']:.4f} ms, {b['bound_by']})")
@@ -1286,18 +1391,21 @@ def _device_times_decode1(stats):
 
 
 def wrapper_times(stats):
-    """Phase 3's int8 and decode1 rows timed through their wrappers (CUDA
-    events over 20 back-to-back calls, so the host path counts where it is
-    longer than the kernel), before any profiler session can slow the host
-    clocks: the A/B of ``--device-times``, where phase 3 does not run."""
-    rows = stats.setdefault("int8 rows", {})
-    for row, R, K, N, out_dtype, call, x, w16 in _int8_cases():
-        rows.setdefault(row, {})["wrapper_ms"] = ms = time_ms(call)
-        log("wrapper", f"quant_matmul[int8] {row} K={K} N={N}: {ms:.4f} ms")
-    rows = stats.setdefault("decode1 rows", {})
-    for tag, row, kernel, P, pages, lengths, page_bytes, b in _decode1_cases():
-        rows.setdefault(tag, {})["wrapper_ms"] = ms = time_ms(kernel)
-        log("wrapper", f"paged_attention[decode1] {tag} P={P} pages/slot={pages}: {ms:.4f} ms")
+    """Phase 3's int8, int4, decode1 and general rows timed through their
+    wrappers (CUDA events over 20 back-to-back calls, so the host path counts
+    where it is longer than the kernel), before any profiler session can
+    slow the host clocks: the A/B of ``--device-times``, where phase 3 does
+    not run."""
+    for kind in ("int8", "int4"):
+        rows = stats.setdefault(f"{kind} rows", {})
+        for row, R, K, N, out_dtype, call, *_ in _quant_cases(kind):
+            rows.setdefault(row, {})["wrapper_ms"] = ms = time_ms(call)
+            log("wrapper", f"quant_matmul[{kind}] {row} K={K} N={N}: {ms:.4f} ms")
+    for kind, cases in (("decode1", _decode1_cases), ("general", _general_cases)):
+        rows = stats.setdefault(f"{kind} rows", {})
+        for tag, row, kernel, arg, pages, *_ in cases():
+            rows.setdefault(tag, {})["wrapper_ms"] = ms = time_ms(kernel)
+            log("wrapper", f"paged_attention[{kind}] {tag} pages/slot={pages}: {ms:.4f} ms")
 
 
 def _device_times_decode(stats, gen):
@@ -1911,7 +2019,7 @@ def serve_engine(smi, params, quantize, n_image, n_text):
     url = f"http://127.0.0.1:{server.port}/worker_generate_stream"
     try:
         flash_attention.launches = decode_attention.launches = qmm.launches = 0
-        regimes0 = (qm.matmul_int8.decode_launches, qm.matmul_int8.prefill_launches)
+        regimes0 = _regimes(qmm)
         e0 = (engine.prefill_dispatches, engine.prefill_requests, engine.decode_steps,
               engine.multi_slot_steps)
         t_start = time.perf_counter()
@@ -1935,8 +2043,7 @@ def serve_engine(smi, params, quantize, n_image, n_text):
         raise AssertionError("no batched admission or no shared decode steps")
     if launches != want:
         raise AssertionError(f"launch counts {launches} differ from {want}")
-    if quantize == "int8":
-        launches["quant_regimes"] = _int8_regimes("engine", regimes0, launches["quant"])
+    launches["quant_regimes"] = _quant_regimes("engine", quantize, regimes0, launches["quant"])
     ttfts = sorted(stamps[0] - t_send for _, t_send, stamps in results)
     t_end = max(stamps[-1] for _, _, stamps in results)
     rate = len(bodies) * new_tokens / (t_end - t_start)
@@ -1952,18 +2059,25 @@ def serve_engine(smi, params, quantize, n_image, n_text):
     return launches
 
 
-def _int8_regimes(phase, before, total):
-    """The int8 launches at decode rows and at prefill rows since ``before``
-    (the counts ``matmul_int8`` keeps apart); an engine's path must run both
-    kernels, and together they are its ``total`` int8 launches."""
+def _regimes(wrapper):
+    """A quantized matmul's launches at decode rows and at prefill rows so far."""
+    return wrapper.decode_launches, wrapper.prefill_launches
+
+
+def _quant_regimes(phase, kind, before, total):
+    """The int8 or int4 launches at decode rows and at prefill rows since
+    ``before`` (the counts ``matmul_int8`` / ``matmul_int4`` keep apart); an
+    engine's path must run both kernels, and together they are its ``total``
+    launches."""
     from llava_plus_torch.ops import quant_matmul as qm
 
-    got = (qm.matmul_int8.decode_launches - before[0],
-           qm.matmul_int8.prefill_launches - before[1])
-    log(phase, f"int8 launches by regime: {got[0]} at decode rows (R <= {qm.INT8_CUT}, the "
+    wrapper, cut = ((qm.matmul_int8, qm.INT8_CUT) if kind == "int8"
+                    else (qm.matmul_int4, qm.INT4_CUT))
+    got = tuple(b - a for a, b in zip(before, _regimes(wrapper)))
+    log(phase, f"{kind} launches by regime: {got[0]} at decode rows (R <= {cut}, the "
                f"split-K stream), {got[1]} at prefill rows (wgmma); {total} in all")
     if min(got) <= 0 or sum(got) != total:
-        raise AssertionError(f"{phase}: the int8 regimes ran {got} of {total} launches")
+        raise AssertionError(f"{phase}: the {kind} regimes ran {got} of {total} launches")
     return got
 
 
@@ -2053,7 +2167,7 @@ def serve_paged_engine(smi):
     try:
         for k in kernels.values():
             k.launches = 0
-        regimes0 = (qm.matmul_int8.decode_launches, qm.matmul_int8.prefill_launches)
+        regimes0 = _regimes(qm.matmul_int8)
         for r, bodies in enumerate((bodies1, None)):
             if bodies is None:
                 # each follow-up re-sends a round-1 image prompt, the answer it
@@ -2106,7 +2220,7 @@ def serve_paged_engine(smi):
         raise AssertionError(f"vision encodes: round 1 {enc1}, round 2 {enc2} (want 0)")
     if launches != want:
         raise AssertionError(f"launch counts {launches} differ from {want}")
-    launches["quant_regimes"] = _int8_regimes("paged", regimes0, launches["quant"])
+    launches["quant_regimes"] = _quant_regimes("paged", "int8", regimes0, launches["quant"])
     if (free + held != engine.num_pages or any(r > 1 for r in refs)
             or any(refs[p] != 1 for p in cached)):
         raise AssertionError(f"page accounting: {free} free + {held} cached of "
@@ -2263,7 +2377,7 @@ def _serve_mpt_engine(smi, mode):
             w.launches = 0
             if hasattr(w, "alibi_launches"):
                 w.alibi_launches = 0
-        regimes0 = (qm.matmul_int8.decode_launches, qm.matmul_int8.prefill_launches)
+        regimes0 = _regimes(qm.matmul_int8)
         for bodies in (bodies1, None) if paged else (bodies1,):
             if bodies is None:
                 bodies = []
@@ -2311,7 +2425,8 @@ def _serve_mpt_engine(smi, mode):
                + f"; launches {launches} (want {want})")
     if launches != want:
         raise AssertionError(f"MPT {mode}: launch counts {launches} differ from {want}")
-    launches["matmul_int8 regimes"] = _int8_regimes("mpt", regimes0, launches["matmul_int8"])
+    launches["matmul_int8 regimes"] = _quant_regimes("mpt", "int8", regimes0,
+                                                     launches["matmul_int8"])
     if rounds[0]["delta"][1] != len(bodies1) or rounds[0]["delta"][0] >= len(bodies1) \
             or dm <= 0:
         raise AssertionError(f"MPT {mode}: no batched admission or no shared decode steps")
@@ -3070,9 +3185,9 @@ def _leaves(tree):
 
 def device_times_only(root):
     """Phases 1, 2 and 15 alone, for the ``llava_plus_torch`` package under
-    ``root``, with phase 3's int8 and decode1 rows also timed through their
-    wrappers first: run once for each of two checkouts in one call (A, B, B,
-    A) to compare their kernels on one card."""
+    ``root``, with phase 3's int8, int4, decode1 and general rows also timed
+    through their wrappers first: run once for each of two checkouts in one
+    call (A, B, B, A) to compare their kernels on one card."""
     import collections
 
     sys.path.insert(0, root)
@@ -3173,6 +3288,17 @@ def main():
                        mpt["dense"]["matmul_int8 regimes"], mpt["paged"]["matmul_int8 regimes"]]
             entries[-1].update(engine_decode_launches=sum(r[0] for r in regimes),
                                engine_prefill_launches=sum(r[1] for r in regimes))
+        elif name == "quant_matmul[int4]":
+            # the int4 engine's launches by regime (phase 6)
+            entries[-1].update(engine_decode_launches=int4["quant_regimes"][0],
+                               engine_prefill_launches=int4["quant_regimes"][1])
+        elif name == "paged_attention[general]":
+            # the 7B paged engines' general launches (phases 7 and 11): 0, as
+            # those phases require (MHA decode is decode1's; a suffix prefill
+            # runs in 256-token buckets over the gathered pages)
+            entries[-1].update(engine_7b_launches=paged["general"]
+                               + mpt["paged"]["paged_attention_general"]
+                               + mpt["paged"]["paged_attention_general[alibi]"])
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "llava_plus_tpu"))
     if foreign:

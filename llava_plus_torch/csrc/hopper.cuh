@@ -1,4 +1,4 @@
-// Hopper building blocks shared by the flash kernels and the int8 matmul (sm_90a): mbarriers,
+// Hopper building blocks shared by the flash kernels and the quantized matmuls (sm_90a): mbarriers,
 // TMA tile loads and bulk copies, wgmma shared-memory descriptors and the
 // wgmma instructions the kernels issue, and the host side of a TMA tensor
 // map.
@@ -371,12 +371,13 @@ inline int make_map(CUtensorMap* map, const void* base, int B, int T, int heads,
 
 // A 2-d tensor (`inner` contiguous elements a row, `outer` rows of
 // `row_bytes`) as a map whose box is `box_inner` x `box_outer` elements,
-// 128-byte swizzled (box_inner elements must span 128 bytes). Elements past
-// the edges read as zeros. Returns 0 or TENSOR_MAP_ERROR (+ the CUDA
-// driver's code).
+// 128-byte swizzled (box_inner elements must span 128 bytes), or laid out
+// row after row with SWIZZLE_NONE (box_inner elements a multiple of 16
+// bytes). Elements past the edges read as zeros. Returns 0 or
+// TENSOR_MAP_ERROR (+ the CUDA driver's code).
 inline int make_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
                        int inner, int outer, long long row_bytes, int box_inner,
-                       int box_outer) {
+                       int box_outer, CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return TENSOR_MAP_ERROR;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
@@ -385,7 +386,7 @@ inline int make_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* b
   const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
 }

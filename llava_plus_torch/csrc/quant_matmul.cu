@@ -8,9 +8,10 @@
 //         per-output-channel scale [N] f32 (the Pallas kernel leaves the
 //         scale to its caller; here it is applied after the f32 sums);
 //   int4: x [R, K] bf16 @ packed qw [K/2, N] int8 with per-32-row-block
-//         scales [K/32, N] f32 applied while the tile is converted. Within
-//         each 32-row block the packing is split-half: the low nibble of
-//         packed row j holds row j, the high nibble row j + 16;
+//         scales [K/32, N] f32: w[k, n] = bf16(f32(nibble) * scale), rounded
+//         once per element, as the Pallas kernel does. Within each 32-row
+//         block the packing is split-half: the low nibble of packed row j
+//         holds row j, the high nibble row j + 16;
 //   int4 native: packed qw [K, N/2] uint8, element (k, n) in byte (k, n/2),
 //         the low nibble for even n, the high one for odd n, with the same
 //         block scales; f32 out. The Pallas variant's grid takes K / bk
@@ -20,33 +21,47 @@
 //
 // What bounds it on the card: at decode rows (R = the engine's slots, 1..16;
 // later speculation's up to 32) the weight stream, K * N bytes (int8) or
-// K * N / 2 (int4) per call, against 3.35 TB/s; at prefill and training rows
-// (768 a prompt, thousands in a batch) the products, against 989 bf16
-// TFLOP/s. The weights move from device memory as int8 (half of bf16's
-// bytes, a quarter for int4) and are widened to bf16 (exactly: masks and a
-// bf16x2 add, csrc/warp_mma.cuh) right before the tensor cores.
+// K * N / 2 + K * N / 8 (int4 and its block scales) per call, against 3.35
+// TB/s; at prefill and training rows (768 a prompt, thousands in a batch,
+// QLoRA's 4 x 2048) the products, against 989 bf16 TFLOP/s. The weights move
+// from device memory as int8 or nibbles and are widened to bf16 right before
+// the tensor cores: int8 exactly with masks and a bf16x2 add
+// (csrc/warp_mma.cuh); int4 as byte permutes under the exponent of 2^23, an
+// f32 subtract, the f32 multiply by the block scale and one rounding to
+// bf16 (int4_pairs below): about four instructions a weight, twice int8's
+// work per weight byte. At prefill rows the wgmma of the previous step
+// hides it (~450 TFLOP/s); at decode rows it is what holds the int4 stream
+// at 29-54% of its bytes bound on the H100's 7B shapes (rounding with
+// integer instructions instead, or eight warps a block, measured slower).
 //
-// int8 takes one of two kernels, by row count (ops/quant_matmul.int8_plan,
-// the cut INT8_CUT = 32 measured on the card):
-//   decode rows   int8_stream_kernel: 128-column strips of the weight, each
-//                 cut into K chunks so that every SM holds two or three
-//                 blocks streaming equal bytes; 64 x 128 weight tiles by TMA
-//                 through a 4-stage ring, x's rows beside them by cp.async;
-//                 mma.sync with the weight as the m16 side and x's rows as
-//                 n8 (out^T = W^T x^T: one row costs an n8 tile, not a
-//                 padded m16); the chunks' f32 parts summed in chunk order
-//                 by the last block of the strip (a counter it resets): one
-//                 launch, deterministic, no host sync;
-//   prefill rows  int8_wgmma_kernel: 128-row x 256-column output tiles, x
-//                 and the int8 weight by TMA into a 6-stage ring of 128-byte
-//                 swizzled tiles; each thread converts its weight bytes
-//                 straight into wgmma's register A operand (the transposed
-//                 product again: the weight's columns are M, x's rows N) while
-//                 the previous tile's wgmma m64n128k16 run; the tiles of a
-//                 last, partial wave cut into K chunks, combined as above.
-// The int4 kernels (split-half and native): mma.sync on one 128-deep tile at
-// a time, prefetched through registers, widened into shared memory with the
-// block scales; 16 x 32 output tiles at decode rows, 64 x 64 above.
+// int8 and int4 each take one of two kernels, by row count
+// (ops/quant_matmul.int8_plan / int4_plan, the cuts INT8_CUT = 32 and
+// INT4_CUT measured on the card):
+//   decode rows   int8_stream_kernel / int4_stream_kernel: 128-column strips
+//                 of the weight, each cut into K chunks so that every SM
+//                 holds two or three blocks streaming equal bytes; 64 x 128
+//                 byte tiles of the weight by TMA through a 4-stage ring (int8:
+//                 64 k rows; int4: 64 packed rows, 128 k rows, with the four
+//                 block-scale rows of the strip beside them), x's rows by
+//                 cp.async; mma.sync with the weight as the m16 side and x's
+//                 rows as n8 (out^T = W^T x^T: one row costs an n8 tile, not a
+//                 padded m16); for int4 one 16-row slab of packed bytes feeds
+//                 both k16 steps of its 32-row block (the low nibbles, then
+//                 the high), converted in registers; the chunks' f32 parts
+//                 summed in chunk order by the last block of the strip (a
+//                 counter it resets): one launch, deterministic, no host sync;
+//   prefill rows  int8_wgmma_kernel / int4_wgmma_kernel: 128-row x
+//                 256-column output tiles, x and the weight (int4: and its
+//                 block scales) by TMA into a ring of 128-byte swizzled
+//                 tiles; each thread converts its weight bytes straight into
+//                 wgmma's register A operand (the transposed product again:
+//                 the weight's columns are M, x's rows N) while the previous
+//                 step's wgmma m64n128k16 run; the tiles of a last, partial
+//                 wave cut into K chunks, combined as above.
+// The native int4 kernel (the tools' layout) keeps its first design: mma.sync
+// on one 128-deep tile at a time, prefetched through registers, widened into
+// shared memory with the block scales; 16 x 32 output tiles at decode rows,
+// 64 x 64 above.
 
 // Shapes (every layout): K % 128 == 0, N % 64 == 0; x rows with a 16-byte aligned stride,
 // the last dimension contiguous; qw, scales and out contiguous.
@@ -95,24 +110,21 @@ __device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// The int4 kernels. BM x BN: the block's output tile. OUT_F32: f32 or bf16
-// out. NATIVE: the [K, N/2] column-pair layout instead of split-half; it
-// changes only the weight tile's fetch and its unpack into Ws.
-template <int BM, int BN, bool OUT_F32, bool NATIVE = false>
+// The native int4 kernel. BM x BN: the block's output tile; f32 out.
+template <int BM, int BN>
 __global__ void __launch_bounds__(NTHREADS)
 quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
-                    const int8_t* __restrict__ qw,
+                    const uint8_t* __restrict__ qw,
                     const float* __restrict__ scale,
-                    void* __restrict__ out,
+                    float* __restrict__ out,
                     int R, int K, int N, int ldx) {
   constexpr int WM = BM / 16;             // warps along M
   constexpr int WN = 4 / WM;              // warps along N
   constexpr int NT = BN / WN / 8;         // 8-column mma tiles per warp
   constexpr int LDW = BN + 8;             // smem row stride of the weight tile
   constexpr int XCH = BM * BK / 8 / NTHREADS;              // uint4 of x a thread loads
-  constexpr int WROWS = NATIVE ? BK : BK / 2;              // stored rows of a tile
-  constexpr int WROWB = NATIVE ? BN / 2 : BN;              // stored bytes of a tile row
-  constexpr int WCH = WROWS * WROWB / 16 / NTHREADS;       // uint4 of weights a thread loads
+  constexpr int WROWB = BN / 2;                            // stored bytes of a tile row
+  constexpr int WCH = BK * WROWB / 16 / NTHREADS;          // uint4 of weights a thread loads
   constexpr int SCH = BK / QBLOCK * BN / 4;                // uint4 of int4 scales a tile has
   static_assert(WM * WN == 4 && NT >= 1, "warp layout");
   static_assert(XCH >= 1 && WCH >= 1 && SCH <= NTHREADS, "tile shape");
@@ -144,14 +156,11 @@ quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
           ? *reinterpret_cast<const uint4*>(x + (size_t)row * ldx + k0 + c)
           : make_uint4(0, 0, 0, 0);
     }
-    const int wrow0 = NATIVE ? k0 : k0 / 2;
-    const int ldw = NATIVE ? N / 2 : N;                     // bytes of a stored row
 #pragma unroll
     for (int j = 0; j < WCH; ++j) {
       const int i = tid + j * NTHREADS;
       const int r = i / (WROWB / 16), c = (i % (WROWB / 16)) * 16;
-      wr[j] = *reinterpret_cast<const uint4*>(qw + (size_t)(wrow0 + r) * ldw
-                                              + (NATIVE ? n0 / 2 : n0) + c);
+      wr[j] = *reinterpret_cast<const uint4*>(qw + (size_t)(k0 + r) * (N / 2) + n0 / 2 + c);
     }
     if (tid < SCH) {
       const int r = tid / (BN / 4), c = (tid % (BN / 4)) * 4;
@@ -182,51 +191,23 @@ quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
     for (int j = 0; j < WCH; ++j) {
       const int i = tid + j * NTHREADS;
       const int r = i / (WROWB / 16), c = (i % (WROWB / 16)) * 16;
-      if (NATIVE) {
-        // 16 bytes of row r hold columns 2c .. 2c + 31: byte e is column
-        // 2c + 2e (low nibble) and 2c + 2e + 1 (high); value = nibble *
-        // scale[r / 32], rounded to bf16 once, as the Pallas kernel does.
-        const float* srow = Ss + (r / QBLOCK) * BN + 2 * c;
-        uint32_t packed[16];
+      // 16 bytes of row r hold columns 2c .. 2c + 31: byte e is column
+      // 2c + 2e (low nibble) and 2c + 2e + 1 (high); value = nibble *
+      // scale[r / 32], rounded to bf16 once, as the Pallas kernel does.
+      const float* srow = Ss + (r / QBLOCK) * BN + 2 * c;
+      uint32_t packed[16];
 #pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          const int p = sbyte(word_of(wr[j], e / 4), e % 4);
-          const int lo = static_cast<int>(static_cast<uint32_t>(p) << 28) >> 28;
-          const int hi = p >> 4;
-          packed[e] = pack_bf16((float)lo * srow[2 * e], (float)hi * srow[2 * e + 1]);
-        }
-        uint4* dst = reinterpret_cast<uint4*>(Ws + r * LDW + 2 * c);
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          dst[q] = make_uint4(packed[4 * q], packed[4 * q + 1], packed[4 * q + 2],
-                              packed[4 * q + 3]);
-      } else {
-        // packed row r of the tile: block kb = r / 16, rows klo = 32 kb + r % 16
-        // (low nibbles) and klo + 16 (high nibbles); value = nibble * scale,
-        // rounded to bf16 once, as the Pallas kernel does in f32.
-        const int kb = r / (QBLOCK / 2);
-        const int klo = kb * QBLOCK + r % (QBLOCK / 2);
-        const float* srow = Ss + kb * BN + c;
-        uint32_t plo[8], phi[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const uint32_t w = word_of(wr[j], e / 2);
-          const int s = (e % 2) * 2;
-          const int p0 = sbyte(w, s), p1 = sbyte(w, s + 1);
-          const int lo0 = static_cast<int>(static_cast<uint32_t>(p0) << 28) >> 28;
-          const int lo1 = static_cast<int>(static_cast<uint32_t>(p1) << 28) >> 28;
-          const int hi0 = p0 >> 4, hi1 = p1 >> 4;
-          const float s0 = srow[2 * e], s1 = srow[2 * e + 1];
-          plo[e] = pack_bf16((float)lo0 * s0, (float)lo1 * s1);
-          phi[e] = pack_bf16((float)hi0 * s0, (float)hi1 * s1);
-        }
-        uint4* dlo = reinterpret_cast<uint4*>(Ws + klo * LDW + c);
-        uint4* dhi = reinterpret_cast<uint4*>(Ws + (klo + QBLOCK / 2) * LDW + c);
-        dlo[0] = make_uint4(plo[0], plo[1], plo[2], plo[3]);
-        dlo[1] = make_uint4(plo[4], plo[5], plo[6], plo[7]);
-        dhi[0] = make_uint4(phi[0], phi[1], phi[2], phi[3]);
-        dhi[1] = make_uint4(phi[4], phi[5], phi[6], phi[7]);
+      for (int e = 0; e < 16; ++e) {
+        const int p = sbyte(word_of(wr[j], e / 4), e % 4);
+        const int lo = static_cast<int>(static_cast<uint32_t>(p) << 28) >> 28;
+        const int hi = p >> 4;
+        packed[e] = pack_bf16((float)lo * srow[2 * e], (float)hi * srow[2 * e + 1]);
       }
+      uint4* dst = reinterpret_cast<uint4*>(Ws + r * LDW + 2 * c);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        dst[q] = make_uint4(packed[4 * q], packed[4 * q + 1], packed[4 * q + 2],
+                            packed[4 * q + 3]);
     }
     __syncthreads();
     if (kt + 1 < n_tiles) fetch(kt + 1);  // in flight during the products
@@ -246,50 +227,43 @@ quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
     }
   }
 
-  // Epilogue: bf16 or f32 pairs (the block scales were applied to the tile).
+  // Epilogue: f32 pairs (the block scales were applied to the tile).
   const int row0 = m0 + rb + g, row1 = row0 + 8;
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
     const int col = n0 + cb + t * 8 + tig * 2;
-    const float v[4] = {acc[t][0], acc[t][1], acc[t][2], acc[t][3]};
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = h == 0 ? row0 : row1;
-      if (row >= R) continue;
-      if (OUT_F32) {
-        *reinterpret_cast<float2*>(static_cast<float*>(out) + (size_t)row * N + col) =
-            make_float2(v[2 * h], v[2 * h + 1]);
-      } else {
-        *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(out) + (size_t)row * N + col) =
-            pack_bf16(v[2 * h], v[2 * h + 1]);
-      }
+      if (row < R)
+        *reinterpret_cast<float2*>(out + (size_t)row * N + col) =
+            make_float2(acc[t][2 * h], acc[t][2 * h + 1]);
     }
   }
 }
 
-template <bool OUT_F32, bool NATIVE = false>
-int launch(const void* x, const void* qw, const void* scale, void* out,
-           int R, int K, int N, int ldx, cudaStream_t stream) {
+int launch_native(const void* x, const void* qw, const void* scale, void* out,
+                  int R, int K, int N, int ldx, cudaStream_t stream) {
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* qp = static_cast<const int8_t*>(qw);
+  const auto* qp = static_cast<const uint8_t*>(qw);
   const auto* sp = static_cast<const float*>(scale);
+  auto* op = static_cast<float*>(out);
   if (R <= 16) {
     constexpr int BM = 16, BN = 32;
-    quant_matmul_kernel<BM, BN, OUT_F32, NATIVE>
-        <<<dim3(N / BN, 1), NTHREADS, 0, stream>>>(xp, qp, sp, out, R, K, N, ldx);
+    quant_matmul_kernel<BM, BN>
+        <<<dim3(N / BN, 1), NTHREADS, 0, stream>>>(xp, qp, sp, op, R, K, N, ldx);
   } else {
     constexpr int BM = 64, BN = 64;
-    quant_matmul_kernel<BM, BN, OUT_F32, NATIVE>
-        <<<dim3(N / BN, (R + BM - 1) / BM), NTHREADS, 0, stream>>>(xp, qp, sp, out, R, K, N, ldx);
+    quant_matmul_kernel<BM, BN>
+        <<<dim3(N / BN, (R + BM - 1) / BM), NTHREADS, 0, stream>>>(xp, qp, sp, op, R, K, N, ldx);
   }
   return (int)cudaGetLastError();
 }
 
 
+// ---- int8 and int4: the two row regimes ------------------------------------------
 
-// ---- int8: the two row regimes ------------------------------------------------
-
-namespace int8k {
+namespace qk {
 
 using hopper::mbar_arrive;
 using hopper::mbar_expect_tx;
@@ -298,7 +272,7 @@ using hopper::mbar_wait;
 using warp_mma::FULL;
 using warp_mma::i8x_pair;
 
-// out[r, col .. col + 3] = v (times the columns' scales), bf16 or f32.
+// out[r, col .. col + 3] = v, bf16 or f32.
 template <bool OUT_F32>
 __device__ __forceinline__ void store4(void* out, int r, int col, int N, float4 v) {
   if (OUT_F32) {
@@ -309,17 +283,72 @@ __device__ __forceinline__ void store4(void* out, int r, int col, int N, float4 
   }
 }
 
+// v times the columns' per-channel scales (int8), or v itself (int4: a null
+// scale, the block scales were applied to the weights).
 __device__ __forceinline__ float4 scaled(float4 v, const float* scale, int col) {
+  if (scale == nullptr) return v;
   const float4 s = *reinterpret_cast<const float4*>(scale + col);
   return make_float4(v.x * s.x, v.y * s.y, v.z * s.z, v.w * s.w);
+}
+
+// The signed nibbles of four bytes (one column each) of rows k (w0) and k +
+// 1 (w1) -- the low nibbles, or with HI the high ones -- each times its
+// column's scale in f32 and rounded to bf16 once: out[e] is byte e's pair,
+// the low half from row k. A nibble n is made exact in f32 without the
+// quarter-rate converter: (its bits ^ 8) = n + 8 is permuted in as the low
+// byte of a word under the exponent of 2^23 (the float 2^23 + 8 + n), and
+// 2^23 + 8 is subtracted; then one f32 multiply and one rounding, as the
+// Pallas kernel's f32 multiply and cast.
+template <bool HI>
+__device__ __forceinline__ void int4_pairs(uint32_t w0, uint32_t w1, const float4& s,
+                                           uint32_t (&out)[4]) {
+  const uint32_t u0 = ((HI ? w0 >> 4 : w0) & 0x0F0F0F0Fu) ^ 0x08080808u;
+  const uint32_t u1 = ((HI ? w1 >> 4 : w1) & 0x0F0F0F0Fu) ^ 0x08080808u;
+  const float sc[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float f0 = __uint_as_float(__byte_perm(u0, 0x4B000000u, 0x7540 | e)) - 8388616.f;
+    const float f1 = __uint_as_float(__byte_perm(u1, 0x4B000000u, 0x7540 | e)) - 8388616.f;
+    out[e] = pack_bf16(f0 * sc[e], f1 * sc[e]);
+  }
+}
+
+// The A registers of two m16 tiles for one k16 step, from the words of this
+// thread's four rows (k, k + 1, k + 8, k + 9; four columns each, byte 0:
+// m-tile 0 row g; 1: m-tile 0 row g + 8; 2, 3: m-tile 1). int8: the bytes
+// themselves (s unused); int4: the low (HI false) or high nibbles of the
+// packed rows times their scales s.
+template <bool INT4, bool HI>
+__device__ __forceinline__ void a_frags(const uint32_t (&wd)[4], const float4& s,
+                                        uint32_t (&a)[2][4]) {
+  if constexpr (INT4) {
+    uint32_t r01[4], r89[4];
+    int4_pairs<HI>(wd[0], wd[1], s, r01);
+    int4_pairs<HI>(wd[2], wd[3], s, r89);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      a[j][0] = r01[2 * j];
+      a[j][1] = r01[2 * j + 1];
+      a[j][2] = r89[2 * j];
+      a[j][3] = r89[2 * j + 1];
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      a[j][0] = i8x_pair(wd[0], wd[1], 2 * j);
+      a[j][1] = i8x_pair(wd[0], wd[1], 2 * j + 1);
+      a[j][2] = i8x_pair(wd[2], wd[3], 2 * j);
+      a[j][3] = i8x_pair(wd[2], wd[3], 2 * j + 1);
+    }
+  }
 }
 
 // The last block of an output tile (rows r0 .., columns c0 .. of `cols`, a
 // multiple of 4) sums the tile's split-K partials in split order (element
 // (r, col) of split k at part[k * stride + (r - r0) * ld + col - c0]),
-// applies the scale and writes the tile: the same sums in the same order on
-// every launch. Four outputs a thread at once, so that many loads of the
-// partials are in flight (each waits on L2).
+// applies the scale (int8; null for int4) and writes the tile: the same sums
+// in the same order on every launch. Four outputs a thread at once, so that
+// many loads of the partials are in flight (each waits on L2).
 template <bool OUT_F32>
 __device__ void finish_tile(const float* part, size_t stride, int ld, int splits,
                             const float* scale, void* out, int R, int N, int r0, int rows,
@@ -377,47 +406,63 @@ __device__ __forceinline__ bool last_of_tile(int* counters, int tile, int splits
 // -- decode rows: the weight stream over every SM ---------------------------------
 
 constexpr int SN = 128;             // weight columns of a strip: 32 per warp
-constexpr int SK = 64;              // k rows of a tile (one ring stage)
+constexpr int SK = 64;              // byte rows of a weight tile (one ring stage)
 constexpr int SST = 4;              // ring stages
-constexpr int SLDX = 2 * SK + 16;   // shared bytes of an x row
 constexpr int SNTHREADS = 128;      // 4 warps
 
-// A stage: the weight tile (64 rows x 128 bytes, 128-byte swizzled by TMA)
-// and the x tile, rounded to the 1024 bytes a swizzled tile starts on.
-template <int NR>
+// k rows of a stage: a tile's 64 rows of int8, or of packed int4 (two rows
+// a byte); shared bytes of an x row of the stage
+template <bool INT4>
+__host__ __device__ constexpr int stream_krows() { return INT4 ? 2 * SK : SK; }
+template <bool INT4>
+__host__ __device__ constexpr int stream_ldx() { return 2 * stream_krows<INT4>() + 16; }
+
+// A stage: the weight tile (64 rows x 128 bytes, 128-byte swizzled by TMA),
+// the x tile and (int4) the strip's block scales of the stage's k rows,
+// rounded to the 1024 bytes a swizzled tile starts on.
+template <int NR, bool INT4>
 __host__ __device__ constexpr int stream_stage() {
-  return (SK * SN + 8 * NR * SLDX + 1023) / 1024 * 1024;
+  return (SK * SN + 8 * NR * stream_ldx<INT4>() + (INT4 ? 2 * SK / QBLOCK * SN * 4 : 0) +
+          1023) / 1024 * 1024;
 }
 
-template <int NR>
+template <int NR, bool INT4>
 __host__ __device__ constexpr int stream_smem() {
-  return SST * stream_stage<NR>() + SST * 8 + 1024;   // + the mbarriers, + alignment
+  return SST * stream_stage<NR, INT4>() + SST * 8 + 1024;   // + the mbarriers, + alignment
 }
 
 // One block per (strip of 128 weight columns, K chunk); the plan
-// (ops/quant_matmul.int8_plan) picks the chunks so that two or three blocks
-// of every SM stream about the same bytes. Thread 0 brings each 64 x 128
-// weight tile with one TMA load (a map made once per weight and kept by the
-// wrapper), SST - 1 tiles ahead; the threads copy x's tile beside it with
-// cp.async. Warp w owns columns 32 w .. 32 w
-// + 31 of the strip over every k step of the chunk, so no sums cross warps.
-// The product is transposed, out^T = W^T x^T: the weight is mma's A side
-// (m16) and x's 8 NR rows the n8 side, so a decode row costs one n8 tile,
-// not a padded m16. A thread's A registers come from one 4-byte load at each
-// of its 4 k rows: columns 32 w + 4 g .. + 3, which are rows g and g + 8 of
-// m-tiles 0 and 1 (the columns permuted inside the warp, undone where the
-// sums are stored). With one chunk the block writes its columns scaled;
-// otherwise it writes its f32 part to the workspace, and the last block of
-// the strip to count in (a counter per strip, reset by that block) sums the
-// parts in chunk order, scales and writes: deterministic, one launch.
-template <int NR, bool OUT_F32>
-__global__ void __launch_bounds__(SNTHREADS)
-int8_stream_kernel(const __grid_constant__ CUtensorMap w_map,
-                   const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
-                   void* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
-                   int R, int K, int N, int ldx, int splits) {
+// (ops/quant_matmul.int8_plan, int4_plan) picks the chunks so that two or
+// three blocks of every SM stream about the same bytes. Thread 0 brings each
+// 64 x 128 weight tile with one TMA load (a map made once per weight and kept
+// by the wrapper), SST - 1 tiles ahead; the threads copy x's tile (and, for
+// int4, the strip's block scales) beside it with cp.async. Warp w owns
+// columns 32 w .. 32 w + 31 of the strip over every k step of the chunk, so
+// no sums cross warps. The product is transposed, out^T = W^T x^T: the
+// weight is mma's A side (m16) and x's 8 NR rows the n8 side, so a decode
+// row costs one n8 tile, not a padded m16. A thread's A registers come from
+// one 4-byte load at each of its 4 rows of a 16-row slab: columns 32 w + 4 g
+// .. + 3, which are rows g and g + 8 of m-tiles 0 and 1 (the columns
+// permuted inside the warp, undone where the sums are stored). int8: a slab
+// is one k16 step; int4: a slab is a 32-row scale block, its low nibbles
+// one k16 step and its high nibbles the next, each converted with the
+// thread's four scales of the block. With one chunk the block writes its
+// columns (int8: scaled); otherwise it writes its f32 part to the workspace,
+// and the last block of the strip to count in (a counter per strip, reset by
+// that block) sums the parts in chunk order, scales and writes:
+// deterministic, one launch.
+template <int NR, bool OUT_F32, bool INT4>
+__device__ __forceinline__ void stream_body(const CUtensorMap* w_map,
+                                            const __nv_bfloat16* __restrict__ x,
+                                            const float* __restrict__ scale,
+                                            void* __restrict__ out, float* __restrict__ ws,
+                                            int* __restrict__ counters, int R, int K, int N,
+                                            int ldx, int splits) {
   constexpr int ROWS = 8 * NR;
-  constexpr int stage = stream_stage<NR>();
+  constexpr int KR = stream_krows<INT4>();
+  constexpr int XLD = stream_ldx<INT4>();
+  constexpr int stage = stream_stage<NR, INT4>();
+  constexpr int SCALE_OFF = SK * SN + ROWS * XLD;   // int4: the stage's [KR / 32][SN] scales
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + SST * stage);
@@ -427,7 +472,7 @@ int8_stream_kernel(const __grid_constant__ CUtensorMap w_map,
   const int c = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int kt_all = K / SK;
+  const int kt_all = K / KR;
   const int per = (kt_all + splits - 1) / splits;
   const int kt0 = c * per;
   const int nt = max(0, min(kt_all, kt0 + per) - kt0);
@@ -435,24 +480,32 @@ int8_stream_kernel(const __grid_constant__ CUtensorMap w_map,
   if (tid == 0) {
     for (int s = 0; s < SST; ++s) mbar_init(&full[s], 1);
     hopper::fence_barrier_init();
-    hopper::prefetch_map(&w_map);
+    hopper::prefetch_map(w_map);
   }
   __syncthreads();
 
   // tile i into stage i % SST: the weight by TMA (thread 0; columns past N
-  // read as zeros), x by cp.async (rows past R zero-filled)
+  // read as zeros), x by cp.async (rows past R zero-filled), int4's scales
+  // by cp.async (columns past N zero-filled)
   auto load_tile = [&](int i) {
     unsigned char* st = smem + (i % SST) * stage;
-    const int k0 = (kt0 + i) * SK;
+    const int k0 = (kt0 + i) * KR;
     if (tid == 0) {
       mbar_expect_tx(&full[i % SST], SK * SN);
-      hopper::tma_load_2d(st, &w_map, &full[i % SST], n0, k0);
+      hopper::tma_load_2d(st, w_map, &full[i % SST], n0, INT4 ? k0 / 2 : k0);
     }
-    for (int e = tid; e < ROWS * (SK / 8); e += SNTHREADS) {
-      const int r = e / (SK / 8), ch = e % (SK / 8);
+    for (int e = tid; e < ROWS * (KR / 8); e += SNTHREADS) {
+      const int r = e / (KR / 8), ch = e % (KR / 8);
       const bool in = r < R;
-      warp_mma::cp_async16(st + SK * SN + r * SLDX + 16 * ch,
+      warp_mma::cp_async16(st + SK * SN + r * XLD + 16 * ch,
                            x + (size_t)(in ? r : 0) * ldx + k0 + 8 * ch, in);
+    }
+    if constexpr (INT4) {
+      static_assert(KR / QBLOCK * SN / 4 == SNTHREADS, "one 16-byte scale copy a thread");
+      const int r = tid / (SN / 4), col = n0 + 4 * (tid % (SN / 4));
+      const bool in = col < N;
+      warp_mma::cp_async16(st + SCALE_OFF + 16 * tid,
+                           scale + (size_t)(k0 / QBLOCK + r) * N + (in ? col : 0), in);
     }
   };
 #pragma unroll
@@ -482,8 +535,8 @@ int8_stream_kernel(const __grid_constant__ CUtensorMap w_map,
     const unsigned char* wt = smem + (i % SST) * stage;
     const unsigned char* xt = wt + SK * SN;
 #pragma unroll
-    for (int ks = 0; ks < SK / 16; ++ks) {
-      const int k = 16 * ks + 2 * t;   // this thread's rows k, k + 1, k + 8, k + 9
+    for (int sl = 0; sl < SK / 16; ++sl) {
+      const int k = 16 * sl + 2 * t;   // this thread's rows k, k + 1, k + 8, k + 9
       uint32_t wd[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -491,43 +544,47 @@ int8_stream_kernel(const __grid_constant__ CUtensorMap w_map,
         wd[q] = *reinterpret_cast<const uint32_t*>(wt + row * SN +
                                                    ((((wc >> 4) ^ row) & 7) << 4) + (wc & 15));
       }
-      // byte 0: m-tile 0 row g; 1: m-tile 0 row g + 8; 2, 3: m-tile 1
-      uint32_t a[2][4];
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (INT4)
+        s = *reinterpret_cast<const float4*>(wt + SCALE_OFF + 4 * (sl * SN + wc));
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        a[j][0] = i8x_pair(wd[0], wd[1], 2 * j);
-        a[j][1] = i8x_pair(wd[0], wd[1], 2 * j + 1);
-        a[j][2] = i8x_pair(wd[2], wd[3], 2 * j);
-        a[j][3] = i8x_pair(wd[2], wd[3], 2 * j + 1);
-      }
-      // x's B fragments by ldmatrix: matrix 2 m + h is rows 8 (n + m) .. + 7,
-      // k 16 ks + 8 h .. + 7
-      uint32_t b[NR][2];
-      const int m8 = lane / 8;
-      if constexpr (NR == 1) {
-        warp_mma::ldmatrix_x2(b[0], xt + (lane % 8) * SLDX + 2 * (16 * ks + 8 * (m8 & 1)));
-      } else {
+      for (int h = 0; h < (INT4 ? 2 : 1); ++h) {
+        const int ks = INT4 ? 2 * sl + h : sl;   // the k16 step of the stage
+        uint32_t a[2][4];
+        if (h == 0)
+          a_frags<INT4, false>(wd, s, a);
+        else
+          a_frags<INT4, true>(wd, s, a);
+        // x's B fragments by ldmatrix: matrix 2 m + h is rows 8 (n + m) .. + 7,
+        // k 16 ks + 8 h .. + 7
+        uint32_t b[NR][2];
+        const int m8 = lane / 8;
+        if constexpr (NR == 1) {
+          warp_mma::ldmatrix_x2(b[0], xt + (lane % 8) * XLD + 2 * (16 * ks + 8 * (m8 & 1)));
+        } else {
 #pragma unroll
-        for (int n = 0; n < NR; n += 2) {
-          uint32_t r[4];
-          warp_mma::ldmatrix_x4(r, xt + (8 * (n + m8 / 2) + lane % 8) * SLDX +
-                                       2 * (16 * ks + 8 * (m8 & 1)));
-          b[n][0] = r[0];
-          b[n][1] = r[1];
-          b[n + 1][0] = r[2];
-          b[n + 1][1] = r[3];
+          for (int n = 0; n < NR; n += 2) {
+            uint32_t r[4];
+            warp_mma::ldmatrix_x4(r, xt + (8 * (n + m8 / 2) + lane % 8) * XLD +
+                                         2 * (16 * ks + 8 * (m8 & 1)));
+            b[n][0] = r[0];
+            b[n][1] = r[1];
+            b[n + 1][0] = r[2];
+            b[n + 1][1] = r[3];
+          }
         }
-      }
 #pragma unroll
-      for (int n = 0; n < NR; ++n) {
-        warp_mma::mma_16816(acc[0][n], a[0], b[n][0], b[n][1]);
-        warp_mma::mma_16816(acc[1][n], a[1], b[n][0], b[n][1]);
+        for (int n = 0; n < NR; ++n) {
+          warp_mma::mma_16816(acc[0][n], a[0], b[n][0], b[n][1]);
+          warp_mma::mma_16816(acc[1][n], a[1], b[n][0], b[n][1]);
+        }
       }
     }
   }
 
   // acc[j][n] holds (column wc + 2 j, x row 8 n + 2 t), (that column, row +
   // 1), then column + 1 for both rows
+  const float* col_scale = INT4 ? nullptr : scale;
   const int col = n0 + wc;
   if (col < N) {
 #pragma unroll
@@ -539,15 +596,33 @@ int8_stream_kernel(const __grid_constant__ CUtensorMap w_map,
         const float4 v = make_float4(acc[0][n][e], acc[0][n][2 + e], acc[1][n][e],
                                      acc[1][n][2 + e]);
         if (splits == 1)
-          store4<OUT_F32>(out, r, col, N, scaled(v, scale, col));
+          store4<OUT_F32>(out, r, col, N, scaled(v, col_scale, col));
         else
           *reinterpret_cast<float4*>(ws + ((size_t)c * R + r) * N + col) = v;
       }
   }
   if (splits == 1) return;
   if (last_of_tile(counters, blockIdx.x, splits, &is_last))
-    finish_tile<OUT_F32>(ws + n0, (size_t)R * N, N, splits, scale, out, R, N, 0, R, n0, SN, tid,
-                         SNTHREADS);
+    finish_tile<OUT_F32>(ws + n0, (size_t)R * N, N, splits, col_scale, out, R, N, 0, R, n0, SN,
+                         tid, SNTHREADS);
+}
+
+template <int NR, bool OUT_F32>
+__global__ void __launch_bounds__(SNTHREADS)
+int8_stream_kernel(const __grid_constant__ CUtensorMap w_map,
+                   const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
+                   void* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
+                   int R, int K, int N, int ldx, int splits) {
+  stream_body<NR, OUT_F32, false>(&w_map, x, scale, out, ws, counters, R, K, N, ldx, splits);
+}
+
+template <int NR, bool OUT_F32>
+__global__ void __launch_bounds__(SNTHREADS)
+int4_stream_kernel(const __grid_constant__ CUtensorMap w_map,
+                   const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
+                   void* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
+                   int R, int K, int N, int ldx, int splits) {
+  stream_body<NR, OUT_F32, true>(&w_map, x, scale, out, ws, counters, R, K, N, ldx, splits);
 }
 
 // -- prefill and training rows: wgmma -------------------------------------------
@@ -555,32 +630,51 @@ int8_stream_kernel(const __grid_constant__ CUtensorMap w_map,
 constexpr int PW_COLS = 256;           // weight columns of a block: 128 per consumer warpgroup
 constexpr int PX_ROWS = 128;           // x rows of a block
 constexpr int PK = 64;                 // k of a ring stage (128 bytes of x rows)
-constexpr int PST = 6;                 // ring stages
 constexpr int PX_BYTES = PX_ROWS * 128;       // a stage's x tile: 128 rows x 64 bf16
-constexpr int PW_BYTES = PK * 128;            // a 128-column weight box: 64 rows x 128 int8
-constexpr int PSTAGE = PX_BYTES + 2 * PW_BYTES;
 constexpr int PNTHREADS = 256;         // two consumer warpgroups
 constexpr int PTILE = PX_ROWS * PW_COLS;   // f32 sums of a partial tile
-constexpr int PSMEM = PST * PSTAGE + 2 * PST * 8 + 1024;
+
+// A stage: the x tile; two weight boxes of 128 columns (int8: 64 rows of
+// bytes; int4: 32 packed rows); int4's block scales of its 256 columns (two
+// rows of f32, unswizzled). Ring stages: as many as fit.
+template <bool INT4>
+__host__ __device__ constexpr int pw_box() { return (INT4 ? PK / 2 : PK) * 128; }
+template <bool INT4>
+__host__ __device__ constexpr int pstage() {
+  return PX_BYTES + 2 * pw_box<INT4>() + (INT4 ? PK / QBLOCK * PW_COLS * 4 : 0);
+}
+template <bool INT4>
+__host__ __device__ constexpr int pstages() { return INT4 ? 8 : 6; }
+template <bool INT4>
+__host__ __device__ constexpr int psmem() {
+  return pstages<INT4>() * pstage<INT4>() + 2 * pstages<INT4>() * 8 + 1024;
+}
 
 // One block per (256 weight columns, 128 x rows[, K chunk]) (which tiles
-// are cut into K chunks: quant_matmul_int8_wgmma). The product is
-// transposed, out^T = W^T x^T, so the weight is wgmma's register operand
-// A: each thread reads its int8 straight from the TMA-fed, 128-byte-swizzled
-// weight box of its warpgroup (one 4-byte load a row: columns 4 (8 w + g)
-// .. + 3, which are rows g and g + 8 of m-tiles 0 and 1, the columns
-// permuted inside the warpgroup's 128 and undone at the store), converts
-// them exactly to bf16 pairs in registers and issues m64n128k16 with x's
+// are cut into K chunks: wgmma_entry). The product is transposed, out^T =
+// W^T x^T, so the weight is wgmma's register operand A: each thread reads
+// its bytes straight from the TMA-fed, 128-byte-swizzled weight box of its
+// warpgroup (one 4-byte load a row: columns 4 (8 w + g) .. + 3, which are
+// rows g and g + 8 of m-tiles 0 and 1, the columns permuted inside the
+// warpgroup's 128 and undone at the store), converts them to bf16 pairs in
+// registers (int8 exactly; int4 a 16-row slab of packed rows as two k16
+// steps, times the block scales of the stage) and issues m64n128k16 with x's
 // tile (128 rows, K-major, swizzled) as B from shared memory. The bf16
-// weights never touch shared memory. Two register sets of A: tile i + 1 is
-// converted while tile i's eight products run, and the set is written only
+// weights never touch shared memory. Two register sets of A: step i + 1 is
+// converted while step i's eight products run, and the set is written only
 // after the products that read it have retired (ptxas then keeps the wgmma
-// pipelined). Thread 0 issues the TMA loads, PST - 1 tiles ahead.
-__global__ void __launch_bounds__(PNTHREADS, 1)
-int8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
-                  const __grid_constant__ CUtensorMap w_map, const float* __restrict__ scale,
-                  void* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
-                  int R, int K, int N, int splits, int dp_tiles, int out_f32) {
+// pipelined). Thread 0 issues the TMA loads, a ring's depth ahead.
+template <bool INT4>
+__device__ __forceinline__ void wgmma_body(const CUtensorMap* x_map, const CUtensorMap* w_map,
+                                           const CUtensorMap* s_map,
+                                           const float* __restrict__ scale,
+                                           void* __restrict__ out, float* __restrict__ ws,
+                                           int* __restrict__ counters, int R, int K, int N,
+                                           int splits, int dp_tiles, int out_f32) {
+  constexpr int PST = pstages<INT4>();
+  constexpr int PSTAGE = pstage<INT4>();
+  constexpr int BOX = pw_box<INT4>();
+  constexpr int SCALE_OFF = PX_BYTES + 2 * BOX;   // int4: [2][256] f32 block scales
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + PST * PSTAGE);
@@ -614,19 +708,22 @@ int8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   }
   __syncthreads();
 
-  // stage j % PST gets x tile j and both weight boxes
+  // stage j % PST gets x tile j, both weight boxes and (int4) their scales
   auto load = [&](int j) {
     const int s = j % PST;
     const int k0 = (kt0 + j) * PK;
+    const int wrow = INT4 ? k0 / 2 : k0;
     unsigned char* st = smem + s * PSTAGE;
     mbar_expect_tx(&full[s], PSTAGE);
-    hopper::tma_load_2d(st, &x_map, &full[s], k0, m0);
-    hopper::tma_load_2d(st + PX_BYTES, &w_map, &full[s], n0, k0);
-    hopper::tma_load_2d(st + PX_BYTES + PW_BYTES, &w_map, &full[s], n0 + 128, k0);
+    hopper::tma_load_2d(st, x_map, &full[s], k0, m0);
+    hopper::tma_load_2d(st + PX_BYTES, w_map, &full[s], n0, wrow);
+    hopper::tma_load_2d(st + PX_BYTES + BOX, w_map, &full[s], n0 + 128, wrow);
+    if constexpr (INT4) hopper::tma_load_2d(st + SCALE_OFF, s_map, &full[s], n0, k0 / QBLOCK);
   };
   if (tid == 0) {
-    hopper::prefetch_map(&x_map);
-    hopper::prefetch_map(&w_map);
+    hopper::prefetch_map(x_map);
+    hopper::prefetch_map(w_map);
+    if constexpr (INT4) hopper::prefetch_map(s_map);
     for (int j = 0; j < PST && j < nt; ++j) load(j);
   }
   __syncwarp();
@@ -646,23 +743,24 @@ int8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   auto convert = [&](uint32_t (&A)[4][2][4], int i) {
     const int s = i % PST;
     mbar_wait(&full[s], (i / PST) & 1);
-    const unsigned char* box = smem + s * PSTAGE + PX_BYTES + wg * PW_BYTES;
+    const unsigned char* st = smem + s * PSTAGE;
+    const unsigned char* box = st + PX_BYTES + wg * BOX;
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      uint32_t wd[4];   // rows k, k + 1, k + 8, k + 9 (the box is 128-byte swizzled)
+    for (int sl = 0; sl < (INT4 ? 2 : 4); ++sl) {
+      uint32_t wd[4];   // rows k, k + 1, k + 8, k + 9 of the slab (the box is 128-byte swizzled)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const int k = 16 * ks + 2 * t + (q & 1) + 8 * (q >> 1);
+        const int k = 16 * sl + 2 * t + (q & 1) + 8 * (q >> 1);
         wd[q] = *reinterpret_cast<const uint32_t*>(
             box + k * 128 + ((((wcol >> 4) ^ k) & 7) << 4) + (wcol & 15));
       }
-      // byte 0: m-tile 0 row g; 1: m-tile 0 row g + 8; 2, 3: m-tile 1
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        A[ks][j][0] = i8x_pair(wd[0], wd[1], 2 * j);
-        A[ks][j][1] = i8x_pair(wd[0], wd[1], 2 * j + 1);
-        A[ks][j][2] = i8x_pair(wd[2], wd[3], 2 * j);
-        A[ks][j][3] = i8x_pair(wd[2], wd[3], 2 * j + 1);
+      if constexpr (INT4) {
+        const float4 sc = *reinterpret_cast<const float4*>(
+            st + SCALE_OFF + 4 * (sl * PW_COLS + 128 * wg + wcol));
+        a_frags<true, false>(wd, sc, A[2 * sl]);
+        a_frags<true, true>(wd, sc, A[2 * sl + 1]);
+      } else {
+        a_frags<false, false>(wd, make_float4(0.f, 0.f, 0.f, 0.f), A[sl]);
       }
     }
   };
@@ -688,7 +786,7 @@ int8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[i % PST]);
-    // tile i - 1 + PST into the stage that both warpgroups freed a tile ago
+    // step i - 1 + PST into the stage that both warpgroups freed a step ago
     if (tid == 0 && i >= 1 && i - 1 + PST < nt) {
       mbar_wait(&empty[(i - 1) % PST], ((i - 1) / PST) & 1);
       load(i - 1 + PST);
@@ -709,6 +807,7 @@ int8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
 
   // acc[j][4 n + e]: weight column 4 (8 w + g) + 2 j (e < 2) or + 2 j + 1
   // (e >= 2) of the warpgroup's 128, x row 8 n + 2 t + e % 2
+  const float* col_scale = INT4 ? nullptr : scale;
   const int col = n0 + 128 * wg + wcol;
   if (col < N) {
 #pragma unroll
@@ -722,29 +821,53 @@ int8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
         if (chunks > 1)
           *reinterpret_cast<float4*>(part + (r - m0) * PW_COLS + col - n0) = v;
         else if (out_f32)
-          store4<true>(out, r, col, N, scaled(v, scale, col));
+          store4<true>(out, r, col, N, scaled(v, col_scale, col));
         else
-          store4<false>(out, r, col, N, scaled(v, scale, col));
+          store4<false>(out, r, col, N, scaled(v, col_scale, col));
       }
   }
   if (chunks == 1) return;
   if (last_of_tile(counters, tile, chunks, &is_last)) {
     const float* first = part - (size_t)c * PTILE;
     if (out_f32)
-      finish_tile<true>(first, PTILE, PW_COLS, chunks, scale, out, R, N, m0, PX_ROWS, n0,
+      finish_tile<true>(first, PTILE, PW_COLS, chunks, col_scale, out, R, N, m0, PX_ROWS, n0,
                         PW_COLS, tid, PNTHREADS);
     else
-      finish_tile<false>(first, PTILE, PW_COLS, chunks, scale, out, R, N, m0, PX_ROWS, n0,
+      finish_tile<false>(first, PTILE, PW_COLS, chunks, col_scale, out, R, N, m0, PX_ROWS, n0,
                          PW_COLS, tid, PNTHREADS);
   }
 }
 
-template <int NR, bool OUT_F32>
+__global__ void __launch_bounds__(PNTHREADS, 1)
+int8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                  const __grid_constant__ CUtensorMap w_map, const float* __restrict__ scale,
+                  void* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
+                  int R, int K, int N, int splits, int dp_tiles, int out_f32) {
+  wgmma_body<false>(&x_map, &w_map, nullptr, scale, out, ws, counters, R, K, N, splits,
+                    dp_tiles, out_f32);
+}
+
+__global__ void __launch_bounds__(PNTHREADS, 1)
+int4_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                  const __grid_constant__ CUtensorMap w_map,
+                  const __grid_constant__ CUtensorMap s_map, void* __restrict__ out,
+                  float* __restrict__ ws, int* __restrict__ counters, int R, int K, int N,
+                  int splits, int dp_tiles, int out_f32) {
+  wgmma_body<true>(&x_map, &w_map, &s_map, nullptr, out, ws, counters, R, K, N, splits,
+                   dp_tiles, out_f32);
+}
+
+template <int NR, bool OUT_F32, bool INT4>
 int launch_stream(const CUtensorMap& w_map, const void* x, const void* scale, void* out,
                   void* ws, void* counters, int R, int K, int N, int ldx, int splits,
                   cudaStream_t st) {
-  constexpr int smem = stream_smem<NR>();
-  auto kernel = int8_stream_kernel<NR, OUT_F32>;
+  constexpr int smem = stream_smem<NR, INT4>();
+  const auto kernel = [] {
+    if constexpr (INT4)
+      return int4_stream_kernel<NR, OUT_F32>;
+    else
+      return int8_stream_kernel<NR, OUT_F32>;
+  }();
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -754,60 +877,135 @@ int launch_stream(const CUtensorMap& w_map, const void* x, const void* scale, vo
   return (int)cudaGetLastError();
 }
 
-template <bool OUT_F32>
+// x rows a decode block holds, at most: int8's cut is 32 rows, int4's 48
+// (ops/quant_matmul.INT8_CUT, INT4_CUT)
+template <bool INT4>
+constexpr int stream_max_rows() { return INT4 ? 48 : 32; }
+
+template <bool OUT_F32, bool INT4>
 int stream_rows(const CUtensorMap& w_map, const void* x, const void* scale, void* out,
                 void* ws, void* counters, int R, int K, int N, int ldx, int splits,
                 cudaStream_t st) {
   if (R <= 8)
-    return launch_stream<1, OUT_F32>(w_map, x, scale, out, ws, counters, R, K, N, ldx, splits,
-                                     st);
+    return launch_stream<1, OUT_F32, INT4>(w_map, x, scale, out, ws, counters, R, K, N, ldx,
+                                           splits, st);
   if (R <= 16)
-    return launch_stream<2, OUT_F32>(w_map, x, scale, out, ws, counters, R, K, N, ldx, splits,
-                                     st);
-  return launch_stream<4, OUT_F32>(w_map, x, scale, out, ws, counters, R, K, N, ldx, splits,
-                                   st);
+    return launch_stream<2, OUT_F32, INT4>(w_map, x, scale, out, ws, counters, R, K, N, ldx,
+                                           splits, st);
+  if (!INT4 || R <= 32)
+    return launch_stream<4, OUT_F32, INT4>(w_map, x, scale, out, ws, counters, R, K, N, ldx,
+                                           splits, st);
+  if constexpr (INT4)
+    return launch_stream<6, OUT_F32, INT4>(w_map, x, scale, out, ws, counters, R, K, N, ldx,
+                                           splits, st);
+  return (int)cudaErrorInvalidValue;
 }
 
-}  // namespace int8k
+// The decode entry points' checks and launch (INT4: the packed weight's map,
+// K the unpacked depth).
+template <bool INT4>
+int stream_entry(const void* x, void* out, const void* w_map, const void* scale, void* ws,
+                 int ws_elems, void* counters, int n_counters, int R, int K, int N, int ldx,
+                 int out_f32, int splits, void* stream) {
+  if (R < 1 || R > stream_max_rows<INT4>() || splits < 1 || !w_map)
+    return (int)cudaErrorInvalidValue;
+  if (splits > 1 && (!ws || !counters || ws_elems < (long long)splits * R * N ||
+                     n_counters < (N + SN - 1) / SN))
+    return (int)cudaErrorInvalidValue;
+  const CUtensorMap& map = *static_cast<const CUtensorMap*>(w_map);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return out_f32 ? stream_rows<true, INT4>(map, x, scale, out, ws, counters, R, K, N, ldx,
+                                           splits, st)
+                 : stream_rows<false, INT4>(map, x, scale, out, ws, counters, R, K, N, ldx,
+                                            splits, st);
+}
+
+// The prefill entry points' checks, maps and launch.
+template <bool INT4>
+int wgmma_entry(const void* x, void* out, const void* qw, const void* scale, void* ws,
+                int ws_elems, void* counters, int n_counters, int R, int K, int N, int ldx,
+                int out_f32, int splits, int dp_tiles, void* stream) {
+  const int tiles = ((N + PW_COLS - 1) / PW_COLS) * ((R + PX_ROWS - 1) / PX_ROWS);
+  if (R < 1 || splits < 1 || dp_tiles < 0 || dp_tiles > tiles)
+    return (int)cudaErrorInvalidValue;
+  if (splits > 1 && dp_tiles < tiles &&
+      (!ws || !counters || n_counters < tiles ||
+       ws_elems < (long long)(tiles - dp_tiles) * splits * PTILE))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap x_map, w_map, s_map;
+  int err = hopper::make_map_2d(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, R, 2ll * ldx,
+                                PK, PX_ROWS);
+  if (!err)
+    err = hopper::make_map_2d(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, qw, N, INT4 ? K / 2 : K,
+                              N, 128, INT4 ? PK / 2 : PK);
+  if (!err && INT4)
+    err = hopper::make_map_2d(&s_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scale, N, K / QBLOCK,
+                              4ll * N, PW_COLS, PK / QBLOCK, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err) return err;
+  constexpr int smem = psmem<INT4>();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int grid = dp_tiles + (tiles - dp_tiles) * splits;
+  cudaError_t cerr;
+  if constexpr (INT4) {
+    cerr = cudaFuncSetAttribute(int4_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem);
+    if (cerr != cudaSuccess) return (int)cerr;
+    int4_wgmma_kernel<<<grid, PNTHREADS, smem, st>>>(
+        x_map, w_map, s_map, out, static_cast<float*>(ws), static_cast<int*>(counters), R, K,
+        N, splits, dp_tiles, out_f32);
+  } else {
+    cerr = cudaFuncSetAttribute(int8_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem);
+    if (cerr != cudaSuccess) return (int)cerr;
+    int8_wgmma_kernel<<<grid, PNTHREADS, smem, st>>>(
+        x_map, w_map, static_cast<const float*>(scale), out, static_cast<float*>(ws),
+        static_cast<int*>(counters), R, K, N, splits, dp_tiles, out_f32);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace qk
 
 }  // namespace
 
 // Each returns cudaGetLastError() after the launch (0 = launched).
 //
-// The TMA map of an int8 weight [K, N] as the decode kernel reads it (64 x
-// 128 tiles, 128-byte swizzled), written to `map` (128 bytes, 64-byte
-// aligned); made once per weight by the caller, who keeps it.
-extern "C" int quant_matmul_int8_weight_map(const void* qw, int K, int N, void* map) {
+// The TMA map of a byte weight [rows, N] as the decode kernels read it (64 x
+// 128 tiles, 128-byte swizzled): int8's [K, N], or int4's packed [K/2, N];
+// written to `map` (128 bytes, 64-byte aligned); made once per weight by the
+// caller, who keeps it.
+extern "C" int quant_matmul_weight_map(const void* qw, int rows, int N, void* map) {
   return hopper::make_map_2d(static_cast<CUtensorMap*>(map), CU_TENSOR_MAP_DATA_TYPE_UINT8, qw,
-                             N, K, N, int8k::SN, int8k::SK);
+                             N, rows, N, qk::SN, qk::SK);
 }
 
-// int8, decode rows (R <= 32): 128-column strips, each cut into `splits` K
-// chunks of whole 64-row tiles; `w_map` is the weight's map from
-// quant_matmul_int8_weight_map; with splits > 1, `ws` is the f32 workspace
-// [splits, R, N] and `counters` an int32 buffer of ceil(N / 128) zeros,
-// left zero. `ws_elems` and `n_counters` are the buffers' sizes: the
-// geometry lives here, so a caller that sized them by another is refused.
+// Decode rows (int8: R <= 32; int4: R <= 48): 128-column strips, each cut
+// into `splits` K chunks of whole tiles (int8: 64 k rows; int4: 128); `w_map`
+// is the weight's map from quant_matmul_weight_map; with splits > 1, `ws` is
+// the f32 workspace [splits, R, N] and `counters` an int32 buffer of
+// ceil(N / 128) zeros, left zero. `ws_elems` and `n_counters` are the
+// buffers' sizes: the geometry lives here, so a caller that sized them by
+// another is refused. int8's scale is [N] per channel, int4's [K/32, N].
 extern "C" int quant_matmul_int8_stream(const void* x, void* out, const void* w_map,
                                         const void* scale, void* ws, int ws_elems,
                                         void* counters, int n_counters, int R, int K, int N,
                                         int ldx, int out_f32, int splits, void* stream) {
-  if (R < 1 || R > 32 || splits < 1 || !w_map) return (int)cudaErrorInvalidValue;
-  if (splits > 1 && (!ws || !counters || ws_elems < (long long)splits * R * N ||
-                     n_counters < (N + int8k::SN - 1) / int8k::SN))
-    return (int)cudaErrorInvalidValue;
-  const CUtensorMap& map = *static_cast<const CUtensorMap*>(w_map);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return out_f32 ? int8k::stream_rows<true>(map, x, scale, out, ws, counters, R, K, N, ldx,
-                                            splits, st)
-                 : int8k::stream_rows<false>(map, x, scale, out, ws, counters, R, K, N, ldx,
-                                             splits, st);
+  return qk::stream_entry<false>(x, out, w_map, scale, ws, ws_elems, counters, n_counters, R, K,
+                                 N, ldx, out_f32, splits, stream);
 }
 
-// int8, prefill and training rows: 128-row x 256-column output tiles, the
-// first `dp_tiles` (in order, columns fastest) over all of K, every later one
-// cut into `splits` K chunks of whole 64-row steps (so that a last, partial
-// wave of tiles spreads over the SMs); with splits > 1, `ws` is the f32
+extern "C" int quant_matmul_int4_stream(const void* x, void* out, const void* w_map,
+                                        const void* scale, void* ws, int ws_elems,
+                                        void* counters, int n_counters, int R, int K, int N,
+                                        int ldx, int out_f32, int splits, void* stream) {
+  return qk::stream_entry<true>(x, out, w_map, scale, ws, ws_elems, counters, n_counters, R, K,
+                                N, ldx, out_f32, splits, stream);
+}
+
+// Prefill and training rows: 128-row x 256-column output tiles, the first
+// `dp_tiles` (in order, columns fastest) over all of K, every later one cut
+// into `splits` K chunks of whole 64-row steps (so that a last, partial wave
+// of tiles spreads over the SMs); with splits > 1, `ws` is the f32
 // workspace [tiles - dp_tiles, splits, 128, 256] and `counters` an int32
 // buffer of one zero per output tile, left zero; `ws_elems` and
 // `n_counters` are their sizes, checked here. Returns
@@ -818,44 +1016,22 @@ extern "C" int quant_matmul_int8_wgmma(const void* x, void* out, const void* qw,
                                        void* counters, int n_counters, int R, int K, int N,
                                        int ldx, int out_f32, int splits, int dp_tiles,
                                        void* stream) {
-  const int tiles = ((N + int8k::PW_COLS - 1) / int8k::PW_COLS) *
-                    ((R + int8k::PX_ROWS - 1) / int8k::PX_ROWS);
-  if (R < 1 || splits < 1 || dp_tiles < 0 || dp_tiles > tiles)
-    return (int)cudaErrorInvalidValue;
-  if (splits > 1 && dp_tiles < tiles &&
-      (!ws || !counters || n_counters < tiles ||
-       ws_elems < (long long)(tiles - dp_tiles) * splits * int8k::PTILE))
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap x_map, w_map;
-  int err = hopper::make_map_2d(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, R,
-                                2ll * ldx, int8k::PK, int8k::PX_ROWS);
-  if (!err)
-    err = hopper::make_map_2d(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, qw, N, K, N, 128,
-                              int8k::PK);
-  if (err) return err;
-  const cudaError_t cerr = cudaFuncSetAttribute(
-      int8k::int8_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int8k::PSMEM);
-  if (cerr != cudaSuccess) return (int)cerr;
-  const int grid = dp_tiles + (tiles - dp_tiles) * splits;
-  int8k::int8_wgmma_kernel<<<grid, int8k::PNTHREADS, int8k::PSMEM,
-                             static_cast<cudaStream_t>(stream)>>>(
-      x_map, w_map, static_cast<const float*>(scale), out, static_cast<float*>(ws),
-      static_cast<int*>(counters), R, K, N, splits, dp_tiles, out_f32);
-  return (int)cudaGetLastError();
+  return qk::wgmma_entry<false>(x, out, qw, scale, ws, ws_elems, counters, n_counters, R, K, N,
+                                ldx, out_f32, splits, dp_tiles, stream);
 }
 
-extern "C" int quant_matmul_int4(const void* x, const void* qw, const void* scale,
-                                 void* out, int R, int K, int N, int ldx,
-                                 int out_f32, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  return out_f32 ? launch<true>(x, qw, scale, out, R, K, N, ldx, s)
-                 : launch<false>(x, qw, scale, out, R, K, N, ldx, s);
+extern "C" int quant_matmul_int4_wgmma(const void* x, void* out, const void* qw,
+                                       const void* scale, void* ws, int ws_elems,
+                                       void* counters, int n_counters, int R, int K, int N,
+                                       int ldx, int out_f32, int splits, int dp_tiles,
+                                       void* stream) {
+  return qk::wgmma_entry<true>(x, out, qw, scale, ws, ws_elems, counters, n_counters, R, K, N,
+                               ldx, out_f32, splits, dp_tiles, stream);
 }
 
 // qw: the native [K, N/2] layout; out is always f32, as the Pallas variant's.
 extern "C" int quant_matmul_int4_native(const void* x, const void* qw, const void* scale,
                                         void* out, int R, int K, int N, int ldx,
                                         void* stream) {
-  return launch<true, true>(x, qw, scale, out, R, K, N, ldx,
-                               static_cast<cudaStream_t>(stream));
+  return launch_native(x, qw, scale, out, R, K, N, ldx, static_cast<cudaStream_t>(stream));
 }

@@ -112,9 +112,10 @@ __device__ __forceinline__ uint32_t i8x_pair(uint32_t lo_row, uint32_t hi_row, i
 
 // Cache rows of 128 elements (a head dim of 128): bytes of a row, the padded
 // shared-memory row stride (272 / 144 bytes: the fragment loads below hit
-// distinct banks), two consecutive elements of a row as a bf16 pair, and
-// two elements of one column from rows r and r + 1 as a bf16 pair (the low
-// half from row r). int8 converts to bf16 exactly, with integer and add
+// distinct banks), two consecutive elements of a row as a bf16 pair, four
+// consecutive elements of a row as two bf16 pairs (one load), and two
+// elements of one column from rows r and r + 1 as a bf16 pair (the low half
+// from row r). int8 converts to bf16 exactly, with integer and add
 // instructions only.
 template <typename CacheT>
 struct Elem;
@@ -131,6 +132,11 @@ struct Elem<__nv_bfloat16> {
     const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + LDS);
     return __byte_perm(lo, hi, 0x5410);
   }
+  __device__ static void quad(const unsigned char* p, uint32_t& lo, uint32_t& hi) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    lo = v.x;
+    hi = v.y;
+  }
 };
 
 template <>
@@ -143,6 +149,11 @@ struct Elem<int8_t> {
   }
   __device__ static uint32_t column(const unsigned char* p) {
     return pack_hi(i8_f32_bits(p[0]), i8_f32_bits(p[LDS]));
+  }
+  __device__ static void quad(const unsigned char* p, uint32_t& lo, uint32_t& hi) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+    lo = i8pair_bf16(__byte_perm(w, 0, 0x4140));   // bytes 0, 1 into bits 0-7, 16-23
+    hi = i8pair_bf16(__byte_perm(w, 0, 0x4342));   // bytes 2, 3
   }
 };
 

@@ -41,11 +41,14 @@ from llava_plus_torch.ops.attention import DEFAULT_MASK_VALUE, check_slopes
 
 HEAD_DIM = 128
 MAX_CHUNK = 8   # chunk tokens the kernels fold into the self block
-ROW_GROUP = 8   # query rows one block of the general kernel holds
-D1_TILE = 64    # pool tokens of one stage of decode1's ring
-D1_CHUNK_TILES = 8    # tiles of a decode1 chunk where the card is full
-D1_MAX_SPLITS = 64    # chunks decode1 cuts a slot into, at most
+D1_TILE = 64    # pool tokens of one stage of the kernels' ring
+D1_CHUNK_TILES = 8    # tiles of a chunk where the card is full
+D1_MAX_SPLITS = 64    # chunks a slot is cut into, at most
 BLOCKS_PER_SM = 2
+# tiles of a general chunk, at least: each block pays about four tiles'
+# worth of fixed cost (its first loads, counting in), measured on the H100
+GENERAL_MIN_CHUNK_TILES = 4
+GENERAL_ROWS = 8   # query rows of a general block: the n8 side of its products
 
 
 def decode1_splits(B: int, Hkv: int, maxp: int, P: int, n_sms: int) -> int:
@@ -60,6 +63,29 @@ def decode1_splits(B: int, Hkv: int, maxp: int, P: int, n_sms: int) -> int:
     tiles = -(-(maxp * P) // D1_TILE)
     fill = (tiles * B * Hkv) // (BLOCKS_PER_SM * n_sms)   # tiles a chunk may hold
     per = max(-(-tiles // D1_MAX_SPLITS), min(D1_CHUNK_TILES, max(1, fill)))
+    return -(-tiles // per)
+
+
+def general_groups(G: int, Tq: int) -> int:
+    """Row groups of a kv head in the general kernel: its ``G * Tq`` query
+    rows, ``GENERAL_ROWS`` to a block, as the columns of the n8 tile of the
+    block's products (a wider group takes more blocks side by side: on the
+    H100, two 8-row blocks at 16 heads over one kv head beat one block of
+    two n8 tiles)."""
+    return -(-(G * Tq) // GENERAL_ROWS)
+
+
+def general_splits(B: int, Hkv: int, groups: int, maxp: int, P: int, n_sms: int) -> int:
+    """How many chunks of whole 64-token tiles the general kernel cuts each
+    (slot, kv head, row group)'s ``maxp * P`` token positions into: as
+    :func:`decode1_splits` plans decode1's, with a block for each row group
+    where decode1 has one for each kv head, and chunks of at least
+    ``GENERAL_MIN_CHUNK_TILES`` tiles (MQA's 16 (slot, head) pairs would
+    otherwise take one-tile chunks)."""
+    tiles = -(-(maxp * P) // D1_TILE)
+    fill = (tiles * B * Hkv * groups) // (BLOCKS_PER_SM * n_sms)   # tiles a chunk may hold
+    per = max(-(-tiles // D1_MAX_SPLITS),
+              min(D1_CHUNK_TILES, max(GENERAL_MIN_CHUNK_TILES, fill)))
     return -(-tiles // per)
 
 
@@ -182,6 +208,37 @@ def _check_kernel_inputs(q, kv_pages, page_ids, lengths, kv_scale, cur_k, cur_v,
             raise ValueError(f"{name}: last dim must be contiguous, rows 8-byte aligned")
 
 
+# a launch's plan and buffers, kept per (kernel, device, stream, shapes): a
+# call of the same shapes on the same stream (every layer of a step) costs a
+# lookup besides its checks and the kernel's call
+_plans = {}
+
+
+def _plan(fn_name, device, stream, B, P, H, Hkv, Tq, maxp, D):
+    """(chunks a slot, workspace, counters) of a launch. The chunks'
+    partials and the combine's counters are kept per device and stream (the
+    kernels leave the counters zero); a block per (slot, kv head[, row
+    group])."""
+    key = (fn_name, device.index, stream, B, P, H, Hkv, Tq, maxp)
+    held = _plans.get(key)
+    if held is None:
+        sms = build.sm_count(device)
+        if fn_name == "paged_decode1_fwd":
+            rows, blocks = 1, B * Hkv
+            splits = parts = decode1_splits(B, Hkv, maxp, P, sms)
+        else:   # a partial for each chunk and one for the self block
+            rows, groups = GENERAL_ROWS, general_groups(H // Hkv, Tq)
+            blocks = B * Hkv * groups
+            splits = general_splits(B, Hkv, groups, maxp, P, sms)
+            parts = splits + 1
+        ws = build.scratch("paged_attention.ws", device, stream,
+                           blocks * parts * rows * (D + 2), torch.float32)
+        counters = build.scratch("paged_attention.counters", device, stream, blocks,
+                                 torch.int32, zeroed=True)
+        held = _plans[key] = (splits, ws, counters)
+    return held
+
+
 def _launch(fn_name, q, kv_pages, page_ids, lengths, kv_scale, cur_k, cur_v, cur_valid,
             sm_scale, slopes):
     _check_kernel_inputs(q, kv_pages, page_ids, lengths, kv_scale, cur_k, cur_v, cur_valid)
@@ -193,28 +250,20 @@ def _launch(fn_name, q, kv_pages, page_ids, lengths, kv_scale, cur_k, cur_v, cur
     has_cur = cur_k is not None
     out = torch.empty(B, Tq, H, D, dtype=q.dtype, device=q.device)
     cs = cur_k.stride() if has_cur else (0, 0, 0, 0)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    ptrs, ints = (), ()
-    if fn_name == "paged_decode1_fwd":
-        # the chunks' partials and the combine's counters, kept per device
-        # and stream (the kernel leaves the counters zero)
-        splits = decode1_splits(B, Hkv, maxp, P, build.sm_count(q.device))
-        ws = build.scratch("paged_decode1.ws", q.device, stream, B * Hkv * splits * (D + 2),
-                           torch.float32)
-        counters = build.scratch("paged_decode1.counters", q.device, stream, B * Hkv,
-                                 torch.int32, zeroed=True)
-        ptrs = (ws.data_ptr(), min(ws.numel(), 2 ** 31 - 1), counters.data_ptr(),
-                counters.numel())
-        ints = (splits,)
-        paged_decode1.last_splits = splits
+    # the raw stream handle: a torch.cuda.Stream object costs microseconds
+    stream = torch._C._cuda_getCurrentRawStream(q.get_device())
+    splits, ws, counters = _plan(fn_name, q.device, stream, B, P, H, Hkv, Tq, maxp, D)
+    wrapper = paged_decode1 if fn_name == "paged_decode1_fwd" else paged_attention_general
+    wrapper.last_splits = splits
     err = getattr(build.lib(), fn_name)(
         q.data_ptr(),
         cur_k.data_ptr() if has_cur else None, cur_v.data_ptr() if has_cur else None,
         kv_pages.data_ptr(), kv_scale.data_ptr() if quantized else None,
         page_ids.data_ptr(), lengths.data_ptr(),
         cur_valid.data_ptr() if has_cur else None,
-        None if slopes is None else slopes.data_ptr(), out.data_ptr(), *ptrs,
-        B, P, H, Hkv, Tq, maxp, int(quantized), int(has_cur), *ints,
+        None if slopes is None else slopes.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), min(ws.numel(), 2 ** 31 - 1), counters.data_ptr(), counters.numel(),
+        B, P, H, Hkv, Tq, maxp, int(quantized), int(has_cur), splits,
         q.stride(0), q.stride(1), q.stride(2), cs[0], cs[1], cs[2], page_ids.stride(0),
         float(sm_scale), stream,
     )
@@ -240,16 +289,17 @@ def paged_attention_general(q, kv_pages, page_ids, lengths, kv_scale=None, cur_k
                             cur_v=None, cur_valid=None, *, sm_scale: float,
                             alibi_slopes=None) -> torch.Tensor:
     """The general kernel (``csrc/paged_attention.cu``: the ``G * Tq``
-    query rows of a kv head, causal within the chunk) on CUDA tensors."""
+    query rows of a kv head, causal within the chunk, each slot's pages split
+    into :func:`general_splits` chunks) on CUDA tensors."""
     out = _launch("paged_attention_fwd", q, kv_pages, page_ids, lengths, kv_scale,
                   cur_k, cur_v, cur_valid, sm_scale, alibi_slopes)
     build.count_launch(paged_attention_general, _counter(alibi_slopes))
     return out
 
 
-paged_decode1.launches = paged_decode1.alibi_launches = 0
-paged_decode1.last_splits = 0   # the chunks of a slot in the latest launch
-paged_attention_general.launches = paged_attention_general.alibi_launches = 0
+for _wrapper in (paged_decode1, paged_attention_general):
+    _wrapper.launches = _wrapper.alibi_launches = 0
+    _wrapper.last_splits = 0   # the chunks of a slot in the latest launch
 
 
 def paged_decode_attention(

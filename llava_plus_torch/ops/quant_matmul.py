@@ -14,8 +14,10 @@ package's (K = contraction dim, N = output dim):
 
 Both return ``x @ dequant(w)`` as [R, N] in ``out_dtype`` (x's dtype by
 default; f32 for the lm_head's logits). The kernels run for CUDA tensors
-(bf16 x, K % 128 == 0, N % 64 == 0) at every row count; the plain versions
-for CPU tensors; anything else raises.
+(bf16 x, K % 128 == 0, N % 64 == 0) at every row count, each layout through
+one of two kernels by row count (:func:`int8_plan`, :func:`int4_plan`: a
+weight stream at decode rows, wgmma at prefill and training rows); the plain
+versions for CPU tensors; anything else raises.
 
 Both products carry a gradient to x (QLoRA trains adapters under a frozen
 quantized base): a ``torch.autograd.Function`` whose backward is ``dx = dy
@@ -45,15 +47,18 @@ import torch
 from llava_plus_torch.kernels import build
 
 INT4_BLOCK = 32
-K_TILE = 128   # the kernel's K tile
-N_TILE = 64    # N must be a multiple of this (both tile shapes divide it)
+K_TILE = 128   # K must be a multiple of this (every kernel's k tile divides it)
+N_TILE = 64    # N must be a multiple of this
 
-# int8: the row count at or below which matmul_int8 streams the weight
-# (decode rows: mma.sync with x's rows as n8) rather than running the wgmma
-# kernel (prefill and training rows); measured on the H100 (chip_smoke.py
-# phase 3's rows on both sides of it, PERF.md)
+# the row count at or below which a product streams the weight (decode
+# rows: mma.sync with x's rows as n8) rather than running the wgmma kernel
+# (prefill and training rows); measured on the H100 (chip_smoke.py phase 3's
+# rows on both sides of each, PERF.md)
 INT8_CUT = 32
-STREAM_COLS, STREAM_K = 128, 64   # a decode block's strip and k tile
+INT4_CUT = 48
+STREAM_COLS = 128                 # a decode block's strip
+STREAM_K = 64                     # k rows of an int8 decode tile (64 x 128 bytes)
+INT4_STREAM_K = 128               # k rows of an int4 decode tile (64 packed rows)
 STREAM_MAX_SPLITS = 16            # K chunks of a decode strip, at most
 STREAM_MIN_BLOCKS_PER_SM = 1.5    # decode blocks an SM should have, on average
 SPLIT_COST = 0.02        # a decode plan's cost grows by this for each chunk past one
@@ -62,6 +67,27 @@ MIN_CHUNK_STEPS = 8      # k steps of a prefill K chunk, at least
 
 
 @functools.lru_cache(maxsize=None)
+def _plan(R: int, K: int, N: int, n_sms: int, cut: int, stream_k: int):
+    if R > cut:
+        tiles = -(-N // WGMMA_COLS) * -(-R // WGMMA_ROWS)
+        whole = tiles - tiles % n_sms
+        steps = K // WGMMA_K
+        want = max(1, min(n_sms // (tiles - whole or n_sms), steps // MIN_CHUNK_STEPS))
+        splits = -(-steps // -(-steps // want))   # whole steps a chunk, none empty
+        return "wgmma", splits, whole if splits > 1 else tiles
+    strips = -(-N // STREAM_COLS)
+    tiles = K // stream_k
+    best = None
+    for want in range(1, min(tiles, STREAM_MAX_SPLITS) + 1):
+        splits = -(-tiles // -(-tiles // want))   # whole tiles a chunk, none empty
+        blocks = strips * splits
+        load = -(-blocks // n_sms) / splits * (1 + SPLIT_COST * (splits - 1))
+        key = (blocks < STREAM_MIN_BLOCKS_PER_SM * n_sms, load, splits)
+        if best is None or key < best[0]:
+            best = (key, splits)
+    return "stream", best[1], 0
+
+
 def int8_plan(R: int, K: int, N: int, n_sms: int):
     """(regime, splits, whole tiles) of an int8 product from static shapes
     alone.
@@ -82,24 +108,15 @@ def int8_plan(R: int, K: int, N: int, n_sms: int):
     least MIN_CHUNK_STEPS 64-row steps (wqkv at 768 rows: 264 whole tiles,
     then 24 in 5 chunks). The plan, the grid and the workspace depend on
     shapes alone (a CUDA graph can capture the launch)."""
-    if R > INT8_CUT:
-        tiles = -(-N // WGMMA_COLS) * -(-R // WGMMA_ROWS)
-        whole = tiles - tiles % n_sms
-        steps = K // WGMMA_K
-        want = max(1, min(n_sms // (tiles - whole or n_sms), steps // MIN_CHUNK_STEPS))
-        splits = -(-steps // -(-steps // want))   # whole steps a chunk, none empty
-        return "wgmma", splits, whole if splits > 1 else tiles
-    strips = -(-N // STREAM_COLS)
-    tiles = K // STREAM_K
-    best = None
-    for want in range(1, min(tiles, STREAM_MAX_SPLITS) + 1):
-        splits = -(-tiles // -(-tiles // want))   # whole tiles a chunk, none empty
-        blocks = strips * splits
-        load = -(-blocks // n_sms) / splits * (1 + SPLIT_COST * (splits - 1))
-        key = (blocks < STREAM_MIN_BLOCKS_PER_SM * n_sms, load, splits)
-        if best is None or key < best[0]:
-            best = (key, splits)
-    return "stream", best[1], 0
+    return _plan(R, K, N, n_sms, INT8_CUT, STREAM_K)
+
+
+def int4_plan(R: int, K: int, N: int, n_sms: int):
+    """(regime, splits, whole tiles) of an int4 product, as :func:`int8_plan`
+    plans an int8 one, with the cut at INT4_CUT rows and decode tiles of 128
+    k rows (64 packed rows of 128 bytes, the same bytes as an int8 tile);
+    prefill steps are 64 k rows (32 packed rows) as int8's."""
+    return _plan(R, K, N, n_sms, INT4_CUT, INT4_STREAM_K)
 
 
 def _acc_dtype(x):
@@ -167,46 +184,33 @@ def _check_kernel_inputs(x, qw, scale, bits, out_dtype):
         raise ValueError("quant matmul kernel takes 32-bit row offsets")
 
 
-def _launch_int4(x, qw, scale, out_dtype):
-    _check_kernel_inputs(x, qw, scale, 4, out_dtype)
-    R, K = x.shape
-    N = qw.shape[1]
-    out = torch.empty(R, N, dtype=out_dtype, device=x.device)
-    err = build.lib().quant_matmul_int4(x.data_ptr(), qw.data_ptr(), scale.data_ptr(),
-                                        out.data_ptr(), R, K, N, x.stride(0),
-                                        int(out_dtype == torch.float32),
-                                        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "quant_matmul_int4")
-    build.count_launch(matmul_int4)
-    return out
+# what a launch needs besides x's and out's addresses, kept per _launch_key:
+# the same weight at the same row count on the same stream (every projection
+# of a decode step) costs one lookup and the kernel's call
+_launches = {}
 
 
-# what an int8 launch needs besides x's and out's addresses, kept per
-# _int8_key: the same weight at the same row count on the same stream (every
-# projection of a decode step) costs one lookup and the kernel's call
-_int8_launches = {}
-
-
-def _int8_key(x, qw, scale, out_dtype, stream):
-    """Everything :func:`_check_kernel_inputs` and :func:`_int8_launch`
-    read, but x's address (checked on every call)."""
-    return (stream, out_dtype, x.get_device(), x.dtype, x.shape, x.stride(),
+def _launch_key(bits, x, qw, scale, out_dtype, stream):
+    """Everything :func:`_check_kernel_inputs` and :func:`_prepare` read, but
+    x's address (checked on every call)."""
+    return (bits, stream, out_dtype, x.get_device(), x.dtype, x.shape, x.stride(),
             qw.get_device(), qw.data_ptr(), qw.dtype, qw.shape, qw.stride(),
             scale.get_device(), scale.data_ptr(), scale.dtype, scale.shape, scale.stride())
 
 
-def _int8_launch(x, qw, scale, out_dtype, stream):
-    """One of the two int8 kernels (``int8_plan``'s regime, K chunks and, for
-    the prefill kernel, the output tiles run over all of K), as (entry point,
-    its arguments after x and out, the regime's counter, the plan, the
+def _prepare(bits, x, qw, scale, out_dtype, stream):
+    """One of the two kernels of ``bits`` (the plan's regime, K chunks and,
+    for the prefill kernel, the output tiles run over all of K), as (entry
+    point, its arguments after x and out, the regime's counter, the plan, the
     buffers the arguments point into). K chunks' f32 parts go to a workspace
     and the combine's counters to a zeroed buffer, both kept per device and
     stream (the kernels leave the counters zero); the kernels check their
     sizes."""
-    _check_kernel_inputs(x, qw, scale, 8, out_dtype)
+    _check_kernel_inputs(x, qw, scale, bits, out_dtype)
     R, K = x.shape
     N = qw.shape[1]
-    regime, splits, whole = plan = int8_plan(R, K, N, build.sm_count(x.device))
+    planner = int8_plan if bits == 8 else int4_plan
+    regime, splits, whole = plan = planner(R, K, N, build.sm_count(x.device))
     ws = counters = None
     if splits > 1:
         if regime == "stream":
@@ -219,45 +223,47 @@ def _int8_launch(x, qw, scale, out_dtype, stream):
                                  zeroed=True)
     weight, w_map = qw.data_ptr(), None
     if regime == "stream":
-        # the decode kernel reads the weight through a TMA map (a CUtensorMap,
-        # 64-byte aligned) made here, once per key: no encode on the decode path
+        # the decode kernels read the weight's bytes through a TMA map (a
+        # CUtensorMap, 64-byte aligned) made here, once per key: no encode on
+        # the decode path
         w_map = ctypes.create_string_buffer(128 + 64)
         weight = -(-ctypes.addressof(w_map) // 64) * 64
-        build.check(build.lib().quant_matmul_int8_weight_map(qw.data_ptr(), K, N, weight),
-                    "quant_matmul_int8_weight_map")
+        build.check(build.lib().quant_matmul_weight_map(qw.data_ptr(), qw.shape[0], N, weight),
+                    "quant_matmul_weight_map")
     sizes = ((None, 0, None, 0) if ws is None else
              (ws.data_ptr(), min(ws.numel(), 2 ** 31 - 1), counters.data_ptr(),
               counters.numel()))
     rest = (weight, scale.data_ptr(), *sizes, R, K, N, x.stride(0),
             int(out_dtype == torch.float32), splits) + (
             (stream,) if regime == "stream" else (whole, stream))
-    name = f"quant_matmul_int8_{regime}"
+    name = f"quant_matmul_int{bits}_{regime}"
     counter = "decode_launches" if regime == "stream" else "prefill_launches"
     return getattr(build.lib(), name), name, rest, counter, plan, (ws, counters, w_map)
 
 
-def _launch_int8(x, qw, scale, out_dtype):
+def _launch(bits, x, qw, scale, out_dtype):
     # the raw stream handle: a torch.cuda.Stream object costs microseconds
     # on a path that launches ~130 times a decode step
     stream = torch._C._cuda_getCurrentRawStream(x.get_device())
-    key = _int8_key(x, qw, scale, out_dtype, stream)
-    held = _int8_launches.get(key)
+    key = _launch_key(bits, x, qw, scale, out_dtype, stream)
+    held = _launches.get(key)
     if held is None:
-        held = _int8_launches[key] = _int8_launch(x, qw, scale, out_dtype, stream)
+        held = _launches[key] = _prepare(bits, x, qw, scale, out_dtype, stream)
     elif x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
     fn, name, rest, counter, plan, _ = held
     out = x.new_empty((x.shape[0], qw.shape[1]), dtype=out_dtype)
     build.check(fn(x.data_ptr(), out.data_ptr(), *rest), name)
-    build.count_launch(matmul_int8, "launches", counter)
-    matmul_int8.last_plan = plan
+    wrapper = matmul_int8 if bits == 8 else matmul_int4
+    build.count_launch(wrapper, "launches", counter)
+    wrapper.last_plan = plan
     return out
 
 
 def _product(bits, x, qw, scale, out_dtype):
     """The kernel on the card, its plain version on the CPU."""
     if x.is_cuda:
-        return (_launch_int8 if bits == 8 else _launch_int4)(x, qw, scale, out_dtype)
+        return _launch(bits, x, qw, scale, out_dtype)
     if x.device.type == "cpu":
         plain = matmul_int8_reference if bits == 8 else matmul_int4_reference
         return plain(x, qw, scale, out_dtype=out_dtype)
@@ -309,9 +315,9 @@ def matmul_int4(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, *,
 for _wrapper in (matmul_int8, matmul_int4):
     _wrapper.launches = 0
     _wrapper.backward_calls = 0
-# the int8 launches of each regime (also counted in ``launches``)
-matmul_int8.decode_launches = matmul_int8.prefill_launches = 0
-matmul_int8.last_plan = None   # int8_plan of the latest int8 launch
+    # the launches of each regime (also counted in ``launches``)
+    _wrapper.decode_launches = _wrapper.prefill_launches = 0
+    _wrapper.last_plan = None   # the plan of the latest launch
 
 
 # -- native int4 (the measurement tools' layout) ----------------------------

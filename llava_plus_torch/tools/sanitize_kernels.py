@@ -1,15 +1,18 @@
-"""Launch each attention kernel and the int8 matmul of the port once, for a
-memory checker.
+"""Launch each attention kernel and the int8 and int4 matmuls of the port
+once, for a memory checker.
 
 Runs the flash forward, dK/dV and dQ kernels (plain and ALiBi; MHA and MQA,
 whose dK/dV splits the query heads; a ragged T), the dense decode kernel
 (bf16 and int8 caches, one chunk and many, G = 1 and 32), both paged
 kernels (decode1 and the general one, bf16 and int8 pools, decode1 also
-over pages of 32 and over the paged engine's 32 pages of 128) and both
-int8 weight-only kernels (decode rows with one K chunk and several,
-prefill rows with one and several, bf16 and f32 out) at the shapes
-``chip_smoke.py`` phase 3 gives them, synchronizing after each, so that a
-checker wrapped around the process sees every kernel:
+over pages of 32 and over the paged engine's 32 pages of 128, the general
+one also for 8-token chunks over 32 pages and for a group of 16 rows, two
+blocks of 8),
+both int8 and both int4 weight-only kernels (decode rows with one K chunk
+and several, prefill rows with one and several, bf16 and f32 out) and the
+native int4 kernel at the shapes ``chip_smoke.py`` phase 3 gives them,
+synchronizing after each, so that a checker wrapped around the process sees
+every kernel:
 
     compute-sanitizer --tool memcheck python3 -m llava_plus_torch.tools.sanitize_kernels
     compute-sanitizer --tool racecheck python3 -m llava_plus_torch.tools.sanitize_kernels --small
@@ -111,16 +114,25 @@ def _paged(launch, gen, rng, B, Hkv, Tq, int8, alibi, pages_per_slot, H=32, P=12
            f"{' alibi' if alibi else ''}")
 
 
-def _int8(launch, gen, R, K, N, f32):
+def _quant(launch, gen, kind, R, K, N, f32):
     from llava_plus_torch.ops import quant, quant_matmul as qm
 
     dev = "cuda"
-    q = quant.quantize_array(torch.randn(K, N, generator=gen, device=dev).mul_(0.02).bfloat16())
+    w = torch.randn(K, N, generator=gen, device=dev).mul_(0.02).bfloat16()
     x = torch.randn(R, K, generator=gen, device=dev).bfloat16()
-    qm.matmul_int8(x, q[quant.QKEY], q[quant.SKEY],
-                   out_dtype=torch.float32 if f32 else torch.bfloat16)
-    regime, splits, _ = qm.matmul_int8.last_plan
-    launch(f"int8 R={R} K={K} N={N} {'f32' if f32 else 'bf16'} out ({regime}, {splits} K "
+    if kind == "int4n":
+        qm.matmul_int4_native(x, *quant.quantize_array_int4_native(w))
+        launch(f"int4 native R={R} K={K} N={N}")
+        return
+    if kind == "int8":
+        q, wrapper = quant.quantize_array(w), qm.matmul_int8
+        qw = q[quant.QKEY]
+    else:
+        q, wrapper = quant.quantize_array_int4(w), qm.matmul_int4
+        qw = q[quant.Q4KEY]
+    wrapper(x, qw, q[quant.SKEY], out_dtype=torch.float32 if f32 else torch.bfloat16)
+    regime, splits, _ = wrapper.last_plan
+    launch(f"{kind} R={R} K={K} N={N} {'f32' if f32 else 'bf16'} out ({regime}, {splits} K "
            f"chunks)")
 
 
@@ -160,15 +172,25 @@ def main(argv=None) -> int:
                                  (32, 4, True, True)):
         _paged(launch, gen, rng, slots, Hkv, Tq, int8, alibi, pages)
     _paged(launch, gen, rng, slots, 32, 1, True, False, 4 * pages, P=32)
-    # decode1 at the paged engine's 32 pages a slot (twice the chunks)
+    # decode1 at the paged engine's 32 pages a slot (twice the chunks); the
+    # general kernel's 8-token chunks there (ALiBi), and 16 rows a kv head
+    # (two blocks of 8)
     _paged(launch, gen, rng, slots, 32, 1, True, True, 2 * pages)
+    _paged(launch, gen, rng, slots, 32, 8, True, True, 2 * pages)
+    _paged(launch, gen, rng, slots, 2, 1, False, False, pages, H=32)
     K, N = (1024, 1536) if args.small else (4096, 12288)
-    for R, K_, N_, f32 in ((1, K, N, False), (16, K, N, False), (32, 11008, 4096, False),
-                           (16, K, 32000, True), (33, K, N, False), (64, 11008, 4096, False),
-                           (768, K, N, False), (768, K, 32000, True)):
-        if args.small:
-            K_, N_, R = min(K_, K), min(N_, N), min(R, 200)
-        _int8(launch, gen, R, K_, N_, f32)
+    for kind, cases in (
+            ("int8", ((1, K, N, False), (16, K, N, False), (32, 11008, 4096, False),
+                      (16, K, 32000, True), (33, K, N, False), (64, 11008, 4096, False),
+                      (768, K, N, False), (768, K, 32000, True))),
+            ("int4", ((1, K, N, False), (16, K, N, False), (48, 11008, 4096, False),
+                      (16, K, 32000, True), (49, K, N, False), (64, 11008, 4096, False),
+                      (768, K, N, False), (768, K, 32000, True), (8192, 11008, 4096, False))),
+            ("int4n", ((16, K, 4096, False), (768, 11008, 4096, False)))):
+        for R, K_, N_, f32 in cases:
+            if args.small:
+                K_, N_, R = min(K_, K), min(N_, N), min(R, 200)
+            _quant(launch, gen, kind, R, K_, N_, f32)
     print(f"[sanitize] {count[0]} launches, every one synchronized without a CUDA error",
           flush=True)
     return 0

@@ -156,23 +156,24 @@ def test_split_k_matches_the_pallas_kernel(case):
 
 
 def test_launch_key_separates_what_the_checks_read():
-    """The int8 wrapper keeps each launch's arguments under ``_int8_key``:
-    one entry for a weight at a row count (x's own address is checked on
-    every call), a new one for anything its checks or its plan read."""
-    from llava_plus_torch.ops.quant_matmul import _int8_key
+    """The wrapper keeps each launch's arguments under ``_launch_key``: one
+    entry for a weight at a row count (x's own address is checked on every
+    call), a new one for anything its checks or its plan read."""
+    from llava_plus_torch.ops.quant_matmul import _launch_key
 
     x, qw, scale = _inputs(16, 256, 128, seed=0)
     bf16 = torch.bfloat16
-    key = _int8_key(x, qw, scale, bf16, 7)
-    assert _int8_key(x.clone(), qw, scale, bf16, 7) == key
+    key = _launch_key(8, x, qw, scale, bf16, 7)
+    assert _launch_key(8, x.clone(), qw, scale, bf16, 7) == key
     wide = torch.zeros(16, 384)[:, :256]                   # the same shape, another row stride
-    for other in (_int8_key(x[:15], qw, scale, bf16, 7),
-                  _int8_key(wide, qw, scale, bf16, 7),
-                  _int8_key(x.bfloat16(), qw, scale, bf16, 7),
-                  _int8_key(x, qw.clone(), scale, bf16, 7),
-                  _int8_key(x, qw, scale.clone(), bf16, 7),
-                  _int8_key(x, qw, scale, torch.float32, 7),
-                  _int8_key(x, qw, scale, bf16, 8)):
+    for other in (_launch_key(8, x[:15], qw, scale, bf16, 7),
+                  _launch_key(8, wide, qw, scale, bf16, 7),
+                  _launch_key(8, x.bfloat16(), qw, scale, bf16, 7),
+                  _launch_key(8, x, qw.clone(), scale, bf16, 7),
+                  _launch_key(8, x, qw, scale.clone(), bf16, 7),
+                  _launch_key(8, x, qw, scale, torch.float32, 7),
+                  _launch_key(8, x, qw, scale, bf16, 8),
+                  _launch_key(4, x, qw, scale, bf16, 7)):
         assert other != key
 
 
