@@ -5,9 +5,10 @@ Run from anywhere, on a machine with one NVIDIA Hopper card and nvcc:
     python3 chip_smoke.py
     python3 chip_smoke.py --device-times [ROOT]   # phases 1, 2 and 15 only
                                                   # (and the int8, int4,
-                                                  # decode1 and general rows
-                                                  # through their wrappers),
-                                                  # for the package under ROOT
+                                                  # native int4, decode1 and
+                                                  # general rows through
+                                                  # their wrappers), for the
+                                                  # package under ROOT
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
@@ -22,7 +23,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    rows and on both sides of each one's decode / prefill cut (int4 also at
    QLoRA's 8,192), each row launched twice, bit for bit the same, beside the
    bf16 ``torch.matmul`` yardstick, the native int4 matmul (the int4 tools'
-   kernel) at their five shapes for 1, 16 and 768 rows, and the paged
+   kernel) at their five shapes and one whose N is not a multiple of 128,
+   for 1, 16, 64, 768 and 3,072 rows and both sides of its cut, each row
+   launched twice, bit for bit the same, and the paged
    kernels at 16 slots of 16 pages (decode1 also over pages of 32 with a
    full and a 1-token slot, and at the paged engine's 32 pages of 128, plain
    and ALiBi; the general kernel also at a 7B engine's width, 8-token chunks
@@ -109,7 +112,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 15. (phase 3's device times, taken last because a ``torch.profiler``
    session can leave CUPTI attached and slow the host clocks of later
    phases) the flash forward, dK/dV, dQ and dense decode rows, the int8
-   and int4 matmuls at every shape and row of phase 3 and paged decode1 and
+   and int4 matmuls at every shape and row of phase 3, the native int4
+   matmul at the tools' five shapes and phase 3's rows (each alternated
+   with the split-half int4 kernel on the same values; 7B q/o at 16 rows
+   also with ``torch._weight_int4pack_mm``, 768 and 3,072 rows with the
+   yardstick; 13B down and 7B q/o at 16 rows again with L2 flushed before
+   every call), and paged decode1 and
    the general kernel at their phase-3 rows (bf16 and int8 pools, ALiBi,
    pages of 32, the paged engine's 32 pages, GQA, MQA, chunks of 4 and 8)
    timed by the kernel's own device time from ``torch.profiler``, so the
@@ -585,10 +593,12 @@ QUANT_SHAPES = (("wqkv", 4096, 12288), ("w_down", 11008, 4096), ("lm_head", 4096
 MPT_QUANT_SHAPES = (("mpt out_proj", 4096, 4096), ("mpt up_proj", 4096, 16384),
                     ("mpt down_proj", 16384, 4096))
 # the native int4 kernel at the int4 measurement tools' five shapes
-# (LLaVA-1.5-7B's unfused projections, then LLaVA-1.5-13B's MLP)
+# (LLaVA-1.5-7B's unfused projections, then LLaVA-1.5-13B's MLP); phase 3
+# also at a shape whose N is not a multiple of 128 (a half strip, a quarter
+# of a prefill tile) and whose K is 9 decode tiles
 INT4N_SHAPES = (("7B q/o", 4096, 4096), ("7B gate/up", 4096, 11008), ("7B down", 11008, 4096),
                 ("13B gate/up", 5120, 13824), ("13B down", 13824, 5120))
-QUANT_ROWS = (1, 16, 768)
+INT4N_EDGE = ("edge", 1152, 4160)
 # the int8 kernel's rows (phases 3 and 15): both regimes (decode rows up to
 # the cut, wgmma above it) at one row, 16 slots, 64, a 768-token prefill and
 # the engine's 4-prompt batch of 3,072, plus one row on each side of the cut
@@ -597,6 +607,8 @@ INT8_ROWS = (1, 16, 32, 33, 64, 768, 3072)
 # the int4 kernel's rows: the same, with its own cut (ops/quant_matmul.
 # INT4_CUT; phase 3 checks that both sides are here) and QLoRA's 4 x 2048
 INT4_ROWS = (1, 16, 48, 49, 64, 768, 3072, 8192)
+# the native int4 kernel's rows: the int8 rows with its own cut (INT4N_CUT)
+INT4N_ROWS = (1, 16, 48, 49, 64, 768, 3072)
 
 
 def _quantize(kind, w):
@@ -619,13 +631,22 @@ def _dequant64(kind, q, s):
     return qm.dequantize(8 if kind == "int8" else 4, q, s, torch.float64)
 
 
+def _dequant16(kind, q, s):
+    import torch
+    from llava_plus_torch.ops import quant_matmul as qm
+
+    if kind == "int4n":
+        return qm.dequantize_int4_native(q, s, torch.bfloat16)
+    return qm.dequantize(8 if kind == "int8" else 4, q, s, torch.bfloat16)
+
+
 def check_quant(kind, name, K, N, gen):
     """One weight, every row count: kernel and plain version against the f64
     product of the dequantized weight, errors relative to the largest output.
-    The int8 and int4 rows also launch the kernel a second time (every bit
-    must repeat: the K chunks' partials are summed in a fixed order) and time
-    the yardstick, ``torch.matmul`` on the same weight dequantized to bf16
-    (the port never calls it)."""
+    Every row also launches the kernel a second time (every bit must repeat:
+    the K chunks' partials are summed in a fixed order) and times the
+    yardstick, ``torch.matmul`` on the same weight dequantized to bf16 (the
+    port never calls it)."""
     import torch
     from llava_plus_torch.ops import quant_matmul as qm
 
@@ -642,20 +663,19 @@ def check_quant(kind, name, K, N, gen):
     out_dtype = torch.float32 if name == "lm_head" or kind == "int4n" else torch.bfloat16
     kw = {} if kind == "int4n" else {"out_dtype": out_dtype}
     nbytes = q.numel() + s.numel() * 4
-    split = kind in ("int8", "int4")   # the kernels with two regimes and K chunks
-    w16 = qm.dequantize(8 if kind == "int8" else 4, q, s, torch.bfloat16) if split else None
-    for rows_, cut in ((INT8_ROWS, qm.INT8_CUT), (INT4_ROWS, qm.INT4_CUT)):
+    w16 = _dequant16(kind, q, s)
+    for rows_, cut in ((INT8_ROWS, qm.INT8_CUT), (INT4_ROWS, qm.INT4_CUT),
+                       (INT4N_ROWS, qm.INT4N_CUT)):
         if not {cut, cut + 1} <= set(rows_):
             raise AssertionError(f"the rows {rows_} must hold both sides of the cut {cut}")
-    row_counts = {"int8": INT8_ROWS, "int4": INT4_ROWS}.get(kind, QUANT_ROWS)
     rows = {}
-    for R in row_counts:
+    for R in {"int8": INT8_ROWS, "int4": INT4_ROWS, "int4n": INT4N_ROWS}[kind]:
         x = torch.randn(R, K, generator=gen, device=dev).bfloat16()
         truth = x.double() @ w64
         top = truth.abs().max().item()
         out = kernel_fn(x, q, s, **kw)
-        plan = getattr(kernel_fn, "last_plan", None)
-        same = torch.equal(out, kernel_fn(x, q, s, **kw)) if split else True
+        plan = kernel_fn.last_plan
+        same = torch.equal(out, kernel_fn(x, q, s, **kw))
         p_out = plain_fn(x, q, s, **kw)
         torch.cuda.synchronize()
         if out.shape != (R, N) or out.dtype != out_dtype:
@@ -665,46 +685,43 @@ def check_quant(kind, name, K, N, gen):
         del truth, p_out
         ms = time_ms(lambda: kernel_fn(x, q, s, **kw))
         plain_ms = time_ms(lambda: plain_fn(x, q, s, **kw))
-        yard_ms = time_ms(lambda: torch.matmul(x, w16)) if w16 is not None else None
+        yard_ms = time_ms(lambda: torch.matmul(x, w16))
         out_bytes = R * N * (4 if out_dtype == torch.float32 else 2)
         b = bound(nbytes + 2 * R * K + out_bytes, 2 * R * K * N)
         ok = within(k_err, r_err) and same
         rate = (f", {nbytes / ms / 1e6:.0f} GB/s of weights" if R <= 64 else "") + (
             f", {2 * R * K * N / ms / 1e9:.1f} TFLOP/s" if R >= 64 else "")
         log("kernels", f"quant_matmul {kind} {name} R={R} K={K} N={N} -> "
-                       f"{str(out_dtype)[6:]}{f' {plan}' if split else ''}: rel err "
-                       f"{k_err:.3e} (plain {r_err:.3e})"
-                       f"{f', a second launch bit-identical {same}' if split else ''}, "
-                       f"{ms:.4f} ms{rate} vs plain {plain_ms:.4f} ms"
-                       f"{f', yardstick (bf16 matmul) {yard_ms:.4f} ms' if yard_ms else ''}, "
+                       f"{str(out_dtype)[6:]} {plan}: rel err {k_err:.3e} (plain {r_err:.3e}), "
+                       f"a second launch bit-identical {same}, "
+                       f"{ms:.4f} ms{rate} vs plain {plain_ms:.4f} ms, "
+                       f"yardstick (bf16 matmul) {yard_ms:.4f} ms, "
                        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}) -> "
                        f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"quant_matmul[{kind}] {name} R={R} disagrees with "
                                  "its plain version or does not repeat its bits")
-        rows[R] = {"max_abs_err": k_err, "ms": ms, "plain_ms": plain_ms, **b}
-        if yard_ms is not None:
-            rows[R]["yardstick_ms"] = yard_ms
+        rows[R] = {"max_abs_err": k_err, "ms": ms, "plain_ms": plain_ms, **b,
+                   "yardstick_ms": yard_ms}
     if name in ("wqkv", "7B q/o"):
         rows[16]["library_ms"] = library_quant(kind, q, s, gen)
     return rows
 
 
-def library_quant(kind, q, s, gen, R=16):
-    """Time the library's weight-only product at R rows on the same weight,
-    after checking that it computes the same function: int8 through
+def _library_call(kind, q, s, x):
+    """The library's weight-only product of x and the same weight, after
+    checking that it computes the same function: int8 through
     ``torch._weight_int8pack_mm`` (int8 [N, K], bf16 per-channel scales),
     int4 through ``torch._weight_int4pack_mm`` (the weight repacked as its
     unsigned nibbles minus 8, bf16 scales and zero points per 32-row group;
     the native layout's values are repacked the same way). Both round the f32
     scales to bf16, so the check allows 2% of the largest output (a wrong
-    layout is off by far more)."""
+    layout is off by far more). Returns (the call, its relative error)."""
     import torch
     from llava_plus_torch.ops import quant_matmul as qm
 
-    K = q.shape[0] * (2 if kind == "int4" else 1)
+    K = x.shape[1]
     N = q.shape[1] * (2 if kind == "int4n" else 1)
-    x = torch.randn(R, K, generator=gen, device="cuda").bfloat16()
     if kind == "int8":
         wt = q.t().contiguous()
         scales = s.reshape(-1).bfloat16()
@@ -722,6 +739,18 @@ def library_quant(kind, q, s, gen, R=16):
     if err > 2e-2:
         raise AssertionError(f"library {kind} product differs from the kernel's function "
                              f"(rel err {err:.3e})")
+    return call, err
+
+
+def library_quant(kind, q, s, gen, R=16):
+    """Time the library's weight-only product (:func:`_library_call`) at R
+    rows on the same weight."""
+    import torch
+
+    K = q.shape[0] * (2 if kind == "int4" else 1)
+    N = q.shape[1] * (2 if kind == "int4n" else 1)
+    x = torch.randn(R, K, generator=gen, device="cuda").bfloat16()
+    call, err = _library_call(kind, q, s, x)
     ms = time_ms(call)
     log("kernels", f"library {kind} weight-only product R={R} K={K} N={N}: rel err "
                    f"{err:.3e}, {ms:.4f} ms")
@@ -730,7 +759,8 @@ def library_quant(kind, q, s, gen, R=16):
 
 def phase_quant_kernels():
     """The int8 and int4 kernels at LLaVA-1.5-7B's and LLaVA-MPT-7B's shapes,
-    the native int4 kernel at the int4 tools' five. A line reports the
+    the native int4 kernel at the int4 tools' five and INT4N_EDGE. A line
+    reports the
     engine's decode call (wqkv at 16 slots; the native kernel: 4096 x 4096
     at 16 rows, the tools' default) with the largest relative error over
     every shape and row count."""
@@ -740,17 +770,16 @@ def phase_quant_kernels():
     stats = {}
     for kind, shapes, head in (("int8", QUANT_SHAPES + MPT_QUANT_SHAPES, "wqkv"),
                                ("int4", QUANT_SHAPES + MPT_QUANT_SHAPES, "wqkv"),
-                               ("int4n", INT4N_SHAPES, "7B q/o")):
+                               ("int4n", INT4N_SHAPES + (INT4N_EDGE,), "7B q/o")):
         per = {name: check_quant(kind, name, K, N, gen) for name, K, N in shapes}
         K, N = next((K, N) for name, K, N in shapes if name == head)
         stats[f"quant_matmul[{kind}]"] = dict(
             per[head][16], shape=f"{head} K={K} N={N} R=16",
             max_abs_err=max(r["max_abs_err"] for rows in per.values() for r in rows.values()))
-        if kind in ("int8", "int4"):
-            # the prefill regime's rows on the same weight
-            stats[f"quant_matmul[{kind}]"].update(
-                {f"r{R}_ms": per[head][R]["ms"] for R in (768, 3072)},
-                **{f"r{R}_yardstick_ms": per[head][R]["yardstick_ms"] for R in (768, 3072)})
+        # the prefill regime's rows on the same weight
+        stats[f"quant_matmul[{kind}]"].update(
+            {f"r{R}_ms": per[head][R]["ms"] for R in (768, 3072)},
+            **{f"r{R}_yardstick_ms": per[head][R]["yardstick_ms"] for R in (768, 3072)})
     return stats
 
 
@@ -1085,13 +1114,17 @@ def device_ms(fn, names=None, iters=20, warmup=3, sessions=6):
                          f"in {sessions} sessions")
 
 
-def _alternated(kernel, names, library):
-    """Kernel-alone and library device ms, taken kernel, library, library,
-    kernel and averaged, so drift in the card's clocks falls on both."""
+def _alternated(kernel, names, *others):
+    """Kernel-alone and each other call's device ms, taken in turns (kernel,
+    the others, the others in reverse, kernel) and averaged, so drift in the
+    card's clocks falls on all. An other call is a library call or yardstick
+    (all its device work) or a (call, kernel names) pair."""
+    others = [o if isinstance(o, tuple) else (o, None) for o in others]
     k1 = device_ms(kernel, names)
-    l1, l2 = device_ms(library), device_ms(library)
+    first = [device_ms(f, n) for f, n in others]
+    second = [device_ms(f, n) for f, n in reversed(others)][::-1]
     k2 = device_ms(kernel, names)
-    return (k1 + k2) / 2, (l1 + l2) / 2
+    return ((k1 + k2) / 2, *((a + b) / 2 for a, b in zip(first, second)))
 
 
 FWD_KERNEL = ("flash_fwd_kernel",)
@@ -1210,15 +1243,24 @@ def phase_device_times(stats):
     _device_times_decode(stats, gen)
     for kind in ("int8", "int4"):
         _device_times_quant(stats, kind)
+    _device_times_int4n(stats)
     for kind in ("decode1", "general"):
         _device_times_paged(stats, kind)
 
 
 DECODE_KERNEL = ("decode_kernel",)
 # the quantized kernels of this tree and of an older one (--device-times ROOT:
-# before its redesign the int4 product ran quant_matmul_kernel)
+# before its redesign each product ran quant_matmul_kernel)
 INT8_KERNEL = ("int8_stream_kernel", "int8_wgmma_kernel", "quant_matmul_kernel")
 INT4_KERNEL = ("int4_stream_kernel", "int4_wgmma_kernel", "quant_matmul_kernel")
+INT4N_KERNEL = ("int4n_stream_kernel", "int4n_wgmma_kernel", "quant_matmul_kernel")
+INT4_SIBLING = INT4_KERNEL[:2]   # the split-half kernels alone, beside the native one
+# the native rows also timed with L2 flushed before every call, as a model's
+# decode step finds each weight (its layers' weights pass through L2 in turn):
+# a write of L2_FLUSH_BYTES (twice the H100's 50 MB L2, at least), whose
+# kernel is not among the timed names
+INT4N_COLD = ("13B down", "7B q/o")
+L2_FLUSH_BYTES = 128 * 2 ** 20
 DECODE1_KERNEL = ("paged_decode1_kernel",)
 GENERAL_KERNEL = ("paged_general_kernel",)
 
@@ -1288,6 +1330,91 @@ def _device_times_quant(stats, kind):
             key = YARD_ROWS[name, R]
             stats[f"quant_matmul[{kind}]"].update({f"{key}device_ms": kern_ms,
                                                    f"{key}yardstick_device_ms": yard_ms})
+
+
+def _int4n_cases():
+    """Phase 3's native-int4 shapes (the int4 tools' five) and rows, one at a
+    time, from their own seed: (shape name, R, K, N, x, the native weight and
+    scales, the split-half weight and scales of the same values, the bf16
+    weight for the yardstick, the weight's bytes). The two quantizers must
+    give the same values and scales."""
+    import torch
+    from llava_plus_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for name, K, N in INT4N_SHAPES:
+        w = torch.randn(K, N, generator=gen, device="cuda").mul_(0.02).bfloat16()
+        qn, sn = _quantize("int4n", w)
+        qs, ss = _quantize("int4", w)
+        del w
+        if not (torch.equal(sn, ss)
+                and torch.equal(qm.unpack_int4_native(qn), qm.unpack_int4(qs).reshape(K, N))):
+            raise AssertionError(f"{name}: the native and split-half quantizers disagree")
+        w16 = _dequant16("int4n", qn, sn)
+        for R in INT4N_ROWS:
+            x = torch.randn(R, K, generator=gen, device="cuda").bfloat16()
+            yield name, R, K, N, x, (qn, sn), (qs, ss), w16, qn.numel() + 4 * sn.numel()
+        del qn, sn, qs, ss, w16
+
+
+def _device_times_int4n(stats):
+    """The native int4 matmul at phase 3's tool shapes and rows, the kernel
+    alone, alternated with its split-half sibling (``matmul_int4``, f32 out)
+    on the same values and scales; on 7B q/o at 16 rows also with
+    ``torch._weight_int4pack_mm`` (the values repacked, as phase 3 checks
+    them), at 768 and 3,072 rows with the bf16 yardstick. The INT4N_COLD
+    shapes at 16 rows are taken again with L2 flushed before every call of
+    either kernel. The bound counts HBM bytes: the tools' shapes fit in L2
+    (10.9-45.3 MB at 16 rows), so a warm time can beat it."""
+    import torch
+    from llava_plus_torch.ops import quant_matmul as qm
+
+    rows = stats.setdefault("int4n rows", {})
+    head = stats["quant_matmul[int4n]"]
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    for name, R, K, N, x, (qn, sn), (qs, ss), w16, wbytes in _int4n_cases():
+        row = f"{name} R={R}"
+        native = lambda: qm.matmul_int4_native(x, qn, sn)
+        sibling = lambda: qm.matmul_int4(x, qs, ss, out_dtype=torch.float32)
+        others = [(sibling, INT4_SIBLING)]
+        library = row == "7B q/o R=16"
+        if library:
+            others.append(_library_call("int4n", qn, sn, x)[0])
+        if R in (768, 3072):
+            others.append(lambda: torch.matmul(x, w16))
+        kern_ms, sib_ms, *more = _alternated(native, INT4N_KERNEL, *others)
+        b = bound(wbytes + 2 * R * K + 4 * R * N, 2 * R * K * N)
+        rows.setdefault(row, {}).update(device_ms=kern_ms, sibling_device_ms=sib_ms, **b)
+        vs = f", library (int4pack_mm) {more[0]:.4f} ms device" if library else ""
+        if R in (768, 3072):
+            rows[row]["yardstick_device_ms"] = more[0]
+            vs = (f", yardstick (bf16 matmul) {more[0]:.4f} ms device "
+                  f"({2 * R * K * N / more[0] / 1e9:.1f} TFLOP/s; the kernel "
+                  f"x{kern_ms / more[0]:.2f} of it)")
+        log("device", f"quant_matmul[int4n] {row} K={K} N={N} "
+                      f"({getattr(qm.matmul_int4_native, 'last_plan', None)}): kernel "
+                      f"{kern_ms:.4f} ms device, split-half {sib_ms:.4f} ms device "
+                      f"(x{kern_ms / sib_ms:.3f}){vs}, "
+                      f"{2 * R * K * N / kern_ms / 1e9:.1f} TFLOP/s, "
+                      f"{wbytes / kern_ms / 1e6:.1f} GB/s of weights, "
+                      f"{b['bound_ms'] / kern_ms:.1%} of the bound ({b['bound_ms']:.4f} ms, "
+                      f"{b['bound_by']}; L2 warm)")
+        if library:
+            head.update(device_ms=kern_ms, sibling_device_ms=sib_ms, library_device_ms=more[0])
+        elif name == "7B q/o" and R in (768, 3072):
+            head.update({f"r{R}_device_ms": kern_ms, f"r{R}_yardstick_device_ms": more[0]})
+        if R == 16 and name in INT4N_COLD:
+            def cold(f):
+                return lambda: (flush.fill_(1.0), f())
+            cold_ms, cold_sib = _alternated(cold(native), INT4N_KERNEL,
+                                            (cold(sibling), INT4_SIBLING))
+            rows[row].update(cold_device_ms=cold_ms, cold_sibling_device_ms=cold_sib)
+            log("device", f"quant_matmul[int4n] {row} K={K} N={N}, L2 flushed before every "
+                          f"call: kernel {cold_ms:.4f} ms device, split-half {cold_sib:.4f} ms "
+                          f"device (x{cold_ms / cold_sib:.3f}), {b['bound_ms'] / cold_ms:.1%} "
+                          f"of the bound ({b['bound_ms']:.4f} ms, bytes; split-half "
+                          f"{b['bound_ms'] / cold_sib:.1%})")
+            head[f"cold_device_ms[{name}]"] = cold_ms
 
 
 # phase 3's decode1 rows, all on int8 pools but the first: (tag, stats row,
@@ -1391,16 +1518,23 @@ def _device_times_paged(stats, kind):
 
 
 def wrapper_times(stats):
-    """Phase 3's int8, int4, decode1 and general rows timed through their
-    wrappers (CUDA events over 20 back-to-back calls, so the host path counts
+    """Phase 3's int8, int4, native int4, decode1 and general rows timed
+    through their wrappers (CUDA events over 20 back-to-back calls, so the host path counts
     where it is longer than the kernel), before any profiler session can
     slow the host clocks: the A/B of ``--device-times``, where phase 3 does
     not run."""
+    from llava_plus_torch.ops import quant_matmul as qm
+
     for kind in ("int8", "int4"):
         rows = stats.setdefault(f"{kind} rows", {})
         for row, R, K, N, out_dtype, call, *_ in _quant_cases(kind):
             rows.setdefault(row, {})["wrapper_ms"] = ms = time_ms(call)
             log("wrapper", f"quant_matmul[{kind}] {row} K={K} N={N}: {ms:.4f} ms")
+    rows = stats.setdefault("int4n rows", {})
+    for name, R, K, N, x, (qn, sn), *_ in _int4n_cases():
+        rows.setdefault(f"{name} R={R}", {})["wrapper_ms"] = ms = time_ms(
+            lambda: qm.matmul_int4_native(x, qn, sn))
+        log("wrapper", f"quant_matmul[int4n] {name} R={R} K={K} N={N}: {ms:.4f} ms")
     for kind, cases in (("decode1", _decode1_cases), ("general", _general_cases)):
         rows = stats.setdefault(f"{kind} rows", {})
         for tag, row, kernel, arg, pages, *_ in cases():
@@ -3160,16 +3294,19 @@ def phase_int4_tools():
     per = 1 + bench_int4_variants.WARMUP + bench_int4_variants.ITERS
     n5, n3 = len(bench_int4_variants.SHAPES), len(bench_int4.SHAPES)
     _reset_counts()
+    before = _regimes(qm.matmul_int4_native)
     t0 = time.perf_counter()
     rc = (bench_int4_variants.main(argv), bench_int4.main(argv))
     torch.cuda.synchronize()
     got = (qm.matmul_int4_native.launches, qm.matmul_int4.launches, qm.matmul_int8.launches)
     want = (n5 * per, (n5 + n3) * per, (n5 + n3) * per)
+    regimes = tuple(b - a for a, b in zip(before, _regimes(qm.matmul_int4_native)))
     log("int4 tools", f"exit codes {rc} in {time.perf_counter() - t0:.1f} s; launches native "
-                      f"int4 / int4 / int8 {got} (want {want})")
-    if rc != (0, 0) or got != want:
+                      f"int4 / int4 / int8 {got} (want {want}); native int4 by regime {regimes} "
+                      f"(decode rows, prefill rows)")
+    if rc != (0, 0) or got != want or sum(regimes) != got[0]:
         raise AssertionError("the int4 tools failed their checks")
-    return {"int4n": got[0], "int4": got[1], "int8": got[2]}
+    return {"int4n": got[0], "int4": got[1], "int8": got[2], "int4n regimes": regimes}
 
 
 def _leaves(tree):
@@ -3292,6 +3429,10 @@ def main():
             # the int4 engine's launches by regime (phase 6)
             entries[-1].update(engine_decode_launches=int4["quant_regimes"][0],
                                engine_prefill_launches=int4["quant_regimes"][1])
+        elif name == "quant_matmul[int4n]":
+            # the int4 tools' native launches by regime (phase 14, 16 rows)
+            entries[-1].update(tools_decode_launches=tools["int4n regimes"][0],
+                               tools_prefill_launches=tools["int4n regimes"][1])
         elif name == "paged_attention[general]":
             # the 7B paged engines' general launches (phases 7 and 11): 0, as
             # those phases require (MHA decode is decode1's; a suffix prefill

@@ -12,56 +12,59 @@
 //         once per element, as the Pallas kernel does. Within each 32-row
 //         block the packing is split-half: the low nibble of packed row j
 //         holds row j, the high nibble row j + 16;
-//   int4 native: packed qw [K, N/2] uint8, element (k, n) in byte (k, n/2),
-//         the low nibble for even n, the high one for odd n, with the same
-//         block scales; f32 out. The Pallas variant's grid takes K / bk
-//         steps of bk = min(K, 4096) and drops the last K % bk rows; this
-//         kernel runs over all of K.
-// The output is bf16 or f32 (the lm_head's logits), [R, N] row-major.
+//   int4 native (int4n): packed qw [K, N/2] uint8, element (k, n) in byte
+//         (k, n/2), the low nibble for even n, the high one for odd n, with
+//         the same block scales and the same rounding; f32 out. The Pallas
+//         variant's grid takes K / bk steps of bk = min(K, 4096) and drops
+//         the last K % bk rows; these kernels run over all of K.
+// The output is bf16 or f32 (the lm_head's logits, and always for int4n),
+// [R, N] row-major.
 //
 // What bounds it on the card: at decode rows (R = the engine's slots, 1..16;
 // later speculation's up to 32) the weight stream, K * N bytes (int8) or
-// K * N / 2 + K * N / 8 (int4 and its block scales) per call, against 3.35
-// TB/s; at prefill and training rows (768 a prompt, thousands in a batch,
-// QLoRA's 4 x 2048) the products, against 989 bf16 TFLOP/s. The weights move
-// from device memory as int8 or nibbles and are widened to bf16 right before
-// the tensor cores: int8 exactly with masks and a bf16x2 add
-// (csrc/warp_mma.cuh); int4 as byte permutes under the exponent of 2^23, an
-// f32 subtract, the f32 multiply by the block scale and one rounding to
-// bf16 (int4_pairs below): about four instructions a weight, twice int8's
-// work per weight byte. At prefill rows the wgmma of the previous step
-// hides it (~450 TFLOP/s); at decode rows it is what holds the int4 stream
-// at 29-54% of its bytes bound on the H100's 7B shapes (rounding with
-// integer instructions instead, or eight warps a block, measured slower).
+// K * N / 2 + K * N / 8 (int4 in either layout, and its block scales) per
+// call, against 3.35 TB/s; at prefill and training rows (768 a prompt,
+// thousands in a batch, QLoRA's 4 x 2048) the products, against 989 bf16
+// TFLOP/s. The weights move from device memory as int8 or nibbles and are
+// widened to bf16 right before the tensor cores: int8 exactly with masks and
+// a bf16x2 add (csrc/warp_mma.cuh); int4 as byte permutes under the
+// exponent of 2^23, an f32 subtract, the f32 multiply by the block scale
+// and one rounding to bf16 (int4_pairs, native_pairs below): about four
+// instructions a weight, twice int8's work per weight byte. At prefill rows
+// the wgmma of the previous step hides it (~450 TFLOP/s); at decode rows it
+// is what holds the int4 stream at 29-54% of its bytes bound on the H100's
+// 7B shapes (rounding with integer instructions instead, or eight warps a
+// block, measured slower).
 //
-// int8 and int4 each take one of two kernels, by row count
-// (ops/quant_matmul.int8_plan / int4_plan, the cuts INT8_CUT = 32 and
-// INT4_CUT measured on the card):
-//   decode rows   int8_stream_kernel / int4_stream_kernel: 128-column strips
-//                 of the weight, each cut into K chunks so that every SM
-//                 holds two or three blocks streaming equal bytes; 64 x 128
-//                 byte tiles of the weight by TMA through a 4-stage ring (int8:
-//                 64 k rows; int4: 64 packed rows, 128 k rows, with the four
-//                 block-scale rows of the strip beside them), x's rows by
-//                 cp.async; mma.sync with the weight as the m16 side and x's
-//                 rows as n8 (out^T = W^T x^T: one row costs an n8 tile, not a
-//                 padded m16); for int4 one 16-row slab of packed bytes feeds
-//                 both k16 steps of its 32-row block (the low nibbles, then
-//                 the high), converted in registers; the chunks' f32 parts
-//                 summed in chunk order by the last block of the strip (a
-//                 counter it resets): one launch, deterministic, no host sync;
-//   prefill rows  int8_wgmma_kernel / int4_wgmma_kernel: 128-row x
-//                 256-column output tiles, x and the weight (int4: and its
-//                 block scales) by TMA into a ring of 128-byte swizzled
-//                 tiles; each thread converts its weight bytes straight into
-//                 wgmma's register A operand (the transposed product again:
-//                 the weight's columns are M, x's rows N) while the previous
-//                 step's wgmma m64n128k16 run; the tiles of a last, partial
-//                 wave cut into K chunks, combined as above.
-// The native int4 kernel (the tools' layout) keeps its first design: mma.sync
-// on one 128-deep tile at a time, prefetched through registers, widened into
-// shared memory with the block scales; 16 x 32 output tiles at decode rows,
-// 64 x 64 above.
+// Each layout takes one of two kernels, by row count (ops/quant_matmul.
+// int8_plan / int4_plan / int4n_plan, the cuts INT8_CUT = 32, INT4_CUT and
+// INT4N_CUT measured on the card):
+//   decode rows   <layout>_stream_kernel: 128-column strips of the weight,
+//                 each cut into K chunks so that every SM holds two or three
+//                 blocks streaming equal bytes; 8 KB weight tiles by TMA
+//                 through a 4-stage ring (int8: 64 k rows of 128 bytes;
+//                 int4: 64 packed rows of 128 bytes, 128 k rows; int4n: 128
+//                 k rows of 64 bytes, 64-byte swizzled), int4's block-scale
+//                 rows of the strip beside them, x's rows by cp.async;
+//                 mma.sync with the weight as the m16 side and x's rows as
+//                 n8 (out^T = W^T x^T: one row costs an n8 tile, not a
+//                 padded m16); the chunks' f32 parts summed in chunk order
+//                 by the last block of the strip (a counter it resets): one
+//                 launch, deterministic, no host sync;
+//   prefill rows  <layout>_wgmma_kernel: 128-row x 256-column output tiles,
+//                 x and the weight (int4: and its block scales) by TMA into
+//                 a ring of swizzled tiles; each thread converts its weight
+//                 bytes straight into wgmma's register A operand (the
+//                 transposed product again: the weight's columns are M, x's
+//                 rows N) while the previous step's wgmma m64n128k16 run;
+//                 the tiles of a last, partial wave cut into K chunks,
+//                 combined as above.
+// The three layouts differ only where a warp's A registers come from
+// (slab_load): int8 and split-half int4 hold one column a byte, so a
+// thread's four columns are one 4-byte load of each of its rows; native
+// int4 holds two columns of one row a byte, so a thread's four columns at
+// rows k and k + 1 are two bytes of each, which one ldmatrix.trans brings
+// as one register.
 
 // Shapes (every layout): K % 128 == 0, N % 64 == 0; x rows with a 16-byte aligned stride,
 // the last dimension contiguous; qw, scales and out contiguous.
@@ -71,197 +74,12 @@
 
 namespace {
 
-constexpr int BK = 128;         // K depth of one tile
-constexpr int NTHREADS = 128;   // 4 warps
 constexpr int QBLOCK = 32;      // int4 scale block along K
-constexpr int LDX = BK + 8;     // smem row stride of the x tile (bf16)
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
 }
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two bf16 of one column from consecutive rows (row stride ld), packed low/high.
-__device__ __forceinline__ uint32_t ld_col2(const __nv_bfloat16* p, int ld) {
-  const uint16_t lo = *reinterpret_cast<const uint16_t*>(p);
-  const uint16_t hi = *reinterpret_cast<const uint16_t*>(p + ld);
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
-
-// Signed byte e (0..3) of a 32-bit word, sign-extended.
-__device__ __forceinline__ int sbyte(uint32_t word, int e) {
-  return static_cast<int>(static_cast<int8_t>((word >> (8 * e)) & 0xffu));
-}
-
-__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// The native int4 kernel. BM x BN: the block's output tile; f32 out.
-template <int BM, int BN>
-__global__ void __launch_bounds__(NTHREADS)
-quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
-                    const uint8_t* __restrict__ qw,
-                    const float* __restrict__ scale,
-                    float* __restrict__ out,
-                    int R, int K, int N, int ldx) {
-  constexpr int WM = BM / 16;             // warps along M
-  constexpr int WN = 4 / WM;              // warps along N
-  constexpr int NT = BN / WN / 8;         // 8-column mma tiles per warp
-  constexpr int LDW = BN + 8;             // smem row stride of the weight tile
-  constexpr int XCH = BM * BK / 8 / NTHREADS;              // uint4 of x a thread loads
-  constexpr int WROWB = BN / 2;                            // stored bytes of a tile row
-  constexpr int WCH = BK * WROWB / 16 / NTHREADS;          // uint4 of weights a thread loads
-  constexpr int SCH = BK / QBLOCK * BN / 4;                // uint4 of int4 scales a tile has
-  static_assert(WM * WN == 4 && NT >= 1, "warp layout");
-  static_assert(XCH >= 1 && WCH >= 1 && SCH <= NTHREADS, "tile shape");
-
-  __shared__ __align__(16) __nv_bfloat16 Xs[BM * LDX];
-  __shared__ __align__(16) __nv_bfloat16 Ws[BK * LDW];
-  __shared__ __align__(16) float Ss[BK / QBLOCK * BN];
-
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;      // row within the 8-row group
-  const int tig = lane & 3;     // column pair
-  const int rb = (warp / WN) * 16;
-  const int cb = (warp % WN) * (BN / WN);
-
-  uint4 xr[XCH], wr[WCH], sr = make_uint4(0, 0, 0, 0);
-
-  auto fetch = [&](int kt) {
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int j = 0; j < XCH; ++j) {
-      const int i = tid + j * NTHREADS;
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      const int row = m0 + r;
-      xr[j] = row < R
-          ? *reinterpret_cast<const uint4*>(x + (size_t)row * ldx + k0 + c)
-          : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int j = 0; j < WCH; ++j) {
-      const int i = tid + j * NTHREADS;
-      const int r = i / (WROWB / 16), c = (i % (WROWB / 16)) * 16;
-      wr[j] = *reinterpret_cast<const uint4*>(qw + (size_t)(k0 + r) * (N / 2) + n0 / 2 + c);
-    }
-    if (tid < SCH) {
-      const int r = tid / (BN / 4), c = (tid % (BN / 4)) * 4;
-      sr = *reinterpret_cast<const uint4*>(scale + (size_t)(k0 / QBLOCK + r) * N + n0 + c);
-    }
-  };
-
-  float acc[NT][4];
-#pragma unroll
-  for (int t = 0; t < NT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-
-  const int n_tiles = K / BK;
-  fetch(0);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    __syncthreads();  // everyone is done reading the previous tile
-#pragma unroll
-    for (int j = 0; j < XCH; ++j) {
-      const int i = tid + j * NTHREADS;
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      *reinterpret_cast<uint4*>(Xs + r * LDX + c) = xr[j];
-    }
-    if (tid < SCH) {
-      const int r = tid / (BN / 4), c = (tid % (BN / 4)) * 4;
-      *reinterpret_cast<uint4*>(Ss + r * BN + c) = sr;
-    }
-    __syncthreads();  // the scales are in place before the conversion
-#pragma unroll
-    for (int j = 0; j < WCH; ++j) {
-      const int i = tid + j * NTHREADS;
-      const int r = i / (WROWB / 16), c = (i % (WROWB / 16)) * 16;
-      // 16 bytes of row r hold columns 2c .. 2c + 31: byte e is column
-      // 2c + 2e (low nibble) and 2c + 2e + 1 (high); value = nibble *
-      // scale[r / 32], rounded to bf16 once, as the Pallas kernel does.
-      const float* srow = Ss + (r / QBLOCK) * BN + 2 * c;
-      uint32_t packed[16];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        const int p = sbyte(word_of(wr[j], e / 4), e % 4);
-        const int lo = static_cast<int>(static_cast<uint32_t>(p) << 28) >> 28;
-        const int hi = p >> 4;
-        packed[e] = pack_bf16((float)lo * srow[2 * e], (float)hi * srow[2 * e + 1]);
-      }
-      uint4* dst = reinterpret_cast<uint4*>(Ws + r * LDW + 2 * c);
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        dst[q] = make_uint4(packed[4 * q], packed[4 * q + 1], packed[4 * q + 2],
-                            packed[4 * q + 3]);
-    }
-    __syncthreads();
-    if (kt + 1 < n_tiles) fetch(kt + 1);  // in flight during the products
-
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      uint32_t a[4];
-      const __nv_bfloat16* xa = Xs + (rb + g) * LDX + ks * 16 + tig * 2;
-      a[0] = ld32(xa);
-      a[1] = ld32(xa + 8 * LDX);
-      a[2] = ld32(xa + 8);
-      a[3] = ld32(xa + 8 * LDX + 8);
-      const __nv_bfloat16* wb = Ws + (ks * 16 + tig * 2) * LDW + cb + g;
-#pragma unroll
-      for (int t = 0; t < NT; ++t)
-        mma_16816(acc[t], a, ld_col2(wb + t * 8, LDW), ld_col2(wb + 8 * LDW + t * 8, LDW));
-    }
-  }
-
-  // Epilogue: f32 pairs (the block scales were applied to the tile).
-  const int row0 = m0 + rb + g, row1 = row0 + 8;
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    const int col = n0 + cb + t * 8 + tig * 2;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = h == 0 ? row0 : row1;
-      if (row < R)
-        *reinterpret_cast<float2*>(out + (size_t)row * N + col) =
-            make_float2(acc[t][2 * h], acc[t][2 * h + 1]);
-    }
-  }
-}
-
-int launch_native(const void* x, const void* qw, const void* scale, void* out,
-                  int R, int K, int N, int ldx, cudaStream_t stream) {
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* qp = static_cast<const uint8_t*>(qw);
-  const auto* sp = static_cast<const float*>(scale);
-  auto* op = static_cast<float*>(out);
-  if (R <= 16) {
-    constexpr int BM = 16, BN = 32;
-    quant_matmul_kernel<BM, BN>
-        <<<dim3(N / BN, 1), NTHREADS, 0, stream>>>(xp, qp, sp, op, R, K, N, ldx);
-  } else {
-    constexpr int BM = 64, BN = 64;
-    quant_matmul_kernel<BM, BN>
-        <<<dim3(N / BN, (R + BM - 1) / BM), NTHREADS, 0, stream>>>(xp, qp, sp, op, R, K, N, ldx);
-  }
-  return (int)cudaGetLastError();
-}
-
-
-// ---- int8 and int4: the two row regimes ------------------------------------------
 
 namespace qk {
 
@@ -271,6 +89,11 @@ using hopper::mbar_init;
 using hopper::mbar_wait;
 using warp_mma::FULL;
 using warp_mma::i8x_pair;
+
+// The weight layouts: int8 [K, N]; split-half int4 [K/2, N] (a byte holds
+// one column at rows j and j + 16 of a 32-row block); native int4 [K, N/2]
+// (a byte holds columns 2c and 2c + 1 of one row).
+enum Lay { I8, I4, I4N };
 
 // out[r, col .. col + 3] = v, bf16 or f32.
 template <bool OUT_F32>
@@ -291,14 +114,20 @@ __device__ __forceinline__ float4 scaled(float4 v, const float* scale, int col) 
   return make_float4(v.x * s.x, v.y * s.y, v.z * s.z, v.w * s.w);
 }
 
+// Byte e (0..3) of u, a nibble n of an int4 weight stored as n ^ 8 = n + 8
+// (the rest of the byte 0), as the f32 n, exactly and without the
+// quarter-rate converter: the byte is permuted in as the low byte of a word
+// under the exponent of 2^23 (the float 2^23 + 8 + n), and 2^23 + 8 is
+// subtracted.
+__device__ __forceinline__ float nibble_f32(uint32_t u, int e) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | e)) - 8388616.f;
+}
+
 // The signed nibbles of four bytes (one column each) of rows k (w0) and k +
 // 1 (w1) -- the low nibbles, or with HI the high ones -- each times its
 // column's scale in f32 and rounded to bf16 once: out[e] is byte e's pair,
-// the low half from row k. A nibble n is made exact in f32 without the
-// quarter-rate converter: (its bits ^ 8) = n + 8 is permuted in as the low
-// byte of a word under the exponent of 2^23 (the float 2^23 + 8 + n), and
-// 2^23 + 8 is subtracted; then one f32 multiply and one rounding, as the
-// Pallas kernel's f32 multiply and cast.
+// the low half from row k. One f32 multiply and one rounding, as the Pallas
+// kernel's f32 multiply and cast.
 template <bool HI>
 __device__ __forceinline__ void int4_pairs(uint32_t w0, uint32_t w1, const float4& s,
                                            uint32_t (&out)[4]) {
@@ -306,11 +135,22 @@ __device__ __forceinline__ void int4_pairs(uint32_t w0, uint32_t w1, const float
   const uint32_t u1 = ((HI ? w1 >> 4 : w1) & 0x0F0F0F0Fu) ^ 0x08080808u;
   const float sc[4] = {s.x, s.y, s.z, s.w};
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float f0 = __uint_as_float(__byte_perm(u0, 0x4B000000u, 0x7540 | e)) - 8388616.f;
-    const float f1 = __uint_as_float(__byte_perm(u1, 0x4B000000u, 0x7540 | e)) - 8388616.f;
-    out[e] = pack_bf16(f0 * sc[e], f1 * sc[e]);
-  }
+  for (int e = 0; e < 4; ++e)
+    out[e] = pack_bf16(nibble_f32(u0, e) * sc[e], nibble_f32(u1, e) * sc[e]);
+}
+
+// The native layout's counterpart: r holds two bytes of row k (bytes 0, 1:
+// columns c .. c + 3, the low nibble of each byte first) and the same two
+// of row k + 1 (bytes 2, 3), as ldmatrix.trans delivers them; out[q] is
+// column c + q's pair (rows k, k + 1) times s[q], rounded to bf16 once.
+__device__ __forceinline__ void native_pairs(uint32_t r, const float4& s, uint32_t (&out)[4]) {
+  const uint32_t u[2] = {(r & 0x0F0F0F0Fu) ^ 0x08080808u,           // columns c, c + 2
+                         ((r >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u};   // columns c + 1, c + 3
+  const float sc[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    out[q] = pack_bf16(nibble_f32(u[q & 1], q >> 1) * sc[q],
+                       nibble_f32(u[q & 1], 2 + (q >> 1)) * sc[q]);
 }
 
 // The A registers of two m16 tiles for one k16 step, from the words of this
@@ -340,6 +180,76 @@ __device__ __forceinline__ void a_frags(const uint32_t (&wd)[4], const float4& s
       a[j][2] = i8x_pair(wd[2], wd[3], 2 * j);
       a[j][3] = i8x_pair(wd[2], wd[3], 2 * j + 1);
     }
+  }
+}
+
+// The same for the native layout, from two ldmatrix.trans registers: r01
+// holds the thread's columns c .. c + 3 at rows k and k + 1, r89 at rows k +
+// 8 and k + 9 (column c + 2 j is m-tile j's row g, c + 2 j + 1 its row g + 8).
+__device__ __forceinline__ void native_frags(uint32_t r01, uint32_t r89, const float4& s,
+                                             uint32_t (&a)[2][4]) {
+  uint32_t p01[4], p89[4];
+  native_pairs(r01, s, p01);
+  native_pairs(r89, s, p89);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    a[j][0] = p01[2 * j];
+    a[j][1] = p01[2 * j + 1];
+    a[j][2] = p89[2 * j];
+    a[j][3] = p89[2 * j + 1];
+  }
+}
+
+// k16 steps of a slab: int8 a slab is 16 rows, one step; split-half int4 16
+// packed rows, two steps (the low nibbles, then the high); native int4 32
+// rows, two steps. Every slab of int4 is one 32-row scale block.
+template <Lay L>
+__host__ __device__ constexpr int slab_steps() { return L == I8 ? 1 : 2; }
+
+// The bytes behind warp w's A registers for slab `sl` of a 128-column
+// weight tile in shared memory as TMA wrote it (a decode stage, or a
+// warpgroup's box of a prefill stage): int8 and split-half int4 rows of 128
+// bytes, 128-byte swizzled; native rows of 64 bytes, 64-byte swizzled.
+// m-tile j's row g is column 4 (8 w + g) + 2 j of the tile and its row g + 8
+// the next column: the columns are permuted inside the warp, and the stores
+// undo it. Byte layouts: one 4-byte load at each of the thread's rows k, k +
+// 1, k + 8, k + 9 (k = 16 sl + 2 t) brings its four columns. Native: lane l
+// gives row 32 sl + l of the warp's 16-byte column of the slab to one
+// ldmatrix.x4.trans, whose four 8-row matrices return the thread's two bytes
+// (its four columns) of rows k and k + 1, then k + 8 and k + 9, of each of
+// the slab's two k16 steps.
+template <Lay L>
+__device__ __forceinline__ void slab_load(const unsigned char* tile, int sl, int w, int lane,
+                                          uint32_t (&raw)[4]) {
+  if constexpr (L == I4N) {
+    const int row = 32 * sl + lane;
+    warp_mma::ldmatrix_x4_trans(raw, tile + row * 64 + (((w ^ (row >> 1)) & 3) << 4));
+  } else {
+    const int wc = 4 * (8 * w + lane / 4);   // the thread's byte column of the tile
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int row = 16 * sl + 2 * (lane % 4) + (q & 1) + 8 * (q >> 1);
+      raw[q] = *reinterpret_cast<const uint32_t*>(tile + row * 128 +
+                                                  ((((wc >> 4) ^ row) & 7) << 4) + (wc & 15));
+    }
+  }
+}
+
+// The A registers of the warp's two m16 tiles for k16 step h of the slab,
+// from slab_load's bytes; s: the thread's four columns' block scales of the
+// slab (int4).
+template <Lay L>
+__device__ __forceinline__ void step_frags(const uint32_t (&raw)[4], const float4& s, int h,
+                                           uint32_t (&a)[2][4]) {
+  if constexpr (L == I4N) {
+    native_frags(raw[2 * h], raw[2 * h + 1], s, a);
+  } else if constexpr (L == I4) {
+    if (h == 0)
+      a_frags<true, false>(raw, s, a);
+    else
+      a_frags<true, true>(raw, s, a);
+  } else {
+    a_frags<false, false>(raw, s, a);
   }
 }
 
@@ -406,62 +316,129 @@ __device__ __forceinline__ bool last_of_tile(int* counters, int tile, int splits
 // -- decode rows: the weight stream over every SM ---------------------------------
 
 constexpr int SN = 128;             // weight columns of a strip: 32 per warp
-constexpr int SK = 64;              // byte rows of a weight tile (one ring stage)
+constexpr int SK = 64;              // 128-byte rows of a byte layout's tile (8 KB, one stage)
 constexpr int SST = 4;              // ring stages
 constexpr int SNTHREADS = 128;      // 4 warps
+constexpr int SLABS = 4;            // slabs of a stage (every layout)
 
-// k rows of a stage: a tile's 64 rows of int8, or of packed int4 (two rows
-// a byte); shared bytes of an x row of the stage
-template <bool INT4>
-__host__ __device__ constexpr int stream_krows() { return INT4 ? 2 * SK : SK; }
-template <bool INT4>
-__host__ __device__ constexpr int stream_ldx() { return 2 * stream_krows<INT4>() + 16; }
+// k rows of a stage: int8 a tile's 64 rows; int4 its 64 packed rows (two k
+// a byte); native int4 128 rows of 64 bytes (the same 8 KB); shared bytes
+// of an x row of the stage
+template <Lay L>
+__host__ __device__ constexpr int stream_krows() { return L == I8 ? SK : 2 * SK; }
+template <Lay L>
+__host__ __device__ constexpr int stream_ldx() { return 2 * stream_krows<L>() + 16; }
 
-// A stage: the weight tile (64 rows x 128 bytes, 128-byte swizzled by TMA),
-// the x tile and (int4) the strip's block scales of the stage's k rows,
-// rounded to the 1024 bytes a swizzled tile starts on.
-template <int NR, bool INT4>
+// A stage: the 8 KB weight tile (swizzled by TMA), the x tile and (int4)
+// the strip's block scales of the stage's k rows, rounded to the 1024 bytes
+// a swizzled tile starts on.
+template <int NR, Lay L>
 __host__ __device__ constexpr int stream_stage() {
-  return (SK * SN + 8 * NR * stream_ldx<INT4>() + (INT4 ? 2 * SK / QBLOCK * SN * 4 : 0) +
+  return (SK * SN + 8 * NR * stream_ldx<L>() + (L != I8 ? 2 * SK / QBLOCK * SN * 4 : 0) +
           1023) / 1024 * 1024;
 }
 
-template <int NR, bool INT4>
+template <int NR, Lay L>
 __host__ __device__ constexpr int stream_smem() {
-  return SST * stream_stage<NR, INT4>() + SST * 8 + 1024;   // + the mbarriers, + alignment
+  return SST * stream_stage<NR, L>() + SST * 8 + 1024;   // + the mbarriers, + alignment
+}
+
+// x's B fragments of the stage's k16 step ks by ldmatrix, from the x tile
+// (8 NR rows of XLD bytes): matrix 2 m + h is rows 8 (n + m) .. + 7, k 16 ks
+// + 8 h .. + 7.
+template <int NR, int XLD>
+__device__ __forceinline__ void x_frags(const unsigned char* xt, int ks, int lane,
+                                        uint32_t (&b)[NR][2]) {
+  const int m8 = lane / 8;
+  if constexpr (NR == 1) {
+    warp_mma::ldmatrix_x2(b[0], xt + (lane % 8) * XLD + 2 * (16 * ks + 8 * (m8 & 1)));
+  } else {
+#pragma unroll
+    for (int n = 0; n < NR; n += 2) {
+      uint32_t r[4];
+      warp_mma::ldmatrix_x4(r, xt + (8 * (n + m8 / 2) + lane % 8) * XLD +
+                                   2 * (16 * ks + 8 * (m8 & 1)));
+      b[n][0] = r[0];
+      b[n][1] = r[1];
+      b[n + 1][0] = r[2];
+      b[n + 1][1] = r[3];
+    }
+  }
+}
+
+// One k16 step of the warp's products: two m16 tiles of the weight (a) by
+// NR n8 tiles of x (b) into acc.
+template <int NR>
+__device__ __forceinline__ void mma_step(float (&acc)[2][NR][4], const uint32_t (&a)[2][4],
+                                         const uint32_t (&b)[NR][2]) {
+#pragma unroll
+  for (int n = 0; n < NR; ++n) {
+    warp_mma::mma_16816(acc[0][n], a[0], b[n][0], b[n][1]);
+    warp_mma::mma_16816(acc[1][n], a[1], b[n][0], b[n][1]);
+  }
+}
+
+// One 32-row slab of a native decode stage: the warp's A registers by
+// slab_load (one ldmatrix.x4.trans) and native_frags, times its four
+// columns' scales s, against x's fragments, two k16 steps. With four or
+// more n8 tiles both steps' x fragments come first, then both steps'
+// conversion, then the products (measured 7-26% faster at 48 rows than
+// step by step, which is as fast at 1 and 16 rows).
+template <int NR, int XLD>
+__device__ __forceinline__ void native_slab(const unsigned char* wt, const unsigned char* xt,
+                                            const float4& s, int sl, int warp, int lane,
+                                            float (&acc)[2][NR][4]) {
+  uint32_t raw[4];
+  slab_load<I4N>(wt, sl, warp, lane, raw);
+  if constexpr (NR >= 4) {
+    uint32_t b[2][NR][2], a[2][2][4];
+    x_frags<NR, XLD>(xt, 2 * sl, lane, b[0]);
+    x_frags<NR, XLD>(xt, 2 * sl + 1, lane, b[1]);
+    native_frags(raw[0], raw[1], s, a[0]);
+    native_frags(raw[2], raw[3], s, a[1]);
+    mma_step<NR>(acc, a[0], b[0]);
+    mma_step<NR>(acc, a[1], b[1]);
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t a[2][4], b[NR][2];
+      native_frags(raw[2 * h], raw[2 * h + 1], s, a);
+      x_frags<NR, XLD>(xt, 2 * sl + h, lane, b);
+      mma_step<NR>(acc, a, b);
+    }
+  }
 }
 
 // One block per (strip of 128 weight columns, K chunk); the plan
-// (ops/quant_matmul.int8_plan, int4_plan) picks the chunks so that two or
-// three blocks of every SM stream about the same bytes. Thread 0 brings each
-// 64 x 128 weight tile with one TMA load (a map made once per weight and kept
-// by the wrapper), SST - 1 tiles ahead; the threads copy x's tile (and, for
-// int4, the strip's block scales) beside it with cp.async. Warp w owns
-// columns 32 w .. 32 w + 31 of the strip over every k step of the chunk, so
-// no sums cross warps. The product is transposed, out^T = W^T x^T: the
-// weight is mma's A side (m16) and x's 8 NR rows the n8 side, so a decode
-// row costs one n8 tile, not a padded m16. A thread's A registers come from
-// one 4-byte load at each of its 4 rows of a 16-row slab: columns 32 w + 4 g
-// .. + 3, which are rows g and g + 8 of m-tiles 0 and 1 (the columns
-// permuted inside the warp, undone where the sums are stored). int8: a slab
-// is one k16 step; int4: a slab is a 32-row scale block, its low nibbles
-// one k16 step and its high nibbles the next, each converted with the
-// thread's four scales of the block. With one chunk the block writes its
-// columns (int8: scaled); otherwise it writes its f32 part to the workspace,
-// and the last block of the strip to count in (a counter per strip, reset by
-// that block) sums the parts in chunk order, scales and writes:
-// deterministic, one launch.
-template <int NR, bool OUT_F32, bool INT4>
+// (ops/quant_matmul.int8_plan, int4_plan, int4n_plan) picks the chunks so
+// that two or three blocks of every SM stream about the same bytes. Thread
+// 0 brings each 8 KB weight tile with one TMA load (a map made once per
+// weight and kept by the wrapper), SST - 1 tiles ahead; the threads copy
+// x's tile (and, for int4, the strip's block scales) beside it with
+// cp.async. Warp w owns columns 32 w .. 32 w + 31 of the strip over every k
+// step of the chunk, so no sums cross warps. The product is transposed,
+// out^T = W^T x^T: the weight is mma's A side (m16) and x's 8 NR rows the n8
+// side, so a decode row costs one n8 tile, not a padded m16. A thread's A
+// registers come from one 4-byte load at each of its rows (int8, int4) or
+// from native_slab: its columns 32 w + 4 g .. + 3 are rows g and g + 8 of
+// m-tiles 0 and 1 (permuted inside the warp, undone where the sums are
+// stored); int4 converts them with the thread's four scales of the slab's
+// block. With one chunk the block writes its columns (int8: scaled);
+// otherwise it writes its f32 part to the workspace, and the last block of
+// the strip to count in (a counter per strip, reset by that block) sums the
+// parts in chunk order, scales and writes: deterministic, one launch.
+template <int NR, bool OUT_F32, Lay L>
 __device__ __forceinline__ void stream_body(const CUtensorMap* w_map,
                                             const __nv_bfloat16* __restrict__ x,
                                             const float* __restrict__ scale,
                                             void* __restrict__ out, float* __restrict__ ws,
                                             int* __restrict__ counters, int R, int K, int N,
                                             int ldx, int splits) {
+  constexpr bool NIB = L != I8;   // int4 values, block scales beside each stage
   constexpr int ROWS = 8 * NR;
-  constexpr int KR = stream_krows<INT4>();
-  constexpr int XLD = stream_ldx<INT4>();
-  constexpr int stage = stream_stage<NR, INT4>();
+  constexpr int KR = stream_krows<L>();
+  constexpr int XLD = stream_ldx<L>();
+  constexpr int stage = stream_stage<NR, L>();
   constexpr int SCALE_OFF = SK * SN + ROWS * XLD;   // int4: the stage's [KR / 32][SN] scales
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
@@ -484,7 +461,8 @@ __device__ __forceinline__ void stream_body(const CUtensorMap* w_map,
   }
   __syncthreads();
 
-  // tile i into stage i % SST: the weight by TMA (thread 0; columns past N
+  // tile i into stage i % SST: the weight by TMA (thread 0: byte column n0,
+  // or n0 / 2 for native; row k0, or k0 / 2 for split-half; bytes past N
   // read as zeros), x by cp.async (rows past R zero-filled), int4's scales
   // by cp.async (columns past N zero-filled)
   auto load_tile = [&](int i) {
@@ -492,7 +470,8 @@ __device__ __forceinline__ void stream_body(const CUtensorMap* w_map,
     const int k0 = (kt0 + i) * KR;
     if (tid == 0) {
       mbar_expect_tx(&full[i % SST], SK * SN);
-      hopper::tma_load_2d(st, w_map, &full[i % SST], n0, INT4 ? k0 / 2 : k0);
+      hopper::tma_load_2d(st, w_map, &full[i % SST], L == I4N ? n0 / 2 : n0,
+                          L == I4 ? k0 / 2 : k0);
     }
     for (int e = tid; e < ROWS * (KR / 8); e += SNTHREADS) {
       const int r = e / (KR / 8), ch = e % (KR / 8);
@@ -500,7 +479,7 @@ __device__ __forceinline__ void stream_body(const CUtensorMap* w_map,
       warp_mma::cp_async16(st + SK * SN + r * XLD + 16 * ch,
                            x + (size_t)(in ? r : 0) * ldx + k0 + 8 * ch, in);
     }
-    if constexpr (INT4) {
+    if constexpr (NIB) {
       static_assert(KR / QBLOCK * SN / 4 == SNTHREADS, "one 16-byte scale copy a thread");
       const int r = tid / (SN / 4), col = n0 + 4 * (tid % (SN / 4));
       const bool in = col < N;
@@ -535,48 +514,55 @@ __device__ __forceinline__ void stream_body(const CUtensorMap* w_map,
     const unsigned char* wt = smem + (i % SST) * stage;
     const unsigned char* xt = wt + SK * SN;
 #pragma unroll
-    for (int sl = 0; sl < SK / 16; ++sl) {
-      const int k = 16 * sl + 2 * t;   // this thread's rows k, k + 1, k + 8, k + 9
-      uint32_t wd[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int row = k + (q & 1) + 8 * (q >> 1);   // 128-byte swizzled rows
-        wd[q] = *reinterpret_cast<const uint32_t*>(wt + row * SN +
-                                                   ((((wc >> 4) ^ row) & 7) << 4) + (wc & 15));
-      }
+    for (int sl = 0; sl < SLABS; ++sl) {
       float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-      if constexpr (INT4)
+      if constexpr (L == I4N) {
         s = *reinterpret_cast<const float4*>(wt + SCALE_OFF + 4 * (sl * SN + wc));
+        native_slab<NR, XLD>(wt, xt, s, sl, warp, lane, acc);
+      } else {
+        // the byte layouts, written out in full (the same work through
+        // slab_load and x_frags measured 5-9% slower at 1 and 16 rows)
+        const int k = 16 * sl + 2 * t;   // this thread's rows k, k + 1, k + 8, k + 9
+        uint32_t wd[4];
 #pragma unroll
-      for (int h = 0; h < (INT4 ? 2 : 1); ++h) {
-        const int ks = INT4 ? 2 * sl + h : sl;   // the k16 step of the stage
-        uint32_t a[2][4];
-        if (h == 0)
-          a_frags<INT4, false>(wd, s, a);
-        else
-          a_frags<INT4, true>(wd, s, a);
-        // x's B fragments by ldmatrix: matrix 2 m + h is rows 8 (n + m) .. + 7,
-        // k 16 ks + 8 h .. + 7
-        uint32_t b[NR][2];
-        const int m8 = lane / 8;
-        if constexpr (NR == 1) {
-          warp_mma::ldmatrix_x2(b[0], xt + (lane % 8) * XLD + 2 * (16 * ks + 8 * (m8 & 1)));
-        } else {
-#pragma unroll
-          for (int n = 0; n < NR; n += 2) {
-            uint32_t r[4];
-            warp_mma::ldmatrix_x4(r, xt + (8 * (n + m8 / 2) + lane % 8) * XLD +
-                                         2 * (16 * ks + 8 * (m8 & 1)));
-            b[n][0] = r[0];
-            b[n][1] = r[1];
-            b[n + 1][0] = r[2];
-            b[n + 1][1] = r[3];
-          }
+        for (int q = 0; q < 4; ++q) {
+          const int row = k + (q & 1) + 8 * (q >> 1);   // 128-byte swizzled rows
+          wd[q] = *reinterpret_cast<const uint32_t*>(wt + row * SN +
+                                                     ((((wc >> 4) ^ row) & 7) << 4) + (wc & 15));
         }
+        if constexpr (NIB)
+          s = *reinterpret_cast<const float4*>(wt + SCALE_OFF + 4 * (sl * SN + wc));
 #pragma unroll
-        for (int n = 0; n < NR; ++n) {
-          warp_mma::mma_16816(acc[0][n], a[0], b[n][0], b[n][1]);
-          warp_mma::mma_16816(acc[1][n], a[1], b[n][0], b[n][1]);
+        for (int h = 0; h < slab_steps<L>(); ++h) {
+          const int ks = slab_steps<L>() * sl + h;   // the k16 step of the stage
+          uint32_t a[2][4];
+          if (h == 0)
+            a_frags<NIB, false>(wd, s, a);
+          else
+            a_frags<NIB, true>(wd, s, a);
+          // x's B fragments by ldmatrix: matrix 2 m + h is rows 8 (n + m) ..
+          // + 7, k 16 ks + 8 h .. + 7
+          uint32_t b[NR][2];
+          const int m8 = lane / 8;
+          if constexpr (NR == 1) {
+            warp_mma::ldmatrix_x2(b[0], xt + (lane % 8) * XLD + 2 * (16 * ks + 8 * (m8 & 1)));
+          } else {
+#pragma unroll
+            for (int n = 0; n < NR; n += 2) {
+              uint32_t r[4];
+              warp_mma::ldmatrix_x4(r, xt + (8 * (n + m8 / 2) + lane % 8) * XLD +
+                                           2 * (16 * ks + 8 * (m8 & 1)));
+              b[n][0] = r[0];
+              b[n][1] = r[1];
+              b[n + 1][0] = r[2];
+              b[n + 1][1] = r[3];
+            }
+          }
+#pragma unroll
+          for (int n = 0; n < NR; ++n) {
+            warp_mma::mma_16816(acc[0][n], a[0], b[n][0], b[n][1]);
+            warp_mma::mma_16816(acc[1][n], a[1], b[n][0], b[n][1]);
+          }
         }
       }
     }
@@ -584,7 +570,7 @@ __device__ __forceinline__ void stream_body(const CUtensorMap* w_map,
 
   // acc[j][n] holds (column wc + 2 j, x row 8 n + 2 t), (that column, row +
   // 1), then column + 1 for both rows
-  const float* col_scale = INT4 ? nullptr : scale;
+  const float* col_scale = NIB ? nullptr : scale;
   const int col = n0 + wc;
   if (col < N) {
 #pragma unroll
@@ -613,7 +599,7 @@ int8_stream_kernel(const __grid_constant__ CUtensorMap w_map,
                    const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
                    void* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
                    int R, int K, int N, int ldx, int splits) {
-  stream_body<NR, OUT_F32, false>(&w_map, x, scale, out, ws, counters, R, K, N, ldx, splits);
+  stream_body<NR, OUT_F32, I8>(&w_map, x, scale, out, ws, counters, R, K, N, ldx, splits);
 }
 
 template <int NR, bool OUT_F32>
@@ -622,7 +608,16 @@ int4_stream_kernel(const __grid_constant__ CUtensorMap w_map,
                    const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
                    void* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
                    int R, int K, int N, int ldx, int splits) {
-  stream_body<NR, OUT_F32, true>(&w_map, x, scale, out, ws, counters, R, K, N, ldx, splits);
+  stream_body<NR, OUT_F32, I4>(&w_map, x, scale, out, ws, counters, R, K, N, ldx, splits);
+}
+
+template <int NR, bool OUT_F32>
+__global__ void __launch_bounds__(SNTHREADS)
+int4n_stream_kernel(const __grid_constant__ CUtensorMap w_map,
+                    const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
+                    void* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
+                    int R, int K, int N, int ldx, int splits) {
+  stream_body<NR, OUT_F32, I4N>(&w_map, x, scale, out, ws, counters, R, K, N, ldx, splits);
 }
 
 // -- prefill and training rows: wgmma -------------------------------------------
@@ -635,46 +630,49 @@ constexpr int PNTHREADS = 256;         // two consumer warpgroups
 constexpr int PTILE = PX_ROWS * PW_COLS;   // f32 sums of a partial tile
 
 // A stage: the x tile; two weight boxes of 128 columns (int8: 64 rows of
-// bytes; int4: 32 packed rows); int4's block scales of its 256 columns (two
-// rows of f32, unswizzled). Ring stages: as many as fit.
-template <bool INT4>
-__host__ __device__ constexpr int pw_box() { return (INT4 ? PK / 2 : PK) * 128; }
-template <bool INT4>
+// 128 bytes; int4: 32 packed rows of 128 bytes; native: 64 rows of 64
+// bytes); int4's block scales of its 256 columns (two rows of f32,
+// unswizzled). Ring stages: as many as fit.
+template <Lay L>
+__host__ __device__ constexpr int pw_box() { return L == I8 ? PK * 128 : PK * 64; }
+template <Lay L>
 __host__ __device__ constexpr int pstage() {
-  return PX_BYTES + 2 * pw_box<INT4>() + (INT4 ? PK / QBLOCK * PW_COLS * 4 : 0);
+  return PX_BYTES + 2 * pw_box<L>() + (L != I8 ? PK / QBLOCK * PW_COLS * 4 : 0);
 }
-template <bool INT4>
-__host__ __device__ constexpr int pstages() { return INT4 ? 8 : 6; }
-template <bool INT4>
+template <Lay L>
+__host__ __device__ constexpr int pstages() { return L != I8 ? 8 : 6; }
+template <Lay L>
 __host__ __device__ constexpr int psmem() {
-  return pstages<INT4>() * pstage<INT4>() + 2 * pstages<INT4>() * 8 + 1024;
+  return pstages<L>() * pstage<L>() + 2 * pstages<L>() * 8 + 1024;
 }
 
 // One block per (256 weight columns, 128 x rows[, K chunk]) (which tiles
 // are cut into K chunks: wgmma_entry). The product is transposed, out^T =
-// W^T x^T, so the weight is wgmma's register operand A: each thread reads
-// its bytes straight from the TMA-fed, 128-byte-swizzled weight box of its
-// warpgroup (one 4-byte load a row: columns 4 (8 w + g) .. + 3, which are
-// rows g and g + 8 of m-tiles 0 and 1, the columns permuted inside the
-// warpgroup's 128 and undone at the store), converts them to bf16 pairs in
-// registers (int8 exactly; int4 a 16-row slab of packed rows as two k16
-// steps, times the block scales of the stage) and issues m64n128k16 with x's
-// tile (128 rows, K-major, swizzled) as B from shared memory. The bf16
-// weights never touch shared memory. Two register sets of A: step i + 1 is
+// W^T x^T, so the weight is wgmma's register operand A: each warp of a
+// warpgroup takes its A registers for a slab from the TMA-fed, swizzled
+// weight box of its warpgroup (slab_load: columns 4 (8 w + g) .. + 3 of the
+// box, which are rows g and g + 8 of m-tiles 0 and 1, permuted inside the
+// warpgroup's 128 and undone at the store), converted to bf16 pairs in
+// registers (int8 exactly; int4, in either layout, two k16 steps a slab,
+// times the block scales of the stage) and issues m64n128k16 with x's tile
+// (128 rows, K-major, swizzled) as B from shared memory. The bf16 weights
+// never touch shared memory. Two register sets of A: step i + 1 is
 // converted while step i's eight products run, and the set is written only
 // after the products that read it have retired (ptxas then keeps the wgmma
 // pipelined). Thread 0 issues the TMA loads, a ring's depth ahead.
-template <bool INT4>
+template <Lay L>
 __device__ __forceinline__ void wgmma_body(const CUtensorMap* x_map, const CUtensorMap* w_map,
                                            const CUtensorMap* s_map,
                                            const float* __restrict__ scale,
                                            void* __restrict__ out, float* __restrict__ ws,
                                            int* __restrict__ counters, int R, int K, int N,
                                            int splits, int dp_tiles, int out_f32) {
-  constexpr int PST = pstages<INT4>();
-  constexpr int PSTAGE = pstage<INT4>();
-  constexpr int BOX = pw_box<INT4>();
+  constexpr bool NIB = L != I8;
+  constexpr int PST = pstages<L>();
+  constexpr int PSTAGE = pstage<L>();
+  constexpr int BOX = pw_box<L>();
   constexpr int SCALE_OFF = PX_BYTES + 2 * BOX;   // int4: [2][256] f32 block scales
+  constexpr int KS = slab_steps<L>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + PST * PSTAGE);
@@ -708,22 +706,26 @@ __device__ __forceinline__ void wgmma_body(const CUtensorMap* x_map, const CUten
   }
   __syncthreads();
 
-  // stage j % PST gets x tile j, both weight boxes and (int4) their scales
+  // stage j % PST gets x tile j, both weight boxes (byte columns n0 and n0
+  // + 128, or n0 / 2 and n0 / 2 + 64 for native; rows k0, or k0 / 2 for
+  // split-half) and (int4) their scales
   auto load = [&](int j) {
     const int s = j % PST;
     const int k0 = (kt0 + j) * PK;
-    const int wrow = INT4 ? k0 / 2 : k0;
+    const int wrow = L == I4 ? k0 / 2 : k0;
+    const int wbyte = L == I4N ? n0 / 2 : n0;
     unsigned char* st = smem + s * PSTAGE;
     mbar_expect_tx(&full[s], PSTAGE);
     hopper::tma_load_2d(st, x_map, &full[s], k0, m0);
-    hopper::tma_load_2d(st + PX_BYTES, w_map, &full[s], n0, wrow);
-    hopper::tma_load_2d(st + PX_BYTES + BOX, w_map, &full[s], n0 + 128, wrow);
-    if constexpr (INT4) hopper::tma_load_2d(st + SCALE_OFF, s_map, &full[s], n0, k0 / QBLOCK);
+    hopper::tma_load_2d(st + PX_BYTES, w_map, &full[s], wbyte, wrow);
+    hopper::tma_load_2d(st + PX_BYTES + BOX, w_map, &full[s], wbyte + (L == I4N ? 64 : 128),
+                        wrow);
+    if constexpr (NIB) hopper::tma_load_2d(st + SCALE_OFF, s_map, &full[s], n0, k0 / QBLOCK);
   };
   if (tid == 0) {
     hopper::prefetch_map(x_map);
     hopper::prefetch_map(w_map);
-    if constexpr (INT4) hopper::prefetch_map(s_map);
+    if constexpr (NIB) hopper::prefetch_map(s_map);
     for (int j = 0; j < PST && j < nt; ++j) load(j);
   }
   __syncwarp();
@@ -733,7 +735,7 @@ __device__ __forceinline__ void wgmma_body(const CUtensorMap* x_map, const CUten
   const int wg = __shfl_sync(FULL, tid / 128, 0);
   const int w = warp % 4;
   const int g = lane / 4, t = lane % 4;
-  const int wcol = 4 * (8 * w + g);   // byte column of this thread's words in the box
+  const int wc = 4 * (8 * w + g);   // this thread's 4 columns of the warpgroup's 128
   float acc[2][64];
 #pragma unroll
   for (int j = 0; j < 2; ++j)
@@ -746,22 +748,15 @@ __device__ __forceinline__ void wgmma_body(const CUtensorMap* x_map, const CUten
     const unsigned char* st = smem + s * PSTAGE;
     const unsigned char* box = st + PX_BYTES + wg * BOX;
 #pragma unroll
-    for (int sl = 0; sl < (INT4 ? 2 : 4); ++sl) {
-      uint32_t wd[4];   // rows k, k + 1, k + 8, k + 9 of the slab (the box is 128-byte swizzled)
+    for (int sl = 0; sl < 4 / KS; ++sl) {
+      uint32_t raw[4];
+      slab_load<L>(box, sl, w, lane, raw);
+      float4 sc = make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (NIB)
+        sc = *reinterpret_cast<const float4*>(st + SCALE_OFF +
+                                              4 * (sl * PW_COLS + 128 * wg + wc));
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int k = 16 * sl + 2 * t + (q & 1) + 8 * (q >> 1);
-        wd[q] = *reinterpret_cast<const uint32_t*>(
-            box + k * 128 + ((((wcol >> 4) ^ k) & 7) << 4) + (wcol & 15));
-      }
-      if constexpr (INT4) {
-        const float4 sc = *reinterpret_cast<const float4*>(
-            st + SCALE_OFF + 4 * (sl * PW_COLS + 128 * wg + wcol));
-        a_frags<true, false>(wd, sc, A[2 * sl]);
-        a_frags<true, true>(wd, sc, A[2 * sl + 1]);
-      } else {
-        a_frags<false, false>(wd, make_float4(0.f, 0.f, 0.f, 0.f), A[sl]);
-      }
+      for (int h = 0; h < KS; ++h) step_frags<L>(raw, sc, h, A[KS * sl + h]);
     }
   };
   auto issue = [&](uint32_t (&A)[4][2][4], int i) {
@@ -805,10 +800,10 @@ __device__ __forceinline__ void wgmma_body(const CUtensorMap* x_map, const CUten
     retire(a1, i + 1);
   }
 
-  // acc[j][4 n + e]: weight column 4 (8 w + g) + 2 j (e < 2) or + 2 j + 1
-  // (e >= 2) of the warpgroup's 128, x row 8 n + 2 t + e % 2
-  const float* col_scale = INT4 ? nullptr : scale;
-  const int col = n0 + 128 * wg + wcol;
+  // acc[j][4 n + e]: weight column wc + 2 j (e < 2) or + 2 j + 1 (e >= 2)
+  // of the warpgroup's 128, x row 8 n + 2 t + e % 2
+  const float* col_scale = NIB ? nullptr : scale;
+  const int col = n0 + 128 * wg + wc;
   if (col < N) {
 #pragma unroll
     for (int n = 0; n < 16; ++n)
@@ -843,8 +838,8 @@ int8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                   const __grid_constant__ CUtensorMap w_map, const float* __restrict__ scale,
                   void* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
                   int R, int K, int N, int splits, int dp_tiles, int out_f32) {
-  wgmma_body<false>(&x_map, &w_map, nullptr, scale, out, ws, counters, R, K, N, splits,
-                    dp_tiles, out_f32);
+  wgmma_body<I8>(&x_map, &w_map, nullptr, scale, out, ws, counters, R, K, N, splits, dp_tiles,
+                 out_f32);
 }
 
 __global__ void __launch_bounds__(PNTHREADS, 1)
@@ -853,20 +848,32 @@ int4_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                   const __grid_constant__ CUtensorMap s_map, void* __restrict__ out,
                   float* __restrict__ ws, int* __restrict__ counters, int R, int K, int N,
                   int splits, int dp_tiles, int out_f32) {
-  wgmma_body<true>(&x_map, &w_map, &s_map, nullptr, out, ws, counters, R, K, N, splits,
-                   dp_tiles, out_f32);
+  wgmma_body<I4>(&x_map, &w_map, &s_map, nullptr, out, ws, counters, R, K, N, splits, dp_tiles,
+                 out_f32);
 }
 
-template <int NR, bool OUT_F32, bool INT4>
+__global__ void __launch_bounds__(PNTHREADS, 1)
+int4n_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                   const __grid_constant__ CUtensorMap w_map,
+                   const __grid_constant__ CUtensorMap s_map, void* __restrict__ out,
+                   float* __restrict__ ws, int* __restrict__ counters, int R, int K, int N,
+                   int splits, int dp_tiles, int out_f32) {
+  wgmma_body<I4N>(&x_map, &w_map, &s_map, nullptr, out, ws, counters, R, K, N, splits,
+                  dp_tiles, out_f32);
+}
+
+template <int NR, bool OUT_F32, Lay L>
 int launch_stream(const CUtensorMap& w_map, const void* x, const void* scale, void* out,
                   void* ws, void* counters, int R, int K, int N, int ldx, int splits,
                   cudaStream_t st) {
-  constexpr int smem = stream_smem<NR, INT4>();
+  constexpr int smem = stream_smem<NR, L>();
   const auto kernel = [] {
-    if constexpr (INT4)
+    if constexpr (L == I8)
+      return int8_stream_kernel<NR, OUT_F32>;
+    else if constexpr (L == I4)
       return int4_stream_kernel<NR, OUT_F32>;
     else
-      return int8_stream_kernel<NR, OUT_F32>;
+      return int4n_stream_kernel<NR, OUT_F32>;
   }();
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -877,56 +884,59 @@ int launch_stream(const CUtensorMap& w_map, const void* x, const void* scale, vo
   return (int)cudaGetLastError();
 }
 
-// x rows a decode block holds, at most: int8's cut is 32 rows, int4's 48
-// (ops/quant_matmul.INT8_CUT, INT4_CUT)
-template <bool INT4>
-constexpr int stream_max_rows() { return INT4 ? 48 : 32; }
+// x rows a decode block holds, at most: int8's cut is 32 rows, int4's and
+// int4n's 48 at most (ops/quant_matmul.INT8_CUT, INT4_CUT, INT4N_CUT)
+template <Lay L>
+constexpr int stream_max_rows() { return L == I8 ? 32 : 48; }
 
-template <bool OUT_F32, bool INT4>
+template <bool OUT_F32, Lay L>
 int stream_rows(const CUtensorMap& w_map, const void* x, const void* scale, void* out,
                 void* ws, void* counters, int R, int K, int N, int ldx, int splits,
                 cudaStream_t st) {
   if (R <= 8)
-    return launch_stream<1, OUT_F32, INT4>(w_map, x, scale, out, ws, counters, R, K, N, ldx,
-                                           splits, st);
+    return launch_stream<1, OUT_F32, L>(w_map, x, scale, out, ws, counters, R, K, N, ldx,
+                                        splits, st);
   if (R <= 16)
-    return launch_stream<2, OUT_F32, INT4>(w_map, x, scale, out, ws, counters, R, K, N, ldx,
-                                           splits, st);
-  if (!INT4 || R <= 32)
-    return launch_stream<4, OUT_F32, INT4>(w_map, x, scale, out, ws, counters, R, K, N, ldx,
-                                           splits, st);
-  if constexpr (INT4)
-    return launch_stream<6, OUT_F32, INT4>(w_map, x, scale, out, ws, counters, R, K, N, ldx,
-                                           splits, st);
+    return launch_stream<2, OUT_F32, L>(w_map, x, scale, out, ws, counters, R, K, N, ldx,
+                                        splits, st);
+  if (L == I8 || R <= 32)
+    return launch_stream<4, OUT_F32, L>(w_map, x, scale, out, ws, counters, R, K, N, ldx,
+                                        splits, st);
+  if constexpr (L != I8)
+    return launch_stream<6, OUT_F32, L>(w_map, x, scale, out, ws, counters, R, K, N, ldx,
+                                        splits, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// The decode entry points' checks and launch (INT4: the packed weight's map,
-// K the unpacked depth).
-template <bool INT4>
+// The decode entry points' checks and launch (int4: the packed weight's
+// map, K the unpacked depth; int4n writes f32 only).
+template <Lay L>
 int stream_entry(const void* x, void* out, const void* w_map, const void* scale, void* ws,
                  int ws_elems, void* counters, int n_counters, int R, int K, int N, int ldx,
                  int out_f32, int splits, void* stream) {
-  if (R < 1 || R > stream_max_rows<INT4>() || splits < 1 || !w_map)
+  if (R < 1 || R > stream_max_rows<L>() || splits < 1 || !w_map || (L == I4N && !out_f32))
     return (int)cudaErrorInvalidValue;
   if (splits > 1 && (!ws || !counters || ws_elems < (long long)splits * R * N ||
                      n_counters < (N + SN - 1) / SN))
     return (int)cudaErrorInvalidValue;
   const CUtensorMap& map = *static_cast<const CUtensorMap*>(w_map);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return out_f32 ? stream_rows<true, INT4>(map, x, scale, out, ws, counters, R, K, N, ldx,
-                                           splits, st)
-                 : stream_rows<false, INT4>(map, x, scale, out, ws, counters, R, K, N, ldx,
-                                            splits, st);
+  if constexpr (L == I4N)
+    return stream_rows<true, L>(map, x, scale, out, ws, counters, R, K, N, ldx, splits, st);
+  else
+    return out_f32 ? stream_rows<true, L>(map, x, scale, out, ws, counters, R, K, N, ldx,
+                                          splits, st)
+                   : stream_rows<false, L>(map, x, scale, out, ws, counters, R, K, N, ldx,
+                                           splits, st);
 }
 
 // The prefill entry points' checks, maps and launch.
-template <bool INT4>
+template <Lay L>
 int wgmma_entry(const void* x, void* out, const void* qw, const void* scale, void* ws,
                 int ws_elems, void* counters, int n_counters, int R, int K, int N, int ldx,
                 int out_f32, int splits, int dp_tiles, void* stream) {
   const int tiles = ((N + PW_COLS - 1) / PW_COLS) * ((R + PX_ROWS - 1) / PX_ROWS);
-  if (R < 1 || splits < 1 || dp_tiles < 0 || dp_tiles > tiles)
+  if (R < 1 || splits < 1 || dp_tiles < 0 || dp_tiles > tiles || (L == I4N && !out_f32))
     return (int)cudaErrorInvalidValue;
   if (splits > 1 && dp_tiles < tiles &&
       (!ws || !counters || n_counters < tiles ||
@@ -935,31 +945,36 @@ int wgmma_entry(const void* x, void* out, const void* qw, const void* scale, voi
   CUtensorMap x_map, w_map, s_map;
   int err = hopper::make_map_2d(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, R, 2ll * ldx,
                                 PK, PX_ROWS);
-  if (!err)
-    err = hopper::make_map_2d(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, qw, N, INT4 ? K / 2 : K,
-                              N, 128, INT4 ? PK / 2 : PK);
-  if (!err && INT4)
+  if (!err) {
+    if constexpr (L == I4N)   // [K, N/2] bytes, boxes of 64 rows x 64 bytes
+      err = hopper::make_map_2d(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, qw, N / 2, K, N / 2, 64,
+                                PK, CU_TENSOR_MAP_SWIZZLE_64B);
+    else
+      err = hopper::make_map_2d(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, qw, N,
+                                L == I4 ? K / 2 : K, N, 128, L == I4 ? PK / 2 : PK);
+  }
+  if (!err && L != I8)
     err = hopper::make_map_2d(&s_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scale, N, K / QBLOCK,
                               4ll * N, PW_COLS, PK / QBLOCK, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err) return err;
-  constexpr int smem = psmem<INT4>();
+  constexpr int smem = psmem<L>();
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int grid = dp_tiles + (tiles - dp_tiles) * splits;
   cudaError_t cerr;
-  if constexpr (INT4) {
-    cerr = cudaFuncSetAttribute(int4_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                smem);
-    if (cerr != cudaSuccess) return (int)cerr;
-    int4_wgmma_kernel<<<grid, PNTHREADS, smem, st>>>(
-        x_map, w_map, s_map, out, static_cast<float*>(ws), static_cast<int*>(counters), R, K,
-        N, splits, dp_tiles, out_f32);
-  } else {
+  if constexpr (L == I8) {
     cerr = cudaFuncSetAttribute(int8_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 smem);
     if (cerr != cudaSuccess) return (int)cerr;
     int8_wgmma_kernel<<<grid, PNTHREADS, smem, st>>>(
         x_map, w_map, static_cast<const float*>(scale), out, static_cast<float*>(ws),
         static_cast<int*>(counters), R, K, N, splits, dp_tiles, out_f32);
+  } else {
+    const auto kernel = L == I4 ? int4_wgmma_kernel : int4n_wgmma_kernel;
+    cerr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (cerr != cudaSuccess) return (int)cerr;
+    kernel<<<grid, PNTHREADS, smem, st>>>(x_map, w_map, s_map, out, static_cast<float*>(ws),
+                                          static_cast<int*>(counters), R, K, N, splits, dp_tiles,
+                                          out_f32);
   }
   return (int)cudaGetLastError();
 }
@@ -970,36 +985,52 @@ int wgmma_entry(const void* x, void* out, const void* qw, const void* scale, voi
 
 // Each returns cudaGetLastError() after the launch (0 = launched).
 //
-// The TMA map of a byte weight [rows, N] as the decode kernels read it (64 x
-// 128 tiles, 128-byte swizzled): int8's [K, N], or int4's packed [K/2, N];
-// written to `map` (128 bytes, 64-byte aligned); made once per weight by the
-// caller, who keeps it.
-extern "C" int quant_matmul_weight_map(const void* qw, int rows, int N, void* map) {
-  return hopper::make_map_2d(static_cast<CUtensorMap*>(map), CU_TENSOR_MAP_DATA_TYPE_UINT8, qw,
-                             N, rows, N, qk::SN, qk::SK);
+// The TMA map of a weight as the decode kernels read it, 8 KB tiles:
+// int8's [K, N] or int4's packed [K/2, N] (`native` 0) in tiles of 64 rows x
+// 128 bytes, 128-byte swizzled; the native [K, N/2] (`native` 1) in tiles
+// of 128 rows x 64 bytes, 64-byte swizzled. `rows` x `row_bytes` is the
+// stored array. Written to `map` (128 bytes, 64-byte aligned); made once
+// per weight by the caller, who keeps it.
+extern "C" int quant_matmul_weight_map(const void* qw, int rows, int row_bytes, int native,
+                                       void* map) {
+  auto* m = static_cast<CUtensorMap*>(map);
+  if (native)
+    return hopper::make_map_2d(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, qw, row_bytes, rows, row_bytes,
+                               qk::SN / 2, 2 * qk::SK, CU_TENSOR_MAP_SWIZZLE_64B);
+  return hopper::make_map_2d(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, qw, row_bytes, rows, row_bytes,
+                             qk::SN, qk::SK);
 }
 
-// Decode rows (int8: R <= 32; int4: R <= 48): 128-column strips, each cut
-// into `splits` K chunks of whole tiles (int8: 64 k rows; int4: 128); `w_map`
-// is the weight's map from quant_matmul_weight_map; with splits > 1, `ws` is
-// the f32 workspace [splits, R, N] and `counters` an int32 buffer of
-// ceil(N / 128) zeros, left zero. `ws_elems` and `n_counters` are the
-// buffers' sizes: the geometry lives here, so a caller that sized them by
-// another is refused. int8's scale is [N] per channel, int4's [K/32, N].
+// Decode rows (int8: R <= 32; int4, int4n: R <= 48): 128-column strips,
+// each cut into `splits` K chunks of whole tiles (int8: 64 k rows; int4,
+// int4n: 128); `w_map` is the weight's map from quant_matmul_weight_map;
+// with splits > 1, `ws` is the f32 workspace [splits, R, N] and `counters`
+// an int32 buffer of ceil(N / 128) zeros, left zero. `ws_elems` and
+// `n_counters` are the buffers' sizes: the geometry lives here, so a caller
+// that sized them by another is refused. int8's scale is [N] per channel,
+// int4's and int4n's [K/32, N]; int4n takes out_f32 = 1 only.
 extern "C" int quant_matmul_int8_stream(const void* x, void* out, const void* w_map,
                                         const void* scale, void* ws, int ws_elems,
                                         void* counters, int n_counters, int R, int K, int N,
                                         int ldx, int out_f32, int splits, void* stream) {
-  return qk::stream_entry<false>(x, out, w_map, scale, ws, ws_elems, counters, n_counters, R, K,
-                                 N, ldx, out_f32, splits, stream);
+  return qk::stream_entry<qk::I8>(x, out, w_map, scale, ws, ws_elems, counters, n_counters, R,
+                                  K, N, ldx, out_f32, splits, stream);
 }
 
 extern "C" int quant_matmul_int4_stream(const void* x, void* out, const void* w_map,
                                         const void* scale, void* ws, int ws_elems,
                                         void* counters, int n_counters, int R, int K, int N,
                                         int ldx, int out_f32, int splits, void* stream) {
-  return qk::stream_entry<true>(x, out, w_map, scale, ws, ws_elems, counters, n_counters, R, K,
-                                N, ldx, out_f32, splits, stream);
+  return qk::stream_entry<qk::I4>(x, out, w_map, scale, ws, ws_elems, counters, n_counters, R,
+                                  K, N, ldx, out_f32, splits, stream);
+}
+
+extern "C" int quant_matmul_int4n_stream(const void* x, void* out, const void* w_map,
+                                         const void* scale, void* ws, int ws_elems,
+                                         void* counters, int n_counters, int R, int K, int N,
+                                         int ldx, int out_f32, int splits, void* stream) {
+  return qk::stream_entry<qk::I4N>(x, out, w_map, scale, ws, ws_elems, counters, n_counters, R,
+                                   K, N, ldx, out_f32, splits, stream);
 }
 
 // Prefill and training rows: 128-row x 256-column output tiles, the first
@@ -1008,16 +1039,16 @@ extern "C" int quant_matmul_int4_stream(const void* x, void* out, const void* w_
 // of tiles spreads over the SMs); with splits > 1, `ws` is the f32
 // workspace [tiles - dp_tiles, splits, 128, 256] and `counters` an int32
 // buffer of one zero per output tile, left zero; `ws_elems` and
-// `n_counters` are their sizes, checked here. Returns
-// hopper::TENSOR_MAP_ERROR (+ the CUDA driver's code) if a TMA map was
-// refused.
+// `n_counters` are their sizes, checked here. int4n takes out_f32 = 1 only.
+// Returns hopper::TENSOR_MAP_ERROR (+ the CUDA driver's code) if a TMA map
+// was refused.
 extern "C" int quant_matmul_int8_wgmma(const void* x, void* out, const void* qw,
                                        const void* scale, void* ws, int ws_elems,
                                        void* counters, int n_counters, int R, int K, int N,
                                        int ldx, int out_f32, int splits, int dp_tiles,
                                        void* stream) {
-  return qk::wgmma_entry<false>(x, out, qw, scale, ws, ws_elems, counters, n_counters, R, K, N,
-                                ldx, out_f32, splits, dp_tiles, stream);
+  return qk::wgmma_entry<qk::I8>(x, out, qw, scale, ws, ws_elems, counters, n_counters, R, K, N,
+                                 ldx, out_f32, splits, dp_tiles, stream);
 }
 
 extern "C" int quant_matmul_int4_wgmma(const void* x, void* out, const void* qw,
@@ -1025,13 +1056,15 @@ extern "C" int quant_matmul_int4_wgmma(const void* x, void* out, const void* qw,
                                        void* counters, int n_counters, int R, int K, int N,
                                        int ldx, int out_f32, int splits, int dp_tiles,
                                        void* stream) {
-  return qk::wgmma_entry<true>(x, out, qw, scale, ws, ws_elems, counters, n_counters, R, K, N,
-                               ldx, out_f32, splits, dp_tiles, stream);
+  return qk::wgmma_entry<qk::I4>(x, out, qw, scale, ws, ws_elems, counters, n_counters, R, K, N,
+                                 ldx, out_f32, splits, dp_tiles, stream);
 }
 
-// qw: the native [K, N/2] layout; out is always f32, as the Pallas variant's.
-extern "C" int quant_matmul_int4_native(const void* x, const void* qw, const void* scale,
-                                        void* out, int R, int K, int N, int ldx,
+extern "C" int quant_matmul_int4n_wgmma(const void* x, void* out, const void* qw,
+                                        const void* scale, void* ws, int ws_elems,
+                                        void* counters, int n_counters, int R, int K, int N,
+                                        int ldx, int out_f32, int splits, int dp_tiles,
                                         void* stream) {
-  return launch_native(x, qw, scale, out, R, K, N, ldx, static_cast<cudaStream_t>(stream));
+  return qk::wgmma_entry<qk::I4N>(x, out, qw, scale, ws, ws_elems, counters, n_counters, R, K,
+                                  N, ldx, out_f32, splits, dp_tiles, stream);
 }

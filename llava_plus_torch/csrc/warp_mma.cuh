@@ -62,6 +62,14 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
                : "r"(smem_addr(row)));
 }
 
+// The same, transposed: each thread gets (rows 2t and 2t + 1, element g) of
+// each matrix, row 2t in the low half.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
 __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* row) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])

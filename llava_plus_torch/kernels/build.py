@@ -41,13 +41,14 @@ SIGNATURES = {
     "flash_bwd_dkv_bf16": [P] * 12 + [I] * 15 + [F, P],
     "flash_bwd_dq_bf16": [P] * 10 + [I] * 14 + [F, P],
     "decode_attention_fwd": [P] * 11 + [I] * 15 + [F, P],
-    "quant_matmul_weight_map": [P, I, I, P],
+    "quant_matmul_weight_map": [P, I, I, I, P],
     # x and out lead, so that a wrapper can keep the rest of a launch's arguments
     "quant_matmul_int8_stream": [P] * 5 + [I, P] + [I] * 7 + [P],
     "quant_matmul_int8_wgmma": [P] * 5 + [I, P] + [I] * 8 + [P],
     "quant_matmul_int4_stream": [P] * 5 + [I, P] + [I] * 7 + [P],
     "quant_matmul_int4_wgmma": [P] * 5 + [I, P] + [I] * 8 + [P],
-    "quant_matmul_int4_native": [P] * 4 + [I] * 4 + [P],
+    "quant_matmul_int4n_stream": [P] * 5 + [I, P] + [I] * 7 + [P],
+    "quant_matmul_int4n_wgmma": [P] * 5 + [I, P] + [I] * 8 + [P],
     "paged_decode1_fwd": [P] * 11 + [I, P] + [I] * 17 + [F, P],
     "paged_attention_fwd": [P] * 11 + [I, P] + [I] * 17 + [F, P],
 }

@@ -33,7 +33,10 @@ measurement tools' variant (Pallas ``_int4n_kernel`` in
 ``tools/bench_int4_variants.py``): ``qw4n [K, N/2] uint8``, element (k, n)
 in byte (k, n // 2), the low nibble for even n and the high one for odd n,
 two's complement in [-8, 7], with the int4 block scales ``[K/32, N]``. It
-is forward only and always writes f32, as the Pallas kernel does.
+is forward only and always writes f32, as the Pallas kernel does. On the
+card it runs split-half int4's two kernels on its own bytes, as stored
+(:func:`int4n_plan`; only where a warp's weight registers come from
+differs).
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ N_TILE = 64    # N must be a multiple of this
 # rows on both sides of each, PERF.md)
 INT8_CUT = 32
 INT4_CUT = 48
+INT4N_CUT = 48
 STREAM_COLS = 128                 # a decode block's strip
 STREAM_K = 64                     # k rows of an int8 decode tile (64 x 128 bytes)
 INT4_STREAM_K = 128               # k rows of an int4 decode tile (64 packed rows)
@@ -117,6 +121,15 @@ def int4_plan(R: int, K: int, N: int, n_sms: int):
     k rows (64 packed rows of 128 bytes, the same bytes as an int8 tile);
     prefill steps are 64 k rows (32 packed rows) as int8's."""
     return _plan(R, K, N, n_sms, INT4_CUT, INT4_STREAM_K)
+
+
+def int4n_plan(R: int, K: int, N: int, n_sms: int):
+    """(regime, splits, whole tiles) of a native-int4 product, as
+    :func:`int4_plan` plans a split-half one, with its own cut INT4N_CUT:
+    the same decode tiles of 128 k rows (128 rows of 64 bytes, the same 8 KB
+    as a split-half tile's 64 packed rows of 128) and the same prefill steps
+    of 64 k rows (two boxes of 64 rows x 64 bytes)."""
+    return _plan(R, K, N, n_sms, INT4N_CUT, INT4_STREAM_K)
 
 
 def _acc_dtype(x):
@@ -184,6 +197,16 @@ def _check_kernel_inputs(x, qw, scale, bits, out_dtype):
         raise ValueError("quant matmul kernel takes 32-bit row offsets")
 
 
+# the native int4 layout among the bit sizes that _prepare and _launch take
+# (``int{bits}`` names every layout's kernels: int8, int4, int4n)
+NATIVE = "4n"
+
+
+def _columns(bits, qw):
+    """N, the output columns of a weight of layout ``bits``."""
+    return qw.shape[1] * (2 if bits == NATIVE else 1)
+
+
 # what a launch needs besides x's and out's addresses, kept per _launch_key:
 # the same weight at the same row count on the same stream (every projection
 # of a decode step) costs one lookup and the kernel's call
@@ -191,8 +214,9 @@ _launches = {}
 
 
 def _launch_key(bits, x, qw, scale, out_dtype, stream):
-    """Everything :func:`_check_kernel_inputs` and :func:`_prepare` read, but
-    x's address (checked on every call)."""
+    """Everything :func:`_check_kernel_inputs` (or, native,
+    :func:`_check_native_kernel_inputs`) and :func:`_prepare` read, but x's
+    address (checked on every call)."""
     return (bits, stream, out_dtype, x.get_device(), x.dtype, x.shape, x.stride(),
             qw.get_device(), qw.data_ptr(), qw.dtype, qw.shape, qw.stride(),
             scale.get_device(), scale.data_ptr(), scale.dtype, scale.shape, scale.stride())
@@ -206,10 +230,13 @@ def _prepare(bits, x, qw, scale, out_dtype, stream):
     and the combine's counters to a zeroed buffer, both kept per device and
     stream (the kernels leave the counters zero); the kernels check their
     sizes."""
-    _check_kernel_inputs(x, qw, scale, bits, out_dtype)
+    if bits == NATIVE:
+        _check_native_kernel_inputs(x, qw, scale)
+    else:
+        _check_kernel_inputs(x, qw, scale, bits, out_dtype)
     R, K = x.shape
-    N = qw.shape[1]
-    planner = int8_plan if bits == 8 else int4_plan
+    N = _columns(bits, qw)
+    planner = {8: int8_plan, 4: int4_plan, NATIVE: int4n_plan}[bits]
     regime, splits, whole = plan = planner(R, K, N, build.sm_count(x.device))
     ws = counters = None
     if splits > 1:
@@ -228,7 +255,8 @@ def _prepare(bits, x, qw, scale, out_dtype, stream):
         # the decode path
         w_map = ctypes.create_string_buffer(128 + 64)
         weight = -(-ctypes.addressof(w_map) // 64) * 64
-        build.check(build.lib().quant_matmul_weight_map(qw.data_ptr(), qw.shape[0], N, weight),
+        build.check(build.lib().quant_matmul_weight_map(qw.data_ptr(), qw.shape[0], qw.shape[1],
+                                                        int(bits == NATIVE), weight),
                     "quant_matmul_weight_map")
     sizes = ((None, 0, None, 0) if ws is None else
              (ws.data_ptr(), min(ws.numel(), 2 ** 31 - 1), counters.data_ptr(),
@@ -252,9 +280,9 @@ def _launch(bits, x, qw, scale, out_dtype):
     elif x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
     fn, name, rest, counter, plan, _ = held
-    out = x.new_empty((x.shape[0], qw.shape[1]), dtype=out_dtype)
+    out = x.new_empty((x.shape[0], _columns(bits, qw)), dtype=out_dtype)
     build.check(fn(x.data_ptr(), out.data_ptr(), *rest), name)
-    wrapper = matmul_int8 if bits == 8 else matmul_int4
+    wrapper = {8: matmul_int8, 4: matmul_int4, NATIVE: matmul_int4_native}[bits]
     build.count_launch(wrapper, "launches", counter)
     wrapper.last_plan = plan
     return out
@@ -312,14 +340,6 @@ def matmul_int4(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, *,
     return _matmul(4, x, qw, scale, out_dtype or x.dtype)
 
 
-for _wrapper in (matmul_int8, matmul_int4):
-    _wrapper.launches = 0
-    _wrapper.backward_calls = 0
-    # the launches of each regime (also counted in ``launches``)
-    _wrapper.decode_launches = _wrapper.prefill_launches = 0
-    _wrapper.last_plan = None   # the plan of the latest launch
-
-
 # -- native int4 (the measurement tools' layout) ----------------------------
 
 def pack_int4_native(values: torch.Tensor) -> torch.Tensor:
@@ -373,7 +393,12 @@ def _check_native_layout(x, qw4n, scale):
         raise ValueError(f"scale must be f32 {want}, got {scale.dtype} {tuple(scale.shape)}")
 
 
-def _launch_native(x, qw4n, scale):
+def _check_native_kernel_inputs(x, qw4n, scale):
+    """What the native kernels take beyond the layout: a bf16 x with 16-byte
+    aligned rows, K % 128 == 0, N % 64 == 0, a contiguous weight and scales
+    on x's device, and sizes within the C entry points' 32-bit ints (the
+    kernels reach x, the scales, the workspace and out with 64-bit offsets,
+    and the weight through TMA maps)."""
     R, K = x.shape
     N = 2 * qw4n.shape[1]
     if x.dtype != torch.bfloat16:
@@ -390,28 +415,26 @@ def _launch_native(x, qw4n, scale):
         raise ValueError("qw4n and scale must be contiguous")
     if x.stride(1) != 1 or x.stride(0) % 8:
         raise ValueError("x: last dim must be contiguous, rows 16-byte aligned")
-    if max(R * x.stride(0), K * N, R * N) >= 2 ** 31:
-        raise ValueError("the native int4 kernel takes 32-bit row offsets")
-    out = torch.empty(R, N, dtype=torch.float32, device=x.device)
-    err = build.lib().quant_matmul_int4_native(
-        x.data_ptr(), qw4n.data_ptr(), scale.data_ptr(), out.data_ptr(), R, K, N, x.stride(0),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "quant_matmul_int4_native")
-    return out
+    if max(R, K, N, x.stride(0)) >= 2 ** 31:
+        raise ValueError("the native int4 kernels take 32-bit sizes")
 
 
 def matmul_int4_native(x: torch.Tensor, qw4n: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x [R, K] @ native int4 qw4n [K, N/2] with block scales [K/32, N] ->
-    f32 [R, N], over all K (the kernel on the card, its plain version on
-    the CPU; any shape the kernel cannot take raises)."""
+    f32 [R, N], over all K (on the card one of the two int4 kernels by
+    :func:`int4n_plan`, reading the bytes as stored; its plain version on the
+    CPU; any shape the kernels cannot take raises)."""
     _check_native_layout(x, qw4n, scale)
     if x.is_cuda:
-        out = _launch_native(x, qw4n, scale)
-        build.count_launch(matmul_int4_native)
-        return out
+        return _launch(NATIVE, x, qw4n, scale, torch.float32)
     if x.device.type == "cpu":
         return matmul_int4_native_reference(x, qw4n, scale)
     raise ValueError(f"matmul_int4_native: no path for device {x.device}")
 
 
-matmul_int4_native.launches = 0
+for _wrapper in (matmul_int8, matmul_int4, matmul_int4_native):
+    _wrapper.launches = 0
+    # the launches of each regime (also counted in ``launches``)
+    _wrapper.decode_launches = _wrapper.prefill_launches = 0
+    _wrapper.last_plan = None   # the plan of the latest launch
+matmul_int8.backward_calls = matmul_int4.backward_calls = 0

@@ -9,8 +9,9 @@ over pages of 32 and over the paged engine's 32 pages of 128, the general
 one also for 8-token chunks over 32 pages and for a group of 16 rows, two
 blocks of 8),
 both int8 and both int4 weight-only kernels (decode rows with one K chunk
-and several, prefill rows with one and several, bf16 and f32 out) and the
-native int4 kernel at the shapes ``chip_smoke.py`` phase 3 gives them,
+and several, prefill rows with one and several, bf16 and f32 out) and both
+native int4 kernels (each with a K-chunked plan, and at a shape whose N is
+not a multiple of 128) at the shapes ``chip_smoke.py`` phase 3 gives them,
 synchronizing after each, so that a checker wrapped around the process sees
 every kernel:
 
@@ -122,7 +123,8 @@ def _quant(launch, gen, kind, R, K, N, f32):
     x = torch.randn(R, K, generator=gen, device=dev).bfloat16()
     if kind == "int4n":
         qm.matmul_int4_native(x, *quant.quantize_array_int4_native(w))
-        launch(f"int4 native R={R} K={K} N={N}")
+        regime, splits, _ = qm.matmul_int4_native.last_plan
+        launch(f"int4 native R={R} K={K} N={N} f32 out ({regime}, {splits} K chunks)")
         return
     if kind == "int8":
         q, wrapper = quant.quantize_array(w), qm.matmul_int8
@@ -186,7 +188,8 @@ def main(argv=None) -> int:
             ("int4", ((1, K, N, False), (16, K, N, False), (48, 11008, 4096, False),
                       (16, K, 32000, True), (49, K, N, False), (64, 11008, 4096, False),
                       (768, K, N, False), (768, K, 32000, True), (8192, 11008, 4096, False))),
-            ("int4n", ((16, K, 4096, False), (768, 11008, 4096, False)))):
+            ("int4n", ((16, K, 4096, True), (48, 1152, 4160, True), (64, 11008, 4096, True),
+                       (200, 1152, 4160, True), (768, 11008, 4096, True)))):
         for R, K_, N_, f32 in cases:
             if args.small:
                 K_, N_, R = min(K_, K), min(N_, N), min(R, 200)

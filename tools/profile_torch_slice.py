@@ -76,8 +76,8 @@ CLASSES = (
     ("flash_fwd (kernel)", ("flash_fwd_kernel",)),
     ("flash_bwd (kernel)", ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
     ("decode_attention (kernel)", ("decode_kernel",)),
-    ("quant_matmul (kernel)", ("quant_matmul_kernel", "int8_stream_kernel", "int8_wgmma_kernel",
-                               "int4_stream_kernel", "int4_wgmma_kernel")),
+    ("quant_matmul (kernel)", ("int8_stream_kernel", "int8_wgmma_kernel", "int4_stream_kernel",
+                               "int4_wgmma_kernel", "int4n_stream_kernel", "int4n_wgmma_kernel")),
     ("GEMM/GEMV (cuBLAS)", ("gemm", "gemv", "cutlass", "nvjet", "xmma", "splitk")),
     ("copies and casts", ("copy", "memcpy", "memset")),
     ("reductions", ("reduce",)),
