@@ -124,7 +124,21 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    host path around the wrapper drops out, alternated with the library call
    or yardstick (kernel, library, library, kernel; on wqkv at 16, 768 and
    3,072 rows and, int4, w_down at 8,192) in one process, with TFLOP/s and
-   the share of the bound.
+   the share of the bound;
+16. (run after 5, before 6, which quantizes its weights) the 7B tree of
+   phase 5 exported as an HF checkpoint under ``.smoke/`` (one
+   ``model.safetensors``, 14.1 GB, with a word-level tokenizer that names
+   every id) and served from disk: ``load_pretrained_model`` in this
+   process, every leaf equal to the exported one bit for bit; the worker
+   started as a user starts it (``python -m llava_plus_torch.serve.
+   model_worker --model-path ... --load-8bit --kv-int8 --max-slots 16
+   --limit-model-concurrency 16``)
+   answering phase 6's burst, then requests one at a time whose greedy texts
+   equal a ``TorchBackend`` built in this process by the worker's own
+   factory on the loaded tree; the worker stopped by SIGTERM; one turn of
+   ``python -m llava_plus_torch.serve.cli`` with its input piped. Write and
+   load times, host GB/s, the worker's first served token from its start,
+   TTFT p50, tokens/s and its peak device memory.
 
 Phase 3 also holds both paged kernels (decode1 and general) and both flash
 backward kernels (dK/dV and dQ, at T = 2048, MHA and GQA, a padded and a
@@ -137,7 +151,8 @@ with the bias as a float mask). The kernels build with one ``nvcc`` for
 each source, all started together.
 
 The script reaches the model, tokenizer, image processor and worker only
-through ``llava_plus_torch`` and checks at the end that no module of JAX or
+through ``llava_plus_torch`` (phase 16 makes its checkpoint's tokenizer
+with ``tokenizers`` and ``transformers``) and checks at the end that no module of JAX or
 of the JAX package (``llava_plus_tpu``) was imported. The line before the
 last is a JSON summary of the kernels; the last line is the JSON result.
 Without a CUDA device it prints no result and exits 1.
@@ -241,6 +256,9 @@ def phase_env():
     log("env", f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
                f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     log("env", f"nvcc {nvcc}")
+    # phase 16 writes a 14.1 GB checkpoint under .smoke/
+    df = subprocess.run(["df", "-h", HERE], capture_output=True, text=True).stdout.strip()
+    log("env", "disk: " + " | ".join(df.splitlines()))
     return smi
 
 
@@ -1919,9 +1937,8 @@ def _tree_to(tree, device, dtype=None):
 class _Server:
     """The worker's aiohttp app on its own event-loop thread."""
 
-    def __init__(self, app, threads=8):
+    def __init__(self, app):
         import asyncio
-        from concurrent.futures import ThreadPoolExecutor
 
         from aiohttp import web
 
@@ -1929,9 +1946,6 @@ class _Server:
             s.bind(("127.0.0.1", 0))
             self.port = s.getsockname()[1]
         self.loop = asyncio.new_event_loop()
-        # the worker reads each stream's next chunk in the loop's default
-        # executor: one thread per concurrent request
-        self.loop.set_default_executor(ThreadPoolExecutor(max_workers=threads))
         self.runner = web.AppRunner(app)
         started = threading.Event()
 
@@ -2067,6 +2081,262 @@ def phase_full_slice(smi, params, dev):
 
 
 # ---------------------------------------------------------------------------
+# 16. a 7B checkpoint on disk, through the loader and the entry points
+# ---------------------------------------------------------------------------
+
+CKPT_NAME = "llava-v1.5-7b-random"
+WORKER_FLAGS = ["--load-8bit", "--kv-int8", "--max-slots", "16",
+                "--limit-model-concurrency", "16"]
+
+
+def _word_tokenizer(vocab_size):
+    """A word-level fast tokenizer made here (no download) that names every
+    id of the model ("<unk>", "w1", ... "w31999"), so two greedy texts
+    compare token for token. Its EOS is an added token past the model's
+    logits: on random weights every stream runs its full budget, as phase
+    6's ``eos_token_id = -1`` makes it."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
+
+    vocab = {"<unk>": 0, **{f"w{i}": i for i in range(1, vocab_size)}}
+    core = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    core.pre_tokenizer = pre_tokenizers.Whitespace()
+    return PreTrainedTokenizerFast(tokenizer_object=core, unk_token="<unk>", eos_token="</s>")
+
+
+def _in_vocab(bodies, vocab_size):
+    """Phase 6's bodies with each prompt word swapped for a word of the
+    checkpoint's tokenizer (the same count of tokens)."""
+    n = 0
+    for b in bodies:
+        lines = []
+        for line in b["prompt"].split("\n"):
+            words = []
+            for w in line.split(" "):
+                if w and w != "<image>":
+                    n += 1
+                    w = f"w{1 + (n * 7919) % (vocab_size - 1)}"
+                words.append(w)
+            lines.append(" ".join(words))
+        b["prompt"] = "\n".join(lines)
+    return bodies
+
+
+def _wait_status(url, proc, deadline_s):
+    import requests
+
+    t_end = time.perf_counter() + deadline_s
+    while time.perf_counter() < t_end:
+        if proc.poll() is not None:
+            raise AssertionError(f"the worker exited with {proc.returncode} before serving")
+        try:
+            requests.post(url + "/worker_get_status", timeout=5)
+            return
+        except requests.ConnectionError:
+            time.sleep(0.25)
+    raise AssertionError(f"the worker did not answer /worker_get_status in {deadline_s} s")
+
+
+def _tail(path, n=3000):
+    with open(path, errors="replace") as f:
+        return f.read()[-n:]
+
+
+def phase_checkpoint(smi, params, cfg=None, device="cuda"):
+    """The 7B tree of phase 5 (before phase 6 quantizes it) written as an HF
+    checkpoint with the port's exporter, then served from disk:
+
+    1. ``load_pretrained_model`` in this process: every leaf equal to the
+       exported tree, bit for bit; load seconds and host GB/s;
+    2. ``python -m llava_plus_torch.serve.model_worker --model-path ...
+       --load-8bit --kv-int8 --max-slots 16 --limit-model-concurrency 16``
+       as a child process: phase 6's 16-request burst (its words swapped into the tokenizer's vocabulary),
+       every stream checked; its first served token counted from the
+       process's start, TTFT p50, tokens/s and peak device memory;
+    3. a few requests one at a time to the worker and to a ``TorchBackend``
+       in this process, built by the worker's own factory
+       (``model_worker.backend_for``) on the loaded tree with the same
+       flags: equal greedy texts (one request at a time gives both sides the
+       same rows, so the same int8 plans); this backend's launches are
+       counted and checked;
+    4. the worker stopped (SIGTERM) and its exit checked; then one turn of
+       ``python -m llava_plus_torch.serve.cli`` with its input piped, which
+       must answer.
+
+    Returns this process's launch counts (flash, int8 decode, int8 matmul)."""
+    import signal
+
+    import requests
+    import torch
+    from llava_plus_torch.models.builder import load_pretrained_model
+    from llava_plus_torch.models.configs import LLAVA_15_7B
+    from llava_plus_torch.ops import quant_matmul as qm
+    from llava_plus_torch.ops.decode_attention import decode_attention
+    from llava_plus_torch.ops.flash_attention import flash_attention
+    from llava_plus_torch.serve import model_worker as mw
+    from llava_plus_torch.train.checkpoint import export_hf_llava
+
+    cfg = cfg or LLAVA_15_7B
+    L, V = cfg.text.num_hidden_layers, cfg.text.vocab_size
+    path = os.path.join(SMOKE_DIR, CKPT_NAME)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    disk = shutil.disk_usage(SMOKE_DIR)
+    log("ckpt", f"free disk under {SMOKE_DIR}: {disk.free / 1e9:.1f} GB of "
+                f"{disk.total / 1e9:.1f}")
+
+    # the checkpoint, written once -------------------------------------------
+    t0 = time.perf_counter()
+    export_hf_llava(params, cfg, path, _word_tokenizer(V))
+    write_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)
+                 if f.endswith(".safetensors"))
+    log("ckpt", f"exported {nbytes / 1e9:.2f} GB of safetensors in {write_s:.1f} s "
+                f"({nbytes / 1e9 / write_s:.2f} GB/s from the card to disk); card {smi}")
+
+    # 1. loaded in this process, bit for bit --------------------------------
+    t0 = time.perf_counter()
+    tok, loaded, lcfg, proc_, ctx = load_pretrained_model(path)
+    load_s = time.perf_counter() - t0
+    if lcfg != cfg or ctx != cfg.max_sequence_length:
+        raise AssertionError(f"the loaded config differs: {lcfg} (context {ctx})")
+    got, want = dict(_named_leaves(loaded)), dict(_named_leaves(params))
+    if sorted(got) != sorted(want):
+        raise AssertionError("the loaded tree's leaves differ from the exported tree's")
+    for name, a in got.items():
+        b = want[name]
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a.to(b.device), b):
+            raise AssertionError(f"{name}: the loaded leaf differs from the exported one")
+    n_leaves = len(got)
+    del got, want, a, b   # the host tree stays referenced by ``loaded`` alone
+    log("ckpt", f"load_pretrained_model: {n_leaves} leaves, {nbytes / 1e9:.2f} GB in "
+                f"{load_s:.1f} s ({nbytes / 1e9 / load_s:.2f} GB/s on the host), every leaf "
+                f"equal to the exported tree bit for bit; tokenizer "
+                f"{type(tok).__name__}, processor {proc_.crop_size} px; card {smi}")
+
+    # 2. the worker as a user starts it -------------------------------------
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    argv = ["--model-path", path, *WORKER_FLAGS, "--device", device, "--no-register",
+            "--host", "127.0.0.1", "--port", str(port)]
+    worker_log = os.path.join(SMOKE_DIR, "worker.log")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    bodies = _in_vocab(_engine_bodies(np.random.default_rng(1), cfg.vision.image_size, 8, 8, 32),
+                       V)
+    with open(worker_log, "w") as logf:
+        t_start = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "llava_plus_torch.serve.model_worker",
+                                 *argv], cwd=HERE, env=env, stdout=logf,
+                                stderr=subprocess.STDOUT)
+    try:
+        try:
+            _wait_status(url, proc, 600)
+            ready_s = time.perf_counter() - t_start
+            t_burst = time.perf_counter()
+            results = _post_all(url + "/worker_generate_stream", bodies)
+            _check_streams(bodies, results, 32)
+            first = min(st[0] for _, _, st in results)
+            t_end = max(st[-1] for _, _, st in results)
+            ttfts = sorted(st[0] - t_send for _, t_send, st in results)
+            log("ckpt", f"worker: answering {ready_s:.1f} s after its start; burst of "
+                        f"{len(bodies)} requests x 32 tokens, every stream whole: first "
+                        f"served token {first - t_start:.1f} s after the process started, "
+                        f"TTFT p50 {np.median(ttfts) * 1e3:.1f} ms (max "
+                        f"{ttfts[-1] * 1e3:.1f}), {len(bodies) * 32 / (t_end - t_burst):.1f} "
+                        f"tokens/s aggregate; card {smi}")
+
+            # 3. one at a time, the worker against this process ---------------
+            backend = mw.backend_for(mw.parse_args(argv), (tok, loaded, lcfg, proc_, ctx))
+            del loaded
+            engine = backend.engine
+            flash_attention.launches = decode_attention.launches = qm.matmul_int8.launches = 0
+            regimes0 = _regimes(qm.matmul_int8)
+            e0 = (engine.prefill_dispatches, engine.decode_steps)
+            matched = 0
+            for body in bodies[:2] + bodies[8:10]:
+                body = dict(body, max_new_tokens=24)
+                r = requests.post(url + "/worker_generate_stream", json=body, stream=True,
+                                  timeout=600)
+                theirs = [c["text"] for c in mw.iter_chunks_requests(r)]
+                mine = list(backend.generate_stream(body))
+                if theirs != mine or len(mine) != 24:
+                    raise AssertionError(f"greedy texts differ: worker {theirs[-1:]!r}, "
+                                         f"in-process {mine[-1:]!r}")
+                matched += 1
+            launches = {"flash": flash_attention.launches, "decode": decode_attention.launches,
+                        "quant": qm.matmul_int8.launches}
+            dp, ds = (b - a for a, b in zip(e0, (engine.prefill_dispatches,
+                                                  engine.decode_steps)))
+            backend.stop()
+            want = {"flash": L * dp, "decode": L * ds, "quant": (4 * L + 1) * (dp + ds)}
+            if launches != want:
+                raise AssertionError(f"in-process launches {launches}, want {want}")
+            launches["quant_regimes"] = _quant_regimes("ckpt", "int8", regimes0,
+                                                       launches["quant"])
+            log("ckpt", f"{matched} requests one at a time: the worker's greedy texts equal "
+                        f"the in-process backend's token for token; in-process launches "
+                        f"{launches}")
+            metrics = requests.post(url + "/worker_metrics", timeout=30).json()
+            log("ckpt", f"worker: peak device memory {metrics['device_peak_gib']:.2f} GiB, "
+                        f"{metrics['requests']} requests; card {smi}")
+        finally:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+            try:
+                code = proc.wait(60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(30)
+                raise AssertionError("the worker did not stop within 60 s of SIGTERM")
+    except BaseException:
+        print(_tail(worker_log), file=sys.stderr, flush=True)
+        raise
+    if code != 0:
+        print(_tail(worker_log), file=sys.stderr, flush=True)
+        raise AssertionError(f"the worker exited with {code}")
+    log("ckpt", "worker stopped by SIGTERM, exit code 0")
+    del backend
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. the chat CLI -----------------------------------------------------------
+    png = os.path.join(SMOKE_DIR, "image.png")
+    from PIL import Image
+
+    Image.fromarray(np.random.default_rng(2).integers(
+        0, 256, size=(cfg.vision.image_size,) * 2 + (3,), dtype=np.uint8)).save(png)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "llava_plus_torch.serve.cli", "--model-path",
+                          path, "--image-file", png, "--temperature", "0",
+                          "--max-new-tokens", "16", "--device", device],
+                         input="w5 w17 w99 w7\n", cwd=HERE, env=env, capture_output=True,
+                         text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    # stdout: "USER: ASSISTANT: <answer>\nUSER: exit..."
+    answer = out.stdout.partition("ASSISTANT: ")[2].partition("\n")[0].strip()
+    if out.returncode != 0 or not answer:
+        raise AssertionError(f"the CLI failed (exit {out.returncode}): "
+                             f"{out.stdout[-1500:]}{out.stderr[-1500:]}")
+    log("ckpt", f"cli: one turn in {cli_s:.1f} s (load included), answer of "
+                f"{len(answer.split())} words: {answer[:60]!r}; card {smi}")
+    shutil.rmtree(path, ignore_errors=True)
+    return launches
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+# ---------------------------------------------------------------------------
 # 6. the engine at full width behind the HTTP worker, quantized weights
 # ---------------------------------------------------------------------------
 
@@ -2149,7 +2419,7 @@ def serve_engine(smi, params, quantize, n_image, n_text):
     worker = ModelWorker("http://127.0.0.1:9", "http://127.0.0.1:0", backend,
                          ["llava-1.5-7b-random"], limit_model_concurrency=len(bodies),
                          no_register=True, heartbeats=False)
-    server = _Server(build_app(worker), threads=len(bodies) + 4)
+    server = _Server(build_app(worker))
     url = f"http://127.0.0.1:{server.port}/worker_generate_stream"
     try:
         flash_attention.launches = decode_attention.launches = qmm.launches = 0
@@ -2290,7 +2560,7 @@ def serve_paged_engine(smi):
     worker = ModelWorker("http://127.0.0.1:9", "http://127.0.0.1:0", backend,
                          ["llava-1.5-7b-random"], limit_model_concurrency=len(bodies1),
                          no_register=True, heartbeats=False)
-    server = _Server(build_app(worker), threads=len(bodies1) + 4)
+    server = _Server(build_app(worker))
     url = f"http://127.0.0.1:{server.port}/worker_generate_stream"
     kernels = {"flash": flash_attention, "decode1": paged_decode1,
                "general": paged_attention_general, "dense decode": decode_attention,
@@ -2498,7 +2768,7 @@ def _serve_mpt_engine(smi, mode):
     worker = ModelWorker("http://127.0.0.1:9", "http://127.0.0.1:0", backend,
                          ["llava-mpt-7b-random"], limit_model_concurrency=len(bodies1),
                          no_register=True, heartbeats=False)
-    server = _Server(build_app(worker), threads=len(bodies1) + 4)
+    server = _Server(build_app(worker))
     url = f"http://127.0.0.1:{server.port}/worker_generate_stream"
     state = lambda: (engine.prefill_dispatches, engine.prefill_requests,  # noqa: E731
                      engine.decode_steps, engine.multi_slot_steps,
@@ -3361,7 +3631,9 @@ def main():
     dev = "cuda:0"
     params = _init_7b(dev)
     single = phase_full_slice(smi, params, dev)
-    # phase 6 quantizes these weights in place; int4 starts from fresh ones
+    # phase 16 exports these weights before phase 6 quantizes them in place
+    ckpt = phase_checkpoint(smi, params)
+    # int4 starts from fresh ones
     int8 = serve_engine(smi, params, "int8", n_image=8, n_text=8)
     del params
     int4 = serve_engine(smi, _init_7b(dev), "int4", n_image=2, n_text=2)
@@ -3382,16 +3654,16 @@ def main():
     bwd_src = "llava_plus_torch/csrc/flash_bwd.cu"
     for name, source, replaces, count in (
         ("flash_fwd", "llava_plus_torch/csrc/flash_fwd.cu", FLASH_REPLACES,
-         single["flash"] + int8["flash"] + int4["flash"] + paged["flash"] + stage1["flash"]
-         + stage2["flash"] + qlora["flash"]),
+         single["flash"] + ckpt["flash"] + int8["flash"] + int4["flash"] + paged["flash"]
+         + stage1["flash"] + stage2["flash"] + qlora["flash"]),
         ("flash_bwd[dkv]", bwd_src, DKV_REPLACES, stage1["dkv"] + stage2["dkv"] + qlora["dkv"]),
         ("flash_bwd[dq]", bwd_src, DQ_REPLACES, stage1["dq"] + stage2["dq"] + qlora["dq"]),
         ("decode_attention[bf16]", "llava_plus_torch/csrc/decode_attention.cu",
          DECODE_REPLACES, single["bf16"]),
         ("decode_attention[int8]", "llava_plus_torch/csrc/decode_attention.cu",
-         DECODE_REPLACES, single["int8"] + int8["decode"] + int4["decode"]),
+         DECODE_REPLACES, single["int8"] + ckpt["decode"] + int8["decode"] + int4["decode"]),
         ("quant_matmul[int8]", "llava_plus_torch/csrc/quant_matmul.cu", INT8_REPLACES,
-         int8["quant"] + paged["quant"] + mpt["dense"]["matmul_int8"]
+         ckpt["quant"] + int8["quant"] + paged["quant"] + mpt["dense"]["matmul_int8"]
          + mpt["paged"]["matmul_int8"] + narrow_lora[8][0] + tools["int8"]),
         ("quant_matmul[int4]", "llava_plus_torch/csrc/quant_matmul.cu", INT4_REPLACES,
          int4["quant"] + narrow_lora[4][0] + qlora["int4"] + tools["int4"]),
@@ -3420,8 +3692,8 @@ def main():
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": count, **stats[name]})
         if name == "quant_matmul[int8]":
-            # the serving engines' int8 launches by regime (phases 6, 7, 11)
-            regimes = [int8["quant_regimes"], paged["quant_regimes"],
+            # the serving engines' int8 launches by regime (phases 16, 6, 7, 11)
+            regimes = [ckpt["quant_regimes"], int8["quant_regimes"], paged["quant_regimes"],
                        mpt["dense"]["matmul_int8 regimes"], mpt["paged"]["matmul_int8 regimes"]]
             entries[-1].update(engine_decode_launches=sum(r[0] for r in regimes),
                                engine_prefill_launches=sum(r[1] for r in regimes))

@@ -91,6 +91,16 @@ def tokenizer_image_token(
     raise ValueError(f"Unsupported tensor type: {return_tensors}")
 
 
+def get_model_name_from_path(model_path: str) -> str:
+    """The model's name: the directory's, or ``<run>_checkpoint-<n>`` for a
+    trainer's intermediate checkpoint."""
+    model_path = model_path.strip("/")
+    parts = model_path.split("/")
+    if parts[-1].startswith("checkpoint-"):
+        return parts[-2] + "_" + parts[-1]
+    return parts[-1]
+
+
 def reorganize_source_for_tool_use(source: List[Dict]) -> List[Dict]:
     """Merge {thoughts, actions, value} assistant fields into the emoji
     grammar string the model is trained to emit (ref mm_utils.py:117-149).

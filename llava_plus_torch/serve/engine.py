@@ -33,7 +33,7 @@ not reproduced).
 Both backbones serve: LLaMA and MPT (ALiBi slopes ride the same kernels).
 
 Not ported (the arguments raise): speculative decoding, the
-tensor-parallel mesh and W8A8 prefill.
+tensor-parallel mesh and W8A8 prefill (ROADMAP Queue 1 items 4, 10 and 7).
 """
 
 from __future__ import annotations
@@ -231,9 +231,11 @@ class BatchedEngine:
         ``pool_tokens`` sizes it (default ``max_slots * max_seq_len``, no
         overcommit); requests wait while it is exhausted. ``prefix_cache``
         (paged only) shares the pages of identical prompt prefixes."""
-        for name, value in (("mesh", mesh), ("speculate", speculate), ("w8a8", w8a8)):
+        for name, value, item in (("mesh", mesh, 10), ("speculate", speculate, 4),
+                                  ("w8a8", w8a8, 7)):
             if value:
-                raise NotImplementedError(f"BatchedEngine({name}=...) is not ported yet")
+                raise NotImplementedError(f"BatchedEngine({name}=...) is not ported yet "
+                                          f"(ROADMAP Queue 1 item {item})")
         if paged and (max_seq_len % page_size or prefill_bucket % page_size):
             raise ValueError(f"max_seq_len {max_seq_len} and prefill_bucket {prefill_bucket} "
                              f"must be multiples of page_size {page_size}")

@@ -10,11 +10,24 @@ continuous-batching :class:`~llava_plus_torch.serve.engine.BatchedEngine`
 (dense or paged KV), as the JAX worker serves them; ``use_engine=False``
 serves one request at a time through the single-stream
 :class:`~llava_plus_torch.generate.Generator`.
+
+    python -m llava_plus_torch.serve.model_worker --model-path DIR \
+        [--model-base BASE] [--load-8bit | --load-4bit] [--kv-int8] [--paged] \
+        [--device cuda|cpu] [--no-register] ...
+
+:func:`main` takes the JAX worker's flags, plus ``--device`` (``cuda`` unless
+the caller asks for ``cpu``), loads the checkpoint through
+``models/builder.load_pretrained_model`` and serves it with
+:class:`TorchBackend` (:func:`load_backend`, :func:`backend_for`). Without a
+model path, or with ``--echo``, it serves the protocol-test
+:class:`EchoBackend`.
 """
 
 from __future__ import annotations
 
+import argparse
 import asyncio
+import dataclasses
 import logging
 import os
 import threading
@@ -32,6 +45,7 @@ from llava_plus_torch.constants import (
 )
 from llava_plus_torch.generate import Generator
 from llava_plus_torch.mm_utils import load_image_from_base64, process_images
+from llava_plus_torch.models.convert import tree_map
 from llava_plus_torch.ops.quant import quantize_llava_params
 from llava_plus_torch.serve.engine import BatchedEngine, Request
 from llava_plus_torch.serve.protocol import encode_chunk, iter_chunks_requests  # noqa: F401
@@ -44,6 +58,26 @@ from llava_plus_torch.utils.logging import (
 worker_id = str(uuid.uuid4())[:6]
 # handlers (console and a log file) are attached when a ModelWorker is made
 logger = logging.getLogger("model_worker")
+
+
+class EchoBackend:
+    """Protocol-test backend: streams the prompt and a canned echo."""
+
+    is_multimodal = True
+    context_len = 2048
+
+    def __init__(self, reply: str = "echo: ok", delay: float = 0.0):
+        self.reply = reply
+        self.delay = delay
+
+    def generate_stream(self, params: dict) -> Iterator[str]:
+        text = params["prompt"]
+        stop = params.get("stop")
+        for piece in self.reply.split(" "):
+            if self.delay:
+                time.sleep(self.delay)
+            text += " " + piece
+            yield text[: -len(stop)] if stop and text.endswith(stop) else text
 
 
 class TorchBackend:
@@ -74,7 +108,8 @@ class TorchBackend:
         self.tokenizer = tokenizer
         self.image_processor = image_processor
         self.context_len = max_seq_len or cfg.max_sequence_length
-        self.is_multimodal = True
+        # a text-only checkpoint (the builder's plain-LM path) has no tower
+        self.is_multimodal = bool(params.get("vision_tower"))
         self.stream_interval = max(int(stream_interval or 1), 1)
         if quantize:
             params = quantize_llava_params(params, cfg.language_model_type,
@@ -269,6 +304,8 @@ class ModelWorker:
             m.get("_tokens_sum", 0) / total_decode if total_decode else 0.0
         )
         m["total_tokens"] = m.pop("_tokens_sum", 0)
+        if torch.cuda.is_initialized():
+            m["device_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         engine = getattr(self.backend, "engine", None)
         if engine is not None:
             m["engine_active_slots"] = engine.num_active
@@ -350,9 +387,14 @@ class ModelWorker:
 # ---------------------------------------------------------------------------
 
 def build_app(worker: ModelWorker):
+    from concurrent.futures import ThreadPoolExecutor
+
     from aiohttp import web
 
     routes = web.RouteTableDef()
+    # each admitted stream waits for its next chunk in a thread of its own;
+    # the loop's default executor has only cpu_count + 4 threads
+    executor = ThreadPoolExecutor(max_workers=worker.limit_model_concurrency + 4)
 
     @routes.post("/worker_generate_stream")
     async def worker_generate_stream(request):
@@ -372,7 +414,7 @@ def build_app(worker: ModelWorker):
         try:
             gen = worker.generate_stream_gate(params)
             while True:
-                chunk = await loop.run_in_executor(None, next, gen, None)
+                chunk = await loop.run_in_executor(executor, next, gen, None)
                 if chunk is None:
                     break
                 await resp.write(chunk)
@@ -404,6 +446,167 @@ def build_app(worker: ModelWorker):
     async def worker_profile_stop(request):
         return web.json_response({"trace": worker.profile_stop()})
 
+    async def shutdown_executor(app):
+        executor.shutdown(wait=False)
+
     app = web.Application(client_max_size=64 * 1024 * 1024)
     app.add_routes(routes)
+    app.on_cleanup.append(shutdown_executor)
     return app
+
+
+# ---------------------------------------------------------------------------
+# Command line
+# ---------------------------------------------------------------------------
+
+# flags of the JAX worker whose modules the port does not have yet
+_UNPORTED = (
+    ("speculate", lambda v: v > 0, "--speculate: speculative decoding is not ported yet "
+                                   "(ROADMAP Queue 1 item 4)"),
+    ("w8a8", bool, "--w8a8: the W8A8 prefill is not ported yet (ROADMAP Queue 1 item 7)"),
+    ("tp", lambda v: v > 1, "--tp: tensor-parallel serving (the mesh) is not ported yet "
+                            "(ROADMAP Queue 1 item 10)"),
+)
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The JAX worker's flags, plus ``--device``."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--host", type=str, default="localhost")
+    parser.add_argument("--port", type=int, default=21002)
+    parser.add_argument("--worker-address", type=str, default="http://localhost:21002")
+    parser.add_argument("--controller-address", type=str, default="http://localhost:21001")
+    parser.add_argument("--model-path", type=str, default=None)
+    parser.add_argument("--model-base", type=str, default=None)
+    parser.add_argument("--model-name", type=str, default=None)
+    parser.add_argument("--limit-model-concurrency", type=int, default=5)
+    parser.add_argument("--no-register", action="store_true")
+    parser.add_argument("--echo", action="store_true",
+                        help="protocol-test echo backend (no model)")
+    parser.add_argument("--load-8bit", action="store_true",
+                        help="weight-only int8 serving (fused, the CUDA int8 matmul)")
+    parser.add_argument("--load-4bit", action="store_true",
+                        help="weight-only blockwise int4 serving (the CUDA int4 matmul)")
+    parser.add_argument("--decode-chunk", type=int, default=4,
+                        help="decode steps between the engine's host syncs")
+    parser.add_argument("--kv-int8", action="store_true",
+                        help="int8 KV cache with per-token, per-head scales")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel serving over N cards (not ported yet)")
+    parser.add_argument("--max-slots", type=int, default=8,
+                        help="continuous-batching slot count")
+    parser.add_argument("--no-engine", action="store_true",
+                        help="no continuous batching: one request at a time")
+    parser.add_argument("--paged", action="store_true",
+                        help="paged KV pool with the prefix cache")
+    parser.add_argument("--no-prefix-cache", action="store_true",
+                        help="no prefix reuse over the paged pool")
+    parser.add_argument("--max-seq-len", type=int, default=None,
+                        help="override the context length")
+    parser.add_argument("--pool-tokens", type=int, default=None,
+                        help="KV pool size in tokens (default max_slots * max_seq_len)")
+    parser.add_argument("--rope-scaling", type=str, default=None,
+                        help="override rope scaling, e.g. dynamic:2.0 or linear:4.0")
+    parser.add_argument("--speculate", type=int, default=0,
+                        help="prompt-lookup speculative decoding (not ported yet)")
+    parser.add_argument("--w8a8", action="store_true",
+                        help="int8 activations for the prefill matmuls (not ported yet)")
+    parser.add_argument("--spec-chunk", type=int, default=4,
+                        help="verify steps per dispatch (with --speculate)")
+    parser.add_argument("--warmup", type=int, default=768, metavar="LEN",
+                        help="warm the engine at prompts of ~LEN fused tokens before "
+                             "registering; 0 disables")
+    parser.add_argument("--stream-interval", type=int, default=1,
+                        help="push every Nth streamed update")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="the device to serve on (cpu only when asked for)")
+    parser.add_argument("--multi-modal", action="store_true",
+                        help="accepted for reference-CLI compatibility; multimodality "
+                             "follows the checkpoint")
+    return parser.parse_args(argv)
+
+
+def check_args(args: argparse.Namespace) -> None:
+    """Exit with a message for a flag whose module is not ported, and for a
+    CUDA device on a machine without one: the worker never falls back to
+    the CPU."""
+    for name, is_set, message in _UNPORTED:
+        if is_set(getattr(args, name)):
+            raise SystemExit(message)
+    if args.echo or args.model_path is None:
+        return
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: no CUDA device is available; pass "
+                         "--device cpu to serve on the CPU")
+
+
+def _rope_scaled(cfg, rope_scaling: str):
+    """``cfg`` with "linear:<factor>" or "dynamic:<factor>" rope scaling
+    (serve a checkpoint past its trained context)."""
+    typ, _, fac = rope_scaling.partition(":")
+    if typ not in ("linear", "dynamic"):
+        raise SystemExit(f"--rope-scaling: unsupported type {typ!r} "
+                         "(expected 'linear:<factor>' or 'dynamic:<factor>')")
+    try:
+        factor = float(fac or 2.0)
+    except ValueError:
+        raise SystemExit(f"--rope-scaling: factor {fac!r} is not a number "
+                         "(expected e.g. 'linear:4.0')") from None
+    return dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, rope_scaling_type=typ, rope_scaling_factor=factor))
+
+
+def load_backend(args: argparse.Namespace):
+    """``(backend, model_names)`` for the parsed flags: the checkpoint at
+    ``--model-path`` loaded by ``load_pretrained_model`` and served by
+    :func:`backend_for`; or the echo backend."""
+    check_args(args)
+    if args.echo or args.model_path is None:
+        return EchoBackend(), [args.model_name or "echo"]
+    from llava_plus_torch.mm_utils import get_model_name_from_path
+    from llava_plus_torch.models.builder import load_pretrained_model
+
+    name = args.model_name or get_model_name_from_path(args.model_path)
+    loaded = load_pretrained_model(args.model_path, args.model_base, name)
+    return backend_for(args, loaded), [name]
+
+
+def backend_for(args: argparse.Namespace, loaded) -> TorchBackend:
+    """The :class:`TorchBackend` of the parsed flags over ``loaded``, the
+    ``(tokenizer, params, cfg, image_processor, context_len)`` of
+    ``load_pretrained_model``: ``--rope-scaling`` applied to the config, the
+    tree moved to ``--device`` (and consumed there by ``--load-8bit`` /
+    ``--load-4bit``)."""
+    tokenizer, params, cfg, processor, context_len = loaded
+    if args.rope_scaling:
+        cfg = _rope_scaled(cfg, args.rope_scaling)
+    return TorchBackend(
+        tree_map(lambda x: x.to(args.device), params), cfg, tokenizer, processor,
+        device=args.device, use_engine=not args.no_engine, max_slots=args.max_slots,
+        decode_chunk=args.decode_chunk,
+        quantize="int4" if args.load_4bit else "int8" if args.load_8bit else None,
+        kv_int8=args.kv_int8, max_seq_len=args.max_seq_len or context_len,
+        paged=args.paged, pool_tokens=args.pool_tokens,
+        prefix_cache=not args.no_prefix_cache, warmup_len=args.warmup,
+        stream_interval=args.stream_interval)
+
+
+def main(argv=None):
+    from aiohttp import web
+
+    args = parse_args(argv)
+    backend, model_names = load_backend(args)
+    worker = ModelWorker(args.controller_address, args.worker_address, backend, model_names,
+                         limit_model_concurrency=args.limit_model_concurrency,
+                         no_register=args.no_register)
+    logger.info(f"args: {args}")
+    try:
+        web.run_app(build_app(worker), host=args.host, port=args.port)
+    finally:
+        worker.stop()
+        if isinstance(backend, TorchBackend):
+            backend.stop()
+
+
+if __name__ == "__main__":
+    main()

@@ -20,10 +20,9 @@ their own autograd leaves.
 Checkpoint interop with PEFT: :func:`save_peft_adapter` writes
 ``adapter_config.json`` + ``adapter_model.safetensors`` (+ the
 ``non_lora_trainables.bin`` split of the reference trainer), and
-:func:`load_peft_adapter` reads such a directory back. The JAX package's
-``merge_lora_checkpoint`` (the LoRA load path of the JAX package's
-``load_pretrained_model``) needs the HF import and that loader, which the
-port does not have yet.
+:func:`load_peft_adapter` reads such a directory back, and
+:func:`merge_lora_checkpoint` merges one into its base model (the LoRA load
+path of ``models/builder.load_pretrained_model``).
 
 ``init_lora_params`` takes a ``torch.Generator``: JAX's ``PRNGKey(1)`` draws
 cannot be reproduced, so tests hand both packages the same numpy adapters.
@@ -220,6 +219,47 @@ def load_peft_adapter(adapter_dir, num_layers: int):
         if len(a_list) == num_layers:
             lora["/".join(path)] = {"a": torch.stack(a_list), "b": torch.stack(b_list)}
     return lora, cfg
+
+
+def merge_lora_checkpoint(adapter_dir, base_dir, dtype="bfloat16"):
+    """The builder's LoRA load path: the base LLaMA, the adapters merged into
+    it (:func:`merge_lora_into_base`), the projector from
+    ``non_lora_trainables.bin`` and the vision tower; returns ``(tokenizer,
+    params, LlavaConfig)`` with CPU tensors in ``dtype``. The adapters are
+    found by their tensors' names, whatever ``target_modules`` lists (the
+    JAX package's leaf names or the HF module names). ``config.json`` is the
+    trainers' nested ``LlavaConfig`` or a flat HF config."""
+    from llava_plus_torch.models import hf_import
+    from llava_plus_torch.models.builder import _load_vision_tower, load_tokenizer
+    from llava_plus_torch.models.configs import LlavaConfig
+
+    adapter_dir, base_dir = Path(adapter_dir), Path(base_dir)
+    cfg_d = json.loads((adapter_dir / "config.json").read_text())
+    if isinstance(cfg_d.get("text"), dict):
+        cfg = LlavaConfig.load(adapter_dir / "config.json")
+    else:
+        cfg = LlavaConfig(
+            text=hf_import.llama_config_from_hf(cfg_d),
+            mm_projector_type=cfg_d.get("mm_projector_type", "linear"),
+            mm_hidden_size=cfg_d.get("mm_hidden_size", 1024),
+            image_aspect_ratio=cfg_d.get("image_aspect_ratio", "square"),
+        )
+    lm = hf_import.llama_params_from_state_dict(hf_import.load_state_dict_dir(base_dir),
+                                                cfg.text, dtype=dtype)
+    adapters, lora_cfg = load_peft_adapter(adapter_dir, cfg.text.num_hidden_layers)
+    params = merge_lora_into_base({"language_model": lm}, adapters, lora_cfg)
+
+    # the non-LoRA trainables: the projector
+    proj = {}
+    nlt = adapter_dir / "non_lora_trainables.bin"
+    if nlt.exists():
+        extra = torch.load(str(nlt), map_location="cpu", weights_only=True)
+        extra = {k.replace("base_model.model.", "").replace("model.mm_projector.", ""):
+                 v.float() for k, v in extra.items() if "mm_projector" in k}
+        proj = hf_import.projector_params_from_state_dict(extra, cfg.mm_projector_type,
+                                                          dtype=dtype)
+    params.update(vision_tower=_load_vision_tower(cfg_d, cfg, dtype), mm_projector=proj)
+    return load_tokenizer(str(adapter_dir)), params, cfg
 
 
 def save_peft_adapter(lora_params: Lora, cfg: LoraConfig, out_dir,

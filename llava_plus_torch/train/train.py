@@ -38,10 +38,12 @@ backbone raises ``ValueError``.
         --per-device-train-batch-size 2 --bf16 false --device cpu \
         --output-dir out
 
-Not ported yet, each raising ``NotImplementedError``: loading a checkpoint
-(``--model-name-or-path``, ``--pretrain-mm-mlp-adapter``; ROADMAP Queue 1
-item 4) and the (dp, fsdp, tp) mesh (``--dp``, ``--fsdp-axis``, ``--tp``
-other than 1; item 10).
+``--model-name-or-path`` starts from a checkpoint directory, loaded by
+``models/builder.load_pretrained_model`` (any of its four shapes), and
+``--pretrain-mm-mlp-adapter`` puts a stage-1 ``mm_projector.bin`` into the
+projector. Not ported yet, raising ``NotImplementedError``: the (dp, fsdp,
+tp) mesh (``--dp``, ``--fsdp-axis``, ``--tp`` other than 1; ROADMAP Queue 1
+item 10).
 """
 
 from __future__ import annotations
@@ -70,7 +72,7 @@ from llava_plus_torch.data.image_processing import (
     processor_for_vision_tower,
 )
 from llava_plus_torch.models.configs import tiny_llava_config, tiny_llava_mpt_config
-from llava_plus_torch.models.convert import per_layer
+from llava_plus_torch.models.convert import per_layer, tree_map
 from llava_plus_torch.models.llava import MultimodalBatch
 from llava_plus_torch.ops.quant import quantize_llava_params
 from llava_plus_torch.train import checkpoint as ckpt_lib
@@ -160,31 +162,41 @@ class TrainingArguments:
     device: str = "cuda"
 
 
-def _unported(model_args: ModelArguments, training_args: TrainingArguments):
-    if ((model_args.model_name_or_path is not None and not model_args.tiny_debug_model)
-            or model_args.pretrain_mm_mlp_adapter):
-        raise NotImplementedError("loading a checkpoint (--model-name-or-path, "
-                                  "--pretrain-mm-mlp-adapter) is not ported yet: ROADMAP "
-                                  "Queue 1 item 4")
+def _unported(training_args: TrainingArguments):
     if training_args.dp != 1 or training_args.tp != 1 or training_args.fsdp_axis not in (None, 1):
         raise NotImplementedError("the (dp, fsdp, tp) mesh is not ported yet: one card "
                                   "(ROADMAP Queue 1 item 10)")
 
 
 def build_model(model_args: ModelArguments, dtype: torch.dtype, device):
-    """(params, cfg, tokenizer): the tiny debug model of ``tiny_debug_arch``
-    (LLaMA or MPT) with random weights from seed 0, made on ``device`` in
-    the stacked layout."""
+    """(params, cfg, tokenizer) in the stacked layout on ``device``: the
+    checkpoint at ``model_name_or_path`` (through the builder), or the tiny
+    debug model of ``tiny_debug_arch`` (LLaMA or MPT) with random weights
+    from seed 0; then ``pretrain_mm_mlp_adapter``'s projector, if given."""
     from llava_plus_torch.data.debug_tokenizer import DebugTokenizer
+    from llava_plus_torch.models import hf_import
     from llava_plus_torch.models import llava as llava_model
+    from llava_plus_torch.models.builder import load_pretrained_model
 
-    mpt = model_args.tiny_debug_arch == "mpt"
-    cfg = tiny_llava_mpt_config() if mpt else tiny_llava_config()
-    params = llava_model.init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                                     device, dtype)
-    tok = DebugTokenizer(vocab_size=cfg.mpt.vocab_size if mpt else cfg.text.vocab_size)
-    if mpt:
-        tok.bos_token_id = None  # MPT tokenizers carry no BOS
+    if model_args.tiny_debug_model or model_args.model_name_or_path is None:
+        mpt = model_args.tiny_debug_arch == "mpt"
+        cfg = tiny_llava_mpt_config() if mpt else tiny_llava_config()
+        params = llava_model.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                                         device, dtype)
+        tok = DebugTokenizer(vocab_size=cfg.mpt.vocab_size if mpt else cfg.text.vocab_size)
+        if mpt:
+            tok.bos_token_id = None  # MPT tokenizers carry no BOS
+    else:
+        tok, params, cfg, _, _ = load_pretrained_model(model_args.model_name_or_path,
+                                                       dtype=dtype)
+        params = tree_map(lambda x: x.to(device), params)
+    if model_args.pretrain_mm_mlp_adapter:
+        sd = torch.load(model_args.pretrain_mm_mlp_adapter, map_location="cpu",
+                        weights_only=True)
+        sd = {k.replace("model.mm_projector.", ""): v for k, v in sd.items()}
+        params["mm_projector"] = tree_map(
+            lambda x: x.to(device),
+            hf_import.projector_params_from_state_dict(sd, cfg.mm_projector_type, dtype))
     return params, cfg, tok
 
 
@@ -291,7 +303,7 @@ def train(model_args: ModelArguments, data_args: DataArguments,
     generator)`` the initial stacked adapters (updated in place by the
     training); ``on_step(step, metrics, seconds, batch)``, if given, sees
     every step's metrics (floats), its host time and the batch arrays."""
-    _unported(model_args, training_args)
+    _unported(training_args)
     logger = build_logger("train", "train.log")
     device = torch.device(training_args.device)
     dtype = torch.bfloat16 if training_args.bf16 else torch.float32

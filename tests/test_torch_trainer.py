@@ -3,7 +3,8 @@ on the CPU: the tiny debug model in f32 on a small corpus of real files
 (the fixture of ``tests/test_trainer.py``), checkpoints and resume, the
 stage-1 adapter-only save and the HF export against the JAX package's
 exporters (same keys, shapes and bytes), packing, accumulation, the
-length-grouped sampler, the CLI, and the options that are not ported yet."""
+length-grouped sampler, the CLI, starting from a checkpoint, and the
+options that are not ported yet."""
 
 import dataclasses
 import json
@@ -23,7 +24,7 @@ from llava_plus_torch.models.configs import tiny_llava_config
 from llava_plus_torch.models.convert import from_numpy, per_layer, to_numpy
 from llava_plus_torch.train import checkpoint as ckpt
 from llava_plus_torch.train.train import (
-    DataArguments, ModelArguments, TrainingArguments, main, train,
+    DataArguments, ModelArguments, TrainingArguments, build_model, main, train,
 )
 
 from .test_preprocess import SpLikeTokenizer
@@ -227,13 +228,48 @@ def test_main_accepts_both_flag_spellings(corpus, tmp_path):
     assert (out / "checkpoint-2" / "meta.json").exists()
 
 
+def _jax_step1_loss(monkeypatch, model_args, data_args, training_args):
+    """The first step's loss of the JAX package's ``train()`` on the same
+    arguments (its step function wrapped to record it)."""
+    import llava_plus_tpu.train.step as jax_step
+    from llava_plus_tpu.train import train as jax_train
+
+    seen = []
+    make = jax_step.make_train_step
+
+    def recording(*args, **kwargs):
+        fn = make(*args, **kwargs)
+
+        def step(params, opt_state, batch):
+            out = fn(params, opt_state, batch)
+            seen.append(float(out[2]["loss"]))
+            return out
+        return step
+
+    monkeypatch.setattr(jax_step, "make_train_step", recording)
+    kw = {f.name: getattr(training_args, f.name)
+          for f in dataclasses.fields(jax_train.TrainingArguments)
+          if hasattr(training_args, f.name)}
+    kw.update(output_dir=str(training_args.output_dir) + "_jax", fsdp_axis=1)
+    jax_train.train(
+        jax_train.ModelArguments(**{f.name: getattr(model_args, f.name)
+                                    for f in dataclasses.fields(jax_train.ModelArguments)}),
+        jax_train.DataArguments(**dataclasses.asdict(data_args)),
+        jax_train.TrainingArguments(**kw), tokenizer=_tok())
+    return seen[0]
+
+
 @pytest.mark.parametrize("option", ["lora", "bits", "mpt", "model_path", "adapter", "mesh"])
-def test_unported_options_raise(corpus, tmp_path, option):
-    """Only what is not ported raises ``NotImplementedError`` (checkpoint
-    loading, the mesh). LoRA, QLoRA and the MPT backbone train (their
-    numbers: ``test_torch_lora.py``, ``test_torch_mpt_train.py``): a step
-    each here, and LoRA on the MPT backbone, whose matrices the JAX package's
-    targets do not name, raises ``ValueError``."""
+def test_unported_options_raise(monkeypatch, corpus, tmp_path, option):
+    """Only what is not ported raises ``NotImplementedError`` (the mesh).
+    LoRA, QLoRA and the MPT backbone train (their numbers:
+    ``test_torch_lora.py``, ``test_torch_mpt_train.py``): a step each here,
+    and LoRA on the MPT backbone, whose matrices the JAX package's targets do
+    not name, raises ``ValueError``. ``--model-name-or-path`` (a tiny
+    checkpoint in ``tmp_path``) and, over it, ``--pretrain-mm-mlp-adapter``
+    (a ``mm_projector.bin`` of other weights) load through the builder and
+    give the JAX package's ``train()`` its first-step loss on the same files
+    (rtol 1e-4, as ``test_torch_trainer_parity.py``)."""
     model_kw, kw = {}, {}
     if option == "lora":
         kw = dict(lora_enable=True, lora_r=4, lora_alpha=8)
@@ -241,10 +277,18 @@ def test_unported_options_raise(corpus, tmp_path, option):
         kw = dict(lora_enable=True, bits=4, lora_r=4, lora_alpha=8)
     elif option == "mpt":
         model_kw = dict(tiny_debug_arch="mpt", version="mpt")
-    elif option == "model_path":
-        model_kw = dict(tiny_debug_model=False, model_name_or_path="liuhaotian/llava-v1.5-7b")
-    elif option == "adapter":
-        model_kw = dict(pretrain_mm_mlp_adapter=str(tmp_path / "mm_projector.bin"))
+    elif option in ("model_path", "adapter"):
+        jp = jax.tree.map(np.asarray, jax_llava.init_params(
+            jax_tiny_config(), jax.random.PRNGKey(3), dtype=jnp.float32))
+        ckpt.export_hf_llava(from_numpy(jp, "cpu"), tiny_llava_config(),
+                             tmp_path / "llava-tiny")
+        model_kw = dict(tiny_debug_model=False, model_name_or_path=str(tmp_path / "llava-tiny"))
+        if option == "adapter":
+            other = jax.tree.map(np.asarray, jax_llava.init_params(
+                jax_tiny_config(), jax.random.PRNGKey(4), dtype=jnp.float32))
+            ckpt.export_mm_projector_bin(from_numpy(other, "cpu"),
+                                         tmp_path / "mm_projector.bin")
+            model_kw["pretrain_mm_mlp_adapter"] = str(tmp_path / "mm_projector.bin")
     else:
         kw = dict(dp=2)
     data_path, img_dir = corpus
@@ -263,8 +307,19 @@ def test_unported_options_raise(corpus, tmp_path, option):
         train(model_args, data_args, training_args)
         cfg = json.loads((out / "hf_export" / "config.json").read_text())
         assert cfg["model_type"] == "llava_mpt"
+    elif option in ("model_path", "adapter"):
+        losses = []
+        params, _ = train(model_args, data_args, training_args, tokenizer=_tok(),
+                          on_step=lambda s, m, dt, a: losses.append(m["loss"]))
+        want = _jax_step1_loss(monkeypatch, model_args, data_args, training_args)
+        np.testing.assert_allclose(losses[0], want, rtol=1e-4)
+        assert (out / "hf_export" / "model.safetensors").exists()
+        start = build_model(model_args, torch.float32, "cpu")[0]
+        src = other if option == "adapter" else jp
+        jax.tree.map(np.testing.assert_array_equal, to_numpy(start["mm_projector"]),
+                     src["mm_projector"])
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
             train(model_args, data_args, training_args, tokenizer=_tok())
 
 
