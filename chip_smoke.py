@@ -43,7 +43,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    bf16 failed; the flash forward's edges (T = 704, where the last 128-row tile lies half past T,
    with a row packed as 3 segments; the training shape T = 2048) and a
    backward row at T = 1984 (MQA with slopes: the head split and the ragged
-   kv tile);
+   kv tile); the dense decode kernel at the speculative verify chunks (2, 5
+   and 8 query tokens a row at 16 slots of 2048, bf16 and int8, MHA with and
+   without ALiBi, GQA at 8 tokens; the library call for bf16 is sdpa with a
+   boolean mask), and the int8 and int4 matmuls on wqkv and w_down also at
+   a 16-slot verify step's 80 and 128 rows;
 4. a narrow LLaMA (head dim 128, GQA) on the card against the same weights
    on the CPU plain path: 16 greedy tokens, and the logits of the prefill and
    of every decode step, with bf16 weights (bf16 and int8 KV) and with fused
@@ -125,6 +129,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    or yardstick (kernel, library, library, kernel; on wqkv at 16, 768 and
    3,072 rows and, int4, w_down at 8,192) in one process, with TFLOP/s and
    the share of the bound;
+17. (run after 7, before 11) speculative serving on fresh int8 LLaVA-1.5-7B
+   weights, int8 KV: ``llava_plus_torch.tools.bench_spec``'s stream (160
+   repetitive words and an image, 128 greedy tokens, speculation off then
+   on; acceptance > 1 required), the dense engine at 16 slots behind the
+   HTTP worker with ``speculate=4`` on 8 image and 8 repetitive text
+   requests of 64 tokens after the plain engine on the same requests (per
+   request the tokens equal to the plain engine's; at a divergence the
+   plain step's top-2 logit gap, which must lie within phase 4's bound),
+   the paged engine (256 pages, prefix cache) on them and 8 prefix-hit
+   follow-ups (the paged general kernel once a layer a verify step), a
+   verify chunk and a plain step queued under
+   ``set_sync_debug_mode("error")``, a plain and a verify step at 16 slots
+   with host ms and device busy by class, and the narrow LLaMA and MPT
+   (bf16: the kernels take no f32) dense and paged, spec against plain;
 16. (run after 5, before 6, which quantizes its weights) the 7B tree of
    phase 5 exported as an HF checkpoint under ``.smoke/`` (one
    ``model.safetensors``, 14.1 GB, with a word-level tokenizer that names
@@ -485,17 +503,18 @@ def check_flash_bwd(tag, B, T, H, Hkv, gen, alibi=False, causal=True):
              "library_ms": library_ms})
 
 
-def _decode_inputs(tag, B, S, H, Hkv, gen, rng, fills=None, masked_row=None):
-    """A dense-decode call at a 7B width: q, a layer slice of a stacked [L,
-    B, S, Hkv, D] cache (int8 with scales for ``tag`` "int8"), segment ids
-    and query positions. ``fills`` (slots each row has written) are drawn
-    from ``rng`` unless given, the first row full and the second at 1;
-    ``masked_row``: a row whose visible slots all have segment id 0."""
+def _decode_inputs(tag, B, S, H, Hkv, gen, rng, fills=None, masked_row=None, Tq=1):
+    """A dense-decode call at a 7B width: q of ``Tq`` tokens, a layer slice
+    of a stacked [L, B, S, Hkv, D] cache (int8 with scales for ``tag``
+    "int8"), segment ids and the first query token's positions (a row's last
+    token at its last written slot). ``fills`` (slots each row has written)
+    are drawn from ``rng`` unless given, the first row full and the second at
+    1; ``masked_row``: a row whose visible slots all have segment id 0."""
     import torch
     from llava_plus_torch.models.llama import quantize_kv
 
     dev, D = "cuda", 128
-    q = torch.randn(B, 1, H, D, generator=gen, device=dev).bfloat16()
+    q = torch.randn(B, Tq, H, D, generator=gen, device=dev).bfloat16()
     k_all = torch.randn(2, B, S, Hkv, D, generator=gen, device=dev).bfloat16()
     v_all = torch.randn(2, B, S, Hkv, D, generator=gen, device=dev).bfloat16()
     if fills is None:
@@ -505,7 +524,7 @@ def _decode_inputs(tag, B, S, H, Hkv, gen, rng, fills=None, masked_row=None):
     seg = torch.zeros(B, S, dtype=torch.int32, device=dev)
     for b, f in enumerate(fills):
         seg[b, :f] = 0 if b == masked_row else 1
-    q_pos = torch.as_tensor(fills - 1, dtype=torch.int32, device=dev)
+    q_pos = torch.as_tensor(np.maximum(fills - Tq, 0), dtype=torch.int32, device=dev)
     ks = vs = None
     if tag == "int8":
         (kq, ks), (vq, vs) = quantize_kv(k_all), quantize_kv(v_all)
@@ -521,33 +540,38 @@ def _decode_library(q, kc, vc, q_pos, slopes):
     import torch
     import torch.nn.functional as F
 
-    S = kc.shape[1]
+    S, Tq = kc.shape[1], q.shape[1]
     qt = q.transpose(1, 2).contiguous()
     kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
     pos = torch.arange(S, device=q.device)
-    mask = (pos[None, :] <= q_pos[:, None])[:, None, None, :]
+    qp = q_pos[:, None] + torch.arange(Tq, device=q.device)                # [B, Tq]
+    mask = (pos <= qp[:, :, None])[:, None]                                 # [B, 1, Tq, S]
     if slopes is not None:
-        dist = (q_pos[:, None] - pos[None, :]).float()
-        bias = -dist[:, None, None, :] * slopes[None, :, None, None]       # [B, H, 1, S]
+        dist = (qp[:, :, None] - pos).float()
+        bias = -dist[:, None] * slopes[None, :, None, None]                 # [B, H, Tq, S]
         mask = torch.where(mask, bias, -torch.inf).bfloat16()
     gqa = kc.shape[2] != q.shape[2]
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=gqa)
 
 
-def _decode_bound(fills, B, H, Hkv, S, elem, quantized):
-    """The cache bytes up to each query (k and v, + scales), q, out, seg and
-    q_pos moved once, against 4 flops per visible slot, head and dim."""
+def _decode_bound(fills, B, H, Hkv, S, elem, quantized, Tq=1):
+    """The cache bytes up to each row's last query (k and v, + scales), q,
+    out, seg and q_pos moved once, against 4 flops per visible slot, query
+    token, head and dim (token t of a row sees slots up to q_pos + t)."""
     D = 128
     rows = int(np.sum(fills)) * Hkv
     nbytes = 2 * rows * (D * elem + (4 if quantized else 0))
-    return nbytes, bound(nbytes + 2 * 2 * B * H * D + 4 * B * (S + 1),
-                         4 * H * D * float(np.sum(fills)))
+    q_pos = np.maximum(np.asarray(fills) - Tq, 0)
+    visible = float(sum(min(int(p) + t + 1, S) for p in q_pos for t in range(Tq)))
+    return nbytes, bound(nbytes + 2 * 2 * B * Tq * H * D + 4 * B * (S + 1),
+                         4 * H * D * visible)
 
 
-def check_decode(tag, B, S, H, Hkv, gen, rng, alibi=False, fills=None, masked_row=None):
+def check_decode(tag, B, S, H, Hkv, gen, rng, alibi=False, fills=None, masked_row=None, Tq=1):
     """The dense decode kernel against its plain version and the f64 truth,
     launched twice (every bit must repeat: the chunks' partials are summed
-    in a fixed order), with the cache chunks it was split into."""
+    in a fixed order), with the cache chunks it was split into; ``Tq`` query
+    tokens a row (a speculative verify chunk)."""
     import torch
     from llava_plus_torch.ops.decode_attention import (
         WIDE_GROUP, decode_attention, decode_attention_reference,
@@ -555,7 +579,7 @@ def check_decode(tag, B, S, H, Hkv, gen, rng, alibi=False, fills=None, masked_ro
 
     D = 128
     q, kc, vc, seg, q_pos, ks, vs, fills = _decode_inputs(tag, B, S, H, Hkv, gen, rng, fills,
-                                                          masked_row)
+                                                          masked_row, Tq)
     scale = D ** -0.5
     slopes = _slopes(H, alibi)
     counter = ("wide_launches" if H // Hkv > WIDE_GROUP else
@@ -571,10 +595,11 @@ def check_decode(tag, B, S, H, Hkv, gen, rng, alibi=False, fills=None, masked_ro
     dbl = lambda x: None if x is None else x.double()
     truth = decode_attention_reference(q.double(), kc, vc, seg, q_pos, dbl(ks), dbl(vs),
                                        sm_scale=scale, alibi_slopes=slopes)
-    n0 = getattr(decode_attention, counter)
+    n0, c0 = getattr(decode_attention, counter), decode_attention.chunk_launches
     out, p_out = kernel(), plain()
     torch.cuda.synchronize()
-    if getattr(decode_attention, counter) != n0 + 1:
+    if (getattr(decode_attention, counter) != n0 + 1
+            or decode_attention.chunk_launches != c0 + (Tq > 1)):
         raise AssertionError(f"decode_attention {tag}: the call did not launch the kernel")
     splits = decode_attention.last_splits
     same = torch.equal(out, kernel())
@@ -584,10 +609,10 @@ def check_decode(tag, B, S, H, Hkv, gen, rng, alibi=False, fills=None, masked_ro
     ms, plain_ms = time_ms(kernel), time_ms(plain)
     # an int8 cache has no single library call
     library_ms = None if ks is not None else time_ms(_decode_library(q, kc, vc, q_pos, slopes))
-    nbytes, b = _decode_bound(fills, B, H, Hkv, S, kc.element_size(), ks is not None)
+    nbytes, b = _decode_bound(fills, B, H, Hkv, S, kc.element_size(), ks is not None, Tq)
     ok = within(k_err, r_err) and same and finite
-    log("kernels", f"decode_attention{'[alibi]' if alibi else ''} {tag} B={B} S={S} H={H} "
-                   f"Hkv={Hkv} D={D} (fills {int(fills.min())}-{int(fills.max())}, mean "
+    log("kernels", f"decode_attention{'[alibi]' if alibi else ''} {tag} B={B} Tq={Tq} S={S} "
+                   f"H={H} Hkv={Hkv} D={D} (fills {int(fills.min())}-{int(fills.max())}, mean "
                    f"{fills.mean():.0f}{f', row {masked_row} all seg 0' if masked_row is not None else ''}"
                    f"; {splits} chunks a row): "
                    f"err {k_err:.3e} (plain {r_err:.3e}), a second launch bit-identical {same}, "
@@ -627,6 +652,9 @@ INT8_ROWS = (1, 16, 32, 33, 64, 768, 3072)
 INT4_ROWS = (1, 16, 48, 49, 64, 768, 3072, 8192)
 # the native int4 kernel's rows: the int8 rows with its own cut (INT4N_CUT)
 INT4N_ROWS = (1, 16, 48, 49, 64, 768, 3072)
+# a 16-slot verify step's rows (16 x (k + 1) for k = 4 and 7), on wqkv and
+# w_down (int8 and int4)
+VERIFY_ROWS = (80, 128)
 
 
 def _quantize(kind, w):
@@ -658,7 +686,7 @@ def _dequant16(kind, q, s):
     return qm.dequantize(8 if kind == "int8" else 4, q, s, torch.bfloat16)
 
 
-def check_quant(kind, name, K, N, gen):
+def check_quant(kind, name, K, N, gen, extra_rows=()):
     """One weight, every row count: kernel and plain version against the f64
     product of the dequantized weight, errors relative to the largest output.
     Every row also launches the kernel a second time (every bit must repeat:
@@ -687,7 +715,7 @@ def check_quant(kind, name, K, N, gen):
         if not {cut, cut + 1} <= set(rows_):
             raise AssertionError(f"the rows {rows_} must hold both sides of the cut {cut}")
     rows = {}
-    for R in {"int8": INT8_ROWS, "int4": INT4_ROWS, "int4n": INT4N_ROWS}[kind]:
+    for R in {"int8": INT8_ROWS, "int4": INT4_ROWS, "int4n": INT4N_ROWS}[kind] + extra_rows:
         x = torch.randn(R, K, generator=gen, device=dev).bfloat16()
         truth = x.double() @ w64
         top = truth.abs().max().item()
@@ -789,15 +817,18 @@ def phase_quant_kernels():
     for kind, shapes, head in (("int8", QUANT_SHAPES + MPT_QUANT_SHAPES, "wqkv"),
                                ("int4", QUANT_SHAPES + MPT_QUANT_SHAPES, "wqkv"),
                                ("int4n", INT4N_SHAPES + (INT4N_EDGE,), "7B q/o")):
-        per = {name: check_quant(kind, name, K, N, gen) for name, K, N in shapes}
+        per = {name: check_quant(kind, name, K, N, gen,
+                                 VERIFY_ROWS if name in ("wqkv", "w_down") else ())
+               for name, K, N in shapes}
         K, N = next((K, N) for name, K, N in shapes if name == head)
         stats[f"quant_matmul[{kind}]"] = dict(
             per[head][16], shape=f"{head} K={K} N={N} R=16",
             max_abs_err=max(r["max_abs_err"] for rows in per.values() for r in rows.values()))
         # the prefill regime's rows on the same weight
+        regime_rows = (768, 3072) + (VERIFY_ROWS if kind != "int4n" else ())
         stats[f"quant_matmul[{kind}]"].update(
-            {f"r{R}_ms": per[head][R]["ms"] for R in (768, 3072)},
-            **{f"r{R}_yardstick_ms": per[head][R]["yardstick_ms"] for R in (768, 3072)})
+            {f"r{R}_ms": per[head][R]["ms"] for R in regime_rows},
+            **{f"r{R}_yardstick_ms": per[head][R]["yardstick_ms"] for R in regime_rows})
     return stats
 
 
@@ -1089,6 +1120,7 @@ def phase_kernels():
     dec_bf16 = worst(dec_bf16, dec_new["bf16", 32, False, 1], dec_new["bf16", 32, False, 16])
     dec_int8 = worst(dec_int8, dec_new["int8", 32, False, 1], dec_new["int8", 32, False, 16])
     return {"flash_fwd": flash,
+            "decode_attention[verify]": phase_verify_decode(),
             "flash_bwd[dkv,alibi]": dict(alibi_bwd[0][0], max_abs_err=max(
                 r[0]["max_abs_err"] for r in alibi_bwd)),
             "flash_bwd[dq,alibi]": dict(alibi_bwd[0][1], max_abs_err=max(
@@ -1106,12 +1138,41 @@ def phase_kernels():
             **phase_paged_kernels(gen, rng)}
 
 
+def phase_verify_decode():
+    """The dense decode kernel at the speculative verify chunks (Tq = 2, 5
+    and 8 tokens a row: k = 1, 4 and 7 proposals) at 16 slots of 2048, bf16
+    and int8 caches, MHA with and without ALiBi, and GQA (G = 4) at Tq = 8,
+    on a generator of their own. The line reports the bf16 MHA row at Tq = 8
+    (it has a library call) with the largest error of all."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rng = np.random.default_rng(3)
+    rows = {(tag, Hkv, alibi, Tq): check_decode(tag, B=16, S=2048, H=32, Hkv=Hkv, gen=gen,
+                                                rng=rng, alibi=alibi, Tq=Tq)
+            for Tq in VERIFY_TQ for tag in ("bf16", "int8") for alibi in (False, True)
+            for Hkv in ((32, 8) if Tq == 8 and not alibi else (32,))}
+    head = rows["bf16", 32, False, 8]
+    return dict(head, shape="B=16 Tq=8 S=2048 H=32 Hkv=32 bf16",
+                max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+                **{f"tq{Tq}_{tag}_ms": rows[tag, 32, False, Tq]["ms"]
+                   for Tq in VERIFY_TQ for tag in ("bf16", "int8")})
+
+
+# the verify chunks phase 3 holds the dense decode kernel at (k + 1 tokens
+# for k = 1, 4 and 7 proposals)
+VERIFY_TQ = (2, 5, 8)
+
+
 def device_ms(fn, names=None, iters=20, warmup=3, sessions=6):
     """Mean device time of ``fn`` per call in ms, read from ``torch.profiler``:
     the kernels whose name holds one of ``names``, or every device event the
     call launches (``names`` None: a library call's whole work). A session
     in which CUPTI delivered no device event (seen in long runs, three
-    sessions in a row once) is taken again, up to ``sessions`` times."""
+    sessions in a row once) is taken again, up to ``sessions`` times. A
+    named kernel counts as its mean time a launch times its launches a call,
+    so a session that lost some of its events still reads the kernel's time
+    (the sum over the calls would read it short)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1123,11 +1184,19 @@ def device_ms(fn, names=None, iters=20, warmup=3, sessions=6):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and (names is None or any(n in e.key for n in names)))
-        if us > 0:
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and (names is None or any(n in e.key for n in names))]
+        us = sum(e.self_device_time_total for e in events)
+        if us <= 0:
+            continue
+        if names is None:
             return us / iters / 1e3
+        if any(e.count % iters for e in events):
+            log("device", f"{names}: {[e.count for e in events]} events for {iters} calls "
+                          "(some lost); the mean a launch is used")
+        return sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
+                   for e in events) / 1e3
     raise AssertionError(f"the profiler saw no device time of {names or 'the call'} "
                          f"in {sessions} sessions")
 
@@ -1562,22 +1631,26 @@ def wrapper_times(stats):
 
 def _device_times_decode(stats, gen):
     """Phase 3's dense-decode rows (16 slots of 1024: bf16, int8, ALiBi bf16,
-    G = 32; and batch 1 over 2048 filled to 1700), the kernel alone
+    G = 32; batch 1 over 2048 filled to 1700; and the verify chunk of 8
+    tokens at 16 slots of 2048, bf16 and int8), the kernel alone
     alternated with ``scaled_dot_product_attention`` over the same bf16
     cache and masks (an int8 cache has no library call: the kernel alone,
     taken twice)."""
     from llava_plus_torch.ops.decode_attention import decode_attention
 
     rng = np.random.default_rng(3)
-    for name, tag, B, S, Hkv, alibi, fills in (
-            ("decode_attention[bf16]", "bf16", 16, 1024, 32, False, None),
-            ("decode_attention[int8]", "int8", 16, 1024, 32, False, None),
-            ("decode_attention[alibi]", "bf16", 16, 1024, 32, True, None),
-            ("decode_attention[G>8]", "bf16", 16, 1024, 1, False, None),
-            ("decode_attention[bf16]", "bf16", 1, 2048, 32, False, np.array([1700]))):
+    for name, tag, B, S, Hkv, alibi, fills, Tq, key in (
+            ("decode_attention[bf16]", "bf16", 16, 1024, 32, False, None, 1, ""),
+            ("decode_attention[int8]", "int8", 16, 1024, 32, False, None, 1, ""),
+            ("decode_attention[alibi]", "bf16", 16, 1024, 32, True, None, 1, ""),
+            ("decode_attention[G>8]", "bf16", 16, 1024, 1, False, None, 1, ""),
+            ("decode_attention[bf16]", "bf16", 1, 2048, 32, False, np.array([1700]), 1, "b1_"),
+            ("decode_attention[verify]", "bf16", 16, 2048, 32, False, None, 8, ""),
+            ("decode_attention[verify]", "int8", 16, 2048, 32, False, None, 8, "int8_")):
         H = 32
         slopes = _slopes(H, alibi)
-        q, kc, vc, seg, q_pos, ks, vs, fills = _decode_inputs(tag, B, S, H, Hkv, gen, rng, fills)
+        q, kc, vc, seg, q_pos, ks, vs, fills = _decode_inputs(tag, B, S, H, Hkv, gen, rng, fills,
+                                                              Tq=Tq)
         kernel = lambda: decode_attention(q, kc, vc, seg, q_pos, ks, vs, alibi_slopes=slopes)
         if ks is None:
             kern_ms, lib_ms = _alternated(kernel, DECODE_KERNEL,
@@ -1585,16 +1658,15 @@ def _device_times_decode(stats, gen):
         else:
             kern_ms, lib_ms = (device_ms(kernel, DECODE_KERNEL)
                                + device_ms(kernel, DECODE_KERNEL)) / 2, None
-        nbytes, b = _decode_bound(fills, B, H, Hkv, S, kc.element_size(), ks is not None)
+        nbytes, b = _decode_bound(fills, B, H, Hkv, S, kc.element_size(), ks is not None, Tq)
         lib = "none" if lib_ms is None else (f"{lib_ms:.4f} ms device, "
                                              f"x{kern_ms / lib_ms:.2f} of the library")
-        log("device", f"{name} {tag} B={B} S={S} H={H} Hkv={Hkv} (mean fill "
+        log("device", f"{name} {tag} B={B} Tq={Tq} S={S} H={H} Hkv={Hkv} (mean fill "
                       f"{fills.mean():.0f}; {getattr(decode_attention, 'last_splits', 1)} chunks "
                       f"a row): kernel {kern_ms:.4f} ms device, library (sdpa) {lib}, "
                       f"{nbytes / kern_ms / 1e6:.1f} GB/s of cache read, "
                       f"{b['bound_ms'] / kern_ms:.1%} of the bound ({b['bound_ms']:.4f} ms, "
                       f"{b['bound_by']})")
-        key = "b1_" if B == 1 else ""
         stats[name].update({f"{key}device_ms": kern_ms, f"{key}library_device_ms": lib_ms})
         del q, kc, vc, seg, q_pos, ks, vs
 
@@ -2642,6 +2714,444 @@ def serve_paged_engine(smi):
 
 
 # ---------------------------------------------------------------------------
+# 17. speculative serving: the verify steps on the dense and the paged engine
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4        # proposals a verify step: chunks of 5 tokens
+SPEC_CHUNK = 4    # verify steps a dispatch
+SPEC_NEW = 64     # tokens a request of phase 17
+SPEC_TOL = 3e-2   # phase 4's logit bound for int8 weights (2e-2 for bf16 ones)
+
+
+def _id_tokenizer(vocab_size, bos=True):
+    """A ``DebugTokenizer`` that names every id ("#id") when it decodes, so a
+    stream's text gives its token ids back; eos -1 (random weights give eos
+    no meaning: every request runs its budget)."""
+    from llava_plus_torch.data import DebugTokenizer
+
+    class IdTokenizer(DebugTokenizer):
+        def decode(self, ids, skip_special_tokens=True):
+            return " ".join(f"#{int(i)}" for i in ids
+                            if not (skip_special_tokens and int(i) < self._RESERVED))
+
+    tok = IdTokenizer(vocab_size=vocab_size)
+    tok.eos_token_id = -1
+    if not bos:
+        tok.bos_token_id = None   # GPT-NeoX style, as MPT's tokenizer
+    return tok
+
+
+def _stream_ids(text, prompt):
+    return [int(w[1:]) for w in text[len(prompt):].split()]
+
+
+def _spec_bodies(rng, size, new_tokens):
+    """Phase 6's 8 image prompts (762 fused tokens) and 8 repetitive text
+    prompts, a tool's output quoted back: 24 words cycled, 100-240 words."""
+    bodies = _engine_bodies(rng, size, 8, 0, new_tokens)
+    for j in range(8):
+        words = " ".join(f"tool{j}w{i % 24}" for i in range(100 + 20 * j))
+        bodies.append({"prompt": f"observation: {words} summary:", "temperature": 0.0,
+                       "max_new_tokens": new_tokens})
+    return bodies
+
+
+def _top2_gap(params, cfg, tok, body, tokens, cache_dtype, max_len=2048):
+    """The plain step's top-2 logit gap, relative to the top logit, after
+    ``body``'s prompt (and image) and ``tokens``: a fresh dense prefill and
+    one decode step a token."""
+    import torch
+    from llava_plus_torch.data import ClipImageProcessor
+    from llava_plus_torch.generate import prepare_multimodal_request
+    from llava_plus_torch.mm_utils import load_image_from_base64, process_images
+    from llava_plus_torch.models import llama, llava as llava_model
+
+    images = None
+    if body.get("images"):
+        images = [process_images([load_image_from_base64(b) for b in body["images"]],
+                                 ClipImageProcessor(), cfg)]
+    batch, plan = prepare_multimodal_request(cfg, tok, [body["prompt"]], images,
+                                             max_seq_len=max_len, device="cuda",
+                                             prefill_bucket=256)
+    n0 = int(plan.lengths[0])
+    cache = llama.KVCache.create(llava_model.backbone(cfg)[1], 1, max_len, cache_dtype,
+                                 device="cuda")
+    seg = torch.ones(1, 1, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        logits, _ = llava_model.forward(params, cfg, batch, cache=cache, fresh_prefill=True,
+                                        logits_positions=torch.tensor([n0 - 1], device="cuda"))
+        for i, t in enumerate(tokens):
+            logits, _ = llava_model.decode_step(
+                params, cfg, torch.tensor([[t]], device="cuda"),
+                torch.tensor([[n0 + i]], dtype=torch.int32, device="cuda"), seg, cache)
+    top = logits[0, -1].float().topk(2).values
+    return float((top[0] - top[1]) / top[0].abs())
+
+
+def _compare_greedy(tag, plain, spec, gap_of, tol):
+    """Per request: how many of the speculative engine's greedy tokens equal
+    the plain engine's. At a divergence, the plain step's top-2 logit gap
+    there, which must lie within ``tol`` (phase 4's logit bound): a near tie
+    that the two paths' rounding may split, where a fault would split a
+    wide margin."""
+    matched = []
+    for i, (a, b) in enumerate(zip(plain, spec)):
+        n = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        matched.append(n)
+        if n < max(len(a), len(b)):
+            gap = gap_of(i, a[:n])
+            log("spec", f"{tag} request {i}: {n} of {len(a)} tokens equal the plain engine's; "
+                        f"the plain step's top-2 logit gap there {gap:.3e} of the top logit "
+                        f"(bound {tol})")
+            if gap > tol:
+                raise AssertionError(f"{tag} request {i} diverges from the plain engine at token "
+                                     f"{n}, where the plain top-2 gap is {gap:.3e} > {tol}")
+    log("spec", f"{tag}: tokens equal to the plain engine's, per request: {matched} "
+                f"(of {[len(a) for a in plain]})")
+    return matched
+
+
+def _profile_tool():
+    """``tools/profile_torch_slice.py``'s helpers, loaded from its file."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_slice", os.path.join(HERE, "tools", "profile_torch_slice.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def _profiled(fn):
+    """One call of ``fn`` (it ends with its fetch) under ``torch.profiler``:
+    device busy ms and ms by kernel class, as the profile tool sorts them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    tool = _profile_tool()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = tool.device_events(prof)
+    by_class = {}
+    for name, _, us in events:
+        label = tool.kernel_class(name)
+        by_class[label] = by_class.get(label, 0.0) + us / 1e3
+    return {"device_busy_ms": sum(us for _, _, us in events) / 1e3,
+            "by_class_ms": dict(sorted(by_class.items(), key=lambda kv: -kv[1]))}
+
+
+def _step_breakdown(tag, engine, paged):
+    """The engine's loop stopped, its 16 slots active at position 512: host
+    ms of a plain step and of a verify step, each ending with its fetch
+    (mean of 20 and 10 after 3), then one of each under ``torch.profiler``.
+    A paged pool first gets 8 distinct pages a slot."""
+    import torch
+    from llava_plus_torch.tools import bench_spec
+
+    if paged:
+        c = engine.cache
+        B, per = c.page_table.shape[0], 8
+        table = torch.zeros_like(c.page_table)
+        table[:, :per] = torch.arange(B * per, dtype=torch.int32,
+                                      device=table.device).view(B, per)
+        c.page_table.copy_(table)
+        c.alloc.fill_(per * engine.page_size)
+    with torch.inference_mode():
+        plain, verify = bench_spec.step_fns(engine, 512)
+        host = {"plain": bench_spec._host_ms(plain), "verify": bench_spec._host_ms(verify, 10)}
+        plain, verify = bench_spec.step_fns(engine, 512)
+        res = {}
+        for name, fn in (("plain", plain), ("verify", verify)):
+            fn()
+            res[name] = dict(host_ms=host[name], **_profiled(fn))
+            r = res[name]
+            log("spec", f"{tag} {name} step, 16 slots at 512: host {r['host_ms']:.3f} ms, "
+                        f"device busy {r['device_busy_ms']:.3f} ms, idle share "
+                        f"{1 - r['device_busy_ms'] / r['host_ms']:.3f}; " + ", ".join(
+                            f"{k} {v:.3f}" for k, v in r["by_class_ms"].items()))
+    return res
+
+
+def _sync_check(tag, engine):
+    """One verify chunk (``SPEC_CHUNK`` steps and the start of its rows'
+    copy) and one plain step queued under ``torch.cuda.set_sync_debug_mode
+    ("error")``: neither may wait for the card."""
+    import torch
+    from llava_plus_torch.tools import bench_spec
+
+    with torch.inference_mode():
+        plain, verify = bench_spec.step_fns(engine, 600)
+        verify(SPEC_CHUNK)
+        plain()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            verify(SPEC_CHUNK, fetch=False)
+            plain(fetch=False)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    log("spec", f"{tag}: a verify chunk of {SPEC_CHUNK} steps and a plain step queued under "
+                f"set_sync_debug_mode('error') with no host sync")
+
+
+def _narrow_spec():
+    """Phase 4's narrow LLaMA (its permutation head: wide top-2 margins) and
+    the narrow MHA MPT on the card, bf16 weights and cache (the kernels take
+    bf16; in f32 only their plain versions run), dense and paged: the
+    speculative engine's greedy tokens against the plain engine's on a
+    repetitive and a plain prompt, budgets ending inside a verify chunk.
+    Returns the verify launches of the dense decode kernel and the paged
+    general kernel (ALiBi apart)."""
+    import torch
+    from llava_plus_torch.models import llava as llava_model
+    from llava_plus_torch.ops.decode_attention import decode_attention
+    from llava_plus_torch.ops.paged_attention import paged_attention_general
+    from llava_plus_torch.serve.engine import BatchedEngine, Request
+
+    counts = {"chunk": 0, "general": 0, "general[alibi]": 0}
+    for arch in ("llama", "mpt"):
+        if arch == "llama":
+            cfg = _narrow_cfg()
+            cpu = llava_model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+            lm = cpu["language_model"]
+            lm["embed_tokens"].mul_(2.0)
+            perm = torch.randperm(cfg.text.vocab_size,
+                                  generator=torch.Generator().manual_seed(1))
+            lm["lm_head"] = lm["embed_tokens"][perm].T.contiguous()
+            tok, tol = _id_tokenizer(cfg.text.vocab_size), 2e-2
+        else:
+            cfg = _narrow_mpt_cfg(False)
+            cpu = llava_model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+            tok, tol = _id_tokenizer(cfg.mpt.vocab_size, bos=False), 2e-2
+        params = _tree_to(cpu, "cuda")
+        L = llava_model.backbone(cfg)[1].num_hidden_layers if arch == "llama" else cfg.mpt.n_layers
+        prompts = [" ".join(f"w{i % 12}" for i in range(200)),
+                   " ".join(f"token{i}" for i in range(150))]
+        budgets = [23, 17]
+        outs = {}
+        for mode, kw in (("plain", {}), ("spec", dict(speculate=SPEC_K)),
+                         ("spec paged", dict(speculate=SPEC_K, paged=True, page_size=128))):
+            eng = BatchedEngine(params, cfg, tok, max_slots=4, max_seq_len=1024,
+                                prefill_bucket=128, cache_dtype=torch.bfloat16, **kw)
+            c0 = (decode_attention.chunk_launches, paged_attention_general.launches,
+                  paged_attention_general.alibi_launches)
+            try:
+                texts = [eng.generate(Request(prompt=p, max_new_tokens=b))
+                         for p, b in zip(prompts, budgets)]
+                steps = eng.verify_steps
+            finally:
+                eng.stop()
+            d = [b - a for a, b in zip(c0, (decode_attention.chunk_launches,
+                                            paged_attention_general.launches,
+                                            paged_attention_general.alibi_launches))]
+            if mode != "plain":
+                # at least once a layer a verify step (the GQA LLaMA's plain
+                # steps over a paged pool take the general kernel too)
+                want = L * steps
+                got = d[0] if mode == "spec" else d[1] + d[2]
+                if steps <= 0 or got < want or (mode == "spec" and got != want):
+                    raise AssertionError(f"narrow {arch} {mode}: {got} verify launches for "
+                                         f"{steps} verify steps of {L} layers")
+                counts["chunk"] += d[0]
+                counts["general"] += d[1]
+                counts["general[alibi]"] += d[2]
+            outs[mode] = [_stream_ids(t, "") for t in texts]
+        for mode in ("spec", "spec paged"):
+            _compare_greedy(
+                f"narrow {arch} {mode}", outs["plain"], outs[mode],
+                lambda i, toks: _top2_gap(params, cfg, tok, {"prompt": prompts[i]}, toks,
+                                          torch.bfloat16, max_len=1024), tol)
+        del params
+    return counts
+
+
+def phase_speculative(smi):
+    """Phase 17: prompt-lookup speculative decoding at LLaVA-1.5-7B width,
+    one fresh random tree (seed 0) quantized to int8 and fused, int8 KV.
+
+    1. ``llava_plus_torch.tools.bench_spec``'s shape: one stream, a 160-word
+       repetitive prompt and an image, 128 greedy tokens, speculation off,
+       then on (k = 4, chunks of 4 steps): tokens/s, acceptance (> 1
+       required) and the loop's host seconds by part.
+    2. The dense engine at 16 slots behind the HTTP worker
+       (``TorchBackend(..., speculate=4)``) on 16 requests (8 image, 8
+       repetitive text) of 64 greedy tokens, after the plain engine on the
+       same requests: TTFT p50, tokens/s, verify steps, pauses, the
+       extended decode kernel's launches (one a layer a verify step), and per
+       request the tokens equal to the plain engine's (at a divergence the
+       plain step's top-2 gap, which must lie within phase 4's bound).
+    3. The paged engine (256 pages of 128, prefix cache) with speculation on
+       the same requests, then 8 prefix-hit follow-ups: the general paged
+       kernel launched once a layer a verify step.
+    4. On each engine, its loop stopped: a verify chunk and a plain step
+       queued under ``set_sync_debug_mode("error")``, then a plain and a
+       verify step at 16 slots, host ms and device busy by class.
+    5. The narrow LLaMA and MPT (``_narrow_spec``)."""
+    import torch
+    from llava_plus_torch.data import ClipImageProcessor
+    from llava_plus_torch.models import llava as llava_model
+    from llava_plus_torch.models.configs import LLAVA_15_7B
+    from llava_plus_torch.ops import quant_matmul as qm
+    from llava_plus_torch.ops.decode_attention import decode_attention
+    from llava_plus_torch.ops.flash_attention import flash_attention
+    from llava_plus_torch.ops.paged_attention import paged_attention_general, paged_decode1
+    from llava_plus_torch.serve.model_worker import ModelWorker, TorchBackend, build_app
+    from llava_plus_torch.tools import bench_spec
+
+    cfg = LLAVA_15_7B
+    L, P = cfg.text.num_hidden_layers, 128
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = bench_spec.make_params("cuda:0")
+    log("spec", f"LLaVA-1.5-7B, random bf16 weights (seed 0), int8 fused, in "
+                f"{time.perf_counter() - t0:.1f} s")
+    out = {"flash": 0, "quant": 0, "decode1": 0}
+    kernels = {"flash": flash_attention, "quant": qm.matmul_int8, "decode1": paged_decode1}
+
+    # 1. bench_spec's shape
+    runs = {}
+    for mode in (0, SPEC_K):
+        runs[mode] = r = bench_spec.run(mode, 128, SPEC_CHUNK, params=params)
+        log("spec", f"bench_spec, speculate={mode}: {r['tokens']} tokens in {r['seconds']:.3f} s "
+                    f"= {r['tok_s']:.1f} tokens/s (TTFT {r['ttft_s'] * 1e3:.1f} ms)"
+                    + (f"; spec_acceptance {r['acceptance']:.3f} over {r['steps']} verify steps, "
+                       f"{r['refreshes']} refreshes, {r['pauses']} pauses; spec_timers "
+                       f"{ {k: round(v, 4) for k, v in r['timers'].items()} }" if mode else ""))
+    if runs[SPEC_K]["acceptance"] <= 1.0 or runs[SPEC_K]["tokens"] != 128:
+        raise AssertionError(f"bench_spec: acceptance {runs[SPEC_K]['acceptance']:.3f}, "
+                             f"{runs[SPEC_K]['tokens']} tokens")
+    out["bench"] = {m: {k: r[k] for k in ("tok_s", "acceptance", "steps")}
+                    for m, r in runs.items()}
+
+    tok = _id_tokenizer(cfg.text.vocab_size)
+    bodies = _spec_bodies(np.random.default_rng(5), cfg.vision.image_size, SPEC_NEW)
+
+    def serve(tag, bodies_rounds, **kw):
+        """Serve rounds of bodies on a fresh backend over HTTP; each round's
+        texts, TTFTs and seconds, the engine's counters and kernels' launch
+        deltas, and the engine (stopped) for the step checks."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        backend = TorchBackend(params, cfg, tok, ClipImageProcessor(), device="cuda",
+                               use_engine=True, max_slots=16, decode_chunk=4, kv_int8=True,
+                               warmup_len=768, spec_chunk=SPEC_CHUNK, **kw)
+        engine = backend.engine
+        log("spec", f"{tag}: built and warmed in {time.perf_counter() - t0:.1f} s")
+        worker = ModelWorker("http://127.0.0.1:9", "http://127.0.0.1:0", backend,
+                             ["llava-1.5-7b-random"], limit_model_concurrency=16,
+                             no_register=True, heartbeats=False)
+        server = _Server(build_app(worker))
+        url = f"http://127.0.0.1:{server.port}/worker_generate_stream"
+        names = ("verify_steps", "spec_steps", "spec_emitted", "spec_pauses", "decode_steps",
+                 "prefill_dispatches", "prefix_hit_tokens")
+        c0 = {n: getattr(engine, n) for n in names}
+        k0 = {n: k.launches for n, k in kernels.items()}
+        k0.update(chunk=decode_attention.chunk_launches, general=paged_attention_general.launches,
+                  dense=decode_attention.launches)
+        rounds = []
+        try:
+            for bodies_r in bodies_rounds:
+                if callable(bodies_r):
+                    bodies_r = bodies_r(rounds)
+                t_start = time.perf_counter()
+                results = _post_all(url, bodies_r)
+                t_end = max(st[-1] for _, _, st in results)
+                _check_streams(bodies_r, results, SPEC_NEW)
+                rounds.append({"bodies": bodies_r, "seconds": t_end - t_start,
+                               "ttfts": sorted(st[0] - ts for _, ts, st in results),
+                               "texts": [c[-1]["text"] for c, _, _ in results]})
+        finally:
+            server.stop()
+            worker.stop()
+            backend.stop()
+        d = {n: getattr(engine, n) - c0[n] for n in names}
+        d.update(launches={n: k.launches - k0[n] for n, k in kernels.items()},
+                 chunk=decode_attention.chunk_launches - k0["chunk"],
+                 general=paged_attention_general.launches - k0["general"],
+                 dense=decode_attention.launches - k0["dense"])
+        for r, rd in enumerate(rounds, 1):
+            n = len(rd["bodies"])
+            log("spec", f"{tag} round {r}: TTFT p50 {np.median(rd['ttfts']) * 1e3:.1f} ms (max "
+                        f"{rd['ttfts'][-1] * 1e3:.1f}); {n * SPEC_NEW / rd['seconds']:.1f} "
+                        f"tokens/s aggregate over {n} requests of {SPEC_NEW} tokens in "
+                        f"{rd['seconds']:.2f} s")
+        acc = d["spec_emitted"] / d["spec_steps"] if d["spec_steps"] else 0.0
+        log("spec", f"{tag}: {d['verify_steps']} verify steps ({d['spec_steps']} with a live "
+                    f"slot, acceptance {acc:.3f}), {d['spec_pauses']} pauses, "
+                    f"{d['decode_steps']} plain steps, {d['prefill_dispatches']} prefill "
+                    f"dispatches, {d['prefix_hit_tokens']} prefix-hit tokens; launches: "
+                    f"decode (of them verify chunks) {d['dense']} ({d['chunk']}), paged general "
+                    f"{d['general']}, {d['launches']}; card {smi}")
+        for n in ("flash", "quant", "decode1"):
+            out[n] += d["launches"][n]
+        return rounds, d, engine
+
+    def ids_of(rounds):
+        return [_stream_ids(t, b["prompt"]) for t, b in zip(rounds[0]["texts"],
+                                                            rounds[0]["bodies"])]
+
+    def gap_of(i, toks):
+        return _top2_gap(params, cfg, tok, bodies[i], toks, torch.int8)
+
+    # 2. the dense engine: plain, then speculative
+    plain_rounds, _, engine = serve("dense plain", [bodies])
+    del engine
+    rounds, d, engine = serve("dense spec", [bodies], speculate=SPEC_K)
+    if d["verify_steps"] <= 0 or d["chunk"] != L * d["verify_steps"] or d["general"] != 0:
+        raise AssertionError(f"dense spec: {d['chunk']} verify launches of the decode kernel "
+                             f"for {d['verify_steps']} verify steps of {L} layers")
+    plain_ids = ids_of(plain_rounds)
+    out["dense_match"] = _compare_greedy("dense spec", plain_ids, ids_of(rounds), gap_of,
+                                         SPEC_TOL)
+    out["chunk"] = d["chunk"]
+    out["dense"] = d
+    _sync_check("dense spec", engine)
+    out["dense_steps"] = _step_breakdown("dense", engine, paged=False)
+    del engine
+
+    # 3. the paged engine: the same requests, then 8 prefix-hit follow-ups
+    def follow_ups(rounds_so_far):
+        first = rounds_so_far[0]
+        return [dict(bodies[j], prompt=bodies[j]["prompt"] + " "
+                     + first["texts"][j][len(bodies[j]["prompt"]):] + " "
+                     + " ".join(f"turn{j}word{i}" for i in range(40)))
+                for j in range(8)]
+
+    rounds, d, engine = serve("paged spec", [bodies, follow_ups], speculate=SPEC_K,
+                              max_seq_len=4096, paged=True, pool_tokens=32768,
+                              prefix_cache=True)
+    if engine.num_pages != 256:
+        raise AssertionError(f"pool of {engine.num_pages} pages, want 256")
+    if d["verify_steps"] <= 0 or d["general"] != L * d["verify_steps"] or d["chunk"] != 0:
+        raise AssertionError(f"paged spec: {d['general']} general launches for "
+                             f"{d['verify_steps']} verify steps of {L} layers")
+    if d["launches"]["decode1"] != L * d["decode_steps"]:
+        raise AssertionError(f"paged spec: {d['launches']['decode1']} decode1 launches for "
+                             f"{d['decode_steps']} plain steps")
+    if d["prefix_hit_tokens"] < 8 * 5 * P:
+        raise AssertionError(f"paged spec: {d['prefix_hit_tokens']} prefix-hit tokens")
+    out["paged_match"] = _compare_greedy("paged spec (round 1)", plain_ids, ids_of(rounds),
+                                         gap_of, SPEC_TOL)
+    out["general"] = d["general"]
+    out["paged"] = d
+    _sync_check("paged spec", engine)
+    out["paged_steps"] = _step_breakdown("paged", engine, paged=True)
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. the narrow models
+    narrow = _narrow_spec()
+    out["narrow"] = narrow
+    log("spec", f"narrow models: verify launches {narrow}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 11. LLaVA-MPT-7B at full width behind the HTTP worker, dense and paged
 # ---------------------------------------------------------------------------
 
@@ -3638,6 +4148,7 @@ def main():
     del params
     int4 = serve_engine(smi, _init_7b(dev), "int4", n_image=2, n_text=2)
     paged = serve_paged_engine(smi)
+    spec = phase_speculative(smi)   # phase 17, on fresh weights
     mpt = serve_mpt_7b(smi)   # phase 11, before training (the LLaMA weights are gone)
     narrow_alibi_bwd = phase_narrow_training()
     narrow_lora = phase_narrow_lora()
@@ -3655,7 +4166,7 @@ def main():
     for name, source, replaces, count in (
         ("flash_fwd", "llava_plus_torch/csrc/flash_fwd.cu", FLASH_REPLACES,
          single["flash"] + ckpt["flash"] + int8["flash"] + int4["flash"] + paged["flash"]
-         + stage1["flash"] + stage2["flash"] + qlora["flash"]),
+         + spec["flash"] + stage1["flash"] + stage2["flash"] + qlora["flash"]),
         ("flash_bwd[dkv]", bwd_src, DKV_REPLACES, stage1["dkv"] + stage2["dkv"] + qlora["dkv"]),
         ("flash_bwd[dq]", bwd_src, DQ_REPLACES, stage1["dq"] + stage2["dq"] + qlora["dq"]),
         ("decode_attention[bf16]", "llava_plus_torch/csrc/decode_attention.cu",
@@ -3663,14 +4174,20 @@ def main():
         ("decode_attention[int8]", "llava_plus_torch/csrc/decode_attention.cu",
          DECODE_REPLACES, single["int8"] + ckpt["decode"] + int8["decode"] + int4["decode"]),
         ("quant_matmul[int8]", "llava_plus_torch/csrc/quant_matmul.cu", INT8_REPLACES,
-         ckpt["quant"] + int8["quant"] + paged["quant"] + mpt["dense"]["matmul_int8"]
+         ckpt["quant"] + int8["quant"] + paged["quant"] + spec["quant"] + mpt["dense"]["matmul_int8"]
          + mpt["paged"]["matmul_int8"] + narrow_lora[8][0] + tools["int8"]),
         ("quant_matmul[int4]", "llava_plus_torch/csrc/quant_matmul.cu", INT4_REPLACES,
          int4["quant"] + narrow_lora[4][0] + qlora["int4"] + tools["int4"]),
         ("quant_matmul[int4n]", "llava_plus_torch/csrc/quant_matmul.cu", INT4N_REPLACES,
          tools["int4n"]),
-        ("paged_attention[decode1]", paged_src, PAGED_DECODE1_REPLACES, paged["decode1"]),
-        ("paged_attention[general]", paged_src, PAGED_GENERAL_REPLACES, narrow_general),
+        ("paged_attention[decode1]", paged_src, PAGED_DECODE1_REPLACES,
+         paged["decode1"] + spec["decode1"]),
+        ("paged_attention[general]", paged_src, PAGED_GENERAL_REPLACES,
+         narrow_general + spec["general"] + spec["narrow"]["general"]),
+        # the verify chunks (Tq = k + 1) of the speculative engines (phase 17),
+        # where the JAX package runs XLA's quant_cache_attention chain
+        ("decode_attention[verify]", "llava_plus_torch/csrc/decode_attention.cu",
+         DECODE_REPLACES, spec["chunk"] + spec["narrow"]["chunk"]),
         ("flash_fwd[alibi]", "llava_plus_torch/csrc/flash_fwd.cu", FLASH_ALIBI_REPLACES,
          mpt["dense"]["flash_attention[alibi]"] + mpt["paged"]["flash_attention[alibi]"]
          + mpt_stage1["flash"]),
@@ -3685,7 +4202,7 @@ def main():
         ("paged_attention[decode1,alibi]", paged_src, PAGED_DECODE1_ALIBI_REPLACES,
          mpt["paged"]["paged_decode1[alibi]"] + narrow_mpt["decode1"]),
         ("paged_attention[general,alibi]", paged_src, PAGED_GENERAL_ALIBI_REPLACES,
-         narrow_mpt["general"]),
+         narrow_mpt["general"] + spec["narrow"]["general[alibi]"]),
     ):
         if count <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -3711,7 +4228,8 @@ def main():
             # runs in 256-token buckets over the gathered pages)
             entries[-1].update(engine_7b_launches=paged["general"]
                                + mpt["paged"]["paged_attention_general"]
-                               + mpt["paged"]["paged_attention_general[alibi]"])
+                               + mpt["paged"]["paged_attention_general[alibi]"],
+                               engine_7b_spec_launches=spec["general"])
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "llava_plus_tpu"))
     if foreign:

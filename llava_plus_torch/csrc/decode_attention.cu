@@ -1,5 +1,6 @@
-// Flash-decode attention for Hopper (sm_90a): one query token per sequence
-// over the dense KV cache, bf16 or int8 with per-(token, kv-head) scales.
+// Flash-decode attention for Hopper (sm_90a): up to 8 query tokens per
+// sequence over the dense KV cache, bf16 or int8 with per-(token, kv-head)
+// scales.
 //
 // Replaces the Pallas TPU kernel llava_plus_tpu/ops/decode_attention.py:_kernel
 // (wrapper decode_attention). Same function: G = H / Hkv query rows per kv
@@ -12,6 +13,15 @@
 // slot's scaled score loses `slope_h * (q_pos - s)`; s <= q_pos always, so
 // this is the JAX bias -slope_h * |q_pos - s| that MPT's dense decode adds to
 // XLA's quant_cache_attention (llava_plus_tpu/models/mpt.py).
+//
+// A chunk of Tq <= 8 query tokens (the speculative verify step: the current
+// token and its proposals, whose k/v the cache already holds) sits at
+// contiguous positions: token t at q_pos[b] + t, which is its own causal
+// limit and its own ALiBi position. The XLA chain of the JAX package's dense
+// verify step (llava_plus_tpu/models/llama.py, quant_cache_attention) computes
+// the same function. A (batch row, kv head) then has R = G * Tq query rows,
+// token-major (row r is token r / G of query head kvh * G + r % G), and the
+// blocks hold them as they hold a group of R heads.
 //
 // What bounds it on the card: a decode step reads every visible cache byte
 // once and does ~2 flops per byte per query row, far below the H100's bf16
@@ -53,10 +63,10 @@
 // graph can capture it). A chunk that starts past q_pos[b] writes the empty
 // partial (m = -inf, l = 0), which the combine skips.
 //
-// Layout: q [B, H, D] strided, D = 128; cache [B, S, Hkv, D] strided (rows
-// 16-byte aligned); scales [B, S, Hkv] f32 strided; seg [B, S] int32;
-// q_pos [B] int32; out [B, H, D] contiguous bf16; workspace f32 [B, Hkv,
-// splits, G, D + 2] (acc, then m and l).
+// Layout: q [B, Tq, H, D] strided, D = 128; cache [B, S, Hkv, D] strided
+// (rows 16-byte aligned); scales [B, S, Hkv] f32 strided; seg [B, S] int32;
+// q_pos [B] int32; out [B, Tq, H, D] contiguous bf16; workspace f32 [B, Hkv,
+// splits, R, D + 2] (acc, then m and l).
 
 #include "warp_mma.cuh"
 
@@ -88,9 +98,27 @@ struct DecodeArgs {
   float* ws;             // [B, Hkv, splits, G, HD + 2] when splits > 1
   int* counters;         // [B * Hkv * row groups], zero between launches
   int S, H, G, Hkv, splits;
-  int q_sb, q_sh, c_sb, c_ss, c_sh, s_sb, s_ss, s_sh, seg_sb;
+  int Tq, R;             // query tokens; rows a kv head: G * Tq
+  int q_sb, q_st, q_sh, c_sb, c_ss, c_sh, s_sb, s_ss, s_sh, seg_sb;
   float sm_scale;
 };
+
+// Row r of a (batch row, kv head)'s R rows: its query token and head.
+struct Row {
+  int t, h;
+};
+
+__device__ __forceinline__ Row row_of(const DecodeArgs& p, int kvh, int r) {
+  return {r / p.G, kvh * p.G + r % p.G};
+}
+
+__device__ __forceinline__ const __nv_bfloat16* q_row(const DecodeArgs& p, int b, Row w) {
+  return p.q + (size_t)b * p.q_sb + (size_t)w.t * p.q_st + (size_t)w.h * p.q_sh;
+}
+
+__device__ __forceinline__ __nv_bfloat16* out_row(const DecodeArgs& p, int b, Row w) {
+  return p.out + (((size_t)b * p.Tq + w.t) * p.H + w.h) * HD;
+}
 
 // ring stages: 3 (of 35 KB for bf16, of 19 KB for int8)
 template <typename CacheT>
@@ -129,24 +157,24 @@ decode_kernel(const DecodeArgs p) {
   const int c = blockIdx.x;                       // chunk of the cache
   const int b = blockIdx.y / p.Hkv;
   const int kvh = blockIdx.y % p.Hkv;
-  const int z = blockIdx.z;                       // 64-row group of a wider G
-  const int h0 = kvh * p.G + z * MAX_ROWS;        // this block's first query head
-  const int GC = min(ROWS, p.G - z * MAX_ROWS);   // query rows it holds
+  const int z = blockIdx.z;                       // 64-row group of a wider R
+  const int r0 = z * MAX_ROWS;                    // this block's first row
+  const int GC = min(ROWS, p.R - r0);             // query rows it holds
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int mt = warp % MT, kg = warp / MT;
 
   const int qp = p.q_pos[b];
-  const int used = min(p.S, qp + 1);              // slots past the query never count
+  const int used = min(p.S, qp + p.Tq);           // slots past the last query never count
   const int n_tiles = (p.S + TILE - 1) / TILE;
   const int per = (n_tiles + p.splits - 1) / p.splits;
   const int s_begin = c * per * TILE;
   const int s_end = min(min(n_tiles, (c + 1) * per) * TILE, used);
   const int nt = s_end > s_begin ? (s_end - s_begin + TILE - 1) / TILE : 0;
-  const size_t ws_chunk = (size_t)p.G * (HD + 2);
+  const size_t ws_chunk = (size_t)p.R * (HD + 2);
   float* ws_rows = p.ws + (((size_t)b * p.Hkv + kvh) * p.splits + c) * ws_chunk +
-                   (size_t)z * MAX_ROWS * (HD + 2);
+                   (size_t)r0 * (HD + 2);
 
   __shared__ int is_last;
   if (nt == 0 && p.splits > 1) {
@@ -205,7 +233,7 @@ decode_kernel(const DecodeArgs p) {
       // this thread's in the accumulators.
       uint32_t qb[8][2];
       {
-        const __nv_bfloat16* qr = p.q + (size_t)b * p.q_sb + (size_t)(h0 + g) * p.q_sh;
+        const __nv_bfloat16* qr = q_row(p, b, row_of(p, kvh, r0 + min(g, GC - 1)));
 #pragma unroll
         for (int ks = 0; ks < 8; ++ks) {
           const int col = 16 * ks + 2 * t;
@@ -213,8 +241,13 @@ decode_kernel(const DecodeArgs p) {
           qb[ks][1] = g < GC ? *reinterpret_cast<const uint32_t*>(qr + col + 8) : 0u;
         }
       }
-      const float slope0 = (p.slopes && 2 * t < GC) ? p.slopes[h0 + 2 * t] : 0.f;
-      const float slope1 = (p.slopes && 2 * t + 1 < GC) ? p.slopes[h0 + 2 * t + 1] : 0.f;
+      // rows 2t and 2t + 1: slope and last visible slot (rows past the
+      // group take row GC - 1's; their outputs are never written)
+      const Row ra = row_of(p, kvh, r0 + min(2 * t, GC - 1));
+      const Row rb = row_of(p, kvh, r0 + min(2 * t + 1, GC - 1));
+      const float slope0 = p.slopes ? p.slopes[ra.h] : 0.f;
+      const float slope1 = p.slopes ? p.slopes[rb.h] : 0.f;
+      const int last0 = min(s_end - 1, qp + ra.t), last1 = min(s_end - 1, qp + rb.t);
       float acc[8][4];   // [D tile][(d g | d g + 8) x (row 2t | 2t + 1)]
 #pragma unroll
       for (int dt = 0; dt < 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
@@ -256,8 +289,10 @@ decode_kernel(const DecodeArgs p) {
           const int s = sw + key;
           float x = sa[e] + sb[e];
           if (QUANT) x *= ks_s[key];
-          x = x * p.sm_scale - ((e & 1) ? slope1 : slope0) * static_cast<float>(qp - s);
-          x = s >= s_end ? -CUDART_INF_F : (seg_s[key] != 0 ? x : MASK_VALUE);
+          const int last = (e & 1) ? last1 : last0;
+          const int qt = qp + ((e & 1) ? rb.t : ra.t);
+          x = x * p.sm_scale - ((e & 1) ? slope1 : slope0) * static_cast<float>(qt - s);
+          x = s > last ? -CUDART_INF_F : (seg_s[key] != 0 ? x : MASK_VALUE);
           sc[e] = x;
           if (e & 1) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
         }
@@ -345,10 +380,14 @@ decode_kernel(const DecodeArgs p) {
     } else {
       // this warp's row tile: Q fragments (zero rows past the group), slopes
       const int row0 = mt * 16 + g, row1 = row0 + 8;
+      // rows past the group take row GC - 1's token and head (their Q is
+      // zero and their outputs are never written)
+      const Row ra = row_of(p, kvh, r0 + min(row0, GC - 1));
+      const Row rb = row_of(p, kvh, r0 + min(row1, GC - 1));
       uint32_t qa[8][4];
       {
-        const __nv_bfloat16* q0 = p.q + (size_t)b * p.q_sb + (size_t)(h0 + row0) * p.q_sh;
-        const __nv_bfloat16* q1 = p.q + (size_t)b * p.q_sb + (size_t)(h0 + row1) * p.q_sh;
+        const __nv_bfloat16* q0 = q_row(p, b, ra);
+        const __nv_bfloat16* q1 = q_row(p, b, rb);
 #pragma unroll
         for (int ks = 0; ks < 8; ++ks) {
           const int col = 16 * ks + 2 * t;
@@ -358,8 +397,9 @@ decode_kernel(const DecodeArgs p) {
           qa[ks][3] = row1 < GC ? *reinterpret_cast<const uint32_t*>(q1 + col + 8) : 0u;
         }
       }
-      const float slope0 = (p.slopes && row0 < GC) ? p.slopes[h0 + row0] : 0.f;
-      const float slope1 = (p.slopes && row1 < GC) ? p.slopes[h0 + row1] : 0.f;
+      const float slope0 = p.slopes ? p.slopes[ra.h] : 0.f;
+      const float slope1 = p.slopes ? p.slopes[rb.h] : 0.f;
+      const int last0 = min(s_end - 1, qp + ra.t), last1 = min(s_end - 1, qp + rb.t);
 
       float acc[16][4];
 #pragma unroll
@@ -406,8 +446,10 @@ decode_kernel(const DecodeArgs p) {
             const int s = sw + key;
             float x = sc[n][e];
             if (QUANT) x *= ks_s[key];
-            x = x * p.sm_scale - ((e & 2) ? slope1 : slope0) * static_cast<float>(qp - s);
-            x = s >= s_end ? -CUDART_INF_F : (seg_s[key] != 0 ? x : MASK_VALUE);
+            const int last = (e & 2) ? last1 : last0;
+            const int qt = qp + ((e & 2) ? rb.t : ra.t);
+            x = x * p.sm_scale - ((e & 2) ? slope1 : slope0) * static_cast<float>(qt - s);
+            x = s > last ? -CUDART_INF_F : (seg_s[key] != 0 ? x : MASK_VALUE);
             sc[n][e] = x;
             if (e & 2) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
           }
@@ -505,7 +547,7 @@ decode_kernel(const DecodeArgs p) {
         O += macc[(w * 16 + rr) * ACC_LD + d] * f;
       }
       if (p.splits == 1) {
-        p.out[((size_t)b * p.H + h0 + r) * HD + d] = __float2bfloat16(O / fmaxf(L, 1e-9f));
+        out_row(p, b, row_of(p, kvh, r0 + r))[d] = __float2bfloat16(O / fmaxf(L, 1e-9f));
       } else {
         float* wr = ws_rows + (size_t)r * (HD + 2);
         wr[d] = O;
@@ -530,7 +572,7 @@ decode_kernel(const DecodeArgs p) {
   if (!is_last) return;
   __threadfence();
   const float* first = p.ws + ((size_t)b * p.Hkv + kvh) * p.splits * ws_chunk +
-                       (size_t)z * MAX_ROWS * (HD + 2);
+                       (size_t)r0 * (HD + 2);
   // each row's chunk weights exp(m_k - M) (0 for an empty chunk) and 1 / L
   // in shared memory (the ring is free), then the rows' sums of the partials
   float* fac = reinterpret_cast<float*>(smem);    // [GC][splits]
@@ -583,7 +625,7 @@ decode_kernel(const DecodeArgs p) {
       const int x = x0 + u * NTHREADS;
       if (x >= n) break;
       const int r = x / (HD / 2), d = 2 * (x % (HD / 2));
-      *reinterpret_cast<__nv_bfloat162*>(p.out + ((size_t)b * p.H + h0 + r) * HD + d) =
+      *reinterpret_cast<__nv_bfloat162*>(out_row(p, b, row_of(p, kvh, r0 + r)) + d) =
           __floats2bfloat162_rn(O[u].x * inv[r], O[u].y * inv[r]);
     }
   }
@@ -598,16 +640,16 @@ int launch(const DecodeArgs& a, int B, cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.splits, B * a.Hkv, (a.G + MAX_ROWS - 1) / MAX_ROWS);
+  const dim3 grid(a.splits, B * a.Hkv, (a.R + MAX_ROWS - 1) / MAX_ROWS);
   kernel<<<grid, NTHREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename CacheT, bool QUANT>
 int launch_rows(const DecodeArgs& a, int B, cudaStream_t stream) {
-  if (a.G <= 8) return launch<CacheT, QUANT, 1, true>(a, B, stream);
-  if (a.G <= 16) return launch<CacheT, QUANT, 1, false>(a, B, stream);
-  if (a.G <= 32) return launch<CacheT, QUANT, 2, false>(a, B, stream);
+  if (a.R <= 8) return launch<CacheT, QUANT, 1, true>(a, B, stream);
+  if (a.R <= 16) return launch<CacheT, QUANT, 1, false>(a, B, stream);
+  if (a.R <= 32) return launch<CacheT, QUANT, 2, false>(a, B, stream);
   return launch<CacheT, QUANT, 4, false>(a, B, stream);
 }
 
@@ -615,19 +657,21 @@ int launch_rows(const DecodeArgs& a, int B, cudaStream_t stream) {
 
 // Returns cudaGetLastError() after the launch (0 = launched). `quantized`
 // selects the int8 cache (k, v int8; ks, vs f32 scales) over bf16; `slopes`
-// (f32 [H], or null) adds ALiBi. `splits` chunks of the cache per (row, kv
-// head); with splits > 1, `ws` is the f32 workspace [B, Hkv, splits, G, 130]
-// and `counters` an int32 buffer of B * Hkv * ceil(G / 64) zeros, left zero.
+// (f32 [H], or null) adds ALiBi. `Tq` (1..8) query tokens a row, token t at
+// q_pos + t. `splits` chunks of the cache per (row, kv head); with splits >
+// 1, `ws` is the f32 workspace [B, Hkv, splits, G * Tq, 130] and `counters`
+// an int32 buffer of B * Hkv * ceil(G * Tq / 64) zeros, left zero.
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* ks, const void* vs,
                                     const void* seg, const void* q_pos, const void* slopes,
                                     void* out, void* ws, void* counters,
-                                    int B, int S, int H, int Hkv, int quantized, int splits,
-                                    int q_sb, int q_sh,
+                                    int B, int S, int H, int Hkv, int Tq, int quantized,
+                                    int splits, int q_sb, int q_st, int q_sh,
                                     int c_sb, int c_ss, int c_sh,
                                     int s_sb, int s_ss, int s_sh,
                                     int seg_sb, float sm_scale, void* stream) {
-  if (splits < 1 || splits > MAX_SPLITS || (splits > 1 && (!ws || !counters)))
+  if (splits < 1 || splits > MAX_SPLITS || (splits > 1 && (!ws || !counters)) || Tq < 1 ||
+      Tq > 8)
     return (int)cudaErrorInvalidValue;
   DecodeArgs a;
   a.q = static_cast<const __nv_bfloat16*>(q);
@@ -646,7 +690,9 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
   a.G = H / Hkv;
   a.Hkv = Hkv;
   a.splits = splits;
-  a.q_sb = q_sb; a.q_sh = q_sh;
+  a.Tq = Tq;
+  a.R = a.G * Tq;
+  a.q_sb = q_sb; a.q_st = q_st; a.q_sh = q_sh;
   a.c_sb = c_sb; a.c_ss = c_ss; a.c_sh = c_sh;
   a.s_sb = s_sb; a.s_ss = s_ss; a.s_sh = s_sh;
   a.seg_sb = seg_sb;

@@ -40,7 +40,7 @@ SIGNATURES = {
     "flash_fwd_bf16": [P] * 8 + [I] * 11 + [F, P],
     "flash_bwd_dkv_bf16": [P] * 12 + [I] * 15 + [F, P],
     "flash_bwd_dq_bf16": [P] * 10 + [I] * 14 + [F, P],
-    "decode_attention_fwd": [P] * 11 + [I] * 15 + [F, P],
+    "decode_attention_fwd": [P] * 11 + [I] * 17 + [F, P],
     "quant_matmul_weight_map": [P, I, I, I, P],
     # x and out lead, so that a wrapper can keep the rest of a launch's arguments
     "quant_matmul_int8_stream": [P] * 5 + [I, P] + [I] * 7 + [P],

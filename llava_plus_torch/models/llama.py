@@ -7,9 +7,10 @@ cache decode share one code path. Layers run as a Python loop.
 
 Attention: a fresh prefill attends over its own chunk through
 :func:`ops.attention.attention` (the flash kernel on the card). Over the
-dense :class:`KVCache`, a one-token decode step goes through
+dense :class:`KVCache`, a chunk of up to ``MAX_TQ`` (8) tokens at contiguous
+positions (a decode step, a speculative verify step) goes through
 :func:`ops.decode_attention.decode_attention`, which reads the cache in
-place; any other cached chunk uses the reference attention. Over the paged
+place; any longer cached chunk uses the reference attention. Over the paged
 :class:`PagedKVCache`, chunks of up to 8 tokens go through
 :func:`ops.paged_attention.paged_decode_attention` (the paged kernels on the
 card), longer ones through the gathered pages and the reference attention.
@@ -44,7 +45,7 @@ from llava_plus_torch.models.configs import LlamaConfig, MptConfig
 from llava_plus_torch.ops.attention import (
     alibi_bias, attention, quant_cache_attention, reference_attention,
 )
-from llava_plus_torch.ops.decode_attention import decode_attention
+from llava_plus_torch.ops.decode_attention import MAX_TQ, decode_attention
 from llava_plus_torch.ops.paged_attention import (
     MAX_CHUNK, gather_pages, paged_decode_attention,
 )
@@ -115,36 +116,55 @@ def quantize_kv(new: torch.Tensor):
 
 
 class _Step(NamedTuple):
-    """The slots of a one-token step: row b writes flat slot ``b * S + pos``;
-    rows with ``keep`` False write their slot's own contents back."""
+    """The slots of a chunk of up to ``MAX_TQ`` tokens: token (b, t) writes
+    flat slot ``b * S + min(pos, S - 1)``. A token with ``keep`` False (pos
+    >= S) writes back what that slot holds after the call: the new value of
+    the row's token at S - 1 where the chunk has one (``src``, an index
+    into the chunk's B * T tokens; several writes to one slot then agree),
+    else the slot's own contents. ``src`` is None for one-token steps."""
 
     flat: torch.Tensor
     keep: torch.Tensor
+    src: Optional[torch.Tensor] = None
 
 
 def _put_rows(buf: torch.Tensor, step: _Step, vals: torch.Tensor):
-    """buf [B, S, ...] <- vals [B, ...], one row each, at ``step``'s slots."""
+    """buf [B, S, ...] <- vals [B * T, ...], one row each, at ``step``'s slots."""
     rows = buf.view(-1, *buf.shape[2:])
     keep = step.keep.view(-1, *[1] * (vals.dim() - 1))
-    rows.index_copy_(0, step.flat, torch.where(keep, vals, rows.index_select(0, step.flat)))
+    old = rows.index_select(0, step.flat)
+    if step.src is not None:
+        has = (step.src >= 0).view(-1, *[1] * (vals.dim() - 1))
+        old = torch.where(has, vals.index_select(0, step.src.clamp_min(0)), old)
+    rows.index_copy_(0, step.flat, torch.where(keep, vals, old))
 
 
 def _write_slots(cache: KVCache, positions, segment_ids):
     """The cache slots a call writes, with their segment ids already
     written. Tokens at positions >= max_len (padding rows; engine slots that
-    are idle or past their budget) are left out, as the JAX package's
-    dropping scatter leaves them out.
+    are idle, past their budget or verifying past the window) are left out,
+    as the JAX package's dropping scatter leaves them out.
 
-    A one-token step (decode) returns a :class:`_Step`: such a row is clamped
-    onto its last slot and writes that slot's own contents back, which needs
-    no host sync and one flat index for every layer. A longer chunk returns
-    ``(b, t, pos)``, its in-range tokens selected with ``nonzero``."""
+    A chunk of up to ``MAX_TQ`` tokens (decode, speculative verify) returns a
+    :class:`_Step`: such a token is clamped onto its row's last slot and
+    writes back what that slot holds, which needs no host sync and one flat
+    index for every layer. A longer chunk returns ``(b, t, pos)``, its
+    in-range tokens selected with ``nonzero`` (a host sync, which its callers,
+    prefills, already make)."""
     B, T = positions.shape
     S = cache.max_len
-    if T == 1:
-        step = _Step(torch.arange(B, device=positions.device) * S
-                     + positions[:, 0].clamp(max=S - 1), positions[:, 0] < S)
-        _put_rows(cache.seg, step, segment_ids[:, 0].to(torch.int32))
+    if T <= MAX_TQ:
+        dev = positions.device
+        pos = positions.long()
+        keep = (pos < S).reshape(-1)
+        flat = (torch.arange(B, device=dev)[:, None] * S + pos.clamp(max=S - 1)).reshape(-1)
+        src = None
+        if T > 1:
+            at_end = pos == S - 1
+            last = torch.arange(B, device=dev) * T + at_end.int().argmax(dim=1)
+            src = torch.where(at_end.any(dim=1), last, -1).repeat_interleave(T)
+        step = _Step(flat, keep, src)
+        _put_rows(cache.seg, step, segment_ids.reshape(-1).to(torch.int32))
         return step
     b, t = torch.nonzero(positions < S, as_tuple=True)
     pos = positions[b, t]
@@ -157,7 +177,7 @@ def _cache_write(all_vals, all_scales, new, idx, sel):
     the slots ``sel`` of :func:`_write_slots` (quantized per (token, head)
     when the cache carries scales)."""
     step = isinstance(sel, _Step)
-    vals = new[:, 0] if step else new[sel[0], sel[1]]
+    vals = new.reshape(-1, *new.shape[2:]) if step else new[sel[0], sel[1]]
     scales = None
     if all_scales is None:
         vals = vals.to(all_vals.dtype)
@@ -448,16 +468,20 @@ def _layer(params, i: int):
 def _cached_attention(q, cache: KVCache, idx, segment_ids, positions,
                       alibi_slopes=None, sm_scale=None, bias=None):
     """Attention of one layer's queries over the cache (whose slots already
-    hold this chunk's k/v). MPT passes its ALiBi slopes and softmax scale:
+    hold this chunk's k/v): a chunk of up to ``MAX_TQ`` tokens at contiguous
+    positions through the decode kernel, a longer one through the reference
+    paths. MPT passes its ALiBi slopes and softmax scale:
     the decode kernel takes the slopes, the other paths the explicit bias
     over the cache slots (JAX ``mpt.py:169-190``); and, with a prefix-LM or
     sequence-id mask, that additive ``bias`` over the slots, which only the
     reference paths take."""
     ks = None if cache.k_scale is None else cache.k_scale[idx]
     vs = None if cache.v_scale is None else cache.v_scale[idx]
-    if q.shape[1] == 1 and bias is None:
+    if q.shape[1] <= MAX_TQ and bias is None:
+        # token t of the chunk sits at positions[:, 0] + t (decode and verify
+        # chunks are contiguous)
         return decode_attention(q, cache.k[idx], cache.v[idx], cache.seg,
-                                positions[:, 0].to(torch.int32), ks, vs,
+                                positions[:, 0].to(torch.int32).contiguous(), ks, vs,
                                 sm_scale=sm_scale, alibi_slopes=alibi_slopes)
     if ks is not None:
         if alibi_slopes is not None:

@@ -22,10 +22,10 @@ indices. Attention, by path:
   cache that holds only this chunk: the same function, except that over an
   int8 cache JAX attends the chunk's quantized copy and the port, as on its
   LLaMA path, the chunk itself.)
-- a dense cache, one token: the decode kernel with slopes (any number of
-  query heads per kv head); several tokens: the reference attention
-  (``quant_cache_attention`` over an int8 cache) with the explicit ALiBi
-  bias, as the JAX package does.
+- a dense cache, up to 8 tokens (a decode or a speculative verify step):
+  the decode kernel with slopes (any number of query heads per kv head);
+  longer chunks: the reference attention (``quant_cache_attention`` over an
+  int8 cache) with the explicit ALiBi bias, as the JAX package does.
 - a paged cache: ``llama._paged_layer_attention`` with slopes (the paged
   kernels for chunks of up to 8 tokens, the gathered pages above).
 

@@ -32,8 +32,22 @@ not reproduced).
 
 Both backbones serve: LLaMA and MPT (ALiBi slopes ride the same kernels).
 
-Not ported (the arguments raise): speculative decoding, the
-tensor-parallel mesh and W8A8 prefill (ROADMAP Queue 1 items 4, 10 and 7).
+Prompt-lookup speculative decoding (``speculate=k``, greedy-exact): each
+slot proposes the k tokens that followed the latest earlier occurrence of
+its history's last 3, 2 or 1 tokens, and one verify step runs the current
+token and the proposals through the model as one chunk of k + 1 tokens
+(the dense decode kernel or the paged general kernel on the card), keeping
+the proposals that match the greedy tokens and one more. The state a step
+needs (current token, history, proposals, budget) stays on the device
+between steps, ``spec_chunk`` steps run per dispatch, and the host keeps
+``spec_depth`` chunks in flight, fetching the oldest one's ``[m, B, k + 2]``
+rows through pinned memory behind an event: a chunk makes no host sync.
+When too few proposals are accepted the engine decodes plain chunks for a
+while and probes again. A sampled slot takes one token a step, drawn from
+``counter_uniform(seed, position)`` as a plain step at that position draws.
+
+Not ported (the arguments raise): the tensor-parallel mesh and W8A8
+prefill (ROADMAP Queue 1 items 10 and 7).
 """
 
 from __future__ import annotations
@@ -200,6 +214,69 @@ def sample_batch(logits: torch.Tensor, temperature: torch.Tensor, top_p: torch.T
 
 
 # ---------------------------------------------------------------------------
+# Speculation
+# ---------------------------------------------------------------------------
+
+def propose_dev(hist: torch.Tensor, hlen: torch.Tensor, k: int) -> torch.Tensor:
+    """Prompt-lookup proposals on the device, [B, k] (0 where none): for
+    n = 3, 2, 1 find the latest earlier occurrence of the history's n-token
+    tail (``hist`` [B, S], its first ``hlen`` [B] entries valid) and propose
+    the k tokens that followed it, as far as the history reaches (JAX
+    ``engine.py:_propose_dev``)."""
+    B, S = hist.shape
+    dev = hist.device
+    idx = torch.arange(S, device=dev)[None]
+    hlen = hlen.long()
+    best_j = torch.full((B,), -1, dtype=torch.int64, device=dev)
+    best_n = torch.zeros(B, dtype=torch.int64, device=dev)
+    for n in (3, 2, 1):
+        tail_idx = hlen[:, None] - n + torch.arange(n, device=dev)[None]
+        tail = torch.gather(hist, 1, tail_idx.clamp(0, S - 1))             # [B, n]
+        padded = torch.nn.functional.pad(hist, (0, n))
+        m = torch.ones(B, S, dtype=torch.bool, device=dev)
+        for i in range(n):
+            m &= padded[:, i:i + S] == tail[:, i:i + 1]
+        m &= idx < (hlen - n)[:, None]      # not the tail itself
+        m &= (hlen > n)[:, None]
+        jstar = torch.where(m, idx, -1).amax(dim=1)
+        take = m.any(dim=1) & (best_j < 0)
+        best_j = torch.where(take, jstar, best_j)
+        best_n = torch.where(take, n, best_n)
+    pidx = best_j[:, None] + best_n[:, None] + torch.arange(k, device=dev)[None]
+    prop = torch.gather(hist, 1, pidx.clamp(0, S - 1))
+    ok = (best_j[:, None] >= 0) & (pidx < hlen[:, None])
+    return torch.where(ok, prop, 0)
+
+
+def propose(history: List[int], k: int) -> List[int]:
+    """:func:`propose_dev` for one slot on the host, over its whole
+    history (JAX ``engine.py:_propose``)."""
+    L = len(history)
+    for n in (3, 2, 1):
+        if L <= n:
+            continue
+        tail = history[-n:]
+        for j in range(L - n - 1, -1, -1):   # the latest earlier occurrence
+            if history[j:j + n] == tail:
+                cont = history[j + n:j + n + k]
+                return (cont + [0] * k)[:k]
+    return [0] * k
+
+
+def _to_host(t: torch.Tensor):
+    """Start ``t``'s copy to the host: (host tensor, event) for a CUDA
+    tensor (pinned memory, a non-blocking copy behind an event), else
+    (``t``, None)."""
+    if not t.is_cuda:
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+# ---------------------------------------------------------------------------
 # Engine
 # ---------------------------------------------------------------------------
 
@@ -223,6 +300,7 @@ class BatchedEngine:
         pool_tokens: Optional[int] = None,
         prefix_cache: bool = True,
         speculate: int = 0,
+        spec_chunk: int = 4,
         w8a8: bool = False,
     ):
         """``paged=True`` keeps the KV cache in a pool of ``page_size``-token
@@ -230,9 +308,11 @@ class BatchedEngine:
         prompt + budget, so long contexts and short chats share one pool.
         ``pool_tokens`` sizes it (default ``max_slots * max_seq_len``, no
         overcommit); requests wait while it is exhausted. ``prefix_cache``
-        (paged only) shares the pages of identical prompt prefixes."""
-        for name, value, item in (("mesh", mesh, 10), ("speculate", speculate, 4),
-                                  ("w8a8", w8a8, 7)):
+        (paged only) shares the pages of identical prompt prefixes.
+        ``speculate=k`` (at most 7: the verify chunk of k + 1 tokens is what
+        the decode and paged kernels take) verifies k prompt-lookup
+        proposals a step, ``spec_chunk`` steps per dispatch."""
+        for name, value, item in (("mesh", mesh, 10), ("w8a8", w8a8, 7)):
             if value:
                 raise NotImplementedError(f"BatchedEngine({name}=...) is not ported yet "
                                           f"(ROADMAP Queue 1 item {item})")
@@ -287,6 +367,30 @@ class BatchedEngine:
         # prompt tokens whose KV came from the page prefix cache (paged)
         self.prefix_hit_tokens = 0
         self.warmup_s = 0.0  # set by warmup()
+
+        self.speculate = min(max(int(speculate), 0), 7)
+        self.spec_chunk = max(int(spec_chunk), 1)
+        self.verify_steps = 0     # verify steps run (one forward each)
+        self.spec_steps = 0       # of those, steps with a live slot
+        self.spec_emitted = 0     # greedy tokens they delivered
+        # adaptive gating: recent tokens a step; below spec_min_accept the
+        # engine decodes spec_pause_len plain chunks, then probes again
+        self._spec_recent: "deque[int]" = deque(maxlen=32)
+        self._spec_pause = 0
+        self.spec_pause_len = 64
+        self.spec_min_accept = 1.1
+        self.spec_pauses = 0      # times the gate paused speculation
+        self.spec_refreshes = 0   # device-state rebuilds (membership changes)
+        # host seconds by part of the speculative loop (tools/bench_spec.py)
+        self.spec_timers = {"dispatch": 0.0, "fetch": 0.0, "emit": 0.0,
+                            "refresh": 0.0, "iters": 0}
+        # the device-resident state (cur, hlen, hist, prop, budget and the
+        # slots' sampling settings), and the dispatched chunks whose rows
+        # the host has not read: (host rows, event, the slots' requests)
+        self._spec_dev: Optional[Dict[str, object]] = None
+        self._spec_inflight: "deque" = deque()
+        self.spec_depth = 2
+        self._eos_id = int(getattr(tokenizer, "eos_token_id", 2) or 2)
 
         self.cache = self._make_cache()
         self.tokens = torch.zeros(max_slots, 1, dtype=torch.int64, device=self.device)
@@ -460,6 +564,62 @@ class BatchedEngine:
             self.decode_steps += 1
         return torch.cat(cols, dim=1), tokens
 
+    def _spec_body(self, cur, hlen, hist, prop, budget, active, seeds, temps, tops,
+                   any_sampled: bool):
+        """One verify step on the device-resident state (JAX ``_spec_body``):
+        [cur | k proposals] at positions hlen - 1 ... as one chunk over the
+        cache; a greedy slot accepts the proposals that match its greedy
+        tokens and one more, a sampled slot takes one token; the tokens go
+        into ``hist`` [B, S + 1] (column S takes the writes JAX drops) and
+        the next proposals are made. Stops at the first eos (inclusive) and
+        at the budget; a slot that emits 0 is finished. Returns ([B, k + 2]
+        emitted tokens and their count, cur, hlen, hist, prop, budget)."""
+        k, S = self.speculate, self.max_seq_len
+        B = cur.shape[0]
+        dev = cur.device
+        pos = (hlen - 1).clamp_min(0)           # cur's position; dead slots at 0, seg 0
+        offs = torch.arange(k + 1, device=dev)[None]
+        tokens = torch.cat([cur[:, None], prop], dim=1)
+        positions = pos[:, None] + offs
+        act = active.to(torch.int32)[:, None]
+        greedy_slot = temps <= 0.0
+        seg = torch.where(offs == 0, act, act * greedy_slot.to(torch.int32)[:, None])
+        seg = seg * (positions < S).to(torch.int32)
+        logits, _ = llava_model.decode_step(self.params, self.cfg, tokens,
+                                            positions.to(torch.int32), seg, self.cache)
+        self.verify_steps += 1
+        greedy = torch.argmax(logits, dim=-1)                               # [B, k + 1]
+        sampled0 = sample_batch(logits[:, 0], temps, tops, seeds, pos, any_sampled)
+        match = (prop == greedy[:, :k]) & (seg[:, 1:] > 0)
+        acc = torch.cumprod(match.to(torch.int64), dim=1).sum(dim=1)
+        out = torch.where(greedy_slot[:, None], greedy,
+                          torch.cat([sampled0[:, None], torch.zeros_like(prop)], dim=1))
+        e = torch.where(greedy_slot, acc + 1, 1)
+        is_eos = (out == self._eos_id) & (offs < e[:, None])
+        eos_j = torch.argmax(is_eos.to(torch.int32), dim=1)
+        e = torch.where(is_eos.any(dim=1), torch.minimum(e, eos_j + 1), e)
+        e = torch.minimum(e, budget)
+        e = torch.where(active & (seg[:, 0] > 0), e, 0)
+        new_cur = torch.gather(out, 1, (e - 1).clamp_min(0)[:, None])[:, 0]
+        new_cur = torch.where(e > 0, new_cur, cur)
+        jidx = hlen[:, None] + offs
+        hist.scatter_(1, torch.where((offs < e[:, None]) & (jidx < S), jidx, S), out)
+        hlen = hlen + e
+        prop = propose_dev(hist[:, :S], hlen, k)
+        return (torch.cat([out, e[:, None]], dim=1), new_cur, hlen, hist, prop,
+                budget - e)
+
+    def _spec_step(self, st: Dict[str, object], m: int) -> torch.Tensor:
+        """``m`` verify steps on ``st``'s device state, updated in place;
+        returns their rows stacked, [m, B, k + 2]."""
+        rows = []
+        for _ in range(m):
+            ret, st["cur"], st["hlen"], st["hist"], st["prop"], st["budget"] = self._spec_body(
+                st["cur"], st["hlen"], st["hist"], st["prop"], st["budget"], st["active"],
+                st["seeds"], st["temps"], st["tops"], st["any_sampled"])
+            rows.append(ret)
+        return torch.stack(rows)
+
     # -- public API ----------------------------------------------------
 
     def submit(self, request: Request) -> Request:
@@ -532,8 +692,9 @@ class BatchedEngine:
     @torch.inference_mode()
     def warmup(self, prompt_len: int = 768, *, image: bool = True) -> float:
         """Run every prefill batch size at ``prompt_len``'s bucket (with the
-        vision tower when ``image``), the insert, both decode chunk lengths
-        and, paged with the prefix cache, a suffix prefill once before
+        vision tower when ``image``), the insert, both decode chunk lengths,
+        the verify chunk lengths when speculating and, paged with the prefix
+        cache, a suffix prefill once before
         serving: the first use builds the CUDA kernels and warms cuBLAS and
         the allocator. Call on an idle engine (it writes into slot 0 without
         occupying it). Returns the seconds spent, also kept as
@@ -567,6 +728,12 @@ class BatchedEngine:
         seeds = torch.zeros(B, dtype=torch.int64, device=self.device)
         for k in sorted({1, self.decode_chunk}):
             self._decode_n(positions, active, temps, tops, seeds, False, k)
+        if self.speculate:
+            # every slot dead (hlen 0, inactive): nothing is attended or
+            # emitted; the writes land where the next insert rewrites
+            for m in sorted({1, self.spec_chunk}):
+                self._spec_step(self._spec_state(active=active, seeds=seeds, temps=temps,
+                                                 tops=tops, any_sampled=False), m)
         if self.paged and self._prefix is not None:
             # a suffix prefill of 8 tokens after one page, in a single bucket,
             # and its first-token sampling (nothing else is live: page 0 is
@@ -948,21 +1115,204 @@ class BatchedEngine:
         return np.array([slot.history[-1] if slot.request is not None and slot.history else 0
                          for slot in self._slots], np.int64)
 
+    # -- speculation (engine thread) --------------------------------------
+
+    def _spec_state(self, *, cur=None, hlen=None, hist=None, prop=None, budget=None,
+                    active, seeds, temps, tops, any_sampled: bool) -> Dict[str, object]:
+        """A verify step's device state; the parts not given are zeros."""
+        B, S, k, dev = self.max_slots, self.max_seq_len, self.speculate, self.device
+
+        def dev_or_zeros(x, *shape):
+            if x is None:
+                return torch.zeros(shape, dtype=torch.int64, device=dev)
+            return torch.from_numpy(x).to(dev)
+
+        return {"cur": dev_or_zeros(cur, B), "hlen": dev_or_zeros(hlen, B),
+                "hist": dev_or_zeros(hist, B, S + 1), "prop": dev_or_zeros(prop, B, k),
+                "budget": dev_or_zeros(budget, B), "active": active, "seeds": seeds,
+                "temps": temps, "tops": tops, "any_sampled": any_sampled}
+
+    def _spec_refresh(self):
+        """Build the device state from the host mirrors (each slot's history
+        and budget). Runs only when the slots' membership changes
+        (admission, a finish, the end of a pause); steps otherwise update
+        the state on the device."""
+        t0 = time.perf_counter()
+        self.spec_refreshes += 1
+        B, S, k = self.max_slots, self.max_seq_len, self.speculate
+        hist = np.zeros((B, S + 1), np.int64)
+        hlen = np.zeros(B, np.int64)
+        cur = np.zeros(B, np.int64)
+        budget = np.zeros(B, np.int64)
+        prop = np.zeros((B, k), np.int64)
+        temps = np.zeros(B, np.float32)
+        tops = np.ones(B, np.float32)
+        active = np.zeros(B, bool)
+        seeds = np.zeros(B, np.int64)
+        for i, slot in enumerate(self._slots):
+            if slot.request is None:
+                continue
+            h = slot.history[-S:]
+            hist[i, :len(h)] = h
+            hlen[i] = len(h)
+            cur[i] = h[-1]
+            budget[i] = slot.budget
+            prop[i] = propose(slot.history, k)
+            temps[i] = slot.request.temperature
+            tops[i] = slot.request.top_p
+            seeds[i] = slot.request.seed & _MASK32
+            active[i] = True
+            # the verify steps' rows emit everything from here on; the first
+            # token, emitted by the prefill, enters as cur
+            slot.skip_next_emit = False
+
+        def dev(a):
+            return torch.from_numpy(a).to(self.device)
+
+        self._spec_dev = self._spec_state(
+            cur=cur, hlen=hlen, hist=hist, prop=prop, budget=budget, active=dev(active),
+            seeds=dev(seeds), temps=dev(temps), tops=dev(tops),
+            any_sampled=bool((temps > 0).any()))
+        self.spec_timers["refresh"] += time.perf_counter() - t0
+
+    def _spec_dispatch(self, m: int):
+        """Queue a chunk of ``m`` verify steps on the current device state and
+        start the copy of its rows to the host, with no host sync."""
+        t0 = time.perf_counter()
+        host, event = _to_host(self._spec_step(self._spec_dev, m))
+        self.spec_timers["dispatch"] += time.perf_counter() - t0
+        # the slots' requests now: a slot that turns over before the fetch
+        # (a finish, then an admission) must not take this chunk's tokens
+        self._spec_inflight.append((host, event, [s.request for s in self._slots]))
+
+    def _spec_collect(self) -> bool:
+        """Wait for the oldest chunk's rows and emit them row by row. A slot
+        that finishes on a row (eos, stop string, budget) skips the later
+        rows of the chunk: the device kept stepping it, but they are
+        garbage and the refresh rebuilds its state. Returns True when the
+        slots' membership changed (the device state is stale)."""
+        host, event, owners = self._spec_inflight.popleft()
+        t0 = time.perf_counter()
+        if event is not None:
+            event.synchronize()
+        out = host.numpy()                   # [m, B, k + 2]
+        t1 = time.perf_counter()
+        self.spec_timers["fetch"] += t1 - t0
+        changed = False
+        done = [False] * len(self._slots)
+        for row in out:
+            row_live = False
+            for i, slot in enumerate(self._slots):
+                if done[i] or slot.request is None or slot.request is not owners[i]:
+                    continue
+                row_live = True
+                e = int(row[i, -1])
+                if e == 0:
+                    # its device budget ran out on an earlier step
+                    self._finish_slot(slot)
+                    changed = done[i] = True
+                    continue
+                greedy = slot.request.temperature <= 0.0
+                finished, delivered = False, 0
+                for j in range(e):
+                    finished = self._emit_token(slot, int(row[i, j]))
+                    if finished:
+                        break
+                    delivered += 1
+                if greedy:
+                    # the acceptance counts delivered tokens (not a final eos
+                    # or stop)
+                    self.spec_emitted += delivered
+                    self._spec_recent.append(delivered)
+                if finished:
+                    changed = done[i] = True
+                else:
+                    slot.pos += e
+            if row_live:
+                # rows in which every slot had already finished are masked
+                # no-ops, not steps
+                self.spec_steps += 1
+        self.spec_timers["emit"] += time.perf_counter() - t1
+        return changed
+
+    def _spec_drain(self):
+        """Collect every chunk in flight: the host catches up with the
+        device (before a refresh or a switch to plain decoding)."""
+        while self._spec_inflight:
+            self._spec_collect()
+
+    @property
+    def spec_acceptance(self) -> float:
+        """Tokens the greedy slots delivered per verify step with a live slot,
+        summed over the slots as the JAX engine sums them (1 to k + 1 for a
+        single slot)."""
+        return self.spec_emitted / self.spec_steps if self.spec_steps else 0.0
+
+    def _spec_iteration(self, inserted: int) -> bool:
+        """One pass of the speculative loop; False when the engine is paused
+        and a plain chunk should run instead."""
+        if inserted and self._spec_dev is not None:
+            # new occupants: emit what is in flight (its writes to their
+            # slots are queued before their inserts), then rebuild
+            self._spec_drain()
+            self._spec_dev = None
+        if self._spec_pause > 0:
+            self._spec_pause -= 1
+            if self._spec_pause:
+                return False
+            # plain -> spec: the plain path holds one column not yet emitted;
+            # emit it, so the host mirrors (histories) are current
+            self._emit_column(self.tokens[:, 0].tolist())
+            self._spec_recent.clear()
+            self._spec_dev = None
+            return True
+        self.spec_timers["iters"] += 1
+        if self._spec_dev is None:
+            self._spec_refresh()
+        # a prepared request waiting to insert gets an admission point after
+        # one step; otherwise spec_chunk steps share a dispatch and a fetch
+        m = 1 if (self._waiting is not None or not self._ready.empty()) else self.spec_chunk
+        while len(self._spec_inflight) < self.spec_depth:
+            self._spec_dispatch(m)
+        if self._spec_collect():
+            self._spec_drain()
+            self._spec_dev = None
+            return True
+        recent = self._spec_recent
+        if len(recent) == recent.maxlen and sum(recent) / len(recent) < self.spec_min_accept:
+            # too few accepted to pay for the verify: plain chunks a while.
+            # spec -> plain: the current tokens (already emitted) seed the
+            # plain path, which skips their emission
+            self._spec_drain()
+            self._spec_pause = self.spec_pause_len
+            self.spec_pauses += 1
+            recent.clear()
+            self._spec_dev = None
+            self.tokens = torch.from_numpy(self._current_tokens()[:, None]).to(self.device)
+            for slot in self._slots:
+                if slot.request is not None:
+                    slot.skip_next_emit = True
+        return True
+
     def _loop(self):
         with torch.inference_mode():
             while not self._stop.is_set():
-                self._admit()
+                inserted = self._admit()
                 active_idx = [i for i, s in enumerate(self._slots) if s.request is not None]
                 if not active_idx:
                     time.sleep(self.idle_sleep)
                     continue
                 try:
+                    if self.speculate and self._spec_iteration(inserted):
+                        continue
                     self._decode_chunk(active_idx)
                 except Exception:
                     logger.exception("decode failed; ending the active requests")
-                    for i in active_idx:
-                        if self._slots[i].request is not None:
-                            self._finish_slot(self._slots[i])
+                    self._spec_inflight.clear()
+                    self._spec_dev = None
+                    for slot in self._slots:
+                        if slot.request is not None:
+                            self._finish_slot(slot)
 
     def _decode_chunk(self, active_idx: List[int]):
         # A prepared request waiting to insert gets the next admission point

@@ -92,16 +92,18 @@ class TorchBackend:
     (default ``max_slots * max_seq_len``) with the prefix cache on unless
     ``prefix_cache=False``, as the JAX worker's ``--paged``. ``max_seq_len``
     overrides the context length (a paged pool makes contexts past 2048
-    practical). ``warmup_len`` > 0 warms the engine at that prompt length
-    before the first request."""
+    practical). ``speculate=k`` serves with prompt-lookup speculation, k
+    proposals verified a step and ``spec_chunk`` steps a dispatch, as the
+    JAX worker's ``--speculate`` / ``--spec-chunk``. ``warmup_len`` > 0
+    warms the engine at that prompt length before the first request."""
 
     def __init__(self, params, cfg, tokenizer, image_processor=None, *,
                  device, use_engine: bool = True, max_slots: int = 8,
                  decode_chunk: int = 4, quantize: Optional[str] = None,
                  kv_int8: bool = False, max_seq_len: Optional[int] = None,
                  paged: bool = False, pool_tokens: Optional[int] = None,
-                 prefix_cache: bool = True, warmup_len: int = 0,
-                 stream_interval: int = 1):
+                 prefix_cache: bool = True, speculate: int = 0, spec_chunk: int = 4,
+                 warmup_len: int = 0, stream_interval: int = 1):
         if quantize not in (None, "int8", "int4"):
             raise ValueError(f"quantize must be None, 'int8' or 'int4', got {quantize!r}")
         self.cfg = cfg
@@ -122,7 +124,8 @@ class TorchBackend:
                                         max_seq_len=self.context_len,
                                         decode_chunk=decode_chunk, cache_dtype=cache_dtype,
                                         paged=paged, pool_tokens=pool_tokens,
-                                        prefix_cache=prefix_cache)
+                                        prefix_cache=prefix_cache, speculate=speculate,
+                                        spec_chunk=spec_chunk)
             if warmup_len:
                 self.engine.warmup(prompt_len=warmup_len, image=self.is_multimodal)
         else:
@@ -461,8 +464,6 @@ def build_app(worker: ModelWorker):
 
 # flags of the JAX worker whose modules the port does not have yet
 _UNPORTED = (
-    ("speculate", lambda v: v > 0, "--speculate: speculative decoding is not ported yet "
-                                   "(ROADMAP Queue 1 item 4)"),
     ("w8a8", bool, "--w8a8: the W8A8 prefill is not ported yet (ROADMAP Queue 1 item 7)"),
     ("tp", lambda v: v > 1, "--tp: tensor-parallel serving (the mesh) is not ported yet "
                             "(ROADMAP Queue 1 item 10)"),
@@ -508,7 +509,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--rope-scaling", type=str, default=None,
                         help="override rope scaling, e.g. dynamic:2.0 or linear:4.0")
     parser.add_argument("--speculate", type=int, default=0,
-                        help="prompt-lookup speculative decoding (not ported yet)")
+                        help="prompt-lookup speculative decoding: proposals verified a "
+                             "step (greedy-exact; 0 = off, at most 7)")
     parser.add_argument("--w8a8", action="store_true",
                         help="int8 activations for the prefill matmuls (not ported yet)")
     parser.add_argument("--spec-chunk", type=int, default=4,
@@ -587,7 +589,8 @@ def backend_for(args: argparse.Namespace, loaded) -> TorchBackend:
         quantize="int4" if args.load_4bit else "int8" if args.load_8bit else None,
         kv_int8=args.kv_int8, max_seq_len=args.max_seq_len or context_len,
         paged=args.paged, pool_tokens=args.pool_tokens,
-        prefix_cache=not args.no_prefix_cache, warmup_len=args.warmup,
+        prefix_cache=not args.no_prefix_cache, speculate=args.speculate,
+        spec_chunk=args.spec_chunk, warmup_len=args.warmup,
         stream_interval=args.stream_interval)
 
 

@@ -282,7 +282,7 @@ def test_quantized_engine_matches_jax_engine(bits):
 
 def test_unported_engine_options_raise(setup):
     engine, _, _ = setup
-    for kw in (dict(speculate=4), dict(w8a8=True), dict(mesh=object())):
+    for kw in (dict(w8a8=True), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             BatchedEngine(engine.params, CFG, engine.tokenizer, **kw)
     # both backbones serve (tests/test_torch_mpt.py); another one raises

@@ -151,8 +151,36 @@ def test_worker_without_a_device_flag_needs_a_card(checkpoint):
     assert "no CUDA device" in out.stderr and "--device cpu" in out.stderr
 
 
-@pytest.mark.parametrize("flags, item", [(["--speculate", "3"], 4), (["--w8a8"], 7),
-                                         (["--tp", "2"], 10)])
+def test_worker_main_serves_with_speculation(checkpoint):
+    """``--speculate 4 --spec-chunk 4``: the worker started as a user starts
+    it streams the greedy text of the plain in-process backend."""
+    path, _ = checkpoint
+    argv = ["--model-path", str(path), "--device", "cpu", "--no-register", "--warmup", "0",
+            "--max-slots", "2"]
+    body = {"prompt": "USER: say it again and again and again ASSISTANT:",
+            "temperature": 0.0, "max_new_tokens": 10}
+    script = f"FOREIGN = {FOREIGN!r}\n" + WORKER_SCRIPT
+    out = subprocess.run([sys.executable, "-c", script, str(_free_port()), json.dumps(body),
+                          *argv, "--speculate", "4", "--spec-chunk", "4"], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["foreign"] == []
+    spec, _ = model_worker.load_backend(model_worker.parse_args(
+        argv + ["--speculate", "4", "--spec-chunk", "4"]))
+    plain, _ = model_worker.load_backend(model_worker.parse_args(argv))
+    try:
+        assert (spec.engine.speculate, spec.engine.spec_chunk) == (4, 4)
+        want = list(plain.generate_stream(body))
+        assert list(spec.generate_stream(body)) == want
+        assert spec.engine.spec_steps > 0
+    finally:
+        spec.stop()
+        plain.stop()
+    assert [c["text"] for c in got["chunks"]] == want
+
+
+@pytest.mark.parametrize("flags, item", [(["--w8a8"], 7), (["--tp", "2"], 10)])
 def test_unported_worker_flags_exit_with_their_roadmap_item(checkpoint, flags, item):
     path, _ = checkpoint
     with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 item {item}"):
