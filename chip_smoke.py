@@ -143,6 +143,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    ``set_sync_debug_mode("error")``, a plain and a verify step at 16 slots
    with host ms and device busy by class, and the narrow LLaMA and MPT
    (bf16: the kernels take no f32) dense and paged, spec against plain;
+18. (run after 17, before 11) a LLaVA-Plus tool turn at LLaVA-1.5-7B
+   width: random bf16 weights (seed 0) with a planted decoding chain
+   (``llava_plus_torch.tools.planted``: greedy decoding after ``ASSISTANT:``
+   emits one ``grounding_dino`` call in the thoughts / actions / value
+   grammar), int8 fused, behind the HTTP worker on the paged engine (256
+   pages, prefix cache, 16 slots), registered with the port's controller;
+   the controller, the fake tool worker and the web server
+   (``--llava-plus``) started as ``python -m`` processes. 8 sessions at
+   once send an image turn and a follow-up of their own through
+   ``/api/chat``, with speculation off, then ``speculate=4`` with the
+   acceptance gate off: the prompts the worker receives (every word known
+   to the tokenizer), every stream's events in the JAX package's order,
+   the round texts equal to the planted reply and across passes, prefix
+   hits (each follow-up's round 2 admitted on a hit, with no vision
+   encode), page accounting, the controller's registry and queues, exits
+   on SIGTERM and launch counts; round-1 TTFT, tool dispatch,
+   round-2 TTFT and turn seconds (p50), tokens/s and ``spec_acceptance``;
 16. (run after 5, before 6, which quantizes its weights) the 7B tree of
    phase 5 exported as an HF checkpoint under ``.smoke/`` (one
    ``model.safetensors``, 14.1 GB, with a word-level tokenizer that names
@@ -2009,14 +2026,12 @@ def _tree_to(tree, device, dtype=None):
 class _Server:
     """The worker's aiohttp app on its own event-loop thread."""
 
-    def __init__(self, app):
+    def __init__(self, app, port=None):
         import asyncio
 
         from aiohttp import web
 
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            self.port = s.getsockname()[1]
+        self.port = port or _free_port()
         self.loop = asyncio.new_event_loop()
         self.runner = web.AppRunner(app)
         started = threading.Event()
@@ -3152,6 +3167,445 @@ def phase_speculative(smi):
 
 
 # ---------------------------------------------------------------------------
+# 18. a LLaVA-Plus tool turn: controller, tool worker and web server
+# ---------------------------------------------------------------------------
+
+PLUS_MODEL = "llava-plus-7b-planted"
+PLUS_SESSIONS = 8
+PLUS_EVENTS = ["text", "prog", "status", "tool", "text", "image"]   # JAX's order
+# a session's two turns: the first the same in every session, the second its own
+# from its 4th page on and long enough for round 1 to publish a 5th, which
+# holds the end of the image's span (a hit must cover it) and round 2 reuses
+PLUS_TURNS = ("find the cat", "session {j}: what else in this picture should I look at next?")
+# kernels line entry -> phase 18's count
+PLUS_KERNELS = {"flash_fwd": "flash", "quant_matmul[int8]": "quant",
+                "paged_attention[decode1]": "decode1", "paged_attention[general]": "general"}
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _plus_processes(root):
+    """The control plane as users start it, each ``python -m`` on a free
+    port with its output in ``root``: the controller, the fake tool worker
+    registering ``grounding_dino`` and the web server with ``--llava-plus``.
+    The tool worker beats every 10 s: its default of 45 s outlasts the
+    controller's 30 s expiry (both inherited from the JAX package), which
+    would drop it from the registry for 15 s of every 45."""
+    import requests
+
+    os.makedirs(root, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=HERE, FASTCHAT_WORKER_HEART_BEAT_INTERVAL="10")
+    ports = {name: _free_port() for name in ("controller", "tool", "web")}
+    ctrl = f"http://127.0.0.1:{ports['controller']}"
+    commands = {
+        "controller": ["llava_plus_torch.serve.controller", "--host", "127.0.0.1",
+                       "--port", str(ports["controller"])],
+        "tool": ["llava_plus_torch.serve.tool_workers.fake_tool_worker", "--host", "127.0.0.1",
+                 "--port", str(ports["tool"]), "--controller-address", ctrl,
+                 "--worker-address", f"http://127.0.0.1:{ports['tool']}",
+                 "--model-names", "grounding_dino"],
+        "web": ["llava_plus_torch.serve.web_server", "--host", "127.0.0.1",
+                "--port", str(ports["web"]), "--controller-url", ctrl, "--llava-plus"],
+    }
+    procs = {}
+    try:
+        for name, cmd in commands.items():
+            log_path = os.path.join(root, f"{name}.out")
+            with open(log_path, "w") as out:   # the child keeps its own descriptor
+                procs[name] = (subprocess.Popen([sys.executable, "-m", *cmd], cwd=root, env=env,
+                                                stdout=out, stderr=subprocess.STDOUT), log_path)
+            url = {"controller": ctrl + "/list_models",
+                   "tool": f"http://127.0.0.1:{ports['tool']}/worker_get_status",
+                   "web": f"http://127.0.0.1:{ports['web']}/api/models"}[name]
+            deadline = time.time() + 60
+            while True:
+                try:
+                    requests.post(url, timeout=5)
+                    break
+                except requests.ConnectionError:
+                    if procs[name][0].poll() is not None or time.time() > deadline:
+                        raise AssertionError(f"{name} did not start: {_tail(log_path)}")
+                    time.sleep(0.1)
+    except BaseException:
+        _stop_processes(procs)   # a process that did start is not left behind
+        raise
+    return procs, ctrl, f"http://127.0.0.1:{ports['web']}"
+
+
+def _stop_processes(procs):
+    """SIGTERM each process; every one must exit with 0 within 30 s."""
+    import signal
+
+    codes = {}
+    for proc, _ in procs.values():
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+    for name, (proc, _) in procs.items():
+        try:
+            codes[name] = proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+            codes[name] = "killed"
+    return codes
+
+
+def _plus_session(web, j, image, results):
+    """One session: an image turn, then a follow-up that carries it as
+    history; per turn, (send time, [(arrival time, chunk)])."""
+    import requests
+    from llava_plus_torch.serve.protocol import iter_chunks_requests
+
+    turns, history = [], []
+    for text in (t.format(j=j) for t in PLUS_TURNS):
+        body = {"model": PLUS_MODEL, "text": text, "history": history, "image": image,
+                "temperature": 0.0, "max_new_tokens": 64, "session_id": f"s{j}"}
+        t_send = time.perf_counter()
+        resp = requests.post(web + "/api/chat", json=body, stream=True, timeout=600)
+        chunks = [(time.perf_counter(), c) for c in iter_chunks_requests(resp)]
+        turns.append((t_send, chunks))
+        texts = [c["text"] for _, c in chunks if "text" in c]
+        # the browser's history keeps the first turn's image marker with it
+        history = [["<image>\n" + text, texts[-1] if texts else ""]]
+    results[j] = turns
+
+
+def _plus_prompts(reply, image, tool_response):
+    """Every prompt the web server sends the model for the sessions'
+    turns, as the port's orchestrator builds them: ``stream_turn`` on the
+    web server's template and history, with the model answering ``reply``
+    and the tool ``tool_response`` (no process or card involved)."""
+    from llava_plus_torch.conversation import conv_templates
+    from llava_plus_torch.serve.orchestrator import ToolOrchestrator
+
+    prompts = []
+
+    def stream_model(model_name, prompt, images_b64=None, **gen_params):
+        prompts.append(prompt)
+        yield reply.strip()
+
+    orch = ToolOrchestrator("")
+    orch.stream_model, orch.call_tool = stream_model, lambda *args: tool_response
+    for j in range(PLUS_SESSIONS):
+        history = []
+        for text in (t.format(j=j) for t in PLUS_TURNS):
+            conv = conv_templates["v1"].copy()
+            for u, a in history:
+                conv.append_message(conv.roles[0], u)
+                conv.append_message(conv.roles[1], a)
+            for _ in orch.stream_turn(conv, PLUS_MODEL, text, image=image):
+                pass
+            history = [["<image>\n" + text, reply.strip()]]
+    return prompts
+
+
+def _plus_turn(t_send, chunks, reply, tool_want, size, n_tokens):
+    """A turn's checks (events in JAX's order, round 1 and round 2 the
+    planted reply, the tool's folded response, an annotated PNG at the
+    image's size) and its times."""
+    from PIL import Image
+
+    kinds = [next(iter(c)) for _, c in chunks]
+    merged = [k for i, k in enumerate(kinds) if i == 0 or k != "text" or kinds[i - 1] != "text"]
+    if merged != PLUS_EVENTS:
+        raise AssertionError(f"events {merged}, want {PLUS_EVENTS}: {chunks[-1][1]}")
+    i_prog, i_status, i_tool, i_image = (kinds.index(k) for k in ("prog", "status", "tool",
+                                                                   "image"))
+    r1 = [c["text"] for _, c in chunks[:i_prog]][-1]
+    r2 = [c["text"] for _, c in chunks[i_tool + 1:i_image]][-1]
+    prog, tool = chunks[i_prog][1]["prog"], chunks[i_tool][1]["tool"]
+    if not (r1 == prog == r2 == reply.strip()):
+        raise AssertionError(f"round texts differ from the planted reply: {r1!r} / {r2!r}")
+    if tool != {"api_name": "grounding_dino", "response": tool_want}:
+        raise AssertionError(f"tool event {tool}, want {tool_want}")
+    png = Image.open(io.BytesIO(base64.b64decode(chunks[i_image][1]["image"])))
+    if png.format != "PNG" or png.size != size:
+        raise AssertionError(f"annotated image {png.format} {png.size}, want PNG {size}")
+    r1_times = [t for t, c in chunks[:i_prog] if "text" in c]
+    r2_times = [t for t, c in chunks[i_tool + 1:i_image] if "text" in c]
+    return {"r1": r1, "r2": r2, "r1_ttft": chunks[0][0] - t_send,
+            # the stream's pace after its first token, ms a token
+            "r1_tok": (r1_times[-1] - r1_times[0]) / (n_tokens - 1),
+            "r2_tok": (r2_times[-1] - r2_times[0]) / (n_tokens - 1),
+            "dispatch": chunks[i_tool][0] - chunks[i_status][0],
+            "r2_ttft": chunks[i_tool + 1][0] - chunks[i_tool][0],
+            "turn": chunks[-1][0] - t_send, "end": chunks[-1][0]}
+
+
+def phase_plus_turn(smi, profile=False):
+    """Phase 18: a full LLaVA-Plus tool turn at LLaVA-1.5-7B width. Random
+    bf16 weights (seed 0) with a planted decoding chain
+    (``llava_plus_torch.tools.planted``: after ``ASSISTANT:`` greedy decoding
+    emits one ``grounding_dino`` call in the thoughts / actions / value
+    grammar, then ``</s>``), quantized to int8 and fused. The controller, the
+    fake tool worker and the web server run as ``python -m`` processes; the
+    model worker runs here on the paged engine (int8 KV pool of 256 pages,
+    prefix cache, 16 slots) registered with that controller. 8 sessions at
+    once send an image turn ("find the cat", temperature 0, the same in
+    every session) and a follow-up of their own carrying it as history
+    (:data:`PLUS_TURNS`) through ``/api/chat``: each turn is two model
+    rounds around a tool dispatch. The tokenizer knows
+    every word of the 32 prompts (from the orchestrator's own dry run), and
+    the worker must receive exactly those prompts. Passes on fresh
+    backends: speculation off, then ``speculate=4`` with the engine's
+    acceptance gate off (the gate pauses on round 1, whose text repeats
+    nothing, and the pause outlasts the pass, hiding the rounds that quote
+    it). Checks every stream's events and texts, the speculative texts
+    against the plain ones, prefix reuse (every session's follow-up round 2
+    admitted on a hit of its round 1's pages, so with no vision encode), page
+    accounting, the controller's registry and queues, the processes' exits
+    on SIGTERM and the kernels' launch counts. ``profile`` adds a third
+    pass, plain, under ``torch.profiler``: that pass's device busy, idle
+    share and device time by kernel class."""
+    import requests
+    import torch
+    from llava_plus_torch.data import ClipImageProcessor
+    from llava_plus_torch.mm_utils import process_images
+    from llava_plus_torch.models import llava as llava_model
+    from llava_plus_torch.models.configs import LLAVA_15_7B
+    from llava_plus_torch.ops import quant_matmul as qm
+    from llava_plus_torch.ops.flash_attention import flash_attention
+    from llava_plus_torch.ops.paged_attention import paged_attention_general, paged_decode1
+    from llava_plus_torch.ops.quant import quantize_llava_params
+    from llava_plus_torch.serve.model_worker import ModelWorker, TorchBackend, build_app
+    from llava_plus_torch.serve.orchestrator import fold_tool_response, ToolSession
+    from llava_plus_torch.serve.tool_workers.fake_tool_worker import _canned
+    from llava_plus_torch.tools import planted
+    from llava_plus_torch.utils.demo_assets import demo_image, demo_image_b64
+
+    cfg, device = LLAVA_15_7B, "cuda"
+    L, size = cfg.text.num_hidden_layers, cfg.vision.image_size
+    processor = ClipImageProcessor(shortest_edge=size, crop_size=size)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = llava_model.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    reply = planted.canned_reply()
+    image = demo_image("cat")
+    prompts = _plus_prompts(reply, image, _canned("grounding_dino", image))
+    tok = planted.tool_tokenizer(cfg.text.vocab_size, reply, prompts)
+    unknown = {w for p in prompts for w in planted.unknown_words(tok, p)}
+    if unknown:
+        raise AssertionError(f"prompt words the tokenizer does not know: {sorted(unknown)}")
+    ids = planted.chain_ids(tok, reply)
+    planted.plant_chain(params, ids)
+    params = quantize_llava_params(params, cfg.language_model_type, bits=8, fuse=True)
+    with torch.inference_mode():   # the first prompt is turn 1's round 1
+        gaps = planted.chain_gaps(params, cfg, tok, prompts[0],
+                                  process_images([image], processor, cfg), ids,
+                                  device)
+    log("plus", f"LLaVA-1.5-7B, random bf16 weights (seed 0) with a planted chain of "
+                f"{len(ids) - 1} steps, int8 fused, in {time.perf_counter() - t0:.1f} s; along "
+                f"the chain after the round-1 prompt: argmax the planted word at "
+                f"{sum(a for a, _ in gaps)} of {len(gaps)} steps, smallest top-2 logit gap "
+                f"{min(g for _, g in gaps):.2f}; {len(prompts)} prompts, "
+                f"{len(set(prompts))} distinct, every word known")
+    if not all(a for a, _ in gaps):
+        raise AssertionError(f"the planted chain does not hold on the int8 weights: {gaps}")
+    tool_want = fold_tool_response("grounding_dino", _canned("grounding_dino", image),
+                                   ToolSession())[0]
+    image_b64 = demo_image_b64("cat")
+
+    received, suffix_admits = [], [0]
+
+    def recording(generate_stream):
+        def generate(params):
+            received.append(params["prompt"])
+            return generate_stream(params)
+        return generate
+
+    kernels = {"flash": flash_attention, "decode1": paged_decode1,
+               "general": paged_attention_general, "quant": qm.matmul_int8}
+    counters = ("prefill_dispatches", "decode_steps", "prefix_hit_tokens", "verify_steps",
+                "spec_steps", "spec_slot_steps", "spec_emitted", "spec_pauses")
+    procs, ctrl, web = _plus_processes(os.path.join(SMOKE_DIR, "plus"))
+    worker = server = backend = None
+    passes, totals = {}, {n: 0 for n in kernels}
+    regimes = [0, 0]
+    try:
+        mport = _free_port()
+        modes = [("plain", 0), ("spec, gate off", 4)] + [("plain, profiled", 0)] * profile
+        for mode, speculate in modes:
+            gc.collect()
+            t0 = time.perf_counter()
+            backend = TorchBackend(params, cfg, tok, processor, device=device,
+                                   use_engine=True, max_slots=16, decode_chunk=4, kv_int8=True,
+                                   max_seq_len=2048, paged=True, pool_tokens=256 * 128,
+                                   prefix_cache=True, warmup_len=768, speculate=speculate,
+                                   spec_chunk=SPEC_CHUNK)
+            engine = backend.engine
+            engine.spec_min_accept = 0.0
+            insert_suffix = engine._insert_suffix
+
+            def counted_suffix(*args, insert_suffix=insert_suffix):
+                out = insert_suffix(*args)   # raises while the pool is short: retried later
+                suffix_admits[0] += 1
+                return out
+
+            # a prefix hit is admitted with a suffix prefill only: no vision encode
+            engine._insert_suffix = counted_suffix
+            log("plus", f"{mode}: paged engine ({engine.num_pages} pages of 128, int8 KV, "
+                        f"prefix cache, 16 slots, speculate={speculate}) built and warmed in "
+                        f"{time.perf_counter() - t0:.1f} s")
+            if worker is None:
+                # registers with the controller (and beats every 15 s) as
+                # `python -m llava_plus_torch.serve.model_worker` does
+                worker = ModelWorker(ctrl, f"http://127.0.0.1:{mport}", backend, [PLUS_MODEL],
+                                     limit_model_concurrency=16)
+                server = _Server(build_app(worker), port=mport)
+            backend.generate_stream = recording(backend.generate_stream)
+            worker.backend = backend
+            models = requests.post(ctrl + "/list_models", timeout=30).json()["models"]
+            if sorted(models) != ["grounding_dino", PLUS_MODEL]:
+                raise AssertionError(f"the controller lists {models}")
+            for k in kernels.values():
+                k.launches = 0
+            regimes0 = _regimes(qm.matmul_int8)
+            c0 = {n: getattr(engine, n) for n in counters}
+            worker.metrics = {}     # the worker's own TTFT and rate, this pass only
+            suffix_admits[0] = 0
+            received.clear()
+            results = [None] * PLUS_SESSIONS
+
+            def traffic():
+                threads = [threading.Thread(target=_plus_session,
+                                            args=(web, j, image_b64, results))
+                           for j in range(PLUS_SESSIONS)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(600)
+
+            t_start = time.perf_counter()
+            prof = _profiled(traffic) if mode.endswith("profiled") else traffic()
+            launches = {n: k.launches for n, k in kernels.items()}
+            d = {n: getattr(engine, n) - c0[n] for n in counters}
+            served = worker.get_metrics()
+            got_regimes = [b - a for a, b in zip(regimes0, _regimes(qm.matmul_int8))]
+            if any(r is None for r in results):
+                raise AssertionError(f"{mode}: a session did not complete")
+            if sorted(received) != sorted(prompts):
+                raise AssertionError(f"{mode}: the worker received other prompts than the dry "
+                                     f"run's: {sorted(set(received) - set(prompts))}")
+            turns = [[_plus_turn(t_send, chunks, reply, tool_want, image.size, len(ids) - 2)
+                      for t_send, chunks in r] for r in results]
+            t_end = max(t["end"] for r in turns for t in r)
+            deadline = time.time() + 30
+            while (engine.num_active or engine._waiting is not None) and time.time() < deadline:
+                time.sleep(0.05)
+            with engine._page_lock:
+                refs = list(engine._page_refs)
+                cached = set(engine._prefix._entries.values())
+                free = len(engine._free_pages)
+            held = sum(1 for p in cached if refs[p] == 1)
+            for _ in range(100):
+                status = requests.post(ctrl + "/worker_get_status", timeout=30).json()
+                if status["queue_length"] == 0:
+                    break
+                time.sleep(0.1)
+            backend.stop()
+            rounds = 4 * PLUS_SESSIONS
+            model_requests = rounds          # every round sends the image
+            tokens = rounds * (len(ids) - 2)
+            p = {"turns": turns, "seconds": t_end - t_start, "tokens": tokens,
+                 "launches": launches, "counters": d, "suffix_admits": suffix_admits[0],
+                 "regimes": got_regimes}
+            passes[mode] = p
+            ttft = lambda k, i: np.median([r[i][k] for r in turns]) * 1e3
+            log("plus", f"{mode}: {PLUS_SESSIONS} sessions x 2 turns x 2 rounds in "
+                        f"{p['seconds']:.2f} s: {tokens} tokens, "
+                        f"{tokens / p['seconds']:.1f} tokens/s aggregate; p50 over sessions, "
+                        + "; ".join(f"turn {i + 1}: round-1 TTFT {ttft('r1_ttft', i):.1f} ms, "
+                                    f"then {ttft('r1_tok', i):.1f} ms a token, tool dispatch "
+                                    f"{ttft('dispatch', i):.1f} ms, round-2 TTFT "
+                                    f"{ttft('r2_ttft', i):.1f} ms, then {ttft('r2_tok', i):.1f} ms "
+                                    f"a token, turn {ttft('turn', i) / 1e3:.3f} s"
+                                    for i in range(2)))
+            log("plus", f"{mode}: at the worker (from its receipt of a request), TTFT mean "
+                        f"{served['mean_ttft_s'] * 1e3:.1f} ms over {served['requests']} "
+                        f"requests, {served['decode_tok_s']:.1f} tokens/s a request after its "
+                        f"first; {d['prefill_dispatches']} prefill dispatches, "
+                        f"{d['decode_steps']} decode steps, {d['verify_steps']} verify steps "
+                        f"({d['spec_steps']} live, spec_acceptance "
+                        f"{d['spec_emitted'] / max(d['spec_steps'], 1):.3f} summed over the "
+                        f"slots, {d['spec_emitted'] / max(d['spec_slot_steps'], 1):.3f} a slot, "
+                        f"{d['spec_pauses']} pauses), prefix hits {d['prefix_hit_tokens']} "
+                        f"tokens: {suffix_admits[0]} of {model_requests} image requests "
+                        f"admitted on a hit (no vision encode); launches "
+                        f"{launches}, int8 by regime {got_regimes}; pages at the end {free} "
+                        f"free + {held} held only by the prefix cache of {engine.num_pages}; "
+                        f"controller queue {status['queue_length']}")
+            if prof:
+                log("plus", f"{mode}: device busy {prof['device_busy_ms']:.1f} ms of the pass's "
+                            f"{p['seconds'] * 1e3:.1f}, idle share "
+                            f"{1 - prof['device_busy_ms'] / (p['seconds'] * 1e3):.3f}; "
+                            + ", ".join(f"{k} {v:.1f}" for k, v in prof["by_class_ms"].items()))
+            want = {"flash": L * d["prefill_dispatches"], "decode1": L * d["decode_steps"],
+                    "general": L * d["verify_steps"]}
+            if {k: launches[k] for k in want} != want:
+                raise AssertionError(f"{mode}: launches {launches}, want {want}")
+            # with the gate off every decode step may be a verify step
+            if (launches["flash"] <= 0 or (speculate == 0 and launches["decode1"] <= 0)
+                    or min(got_regimes) <= 0
+                    or sum(got_regimes) != launches["quant"]
+                    or (launches["general"] > 0) != (speculate > 0)):
+                raise AssertionError(f"{mode}: a kernel of the path did not run: {launches}, "
+                                     f"int8 by regime {got_regimes}")
+            # every session's follow-up round 2 reuses its round 1's pages
+            if d["prefix_hit_tokens"] <= 0 or suffix_admits[0] < PLUS_SESSIONS:
+                raise AssertionError(f"{mode}: prefix reuse {d['prefix_hit_tokens']} hit "
+                                     f"tokens, {suffix_admits[0]} requests admitted on a hit, "
+                                     f"want at least {PLUS_SESSIONS}")
+            if (free + held != engine.num_pages or any(r > 1 for r in refs)
+                    or any(refs[q] != 1 for q in cached)):
+                raise AssertionError(f"{mode}: page accounting: {free} free + {held} cached of "
+                                     f"{engine.num_pages}, refcounts {sorted(set(refs))}")
+            if status["queue_length"] != 0 or sorted(status["model_names"]) != sorted(models):
+                raise AssertionError(f"{mode}: controller status {status}")
+            if mode != "plain":
+                same = [[(t["r1"], t["r2"]) for t in r] for r in turns]
+                plain = [[(t["r1"], t["r2"]) for t in r] for r in passes["plain"]["turns"]]
+                if same != plain:
+                    raise AssertionError(f"{mode}: texts differ from the plain pass's")
+            for n in kernels:
+                totals[n] += launches[n]
+            regimes = [a + b for a, b in zip(regimes, got_regimes)]
+            del engine, backend
+            backend = None
+    finally:
+        if server is not None:
+            server.stop()
+        if worker is not None:
+            worker.stop()
+        if backend is not None:
+            backend.stop()
+        codes = _stop_processes(procs)
+    if any(c != 0 for c in codes.values()):
+        raise AssertionError(f"exit codes on SIGTERM {codes}: "
+                             + " | ".join(_tail(path, 800) for _, path in procs.values()))
+    plain = passes["plain"]
+    for mode in ("spec, gate off",):
+        p, c = passes[mode], passes[mode]["counters"]
+        log("plus", f"{mode}: spec_acceptance {c['spec_emitted'] / max(c['spec_steps'], 1):.3f} "
+                    f"({c['spec_emitted'] / max(c['spec_slot_steps'], 1):.3f} a slot); "
+                    f"{p['tokens'] / p['seconds']:.1f} tokens/s against the plain pass's "
+                    f"{plain['tokens'] / plain['seconds']:.1f} "
+                    f"(x{plain['seconds'] / p['seconds']:.3f}); texts equal the plain pass's")
+    log("plus", f"processes stopped by SIGTERM, exit codes {codes}; peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; card {smi}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    totals["quant_regimes"] = tuple(regimes)
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # 11. LLaVA-MPT-7B at full width behind the HTTP worker, dense and paged
 # ---------------------------------------------------------------------------
 
@@ -4149,6 +4603,7 @@ def main():
     int4 = serve_engine(smi, _init_7b(dev), "int4", n_image=2, n_text=2)
     paged = serve_paged_engine(smi)
     spec = phase_speculative(smi)   # phase 17, on fresh weights
+    plus = phase_plus_turn(smi)     # phase 18, on fresh weights
     mpt = serve_mpt_7b(smi)   # phase 11, before training (the LLaMA weights are gone)
     narrow_alibi_bwd = phase_narrow_training()
     narrow_lora = phase_narrow_lora()
@@ -4166,7 +4621,7 @@ def main():
     for name, source, replaces, count in (
         ("flash_fwd", "llava_plus_torch/csrc/flash_fwd.cu", FLASH_REPLACES,
          single["flash"] + ckpt["flash"] + int8["flash"] + int4["flash"] + paged["flash"]
-         + spec["flash"] + stage1["flash"] + stage2["flash"] + qlora["flash"]),
+         + spec["flash"] + plus["flash"] + stage1["flash"] + stage2["flash"] + qlora["flash"]),
         ("flash_bwd[dkv]", bwd_src, DKV_REPLACES, stage1["dkv"] + stage2["dkv"] + qlora["dkv"]),
         ("flash_bwd[dq]", bwd_src, DQ_REPLACES, stage1["dq"] + stage2["dq"] + qlora["dq"]),
         ("decode_attention[bf16]", "llava_plus_torch/csrc/decode_attention.cu",
@@ -4174,16 +4629,17 @@ def main():
         ("decode_attention[int8]", "llava_plus_torch/csrc/decode_attention.cu",
          DECODE_REPLACES, single["int8"] + ckpt["decode"] + int8["decode"] + int4["decode"]),
         ("quant_matmul[int8]", "llava_plus_torch/csrc/quant_matmul.cu", INT8_REPLACES,
-         ckpt["quant"] + int8["quant"] + paged["quant"] + spec["quant"] + mpt["dense"]["matmul_int8"]
+         ckpt["quant"] + int8["quant"] + paged["quant"] + spec["quant"] + plus["quant"]
+         + mpt["dense"]["matmul_int8"]
          + mpt["paged"]["matmul_int8"] + narrow_lora[8][0] + tools["int8"]),
         ("quant_matmul[int4]", "llava_plus_torch/csrc/quant_matmul.cu", INT4_REPLACES,
          int4["quant"] + narrow_lora[4][0] + qlora["int4"] + tools["int4"]),
         ("quant_matmul[int4n]", "llava_plus_torch/csrc/quant_matmul.cu", INT4N_REPLACES,
          tools["int4n"]),
         ("paged_attention[decode1]", paged_src, PAGED_DECODE1_REPLACES,
-         paged["decode1"] + spec["decode1"]),
+         paged["decode1"] + spec["decode1"] + plus["decode1"]),
         ("paged_attention[general]", paged_src, PAGED_GENERAL_REPLACES,
-         narrow_general + spec["general"] + spec["narrow"]["general"]),
+         narrow_general + spec["general"] + plus["general"] + spec["narrow"]["general"]),
         # the verify chunks (Tq = k + 1) of the speculative engines (phase 17),
         # where the JAX package runs XLA's quant_cache_attention chain
         ("decode_attention[verify]", "llava_plus_torch/csrc/decode_attention.cu",
@@ -4208,10 +4664,14 @@ def main():
             raise AssertionError(f"{name} was not launched on the main path")
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": count, **stats[name]})
+        if name in PLUS_KERNELS:
+            # of which the LLaVA-Plus tool turns (phase 18)
+            entries[-1]["tool_turn_launches"] = plus[PLUS_KERNELS[name]]
         if name == "quant_matmul[int8]":
             # the serving engines' int8 launches by regime (phases 16, 6, 7, 11)
             regimes = [ckpt["quant_regimes"], int8["quant_regimes"], paged["quant_regimes"],
-                       mpt["dense"]["matmul_int8 regimes"], mpt["paged"]["matmul_int8 regimes"]]
+                       plus["quant_regimes"], mpt["dense"]["matmul_int8 regimes"],
+                       mpt["paged"]["matmul_int8 regimes"]]
             entries[-1].update(engine_decode_launches=sum(r[0] for r in regimes),
                                engine_prefill_launches=sum(r[1] for r in regimes))
         elif name == "quant_matmul[int4]":
@@ -4229,7 +4689,7 @@ def main():
             entries[-1].update(engine_7b_launches=paged["general"]
                                + mpt["paged"]["paged_attention_general"]
                                + mpt["paged"]["paged_attention_general[alibi]"],
-                               engine_7b_spec_launches=spec["general"])
+                               engine_7b_spec_launches=spec["general"] + plus["general"])
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "llava_plus_tpu"))
     if foreign:

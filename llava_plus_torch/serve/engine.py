@@ -373,6 +373,7 @@ class BatchedEngine:
         self.verify_steps = 0     # verify steps run (one forward each)
         self.spec_steps = 0       # of those, steps with a live slot
         self.spec_emitted = 0     # greedy tokens they delivered
+        self.spec_slot_steps = 0  # greedy slots' verify steps (the emitted's divisor a slot)
         # adaptive gating: recent tokens a step; below spec_min_accept the
         # engine decodes spec_pause_len plain chunks, then probes again
         self._spec_recent: "deque[int]" = deque(maxlen=32)
@@ -1223,6 +1224,7 @@ class BatchedEngine:
                     # the acceptance counts delivered tokens (not a final eos
                     # or stop)
                     self.spec_emitted += delivered
+                    self.spec_slot_steps += 1
                     self._spec_recent.append(delivered)
                 if finished:
                     changed = done[i] = True

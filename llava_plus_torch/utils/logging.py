@@ -1,5 +1,5 @@
-"""Logging helpers and the shared serving error message (the port's own copy
-of what the worker uses from ``llava_plus_tpu/utils/logging.py``)."""
+"""Logging helpers and the shared serving messages (the port's own copy of
+``llava_plus_tpu/utils/logging.py``; ref llava/utils.py, serve/utils.py)."""
 
 from __future__ import annotations
 
@@ -12,6 +12,9 @@ from llava_plus_torch.constants import LOGDIR
 
 server_error_msg = (
     "**NETWORK ERROR DUE TO HIGH TRAFFIC. PLEASE REGENERATE OR REFRESH THIS PAGE.**"
+)
+moderation_msg = (
+    "YOUR INPUT VIOLATES OUR CONTENT MODERATION GUIDELINES. PLEASE TRY AGAIN."
 )
 
 _handlers = {}

@@ -31,6 +31,13 @@ import torch
 import llava_plus_torch
 names = [m.name for m in pkgutil.walk_packages(llava_plus_torch.__path__, "llava_plus_torch.")]
 assert "llava_plus_torch.train.lora" in names
+# the LLaVA-Plus control plane: controller, orchestrator, web server, tools
+for name in ("serve.controller", "serve.orchestrator", "serve.annotation", "serve.web_server",
+             "serve.register_worker", "serve.test_message", "serve.tool_workers.base",
+             "serve.tool_workers.fake_tool_worker", "serve.tool_workers.grounding_dino_worker",
+             "serve.tool_workers.test_message", "utils.misc", "utils.demo_assets",
+             "tools.generate_grounding_data", "tools.planted"):
+    assert "llava_plus_torch." + name in names, name
 for name in names:
     importlib.import_module(name)
 
