@@ -115,8 +115,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    its plain version and timed, with exact launch counts;
 15. (phase 3's device times, taken last because a ``torch.profiler``
    session can leave CUPTI attached and slow the host clocks of later
-   phases) the flash forward, dK/dV, dQ and dense decode rows, the int8
-   and int4 matmuls at every shape and row of phase 3, the native int4
+   phases, and in a process of its own, on a fresh CUPTI: late in a whole
+   run the profiler loses kernel events) the flash forward, dK/dV, dQ and
+   dense decode rows, the int8 and int4 matmuls at every shape and row of phase 3, the native int4
    matmul at the tools' five shapes and phase 3's rows (each alternated
    with the split-half int4 kernel on the same values; 7B q/o at 16 rows
    also with ``torch._weight_int4pack_mm``, 768 and 3,072 rows with the
@@ -160,6 +161,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    encode), page accounting, the controller's registry and queues, exits
    on SIGTERM and launch counts; round-1 TTFT, tool dispatch,
    round-2 TTFT and turn seconds (p50), tokens/s and ``spec_acceptance``;
+19. (run after 18, before 11) the eval harness from phase 16's checkpoint
+   (kept on disk until then): 8 image questions written under ``.smoke/``
+   and ``python -m llava_plus_torch.eval.model_vqa_loader --model-path
+   ...`` run as a user runs it, three times (single-stream greedy,
+   ``--engine-slots 8``, ``--num_beams 3 --max-new-tokens 16``), each
+   process's flash and bf16 decode launches checked against its prefills
+   and steps; where an engine answer differs from the single-stream one,
+   the top-2 logit gap at the first differing token within phase 4's
+   bound; the 7B beam search against a cache-free oracle on the card at a
+   4-token budget (a differing selection only where the oracle's closest
+   margin is within twice that bound); load seconds, answers/s, seconds a beam
+   answer, the beam reorder's ms a step and peak device memory;
 16. (run after 5, before 6, which quantizes its weights) the 7B tree of
    phase 5 exported as an HF checkpoint under ``.smoke/`` (one
    ``model.safetensors``, 14.1 GB, with a word-level tokenizer that names
@@ -2229,7 +2242,26 @@ def _tail(path, n=3000):
         return f.read()[-n:]
 
 
-def phase_checkpoint(smi, params, cfg=None, device="cuda"):
+def export_checkpoint(params, cfg=None):
+    """The tree written under ``.smoke/`` as an HF checkpoint (one
+    ``model.safetensors`` and the word-level tokenizer): (path, bytes of
+    safetensors, seconds)."""
+    from llava_plus_torch.models.configs import LLAVA_15_7B
+    from llava_plus_torch.train.checkpoint import export_hf_llava
+
+    cfg = cfg or LLAVA_15_7B
+    path = os.path.join(SMOKE_DIR, CKPT_NAME)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    export_hf_llava(params, cfg, path, _word_tokenizer(cfg.text.vocab_size))
+    write_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)
+                 if f.endswith(".safetensors"))
+    return path, nbytes, write_s
+
+
+def phase_checkpoint(smi, params, cfg=None, device="cuda", keep=False):
     """The 7B tree of phase 5 (before phase 6 quantizes it) written as an HF
     checkpoint with the port's exporter, then served from disk:
 
@@ -2250,6 +2282,7 @@ def phase_checkpoint(smi, params, cfg=None, device="cuda"):
        ``python -m llava_plus_torch.serve.cli`` with its input piped, which
        must answer.
 
+    ``keep`` leaves the checkpoint on disk (phase 19 answers from it).
     Returns this process's launch counts (flash, int8 decode, int8 matmul)."""
     import signal
 
@@ -2261,23 +2294,16 @@ def phase_checkpoint(smi, params, cfg=None, device="cuda"):
     from llava_plus_torch.ops.decode_attention import decode_attention
     from llava_plus_torch.ops.flash_attention import flash_attention
     from llava_plus_torch.serve import model_worker as mw
-    from llava_plus_torch.train.checkpoint import export_hf_llava
 
     cfg = cfg or LLAVA_15_7B
     L, V = cfg.text.num_hidden_layers, cfg.text.vocab_size
-    path = os.path.join(SMOKE_DIR, CKPT_NAME)
-    shutil.rmtree(path, ignore_errors=True)
     os.makedirs(SMOKE_DIR, exist_ok=True)
     disk = shutil.disk_usage(SMOKE_DIR)
     log("ckpt", f"free disk under {SMOKE_DIR}: {disk.free / 1e9:.1f} GB of "
                 f"{disk.total / 1e9:.1f}")
 
     # the checkpoint, written once -------------------------------------------
-    t0 = time.perf_counter()
-    export_hf_llava(params, cfg, path, _word_tokenizer(V))
-    write_s = time.perf_counter() - t0
-    nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)
-                 if f.endswith(".safetensors"))
+    path, nbytes, write_s = export_checkpoint(params, cfg)
     log("ckpt", f"exported {nbytes / 1e9:.2f} GB of safetensors in {write_s:.1f} s "
                 f"({nbytes / 1e9 / write_s:.2f} GB/s from the card to disk); card {smi}")
 
@@ -2408,7 +2434,8 @@ def phase_checkpoint(smi, params, cfg=None, device="cuda"):
                              f"{out.stdout[-1500:]}{out.stderr[-1500:]}")
     log("ckpt", f"cli: one turn in {cli_s:.1f} s (load included), answer of "
                 f"{len(answer.split())} words: {answer[:60]!r}; card {smi}")
-    shutil.rmtree(path, ignore_errors=True)
+    if not keep:
+        shutil.rmtree(path, ignore_errors=True)
     return launches
 
 
@@ -3192,13 +3219,12 @@ def _plus_processes(root):
     """The control plane as users start it, each ``python -m`` on a free
     port with its output in ``root``: the controller, the fake tool worker
     registering ``grounding_dino`` and the web server with ``--llava-plus``.
-    The tool worker beats every 10 s: its default of 45 s outlasts the
-    controller's 30 s expiry (both inherited from the JAX package), which
-    would drop it from the registry for 15 s of every 45."""
+    The tool worker beats at its default interval (15 s, inside the
+    controller's 30 s expiry)."""
     import requests
 
     os.makedirs(root, exist_ok=True)
-    env = dict(os.environ, PYTHONPATH=HERE, FASTCHAT_WORKER_HEART_BEAT_INTERVAL="10")
+    env = dict(os.environ, PYTHONPATH=HERE)
     ports = {name: _free_port() for name in ("controller", "tool", "web")}
     ctrl = f"http://127.0.0.1:{ports['controller']}"
     commands = {
@@ -3603,6 +3629,306 @@ def phase_plus_turn(smi, profile=False):
     torch.cuda.empty_cache()
     totals["quant_regimes"] = tuple(regimes)
     return totals
+
+
+# ---------------------------------------------------------------------------
+# 19. the eval harness at 7B, from phase 16's checkpoint
+# ---------------------------------------------------------------------------
+
+EVAL_QUESTIONS = 8
+EVAL_RUNS = (("greedy", ["--max-new-tokens", "32"]),
+             ("engine", ["--engine-slots", "8", "--max-new-tokens", "32"]),
+             ("beam", ["--num_beams", "3", "--max-new-tokens", "16"]))
+EVAL_ORACLE_TOKENS = 4   # the cache-free beam oracle's budget
+
+
+def _eval_child():
+    """In a child process (``python3 -c "import chip_smoke;
+    chip_smoke._eval_child()" RUNNER ARGS...``): run
+    ``llava_plus_torch.eval.RUNNER`` as ``python -m`` runs it, with the
+    session's load and the answers timed apart, and print one line
+    ``EVAL_CHILD {json}``: the flash and dense decode launches (from 0 in
+    this process), load and answer seconds, the engine's prefill dispatches
+    and decode steps, peak device memory and any module of JAX loaded."""
+    import runpy
+
+    import torch
+    from llava_plus_torch.eval import common
+    from llava_plus_torch.ops.decode_attention import decode_attention
+    from llava_plus_torch.ops.flash_attention import flash_attention
+
+    marks = {}
+    init = common.EvalSession.__init__
+
+    def timed(self, *args, **kw):
+        t0 = time.perf_counter()
+        init(self, *args, **kw)
+        torch.cuda.synchronize()
+        marks.update(load_s=time.perf_counter() - t0, ready=time.perf_counter(), session=self)
+
+    common.EvalSession.__init__ = timed
+    flash_attention.launches = decode_attention.launches = 0
+    module = "llava_plus_torch.eval." + sys.argv[1]
+    sys.argv = [module] + sys.argv[2:]
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+    torch.cuda.synchronize()
+    engine = marks["session"].engine
+    print("EVAL_CHILD " + json.dumps({
+        "flash": flash_attention.launches, "decode": decode_attention.launches,
+        "chunk": decode_attention.chunk_launches, "wide": decode_attention.wide_launches,
+        "load_s": marks["load_s"], "answer_s": time.perf_counter() - marks["ready"],
+        "prefill_dispatches": engine.prefill_dispatches if engine else 0,
+        "decode_steps": engine.decode_steps if engine else 0,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "foreign": sorted(m for m in sys.modules
+                          if m.split(".")[0] in ("jax", "jaxlib", "llava_plus_tpu"))}),
+          flush=True)
+
+
+def _word_ids(text):
+    """The ids of a word-level answer ("w17 w9 ..."; ``<unk>``, id 0, is
+    never printed)."""
+    return [int(w[1:]) for w in text.split()]
+
+
+def _beam_oracle(params, cfg, tok, prompt, pixels, nb, n_new):
+    """Cache-free beam search on the card: every step a full forward
+    (``llava.forward``, no cache, the flash kernel over the whole sequence)
+    of each live beam's prompt + tokens, the port's expansion rules (the top
+    ``nb`` of each live beam, finished beams carried, a stable sort).
+    Returns the ids, the (tokens, parents) each step selects, and each
+    step's closest margin: the smallest gap between neighbours among its
+    first ``nb + 1`` candidates (which decides the selected set and its
+    order) over the step's largest top logit."""
+    import torch
+    from llava_plus_torch.data.multimodal import pad_images, plan_multimodal_batch
+    from llava_plus_torch.mm_utils import tokenizer_image_token
+    from llava_plus_torch.models import llava as llava_model
+    from llava_plus_torch.models.llava import MultimodalBatch
+
+    eos = tok.eos_token_id
+    prompt_ids = list(tokenizer_image_token(prompt, tok))
+    hw = (cfg.vision.image_size, cfg.vision.image_size, 3)
+    images = torch.from_numpy(pad_images([pixels], 1, hw)).cuda()
+
+    def step_logits(ids):
+        plan = plan_multimodal_batch([np.asarray(ids, np.int64)],
+                                     num_patches=cfg.num_image_tokens, max_len=2048,
+                                     max_images=1, pad_to_multiple=128)
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+        batch = MultimodalBatch(tokens=dev(plan.tokens), positions=dev(plan.positions),
+                                segment_ids=dev(plan.segment_ids), images=images,
+                                image_pos=dev(plan.image_pos))
+        last = torch.tensor([int(plan.lengths[0]) - 1], device="cuda")
+        with torch.inference_mode():
+            logits, _ = llava_model.forward(params, cfg, batch, logits_positions=last)
+        return logits[0, -1].float()
+
+    beams, steps, margins = [(0.0, [], False)], [], []
+    for _ in range(n_new):
+        cands, top = [], 0.0   # (score, ids, done, parent, token)
+        for b, (score, ids, done) in enumerate(beams):
+            if done:
+                cands.append((score, ids, True, b, 0))
+                continue
+            logits = step_logits(prompt_ids + ids)
+            top = max(top, float(logits.max().abs()))
+            lp = torch.log_softmax(logits, dim=-1)
+            vals, idx = torch.sort(lp, descending=True, stable=True)
+            for v, i in zip(vals[:nb + 1].tolist(), idx[:nb + 1].tolist()):
+                cands.append((score + v, ids + [i], i == eos, b, i))
+        cands.sort(key=lambda c: -c[0])
+        margins.append(min(cands[k][0] - cands[k + 1][0] for k in range(nb)) / top)
+        steps.append(([c[4] for c in cands[:nb]], [c[3] for c in cands[:nb]]))
+        beams = [c[:3] for c in cands[:nb]]
+        if all(d for _, _, d in beams):
+            break
+    finished = [(s / len(i), i) for s, i, d in beams if d]
+    if finished:
+        return max(finished, key=lambda f: f[0])[1][:-1], steps, margins
+    return max(beams, key=lambda b: b[0])[1], steps, margins
+
+
+def phase_eval(smi, path=None):
+    """Phase 19: the eval harness at LLaVA-1.5-7B width, from phase 16's
+    checkpoint on disk (random bf16 weights, seed 0, a word-level tokenizer
+    that names every id and whose EOS lies past the logits, so every answer
+    runs its budget).
+
+    1. 8 image questions (12 words each) and their 336-px images written
+       under ``.smoke/eval``;
+    2. ``python -m llava_plus_torch.eval.model_vqa_loader --model-path ...``
+       as a user runs it, three times (each in its own process, with the
+       load and the answers timed apart: :func:`_eval_child`): single-stream
+       greedy (32 tokens), ``--engine-slots 8`` (the dense engine, bf16 KV)
+       and ``--num_beams 3 --max-new-tokens 16``; every answer file whole,
+       each run's flash and dense decode launches exactly what its
+       prefills and steps make, nothing of JAX loaded;
+    3. the checkpoint loaded here: where an engine answer differs from the
+       single-stream one, the plain step's top-2 logit gap at the first
+       differing token, which must lie within phase 4's bound (2e-2; the
+       greedy ids recomputed here by ``Generator.generate`` must equal the
+       runner's); the beam search at a 4-token budget on 2 questions
+       against a cache-free oracle on the card: each step's selected
+       tokens and parents equal, or, from the first step that differs,
+       that step's closest margin between candidates within twice that
+       bound (a beam's score is a sum of log-probs);
+    4. the beam reorder (:func:`llava_plus_torch.generate.reorder_beams`)
+       timed at the beam run's shapes (3 rows of 2,048 slots, 16 slots
+       moved, every row from another) beside a whole-cache gather.
+
+    Prints load seconds, answers/s (greedy, engine), seconds an answer
+    (beams), the reorder's ms a step and peak device memory, each with the
+    card's name and power limit. Returns the launches of the three runs."""
+    import torch
+    from PIL import Image
+    from llava_plus_torch.eval.model_vqa_loader import build_prompt
+    from llava_plus_torch.generate import Generator, reorder_beams
+    from llava_plus_torch.mm_utils import process_images
+    from llava_plus_torch.models import llama
+    from llava_plus_torch.models.builder import load_pretrained_model
+    from llava_plus_torch.models.configs import LLAVA_15_7B
+    from llava_plus_torch.models.convert import tree_map
+
+    t_phase = time.perf_counter()
+    cfg, tol = LLAVA_15_7B, 2e-2
+    L, V = cfg.text.num_hidden_layers, cfg.text.vocab_size
+    path = path or os.path.join(SMOKE_DIR, CKPT_NAME)
+    root = os.path.join(SMOKE_DIR, "eval")
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    rng = np.random.default_rng(19)
+    questions = []
+    for j in range(EVAL_QUESTIONS):
+        size = (cfg.vision.image_size,) * 2 + (3,)
+        Image.fromarray(rng.integers(0, 256, size=size, dtype=np.uint8)).save(
+            os.path.join(root, "images", f"{j}.png"))
+        words = " ".join(f"w{1 + (j * 7919 + i * 104729) % (V - 1)}" for i in range(12))
+        questions.append({"question_id": j, "image": f"{j}.png", "text": words})
+    with open(os.path.join(root, "questions.jsonl"), "w") as f:
+        f.write("\n".join(json.dumps(q) for q in questions) + "\n")
+
+    # 2. the runner as users run it ------------------------------------------
+    runs = {}
+    env = dict(os.environ, PYTHONPATH=HERE)
+    for tag, extra in EVAL_RUNS:
+        answers = os.path.join(root, f"answers-{tag}.jsonl")
+        argv = ["model_vqa_loader", "--model-path", path, "--image-folder",
+                os.path.join(root, "images"), "--question-file",
+                os.path.join(root, "questions.jsonl"), "--answers-file", answers, *extra]
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke._eval_child()",
+                              *argv], cwd=HERE, env=env, capture_output=True, text=True,
+                             timeout=600)
+        wall = time.perf_counter() - t0
+        line = next((ln for ln in out.stdout.splitlines() if ln.startswith("EVAL_CHILD ")), None)
+        if out.returncode != 0 or line is None:
+            raise AssertionError(f"eval {tag}: the runner failed (exit {out.returncode}): "
+                                 f"{out.stdout[-1500:]}{out.stderr[-3000:]}")
+        r = json.loads(line[len("EVAL_CHILD "):])
+        rows = [json.loads(x) for x in open(answers)]
+        if [row["question_id"] for row in rows] != list(range(EVAL_QUESTIONS)):
+            raise AssertionError(f"eval {tag}: the answers file lists {len(rows)} answers")
+        r["texts"] = [row["text"] for row in rows]
+        n_new = int(extra[-1])
+        lengths = [len(_word_ids(t)) for t in r["texts"]]
+        n = EVAL_QUESTIONS
+        if tag == "engine":
+            want = (L * r["prefill_dispatches"], L * r["decode_steps"])
+        else:   # one prefill an answer, then n_new - 1 decode steps
+            want = (L * n, L * n * (n_new - 1))
+        if (r["flash"], r["decode"]) != want or r["chunk"] or r["wide"] or r["foreign"]:
+            raise AssertionError(f"eval {tag}: launches flash {r['flash']}, decode {r['decode']} "
+                                 f"(want {want}), chunk {r['chunk']}, wide {r['wide']}; "
+                                 f"foreign modules {r['foreign'][:5]}")
+        if tag != "beam" and min(lengths) < n_new - 1:
+            raise AssertionError(f"eval {tag}: answers of {lengths} words, want {n_new}")
+        runs[tag] = r
+        rate = (f"{n / r['answer_s']:.3f} answers/s" if tag != "beam"
+                else f"{r['answer_s'] / n:.3f} s an answer")
+        log("eval", f"{tag}: {' '.join(extra)}: {n} answers of {lengths} words in "
+                    f"{r['answer_s']:.2f} s ({rate}), load {r['load_s']:.1f} s, process "
+                    f"{wall:.1f} s; launches flash {r['flash']}, decode[bf16] {r['decode']}"
+                    + (f" ({r['prefill_dispatches']} prefill dispatches, {r['decode_steps']} "
+                       f"decode steps)" if tag == "engine" else "")
+                    + f"; peak device memory {r['peak_gib']:.2f} GiB; card {smi}")
+
+    # 3. the answers held here ------------------------------------------------
+    t0 = time.perf_counter()
+    tok, params, lcfg, proc, ctx = load_pretrained_model(path)
+    params = tree_map(lambda x: x.cuda(), params)
+    torch.cuda.synchronize()
+    log("eval", f"checkpoint loaded here and moved to the card in {time.perf_counter() - t0:.1f} s")
+    gen = Generator(params, lcfg, tok, proc, device="cuda", max_seq_len=ctx)
+    prompts = [build_prompt(q["text"], "llava_v1") for q in questions]
+
+    def pixels(j):
+        img = Image.open(os.path.join(root, "images", f"{j}.png")).convert("RGB")
+        return process_images([img], proc, lcfg)
+
+    greedy, engine = runs["greedy"]["texts"], runs["engine"]["texts"]
+    differ = [j for j in range(EVAL_QUESTIONS) if greedy[j] != engine[j]]
+    for j in differ:
+        ids = gen.generate(prompts[j], pixels(j), max_new_tokens=32, temperature=0.0,
+                           stop_strings=["</s>"]).output_ids
+        if tok.decode(ids, skip_special_tokens=True).strip() != greedy[j]:
+            raise AssertionError(f"eval: question {j}: Generator.generate here differs from "
+                                 f"the runner's single-stream answer")
+        shown = [i for i, t in enumerate(ids) if t != 0]
+        e = _word_ids(engine[j])
+        k = next((m for m, (a, b) in enumerate(zip([ids[i] for i in shown], e)) if a != b),
+                 min(len(shown), len(e)))
+        cut = shown[k] if k < len(shown) else len(ids)
+        with open(os.path.join(root, "images", f"{j}.png"), "rb") as f:
+            body = {"prompt": prompts[j], "images": [base64.b64encode(f.read()).decode()]}
+        gap = _top2_gap(params, lcfg, tok, body, ids[:cut], torch.bfloat16)
+        log("eval", f"question {j}: the engine's answer leaves the single-stream one at token "
+                    f"{cut}; the plain step's top-2 logit gap there {gap:.3e} of the top logit "
+                    f"(bound {tol})")
+        if gap > tol:
+            raise AssertionError(f"eval: question {j}: the engine diverges at token {cut}, where "
+                                 f"the top-2 gap is {gap:.3e} > {tol}")
+    log("eval", f"engine answers equal to the single-stream ones: "
+                f"{EVAL_QUESTIONS - len(differ)} of {EVAL_QUESTIONS}")
+
+    for j in range(2):
+        got = gen.beam_search(prompts[j], pixels(j), num_beams=3,
+                              max_new_tokens=EVAL_ORACLE_TOKENS).output_ids
+        want, steps, margins = _beam_oracle(params, lcfg, tok, prompts[j], pixels(j), 3,
+                                            EVAL_ORACLE_TOKENS)
+        # the first step whose selection (tokens and parents) differs
+        s = next((t for t, (a, b) in enumerate(zip(gen._last_beam_steps, steps)) if a != b),
+                 None)
+        differ = ("equal" if s is None else f"differ at step {s} (tokens, parents: "
+                  f"{gen._last_beam_steps[s]} here, {steps[s]} in the oracle)")
+        log("eval", f"question {j}: 3 beams x {EVAL_ORACLE_TOKENS} tokens {got}, cache-free "
+                    f"oracle {want}; selections {differ}; closest margins "
+                    f"{', '.join(f'{m:.2e}' for m in margins)} of the top logit (bound {2 * tol})")
+        if s is None and got != want:
+            raise AssertionError(f"eval: question {j}: equal selections gave other ids")
+        if s is not None and margins[s] > 2 * tol:
+            raise AssertionError(f"eval: question {j}: beam selection differs from the "
+                                 f"cache-free oracle's at step {s}, margin {margins[s]:.3e} "
+                                 f"> {2 * tol}")
+
+    # 4. the reorder a beam step makes ------------------------------------------
+    n0 = gen._last_prompt_len
+    cache = llama.KVCache.create(lcfg.text, 3, ctx, torch.bfloat16, device="cuda")
+    ms = time_ms(lambda: reorder_beams(cache, [1, 2, 0], n0, n0 + 16))
+    ms_all = time_ms(lambda: reorder_beams(cache, [1, 2, 0], 0, ctx))
+    moved = 2 * L * 3 * 16 * cfg.text.num_key_value_heads * cfg.text.head_dim * 2
+    log("eval", f"beam reorder: {ms:.4f} ms a step for slots [{n0}, {n0 + 16}) of 3 rows "
+                f"({moved / 1e6:.1f} MB of k and v moved), the whole {ctx}-slot cache "
+                f"{ms_all:.3f} ms; card {smi}")
+    del cache, gen, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    log("eval", f"phase 19: {time.perf_counter() - t_phase:.1f} s; card {smi}")
+    return {"flash": sum(r["flash"] for r in runs.values()),
+            "decode": sum(r["decode"] for r in runs.values())}
 
 
 # ---------------------------------------------------------------------------
@@ -4554,6 +4880,21 @@ def _leaves(tree):
         yield tree
 
 
+def _device_times_child():
+    """Phase 15 in a process of its own (``python3 -c "import chip_smoke;
+    chip_smoke._device_times_child()" OUT``), so that its profiler sessions
+    start on a fresh CUPTI: late in a whole run the profiler loses kernel
+    events (once every flash forward event of six sessions in a row, after
+    sdpa had read 4x short). Writes the rows it adds to ``stats`` to OUT as
+    JSON."""
+    import collections
+
+    stats = collections.defaultdict(dict)
+    phase_device_times(stats)
+    with open(sys.argv[1], "w") as f:
+        json.dump(stats, f)
+
+
 def device_times_only(root):
     """Phases 1, 2 and 15 alone, for the ``llava_plus_torch`` package under
     ``root``, with phase 3's int8, int4, decode1 and general rows also timed
@@ -4595,8 +4936,9 @@ def main():
     dev = "cuda:0"
     params = _init_7b(dev)
     single = phase_full_slice(smi, params, dev)
-    # phase 16 exports these weights before phase 6 quantizes them in place
-    ckpt = phase_checkpoint(smi, params)
+    # phase 16 exports these weights before phase 6 quantizes them in place;
+    # phase 19 answers from its checkpoint
+    ckpt = phase_checkpoint(smi, params, keep=True)
     # int4 starts from fresh ones
     int8 = serve_engine(smi, params, "int8", n_image=8, n_text=8)
     del params
@@ -4604,6 +4946,8 @@ def main():
     paged = serve_paged_engine(smi)
     spec = phase_speculative(smi)   # phase 17, on fresh weights
     plus = phase_plus_turn(smi)     # phase 18, on fresh weights
+    evals = phase_eval(smi)         # phase 19, from phase 16's checkpoint
+    shutil.rmtree(os.path.join(SMOKE_DIR, CKPT_NAME), ignore_errors=True)
     mpt = serve_mpt_7b(smi)   # phase 11, before training (the LLaMA weights are gone)
     narrow_alibi_bwd = phase_narrow_training()
     narrow_lora = phase_narrow_lora()
@@ -4611,9 +4955,19 @@ def main():
     stage2 = phase_train_stage2(smi)
     mpt_stage1 = phase_train_mpt_stage1(smi)
     qlora = phase_train_qlora(smi)
-    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     tools = phase_int4_tools()
-    phase_device_times(stats)
+    # phase 15, last and in a fresh process
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    out = os.path.join(SMOKE_DIR, "device_times.json")
+    subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke._device_times_child()",
+                    out], cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), check=True,
+                   timeout=900)
+    with open(out) as f:
+        for name, row in json.load(f).items():
+            stats.setdefault(name, {}).update(row)
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
 
     entries = []
     paged_src = "llava_plus_torch/csrc/paged_attention.cu"
@@ -4621,11 +4975,12 @@ def main():
     for name, source, replaces, count in (
         ("flash_fwd", "llava_plus_torch/csrc/flash_fwd.cu", FLASH_REPLACES,
          single["flash"] + ckpt["flash"] + int8["flash"] + int4["flash"] + paged["flash"]
-         + spec["flash"] + plus["flash"] + stage1["flash"] + stage2["flash"] + qlora["flash"]),
+         + spec["flash"] + plus["flash"] + evals["flash"] + stage1["flash"] + stage2["flash"]
+         + qlora["flash"]),
         ("flash_bwd[dkv]", bwd_src, DKV_REPLACES, stage1["dkv"] + stage2["dkv"] + qlora["dkv"]),
         ("flash_bwd[dq]", bwd_src, DQ_REPLACES, stage1["dq"] + stage2["dq"] + qlora["dq"]),
         ("decode_attention[bf16]", "llava_plus_torch/csrc/decode_attention.cu",
-         DECODE_REPLACES, single["bf16"]),
+         DECODE_REPLACES, single["bf16"] + evals["decode"]),
         ("decode_attention[int8]", "llava_plus_torch/csrc/decode_attention.cu",
          DECODE_REPLACES, single["int8"] + ckpt["decode"] + int8["decode"] + int4["decode"]),
         ("quant_matmul[int8]", "llava_plus_torch/csrc/quant_matmul.cu", INT8_REPLACES,
@@ -4667,6 +5022,9 @@ def main():
         if name in PLUS_KERNELS:
             # of which the LLaVA-Plus tool turns (phase 18)
             entries[-1]["tool_turn_launches"] = plus[PLUS_KERNELS[name]]
+        if name in ("flash_fwd", "decode_attention[bf16]"):
+            # of which the eval runs (phase 19)
+            entries[-1]["eval_launches"] = evals["flash" if name == "flash_fwd" else "decode"]
         if name == "quant_matmul[int8]":
             # the serving engines' int8 launches by regime (phases 16, 6, 7, 11)
             regimes = [ckpt["quant_regimes"], int8["quant_regimes"], paged["quant_regimes"],

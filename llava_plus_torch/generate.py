@@ -1,14 +1,15 @@
-"""Generation in PyTorch: prefill + KV-cache decode with streamed text.
+"""Generation in PyTorch: prefill + KV-cache decode with streamed text,
+the non-streaming ``generate`` and fixed-width beam search.
 
-Counterpart of ``llava_plus_tpu/generate.py`` (beam search and the
-non-streaming ``generate`` are not ported yet). PyTorch runs eagerly, so the
-JAX package's compiled prefill/decode programs become plain calls; ``decode_chunk`` keeps its meaning (tokens are
-fetched to the host once per chunk). Randomness comes from a
-``torch.Generator`` on the model's device.
+Counterpart of ``llava_plus_tpu/generate.py``. PyTorch runs eagerly, so the
+JAX package's compiled prefill/decode programs become plain calls;
+``decode_chunk`` keeps its meaning (tokens are fetched to the host once per
+chunk). Randomness comes from a ``torch.Generator`` on the model's device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -79,6 +80,46 @@ def prepare_multimodal_request(
         image_pos=dev(plan.image_pos),
     )
     return batch, plan
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    text: str
+    output_ids: List[int]
+    prompt_tokens: int
+    completion_tokens: int
+
+
+def reorder_beams(cache: llama.KVCache, parent: Sequence[int], start: int, end: int) -> None:
+    """Row ``b`` of the dense ``cache``'s slots ``[start, end)`` <- row
+    ``parent[b]``'s, in place: k, v (and their int8 scales) [L, B, S, ...]
+    along dim 1, seg [B, S] along dim 0. Only the rows whose parent is
+    another row move; each reads its parent's old values."""
+    moved = [b for b, p in enumerate(parent) if p != b]
+    if not moved or end <= start:
+        return
+    device = cache.seg.device
+    dst = torch.tensor(moved, device=device)
+    src = torch.tensor([parent[b] for b in moved], device=device)
+    for buf in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+        if buf is not None:
+            view = buf[:, :, start:end]
+            view.index_copy_(1, dst, view.index_select(1, src))
+    seg = cache.seg[:, start:end]
+    seg.index_copy_(0, dst, seg.index_select(0, src))
+
+
+def select_beams(logits: torch.Tensor, scores: torch.Tensor, done: torch.Tensor, nb: int):
+    """One beam expansion: the top ``nb`` of the ``nb x V`` candidates
+    ``scores[b] + log_softmax(logits[b])`` (f32), where a finished beam
+    offers exactly one candidate, itself, frozen at column 0. Equal scores
+    are taken lower flat index first, as ``jax.lax.top_k`` takes them.
+    Returns (flat indices [nb] int64, their scores [nb] f32)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    cand = torch.where(done[:, None], -torch.inf, scores[:, None] + logp)
+    cand[:, 0] = torch.where(done, scores, cand[:, 0])
+    top = torch.sort(cand.reshape(-1), descending=True, stable=True)
+    return top.indices[:nb], top.values[:nb]
 
 
 class Generator:
@@ -210,3 +251,114 @@ class Generator:
             token = toks[:, -1:]
             pending = toks[0, :-1].tolist()
             pos += k
+
+    @torch.inference_mode()
+    def beam_search(
+        self,
+        prompt: str,
+        images: Optional[np.ndarray] = None,
+        *,
+        num_beams: int,
+        max_new_tokens: int = 128,
+        length_penalty: float = 1.0,
+        stop_strings: Sequence[str] = (),
+    ) -> GenerationResult:
+        """Vanilla fixed-width beam search (the eval CLIs' ``--num_beams``),
+        JAX's rules: top-``nb`` selection over ``nb x V`` candidates,
+        finished beams frozen in place, length-normalised finalisation with
+        ``length_penalty``, stop strings cut the text at the end;
+        ``num_beams <= 1`` is greedy :meth:`generate`.
+
+        The beams are the batch: one prefill of ``nb`` identical rows, then a
+        step is :func:`select_beams`, the cache reordered by parent beam and
+        one decode of ``[nb, 1]`` tokens with ``seg`` 1 for live beams and 0
+        for finished ones (whose logits the next selection ignores). The
+        rows are identical up to the prompt, so only the slots written since
+        (``[prompt_len, pos)``) move in :func:`reorder_beams`; the JAX
+        package gathers the whole cache, which gives the same rows."""
+        nb = int(num_beams)
+        if nb <= 1:
+            return self.generate(prompt, images, max_new_tokens=max_new_tokens,
+                                 temperature=0.0, stop_strings=stop_strings)
+        batch, plan = self.prepare_batch([prompt] * nb,
+                                         None if images is None else [images] * nb)
+        prompt_len = int(plan.lengths[0])
+        budget = min(max_new_tokens, self.max_seq_len - prompt_len)
+        eos = self.tokenizer.eos_token_id
+        eos = -1 if eos is None else int(eos)
+
+        cache = llama.KVCache.create(llava_model.backbone(self.cfg)[1], nb, self.max_seq_len,
+                                     self.cache_dtype, device=self.device)
+        logits = self._prefill(cache, batch)
+        V = logits.shape[-1]
+
+        # beam 0 starts live, the rest at -inf (the rows are identical
+        # clones until the first expansion)
+        sc_h = np.asarray([0.0] + [-np.inf] * (nb - 1), np.float32)
+        scores = torch.from_numpy(sc_h).to(self.device)
+        done = torch.zeros(nb, dtype=torch.bool, device=self.device)
+        done_h = np.zeros(nb, bool)
+        history: List[tuple] = []   # (tok[nb], parent[nb]) per step
+        finished: List[tuple] = []  # (score_normalized, step_idx, beam)
+
+        def reconstruct(t_end, beam):
+            """Token path for ``beam`` through steps [0, t_end] inclusive."""
+            ids, b = [], beam
+            for t in range(t_end, -1, -1):
+                tok_t, par_t = history[t]
+                ids.append(int(tok_t[b]))
+                b = int(par_t[b])
+            return ids[::-1]
+
+        pos = prompt_len
+        for t in range(budget):
+            idx, scores = select_beams(logits, scores, done, nb)
+            parent, tok = idx // V, idx % V
+            done = done[parent] | (tok == eos)
+            idx_h = idx.cpu().numpy()
+            sc_h = scores.cpu().numpy()
+            par_h, tok_h = idx_h // V, idx_h % V
+            was_h = done_h[par_h]
+            done_h = was_h | (tok_h == eos)
+            history.append((tok_h, par_h))
+            for b in range(nb):
+                if done_h[b] and not was_h[b]:
+                    # freshly finished: t real tokens before this EOS
+                    finished.append((sc_h[b] / max(t + 1, 1) ** length_penalty, t, b))
+            if bool(done_h.all()) or t == budget - 1:
+                break   # (JAX also decodes after the last selection, unread)
+            reorder_beams(cache, par_h.tolist(), prompt_len, pos)
+            position = torch.full((nb, 1), pos, dtype=torch.int32, device=self.device)
+            logits, _ = llava_model.decode_step(self.params, self.cfg, tok[:, None], position,
+                                                (~done).to(torch.int32)[:, None], cache)
+            logits = logits[:, 0]
+            pos += 1
+
+        t_last = len(history) - 1
+        if finished:
+            _, t_end, beam = max(finished, key=lambda f: f[0])
+            ids = reconstruct(t_end, beam)[:-1]  # drop the EOS itself
+        else:
+            best = int(np.argmax(sc_h / max(t_last + 1, 1) ** length_penalty))
+            ids = reconstruct(t_last, best)
+        text = self.tokenizer.decode(ids, skip_special_tokens=True)
+        for s in stop_strings:
+            if s and s in text:
+                text = text.split(s)[0]
+        self._last_prompt_len = prompt_len
+        self._last_output_ids = ids
+        self._last_beam_steps = [(t.tolist(), p.tolist()) for t, p in history]
+        return GenerationResult(text=text, output_ids=ids, prompt_tokens=prompt_len,
+                                completion_tokens=len(ids))
+
+    def generate(self, prompt: str, images: Optional[np.ndarray] = None,
+                 **kw) -> GenerationResult:
+        """The whole answer at once: :meth:`stream` in 32-token decode
+        chunks unless the caller sets ``decode_chunk``."""
+        kw.setdefault("decode_chunk", 32)
+        text = ""
+        for text in self.stream(prompt, images, **kw):
+            pass
+        return GenerationResult(text=text, output_ids=list(self._last_output_ids),
+                                prompt_tokens=self._last_prompt_len,
+                                completion_tokens=len(self._last_output_ids))

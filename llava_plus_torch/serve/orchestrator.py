@@ -46,6 +46,14 @@ logger = build_logger("orchestrator", "orchestrator.log")
 
 R = lambda x: round(float(x), 2)  # noqa: E731  (the reference's rounding)
 
+
+def _round_nested(x):
+    """``R`` at any depth of nested lists: xyxy boxes and the OCR schema's
+    polygons (lists of points) alike."""
+    if isinstance(x, (list, tuple)):
+        return [_round_nested(v) for v in x]
+    return R(x)
+
 headers = {"User-Agent": "LLaVA-Plus-TPU Client"}
 
 
@@ -152,23 +160,18 @@ def fold_tool_response(
     Returns (folded_response_for_prompt, extracted_artifacts)."""
     tool_response = copy.deepcopy(tool_response)
     artifacts: Dict[str, Any] = {}
-    if "boxes" in tool_response:
-        tool_response["boxes"] = [
-            [R(b) for b in bb] for bb in tool_response["boxes"]
-        ]
-    if "logits" in tool_response:
-        tool_response["logits"] = [R(x) for x in tool_response["logits"]]
-    if "scores" in tool_response:
-        tool_response["scores"] = [R(x) for x in tool_response["scores"]]
+    if api_name == "easyocr":
+        tool_response.pop("boxes", None)
+        tool_response.pop("scores", None)
+    for key in ("boxes", "logits", "scores"):
+        if key in tool_response:
+            tool_response[key] = _round_nested(tool_response[key])
     if "masks_rle" in tool_response:
         artifacts["masks_rle"] = tool_response.pop("masks_rle")
     if "edited_image" in tool_response:
         artifacts["edited_image"] = tool_response.pop("edited_image")
     if "size" in tool_response:
         tool_response.pop("size")
-    if api_name == "easyocr":
-        tool_response.pop("boxes", None)
-        tool_response.pop("scores", None)
     if "retrieval_results" in tool_response:
         tool_response["retrieval_results"] = [
             {"caption": r["caption"], "similarity": R(r["similarity"])}
@@ -213,6 +216,10 @@ def annotate_result(
     boxes = tool_response.get("boxes")
     phrases = tool_response.get("phrases")
     if boxes:
+        # an OCR polygon (a list of points) is drawn as its bounding box
+        boxes = [[min(p[0] for p in b), min(p[1] for p in b),
+                  max(p[0] for p in b), max(p[1] for p in b)]
+                 if b and isinstance(b[0], (list, tuple)) else b for b in boxes]
         out = draw_boxes(image, boxes, phrases)
     if artifacts.get("masks_rle"):
         masks = [rle_to_mask(r) for r in artifacts["masks_rle"]]

@@ -4,7 +4,8 @@ Every reference tool worker (``serve/*_worker.py``, 14 of them) repeats the
 same ~150 lines of FastAPI scaffolding; here it lives once. A concrete worker
 subclasses :class:`ToolWorker` and implements ``generate(params) -> dict``
 (tool-specific JSON in, ``pred_dict`` out). The wire protocol matches the
-reference byte-for-byte: controller registration, 45/90 s heartbeats,
+reference byte-for-byte: controller registration, heartbeats (every 15 s,
+inside the controller's 30 s expiry; the reference beats every 45 s),
 semaphore-limited ``POST /worker_generate``, FastChat error codes.
 
 The port's own copy of ``llava_plus_tpu/serve/tool_workers/base.py``.

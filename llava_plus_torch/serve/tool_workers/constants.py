@@ -1,12 +1,17 @@
 """Tool-stack constants (ref serve/constants.py): env-overridable heartbeats
-and FastChat-style error codes. The LLM stack uses llava_plus_torch.constants
-(15/30 s); tools run slower models, hence 45/90 s.
+and FastChat-style error codes.
 
-The port's own copy of ``llava_plus_tpu/serve/tool_workers/constants.py``.
+The port's own copy of ``llava_plus_tpu/serve/tool_workers/constants.py``,
+with one change: a tool worker beats every 15 s (the LLM stack's
+``llava_plus_torch.constants.WORKER_HEART_BEAT_INTERVAL``), where the JAX
+package's 45 s outlasts the 30 s after which the controller that tool
+workers register with (``serve/controller.py``) expires a worker.
 """
 
 import os
 from enum import IntEnum
+
+from llava_plus_torch import constants as _llm
 
 SERVER_ERROR_MSG = (
     "**NETWORK ERROR DUE TO HIGH TRAFFIC. PLEASE REGENERATE OR REFRESH THIS PAGE.**"
@@ -30,7 +35,7 @@ CONTROLLER_HEART_BEAT_EXPIRATION = int(
     os.getenv("FASTCHAT_CONTROLLER_HEART_BEAT_EXPIRATION", 90)
 )
 WORKER_HEART_BEAT_INTERVAL = int(
-    os.getenv("FASTCHAT_WORKER_HEART_BEAT_INTERVAL", 45)
+    os.getenv("FASTCHAT_WORKER_HEART_BEAT_INTERVAL", _llm.WORKER_HEART_BEAT_INTERVAL)
 )
 WORKER_API_TIMEOUT = int(os.getenv("FASTCHAT_WORKER_API_TIMEOUT", 100))
 WORKER_API_EMBEDDING_BATCH_SIZE = int(

@@ -326,15 +326,28 @@ def test_fold_and_annotate_the_fake_tools_responses(api):
         try:
             folded, artifacts = o.fold_tool_response(api, raw, session)
         except TypeError as e:
-            # the OCR schema's polygon boxes fail the rounding in both copies
             results.append(("TypeError", str(e)))
             continue
         msg = o.build_round2_message(api, folded, "  <image>find the cat ")
         annotated = o.annotate_result(img, folded, artifacts)
         results.append((folded, artifacts, dataclasses.asdict(session), msg,
                         _pixels(annotated)))
-    assert results[0] == results[1]
-    assert (results[0][0] == "TypeError") == (api in ("ocr", "easyocr"))
+    if api not in ("ocr", "easyocr"):
+        assert results[0] == results[1]
+        return
+    # the OCR schema's polygon boxes fail the JAX copy's rounding; the port
+    # rounds at any depth and drops easyocr's boxes and scores first
+    assert results[0][0] == "TypeError"
+    folded, artifacts, _, msg, annotated = results[1]
+    assert folded["texts"] == ["HELLO"] and artifacts == {}
+    assert "HELLO" in msg and msg.startswith(f"{api} model outputs:")
+    if api == "easyocr":
+        assert set(folded) == {"texts"} and annotated is None
+    else:
+        assert folded["boxes"] == [[[0.0, 0.0], [100.0, 0.0], [100.0, 20.0], [0.0, 20.0]]]
+        assert folded["scores"] == [0.99]
+        assert annotated is not None and annotated[0] == img.size
+        assert annotated[2] != _pixels(img)[2]
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -568,9 +581,74 @@ def test_fake_tool_worker_and_clients_equal():
             outs.append(w.generate_gate({}))
         assert json.loads(json.dumps(outs[:2])) == json.loads(json.dumps(outs[2:]))
     assert tt.CANNED_PARAMS == jt.CANNED_PARAMS
-    names = [n for n in vars(jc) if n.isupper()]
+    # every constant equal but the heartbeat, which the port beats inside
+    # the controller's expiry (test_tool_worker_heartbeat_inside_expiry)
+    names = [n for n in vars(jc) if n.isupper() and n != "WORKER_HEART_BEAT_INTERVAL"]
     assert {n: getattr(tc, n) for n in names} == {n: getattr(jc, n) for n in names}
     assert {e.name: int(e) for e in tc.ErrorCode} == {e.name: int(e) for e in jc.ErrorCode}
+    assert (jc.WORKER_HEART_BEAT_INTERVAL, tc.WORKER_HEART_BEAT_INTERVAL) == (45, 15)
+
+
+def test_tool_worker_heartbeat_inside_expiry(monkeypatch):
+    """A tool worker stays registered with the port's controller. The JAX
+    copy's tool workers beat every 45 s against its controller's 30 s
+    expiry (kept there); the port's beat at its LLM workers' 15 s. Live,
+    scaled down: a controller that expires a worker after ``E`` seconds and
+    a tool worker beating at the port's default ratio keep the tool in
+    ``/list_models`` at every poll across four expiry windows."""
+    import threading
+
+    from aiohttp import web
+
+    jconst, tconst = both("constants")
+    jc, tc = both("serve.tool_workers.constants")
+    assert jc.WORKER_HEART_BEAT_INTERVAL > jconst.CONTROLLER_HEART_BEAT_EXPIRATION
+    assert tc.WORKER_HEART_BEAT_INTERVAL < tconst.CONTROLLER_HEART_BEAT_EXPIRATION
+    ctrl = importlib.import_module("llava_plus_torch.serve.controller")
+    base = importlib.import_module("llava_plus_torch.serve.tool_workers.base")
+    fake = importlib.import_module("llava_plus_torch.serve.tool_workers.fake_tool_worker")
+    import requests
+
+    E = 0.8
+    controller = ctrl.Controller("shortest_queue", heartbeat_expiration=E)
+    assert controller.heartbeat_expiration == E
+    loop = asyncio.new_event_loop()
+    runner = web.AppRunner(ctrl.build_app(controller))
+    started = threading.Event()
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+
+    def run():
+        asyncio.set_event_loop(loop)
+        loop.run_until_complete(runner.setup())
+        loop.run_until_complete(web.TCPSite(runner, "127.0.0.1", port).start())
+        started.set()
+        loop.run_forever()
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    assert started.wait(10)
+    url = f"http://127.0.0.1:{port}"
+    assert base.WORKER_HEART_BEAT_INTERVAL == tc.WORKER_HEART_BEAT_INTERVAL
+    monkeypatch.setattr(base, "WORKER_HEART_BEAT_INTERVAL", tc.WORKER_HEART_BEAT_INTERVAL * E
+                        / tconst.CONTROLLER_HEART_BEAT_EXPIRATION)
+    worker = fake.FakeToolWorker(url, "http://127.0.0.1:9", ["ocr"])
+    try:
+        seen = []
+        t_end = time.time() + 4 * E
+        while time.time() < t_end:
+            seen.append(requests.post(url + "/list_models", timeout=5).json()["models"])
+            time.sleep(0.05)
+        assert len(seen) > 20 and all(m == ["ocr"] for m in seen), seen
+    finally:
+        worker._stop.set()
+        controller.stop()
+        asyncio.run_coroutine_threadsafe(runner.cleanup(), loop).result(10)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(10)
 
 
 def test_tool_test_message_encodes_equal(tmp_path):

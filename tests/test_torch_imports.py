@@ -38,6 +38,16 @@ for name in ("serve.controller", "serve.orchestrator", "serve.annotation", "serv
              "serve.tool_workers.test_message", "utils.misc", "utils.demo_assets",
              "tools.generate_grounding_data", "tools.planted"):
     assert "llava_plus_torch." + name in names, name
+# the eval harness: the counterpart of each of the JAX package's 21 modules
+EVAL = ("__init__ common eval_gpt_review eval_gpt_review_bench eval_gpt_review_visual eval_pope "
+        "eval_science_qa eval_science_qa_gpt4 eval_science_qa_gpt4_requery eval_textvqa "
+        "generate_webpage_data_from_table m4c_evaluator model_qa model_vqa model_vqa_loader "
+        "model_vqa_mmbench model_vqa_qbench model_vqa_science qa_baseline_gpt35 run_llava "
+        "summarize_gpt_review").split()
+assert len(EVAL) == 21
+for name in EVAL:
+    assert ("llava_plus_torch.eval" if name == "__init__"
+            else "llava_plus_torch.eval." + name) in names + ["llava_plus_torch.eval"], name
 for name in names:
     importlib.import_module(name)
 
@@ -61,6 +71,10 @@ for cfg in (tiny_llava_config(), tiny_llava_mpt_config()):
     img = torch.randn(1, 28, 28, 3).numpy()
     text = list(gen.stream("<image>\ndescribe it", img, max_new_tokens=4))
     assert text and len(gen._last_output_ids) >= 1
+    # the finished generate.py: generate and beam search (3 beams)
+    assert gen.generate("<image>\ndescribe it", img, max_new_tokens=4).completion_tokens >= 1
+    assert len(gen.beam_search("<image>\ndescribe it", img, num_beams=3,
+                               max_new_tokens=4).output_ids) >= 1
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
 assert not bad, bad
 assert build._lib is None
@@ -346,3 +360,45 @@ def test_prefix_hashing_and_wire_framing_match_jax():
                 == jax_pc.page_keys(toks, spans, 576, 128, **kw))
     payload = {"text": "hi \u00e9", "error_code": 0}
     assert protocol.encode_chunk(payload) == jax_protocol.encode_chunk(payload)
+
+
+def test_eval_scorer_copies_give_what_the_originals_give():
+    """The port's copies of the JAX package's framework-free eval modules
+    (answer normalisation, VQA accuracies, POPE, the ScienceQA letter
+    parser, the GPT-judge score parser, chunking) on seeded inputs."""
+    import importlib
+
+    def both(name):
+        return (importlib.import_module(f"llava_plus_tpu.eval.{name}"),
+                importlib.import_module(f"llava_plus_torch.eval.{name}"))
+
+    rng = np.random.default_rng(5)
+    words = ["A Dog!", "two", "isnt", "the answer", "1,000", "cat.", "it's", "ten", "no",
+             "Yes, there is.", "three dogs", "a cat's toy", "100%"]
+    jm, tm = both("m4c_evaluator")
+    assert [tm.EvalAIAnswerProcessor()(w) for w in words] == \
+        [jm.EvalAIAnswerProcessor()(w) for w in words]
+    preds = [{"pred_answer": str(rng.choice(words)),
+              "gt_answers": [str(w) for w in rng.choice(words, 10)]} for _ in range(30)]
+    assert tm.TextVQAAccuracyEvaluator().eval_pred_list(preds) == \
+        jm.TextVQAAccuracyEvaluator().eval_pred_list(preds)
+    jt, tt = both("eval_textvqa")
+    for prompt in ("What is it?\nAnswer briefly.", "OCR tokens: a b Question: Why? Short answer:",
+                   "Reference OCR token: x\nWhat?\nAnswer."):
+        assert tt.prompt_processor(prompt) == jt.prompt_processor(prompt)
+    js, ts = both("eval_science_qa")
+    for pred in ("A", "C", "F", "Z"):
+        assert ts.get_pred_idx(pred, ["a", "b", "c"], list("ABCDE")) == \
+            js.get_pred_idx(pred, ["a", "b", "c"], list("ABCDE"))
+    jr, tr = both("eval_science_qa_gpt4_requery")
+    for text in ("The answer is B.", "no", "The answer is A. The answer is C."):
+        assert tr.parse_answer(text) == jr.parse_answer(text)
+    jg, tg = both("eval_gpt_review")
+    for review in ("8 6\nok", "7,9\nok", "nine\n", "1 2 3"):
+        assert tg.parse_score(review) == jg.parse_score(review)
+    jc, tc = both("common")
+    lst = rng.integers(0, 100, 23).tolist()
+    for n in (1, 2, 5, 23):
+        assert tc.split_list(lst, n) == jc.split_list(lst, n)
+        assert [tc.get_chunk(lst, n, k) for k in range(n + 1)] == \
+            [jc.get_chunk(lst, n, k) for k in range(n + 1)]
