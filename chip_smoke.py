@@ -47,7 +47,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    and 8 query tokens a row at 16 slots of 2048, bf16 and int8, MHA with and
    without ALiBi, GQA at 8 tokens; the library call for bf16 is sdpa with a
    boolean mask), and the int8 and int4 matmuls on wqkv and w_down also at
-   a 16-slot verify step's 80 and 128 rows;
+   a 16-slot verify step's 80 and 128 rows; the two W8A8 kernels bit for
+   bit against their plain versions (the row quantize at 768 and 3,072 rows
+   of K = 4096 and 11008, bf16 and f32; the epilogue at the 7B's N), each
+   through its wrapper and alone, and the W8A8 product at wqkv and w_down
+   beside the weight-only int8 kernel and bf16 ``torch.matmul``;
 4. a narrow LLaMA (head dim 128, GQA) on the card against the same weights
    on the CPU plain path: 16 greedy tokens, and the logits of the prefill and
    of every decode step, with bf16 weights (bf16 and int8 KV) and with fused
@@ -84,7 +88,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 9. LLaVA-1.5-7B stage 1 through the port's ``train()`` with the
    ``scripts/v1_5/pretrain.sh`` recipe (projector only, batch 32) on 96
    synthetic image-caption records: 3 steps, frozen bytes, the
-   ``mm_projector.bin`` export and the launch counts;
+   ``mm_projector.bin`` export and the launch counts; then one more step
+   eager and through ``make_train_step(..., mesh=make_mesh(1, 1, 1))`` on a
+   one-rank NCCL group (every leaf a DTensor, the flash kernels through
+   the mesh's local wrapper, loss, grad_norm and projector against the
+   eager step's, host ms of both);
 10. LLaVA-1.5-7B stage 2 through ``make_train_step`` with the
    ``scripts/v1_5/finetune.sh`` recipe reduced to batch 4 with gradient
    accumulation 2, on 24 synthetic multi-turn image records of 700-2048
@@ -173,6 +181,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    4-token budget (a differing selection only where the oracle's closest
    margin is within twice that bound); load seconds, answers/s, seconds a beam
    answer, the beam reorder's ms a step and peak device memory;
+20. (run after 6, on its int8 fused tree) the dense engine with
+   ``w8a8=True`` (16 slots, int8 KV): a 4-image-prompt prefill with and
+   without W8A8 alternated (CUDA events) and their first-token logits
+   within a bound stated beforehand, bursts of 16 image prompts x 32
+   tokens on a weight-only and on the W8A8 engine (peak memory each; the
+   W8A8 kernels once a decoder product a prefill, the int8 kernel at
+   decode rows only), then a plain 256-row product outside the engine,
+   which must be the weight-only kernel's bit for bit;
 16. (run after 5, before 6, which quantizes its weights) the 7B tree of
    phase 5 exported as an HF checkpoint under ``.smoke/`` (one
    ``model.safetensors``, 14.1 GB, with a word-level tokenizer that names
@@ -244,12 +260,16 @@ PAGED_GENERAL_ALIBI_REPLACES = "llava_plus_tpu/ops/paged_attention.py:209"
 # the use_alibi branches of the Pallas backward kernels (MPT training)
 DKV_ALIBI_REPLACES = "llava_plus_tpu/ops/flash_attention.py:258"
 DQ_ALIBI_REPLACES = "llava_plus_tpu/ops/flash_attention.py:348"
+# W8A8's quantize and epilogue stand in for what XLA fuses in the JAX
+# package (no Pallas kernel there)
+W8A8_REPLACES = "llava_plus_tpu/ops/quant.py:146 _w8a8_matmul"
 
 # Published peaks of one H100 SXM (dense): HBM3 bytes/s and bf16 tensor-core
 # flop/s. A kernel's bound is the larger of its bytes over the first and its
 # flops over the second.
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
+INT8_OPS_S = 1979e12   # int8 tensor-core operations a second
 
 
 def log(phase, msg):
@@ -277,10 +297,11 @@ def within(kernel_err, ref_err):
     return kernel_err <= max(2.5 * ref_err, 2e-3)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, ops_s=BF16_FLOPS_S):
     """The least time (ms) the card could take to move ``nbytes`` and do
-    ``flops`` bf16 operations, and which of the two bounds it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / BF16_FLOPS_S * 1e3
+    ``flops`` operations at ``ops_s`` (bf16 by default), and which of the
+    two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / ops_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -862,6 +883,145 @@ def phase_quant_kernels():
     return stats
 
 
+# W8A8 (the engine's int8 activations for prefill rows): the quantize at a
+# prefill's rows and LLaVA-1.5-7B's contraction dims, the epilogue at its
+# output dims, the product at wqkv and w_down
+W8A8_ROWS = (768, 3072)
+W8A8_K = (4096, 11008)
+W8A8_N = (12288, 22016, 4096, 32000)
+W8A8_PRODUCTS = (("wqkv", 4096, 12288), ("w_down", 11008, 4096))
+
+
+def _stream():
+    import torch
+
+    return torch.cuda.current_stream().cuda_stream
+
+
+def phase_w8a8_kernels():
+    """The two W8A8 kernels bit for bit against their plain versions (the
+    int8 rows, the row scales, the epilogue outputs), each timed through
+    its wrapper and alone (the C entry point on preallocated buffers), with
+    the plain version and the bound; then the whole W8A8 product (quantize,
+    ``torch._int_mm`` on the K-major copy, epilogue) against its plain
+    version (the int32 product in f64, exact) beside the weight-only int8
+    kernel and the bf16 ``torch.matmul`` on the same weight."""
+    import torch
+    from llava_plus_torch.kernels import build
+    from llava_plus_torch.ops import quant
+    from llava_plus_torch.ops import quant_matmul as qm
+    from llava_plus_torch.ops import w8a8 as w8
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    lib = build.lib()
+    quant_rows, epi_rows, products = {}, {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for R in W8A8_ROWS:
+            for K in W8A8_K:
+                x = (torch.randn(R, K, generator=gen, device="cuda")
+                     * torch.rand(R, 1, generator=gen, device="cuda") * 8).to(dtype)
+                x[1] = 0.0                                   # the 1e-6 floor
+                xq, sc = w8.w8a8_quantize_rows(x)
+                pq, ps = w8.quantize_rows_reference(x)
+                same = torch.equal(xq, pq) and torch.equal(sc, ps)
+                oq, os_ = torch.empty_like(xq), torch.empty_like(sc)
+                ms = time_ms(lambda: w8.w8a8_quantize_rows(x))
+                alone = time_ms(lambda: lib.w8a8_quantize_rows(
+                    x.data_ptr(), int(dtype == torch.bfloat16), R, K, K, oq.data_ptr(),
+                    os_.data_ptr(), _stream()))
+                plain_ms = time_ms(lambda: w8.quantize_rows_reference(x))
+                b = bound(R * K * (x.element_size() + 1) + 4 * R, 0)
+                log("kernels", f"w8a8_quantize_rows {str(dtype)[6:]} R={R} K={K}: int8 rows and "
+                               f"scales equal the plain version's {same}; {ms:.4f} ms "
+                               f"(alone {alone:.4f}) vs plain {plain_ms:.4f} ms, bound "
+                               f"{b['bound_ms']:.4f} ms ({b['bound_by']}) -> "
+                               f"{'ok' if same else 'FAIL'}")
+                if not same:
+                    raise AssertionError(f"w8a8_quantize_rows {dtype} R={R} K={K} differs from "
+                                         "its plain version")
+                quant_rows[str(dtype)[6:], R, K] = {"max_abs_err": 0.0, "ms": ms,
+                                                   "alone_ms": alone, "plain_ms": plain_ms, **b}
+    for R in W8A8_ROWS:
+        for N in W8A8_N:
+            acc = torch.randint(-2 ** 22, 2 ** 22, (R, N), generator=gen, device="cuda",
+                                dtype=torch.int32)
+            rs = torch.rand(R, generator=gen, device="cuda") * 0.05
+            cs = torch.rand(1, N, generator=gen, device="cuda") * 1e-3
+            out = w8.w8a8_epilogue(acc, rs, cs, torch.bfloat16)
+            same = torch.equal(out, w8.epilogue_reference(acc, rs, cs, torch.bfloat16))
+            buf = torch.empty_like(out)
+            ms = time_ms(lambda: w8.w8a8_epilogue(acc, rs, cs, torch.bfloat16))
+            alone = time_ms(lambda: lib.w8a8_epilogue(
+                acc.data_ptr(), rs.data_ptr(), cs.data_ptr(), buf.data_ptr(), 0, R, N,
+                build.sm_count(acc.device), _stream()))
+            plain_ms = time_ms(lambda: w8.epilogue_reference(acc, rs, cs, torch.bfloat16))
+            b = bound(R * N * (4 + 2) + 4 * (R + N), 0)
+            log("kernels", f"w8a8_epilogue R={R} N={N} -> bf16: equal to the plain version "
+                           f"{same}; {ms:.4f} ms (alone {alone:.4f}) vs plain {plain_ms:.4f} ms, "
+                           f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}) -> "
+                           f"{'ok' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError(f"w8a8_epilogue R={R} N={N} differs from its plain version")
+            epi_rows[R, N] = {"max_abs_err": 0.0, "ms": ms, "alone_ms": alone,
+                              "plain_ms": plain_ms, **b}
+    for name, K, N in W8A8_PRODUCTS:
+        w = torch.randn(K, N, generator=gen, device="cuda").mul_(0.02).bfloat16()
+        qw = quant.quantize_array(w)
+        q, s = qw[quant.QKEY], qw[quant.SKEY]
+        qt = q.t().contiguous()
+        w16 = qm.dequantize(8, q, s, torch.bfloat16)
+        w64 = qm.dequantize(8, q, s, torch.float64)
+        del w, qw
+        for R in W8A8_ROWS:
+            x = torch.randn(R, K, generator=gen, device="cuda").bfloat16()
+
+            def plain_product():
+                xq_, rs_ = w8.quantize_rows_reference(x)
+                return w8.epilogue_reference(w8.int_mm_reference(xq_, q), rs_, s,
+                                             torch.bfloat16)
+
+            out = w8.w8a8_product(x, q, s, torch.bfloat16, qt)
+            same = torch.equal(out, plain_product())
+            truth = x.double() @ w64
+            top = truth.abs().max().item()
+            err = (out.double() - truth).abs().max().item() / top
+            wo_err = (qm.matmul_int8(x, q, s).double() - truth).abs().max().item() / top
+            del truth
+            xq, _ = w8.w8a8_quantize_rows(x)
+            ms = time_ms(lambda: w8.w8a8_product(x, q, s, torch.bfloat16, qt))
+            mm_ms = time_ms(lambda: torch._int_mm(xq, qt.t()))
+            rowmajor_ms = time_ms(lambda: torch._int_mm(xq, q), iters=5)
+            plain_ms = time_ms(plain_product, iters=3, warmup=1)
+            int8_ms = time_ms(lambda: qm.matmul_int8(x, q, s))
+            bf16_ms = time_ms(lambda: torch.matmul(x, w16))
+            b = bound(R * K * 2 + K * N + 4 * N + R * N * 2, 2 * R * K * N, INT8_OPS_S)
+            log("kernels", f"w8a8 product {name} R={R} K={K} N={N}: equal to the plain version "
+                           f"{same}, rel err {err:.3e} against the f64 product of the "
+                           f"dequantized weight (weight-only kernel {wo_err:.3e}); {ms:.4f} ms "
+                           f"({2 * R * K * N / ms / 1e9:.1f} TOP/s; _int_mm alone "
+                           f"{mm_ms:.4f} ms on the K-major copy, {rowmajor_ms:.4f} ms on the "
+                           f"row-major weight) vs plain {plain_ms:.4f} ms; int8_wgmma_kernel "
+                           f"{int8_ms:.4f} ms, bf16 torch.matmul {bf16_ms:.4f} ms; bound "
+                           f"{b['bound_ms']:.4f} ms ({b['bound_by']}) -> "
+                           f"{'ok' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError(f"the w8a8 product {name} R={R} differs from its plain "
+                                     "version")
+            products[name, R] = {"ms": ms, "int_mm_ms": mm_ms, "int_mm_rowmajor_ms": rowmajor_ms,
+                                 "plain_ms": plain_ms, "int8_wgmma_ms": int8_ms,
+                                 "bf16_matmul_ms": bf16_ms, "rel_err": err, **b}
+    head_q = quant_rows["bfloat16", 768, 4096]
+    head_e = epi_rows[768, 12288]
+    extra = {f"{name}_r{R}_{k}": v for (name, R), row in products.items()
+             for k, v in row.items() if k != "bound_by"}
+    return {
+        "w8a8_quantize_rows": dict(head_q, shape="bf16 R=768 K=4096", library_ms=None,
+                                   r3072_k11008_ms=quant_rows["bfloat16", 3072, 11008]["ms"]),
+        "w8a8_epilogue": dict(head_e, shape="R=768 N=12288 -> bf16", library_ms=None,
+                              r3072_n12288_ms=epi_rows[3072, 12288]["ms"], **extra),
+    }
+
+
 def _paged_inputs(Hkv, Tq, quantized, gen, rng, B=16, H=32, P=128, pages_per_slot=16,
                   edges=False, max_past=None):
     """A paged kernel's inputs at a 7B-wide batch: B slots of
@@ -1165,7 +1325,8 @@ def phase_kernels():
             "decode_attention[alibi]": dict(dec_alibi_bf16, max_abs_err=max(
                 dec_alibi_bf16["max_abs_err"], dec_alibi_int8["max_abs_err"])),
             **phase_quant_kernels(),
-            **phase_paged_kernels(gen, rng)}
+            **phase_paged_kernels(gen, rng),
+            **phase_w8a8_kernels()}
 
 
 def phase_verify_decode():
@@ -2597,6 +2758,201 @@ def _quant_regimes(phase, kind, before, total):
     if min(got) <= 0 or sum(got) != total:
         raise AssertionError(f"{phase}: the {kind} regimes ran {got} of {total} launches")
     return got
+
+
+# ---------------------------------------------------------------------------
+# 20. W8A8 serving on phase 6's int8 tree
+# ---------------------------------------------------------------------------
+
+# The bound on the first-token logits of the W8A8 engine against the
+# weight-only engine's, as the largest |difference| over the largest |logit|.
+# On the CPU (random bf16 weights, int8 fused, 4 prompts of 512 tokens) the
+# LLaMA at the 7B's width (hidden 4096, MLP 11008, 32 heads) gave 0.060 at 2
+# layers and 0.095 at 4; 0.25 leaves room for 32. (A first bound of 0.1, from
+# the same model 512 wide, 0.022-0.031 at 2-32 layers, was exceeded on the
+# card at 0.1208: the width, not the depth, sets the error.) Rows whose
+# weight-only top-2 gap exceeds twice the largest difference must keep
+# their argmax.
+W8A8_LOGIT_TOL = 0.25
+W8A8_PROMPTS = 16
+W8A8_NEW = 32
+
+
+def _w8a8_prompts(rng, size, n):
+    """``n`` image prompts of 762 fused tokens (T = 768 a prompt) with
+    preprocessed pixels."""
+    return [("<image>\n" + " ".join(f"w{j}x{i}" for i in range(184)),
+             rng.normal(size=(1, size, size, 3)).astype(np.float32)) for j in range(n)]
+
+
+def _w8a8_burst(engine, prompts):
+    """Every prompt submitted at once, 32 greedy tokens each; returns the
+    engine's (prefill dispatches, decode steps) over the burst and its
+    seconds."""
+    from llava_plus_torch.serve.engine import Request
+
+    e0 = (engine.prefill_dispatches, engine.decode_steps)
+    t0 = time.perf_counter()
+    reqs = [engine.submit(Request(prompt=p, images=img, max_new_tokens=W8A8_NEW,
+                                  temperature=0.0)) for p, img in prompts]
+    texts = [engine.drain(r) for r in reqs]
+    dt = time.perf_counter() - t0
+    if not all(texts):
+        raise AssertionError("a W8A8 burst request came back empty")
+    return engine.prefill_dispatches - e0[0], engine.decode_steps - e0[1], dt
+
+
+def phase_w8a8_serving(smi, params):
+    """The dense engine with ``w8a8=True`` on phase 6's int8 fused 7B tree
+    (16 slots, int8 KV): the prefill of 4 image prompts with and without
+    W8A8, alternated on the same engine (CUDA-event ms), their first-token
+    logits against each other, a burst of 16 image prompts x 32 tokens on a
+    weight-only engine and on the W8A8 engine (peak device memory each;
+    the W8A8 launches once a decoder product a prefill, the int8 kernel at
+    decode rows only), then a plain 256-row product in this thread, which
+    must be the weight-only kernel's, bit for bit."""
+    import torch
+    from llava_plus_torch.data import DebugTokenizer
+    from llava_plus_torch.generate import prepare_multimodal_request
+    from llava_plus_torch.models.configs import LLAVA_15_7B
+    from llava_plus_torch.ops import quant
+    from llava_plus_torch.ops import quant_matmul as qm
+    from llava_plus_torch.ops import w8a8 as w8
+    from llava_plus_torch.ops.decode_attention import decode_attention
+    from llava_plus_torch.ops.flash_attention import flash_attention
+    from llava_plus_torch.serve.engine import BatchedEngine
+
+    cfg, L = LLAVA_15_7B, LLAVA_15_7B.text.num_hidden_layers
+    tok = DebugTokenizer(vocab_size=cfg.text.vocab_size)
+    tok.eos_token_id = -1   # every request runs its 32 tokens
+    prompts = _w8a8_prompts(np.random.default_rng(20), cfg.vision.image_size, W8A8_PROMPTS)
+    kw = dict(max_slots=16, max_seq_len=2048, decode_chunk=4, cache_dtype=torch.int8)
+    kernels = (w8.w8a8_quantize_rows, w8.w8a8_epilogue, w8.w8a8_int_mm)
+
+    # the weight-only engine's burst and peak
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = BatchedEngine(params, cfg, tok, **kw)
+    try:
+        n0 = [k.launches for k in kernels]
+        wo = _w8a8_burst(engine, prompts)
+        if [k.launches for k in kernels] != n0:
+            raise AssertionError("the weight-only engine launched a W8A8 kernel")
+    finally:
+        engine.stop()
+    torch.cuda.synchronize()
+    peak_wo = torch.cuda.max_memory_allocated() / 2 ** 30
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = BatchedEngine(params, cfg, tok, w8a8=True, **kw)   # adds the K-major copies
+    copies = sum(w[quant.QTKEY].numel() for w in _quantized(params["language_model"]["layers"])
+                 if quant.QTKEY in w) / 2 ** 30
+    log("w8a8", f"engine built in {time.perf_counter() - t0:.1f} s; K-major int8 copies of the "
+                f"decoder matrices: {copies:.2f} GiB")
+    try:
+        # a 4-prompt prefill with and without W8A8 on the same engine and tree
+        batch, _ = prepare_multimodal_request(
+            cfg, tok, [p for p, _ in prompts[:4]], [img for _, img in prompts[:4]],
+            max_seq_len=2048, device="cuda", prefill_bucket=engine.prefill_bucket)
+        T = int(batch.tokens.shape[1])
+
+        def prefill(on):
+            cache = engine._make_cache(batch=4, seq_len=T, force_dense=True)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with quant.w8a8_scope(on):
+                start.record()
+                logits = engine._prefill(batch, cache)
+                end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end), logits.float()
+
+        prefill(False)
+        prefill(True)
+        times = {False: [], True: []}
+        logits = {}
+        for on in (False, True, True, False, False, True, True, False):
+            before = ([k.launches for k in kernels], qm.matmul_int8.prefill_launches)
+            ms, logits[on] = prefill(on)
+            times[on].append(ms)
+            got = ([k.launches - b for k, b in zip(kernels, before[0])],
+                   qm.matmul_int8.prefill_launches - before[1])
+            want = ([4 * L] * 3, 0) if on else ([0] * 3, 4 * L)
+            if got != want:
+                raise AssertionError(f"W8A8 {on}: the prefill launched {got}, want {want}")
+        a, b = logits[True], logits[False]
+        rel = float((a - b).abs().max() / b.abs().max())
+        top2 = b.topk(2, dim=-1).values
+        wide = (top2[:, 0] - top2[:, 1]) > 2 * float((a - b).abs().max())
+        agree = (a.argmax(-1) == b.argmax(-1))
+        log("w8a8", f"4-prompt prefill (T = {T}, {4 * T} rows): weight-only "
+                    f"{np.mean(times[False]):.2f} ms, W8A8 {np.mean(times[True]):.2f} ms "
+                    f"(CUDA events, mean of 4 each, alternated: {times}); first-token logits "
+                    f"largest |diff| / largest |logit| {rel:.4f} (bound {W8A8_LOGIT_TOL}), "
+                    f"equal argmax {int(agree.sum())} of 4, rows with a top-2 gap past twice "
+                    f"the largest diff {int(wide.sum())} (all must agree); card {smi}")
+        if rel > W8A8_LOGIT_TOL or not bool(agree[wide].all()):
+            raise AssertionError("W8A8 first-token logits left their bound")
+
+        # the burst
+        flash_attention.launches = decode_attention.launches = 0
+        n0 = [k.launches for k in kernels]
+        r0 = _regimes(qm.matmul_int8)
+        dp, ds, dt = _w8a8_burst(engine, prompts)
+        launches = dict(zip(("quantize", "epilogue", "int_mm"),
+                            (k.launches - n for k, n in zip(kernels, n0))))
+        regimes = tuple(b - a for a, b in zip(r0, _regimes(qm.matmul_int8)))
+        launches.update(flash=flash_attention.launches, decode=decode_attention.launches)
+        want = dict(quantize=4 * L * dp, epilogue=4 * L * dp, int_mm=4 * L * dp, flash=L * dp,
+                    decode=L * ds)
+        log("w8a8", f"burst of {len(prompts)} image prompts x {W8A8_NEW} tokens: {dp} prefill "
+                    f"dispatches, {ds} decode steps in {dt:.2f} s (weight-only engine: "
+                    f"{wo[0]} dispatches, {wo[1]} steps in {wo[2]:.2f} s); launches {launches} "
+                    f"(want {want}); int8 kernel at decode rows {regimes[0]} (want "
+                    f"{(4 * L + 1) * ds + dp}: decode steps and each prefill's head), at "
+                    f"prefill rows {regimes[1]} (want 0)")
+        if launches != want or regimes != ((4 * L + 1) * ds + dp, 0):
+            raise AssertionError("the W8A8 engine's launch counts are off")
+    finally:
+        engine.stop()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del engine
+    for w in _quantized(params["language_model"]["layers"]):
+        w.pop(quant.QTKEY, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("w8a8", f"peak device memory: W8A8 engine {peak:.2f} GiB, weight-only engine "
+                f"{peak_wo:.2f} GiB; card {smi}")
+    # the engine's W8A8 did not leak into this thread
+    wqkv = {k: v[0] for k, v in params["language_model"]["layers"]["attn"]["wqkv"].items()}
+    x = torch.randn(256, wqkv[quant.QKEY].shape[0], device="cuda").bfloat16()
+    n0 = w8.w8a8_quantize_rows.launches
+    same = torch.equal(quant.matmul(x, wqkv), qm.matmul_int8(x, wqkv[quant.QKEY],
+                                                             wqkv[quant.SKEY]))
+    log("w8a8", f"a plain 256-row product after the engine: the weight-only kernel's bits "
+                f"{same}, W8A8 launches {w8.w8a8_quantize_rows.launches - n0}")
+    if not same or w8.w8a8_quantize_rows.launches != n0:
+        raise AssertionError("the engine's W8A8 reached a product outside it")
+    return launches
+
+
+def _quantized(tree):
+    """The quantized leaves (dicts) of a tree."""
+    from llava_plus_torch.ops import quant
+
+    if quant.is_quantized(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _quantized(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _quantized(v)
 
 
 def _paged_bodies(rng, size, new_tokens):
@@ -4454,9 +4810,12 @@ def phase_train_stage1(smi):
 
     steps = []
 
+    last = {}
+
     def on_step(step, metrics, seconds, arrays):
         tokens = int((arrays["segment_ids"] > 0).sum())
         steps.append((metrics, seconds, tokens, arrays["tokens"].shape))
+        last["arrays"] = arrays
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -4499,6 +4858,92 @@ def phase_train_stage1(smi):
             or moved != len(after["mm_projector"]) or shapes != want_shapes
             or launched != want):
         raise AssertionError("7B stage 1 failed its checks")
+    mesh = _stage1_mesh_step(smi, params, cfg, last["arrays"])
+    return {k: n + mesh[k] for k, n in zip(("flash", "dkv", "dq"), launched)}
+
+
+# the mesh step's bounds against the eager step (bf16, one rank): the loss
+# and grad_norm within rtol 1e-3; the projector's elements within 2 lr of
+# the eager step's (Adam moves an element by about lr, in the direction of
+# its gradient's sign, which the summation order decides near 0) and at
+# least 99.9% of them bit for bit
+MESH_RTOL = 1e-3
+MESH_SAME_SHARE = 0.999
+
+
+def _stage1_mesh_step(smi, params, cfg, arrays):
+    """One more stage-1 step on phase 9's trained 7B tree and its last
+    batch, first eager, then (the projector and the optimizer state as
+    before it) through ``make_train_step(..., mesh=make_mesh(1, 1, 1))`` on
+    a one-rank NCCL process group: every leaf a DTensor, the flash kernels
+    run through the mesh's local wrapper, the loss, grad_norm and the
+    updated projector held to the eager step's, the host ms of both. A
+    one-rank mesh moves no bytes between ranks: the multi-rank collectives
+    are the CPU tests' (tests/test_torch_mesh.py, 8 gloo ranks)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from llava_plus_torch.models.convert import per_layer, tree_map
+    from llava_plus_torch.ops.attention import attention
+    from llava_plus_torch.parallel.mesh import make_mesh
+    from llava_plus_torch.train import step as step_lib
+    from llava_plus_torch.train.optimizer import OptimizerConfig, build_optimizer
+
+    L, lr = cfg.text.num_hidden_layers, 1e-3
+    opt_cfg = OptimizerConfig(learning_rate=lr, warmup_ratio=0.0, schedule="constant",
+                              total_steps=10, train_language_model=False)
+    batch = _batch_on(arrays, "cuda")
+    saved = tree_map(lambda x: x.clone(), params["mm_projector"])
+
+    def one_step(tree, b, mesh=None):
+        p = per_layer(tree)
+        opt = build_optimizer(p, opt_cfg)
+        state = opt.init(p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step_lib.make_train_step(cfg, opt, remat=True, mesh=mesh)(p, state, b)
+        m = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        return m, (time.perf_counter() - t0) * 1e3
+
+    m_e, ms_e = one_step(params, batch)
+    proj_e = list(_leaves(tree_map(lambda x: x.clone(), params["mm_projector"])))
+    tree_map(lambda p, s: p.copy_(s), params["mm_projector"], saved)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1, 1)
+        placed = step_lib.place_params(params, mesh, cfg)
+        dtensors = all(isinstance(x, DTensor) for x in _leaves(placed))
+        _reset_counts()
+        calls = attention.mesh_calls
+        m_m, ms_m = one_step(placed, step_lib.place_batch(batch, mesh), mesh)
+        launched = _counts()
+        calls = attention.mesh_calls - calls
+        proj_m = [x.full_tensor() for x in _leaves(placed["mm_projector"])]
+        del placed
+    finally:
+        dist.destroy_process_group()
+    before = list(_leaves(saved))
+    diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(proj_m, proj_e))
+    same = (sum(int((a == b).sum()) for a, b in zip(proj_m, proj_e))
+            / sum(a.numel() for a in proj_e))
+    moved = sum(not torch.equal(a, b) for a, b in zip(proj_m, before))
+    want = (2 * L, L, L)
+    log("stage1", f"mesh step (dp, fsdp, tp) = (1, 1, 1), one NCCL rank (a one-rank mesh moves "
+                  f"no bytes between ranks; the CPU tests hold the multi-rank collectives): "
+                  f"every leaf a DTensor {dtensors}; attention through the mesh's local "
+                  f"wrapper {calls} times (want {2 * L}), flash fwd/dkv/dq {launched} (want "
+                  f"{want}); loss {m_m['loss']:.6f} vs eager {m_e['loss']:.6f}, grad_norm "
+                  f"{m_m['grad_norm']:.6f} vs {m_e['grad_norm']:.6f}; projector largest |diff| "
+                  f"{diff:.3e} (bound {2 * lr}), bit-identical share {same:.6f} (at least "
+                  f"{MESH_SAME_SHARE}), leaves moved {moved} of {len(before)}; host "
+                  f"{ms_m:.1f} ms vs eager {ms_e:.1f} ms; card {smi}")
+    if (not dtensors or calls != 2 * L or launched != want
+            or abs(m_m["loss"] - m_e["loss"]) > MESH_RTOL * abs(m_e["loss"])
+            or abs(m_m["grad_norm"] - m_e["grad_norm"]) > MESH_RTOL * abs(m_e["grad_norm"])
+            or diff > 2 * lr or same < MESH_SAME_SHARE or moved != len(before)):
+        raise AssertionError("the mesh step differs from the eager step")
     return dict(zip(("flash", "dkv", "dq"), launched))
 
 
@@ -4941,6 +5386,7 @@ def main():
     ckpt = phase_checkpoint(smi, params, keep=True)
     # int4 starts from fresh ones
     int8 = serve_engine(smi, params, "int8", n_image=8, n_text=8)
+    w8a8 = phase_w8a8_serving(smi, params)   # phase 20, on phase 6's int8 tree
     del params
     int4 = serve_engine(smi, _init_7b(dev), "int4", n_image=2, n_text=2)
     paged = serve_paged_engine(smi)
@@ -5014,6 +5460,10 @@ def main():
          mpt["paged"]["paged_decode1[alibi]"] + narrow_mpt["decode1"]),
         ("paged_attention[general,alibi]", paged_src, PAGED_GENERAL_ALIBI_REPLACES,
          narrow_mpt["general"] + spec["narrow"]["general[alibi]"]),
+        # the W8A8 engine's prefills (phase 20)
+        ("w8a8_quantize_rows", "llava_plus_torch/csrc/w8a8.cu", W8A8_REPLACES,
+         w8a8["quantize"]),
+        ("w8a8_epilogue", "llava_plus_torch/csrc/w8a8.cu", W8A8_REPLACES, w8a8["epilogue"]),
     ):
         if count <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -5022,6 +5472,9 @@ def main():
         if name in PLUS_KERNELS:
             # of which the LLaVA-Plus tool turns (phase 18)
             entries[-1]["tool_turn_launches"] = plus[PLUS_KERNELS[name]]
+        if name == "w8a8_epilogue":
+            # the int8 products between them (torch._int_mm, phase 20)
+            entries[-1]["int_mm_launches"] = w8a8["int_mm"]
         if name in ("flash_fwd", "decode_attention[bf16]"):
             # of which the eval runs (phase 19)
             entries[-1]["eval_launches"] = evals["flash" if name == "flash_fwd" else "decode"]

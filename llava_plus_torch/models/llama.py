@@ -30,6 +30,14 @@ as a list of per-layer dicts (``models/convert.py:per_layer``) so that each
 layer's weights are their own autograd leaves: a view ``w[i]`` of a stacked
 leaf would make autograd add a zero tensor the size of the whole stack into
 its gradient for every layer.
+
+Over a (dp, fsdp, tp) mesh the weights and the batch are DTensors
+(``train/step.py:place_params``): the ``constrain`` seams of the JAX
+decoder (q, k, v and the attention output over heads on ``tp``, the
+residual stream over the batch, gate and up over ``tp``, the logits over
+the batch and ``tp``) pin the activations' placements; the token gather,
+the RoPE tables and the head run on each rank's local shards
+(:func:`embed_rows`, :func:`rope_cos_sin`, :func:`head_logits`).
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from llava_plus_torch.models.configs import LlamaConfig, MptConfig
@@ -50,6 +59,7 @@ from llava_plus_torch.ops.paged_attention import (
     MAX_CHUNK, gather_pages, paged_decode_attention,
 )
 from llava_plus_torch.ops.quant import is_quantized, matmul
+from llava_plus_torch.parallel.mesh import BATCH, constrain, from_local, to_local
 
 
 # ---------------------------------------------------------------------------
@@ -410,7 +420,13 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
                  scaling_factor: float = 1.0):
     """cos/sin tables [..., head_dim] for the given positions (rotate-half
     layout). "linear" divides positions by the factor; "dynamic" is the JAX
-    package's static NTK rescaling of theta at the scaled target length."""
+    package's static NTK rescaling of theta at the scaled target length.
+    Positions as a DTensor give tables placed as they are."""
+    if isinstance(positions, DTensor):
+        tables = rope_cos_sin(positions.to_local(), head_dim, theta, scaling_type,
+                              scaling_factor)
+        return tuple(DTensor.from_local(t, positions.device_mesh, positions.placements,
+                                        run_check=False) for t in tables)
     pos = positions.float()
     if scaling_type == "linear":
         pos = pos / scaling_factor
@@ -436,10 +452,21 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return (x.float() * cos + rotated.float() * sin).to(x.dtype)
 
 
+def embed_rows(w: torch.Tensor, input_ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``w[ids]``, negative ids (the image sentinel) reading row 0. A
+    DTensor table is gathered whole and each rank reads its batch shard's
+    rows (its gradient a partial sum over the batch axes)."""
+    if isinstance(w, DTensor):
+        ids = to_local(input_ids, BATCH, None)
+        rows = to_local(w, None, None, partial=BATCH)[ids.clamp_min(0)]
+        return from_local(rows, w.device_mesh, BATCH, None, None)
+    return w[input_ids.clamp_min(0)]
+
+
 def embed_tokens(params, input_ids: torch.Tensor) -> torch.Tensor:
     """Token embeddings; negative ids (the image sentinel) read row 0, and
     the caller overwrites those positions with image features."""
-    return params["embed_tokens"][input_ids.clamp_min(0)]
+    return embed_rows(params["embed_tokens"], input_ids)
 
 
 # ---------------------------------------------------------------------------
@@ -547,9 +574,10 @@ def _layer_forward(lp, h, cos, sin, segment_ids, positions, cfg: LlamaConfig,
         q, k, v = torch.split(matmul(hn, wa["wqkv"]), [H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
     else:
         q, k, v = matmul(hn, wa["wq"]), matmul(hn, wa["wk"]), matmul(hn, wa["wv"])
-    q = q.reshape(B, T, H, Dh)
-    k = k.reshape(B, T, Hkv, Dh)
-    v = v.reshape(B, T, Hkv, Dh).contiguous()  # the fused split leaves a strided view
+    q = constrain(q.reshape(B, T, H, Dh), BATCH, None, "tp", None)
+    k = constrain(k.reshape(B, T, Hkv, Dh), BATCH, None, "tp", None)
+    # the fused split leaves a strided view
+    v = constrain(v.reshape(B, T, Hkv, Dh).contiguous(), BATCH, None, "tp", None)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
@@ -572,16 +600,19 @@ def _layer_forward(lp, h, cos, sin, segment_ids, positions, cfg: LlamaConfig,
     if paged:
         staged = _stage(cache, k, v)
 
-    h = h + matmul(attn_out.reshape(B, T, H * Dh), wa["wo"])
+    attn_out = constrain(attn_out, BATCH, None, "tp", None)
+    h = constrain(h + matmul(attn_out.reshape(B, T, H * Dh), wa["wo"]), BATCH, None, None)
     hn = rms_norm(h, lp["post_attn_norm"], cfg.rms_norm_eps)
     wm = lp["mlp"]
     if "w_gateup" in wm:
         # inference-fused gate|up projection: one launch
-        gate, up = torch.split(matmul(hn, wm["w_gateup"]), [cfg.intermediate_size] * 2, dim=-1)
+        gu = constrain(matmul(hn, wm["w_gateup"]), BATCH, None, "tp")
+        gate, up = torch.split(gu, [cfg.intermediate_size] * 2, dim=-1)
     else:
-        gate, up = matmul(hn, wm["w_gate"]), matmul(hn, wm["w_up"])
+        gate = constrain(matmul(hn, wm["w_gate"]), BATCH, None, "tp")
+        up = constrain(matmul(hn, wm["w_up"]), BATCH, None, "tp")
     gate = F.silu(gate.float()).to(hn.dtype)
-    return h + matmul(gate * up, wm["w_down"]), staged
+    return constrain(h + matmul(gate * up, wm["w_down"]), BATCH, None, None), staged
 
 
 def _train_layer(lp, h, cos, sin, segment_ids, cfg: LlamaConfig):
@@ -627,7 +658,7 @@ def decoder_forward(
     ``remat`` (without a cache) keeps only each layer's input for the
     backward and recomputes the layer there.
     """
-    h = inputs_embeds
+    h = constrain(inputs_embeds, BATCH, None, None)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling_type, cfg.rope_scaling_factor)
     paged = isinstance(cache, PagedKVCache)
@@ -668,6 +699,20 @@ class _Head(torch.autograd.Function):
         return dh, dw
 
 
+def head_logits(hidden: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """f32 logits ``hidden [..., D] @ w [D, V]`` through :class:`_Head`.
+    Over DTensors each rank multiplies its batch shard by its ``tp`` shard
+    of the vocab (hidden's gradient a partial sum over ``tp``, the weight's
+    over the batch axes): logits over the batch and ``tp``."""
+    if isinstance(hidden, DTensor):
+        lead = (BATCH,) + (None,) * (hidden.dim() - 1)
+        out = head_logits(to_local(hidden, *lead, partial=("tp",)),
+                          to_local(w, None, "tp", partial=BATCH))
+        return from_local(out, hidden.device_mesh, *lead[:-1], "tp")
+    logits = _Head.apply(hidden.reshape(-1, hidden.shape[-1]), w)
+    return logits.reshape(*hidden.shape[:-1], w.shape[1])
+
+
 def lm_head(params, cfg: LlamaConfig, hidden: torch.Tensor) -> torch.Tensor:
     """f32 logits: the products of the (bf16) operands summed and kept in
     f32, as the JAX package's ``preferred_element_type=f32`` asks. On the
@@ -677,9 +722,10 @@ def lm_head(params, cfg: LlamaConfig, hidden: torch.Tensor) -> torch.Tensor:
     (the JAX package rounds the product to the activation dtype first)."""
     w = params["embed_tokens"].T if cfg.tie_word_embeddings else params["lm_head"]
     if is_quantized(w):
-        return matmul(hidden, w, out_dtype=torch.float32)
-    logits = _Head.apply(hidden.reshape(-1, hidden.shape[-1]), w)
-    return logits.reshape(*hidden.shape[:-1], w.shape[1])
+        logits = matmul(hidden, w, out_dtype=torch.float32)
+    else:
+        logits = head_logits(hidden, w)
+    return constrain(logits, BATCH, None, "tp")
 
 
 def forward(

@@ -7,6 +7,11 @@ written into the token embeddings at ``image_pos``, and positions >= T (pad
 images, truncated spans) are left out. The vision tower is frozen: it runs under
 ``torch.no_grad()`` (the JAX package's ``stop_gradient``), so training builds
 no graph for it.
+
+Over a (dp, fsdp, tp) mesh the images, the vision features and the fused
+embeddings are pinned over the batch (``("dp", "fsdp")``), the JAX
+package's ``constrain`` seams; the frozen tower (gathered whole) and the
+splice run on each rank's batch shard.
 """
 
 from __future__ import annotations
@@ -15,9 +20,12 @@ import dataclasses
 from typing import Optional, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from llava_plus_torch.models.configs import LlavaConfig, LlamaConfig, MptConfig
 from llava_plus_torch.models import clip_vit, llama, mpt, projector
+from llava_plus_torch.models.convert import tree_map
+from llava_plus_torch.parallel.mesh import BATCH, constrain, from_local, to_local
 
 
 @dataclasses.dataclass
@@ -63,9 +71,26 @@ def init_params(cfg: LlavaConfig, generator: torch.Generator, device,
 def encode_images(params, cfg: LlavaConfig, images: torch.Tensor) -> torch.Tensor:
     """[B*, H, W, 3] -> [B*, num_patches, lm_hidden]; gradients reach the
     projector, never the vision tower."""
+    images = constrain(images, BATCH, None, None, None)
     with torch.no_grad():
-        feats = clip_vit.encode(params["vision_tower"], cfg.vision, images)
-    return projector.apply(params["mm_projector"], cfg.mm_projector_type, feats)
+        if isinstance(images, DTensor):
+            # the frozen tower gathered whole, run on each rank's images
+            tower = tree_map(lambda w: to_local(w, *(None,) * w.dim()), params["vision_tower"])
+            feats = from_local(clip_vit.encode(tower, cfg.vision, images.to_local()),
+                               images.device_mesh, BATCH, None, None)
+        else:
+            feats = clip_vit.encode(params["vision_tower"], cfg.vision, images)
+    feats = constrain(feats, BATCH, None, None)
+    out = projector.apply(params["mm_projector"], cfg.mm_projector_type, feats)
+    return constrain(out, BATCH, None, None)
+
+
+def _splice(embeds, feats, image_pos):
+    """``embeds`` with ``feats[b, j]`` written at ``image_pos[b, j]`` where
+    that is < T (out of place)."""
+    T = embeds.shape[1]
+    b, j = torch.nonzero(image_pos < T, as_tuple=True)
+    return embeds.index_put((b, image_pos[b, j]), feats[b, j])
 
 
 def fuse(params, cfg: LlavaConfig, batch: MultimodalBatch) -> torch.Tensor:
@@ -75,12 +100,24 @@ def fuse(params, cfg: LlavaConfig, batch: MultimodalBatch) -> torch.Tensor:
     N = batch.images.shape[1]
     if N == 0:
         return embeds
-    b, j = torch.nonzero(batch.image_pos < T, as_tuple=True)
-    if b.numel() == 0:
-        return embeds  # no image slot lands inside T: skip the tower
+    sharded = isinstance(embeds, DTensor)
+    if sharded:
+        # every rank takes the same branch: the tower's collectives need all
+        if int((batch.image_pos < T).sum().full_tensor()) == 0:
+            return embeds
+    else:
+        b, j = torch.nonzero(batch.image_pos < T, as_tuple=True)
+        if b.numel() == 0:
+            return embeds  # no image slot lands inside T: skip the tower
     images = batch.images.reshape((B * N,) + batch.images.shape[2:])
     feats = encode_images(params, cfg, images)               # [B*N, P, D]
     feats = feats.reshape(B, N * feats.shape[1], feats.shape[2]).to(embeds.dtype)
+    if sharded:
+        # the splice on each rank's rows (data-dependent indices)
+        embeds = constrain(embeds, BATCH, None, None)
+        fused = _splice(to_local(embeds, BATCH, None, None), to_local(feats, BATCH, None, None),
+                        to_local(batch.image_pos, BATCH, None))
+        return from_local(fused, embeds.device_mesh, BATCH, None, None)
     embeds[b, batch.image_pos[b, j]] = feats[b, j]
     return embeds
 

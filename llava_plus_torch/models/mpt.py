@@ -131,7 +131,7 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 def embed_tokens(params, input_ids: torch.Tensor) -> torch.Tensor:
     """Token embeddings; negative ids (the image sentinel) read row 0."""
-    return params["wte"][input_ids.clamp_min(0)]
+    return llama.embed_rows(params["wte"], input_ids)
 
 
 def _layer(params, i: int):
@@ -279,9 +279,7 @@ def decoder_forward(
 def lm_head(params, cfg: MptConfig, hidden: torch.Tensor) -> torch.Tensor:
     """f32 logits of the head tied to ``wte`` (ref llava_mpt.py:79:
     ``F.linear(h, wte.weight)``), times ``logit_scale`` when set."""
-    w = params["wte"].T
-    logits = llama._Head.apply(hidden.reshape(-1, hidden.shape[-1]), w)
-    logits = logits.reshape(*hidden.shape[:-1], w.shape[1])
+    logits = llama.head_logits(hidden, params["wte"].T)
     if cfg.logit_scale is not None:
         logits = logits * cfg.logit_scale
     return logits

@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -208,7 +209,13 @@ def attention(
     ``autograd.Function``, ALiBi included). Calls with an additive bias
     (MPT's prefix-LM and sequence-id masks) or explicit positions, and every
     call on the CPU, take the reference, as the JAX package sends them to
-    XLA."""
+    XLA. Over DTensors (a mesh) the call runs on each rank's shard of the
+    batch and the heads (:func:`_sharded_attention`)."""
+    if isinstance(q, DTensor):
+        return _sharded_attention(q, k, v, causal=causal, bias=bias,
+                                  q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+                                  q_positions=q_positions, kv_positions=kv_positions,
+                                  softmax_scale=softmax_scale, alibi_slopes=alibi_slopes)
     if q.is_cuda and _is_flash_call(q, k, bias, q_positions, kv_positions):
         from llava_plus_torch.ops.flash_attention import flash_attention
 
@@ -224,3 +231,37 @@ def attention(
         q_positions=q_positions, kv_positions=kv_positions,
         softmax_scale=softmax_scale, alibi_slopes=alibi_slopes,
     )
+
+
+def _sharded_attention(q, k, v, *, causal, bias, q_segment_ids, kv_segment_ids, q_positions,
+                       kv_positions, softmax_scale, alibi_slopes):
+    """:func:`attention` over DTensors, the counterpart of the JAX package's
+    ``_shard_mapped_flash``: attention is pointwise over the batch (dp,
+    fsdp) and the heads (tp), so each rank runs the kernel (or, on the CPU,
+    the reference) on its local q, k, v, segment ids and slopes, with no
+    collective. An additive bias or explicit positions (no training call
+    has them) raise. Calls count in ``attention.mesh_calls``."""
+    from llava_plus_torch.kernels import build
+    from llava_plus_torch.parallel.mesh import BATCH, from_local, to_local
+
+    if bias is not None or q_positions is not None or kv_positions is not None:
+        raise NotImplementedError("attention over a mesh takes no bias or positions")
+    mesh = q.device_mesh
+    heads = (BATCH, None, "tp", None)
+    ql, kl, vl = (to_local(t, *heads) for t in (q, k, v))
+    segs = [None if s is None else to_local(s, BATCH, None)
+            for s in (q_segment_ids, kv_segment_ids)]
+    if alibi_slopes is not None:
+        names = mesh.mesh_dim_names
+        tp = names.index("tp") if "tp" in names else None
+        if isinstance(alibi_slopes, DTensor):
+            alibi_slopes = alibi_slopes.full_tensor()
+        if tp is not None:
+            alibi_slopes = alibi_slopes.chunk(mesh.size(tp))[mesh.get_local_rank(tp)].contiguous()
+    out = attention(ql, kl, vl, causal=causal, q_segment_ids=segs[0], kv_segment_ids=segs[1],
+                    softmax_scale=softmax_scale, alibi_slopes=alibi_slopes)
+    build.count_launch(attention, "mesh_calls")
+    return from_local(out, mesh, *heads)
+
+
+attention.mesh_calls = 0

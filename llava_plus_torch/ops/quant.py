@@ -20,22 +20,43 @@ the card and runs the kernels, whose gradient reaches x.
 native layout (``ops/quant_matmul.matmul_int4_native``), which no model
 path uses.
 
-Not ported: the W8A8 path (int8 activations for large row counts).
+W8A8 (JAX ``quant.py:112-163``): with it enabled, a product of at least
+``_W8A8_MIN_ROWS`` rows of a floating x by a 2-D int8 weight quantizes x by
+row and runs an int8 x int8 product (``ops/w8a8.py``), as the JAX gate
+(``quant.py:229-231``) routes it; int4 weights never take it, and a LoRA
+weight takes it through its base product. It is enabled by
+:func:`set_w8a8` or ``LLAVA_W8A8=1`` for the whole process, as in JAX, or
+inside :func:`w8a8_scope`, a context variable: the serving engine holds it
+around its own forward calls only, since the port runs eagerly and a
+process-wide switch would reach every later product (JAX reads its flag
+when a program is traced, so it reaches only the engine's programs).
+
+Over a mesh (DTensor activations) a quantized product runs on each rank's
+shards (:func:`_sharded_product`); plain products stay DTensor ops between
+fixed layouts (:func:`_sharded_plain_product`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+import contextlib
+import contextvars
+import os
+from typing import Any, Dict, Optional, Sequence
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from llava_plus_torch.ops import quant_matmul
+from llava_plus_torch.ops import quant_matmul, w8a8
 from llava_plus_torch.ops.quant_matmul import INT4_BLOCK, unpack_int4 as _unpack_int4  # noqa: F401
 from llava_plus_torch.ops.quant_matmul import pack_int4_native, unpack_int4_native  # noqa: F401
 
 QKEY = "qvalue"
 Q4KEY = "qvalue4"
 SKEY = "scale"
+# the int8 values' K-major copy ([.., N, K] contiguous) that a W8A8 engine
+# keeps beside each decoder matrix: cuBLASLt's IMMA kernels read a
+# row-major [K, N] int8 operand some six times slower (ops/w8a8.py)
+QTKEY = "qvalue_t"
 LORA_A = "lora_a"
 LORA_B = "lora_b"
 WKEY = "w"
@@ -99,10 +120,55 @@ def dequantize_array(qw: Dict[str, torch.Tensor], dtype=torch.bfloat16) -> torch
     return (qw[QKEY].to(acc) * qw[SKEY].to(acc)).to(dtype)
 
 
+_W8A8: Optional[bool] = None  # None: read LLAVA_W8A8; True / False: set_w8a8
+_W8A8_MIN_ROWS = 256
+_W8A8_SCOPE: contextvars.ContextVar[bool] = contextvars.ContextVar("llava_w8a8_scope",
+                                                                   default=False)
+
+
+def set_w8a8(enabled: bool) -> None:
+    """Enable or disable W8A8 for the whole process (over LLAVA_W8A8)."""
+    global _W8A8
+    _W8A8 = bool(enabled)
+
+
+def w8a8_enabled() -> bool:
+    """Inside a :func:`w8a8_scope`, else :func:`set_w8a8`'s choice, else
+    ``LLAVA_W8A8 == "1"``."""
+    if _W8A8_SCOPE.get():
+        return True
+    if _W8A8 is not None:
+        return _W8A8
+    return os.environ.get("LLAVA_W8A8", "0") == "1"
+
+
+@contextlib.contextmanager
+def w8a8_scope(enabled: bool = True):
+    """W8A8 on inside the block, in this thread (or task) only, when
+    ``enabled``; without it the process-wide choice holds."""
+    token = _W8A8_SCOPE.set(bool(enabled))
+    try:
+        yield
+    finally:
+        _W8A8_SCOPE.reset(token)
+
+
+def _w8a8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
+                 out_dtype=None, q_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x [..., K] @ int8 q [K, N] with per-row dynamic int8 activations (JAX
+    ``quant.py:146``): ``(xq @ q) * row scale * column scale``, through
+    :func:`ops.w8a8.matmul_w8a8`; ``q_t`` is q's K-major copy, if kept."""
+    lead, K = x.shape[:-1], x.shape[-1]
+    out = w8a8.matmul_w8a8(x.reshape(-1, K), q, scale, out_dtype=out_dtype, qw_t=q_t)
+    return out.reshape(*lead, q.shape[-1])
+
+
 def matmul(x: torch.Tensor, w, *, out_dtype=None) -> torch.Tensor:
     """x @ w for a plain or quantized w; ``out_dtype`` defaults to x's. A
     quantized product runs the int8 / int4 kernel on the card (which raises
-    for shapes it does not take) and its plain version on the CPU."""
+    for shapes it does not take) and its plain version on the CPU; with
+    W8A8 enabled, a product of at least ``_W8A8_MIN_ROWS`` rows by a 2-D
+    int8 weight runs :func:`ops.w8a8.matmul_w8a8`."""
     if isinstance(w, dict) and LORA_A in w:
         base = {k: v for k, v in w.items() if k not in (LORA_A, LORA_B)}
         y = matmul(x, base.get(WKEY, base), out_dtype=out_dtype)
@@ -111,15 +177,65 @@ def matmul(x: torch.Tensor, w, *, out_dtype=None) -> torch.Tensor:
         xa = x @ w[LORA_A].to(x.dtype)
         return y + (xa @ w[LORA_B].to(x.dtype)).to(y.dtype)
     if not is_quantized(w):
+        if isinstance(x, DTensor):
+            return _sharded_plain_product(x, w, out_dtype)
         out = x @ w
         return out if out_dtype is None else out.to(out_dtype)
+    if isinstance(x, DTensor):
+        return _sharded_product(x, w, out_dtype)
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K)
     if Q4KEY in w:
         out = quant_matmul.matmul_int4(x2, w[Q4KEY], w[SKEY], out_dtype=out_dtype)
+    elif (w[QKEY].dim() == 2 and x2.shape[0] >= _W8A8_MIN_ROWS and w8a8_enabled()
+            and x.is_floating_point()):
+        return _w8a8_matmul(x, w[QKEY], w[SKEY], out_dtype=out_dtype, q_t=w.get(QTKEY))
     else:
         out = quant_matmul.matmul_int8(x2, w[QKEY], w[SKEY], out_dtype=out_dtype)
     return out.reshape(*lead, out.shape[-1])
+
+
+def add_kmajor_copies(lm_params) -> None:
+    """Give every int8 matrix of the decoder layers (the products a prefill
+    runs at its full row count; the head runs at one row a prompt) its
+    K-major copy under ``QTKEY``, one matrix at a time, in place."""
+    def walk(t):
+        if isinstance(t, dict) and QKEY in t:
+            if QTKEY not in t:
+                t[QTKEY] = t[QKEY].transpose(-1, -2).contiguous()
+            return
+        for v in (t.values() if isinstance(t, dict) else t if isinstance(t, list) else ()):
+            walk(v)
+
+    walk(lm_params["layers"])
+
+
+def _sharded_plain_product(x: DTensor, w, out_dtype) -> DTensor:
+    """A plain product over DTensors, a DTensor op between two fixed
+    layouts: x and the output over the batch axes with their last dim
+    whole (pending sums reduced first), the weight as placed (DTensor
+    gathers it as the product needs). Without them DTensor's planner picks
+    layouts such as a split fused qkv sharded over T, and then searches
+    the backward's redistributions over the 3-axis mesh for minutes."""
+    from llava_plus_torch.parallel.mesh import BATCH, constrain
+
+    lead = (BATCH,) + (None,) * (x.dim() - 1)
+    out = constrain(constrain(x, *lead) @ w, *lead)
+    return out if out_dtype is None else out.to(out_dtype)
+
+
+def _sharded_product(x: DTensor, w, out_dtype) -> DTensor:
+    """A quantized product over DTensors: the kernels have no sharding
+    rule, so the weight is redistributed to K replicated and N over ``tp``
+    (the all-gather over fsdp that GSPMD inserts in JAX), x to its batch
+    shard with K whole, and each rank runs the kernel on its shards; the
+    output is N over ``tp`` (x's gradient a partial sum over ``tp``)."""
+    from llava_plus_torch.parallel.mesh import BATCH, from_local, to_local
+
+    lead = (BATCH,) + (None,) * (x.dim() - 1)
+    local = {k: to_local(v, None, "tp") for k, v in w.items() if k in (QKEY, Q4KEY, SKEY)}
+    out = matmul(to_local(x, *lead, partial=("tp",)), local, out_dtype=out_dtype)
+    return from_local(out, x.device_mesh, *lead[:-1], "tp")
 
 
 # Paths of the LLaMA matrices worth quantizing (stacked [L, in, out]).

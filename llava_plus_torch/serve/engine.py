@@ -46,8 +46,11 @@ When too few proposals are accepted the engine decodes plain chunks for a
 while and probes again. A sampled slot takes one token a step, drawn from
 ``counter_uniform(seed, position)`` as a plain step at that position draws.
 
-Not ported (the arguments raise): the tensor-parallel mesh and W8A8
-prefill (ROADMAP Queue 1 items 10 and 7).
+``w8a8=True`` runs the prefills' int8 products with int8 activations (the
+JAX engine's ``w8a8``), for this engine's forward calls only.
+
+Not ported (the argument raises): the tensor-parallel mesh (ROADMAP Queue 1
+item 10).
 """
 
 from __future__ import annotations
@@ -70,6 +73,7 @@ from llava_plus_torch.mm_utils import tokenizer_image_token
 from llava_plus_torch.models import llama, llava as llava_model
 from llava_plus_torch.models.configs import LlavaConfig
 from llava_plus_torch.models.llava import MultimodalBatch
+from llava_plus_torch.ops import quant
 from llava_plus_torch.serve.prefix_cache import PagePrefixCache, image_digest, page_keys
 
 logger = logging.getLogger(__name__)
@@ -311,11 +315,20 @@ class BatchedEngine:
         (paged only) shares the pages of identical prompt prefixes.
         ``speculate=k`` (at most 7: the verify chunk of k + 1 tokens is what
         the decode and paged kernels take) verifies k prompt-lookup
-        proposals a step, ``spec_chunk`` steps per dispatch."""
-        for name, value, item in (("mesh", mesh, 10), ("w8a8", w8a8, 7)):
-            if value:
-                raise NotImplementedError(f"BatchedEngine({name}=...) is not ported yet "
-                                          f"(ROADMAP Queue 1 item {item})")
+        proposals a step, ``spec_chunk`` steps per dispatch.
+        ``w8a8=True`` runs the int8 products of at least 256 rows (the
+        prefills) with int8 activations (``ops/w8a8.py``): the engine's
+        threads and :meth:`warmup` hold ``quant.w8a8_scope``, so no other
+        code of the process is switched. It gives the decoder's int8
+        matrices their K-major copies (``quant.add_kmajor_copies``, in the
+        caller's tree: as many bytes again as those matrices)."""
+        if mesh is not None:
+            raise NotImplementedError("BatchedEngine(mesh=...) is not ported yet: tensor-parallel "
+                                      "serving (ROADMAP Queue 1 item 10)")
+        self.w8a8 = bool(w8a8)
+        if self.w8a8:
+            # the IMMA product reads K-major int8 (ops/w8a8.py)
+            quant.add_kmajor_copies(params["language_model"])
         if paged and (max_seq_len % page_size or prefill_bucket % page_size):
             raise ValueError(f"max_seq_len {max_seq_len} and prefill_bucket {prefill_bucket} "
                              f"must be multiples of page_size {page_size}")
@@ -395,12 +408,20 @@ class BatchedEngine:
 
         self.cache = self._make_cache()
         self.tokens = torch.zeros(max_slots, 1, dtype=torch.int64, device=self.device)
-        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread = threading.Thread(target=self._scoped(self._loop), daemon=True)
         self._thread.start()
-        self._prefill_thread = threading.Thread(target=self._prefill_loop, daemon=True)
+        self._prefill_thread = threading.Thread(target=self._scoped(self._prefill_loop),
+                                                daemon=True)
         self._prefill_thread.start()
 
     # ------------------------------------------------------------------
+
+    def _scoped(self, fn):
+        """``fn`` run inside the engine's W8A8 scope."""
+        def run(*args, **kwargs):
+            with quant.w8a8_scope(self.w8a8):
+                return fn(*args, **kwargs)
+        return run
 
     def _make_cache(self, batch=None, seq_len=None, force_dense=False) -> llama.Cache:
         """The slot pool's cache (paged when the engine is), or with
@@ -700,6 +721,9 @@ class BatchedEngine:
         the allocator. Call on an idle engine (it writes into slot 0 without
         occupying it). Returns the seconds spent, also kept as
         ``warmup_s``."""
+        return self._scoped(self._warmup)(prompt_len, image)
+
+    def _warmup(self, prompt_len: int, image: bool) -> float:
         t0 = time.perf_counter()
         image = image and self.cfg.num_image_tokens > 0
         prompt = self._warmup_prompt(prompt_len, image)

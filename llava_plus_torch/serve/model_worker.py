@@ -95,7 +95,9 @@ class TorchBackend:
     practical). ``speculate=k`` serves with prompt-lookup speculation, k
     proposals verified a step and ``spec_chunk`` steps a dispatch, as the
     JAX worker's ``--speculate`` / ``--spec-chunk``. ``warmup_len`` > 0
-    warms the engine at that prompt length before the first request."""
+    warms the engine at that prompt length before the first request.
+    ``w8a8`` gives the engine int8 activations for its prefills (the JAX
+    worker's ``--w8a8``; the single-stream Generator ignores it, as in JAX)."""
 
     def __init__(self, params, cfg, tokenizer, image_processor=None, *,
                  device, use_engine: bool = True, max_slots: int = 8,
@@ -103,7 +105,7 @@ class TorchBackend:
                  kv_int8: bool = False, max_seq_len: Optional[int] = None,
                  paged: bool = False, pool_tokens: Optional[int] = None,
                  prefix_cache: bool = True, speculate: int = 0, spec_chunk: int = 4,
-                 warmup_len: int = 0, stream_interval: int = 1):
+                 warmup_len: int = 0, stream_interval: int = 1, w8a8: bool = False):
         if quantize not in (None, "int8", "int4"):
             raise ValueError(f"quantize must be None, 'int8' or 'int4', got {quantize!r}")
         self.cfg = cfg
@@ -125,7 +127,7 @@ class TorchBackend:
                                         decode_chunk=decode_chunk, cache_dtype=cache_dtype,
                                         paged=paged, pool_tokens=pool_tokens,
                                         prefix_cache=prefix_cache, speculate=speculate,
-                                        spec_chunk=spec_chunk)
+                                        spec_chunk=spec_chunk, w8a8=w8a8)
             if warmup_len:
                 self.engine.warmup(prompt_len=warmup_len, image=self.is_multimodal)
         else:
@@ -464,7 +466,6 @@ def build_app(worker: ModelWorker):
 
 # flags of the JAX worker whose modules the port does not have yet
 _UNPORTED = (
-    ("w8a8", bool, "--w8a8: the W8A8 prefill is not ported yet (ROADMAP Queue 1 item 7)"),
     ("tp", lambda v: v > 1, "--tp: tensor-parallel serving (the mesh) is not ported yet "
                             "(ROADMAP Queue 1 item 10)"),
 )
@@ -512,7 +513,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="prompt-lookup speculative decoding: proposals verified a "
                              "step (greedy-exact; 0 = off, at most 7)")
     parser.add_argument("--w8a8", action="store_true",
-                        help="int8 activations for the prefill matmuls (not ported yet)")
+                        help="int8 activations for the engine's int8 matmuls of 256 rows "
+                             "or more (the prefills; ignored without the engine)")
     parser.add_argument("--spec-chunk", type=int, default=4,
                         help="verify steps per dispatch (with --speculate)")
     parser.add_argument("--warmup", type=int, default=768, metavar="LEN",
@@ -591,7 +593,7 @@ def backend_for(args: argparse.Namespace, loaded) -> TorchBackend:
         paged=args.paged, pool_tokens=args.pool_tokens,
         prefix_cache=not args.no_prefix_cache, speculate=args.speculate,
         spec_chunk=args.spec_chunk, warmup_len=args.warmup,
-        stream_interval=args.stream_interval)
+        stream_interval=args.stream_interval, w8a8=args.w8a8)
 
 
 def main(argv=None):

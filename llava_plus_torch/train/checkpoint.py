@@ -14,6 +14,11 @@ port's trainer makes:
 The exporters take either layer layout of the language model (stacked
 ``[L, ...]`` leaves or the trainer's per-layer list) and give per-layer HF
 tensors on the CPU in the parameters' dtype.
+
+Over a mesh the trainer passes its trees through :func:`gathered` on every
+rank (a collective) before rank 0 writes, so a save holds the same bytes as
+a one-process run's; :func:`restore_train_state` places each loaded leaf as
+the DTensor it replaces is placed.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from pathlib import Path
 from typing import Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from llava_plus_torch.models.configs import LlavaConfig
 from llava_plus_torch.models.convert import tree_map
@@ -72,6 +78,13 @@ def latest_checkpoint(ckpt_dir) -> Optional[Path]:
     return best
 
 
+def gathered(tree):
+    """The tree with every DTensor gathered whole, leaf by leaf, to the CPU
+    (a collective: every rank of the mesh calls it); other leaves as they
+    are."""
+    return tree_map(lambda x: x.full_tensor().cpu() if isinstance(x, DTensor) else x, tree)
+
+
 def _copy_into(like, saved):
     """Copy ``saved``'s leaves into ``like``'s tensors in place (so views of
     a stacked tensor stay views); plain values come back from ``saved``."""
@@ -83,6 +96,9 @@ def _copy_into(like, saved):
         if like.shape != saved.shape:
             raise ValueError(f"checkpoint leaf {tuple(saved.shape)} does not fit "
                              f"{tuple(like.shape)}")
+        if isinstance(like, DTensor):
+            saved = distribute_tensor(saved.to(like.to_local().device), like.device_mesh,
+                                      like.placements)
         return like.copy_(saved)
     return saved
 

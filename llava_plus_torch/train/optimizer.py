@@ -23,7 +23,9 @@ writes that chain out per tensor, in optax's order of operations:
 The update is applied to the parameters in place, one tensor at a time, so
 the only temporaries are a few copies of the largest tensor (optax returns
 a new tree; a foreach pass over 6.7 B parameters would need full-size
-temporaries).
+temporaries). Over a mesh the parameters, gradients and moments are
+DTensors of one placement each: the update is elementwise on every rank's
+shard, and the clipping norm is global (:func:`global_norm`).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 # label -> key of the parameter tree
 GROUPS = {"lm": "language_model", "projector": "mm_projector", "vision": "vision_tower"}
@@ -195,10 +198,13 @@ def _as(x: float, t: torch.Tensor) -> float:
 def global_norm(leaves) -> torch.Tensor:
     """``optax.global_norm``: the sqrt of the sum over leaves of each leaf's
     sum of squares, in the leaves' dtype (bf16 leaves give a bf16 norm, as
-    in JAX; each leaf's sum accumulates in f32 and is rounded once)."""
+    in JAX; each leaf's sum accumulates in f32 and is rounded once).
+    DTensor leaves (a mesh) give the norm of the whole tensors, as a plain
+    tensor on every rank."""
     if not leaves:
         return torch.zeros(())
-    return torch.sqrt(sum(torch.square(x).sum() for x in leaves))
+    norm = torch.sqrt(sum(torch.square(x).sum() for x in leaves))
+    return norm.full_tensor() if isinstance(norm, DTensor) else norm
 
 
 def build_optimizer(params, cfg: OptimizerConfig) -> AdamW:

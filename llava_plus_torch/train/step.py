@@ -1,9 +1,18 @@
 """The training step: loss -> gradients -> AdamW update.
 
-Counterpart of ``llava_plus_tpu/train/step.py`` on one card: no mesh
-placement (``place_params`` / ``place_batch`` wait for the port of
-``parallel/``). ``remat=True`` recomputes each decoder layer in the backward
-(``torch.utils.checkpoint``), as ``jax.checkpoint`` does there.
+Counterpart of ``llava_plus_tpu/train/step.py``. ``remat=True`` recomputes
+each decoder layer in the backward (``torch.utils.checkpoint``), as
+``jax.checkpoint`` does there.
+
+Over a (dp, fsdp, tp) mesh (``parallel/mesh.py``), :func:`place_params`
+makes every leaf a ``DTensor`` placed by the spec tables
+(``parallel/sharding.py``), :func:`place_batch` shards the batch over dp and
+fsdp, and ``make_train_step(..., mesh=)`` holds ``activate_mesh`` around the
+step, as the JAX step does: the model's ``constrain`` seams then pin the
+activations, and the kernels run on local shards. Each gradient is
+redistributed to its parameter's placements as the backward produces it
+(the all-reduce over dp and the reduce-scatter over fsdp that GSPMD inserts
+in JAX), so the optimizer updates each rank's shard in place.
 
 Only the leaves that take a gradient are differentiated: the projector
 always, the language model when it is trained, the vision tower never (it
@@ -17,13 +26,17 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from llava_plus_torch.models import llava as llava_model
 from llava_plus_torch.models.configs import LlavaConfig
 from llava_plus_torch.models.llava import MultimodalBatch
+from llava_plus_torch.ops import quant
+from llava_plus_torch.parallel.mesh import activate_mesh, placements
+from llava_plus_torch.parallel.sharding import llava_param_specs
 from llava_plus_torch.train.objective import cross_entropy_loss
 from llava_plus_torch.train.optimizer import AdamW, global_norm, tree_leaves, tree_unflatten
 
@@ -76,6 +89,8 @@ def grads_and_metrics(loss_of, params, batch, accum_steps: int = 1,
     def fold(p):
         i = slot[id(p)]
         g, p.grad = p.grad, None
+        if isinstance(g, DTensor) and g.placements != p.placements:
+            g = g.redistribute(p.device_mesh, p.placements)
         acc[i] = g if acc[i] is None else (acc[i].float() + g.float()).to(g.dtype)
 
     ms = []
@@ -101,6 +116,7 @@ def grads_and_metrics(loss_of, params, batch, accum_steps: int = 1,
         n = len(tree_leaves(params[key]))
         out[key] = tree_unflatten(params[key], grads[i:i + n])
         i += n
+    ms = [{k: _full(v) for k, v in m.items()} for m in ms]
     if len(ms) == 1:
         return out, dict(ms[0])
     tokens = torch.stack([m["tokens"] for m in ms])
@@ -110,27 +126,98 @@ def grads_and_metrics(loss_of, params, batch, accum_steps: int = 1,
     return out, metrics
 
 
+def _full(t):
+    """A metric as a plain tensor (a DTensor's global value)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def make_train_step(cfg: LlavaConfig, optimizer: AdamW, *, remat: bool = True,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1, mesh=None):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``.
     The parameters and the optimizer state are updated IN PLACE (the JAX
     step donates its buffers and returns new ones) and returned.
     ``accum_steps > 1`` expects the batch stacked [K, B, ...]. ``metrics``
-    holds 0-d tensors: loss, accuracy, tokens and grad_norm."""
+    holds 0-d tensors: loss, accuracy, tokens and grad_norm (plain tensors,
+    the same on every rank). With ``mesh`` the step runs inside
+    ``activate_mesh(mesh)``, over parameters placed by :func:`place_params`
+    and a batch placed by :func:`place_batch`."""
     keys = tuple(k for k in dict.fromkeys(optimizer.trained_keys + ("mm_projector",))
                  if k != "vision_tower")
 
     def step(params, opt_state, batch: MultimodalBatch):
-        grads, metrics = grads_and_metrics(
-            lambda p, mb: loss_fn(p, cfg, mb, remat=remat), params, batch, accum_steps,
-            keys=keys)
-        metrics["grad_norm"] = global_norm([g for k in keys for g in tree_leaves(grads[k])])
-        if "vision_tower" in optimizer.trained_keys:
-            # the frozen tower's gradient is 0, as stop_gradient makes it in JAX
-            vt = params["vision_tower"]
-            grads["vision_tower"] = tree_unflatten(vt, [torch.zeros_like(x)
-                                                        for x in tree_leaves(vt)])
-        opt_state = optimizer.update(grads, opt_state, params)
+        with activate_mesh(mesh):
+            grads, metrics = grads_and_metrics(
+                lambda p, mb: loss_fn(p, cfg, mb, remat=remat), params, batch, accum_steps,
+                keys=keys)
+            metrics["grad_norm"] = _full(global_norm([g for k in keys
+                                                      for g in tree_leaves(grads[k])]))
+            if "vision_tower" in optimizer.trained_keys:
+                # the frozen tower's gradient is 0, as stop_gradient makes it in JAX
+                vt = params["vision_tower"]
+                grads["vision_tower"] = tree_unflatten(vt, [torch.zeros_like(x)
+                                                            for x in tree_leaves(vt)])
+            opt_state = optimizer.update(grads, opt_state, params)
         return params, opt_state, metrics
 
     return step
+
+
+def _quant_specs(spec):
+    """The value and scale specs of a quantized leaf from the bf16 weight's
+    spec: int8 values [.., K, N] and int4 values [.., K/2, N] keep it, as do
+    the int4 block scales [.., K/32, N]; the int8 scale's size-1
+    contraction slot is replicated."""
+    s = tuple(spec) if spec is not None else ()
+    lead, d_in, d_out = s[:-2], s[-2] if len(s) >= 2 else None, s[-1] if s else None
+    return {
+        "qvalue": (*lead, d_in, d_out),
+        "qvalue4": (*lead, d_in, d_out),
+        "scale8": (*lead, None, d_out),
+        "scale4": (*lead, d_in, d_out),
+    }
+
+
+def _put(t, mesh, spec):
+    return distribute_tensor(t, mesh, placements(mesh, spec or ()))
+
+
+def place_params(params, mesh, cfg: LlavaConfig):
+    """The tree (stacked layout) with every leaf a DTensor on ``mesh``,
+    placed by the FSDP / TP rule table; each rank passes the same full
+    tree. Quantized leaves (the QLoRA base) take specs derived from the
+    bf16 weight's rule; leaves the table does not name (and adapters
+    passed through this function) are replicated."""
+    specs = llava_param_specs(cfg)
+    alias = {"wqkv": "wq", "w_gateup": "w_gate"}   # the fused matrices' rules
+
+    def walk(p, s):
+        if quant.is_quantized(p):
+            qs = _quant_specs(s)
+            if quant.Q4KEY in p:
+                return {quant.Q4KEY: _put(p[quant.Q4KEY], mesh, qs["qvalue4"]),
+                        quant.SKEY: _put(p[quant.SKEY], mesh, qs["scale4"])}
+            return {quant.QKEY: _put(p[quant.QKEY], mesh, qs["qvalue"]),
+                    quant.SKEY: _put(p[quant.SKEY], mesh, qs["scale8"])}
+        if isinstance(p, dict):
+            def spec_for(k):
+                if not isinstance(s, dict):
+                    return s
+                return s.get(k, s.get(alias.get(k, k)))
+
+            return {k: walk(v, spec_for(k)) for k, v in p.items()}
+        if isinstance(p, (list, tuple)):
+            return type(p)(walk(v, s[i] if isinstance(s, list) else s)
+                           for i, v in enumerate(p))
+        return _put(p, mesh, s)
+
+    return walk(params, specs)
+
+
+def place_batch(batch: MultimodalBatch, mesh, accum_steps: int = 1) -> MultimodalBatch:
+    """Every batch tensor as a DTensor sharded over (dp, fsdp) on its batch
+    dim (dim 1 under gradient accumulation, whose leading [K] micro-batch
+    dim every rank walks); each rank passes the same global batch."""
+    spec = (None, ("dp", "fsdp")) if accum_steps > 1 else (("dp", "fsdp"),)
+    return MultimodalBatch(**{f.name: (None if getattr(batch, f.name) is None
+                                       else _put(getattr(batch, f.name), mesh, spec))
+                              for f in dataclasses.fields(batch)})

@@ -41,15 +41,28 @@ backbone raises ``ValueError``.
 ``--model-name-or-path`` starts from a checkpoint directory, loaded by
 ``models/builder.load_pretrained_model`` (any of its four shapes), and
 ``--pretrain-mm-mlp-adapter`` puts a stage-1 ``mm_projector.bin`` into the
-projector. Not ported yet, raising ``NotImplementedError``: the (dp, fsdp,
-tp) mesh (``--dp``, ``--fsdp-axis``, ``--tp`` other than 1; ROADMAP Queue 1
-item 10).
+projector.
+
+The (dp, fsdp, tp) mesh (``--dp``, ``--fsdp-axis``, ``--tp``) spans the
+ranks of a ``torchrun`` launch (its ``RANK`` / ``WORLD_SIZE`` /
+``MASTER_ADDR`` environment; NCCL on the card, gloo with ``--device cpu``;
+without it the world is one process). As in the JAX trainer, ``fsdp`` is
+the world size over ``dp * tp`` unless ``--fsdp-axis`` names it; ``dp *
+tp`` must divide the world size (the JAX trainer computes ``fsdp = 0`` for
+``--tp 2`` on one device instead). A mesh of one device is no mesh: the
+single-card path. Every rank reads the same global batches, which
+``place_batch`` shards; rank 0 logs and writes the saves, whose trees every
+rank gathers first.
+
+    torchrun --nproc-per-node 4 -m llava_plus_torch.train.train \
+        --tiny-debug-model true --fsdp-axis 2 --tp 2 --device cpu ...
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import queue
 import threading
 import time
@@ -58,6 +71,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import Replicate, distribute_tensor
 
 from llava_plus_torch import conversation as conversation_lib
 from llava_plus_torch.constants import IGNORE_INDEX
@@ -75,6 +89,7 @@ from llava_plus_torch.models.configs import tiny_llava_config, tiny_llava_mpt_co
 from llava_plus_torch.models.convert import per_layer, tree_map
 from llava_plus_torch.models.llava import MultimodalBatch
 from llava_plus_torch.ops.quant import quantize_llava_params
+from llava_plus_torch.parallel.mesh import activate_mesh, make_mesh
 from llava_plus_torch.train import checkpoint as ckpt_lib
 from llava_plus_torch.train import lora as lora_lib
 from llava_plus_torch.train import step as step_lib
@@ -162,10 +177,31 @@ class TrainingArguments:
     device: str = "cuda"
 
 
-def _unported(training_args: TrainingArguments):
-    if training_args.dp != 1 or training_args.tp != 1 or training_args.fsdp_axis not in (None, 1):
-        raise NotImplementedError("the (dp, fsdp, tp) mesh is not ported yet: one card "
-                                  "(ROADMAP Queue 1 item 10)")
+def build_mesh(training_args: TrainingArguments):
+    """``(mesh or None, rank, device)``: the (dp, fsdp, tp) mesh over the
+    ranks of a torchrun launch (JAX ``train.py:258-260``), the process
+    group initialised from its environment (NCCL on the card, gloo on the
+    CPU); None for a mesh of one device."""
+    import torch.distributed as dist
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    dp, tp = training_args.dp, training_args.tp
+    if dp < 1 or tp < 1 or world % (dp * tp):
+        raise ValueError(f"dp * tp = {dp * tp} does not divide the world size {world} "
+                         f"(--dp {dp}, --tp {tp})")
+    fsdp = training_args.fsdp_axis or world // (dp * tp)
+    if dp * fsdp * tp != world:
+        raise ValueError(f"the mesh {dp} x {fsdp} x {tp} (dp x fsdp x tp) does not cover the "
+                         f"world size {world}")
+    device = torch.device(training_args.device)
+    if world == 1:
+        return None, 0, device
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return make_mesh(dp, fsdp, tp, device_type=device.type), dist.get_rank(), device
 
 
 def build_model(model_args: ModelArguments, dtype: torch.dtype, device):
@@ -201,7 +237,7 @@ def build_model(model_args: ModelArguments, dtype: torch.dtype, device):
 
 
 def _lora_step_fn(params, cfg, lora_cfg: lora_lib.LoraConfig, lora_layers, learning_rate,
-                  remat: bool, accum: int):
+                  remat: bool, accum: int, mesh=None):
     """The LoRA step of the JAX trainer: gradients of the adapters alone
     (held per layer, views of the stacked adapters) through the frozen base
     with the adapters attached lazily, then ``optax.adamw(lr)`` with its
@@ -219,10 +255,11 @@ def _lora_step_fn(params, cfg, lora_cfg: lora_lib.LoraConfig, lora_layers, learn
         return step_lib.loss_fn(dict(params, language_model=lm), cfg, mb, remat=remat)
 
     def step(batch):
-        grads, metrics = step_lib.grads_and_metrics(loss_of, {"lora": lora_layers}, batch,
-                                                    accum, keys=("lora",))
-        metrics["grad_norm"] = global_norm(tree_leaves(grads["lora"]))
-        opt.update({"language_model": grads}, state, tree)
+        with activate_mesh(mesh):
+            grads, metrics = step_lib.grads_and_metrics(loss_of, {"lora": lora_layers}, batch,
+                                                        accum, keys=("lora",))
+            metrics["grad_norm"] = global_norm(tree_leaves(grads["lora"]))
+            opt.update({"language_model": grads}, state, tree)
         return metrics
 
     return step
@@ -302,10 +339,12 @@ def train(model_args: ModelArguments, data_args: DataArguments,
     tokenizer)`` gives the initial weights, ``init_lora(lm_params, lora_cfg,
     generator)`` the initial stacked adapters (updated in place by the
     training); ``on_step(step, metrics, seconds, batch)``, if given, sees
-    every step's metrics (floats), its host time and the batch arrays."""
-    _unported(training_args)
+    every step's metrics (floats), its host time and the batch arrays.
+    Over a mesh the parameters returned are DTensors."""
+    mesh, rank, device = build_mesh(training_args)
     logger = build_logger("train", "train.log")
-    device = torch.device(training_args.device)
+    if rank:
+        logger.setLevel("WARNING")   # rank 0 logs
     dtype = torch.bfloat16 if training_args.bf16 else torch.float32
     params, cfg, loaded_tokenizer = build_model(model_args, dtype, device)
     tokenizer = tokenizer or loaded_tokenizer
@@ -364,16 +403,24 @@ def train(model_args: ModelArguments, data_args: DataArguments,
         lora_params = init_lora(params["language_model"], lora_cfg,
                                 torch.Generator(device=device).manual_seed(1))
         opt_cfg = dataclasses.replace(opt_cfg, train_language_model=False)
+    if mesh is not None:
+        # every rank built the same tree: each keeps its shards (quantized
+        # leaves by _quant_specs), the adapters replicated
+        params = step_lib.place_params(params, mesh, cfg)
+        if lora_params is not None:
+            lora_params = tree_map(lambda x: distribute_tensor(x, mesh, [Replicate()] * mesh.ndim),
+                                   lora_params)
     stacked_params = params
     params = per_layer(params)  # views: updates reach stacked_params
     if lora_params is not None:
         lora_step = _lora_step_fn(params, cfg, lora_cfg, lora_lib.lora_per_layer(lora_params),
-                                  training_args.learning_rate, remat, accum)
+                                  training_args.learning_rate, remat, accum, mesh)
         opt_state = None
     else:
         optimizer = build_optimizer(params, opt_cfg)
         opt_state = optimizer.init(params)
-        step_fn = step_lib.make_train_step(cfg, optimizer, remat=remat, accum_steps=accum)
+        step_fn = step_lib.make_train_step(cfg, optimizer, remat=remat, accum_steps=accum,
+                                           mesh=mesh)
 
     # resume --------------------------------------------------------------
     start_step = 0
@@ -442,6 +489,8 @@ def train(model_args: ModelArguments, data_args: DataArguments,
                 break
             batch = MultimodalBatch(**{k: torch.from_numpy(np.asarray(v)).to(device)
                                        for k, v in arrays.items()})
+            if mesh is not None:
+                batch = step_lib.place_batch(batch, mesh, accum)
             if lora_step is not None:
                 metrics = lora_step(batch)
             else:
@@ -457,32 +506,42 @@ def train(model_args: ModelArguments, data_args: DataArguments,
                     on_step(step, m, dt, arrays)
             if step % training_args.save_steps == 0:
                 _save(params, opt_state, step, cfg, training_args, model_args, tokenizer,
-                      lora_params, lora_cfg)
+                      lora_params, lora_cfg, rank=rank)
 
     _save(params, opt_state, step, cfg, training_args, model_args, tokenizer, lora_params,
-          lora_cfg, final=True)
+          lora_cfg, final=True, rank=rank)
     return stacked_params, cfg
 
 
 def _save(params, opt_state, step, cfg, training_args, model_args, tokenizer,
-          lora_params=None, lora_cfg=None, final: bool = False):
+          lora_params=None, lora_cfg=None, final: bool = False, rank: int = 0):
+    """The saves of a step. Every rank gathers the trees a save writes
+    (``checkpoint.gathered``: a no-op without a mesh); rank 0 writes."""
     out_dir = Path(training_args.output_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
     if model_args.tune_mm_mlp_adapter:
         # adapter-only save
-        ckpt_lib.export_mm_projector_bin(
-            params, out_dir / f"{ckpt_lib.CKPT_PREFIX}{step}" / "mm_projector.bin")
-        if final:
-            ckpt_lib.export_mm_projector_bin(params, out_dir / "mm_projector.bin")
+        proj = {"mm_projector": ckpt_lib.gathered(params["mm_projector"])}
+        if rank == 0:
+            ckpt_lib.export_mm_projector_bin(
+                proj, out_dir / f"{ckpt_lib.CKPT_PREFIX}{step}" / "mm_projector.bin")
+            if final:
+                ckpt_lib.export_mm_projector_bin(proj, out_dir / "mm_projector.bin")
         return
     if lora_params is not None:
-        extra = ckpt_lib.projector_state_dict_from_params(params["mm_projector"])
-        lora_lib.save_peft_adapter(lora_params, lora_cfg, out_dir, extra)
-        cfg.save(out_dir / "config.json")
+        extra = ckpt_lib.projector_state_dict_from_params(
+            ckpt_lib.gathered(params["mm_projector"]))
+        lora_params = ckpt_lib.gathered(lora_params)
+        if rank == 0:
+            out_dir.mkdir(parents=True, exist_ok=True)
+            lora_lib.save_peft_adapter(lora_params, lora_cfg, out_dir, extra)
+            cfg.save(out_dir / "config.json")
         return
-    ckpt_lib.save_train_state(out_dir, step, params, opt_state, cfg)
-    if final:
-        ckpt_lib.export_hf_llava(params, cfg, out_dir / "hf_export", tokenizer)
+    params, opt_state = ckpt_lib.gathered(params), ckpt_lib.gathered(opt_state)
+    if rank == 0:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        ckpt_lib.save_train_state(out_dir, step, params, opt_state, cfg)
+        if final:
+            ckpt_lib.export_hf_llava(params, cfg, out_dir / "hf_export", tokenizer)
 
 
 def main(argv=None):

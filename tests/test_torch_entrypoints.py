@@ -182,10 +182,19 @@ def test_worker_main_serves_with_speculation(checkpoint):
 
 @pytest.mark.parametrize("flags, item", [(["--w8a8"], 7), (["--tp", "2"], 10)])
 def test_unported_worker_flags_exit_with_their_roadmap_item(checkpoint, flags, item):
+    """``--tp 2`` (serving over a mesh, item 10) still exits; ``--w8a8``
+    (item 7) is ported and reaches the engine."""
     path, _ = checkpoint
+    argv = ["--model-path", str(path), "--device", "cpu", "--no-register", *flags]
+    if flags == ["--w8a8"]:
+        backend, _ = model_worker.load_backend(model_worker.parse_args(argv + ["--warmup", "0"]))
+        try:
+            assert backend.engine.w8a8 is True
+        finally:
+            backend.stop()
+        return
     with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 item {item}"):
-        model_worker.main(["--model-path", str(path), "--device", "cpu", "--no-register",
-                           *flags])
+        model_worker.main(argv)
 
 
 def test_worker_rope_scaling_and_echo(checkpoint):

@@ -36,7 +36,9 @@ for name in ("serve.controller", "serve.orchestrator", "serve.annotation", "serv
              "serve.register_worker", "serve.test_message", "serve.tool_workers.base",
              "serve.tool_workers.fake_tool_worker", "serve.tool_workers.grounding_dino_worker",
              "serve.tool_workers.test_message", "utils.misc", "utils.demo_assets",
-             "tools.generate_grounding_data", "tools.planted"):
+             "tools.generate_grounding_data", "tools.planted",
+             # the mesh and W8A8
+             "parallel", "parallel.mesh", "parallel.sharding", "ops.w8a8"):
     assert "llava_plus_torch." + name in names, name
 # the eval harness: the counterpart of each of the JAX package's 21 modules
 EVAL = ("__init__ common eval_gpt_review eval_gpt_review_bench eval_gpt_review_visual eval_pope "
@@ -75,6 +77,14 @@ for cfg in (tiny_llava_config(), tiny_llava_mpt_config()):
     assert gen.generate("<image>\ndescribe it", img, max_new_tokens=4).completion_tokens >= 1
     assert len(gen.beam_search("<image>\ndescribe it", img, num_beams=3,
                                max_new_tokens=4).output_ids) >= 1
+# a W8A8 product (its kernels' plain versions) and a constrain without a mesh
+from llava_plus_torch.ops import quant
+from llava_plus_torch.parallel.mesh import constrain
+w = quant.quantize_array(torch.randn(64, 32))
+x = torch.randn(256, 64)
+with quant.w8a8_scope():
+    assert quant.matmul(x, w).shape == (256, 32)
+assert constrain(x, ("dp", "fsdp"), None) is x
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
 assert not bad, bad
 assert build._lib is None

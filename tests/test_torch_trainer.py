@@ -261,8 +261,8 @@ def _jax_step1_loss(monkeypatch, model_args, data_args, training_args):
 
 @pytest.mark.parametrize("option", ["lora", "bits", "mpt", "model_path", "adapter", "mesh"])
 def test_unported_options_raise(monkeypatch, corpus, tmp_path, option):
-    """Only what is not ported raises ``NotImplementedError`` (the mesh).
-    LoRA, QLoRA and the MPT backbone train (their numbers:
+    """Every option is ported; the mesh's own check refuses ``--tp 2`` in
+    one process (dp * tp must divide the world size). LoRA, QLoRA and the MPT backbone train (their numbers:
     ``test_torch_lora.py``, ``test_torch_mpt_train.py``): a step each here,
     and LoRA on the MPT backbone, whose matrices the JAX package's targets do
     not name, raises ``ValueError``. ``--model-name-or-path`` (a tiny
@@ -290,7 +290,7 @@ def test_unported_options_raise(monkeypatch, corpus, tmp_path, option):
                                          tmp_path / "mm_projector.bin")
             model_kw["pretrain_mm_mlp_adapter"] = str(tmp_path / "mm_projector.bin")
     else:
-        kw = dict(dp=2)
+        kw = dict(tp=2)
     data_path, img_dir = corpus
     model_args = dataclasses.replace(ModelArguments(tiny_debug_model=True), **model_kw)
     training_args = dataclasses.replace(_args(corpus, tmp_path)[2], max_steps=1, **kw)
@@ -319,7 +319,8 @@ def test_unported_options_raise(monkeypatch, corpus, tmp_path, option):
         jax.tree.map(np.testing.assert_array_equal, to_numpy(start["mm_projector"]),
                      src["mm_projector"])
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+        # the mesh is ported: one process cannot hold a tp = 2 mesh
+        with pytest.raises(ValueError, match=r"dp \* tp = 2 does not divide the world size 1"):
             train(model_args, data_args, training_args, tokenizer=_tok())
 
 
