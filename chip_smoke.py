@@ -890,6 +890,8 @@ W8A8_ROWS = (768, 3072)
 W8A8_K = (4096, 11008)
 W8A8_N = (12288, 22016, 4096, 32000)
 W8A8_PRODUCTS = (("wqkv", 4096, 12288), ("w_down", 11008, 4096))
+# a row-parallel product's K on one rank of LLaMA-7B at tp = 4 (wo, w_down)
+W8A8_GIVEN_K = (1024, 2816)
 
 
 def _stream():
@@ -928,7 +930,7 @@ def phase_w8a8_kernels():
                 ms = time_ms(lambda: w8.w8a8_quantize_rows(x))
                 alone = time_ms(lambda: lib.w8a8_quantize_rows(
                     x.data_ptr(), int(dtype == torch.bfloat16), R, K, K, oq.data_ptr(),
-                    os_.data_ptr(), _stream()))
+                    os_.data_ptr(), None, _stream()))
                 plain_ms = time_ms(lambda: w8.quantize_rows_reference(x))
                 b = bound(R * K * (x.element_size() + 1) + 4 * R, 0)
                 log("kernels", f"w8a8_quantize_rows {str(dtype)[6:]} R={R} K={K}: int8 rows and "
@@ -941,6 +943,33 @@ def phase_w8a8_kernels():
                                          "its plain version")
                 quant_rows[str(dtype)[6:], R, K] = {"max_abs_err": 0.0, "ms": ms,
                                                    "alone_ms": alone, "plain_ms": plain_ms, **b}
+    # the given row amax (a row-parallel product under tensor parallelism):
+    # one rank's slice of K, each row's absmax taken over the whole row
+    given = {}
+    for R in W8A8_ROWS:
+        for K in W8A8_GIVEN_K:
+            full = (torch.randn(R, 4 * K, generator=gen, device="cuda")
+                    * torch.rand(R, 1, generator=gen, device="cuda") * 8).bfloat16()
+            full[1] = 0.0
+            x = full[:, K:2 * K].contiguous()
+            amax = full.abs().amax(dim=-1)
+            xq, sc = w8.w8a8_quantize_rows(x, amax)
+            pq, ps = w8.quantize_rows_reference(x, amax)
+            wq, ws = w8.quantize_rows_reference(full)
+            same = torch.equal(xq, pq) and torch.equal(sc, ps)
+            whole = torch.equal(xq, wq[:, K:2 * K]) and torch.equal(sc, ws)
+            ms = time_ms(lambda: w8.w8a8_quantize_rows(x, amax))
+            own = time_ms(lambda: w8.w8a8_quantize_rows(x))
+            plain_ms = time_ms(lambda: w8.quantize_rows_reference(x, amax))
+            b = bound(R * K * 3 + 2 * R + 4 * R, 0)
+            log("kernels", f"w8a8_quantize_rows bf16 given amax R={R} K={K} (one rank's slice "
+                           f"of a {4 * K} row): equal to the plain version {same}, to the whole "
+                           f"row's quantization {whole}; {ms:.4f} ms (own reduction "
+                           f"{own:.4f}) vs plain {plain_ms:.4f} ms, bound "
+                           f"{b['bound_ms']:.4f} ms -> {'ok' if same and whole else 'FAIL'}")
+            if not (same and whole):
+                raise AssertionError(f"w8a8_quantize_rows with a given amax R={R} K={K} differs")
+            given[R, K] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"]}
     for R in W8A8_ROWS:
         for N in W8A8_N:
             acc = torch.randint(-2 ** 22, 2 ** 22, (R, N), generator=gen, device="cuda",
@@ -1016,7 +1045,9 @@ def phase_w8a8_kernels():
              for k, v in row.items() if k != "bound_by"}
     return {
         "w8a8_quantize_rows": dict(head_q, shape="bf16 R=768 K=4096", library_ms=None,
-                                   r3072_k11008_ms=quant_rows["bfloat16", 3072, 11008]["ms"]),
+                                   r3072_k11008_ms=quant_rows["bfloat16", 3072, 11008]["ms"],
+                                   **{f"given_amax_r{R}_k{K}_{k}": v
+                                      for (R, K), row in given.items() for k, v in row.items()}),
         "w8a8_epilogue": dict(head_e, shape="R=768 N=12288 -> bf16", library_ms=None,
                               r3072_n12288_ms=epi_rows[3072, 12288]["ms"], **extra),
     }
@@ -2938,6 +2969,119 @@ def phase_w8a8_serving(smi, params):
                 f"{same}, W8A8 launches {w8.w8a8_quantize_rows.launches - n0}")
     if not same or w8.w8a8_quantize_rows.launches != n0:
         raise AssertionError("the engine's W8A8 reached a product outside it")
+    return launches
+
+
+TP_PROMPTS = 8   # phase 21's image prompts (762 fused tokens each)
+TP_NEW = 32      # greedy tokens a request
+TP_BUDGET_S = 45.0
+
+
+def _tp_run(engine, prompts, cfg, tok):
+    """The engine's first-token logits of ``prompts`` (one prefill op over
+    all of them) and, submitted at once through its queue, their greedy
+    streams as token ids; the seconds of the burst."""
+    import torch
+    from llava_plus_torch.generate import multimodal_arrays
+    from llava_plus_torch.serve.engine import Request
+
+    arrays, plan = multimodal_arrays(cfg, tok, [p for p, _ in prompts],
+                                     [img for _, img in prompts],
+                                     max_seq_len=engine.max_seq_len,
+                                     prefill_bucket=engine.prefill_bucket)
+    n = len(prompts)
+    _, _, logits = engine._issue("prefill", next(engine._pids), list(engine._caches.keys()),
+                                 arrays, [0.0] * n, [1.0] * n, [0] * n,
+                                 (np.asarray(plan.lengths) - 1).tolist())
+    logits = logits.float().cpu()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(Request(prompt=p, images=img, max_new_tokens=TP_NEW, temperature=0.0))
+            for p, img in prompts]
+    ids = [_stream_ids(" " + engine.drain(r), "") for r in reqs]
+    torch.cuda.synchronize()
+    return logits, ids, time.perf_counter() - t0
+
+
+def phase_tp_serving(smi, params):
+    """Phase 21: tensor-parallel serving's one-rank path on phase 6's int8
+    fused 7B tree. A dense engine (16 slots, int8 KV) serves 8 image prompts
+    x 32 greedy tokens; then, on a one-rank NCCL group, the same engine with
+    ``mesh=make_mesh(1, 1, 1)`` (its tree the caller's plain tensors, every
+    device call an op of the step driver, the serving group active in each
+    forward) serves them again. The first-token logits and the greedy
+    tokens must equal the plain engine's bit for bit, and the flash, decode
+    and int8 kernels must have run under the mesh. A one-rank group moves
+    no bytes between cards; tp = 2 and 4 are ``tools/bench_tp.py``'s, on
+    four cards."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from llava_plus_torch.models.configs import LLAVA_15_7B
+    from llava_plus_torch.ops import quant_matmul as qm
+    from llava_plus_torch.ops.decode_attention import decode_attention
+    from llava_plus_torch.ops.flash_attention import flash_attention
+    from llava_plus_torch.parallel.mesh import make_mesh
+    from llava_plus_torch.serve.engine import BatchedEngine
+
+    t_phase = time.perf_counter()
+    cfg, L = LLAVA_15_7B, LLAVA_15_7B.text.num_hidden_layers
+    tok = _id_tokenizer(cfg.text.vocab_size)
+    prompts = _w8a8_prompts(np.random.default_rng(21), cfg.vision.image_size, TP_PROMPTS)
+    kw = dict(max_slots=16, max_seq_len=2048, decode_chunk=4, cache_dtype=torch.int8)
+
+    engine = BatchedEngine(params, cfg, tok, **kw)
+    try:
+        plain_logits, plain_ids, plain_s = _tp_run(engine, prompts, cfg, tok)
+    finally:
+        engine.stop()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        engine = BatchedEngine(params, cfg, tok, mesh=make_mesh(1, 1, 1), **kw)
+        try:
+            plain_tree = all(type(x) is torch.Tensor and not isinstance(x, DTensor)
+                             for x in _leaves(engine.params))
+            flash_attention.launches = decode_attention.launches = 0
+            qm.matmul_int8.launches = 0
+            r0 = _regimes(qm.matmul_int8)
+            steps0, dispatch0 = engine.decode_steps, engine.prefill_dispatches
+            tp_logits, tp_ids, tp_s = _tp_run(engine, prompts, cfg, tok)
+            launches = {"flash": flash_attention.launches, "decode": decode_attention.launches,
+                        "int8": qm.matmul_int8.launches}
+            regimes = tuple(b - a for a, b in zip(r0, _regimes(qm.matmul_int8)))
+            steps = engine.decode_steps - steps0
+            dispatches = engine.prefill_dispatches - dispatch0
+            ops = engine._driver.sent
+        finally:
+            engine.stop()
+        del engine
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    same_logits = torch.equal(tp_logits, plain_logits)
+    same_ids = tp_ids == plain_ids and all(len(i) == TP_NEW for i in tp_ids)
+    # one prefill op (8 rows) and the burst's dispatches, each L flash launches
+    want_flash = L * (1 + dispatches)
+    elapsed = time.perf_counter() - t_phase
+    log("tp", f"one-rank mesh engine (1, 1, 1) on NCCL vs the plain engine, {TP_PROMPTS} image "
+              f"prompts x {TP_NEW} tokens, 16 slots, int8 weights and KV: first-token logits "
+              f"bit-identical {same_logits} (largest |diff| "
+              f"{float((tp_logits - plain_logits).abs().max()):.3e}), greedy token ids equal "
+              f"{same_ids}; the tree plain local tensors {plain_tree}; launches under the mesh "
+              f"{launches} (flash want {want_flash}; decode {L} x {steps} steps = {L * steps}; "
+              f"int8 at decode rows {regimes[0]}, at prefill rows {regimes[1]}); burst "
+              f"{tp_s:.2f} s under the mesh vs {plain_s:.2f} s plain; {ops} ops issued (a "
+              f"one-rank group broadcasts none); phase {elapsed:.1f} s (budget {TP_BUDGET_S:.0f} "
+              f"s); card {smi}")
+    if not (same_logits and same_ids and plain_tree) or launches["flash"] != want_flash \
+            or launches["decode"] != L * steps or launches["int8"] <= 0 or ops != 0:
+        raise AssertionError("the one-rank mesh engine differs from the plain engine")
+    if elapsed > TP_BUDGET_S:
+        raise AssertionError(f"phase 21 took {elapsed:.1f} s, past its {TP_BUDGET_S:.0f} s")
     return launches
 
 
@@ -5387,6 +5531,7 @@ def main():
     # int4 starts from fresh ones
     int8 = serve_engine(smi, params, "int8", n_image=8, n_text=8)
     w8a8 = phase_w8a8_serving(smi, params)   # phase 20, on phase 6's int8 tree
+    tp1 = phase_tp_serving(smi, params)      # phase 21, on the same tree
     del params
     int4 = serve_engine(smi, _init_7b(dev), "int4", n_image=2, n_text=2)
     paged = serve_paged_engine(smi)
@@ -5420,7 +5565,8 @@ def main():
     bwd_src = "llava_plus_torch/csrc/flash_bwd.cu"
     for name, source, replaces, count in (
         ("flash_fwd", "llava_plus_torch/csrc/flash_fwd.cu", FLASH_REPLACES,
-         single["flash"] + ckpt["flash"] + int8["flash"] + int4["flash"] + paged["flash"]
+         single["flash"] + ckpt["flash"] + int8["flash"] + tp1["flash"] + int4["flash"]
+         + paged["flash"]
          + spec["flash"] + plus["flash"] + evals["flash"] + stage1["flash"] + stage2["flash"]
          + qlora["flash"]),
         ("flash_bwd[dkv]", bwd_src, DKV_REPLACES, stage1["dkv"] + stage2["dkv"] + qlora["dkv"]),
@@ -5428,9 +5574,11 @@ def main():
         ("decode_attention[bf16]", "llava_plus_torch/csrc/decode_attention.cu",
          DECODE_REPLACES, single["bf16"] + evals["decode"]),
         ("decode_attention[int8]", "llava_plus_torch/csrc/decode_attention.cu",
-         DECODE_REPLACES, single["int8"] + ckpt["decode"] + int8["decode"] + int4["decode"]),
+         DECODE_REPLACES, single["int8"] + ckpt["decode"] + int8["decode"] + tp1["decode"]
+         + int4["decode"]),
         ("quant_matmul[int8]", "llava_plus_torch/csrc/quant_matmul.cu", INT8_REPLACES,
-         ckpt["quant"] + int8["quant"] + paged["quant"] + spec["quant"] + plus["quant"]
+         ckpt["quant"] + int8["quant"] + tp1["int8"] + paged["quant"] + spec["quant"]
+         + plus["quant"]
          + mpt["dense"]["matmul_int8"]
          + mpt["paged"]["matmul_int8"] + narrow_lora[8][0] + tools["int8"]),
         ("quant_matmul[int4]", "llava_plus_torch/csrc/quant_matmul.cu", INT4_REPLACES,

@@ -11,7 +11,8 @@
 //
 // The arithmetic is the JAX function's, bit for bit (ops/w8a8.py has the
 // plain versions):
-//   amax  = max(|x|) over the row, floored at 1e-6 rounded to x's dtype
+//   amax  = max(|x|) over the row (or the amax given for it), floored at 1e-6
+//           rounded to x's dtype
 //   inv   = 127 / f32(amax)                              (an f32 division)
 //   xq    = int8(clip(round_half_even(f32(x) * inv), -127, 127))
 //   scale = f32(amax / 127 in x's dtype): a bf16 row rounds the quotient to
@@ -68,11 +69,15 @@ __device__ __forceinline__ int8_t quantize_one(float v, float inv) {
 }
 
 // One block a row. x rows are `stride` elements apart and 16-byte aligned;
-// K * sizeof(T) % 16 == 0; the row sits in dynamic shared memory.
+// K * sizeof(T) % 16 == 0; the row sits in dynamic shared memory. With
+// `given` (one value a row, in x's dtype) the row's absmax is given and the
+// block skips its reduction: a row-parallel product's rows hold a slice of
+// K, and their absmax is the maximum over every rank's slice.
 template <typename T>
 __global__ void __launch_bounds__(QTHREADS)
 w8a8_quantize_rows_kernel(const T* __restrict__ x, long long stride, int K,
-                          int8_t* __restrict__ xq, float* __restrict__ scales) {
+                          int8_t* __restrict__ xq, float* __restrict__ scales,
+                          const T* __restrict__ given) {
   extern __shared__ uint4 row[];
   constexpr int PER = 16 / sizeof(T);   // elements a vector
   __shared__ float warp_max[QTHREADS / 32];
@@ -83,18 +88,25 @@ w8a8_quantize_rows_kernel(const T* __restrict__ x, long long stride, int K,
   float m = 0.0f;
   for (int i = threadIdx.x; i < nvec; i += QTHREADS) {
     uint4 v = src[i];
-    row[i] = v;
-    const T* e = reinterpret_cast<const T*>(&v);
+    row[i] = v;   // read back by this same thread below
+    if (given == nullptr) {
+      const T* e = reinterpret_cast<const T*>(&v);
 #pragma unroll
-    for (int j = 0; j < PER; ++j) m = fmaxf(m, fabsf(to_f32(e[j])));
+      for (int j = 0; j < PER; ++j) m = fmaxf(m, fabsf(to_f32(e[j])));
+    }
   }
+  float amax;
+  if (given != nullptr) {
+    amax = to_f32(given[r]);
+  } else {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
-  __syncthreads();
-  float amax = warp_max[0];
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+    __syncthreads();
+    amax = warp_max[0];
 #pragma unroll
-  for (int w = 1; w < QTHREADS / 32; ++w) amax = fmaxf(amax, warp_max[w]);
+    for (int w = 1; w < QTHREADS / 32; ++w) amax = fmaxf(amax, warp_max[w]);
+  }
   amax = fmaxf(amax, floor_in_dtype<T>());
   const float inv = __fdiv_rn(127.0f, amax);
   if (threadIdx.x == 0) scales[r] = row_scale<T>(amax);
@@ -161,9 +173,10 @@ w8a8_epilogue_kernel(const int* __restrict__ acc, const float* __restrict__ rs,
 }  // namespace
 
 // x: bf16 (x_bf16 = 1) or f32 [R, K], rows `stride` elements apart; xq int8
-// [R, K] contiguous; scales f32 [R].
+// [R, K] contiguous; scales f32 [R]; amax null, or each row's absmax [R] in
+// x's dtype (the reduction is then skipped).
 extern "C" int w8a8_quantize_rows(const void* x, int x_bf16, int R, int K, int stride,
-                                  void* xq, void* scales, void* stream) {
+                                  void* xq, void* scales, const void* amax, void* stream) {
   const int elem = x_bf16 ? 2 : 4;
   const size_t smem = static_cast<size_t>(K) * elem;
   if (R < 1 || K < 1 || smem % 16 || (static_cast<size_t>(stride) * elem) % 16 ||
@@ -178,7 +191,7 @@ extern "C" int w8a8_quantize_rows(const void* x, int x_bf16, int R, int K, int s
     if (err != cudaSuccess) return static_cast<int>(err);
     w8a8_quantize_rows_kernel<__nv_bfloat16><<<R, QTHREADS, smem, st>>>(
         static_cast<const __nv_bfloat16*>(x), stride, K, static_cast<int8_t*>(xq),
-        static_cast<float*>(scales));
+        static_cast<float*>(scales), static_cast<const __nv_bfloat16*>(amax));
   } else {
     err = cudaFuncSetAttribute(w8a8_quantize_rows_kernel<float>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -186,7 +199,7 @@ extern "C" int w8a8_quantize_rows(const void* x, int x_bf16, int R, int K, int s
     if (err != cudaSuccess) return static_cast<int>(err);
     w8a8_quantize_rows_kernel<float><<<R, QTHREADS, smem, st>>>(
         static_cast<const float*>(x), stride, K, static_cast<int8_t*>(xq),
-        static_cast<float*>(scales));
+        static_cast<float*>(scales), static_cast<const float*>(amax));
   }
   return static_cast<int>(cudaGetLastError());
 }

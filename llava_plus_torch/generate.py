@@ -5,6 +5,8 @@ Counterpart of ``llava_plus_tpu/generate.py``. PyTorch runs eagerly, so the
 JAX package's compiled prefill/decode programs become plain calls;
 ``decode_chunk`` keeps its meaning (tokens are fetched to the host once per
 chunk). Randomness comes from a ``torch.Generator`` on the model's device.
+Each call that writes device state is an op with host arguments, so that
+the tensor-parallel followers (``mesh=``, ``parallel/tp.py``) replay it.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from llava_plus_torch.mm_utils import tokenizer_image_token
 from llava_plus_torch.models.configs import LlavaConfig
 from llava_plus_torch.models import llama, llava as llava_model
 from llava_plus_torch.models.llava import MultimodalBatch
+from llava_plus_torch.parallel import tp as tp_lib
 
 
 def nucleus(scaled: torch.Tensor, top_p) -> torch.Tensor:
@@ -48,6 +51,38 @@ def sample_token(logits: torch.Tensor, generator: torch.Generator,
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+def multimodal_arrays(
+    cfg: LlavaConfig,
+    tokenizer,
+    prompts: Sequence[str],
+    images_per_prompt: Optional[Sequence[Optional[np.ndarray]]] = None,
+    *,
+    max_seq_len: int,
+    prefill_bucket: int = 128,
+    max_images: int = 1,
+):
+    """Tokenize prompts (with <image> sentinels) and plan the fused batch on
+    the host: ({field of :class:`MultimodalBatch`: numpy array}, plan)."""
+    ids_list = [np.asarray(tokenizer_image_token(p, tokenizer), dtype=np.int64)
+                for p in prompts]
+    plan = plan_multimodal_batch(
+        ids_list, num_patches=cfg.num_image_tokens, max_len=max_seq_len,
+        max_images=max_images, pad_to_multiple=prefill_bucket,
+    )
+    img_hw = (cfg.vision.image_size, cfg.vision.image_size, 3)
+    if images_per_prompt is None:
+        images_per_prompt = [None] * len(prompts)
+    imgs = pad_images(list(images_per_prompt), max_images, img_hw)
+    arrays = {"tokens": plan.tokens, "positions": plan.positions,
+              "segment_ids": plan.segment_ids, "images": imgs, "image_pos": plan.image_pos}
+    return {k: np.ascontiguousarray(v) for k, v in arrays.items()}, plan
+
+
+def batch_to_device(arrays, device) -> MultimodalBatch:
+    """:func:`multimodal_arrays`' arrays as a batch on ``device``."""
+    return MultimodalBatch(**{k: torch.from_numpy(v).to(device) for k, v in arrays.items()})
+
+
 def prepare_multimodal_request(
     cfg: LlavaConfig,
     tokenizer,
@@ -60,26 +95,10 @@ def prepare_multimodal_request(
     max_images: int = 1,
 ):
     """Tokenize prompts (with <image> sentinels) and build the fused batch."""
-    ids_list = [np.asarray(tokenizer_image_token(p, tokenizer), dtype=np.int64)
-                for p in prompts]
-    plan = plan_multimodal_batch(
-        ids_list, num_patches=cfg.num_image_tokens, max_len=max_seq_len,
-        max_images=max_images, pad_to_multiple=prefill_bucket,
-    )
-    img_hw = (cfg.vision.image_size, cfg.vision.image_size, 3)
-    if images_per_prompt is None:
-        images_per_prompt = [None] * len(prompts)
-    imgs = pad_images(list(images_per_prompt), max_images, img_hw)
-
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    batch = MultimodalBatch(
-        tokens=dev(plan.tokens), positions=dev(plan.positions),
-        segment_ids=dev(plan.segment_ids), images=dev(imgs),
-        image_pos=dev(plan.image_pos),
-    )
-    return batch, plan
+    arrays, plan = multimodal_arrays(cfg, tokenizer, prompts, images_per_prompt,
+                                     max_seq_len=max_seq_len, prefill_bucket=prefill_bucket,
+                                     max_images=max_images)
+    return batch_to_device(arrays, device), plan
 
 
 @dataclasses.dataclass
@@ -122,8 +141,9 @@ def select_beams(logits: torch.Tensor, scores: torch.Tensor, done: torch.Tensor,
     return top.indices[:nb], top.values[:nb]
 
 
-class Generator:
-    """Single-stream multimodal generation over one model on one device."""
+class Generator(tp_lib.Replicated):
+    """Single-stream multimodal generation over one model on one device, or
+    over a tensor-parallel group (``mesh``)."""
 
     def __init__(
         self,
@@ -136,7 +156,15 @@ class Generator:
         max_seq_len: Optional[int] = None,
         prefill_bucket: int = 128,
         cache_dtype=torch.bfloat16,
+        mesh=None,
     ):
+        """``mesh`` (``make_mesh(1, 1, tp)``, or a process group) serves over
+        tensor parallelism, one process a card (``parallel/tp.py``): each
+        rank keeps its shard of ``params`` and a replica of the generation
+        state; rank 0 calls :meth:`stream`, :meth:`generate` or
+        :meth:`beam_search` and every other rank :meth:`follow`, until rank
+        0's :meth:`stop`."""
+        params = self._serve_over(mesh, params, cfg)
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -145,6 +173,65 @@ class Generator:
         self.max_seq_len = max_seq_len or cfg.max_sequence_length
         self.prefill_bucket = prefill_bucket
         self.cache_dtype = cache_dtype
+        self._st = {}   # the generation state the ops update
+
+    def follow(self) -> int:
+        """A follower rank's loop: replay rank 0's ops until it stops."""
+        return self._follow()
+
+    def stop(self):
+        """End the followers' replay (rank 0 under tensor parallelism)."""
+        self._end_followers()
+
+    def _cache(self, batch: int) -> llama.KVCache:
+        return llama.KVCache.create(llava_model.backbone(self.cfg)[1], batch, self.max_seq_len,
+                                    self.cache_dtype, device=self.device)
+
+    # -- ops: every call that writes device state, with host arguments ----
+
+    def _op_stream_prefill(self, arrays, seed: int, temperature: float, top_p: float):
+        """A stream's prefill into a fresh cache and its first token [1, 1]."""
+        cache = self._cache(1)
+        last = self._prefill(cache, batch_to_device(arrays, self.device))
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        token = sample_token(last, generator, temperature, top_p)[:, None]
+        self._st = {"cache": cache, "token": token, "generator": generator}
+        return token
+
+    def _op_stream_decode(self, pos: int, n: int, temperature: float, top_p: float):
+        st = self._st
+        toks = self._decode_n(st["cache"], st["token"], pos, n, st["generator"], temperature,
+                              top_p)
+        st["token"] = toks[:, -1:]
+        return toks
+
+    def _op_beam_prefill(self, arrays, nb: int):
+        cache = self._cache(nb)
+        logits = self._prefill(cache, batch_to_device(arrays, self.device))
+        scores = np.asarray([0.0] + [-np.inf] * (nb - 1), np.float32)
+        self._st = {"cache": cache, "logits": logits,
+                    "scores": torch.from_numpy(scores).to(self.device),
+                    "done": torch.zeros(nb, dtype=torch.bool, device=self.device)}
+        return logits
+
+    def _op_beam_select(self, nb: int, eos: int):
+        """One expansion (:func:`select_beams`): (flat indices, scores)."""
+        st = self._st
+        V = st["logits"].shape[-1]
+        idx, st["scores"] = select_beams(st["logits"], st["scores"], st["done"], nb)
+        parent, st["tok"] = idx // V, idx % V
+        st["done"] = st["done"][parent] | (st["tok"] == eos)
+        return idx, st["scores"]
+
+    def _op_beam_advance(self, parents: List[int], prompt_len: int, pos: int):
+        """The cache reordered by parent beam, and one decode step."""
+        st = self._st
+        nb = len(parents)
+        reorder_beams(st["cache"], parents, prompt_len, pos)
+        position = torch.full((nb, 1), pos, dtype=torch.int32, device=self.device)
+        logits, _ = llava_model.decode_step(self.params, self.cfg, st["tok"][:, None], position,
+                                            (~st["done"]).to(torch.int32)[:, None], st["cache"])
+        st["logits"] = logits[:, 0]
 
     def _prefill(self, cache, batch: MultimodalBatch) -> torch.Tensor:
         """Logits [B, V] at each sequence's last real token."""
@@ -177,6 +264,11 @@ class Generator:
             prefill_bucket=self.prefill_bucket, max_images=max_images,
         )
 
+    def _arrays(self, prompts, images_per_prompt=None):
+        return multimodal_arrays(self.cfg, self.tokenizer, prompts, images_per_prompt,
+                                 max_seq_len=self.max_seq_len,
+                                 prefill_bucket=self.prefill_bucket)
+
     @torch.inference_mode()
     def stream(
         self,
@@ -196,20 +288,16 @@ class Generator:
         their tokens to the host, and still yields token by token; the only
         waste is the tail of the chunk where EOS or a stop string landed.
         """
-        batch, plan = self.prepare_batch([prompt], None if images is None else [images])
+        arrays, plan = self._arrays([prompt], None if images is None else [images])
         prompt_len = int(plan.lengths[0])
         self._last_prompt_len = prompt_len
         self._last_output_ids: List[int] = []
         budget = min(max_new_tokens, self.max_seq_len - prompt_len)
 
-        cache = llama.KVCache.create(llava_model.backbone(self.cfg)[1], 1, self.max_seq_len,
-                                     self.cache_dtype, device=self.device)
-        last_logits = self._prefill(cache, batch)
         # reference CLIs pass None for "disabled"
         temp = float(temperature if temperature is not None else 0.0)
         tp = float(top_p if top_p is not None else 1.0)
-        generator = torch.Generator(device=self.device).manual_seed(seed)
-        token = sample_token(last_logits, generator, temp, tp)[:, None]
+        token = self._issue("stream_prefill", arrays, seed, temp, tp)
 
         eos = self.tokenizer.eos_token_id
         out_ids: List[int] = []
@@ -247,7 +335,7 @@ class Generator:
             if done or emitted >= budget:
                 break
             k = min(max(decode_chunk, 1), budget - emitted)
-            toks = self._decode_n(cache, token, pos, k, generator, temp, tp)
+            toks = self._issue("stream_decode", pos, k, temp, tp)
             token = toks[:, -1:]
             pending = toks[0, :-1].tolist()
             pos += k
@@ -280,23 +368,16 @@ class Generator:
         if nb <= 1:
             return self.generate(prompt, images, max_new_tokens=max_new_tokens,
                                  temperature=0.0, stop_strings=stop_strings)
-        batch, plan = self.prepare_batch([prompt] * nb,
-                                         None if images is None else [images] * nb)
+        arrays, plan = self._arrays([prompt] * nb, None if images is None else [images] * nb)
         prompt_len = int(plan.lengths[0])
         budget = min(max_new_tokens, self.max_seq_len - prompt_len)
         eos = self.tokenizer.eos_token_id
         eos = -1 if eos is None else int(eos)
 
-        cache = llama.KVCache.create(llava_model.backbone(self.cfg)[1], nb, self.max_seq_len,
-                                     self.cache_dtype, device=self.device)
-        logits = self._prefill(cache, batch)
-        V = logits.shape[-1]
-
         # beam 0 starts live, the rest at -inf (the rows are identical
         # clones until the first expansion)
+        V = self._issue("beam_prefill", arrays, nb).shape[-1]
         sc_h = np.asarray([0.0] + [-np.inf] * (nb - 1), np.float32)
-        scores = torch.from_numpy(sc_h).to(self.device)
-        done = torch.zeros(nb, dtype=torch.bool, device=self.device)
         done_h = np.zeros(nb, bool)
         history: List[tuple] = []   # (tok[nb], parent[nb]) per step
         finished: List[tuple] = []  # (score_normalized, step_idx, beam)
@@ -312,9 +393,7 @@ class Generator:
 
         pos = prompt_len
         for t in range(budget):
-            idx, scores = select_beams(logits, scores, done, nb)
-            parent, tok = idx // V, idx % V
-            done = done[parent] | (tok == eos)
+            idx, scores = self._issue("beam_select", nb, eos)
             idx_h = idx.cpu().numpy()
             sc_h = scores.cpu().numpy()
             par_h, tok_h = idx_h // V, idx_h % V
@@ -327,11 +406,7 @@ class Generator:
                     finished.append((sc_h[b] / max(t + 1, 1) ** length_penalty, t, b))
             if bool(done_h.all()) or t == budget - 1:
                 break   # (JAX also decodes after the last selection, unread)
-            reorder_beams(cache, par_h.tolist(), prompt_len, pos)
-            position = torch.full((nb, 1), pos, dtype=torch.int32, device=self.device)
-            logits, _ = llava_model.decode_step(self.params, self.cfg, tok[:, None], position,
-                                                (~done).to(torch.int32)[:, None], cache)
-            logits = logits[:, 0]
+            self._issue("beam_advance", par_h.tolist(), prompt_len, pos)
             pos += 1
 
         t_last = len(history) - 1

@@ -51,7 +51,7 @@ SIGNATURES = {
     "quant_matmul_int4n_wgmma": [P] * 5 + [I, P] + [I] * 8 + [P],
     "paged_decode1_fwd": [P] * 11 + [I, P] + [I] * 17 + [F, P],
     "paged_attention_fwd": [P] * 11 + [I, P] + [I] * 17 + [F, P],
-    "w8a8_quantize_rows": [P, I, I, I, I, P, P, P],
+    "w8a8_quantize_rows": [P, I, I, I, I, P, P, P, P],
     "w8a8_epilogue": [P] * 4 + [I] * 4 + [P],
 }
 

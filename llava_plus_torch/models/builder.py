@@ -98,6 +98,89 @@ def load_pretrained_model(
     return tokenizer, params, cfg, image_processor, _context_len(path)
 
 
+def _leaf_paths(tree, prefix=()):
+    """(path, leaf) of every leaf of a nested dict / list tree, in order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_paths(v, prefix + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaf_paths(v, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+def _structure(tree, leaf):
+    """The nested dict / list structure of ``tree`` with ``leaf(x)`` at each
+    leaf x."""
+    if isinstance(tree, dict):
+        return {k: _structure(v, leaf) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_structure(v, leaf) for v in tree]
+    return leaf(tree)
+
+
+def _put(tree, path, value):
+    for k in path[:-1]:
+        tree = tree[k]
+    tree[path[-1]] = value
+
+
+def load_sharded_model(model_path: str, model_base: Optional[str] = None,
+                       model_name: Optional[str] = None, *, tp, device,
+                       quantize: Optional[str] = None, dtype="bfloat16"):
+    """:func:`load_pretrained_model` for tensor-parallel serving: rank 0 of
+    the serving group ``tp`` (``parallel/tp.TPGroup``) loads the checkpoint
+    once; its tokenizer, config and image processor reach the other ranks
+    pickled over the group's control channel, and the tree leaf by leaf
+    over its collectives, each leaf on ``device``. Every rank keeps only its
+    slice of each leaf: a matrix that ``quantize`` ("int8" / "int4")
+    quantizes is quantized whole on the card first, then cut
+    (``tp.shard_plan``); LLaMA's matrices are fused after, as
+    ``TorchBackend(quantize=...)`` fuses them. Rank 0 drops each host leaf
+    as it is sent, so no host holds more than the one checkpoint. Returns
+    the same 5-tuple, with this rank's tree."""
+    import torch.distributed as dist
+
+    from llava_plus_torch.ops import quant
+    from llava_plus_torch.parallel import tp as tp_lib
+
+    meta = [None]
+    if tp.leader:
+        tokenizer, params, cfg, processor, ctx = load_pretrained_model(
+            model_path, model_base, model_name, dtype=dtype)
+        meta = [(tokenizer, cfg, processor, ctx,
+                 _structure(params, lambda x: (tuple(x.shape), x.dtype)))]
+    root = dist.get_global_rank(tp.group, 0)
+    dist.broadcast_object_list(meta, src=dist.get_global_rank(tp.control, 0), group=tp.control)
+    tokenizer, cfg, processor, ctx, skeleton = meta[0]
+    plan = tp_lib.shard_plan(cfg, tp.rank, tp.size)
+    bits = {"int8": 8, "int4": 4, None: None}[quantize]
+    qpaths = set(quant.MPT_QUANT_PATHS if cfg.language_model_type == "mpt"
+                 else quant.LLAMA_QUANT_PATHS)
+    out = _structure(skeleton, lambda x: None)
+    for path, (shape, leaf_dtype) in _leaf_paths(skeleton):
+        if tp.leader:
+            host = params
+            for k in path[:-1]:
+                host = host[k]
+            full = host[path[-1]].to(device)
+            host[path[-1]] = None   # the host copy goes as it is sent
+        else:
+            full = torch.empty(shape, dtype=leaf_dtype, device=device)
+        dist.broadcast(full, root, group=tp.group)
+        leaf = full
+        if path[0] == "language_model":
+            if bits is not None and path[1:] in qpaths:
+                leaf = quant._quantize_matrix(full, bits)
+            leaf = tp_lib.shard_leaf(path[1:], leaf, plan)
+        _put(out, path, leaf)
+        del full, leaf
+    if bits is not None and cfg.language_model_type == "llama":
+        quant.fuse_llama_matrices(out["language_model"])
+    return tokenizer, out, cfg, processor, ctx
+
+
 def _has_mm_config(path: Path) -> bool:
     try:
         return "mm_vision_tower" in _read_config(path)

@@ -38,6 +38,12 @@ residual stream over the batch, gate and up over ``tp``, the logits over
 the batch and ``tp``) pin the activations' placements; the token gather,
 the RoPE tables and the head run on each rank's local shards
 (:func:`embed_rows`, :func:`rope_cos_sin`, :func:`head_logits`).
+
+Tensor-parallel serving (``parallel/tp.py``) holds plain local shards
+instead: inside an active serving group a layer runs its rank's heads and
+FFN columns, the caches hold its kv heads, ``wo`` and ``w_down`` sum their
+partial products over the group, and the head's vocab-parallel logits are
+gathered, so every rank holds the full logits.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ from llava_plus_torch.ops.paged_attention import (
 )
 from llava_plus_torch.ops.quant import is_quantized, matmul
 from llava_plus_torch.parallel.mesh import BATCH, constrain, from_local, to_local
+from llava_plus_torch.parallel.tp import gather_vocab, local_heads, tp_size, vocab_range
 
 
 # ---------------------------------------------------------------------------
@@ -69,10 +76,12 @@ from llava_plus_torch.parallel.mesh import BATCH, constrain, from_local, to_loca
 def cache_dims(cfg: Union[LlamaConfig, MptConfig]) -> Tuple[int, int, int]:
     """(layers, kv heads, head dim) of a LLaMA or an MPT decoder: both
     backbones share the cache layouts (the JAX package reads the two
-    configs' fields with ``getattr``)."""
+    configs' fields with ``getattr``). Under a tensor-parallel serving
+    group the kv heads are this rank's."""
     if isinstance(cfg, MptConfig):
-        return cfg.n_layers, cfg.kv_heads, cfg.head_dim
-    return cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+        return cfg.n_layers, local_heads(cfg.kv_heads, "kv heads"), cfg.head_dim
+    return (cfg.num_hidden_layers, local_heads(cfg.num_key_value_heads, "kv heads"),
+            cfg.head_dim)
 
 
 @dataclasses.dataclass
@@ -565,7 +574,9 @@ def _layer_forward(lp, h, cos, sin, segment_ids, positions, cfg: LlamaConfig,
     chunk as a paged pool stores it (None for the dense cache, which is
     written here)."""
     B, T, _ = h.shape
-    H, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    # this rank's heads under a tensor-parallel serving group
+    H, Hkv = local_heads(cfg.num_attention_heads), local_heads(cfg.num_key_value_heads)
+    Dh = cfg.head_dim
 
     hn = rms_norm(h, lp["input_norm"], cfg.rms_norm_eps)
     wa = lp["attn"]
@@ -601,18 +612,20 @@ def _layer_forward(lp, h, cos, sin, segment_ids, positions, cfg: LlamaConfig,
         staged = _stage(cache, k, v)
 
     attn_out = constrain(attn_out, BATCH, None, "tp", None)
-    h = constrain(h + matmul(attn_out.reshape(B, T, H * Dh), wa["wo"]), BATCH, None, None)
+    h = constrain(h + matmul(attn_out.reshape(B, T, H * Dh), wa["wo"], row_parallel=True),
+                  BATCH, None, None)
     hn = rms_norm(h, lp["post_attn_norm"], cfg.rms_norm_eps)
     wm = lp["mlp"]
     if "w_gateup" in wm:
         # inference-fused gate|up projection: one launch
         gu = constrain(matmul(hn, wm["w_gateup"]), BATCH, None, "tp")
-        gate, up = torch.split(gu, [cfg.intermediate_size] * 2, dim=-1)
+        gate, up = torch.split(gu, [gu.shape[-1] // 2] * 2, dim=-1)
     else:
         gate = constrain(matmul(hn, wm["w_gate"]), BATCH, None, "tp")
         up = constrain(matmul(hn, wm["w_up"]), BATCH, None, "tp")
     gate = F.silu(gate.float()).to(hn.dtype)
-    return constrain(h + matmul(gate * up, wm["w_down"]), BATCH, None, None), staged
+    return constrain(h + matmul(gate * up, wm["w_down"], row_parallel=True), BATCH, None,
+                     None), staged
 
 
 def _train_layer(lp, h, cos, sin, segment_ids, cfg: LlamaConfig):
@@ -719,13 +732,22 @@ def lm_head(params, cfg: LlamaConfig, hidden: torch.Tensor) -> torch.Tensor:
     card the GEMM takes the bf16 operands and writes f32, with no copy of the
     weight; the CPU has no mixed-dtype product, so there both are upcast. A
     quantized head writes f32 straight from the kernel's f32 accumulator
-    (the JAX package rounds the product to the activation dtype first)."""
-    w = params["embed_tokens"].T if cfg.tie_word_embeddings else params["lm_head"]
+    (the JAX package rounds the product to the activation dtype first).
+    Under a tensor-parallel serving group each rank multiplies by its vocab
+    shard of the head (a tied head: its rows of the whole embedding) and the
+    shards' logits are gathered."""
+    if cfg.tie_word_embeddings:
+        w = params["embed_tokens"]
+        if tp_size() > 1:
+            w = w[slice(*vocab_range(w.shape[0]))]
+        w = w.T
+    else:
+        w = params["lm_head"]
     if is_quantized(w):
         logits = matmul(hidden, w, out_dtype=torch.float32)
     else:
         logits = head_logits(hidden, w)
-    return constrain(logits, BATCH, None, "tp")
+    return constrain(gather_vocab(logits), BATCH, None, "tp")
 
 
 def forward(

@@ -37,6 +37,11 @@ dense cache it spans the cache's slots (``arange(max_len)``, JAX
 it (a chunk as long as the cache, or one token). Over a paged cache they
 raise: JAX builds no such bias over the pool (its paged attention drops it).
 
+Under a tensor-parallel serving group (``parallel/tp.py``) a layer runs its
+rank's heads, with their slice of the whole model's ALiBi slopes, and FFN
+columns; ``out_proj`` and ``down_proj`` sum their partial products over the
+group, and the tied head's vocab shards are gathered.
+
 Training runs through the same code without a cache: on the card the ALiBi
 variants of the flash forward and backward kernels, and ``remat`` recomputes
 each layer in the backward (``torch.utils.checkpoint``, as ``llama.py``
@@ -59,6 +64,9 @@ from llava_plus_torch.models.configs import MptConfig
 from llava_plus_torch.models.llama import Cache, KVCache, PagedKVCache
 from llava_plus_torch.ops.attention import alibi_bias, attention
 from llava_plus_torch.ops.quant import matmul
+from llava_plus_torch.parallel.tp import (
+    gather_vocab, local_heads, tp_rank, tp_size, vocab_range,
+)
 
 MASK_BIAS = -1e9  # the JAX package's additive mask of the prefix-LM / sequence-id bias
 
@@ -76,14 +84,19 @@ def alibi_slopes(n_heads: int, alibi_bias_max: int = 8, device=None) -> torch.Te
 
 
 @functools.lru_cache(maxsize=None)
-def _device_slopes(n_heads: int, alibi_bias_max: int, device: torch.device) -> torch.Tensor:
+def _device_slopes(n_heads: int, alibi_bias_max: int, device: torch.device, rank: int = 0,
+                   size: int = 1) -> torch.Tensor:
     """:func:`alibi_slopes` made once per device: a forward then issues no
     host-to-device copy (a pageable one would hold the host until the card
     reaches it, every decode step). Every caller gets the same tensor, which
     nothing writes to. It is made outside inference mode even when the
-    first caller serves, so that training (remat saves it) can use it too."""
+    first caller serves, so that training (remat saves it) can use it too.
+    Rank ``rank`` of a tensor-parallel group of ``size`` takes its heads'
+    slopes: the slice ``[rank * H / size, (rank + 1) * H / size)`` of the
+    whole model's (not ``alibi_slopes(H / size)``)."""
     with torch.inference_mode(False):
-        return alibi_slopes(n_heads, alibi_bias_max, device)
+        n = n_heads // size
+        return alibi_slopes(n_heads, alibi_bias_max)[rank * n:(rank + 1) * n].to(device)
 
 
 def alibi_bias_from_positions(q_pos: torch.Tensor, kv_pos: torch.Tensor, n_heads: int,
@@ -155,9 +168,11 @@ def _layer_forward(lp, h, bias, slopes, segment_ids, positions, cfg: MptConfig,
                    paged_gather: bool):
     """One decoder block. Returns (h, staged): ``staged`` is the layer's
     chunk as a paged pool stores it (None otherwise)."""
-    B, T, D = h.shape
-    H, Hkv, Dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-    kv_dim = Hkv * Dh
+    B, T, _ = h.shape
+    # this rank's heads under a tensor-parallel serving group
+    H, Hkv = local_heads(cfg.n_heads), local_heads(cfg.kv_heads, "kv heads")
+    Dh = cfg.head_dim
+    D, kv_dim = H * Dh, Hkv * Dh
     eps = cfg.layer_norm_eps
     scale = cfg.softmax_scale or Dh ** -0.5
 
@@ -193,10 +208,10 @@ def _layer_forward(lp, h, bias, slopes, segment_ids, positions, cfg: MptConfig,
                                            alibi_slopes=slopes, sm_scale=scale, bias=bias)
     staged = llama._stage(cache, k, v) if paged else None
 
-    h = h + matmul(attn_out.reshape(B, T, D), lp["attn"]["out_proj"])
+    h = h + matmul(attn_out.reshape(B, T, D), lp["attn"]["out_proj"], row_parallel=True)
     hn = layer_norm(h, lp["norm2"], eps)
     inner = F.gelu(matmul(hn, lp["mlp"]["up_proj"]).float())   # exact (erf) GELU
-    return h + matmul(inner.to(hn.dtype), lp["mlp"]["down_proj"]), staged
+    return h + matmul(inner.to(hn.dtype), lp["mlp"]["down_proj"], row_parallel=True), staged
 
 
 def _train_layer(lp, h, bias, slopes, segment_ids, cfg: MptConfig):
@@ -245,7 +260,9 @@ def decoder_forward(
     if cfg.learned_pos_emb and not cfg.alibi:
         # idle engine rows sit at max_len: clamp as a gather that drops nothing
         h = h + params["wpe"][positions.long().clamp(0, cfg.max_seq_len - 1)]
-    slopes = _device_slopes(cfg.n_heads, cfg.alibi_bias_max, h.device) if cfg.alibi else None
+    slopes = None
+    if cfg.alibi:
+        slopes = _device_slopes(cfg.n_heads, cfg.alibi_bias_max, h.device, tp_rank(), tp_size())
     paged = isinstance(cache, PagedKVCache)
     kv_pos = positions
     if cache is not None and not paged:
@@ -278,8 +295,13 @@ def decoder_forward(
 
 def lm_head(params, cfg: MptConfig, hidden: torch.Tensor) -> torch.Tensor:
     """f32 logits of the head tied to ``wte`` (ref llava_mpt.py:79:
-    ``F.linear(h, wte.weight)``), times ``logit_scale`` when set."""
-    logits = llama.head_logits(hidden, params["wte"].T)
+    ``F.linear(h, wte.weight)``), times ``logit_scale`` when set. Under a
+    tensor-parallel serving group each rank multiplies by its vocab rows of
+    ``wte`` and the shards' logits are gathered."""
+    w = params["wte"]
+    if tp_size() > 1:
+        w = w[slice(*vocab_range(w.shape[0]))]
+    logits = gather_vocab(llama.head_logits(hidden, w.T))
     if cfg.logit_scale is not None:
         logits = logits * cfg.logit_scale
     return logits

@@ -33,7 +33,10 @@ when a program is traced, so it reaches only the engine's programs).
 
 Over a mesh (DTensor activations) a quantized product runs on each rank's
 shards (:func:`_sharded_product`); plain products stay DTensor ops between
-fixed layouts (:func:`_sharded_plain_product`).
+fixed layouts (:func:`_sharded_plain_product`). Tensor-parallel serving
+(``parallel/tp.py``) holds plain local shards instead: a product by a
+row-parallel matrix (``matmul(..., row_parallel=True)``) sums the ranks'
+partial products over the serving group.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from torch.distributed.tensor import DTensor
 from llava_plus_torch.ops import quant_matmul, w8a8
 from llava_plus_torch.ops.quant_matmul import INT4_BLOCK, unpack_int4 as _unpack_int4  # noqa: F401
 from llava_plus_torch.ops.quant_matmul import pack_int4_native, unpack_int4_native  # noqa: F401
+from llava_plus_torch.parallel import tp
 
 QKEY = "qvalue"
 Q4KEY = "qvalue4"
@@ -154,21 +158,41 @@ def w8a8_scope(enabled: bool = True):
 
 
 def _w8a8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
-                 out_dtype=None, q_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 out_dtype=None, q_t: Optional[torch.Tensor] = None,
+                 row_parallel: bool = False) -> torch.Tensor:
     """x [..., K] @ int8 q [K, N] with per-row dynamic int8 activations (JAX
     ``quant.py:146``): ``(xq @ q) * row scale * column scale``, through
     :func:`ops.w8a8.matmul_w8a8`; ``q_t`` is q's K-major copy, if kept."""
     lead, K = x.shape[:-1], x.shape[-1]
-    out = w8a8.matmul_w8a8(x.reshape(-1, K), q, scale, out_dtype=out_dtype, qw_t=q_t)
+    out = w8a8.matmul_w8a8(x.reshape(-1, K), q, scale, out_dtype=out_dtype, qw_t=q_t,
+                           row_parallel=row_parallel)
     return out.reshape(*lead, q.shape[-1])
 
 
-def matmul(x: torch.Tensor, w, *, out_dtype=None) -> torch.Tensor:
+def _takes_w8a8(x: torch.Tensor, w) -> bool:
+    """The W8A8 gate (JAX ``quant.py:229-231``): enabled, a 2-D int8 weight,
+    a floating x of at least ``_W8A8_MIN_ROWS`` rows."""
+    return (QKEY in w and w[QKEY].dim() == 2 and x.numel() >= _W8A8_MIN_ROWS * x.shape[-1]
+            and w8a8_enabled() and x.is_floating_point())
+
+
+def matmul(x: torch.Tensor, w, *, out_dtype=None, row_parallel: bool = False) -> torch.Tensor:
     """x @ w for a plain or quantized w; ``out_dtype`` defaults to x's. A
     quantized product runs the int8 / int4 kernel on the card (which raises
     for shapes it does not take) and its plain version on the CPU; with
     W8A8 enabled, a product of at least ``_W8A8_MIN_ROWS`` rows by a 2-D
-    int8 weight runs :func:`ops.w8a8.matmul_w8a8`."""
+    int8 weight runs :func:`ops.w8a8.matmul_w8a8`.
+
+    ``row_parallel``: w is this rank's rows of a matrix split over K across
+    the active tensor-parallel group (``parallel/tp.py``), and the ranks'
+    partial products are summed over it (in the output dtype; a W8A8
+    product quantizes x by the whole K's row absmax and sums its int32
+    products). Without an active group, or at tp = 1, it changes nothing."""
+    if row_parallel and tp.tp_size() > 1:
+        if is_quantized(w) and _takes_w8a8(x, w):
+            return _w8a8_matmul(x, w[QKEY], w[SKEY], out_dtype=out_dtype, q_t=w.get(QTKEY),
+                                row_parallel=True)
+        return tp.reduce_partial(matmul(x, w, out_dtype=out_dtype))
     if isinstance(w, dict) and LORA_A in w:
         base = {k: v for k, v in w.items() if k not in (LORA_A, LORA_B)}
         y = matmul(x, base.get(WKEY, base), out_dtype=out_dtype)
@@ -187,8 +211,7 @@ def matmul(x: torch.Tensor, w, *, out_dtype=None) -> torch.Tensor:
     x2 = x.reshape(-1, K)
     if Q4KEY in w:
         out = quant_matmul.matmul_int4(x2, w[Q4KEY], w[SKEY], out_dtype=out_dtype)
-    elif (w[QKEY].dim() == 2 and x2.shape[0] >= _W8A8_MIN_ROWS and w8a8_enabled()
-            and x.is_floating_point()):
+    elif _takes_w8a8(x, w):
         return _w8a8_matmul(x, w[QKEY], w[SKEY], out_dtype=out_dtype, q_t=w.get(QTKEY))
     else:
         out = quant_matmul.matmul_int8(x2, w[QKEY], w[SKEY], out_dtype=out_dtype)

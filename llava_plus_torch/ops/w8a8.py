@@ -42,6 +42,7 @@ import torch
 
 from llava_plus_torch.kernels import build
 from llava_plus_torch.ops.quant_matmul import dequantize
+from llava_plus_torch.parallel import tp
 
 AMAX_FLOOR = 1e-6
 QMAX = 127.0
@@ -60,10 +61,13 @@ def _full(t, value):
     return torch.full_like(t, value)
 
 
-def quantize_rows_reference(x: torch.Tensor):
+def quantize_rows_reference(x: torch.Tensor, amax: Optional[torch.Tensor] = None):
     """Plain version of :func:`w8a8_quantize_rows`: ``(int8 [R, K], f32
     [R])``."""
-    amax = x.abs().amax(dim=-1, keepdim=True)
+    if amax is None:
+        amax = x.abs().amax(dim=-1, keepdim=True)
+    else:
+        amax = amax.reshape(-1, 1).to(x.dtype)
     amax = torch.maximum(amax, _full(amax, AMAX_FLOOR))           # in x's dtype
     af = amax.float()
     inv = _full(af, QMAX) / af
@@ -86,21 +90,29 @@ def _check_rows(x):
                          f"{MAX_ROW_BYTES} bytes and the row stride 32-bit")
 
 
-def w8a8_quantize_rows(x: torch.Tensor):
+def w8a8_quantize_rows(x: torch.Tensor, amax: Optional[torch.Tensor] = None):
     """x [R, K] (bf16 or f32) -> (xq int8 [R, K], row scale f32 [R]): the
-    CUDA kernel for a CUDA x, the plain version for a CPU one."""
+    CUDA kernel for a CUDA x, the plain version for a CPU one. ``amax`` [R]
+    in x's dtype, when given, is each row's absmax (a row-parallel
+    product's maximum over every rank's slice of K): the kernel then skips
+    its reduction."""
     if x.device.type == "cpu":
-        return quantize_rows_reference(x)
+        return quantize_rows_reference(x, amax)
     if not x.is_cuda:
         raise _no_path("w8a8_quantize_rows", x)
     _check_rows(x)
     R, K = x.shape
+    if amax is not None and (amax.dtype != x.dtype or amax.numel() != R
+                             or not amax.is_contiguous() or amax.device != x.device):
+        raise ValueError(f"w8a8_quantize_rows: amax must be a contiguous [{R}] {x.dtype} "
+                         f"tensor on {x.device}")
     xq = torch.empty((R, K), dtype=torch.int8, device=x.device)
     scale = torch.empty(R, dtype=torch.float32, device=x.device)
     stream = torch._C._cuda_getCurrentRawStream(x.get_device())
     build.check(build.lib().w8a8_quantize_rows(
         x.data_ptr(), int(x.dtype == torch.bfloat16), R, K, x.stride(0), xq.data_ptr(),
-        scale.data_ptr(), stream), "w8a8_quantize_rows")
+        scale.data_ptr(), None if amax is None else amax.data_ptr(), stream),
+        "w8a8_quantize_rows")
     build.count_launch(w8a8_quantize_rows)
     return xq, scale
 
@@ -173,11 +185,22 @@ def w8a8_epilogue(acc: torch.Tensor, row_scale: torch.Tensor, col_scale: torch.T
 
 
 def w8a8_product(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
-                 out_dtype: torch.dtype, qw_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 out_dtype: torch.dtype, qw_t: Optional[torch.Tensor] = None,
+                 row_parallel: bool = False) -> torch.Tensor:
     """x [R, K] @ int8 qw [K, N] through int8 activations: quantize, the
-    int32 product, the epilogue."""
-    xq, row_scale = w8a8_quantize_rows(x)
-    return w8a8_epilogue(w8a8_int_mm(xq, qw, qw_t), row_scale, scale, out_dtype)
+    int32 product, the epilogue. ``row_parallel``: x and qw hold this rank's
+    slice of K of a product split over the active tensor-parallel group;
+    each row is quantized by its absmax over the whole K (the ranks'
+    maximum) and the int32 sums are added over the group before the
+    epilogue, as GSPMD partitions the JAX function, so the result is the
+    whole product's bit for bit."""
+    if not row_parallel or tp.tp_size() == 1:
+        xq, row_scale = w8a8_quantize_rows(x)
+        return w8a8_epilogue(w8a8_int_mm(xq, qw, qw_t), row_scale, scale, out_dtype)
+    amax = tp.reduce_max(x.abs().amax(dim=-1))
+    xq, row_scale = w8a8_quantize_rows(x, amax)
+    acc = tp.reduce_partial(w8a8_int_mm(xq, qw, qw_t))
+    return w8a8_epilogue(acc, row_scale, scale, out_dtype)
 
 
 class _W8A8Matmul(torch.autograd.Function):
@@ -200,14 +223,18 @@ class _W8A8Matmul(torch.autograd.Function):
 
 def matmul_w8a8(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, *,
                 out_dtype: Optional[torch.dtype] = None,
-                qw_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+                qw_t: Optional[torch.Tensor] = None,
+                row_parallel: bool = False) -> torch.Tensor:
     """x [R, K] @ int8 qw [K, N] times scale [1, N] with x quantized by row,
     -> [R, N] in ``out_dtype`` (x's dtype by default), with a gradient to x;
-    ``qw_t`` the weight's K-major copy, if it has one."""
+    ``qw_t`` the weight's K-major copy, if it has one; ``row_parallel`` as
+    :func:`w8a8_product` (serving only: no gradient)."""
     out_dtype = out_dtype or x.dtype
     if torch.is_grad_enabled() and x.requires_grad:
+        if row_parallel and tp.tp_size() > 1:
+            raise NotImplementedError("a row-parallel W8A8 product has no backward")
         return _W8A8Matmul.apply(x, qw, scale, out_dtype, qw_t)
-    return w8a8_product(x, qw, scale, out_dtype, qw_t)
+    return w8a8_product(x, qw, scale, out_dtype, qw_t, row_parallel)
 
 
 for _wrapper in (w8a8_quantize_rows, w8a8_int_mm, w8a8_epilogue):

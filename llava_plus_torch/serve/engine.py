@@ -49,17 +49,32 @@ while and probes again. A sampled slot takes one token a step, drawn from
 ``w8a8=True`` runs the prefills' int8 products with int8 activations (the
 JAX engine's ``w8a8``), for this engine's forward calls only.
 
-Not ported (the argument raises): the tensor-parallel mesh (ROADMAP Queue 1
-item 10).
+Tensor parallelism (``mesh=make_mesh(1, 1, tp)``, ``parallel/tp.py``): one
+process a card, every rank constructing the engine with the same arguments.
+Each rank keeps its shard of the tree (heads, FFN columns, the head's
+vocab), its kv heads of the caches and a replica of every other piece of
+device state. Rank 0 serves: it runs the two threads, tokenizes, plans,
+keeps the pages, their refcounts and the prefix cache, and issues each
+call that writes device state (a prefill, an insert, a page attach, a
+suffix prefill, a token write, a decode chunk, a speculative refresh or
+step) as an op with host arguments through :class:`~llava_plus_torch.
+parallel.tp.StepDriver`; every other rank calls :meth:`BatchedEngine.follow`,
+which replays the ops in rank 0's order until :meth:`BatchedEngine.stop`.
+Both backbones, dense and paged caches, bf16 or int8 KV, plain, int8 or
+int4 weights, ``speculate`` and ``w8a8`` serve so; the paged kernels run on
+the rank's kv heads (the JAX engine forces its XLA attention under a mesh,
+since its Pallas kernel has no partitioning rule).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import queue
 import threading
 import time
+import weakref
 from collections import deque
 from typing import Dict, List, Optional, Sequence
 
@@ -68,12 +83,13 @@ import torch
 
 from llava_plus_torch.constants import IMAGE_TOKEN_INDEX
 from llava_plus_torch.data.multimodal import plan_multimodal_batch
-from llava_plus_torch.generate import nucleus, prepare_multimodal_request
+from llava_plus_torch.generate import batch_to_device, multimodal_arrays, nucleus
 from llava_plus_torch.mm_utils import tokenizer_image_token
 from llava_plus_torch.models import llama, llava as llava_model
 from llava_plus_torch.models.configs import LlavaConfig
 from llava_plus_torch.models.llava import MultimodalBatch
 from llava_plus_torch.ops import quant
+from llava_plus_torch.parallel import tp as tp_lib
 from llava_plus_torch.serve.prefix_cache import PagePrefixCache, image_digest, page_keys
 
 logger = logging.getLogger(__name__)
@@ -127,6 +143,7 @@ class _Prepared:
 
     req: Request
     cache1: llama.KVCache   # bucket-sized prefill cache, maybe a whole batch's
+    pid: int                # its id (the ops name it by id)
     row: int                # this request's row of it
     first_id: int
     prompt_len: int
@@ -168,6 +185,7 @@ class _InflightPrefill:
     reqs: List[Request]
     firsts: torch.Tensor    # [N] sampled first tokens, on the device
     cacheN: llama.KVCache   # bucket-sized prefill cache
+    pid: int                # its id
     plan: object            # host token plan (lengths, tokens)
     keymap: Dict[int, List[bytes]]  # paged: id(request) -> its page keys
     t0: float               # host clock at the start (for the debug log)
@@ -215,6 +233,13 @@ def sample_batch(logits: torch.Tensor, temperature: torch.Tensor, top_p: torch.T
     gumbel = -torch.log(-torch.log(counter_uniform(seeds, positions, logits.shape[-1])))
     sampled = torch.argmax(filtered + gumbel, dim=-1)
     return torch.where(temperature > 0.0, sampled, greedy)
+
+
+def _sampling(reqs: List[Request], n_real: int):
+    """The rows' (temperatures, top-ps, seeds) as host lists; rows from
+    ``n_real`` on are batch padding and take the argmax."""
+    return ([r.temperature if i < n_real else 0.0 for i, r in enumerate(reqs)],
+            [r.top_p for r in reqs], [r.seed & _MASK32 for r in reqs])
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +309,7 @@ def _to_host(t: torch.Tensor):
 # Engine
 # ---------------------------------------------------------------------------
 
-class BatchedEngine:
+class BatchedEngine(tp_lib.Replicated):
     def __init__(
         self,
         params,
@@ -321,10 +346,15 @@ class BatchedEngine:
         threads and :meth:`warmup` hold ``quant.w8a8_scope``, so no other
         code of the process is switched. It gives the decoder's int8
         matrices their K-major copies (``quant.add_kmajor_copies``, in the
-        caller's tree: as many bytes again as those matrices)."""
-        if mesh is not None:
-            raise NotImplementedError("BatchedEngine(mesh=...) is not ported yet: tensor-parallel "
-                                      "serving (ROADMAP Queue 1 item 10)")
+        caller's tree: as many bytes again as those matrices).
+
+        ``mesh`` (a ``make_mesh(1, 1, tp)`` mesh, or a process group) serves
+        over tensor parallelism: ``params`` (the whole tree, quantized
+        whole first if at all, or this rank's shard of it) is cut to this
+        rank's shard (``parallel/tp.shard_for_serving``, which raises for
+        heads that do not split); rank 0 serves and every other rank must
+        call :meth:`follow`."""
+        params = self._serve_over(mesh, params, cfg)
         self.w8a8 = bool(w8a8)
         if self.w8a8:
             # the IMMA product reads K-major int8 (ops/w8a8.py)
@@ -405,14 +435,22 @@ class BatchedEngine:
         self._spec_inflight: "deque" = deque()
         self.spec_depth = 2
         self._eos_id = int(getattr(tokenizer, "eos_token_id", 2) or 2)
+        # the prefill caches that inserts will read, by id: rank 0 holds
+        # each through its prepared requests (weakly here); a follower keeps
+        # those that rank 0 still held at its latest prefill
+        self._caches = weakref.WeakValueDictionary() if self.leader else {}
+        self._pids = itertools.count()
 
-        self.cache = self._make_cache()
+        with tp_lib.activate_tp(self.tp):
+            self.cache = self._make_cache()
         self.tokens = torch.zeros(max_slots, 1, dtype=torch.int64, device=self.device)
-        self._thread = threading.Thread(target=self._scoped(self._loop), daemon=True)
-        self._thread.start()
-        self._prefill_thread = threading.Thread(target=self._scoped(self._prefill_loop),
-                                                daemon=True)
-        self._prefill_thread.start()
+        self._thread = self._prefill_thread = None
+        if self.leader:
+            self._thread = threading.Thread(target=self._scoped(self._loop), daemon=True)
+            self._thread.start()
+            self._prefill_thread = threading.Thread(target=self._scoped(self._prefill_loop),
+                                                    daemon=True)
+            self._prefill_thread.start()
 
     # ------------------------------------------------------------------
 
@@ -422,6 +460,81 @@ class BatchedEngine:
             with quant.w8a8_scope(self.w8a8):
                 return fn(*args, **kwargs)
         return run
+
+    def _op_context(self):
+        """Every op runs in the engine's W8A8 scope, whichever thread issues
+        or replays it."""
+        return quant.w8a8_scope(self.w8a8)
+
+    def follow(self) -> int:
+        """A follower rank's serving loop: replay rank 0's ops until it
+        stops; returns the ops replayed."""
+        return self._follow()
+
+    # -- ops: every call that writes device state, with host arguments ----
+
+    def _op_prefill(self, pid: int, live: List[int], arrays: Dict[str, np.ndarray],
+                    temps, tops, seeds, positions):
+        """A batch's prefill into a fresh bucket-sized cache (kept as
+        ``pid``): (the cache, the first tokens, the last-token logits); the
+        prefill caches not in ``live`` are dropped."""
+        for k in [k for k in self._caches.keys() if k not in live]:
+            self._caches.pop(k, None)
+        batch = batch_to_device(arrays, self.device)
+        N, T = batch.tokens.shape
+        cacheN = self._make_cache(batch=N, seq_len=T, force_dense=True)
+        logits = self._prefill(batch, cacheN)
+        firsts = self._sample_first(logits, temps, tops, seeds, positions)
+        self._caches[pid] = cacheN
+        return cacheN, firsts, logits
+
+    def _op_insert(self, pid: int, row: int, slot: int, first_token: int):
+        self._insert(self._caches[pid], row, slot, first_token)
+
+    def _op_insert_paged(self, pid: int, row: int, slot: int, pages: List[int],
+                         first_token: int):
+        self._insert_paged(self._caches[pid], row, slot, pages, first_token)
+
+    def _op_suffix(self, slot: int, pages: List[int], prefix_len: int, toks: np.ndarray,
+                   seg: np.ndarray, temps, tops, seeds, positions) -> torch.Tensor:
+        """A prefix-cache hit's suffix prefill and its first token [1]."""
+        last = self._prefill_suffix(slot, pages, prefix_len, torch.from_numpy(toks).to(self.device),
+                                    torch.from_numpy(seg).to(self.device))
+        return self._sample_first(last, temps, tops, seeds, positions)
+
+    def _op_set_token(self, tid: int, slot: int):
+        self._set_token(tid, slot)
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the device without waiting for the card: staged
+        in pinned memory and copied behind the work already queued (a
+        pageable copy would hold the host until the stream drains)."""
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _op_set_tokens(self, tokens: np.ndarray):
+        self.tokens = self._upload(tokens)
+
+    def _op_decode(self, positions, active, temps, tops, seeds, any_sampled: bool,
+                   n_steps: int) -> torch.Tensor:
+        """A decode chunk from host arrays; ``self.tokens`` takes its last
+        column. Returns its tokens [B, n_steps]."""
+        dev = self._upload
+        toks, self.tokens = self._decode_n(dev(positions), dev(active), dev(temps), dev(tops),
+                                           dev(seeds), any_sampled, n_steps)
+        return toks
+
+    def _op_spec_refresh(self, cur, hlen, hist, prop, budget, active, seeds, temps, tops):
+        dev = self._upload
+        self._spec_dev = self._spec_state(
+            cur=cur, hlen=hlen, hist=hist, prop=prop, budget=budget, active=dev(active),
+            seeds=dev(seeds), temps=dev(temps), tops=dev(tops),
+            any_sampled=bool((temps > 0).any()))
+
+    def _op_spec_step(self, m: int) -> torch.Tensor:
+        return self._spec_step(self._spec_dev, m)
 
     def _make_cache(self, batch=None, seq_len=None, force_dense=False) -> llama.Cache:
         """The slot pool's cache (paged when the engine is), or with
@@ -678,9 +791,13 @@ class BatchedEngine:
         return self.drain(request)
 
     def stop(self):
+        """End the threads and, under tensor parallelism, the followers'
+        replay (rank 0)."""
         self._stop.set()
-        self._thread.join(timeout=5)
-        self._prefill_thread.join(timeout=5)
+        for thread in (self._thread, self._prefill_thread):
+            if thread is not None:
+                thread.join(timeout=5)
+        self._end_followers()
 
     @property
     def num_active(self) -> int:
@@ -741,34 +858,37 @@ class BatchedEngine:
             # finished request leaves behind; the next insert rebuilds it
             if self.paged:
                 pages = self._alloc_pages(prep.needed_pages)
-                self._insert_paged(prep.cache1, prep.row, 0, pages, prep.first_id)
+                self._issue("insert_paged", prep.pid, prep.row, 0, pages, prep.first_id)
                 self._release_pages(pages)
             else:
-                self._insert(prep.cache1, prep.row, 0, prep.first_id)
-        B = self.max_slots
-        positions = torch.full((B,), self.max_seq_len, dtype=torch.int32, device=self.device)
-        active = torch.zeros(B, dtype=torch.bool, device=self.device)
-        temps = torch.zeros(B, device=self.device)
-        tops = torch.ones(B, device=self.device)
-        seeds = torch.zeros(B, dtype=torch.int64, device=self.device)
+                self._issue("insert", prep.pid, prep.row, 0, prep.first_id)
+        B, S = self.max_slots, self.max_seq_len
+        positions = np.full(B, S, np.int32)
+        active = np.zeros(B, bool)
+        temps = np.zeros(B, np.float32)
+        tops = np.ones(B, np.float32)
+        seeds = np.zeros(B, np.int64)
         for k in sorted({1, self.decode_chunk}):
-            self._decode_n(positions, active, temps, tops, seeds, False, k)
+            self._issue("decode", positions, active, temps, tops, seeds, False, k)
         if self.speculate:
             # every slot dead (hlen 0, inactive): nothing is attended or
             # emitted; the writes land where the next insert rewrites
+            k = self.speculate
             for m in sorted({1, self.spec_chunk}):
-                self._spec_step(self._spec_state(active=active, seeds=seeds, temps=temps,
-                                                 tops=tops, any_sampled=False), m)
+                self._issue("spec_refresh", np.zeros(B, np.int64), np.zeros(B, np.int64),
+                            np.zeros((B, S + 1), np.int64), np.zeros((B, k), np.int64),
+                            np.zeros(B, np.int64), active, seeds, temps, tops)
+                self._issue("spec_step", m)
+            self._spec_dev = None
         if self.paged and self._prefix is not None:
             # a suffix prefill of 8 tokens after one page, in a single bucket,
             # and its first-token sampling (nothing else is live: page 0 is
             # free, and slot 0's state is rebuilt at its next insert)
-            toks = torch.zeros(1, self.prefill_bucket, dtype=torch.int64, device=self.device)
-            seg = torch.zeros(1, self.prefill_bucket, dtype=torch.int32, device=self.device)
+            toks = np.zeros((1, self.prefill_bucket), np.int64)
+            seg = np.zeros((1, self.prefill_bucket), np.int32)
             toks[0, :8], seg[0, :8] = 1, 1
-            last = self._prefill_suffix(0, [0, 0], self.page_size, toks, seg)
-            sample_batch(last, temps[:1], tops[:1], seeds[:1], positions[:1].long(), False)
-        self._set_token(0, 0)
+            self._issue("suffix", 0, [0, 0], self.page_size, toks, seg, [0.0], [1.0], [0], [S])
+        self._issue("set_token", 0, 0)
         self.tokens.cpu()  # wait for all of it
         self.warmup_s = time.perf_counter() - t0
         logger.info("warmup: %.1fs (prompt bucket for len %d, image=%s, batch sizes %s)",
@@ -921,32 +1041,31 @@ class BatchedEngine:
         images = None
         if any(r.images is not None for r in reqs):
             images = [r.images for r in reqs] + [reqs[-1].images] * pad
-        batch, plan = prepare_multimodal_request(
+        arrays, plan = multimodal_arrays(
             self.cfg, self.tokenizer, prompts, images, max_seq_len=self.max_seq_len,
-            device=self.device, prefill_bucket=self.prefill_bucket)
+            prefill_bucket=self.prefill_bucket)
         t_host = time.perf_counter()
 
-        cacheN = self._make_cache(batch=N, seq_len=int(batch.tokens.shape[1]), force_dense=True)
-        last_logits = self._prefill(batch, cacheN)
-        firsts = self._sample_first(last_logits, reqs + [reqs[-1]] * pad, n_real,
-                                    np.maximum(np.asarray(plan.lengths) - 1, 0).tolist())
-        return _InflightPrefill(reqs=reqs, firsts=firsts, cacheN=cacheN, plan=plan,
+        pid = next(self._pids)
+        cacheN, firsts, _ = self._issue(
+            "prefill", pid, list(self._caches.keys()), arrays,
+            *_sampling(reqs + [reqs[-1]] * pad, n_real),
+            np.maximum(np.asarray(plan.lengths) - 1, 0).tolist())
+        return _InflightPrefill(reqs=reqs, firsts=firsts, cacheN=cacheN, pid=pid, plan=plan,
                                 keymap=keymap or {}, t0=t0, t_host=t_host,
                                 t_dispatch=time.perf_counter())
 
-    def _sample_first(self, logits: torch.Tensor, reqs: List[Request], n_real: int,
+    def _sample_first(self, logits: torch.Tensor, temps, tops, seeds,
                       positions: List[int]) -> torch.Tensor:
-        """First tokens [N] from the last-token logits [N, V] of ``reqs``
-        (rows from ``n_real`` on are batch padding and take the argmax),
-        keyed on (seed, position) as every decode step samples."""
+        """First tokens [N] from the last-token logits [N, V] and the rows'
+        sampling settings (:func:`_sampling`), keyed on (seed, position) as
+        every decode step samples."""
         def dev(values, dtype):
             return torch.tensor(values, dtype=dtype, device=self.device)
 
-        temps = [r.temperature if i < n_real else 0.0 for i, r in enumerate(reqs)]
-        return sample_batch(
-            logits, dev(temps, torch.float32), dev([r.top_p for r in reqs], torch.float32),
-            dev([r.seed & _MASK32 for r in reqs], torch.int64), dev(positions, torch.int64),
-            any(t > 0.0 for t in temps))
+        return sample_batch(logits, dev(temps, torch.float32), dev(tops, torch.float32),
+                            dev(seeds, torch.int64), dev(positions, torch.int64),
+                            any(t > 0.0 for t in temps))
 
     def _finish_prefill(self, inf: _InflightPrefill) -> List[Optional[_Prepared]]:
         """Fetch the batch's first tokens (the wait for its prefill), emit
@@ -975,7 +1094,7 @@ class BatchedEngine:
                 preps.append(None)  # never occupies a slot
                 continue
             history = [int(t) for t in tokens_host[i][:prompt_len]] + [tid]
-            preps.append(_Prepared(req=req, cache1=inf.cacheN, row=i, first_id=tid,
+            preps.append(_Prepared(req=req, cache1=inf.cacheN, pid=inf.pid, row=i, first_id=tid,
                                    prompt_len=prompt_len, budget=budget, out_ids=out_ids,
                                    history=history, needed_pages=needed_pages,
                                    page_keys=inf.keymap.get(id(req), [])))
@@ -1034,13 +1153,13 @@ class BatchedEngine:
         if self.paged:
             pages = self._alloc_pages(prep.needed_pages)  # may raise _PoolExhausted
             try:
-                self._insert_paged(prep.cache1, prep.row, slot_id, pages, prep.first_id)
+                self._issue("insert_paged", prep.pid, prep.row, slot_id, pages, prep.first_id)
             except Exception:
                 self._release_pages(pages)
                 raise
             self._publish_prefix(prep.page_keys, pages)
         else:
-            self._insert(prep.cache1, prep.row, slot_id, prep.first_id)
+            self._issue("insert", prep.pid, prep.row, slot_id, prep.first_id)
         slot = self._slots[slot_id]
         slot.pages = pages
         slot.request = prep.req
@@ -1065,10 +1184,8 @@ class BatchedEngine:
         seg = np.zeros((1, Tb), np.int32)
         seg[0, :suffix_len] = 1
         try:
-            last = self._prefill_suffix(slot_id, pages, prep.prefix_len,
-                                        torch.from_numpy(toks).to(self.device),
-                                        torch.from_numpy(seg).to(self.device))
-            tid = int(self._sample_first(last, [req], 1, [prep.prompt_len - 1])[0])
+            tid = int(self._issue("suffix", slot_id, pages, prep.prefix_len, toks, seg,
+                                  *_sampling([req], 1), [prep.prompt_len - 1])[0])
         except Exception:
             self._release_pages(pages)  # the pinned hits are this request's too
             raise
@@ -1084,7 +1201,7 @@ class BatchedEngine:
             # seg row and page table
             self._release_pages(pages)
             return
-        self.tokens[slot_id, 0] = tid
+        self._issue("set_token", tid, slot_id)
         slot = self._slots[slot_id]
         slot.request = req
         slot.out_ids = out_ids
@@ -1150,7 +1267,7 @@ class BatchedEngine:
         def dev_or_zeros(x, *shape):
             if x is None:
                 return torch.zeros(shape, dtype=torch.int64, device=dev)
-            return torch.from_numpy(x).to(dev)
+            return self._upload(x)
 
         return {"cur": dev_or_zeros(cur, B), "hlen": dev_or_zeros(hlen, B),
                 "hist": dev_or_zeros(hist, B, S + 1), "prop": dev_or_zeros(prop, B, k),
@@ -1191,20 +1308,14 @@ class BatchedEngine:
             # token, emitted by the prefill, enters as cur
             slot.skip_next_emit = False
 
-        def dev(a):
-            return torch.from_numpy(a).to(self.device)
-
-        self._spec_dev = self._spec_state(
-            cur=cur, hlen=hlen, hist=hist, prop=prop, budget=budget, active=dev(active),
-            seeds=dev(seeds), temps=dev(temps), tops=dev(tops),
-            any_sampled=bool((temps > 0).any()))
+        self._issue("spec_refresh", cur, hlen, hist, prop, budget, active, seeds, temps, tops)
         self.spec_timers["refresh"] += time.perf_counter() - t0
 
     def _spec_dispatch(self, m: int):
         """Queue a chunk of ``m`` verify steps on the current device state and
         start the copy of its rows to the host, with no host sync."""
         t0 = time.perf_counter()
-        host, event = _to_host(self._spec_step(self._spec_dev, m))
+        host, event = _to_host(self._issue("spec_step", m))
         self.spec_timers["dispatch"] += time.perf_counter() - t0
         # the slots' requests now: a slot that turns over before the fetch
         # (a finish, then an admission) must not take this chunk's tokens
@@ -1314,7 +1425,7 @@ class BatchedEngine:
             self.spec_pauses += 1
             recent.clear()
             self._spec_dev = None
-            self.tokens = torch.from_numpy(self._current_tokens()[:, None]).to(self.device)
+            self._issue("set_tokens", self._current_tokens()[:, None])
             for slot in self._slots:
                 if slot.request is not None:
                     slot.skip_next_emit = True
@@ -1360,12 +1471,9 @@ class BatchedEngine:
         if len(active_idx) > 1:
             self.multi_slot_steps += k
 
-        def dev(a):
-            return torch.from_numpy(a).to(self.device)
-
         prev = self.tokens
-        toks, self.tokens = self._decode_n(dev(positions), dev(active), dev(temps), dev(tops),
-                                           dev(seeds), bool((temps > 0).any()), k)
+        toks = self._issue("decode", positions, active, temps, tops, seeds,
+                           bool((temps > 0).any()), k)
         # The column held over from the previous chunk (or a fresh slot's
         # first token, skipped), then this chunk's columns but its last,
         # which is held in self.tokens and emitted next time.

@@ -13,7 +13,7 @@ serves one request at a time through the single-stream
 
     python -m llava_plus_torch.serve.model_worker --model-path DIR \
         [--model-base BASE] [--load-8bit | --load-4bit] [--kv-int8] [--paged] \
-        [--device cuda|cpu] [--no-register] ...
+        [--tp N] [--device cuda|cpu] [--no-register] ...
 
 :func:`main` takes the JAX worker's flags, plus ``--device`` (``cuda`` unless
 the caller asks for ``cpu``), loads the checkpoint through
@@ -21,6 +21,14 @@ the caller asks for ``cpu``), loads the checkpoint through
 :class:`TorchBackend` (:func:`load_backend`, :func:`backend_for`). Without a
 model path, or with ``--echo``, it serves the protocol-test
 :class:`EchoBackend`.
+
+``--tp N`` serves one model over N ranks, one process a card
+(``parallel/tp.py``): the worker spawns N - 1 follower processes (NCCL on
+``cuda:r``, or gloo with ``--device cpu``), each of which dies with it, and
+becomes rank 0. Rank 0 loads the checkpoint and sends it leaf by leaf, each
+rank keeping its slice (``models/builder.load_sharded_model``); only rank 0
+serves HTTP, registers and beats, and the followers replay its engine's
+device calls until it stops.
 """
 
 from __future__ import annotations
@@ -97,7 +105,11 @@ class TorchBackend:
     JAX worker's ``--speculate`` / ``--spec-chunk``. ``warmup_len`` > 0
     warms the engine at that prompt length before the first request.
     ``w8a8`` gives the engine int8 activations for its prefills (the JAX
-    worker's ``--w8a8``; the single-stream Generator ignores it, as in JAX)."""
+    worker's ``--w8a8``; the single-stream Generator ignores it, as in JAX).
+    ``mesh`` serves over tensor parallelism (the engine's or the Generator's
+    ``mesh``): every rank makes its backend with the same arguments, over
+    the whole tree (quantized here, whole, before it is cut) or its own
+    shard; rank 0 serves and every other rank calls :meth:`follow`."""
 
     def __init__(self, params, cfg, tokenizer, image_processor=None, *,
                  device, use_engine: bool = True, max_slots: int = 8,
@@ -105,7 +117,8 @@ class TorchBackend:
                  kv_int8: bool = False, max_seq_len: Optional[int] = None,
                  paged: bool = False, pool_tokens: Optional[int] = None,
                  prefix_cache: bool = True, speculate: int = 0, spec_chunk: int = 4,
-                 warmup_len: int = 0, stream_interval: int = 1, w8a8: bool = False):
+                 warmup_len: int = 0, stream_interval: int = 1, w8a8: bool = False,
+                 mesh=None):
         if quantize not in (None, "int8", "int4"):
             raise ValueError(f"quantize must be None, 'int8' or 'int4', got {quantize!r}")
         self.cfg = cfg
@@ -127,17 +140,26 @@ class TorchBackend:
                                         decode_chunk=decode_chunk, cache_dtype=cache_dtype,
                                         paged=paged, pool_tokens=pool_tokens,
                                         prefix_cache=prefix_cache, speculate=speculate,
-                                        spec_chunk=spec_chunk, w8a8=w8a8)
-            if warmup_len:
+                                        spec_chunk=spec_chunk, w8a8=w8a8, mesh=mesh)
+            if warmup_len and self.engine.leader:
                 self.engine.warmup(prompt_len=warmup_len, image=self.is_multimodal)
         else:
             self.generator = Generator(params, cfg, tokenizer, image_processor, device=device,
-                                       max_seq_len=self.context_len, cache_dtype=cache_dtype)
+                                       max_seq_len=self.context_len, cache_dtype=cache_dtype,
+                                       mesh=mesh)
+
+    def follow(self) -> int:
+        """A follower rank's loop (under ``mesh``): replay rank 0's device
+        calls until its :meth:`stop`."""
+        return (self.engine or self.generator).follow()
 
     def stop(self):
-        """Stop the engine's threads (no-op without an engine)."""
+        """Stop the engine's threads and, under tensor parallelism, the
+        followers (rank 0)."""
         if self.engine is not None:
             self.engine.stop()
+        if self.generator is not None:
+            self.generator.stop()
 
     def generate_stream(self, params: dict) -> Iterator[str]:
         """One request of the worker's protocol: the JAX backend's request
@@ -464,13 +486,6 @@ def build_app(worker: ModelWorker):
 # Command line
 # ---------------------------------------------------------------------------
 
-# flags of the JAX worker whose modules the port does not have yet
-_UNPORTED = (
-    ("tp", lambda v: v > 1, "--tp: tensor-parallel serving (the mesh) is not ported yet "
-                            "(ROADMAP Queue 1 item 10)"),
-)
-
-
 def parse_args(argv=None) -> argparse.Namespace:
     """The JAX worker's flags, plus ``--device``."""
     parser = argparse.ArgumentParser()
@@ -494,7 +509,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--kv-int8", action="store_true",
                         help="int8 KV cache with per-token, per-head scales")
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel serving over N cards (not ported yet)")
+                        help="tensor-parallel serving over N cards (one process a card)")
     parser.add_argument("--max-slots", type=int, default=8,
                         help="continuous-batching slot count")
     parser.add_argument("--no-engine", action="store_true",
@@ -531,17 +546,18 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def check_args(args: argparse.Namespace) -> None:
-    """Exit with a message for a flag whose module is not ported, and for a
-    CUDA device on a machine without one: the worker never falls back to
-    the CPU."""
-    for name, is_set, message in _UNPORTED:
-        if is_set(getattr(args, name)):
-            raise SystemExit(message)
+    """Exit with a message for a CUDA device on a machine without one (the
+    worker never falls back to the CPU) or with fewer cards than ``--tp``."""
     if args.echo or args.model_path is None:
         return
-    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: no CUDA device is available; pass "
-                         "--device cpu to serve on the CPU")
+    if args.tp < 1:
+        raise SystemExit(f"--tp {args.tp}: at least one rank")
+    if torch.device(args.device).type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit(f"--device {args.device}: no CUDA device is available; pass "
+                             "--device cpu to serve on the CPU")
+        if args.tp > torch.cuda.device_count():
+            raise SystemExit(f"--tp {args.tp}: only {torch.cuda.device_count()} CUDA devices")
 
 
 def _rope_scaled(cfg, rope_scaling: str):
@@ -560,57 +576,165 @@ def _rope_scaled(cfg, rope_scaling: str):
         cfg.text, rope_scaling_type=typ, rope_scaling_factor=factor))
 
 
-def load_backend(args: argparse.Namespace):
+def _quantize_flag(args: argparse.Namespace) -> Optional[str]:
+    return "int4" if args.load_4bit else "int8" if args.load_8bit else None
+
+
+def load_backend(args: argparse.Namespace, mesh=None):
     """``(backend, model_names)`` for the parsed flags: the checkpoint at
     ``--model-path`` loaded by ``load_pretrained_model`` and served by
-    :func:`backend_for`; or the echo backend."""
+    :func:`backend_for`; or the echo backend. With ``mesh`` (a rank of
+    ``--tp``; every rank calls this) rank 0 loads the checkpoint and each
+    rank keeps its quantized slice (``builder.load_sharded_model``)."""
     check_args(args)
     if args.echo or args.model_path is None:
         return EchoBackend(), [args.model_name or "echo"]
     from llava_plus_torch.mm_utils import get_model_name_from_path
-    from llava_plus_torch.models.builder import load_pretrained_model
+    from llava_plus_torch.models import builder
 
     name = args.model_name or get_model_name_from_path(args.model_path)
-    loaded = load_pretrained_model(args.model_path, args.model_base, name)
-    return backend_for(args, loaded), [name]
+    if mesh is None:
+        loaded = builder.load_pretrained_model(args.model_path, args.model_base, name)
+        return backend_for(args, loaded), [name]
+    from llava_plus_torch.parallel import tp as tp_lib
+
+    group = tp_lib.serving_group(mesh)
+    device = _rank_device(args.device, group.rank)
+    loaded = builder.load_sharded_model(args.model_path, args.model_base, name, tp=group,
+                                        device=device, quantize=_quantize_flag(args))
+    return backend_for(args, loaded, mesh=mesh, device=device, quantized=True), [name]
 
 
-def backend_for(args: argparse.Namespace, loaded) -> TorchBackend:
+def backend_for(args: argparse.Namespace, loaded, *, mesh=None, device=None,
+                quantized: bool = False) -> TorchBackend:
     """The :class:`TorchBackend` of the parsed flags over ``loaded``, the
     ``(tokenizer, params, cfg, image_processor, context_len)`` of
     ``load_pretrained_model``: ``--rope-scaling`` applied to the config, the
-    tree moved to ``--device`` (and consumed there by ``--load-8bit`` /
-    ``--load-4bit``)."""
+    tree moved to ``device`` (default ``--device``) and consumed there by
+    ``--load-8bit`` / ``--load-4bit`` unless ``quantized`` says it is
+    already; ``mesh`` as :class:`TorchBackend`'s."""
     tokenizer, params, cfg, processor, context_len = loaded
     if args.rope_scaling:
         cfg = _rope_scaled(cfg, args.rope_scaling)
+    device = device or args.device
     return TorchBackend(
-        tree_map(lambda x: x.to(args.device), params), cfg, tokenizer, processor,
-        device=args.device, use_engine=not args.no_engine, max_slots=args.max_slots,
-        decode_chunk=args.decode_chunk,
-        quantize="int4" if args.load_4bit else "int8" if args.load_8bit else None,
+        tree_map(lambda x: x.to(device), params), cfg, tokenizer, processor,
+        device=device, use_engine=not args.no_engine, max_slots=args.max_slots,
+        decode_chunk=args.decode_chunk, quantize=None if quantized else _quantize_flag(args),
         kv_int8=args.kv_int8, max_seq_len=args.max_seq_len or context_len,
         paged=args.paged, pool_tokens=args.pool_tokens,
         prefix_cache=not args.no_prefix_cache, speculate=args.speculate,
         spec_chunk=args.spec_chunk, warmup_len=args.warmup,
-        stream_interval=args.stream_interval, w8a8=args.w8a8)
+        stream_interval=args.stream_interval, w8a8=args.w8a8, mesh=mesh)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel ranks (--tp)
+# ---------------------------------------------------------------------------
+
+def _rank_device(device: str, rank: int) -> str:
+    """Rank ``rank``'s device: ``cuda:<rank>`` for a CUDA ``--device``."""
+    return f"cuda:{rank}" if torch.device(device).type == "cuda" else device
+
+
+def _join_group(args: argparse.Namespace, rank: int, port: int):
+    """Join the ``--tp`` ranks' process group (NCCL on the cards, gloo on
+    the CPU, with the serving timeout) and return its (1, 1, tp) mesh."""
+    import torch.distributed as dist
+
+    from llava_plus_torch.parallel import tp as tp_lib
+    from llava_plus_torch.parallel.mesh import make_mesh
+
+    cuda = torch.device(args.device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(rank)
+    dist.init_process_group("nccl" if cuda else "gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=args.tp, rank=rank, timeout=tp_lib.DATA_TIMEOUT)
+    return make_mesh(1, 1, args.tp, device_type="cuda" if cuda else "cpu")
+
+
+def _die_with_parent() -> None:
+    """Have the kernel kill this process when its parent (rank 0) dies."""
+    import ctypes
+    import signal
+
+    try:
+        ctypes.CDLL("libc.so.6", use_errno=True).prctl(1, int(signal.SIGKILL))  # PR_SET_PDEATHSIG
+    except (OSError, AttributeError):
+        pass
+
+
+def _follower_main(argv, rank: int, port: int) -> None:
+    """A follower rank of ``--tp``: join the group, take this rank's slice
+    of the checkpoint and replay rank 0's device calls until it stops."""
+    import torch.distributed as dist
+
+    _die_with_parent()
+    args = parse_args(argv)
+    mesh = _join_group(args, rank, port)
+    backend, _ = load_backend(args, mesh)
+    try:
+        backend.follow()
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def start_followers(argv, tp: int):
+    """Spawn ranks 1 .. tp - 1 of ``--tp`` (each dies with this process);
+    returns (their processes, the rendezvous port)."""
+    import torch.multiprocessing as mp
+
+    port = _free_port()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_follower_main, args=(list(argv), r, port), daemon=True)
+             for r in range(1, tp)]
+    for proc in procs:
+        proc.start()
+    return procs, port
 
 
 def main(argv=None):
+    import sys
+
     from aiohttp import web
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
-    backend, model_names = load_backend(args)
-    worker = ModelWorker(args.controller_address, args.worker_address, backend, model_names,
-                         limit_model_concurrency=args.limit_model_concurrency,
-                         no_register=args.no_register)
-    logger.info(f"args: {args}")
+    followers, mesh = [], None
+    if args.tp > 1 and not (args.echo or args.model_path is None):
+        check_args(args)
+        followers, port = start_followers(argv, args.tp)
+        mesh = _join_group(args, 0, port)
+    backend = None
     try:
-        web.run_app(build_app(worker), host=args.host, port=args.port)
+        backend, model_names = load_backend(args, mesh)
+        worker = ModelWorker(args.controller_address, args.worker_address, backend,
+                             model_names, limit_model_concurrency=args.limit_model_concurrency,
+                             no_register=args.no_register)
+        logger.info(f"args: {args}")
+        try:
+            web.run_app(build_app(worker), host=args.host, port=args.port)
+        finally:
+            worker.stop()
     finally:
-        worker.stop()
         if isinstance(backend, TorchBackend):
             backend.stop()
+        for proc in followers:
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.kill()
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

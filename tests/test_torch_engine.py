@@ -280,12 +280,37 @@ def test_quantized_engine_matches_jax_engine(bits):
         jeng.stop()
 
 
-def test_unported_engine_options_raise(setup):
-    """``mesh=`` still raises, citing its ROADMAP item; ``w8a8=True``
-    (ported) builds an engine."""
+def test_unported_engine_options_raise(setup, tmp_path, monkeypatch):
+    """The options that once raised serve: ``mesh=`` (here a one-rank
+    (1, 1, 1) mesh over gloo, greedy text equal to the plain engine's; the
+    multi-rank meshes are tests/test_torch_tp_serving.py's) and
+    ``w8a8=True``. A mesh whose tp does not divide the kv heads raises
+    ValueError, as another backbone does."""
+    import torch.distributed as dist
+
+    from llava_plus_torch.parallel import tp
+    from llava_plus_torch.parallel.mesh import make_mesh
+
     engine, _, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        BatchedEngine(engine.params, CFG, engine.tokenizer, mesh=object())
+    kw = dict(max_slots=2, max_seq_len=S, prefill_bucket=32, cache_dtype=torch.float32)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        eng = BatchedEngine(engine.params, CFG, engine.tokenizer,
+                            mesh=make_mesh(1, 1, 1, device_type="cpu"), **kw)
+        try:
+            assert eng.tp.size == 1 and eng.params is engine.params
+            for prompt in ["hello", "xyz"]:
+                assert (eng.generate(Request(prompt=prompt, max_new_tokens=6))
+                        == engine.generate(Request(prompt=prompt, max_new_tokens=6)))
+        finally:
+            eng.stop()
+    finally:
+        dist.destroy_process_group()
+    # 2 kv heads over tp = 4 (the shard plan raises before any collective)
+    monkeypatch.setattr(tp, "serving_group", lambda mesh: tp.TPGroup(None, 0, 4))
+    with pytest.raises(ValueError, match="2 kv heads do not split over tp = 4"):
+        BatchedEngine(engine.params, CFG, engine.tokenizer, mesh=object(), **kw)
     eng = BatchedEngine(engine.params, CFG, engine.tokenizer, w8a8=True)
     try:
         assert eng.w8a8 is True

@@ -182,19 +182,38 @@ def test_worker_main_serves_with_speculation(checkpoint):
 
 @pytest.mark.parametrize("flags, item", [(["--w8a8"], 7), (["--tp", "2"], 10)])
 def test_unported_worker_flags_exit_with_their_roadmap_item(checkpoint, flags, item):
-    """``--tp 2`` (serving over a mesh, item 10) still exits; ``--w8a8``
-    (item 7) is ported and reaches the engine."""
-    path, _ = checkpoint
-    argv = ["--model-path", str(path), "--device", "cpu", "--no-register", *flags]
+    """Both flags of the JAX worker that once exited with their ROADMAP item
+    (Queue 1 item ``item``) are ported: ``--w8a8`` reaches the engine, and
+    ``--tp 2 --device cpu`` serves in a fresh interpreter over two gloo
+    ranks (rank 0 spawns its follower, sends the checkpoint leaf by leaf,
+    each rank quantizing whole and keeping its int8 slice), answering a
+    request with the one-rank worker's greedy text."""
+    path, png = checkpoint
+    argv = ["--model-path", str(path), "--device", "cpu", "--no-register", "--warmup", "0"]
+    if flags != ["--w8a8"]:
+        argv.append("--load-8bit")
     if flags == ["--w8a8"]:
-        backend, _ = model_worker.load_backend(model_worker.parse_args(argv + ["--warmup", "0"]))
+        backend, _ = model_worker.load_backend(model_worker.parse_args(argv + flags))
         try:
             assert backend.engine.w8a8 is True
         finally:
             backend.stop()
         return
-    with pytest.raises(SystemExit, match=f"ROADMAP Queue 1 item {item}"):
-        model_worker.main(argv)
+    body = {"prompt": "USER: <image>\nwhat is shown here ASSISTANT:", "temperature": 0.0,
+            "max_new_tokens": 6, "images": [base64.b64encode(png.read_bytes()).decode()]}
+    script = f"FOREIGN = {FOREIGN!r}\n" + WORKER_SCRIPT
+    out = subprocess.run([sys.executable, "-c", script, str(_free_port()), json.dumps(body),
+                          *argv, *flags], cwd=ROOT, env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["foreign"] == []
+    plain, _ = model_worker.load_backend(model_worker.parse_args(argv))
+    try:
+        want = list(plain.generate_stream(body))
+    finally:
+        plain.stop()
+    assert [c["text"] for c in got["chunks"]] == want and len(want) == 6
 
 
 def test_worker_rope_scaling_and_echo(checkpoint):
