@@ -86,8 +86,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    gradient of every adapter leaf, the base's bytes and the launch counts
    of the quantized kernels and of their backward;
 9. LLaVA-1.5-7B stage 1 through the port's ``train()`` with the
-   ``scripts/v1_5/pretrain.sh`` recipe (projector only, batch 32) on 96
-   synthetic image-caption records: 3 steps, frozen bytes, the
+   ``scripts/v1_5/pretrain.sh`` recipe (projector only, batch 32) on 64
+   synthetic image-caption records: 2 steps, frozen bytes, the
    ``mm_projector.bin`` export and the launch counts; then one more step
    eager and through ``make_train_step(..., mesh=make_mesh(1, 1, 1))`` on a
    one-rank NCCL group (every leaf a DTensor, the flash kernels through
@@ -95,8 +95,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    eager step's, host ms of both);
 10. LLaVA-1.5-7B stage 2 through ``make_train_step`` with the
    ``scripts/v1_5/finetune.sh`` recipe reduced to batch 4 with gradient
-   accumulation 2, on 24 synthetic multi-turn image records of 700-2048
-   tokens: 3 steps, every trained leaf updated, the vision tower frozen, the
+   accumulation 2, on 16 synthetic multi-turn image records of 700-2048
+   tokens: 2 steps, every trained leaf updated, the vision tower frozen, the
    launch counts and the peak memory;
 11. (run after 7, before the training phases) LLaVA-MPT-7B at full width,
    random bf16 weights quantized to int8, int8 KV, behind the HTTP worker:
@@ -106,13 +106,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    pooled prefixes), with TTFT p50, tokens/s, peak memory, page accounting
    and every ALiBi kernel's launch count checked;
 12. LLaVA-MPT-7B stage 1 through ``train()`` at full width and depth with
-   the ``scripts/pretrain.sh`` recipe (projector only, batch 32) on 96
-   synthetic image-caption records: 3 steps, frozen bytes, the
+   the ``scripts/pretrain.sh`` recipe (projector only, batch 32) on 64
+   synthetic image-caption records: 2 steps, frozen bytes, the
    ``mm_projector.bin`` export and the ALiBi kernels' launch counts (the
    backward to the projector runs both ALiBi backward kernels);
 13. LLaVA-1.5-7B QLoRA through ``train()`` with the
    ``scripts/finetune_qlora.sh`` recipe (``--lora-enable --bits 4``, r 128,
-   alpha 256, remat) reduced to batch 4 and 3 steps on records of 700-2048
+   alpha 256, remat) reduced to batch 4 and 2 steps on records of 700-2048
    tokens: every adapter leaf updated, the int4 base unchanged, the PEFT
    export, the peak memory and the int4 kernel's forward launches and
    backward calls;
@@ -170,7 +170,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    on SIGTERM and launch counts; round-1 TTFT, tool dispatch,
    round-2 TTFT and turn seconds (p50), tokens/s and ``spec_acceptance``;
 19. (run after 18, before 11) the eval harness from phase 16's checkpoint
-   (kept on disk until then): 8 image questions written under ``.smoke/``
+   (kept on disk until then): 4 image questions written under ``.smoke/``
    and ``python -m llava_plus_torch.eval.model_vqa_loader --model-path
    ...`` run as a user runs it, three times (single-stream greedy,
    ``--engine-slots 8``, ``--num_beams 3 --max-new-tokens 16``), each
@@ -189,6 +189,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    W8A8 kernels once a decoder product a prefill, the int8 kernel at
    decode rows only), then a plain 256-row product outside the engine,
    which must be the weight-only kernel's bit for bit;
+22. (run after 19, on phase 16's checkpoint, before it is removed) the
+   deployment predictor: ``Predictor.setup`` on the checkpoint, one image
+   prompt streamed for 32 greedy tokens, bit for bit ``Generator.stream``'s
+   on the loaded tree, with its launch counts; setup seconds, seconds to
+   the first piece, tokens a second;
+23. the native image library (``data/native``, built with g++ from the
+   port's ``native/llava_img.cpp``) single and batched against
+   ``ClipImageProcessor`` within one uint8 level, host ms an image beside
+   the host CPU;
+24. the narrow model's stage-2 training state placed on a one-rank NCCL
+   ``make_mesh(1, 1, 1)``, saved shard by shard
+   (``checkpoint.save_train_state``), restored onto fresh DTensors and into
+   one process's plain trees, every leaf bit for bit; seconds and bytes;
 16. (run after 5, before 6, which quantizes its weights) the 7B tree of
    phase 5 exported as an HF checkpoint under ``.smoke/`` (one
    ``model.safetensors``, 14.1 GB, with a word-level tokenizer that names
@@ -217,8 +230,10 @@ each source, all started together.
 The script reaches the model, tokenizer, image processor and worker only
 through ``llava_plus_torch`` (phase 16 makes its checkpoint's tokenizer
 with ``tokenizers`` and ``transformers``) and checks at the end that no module of JAX or
-of the JAX package (``llava_plus_tpu``) was imported. The line before the
-last is a JSON summary of the kernels; the last line is the JSON result.
+of the JAX package (``llava_plus_tpu``) was imported. Each phase logs its
+seconds as it ends, and a ``phase seconds`` line gathers them; the line
+before the last is a JSON summary of the kernels; the last line is the
+JSON result.
 Without a CUDA device it prints no result and exits 1.
 """
 
@@ -4135,7 +4150,7 @@ def phase_plus_turn(smi, profile=False):
 # 19. the eval harness at 7B, from phase 16's checkpoint
 # ---------------------------------------------------------------------------
 
-EVAL_QUESTIONS = 8
+EVAL_QUESTIONS = 4
 EVAL_RUNS = (("greedy", ["--max-new-tokens", "32"]),
              ("engine", ["--engine-slots", "8", "--max-new-tokens", "32"]),
              ("beam", ["--num_beams", "3", "--max-new-tokens", "16"]))
@@ -4258,7 +4273,7 @@ def phase_eval(smi, path=None):
     that names every id and whose EOS lies past the logits, so every answer
     runs its budget).
 
-    1. 8 image questions (12 words each) and their 336-px images written
+    1. 4 image questions (12 words each) and their 336-px images written
        under ``.smoke/eval``;
     2. ``python -m llava_plus_torch.eval.model_vqa_loader --model-path ...``
        as a user runs it, three times (each in its own process, with the
@@ -4429,6 +4444,279 @@ def phase_eval(smi, path=None):
     log("eval", f"phase 19: {time.perf_counter() - t_phase:.1f} s; card {smi}")
     return {"flash": sum(r["flash"] for r in runs.values()),
             "decode": sum(r["decode"] for r in runs.values())}
+
+
+# ---------------------------------------------------------------------------
+# 22. the deployment predictor, from phase 16's checkpoint
+# ---------------------------------------------------------------------------
+
+PREDICT_TOKENS = 32
+
+
+def phase_predictor(smi, path=None, device="cuda"):
+    """Phase 22: ``llava_plus_torch.predict.Predictor`` as a deployment runs
+    it: ``setup`` on phase 16's checkpoint (the port's loader, the tree
+    moved to the card), then one image prompt streamed for 32 tokens at
+    ``temperature=0``. Its tokens must be, bit for bit, what
+    ``Generator.stream`` gives on the predictor's loaded tree for the same
+    prompt and image; its flash and decode launches must be one prefill's
+    and 31 decode steps'. Load seconds, seconds to the first piece and
+    tokens a second (after the first piece)."""
+    import torch
+    from PIL import Image
+    from llava_plus_torch.generate import Generator
+    from llava_plus_torch.mm_utils import process_images
+    from llava_plus_torch.ops.decode_attention import decode_attention
+    from llava_plus_torch.ops.flash_attention import flash_attention
+    from llava_plus_torch.predict import Predictor
+    from llava_plus_torch.serve.cli import load_image
+
+    path = path or os.path.join(SMOKE_DIR, CKPT_NAME)
+    rng = np.random.default_rng(22)
+    image = os.path.join(SMOKE_DIR, "predict.png")
+    Image.fromarray(rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)).save(image)
+    prompt = "What is unusual about this image? Describe it in detail."
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pred = Predictor(device=device)
+    pred.setup(path)
+    sync()
+    load_s = time.perf_counter() - t0
+    L = pred.cfg.text.num_hidden_layers
+    flash_attention.launches = decode_attention.launches = 0
+    pieces, first = [], None
+    t0 = time.perf_counter()
+    for piece in pred.predict(image, prompt, temperature=0, max_tokens=PREDICT_TOKENS):
+        if first is None:
+            first = time.perf_counter() - t0
+        pieces.append(piece)
+    total = time.perf_counter() - t0
+    launched = {"flash": flash_attention.launches, "decode": decode_attention.launches}
+    ids = list(pred.generator._last_output_ids)
+
+    gen = Generator(pred.generator.params, pred.cfg, pred.tokenizer, pred.image_processor,
+                    device=device, max_seq_len=pred.generator.max_seq_len)
+    text, stop = pred.prompt(prompt)
+    images = process_images([load_image(image)], pred.image_processor, pred.cfg)
+    streamed = list(gen.stream(text, images=images, max_new_tokens=PREDICT_TOKENS,
+                               temperature=0.0, stop_strings=[stop]))
+    want = list(gen._last_output_ids)
+    rate = (len(ids) - 1) / (total - first) if len(ids) > 1 else 0.0
+    log("predict", f"Predictor.setup {load_s:.1f} s; {len(ids)} tokens in {len(pieces)} "
+                   f"pieces, first piece {first:.3f} s, {rate:.2f} tokens/s after it "
+                   f"({total:.2f} s in all); prompt {pred.generator._last_prompt_len} fused "
+                   f"tokens; flash +{launched['flash']} (want {L}), decode "
+                   f"+{launched['decode']} (want {(PREDICT_TOKENS - 1) * L}); the same "
+                   f"tokens as Generator.stream: {ids == want}; card {smi}")
+    if (ids != want or len(ids) != PREDICT_TOKENS or "".join(pieces) != streamed[-1]
+            or launched != {"flash": L, "decode": (PREDICT_TOKENS - 1) * L}):
+        raise AssertionError(f"the predictor's stream differs from Generator.stream's: "
+                             f"{ids} vs {want}, launches {launched}")
+    del pred, gen
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    os.remove(image)
+    return {**launched, "load_s": load_s, "first_s": first, "tok_s": rate}
+
+
+# ---------------------------------------------------------------------------
+# 23. the native image library against the image processor
+# ---------------------------------------------------------------------------
+
+NATIVE_LEVEL = 1.01 / 255 / 0.258   # one uint8 level in normalized units
+
+
+def _host_cpu():
+    """The host CPU's model name (``lscpu``, else ``/proc/cpuinfo``, else
+    the machine type) and the cores this process may use."""
+    import platform
+
+    model = None
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+        model = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                      if ln.strip().startswith("Model name")), None)
+    except (OSError, subprocess.SubprocessError):
+        pass
+    if model is None:
+        try:
+            with open("/proc/cpuinfo") as f:
+                model = next((ln.split(":", 1)[1].strip() for ln in f
+                              if ln.startswith("model name")), None)
+        except OSError:
+            pass
+    return (f"{model or 'model not named'} ({platform.machine()}), "
+            f"nproc {len(os.sched_getaffinity(0))}")
+
+
+def phase_native(smi):
+    """Phase 23: ``llava_plus_torch.data.native`` (built here with g++ from
+    the port's ``native/llava_img.cpp``) on the smoke's kind of images (the
+    7B tower's 336 px squares, a 480 x 640 photo-sized frame, a tall and a
+    large one), single and batched, against the port's
+    ``ClipImageProcessor`` (PIL) within one uint8 level in normalized
+    units; the batch bit for bit the single calls; the pad to square bit
+    for bit ``mm_utils.expand2square``. Host ms an image for each path, with
+    the host CPU beside them."""
+    from PIL import Image
+    from llava_plus_torch import mm_utils
+    from llava_plus_torch.data import native
+    from llava_plus_torch.data.image_processing import ClipImageProcessor
+
+    t0 = time.perf_counter()
+    lib = native.load_library()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(23)
+    proc = ClipImageProcessor()
+    singles = [rng.integers(0, 256, s + (3,), dtype=np.uint8)
+               for s in [(336, 336), (480, 640), (640, 360), (1024, 768)]]
+    worst = 0.0
+    for a in singles:
+        worst = max(worst, float(np.abs(proc(Image.fromarray(a))
+                                        - native.clip_preprocess(a)).max()))
+    bg = tuple(int(x * 255) for x in proc.image_mean)
+    squares_equal = all(
+        np.array_equal(native.expand2square(a, bg),
+                       np.asarray(mm_utils.expand2square(Image.fromarray(a), bg)))
+        for a in singles)
+    batch = rng.integers(0, 256, (8, 480, 640, 3), dtype=np.uint8)
+    got = native.clip_preprocess_batch(batch)
+    batch_equal = all(np.array_equal(got[i], native.clip_preprocess(batch[i]))
+                      for i in range(len(batch)))
+    worst_batch = max(float(np.abs(proc(Image.fromarray(x)) - y).max())
+                      for x, y in zip(batch, got))
+
+    def per_image_ms(fn, n, reps=3):
+        best = float("inf")
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t)
+        return best * 1e3 / n
+
+    pil_ms = per_image_ms(lambda: [proc(Image.fromarray(x)) for x in batch], len(batch))
+    single_ms = per_image_ms(lambda: [native.clip_preprocess(x) for x in batch], len(batch))
+    batch_ms = per_image_ms(lambda: native.clip_preprocess_batch(batch), len(batch))
+    cpu = _host_cpu()
+    log("native", f"{os.path.basename(lib._name)} built and loaded in {build_s:.2f} s (OpenMP "
+                  f"{'on' if native.openmp() else 'off: the compiler has no OpenMP runtime'}); largest "
+                  f"|native - ClipImageProcessor| {max(worst, worst_batch):.5f} (one level "
+                  f"{NATIVE_LEVEL:.5f}); batch bit for bit the single calls {batch_equal}; "
+                  f"expand2square bit for bit {squares_equal}; 480 x 640 -> 336 host ms an "
+                  f"image: PIL {pil_ms:.2f}, native single {single_ms:.2f}, native batch of 8 "
+                  f"{batch_ms:.2f}; host {cpu}")
+    if max(worst, worst_batch) > NATIVE_LEVEL or not batch_equal or not squares_equal:
+        raise AssertionError("the native library disagrees with the image processor")
+    return {"pil_ms": pil_ms, "single_ms": single_ms, "batch_ms": batch_ms, "cpu": cpu,
+            "openmp": native.openmp()}
+
+
+# ---------------------------------------------------------------------------
+# 24. the training state saved shard by shard, and restored
+# ---------------------------------------------------------------------------
+
+def phase_sharded_save(smi, device="cuda"):
+    """Phase 24: the narrow LLaMA's stage-2 training state (phase 4's
+    width: bf16 parameters, AdamW moments of the language model and the
+    projector) placed
+    on a one-rank NCCL ``make_mesh(1, 1, 1)`` and written by
+    ``checkpoint.save_train_state`` (each rank its own shards,
+    ``torch.distributed.checkpoint``), then restored into freshly placed
+    trees on the mesh and, after the process group is gone, into plain
+    trees on the host as one process holds them: every leaf bit for bit.
+    Seconds and bytes written. (A 7B state, ~70 GB with f32 moments, does
+    not fit the run's time; a one-rank mesh moves no bytes between ranks:
+    the multi-rank writes are the CPU tests', tests/test_torch_mesh.py.)"""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from llava_plus_torch.models import llava
+    from llava_plus_torch.models.convert import per_layer, tree_map
+    from llava_plus_torch.parallel.mesh import make_mesh
+    from llava_plus_torch.train import checkpoint
+    from llava_plus_torch.train import step as step_lib
+    from llava_plus_torch.train.optimizer import OptimizerConfig, build_optimizer, tree_leaves
+
+    cfg = _narrow_cfg()
+    base = llava.init_params(cfg, torch.Generator().manual_seed(24), "cpu", torch.bfloat16)
+    root = os.path.join(SMOKE_DIR, "sharded")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def moments_like(tree):
+        return {"count": 0, **{m: {k: [torch.zeros_like(x) for x in tree_leaves(tree[k])]
+                                   for k in trained} for m in ("mu", "nu")}}
+
+    def local(x):
+        return (x.to_local() if isinstance(x, DTensor) else x).cpu()
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1, 1)
+        params = per_layer(step_lib.place_params(tree_map(lambda x: x.to(device), base),
+                                                 mesh, cfg))
+        state = build_optimizer(params, OptimizerConfig()).init(params)
+        trained = list(state["mu"])
+        g = torch.Generator(device=device).manual_seed(24)
+        for m in ("mu", "nu"):
+            for leaves in state[m].values():
+                for x in leaves:
+                    x.to_local().normal_(generator=g)
+        state["count"] = 3
+        leaves = [x for x in _leaves({"p": params, "mu": state["mu"], "nu": state["nu"]})]
+        payload = sum(x.numel() * x.element_size() for x in leaves)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = checkpoint.save_train_state(root, 3, params, state, cfg)
+        save_s = time.perf_counter() - t0
+        files = os.listdir(os.path.join(path, checkpoint.SHARDED_DIR))
+        written = sum(os.path.getsize(os.path.join(path, checkpoint.SHARDED_DIR, f))
+                      for f in files)
+        fresh = per_layer(step_lib.place_params(tree_map(
+            lambda x: x.to(device),
+            llava.init_params(cfg, torch.Generator().manual_seed(99), "cpu", torch.bfloat16)),
+            mesh, cfg))
+        t0 = time.perf_counter()
+        on_mesh, at = checkpoint.restore_train_state(path, fresh, moments_like(fresh))
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        got_mesh = [local(x) for x in _leaves({"p": on_mesh["params"],
+                                               "mu": on_mesh["opt_state"]["mu"],
+                                               "nu": on_mesh["opt_state"]["nu"]})]
+        want = [local(x) for x in leaves]
+        dtensors = all(isinstance(x, DTensor) for x in _leaves(on_mesh["params"]))
+        count_mesh = on_mesh["opt_state"]["count"]
+        del on_mesh, fresh, params, state, leaves
+    finally:
+        dist.destroy_process_group()
+    plain = per_layer(tree_map(torch.zeros_like, base))
+    t0 = time.perf_counter()
+    on_host, at_host = checkpoint.restore_train_state(path, plain, moments_like(plain))
+    host_s = time.perf_counter() - t0
+    got_host = list(_leaves({"p": on_host["params"], "mu": on_host["opt_state"]["mu"],
+                             "nu": on_host["opt_state"]["nu"]}))
+    same_mesh = len(got_mesh) == len(want) and all(
+        torch.equal(a, b) for a, b in zip(got_mesh, want))
+    same_host = len(got_host) == len(want) and all(
+        torch.equal(a, b) for a, b in zip(got_host, want))
+    shutil.rmtree(root, ignore_errors=True)
+    log("save", f"narrow stage-2 state, {len(want)} leaves, {payload / 2 ** 20:.1f} MiB: sharded "
+                f"save on a one-rank NCCL mesh {save_s:.2f} s, {written / 2 ** 20:.1f} MiB "
+                f"written in {len(files)} files ({written / max(save_s, 1e-9) / 2 ** 30:.2f} "
+                f"GiB/s); restored onto fresh DTensors {mesh_s:.2f} s (bit for bit "
+                f"{same_mesh}, all DTensors {dtensors}), into plain host trees without a "
+                f"process group {host_s:.2f} s (bit for bit {same_host}); step {at} / "
+                f"{at_host}, count {count_mesh} / {on_host['opt_state']['count']}; card {smi}")
+    if (not (same_mesh and same_host and dtensors) or at != 3 or at_host != 3
+            or count_mesh != 3 or on_host["opt_state"]["count"] != 3
+            or not payload <= written < 1.1 * payload):
+        raise AssertionError("the sharded save did not restore the state it wrote")
+    return {"save_s": save_s, "bytes": written, "mesh_s": mesh_s, "host_s": host_s}
 
 
 # ---------------------------------------------------------------------------
@@ -4925,12 +5213,15 @@ def _long_turns(rng):
     return out
 
 
+TRAIN_STEPS = 2   # steps of each 7B training phase (9, 10, 12, 13)
+
+
 def phase_train_stage1(smi):
     """LLaVA-1.5-7B stage 1 through the port's ``train()``: the recipe of
     ``scripts/v1_5/pretrain.sh`` (plain template, projector only, mlp2x_gelu,
     square images, batch 32, max length 2048, lr 1e-3, no weight decay,
-    warmup 0.03, cosine, gradient checkpointing, bf16) on 96 synthetic
-    image-caption records (3 steps), random bf16 weights from seed 0 in place
+    warmup 0.03, cosine, gradient checkpointing, bf16) on 64 synthetic
+    image-caption records (2 steps), random bf16 weights from seed 0 in place
     of a checkpoint. Checks every logged loss, that the language model and
     the vision tower keep their bytes and the projector moves, the
     ``mm_projector.bin`` keys and shapes, and the launch counts."""
@@ -4942,7 +5233,7 @@ def phase_train_stage1(smi):
     cfg, L = LLAVA_15_7B, LLAVA_15_7B.text.num_hidden_layers
     root = os.path.join(SMOKE_DIR, "stage1")
     rng = np.random.default_rng(4)
-    data = _write_corpus(root, 96, rng, cfg.vision.image_size, lambda i: [
+    data = _write_corpus(root, 32 * TRAIN_STEPS, rng, cfg.vision.image_size, lambda i: [
         {"from": "human", "value": "<image>\n"},
         {"from": "gpt", "value": _words(rng, int(rng.integers(10, 61)))}])
     before = {}
@@ -4979,7 +5270,7 @@ def phase_train_stage1(smi):
     torch.cuda.synchronize()
     launched = _counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = (3 * 2 * L, 3 * L, 3 * L)
+    want = (TRAIN_STEPS * 2 * L, TRAIN_STEPS * L, TRAIN_STEPS * L)
     for i, (m, dt, tokens, shape) in enumerate(steps, 1):
         log("stage1", f"step {i}: batch {shape[0]} x {shape[1]}, {tokens} non-pad tokens, "
                       f"loss {m['loss']:.4f}, grad_norm {m['grad_norm']:.4f}, host "
@@ -4996,7 +5287,7 @@ def phase_train_stage1(smi):
                   f"{moved} of {len(after['mm_projector'])}; mm_projector.bin {shapes}; "
                   f"launches flash fwd/dkv/dq {launched} (want {want}); peak device memory "
                   f"{peak:.2f} GiB; card {smi}")
-    if (len(steps) != 3 or not all(np.isfinite(m["loss"]) for m, *_ in steps)
+    if (len(steps) != TRAIN_STEPS or not all(np.isfinite(m["loss"]) for m, *_ in steps)
             or after["language_model"] != before["language_model"]
             or after["vision_tower"] != before["vision_tower"]
             or moved != len(after["mm_projector"]) or shapes != want_shapes
@@ -5098,7 +5389,7 @@ def phase_train_stage2(smi):
     template, language model and projector trained, lr 2e-5, no weight
     decay, warmup 0.03, cosine, gradient checkpointing, bf16 parameters and
     moments), reduced for one card to batch 4 with gradient accumulation 2
-    (the recipe has 16 a device on 8 cards); 3 steps on 24 synthetic
+    (the recipe has 16 a device on 8 cards); 2 steps on 16 synthetic
     multi-turn image records of 700 to 2048 fused tokens, some truncated at
     2048. Checks the loss, that every language-model and projector leaf
     received an update (a nonzero first moment) and every matrix moved (a
@@ -5115,7 +5406,7 @@ def phase_train_stage2(smi):
     from llava_plus_torch.train.optimizer import OptimizerConfig, build_optimizer
 
     cfg, L = LLAVA_15_7B, LLAVA_15_7B.text.num_hidden_layers
-    B, K, n_steps = 4, 2, 3
+    B, K, n_steps = 4, 2, TRAIN_STEPS
     root = os.path.join(SMOKE_DIR, "stage2")
     rng = np.random.default_rng(5)
 
@@ -5240,7 +5531,7 @@ def phase_train_mpt_stage1(smi):
     linear projector; random bf16 weights from seed 0): the recipe of
     ``scripts/pretrain.sh`` (plain template, projector only, batch 32, max
     length 2048, lr 1e-3, no weight decay, warmup 0.03, cosine, gradient
-    checkpointing, bf16) on 96 synthetic image-caption records, 3 steps. The
+    checkpointing, bf16) on 64 synthetic image-caption records, 2 steps. The
     backward through the frozen language model (to the projector's output)
     runs the ALiBi flash backward kernels. Checks every loss, that the
     language model and the vision tower keep their bytes and the projector
@@ -5255,7 +5546,7 @@ def phase_train_mpt_stage1(smi):
     cfg, L = LLAVA_MPT_7B, LLAVA_MPT_7B.mpt.n_layers
     root = os.path.join(SMOKE_DIR, "mpt_stage1")
     rng = np.random.default_rng(7)
-    data = _write_corpus(root, 96, rng, cfg.vision.image_size, lambda i: [
+    data = _write_corpus(root, 32 * TRAIN_STEPS, rng, cfg.vision.image_size, lambda i: [
         {"from": "human", "value": "<image>\n"},
         {"from": "gpt", "value": _words(rng, int(rng.integers(10, 61)))}])
     before = {}
@@ -5267,7 +5558,7 @@ def phase_train_mpt_stage1(smi):
         tok.bos_token_id = None
         return params, cfg, tok
 
-    steps, prof = [], _LastStepProfile(3)
+    steps, prof = [], _LastStepProfile(TRAIN_STEPS)
 
     def on_step(step, metrics, seconds, arrays):
         tokens = int((arrays["segment_ids"] > 0).sum())
@@ -5292,7 +5583,7 @@ def phase_train_mpt_stage1(smi):
     torch.cuda.synchronize()
     launched, plain = _counts(alibi=True), _counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = (3 * 2 * L, 3 * L, 3 * L)
+    want = (TRAIN_STEPS * 2 * L, TRAIN_STEPS * L, TRAIN_STEPS * L)
     for i, (m, dt, tokens, shape) in enumerate(steps, 1):
         log("mpt-stage1", f"step {i}: batch {shape[0]} x {shape[1]}, {tokens} non-pad tokens, "
                           f"loss {m['loss']:.4f}, grad_norm {m['grad_norm']:.4f}, host "
@@ -5310,7 +5601,7 @@ def phase_train_mpt_stage1(smi):
                       f"{moved} of {len(after['mm_projector'])}; mm_projector.bin {shapes}; "
                       f"launches flash fwd/dkv/dq[alibi] {launched} (want {want}), without "
                       f"ALiBi {plain}; peak device memory {peak:.2f} GiB; card {smi}")
-    if (len(steps) != 3 or not all(np.isfinite(m["loss"]) for m, *_ in steps)
+    if (len(steps) != TRAIN_STEPS or not all(np.isfinite(m["loss"]) for m, *_ in steps)
             or after["language_model"] != before["language_model"]
             or after["vision_tower"] != before["vision_tower"]
             or moved != len(after["mm_projector"]) or shapes != want_shapes
@@ -5323,7 +5614,7 @@ def phase_train_qlora(smi):
     """LLaVA-1.5-7B QLoRA through the port's ``train()``: the recipe of
     ``scripts/finetune_qlora.sh`` (``--lora-enable --bits 4``, r 128, alpha
     256, v1 template, gradient checkpointing, bf16) reduced for one card to
-    batch 4 and 3 steps on 12 synthetic multi-turn image records of 700 to
+    batch 4 and 2 steps on 8 synthetic multi-turn image records of 700 to
     2048 fused tokens (phase 10's), random bf16 weights from seed 0 in place
     of a checkpoint. ``--bits 4`` quantizes the language model to int4 (the
     seven LLaMA matrices and the head) before the adapters are made; only
@@ -5343,7 +5634,7 @@ def phase_train_qlora(smi):
     from llava_plus_torch.train import train as train_lib
 
     cfg, L = LLAVA_15_7B, LLAVA_15_7B.text.num_hidden_layers
-    B, n_steps, r = 4, 3, 128
+    B, n_steps, r = 4, TRAIN_STEPS, 128
     root = os.path.join(SMOKE_DIR, "qlora")
     rng = np.random.default_rng(8)
     data = _write_corpus(root, B * n_steps, rng, cfg.vision.image_size,
@@ -5517,47 +5808,66 @@ def main():
     if args and args[0] == "--device-times":
         return device_times_only(root)
     sys.path.insert(0, HERE)
-    smi = phase_env()
-    phase_build()
-    stats = phase_kernels()
-    narrow_general = phase_narrow_model()
-    narrow_mpt = phase_narrow_mpt()
+    seconds = {}
+
+    def timed(phase, fn, *args, **kwargs):
+        """``fn``'s result; its seconds go to the phase-seconds line (and
+        are logged as it ends, so a run cut short still shows them)."""
+        t0 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        seconds[phase] = round(time.perf_counter() - t0, 1)
+        log("time", f"phase {phase}: {seconds[phase]:.1f} s")
+        return result
+
+    smi = timed("1", phase_env)
+    timed("2", phase_build)
+    stats = timed("3", phase_kernels)
+    narrow_general = timed("4", phase_narrow_model)
+    narrow_mpt = timed("4 mpt", phase_narrow_mpt)
     dev = "cuda:0"
     params = _init_7b(dev)
-    single = phase_full_slice(smi, params, dev)
+    single = timed("5", phase_full_slice, smi, params, dev)
     # phase 16 exports these weights before phase 6 quantizes them in place;
-    # phase 19 answers from its checkpoint
-    ckpt = phase_checkpoint(smi, params, keep=True)
+    # phases 19 and 22 answer from its checkpoint
+    ckpt = timed("16", phase_checkpoint, smi, params, keep=True)
     # int4 starts from fresh ones
-    int8 = serve_engine(smi, params, "int8", n_image=8, n_text=8)
-    w8a8 = phase_w8a8_serving(smi, params)   # phase 20, on phase 6's int8 tree
-    tp1 = phase_tp_serving(smi, params)      # phase 21, on the same tree
+    int8 = timed("6", serve_engine, smi, params, "int8", n_image=8, n_text=8)
+    w8a8 = timed("20", phase_w8a8_serving, smi, params)   # on phase 6's int8 tree
+    tp1 = timed("21", phase_tp_serving, smi, params)      # on the same tree
     del params
-    int4 = serve_engine(smi, _init_7b(dev), "int4", n_image=2, n_text=2)
-    paged = serve_paged_engine(smi)
-    spec = phase_speculative(smi)   # phase 17, on fresh weights
-    plus = phase_plus_turn(smi)     # phase 18, on fresh weights
-    evals = phase_eval(smi)         # phase 19, from phase 16's checkpoint
+    int4 = timed("6 int4", serve_engine, smi, _init_7b(dev), "int4", n_image=2, n_text=2)
+    paged = timed("7", serve_paged_engine, smi)
+    spec = timed("17", phase_speculative, smi)   # on fresh weights
+    plus = timed("18", phase_plus_turn, smi)     # on fresh weights
+    evals = timed("19", phase_eval, smi)         # from phase 16's checkpoint
+    predictor = timed("22", phase_predictor, smi)   # from phase 16's checkpoint
     shutil.rmtree(os.path.join(SMOKE_DIR, CKPT_NAME), ignore_errors=True)
-    mpt = serve_mpt_7b(smi)   # phase 11, before training (the LLaMA weights are gone)
-    narrow_alibi_bwd = phase_narrow_training()
-    narrow_lora = phase_narrow_lora()
-    stage1 = phase_train_stage1(smi)
-    stage2 = phase_train_stage2(smi)
-    mpt_stage1 = phase_train_mpt_stage1(smi)
-    qlora = phase_train_qlora(smi)
-    tools = phase_int4_tools()
-    # phase 15, last and in a fresh process
-    gc.collect()
-    torch.cuda.empty_cache()
-    os.makedirs(SMOKE_DIR, exist_ok=True)
-    out = os.path.join(SMOKE_DIR, "device_times.json")
-    subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke._device_times_child()",
-                    out], cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), check=True,
-                   timeout=900)
-    with open(out) as f:
-        for name, row in json.load(f).items():
-            stats.setdefault(name, {}).update(row)
+    timed("23", phase_native, smi)
+    timed("24", phase_sharded_save, smi)
+    mpt = timed("11", serve_mpt_7b, smi)   # before training (the LLaMA weights are gone)
+    narrow_alibi_bwd = timed("8", phase_narrow_training)
+    narrow_lora = timed("8 lora", phase_narrow_lora)
+    stage1 = timed("9", phase_train_stage1, smi)
+    stage2 = timed("10", phase_train_stage2, smi)
+    mpt_stage1 = timed("12", phase_train_mpt_stage1, smi)
+    qlora = timed("13", phase_train_qlora, smi)
+    tools = timed("14", phase_int4_tools)
+
+    def device_times():
+        """Phase 15, last and in a fresh process."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        os.makedirs(SMOKE_DIR, exist_ok=True)
+        out = os.path.join(SMOKE_DIR, "device_times.json")
+        subprocess.run([sys.executable, "-c",
+                        "import chip_smoke; chip_smoke._device_times_child()", out],
+                       cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), check=True,
+                       timeout=900)
+        with open(out) as f:
+            for name, row in json.load(f).items():
+                stats.setdefault(name, {}).update(row)
+
+    timed("15", device_times)
     shutil.rmtree(SMOKE_DIR, ignore_errors=True)
 
     entries = []
@@ -5567,12 +5877,12 @@ def main():
         ("flash_fwd", "llava_plus_torch/csrc/flash_fwd.cu", FLASH_REPLACES,
          single["flash"] + ckpt["flash"] + int8["flash"] + tp1["flash"] + int4["flash"]
          + paged["flash"]
-         + spec["flash"] + plus["flash"] + evals["flash"] + stage1["flash"] + stage2["flash"]
-         + qlora["flash"]),
+         + spec["flash"] + plus["flash"] + evals["flash"] + predictor["flash"]
+         + stage1["flash"] + stage2["flash"] + qlora["flash"]),
         ("flash_bwd[dkv]", bwd_src, DKV_REPLACES, stage1["dkv"] + stage2["dkv"] + qlora["dkv"]),
         ("flash_bwd[dq]", bwd_src, DQ_REPLACES, stage1["dq"] + stage2["dq"] + qlora["dq"]),
         ("decode_attention[bf16]", "llava_plus_torch/csrc/decode_attention.cu",
-         DECODE_REPLACES, single["bf16"] + evals["decode"]),
+         DECODE_REPLACES, single["bf16"] + evals["decode"] + predictor["decode"]),
         ("decode_attention[int8]", "llava_plus_torch/csrc/decode_attention.cu",
          DECODE_REPLACES, single["int8"] + ckpt["decode"] + int8["decode"] + tp1["decode"]
          + int4["decode"]),
@@ -5624,8 +5934,9 @@ def main():
             # the int8 products between them (torch._int_mm, phase 20)
             entries[-1]["int_mm_launches"] = w8a8["int_mm"]
         if name in ("flash_fwd", "decode_attention[bf16]"):
-            # of which the eval runs (phase 19)
-            entries[-1]["eval_launches"] = evals["flash" if name == "flash_fwd" else "decode"]
+            # of which the eval runs (phase 19) and the predictor (phase 22)
+            key = "flash" if name == "flash_fwd" else "decode"
+            entries[-1].update(eval_launches=evals[key], predictor_launches=predictor[key])
         if name == "quant_matmul[int8]":
             # the serving engines' int8 launches by regime (phases 16, 6, 7, 11)
             regimes = [ckpt["quant_regimes"], int8["quant_regimes"], paged["quant_regimes"],
@@ -5653,6 +5964,7 @@ def main():
                      if m.split(".")[0] in ("jax", "jaxlib", "llava_plus_tpu"))
     if foreign:
         raise AssertionError(f"the port pulled in JAX or the JAX package: {foreign[:5]}")
+    print("phase seconds " + json.dumps(seconds), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,7 @@ import os
 from llava_plus_torch.eval.eval_gpt_review import get_eval, parse_score
 
 
-def main():
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="GPT-based pairwise review.")
     parser.add_argument("-q", "--question")
     parser.add_argument("-c", "--context")
@@ -20,7 +20,11 @@ def main():
     parser.add_argument("-r", "--rule")
     parser.add_argument("-o", "--output")
     parser.add_argument("--max-tokens", type=int, default=1024)
-    args = parser.parse_args()
+    return parser
+
+
+def main():
+    args = build_parser().parse_args()
 
     f_q = open(os.path.expanduser(args.question))
     f_ans1 = open(os.path.expanduser(args.answer_list[0]))

@@ -73,12 +73,16 @@ def eval_pope(answers, label_file):
             "recall": recall, "yes_ratio": yes_ratio}
 
 
-def main():
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
     parser.add_argument("--annotation-dir", type=str, required=True)
     parser.add_argument("--question-file", type=str, required=True)
     parser.add_argument("--result-file", type=str, required=True)
-    args = parser.parse_args()
+    return parser
+
+
+def main():
+    args = build_parser().parse_args()
 
     questions = [json.loads(line) for line in open(args.question_file)]
     questions = {q["question_id"]: q for q in questions}

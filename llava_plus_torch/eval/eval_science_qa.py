@@ -11,7 +11,7 @@ import random
 import re
 
 
-def get_args():
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
     parser.add_argument("--base-dir", type=str, required=True)
     parser.add_argument("--result-file", type=str, required=True)
@@ -20,7 +20,11 @@ def get_args():
     parser.add_argument("--split", type=str, default="test")
     parser.add_argument("--options", type=list,
                         default=["A", "B", "C", "D", "E"])
-    return parser.parse_args()
+    return parser
+
+
+def get_args():
+    return build_parser().parse_args()
 
 
 def convert_caps(results):

@@ -12,12 +12,16 @@ import re
 from llava_plus_torch.eval.m4c_evaluator import TextVQAAccuracyEvaluator
 
 
-def get_args():
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
     parser.add_argument("--annotation-file", type=str, required=True)
     parser.add_argument("--result-file", type=str)
     parser.add_argument("--result-dir", type=str)
-    return parser.parse_args()
+    return parser
+
+
+def get_args():
+    return build_parser().parse_args()
 
 
 def prompt_processor(prompt: str) -> str:

@@ -87,7 +87,7 @@ def eval_model(args, session: EvalSession = None):
             session.close()
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
     parser.add_argument("--model-path", type=str, default=None)
     parser.add_argument("--model-base", type=str, default=None)
@@ -109,7 +109,11 @@ def main(argv=None):
                         "single-stream; greedy answers are identical)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="the device to answer on (cuda, or cpu)")
-    eval_model(parser.parse_args(argv))
+    return parser
+
+
+def main(argv=None):
+    eval_model(build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -145,7 +145,7 @@ def eval_model(args, session=None):
             session.close()
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
     parser.add_argument("--model-path", type=str, default=None)
     parser.add_argument("--model-base", type=str, default=None)
@@ -167,7 +167,11 @@ def main(argv=None):
                         "single-stream)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="the device to answer on (cuda, or cpu)")
-    eval_model(parser.parse_args(argv))
+    return parser
+
+
+def main(argv=None):
+    eval_model(build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -53,10 +53,14 @@ def main(args):
         print("=================================")
 
 
-if __name__ == "__main__":
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
     parser.add_argument("-d", "--dir", default=None)
     parser.add_argument("-f", "--files", nargs="*", default=None)
     parser.add_argument("-s", "--select", nargs="*", default=None)
     parser.add_argument("-i", "--ignore", nargs="*", default=None)
-    main(parser.parse_args())
+    return parser
+
+
+if __name__ == "__main__":
+    main(build_parser().parse_args())

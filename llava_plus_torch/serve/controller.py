@@ -302,9 +302,7 @@ def build_app(controller: Controller):
     return app
 
 
-def main():
-    from aiohttp import web
-
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
     parser.add_argument("--host", type=str, default="localhost")
     parser.add_argument("--port", type=int, default=21001)
@@ -312,7 +310,13 @@ def main():
         "--dispatch-method", type=str,
         choices=["lottery", "shortest_queue"], default="shortest_queue",
     )
-    args = parser.parse_args()
+    return parser
+
+
+def main(argv=None):
+    from aiohttp import web
+
+    args = build_parser().parse_args(argv)
     logger.info(f"args: {args}")
 
     controller = Controller(args.dispatch_method)

@@ -118,6 +118,31 @@ class Request:
         return None
 
 
+class _PageCounts:
+    """A paged pool's page refcounts and free list. A page's refcount is one
+    per slot page table that holds it, plus one while the prefix cache
+    publishes it; it returns to the free list at 0. Callers hold the
+    engine's ``_page_lock``."""
+
+    def __init__(self, num_pages: int):
+        self.refs = [0] * num_pages
+        self.free = list(range(num_pages))
+
+    def incref(self, pid: int):
+        """Only a referenced page gains references (a page at refcount 0 is
+        on the free list)."""
+        if self.refs[pid] <= 0:
+            raise RuntimeError(f"page {pid} is free and cannot be shared")
+        self.refs[pid] += 1
+
+    def decref(self, pid: int):
+        if self.refs[pid] <= 0:
+            raise RuntimeError(f"page {pid} released more often than taken")
+        self.refs[pid] -= 1
+        if self.refs[pid] == 0:
+            self.free.append(pid)
+
+
 @dataclasses.dataclass
 class _Slot:
     request: Optional[Request] = None
@@ -382,17 +407,19 @@ class BatchedEngine(tp_lib.Replicated):
         if paged:
             total = pool_tokens or max_slots * max_seq_len
             self.num_pages = max(total // page_size, max_seq_len // page_size)
-            self._free_pages = list(range(self.num_pages))
-            # A page's refcount: one per slot page table that holds it, plus
-            # one while the prefix cache publishes it; it returns to the
-            # free list at 0. Refcounts, the free list and the prefix cache
-            # are guarded by _page_lock (the prefill thread matches
-            # prefixes, the engine thread allocates and publishes).
-            self._page_refs = [0] * self.num_pages
+            # Refcounts, the free list and the prefix cache are guarded by
+            # _page_lock (the prefill thread matches prefixes, the engine
+            # thread allocates and publishes). The prefix cache calls back
+            # into the page counts, not into the engine: a bound method of
+            # the engine there would make a cycle that keeps a dropped
+            # engine's pool on the card until the cycle collector runs.
+            self._pages = _PageCounts(self.num_pages)
+            self._free_pages = self._pages.free
+            self._page_refs = self._pages.refs
             self._page_lock = threading.Lock()
             if prefix_cache:
-                self._prefix = PagePrefixCache(incref=self._incref_page,
-                                               decref=self._decref_page)
+                self._prefix = PagePrefixCache(incref=self._pages.incref,
+                                               decref=self._pages.decref)
 
         self._queue: "queue.Queue[Request]" = queue.Queue()
         self._ready: "queue.Queue[_Prepared]" = queue.Queue()
@@ -550,21 +577,6 @@ class BatchedEngine(tp_lib.Replicated):
 
     # -- paged-pool page accounting ----------------------------------------
 
-    def _incref_page(self, pid: int):
-        """Caller holds _page_lock. Only a referenced page gains references
-        (a page at refcount 0 is on the free list)."""
-        if self._page_refs[pid] <= 0:
-            raise RuntimeError(f"page {pid} is free and cannot be shared")
-        self._page_refs[pid] += 1
-
-    def _decref_page(self, pid: int):
-        """Caller holds _page_lock."""
-        if self._page_refs[pid] <= 0:
-            raise RuntimeError(f"page {pid} released more often than taken")
-        self._page_refs[pid] -= 1
-        if self._page_refs[pid] == 0:
-            self._free_pages.append(pid)
-
     def _alloc_pages(self, n: int) -> List[int]:
         """Take ``n`` free pages at refcount 1, evicting least recently used
         prefix-cache entries if needed (an evicted entry frees its page only
@@ -583,7 +595,7 @@ class BatchedEngine(tp_lib.Replicated):
     def _release_pages(self, pages: List[int]):
         with self._page_lock:
             for p in pages:
-                self._decref_page(p)
+                self._pages.decref(p)
 
     def _match_prefix(self, keys: List[bytes]) -> List[int]:
         """Longest published prefix of ``keys``, its pages pinned for the
@@ -593,7 +605,7 @@ class BatchedEngine(tp_lib.Replicated):
         with self._page_lock:
             pages = self._prefix.match(keys)
             for p in pages:
-                self._incref_page(p)
+                self._pages.incref(p)
             return pages
 
     def _publish_prefix(self, keys: List[bytes], pages: List[int]):

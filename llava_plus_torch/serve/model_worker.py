@@ -486,7 +486,7 @@ def build_app(worker: ModelWorker):
 # Command line
 # ---------------------------------------------------------------------------
 
-def parse_args(argv=None) -> argparse.Namespace:
+def build_parser() -> argparse.ArgumentParser:
     """The JAX worker's flags, plus ``--device``."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--host", type=str, default="localhost")
@@ -542,7 +542,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--multi-modal", action="store_true",
                         help="accepted for reference-CLI compatibility; multimodality "
                              "follows the checkpoint")
-    return parser.parse_args(argv)
+    return parser
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    return build_parser().parse_args(argv)
 
 
 def check_args(args: argparse.Namespace) -> None:

@@ -51,7 +51,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import datetime
-import gc
 import json
 import os
 import time
@@ -372,7 +371,6 @@ def main(argv=None):
                     eng.follow()
                 issue = float(np.median(eng.issue_ms)) if getattr(eng, "issue_ms", None) else None
                 del eng
-                gc.collect()   # the prefix cache's bound methods make a cycle
                 if dev.type == "cuda":
                     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
                 if rank == 0 and not args.device_busy:

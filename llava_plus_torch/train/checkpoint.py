@@ -7,18 +7,24 @@ port's trainer makes:
 - the full state dict as an HF-layout ``model.safetensors`` + ``config.json``
   (the same keys, shapes and bytes as the JAX package's export);
 - the training state (parameters, optimizer state, step) under
-  ``<output_dir>/checkpoint-<step>/``, the JAX package's directory naming,
-  as one ``torch.save`` file in place of an orbax directory;
+  ``<output_dir>/checkpoint-<step>/``, the JAX package's directory naming:
+  one ``torch.save`` file from a one-process run, or, from a run over a
+  mesh, a ``torch.distributed.checkpoint`` directory to which each rank
+  writes only its own shards of the DTensors (replicated shards once), as
+  orbax writes the JAX package's state shard by shard;
 - delta weights (``make_delta`` / ``apply_delta``).
 
 The exporters take either layer layout of the language model (stacked
 ``[L, ...]`` leaves or the trainer's per-layer list) and give per-layer HF
 tensors on the CPU in the parameters' dtype.
 
-Over a mesh the trainer passes its trees through :func:`gathered` on every
-rank (a collective) before rank 0 writes, so a save holds the same bytes as
-a one-process run's; :func:`restore_train_state` places each loaded leaf as
-the DTensor it replaces is placed.
+Over a mesh the trainer's exports (the HF checkpoint, the adapters) pass
+their trees through :func:`gathered` on every rank (a collective, leaf by
+leaf): rank 0 gets the whole tree on its host and writes it, every other
+rank holds at most one whole leaf at a time and gets None leaves.
+:func:`restore_train_state` reads either format into the given trees in
+place, whatever their placement: DTensors on the saving mesh or another
+one, or plain tensors in one process.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import dataclasses
 import json
 import os
 import re
+import warnings
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -37,29 +44,63 @@ from llava_plus_torch.models.configs import LlavaConfig
 from llava_plus_torch.models.convert import tree_map
 
 CKPT_PREFIX = "checkpoint-"
-STATE_FILE = "state.pt"
+STATE_FILE = "state.pt"      # a one-process run's state
+SHARDED_DIR = "state"        # a run over a mesh: the ranks' shards
 
 
 # ---------------------------------------------------------------------------
 # Training state
 # ---------------------------------------------------------------------------
 
+def _flat(tree, prefix=""):
+    """(path, leaf) pairs of a tree of dicts, lists and tuples; None leaves
+    are left out."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, f"{prefix}/{k}" if prefix else str(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flat(v, f"{prefix}/{i}")
+    elif tree is not None:
+        yield prefix, tree
+
+
+def _sharded(tree) -> bool:
+    return any(isinstance(x, DTensor) for _, x in _flat(tree))
+
+
 def save_train_state(ckpt_dir, step: int, params, opt_state=None,
                      cfg: Optional[LlavaConfig] = None) -> Path:
-    """Write ``checkpoint-<step>/state.pt`` (the trees as they are held:
-    per-layer views of a stacked tensor are saved once, with their
-    storage), then ``meta.json``, the marker of a finished save."""
+    """Write the training state of ``step`` under ``checkpoint-<step>/``,
+    then ``meta.json``, the marker of a finished save.
+
+    Trees of DTensors (a run over a mesh): every rank of the mesh calls
+    this; each writes only its own shards, the leaves as placed (one copy
+    of a replicated shard), into ``state/``, and rank 0 writes
+    ``meta.json`` once every rank has finished. Plain trees (one process):
+    ``state.pt``, the trees as they are held (per-layer views of a stacked
+    tensor are saved once, with their storage)."""
     path = Path(ckpt_dir) / f"{CKPT_PREFIX}{step}"
     path.mkdir(parents=True, exist_ok=True)
     state = {"params": params}
     if opt_state is not None:
         state["opt_state"] = opt_state
-    tmp = path / (STATE_FILE + ".tmp")
-    torch.save(state, tmp)
-    os.replace(tmp, path / STATE_FILE)
-    (path / "meta.json").write_text(json.dumps({"step": step}))
-    if cfg is not None:
-        cfg.save(path / "config.json")
+    rank = 0
+    if _sharded(state):
+        import torch.distributed as dist
+        import torch.distributed.checkpoint as dcp
+
+        dcp.save(dict(_flat(state)), storage_writer=dcp.FileSystemWriter(path / SHARDED_DIR))
+        dist.barrier()   # every rank's shards are on disk before the marker
+        rank = dist.get_rank()
+    else:
+        tmp = path / (STATE_FILE + ".tmp")
+        torch.save(state, tmp)
+        os.replace(tmp, path / STATE_FILE)
+    if rank == 0:
+        (path / "meta.json").write_text(json.dumps({"step": step}))
+        if cfg is not None:
+            cfg.save(path / "config.json")
     return path
 
 
@@ -72,17 +113,26 @@ def latest_checkpoint(ckpt_dir) -> Optional[Path]:
     best, best_step = None, -1
     for p in ckpt_dir.iterdir():
         m = re.fullmatch(rf"{CKPT_PREFIX}(\d+)", p.name)
-        if (m and int(m.group(1)) > best_step
-                and (p / STATE_FILE).exists() and (p / "meta.json").exists()):
+        if (m and int(m.group(1)) > best_step and (p / "meta.json").exists()
+                and ((p / STATE_FILE).exists() or (p / SHARDED_DIR).is_dir())):
             best, best_step = p, int(m.group(1))
     return best
 
 
-def gathered(tree):
-    """The tree with every DTensor gathered whole, leaf by leaf, to the CPU
-    (a collective: every rank of the mesh calls it); other leaves as they
-    are."""
-    return tree_map(lambda x: x.full_tensor().cpu() if isinstance(x, DTensor) else x, tree)
+def gathered(tree, rank: int = 0):
+    """The tree with every DTensor gathered whole to the host of rank 0,
+    leaf by leaf (a collective: every rank of the mesh calls it, with its
+    own rank; one that passes none is taken for rank 0). Rank 0 gets the
+    whole tree on the CPU, other leaves as they are; every other rank gets
+    None leaves and holds at most one whole leaf at a time (on its
+    device)."""
+    def leaf(x):
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
+            return x.cpu() if rank == 0 else None
+        return x if rank == 0 else None
+
+    return tree_map(leaf, tree)
 
 
 def _copy_into(like, saved):
@@ -103,15 +153,45 @@ def _copy_into(like, saved):
     return saved
 
 
+def _unflat(like, flat, prefix=""):
+    """``like`` with each leaf replaced by ``flat``'s value at its path."""
+    if isinstance(like, dict):
+        return {k: _unflat(v, flat, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_unflat(v, flat, f"{prefix}/{i}") for i, v in enumerate(like))
+    return like if like is None else flat[prefix]
+
+
 def restore_train_state(path, params_like, opt_state_like=None):
     """``({"params", "opt_state"}, step)``: the saved state copied into the
-    given trees in place, one leaf at a time from a memory-mapped file."""
-    saved = torch.load(Path(path) / STATE_FILE, map_location="cpu", mmap=True,
-                       weights_only=True)
-    state = {"params": _copy_into(params_like, saved["params"])}
+    given trees in place, one leaf at a time. ``state.pt`` is read from a
+    memory-mapped file; a sharded save is read by every rank that holds the
+    trees (a collective when a process group is up), each reading the parts
+    of the saved shards that its own shards cover, so the trees may be
+    placed on the saving mesh, on another mesh shape, or be plain tensors
+    in one process."""
+    path = Path(path)
+    like = {"params": params_like}
     if opt_state_like is not None:
-        state["opt_state"] = _copy_into(opt_state_like, saved["opt_state"])
-    step = json.loads((Path(path) / "meta.json").read_text())["step"]
+        like["opt_state"] = opt_state_like
+    if (path / STATE_FILE).exists():
+        saved = torch.load(path / STATE_FILE, map_location="cpu", mmap=True,
+                           weights_only=True)
+        state = {k: _copy_into(v, saved[k]) for k, v in like.items()}
+    else:
+        import torch.distributed as dist
+        import torch.distributed.checkpoint as dcp
+
+        flat = dict(_flat(like))
+        alone = not (dist.is_available() and dist.is_initialized())
+        with warnings.catch_warnings():
+            # one process reading a sharded save is what ``alone`` asks for
+            warnings.filterwarnings("ignore", message="torch.distributed is disabled")
+            dcp.load(flat, storage_reader=dcp.FileSystemReader(path / SHARDED_DIR),
+                     no_dist=alone)
+        state = _unflat(like, flat)
+    step = json.loads((path / "meta.json").read_text())["step"]
     return state, step
 
 

@@ -51,8 +51,9 @@ the world size over ``dp * tp`` unless ``--fsdp-axis`` names it; ``dp *
 tp`` must divide the world size (the JAX trainer computes ``fsdp = 0`` for
 ``--tp 2`` on one device instead). A mesh of one device is no mesh: the
 single-card path. Every rank reads the same global batches, which
-``place_batch`` shards; rank 0 logs and writes the saves, whose trees every
-rank gathers first.
+``place_batch`` shards; rank 0 logs. Each rank writes its own shards of
+the training state (``checkpoint.save_train_state``); the exports are
+gathered to rank 0 leaf by leaf, which writes them.
 
     torchrun --nproc-per-node 4 -m llava_plus_torch.train.train \
         --tiny-debug-model true --fsdp-axis 2 --tp 2 --device cpu ...
@@ -515,12 +516,14 @@ def train(model_args: ModelArguments, data_args: DataArguments,
 
 def _save(params, opt_state, step, cfg, training_args, model_args, tokenizer,
           lora_params=None, lora_cfg=None, final: bool = False, rank: int = 0):
-    """The saves of a step. Every rank gathers the trees a save writes
-    (``checkpoint.gathered``: a no-op without a mesh); rank 0 writes."""
+    """The saves of a step, called on every rank. The exports (the adapter,
+    the LoRA adapters, the final HF checkpoint) gather their trees to rank 0
+    leaf by leaf (``checkpoint.gathered``), which writes them; the training
+    state is written by every rank of a mesh, each its own shards."""
     out_dir = Path(training_args.output_dir)
     if model_args.tune_mm_mlp_adapter:
         # adapter-only save
-        proj = {"mm_projector": ckpt_lib.gathered(params["mm_projector"])}
+        proj = {"mm_projector": ckpt_lib.gathered(params["mm_projector"], rank)}
         if rank == 0:
             ckpt_lib.export_mm_projector_bin(
                 proj, out_dir / f"{ckpt_lib.CKPT_PREFIX}{step}" / "mm_projector.bin")
@@ -528,23 +531,23 @@ def _save(params, opt_state, step, cfg, training_args, model_args, tokenizer,
                 ckpt_lib.export_mm_projector_bin(proj, out_dir / "mm_projector.bin")
         return
     if lora_params is not None:
-        extra = ckpt_lib.projector_state_dict_from_params(
-            ckpt_lib.gathered(params["mm_projector"]))
-        lora_params = ckpt_lib.gathered(lora_params)
+        proj = ckpt_lib.gathered(params["mm_projector"], rank)
+        lora_params = ckpt_lib.gathered(lora_params, rank)
         if rank == 0:
             out_dir.mkdir(parents=True, exist_ok=True)
-            lora_lib.save_peft_adapter(lora_params, lora_cfg, out_dir, extra)
+            lora_lib.save_peft_adapter(lora_params, lora_cfg, out_dir,
+                                       ckpt_lib.projector_state_dict_from_params(proj))
             cfg.save(out_dir / "config.json")
         return
-    params, opt_state = ckpt_lib.gathered(params), ckpt_lib.gathered(opt_state)
-    if rank == 0:
-        out_dir.mkdir(parents=True, exist_ok=True)
-        ckpt_lib.save_train_state(out_dir, step, params, opt_state, cfg)
-        if final:
+    ckpt_lib.save_train_state(out_dir, step, params, opt_state, cfg)
+    if final:
+        params = ckpt_lib.gathered(params, rank)
+        if rank == 0:
             ckpt_lib.export_hf_llava(params, cfg, out_dir / "hf_export", tokenizer)
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
+    """The trainer's flags: every field of the three argument dataclasses."""
     parser = argparse.ArgumentParser()
     for dc in (ModelArguments, DataArguments, TrainingArguments):
         for f in dataclasses.fields(dc):
@@ -563,7 +566,11 @@ def main(argv=None):
                 # "--max-steps 3" parses as an int
                 typ = int if "int" in ann else float if "float" in ann else str
                 parser.add_argument(*names, type=typ, default=None)
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     def pick(dc):
         return dc(**{f.name: getattr(args, f.name) for f in dataclasses.fields(dc)})

@@ -3,7 +3,8 @@
 ``Generator.stream`` on the LLaMA and the MPT backbone, and through the
 port's HTTP worker as a client reaches it, single stream and on the paged
 engine with a prefix hit, the training CLI for a stage-1, a stage-2, a
-QLoRA and an MPT run, and the int4 measurement tools), then check that
+QLoRA and an MPT run, the int4 measurement tools, the native image library
+and the scripts under ``llava_plus_torch/scripts/``), then check that
 neither ``jax`` nor ``triton`` nor any module of the JAX package
 (``llava_plus_tpu``) was imported and that no kernel build (``nvcc``) ran.
 And the port's own copies of the JAX package's framework-free modules
@@ -38,7 +39,9 @@ for name in ("serve.controller", "serve.orchestrator", "serve.annotation", "serv
              "serve.tool_workers.test_message", "utils.misc", "utils.demo_assets",
              "tools.generate_grounding_data", "tools.planted",
              # the mesh and W8A8
-             "parallel", "parallel.mesh", "parallel.sharding", "ops.w8a8"):
+             "parallel", "parallel.mesh", "parallel.sharding", "ops.w8a8",
+             # the native image library and the deployment predictor
+             "data.native", "predict"):
     assert "llava_plus_torch." + name in names, name
 # the eval harness: the counterpart of each of the JAX package's 21 modules
 EVAL = ("__init__ common eval_gpt_review eval_gpt_review_bench eval_gpt_review_visual eval_pope "
@@ -85,6 +88,11 @@ x = torch.randn(256, 64)
 with quant.w8a8_scope():
     assert quant.matmul(x, w).shape == (256, 32)
 assert constrain(x, ("dp", "fsdp"), None) is x
+# the native image library, built with g++ from the port's own source
+import numpy as np
+from llava_plus_torch.data import native
+assert native.clip_preprocess(np.zeros((40, 60, 3), np.uint8), 28, 28).shape == (28, 28, 3)
+assert str(native.load_library()._name).startswith(str(native.BUILD))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
 assert not bad, bad
 assert build._lib is None
@@ -229,6 +237,23 @@ print("tool", 1)
 """
 
 
+SCRIPTS_SCRIPT = r"""
+import importlib.util, sys
+from pathlib import Path
+import llava_plus_torch
+
+scripts = Path(llava_plus_torch.__file__).parent / "scripts"
+sys.path.insert(0, str(scripts))   # convert_sqa_to_llava imports its sibling
+names = sorted(p.stem for p in scripts.glob("*.py"))
+for name in names:
+    spec = importlib.util.spec_from_file_location(f"port_script_{name}", scripts / f"{name}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
+assert not bad, bad
+print("scripts", len(names))
+"""
+
+
 def _run(script, *args):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -241,6 +266,13 @@ def _run(script, *args):
 
 def test_port_imports_no_jax_and_runs_without_kernels():
     assert _run(SCRIPT) >= 20  # every module of the package was imported
+
+
+def test_port_scripts_import_no_jax():
+    """Every ``llava_plus_torch/scripts/*.py`` (the merge, the projector
+    extract, the answer converters) loads nothing of JAX or the JAX
+    package."""
+    assert _run(SCRIPTS_SCRIPT) == 10
 
 
 def test_port_http_path_imports_no_jax():

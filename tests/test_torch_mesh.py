@@ -46,6 +46,7 @@ from llava_plus_torch.models.convert import from_numpy, per_layer, to_numpy, tre
 from llava_plus_torch.models.llava import MultimodalBatch
 from llava_plus_torch.ops import quant
 from llava_plus_torch.parallel import mesh, sharding
+from llava_plus_torch.train import checkpoint
 from llava_plus_torch.train import lora as lora_lib
 from llava_plus_torch.train import step
 from llava_plus_torch.train.optimizer import OptimizerConfig, build_optimizer
@@ -131,19 +132,22 @@ def test_constrain_without_mesh_and_placements():
 # ---------------------------------------------------------------------------
 
 RANK_SCRIPT = r"""
-import pickle, sys
+import pickle, sys, time
+from pathlib import Path
 import numpy as np, torch, torch.distributed as dist
 
 torch.set_num_threads(1)
-rank, world, d = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+rank, world, d, trainer = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], Path(sys.argv[4])
 dist.init_process_group("gloo", init_method=f"file://{d}/store", rank=rank, world_size=world)
+from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 from llava_plus_torch.models import llava
 from llava_plus_torch.models.configs import LlavaConfig
-from llava_plus_torch.models.convert import from_numpy, per_layer, to_numpy, tree_map
+from llava_plus_torch.models.convert import from_numpy, per_layer, stacked, to_numpy, tree_map
 from llava_plus_torch.models.llava import MultimodalBatch
 from llava_plus_torch.ops import quant
 from llava_plus_torch.ops.attention import attention
+from llava_plus_torch.train.optimizer import tree_leaves
 from llava_plus_torch.parallel.mesh import make_mesh
 from llava_plus_torch.train import checkpoint, lora as lora_lib, step
 from llava_plus_torch.train.optimizer import OptimizerConfig, build_optimizer
@@ -159,6 +163,10 @@ batch = step.place_batch(MultimodalBatch(**{k: torch.from_numpy(v)
 
 def full(tree):
     return to_numpy(checkpoint.gathered(tree))
+
+# each group of four ranks as a (1, 2, 2) mesh: another shape to restore on
+sub = DeviceMesh("cpu", torch.arange(world).reshape(2, 1, 2, 2),
+                 mesh_dim_names=("copy", "dp", "fsdp", "tp"))["dp", "fsdp", "tp"]
 
 # the placements of the fused embeddings and the logits, as the stage-2
 # step's forward makes them
@@ -201,10 +209,8 @@ _, state, m = step.make_train_step(cfg, opt, remat=True, mesh=mesh)(p, state, ba
 out["stage2"] = {k: float(v) for k, v in m.items()}
 out["stage2_attention_calls"] = attention.mesh_calls - calls
 out["stage2_params"] = full(params)
-saved_p, saved_s = checkpoint.gathered(p), checkpoint.gathered(state)
-if rank == 0:
-    checkpoint.save_train_state(f"{d}/ckpt", 1, saved_p, saved_s)
-dist.barrier()
+# every rank writes its own shards
+checkpoint.save_train_state(f"{d}/ckpt", 1, p, state)
 fresh = per_layer(step.place_params(from_numpy(inp["llama"], "cpu"), mesh, cfg))
 fresh_state = opt.init(fresh)
 restored, at = checkpoint.restore_train_state(f"{d}/ckpt/checkpoint-1", fresh, fresh_state)
@@ -214,6 +220,34 @@ def moments(s):
 
 out["resume"] = (at, full(restored["params"]), moments(restored["opt_state"]),
                  _all_dtensor(fresh), moments(state))
+
+# the same save on the (1, 2, 2) mesh of each group of four ranks
+def on_sub(tree):
+    return checkpoint.gathered(tree, rank)
+
+fresh = per_layer(step.place_params(from_numpy(inp["llama"], "cpu"), sub, cfg))
+restored, at = checkpoint.restore_train_state(f"{d}/ckpt/checkpoint-1", fresh, opt.init(fresh))
+p_sub, mu_sub = on_sub(restored["params"]), on_sub(restored["opt_state"]["mu"])
+if rank == 0:
+    out["resume_122"] = (at, to_numpy(p_sub), tree_map(lambda x: x.numpy(), mu_sub),
+                         tuple(fresh["language_model"]["embed_tokens"].device_mesh.shape))
+
+# the trainer CLI's 4-rank checkpoint (started with this launch), restored
+# on the (1, 2, 2) mesh into trees shaped as the one-process run's state
+deadline = time.time() + 240
+while not all((trainer / run / "checkpoint-2" / "meta.json").exists() for run in ("mesh", "one")):
+    assert time.time() < deadline, "the trainer runs wrote no checkpoint-2"
+    time.sleep(1)
+one = torch.load(trainer / "one" / "checkpoint-2" / "state.pt", weights_only=True)
+tcfg = LlavaConfig.load(trainer / "one" / "checkpoint-2" / "config.json")
+like = per_layer(step.place_params(stacked(one["params"]), sub, tcfg))
+like_state = {"count": 0, **{m: {k: [torch.zeros_like(x) for x in tree_leaves(like[k])]
+                                 for k in one["opt_state"][m]} for m in ("mu", "nu")}}
+restored, at = checkpoint.restore_train_state(trainer / "mesh" / "checkpoint-2", like, like_state)
+p_sub, mu_sub = on_sub(restored["params"]), on_sub(restored["opt_state"]["mu"])
+if rank == 0:
+    out["trainer_122"] = (at, restored["opt_state"]["count"], to_numpy(p_sub),
+                          tree_map(lambda x: x.numpy(), mu_sub), _all_dtensor(like))
 
 # QLoRA int8: the quantized base placed by _quant_specs, the adapters replicated
 base = quant.quantize_llava_params(from_numpy(inp["llama"], "cpu"), "llama", bits=8)
@@ -331,8 +365,9 @@ def test_eight_ranks_match_one_process_and_jax(tmp_path, trainer_runs):
     inp = _inputs()
     with open(tmp_path / "inputs.pkl", "wb") as f:
         pickle.dump(inp, f)
-    procs = _start(lambda r: [sys.executable, "-c", RANK_SCRIPT, str(r), "8", str(tmp_path)], 8,
-                   tmp_path, "rank")
+    trainer_root, _ = trainer_runs
+    procs = _start(lambda r: [sys.executable, "-c", RANK_SCRIPT, str(r), "8", str(tmp_path),
+                              str(trainer_root)], 8, tmp_path, "rank")
     one = _one_process(inp)            # while the ranks run
     want_params, want_m = _jax_mesh_step(inp)
     _wait(procs, timeout=240)
@@ -346,12 +381,25 @@ def test_eight_ranks_match_one_process_and_jax(tmp_path, trainer_runs):
     # the int8 scale's contraction slot replicated, N over tp
     assert got["qlora_placements"] == "(Replicate(), Replicate(), Shard(dim=2))"
     assert got["stage2_attention_calls"] > 0
-    # resume: the gathered save, loaded into freshly placed DTensors, is the
-    # trained tree and optimizer state bit for bit
+    # resume: the sharded save, loaded into freshly placed DTensors on the
+    # same mesh and on a (1, 2, 2) mesh, is the trained tree and optimizer
+    # state bit for bit
     at, r_params, r_mu, r_dtensor, mu = got["resume"]
     assert at == 1 and r_dtensor
     jax.tree.map(np.testing.assert_array_equal, r_params, got["stage2_params"])
     jax.tree.map(np.testing.assert_array_equal, r_mu, mu)
+    at, r_params, r_mu, shape = got["resume_122"]
+    assert at == 1 and shape == (1, 2, 2)
+    jax.tree.map(np.testing.assert_array_equal, r_params, got["stage2_params"])
+    jax.tree.map(np.testing.assert_array_equal, r_mu, mu)
+    # the trainer CLI's 4-rank sharded checkpoint on a (1, 2, 2) mesh: the
+    # one-process run's state, within that test's tolerance
+    at, count, r_params, r_mu, r_dtensor = got["trainer_122"]
+    sb = torch.load(trainer_root / "one" / "checkpoint-2" / "state.pt", weights_only=True)
+    assert at == count == sb["opt_state"]["count"] == CLI_STEPS and r_dtensor
+    _close({"params": r_params, "mu": r_mu},
+           {"params": to_numpy(sb["params"]),
+            "mu": tree_map(lambda x: x.numpy(), sb["opt_state"]["mu"])}, CLI_TOL)
     ptol = _param_tol(inp["opt"], 1)
     for ref_m, ref_p in ((one["stage2"], one["stage2_params"]), (want_m, want_params)):
         for k in ("loss", "accuracy", "tokens", "grad_norm"):
@@ -368,6 +416,7 @@ def test_eight_ranks_match_one_process_and_jax(tmp_path, trainer_runs):
 
 
 CLI_LR, CLI_STEPS = 2e-5, 2
+CLI_TOL = dict(rtol=1e-5, atol=5e-2 * CLI_LR * CLI_STEPS)
 
 
 @pytest.fixture(scope="module")
@@ -421,15 +470,55 @@ def test_trainer_cli_under_four_ranks_saves_what_one_process_saves(trainer_runs)
 
     root, procs = trainer_runs
     _wait(procs, timeout=300)
-    tol = dict(rtol=1e-5, atol=5e-2 * CLI_LR * CLI_STEPS)
+    tol = CLI_TOL
     a = load_file(str(root / "mesh" / "hf_export" / "model.safetensors"))
     b = load_file(str(root / "one" / "hf_export" / "model.safetensors"))
     assert a.keys() == b.keys()
     for k in a:
         np.testing.assert_allclose(a[k].numpy(), b[k].numpy(), **tol)
-    sa, sb = (torch.load(root / run / "checkpoint-2" / "state.pt", weights_only=True)
-              for run in ("mesh", "one"))
-    assert sa["opt_state"]["count"] == sb["opt_state"]["count"] == CLI_STEPS
+    # the mesh run's sharded state, read in this process into trees shaped
+    # as the one-process run's
+    sb = torch.load(root / "one" / "checkpoint-2" / "state.pt", weights_only=True)
+    like = tree_map(lambda x: torch.zeros_like(x) if isinstance(x, torch.Tensor) else x, sb)
+    sa, at = checkpoint.restore_train_state(root / "mesh" / "checkpoint-2", like["params"],
+                                            like["opt_state"])
+    assert at == sa["opt_state"]["count"] == sb["opt_state"]["count"] == CLI_STEPS
     tree_map(lambda x, y: np.testing.assert_allclose(x.numpy(), y.numpy(), **tol),
              {"params": sa["params"], "mu": sa["opt_state"]["mu"]},
              {"params": sb["params"], "mu": sb["opt_state"]["mu"]})
+
+
+def test_trainer_cli_mesh_checkpoint_holds_each_shard_once(trainer_runs):
+    """The 4-rank run's training state is written by every rank, each its
+    own shards: every saved tensor's chunks tile it exactly once, a leaf
+    sharded over fsdp has chunks in more than one rank's file, and the
+    files hold the state's bytes once over all ranks (not once a rank)."""
+    import torch.distributed.checkpoint as dcp
+
+    root, procs = trainer_runs
+    _wait(procs, timeout=300)
+    state_dir = root / "mesh" / "checkpoint-2" / checkpoint.SHARDED_DIR
+    assert not (root / "mesh" / "checkpoint-2" / checkpoint.STATE_FILE).exists()
+    md = dcp.FileSystemReader(state_dir).read_metadata()
+    files = {}
+    payload = 0
+    for key, tmd in md.state_dict_metadata.items():
+        if not hasattr(tmd, "chunks"):
+            continue           # a plain value (the step count)
+        numel = int(np.prod(tmd.size))
+        assert sum(int(np.prod(c.sizes)) for c in tmd.chunks) == numel, key
+        files[key] = {info.relative_path for idx, info in md.storage_data.items()
+                      if idx.fqn == key}
+        payload += numel * tmd.properties.dtype.itemsize
+    one = torch.load(root / "one" / "checkpoint-2" / "state.pt", weights_only=True)
+    leaves = [x for _, x in checkpoint._flat([one["params"], one["opt_state"]])
+              if isinstance(x, torch.Tensor)]
+    assert len(files) == len(leaves)
+    assert payload == sum(x.numel() * x.element_size() for x in leaves)
+    written = sum(f.stat().st_size for f in state_dir.glob("*.distcp"))
+    assert len(list(state_dir.glob("*.distcp"))) == 4
+    # each chunk is written once, with a few hundred bytes of framing
+    # (many small chunks at this width): far below one copy a rank (4x)
+    assert payload <= written < 1.5 * payload
+    # the embedding is sharded over fsdp: two ranks wrote its halves
+    assert len(files["params/language_model/embed_tokens"]) >= 2

@@ -502,3 +502,26 @@ def test_warmup_leaves_the_pool_free(engines):
         assert _gen(eng, "hello") == _gen(engines[1], "hello")
     finally:
         eng.stop()
+
+
+def test_stopped_paged_engine_frees_its_pool_without_the_cycle_collector(engines):
+    """A paged engine with the prefix cache, stopped and dropped, frees its
+    pool at once: nothing it owns refers back to it, so no reference cycle
+    waits for the cycle collector (which stays off here)."""
+    import gc
+    import weakref
+
+    tp, _, _, _ = engines
+    eng = BatchedEngine(tp, CFG, CharTokenizer(), cache_dtype=torch.float32, paged=True, **KW)
+    gc.collect()
+    gc.disable()
+    try:
+        assert _gen(eng, "abcd" * 12, n=4)   # a full page of prompt
+        _settle(eng)
+        assert len(eng._prefix) > 0   # a page published: the cache holds callbacks
+        eng.stop()
+        engine, pool = weakref.ref(eng), weakref.ref(eng.cache.pool)
+        del eng
+        assert engine() is None and pool() is None
+    finally:
+        gc.enable()
