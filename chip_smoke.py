@@ -51,7 +51,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    bit against their plain versions (the row quantize at 768 and 3,072 rows
    of K = 4096 and 11008, bf16 and f32; the epilogue at the 7B's N), each
    through its wrapper and alone, and the W8A8 product at wqkv and w_down
-   beside the weight-only int8 kernel and bf16 ``torch.matmul``;
+   beside the weight-only int8 kernel and bf16 ``torch.matmul``; and rows at
+   LLaVA-1.5-13B's shapes (``phase_13b_kernels``): the flash forward at 40
+   heads (T = 768 and 2,048), the dense decode kernel at 8 and 16 slots of
+   2,048 over 40 kv heads (bf16, int8), the int8 and int4 matmuls on its
+   fused wqkv, wo, w_gateup, w_down and head at 1, 8, 16, 80, 768 and 3,072
+   rows, and paged decode1 at 8 and 16 slots of 32 pages (40 kv heads);
 4. a narrow LLaMA (head dim 128, GQA) on the card against the same weights
    on the CPU plain path: 16 greedy tokens, and the logits of the prefill and
    of every decode step, with bf16 weights (bf16 and int8 KV) and with fused
@@ -137,7 +142,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    host path around the wrapper drops out, alternated with the library call
    or yardstick (kernel, library, library, kernel; on wqkv at 16, 768 and
    3,072 rows and, int4, w_down at 8,192) in one process, with TFLOP/s and
-   the share of the bound;
+   the share of the bound; and phase 3's 13B rows at decode rows (the int8
+   and int4 matmuls at 1, 8 and 16 rows, dense decode and decode1 at 8 and
+   16 slots), the kernel alone;
 17. (run after 7, before 11) speculative serving on fresh int8 LLaVA-1.5-7B
    weights, int8 KV: ``llava_plus_torch.tools.bench_spec``'s stream (160
    repetitive words and an image, 128 greedy tokens, speculation off then
@@ -172,7 +179,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 19. (run after 18, before 11) the eval harness from phase 16's checkpoint
    (kept on disk until then): 4 image questions written under ``.smoke/``
    and ``python -m llava_plus_torch.eval.model_vqa_loader --model-path
-   ...`` run as a user runs it, three times (single-stream greedy,
+   ...`` run as a user runs it, three times at once (single-stream greedy,
    ``--engine-slots 8``, ``--num_beams 3 --max-new-tokens 16``), each
    process's flash and bf16 decode launches checked against its prefills
    and steps; where an engine answer differs from the single-stream one,
@@ -202,10 +209,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    ``make_mesh(1, 1, 1)``, saved shard by shard
    (``checkpoint.save_train_state``), restored onto fresh DTensors and into
    one process's plain trees, every leaf bit for bit; seconds and bytes;
-16. (run after 5, before 6, which quantizes its weights) the 7B tree of
-   phase 5 exported as an HF checkpoint under ``.smoke/`` (one
-   ``model.safetensors``, 14.1 GB, with a word-level tokenizer that names
-   every id) and served from disk: ``load_pretrained_model`` in this
+16. (run after 5, before 6) a tree of LLaVA-1.5-7B's width at 4 of its 32
+   layers (``CKPT_LAYERS``) exported as an HF checkpoint under ``.smoke/``
+   (one ``model.safetensors``, 2.8 GB, with a word-level tokenizer that
+   names every id) and served from disk: ``load_pretrained_model`` in this
    process, every leaf equal to the exported one bit for bit; the worker
    started as a user starts it (``python -m llava_plus_torch.serve.
    model_worker --model-path ... --load-8bit --kv-int8 --max-slots 16
@@ -215,7 +222,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    factory on the loaded tree; the worker stopped by SIGTERM; one turn of
    ``python -m llava_plus_torch.serve.cli`` with its input piped. Write and
    load times, host GB/s, the worker's first served token from its start,
-   TTFT p50, tokens/s and its peak device memory.
+   TTFT p50, tokens/s and its peak device memory;
+25. (run after 7, before 17) LLaVA-1.5-13B at full width and depth (40
+   layers), random bf16 weights: ``TorchBackend`` behind ``build_app`` with
+   int4 fused weights and int8 KV at 8 slots (8 image prompts at once; the
+   quantization's peak device memory held to the bf16 tree plus the int4
+   tree plus 2 GiB), requests one at a time through the engine and the
+   single-stream ``Generator`` on the same tree (equal ids, or a top-2 gap
+   within phase 4's bound where they part), int8 weights on the dense
+   engine at 16 slots and on the paged engine with the prefix cache (hits
+   counted, no vision encode on a hit), each engine's decode step timed
+   (host ms, device busy); then a 4-layer
+   checkpoint at 13B's width served by ``python -m
+   llava_plus_torch.serve.model_worker --load-4bit --kv-int8 --max-slots 8``
+   registered with the port's controller (``python -m
+   llava_plus_torch.serve.controller``), 8 streams to the address
+   ``/get_worker_address`` gives and one through the controller's stream
+   route, both processes stopped by SIGTERM with exit code 0.
 
 Phase 3 also holds both paged kernels (decode1 and general) and both flash
 backward kernels (dK/dV and dQ, at T = 2048, MHA and GQA, a padded and a
@@ -340,7 +363,7 @@ def phase_env():
     log("env", f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
                f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     log("env", f"nvcc {nvcc}")
-    # phase 16 writes a 14.1 GB checkpoint under .smoke/
+    # phases 16 and 25 write checkpoints of 2.8 and 3.9 GB under .smoke/
     df = subprocess.run(["df", "-h", HERE], capture_output=True, text=True).stdout.strip()
     log("env", "disk: " + " | ".join(df.splitlines()))
     return smi
@@ -721,6 +744,17 @@ INT4N_ROWS = (1, 16, 48, 49, 64, 768, 3072)
 # a 16-slot verify step's rows (16 x (k + 1) for k = 4 and 7), on wqkv and
 # w_down (int8 and int4)
 VERIFY_ROWS = (80, 128)
+# LLaVA-1.5-13B's fused matrices and head (K x N), and the rows its engines
+# give them: one decode row, 8 and 16 slots, a 16-slot verify step of 5
+# tokens, one 768-token prefill and the engine's 4-prompt batch; phase 15
+# times the decode rows alone
+QUANT_13B_SHAPES = (("13B wqkv", 5120, 15360), ("13B wo", 5120, 5120),
+                    ("13B w_gateup", 5120, 27648), ("13B w_down", 13824, 5120),
+                    ("13B lm_head", 5120, 32000))
+ROWS_13B = (1, 8, 16, 80, 768, 3072)
+DECODE_ROWS_13B = (1, 8, 16)
+# the 13B engines' slots (the int4 engine's 8, the int8 and paged engines' 16)
+SLOTS_13B = (8, 16)
 
 
 def _quantize(kind, w):
@@ -752,8 +786,9 @@ def _dequant16(kind, q, s):
     return qm.dequantize(8 if kind == "int8" else 4, q, s, torch.bfloat16)
 
 
-def check_quant(kind, name, K, N, gen, extra_rows=()):
-    """One weight, every row count: kernel and plain version against the f64
+def check_quant(kind, name, K, N, gen, extra_rows=(), row_counts=None):
+    """One weight, every row count (``row_counts``, else the kind's phase-3
+    rows and ``extra_rows``): kernel and plain version against the f64
     product of the dequantized weight, errors relative to the largest output.
     Every row also launches the kernel a second time (every bit must repeat:
     the K chunks' partials are summed in a fixed order) and times the
@@ -772,7 +807,8 @@ def check_quant(kind, name, K, N, gen, extra_rows=()):
         "int4": (qm.matmul_int4, qm.matmul_int4_reference),
         "int4n": (qm.matmul_int4_native, qm.matmul_int4_native_reference)}[kind]
     # the native kernel always writes f32, as its Pallas variant does
-    out_dtype = torch.float32 if name == "lm_head" or kind == "int4n" else torch.bfloat16
+    out_dtype = (torch.float32 if name.endswith("lm_head") or kind == "int4n"
+                 else torch.bfloat16)
     kw = {} if kind == "int4n" else {"out_dtype": out_dtype}
     nbytes = q.numel() + s.numel() * 4
     w16 = _dequant16(kind, q, s)
@@ -781,7 +817,8 @@ def check_quant(kind, name, K, N, gen, extra_rows=()):
         if not {cut, cut + 1} <= set(rows_):
             raise AssertionError(f"the rows {rows_} must hold both sides of the cut {cut}")
     rows = {}
-    for R in {"int8": INT8_ROWS, "int4": INT4_ROWS, "int4n": INT4N_ROWS}[kind] + extra_rows:
+    for R in row_counts or {"int8": INT8_ROWS, "int4": INT4_ROWS,
+                            "int4n": INT4N_ROWS}[kind] + extra_rows:
         x = torch.randn(R, K, generator=gen, device=dev).bfloat16()
         truth = x.double() @ w64
         top = truth.abs().max().item()
@@ -815,7 +852,7 @@ def check_quant(kind, name, K, N, gen, extra_rows=()):
                                  "its plain version or does not repeat its bits")
         rows[R] = {"max_abs_err": k_err, "ms": ms, "plain_ms": plain_ms, **b,
                    "yardstick_ms": yard_ms}
-    if name in ("wqkv", "7B q/o"):
+    if name in ("wqkv", "7B q/o", "13B wqkv"):
         rows[16]["library_ms"] = library_quant(kind, q, s, gen)
     return rows
 
@@ -1355,7 +1392,7 @@ def phase_kernels():
 
     dec_bf16 = worst(dec_bf16, dec_new["bf16", 32, False, 1], dec_new["bf16", 32, False, 16])
     dec_int8 = worst(dec_int8, dec_new["int8", 32, False, 1], dec_new["int8", 32, False, 16])
-    return {"flash_fwd": flash,
+    stats = {"flash_fwd": flash,
             "decode_attention[verify]": phase_verify_decode(),
             "flash_bwd[dkv,alibi]": dict(alibi_bwd[0][0], max_abs_err=max(
                 r[0]["max_abs_err"] for r in alibi_bwd)),
@@ -1373,6 +1410,54 @@ def phase_kernels():
             **phase_quant_kernels(),
             **phase_paged_kernels(gen, rng),
             **phase_w8a8_kernels()}
+    # the rows at LLaVA-1.5-13B's shapes, their errors in each line's largest
+    for name, row in phase_13b_kernels().items():
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], row["max_abs_err"])
+        stats[name]["13b"] = row["13b"]
+    return stats
+
+
+def _row(r):
+    """A phase-3 row for the kernels line: [ms, bound ms, library ms,
+    yardstick ms], None where the row has none."""
+    return [None if r.get(k) is None else round(r[k], 5)
+            for k in ("ms", "bound_ms", "library_ms", "yardstick_ms")]
+
+
+def phase_13b_kernels():
+    """Phase 3's rows at LLaVA-1.5-13B's shapes (40 heads of 128, hidden
+    5,120, FFN 13,824), on a generator of their own: the flash forward at
+    B = 2, H = 40, T = 768 and 2,048 (library: sdpa); the dense decode kernel
+    at 8 and 16 slots of 2,048, bf16 (library: sdpa) and int8; the int8 and
+    int4 matmuls on the fused matrices and the head at ROWS_13B (beside the
+    bf16 yardstick; wqkv at 16 rows also the library's weight-only
+    product); paged decode1 at 8 and 16 slots of 32 pages of 128 over an
+    int8 pool. Each row against its plain version and the f64 truth by
+    phase 3's criterion, launched twice, bit for bit. Returns, per kernel
+    line, its largest error and its rows (:func:`_row`) under "13b"."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rng = np.random.default_rng(13)
+    rows = {}
+    flash = {T: check_flash("13B MHA", B=2, T=T, H=40, Hkv=40, pad_tail=100, gen=gen)
+             for T in (768, 2048)}
+    rows["flash_fwd"] = {f"T={T}": r for T, r in flash.items()}
+    for tag in ("bf16", "int8"):
+        rows[f"decode_attention[{tag}]"] = {
+            f"B={B} S=2048": check_decode(tag, B=B, S=2048, H=40, Hkv=40, gen=gen, rng=rng)
+            for B in SLOTS_13B}
+    for kind in ("int8", "int4"):
+        rows[f"quant_matmul[{kind}]"] = {
+            f"{name} R={R}": r for name, K, N in QUANT_13B_SHAPES
+            for R, r in check_quant(kind, name, K, N, gen, row_counts=ROWS_13B).items()}
+    rows["paged_attention[decode1]"] = {
+        f"B={B} pages/slot=32": check_paged("13B int8", 40, 1, True, gen, rng, B=B, H=40,
+                                            pages_per_slot=32)
+        for B in SLOTS_13B}
+    return {name: {"max_abs_err": max(r["max_abs_err"] for r in per.values()),
+                   "13b": {k: _row(r) for k, r in per.items()}}
+            for name, per in rows.items()}
 
 
 def phase_verify_decode():
@@ -1570,6 +1655,57 @@ def phase_device_times(stats):
     _device_times_int4n(stats)
     for kind in ("decode1", "general"):
         _device_times_paged(stats, kind)
+    _device_times_13b(stats)
+
+
+def _device_times_13b(stats):
+    """Phase 3's 13B rows at decode rows, each kernel alone (its own device
+    time, taken twice), from seeds of their own: the int8 and int4 matmuls
+    on the five matrices at DECODE_ROWS_13B, the dense decode kernel at 8
+    and 16 slots of 2,048 (bf16, int8) and paged decode1 at 8 and 16 slots of
+    32 pages (int8). Adds [device ms, bound ms] by row under "13b_alone"."""
+    import torch
+    from llava_plus_torch.ops import paged_attention as pa
+    from llava_plus_torch.ops import quant_matmul as qm
+    from llava_plus_torch.ops.decode_attention import decode_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rng = np.random.default_rng(14)
+
+    def alone(line, row, call, names, b):
+        ms = (device_ms(call, names) + device_ms(call, names)) / 2
+        log("device", f"{line} {row}: kernel {ms:.4f} ms device, {b['bound_ms'] / ms:.1%} of "
+                      f"the bound ({b['bound_ms']:.4f} ms, {b['bound_by']})")
+        stats[line].setdefault("13b_alone", {})[row] = [round(ms, 5), round(b["bound_ms"], 5)]
+
+    for kind, wrapper, names in (("int8", qm.matmul_int8, INT8_KERNEL),
+                                 ("int4", qm.matmul_int4, INT4_KERNEL)):
+        for name, K, N in QUANT_13B_SHAPES:
+            q, s = _quantize(kind, torch.randn(K, N, generator=gen, device="cuda").mul_(0.02)
+                             .bfloat16())
+            out_dtype = torch.float32 if name.endswith("lm_head") else torch.bfloat16
+            for R in DECODE_ROWS_13B:
+                x = torch.randn(R, K, generator=gen, device="cuda").bfloat16()
+                out_bytes = R * N * (4 if out_dtype == torch.float32 else 2)
+                alone(f"quant_matmul[{kind}]", f"{name} R={R}",
+                      lambda: wrapper(x, q, s, out_dtype=out_dtype), names,
+                      bound(q.numel() + 4 * s.numel() + 2 * R * K + out_bytes, 2 * R * K * N))
+            del q, s
+    for tag in ("bf16", "int8"):
+        for B in SLOTS_13B:
+            q, kc, vc, seg, q_pos, ks, vs, fills = _decode_inputs(tag, B, 2048, 40, 40, gen, rng)
+            _, b = _decode_bound(fills, B, 40, 40, 2048, kc.element_size(), ks is not None)
+            alone(f"decode_attention[{tag}]", f"B={B} S=2048",
+                  lambda: decode_attention(q, kc, vc, seg, q_pos, ks, vs), DECODE_KERNEL, b)
+            del q, kc, vc, seg, q_pos, ks, vs
+    for B in SLOTS_13B:
+        (q, pool, scale, page_ids, lens, ck, cv, vals), lengths, valid = _paged_inputs(
+            40, 1, True, gen, rng, B, 40, 128, 32)
+        _, b = _paged_bound(lengths, valid, B, 40, 40, 1, 128, True, pool.element_size())
+        alone("paged_attention[decode1]", f"B={B} pages/slot=32",
+              lambda: pa.paged_decode_attention(q, pool, page_ids, lens, scale, ck, cv, vals),
+              DECODE1_KERNEL, b)
+        del q, pool, scale, page_ids, lens, ck, cv, vals
 
 
 DECODE_KERNEL = ("decode_kernel",)
@@ -2286,20 +2422,26 @@ def _png_b64(rng, size):
     return base64.b64encode(buf.getvalue()).decode()
 
 
-def _init_7b(dev):
-    """LLaVA-1.5-7B at full width and depth, random bf16 weights from seed 0."""
+def _init_llava(dev, cfg=None):
+    """A LLaVA tree of ``cfg`` (LLaVA-1.5-7B by default) at its full width and
+    depth, random bf16 weights from seed 0."""
     import torch
     from llava_plus_torch.models import llava as llava_model
     from llava_plus_torch.models.configs import LLAVA_15_7B
 
+    cfg = cfg or LLAVA_15_7B
     t0 = time.perf_counter()
-    params = llava_model.init_params(LLAVA_15_7B, torch.Generator(device=dev).manual_seed(0),
-                                     dev)
+    params = llava_model.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in _leaves(params))
-    log("7b", f"random bf16 weights on {dev}: {n_params / 1e9:.3f} B parameters in "
-              f"{time.perf_counter() - t0:.1f} s")
+    log("init", f"random bf16 weights on {dev}: {n_params / 1e9:.3f} B parameters "
+                f"({cfg.text.num_hidden_layers} layers of {cfg.hidden_size}) in "
+                f"{time.perf_counter() - t0:.1f} s")
     return params
+
+
+def _tree_bytes(tree):
+    return sum(x.numel() * x.element_size() for x in _leaves(tree))
 
 
 def phase_full_slice(smi, params, dev):
@@ -2392,6 +2534,10 @@ def phase_full_slice(smi, params, dev):
 # ---------------------------------------------------------------------------
 
 CKPT_NAME = "llava-v1.5-7b-random"
+# the depth of phase 16's checkpoint, at LLaVA-1.5-7B's width: 4 of its 32
+# layers, 2.8 GB of safetensors (the whole model's 14.1 GB spent most of
+# phases 16, 19 and 22 in writes and loads); phases 19 and 22 answer from it
+CKPT_LAYERS = 4
 WORKER_FLAGS = ["--load-8bit", "--kv-int8", "--max-slots", "16",
                 "--limit-model-concurrency", "16"]
 
@@ -2449,15 +2595,25 @@ def _tail(path, n=3000):
         return f.read()[-n:]
 
 
-def export_checkpoint(params, cfg=None):
-    """The tree written under ``.smoke/`` as an HF checkpoint (one
+def _ckpt_cfg():
+    """Phase 16's checkpoint: LLaVA-1.5-7B at CKPT_LAYERS layers."""
+    import dataclasses
+
+    from llava_plus_torch.models.configs import LLAVA_15_7B
+
+    return dataclasses.replace(LLAVA_15_7B, text=dataclasses.replace(
+        LLAVA_15_7B.text, num_hidden_layers=CKPT_LAYERS))
+
+
+def export_checkpoint(params, cfg=None, name=CKPT_NAME):
+    """The tree of ``cfg`` (phase 16's, :func:`_ckpt_cfg`, by default)
+    written under ``.smoke/<name>`` as an HF checkpoint (one
     ``model.safetensors`` and the word-level tokenizer): (path, bytes of
     safetensors, seconds)."""
-    from llava_plus_torch.models.configs import LLAVA_15_7B
     from llava_plus_torch.train.checkpoint import export_hf_llava
 
-    cfg = cfg or LLAVA_15_7B
-    path = os.path.join(SMOKE_DIR, CKPT_NAME)
+    cfg = cfg or _ckpt_cfg()
+    path = os.path.join(SMOKE_DIR, name)
     shutil.rmtree(path, ignore_errors=True)
     os.makedirs(SMOKE_DIR, exist_ok=True)
     t0 = time.perf_counter()
@@ -2469,8 +2625,9 @@ def export_checkpoint(params, cfg=None):
 
 
 def phase_checkpoint(smi, params, cfg=None, device="cuda", keep=False):
-    """The 7B tree of phase 5 (before phase 6 quantizes it) written as an HF
-    checkpoint with the port's exporter, then served from disk:
+    """A tree of LLaVA-1.5-7B's width at CKPT_LAYERS of its layers (``cfg``,
+    :func:`_ckpt_cfg` by default) written as an HF checkpoint with the
+    port's exporter, then served from disk:
 
     1. ``load_pretrained_model`` in this process: every leaf equal to the
        exported tree, bit for bit; load seconds and host GB/s;
@@ -2496,13 +2653,12 @@ def phase_checkpoint(smi, params, cfg=None, device="cuda", keep=False):
     import requests
     import torch
     from llava_plus_torch.models.builder import load_pretrained_model
-    from llava_plus_torch.models.configs import LLAVA_15_7B
     from llava_plus_torch.ops import quant_matmul as qm
     from llava_plus_torch.ops.decode_attention import decode_attention
     from llava_plus_torch.ops.flash_attention import flash_attention
     from llava_plus_torch.serve import model_worker as mw
 
-    cfg = cfg or LLAVA_15_7B
+    cfg = cfg or _ckpt_cfg()
     L, V = cfg.text.num_hidden_layers, cfg.text.vocab_size
     os.makedirs(SMOKE_DIR, exist_ok=True)
     disk = shutil.disk_usage(SMOKE_DIR)
@@ -2701,13 +2857,19 @@ def _post_all(url, bodies):
     return results
 
 
-def serve_engine(smi, params, quantize, n_image, n_text):
-    """``TorchBackend(use_engine=True)`` with fused ``quantize`` weights and
-    an int8 KV cache, 16 slots, decode chunks of 4, warmed at 768 tokens;
+def serve_engine(smi, params, quantize, n_image, n_text, *, cfg=None, max_slots=16,
+                 name="llava-1.5-7b-random", step_times=False):
+    """``TorchBackend(use_engine=True)`` on ``params`` of ``cfg``
+    (LLaVA-1.5-7B by default) with fused ``quantize`` weights (quantized in
+    place: the caller's tree is the quantized one after) and an int8 KV
+    cache, ``max_slots`` slots, decode chunks of 4, warmed at 768 tokens;
     every request sent at once. Checks every chunk, each request's full
     token count, batched admission, decode steps shared by several slots,
     and every kernel's launch count against the engine's own counts of
-    prefill dispatches and decode steps. Returns the launch counts."""
+    prefill dispatches and decode steps. With ``step_times`` it then times
+    the decode step at every slot (:func:`_decode_step_times`). Returns the
+    launch counts, with the bytes of the quantized tree and the build's
+    peak device memory."""
     import torch
     from llava_plus_torch.data import ClipImageProcessor, DebugTokenizer
     from llava_plus_torch.models.configs import LLAVA_15_7B
@@ -2716,7 +2878,7 @@ def serve_engine(smi, params, quantize, n_image, n_text):
     from llava_plus_torch.ops.flash_attention import flash_attention
     from llava_plus_torch.serve.model_worker import ModelWorker, TorchBackend, build_app
 
-    cfg = LLAVA_15_7B
+    cfg = cfg or LLAVA_15_7B
     L, new_tokens = cfg.text.num_hidden_layers, 32
     qmm = qm.matmul_int8 if quantize == "int8" else qm.matmul_int4
     tok = DebugTokenizer(vocab_size=cfg.text.vocab_size)
@@ -2728,20 +2890,25 @@ def serve_engine(smi, params, quantize, n_image, n_text):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     backend = TorchBackend(params, cfg, tok, ClipImageProcessor(), device="cuda",
-                           use_engine=True, max_slots=16, decode_chunk=4, quantize=quantize,
-                           kv_int8=True, max_seq_len=2048, warmup_len=768)
+                           use_engine=True, max_slots=max_slots, decode_chunk=4,
+                           quantize=quantize, kv_int8=True, max_seq_len=2048, warmup_len=768)
     del params  # quantized in place into the backend's tree
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
     engine = backend.engine
-    log("engine", f"{quantize} weights, fused; int8 KV, 16 slots x 2048, decode chunks of "
-                  f"4: built and warmed in {time.perf_counter() - t0:.1f} s (warmup "
-                  f"{engine.warmup_s:.1f} s)")
+    tree_bytes = _tree_bytes(engine.params)
+    log("engine", f"{name}: {quantize} weights, fused ({tree_bytes / 2 ** 30:.2f} GiB); int8 "
+                  f"KV, {max_slots} slots x 2048, decode chunks of 4: built and warmed in "
+                  f"{build_s:.1f} s (warmup {engine.warmup_s:.1f} s); peak device memory of "
+                  f"the build {build_peak / 2 ** 30:.2f} GiB; card {smi}")
     bodies = _engine_bodies(np.random.default_rng(1), cfg.vision.image_size, n_image, n_text,
                             new_tokens)
-    worker = ModelWorker("http://127.0.0.1:9", "http://127.0.0.1:0", backend,
-                         ["llava-1.5-7b-random"], limit_model_concurrency=len(bodies),
-                         no_register=True, heartbeats=False)
+    worker = ModelWorker("http://127.0.0.1:9", "http://127.0.0.1:0", backend, [name],
+                         limit_model_concurrency=len(bodies), no_register=True,
+                         heartbeats=False)
     server = _Server(build_app(worker))
     url = f"http://127.0.0.1:{server.port}/worker_generate_stream"
+    torch.cuda.reset_peak_memory_stats()
     try:
         flash_attention.launches = decode_attention.launches = qmm.launches = 0
         regimes0 = _regimes(qmm)
@@ -2758,10 +2925,10 @@ def serve_engine(smi, params, quantize, n_image, n_text):
         server.stop()
         worker.stop()
         backend.stop()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak = torch.cuda.max_memory_allocated()
     _check_streams(bodies, results, new_tokens)
     want = {"flash": L * dp, "decode": L * ds, "quant": (4 * L + 1) * (dp + ds)}
-    log("engine", f"{quantize}: {len(bodies)} requests in {dp} prefill dispatches, "
+    log("engine", f"{name} {quantize}: {len(bodies)} requests in {dp} prefill dispatches, "
                   f"{ds} decode steps ({dm} with more than one active slot); launches "
                   f"{launches} (want {want})")
     if dr != len(bodies) or dp >= dr or dm <= 0:
@@ -2774,14 +2941,55 @@ def serve_engine(smi, params, quantize, n_image, n_text):
     rate = len(bodies) * new_tokens / (t_end - t_start)
     # each request's own stream after its first token
     per = [(len(st) - 1) / (st[-1] - st[0]) for _, _, st in results]
-    log("engine", f"{quantize}: TTFT p50 {np.median(ttfts) * 1e3:.1f} ms (min "
+    log("engine", f"{name} {quantize}: TTFT p50 {np.median(ttfts) * 1e3:.1f} ms (min "
                   f"{ttfts[0] * 1e3:.1f}, max {ttfts[-1] * 1e3:.1f}); {rate:.1f} tokens/s "
                   f"aggregate in {t_end - t_start:.2f} s, per request {np.mean(per):.1f} "
                   f"tokens/s after the first, over {len(bodies)} concurrent requests of "
                   f"{new_tokens} tokens "
-                  f"({n_image} image, {n_text} text); peak device memory {peak:.2f} GiB; "
-                  f"card {smi}")
+                  f"({n_image} image, {n_text} text); peak device memory {peak / 2 ** 30:.2f} "
+                  f"GiB; card {smi}")
+    launches.update(tree_bytes=tree_bytes, build_peak=build_peak)
+    if step_times:
+        _decode_step_times(f"{name} {quantize}", engine, smi)
     return launches
+
+
+def _decode_step_times(tag, engine, smi, fill=800):
+    """The decode step of a stopped engine with every slot active at
+    ``fill`` (a paged pool: each slot its own pages up to there): host ms a
+    step (chunks of 4 steps, each ending with its tokens' fetch, as the
+    engine's loop runs them; mean of 5 after 2) and device busy a step from
+    ``torch.profiler`` over a chunk of 4. (CUDA events cannot take the
+    card's time of a step here: a 13B step launches more kernels than the
+    launch queue holds, so on an H100 80GB HBM3 at 700 W a step queued
+    behind a ``torch.cuda._sleep`` of 0.25 s was never queued whole when
+    the sleep ended.)"""
+    import torch
+
+    B = engine.max_slots
+    fill = min(fill, engine.max_seq_len - 16)
+    args = (np.full(B, fill, np.int32), np.ones(B, bool), np.zeros(B, np.float32),
+            np.ones(B, np.float32), np.zeros(B, np.int64), False)
+    if engine.paged:
+        for slot in range(B):
+            engine._attach_pages(slot, engine._alloc_pages(fill // engine.page_size + 1))
+
+    def chunk():
+        return engine._issue("decode", *args, 4).tolist()
+
+    with torch.inference_mode():
+        for _ in range(2):
+            chunk()
+        host = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            chunk()
+            host.append((time.perf_counter() - t0) * 1e3 / 4)
+        busy = _profiled(chunk)["device_busy_ms"] / 4
+    host_ms = float(np.mean(host))
+    log("steps", f"{tag}: decode step, {B} slots at {fill}: host {host_ms:.3f} ms (min "
+                 f"{min(host):.3f}); device busy (torch.profiler) {busy:.3f} ms, idle share "
+                 f"{1 - busy / host_ms:.3f}; card {smi}")
 
 
 def _regimes(wrapper):
@@ -3133,10 +3341,12 @@ def _check_streams(bodies, results, new_tokens):
             raise AssertionError(f"a request ended with {len(chunks)} of {new_tokens} tokens")
 
 
-def serve_paged_engine(smi):
+def serve_paged_engine(smi, params=None, cfg=None, name="llava-1.5-7b-random",
+                       step_times=False):
     """The paged engine at full width behind the HTTP worker, as the JAX
-    worker's ``--paged`` serves: fresh random 7B weights (seed 0) quantized
-    to int8 and fused, an int8 KV pool of 256 pages of 128 tokens (the
+    worker's ``--paged`` serves: fresh random weights of ``cfg`` (LLaVA-1.5-7B
+    by default; seed 0) quantized to int8 and fused, or ``params`` so
+    quantized already, an int8 KV pool of 256 pages of 128 tokens (the
     memory a dense 16 x 2048 cache would take, shared by 16 slots that may
     each reach 4096 tokens), the prefix cache on, decode chunks of 4, warmed
     at 768 tokens. Round 1: 16 concurrent requests of 32 greedy tokens (8
@@ -3146,7 +3356,9 @@ def serve_paged_engine(smi):
     count, the prefix hits (at least 5 pages of each follow-up), that round
     2 runs no vision encode, every kernel's launch count against the
     engine's counts, and that every page is free or held only by the prefix
-    cache at the end. Returns the launch counts of both rounds."""
+    cache at the end. With ``step_times`` it then times the decode step at
+    every slot (:func:`_decode_step_times`). Returns the launch counts of
+    both rounds."""
     import torch
     from llava_plus_torch.data import ClipImageProcessor, DebugTokenizer
     from llava_plus_torch.models import llava as llava_model
@@ -3157,7 +3369,7 @@ def serve_paged_engine(smi):
     from llava_plus_torch.ops.paged_attention import paged_attention_general, paged_decode1
     from llava_plus_torch.serve.model_worker import ModelWorker, TorchBackend, build_app
 
-    cfg = LLAVA_15_7B
+    cfg = cfg or LLAVA_15_7B
     L, new_tokens, P = cfg.text.num_hidden_layers, 32, 128
     tok = DebugTokenizer(vocab_size=cfg.text.vocab_size)
     tok.eos_token_id = -1  # random weights give eos no meaning: every request runs 32 tokens
@@ -3165,16 +3377,18 @@ def serve_paged_engine(smi):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    backend = TorchBackend(_init_7b("cuda:0"), cfg, tok, ClipImageProcessor(), device="cuda",
-                           use_engine=True, max_slots=16, decode_chunk=4, quantize="int8",
+    backend = TorchBackend(_init_llava("cuda:0", cfg) if params is None else params, cfg, tok,
+                           ClipImageProcessor(), device="cuda", use_engine=True, max_slots=16,
+                           decode_chunk=4, quantize="int8" if params is None else None,
                            kv_int8=True, max_seq_len=4096, paged=True, pool_tokens=32768,
                            prefix_cache=True, warmup_len=768)
+    del params
     engine = backend.engine
     if engine.num_pages != 256:
         raise AssertionError(f"pool of {engine.num_pages} pages, want 256")
-    log("paged", f"int8 weights, fused; int8 KV pool of {engine.num_pages} pages x {P} "
-                 f"tokens, 16 slots up to 4096 tokens, prefix cache on, decode chunks of 4: "
-                 f"built and warmed in {time.perf_counter() - t0:.1f} s (warmup "
+    log("paged", f"{name}: int8 weights, fused; int8 KV pool of {engine.num_pages} pages x "
+                 f"{P} tokens, 16 slots up to 4096 tokens, prefix cache on, decode chunks of "
+                 f"4: built and warmed in {time.perf_counter() - t0:.1f} s (warmup "
                  f"{engine.warmup_s:.1f} s)")
     encodes = [0]
     encode_images = llava_model.encode_images
@@ -3186,9 +3400,9 @@ def serve_paged_engine(smi):
     llava_model.encode_images = counted_encode
     rng = np.random.default_rng(2)
     bodies1 = _paged_bodies(rng, cfg.vision.image_size, new_tokens)
-    worker = ModelWorker("http://127.0.0.1:9", "http://127.0.0.1:0", backend,
-                         ["llava-1.5-7b-random"], limit_model_concurrency=len(bodies1),
-                         no_register=True, heartbeats=False)
+    worker = ModelWorker("http://127.0.0.1:9", "http://127.0.0.1:0", backend, [name],
+                         limit_model_concurrency=len(bodies1), no_register=True,
+                         heartbeats=False)
     server = _Server(build_app(worker))
     url = f"http://127.0.0.1:{server.port}/worker_generate_stream"
     kernels = {"flash": flash_attention, "decode1": paged_decode1,
@@ -3265,9 +3479,290 @@ def serve_paged_engine(smi):
                      f"{n * new_tokens / rd['seconds']:.1f} tokens/s aggregate over {n} "
                      f"requests of {new_tokens} tokens in {rd['seconds']:.2f} s")
     total_s = sum(rd["seconds"] for rd in rounds)
-    log("paged", f"both rounds: {(len(bodies1) + 8) * new_tokens / total_s:.1f} tokens/s "
+    log("paged", f"{name}: both rounds: {(len(bodies1) + 8) * new_tokens / total_s:.1f} tokens/s "
                  f"aggregate; peak device memory {peak:.2f} GiB; card {smi}")
+    if step_times:
+        _decode_step_times(f"{name} paged int8", engine, smi)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# 25. LLaVA-1.5-13B served: the engines in this process, the worker under the
+#     controller
+# ---------------------------------------------------------------------------
+
+NAME_13B = "llava-v1.5-13b-random"
+# the depth of the 13B-width checkpoint the worker process serves: 4 of its
+# 40 layers, 3.9 GB of safetensors (the engines in this process run all 40)
+WORKER_13B_LAYERS = 4
+SINGLE_13B_NEW = 24   # greedy tokens of each request sent one at a time
+SINGLE_TOL = 2e-2     # phase 4's logit bound
+
+
+def phase_serve_13b(smi):
+    """Phase 25: LLaVA-1.5-13B (40 layers of 5,120, 40 heads, FFN 13,824)
+    at full width and depth on random bf16 weights (seed 0), served as the
+    JAX package serves its second configuration (``bench.py``'s
+    ``llava-1.5-13b-int4``: int4 weights, int8 KV, batch 8):
+
+    1. ``TorchBackend(quantize="int4", kv_int8=True, max_slots=8)`` behind
+       ``build_app`` (:func:`serve_engine`): 8 image prompts of 768 fused
+       tokens x 32 greedy tokens sent at once; the build's peak device
+       memory held to the bf16 tree plus the int4 tree plus 2 GiB (the
+       quantization runs a layer at a time); then requests one at a time
+       through the engine and the single-stream ``Generator`` on the same
+       int4 tree (:func:`_single_13b`);
+    2. fresh weights quantized to int8 on the dense engine at 16 slots (8
+       image, 8 text requests), then the paged engine with the prefix cache
+       on the same int8 tree (:func:`serve_paged_engine`: 16 requests, 8
+       follow-ups that hit their prefixes and run no vision encode);
+    3. a 13B-width checkpoint served by ``model_worker --load-4bit
+       --kv-int8`` as a process registered with the port's controller
+       (:func:`_serve_13b_worker`).
+
+    Each engine's decode step is timed at every slot (host ms, device
+    busy). Returns the launch counts of the
+    engines in this process, each checked against the engine's own counts."""
+    import torch
+    from llava_plus_torch.models.configs import LLAVA_15_13B
+
+    t_phase = time.perf_counter()
+    cfg = LLAVA_15_13B
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = _init_llava("cuda:0", cfg)
+    bf16 = _tree_bytes(params)
+    int4 = serve_engine(smi, params, "int4", n_image=8, n_text=0, cfg=cfg, max_slots=8,
+                        name=NAME_13B, step_times=True)
+    build, limit = int4["build_peak"] - base, bf16 + int4["tree_bytes"] + 2 * 2 ** 30
+    log("13b", f"int4 build: peak device memory {build / 2 ** 30:.2f} GiB over the "
+               f"{base / 2 ** 30:.2f} GiB held before; bf16 tree {bf16 / 2 ** 30:.2f} GiB, int4 "
+               f"tree {int4['tree_bytes'] / 2 ** 30:.2f} GiB, bound (bf16 + int4 + 2 GiB) "
+               f"{limit / 2 ** 30:.2f} GiB; card {smi}")
+    if build > limit:
+        raise AssertionError(f"the int4 build's peak {build / 2 ** 30:.2f} GiB exceeds "
+                             f"{limit / 2 ** 30:.2f} GiB")
+    single = _single_13b(smi, params, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = _init_llava("cuda:0", cfg)
+    int8 = serve_engine(smi, params, "int8", n_image=8, n_text=8, cfg=cfg, max_slots=16,
+                        name=NAME_13B, step_times=True)
+    paged = serve_paged_engine(smi, params, cfg, name=NAME_13B, step_times=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _serve_13b_worker(smi)
+    log("13b", f"phase 25: {time.perf_counter() - t_phase:.1f} s; card {smi}")
+    return {"flash": int4["flash"] + single["flash"] + int8["flash"] + paged["flash"],
+            "decode": int4["decode"] + single["decode"] + int8["decode"],
+            "int4": int4["quant"] + single["quant"], "int8": int8["quant"] + paged["quant"],
+            "decode1": paged["decode1"],
+            "int4_regimes": [a + b for a, b in zip(int4["quant_regimes"],
+                                                   single["quant_regimes"])],
+            "int8_regimes": [a + b for a, b in zip(int8["quant_regimes"],
+                                                   paged["quant_regimes"])]}
+
+
+def _single_13b(smi, params, cfg):
+    """Phase 6's 2 image and 2 text prompts, 24 greedy tokens each, sent one
+    at a time to ``TorchBackend(use_engine=True)`` (8 slots) and to
+    ``TorchBackend(use_engine=False)`` (the single-stream ``Generator``) on
+    the same quantized tree, both with int8 KV: equal token ids, or, at the
+    first token that differs, the plain step's top-2 logit gap within
+    SINGLE_TOL (one request at a time gives both sides one row, but the
+    engine's prefill bucket and its 8-slot decode split their sums
+    otherwise). Launches checked against the engine's prefill dispatches
+    and decode steps and the Generator's one prefill and 23 steps a
+    request."""
+    import torch
+    from llava_plus_torch.data import ClipImageProcessor
+    from llava_plus_torch.ops import quant_matmul as qm
+    from llava_plus_torch.ops.decode_attention import decode_attention
+    from llava_plus_torch.ops.flash_attention import flash_attention
+    from llava_plus_torch.serve.model_worker import TorchBackend
+
+    L, n = cfg.text.num_hidden_layers, SINGLE_13B_NEW
+    tok = _id_tokenizer(cfg.text.vocab_size)
+    bodies = _engine_bodies(np.random.default_rng(5), cfg.vision.image_size, 2, 2, n)
+    kw = dict(device="cuda", kv_int8=True, max_seq_len=2048)
+    engine_b = TorchBackend(params, cfg, tok, ClipImageProcessor(), use_engine=True,
+                            max_slots=8, **kw)
+    plain_b = TorchBackend(params, cfg, tok, ClipImageProcessor(), use_engine=False, **kw)
+    engine = engine_b.engine
+    flash_attention.launches = decode_attention.launches = qm.matmul_int4.launches = 0
+    regimes0 = _regimes(qm.matmul_int4)
+    e0 = (engine.prefill_dispatches, engine.decode_steps)
+    try:
+        streams = []
+        for body in bodies:
+            a = _stream_ids(list(engine_b.generate_stream(body))[-1], body["prompt"])
+            b = _stream_ids(list(plain_b.generate_stream(body))[-1], body["prompt"])
+            streams.append((a, b, list(plain_b.generator._last_output_ids)))
+        launches = {"flash": flash_attention.launches, "decode": decode_attention.launches,
+                    "quant": qm.matmul_int4.launches}
+        dp, ds = (b - a for a, b in zip(e0, (engine.prefill_dispatches, engine.decode_steps)))
+    finally:
+        engine_b.stop()
+        plain_b.stop()
+    r = len(bodies)
+    want = {"flash": L * (dp + r), "decode": L * (ds + r * (n - 1)),
+            "quant": (4 * L + 1) * (dp + ds + r * n)}
+    if launches != want:
+        raise AssertionError(f"13b one at a time: launches {launches}, want {want}")
+    launches["quant_regimes"] = _quant_regimes("13b", "int4", regimes0, launches["quant"])
+    equal = 0
+    for i, (body, (a, b, exact)) in enumerate(zip(bodies, streams)):
+        if len(exact) != n:
+            raise AssertionError(f"13b request {i}: the Generator gave {len(exact)} tokens")
+        k = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                 None if len(a) == len(b) else min(len(a), len(b)))
+        if k is None:
+            equal += 1
+            continue
+        # the k-th shown id's place among the Generator's ids (the tokenizer
+        # does not show the reserved ids)
+        shown = [j for j, t in enumerate(exact) if t >= tok._RESERVED]
+        cut = shown[k] if k < len(shown) else len(exact)
+        gap = _top2_gap(params, cfg, tok, body, exact[:cut], torch.int8)
+        log("13b", f"request {i}: the engine's ids leave the Generator's at token {cut}; the "
+                   f"plain step's top-2 logit gap there {gap:.3e} of the top logit (bound "
+                   f"{SINGLE_TOL})")
+        if gap > SINGLE_TOL:
+            raise AssertionError(f"13b request {i}: the engine diverges at token {cut}, where "
+                                 f"the top-2 gap is {gap:.3e} > {SINGLE_TOL}")
+    log("13b", f"{r} requests one at a time: the engine's greedy ids equal the Generator's in "
+               f"{equal} of {r}; launches {launches} (want {want}); card {smi}")
+    return launches
+
+
+def _serve_13b_worker(smi):
+    """LLaVA-1.5-13B's width at WORKER_13B_LAYERS layers (random bf16,
+    seed 0) written by the port's exporter under ``.smoke/`` and loaded
+    back here (the config LLaVA-1.5-13B's but for the depth, every leaf bit
+    for bit); the port's controller and ``python -m
+    llava_plus_torch.serve.model_worker --model-path ... --load-4bit
+    --kv-int8 --max-slots 8 --controller-address ...`` started as users
+    start them. The worker must register; a client finds it through the
+    controller's ``/get_worker_address`` by the model's name and sends 8
+    requests at once (6 image, 2 text; 32 greedy tokens each), then one
+    through the controller's own stream route; every stream whole. The
+    worker and the controller must exit 0 on SIGTERM. Prints export and
+    load seconds, the worker's registration and first served token counted
+    from its start, TTFT p50, tokens/s and its peak device memory."""
+    import dataclasses
+    import signal
+
+    import requests
+    import torch
+    from llava_plus_torch.models.builder import load_pretrained_model
+    from llava_plus_torch.models.configs import LLAVA_15_13B
+    from llava_plus_torch.serve.protocol import iter_chunks_requests
+
+    full = LLAVA_15_13B
+    cfg = dataclasses.replace(full, text=dataclasses.replace(
+        full.text, num_hidden_layers=WORKER_13B_LAYERS))
+    params = _init_llava("cuda:0", cfg)
+    path, nbytes, write_s = export_checkpoint(params, cfg, NAME_13B)
+    t0 = time.perf_counter()
+    tok, loaded, lcfg, _, ctx = load_pretrained_model(path)
+    load_s = time.perf_counter() - t0
+    if lcfg != cfg or dataclasses.replace(lcfg, text=dataclasses.replace(
+            lcfg.text, num_hidden_layers=full.text.num_hidden_layers)) != full:
+        raise AssertionError(f"the 13B checkpoint loads as {lcfg}")
+    got, want = dict(_named_leaves(loaded)), dict(_named_leaves(params))
+    if sorted(got) != sorted(want) or any(
+            a.dtype != want[k].dtype or not torch.equal(a.to(want[k].device), want[k])
+            for k, a in got.items()):
+        raise AssertionError("the 13B checkpoint's leaves differ from the exported tree's")
+    log("13b", f"checkpoint at 13B's width, {WORKER_13B_LAYERS} of its 40 layers: "
+               f"{nbytes / 1e9:.2f} GB of safetensors written in {write_s:.1f} s, loaded in "
+               f"{load_s:.1f} s; config.json reads back as LLaVA-1.5-13B's (hidden "
+               f"{lcfg.text.hidden_size}, {lcfg.text.num_attention_heads} heads, FFN "
+               f"{lcfg.text.intermediate_size}) at {lcfg.text.num_hidden_layers} layers, "
+               f"{len(got)} leaves bit for bit; card {smi}")
+    del got, want, loaded, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    root = os.path.join(SMOKE_DIR, "worker13b")
+    os.makedirs(root, exist_ok=True)
+    ctrl_port, port = _free_port(), _free_port()
+    ctrl, url = f"http://127.0.0.1:{ctrl_port}", f"http://127.0.0.1:{port}"
+    procs = _start_processes(root, {"controller": [
+        "llava_plus_torch.serve.controller", "--host", "127.0.0.1", "--port", str(ctrl_port)]},
+        {"controller": ctrl + "/list_models"})
+    argv = ["--model-path", path, "--load-4bit", "--kv-int8", "--max-slots", "8",
+            "--limit-model-concurrency", "8", "--controller-address", ctrl,
+            "--worker-address", url, "--host", "127.0.0.1", "--port", str(port),
+            "--device", "cuda"]
+    worker_log = os.path.join(root, "worker.out")
+    bodies = _in_vocab(_engine_bodies(np.random.default_rng(3), cfg.vision.image_size, 6, 2,
+                                      32), cfg.text.vocab_size)
+    code = None
+    try:
+        with open(worker_log, "w") as logf:
+            t_start = time.perf_counter()
+            proc = subprocess.Popen([sys.executable, "-m", "llava_plus_torch.serve.model_worker",
+                                     *argv], cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+                                    stdout=logf, stderr=subprocess.STDOUT)
+        try:
+            while NAME_13B not in requests.post(ctrl + "/list_models", timeout=5).json()["models"]:
+                if proc.poll() is not None:
+                    raise AssertionError(f"the worker exited with {proc.returncode} before "
+                                         "registering")
+                if time.perf_counter() - t_start > 600:
+                    raise AssertionError("the worker did not register within 600 s")
+                time.sleep(0.25)
+            registered_s = time.perf_counter() - t_start
+            address = requests.post(ctrl + "/get_worker_address", json={"model": NAME_13B},
+                                    timeout=5).json()["address"]
+            if address != url:
+                raise AssertionError(f"the controller gave {address!r} for {NAME_13B}, the "
+                                     f"worker is at {url}")
+            _wait_status(address, proc, 120)
+            t_burst = time.perf_counter()
+            results = _post_all(address + "/worker_generate_stream", bodies)
+            _check_streams(bodies, results, 32)
+            first = min(st[0] for _, _, st in results)
+            t_end = max(st[-1] for _, _, st in results)
+            ttfts = sorted(st[0] - t_send for _, t_send, st in results)
+            body = dict(bodies[0], model=NAME_13B)
+            r = requests.post(ctrl + "/worker_generate_stream", json=body, stream=True,
+                              timeout=600)
+            _check_streams([body], [(list(iter_chunks_requests(r)), None, None)], 32)
+            metrics = requests.post(address + "/worker_metrics", timeout=30).json()
+            log("13b", f"worker (--load-4bit --kv-int8 --max-slots 8): registered with the "
+                       f"controller {registered_s:.1f} s after its start, found through "
+                       f"/get_worker_address; {len(bodies)} streams at once, every stream "
+                       f"whole: first served token {first - t_start:.1f} s after the process "
+                       f"started, TTFT p50 {np.median(ttfts) * 1e3:.1f} ms (max "
+                       f"{ttfts[-1] * 1e3:.1f}), {len(bodies) * 32 / (t_end - t_burst):.1f} "
+                       f"tokens/s aggregate; one more through the controller's stream route, "
+                       f"whole; peak device memory {metrics['device_peak_gib']:.2f} GiB, "
+                       f"{metrics['requests']} requests; card {smi}")
+        finally:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+            try:
+                code = proc.wait(60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(30)
+                raise AssertionError("the worker did not stop within 60 s of SIGTERM")
+    except BaseException:
+        print(_tail(worker_log), file=sys.stderr, flush=True)
+        raise
+    finally:
+        codes = _stop_processes(procs)
+    if code != 0 or codes != {"controller": 0}:
+        print(_tail(worker_log), file=sys.stderr, flush=True)
+        raise AssertionError(f"exit codes: worker {code}, {codes}")
+    log("13b", "worker and controller stopped by SIGTERM, exit codes 0")
+    shutil.rmtree(path, ignore_errors=True)
+    shutil.rmtree(root, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3736,10 +4231,7 @@ def _plus_processes(root):
     registering ``grounding_dino`` and the web server with ``--llava-plus``.
     The tool worker beats at its default interval (15 s, inside the
     controller's 30 s expiry)."""
-    import requests
-
     os.makedirs(root, exist_ok=True)
-    env = dict(os.environ, PYTHONPATH=HERE)
     ports = {name: _free_port() for name in ("controller", "tool", "web")}
     ctrl = f"http://127.0.0.1:{ports['controller']}"
     commands = {
@@ -3752,6 +4244,20 @@ def _plus_processes(root):
         "web": ["llava_plus_torch.serve.web_server", "--host", "127.0.0.1",
                 "--port", str(ports["web"]), "--controller-url", ctrl, "--llava-plus"],
     }
+    probes = {"controller": ctrl + "/list_models",
+              "tool": f"http://127.0.0.1:{ports['tool']}/worker_get_status",
+              "web": f"http://127.0.0.1:{ports['web']}/api/models"}
+    procs = _start_processes(root, commands, probes)
+    return procs, ctrl, f"http://127.0.0.1:{ports['web']}"
+
+
+def _start_processes(root, commands, probes):
+    """Each ``python -m`` command of ``commands`` (by name) started in turn,
+    its output in ``root``, each answering a POST to its ``probes`` URL
+    within 60 s before the next starts: {name: (process, log path)}."""
+    import requests
+
+    env = dict(os.environ, PYTHONPATH=HERE)
     procs = {}
     try:
         for name, cmd in commands.items():
@@ -3759,13 +4265,10 @@ def _plus_processes(root):
             with open(log_path, "w") as out:   # the child keeps its own descriptor
                 procs[name] = (subprocess.Popen([sys.executable, "-m", *cmd], cwd=root, env=env,
                                                 stdout=out, stderr=subprocess.STDOUT), log_path)
-            url = {"controller": ctrl + "/list_models",
-                   "tool": f"http://127.0.0.1:{ports['tool']}/worker_get_status",
-                   "web": f"http://127.0.0.1:{ports['web']}/api/models"}[name]
             deadline = time.time() + 60
             while True:
                 try:
-                    requests.post(url, timeout=5)
+                    requests.post(probes[name], timeout=5)
                     break
                 except requests.ConnectionError:
                     if procs[name][0].poll() is not None or time.time() > deadline:
@@ -3774,7 +4277,7 @@ def _plus_processes(root):
     except BaseException:
         _stop_processes(procs)   # a process that did start is not left behind
         raise
-    return procs, ctrl, f"http://127.0.0.1:{ports['web']}"
+    return procs
 
 
 def _stop_processes(procs):
@@ -4268,16 +4771,18 @@ def _beam_oracle(params, cfg, tok, prompt, pixels, nb, n_new):
 
 
 def phase_eval(smi, path=None):
-    """Phase 19: the eval harness at LLaVA-1.5-7B width, from phase 16's
-    checkpoint on disk (random bf16 weights, seed 0, a word-level tokenizer
+    """Phase 19: the eval harness at LLaVA-1.5-7B width (CKPT_LAYERS layers),
+    from phase 16's checkpoint on disk (random bf16 weights, seed 0, a word-level tokenizer
     that names every id and whose EOS lies past the logits, so every answer
     runs its budget).
 
     1. 4 image questions (12 words each) and their 336-px images written
        under ``.smoke/eval``;
     2. ``python -m llava_plus_torch.eval.model_vqa_loader --model-path ...``
-       as a user runs it, three times (each in its own process, with the
-       load and the answers timed apart: :func:`_eval_child`): single-stream
+       as a user runs it, three times at once (each in its own process, with
+       the load and the answers timed apart: :func:`_eval_child`; the three
+       share the card and the host, so their seconds are not one run's
+       alone): single-stream
        greedy (32 tokens), ``--engine-slots 8`` (the dense engine, bf16 KV)
        and ``--num_beams 3 --max-new-tokens 16``; every answer file whole,
        each run's flash and dense decode launches exactly what its
@@ -4305,11 +4810,10 @@ def phase_eval(smi, path=None):
     from llava_plus_torch.mm_utils import process_images
     from llava_plus_torch.models import llama
     from llava_plus_torch.models.builder import load_pretrained_model
-    from llava_plus_torch.models.configs import LLAVA_15_7B
     from llava_plus_torch.models.convert import tree_map
 
     t_phase = time.perf_counter()
-    cfg, tol = LLAVA_15_7B, 2e-2
+    cfg, tol = _ckpt_cfg(), 2e-2
     L, V = cfg.text.num_hidden_layers, cfg.text.vocab_size
     path = path or os.path.join(SMOKE_DIR, CKPT_NAME)
     root = os.path.join(SMOKE_DIR, "eval")
@@ -4325,23 +4829,39 @@ def phase_eval(smi, path=None):
     with open(os.path.join(root, "questions.jsonl"), "w") as f:
         f.write("\n".join(json.dumps(q) for q in questions) + "\n")
 
-    # 2. the runner as users run it ------------------------------------------
-    runs = {}
+    # 2. the runner as users run it: the three runs started together, each
+    # in its own process (their loads, the most of a run, overlap) -----------
+    runs, children = {}, {}
     env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.perf_counter()
     for tag, extra in EVAL_RUNS:
         answers = os.path.join(root, f"answers-{tag}.jsonl")
         argv = ["model_vqa_loader", "--model-path", path, "--image-folder",
                 os.path.join(root, "images"), "--question-file",
                 os.path.join(root, "questions.jsonl"), "--answers-file", answers, *extra]
-        t0 = time.perf_counter()
-        out = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke._eval_child()",
-                              *argv], cwd=HERE, env=env, capture_output=True, text=True,
-                             timeout=600)
+        out_path = os.path.join(root, f"runner-{tag}.out")
+        with open(out_path, "w") as out:   # the child keeps its own descriptor
+            children[tag] = (subprocess.Popen(
+                [sys.executable, "-c", "import chip_smoke; chip_smoke._eval_child()", *argv],
+                cwd=HERE, env=env, stdout=out, stderr=subprocess.STDOUT), out_path)
+    for tag, extra in EVAL_RUNS:
+        proc, out_path = children[tag]
+        try:
+            code = proc.wait(600)
+        except subprocess.TimeoutExpired:
+            for p, _ in children.values():
+                p.kill()
+            raise AssertionError(f"eval {tag}: the runner did not end within 600 s")
         wall = time.perf_counter() - t0
-        line = next((ln for ln in out.stdout.splitlines() if ln.startswith("EVAL_CHILD ")), None)
-        if out.returncode != 0 or line is None:
-            raise AssertionError(f"eval {tag}: the runner failed (exit {out.returncode}): "
-                                 f"{out.stdout[-1500:]}{out.stderr[-3000:]}")
+        answers = os.path.join(root, f"answers-{tag}.jsonl")
+        with open(out_path, errors="replace") as f:
+            output = f.read()
+        line = next((ln for ln in output.splitlines() if ln.startswith("EVAL_CHILD ")), None)
+        if code != 0 or line is None:
+            for p, _ in children.values():
+                p.kill()
+            raise AssertionError(f"eval {tag}: the runner failed (exit {code}): "
+                                 f"{output[-4500:]}")
         r = json.loads(line[len("EVAL_CHILD "):])
         rows = [json.loads(x) for x in open(answers)]
         if [row["question_id"] for row in rows] != list(range(EVAL_QUESTIONS)):
@@ -4365,7 +4885,8 @@ def phase_eval(smi, path=None):
                 else f"{r['answer_s'] / n:.3f} s an answer")
         log("eval", f"{tag}: {' '.join(extra)}: {n} answers of {lengths} words in "
                     f"{r['answer_s']:.2f} s ({rate}), load {r['load_s']:.1f} s, process "
-                    f"{wall:.1f} s; launches flash {r['flash']}, decode[bf16] {r['decode']}"
+                    f"ended {wall:.1f} s after the three started; launches flash "
+                    f"{r['flash']}, decode[bf16] {r['decode']}"
                     + (f" ({r['prefill_dispatches']} prefill dispatches, {r['decode_steps']} "
                        f"decode steps)" if tag == "engine" else "")
                     + f"; peak device memory {r['peak_gib']:.2f} GiB; card {smi}")
@@ -5239,7 +5760,7 @@ def phase_train_stage1(smi):
     before = {}
 
     def build_model(model_args, dtype, device):
-        params = _init_7b(device)
+        params = _init_llava(device)
         before.update({k: _fingerprints(params[k]) for k in params})
         return params, cfg, DebugTokenizer(vocab_size=cfg.text.vocab_size)
 
@@ -5442,7 +5963,7 @@ def phase_train_stage2(smi):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    params = per_layer(_init_7b("cuda:0"))   # each layer's weights are their own leaves
+    params = per_layer(_init_llava("cuda:0"))   # each layer's weights are their own leaves
     before = {k: _fingerprints(params[k]) for k in params}
     opt = build_optimizer(params, OptimizerConfig(
         learning_rate=2e-5, weight_decay=0.0, warmup_ratio=0.03, total_steps=n_steps,
@@ -5651,7 +6172,7 @@ def phase_train_qlora(smi):
     state = {}
 
     def build_model(model_args, dtype, device):
-        params = _init_7b(device)
+        params = _init_llava(device)
         state["vision_tower"] = _fingerprints(params["vision_tower"])
         state["mm_projector"] = _fingerprints(params["mm_projector"])
         return params, cfg, DebugTokenizer(vocab_size=cfg.text.vocab_size)
@@ -5801,6 +6322,12 @@ def device_times_only(root):
     return 0
 
 
+# the kernels LLaVA-1.5-13B's engines run (phase 25), by their key there
+S13_KERNELS = {"flash_fwd": "flash", "decode_attention[int8]": "decode",
+               "quant_matmul[int8]": "int8", "quant_matmul[int4]": "int4",
+               "paged_attention[decode1]": "decode1"}
+
+
 def main():
     import torch
 
@@ -5834,18 +6361,19 @@ def main():
     narrow_general = timed("4", phase_narrow_model)
     narrow_mpt = timed("4 mpt", phase_narrow_mpt)
     dev = "cuda:0"
-    params = _init_7b(dev)
+    params = _init_llava(dev)
     single = timed("5", phase_full_slice, smi, params, dev)
-    # phase 16 exports these weights before phase 6 quantizes them in place;
-    # phases 19 and 22 answer from its checkpoint
-    ckpt = timed("16", phase_checkpoint, smi, params, keep=True)
-    # int4 starts from fresh ones
+    # phase 16 exports a tree of 7B's width at CKPT_LAYERS layers; phases 19
+    # and 22 answer from its checkpoint
+    ckpt = timed("16", phase_checkpoint, smi, _init_llava(dev, _ckpt_cfg()), keep=True)
+    # int4 starts from fresh weights
     int8 = timed("6", serve_engine, smi, params, "int8", n_image=8, n_text=8)
     w8a8 = timed("20", phase_w8a8_serving, smi, params)   # on phase 6's int8 tree
     tp1 = timed("21", phase_tp_serving, smi, params)      # on the same tree
     del params
-    int4 = timed("6 int4", serve_engine, smi, _init_7b(dev), "int4", n_image=2, n_text=2)
+    int4 = timed("6 int4", serve_engine, smi, _init_llava(dev), "int4", n_image=2, n_text=2)
     paged = timed("7", serve_paged_engine, smi)
+    s13 = timed("25 13b", phase_serve_13b, smi)   # LLaVA-1.5-13B, fresh weights
     spec = timed("17", phase_speculative, smi)   # on fresh weights
     plus = timed("18", phase_plus_turn, smi)     # on fresh weights
     evals = timed("19", phase_eval, smi)         # from phase 16's checkpoint
@@ -5885,7 +6413,7 @@ def main():
     for name, source, replaces, count in (
         ("flash_fwd", "llava_plus_torch/csrc/flash_fwd.cu", FLASH_REPLACES,
          single["flash"] + ckpt["flash"] + int8["flash"] + tp1["flash"] + int4["flash"]
-         + paged["flash"]
+         + paged["flash"] + s13["flash"]
          + spec["flash"] + plus["flash"] + evals["flash"] + predictor["flash"]
          + stage1["flash"] + stage2["flash"] + qlora["flash"]),
         ("flash_bwd[dkv]", bwd_src, DKV_REPLACES, stage1["dkv"] + stage2["dkv"] + qlora["dkv"]),
@@ -5894,18 +6422,18 @@ def main():
          DECODE_REPLACES, single["bf16"] + evals["decode"] + predictor["decode"]),
         ("decode_attention[int8]", "llava_plus_torch/csrc/decode_attention.cu",
          DECODE_REPLACES, single["int8"] + ckpt["decode"] + int8["decode"] + tp1["decode"]
-         + int4["decode"]),
+         + int4["decode"] + s13["decode"]),
         ("quant_matmul[int8]", "llava_plus_torch/csrc/quant_matmul.cu", INT8_REPLACES,
          ckpt["quant"] + int8["quant"] + tp1["int8"] + paged["quant"] + spec["quant"]
-         + plus["quant"]
+         + plus["quant"] + s13["int8"]
          + mpt["dense"]["matmul_int8"]
          + mpt["paged"]["matmul_int8"] + narrow_lora[8][0] + tools["int8"]),
         ("quant_matmul[int4]", "llava_plus_torch/csrc/quant_matmul.cu", INT4_REPLACES,
-         int4["quant"] + narrow_lora[4][0] + qlora["int4"] + tools["int4"]),
+         int4["quant"] + narrow_lora[4][0] + qlora["int4"] + tools["int4"] + s13["int4"]),
         ("quant_matmul[int4n]", "llava_plus_torch/csrc/quant_matmul.cu", INT4N_REPLACES,
          tools["int4n"]),
         ("paged_attention[decode1]", paged_src, PAGED_DECODE1_REPLACES,
-         paged["decode1"] + spec["decode1"] + plus["decode1"]),
+         paged["decode1"] + spec["decode1"] + plus["decode1"] + s13["decode1"]),
         ("paged_attention[general]", paged_src, PAGED_GENERAL_REPLACES,
          narrow_general + spec["general"] + plus["general"] + spec["narrow"]["general"]),
         # the verify chunks (Tq = k + 1) of the speculative engines (phase 17),
@@ -5936,6 +6464,9 @@ def main():
             raise AssertionError(f"{name} was not launched on the main path")
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": count, **stats[name]})
+        if name in S13_KERNELS:
+            # of which LLaVA-1.5-13B's engines (phase 25)
+            entries[-1]["launches_13b"] = s13[S13_KERNELS[name]]
         if name in PLUS_KERNELS:
             # of which the LLaVA-Plus tool turns (phase 18)
             entries[-1]["tool_turn_launches"] = plus[PLUS_KERNELS[name]]
@@ -5950,13 +6481,14 @@ def main():
             # the serving engines' int8 launches by regime (phases 16, 6, 7, 11)
             regimes = [ckpt["quant_regimes"], int8["quant_regimes"], paged["quant_regimes"],
                        plus["quant_regimes"], mpt["dense"]["matmul_int8 regimes"],
-                       mpt["paged"]["matmul_int8 regimes"]]
+                       mpt["paged"]["matmul_int8 regimes"], s13["int8_regimes"]]
             entries[-1].update(engine_decode_launches=sum(r[0] for r in regimes),
                                engine_prefill_launches=sum(r[1] for r in regimes))
         elif name == "quant_matmul[int4]":
-            # the int4 engine's launches by regime (phase 6)
-            entries[-1].update(engine_decode_launches=int4["quant_regimes"][0],
-                               engine_prefill_launches=int4["quant_regimes"][1])
+            # the int4 engines' launches by regime (phases 6 and 25)
+            entries[-1].update(
+                engine_decode_launches=int4["quant_regimes"][0] + s13["int4_regimes"][0],
+                engine_prefill_launches=int4["quant_regimes"][1] + s13["int4_regimes"][1])
         elif name == "quant_matmul[int4n]":
             # the int4 tools' native launches by regime (phase 14, 16 rows)
             entries[-1].update(tools_decode_launches=tools["int4n regimes"][0],

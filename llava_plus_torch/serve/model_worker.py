@@ -584,6 +584,18 @@ def _quantize_flag(args: argparse.Namespace) -> Optional[str]:
     return "int4" if args.load_4bit else "int8" if args.load_8bit else None
 
 
+def advise_load_4bit(args: argparse.Namespace, name: Optional[str]) -> None:
+    """The JAX worker's advice on ``--load-4bit`` (its condition: a model
+    whose name lacks "13b"): int4 buys capacity for 13B-class models; a
+    model whose int8 weights fit the card keeps int8's per-channel scales
+    with ``--load-8bit``."""
+    if args.load_4bit and "13b" not in (name or "").lower():
+        logger.warning(
+            "--load-4bit on %s: int4 is the capacity knob for 13B-class models; a "
+            "model whose int8 weights fit the card serves with --load-8bit at int8's "
+            "precision (a scale per output channel, not per block of 32 rows).", name)
+
+
 def load_backend(args: argparse.Namespace, mesh=None):
     """``(backend, model_names)`` for the parsed flags: the checkpoint at
     ``--model-path`` loaded by ``load_pretrained_model`` and served by
@@ -597,6 +609,7 @@ def load_backend(args: argparse.Namespace, mesh=None):
     from llava_plus_torch.models import builder
 
     name = args.model_name or get_model_name_from_path(args.model_path)
+    advise_load_4bit(args, name)
     if mesh is None:
         loaded = builder.load_pretrained_model(args.model_path, args.model_base, name)
         return backend_for(args, loaded), [name]

@@ -29,10 +29,12 @@ TOL = dict(atol=1e-5, rtol=1e-4)
 H100_SMS = 132
 
 # (B, Hkv, G, S): LLaVA-1.5-7B (MHA, 32 kv heads) at batch 1 and 16 slots,
-# LLaVA-MPT-7B's MQA variant (32 query heads over one), a 13B-wide MHA, the
-# narrow GQA LLaMA of the tests and chip_smoke
+# LLaVA-MPT-7B's MQA variant (32 query heads over one), LLaVA-1.5-13B (MHA,
+# 40 kv heads) at batch 1 and its engines' 8 and 16 slots, the narrow GQA
+# LLaMA of the tests and chip_smoke
 PLAN_CASES = [(1, 32, 1, 1024), (1, 32, 1, 2048), (16, 32, 1, 1024), (16, 32, 1, 2048),
               (1, 1, 32, 2048), (16, 1, 32, 1024), (16, 1, 32, 2048), (1, 40, 1, 2048),
+              (8, 40, 1, 2048), (16, 40, 1, 2048),
               (4, 2, 2, 512), (2, 1, 40, 300), (1, 1, 80, 4096)]
 
 
@@ -156,6 +158,7 @@ SPLIT_CASES = {
     "alibi_int8": (4, 4, 200, [130, 1, 200], True, True, None),
     "fill_1_and_all_masked": (4, 2, 256, [1, 90, 256], False, True, 1),
     "wide_group": (16, 1, 320, [300, 5, 64], False, True, 2),
+    "int8_mha40": (40, 40, 256, [100, 37, 256], True, False, None),   # 13B's heads
 }
 
 
@@ -174,7 +177,7 @@ def test_split_and_combine_matches_the_reference(case, splits):
 
 
 JAX_CASES = {"bf16_gqa": (8, 4, False), "int8_gqa": (8, 4, True), "bf16_mha": (4, 4, False),
-             "int8_wide": (16, 1, True)}
+             "int8_wide": (16, 1, True), "int8_mha40": (40, 40, True)}
 
 
 @pytest.mark.parametrize("splits", [2, 4])

@@ -36,10 +36,12 @@ H100_SMS = 132
 
 # (B, Hkv, maxp, P): LLaVA-1.5-7B's paged engine (16 slots of up to 4096
 # tokens in pages of 128) and chip_smoke's decode1 rows (16 pages a slot, and
-# pages of 32), LLaVA-MPT-7B's paged engine, one slot of a 13B-wide MHA, and
-# the narrow models of the tests
+# pages of 32), LLaVA-MPT-7B's paged engine, LLaVA-1.5-13B (40 kv heads) at
+# one slot and at 8 and 16 slots of 32 pages, and the narrow models of the
+# tests
 PLAN_CASES = [(16, 32, 32, 128), (16, 32, 16, 128), (16, 32, 64, 32), (1, 32, 16, 128),
-              (8, 32, 32, 128), (1, 40, 32, 128), (3, 4, 4, 16), (2, 2, 5, 8)]
+              (8, 32, 32, 128), (1, 40, 32, 128), (8, 40, 32, 128), (16, 40, 32, 128),
+              (3, 4, 4, 16), (2, 2, 5, 8)]
 
 
 def chunk_ranges(maxp, P, splits):
@@ -168,6 +170,7 @@ SPLIT_CASES = {
     "small_pages": (2, 16, 12, [190, 17, 64], True, False, True, None),
     "pages_of_8_no_current": (2, 8, 20, [160, 9, 77], False, True, False, None),
     "dead_slot": (4, 32, 6, [150, 0, 192], True, True, True, [1, 0, 1]),
+    "int8_mha40": (40, 32, 8, [200, 37, 256], True, False, True, None),   # 13B's heads
 }
 
 
@@ -191,7 +194,8 @@ def test_split_and_combine_matches_the_reference(case, splits):
 
 
 @pytest.mark.parametrize("splits", [2, 3])
-@pytest.mark.parametrize("case", ["int8", "int8_alibi", "small_pages", "dead_slot"])
+@pytest.mark.parametrize("case", ["int8", "int8_alibi", "small_pages", "dead_slot",
+                                  "int8_mha40"])
 def test_split_and_combine_matches_the_jax_kernel(case, splits):
     H, P, maxp, lengths, quantized, alibi, cur, valid = SPLIT_CASES[case]
     arrays = _inputs(3, H, P, maxp, lengths, quantized, seed=7, valid=valid)

@@ -32,9 +32,11 @@ torch.set_num_threads(1)
 H100_SMS = 132
 
 # (K, N): LLaVA-1.5-7B's fused wqkv, wo, w_gate_up, w_down and lm_head;
-# LLaVA-MPT-7B's out_proj, up_proj, down_proj and tied head (50432)
+# LLaVA-MPT-7B's out_proj, up_proj, down_proj and tied head (50432);
+# LLaVA-1.5-13B's fused wqkv, wo, w_gate_up, w_down and lm_head
 SHAPES = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 32000),
-          (4096, 16384), (16384, 4096), (4096, 50432)]
+          (4096, 16384), (16384, 4096), (4096, 50432),
+          (5120, 15360), (5120, 5120), (5120, 27648), (13824, 5120), (5120, 32000)]
 # one decode row, 16 slots, the cut and one past it, 768 per image prompt,
 # the engine's 4-prompt batch, an 8-bit LoRA step
 ROWS = [1, 16, INT8_CUT, INT8_CUT + 1, 64, 768, 3072, 8192]
