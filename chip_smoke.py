@@ -117,10 +117,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    backward to the projector runs both ALiBi backward kernels);
 13. LLaVA-1.5-7B QLoRA through ``train()`` with the
    ``scripts/finetune_qlora.sh`` recipe (``--lora-enable --bits 4``, r 128,
-   alpha 256, remat) reduced to batch 4 and 2 steps on records of 700-2048
-   tokens: every adapter leaf updated, the int4 base unchanged, the PEFT
-   export, the peak memory and the int4 kernel's forward launches and
-   backward calls;
+   alpha 256, remat) reduced to batch 4, 2 steps on records of 700-2048
+   tokens and 8 of the 32 layers: every adapter leaf updated, the int4 base
+   unchanged, the PEFT export, the peak memory and the int4 kernel's
+   forward launches and backward calls;
 14. the port's int4 measurement tools (``llava_plus_torch.tools.
    bench_int4_variants`` and ``bench_int4``) in-process through their
    ``main``: split-half int4, native int4 and int8 kernels at the five
@@ -144,7 +144,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    3,072 rows and, int4, w_down at 8,192) in one process, with TFLOP/s and
    the share of the bound; and phase 3's 13B rows at decode rows (the int8
    and int4 matmuls at 1, 8 and 16 rows, dense decode and decode1 at 8 and
-   16 slots), the kernel alone;
+   16 slots) and at training shapes (the flash forward, dK/dV and dQ at 40
+   heads, int4 on w_gateup and the head at 8,192 and 32,768 rows), the
+   kernel alone;
 17. (run after 7, before 11) speculative serving on fresh int8 LLaVA-1.5-7B
    weights, int8 KV: ``llava_plus_torch.tools.bench_spec``'s stream (160
    repetitive words and an image, 128 greedy tokens, speculation off then
@@ -209,9 +211,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    ``make_mesh(1, 1, 1)``, saved shard by shard
    (``checkpoint.save_train_state``), restored onto fresh DTensors and into
    one process's plain trees, every leaf bit for bit; seconds and bytes;
-16. (run after 5, before 6) a tree of LLaVA-1.5-7B's width at 4 of its 32
+16. (run after 5, before 6) a tree of LLaVA-1.5-7B's width at 2 of its 32
    layers (``CKPT_LAYERS``) exported as an HF checkpoint under ``.smoke/``
-   (one ``model.safetensors``, 2.8 GB, with a word-level tokenizer that
+   (one ``model.safetensors``, 2.0 GB, with a word-level tokenizer that
    names every id) and served from disk: ``load_pretrained_model`` in this
    process, every leaf equal to the exported one bit for bit; the worker
    started as a user starts it (``python -m llava_plus_torch.serve.
@@ -220,7 +222,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    answering phase 6's burst, then requests one at a time whose greedy texts
    equal a ``TorchBackend`` built in this process by the worker's own
    factory on the loaded tree; the worker stopped by SIGTERM; one turn of
-   ``python -m llava_plus_torch.serve.cli`` with its input piped. Write and
+   ``python -m llava_plus_torch.serve.cli`` with its input piped (in a
+   whole run, beside phase 19's runner processes). Write and
    load times, host GB/s, the worker's first served token from its start,
    TTFT p50, tokens/s and its peak device memory;
 25. (run after 7, before 17) LLaVA-1.5-13B at full width and depth (40
@@ -232,13 +235,26 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    within phase 4's bound where they part), int8 weights on the dense
    engine at 16 slots and on the paged engine with the prefix cache (hits
    counted, no vision encode on a hit), each engine's decode step timed
-   (host ms, device busy); then a 4-layer
+   (host ms, device busy); then a 2-layer
    checkpoint at 13B's width served by ``python -m
    llava_plus_torch.serve.model_worker --load-4bit --kv-int8 --max-slots 8``
    registered with the port's controller (``python -m
    llava_plus_torch.serve.controller``), 8 streams to the address
    ``/get_worker_address`` gives and one through the controller's stream
-   route, both processes stopped by SIGTERM with exit code 0.
+   route, both processes stopped by SIGTERM with exit code 0;
+26. (run after 13, before 14) LLaVA-1.5-13B trained at full width and depth
+   through ``train()`` on random bf16 weights: ``scripts/v1_5/
+   finetune_lora.sh`` at 13B (LoRA r 128 on the bf16 base, batch 16 at
+   max length 2048), then the same plus ``--bits 4`` on the same tree
+   quantized in place; for each, 2 steps with exact launch counts of the
+   flash forward and backward kernels and the int4 kernel and its backward,
+   every adapter leaf moved, the base, tower and projector bytes kept, the
+   PEFT export, the peak memory under a stated bound and the last step's
+   device time by class; then the trained adapters merged into the base,
+   every merged weight held to this script's own f64 sum of the base (an
+   int4 base dequantized here) and the adapters within f32's error bound,
+   and a 768-token image prefill through the merged tree beside the lazy
+   adapters (finite, exact launches, its difference logged).
 
 Phase 3 also holds both paged kernels (decode1 and general) and both flash
 backward kernels (dK/dV and dQ, at T = 2048, MHA and GQA, a padded and a
@@ -753,6 +769,10 @@ QUANT_13B_SHAPES = (("13B wqkv", 5120, 15360), ("13B wo", 5120, 5120),
                     ("13B lm_head", 5120, 32000))
 ROWS_13B = (1, 8, 16, 80, 768, 3072)
 DECODE_ROWS_13B = (1, 8, 16)
+# the int4 kernel at a 13B QLoRA step's rows (phase 26: 16 x 2048; 4 x 2048
+# for a batch of 4) on the fused MLP matrix and the head
+TRAIN_13B_SHAPES = ("13B w_gateup", "13B lm_head")
+TRAIN_ROWS_13B = (8192, 32768)
 # the 13B engines' slots (the int4 engine's 8, the int8 and paged engines' 16)
 SLOTS_13B = (8, 16)
 
@@ -1427,7 +1447,9 @@ def _row(r):
 def phase_13b_kernels():
     """Phase 3's rows at LLaVA-1.5-13B's shapes (40 heads of 128, hidden
     5,120, FFN 13,824), on a generator of their own: the flash forward at
-    B = 2, H = 40, T = 768 and 2,048 (library: sdpa); the dense decode kernel
+    B = 2, H = 40, T = 768 and 2,048 (library: sdpa); the dK/dV and dQ
+    kernels at B = 2, H = 40, T = 2,048 (library: sdpa's backward); the int4
+    matmul on w_gateup and the head at TRAIN_ROWS_13B; the dense decode kernel
     at 8 and 16 slots of 2,048, bf16 (library: sdpa) and int8; the int8 and
     int4 matmuls on the fused matrices and the head at ROWS_13B (beside the
     bf16 yardstick; wqkv at 16 rows also the library's weight-only
@@ -1455,6 +1477,17 @@ def phase_13b_kernels():
         f"B={B} pages/slot=32": check_paged("13B int8", 40, 1, True, gen, rng, B=B, H=40,
                                             pages_per_slot=32)
         for B in SLOTS_13B}
+    # phase 26's training shapes, on a generator of their own (every row
+    # above keeps its inputs): both backward kernels at B 2, H 40, T 2,048,
+    # causal; the int4 kernel at a QLoRA step's rows
+    gen_train = torch.Generator(device="cuda").manual_seed(15)
+    dkv, dq = check_flash_bwd("13B MHA", B=2, T=2048, H=40, Hkv=40, gen=gen_train)
+    rows["flash_bwd[dkv]"], rows["flash_bwd[dq]"] = {"B=2 T=2048": dkv}, {"B=2 T=2048": dq}
+    for name, K, N in QUANT_13B_SHAPES:
+        if name in TRAIN_13B_SHAPES:
+            rows["quant_matmul[int4]"].update(
+                {f"{name} R={R}": r for R, r in check_quant(
+                    "int4", name, K, N, gen_train, row_counts=TRAIN_ROWS_13B).items()})
     return {name: {"max_abs_err": max(r["max_abs_err"] for r in per.values()),
                    "13b": {k: _row(r) for k, r in per.items()}}
             for name, per in rows.items()}
@@ -1706,6 +1739,87 @@ def _device_times_13b(stats):
               lambda: pa.paged_decode_attention(q, pool, page_ids, lens, scale, ck, cv, vals),
               DECODE1_KERNEL, b)
         del q, pool, scale, page_ids, lens, ck, cv, vals
+    _device_times_13b_train(stats)
+
+
+def _device_times_13b_train(stats):
+    """Phase 3's 13B training rows alone, from a seed of their own, each
+    alternated with its library call or yardstick: the flash forward at
+    B = 2, H = 40, T = 768 and 2,048 (sdpa), dK/dV and dQ at T = 2,048
+    (sdpa's backward), the int4 matmul on w_gateup and the head at
+    TRAIN_ROWS_13B (bf16 ``torch.matmul``). Adds [device ms, bound ms,
+    library or yardstick device ms] by row under "13b_alone"."""
+    import torch
+    import torch.nn.functional as F
+    from llava_plus_torch.ops import flash_attention as fa
+    from llava_plus_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    dev, D, B, H = "cuda", 128, 2, 40
+    scale = D ** -0.5
+
+    def add(line, row, ms, b, lib_ms, what):
+        log("device", f"{line} {row}: kernel {ms:.4f} ms device, {what} {lib_ms:.4f} ms "
+                      f"device, x{ms / lib_ms:.2f} of it, {b['bound_ms'] / ms:.1%} of the bound "
+                      f"({b['bound_ms']:.4f} ms, {b['bound_by']})")
+        stats[line].setdefault("13b_alone", {})[row] = [round(ms, 5), round(b["bound_ms"], 5),
+                                                        round(lib_ms, 5)]
+
+    for T in (768, 2048):
+        q, k, v = (torch.randn(B, T, H, D, generator=gen, device=dev).bfloat16()
+                   for _ in range(3))
+        seg = torch.ones(B, T, dtype=torch.int32, device=dev)
+        seg[-1, T - 100:] = 0
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        ms, lib_ms = _alternated(
+            lambda: fa.flash_attention(q, k, v, q_segment_ids=seg, kv_segment_ids=seg),
+            FWD_KERNEL, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+        b = bound(2 * 4 * B * T * H * D + 4 * B * H * T + 2 * 4 * B * T,
+                  4 * H * D * _causal_pairs(seg, True))
+        add("flash_fwd", f"13B B=2 T={T}", ms, b, lib_ms, "sdpa")
+        del q, k, v, qt, kt, vt
+    T = 2048
+    q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device=dev).bfloat16()
+                   for _ in range(4))
+    seg = torch.ones(B, T, dtype=torch.int32, device=dev)
+    seg[0, T - 100:] = 0
+    seg[1, T // 2:] = 2
+    kw = dict(causal=True, sm_scale=scale, alibi_slopes=None)
+    out, lse = fa._launch(q, k, v, seg, seg, True, scale, None)
+    delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    g_lib = do.transpose(1, 2).contiguous()
+    pairs = _causal_pairs(seg, True)
+    # q, k, v and dO read; lse, delta and the segment ids
+    nbytes = 4 * 2 * B * T * H * D + 2 * 4 * B * H * T + 2 * 4 * B * T
+    for line, fn, names, flops, out_bytes in (
+            ("flash_bwd[dkv]", fa.flash_bwd_dkv, DKV_KERNEL, 8 * D * H * pairs,
+             2 * 2 * B * T * H * D),
+            ("flash_bwd[dq]", fa.flash_bwd_dq, DQ_KERNEL, 6 * D * H * pairs, 2 * B * T * H * D)):
+        ms, lib_ms = _alternated(
+            lambda: fn(q, k, v, do, seg, seg, lse, delta, **kw), names,
+            lambda: torch.autograd.grad(o_lib, (qt, kt, vt), g_lib, retain_graph=True))
+        add(line, "13B B=2 T=2048", ms, bound(nbytes + out_bytes, flops), lib_ms,
+            "sdpa backward (dq, dk, dv)")
+    del q, k, v, do, out, lse, delta, qt, kt, vt, o_lib, g_lib
+    for name, K, N in QUANT_13B_SHAPES:
+        if name not in TRAIN_13B_SHAPES:
+            continue
+        q4, s4 = _quantize("int4", torch.randn(K, N, generator=gen, device=dev).mul_(0.02)
+                           .bfloat16())
+        w16 = qm.dequantize(4, q4, s4, torch.bfloat16)
+        out_dtype = torch.float32 if name.endswith("lm_head") else torch.bfloat16
+        for R in TRAIN_ROWS_13B:
+            x = torch.randn(R, K, generator=gen, device=dev).bfloat16()
+            ms, yard_ms = _alternated(lambda: qm.matmul_int4(x, q4, s4, out_dtype=out_dtype),
+                                      INT4_KERNEL, lambda: torch.matmul(x, w16))
+            out_bytes = R * N * (4 if out_dtype == torch.float32 else 2)
+            add("quant_matmul[int4]", f"{name} R={R}", ms,
+                bound(q4.numel() + 4 * s4.numel() + 2 * R * K + out_bytes, 2 * R * K * N),
+                yard_ms, "yardstick (bf16 matmul)")
+            del x
+        del q4, s4, w16
 
 
 DECODE_KERNEL = ("decode_kernel",)
@@ -2534,10 +2648,10 @@ def phase_full_slice(smi, params, dev):
 # ---------------------------------------------------------------------------
 
 CKPT_NAME = "llava-v1.5-7b-random"
-# the depth of phase 16's checkpoint, at LLaVA-1.5-7B's width: 4 of its 32
-# layers, 2.8 GB of safetensors (the whole model's 14.1 GB spent most of
+# the depth of phase 16's checkpoint, at LLaVA-1.5-7B's width: 2 of its 32
+# layers, 2.0 GB of safetensors (the whole model's 14.1 GB spent most of
 # phases 16, 19 and 22 in writes and loads); phases 19 and 22 answer from it
-CKPT_LAYERS = 4
+CKPT_LAYERS = 2
 WORKER_FLAGS = ["--load-8bit", "--kv-int8", "--max-slots", "16",
                 "--limit-model-concurrency", "16"]
 
@@ -2644,9 +2758,11 @@ def phase_checkpoint(smi, params, cfg=None, device="cuda", keep=False):
        counted and checked;
     4. the worker stopped (SIGTERM) and its exit checked; then one turn of
        ``python -m llava_plus_torch.serve.cli`` with its input piped, which
-       must answer.
+       must answer (:func:`_start_cli`, :func:`_finish_cli`).
 
-    ``keep`` leaves the checkpoint on disk (phase 19 answers from it).
+    ``keep`` leaves the checkpoint on disk (phases 19 and 22 answer from it)
+    and the CLI's turn to the caller (``main`` runs it beside phase 19's
+    runner processes, which load the same checkpoint).
     Returns this process's launch counts (flash, int8 decode, int8 matmul)."""
     import signal
 
@@ -2777,29 +2893,69 @@ def phase_checkpoint(smi, params, cfg=None, device="cuda", keep=False):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 4. the chat CLI -----------------------------------------------------------
-    png = os.path.join(SMOKE_DIR, "image.png")
-    from PIL import Image
-
-    Image.fromarray(np.random.default_rng(2).integers(
-        0, 256, size=(cfg.vision.image_size,) * 2 + (3,), dtype=np.uint8)).save(png)
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "llava_plus_torch.serve.cli", "--model-path",
-                          path, "--image-file", png, "--temperature", "0",
-                          "--max-new-tokens", "16", "--device", device],
-                         input="w5 w17 w99 w7\n", cwd=HERE, env=env, capture_output=True,
-                         text=True, timeout=600)
-    cli_s = time.perf_counter() - t0
-    # stdout: "USER: ASSISTANT: <answer>\nUSER: exit..."
-    answer = out.stdout.partition("ASSISTANT: ")[2].partition("\n")[0].strip()
-    if out.returncode != 0 or not answer:
-        raise AssertionError(f"the CLI failed (exit {out.returncode}): "
-                             f"{out.stdout[-1500:]}{out.stderr[-1500:]}")
-    log("ckpt", f"cli: one turn in {cli_s:.1f} s (load included), answer of "
-                f"{len(answer.split())} words: {answer[:60]!r}; card {smi}")
+    # 4. the chat CLI (with ``keep``, the caller runs it beside phase 19) -----
     if not keep:
+        _finish_cli(smi, _start_cli(path, cfg, device))
         shutil.rmtree(path, ignore_errors=True)
     return launches
+
+
+def _start_cli(path, cfg=None, device="cuda"):
+    """Phase 16's chat turn, started: ``python -m llava_plus_torch.serve.cli``
+    on the checkpoint at ``path`` with a random image and one question piped
+    in, its output to files under ``.smoke/``. :func:`_finish_cli` waits for
+    it and checks the answer."""
+    from PIL import Image
+
+    cfg = cfg or _ckpt_cfg()
+    png = os.path.join(SMOKE_DIR, "image.png")
+    Image.fromarray(np.random.default_rng(2).integers(
+        0, 256, size=(cfg.vision.image_size,) * 2 + (3,), dtype=np.uint8)).save(png)
+    outs = [open(os.path.join(SMOKE_DIR, f"cli.{n}"), "w+") for n in ("out", "err")]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "llava_plus_torch.serve.cli", "--model-path",
+                             path, "--image-file", png, "--temperature", "0",
+                             "--max-new-tokens", "16", "--device", device],
+                            stdin=subprocess.PIPE, stdout=outs[0], stderr=outs[1], text=True,
+                            cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE))
+    proc.stdin.write("w5 w17 w99 w7\n")
+    proc.stdin.close()
+    ended = {}
+
+    def watch():
+        proc.wait()
+        ended["t"] = time.perf_counter()
+
+    threading.Thread(target=watch, daemon=True).start()
+    return proc, outs, t0, ended
+
+
+def _finish_cli(smi, started, beside=None):
+    """Waits for :func:`_start_cli`'s turn (killed after 600 s) and checks
+    that it exited 0 with an answer; logs its seconds from its start to its
+    end, the checkpoint's load included, as the CLI's own only when nothing
+    else ran (``beside`` names what shared the card and the host with it)."""
+    proc, outs, t0, ended = started
+    try:
+        code = proc.wait(600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(30)
+        raise AssertionError("the CLI did not answer within 600 s")
+    cli_s = ended.get("t", time.perf_counter()) - t0
+    for f in outs:
+        f.seek(0)
+    out, err = (f.read() for f in outs)
+    for f in outs:
+        f.close()
+    # stdout: "USER: ASSISTANT: <answer>\nUSER: exit..."
+    answer = out.partition("ASSISTANT: ")[2].partition("\n")[0].strip()
+    if code != 0 or not answer:
+        raise AssertionError(f"the CLI failed (exit {code}): {out[-1500:]}{err[-1500:]}")
+    took = (f"taken beside {beside}, so not the CLI's own latency" if beside
+            else "load included")
+    log("ckpt", f"cli: one turn in {cli_s:.1f} s ({took}), answer of "
+                f"{len(answer.split())} words: {answer[:60]!r}; card {smi}")
 
 
 def _named_leaves(tree, prefix=""):
@@ -3492,9 +3648,9 @@ def serve_paged_engine(smi, params=None, cfg=None, name="llava-1.5-7b-random",
 # ---------------------------------------------------------------------------
 
 NAME_13B = "llava-v1.5-13b-random"
-# the depth of the 13B-width checkpoint the worker process serves: 4 of its
-# 40 layers, 3.9 GB of safetensors (the engines in this process run all 40)
-WORKER_13B_LAYERS = 4
+# the depth of the 13B-width checkpoint the worker process serves: 2 of its
+# 40 layers, 2.6 GB of safetensors (the engines in this process run all 40)
+WORKER_13B_LAYERS = 2
 SINGLE_13B_NEW = 24   # greedy tokens of each request sent one at a time
 SINGLE_TOL = 2e-2     # phase 4's logit bound
 
@@ -5734,7 +5890,10 @@ def _long_turns(rng):
     return out
 
 
-TRAIN_STEPS = 2   # steps of each 7B training phase (9, 10, 12, 13)
+TRAIN_STEPS = 2   # steps of each training phase (9, 10, 12, 13, 26)
+# phase 13's depth: LLaVA-1.5-7B's width at 8 of its 32 layers (its recipe,
+# QLoRA r 128, runs at a whole model's depth in phase 26, at 13B)
+QLORA_LAYERS = 8
 
 
 def phase_train_stage1(smi):
@@ -6016,7 +6175,9 @@ class _LastStepProfile:
     reported and stops when step n has, so the window is step n's host work
     (its batch, its step, its metrics). The earlier steps' host clocks are
     taken before the profiler starts. Device busy is the sum of the device
-    events, by kernel class as ``tools/profile_torch_slice.py`` sorts them."""
+    events, by kernel class as ``tools/profile_torch_slice.py`` sorts them.
+    Only the device is traced: a 13B step's host operators took 22-26 s to
+    read back, and no number here comes from them."""
 
     def __init__(self, n_steps):
         self.n_steps, self.prof, self.result = n_steps, None, None
@@ -6028,10 +6189,11 @@ class _LastStepProfile:
         from torch.profiler import ProfilerActivity, profile
 
         if step == self.n_steps - 1:
-            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
             self.prof.__enter__()
         elif step == self.n_steps and self.prof is not None:
             torch.cuda.synchronize()
+            t0 = time.perf_counter()
             self.prof.__exit__(None, None, None)
             # the profile tool's own helpers, loaded from its file
             spec = importlib.util.spec_from_file_location(
@@ -6046,13 +6208,15 @@ class _LastStepProfile:
                 by_class[label] = by_class.get(label, 0.0) + us / 1e3
             host = seconds * 1e3
             self.result = {"host_ms": host, "device_busy_ms": busy, "idle_share": 1 - busy / host,
-                           "by_class_ms": dict(sorted(by_class.items(), key=lambda kv: -kv[1]))}
+                           "by_class_ms": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
+                           "read_s": time.perf_counter() - t0}
 
     def line(self):
         r = self.result
         parts = ", ".join(f"{k} {v:.3f}" for k, v in r["by_class_ms"].items())
         return (f"profiled step {self.n_steps}: host {r['host_ms']:.3f} ms, device busy "
-                f"{r['device_busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}; {parts}")
+                f"{r['device_busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}; {parts} (the "
+                f"profile read in {r['read_s']:.1f} s)")
 
 
 def phase_train_mpt_stage1(smi):
@@ -6140,30 +6304,41 @@ def phase_train_mpt_stage1(smi):
     return dict(zip(("flash", "dkv", "dq"), launched))
 
 
+def _qlora_cfg():
+    """Phase 13's model: LLaVA-1.5-7B at QLORA_LAYERS layers."""
+    import dataclasses
+
+    from llava_plus_torch.models.configs import LLAVA_15_7B
+
+    return dataclasses.replace(LLAVA_15_7B, text=dataclasses.replace(
+        LLAVA_15_7B.text, num_hidden_layers=QLORA_LAYERS))
+
+
 def phase_train_qlora(smi):
     """LLaVA-1.5-7B QLoRA through the port's ``train()``: the recipe of
     ``scripts/finetune_qlora.sh`` (``--lora-enable --bits 4``, r 128, alpha
     256, v1 template, gradient checkpointing, bf16) reduced for one card to
     batch 4 and 2 steps on 8 synthetic multi-turn image records of 700 to
     2048 fused tokens (phase 10's), random bf16 weights from seed 0 in place
-    of a checkpoint. ``--bits 4`` quantizes the language model to int4 (the
+    of a checkpoint, 7B's width at QLORA_LAYERS of its 32 layers (phase 26
+    runs the recipe at a whole model's depth). ``--bits 4`` quantizes the language model to int4 (the
     seven LLaMA matrices and the head) before the adapters are made; only
     the adapters train (the JAX package's ``optax.adamw(lr)``). Checks every
     loss, that every adapter leaf moved, that the int4 base, the vision tower
-    and the projector keep their bytes, the PEFT export (448 tensors of the
-    adapters' shapes) and ``non_lora_trainables.bin``, the peak memory, and
+    and the projector keep their bytes, the PEFT export (2 x 7 tensors a
+    layer of the adapters' shapes) and ``non_lora_trainables.bin``, the peak memory, and
     the launch counts: per step the int4 kernel runs 7 products a layer
     twice (remat) and the head once, its backward Function once for each
     product whose input carries a gradient (all but layer 0's q/k/v)."""
     import torch
     from safetensors.torch import load_file
     from llava_plus_torch.data import DebugTokenizer
-    from llava_plus_torch.models.configs import LLAVA_15_7B
     from llava_plus_torch.ops import quant_matmul as qm
     from llava_plus_torch.train import lora as lora_lib
     from llava_plus_torch.train import train as train_lib
 
-    cfg, L = LLAVA_15_7B, LLAVA_15_7B.text.num_hidden_layers
+    cfg = _qlora_cfg()
+    L = cfg.text.num_hidden_layers
     B, n_steps, r = 4, TRAIN_STEPS, 128
     root = os.path.join(SMOKE_DIR, "qlora")
     rng = np.random.default_rng(8)
@@ -6172,7 +6347,7 @@ def phase_train_qlora(smi):
     state = {}
 
     def build_model(model_args, dtype, device):
-        params = _init_llava(device)
+        params = _init_llava(device, cfg)
         state["vision_tower"] = _fingerprints(params["vision_tower"])
         state["mm_projector"] = _fingerprints(params["mm_projector"])
         return params, cfg, DebugTokenizer(vocab_size=cfg.text.vocab_size)
@@ -6229,7 +6404,7 @@ def phase_train_qlora(smi):
     extra = torch.load(os.path.join(out, "non_lora_trainables.bin"), weights_only=True)
     want_flash = (n_steps * 2 * L, n_steps * L, n_steps * L)
     want_q = (n_steps * (2 * 7 * L + 1), n_steps * (7 * L + 1 - 3))
-    log("qlora", f"{len(steps)} steps; adapter leaves unmoved {unmoved} of {len(ad_after)}; "
+    log("qlora", f"{len(steps)} steps at {L} layers; adapter leaves unmoved {unmoved} of {len(ad_after)}; "
                  f"int4 base {int4_base}, its bytes unchanged {base_same}; vision tower and "
                  f"projector bytes unchanged {frozen}; export: {len(sd)} adapter tensors "
                  f"(rank {r}: {shapes_ok}), non_lora_trainables {sorted(extra)}; launches flash "
@@ -6240,8 +6415,374 @@ def phase_train_qlora(smi):
             or not int4_base or not base_same or not frozen or len(sd) != 2 * 7 * L
             or not shapes_ok or len(extra) != 4 or flash != want_flash or q != want_q
             or other):
-        raise AssertionError("LLaVA-1.5-7B QLoRA failed its checks")
+        raise AssertionError(f"LLaVA-1.5-7B QLoRA ({L} layers) failed its checks")
     return {"flash": flash[0], "dkv": flash[1], "dq": flash[2], "int4": q[0]}
+
+
+# ---------------------------------------------------------------------------
+# 26. LLaVA-1.5-13B LoRA and QLoRA
+# ---------------------------------------------------------------------------
+
+# scripts/v1_5/finetune_lora.sh at 13B: per-device batch 16 at max length
+# 2048, LoRA r 128 / alpha 256, lr 2e-4 (the projector's 2e-5, warmup 0.03
+# and cosine given as the script gives them; the JAX LoRA step ignores them)
+TRAIN_13B_BATCH = 16
+TRAIN_13B_LEN = 2048
+TRAIN_13B_RANK = 128
+TRAIN_13B_LR = 2e-4
+# r-128 adapters on LLaVA-1.5-13B's seven targets: 40 * 128 * (11 * 5120 +
+# 3 * 13824) parameters, 14 stacked leaves
+ADAPTERS_13B = 500_695_040
+# the peak device memory each recipe is held under (GiB of the card's 79.6),
+# from the arithmetic in PERF.md's prediction for phase 26: base, f32 adapters with
+# their gradients and AdamW moments, 40 remat checkpoints of 16 x 2048 x
+# 5120 bf16, f32 logits / log-softmax / their gradient, one layer's
+# recompute and the int4 backward's dequantized matrix
+TRAIN_13B_PEAK_GIB = {"lora": 72.0, "qlora": 58.0}
+# the merge check (check_merged_weights): every merged target against this
+# script's own sum, the base (an int4 base dequantized here from its nibbles
+# and block scales) plus a @ b * scaling in f64. The port's merge sums in f32
+# and rounds to bf16, so each merged weight must be the bf16 rounding of a
+# value within f32's error bound of the f64 sum: (r + 2) * 2**-24 * (|W| +
+# scaling * |a| @ |b|), the bound of an r-term product and one addition.
+# Each matrix's footprint (its share of weights that the adapters move off
+# the base in bf16) must be at least MERGE_FOOTPRINT, or the check could
+# not tell a merge from the base.
+MERGE_FOOTPRINT = 0.1
+# a 768-token image prefill (576 image slots + BOS + newline + 190 words)
+# through the merged tree and through the base with the adapters attached
+# lazily, logged against MERGE_TOL (phase 25's bound for two routes to one
+# function), which a bf16 merge of a random 40-layer 13B does not meet
+MERGE_WORDS = 190
+MERGE_TOL = 2e-2
+
+
+def phase_train_13b(smi):
+    """Phase 26: LLaVA-1.5-13B (40 layers of 5,120, 40 heads, FFN 13,824,
+    vocab 32,000) at full width and depth on random bf16 weights (seed 0),
+    trained through the port's ``train()`` by two recipes on one tree:
+
+    A. LoRA on the bf16 base: ``scripts/v1_5/finetune_lora.sh`` at 13B
+       (``--lora-enable``, r 128, alpha 256, lr 2e-4, v1 template, pad
+       aspect, modality-grouped batches, gradient checkpointing, bf16,
+       batch 16 at max length 2048);
+    B. QLoRA: the same plus ``--bits 4``, which quantizes the same tree in
+       place (the seven matrices and the head, a layer at a time) before
+       the adapters are made.
+
+    Each runs TRAIN_STEPS steps on 32 synthetic multi-turn image records
+    of 700 to 2048 fused tokens (:func:`_train_13b_recipe` checks each), then
+    merges its trained adapters into its base (:func:`_merge_check_13b`).
+    Returns the launches of the phase by kernel."""
+    import torch
+    from llava_plus_torch.models.configs import LLAVA_15_13B
+
+    t_phase = time.perf_counter()
+    cfg = LLAVA_15_13B
+    root = os.path.join(SMOKE_DIR, "train_13b")
+    rng = np.random.default_rng(26)
+    data = _write_corpus(root, TRAIN_13B_BATCH * TRAIN_STEPS, rng, cfg.vision.image_size,
+                         lambda i: _long_turns(rng))
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = _init_llava("cuda:0", cfg)
+    frozen = {k: _fingerprints(params[k]) for k in ("vision_tower", "mm_projector")}
+    totals = {}
+    for tag, bits in (("lora", None), ("qlora", 4)):
+        for k, v in _train_13b_recipe(smi, tag, params, cfg, bits, data, root, frozen).items():
+            totals[k] = totals.get(k, 0) + v
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    log("train-13b", f"phase 26: {time.perf_counter() - t_phase:.1f} s; launches {totals}; "
+                     f"card {smi}")
+    return totals
+
+
+def _train_13b_recipe(smi, tag, params, cfg, bits, data, root, frozen):
+    """One recipe of phase 26 on ``params`` (``bits`` None: LoRA on the
+    bf16 base; 4: QLoRA, the tree quantized in place). Checks every loss is
+    finite, that every adapter leaf moved and the adapters hold
+    ADAPTERS_13B parameters, that the base keeps its bytes (bf16, or int4
+    as quantized) and the vision tower and projector theirs, the PEFT export
+    (2 x 7 x 40 tensors of rank 128, as many parameters) and
+    ``non_lora_trainables.bin``, the peak device memory under
+    TRAIN_13B_PEAK_GIB, and the launch counts: per step the flash forward 2
+    x 40 (remat), dK/dV and dQ 40 each; with int4 its kernel 7 products a
+    layer twice and the head once, its backward Function once for each
+    product whose input carries a gradient (all but layer 0's q/k/v, fed by
+    the frozen embeddings and projector); no int8 launch, and no int4
+    launch on the bf16 base. Logs each step's host ms, non-pad tokens/s and
+    peak memory, and the last step's device time by class. Then the merge
+    (:func:`_merge_check_13b`). Returns the recipe's launches by kernel."""
+    import math
+
+    import torch
+    from safetensors import safe_open
+    from llava_plus_torch.data import DebugTokenizer
+    from llava_plus_torch.ops import quant_matmul as qm
+    from llava_plus_torch.train import lora as lora_lib
+    from llava_plus_torch.train import train as train_lib
+
+    L, D = cfg.text.num_hidden_layers, cfg.hidden_size
+    F = cfg.text.intermediate_size
+    B, n_steps, r = TRAIN_13B_BATCH, TRAIN_STEPS, TRAIN_13B_RANK
+    state = {}
+
+    def build_model(model_args, dtype, device):
+        return params, cfg, DebugTokenizer(vocab_size=cfg.text.vocab_size)
+
+    def init_lora(lm, lora_cfg, generator):
+        # the base the adapters are made on (int4 already with --bits 4)
+        state["lm"], state["lm_before"] = lm, _fingerprints(lm)
+        ad = lora_lib.init_lora_params(lm, lora_cfg, generator)
+        state["adapters"], state["ad_before"] = ad, _fingerprints(ad)
+        return ad
+
+    steps, prof = [], _LastStepProfile(n_steps)
+
+    def on_step(step, metrics, seconds, arrays):
+        tokens = int((arrays["segment_ids"] > 0).sum())
+        # the peak since the last step's report (the first: since the
+        # quantization and the adapters were made)
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        steps.append((metrics, seconds, tokens, arrays["tokens"].shape, peak))
+        prof.after(step, seconds)
+        state["t_steps"] = time.perf_counter()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    out = os.path.join(root, f"out_{tag}")
+    t0 = time.perf_counter()
+    train_lib.train(
+        train_lib.ModelArguments(version="v1"),
+        train_lib.DataArguments(data_path=data, image_folder=root, image_aspect_ratio="pad"),
+        train_lib.TrainingArguments(output_dir=out, per_device_train_batch_size=B,
+                                    max_steps=n_steps, model_max_length=TRAIN_13B_LEN,
+                                    learning_rate=TRAIN_13B_LR, mm_projector_lr=2e-5,
+                                    weight_decay=0.0, warmup_ratio=0.03,
+                                    lr_scheduler_type="cosine", gradient_checkpointing=True,
+                                    bf16=True, group_by_modality_length=True, lora_enable=True,
+                                    bits=bits or 16, lora_r=r, lora_alpha=2 * r,
+                                    save_steps=1000, device="cuda"),
+        build_model=build_model, init_lora=init_lora, on_step=on_step)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    seconds = t_end - t0
+    peak = max([p for *_, p in steps] + [torch.cuda.max_memory_allocated()]) / 2 ** 30
+    flash = _counts()
+    q = (qm.matmul_int4.launches, qm.matmul_int4.backward_calls)
+    other = qm.matmul_int8.launches + qm.matmul_int8.backward_calls
+    name = "QLoRA int4" if bits else "LoRA bf16"
+    for i, (m, dt, tokens, shape, p) in enumerate(steps, 1):
+        log("train-13b", f"{name} step {i}: batch {shape[0]} x {shape[1]}, {tokens} non-pad "
+                         f"tokens, loss {m['loss']:.4f}, adapter grad_norm {m['grad_norm']:.4f}, "
+                         f"host {dt * 1e3:.1f} ms, {tokens / dt:.0f} non-pad tokens/s, peak "
+                         f"device memory {p / 2 ** 30:.2f} GiB")
+    log("train-13b", f"{name} {prof.line()}")
+    ad = state.pop("adapters")
+    ad_after = _fingerprints(ad)
+    unmoved = sum(a == b for a, b in zip(state["ad_before"], ad_after))
+    n_adapter = sum(x.numel() for x in _leaves(ad))
+    base_same = _fingerprints(state["lm"]) == state["lm_before"]
+    wq = state.pop("lm")["layers"]["attn"]["wq"]
+    kind = ("int4" if isinstance(wq, dict) and "qvalue4" in wq else
+            "bf16" if torch.is_tensor(wq) and wq.dtype == torch.bfloat16 else "other")
+    kept = {k: _fingerprints(params[k]) == v for k, v in frozen.items()}
+    with safe_open(os.path.join(out, "adapter_model.safetensors"), "pt") as f:
+        shapes = {k: f.get_slice(k).get_shape() for k in f.keys()}
+    shapes_ok = all(v[0 if k.endswith("lora_A.weight") else 1] == r for k, v in shapes.items())
+    n_export = sum(math.prod(v) for v in shapes.values())
+    n_sd = len(shapes)
+    extra = torch.load(os.path.join(out, "non_lora_trainables.bin"), weights_only=True)
+    want_flash = (n_steps * 2 * L, n_steps * L, n_steps * L)
+    want_q = (n_steps * (2 * 7 * L + 1), n_steps * (7 * L + 1 - 3)) if bits else (0, 0)
+    limit = TRAIN_13B_PEAK_GIB[tag]
+    log("train-13b", f"{name}: {len(steps)} steps in {seconds:.1f} s (with the "
+                     f"{'quantization, ' if bits else ''}data and the profile; the export "
+                     f"{t_end - state['t_steps']:.1f} s of them); "
+                     f"adapters {n_adapter:,} parameters (want {ADAPTERS_13B:,}), leaves unmoved "
+                     f"{unmoved} of {len(ad_after)}; base {kind}, its bytes unchanged "
+                     f"{base_same}; vision tower / projector bytes unchanged {kept}; export: "
+                     f"{n_sd} adapter tensors (rank {r}: {shapes_ok}), {n_export:,} parameters, "
+                     f"non_lora_trainables {sorted(extra)}; launches flash fwd/dkv/dq {flash} "
+                     f"(want {want_flash}); int4 kernel forward launches / backward calls {q} "
+                     f"(want {want_q}), int8 {other}; peak device memory {peak:.2f} GiB (bound "
+                     f"{limit:.1f}); card {smi}")
+    if (len(steps) != n_steps or not all(np.isfinite(m["loss"]) for m, *_ in steps) or unmoved
+            or n_adapter != ADAPTERS_13B or L * r * (11 * D + 3 * F) != ADAPTERS_13B
+            or kind != ("int4" if bits else "bf16") or not base_same or not all(kept.values())
+            or n_sd != 2 * 7 * L or not shapes_ok or n_export != ADAPTERS_13B
+            or len(extra) != 4 or flash != want_flash or q != want_q or other
+            or peak > limit):
+        raise AssertionError(f"LLaVA-1.5-13B {name} failed its checks")
+    merged = _merge_check_13b(smi, name, params, cfg, ad, lora_lib.LoraConfig(r=r, alpha=2 * r),
+                              bits)
+    return {"flash": flash[0] + merged["flash"], "dkv": flash[1], "dq": flash[2],
+            "int4": q[0] + merged["int4"], "int4_backward": q[1]}
+
+
+def _int4_values(w):
+    """An int4 leaf (``{"qvalue4": int8 [in/2, out], "scale": f32 [in/32,
+    out]}``) as its [in, out] values in f64: two signed nibbles a byte in
+    split-half order (the low nibbles are rows 0-15 of each 32-row block,
+    the high ones rows 16-31), times the block's scale."""
+    import torch
+
+    p = w["qvalue4"].to(torch.int16)
+    half, n = p.shape
+    lo, hi = ((((p >> s) & 15) ^ 8) - 8 for s in (0, 4))
+    q = torch.cat([lo.reshape(half // 16, 16, n), hi.reshape(half // 16, 16, n)], dim=1)
+    return (q.double() * w["scale"].double()[:, None, :]).reshape(2 * half, n)
+
+
+def _bf16_order(x):
+    """bf16 values as integers in their order, one apart for neighbours
+    (both zeros 0)."""
+    import torch
+
+    v = x.view(torch.int16).to(torch.int32)
+    return torch.where(v < 0, -(v & 0x7FFF), v)
+
+
+def check_merged_weights(merged_layers, base_layers, adapters, scaling):
+    """Holds each merged target of ``merged_layers`` (a per-layer tree's
+    layers) against this script's own f64 sum of ``base_layers``' weight (a
+    bf16 matrix, or an int4 leaf dequantized by :func:`_int4_values` and
+    rounded to bf16, as the merge dequantizes it) and ``a @ b * scaling``
+    from the stacked ``adapters``: a bf16 matrix of the base's shape whose
+    every weight lies between the bf16 roundings of that sum less and plus
+    f32's error bound (an f32 sum rounds to bf16 within them, rounding
+    being monotonic), and a footprint of at least MERGE_FOOTPRINT. Raises
+    AssertionError naming the first matrix that fails; returns the largest
+    share of a matrix's weights that differ from the f64 sum's own bf16
+    rounding (those within the bound of a rounding boundary) and the
+    smallest footprint."""
+    import torch
+
+    def at(tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
+
+    worst, smallest = 0.0, 1.0
+    with torch.no_grad():
+        for i, (m_lay, b_lay) in enumerate(zip(merged_layers, base_layers, strict=True)):
+            for joined, ab in adapters.items():
+                path = joined.split("/")[1:]   # below "layers"
+                w, got = at(b_lay, path), at(m_lay, path)
+                base = (_int4_values(w).to(torch.bfloat16) if isinstance(w, dict)
+                        else w.to(torch.bfloat16))
+                a, b = ab["a"][i].double(), ab["b"][i].double()
+                total = base.double() + (a @ b) * scaling
+                bound = ((a.shape[-1] + 2) * 2.0 ** -24
+                         * (base.double().abs() + (a.abs() @ b.abs()) * scaling))
+                want = total.to(torch.bfloat16)
+                where = f"layer {i} {joined}"
+                if not (torch.is_tensor(got) and got.dtype == torch.bfloat16
+                        and got.shape == want.shape):
+                    raise AssertionError(f"the merged {where} is not a bf16 matrix of "
+                                         f"{tuple(want.shape)}")
+                o = _bf16_order(got)
+                outside = int(((o < _bf16_order((total - bound).to(torch.bfloat16)))
+                               | (o > _bf16_order((total + bound).to(torch.bfloat16)))).sum())
+                share = float((got != want).double().mean())
+                footprint = float((want != base).double().mean())
+                worst, smallest = max(worst, share), min(smallest, footprint)
+                if outside:
+                    raise AssertionError(f"the merged {where} is not the base plus its "
+                                         f"adapters: {outside} weights outside f32's bound")
+                if footprint < MERGE_FOOTPRINT:
+                    raise AssertionError(f"the adapters move {footprint:.2e} of {where}'s "
+                                         f"weights, under {MERGE_FOOTPRINT}: the check "
+                                         "cannot tell a merge from the base")
+    return worst, smallest
+
+
+def _merge_check_13b(smi, name, params, cfg, adapters, lora_cfg, bits):
+    """The trained adapters merged into the base for good
+    (``merge_lora_into_base`` over the per-layer tree, so the merge's f32
+    transients are one layer's; an int4 base dequantized to bf16), each
+    merged target held by :func:`check_merged_weights` against this
+    script's own f64 sum. Then one 768-token image prefill through the
+    merged tree and through the base with the same adapters attached lazily
+    (``apply_lora``): finite logits and exact launches (the flash forward
+    once a layer a prefill; the int4 kernel 7 a layer and the head through
+    the lazy tree, the head alone through the merged one), the largest
+    difference logged against MERGE_TOL with the positions whose greedy
+    pick parts. Returns the launches."""
+    import torch
+    from llava_plus_torch.data import ClipImageProcessor, DebugTokenizer
+    from llava_plus_torch.generate import prepare_multimodal_request
+    from llava_plus_torch.mm_utils import load_image_from_base64, process_images
+    from llava_plus_torch.models import llava as llava_model
+    from llava_plus_torch.models.convert import per_layer
+    from llava_plus_torch.ops import quant_matmul as qm
+    from llava_plus_torch.ops.flash_attention import flash_attention
+    from llava_plus_torch.train import lora as lora_lib
+
+    L = cfg.text.num_hidden_layers
+    rng = np.random.default_rng(27)
+    tok = DebugTokenizer(vocab_size=cfg.text.vocab_size)
+    prompt = "<image>\n" + " ".join(f"merge{i}" for i in range(MERGE_WORDS))
+    image = load_image_from_base64(_png_b64(rng, cfg.vision.image_size))
+    proc = ClipImageProcessor(shortest_edge=cfg.vision.image_size,
+                              crop_size=cfg.vision.image_size)
+    batch, plan = prepare_multimodal_request(
+        cfg, tok, [prompt], [process_images([image], proc, cfg)],
+        max_seq_len=TRAIN_13B_LEN, device="cuda", prefill_bucket=256)
+    n = int(plan.lengths[0])
+    if n != 768 or batch.tokens.shape[1] != 768:
+        raise AssertionError(f"the merge check's prompt is {n} fused tokens, not 768")
+    pl = per_layer(params)
+    flash_attention.launches = qm.matmul_int4.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        merged = lora_lib.merge_lora_into_base(pl, adapters, lora_cfg)
+        torch.cuda.synchronize()
+        t_merge = time.perf_counter()
+        apart, footprint = check_merged_weights(
+            merged["language_model"]["layers"], pl["language_model"]["layers"], adapters,
+            lora_cfg.scaling)
+        torch.cuda.synchronize()
+        t_check = time.perf_counter()
+        got = llava_model.forward(merged, cfg, batch)[0][0].float()
+        del merged
+        lazy = dict(pl, language_model=lora_lib.apply_lora(pl["language_model"], adapters,
+                                                           lora_cfg))
+        want = llava_model.forward(lazy, cfg, batch)[0][0].float()
+        del lazy
+    torch.cuda.synchronize()
+    launches = (flash_attention.launches, qm.matmul_int4.launches)
+    merge_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del pl
+    top = float(want.abs().max())
+    err = float((got - want).abs().max()) / top
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(want).all())
+    parted = got.argmax(-1) != want.argmax(-1)
+    # two prefills: merged, then lazy
+    want_launches = (2 * L, 7 * L + 2 if bits else 0)
+    log("train-13b", f"{name} merged into its base ({'int4 dequantized to ' if bits else ''}"
+                     f"bf16) in {t_merge - t0:.1f} s; every merged target against the f64 "
+                     f"sum ({t_check - t_merge:.1f} s): every weight within f32's bound, at "
+                     f"most {apart:.2e} of a matrix apart from the f64 sum's bf16 rounding; "
+                     f"the adapters move at least "
+                     f"{footprint:.3f} of each matrix (bound {MERGE_FOOTPRINT}); 768-token "
+                     f"image prefill, merged vs lazy (not gated): max |diff| {err:.3e} of the "
+                     f"top logit {top:.3f} ({MERGE_TOL}: {err <= MERGE_TOL}), greedy picks "
+                     f"equal at {n - int(parted.sum())} of {n} positions; finite {finite}; "
+                     f"launches flash / int4 {launches} (want {want_launches}); peak device "
+                     f"memory {merge_peak:.2f} GiB; card {smi}")
+    if not finite or launches != want_launches:
+        raise AssertionError(f"LLaVA-1.5-13B {name}: the merged tree's prefill failed")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash": launches[0], "int4": launches[1]}
 
 
 # ---------------------------------------------------------------------------
@@ -6328,6 +6869,11 @@ S13_KERNELS = {"flash_fwd": "flash", "decode_attention[int8]": "decode",
                "paged_attention[decode1]": "decode1"}
 
 
+# the kernels LLaVA-1.5-13B's training runs (phase 26), by their key there
+T13_KERNELS = {"flash_fwd": "flash", "flash_bwd[dkv]": "dkv", "flash_bwd[dq]": "dq",
+               "quant_matmul[int4]": "int4"}
+
+
 def main():
     import torch
 
@@ -6376,7 +6922,17 @@ def main():
     s13 = timed("25 13b", phase_serve_13b, smi)   # LLaVA-1.5-13B, fresh weights
     spec = timed("17", phase_speculative, smi)   # on fresh weights
     plus = timed("18", phase_plus_turn, smi)     # on fresh weights
-    evals = timed("19", phase_eval, smi)         # from phase 16's checkpoint
+    # phase 16's chat turn runs beside phase 19's three runner processes,
+    # which saves its ~44 s alone on a slow host (the run's 900 s budget
+    # needs it); its seconds are then logged as taken beside them
+    cli = _start_cli(os.path.join(SMOKE_DIR, CKPT_NAME))
+    try:
+        evals = timed("19", phase_eval, smi)     # from phase 16's checkpoint
+        timed("16 cli", _finish_cli, smi, cli, "phase 19's three runner processes")
+    finally:
+        if cli[0].poll() is None:
+            cli[0].kill()
+            cli[0].wait(30)
     predictor = timed("22", phase_predictor, smi)   # from phase 16's checkpoint
     shutil.rmtree(os.path.join(SMOKE_DIR, CKPT_NAME), ignore_errors=True)
     timed("23", phase_native, smi)
@@ -6388,6 +6944,7 @@ def main():
     stage2 = timed("10", phase_train_stage2, smi)
     mpt_stage1 = timed("12", phase_train_mpt_stage1, smi)
     qlora = timed("13", phase_train_qlora, smi)
+    train13 = timed("26", phase_train_13b, smi)   # LLaVA-1.5-13B LoRA, then QLoRA
     tools = timed("14", phase_int4_tools)
 
     def device_times():
@@ -6415,9 +6972,11 @@ def main():
          single["flash"] + ckpt["flash"] + int8["flash"] + tp1["flash"] + int4["flash"]
          + paged["flash"] + s13["flash"]
          + spec["flash"] + plus["flash"] + evals["flash"] + predictor["flash"]
-         + stage1["flash"] + stage2["flash"] + qlora["flash"]),
-        ("flash_bwd[dkv]", bwd_src, DKV_REPLACES, stage1["dkv"] + stage2["dkv"] + qlora["dkv"]),
-        ("flash_bwd[dq]", bwd_src, DQ_REPLACES, stage1["dq"] + stage2["dq"] + qlora["dq"]),
+         + stage1["flash"] + stage2["flash"] + qlora["flash"] + train13["flash"]),
+        ("flash_bwd[dkv]", bwd_src, DKV_REPLACES,
+         stage1["dkv"] + stage2["dkv"] + qlora["dkv"] + train13["dkv"]),
+        ("flash_bwd[dq]", bwd_src, DQ_REPLACES,
+         stage1["dq"] + stage2["dq"] + qlora["dq"] + train13["dq"]),
         ("decode_attention[bf16]", "llava_plus_torch/csrc/decode_attention.cu",
          DECODE_REPLACES, single["bf16"] + evals["decode"] + predictor["decode"]),
         ("decode_attention[int8]", "llava_plus_torch/csrc/decode_attention.cu",
@@ -6429,7 +6988,8 @@ def main():
          + mpt["dense"]["matmul_int8"]
          + mpt["paged"]["matmul_int8"] + narrow_lora[8][0] + tools["int8"]),
         ("quant_matmul[int4]", "llava_plus_torch/csrc/quant_matmul.cu", INT4_REPLACES,
-         int4["quant"] + narrow_lora[4][0] + qlora["int4"] + tools["int4"] + s13["int4"]),
+         int4["quant"] + narrow_lora[4][0] + qlora["int4"] + tools["int4"] + s13["int4"]
+         + train13["int4"]),
         ("quant_matmul[int4n]", "llava_plus_torch/csrc/quant_matmul.cu", INT4N_REPLACES,
          tools["int4n"]),
         ("paged_attention[decode1]", paged_src, PAGED_DECODE1_REPLACES,
@@ -6467,6 +7027,9 @@ def main():
         if name in S13_KERNELS:
             # of which LLaVA-1.5-13B's engines (phase 25)
             entries[-1]["launches_13b"] = s13[S13_KERNELS[name]]
+        if name in T13_KERNELS:
+            # of which LLaVA-1.5-13B's LoRA and QLoRA training (phase 26)
+            entries[-1]["train_13b_launches"] = train13[T13_KERNELS[name]]
         if name in PLUS_KERNELS:
             # of which the LLaVA-Plus tool turns (phase 18)
             entries[-1]["tool_turn_launches"] = plus[PLUS_KERNELS[name]]

@@ -104,18 +104,26 @@ def _in_out(w):
     return tuple(w.shape)
 
 
+def _device(w):
+    """The device of a target, plain or quantized."""
+    return (w[quant.Q4KEY if quant.Q4KEY in w else quant.QKEY] if quant.is_quantized(w)
+            else w).device
+
+
 def init_lora_params(lm_params, cfg: LoraConfig, generator: torch.Generator,
                      dtype=torch.float32, targets=LLAMA_TARGETS):
     """``{"layers/attn/wq": {"a": [L, in, r], "b": [L, r, out]}, ...}`` for
     the stacked tree ``lm_params``: a ~ N(0, 0.02), b = 0 (training starts
-    at the base model), made on ``generator``'s device."""
+    at the base model), each made on its target's device (a base on the
+    meta device sizes its adapters without their memory)."""
     lora = {}
     for path in targets:
-        L, d_in, d_out = _in_out(_get(lm_params, path))
-        a = torch.randn(L, d_in, cfg.r, generator=generator, device=generator.device)
+        w = _get(lm_params, path)
+        L, d_in, d_out = _in_out(w)
+        a = torch.randn(L, d_in, cfg.r, generator=generator, device=_device(w))
         lora["/".join(path)] = {
             "a": (a * 0.02).to(dtype),
-            "b": torch.zeros(L, cfg.r, d_out, dtype=dtype, device=generator.device),
+            "b": torch.zeros(L, cfg.r, d_out, dtype=dtype, device=_device(w)),
         }
     return lora
 

@@ -15,6 +15,13 @@
 - A 40-head checkpoint written by the exporter loads back leaf for leaf,
   and 13B's ``config.json`` reads back as ``LLAMA_13B``.
 - The worker's ``--load-4bit`` advice, under the JAX worker's condition.
+- Training at 40 heads: the port's ``train()`` against JAX ``train()`` for
+  LoRA and QLoRA ``--bits 4`` on the narrow config (f32, 3 steps, JAX's
+  initial adapters in both; ``tests/test_torch_lora.py``'s check); merged
+  adapters against the same adapters attached lazily, on a plain and an
+  int4 base; ``LLAVA_15_13B`` on the meta device: the r-128 adapters' count
+  and every QLoRA int4 leaf and the head against the kernels' input check
+  at a training batch's rows, and the head's 32-bit row limit.
 """
 
 import dataclasses
@@ -34,11 +41,14 @@ from llava_plus_tpu.ops import quant as jax_quant
 from llava_plus_tpu.serve import engine as jax_engine
 from llava_plus_torch.models import llama, llava
 from llava_plus_torch.models.configs import LLAMA_13B, LLAVA_15_13B, tiny_llava_config
-from llava_plus_torch.models.convert import from_numpy
+from llava_plus_torch.models.convert import from_numpy, per_layer
 from llava_plus_torch.ops import quant, quant_matmul
 from llava_plus_torch.serve.engine import BatchedEngine, Request
+from llava_plus_torch.train import lora
 
 from .test_generate import CharTokenizer
+from .test_torch_lora import lora_train_against_jax
+from .test_torch_trainer import corpus  # noqa: F401  (the corpus fixture)
 
 torch.set_num_threads(1)
 H100_SMS = 132
@@ -328,3 +338,212 @@ def test_load_4bit_advice_follows_the_jax_condition(caplog, flags, name, warns):
         assert "--load-4bit" in got[0].getMessage() and "13B" in got[0].getMessage()
         assert "img+tok/s" not in got[0].getMessage()
 
+
+
+@pytest.mark.parametrize("bits", [None, 4], ids=["lora", "qlora4"])
+def test_lora_train_matches_jax_train_at_40_heads(monkeypatch, corpus, tmp_path,  # noqa: F811
+                                                  bits):
+    """LoRA and QLoRA ``--bits 4`` through both trainers on the narrow
+    40-head config: per-step loss, accuracy, tokens and grad_norm, the
+    frozen base and projector, and the saved adapters, at
+    ``tests/test_torch_lora.py``'s tolerance."""
+    lora_train_against_jax(monkeypatch, corpus, tmp_path, bits, cfg=CFG, jax_cfg=JCFG)
+
+
+def _grid_lm(npt, rng):
+    """The narrow language model with every LoRA target on a grid of
+    2**-9 (q in -7..7, each 32-row block's column holding a 7): its int4
+    quantization dequantizes to the same values (within f32's 1 / 7), and
+    bf16 holds them, and their sums with :func:`_grid_adapters`' terms,
+    exactly."""
+    lm = jax.tree.map(np.copy, npt["language_model"])
+    for path in lora.LLAMA_TARGETS:
+        w = lm
+        for p in path[:-1]:
+            w = w[p]
+        L, K, N = w[path[-1]].shape
+        q = rng.integers(-6, 7, size=(L, K // 32, 32, N))
+        q[:, :, 0, :] = 7 * rng.choice([-1, 1], size=(L, K // 32, N))
+        w[path[-1]] = (q.reshape(L, K, N) * 2.0 ** -9).astype(np.float32)
+    return lm
+
+
+def _grid_adapters(lm, lcfg, rng):
+    """r-4 adapters whose merged term (alpha / r) a @ b is a multiple of
+    2**-9 of at most 4 of them: a in {0, +-2**-4}, b in {0, +-2**-6}."""
+    out = {}
+    for path in lora.LLAMA_TARGETS:
+        L, K, N = lora._in_out(quant._get(lm, path))
+        out["/".join(path)] = {
+            "a": torch.from_numpy(rng.integers(-1, 2, (L, K, lcfg.r)) * 2.0 ** -4).float(),
+            "b": torch.from_numpy(rng.integers(-1, 2, (L, lcfg.r, N)) * 2.0 ** -6).float()}
+    return out
+
+
+def _f64(tree):
+    """``tree`` with its floating leaves in f64; a quantized leaf as it is
+    (the kernels' plain version dequantizes in x's f64)."""
+    if isinstance(tree, dict) and not quant.is_quantized(tree):
+        return {k: _f64(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_f64(v) for v in tree]
+    return tree.double() if torch.is_tensor(tree) and tree.is_floating_point() else tree
+
+
+@pytest.mark.parametrize("base", ["plain", "int4"])
+def test_merged_adapters_match_lazy_logits(trees, base):
+    """``merge_lora_into_base`` (an int4 base dequantized to bf16) against
+    the same adapters attached lazily (``apply_lora``: the base product,
+    int4 through its kernel's plain version, plus ``(x @ a) @ b``), on the
+    narrow 40-head model: the logits of an f64 forward (every leaf cast to
+    f64, exactly) at ``test_merge_matches_jax``'s tolerance. The weights
+    and adapters lie on a grid on which every merged weight is exact, so
+    what is left is summation order and the int4 scales' last f32 bit
+    (``amax * f32(1 / 7)``, which the bf16 merge rounds away); the merge of the
+    per-layer tree (as the card's phase 26 merges a 13B tree) equals the
+    stacked merge bit for bit."""
+    rng = np.random.default_rng(22)
+    lcfg = lora.LoraConfig(r=4, alpha=8)
+    lm = from_numpy(_grid_lm(trees[2], rng), "cpu")
+    if base == "int4":
+        lm = quant.quantize_llava_params({"language_model": lm}, "llama", bits=4)[
+            "language_model"]
+    ad = _grid_adapters(lm, lcfg, rng)
+    ids = torch.as_tensor(rng.integers(3, CFG.text.vocab_size, (2, 24)))
+    merged = lora.merge_lora_into_base({"language_model": lm}, ad, lcfg)["language_model"]
+    target = quant._get(merged, lora.LLAMA_TARGETS[0])
+    assert target.dtype == (torch.bfloat16 if base == "int4" else torch.float32)
+    lazy, _ = llama.forward(_f64(lora.apply_lora(lm, ad, lcfg)), CFG.text, ids)
+    got, _ = llama.forward(_f64(merged), CFG.text, ids)
+    np.testing.assert_allclose(got.numpy(), lazy.numpy(), rtol=1e-6, atol=1e-7)
+    plain, _ = llama.forward(_f64(lm), CFG.text, ids)
+    assert (lazy - plain).abs().max() > 1e-3          # the adapters matter
+    by_layer = lora.merge_lora_into_base(per_layer({"language_model": lm}), ad, lcfg)
+    for i, lay in enumerate(by_layer["language_model"]["layers"]):
+        for path in lora.LLAMA_TARGETS:
+            assert torch.equal(quant._get(lay, path[1:]), quant._get(merged, path)[i]), path
+
+
+def _trained_adapters(lm, lcfg, seed):
+    """Adapters as two AdamW steps at finetune_lora.sh's lr 2e-4 leave them:
+    a ~ N(0, 0.02) as made, b within 2 lr of its zeros."""
+    ad = lora.init_lora_params(lm, lcfg, torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    for ab in ad.values():
+        ab["b"] = (torch.rand(ab["b"].shape, generator=g) * 2 - 1) * 4e-4
+    return ad
+
+
+def _plant(fault, pl, ad, lcfg, monkeypatch):
+    """The merge of ``ad`` into the per-layer tree ``pl``, right or with
+    ``fault`` planted."""
+    if fault == "half_scaling":
+        lcfg = lora.LoraConfig(r=lcfg.r, alpha=lcfg.alpha / 2)
+    elif fault == "layer_skipped":
+        ad = {k: dict(ab, b=torch.cat([ab["b"][:1], 0 * ab["b"][1:2], ab["b"][2:]]))
+              for k, ab in ad.items()}
+    elif fault == "layers_swapped":
+        ad = {k: {n: x.flip(0) for n, x in ab.items()} for k, ab in ad.items()}
+    elif fault == "nibbles_swapped":   # the int4 base dequantized with its halves swapped
+        unpack = quant._unpack_int4
+        monkeypatch.setattr(quant, "_unpack_int4",
+                            lambda p: unpack(p).roll(16, dims=-2))
+    out = lora.merge_lora_into_base(pl, ad, lcfg)
+    layers = out["language_model"]["layers"]
+    if fault == "one_column":          # layer 0's w_down merged but for one column
+        w = pl["language_model"]["layers"][0]["mlp"]["w_down"]
+        base = quant.dequantize_array(w) if quant.is_quantized(w) else w
+        layers[0]["mlp"]["w_down"][:, 5] = base[:, 5]
+    elif fault == "toward_zero":       # every merged sum rounded toward zero
+        for i, (lay, b_lay) in enumerate(zip(layers, pl["language_model"]["layers"])):
+            for path in lora.LLAMA_TARGETS:
+                w = quant._get(b_lay, path[1:])
+                base = quant.dequantize_array(w) if quant.is_quantized(w) else w
+                ab = ad["/".join(path)]
+                f32 = base.float() + (ab["a"][i] @ ab["b"][i]) * lcfg.scaling
+                quant._get(lay, path[1:]).copy_(
+                    (f32.view(torch.int32) & -65536).view(torch.float32))
+    return layers
+
+
+_FAULTS = [None, "half_scaling", "layer_skipped", "layers_swapped", "one_column",
+           "toward_zero"]
+
+
+@pytest.mark.parametrize("base,fault", [("bf16", f) for f in _FAULTS]
+                         + [("int4", f) for f in _FAULTS + ["nibbles_swapped"]])
+def test_chip_merge_check_holds_the_merge_and_refuses_wrong_ones(trees, base, fault,
+                                                                 monkeypatch):
+    """``chip_smoke.check_merged_weights``, phase 26's gate on the merge of
+    trained adapters into a 13B base, here on the narrow 40-head tree in
+    bf16 (normal 0.02 weights, as the card's random ones) and quantized to
+    int4, with r-128 adapters as two training steps leave them: the port's
+    ``merge_lora_into_base`` passes it, and a merge with a fault planted
+    raises (half the scaling; one layer's adapters left out; the layers'
+    adapters swapped; one column of one matrix left unmerged; the sums
+    rounded toward zero; an int4 base dequantized with its nibbles'
+    halves swapped)."""
+    import chip_smoke
+
+    lm = from_numpy(trees[2]["language_model"], "cpu", torch.bfloat16)
+    if base == "int4":
+        lm = quant.quantize_llava_params({"language_model": lm}, "llama", bits=4)[
+            "language_model"]
+    lcfg = lora.LoraConfig(r=128, alpha=256)
+    ad = _trained_adapters(lm, lcfg, 26)
+    pl = per_layer({"language_model": lm})
+    with torch.no_grad():
+        layers = _plant(fault, pl, ad, lcfg, monkeypatch)
+        args = (layers, pl["language_model"]["layers"], ad, lcfg.scaling)
+        if fault is None:
+            apart, footprint = chip_smoke.check_merged_weights(*args)
+            assert apart < 1e-3 and footprint > 0.5
+        else:
+            with pytest.raises(AssertionError, match="not the base plus its adapters"):
+                chip_smoke.check_merged_weights(*args)
+
+
+# LLaVA-1.5-13B's r-128 adapters over the seven targets: 40 * 128 * (11 *
+# 5120 + 3 * 13824) parameters (scripts/v1_5/finetune_lora.sh's rank)
+ADAPTERS_13B = 500_695_040
+ROWS_13B_TRAIN = 16 * 2048            # finetune_lora.sh's batch at its max length
+HEAD_ROWS_MAX = (2 ** 31 - 1) // 32000   # 67,108: the int4 kernels' 32-bit offsets
+
+
+def test_13b_lora_and_qlora_fit_the_kernels_on_meta():
+    """``LLAVA_15_13B`` on the meta device as QLoRA ``--bits 4`` makes it
+    (unfused int4 matrices and head): r-128 adapters as 14 stacked leaves
+    (560 per-layer tensors) of ADAPTERS_13B parameters; every int4 leaf and
+    the head pass the kernels' input check at a 16 x 2048 batch's rows; the
+    head is refused past 67,108 rows (R * N at 2**31), the rule a larger
+    batch meets first."""
+    params = llava.init_params(LLAVA_15_13B, None, "meta")
+    lm = quant.quantize_llava_params(params, "llama", bits=4)["language_model"]
+    lcfg = lora.LoraConfig(r=128, alpha=256)
+    ad = lora.init_lora_params(lm, lcfg, torch.Generator())   # made on the base's device
+    assert sorted(ad) == sorted("/".join(p) for p in lora.LLAMA_TARGETS)
+    assert sum(len(ab) for ab in ad.values()) == 14
+    per = lora.lora_per_layer(ad)
+    assert len(per) == 40 and sum(len(ab) for lay in per for ab in lay.values()) == 560
+    assert sum(x.numel() for ab in ad.values() for x in ab.values()) == ADAPTERS_13B
+    D, F = LLAVA_15_13B.hidden_size, LLAVA_15_13B.text.intermediate_size
+    assert 40 * 128 * (11 * D + 3 * F) == ADAPTERS_13B
+    for path in lora.LLAMA_TARGETS:
+        w = quant._get(lm, path)
+        assert quant.Q4KEY in w and w[quant.Q4KEY].shape[0] == 40
+        qw, scale = w[quant.Q4KEY][0].contiguous(), w[quant.SKEY][0].contiguous()
+        x = torch.empty(ROWS_13B_TRAIN, 2 * qw.shape[0], device="meta", dtype=torch.bfloat16)
+        quant_matmul._check_kernel_inputs(x, qw, scale, 4, torch.bfloat16)
+        assert ad["/".join(path)]["a"].shape == (40, x.shape[1], 128)
+        assert ad["/".join(path)]["b"].shape == (40, 128, qw.shape[1])
+    head = lm["lm_head"]
+    assert tuple(head[quant.Q4KEY].shape) == (D // 2, 32000)
+    assert HEAD_ROWS_MAX == 67_108
+    for R in (ROWS_13B_TRAIN, HEAD_ROWS_MAX):
+        x = torch.empty(R, D, device="meta", dtype=torch.bfloat16)
+        quant_matmul._check_kernel_inputs(x, head[quant.Q4KEY], head[quant.SKEY], 4,
+                                          torch.float32)
+    with pytest.raises(ValueError, match="32-bit"):
+        x = torch.empty(HEAD_ROWS_MAX + 1, D, device="meta", dtype=torch.bfloat16)
+        quant_matmul._check_kernel_inputs(x, head[quant.Q4KEY], head[quant.SKEY], 4,
+                                          torch.float32)

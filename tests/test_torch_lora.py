@@ -189,7 +189,19 @@ RUNS = {"lora": None, "qlora8": 8, "qlora4": 4}
 
 @pytest.mark.parametrize("run", list(RUNS))
 def test_lora_train_matches_jax_train(monkeypatch, corpus, tmp_path, run):  # noqa: F811
-    bits = RUNS[run]
+    lora_train_against_jax(monkeypatch, corpus, tmp_path, RUNS[run])
+
+
+def lora_train_against_jax(monkeypatch, corpus, tmp_path, bits, cfg=None,  # noqa: F811
+                           jax_cfg=None):
+    """Both trainers' LoRA run (``--bits`` ``bits``, or a plain base) on
+    ``corpus``: JAX ``train()`` builds ``jax_cfg`` (the tiny debug config by
+    default) from ``PRNGKey(0)``, the port's ``train()`` the same numbers as
+    ``cfg``, and JAX's initial adapters go into both. Holds the per-step
+    metrics, the base and projector bytes and the saves."""
+    cfg = cfg or tiny_llava_config()
+    jax_cfg = jax_cfg or jax_tiny_config()
+    monkeypatch.setattr(jax_train, "tiny_llava_config", lambda: jax_cfg)
     seen = []
     real_jit = jax.jit
 
@@ -218,7 +230,7 @@ def test_lora_train_matches_jax_train(monkeypatch, corpus, tmp_path, run):  # no
     monkeypatch.setattr(jax, "jit", real_jit)
     assert len(seen) == 3
 
-    jp = jax.tree.map(np.asarray, jax_llava.init_params(jax_tiny_config(), jax.random.PRNGKey(0),
+    jp = jax.tree.map(np.asarray, jax_llava.init_params(jax_cfg, jax.random.PRNGKey(0),
                                                         dtype=jnp.float32))
     # JAX's initial adapters (PRNGKey(1), shapes of the base it was handed)
     jad = jax_lora.init_lora_params(jp["language_model"], jax_lora.LoraConfig(r=4, alpha=8),
@@ -226,7 +238,7 @@ def test_lora_train_matches_jax_train(monkeypatch, corpus, tmp_path, run):  # no
     init = _port_adapters(jax.tree.map(np.asarray, jad))
     got, bases = [], []
 
-    def init_lora(lm, cfg, generator):
+    def init_lora(lm, lora_cfg, generator):
         bases.append(lm)
         return init
 
@@ -235,8 +247,7 @@ def test_lora_train_matches_jax_train(monkeypatch, corpus, tmp_path, run):  # no
         port_train.DataArguments(**data),
         port_train.TrainingArguments(output_dir=str(tmp_path / "port"), device="cpu", **kw),
         tokenizer=_tok(),
-        build_model=lambda m, dtype, device: (from_numpy(jp, device, dtype),
-                                              tiny_llava_config(), None),
+        build_model=lambda m, dtype, device: (from_numpy(jp, device, dtype), cfg, None),
         init_lora=init_lora, on_step=lambda s, m, dt, a: got.append(m))
     assert len(got) == 3
     for i, (a, b) in enumerate(zip(got, seen)):
