@@ -90,15 +90,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    then LoRA and QLoRA (int8 and int4 base) on the narrow LLaMA: the
    gradient of every adapter leaf, the base's bytes and the launch counts
    of the quantized kernels and of their backward;
-9. LLaVA-1.5-7B stage 1 through the port's ``train()`` with the
-   ``scripts/v1_5/pretrain.sh`` recipe (projector only, batch 32) on 64
+9. LLaVA-1.5-7B's width at 8 of its 32 layers (``STAGE_LAYERS``; phase 27
+   runs a 7B at the whole depth) in stage 1 through the port's ``train()``
+   with the ``scripts/v1_5/pretrain.sh`` recipe (projector only, batch 32) on 64
    synthetic image-caption records: 2 steps, frozen bytes, the
    ``mm_projector.bin`` export and the launch counts; then one more step
    eager and through ``make_train_step(..., mesh=make_mesh(1, 1, 1))`` on a
    one-rank NCCL group (every leaf a DTensor, the flash kernels through
    the mesh's local wrapper, loss, grad_norm and projector against the
    eager step's, host ms of both);
-10. LLaVA-1.5-7B stage 2 through ``make_train_step`` with the
+10. LLaVA-1.5-7B's width at ``STAGE_LAYERS`` layers in stage 2 through
+   ``make_train_step`` with the
    ``scripts/v1_5/finetune.sh`` recipe reduced to batch 4 with gradient
    accumulation 2, on 16 synthetic multi-turn image records of 700-2048
    tokens: 2 steps, every trained leaf updated, the vision tower frozen, the
@@ -254,7 +256,32 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    every merged weight held to this script's own f64 sum of the base (an
    int4 base dequantized here) and the adapters within f32's error bound,
    and a 768-token image prefill through the merged tree beside the lazy
-   adapters (finite, exact launches, its difference logged).
+   adapters (finite, exact launches, its difference logged);
+27. (run after 26, before 14) LLaVA-Plus-7B (vicuna-7b-v1.3: LLaMA-7B;
+   CLIP ViT-L/14 at 224 px; a linear projector) from a base checkpoint at
+   full width and depth: a plain HF LLaMA-7B directory (random bf16 weights
+   with phase 18's planted chain, a word-level tokenizer with a BOS that
+   knows every word of the corpora and of the tool turn) and an HF CLIP
+   directory, written by the port's exporters after a check of free disk;
+   ``scripts/pretrain.sh``'s flags through ``llava_plus_torch.train.train.
+   main`` from them (``--vision-tower`` the directory: the trainer builds
+   the tower and the projector; 2 steps of 32 image captions; the language
+   model and the tower are the directories' bytes and keep them, the
+   projector moves, ``mm_projector.bin``, the launches), then
+   ``scripts/llava_plus/training_llava_plus_v1_3_7b.sh``'s flags (two
+   datasets in two image folders: image chats and tool-use records, some
+   without an image; batch 4 with accumulation 2; 2 steps and the HF
+   export, alone (``--save-only-model``: the 41 GB training state would
+   pass the 45 GiB a call may write); every language-model and projector
+   leaf updated, the tower kept, the launches); the planted chain's margins on
+   the export; the export served by the model worker's own ``main``
+   (``--load-8bit``) in a child process under the port's controller with
+   phase 18's fake tool worker and web server: 4 sessions of an image turn
+   and a follow-up through ``/api/chat``, every turn's events and texts,
+   the worker's 256 image tokens and linear projector, round 1 the greedy
+   tokens of the ``Generator`` on the same export with int8 weights, the
+   launches of both, every process's exit on SIGTERM; peak memory, host ms
+   a step, tokens/s, write and load seconds, TTFT and turn seconds.
 
 Phase 3 also holds both paged kernels (decode1 and general) and both flash
 backward kernels (dK/dV and dQ, at T = 2048, MHA and GQA, a padded and a
@@ -2704,19 +2731,39 @@ def _wait_status(url, proc, deadline_s):
     raise AssertionError(f"the worker did not answer /worker_get_status in {deadline_s} s")
 
 
+def _wait_registered(ctrl, name, proc, t_start, deadline_s=600):
+    """Seconds from ``t_start`` until the worker process ``proc`` lists
+    ``name`` at the controller ``ctrl``; raises if it exits first or takes
+    longer than ``deadline_s``."""
+    import requests
+
+    while name not in requests.post(ctrl + "/list_models", timeout=5).json()["models"]:
+        if proc.poll() is not None:
+            raise AssertionError(f"the worker exited with {proc.returncode} before registering")
+        if time.perf_counter() - t_start > deadline_s:
+            raise AssertionError(f"the worker did not register within {deadline_s} s")
+        time.sleep(0.25)
+    return time.perf_counter() - t_start
+
+
 def _tail(path, n=3000):
     with open(path, errors="replace") as f:
         return f.read()[-n:]
 
 
-def _ckpt_cfg():
-    """Phase 16's checkpoint: LLaVA-1.5-7B at CKPT_LAYERS layers."""
+def _llava_7b(layers):
+    """LLaVA-1.5-7B at ``layers`` of its 32 layers."""
     import dataclasses
 
     from llava_plus_torch.models.configs import LLAVA_15_7B
 
     return dataclasses.replace(LLAVA_15_7B, text=dataclasses.replace(
-        LLAVA_15_7B.text, num_hidden_layers=CKPT_LAYERS))
+        LLAVA_15_7B.text, num_hidden_layers=layers))
+
+
+def _ckpt_cfg():
+    """Phase 16's checkpoint: LLaVA-1.5-7B at CKPT_LAYERS layers."""
+    return _llava_7b(CKPT_LAYERS)
 
 
 def export_checkpoint(params, cfg=None, name=CKPT_NAME):
@@ -3865,14 +3912,7 @@ def _serve_13b_worker(smi):
                                      *argv], cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
                                     stdout=logf, stderr=subprocess.STDOUT)
         try:
-            while NAME_13B not in requests.post(ctrl + "/list_models", timeout=5).json()["models"]:
-                if proc.poll() is not None:
-                    raise AssertionError(f"the worker exited with {proc.returncode} before "
-                                         "registering")
-                if time.perf_counter() - t_start > 600:
-                    raise AssertionError("the worker did not register within 600 s")
-                time.sleep(0.25)
-            registered_s = time.perf_counter() - t_start
+            registered_s = _wait_registered(ctrl, NAME_13B, proc, t_start)
             address = requests.post(ctrl + "/get_worker_address", json={"model": NAME_13B},
                                     timeout=5).json()["address"]
             if address != url:
@@ -4375,6 +4415,19 @@ PLUS_KERNELS = {"flash_fwd": "flash", "quant_matmul[int8]": "quant",
                 "paged_attention[decode1]": "decode1", "paged_attention[general]": "general"}
 
 
+def _written_gb():
+    """GB this process has passed to ``write()`` (``/proc/self/io``'s
+    ``wchar``: files, and its few pipe and log lines; the card's machine
+    reports no ``write_bytes``): the machine ends a call that writes more
+    than 45 GiB to its disk, deleted files included."""
+    try:
+        with open("/proc/self/io") as f:
+            return next(int(line.split()[1]) for line in f
+                        if line.startswith("wchar")) / 1e9
+    except (OSError, StopIteration):
+        return float("nan")
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -4454,15 +4507,15 @@ def _stop_processes(procs):
     return codes
 
 
-def _plus_session(web, j, image, results):
-    """One session: an image turn, then a follow-up that carries it as
-    history; per turn, (send time, [(arrival time, chunk)])."""
+def _plus_session(web, j, image, results, model=PLUS_MODEL):
+    """One session with ``model``: an image turn, then a follow-up that
+    carries it as history; per turn, (send time, [(arrival time, chunk)])."""
     import requests
     from llava_plus_torch.serve.protocol import iter_chunks_requests
 
     turns, history = [], []
     for text in (t.format(j=j) for t in PLUS_TURNS):
-        body = {"model": PLUS_MODEL, "text": text, "history": history, "image": image,
+        body = {"model": model, "text": text, "history": history, "image": image,
                 "temperature": 0.0, "max_new_tokens": 64, "session_id": f"s{j}"}
         t_send = time.perf_counter()
         resp = requests.post(web + "/api/chat", json=body, stream=True, timeout=600)
@@ -4474,11 +4527,12 @@ def _plus_session(web, j, image, results):
     results[j] = turns
 
 
-def _plus_prompts(reply, image, tool_response):
-    """Every prompt the web server sends the model for the sessions'
-    turns, as the port's orchestrator builds them: ``stream_turn`` on the
-    web server's template and history, with the model answering ``reply``
-    and the tool ``tool_response`` (no process or card involved)."""
+def _plus_prompts(reply, image, tool_response, sessions=PLUS_SESSIONS, model=PLUS_MODEL):
+    """Every prompt the web server sends ``model`` for the turns of
+    ``sessions`` sessions, as the port's orchestrator builds them:
+    ``stream_turn`` on the web server's template and history, with the model
+    answering ``reply`` and the tool ``tool_response`` (no process or card
+    involved)."""
     from llava_plus_torch.conversation import conv_templates
     from llava_plus_torch.serve.orchestrator import ToolOrchestrator
 
@@ -4490,14 +4544,14 @@ def _plus_prompts(reply, image, tool_response):
 
     orch = ToolOrchestrator("")
     orch.stream_model, orch.call_tool = stream_model, lambda *args: tool_response
-    for j in range(PLUS_SESSIONS):
+    for j in range(sessions):
         history = []
         for text in (t.format(j=j) for t in PLUS_TURNS):
             conv = conv_templates["v1"].copy()
             for u, a in history:
                 conv.append_message(conv.roles[0], u)
                 conv.append_message(conv.roles[1], a)
-            for _ in orch.stream_turn(conv, PLUS_MODEL, text, image=image):
+            for _ in orch.stream_turn(conv, model, text, image=image):
                 pass
             history = [["<image>\n" + text, reply.strip()]]
     return prompts
@@ -5890,14 +5944,19 @@ def _long_turns(rng):
     return out
 
 
-TRAIN_STEPS = 2   # steps of each training phase (9, 10, 12, 13, 26)
+TRAIN_STEPS = 2   # steps of each training phase (9, 10, 12, 13, 26, 27)
 # phase 13's depth: LLaVA-1.5-7B's width at 8 of its 32 layers (its recipe,
 # QLoRA r 128, runs at a whole model's depth in phase 26, at 13B)
 QLORA_LAYERS = 8
+# phases 9 and 10's depth: LLaVA-1.5-7B's width at STAGE_LAYERS of its 32
+# layers (phase 27 runs a 7B stage 1 and a 7B stage 2 at the whole depth,
+# from a base checkpoint through the trainer's main())
+STAGE_LAYERS = 8
 
 
 def phase_train_stage1(smi):
-    """LLaVA-1.5-7B stage 1 through the port's ``train()``: the recipe of
+    """LLaVA-1.5-7B's width at STAGE_LAYERS layers in stage 1 through the
+    port's ``train()``: the recipe of
     ``scripts/v1_5/pretrain.sh`` (plain template, projector only, mlp2x_gelu,
     square images, batch 32, max length 2048, lr 1e-3, no weight decay,
     warmup 0.03, cosine, gradient checkpointing, bf16) on 64 synthetic
@@ -5907,10 +5966,10 @@ def phase_train_stage1(smi):
     ``mm_projector.bin`` keys and shapes, and the launch counts."""
     import torch
     from llava_plus_torch.data import DebugTokenizer
-    from llava_plus_torch.models.configs import LLAVA_15_7B
     from llava_plus_torch.train import train as train_lib
 
-    cfg, L = LLAVA_15_7B, LLAVA_15_7B.text.num_hidden_layers
+    cfg = _llava_7b(STAGE_LAYERS)
+    L = cfg.text.num_hidden_layers
     root = os.path.join(SMOKE_DIR, "stage1")
     rng = np.random.default_rng(4)
     data = _write_corpus(root, 32 * TRAIN_STEPS, rng, cfg.vision.image_size, lambda i: [
@@ -5918,8 +5977,8 @@ def phase_train_stage1(smi):
         {"from": "gpt", "value": _words(rng, int(rng.integers(10, 61)))}])
     before = {}
 
-    def build_model(model_args, dtype, device):
-        params = _init_llava(device)
+    def build_model(model_args, dtype, device, seed):
+        params = _init_llava(device, cfg)
         before.update({k: _fingerprints(params[k]) for k in params})
         return params, cfg, DebugTokenizer(vocab_size=cfg.text.vocab_size)
 
@@ -6072,7 +6131,8 @@ def _stage1_mesh_step(smi, params, cfg, arrays):
 
 
 def phase_train_stage2(smi):
-    """LLaVA-1.5-7B stage 2 through ``make_train_step`` with batches from
+    """LLaVA-1.5-7B's width at STAGE_LAYERS layers in stage 2 through
+    ``make_train_step`` with batches from
     the port's dataset and collator (what ``train()`` runs, without its
     final HF export): the recipe of ``scripts/v1_5/finetune.sh`` (v1
     template, language model and projector trained, lr 2e-5, no weight
@@ -6088,13 +6148,13 @@ def phase_train_stage2(smi):
     from llava_plus_torch import conversation
     from llava_plus_torch.data import ClipImageProcessor, DebugTokenizer
     from llava_plus_torch.data.dataset import DataConfig, collate_batch, make_supervised_dataset
-    from llava_plus_torch.models.configs import LLAVA_15_7B
     from llava_plus_torch.models.convert import per_layer
     from llava_plus_torch.train import step as step_lib
     from llava_plus_torch.train import train as train_lib
     from llava_plus_torch.train.optimizer import OptimizerConfig, build_optimizer
 
-    cfg, L = LLAVA_15_7B, LLAVA_15_7B.text.num_hidden_layers
+    cfg = _llava_7b(STAGE_LAYERS)
+    L = cfg.text.num_hidden_layers
     B, K, n_steps = 4, 2, TRAIN_STEPS
     root = os.path.join(SMOKE_DIR, "stage2")
     rng = np.random.default_rng(5)
@@ -6122,7 +6182,7 @@ def phase_train_stage2(smi):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    params = per_layer(_init_llava("cuda:0"))   # each layer's weights are their own leaves
+    params = per_layer(_init_llava("cuda:0", cfg))   # each layer's weights are their own leaves
     before = {k: _fingerprints(params[k]) for k in params}
     opt = build_optimizer(params, OptimizerConfig(
         learning_rate=2e-5, weight_decay=0.0, warmup_ratio=0.03, total_steps=n_steps,
@@ -6245,7 +6305,7 @@ def phase_train_mpt_stage1(smi):
         {"from": "gpt", "value": _words(rng, int(rng.integers(10, 61)))}])
     before = {}
 
-    def build_model(model_args, dtype, device):
+    def build_model(model_args, dtype, device, seed):
         params = _init_mpt_7b(device)
         before.update({k: _fingerprints(params[k]) for k in params})
         tok = DebugTokenizer(vocab_size=cfg.mpt.vocab_size)
@@ -6306,12 +6366,7 @@ def phase_train_mpt_stage1(smi):
 
 def _qlora_cfg():
     """Phase 13's model: LLaVA-1.5-7B at QLORA_LAYERS layers."""
-    import dataclasses
-
-    from llava_plus_torch.models.configs import LLAVA_15_7B
-
-    return dataclasses.replace(LLAVA_15_7B, text=dataclasses.replace(
-        LLAVA_15_7B.text, num_hidden_layers=QLORA_LAYERS))
+    return _llava_7b(QLORA_LAYERS)
 
 
 def phase_train_qlora(smi):
@@ -6346,7 +6401,7 @@ def phase_train_qlora(smi):
                          lambda i: _long_turns(rng))
     state = {}
 
-    def build_model(model_args, dtype, device):
+    def build_model(model_args, dtype, device, seed):
         params = _init_llava(device, cfg)
         state["vision_tower"] = _fingerprints(params["vision_tower"])
         state["mm_projector"] = _fingerprints(params["mm_projector"])
@@ -6530,7 +6585,7 @@ def _train_13b_recipe(smi, tag, params, cfg, bits, data, root, frozen):
     B, n_steps, r = TRAIN_13B_BATCH, TRAIN_STEPS, TRAIN_13B_RANK
     state = {}
 
-    def build_model(model_args, dtype, device):
+    def build_model(model_args, dtype, device, seed):
         return params, cfg, DebugTokenizer(vocab_size=cfg.text.vocab_size)
 
     def init_lora(lm, lora_cfg, generator):
@@ -6786,6 +6841,681 @@ def _merge_check_13b(smi, name, params, cfg, adapters, lora_cfg, bits):
 
 
 # ---------------------------------------------------------------------------
+# 27. LLaVA-Plus-7B from a base checkpoint: stage 1, the tool-use tuning,
+#     its export and a served tool turn
+# ---------------------------------------------------------------------------
+
+PLUS7B_MODEL = "llava-plus-v1.3-7b-planted"
+PLUS7B_SESSIONS = 4
+# the recipe's 16 rows a device on 8 cards, cut for one card to 4 rows with
+# gradient accumulation 2 (as phase 10 cuts finetune.sh)
+PLUS7B_BATCH, PLUS7B_ACCUM = 4, 2
+PLUS7B_WORDS = 3000      # the corpora draw their words from w0 .. w2999
+PLUS7B_TOOLS = ("grounding_dino", "sam", "easyocr", "blip2")
+STAGE1_SCRIPT = "pretrain.sh"
+PLUS_SCRIPT = "llava_plus/training_llava_plus_v1_3_7b.sh"
+
+
+def _script_argv(name, **flags):
+    """The trainer's flags in the port's launcher ``llava_plus_torch/
+    scripts/<name>`` (its shell variables expanded), each flag of ``flags``
+    (``model_name_or_path=...``) put in place of the launcher's value or
+    added after its flags; and the environment the launcher exports."""
+    import re
+    import shlex
+
+    text = open(os.path.join(HERE, "llava_plus_torch", "scripts", name)).read()
+    variables, env = {}, {}
+    for m in re.finditer(r"^(export )?(\w+)=(\S+)$", text, flags=re.M):
+        value = m.group(3).strip("\"'")
+        (env if m.group(1) else variables)[m.group(2)] = value
+    joined = re.sub(r"\\\n", " ", text)
+    cmd = next(line.strip() for line in joined.splitlines()
+               if line.strip().startswith("python -m llava_plus_torch.train.train"))
+    cmd = re.sub(r"\$\{?(\w+)\}?", lambda m: variables[m.group(1)], cmd)
+    argv = shlex.split(cmd)[3:]
+    for key, value in flags.items():
+        flag = "--" + key.replace("_", "-")
+        if flag in argv:
+            argv[argv.index(flag) + 1] = str(value)
+        else:
+            argv += [flag, str(value)]
+    return argv, env
+
+
+def _plus_corpus(root, rng, n_chat, n_tool, size):
+    """The LLaVA-Plus recipe's two datasets in two image folders, under
+    ``root``: ``chat.json``, shaped as ``llava_150k.json`` (an image and 1-3
+    question / answer pairs; images in ``coco/``), and ``plus.json``, shaped
+    as ``llava_plus_v1_117k.json`` (a request; a reply that calls a tool,
+    its ``thoughts`` / ``actions`` / ``value`` fields apart, as the dataset
+    merges them into the grammar of ``serialize_tool_turn``; the tool's
+    output in the next human turn, as the orchestrator folds it; the final
+    answer; every third record without an image; images in ``hiertext/``).
+    Returns (the ``--data-path``, the ``--image-folder``)."""
+    from PIL import Image
+
+    def words(n):
+        return " ".join(f"w{int(j)}" for j in rng.integers(0, PLUS7B_WORDS, n))
+
+    def image(folder, name):
+        os.makedirs(os.path.join(root, folder), exist_ok=True)
+        Image.fromarray(rng.integers(0, 256, (size, size, 3), dtype=np.uint8)).save(
+            os.path.join(root, folder, name), compress_level=1)
+        return name
+
+    chat = []
+    for i in range(n_chat):
+        turns = []
+        for k in range(int(rng.integers(1, 4))):
+            q = words(int(rng.integers(6, 20))) + "?"
+            turns += [{"from": "human", "value": ("<image>\n" if k == 0 else "") + q},
+                      {"from": "gpt", "value": words(int(rng.integers(20, 90))) + "."}]
+        chat.append({"id": f"chat{i}", "image": image("coco", f"c{i}.png"),
+                     "conversations": turns})
+    plus = []
+    for i in range(n_tool):
+        tool = PLUS7B_TOOLS[i % len(PLUS7B_TOOLS)]
+        request = words(int(rng.integers(4, 12))) + "?"
+        box = [round(float(x), 1) for x in rng.integers(0, 10, 4) / 10]
+        output = {"boxes": [box], "logits": [round(float(rng.integers(1, 10)) / 10, 1)],
+                  "phrases": [f"w{int(rng.integers(0, PLUS7B_WORDS))}"]}
+        rec = {"id": f"plus{i}", "conversations": [
+            {"from": "human", "value": ("<image>\n" if i % 3 else "") + request},
+            {"from": "gpt", "thoughts": words(int(rng.integers(5, 15))) + ".",
+             "actions": [{"API_name": tool, "API_params": {"caption": words(2)}}],
+             "value": words(int(rng.integers(5, 15))) + "."},
+            {"from": "human", "value": f"{tool} model outputs: {output}\n\nPlease summarize "
+                                       f"the model outputs and answer my first question: "
+                                       f"{request}"},
+            {"from": "gpt", "thoughts": words(int(rng.integers(5, 15))) + ".", "actions": [],
+             "value": words(int(rng.integers(20, 90))) + "."}]}
+        if i % 3:
+            rec["image"] = image("hiertext", f"h{i}.png")
+        plus.append(rec)
+    paths = []
+    for name, records in (("chat.json", chat), ("plus.json", plus)):
+        paths.append(os.path.join(root, name))
+        with open(paths[-1], "w") as f:
+            json.dump(records, f)
+    return ",".join(paths), ",".join(os.path.join(root, d) for d in ("coco", "hiertext"))
+
+
+def _dataset_texts(data_path, image_folder, version, size):
+    """Every text that the trainer's dataset gives its tokenizer for these
+    records under the ``version`` template: the port's own preprocessing,
+    run here with a tokenizer that records what it is given."""
+    from llava_plus_torch import conversation
+    from llava_plus_torch.data import ClipImageProcessor, DebugTokenizer
+    from llava_plus_torch.data.dataset import DataConfig, make_supervised_dataset
+
+    texts = []
+
+    class Recording(DebugTokenizer):
+        def __call__(self, text):
+            texts.append(text)
+            return super().__call__(text)
+
+    conv = conversation.conv_templates[version]
+    ds = make_supervised_dataset(
+        Recording(), DataConfig(data_path=data_path, image_folder=image_folder,
+                                conv_version=conv.version),
+        ClipImageProcessor(shortest_edge=size, crop_size=size), conv)
+    for i in range(len(ds)):
+        ds[i]
+    return texts
+
+
+def _write_base(path, lm, text_cfg, tokenizer):
+    """A plain HF LLaMA directory (``model.safetensors``, ``config.json``,
+    the tokenizer), as a base model is published: (bytes, seconds)."""
+    from safetensors.torch import save_file
+    from llava_plus_torch.train import checkpoint
+
+    t0 = time.perf_counter()
+    os.makedirs(path, exist_ok=True)
+    sd = checkpoint.llama_state_dict_from_params(lm, text_cfg)
+    save_file(sd, os.path.join(path, "model.safetensors"), metadata={"format": "pt"})
+    del sd
+    config = dict(checkpoint._llama_hf_config(text_cfg), architectures=["LlamaForCausalLM"],
+                  model_type="llama", torch_dtype="bfloat16")
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    tokenizer.save_pretrained(path)
+    return os.path.getsize(os.path.join(path, "model.safetensors")), time.perf_counter() - t0
+
+
+def _write_tower(path, tower, vision_cfg):
+    """An HF ``CLIPVisionModel`` directory (``vision_model.*`` keys and its
+    ``config.json``): (bytes, seconds)."""
+    from safetensors.torch import save_file
+    from llava_plus_torch.train import checkpoint
+
+    t0 = time.perf_counter()
+    os.makedirs(path, exist_ok=True)
+    save_file(checkpoint.clip_state_dict_from_params(tower, vision_cfg, prefix="vision_model."),
+              os.path.join(path, "model.safetensors"), metadata={"format": "pt"})
+    config = {"architectures": ["CLIPVisionModel"], "model_type": "clip_vision_model",
+              "hidden_size": vision_cfg.hidden_size,
+              "intermediate_size": vision_cfg.intermediate_size,
+              "num_hidden_layers": vision_cfg.num_hidden_layers,
+              "num_attention_heads": vision_cfg.num_attention_heads,
+              "image_size": vision_cfg.image_size, "patch_size": vision_cfg.patch_size,
+              "layer_norm_eps": vision_cfg.layer_norm_eps, "hidden_act": "quick_gelu",
+              "num_channels": 3, "projection_dim": 768, "torch_dtype": "bfloat16"}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    return os.path.getsize(os.path.join(path, "model.safetensors")), time.perf_counter() - t0
+
+
+def _layer_leaves(tree):
+    """(path, leaf) of a tree, each layer of a stacked ``layers`` leaf
+    ([L, ...], not a list's item) apart, as the trainer holds and updates
+    them."""
+    import re
+
+    for name, x in _named_leaves(tree):
+        if re.search(r"/layers/(?!\d)", name):
+            for i in range(x.shape[0]):
+                yield f"{name}[{i}]", x[i]
+        else:
+            yield name, x
+
+
+def _named_prints(tree):
+    return {name: _fingerprint(x) for name, x in _layer_leaves(tree)}
+
+
+class _TrainRecord:
+    """The ``build_model`` and ``on_step`` hooks of one ``main()`` run: the
+    trainer's own builder, the fingerprints of what it built, and each
+    step's metrics, host seconds, batch shape, non-pad tokens and wall
+    clock."""
+
+    def __init__(self, profile=False):
+        self.before, self.steps, self.matrices, self.bos = {}, [], set(), None
+        # the last step's device time by class (the device traced alone)
+        self.prof = _LastStepProfile(TRAIN_STEPS) if profile else None
+
+    def build_model(self, model_args, dtype, device, seed):
+        from llava_plus_torch.train import train as train_lib
+
+        params, cfg, tok = train_lib.build_model(model_args, dtype, device, seed)
+        self.before = {k: _named_prints(v) for k, v in params.items()}
+        self.matrices = {name for name, x in _layer_leaves(params["language_model"])
+                         if x.dim() == 2}
+        # the trainer's label masking counts on a BOS, as LLaMA's tokenizer gives
+        self.bos = tok("w1").input_ids[0] == tok.bos_token_id
+        return params, cfg, tok
+
+    def on_step(self, step, metrics, seconds, arrays):
+        tokens = int((arrays["segment_ids"] > 0).sum())
+        self.steps.append((metrics, seconds, tokens, arrays["tokens"].shape, time.time()))
+        if self.prof is not None:
+            self.prof.after(step, seconds)
+
+    def lines(self, tag):
+        for i, (m, dt, tokens, shape, _) in enumerate(self.steps, 1):
+            log(tag, f"step {i}: batch {' x '.join(str(d) for d in shape)}, {tokens} non-pad "
+                     f"tokens, loss {m['loss']:.4f}, grad_norm {m['grad_norm']:.4f}, host "
+                     f"{dt * 1e3:.1f} ms, {tokens / dt:.0f} non-pad tokens/s")
+
+
+def _trained(rec):
+    """Every step of a ``main()`` run taken, with a finite loss over a
+    nonzero count of targets, from a tokenizer that gives a BOS."""
+    return (rec.bos and len(rec.steps) == TRAIN_STEPS
+            and all(np.isfinite(m["loss"]) and m["tokens"] > 0 for m, *_ in rec.steps))
+
+
+def _worker_child():
+    """In a child process (``python3 -c "import chip_smoke;
+    chip_smoke._worker_child()" FLAGS...``): the model worker's own
+    ``main(FLAGS)``, as ``python -m llava_plus_torch.serve.model_worker``
+    runs it, with its backend's build timed; when the worker stops
+    (SIGTERM), one line ``WORKER_CHILD {json}``: the build's seconds, the
+    served config's image tokens an image and projector type, the engine's
+    prefill dispatches and decode steps and the kernels' launches after
+    the build (its warmup not counted), peak device memory and any module
+    of JAX loaded."""
+    import torch
+    from llava_plus_torch.ops import quant_matmul as qm
+    from llava_plus_torch.ops.decode_attention import decode_attention
+    from llava_plus_torch.ops.flash_attention import flash_attention
+    from llava_plus_torch.serve import model_worker
+
+    kernels = {"flash": flash_attention, "decode": decode_attention, "quant": qm.matmul_int8}
+    marks = {}
+    load_backend = model_worker.load_backend
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        backend, names = load_backend(*args, **kw)
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        engine = backend.engine
+        marks.update(build_s=time.perf_counter() - t0, backend=backend,
+                     engine0=(engine.prefill_dispatches, engine.decode_steps))
+        return backend, names
+
+    model_worker.load_backend = timed
+    model_worker.main(sys.argv[1:])
+    cuda = torch.cuda.is_initialized()
+    if cuda:
+        torch.cuda.synchronize()
+    backend = marks["backend"]
+    engine = backend.engine
+    print("WORKER_CHILD " + json.dumps({
+        "build_s": marks["build_s"], "image_tokens": backend.cfg.num_image_tokens,
+        "projector": backend.cfg.mm_projector_type,
+        "layers": backend.cfg.text.num_hidden_layers,
+        "prefill_dispatches": engine.prefill_dispatches - marks["engine0"][0],
+        "decode_steps": engine.decode_steps - marks["engine0"][1],
+        **{n: k.launches for n, k in kernels.items()},
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0,
+        "foreign": sorted(m for m in sys.modules
+                          if m.split(".")[0] in ("jax", "jaxlib", "llava_plus_tpu"))}),
+          flush=True)
+
+
+def phase_plus_7b(smi, cfg=None, device="cuda"):
+    """Phase 27: LLaVA-Plus-7B (vicuna-7b-v1.3, CLIP ViT-L/14 at 224 px,
+    a linear projector) trained from a base language model and served.
+
+    a. B, a plain HF LLaMA-7B directory (random bf16 weights from seed 0,
+       the planted decoding chain of phase 18 applied, a word-level
+       tokenizer that knows every word of both corpora and of the tool
+       turn, with a BOS as LLaMA's), and V, an HF CLIP ViT-L/14-224
+       directory (seed 1), written by the port's own exporters; free disk
+       checked first.
+    b. ``scripts/pretrain.sh`` through ``train.main`` from B with
+       ``--vision-tower V`` (the trainer builds the tower and the
+       projector): 2 steps of 32 image-caption records; the language model
+       and the tower keep their bytes (and are B's and V's), the projector
+       moves, ``mm_projector.bin``'s keys and shapes, the launches.
+    c. ``scripts/llava_plus/training_llava_plus_v1_3_7b.sh`` through
+       ``train.main`` from B and V (a fresh linear projector; the language
+       model and the projector trained; two datasets in two folders:
+       :func:`_plus_corpus`), its batch cut to PLUS7B_BATCH rows with
+       gradient accumulation PLUS7B_ACCUM, 2 steps, then the trainer's own
+       HF export, its only save (``--save-only-model``: the card's machine
+       ends a call that writes 45 GiB, and the training state is 41 GB):
+       finite losses, every language-model and projector leaf with a
+       nonzero first moment (the trainer's optimizer state, kept through a
+       wrapper of its ``build_optimizer``) and every matrix moved, the
+       tower's bytes kept, the launches, the last step's device time by
+       class; then B and V are removed.
+    d. the export served by the model worker (``--load-8bit``) in a child
+       process registered with the port's controller, with phase 18's fake
+       tool worker and web server: PLUS7B_SESSIONS sessions at once each
+       send phase 18's image turn and a follow-up through ``/api/chat``;
+       every turn's events, the planted call dispatched and both rounds'
+       texts; the worker's 256 image tokens and linear projector; round 1's
+       text the greedy tokens of the port's ``Generator`` on the same export
+       with int8 weights (built by the worker's own factory, in this
+       process); the planted chain's margins on the export, bf16 and int8;
+       the launches on both sides; every process's exit on SIGTERM.
+
+    Prints peak memory, host ms a step and non-pad tokens/s of b and c, the
+    write and load seconds of B, V, the state and the export, the worker's
+    build seconds, round-1 and round-2 TTFT and turn seconds, the chain's
+    margins. Returns the launches by kernel."""
+    import dataclasses
+    import signal
+
+    import torch
+    from llava_plus_torch.mm_utils import process_images
+    from llava_plus_torch.models import clip_vit, llama
+    from llava_plus_torch.models.builder import load_pretrained_model
+    from llava_plus_torch.models.configs import CLIP_VIT_L_224, LLAVA_15_7B
+    from llava_plus_torch.models.convert import tree_map
+    from llava_plus_torch.ops import quant_matmul as qm
+    from llava_plus_torch.ops.decode_attention import decode_attention
+    from llava_plus_torch.ops.flash_attention import flash_attention
+    from llava_plus_torch.serve import model_worker
+    from llava_plus_torch.serve.orchestrator import fold_tool_response, ToolSession
+    from llava_plus_torch.serve.tool_workers.fake_tool_worker import _canned
+    from llava_plus_torch.tools import planted
+    from llava_plus_torch.train import train as train_lib
+    from llava_plus_torch.utils.demo_assets import demo_image, demo_image_b64
+
+    # vicuna-7b-v1.3 is LLaMA-7B (LLaVA-1.5-7B's language model); the tower
+    # is CLIP ViT-L/14 at 224 px
+    cfg = cfg or dataclasses.replace(LLAVA_15_7B, vision=CLIP_VIT_L_224,
+                                     mm_projector_type="linear")
+    text_cfg, L, size = cfg.text, cfg.text.num_hidden_layers, cfg.vision.image_size
+    cuda = torch.device(device).type == "cuda"
+    root = os.path.join(SMOKE_DIR, "plus7b")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    base, tower_dir = os.path.join(root, "vicuna-7b-v1.3"), os.path.join(root, "clip-vit-l-14")
+    t_phase = time.perf_counter()
+
+    # -- a. the inputs ------------------------------------------------------
+    n_lm = sum(x.numel() for x in _leaves(llama.init_params(text_cfg, None, "meta")))
+    n_tower = sum(x.numel() for x in _leaves(clip_vit.init_params(cfg.vision, None, "meta")))
+    n_proj = cfg.mm_hidden_size * cfg.hidden_size + cfg.hidden_size
+    lm_b, tower_b, proj_b = 2 * n_lm, 2 * n_tower, 2 * n_proj
+    # on disk at once: B, V and the export; the export is the run's only
+    # save (--save-only-model: the training state, parameters
+    # and AdamW's two moments, would be another 41 GB, past what the card's
+    # machine lets a call write)
+    export_b = lm_b + tower_b + proj_b
+    need = lm_b + tower_b + export_b + 2 ** 30
+    free = shutil.disk_usage(root).free
+    log("plus7b", f"disk: {free / 1e9:.1f} GB free under {root}, {need / 1e9:.1f} GB needed "
+                  f"(B {lm_b / 1e9:.2f}, V {tower_b / 1e9:.2f}, the export "
+                  f"{export_b / 1e9:.2f} GB; {_written_gb():.1f} GB passed to write() by "
+                  f"this process so far)")
+    if free < need:
+        raise AssertionError(f"{free / 1e9:.1f} GB free on disk, phase 27 needs "
+                             f"{need / 1e9:.1f}")
+    rng = np.random.default_rng(27)
+    stage1_data = _write_corpus(os.path.join(root, "captions"), 32 * TRAIN_STEPS, rng, 256,
+                                lambda i: [{"from": "human", "value": "<image>\n"},
+                                           {"from": "gpt", "value": " ".join(
+                                               f"w{int(j)}" for j in rng.integers(
+                                                   0, PLUS7B_WORDS, int(rng.integers(8, 40))))}])
+    n_records = PLUS7B_BATCH * PLUS7B_ACCUM * TRAIN_STEPS
+    data_path, folders = _plus_corpus(os.path.join(root, "plus"), rng, n_records // 2,
+                                      n_records - n_records // 2, 256)
+    reply = planted.canned_reply()
+    image = demo_image("cat")
+    tool_response = _canned("grounding_dino", image)
+    prompts = _plus_prompts(reply, image, tool_response, sessions=PLUS7B_SESSIONS,
+                            model=PLUS7B_MODEL)
+    texts = (_dataset_texts(stage1_data, os.path.dirname(stage1_data), "plain", size)
+             + _dataset_texts(data_path, folders, "v1", size) + prompts)
+    tok = planted.tool_tokenizer(text_cfg.vocab_size, reply, texts, bos=True)
+    unknown = {w for t in texts for w in planted.unknown_words(tok, t)}
+    if unknown:
+        raise AssertionError(f"words the tokenizer does not know: {sorted(unknown)[:20]}")
+    ids = planted.chain_ids(tok, reply)
+    lm = llama.init_params(text_cfg, torch.Generator(device=device).manual_seed(0), device)
+    planted.plant_chain({"language_model": lm}, ids)
+    b_prints = _named_prints(lm)
+    b_bytes, b_write = _write_base(base, lm, text_cfg, tok)
+    del lm
+    tower = clip_vit.init_params(cfg.vision, torch.Generator(device=device).manual_seed(1),
+                                 device)
+    v_prints = _named_prints(tower)
+    v_bytes, v_write = _write_tower(tower_dir, tower, cfg.vision)
+    del tower
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    log("plus7b", f"B: a plain LLaMA-7B ({L} layers of {text_cfg.hidden_size}, FFN "
+                  f"{text_cfg.intermediate_size}, vocab {text_cfg.vocab_size}), random bf16 "
+                  f"weights with the planted chain of {len(ids) - 1} steps, "
+                  f"{b_bytes / 1e9:.2f} GB written in {b_write:.1f} s, with a tokenizer of "
+                  f"{len(tok)} words that knows all {len(texts)} texts of the corpora and the "
+                  f"tool turn; V: CLIP ViT-L/14-{size}, {v_bytes / 1e9:.2f} GB in "
+                  f"{v_write:.1f} s")
+
+    # -- b. stage 1 ---------------------------------------------------------
+    out1 = os.path.join(root, "stage1")
+    argv, _ = _script_argv(STAGE1_SCRIPT, model_name_or_path=base, data_path=stage1_data,
+                           image_folder=os.path.dirname(stage1_data), vision_tower=tower_dir,
+                           output_dir=out1, max_steps=TRAIN_STEPS, device=device)
+    rec = _TrainRecord()
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    params, got_cfg = train_lib.main(argv, build_model=rec.build_model, on_step=rec.on_step)
+    stage1_s = time.perf_counter() - t0
+    launched = _counts()
+    peak1 = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+    after = {k: _named_prints(v) for k, v in params.items()}
+    sd = torch.load(os.path.join(out1, "mm_projector.bin"), weights_only=True)
+    shapes = {k: tuple(v.shape) for k, v in sd.items()}
+    H, M = cfg.hidden_size, cfg.mm_hidden_size
+    want_shapes = {"model.mm_projector.0.weight": (H, M), "model.mm_projector.0.bias": (H,),
+                   "model.mm_projector.2.weight": (H, H), "model.mm_projector.2.bias": (H,)}
+    moved = sum(after["mm_projector"][k] != v for k, v in rec.before["mm_projector"].items())
+    want = (TRAIN_STEPS * 2 * L, TRAIN_STEPS * L, TRAIN_STEPS * L)
+    rec.lines("plus7b stage1")
+    log("plus7b", f"stage 1 ({STAGE1_SCRIPT}'s flags, --vision-tower V) through main() in "
+                  f"{stage1_s:.1f} s: the trainer built {got_cfg.num_image_tokens} image tokens "
+                  f"at {got_cfg.vision.image_size} px, select layer "
+                  f"{got_cfg.vision.select_layer}, a {got_cfg.mm_projector_type} projector "
+                  f"{M} -> {H}; its language model B's bytes "
+                  f"{rec.before['language_model'] == b_prints}, its tower V's "
+                  f"{rec.before['vision_tower'] == v_prints}; after "
+                  f"{len(rec.steps)} steps both unchanged "
+                  f"{after['language_model'] == b_prints and after['vision_tower'] == v_prints}, "
+                  f"projector leaves moved {moved} of {len(after['mm_projector'])}; "
+                  f"mm_projector.bin {shapes}; launches flash fwd/dkv/dq {launched} (want "
+                  f"{want}); peak device memory {peak1:.2f} GiB; card {smi}")
+    if (not _trained(rec) or got_cfg.vision != cfg.vision
+            or got_cfg.mm_projector_type != "mlp2x_gelu"
+            or rec.before["language_model"] != b_prints or rec.before["vision_tower"] != v_prints
+            or after["language_model"] != b_prints or after["vision_tower"] != v_prints
+            or moved != len(after["mm_projector"]) or shapes != want_shapes
+            or (cuda and launched != want)):
+        raise AssertionError("phase 27: stage 1 from the base checkpoint failed its checks")
+    del params, after, sd
+    totals = dict(zip(("flash", "dkv", "dq"), launched))
+
+    # -- c. the LLaVA-Plus tuning ----------------------------------------------
+    out2 = os.path.join(root, "tuned")
+    argv, env = _script_argv(PLUS_SCRIPT, model_name_or_path=base, data_path=data_path,
+                             image_folder=folders, vision_tower=tower_dir, output_dir=out2,
+                             per_device_train_batch_size=PLUS7B_BATCH,
+                             gradient_accumulation_steps=PLUS7B_ACCUM, max_steps=TRAIN_STEPS,
+                             save_only_model="true", device=device)
+    if env:
+        raise AssertionError(f"{PLUS_SCRIPT} exports {env}, which this phase does not set")
+    rec = _TrainRecord(profile=cuda)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    build_optimizer, states = train_lib.build_optimizer, []
+
+    def keeping_state(*args, **kwargs):
+        """The trainer's optimizer, its state kept here (updated in place)."""
+        opt = build_optimizer(*args, **kwargs)
+        init = opt.init
+        opt.init = lambda params: states.append(init(params)) or states[-1]
+        return opt
+
+    train_lib.build_optimizer = keeping_state
+    try:
+        params, got_cfg = train_lib.main(argv, build_model=rec.build_model, on_step=rec.on_step)
+    finally:
+        train_lib.build_optimizer = build_optimizer
+    stage2_s = time.perf_counter() - t0
+    launched = _counts()
+    peak2 = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+    after = {k: _named_prints(v) for k, v in params.items()}
+    mu = [m for key in ("language_model", "mm_projector") for m in states[0]["mu"][key]]
+    mu_zero, n_mu = sum(int(not bool(m.any())) for m in mu), len(mu)
+    del params, states, mu
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    export = os.path.join(out2, "hf_export")
+    # the export's end on the wall clock: its config, written after its
+    # safetensors
+    export_s = os.path.getmtime(os.path.join(export, "config.json")) - rec.steps[-1][4]
+    export_bytes = os.path.getsize(os.path.join(export, "model.safetensors"))
+    saved = sorted(os.listdir(out2))
+    shutil.rmtree(base)
+    shutil.rmtree(tower_dir)
+    unmoved = [k for k, v in rec.before["language_model"].items()
+               if after["language_model"][k] == v and k in rec.matrices]
+    moved_proj = sum(after["mm_projector"][k] != v
+                     for k, v in rec.before["mm_projector"].items())
+    want = (TRAIN_STEPS * PLUS7B_ACCUM * 2 * L, TRAIN_STEPS * PLUS7B_ACCUM * L,
+            TRAIN_STEPS * PLUS7B_ACCUM * L)
+    rec.lines("plus7b tuning")
+    if rec.prof is not None:
+        log("plus7b tuning", rec.prof.line())
+    log("plus7b", f"LLaVA-Plus tuning ({PLUS_SCRIPT}'s flags; --per-device-train-batch-size "
+                  f"{PLUS7B_BATCH} --gradient-accumulation-steps {PLUS7B_ACCUM} for the recipe's "
+                  f"16 a device on 8 cards) through main() in {stage2_s:.1f} s: the trainer "
+                  f"built a {got_cfg.mm_projector_type} projector over V "
+                  f"({got_cfg.num_image_tokens} image tokens), its tower V's bytes "
+                  f"{rec.before['vision_tower'] == v_prints}, kept "
+                  f"{after['vision_tower'] == v_prints}; "
+                  f"leaves with a zero first moment {mu_zero} of {n_mu}; language-model "
+                  f"matrices unmoved {len(unmoved)}; projector leaves moved {moved_proj} of "
+                  f"{len(after['mm_projector'])}; launches flash fwd/dkv/dq {launched} (want "
+                  f"{want}); peak device memory {peak2:.2f} GiB; the export "
+                  f"({export_bytes / 1e9:.2f} GB) written in {export_s:.1f} s, {saved} in the "
+                  f"output directory; card {smi}")
+    if (not _trained(rec) or got_cfg.vision != cfg.vision or got_cfg.mm_projector_type != "linear"
+            or rec.before["vision_tower"] != v_prints or after["vision_tower"] != v_prints
+            or mu_zero or unmoved or moved_proj != len(after["mm_projector"])
+            or saved != ["hf_export"]
+            or (cuda and launched != want)):
+        raise AssertionError("phase 27: the LLaVA-Plus tuning failed its checks")
+    totals = {k: totals[k] + n for k, n in zip(("flash", "dkv", "dq"), launched)}
+
+    # -- d. the export served: a tool turn ------------------------------------
+    with open(os.path.join(export, "config.json")) as f:
+        exported = json.load(f)
+    if (exported["mm_projector_type"] != "linear"
+            or exported["mm_vision_config"]["image_size"] != size):
+        raise AssertionError(f"the export's config names {exported['mm_projector_type']} at "
+                             f"{exported['mm_vision_config']['image_size']} px")
+    serve_root = os.path.join(root, "serve")
+    procs, ctrl, web = _plus_processes(serve_root)
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    worker_log = os.path.join(serve_root, "worker.out")
+    flags = ["--model-path", export, "--model-name", PLUS7B_MODEL, "--load-8bit",
+             "--controller-address", ctrl, "--worker-address", url, "--host", "127.0.0.1",
+             "--port", str(port), "--device", device]
+    worker, code, child = None, None, None
+    try:
+        with open(worker_log, "w") as logf:
+            t_start = time.perf_counter()
+            worker = subprocess.Popen(
+                [sys.executable, "-c", "import chip_smoke; chip_smoke._worker_child()", *flags],
+                cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), stdout=logf,
+                stderr=subprocess.STDOUT)
+        # meanwhile, here: the export loaded, the chain's margins, the
+        # Generator on the same export with the worker's int8 weights
+        t0 = time.perf_counter()
+        loaded = load_pretrained_model(export)
+        load_s = time.perf_counter() - t0
+        g_tok, g_params, g_cfg, processor, _ = loaded
+        g_params = tree_map(lambda x: x.to(device), g_params)
+        images = process_images([image], processor, g_cfg)
+        with torch.inference_mode():
+            gaps_bf16 = planted.chain_gaps(g_params, g_cfg, g_tok, prompts[0], images, ids,
+                                           device)
+        backend = model_worker.backend_for(
+            model_worker.parse_args(["--model-path", export, "--load-8bit", "--no-engine",
+                                     "--device", device]),
+            (g_tok, g_params, g_cfg, processor, loaded[4]))
+        del loaded, g_params
+        gen = backend.generator
+        with torch.inference_mode():
+            gaps_int8 = planted.chain_gaps(gen.params, g_cfg, g_tok, prompts[0], images, ids,
+                                           device)
+        flash_attention.launches = decode_attention.launches = qm.matmul_int8.launches = 0
+        g_text = ""
+        for g_text in gen.stream(prompts[0], images, max_new_tokens=64, temperature=0.0):
+            pass
+        g_ids = list(gen._last_output_ids)
+        n = len(g_ids)
+        g_launches = {"flash": flash_attention.launches, "decode": decode_attention.launches,
+                      "quant": qm.matmul_int8.launches}
+        g_want = {"flash": L, "decode": L * n, "quant": (4 * L + 1) * (n + 1)}
+        backend.stop()
+        del backend, gen
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        log("plus7b", f"the export loaded here in {load_s:.1f} s: along the chain after the "
+                      f"round-1 prompt, bf16: argmax the planted word at "
+                      f"{sum(a for a, _ in gaps_bf16)} of {len(gaps_bf16)} steps, top-2 gaps "
+                      f"min {min(g for _, g in gaps_bf16):.3f} median "
+                      f"{float(np.median([g for _, g in gaps_bf16])):.3f}; int8: "
+                      f"{sum(a for a, _ in gaps_int8)} of {len(gaps_int8)}, min "
+                      f"{min(g for _, g in gaps_int8):.3f} median "
+                      f"{float(np.median([g for _, g in gaps_int8])):.3f}; the Generator "
+                      f"(int8, the worker's factory) gave {n} tokens, launches {g_launches} "
+                      f"(want {g_want})")
+        if g_ids != ids[1:-1] or (cuda and g_launches != g_want):
+            raise AssertionError(f"phase 27: the Generator on the export gave {g_ids}, want the "
+                                 f"planted chain {ids[1:-1]}; launches {g_launches}")
+        registered_s = _wait_registered(ctrl, PLUS7B_MODEL, worker, t_start)
+        _wait_status(url, worker, 120)
+        image_b64 = demo_image_b64("cat")
+        results = [None] * PLUS7B_SESSIONS
+        threads = [threading.Thread(target=_plus_session, args=(web, j, image_b64, results),
+                                    kwargs={"model": PLUS7B_MODEL})
+                   for j in range(PLUS7B_SESSIONS)]
+        t_burst = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        burst_s = time.perf_counter() - t_burst
+        if any(r is None for r in results):
+            raise AssertionError("phase 27: a session did not complete")
+        tool_want = fold_tool_response("grounding_dino", tool_response, ToolSession())[0]
+        turns = [[_plus_turn(t_send, chunks, reply, tool_want, image.size, len(ids) - 2)
+                  for t_send, chunks in r] for r in results]
+        if any(t["r1"] != g_text.strip() for r in turns for t in r):
+            raise AssertionError("phase 27: the worker's round 1 differs from the Generator's")
+        p50 = lambda k, i: float(np.median([r[i][k] for r in turns]))
+        log("plus7b", f"worker (--load-8bit, dense engine) registered {registered_s:.1f} s after "
+                      f"its start; {PLUS7B_SESSIONS} sessions x 2 turns x 2 rounds in "
+                      f"{burst_s:.2f} s, p50 over sessions: "
+                      + "; ".join(f"turn {i + 1}: round-1 TTFT {p50('r1_ttft', i) * 1e3:.1f} ms, "
+                                  f"tool dispatch {p50('dispatch', i) * 1e3:.1f} ms, round-2 "
+                                  f"TTFT {p50('r2_ttft', i) * 1e3:.1f} ms, turn "
+                                  f"{p50('turn', i):.3f} s" for i in range(2))
+                      + "; every round-1 text the Generator's greedy tokens")
+    finally:
+        if worker is not None:
+            if worker.poll() is None:
+                worker.send_signal(signal.SIGTERM)
+            try:
+                code = worker.wait(60)
+            except subprocess.TimeoutExpired:
+                worker.kill()
+                worker.wait(30)
+        codes = _stop_processes(procs)
+        with open(worker_log) as f:
+            child = next((json.loads(line[len("WORKER_CHILD "):]) for line in f
+                          if line.startswith("WORKER_CHILD ")), None)
+    if code != 0 or child is None or any(c != 0 for c in codes.values()):
+        print(_tail(worker_log), file=sys.stderr, flush=True)
+        raise AssertionError(f"phase 27: exit codes on SIGTERM: worker {code}, {codes}")
+    dp, ds = child["prefill_dispatches"], child["decode_steps"]
+    w_launches = {k: child[k] for k in ("flash", "decode", "quant")}
+    w_want = {"flash": L * dp, "decode": L * ds, "quant": (4 * L + 1) * (dp + ds)}
+    log("plus7b", f"the worker process: built in {child['build_s']:.1f} s (load, int8, warmup), "
+                  f"{child['image_tokens']} image tokens an image, a {child['projector']} "
+                  f"projector, {child['layers']} layers; {dp} prefill dispatches, {ds} decode "
+                  f"steps, launches {w_launches} (want {w_want}); peak device memory "
+                  f"{child['peak_gib']:.2f} GiB; JAX modules {child['foreign']}; every process "
+                  f"stopped by SIGTERM with exit code 0")
+    if (child["image_tokens"] != cfg.num_image_tokens or child["projector"] != "linear"
+            or child["layers"] != L or child["foreign"]
+            or (cuda and (w_launches != w_want or min(w_launches.values()) <= 0))):
+        raise AssertionError(f"phase 27: the worker served {child}")
+    shutil.rmtree(root, ignore_errors=True)
+    log("plus7b", f"phase 27 in {time.perf_counter() - t_phase:.1f} s; card {smi}")
+    totals.update(decode=g_launches["decode"] + w_launches["decode"],
+                  quant=g_launches["quant"] + w_launches["quant"])
+    totals["flash"] += g_launches["flash"] + w_launches["flash"]
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # 14. the int4 measurement tools
 # ---------------------------------------------------------------------------
 
@@ -6872,6 +7602,9 @@ S13_KERNELS = {"flash_fwd": "flash", "decode_attention[int8]": "decode",
 # the kernels LLaVA-1.5-13B's training runs (phase 26), by their key there
 T13_KERNELS = {"flash_fwd": "flash", "flash_bwd[dkv]": "dkv", "flash_bwd[dq]": "dq",
                "quant_matmul[int4]": "int4"}
+# kernels line entry -> phase 27's count (LLaVA-Plus-7B from a base checkpoint)
+P27_KERNELS = {"flash_fwd": "flash", "flash_bwd[dkv]": "dkv", "flash_bwd[dq]": "dq",
+               "decode_attention[bf16]": "decode", "quant_matmul[int8]": "quant"}
 
 
 def main():
@@ -6898,7 +7631,8 @@ def main():
         t0 = time.perf_counter()
         result = fn(*args, **kwargs)
         seconds[phase] = round(time.perf_counter() - t0, 1)
-        log("time", f"phase {phase}: {seconds[phase]:.1f} s")
+        log("time", f"phase {phase}: {seconds[phase]:.1f} s ({_written_gb():.1f} GB passed "
+                    "to write() by this process so far)")
         return result
 
     smi = timed("1", phase_env)
@@ -6945,6 +7679,7 @@ def main():
     mpt_stage1 = timed("12", phase_train_mpt_stage1, smi)
     qlora = timed("13", phase_train_qlora, smi)
     train13 = timed("26", phase_train_13b, smi)   # LLaVA-1.5-13B LoRA, then QLoRA
+    plus7b = timed("27", phase_plus_7b, smi)      # LLaVA-Plus-7B from a base checkpoint
     tools = timed("14", phase_int4_tools)
 
     def device_times():
@@ -6972,13 +7707,15 @@ def main():
          single["flash"] + ckpt["flash"] + int8["flash"] + tp1["flash"] + int4["flash"]
          + paged["flash"] + s13["flash"]
          + spec["flash"] + plus["flash"] + evals["flash"] + predictor["flash"]
-         + stage1["flash"] + stage2["flash"] + qlora["flash"] + train13["flash"]),
+         + stage1["flash"] + stage2["flash"] + qlora["flash"] + train13["flash"]
+         + plus7b["flash"]),
         ("flash_bwd[dkv]", bwd_src, DKV_REPLACES,
-         stage1["dkv"] + stage2["dkv"] + qlora["dkv"] + train13["dkv"]),
+         stage1["dkv"] + stage2["dkv"] + qlora["dkv"] + train13["dkv"] + plus7b["dkv"]),
         ("flash_bwd[dq]", bwd_src, DQ_REPLACES,
-         stage1["dq"] + stage2["dq"] + qlora["dq"] + train13["dq"]),
+         stage1["dq"] + stage2["dq"] + qlora["dq"] + train13["dq"] + plus7b["dq"]),
         ("decode_attention[bf16]", "llava_plus_torch/csrc/decode_attention.cu",
-         DECODE_REPLACES, single["bf16"] + evals["decode"] + predictor["decode"]),
+         DECODE_REPLACES, single["bf16"] + evals["decode"] + predictor["decode"]
+         + plus7b["decode"]),
         ("decode_attention[int8]", "llava_plus_torch/csrc/decode_attention.cu",
          DECODE_REPLACES, single["int8"] + ckpt["decode"] + int8["decode"] + tp1["decode"]
          + int4["decode"] + s13["decode"]),
@@ -6986,7 +7723,7 @@ def main():
          ckpt["quant"] + int8["quant"] + tp1["int8"] + paged["quant"] + spec["quant"]
          + plus["quant"] + s13["int8"]
          + mpt["dense"]["matmul_int8"]
-         + mpt["paged"]["matmul_int8"] + narrow_lora[8][0] + tools["int8"]),
+         + mpt["paged"]["matmul_int8"] + narrow_lora[8][0] + tools["int8"] + plus7b["quant"]),
         ("quant_matmul[int4]", "llava_plus_torch/csrc/quant_matmul.cu", INT4_REPLACES,
          int4["quant"] + narrow_lora[4][0] + qlora["int4"] + tools["int4"] + s13["int4"]
          + train13["int4"]),
@@ -7030,6 +7767,10 @@ def main():
         if name in T13_KERNELS:
             # of which LLaVA-1.5-13B's LoRA and QLoRA training (phase 26)
             entries[-1]["train_13b_launches"] = train13[T13_KERNELS[name]]
+        if name in P27_KERNELS:
+            # of which LLaVA-Plus-7B's training from a base checkpoint and
+            # its served tool turn (phase 27)
+            entries[-1]["plus_7b_launches"] = plus7b[P27_KERNELS[name]]
         if name in PLUS_KERNELS:
             # of which the LLaVA-Plus tool turns (phase 18)
             entries[-1]["tool_turn_launches"] = plus[PLUS_KERNELS[name]]

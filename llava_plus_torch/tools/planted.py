@@ -50,7 +50,7 @@ def _pieces(text: str) -> List[str]:
             for w in re.findall(TOKEN_PATTERN, chunk)]
 
 
-def tool_tokenizer(vocab_size: int, reply: str, texts: Sequence[str] = ()):
+def tool_tokenizer(vocab_size: int, reply: str, texts: Sequence[str] = (), bos: bool = False):
     """A word-level ``transformers`` fast tokenizer made here (no download):
     ``<unk>``, ``<s>`` and ``</s>`` (the EOS), then :data:`START_WORD`, the
     words of ``reply`` and of the ``v1`` template's system prompt (as they
@@ -59,8 +59,10 @@ def tool_tokenizer(vocab_size: int, reply: str, texts: Sequence[str] = ()):
     word with its leading space and trailing newlines, and decoding
     concatenates tokens, so a text made of known words decodes back exactly.
     Pass the prompts a run will send as ``texts`` to leave no word of them
-    ``<unk>`` (:func:`unknown_words`)."""
-    from tokenizers import Regex, Tokenizer, decoders, models, pre_tokenizers
+    ``<unk>`` (:func:`unknown_words`). ``bos`` starts every encoding with
+    ``<s>``, as LLaMA's tokenizer does: the trainer's label masking counts
+    on it."""
+    from tokenizers import Regex, Tokenizer, decoders, models, pre_tokenizers, processors
     from transformers import PreTrainedTokenizerFast
 
     from llava_plus_torch.conversation import conv_templates
@@ -78,6 +80,9 @@ def tool_tokenizer(vocab_size: int, reply: str, texts: Sequence[str] = ()):
     core = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
     core.pre_tokenizer = pre_tokenizers.Split(Regex(TOKEN_PATTERN), behavior="isolated")
     core.decoder = decoders.Fuse()
+    if bos:
+        core.post_processor = processors.TemplateProcessing(
+            single="<s> $A", pair="<s> $A <s> $B", special_tokens=[("<s>", 1)])
     return PreTrainedTokenizerFast(tokenizer_object=core, unk_token="<unk>", bos_token="<s>",
                                    eos_token="</s>", clean_up_tokenization_spaces=False)
 

@@ -200,7 +200,9 @@ def restore_train_state(path, params_like, opt_state_like=None):
 # ---------------------------------------------------------------------------
 
 def _t(x: torch.Tensor) -> torch.Tensor:
-    return x.detach().cpu().contiguous()
+    # laid out on its own device first: a card transposes far faster than
+    # the host
+    return x.detach().contiguous().cpu()
 
 
 def _per_layer(node, path, L):

@@ -14,7 +14,11 @@ unless the caller asks for ``cpu``):
 
 Stage 1 (``--tune-mm-mlp-adapter true``) trains the projector and saves
 ``mm_projector.bin``; stage 2 trains the language model and the projector
-and saves the training state and a final HF export. The trainer holds the
+and saves the training state and a final HF export (``--save-only-model``:
+the checkpoints hold the parameters alone and the end writes the export
+alone). A text-only ``--model-name-or-path`` gets the tower and the
+projector that ``--vision-tower`` and ``--mm-projector-type`` name
+(:func:`initialize_vision_modules`). The trainer holds the
 language model per layer (``models/convert.py:per_layer``, views of the
 stacked tensors), so the stacked tree that :func:`train` returns is the
 trained one. Either backbone trains: ``--tiny-debug-arch mpt`` builds the
@@ -146,6 +150,12 @@ class TrainingArguments:
     lr_scheduler_type: str = "cosine"
     model_max_length: int = 2048
     save_steps: int = 500
+    # HF's flag: the checkpoints hold the parameters without the optimizer
+    # state (a run cannot resume from them: --resume is off) and the run's
+    # end writes only the HF export, once, as the reference's final save
+    # does; the JAX trainer always writes the whole state at the end (41 GB
+    # at 7B beside the 14 GB export)
+    save_only_model: bool = False
     logging_steps: int = 1
     group_by_modality_length: bool = False
     # batches prepared ahead on a producer thread so host work (PIL
@@ -210,11 +220,17 @@ def build_mesh(training_args: TrainingArguments):
     return make_mesh(dp, fsdp, tp, device_type=device.type), dist.get_rank(), device
 
 
-def build_model(model_args: ModelArguments, dtype: torch.dtype, device):
+def build_model(model_args: ModelArguments, dtype: torch.dtype, device, seed: int = 42):
     """(params, cfg, tokenizer) in the stacked layout on ``device``: the
     checkpoint at ``model_name_or_path`` (through the builder), or the tiny
     debug model of ``tiny_debug_arch`` (LLaMA or MPT) with random weights
-    from seed 0; then ``pretrain_mm_mlp_adapter``'s projector, if given."""
+    from seed 0; then ``pretrain_mm_mlp_adapter``'s projector, if given.
+
+    A checkpoint without a tower (a plain language model, as every recipe
+    starts from) gets the vision modules that ``vision_tower`` and
+    ``mm_projector_type`` name (:func:`initialize_vision_modules`, the
+    reference's ``initialize_vision_modules``; the JAX package's
+    ``build_model`` drops both flags there and trains no tower)."""
     from llava_plus_torch.data.debug_tokenizer import DebugTokenizer
     from llava_plus_torch.models import hf_import
     from llava_plus_torch.models import llava as llava_model
@@ -231,6 +247,8 @@ def build_model(model_args: ModelArguments, dtype: torch.dtype, device):
     else:
         tok, params, cfg, _, _ = load_pretrained_model(model_args.model_name_or_path,
                                                        dtype=dtype)
+        if model_args.vision_tower is not None and not params["vision_tower"]:
+            params, cfg = initialize_vision_modules(params, cfg, model_args, dtype, seed)
         params = tree_map(lambda x: x.to(device), params)
     if model_args.pretrain_mm_mlp_adapter:
         sd = torch.load(model_args.pretrain_mm_mlp_adapter, map_location="cpu",
@@ -240,6 +258,46 @@ def build_model(model_args: ModelArguments, dtype: torch.dtype, device):
             lambda x: x.to(device),
             hf_import.projector_params_from_state_dict(sd, cfg.mm_projector_type, dtype))
     return params, cfg, tok
+
+
+def vision_config_for_tower(name_or_path: str):
+    """The CLIP config of the tower ``name_or_path`` names: a local HF CLIP
+    directory's ``config.json``; otherwise CLIP ViT-L/14 at the size that
+    :func:`processor_for_vision_tower` gives the name (336 px for a
+    ``...-336`` tower, else 224), so the model and its processor agree."""
+    import json
+
+    from llava_plus_torch.models import hf_import
+    from llava_plus_torch.models.configs import CLIP_VIT_L_224, CLIP_VIT_L_336
+
+    config = Path(name_or_path) / "config.json"
+    if config.is_file():
+        return hf_import.clip_config_from_hf(json.loads(config.read_text()))
+    size = processor_for_vision_tower(name_or_path).crop_size
+    return CLIP_VIT_L_336 if size == CLIP_VIT_L_336.image_size else CLIP_VIT_L_224
+
+
+def initialize_vision_modules(params, cfg, model_args: ModelArguments, dtype, seed: int):
+    """The tower and the projector for a tree that has neither (the
+    reference's ``initialize_vision_modules``, ``llava_arch.py:27-82``):
+    the tower's config from :func:`vision_config_for_tower`, its
+    ``select_layer`` / ``select_feature`` from the flags; its weights from
+    the local directory, or random (seed 0) with the builder's warning; a
+    fresh ``mm_projector_type`` projector from ``seed`` (on the CPU, so the
+    values do not depend on the device), ``mm_hidden_size`` the tower's
+    width. Returns (params, cfg) on the CPU."""
+    from llava_plus_torch.models import projector
+    from llava_plus_torch.models.builder import _load_vision_tower
+
+    vision = dataclasses.replace(vision_config_for_tower(model_args.vision_tower),
+                                 select_layer=model_args.mm_vision_select_layer,
+                                 select_feature=model_args.mm_vision_select_feature)
+    cfg = dataclasses.replace(cfg, vision=vision, mm_projector_type=model_args.mm_projector_type,
+                              mm_hidden_size=vision.hidden_size)
+    tower = _load_vision_tower({"mm_vision_tower": model_args.vision_tower}, cfg, dtype)
+    proj = projector.init_params(cfg.mm_projector_type, cfg.mm_hidden_size, cfg.hidden_size,
+                                 torch.Generator().manual_seed(seed), "cpu", dtype)
+    return dict(params, vision_tower=tower, mm_projector=proj), cfg
 
 
 def _lora_step_fn(params, cfg, lora_cfg: lora_lib.LoraConfig, lora_layers, learning_rate,
@@ -341,18 +399,20 @@ def train(model_args: ModelArguments, data_args: DataArguments,
           on_step: Optional[Callable] = None):
     """Run the recipe; returns (params in the stacked layout, cfg); with
     LoRA the base as it was, and the trained adapters are what the save
-    writes. ``build_model(model_args, dtype, device) -> (params, cfg,
-    tokenizer)`` gives the initial weights, ``init_lora(lm_params, lora_cfg,
-    generator)`` the initial stacked adapters (updated in place by the
-    training); ``on_step(step, metrics, seconds, batch)``, if given, sees
-    every step's metrics (floats), its host time and the batch arrays.
+    writes. ``build_model(model_args, dtype, device, seed=) -> (params,
+    cfg, tokenizer)`` gives the initial weights (``seed`` is ``--seed``),
+    ``init_lora(lm_params, lora_cfg, generator)`` the initial stacked
+    adapters (updated in place by the training); ``on_step(step, metrics,
+    seconds, batch)``, if given, sees every step's metrics (floats), its
+    host time and the batch arrays.
     Over a mesh the parameters returned are DTensors."""
     mesh, rank, device = build_mesh(training_args)
     logger = build_logger("train", "train.log")
     if rank:
         logger.setLevel("WARNING")   # rank 0 logs
     dtype = torch.bfloat16 if training_args.bf16 else torch.float32
-    params, cfg, loaded_tokenizer = build_model(model_args, dtype, device)
+    params, cfg, loaded_tokenizer = build_model(model_args, dtype, device,
+                                                seed=training_args.seed)
     tokenizer = tokenizer or loaded_tokenizer
     if tokenizer is None:
         raise ValueError("a tokenizer is required for training")
@@ -370,11 +430,10 @@ def train(model_args: ModelArguments, data_args: DataArguments,
         mm_use_im_start_end=model_args.mm_use_im_start_end,
         conv_version=conv.version,
     )
-    if model_args.vision_tower:
-        image_processor = processor_for_vision_tower(model_args.vision_tower)
-    else:
-        image_processor = ClipImageProcessor(shortest_edge=cfg.vision.image_size,
-                                             crop_size=cfg.vision.image_size)
+    # sized by the model's own tower, which build_model made to the
+    # --vision-tower flag where the checkpoint had none
+    image_processor = ClipImageProcessor(shortest_edge=cfg.vision.image_size,
+                                         crop_size=cfg.vision.image_size)
     dataset = make_supervised_dataset(tokenizer, data_cfg, image_processor, conv)
     logger.info(f"train_dataset size: {len(dataset)}")
 
@@ -430,7 +489,8 @@ def train(model_args: ModelArguments, data_args: DataArguments,
 
     # resume --------------------------------------------------------------
     start_step = 0
-    if training_args.resume and lora_params is None:   # a LoRA run saves no state
+    if (training_args.resume and lora_params is None   # a LoRA run saves no state
+            and not training_args.save_only_model):
         latest = ckpt_lib.latest_checkpoint(training_args.output_dir)
         if latest is not None:
             state, start_step = ckpt_lib.restore_train_state(latest, params, opt_state)
@@ -544,7 +604,9 @@ def _save(params, opt_state, step, cfg, training_args, model_args, tokenizer,
                                        ckpt_lib.projector_state_dict_from_params(proj))
             cfg.save(out_dir / "config.json")
         return
-    ckpt_lib.save_train_state(out_dir, step, params, opt_state, cfg)
+    if not (final and training_args.save_only_model):
+        ckpt_lib.save_train_state(out_dir, step, params,
+                                  None if training_args.save_only_model else opt_state, cfg)
     if final:
         params = ckpt_lib.gathered(params, rank)
         if rank == 0:
@@ -574,13 +636,15 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv=None):
+def main(argv=None, **hooks):
+    """The trainer's command line; ``hooks`` (``build_model``, ``on_step``
+    ...) go to :func:`train`, whose result this returns."""
     args = build_parser().parse_args(argv)
 
     def pick(dc):
         return dc(**{f.name: getattr(args, f.name) for f in dataclasses.fields(dc)})
 
-    train(pick(ModelArguments), pick(DataArguments), pick(TrainingArguments))
+    return train(pick(ModelArguments), pick(DataArguments), pick(TrainingArguments), **hooks)
 
 
 if __name__ == "__main__":

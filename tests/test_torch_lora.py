@@ -247,7 +247,7 @@ def lora_train_against_jax(monkeypatch, corpus, tmp_path, bits, cfg=None,  # noq
         port_train.DataArguments(**data),
         port_train.TrainingArguments(output_dir=str(tmp_path / "port"), device="cpu", **kw),
         tokenizer=_tok(),
-        build_model=lambda m, dtype, device: (from_numpy(jp, device, dtype), cfg, None),
+        build_model=lambda m, dtype, device, seed: (from_numpy(jp, device, dtype), cfg, None),
         init_lora=init_lora, on_step=lambda s, m, dt, a: got.append(m))
     assert len(got) == 3
     for i, (a, b) in enumerate(zip(got, seen)):

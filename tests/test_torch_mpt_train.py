@@ -165,7 +165,7 @@ def test_mpt_train_matches_jax_train(monkeypatch, corpus, tmp_path, jparams):  #
         port_train.ModelArguments(tiny_debug_model=True, tiny_debug_arch="mpt", version="mpt"),
         port_train.DataArguments(**data),
         port_train.TrainingArguments(output_dir=str(tmp_path / "port"), device="cpu", **kw),
-        build_model=lambda m, dtype, device: (from_numpy(jparams, device, dtype),
+        build_model=lambda m, dtype, device, seed: (from_numpy(jparams, device, dtype),
                                               tiny_llava_mpt_config(), port_tok),
         on_step=lambda s, m, dt, a: got.append(m))
     assert len(got) == len(seen) == 3

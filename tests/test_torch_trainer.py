@@ -82,7 +82,7 @@ def _tok():
 
 def _from_jax(jparams):
     """A ``build_model`` that starts from the JAX package's weights."""
-    return lambda model_args, dtype, device: (from_numpy(jparams, device, dtype),
+    return lambda model_args, dtype, device, seed: (from_numpy(jparams, device, dtype),
                                               tiny_llava_config(), None)
 
 

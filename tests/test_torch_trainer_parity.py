@@ -79,7 +79,7 @@ def test_per_step_losses_match_jax_train(monkeypatch, corpus, tmp_path, recipe):
                                  image_aspect_ratio="pad"),
         port_train.TrainingArguments(**_training_kw(tmp_path / "port", kw), device="cpu"),
         tokenizer=_tok(),
-        build_model=lambda m, dtype, device: (from_numpy(jparams, device, dtype),
+        build_model=lambda m, dtype, device, seed: (from_numpy(jparams, device, dtype),
                                               tiny_llava_config(), None),
         on_step=lambda s, m, dt, a: got.append(m))
     assert len(got) == len(want) == kw.get("max_steps", 3)
