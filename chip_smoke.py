@@ -56,7 +56,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    heads (T = 768 and 2,048), the dense decode kernel at 8 and 16 slots of
    2,048 over 40 kv heads (bf16, int8), the int8 and int4 matmuls on its
    fused wqkv, wo, w_gateup, w_down and head at 1, 8, 16, 80, 768 and 3,072
-   rows, and paged decode1 at 8 and 16 slots of 32 pages (40 kv heads);
+   rows, and paged decode1 at 8 and 16 slots of 32 pages (40 kv heads); and
+   the flash forward, dK/dV and dQ at stage 1's padded length (40 heads,
+   T = 640, a padded row; phase 28's shape);
 4. a narrow LLaMA (head dim 128, GQA) on the card against the same weights
    on the CPU plain path: 16 greedy tokens, and the logits of the prefill and
    of every decode step, with bf16 weights (bf16 and int8 KV) and with fused
@@ -149,8 +151,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    16 slots) and at training shapes (the flash forward, dK/dV and dQ at 40
    heads, int4 on w_gateup and the head at 8,192 and 32,768 rows), the
    kernel alone;
-17. (run after 7, before 11) speculative serving on fresh int8 LLaVA-1.5-7B
-   weights, int8 KV: ``llava_plus_torch.tools.bench_spec``'s stream (160
+17. (run after 7, before 11) speculative serving on fresh int8 weights of
+   LLaVA-1.5-7B's width at 8 of its 32 layers (``SPEC_LAYERS``), int8 KV: ``llava_plus_torch.tools.bench_spec``'s stream (160
    repetitive words and an image, 128 greedy tokens, speculation off then
    on; acceptance > 1 required), the dense engine at 16 slots behind the
    HTTP worker with ``speculate=4`` on 8 image and 8 repetitive text
@@ -228,8 +230,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    whole run, beside phase 19's runner processes). Write and
    load times, host GB/s, the worker's first served token from its start,
    TTFT p50, tokens/s and its peak device memory;
-25. (run after 7, before 17) LLaVA-1.5-13B at full width and depth (40
-   layers), random bf16 weights: ``TorchBackend`` behind ``build_app`` with
+25. (run after 7, before 17) LLaVA-1.5-13B at full width and 10 of its 40
+   layers (``SERVE_13B_LAYERS``), random bf16 weights: ``TorchBackend`` behind ``build_app`` with
    int4 fused weights and int8 KV at 8 slots (8 image prompts at once; the
    quantization's peak device memory held to the bf16 tree plus the int4
    tree plus 2 GiB), requests one at a time through the engine and the
@@ -244,11 +246,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    llava_plus_torch.serve.controller``), 8 streams to the address
    ``/get_worker_address`` gives and one through the controller's stream
    route, both processes stopped by SIGTERM with exit code 0;
-26. (run after 13, before 14) LLaVA-1.5-13B trained at full width and depth
-   through ``train()`` on random bf16 weights: ``scripts/v1_5/
-   finetune_lora.sh`` at 13B (LoRA r 128 on the bf16 base, batch 16 at
-   max length 2048), then the same plus ``--bits 4`` on the same tree
-   quantized in place; for each, 2 steps with exact launch counts of the
+26. (run after 28, before 27) LLaVA-1.5-13B trained at full width and depth
+   through ``llava_plus_torch.train.train.main`` from phase 28's base
+   language model, tower and ``mm_projector.bin`` (``--model-name-or-path``,
+   ``--vision-tower``, ``--pretrain-mm-mlp-adapter``):
+   ``scripts/v1_5/finetune_lora.sh``'s flags (LoRA r 128 on the bf16 base,
+   batch 16 at max length 2048), then the same plus ``--bits 4`` on the
+   same tree quantized in place (the base read from disk once, for both);
+   for each, its start checked (the base's, the tower's and the stage-1
+   projector's bytes), 2 steps with exact launch counts of the
    flash forward and backward kernels and the int4 kernel and its backward,
    every adapter leaf moved, the base, tower and projector bytes kept, the
    PEFT export, the peak memory under a stated bound and the last step's
@@ -259,7 +265,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    adapters (finite, exact launches, its difference logged);
 27. (run after 26, before 14) LLaVA-Plus-7B (vicuna-7b-v1.3: LLaMA-7B;
    CLIP ViT-L/14 at 224 px; a linear projector) from a base checkpoint at
-   full width and depth: a plain HF LLaMA-7B directory (random bf16 weights
+   full width and 2 of its 32 layers (``PLUS7B_LAYERS``: the run's disk
+   and time budgets): a plain HF LLaMA directory (random bf16 weights
    with phase 18's planted chain, a word-level tokenizer with a BOS that
    knows every word of the corpora and of the tool turn) and an HF CLIP
    directory, written by the port's exporters after a check of free disk;
@@ -281,7 +288,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    the worker's 256 image tokens and linear projector, round 1 the greedy
    tokens of the ``Generator`` on the same export with int8 weights, the
    launches of both, every process's exit on SIGTERM; peak memory, host ms
-   a step, tokens/s, write and load seconds, TTFT and turn seconds.
+   a step, tokens/s, write and load seconds, TTFT and turn seconds;
+28. (run after 13, before 26) LLaVA-1.5-13B stage 1 from a base language
+   model at full width and depth: a plain HF LLaMA directory of
+   vicuna-13b-v1.5's shape (40 layers of 5,120, random bf16 weights, 26 GB)
+   and an HF CLIP ViT-L/14-336 directory, written by the port's exporters
+   after a check of free disk; ``scripts/v1_5/pretrain.sh``'s flags through
+   ``llava_plus_torch.train.train.main`` from them (the trainer builds the
+   tower and the mlp2x_gelu projector; 2 steps of 32 image captions at 336
+   px, rows of 640): every loss finite, the language model and the tower
+   the directories' bytes and kept, every projector leaf moved, the only
+   gradients the projector's and ``grad_norm`` their norm,
+   ``mm_projector.bin`` (1,024 -> 5,120 -> 5,120) bit for bit the trained
+   projector, exact launches, the peak device memory under a bound stated
+   beforehand, each step's host ms, tokens/s and peak and the last step's
+   device time by class. Its base, tower and ``mm_projector.bin`` are
+   phase 26's start.
 
 Phase 3 also holds both paged kernels (decode1 and general) and both flash
 backward kernels (dK/dV and dQ, at T = 2048, MHA and GQA, a padded and a
@@ -1481,7 +1503,9 @@ def phase_13b_kernels():
     int4 matmuls on the fused matrices and the head at ROWS_13B (beside the
     bf16 yardstick; wqkv at 16 rows also the library's weight-only
     product); paged decode1 at 8 and 16 slots of 32 pages of 128 over an
-    int8 pool. Each row against its plain version and the f64 truth by
+    int8 pool; the flash forward, dK/dV and dQ at stage 1's padded length
+    (B = 2, H = 40, T = STAGE1_13B_T, phase 28's rows; a padded row in
+    each). Each row against its plain version and the f64 truth by
     phase 3's criterion, launched twice, bit for bit. Returns, per kernel
     line, its largest error and its rows (:func:`_row`) under "13b"."""
     import torch
@@ -1515,6 +1539,15 @@ def phase_13b_kernels():
             rows["quant_matmul[int4]"].update(
                 {f"{name} R={R}": r for R, r in check_quant(
                     "int4", name, K, N, gen_train, row_counts=TRAIN_ROWS_13B).items()})
+    # phase 28's shape: stage 1's rows of an image and a caption, padded to
+    # STAGE1_13B_T (not a multiple of the kernels' 128-row tiles), on a
+    # generator of their own
+    gen_stage1 = torch.Generator(device="cuda").manual_seed(28)
+    T = STAGE1_13B_T
+    rows["flash_fwd"][f"T={T}"] = check_flash("13B stage 1", B=2, T=T, H=40, Hkv=40,
+                                              pad_tail=50, gen=gen_stage1)
+    dkv, dq = check_flash_bwd("13B stage 1", B=2, T=T, H=40, Hkv=40, gen=gen_stage1)
+    rows["flash_bwd[dkv]"][f"B=2 T={T}"], rows["flash_bwd[dq]"][f"B=2 T={T}"] = dkv, dq
     return {name: {"max_abs_err": max(r["max_abs_err"] for r in per.values()),
                    "13b": {k: _row(r) for k, r in per.items()}}
             for name, per in rows.items()}
@@ -1772,8 +1805,8 @@ def _device_times_13b(stats):
 def _device_times_13b_train(stats):
     """Phase 3's 13B training rows alone, from a seed of their own, each
     alternated with its library call or yardstick: the flash forward at
-    B = 2, H = 40, T = 768 and 2,048 (sdpa), dK/dV and dQ at T = 2,048
-    (sdpa's backward), the int4 matmul on w_gateup and the head at
+    B = 2, H = 40, T = STAGE1_13B_T, 768 and 2,048 (sdpa), dK/dV and dQ at
+    T = STAGE1_13B_T and 2,048 (sdpa's backward), the int4 matmul on w_gateup and the head at
     TRAIN_ROWS_13B (bf16 ``torch.matmul``). Adds [device ms, bound ms,
     library or yardstick device ms] by row under "13b_alone"."""
     import torch
@@ -1792,7 +1825,7 @@ def _device_times_13b_train(stats):
         stats[line].setdefault("13b_alone", {})[row] = [round(ms, 5), round(b["bound_ms"], 5),
                                                         round(lib_ms, 5)]
 
-    for T in (768, 2048):
+    for T in (768, 2048, STAGE1_13B_T):
         q, k, v = (torch.randn(B, T, H, D, generator=gen, device=dev).bfloat16()
                    for _ in range(3))
         seg = torch.ones(B, T, dtype=torch.int32, device=dev)
@@ -1805,31 +1838,32 @@ def _device_times_13b_train(stats):
                   4 * H * D * _causal_pairs(seg, True))
         add("flash_fwd", f"13B B=2 T={T}", ms, b, lib_ms, "sdpa")
         del q, k, v, qt, kt, vt
-    T = 2048
-    q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device=dev).bfloat16()
-                   for _ in range(4))
-    seg = torch.ones(B, T, dtype=torch.int32, device=dev)
-    seg[0, T - 100:] = 0
-    seg[1, T // 2:] = 2
     kw = dict(causal=True, sm_scale=scale, alibi_slopes=None)
-    out, lse = fa._launch(q, k, v, seg, seg, True, scale, None)
-    delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
-    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    g_lib = do.transpose(1, 2).contiguous()
-    pairs = _causal_pairs(seg, True)
-    # q, k, v and dO read; lse, delta and the segment ids
-    nbytes = 4 * 2 * B * T * H * D + 2 * 4 * B * H * T + 2 * 4 * B * T
-    for line, fn, names, flops, out_bytes in (
-            ("flash_bwd[dkv]", fa.flash_bwd_dkv, DKV_KERNEL, 8 * D * H * pairs,
-             2 * 2 * B * T * H * D),
-            ("flash_bwd[dq]", fa.flash_bwd_dq, DQ_KERNEL, 6 * D * H * pairs, 2 * B * T * H * D)):
-        ms, lib_ms = _alternated(
-            lambda: fn(q, k, v, do, seg, seg, lse, delta, **kw), names,
-            lambda: torch.autograd.grad(o_lib, (qt, kt, vt), g_lib, retain_graph=True))
-        add(line, "13B B=2 T=2048", ms, bound(nbytes + out_bytes, flops), lib_ms,
-            "sdpa backward (dq, dk, dv)")
-    del q, k, v, do, out, lse, delta, qt, kt, vt, o_lib, g_lib
+    for T in (2048, STAGE1_13B_T):
+        q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device=dev).bfloat16()
+                       for _ in range(4))
+        seg = torch.ones(B, T, dtype=torch.int32, device=dev)
+        seg[0, T - 100:] = 0
+        seg[1, T // 2:] = 2
+        out, lse = fa._launch(q, k, v, seg, seg, True, scale, None)
+        delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        g_lib = do.transpose(1, 2).contiguous()
+        pairs = _causal_pairs(seg, True)
+        # q, k, v and dO read; lse, delta and the segment ids
+        nbytes = 4 * 2 * B * T * H * D + 2 * 4 * B * H * T + 2 * 4 * B * T
+        for line, fn, names, flops, out_bytes in (
+                ("flash_bwd[dkv]", fa.flash_bwd_dkv, DKV_KERNEL, 8 * D * H * pairs,
+                 2 * 2 * B * T * H * D),
+                ("flash_bwd[dq]", fa.flash_bwd_dq, DQ_KERNEL, 6 * D * H * pairs,
+                 2 * B * T * H * D)):
+            ms, lib_ms = _alternated(
+                lambda: fn(q, k, v, do, seg, seg, lse, delta, **kw), names,
+                lambda: torch.autograd.grad(o_lib, (qt, kt, vt), g_lib, retain_graph=True))
+            add(line, f"13B B=2 T={T}", ms, bound(nbytes + out_bytes, flops), lib_ms,
+                "sdpa backward (dq, dk, dv)")
+        del q, k, v, do, out, lse, delta, qt, kt, vt, o_lib, g_lib
     for name, K, N in QUANT_13B_SHAPES:
         if name not in TRAIN_13B_SHAPES:
             continue
@@ -3695,16 +3729,21 @@ def serve_paged_engine(smi, params=None, cfg=None, name="llava-1.5-7b-random",
 # ---------------------------------------------------------------------------
 
 NAME_13B = "llava-v1.5-13b-random"
+# phase 25's depth: LLaVA-1.5-13B's width at SERVE_13B_LAYERS of its 40
+# layers (the run's time budget; phases 28 and 26 run the 13B at its whole
+# depth, and phase 3 checks every kernel at its shapes)
+SERVE_13B_LAYERS = 10
 # the depth of the 13B-width checkpoint the worker process serves: 2 of its
-# 40 layers, 2.6 GB of safetensors (the engines in this process run all 40)
+# 40 layers, 2.6 GB of safetensors
 WORKER_13B_LAYERS = 2
 SINGLE_13B_NEW = 24   # greedy tokens of each request sent one at a time
 SINGLE_TOL = 2e-2     # phase 4's logit bound
 
 
 def phase_serve_13b(smi):
-    """Phase 25: LLaVA-1.5-13B (40 layers of 5,120, 40 heads, FFN 13,824)
-    at full width and depth on random bf16 weights (seed 0), served as the
+    """Phase 25: LLaVA-1.5-13B (layers of 5,120, 40 heads, FFN 13,824) at
+    full width and SERVE_13B_LAYERS of its 40 layers on random bf16 weights
+    (seed 0), served as the
     JAX package serves its second configuration (``bench.py``'s
     ``llava-1.5-13b-int4``: int4 weights, int8 KV, batch 8):
 
@@ -3726,11 +3765,14 @@ def phase_serve_13b(smi):
     Each engine's decode step is timed at every slot (host ms, device
     busy). Returns the launch counts of the
     engines in this process, each checked against the engine's own counts."""
+    import dataclasses
+
     import torch
     from llava_plus_torch.models.configs import LLAVA_15_13B
 
     t_phase = time.perf_counter()
-    cfg = LLAVA_15_13B
+    cfg = dataclasses.replace(LLAVA_15_13B, text=dataclasses.replace(
+        LLAVA_15_13B.text, num_hidden_layers=SERVE_13B_LAYERS))
     gc.collect()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
@@ -3969,6 +4011,9 @@ SPEC_K = 4        # proposals a verify step: chunks of 5 tokens
 SPEC_CHUNK = 4    # verify steps a dispatch
 SPEC_NEW = 64     # tokens a request of phase 17
 SPEC_TOL = 3e-2   # phase 4's logit bound for int8 weights (2e-2 for bf16 ones)
+# phase 17's depth: LLaVA-1.5-7B's width at SPEC_LAYERS of its 32 layers (the
+# run's time budget; phases 5-7 serve the 7B at the whole depth)
+SPEC_LAYERS = 8
 
 
 def _id_tokenizer(vocab_size, bos=True):
@@ -4240,7 +4285,6 @@ def phase_speculative(smi):
     import torch
     from llava_plus_torch.data import ClipImageProcessor
     from llava_plus_torch.models import llava as llava_model
-    from llava_plus_torch.models.configs import LLAVA_15_7B
     from llava_plus_torch.ops import quant_matmul as qm
     from llava_plus_torch.ops.decode_attention import decode_attention
     from llava_plus_torch.ops.flash_attention import flash_attention
@@ -4248,21 +4292,21 @@ def phase_speculative(smi):
     from llava_plus_torch.serve.model_worker import ModelWorker, TorchBackend, build_app
     from llava_plus_torch.tools import bench_spec
 
-    cfg = LLAVA_15_7B
+    cfg = _llava_7b(SPEC_LAYERS)
     L, P = cfg.text.num_hidden_layers, 128
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    params = bench_spec.make_params("cuda:0")
-    log("spec", f"LLaVA-1.5-7B, random bf16 weights (seed 0), int8 fused, in "
-                f"{time.perf_counter() - t0:.1f} s")
+    params = bench_spec.make_params("cuda:0", cfg)
+    log("spec", f"LLaVA-1.5-7B's width at {L} layers, random bf16 weights (seed 0), int8 "
+                f"fused, in {time.perf_counter() - t0:.1f} s")
     out = {"flash": 0, "quant": 0, "decode1": 0}
     kernels = {"flash": flash_attention, "quant": qm.matmul_int8, "decode1": paged_decode1}
 
     # 1. bench_spec's shape
     runs = {}
     for mode in (0, SPEC_K):
-        runs[mode] = r = bench_spec.run(mode, 128, SPEC_CHUNK, params=params)
+        runs[mode] = r = bench_spec.run(mode, 128, SPEC_CHUNK, params=params, cfg=cfg)
         log("spec", f"bench_spec, speculate={mode}: {r['tokens']} tokens in {r['seconds']:.3f} s "
                     f"= {r['tok_s']:.1f} tokens/s (TTFT {r['ttft_s'] * 1e3:.1f} ms)"
                     + (f"; spec_acceptance {r['acceptance']:.3f} over {r['steps']} verify steps, "
@@ -5944,7 +5988,7 @@ def _long_turns(rng):
     return out
 
 
-TRAIN_STEPS = 2   # steps of each training phase (9, 10, 12, 13, 26, 27)
+TRAIN_STEPS = 2   # steps of each training phase (9, 10, 12, 13, 26, 27, 28)
 # phase 13's depth: LLaVA-1.5-7B's width at 8 of its 32 layers (its recipe,
 # QLoRA r 128, runs at a whole model's depth in phase 26, at 13B)
 QLORA_LAYERS = 8
@@ -6512,25 +6556,35 @@ MERGE_WORDS = 190
 MERGE_TOL = 2e-2
 
 
-def phase_train_13b(smi):
+def phase_train_13b(smi, start):
     """Phase 26: LLaVA-1.5-13B (40 layers of 5,120, 40 heads, FFN 13,824,
-    vocab 32,000) at full width and depth on random bf16 weights (seed 0),
-    trained through the port's ``train()`` by two recipes on one tree:
+    vocab 32,000) at full width and depth, trained through the port's
+    ``train.main`` from phase 28's ``start``: B13 (``--model-name-or-path``),
+    V336 (``--vision-tower``) and stage 1's ``mm_projector.bin``
+    (``--pretrain-mm-mlp-adapter``), by two recipes:
 
-    A. LoRA on the bf16 base: ``scripts/v1_5/finetune_lora.sh`` at 13B
-       (``--lora-enable``, r 128, alpha 256, lr 2e-4, v1 template, pad
-       aspect, modality-grouped batches, gradient checkpointing, bf16,
-       batch 16 at max length 2048);
-    B. QLoRA: the same plus ``--bits 4``, which quantizes the same tree in
-       place (the seven matrices and the head, a layer at a time) before
-       the adapters are made.
+    A. ``scripts/v1_5/finetune_lora.sh``'s flags at 13B (``--lora-enable``,
+       r 128, alpha 256, lr 2e-4, v1 template, pad aspect, modality-grouped
+       batches, gradient checkpointing, bf16, batch 16 at max length 2048);
+    B. the same plus ``--bits 4``, which quantizes the same tree in place
+       (the seven matrices and the head, a layer at a time) before the
+       adapters are made.
 
-    Each runs TRAIN_STEPS steps on 32 synthetic multi-turn image records
-    of 700 to 2048 fused tokens (:func:`_train_13b_recipe` checks each), then
-    merges its trained adapters into its base (:func:`_merge_check_13b`).
+    B13 is read from disk once, for both: the first recipe's
+    ``build_model`` is the trainer's own; the second's is the trainer's own
+    too, its loader handing back the first read's language model (already
+    on the card), so that the tower is built from V336 and the projector
+    loaded from the file again. Each run's start is checked: the language
+    model B13's bytes, the tower V336's, the projector the file's bit for
+    bit. Each runs TRAIN_STEPS steps on 32 synthetic multi-turn image
+    records of 700 to 2048 fused tokens (:func:`_train_13b_recipe` checks
+    each), then merges its trained adapters into its base
+    (:func:`_merge_check_13b`). B13 and V336 are removed at the end.
     Returns the launches of the phase by kernel."""
     import torch
+    from llava_plus_torch.models import builder
     from llava_plus_torch.models.configs import LLAVA_15_13B
+    from llava_plus_torch.train import train as train_lib
 
     t_phase = time.perf_counter()
     cfg = LLAVA_15_13B
@@ -6538,26 +6592,62 @@ def phase_train_13b(smi):
     rng = np.random.default_rng(26)
     data = _write_corpus(root, TRAIN_13B_BATCH * TRAIN_STEPS, rng, cfg.vision.image_size,
                          lambda i: _long_turns(rng))
-    gc.collect()
-    torch.cuda.empty_cache()
-    params = _init_llava("cuda:0", cfg)
-    frozen = {k: _fingerprints(params[k]) for k in ("vision_tower", "mm_projector")}
+    projector = torch.load(start["projector"], weights_only=True)
+    kept, starts = {}, []
+
+    def build_model(model_args, dtype, device, seed):
+        """The trainer's ``build_model``; B13 read by the first call only."""
+        load = builder.load_pretrained_model
+
+        def reading(path, dtype, device):
+            t0 = time.perf_counter()
+            got = load(path, dtype=dtype, device=device)
+            kept.update(tok=got[0], cfg=got[2], read_s=time.perf_counter() - t0)
+            return got
+
+        def again(path, dtype, device):
+            # the first read's language model, on the card (a text-only tree)
+            return (kept["tok"], {"language_model": kept.pop("lm"), "vision_tower": {},
+                                  "mm_projector": {}}, kept["cfg"], None, None)
+
+        builder.load_pretrained_model = again if "lm" in kept else reading
+        t0 = time.perf_counter()
+        try:
+            params, got_cfg, tok = train_lib.build_model(model_args, dtype, device, seed)
+        finally:
+            builder.load_pretrained_model = load
+        torch.cuda.synchronize()
+        kept["lm"] = params["language_model"]
+        starts.append({
+            "build_s": time.perf_counter() - t0, "read_s": kept.pop("read_s", None),
+            "base": _named_prints(params["language_model"]) == start["base_prints"],
+            "tower": _named_prints(params["vision_tower"]) == start["tower_prints"],
+            "projector": _projector_matches(projector, params["mm_projector"]),
+            "frozen": {k: _fingerprints(params[k]) for k in ("vision_tower", "mm_projector")}})
+        return params, got_cfg, tok
+
     totals = {}
     for tag, bits in (("lora", None), ("qlora", 4)):
-        for k, v in _train_13b_recipe(smi, tag, params, cfg, bits, data, root, frozen).items():
+        for k, v in _train_13b_recipe(smi, tag, cfg, bits, data, root, start, build_model,
+                                      starts).items():
             totals[k] = totals.get(k, 0) + v
-    del params
+    kept.clear()
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(start["root"], ignore_errors=True)
     log("train-13b", f"phase 26: {time.perf_counter() - t_phase:.1f} s; launches {totals}; "
-                     f"card {smi}")
+                     f"B13 and V336 removed; card {smi}")
     return totals
 
 
-def _train_13b_recipe(smi, tag, params, cfg, bits, data, root, frozen):
-    """One recipe of phase 26 on ``params`` (``bits`` None: LoRA on the
-    bf16 base; 4: QLoRA, the tree quantized in place). Checks every loss is
+def _train_13b_recipe(smi, tag, cfg, bits, data, root, start, build_model, starts):
+    """One recipe of phase 26 through ``train.main`` with
+    ``finetune_lora.sh``'s flags (``bits`` None: LoRA on the bf16 base; 4:
+    QLoRA, ``--bits 4``, the tree quantized in place), from ``start``
+    through ``build_model`` (which appends the start's checks to
+    ``starts``). Checks the start (the language model B13's bytes, the
+    tower V336's, the projector stage 1's file bit for bit), every loss is
     finite, that every adapter leaf moved and the adapters hold
     ADAPTERS_13B parameters, that the base keeps its bytes (bf16, or int4
     as quantized) and the vision tower and projector theirs, the PEFT export
@@ -6575,18 +6665,14 @@ def _train_13b_recipe(smi, tag, params, cfg, bits, data, root, frozen):
 
     import torch
     from safetensors import safe_open
-    from llava_plus_torch.data import DebugTokenizer
     from llava_plus_torch.ops import quant_matmul as qm
     from llava_plus_torch.train import lora as lora_lib
     from llava_plus_torch.train import train as train_lib
 
     L, D = cfg.text.num_hidden_layers, cfg.hidden_size
     F = cfg.text.intermediate_size
-    B, n_steps, r = TRAIN_13B_BATCH, TRAIN_STEPS, TRAIN_13B_RANK
+    n_steps, r = TRAIN_STEPS, TRAIN_13B_RANK
     state = {}
-
-    def build_model(model_args, dtype, device, seed):
-        return params, cfg, DebugTokenizer(vocab_size=cfg.text.vocab_size)
 
     def init_lora(lm, lora_cfg, generator):
         # the base the adapters are made on (int4 already with --bits 4)
@@ -6599,40 +6685,52 @@ def _train_13b_recipe(smi, tag, params, cfg, bits, data, root, frozen):
 
     def on_step(step, metrics, seconds, arrays):
         tokens = int((arrays["segment_ids"] > 0).sum())
-        # the peak since the last step's report (the first: since the
-        # quantization and the adapters were made)
+        # the peak since the last step's report (the first: since the run
+        # began, the base's build, quantization and adapters included)
         peak = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         steps.append((metrics, seconds, tokens, arrays["tokens"].shape, peak))
         prof.after(step, seconds)
         state["t_steps"] = time.perf_counter()
 
+    out = os.path.join(root, f"out_{tag}")
+    flags = dict(model_name_or_path=start["base"], vision_tower=start["tower"],
+                 pretrain_mm_mlp_adapter=start["projector"], data_path=data, image_folder=root,
+                 output_dir=out, max_steps=n_steps, device="cuda")
+    argv, env = _script_argv(LORA_13B_SCRIPT, **flags, **({"bits": bits} if bits else {}))
+    want_recipe = {"per-device-train-batch-size": TRAIN_13B_BATCH,
+                   "model-max-length": TRAIN_13B_LEN, "lora-r": r, "lora-alpha": 2 * r,
+                   "learning-rate": TRAIN_13B_LR, "version": "v1", "image-aspect-ratio": "pad",
+                   "group-by-modality-length": "true"}
+    recipe = {k: type(v)(argv[argv.index(f"--{k}") + 1]) for k, v in want_recipe.items()}
+    if env or recipe != want_recipe:
+        raise AssertionError(f"{LORA_13B_SCRIPT} no longer gives phase 26's recipe: {recipe}, "
+                             f"{env}")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    out = os.path.join(root, f"out_{tag}")
     t0 = time.perf_counter()
-    train_lib.train(
-        train_lib.ModelArguments(version="v1"),
-        train_lib.DataArguments(data_path=data, image_folder=root, image_aspect_ratio="pad"),
-        train_lib.TrainingArguments(output_dir=out, per_device_train_batch_size=B,
-                                    max_steps=n_steps, model_max_length=TRAIN_13B_LEN,
-                                    learning_rate=TRAIN_13B_LR, mm_projector_lr=2e-5,
-                                    weight_decay=0.0, warmup_ratio=0.03,
-                                    lr_scheduler_type="cosine", gradient_checkpointing=True,
-                                    bf16=True, group_by_modality_length=True, lora_enable=True,
-                                    bits=bits or 16, lora_r=r, lora_alpha=2 * r,
-                                    save_steps=1000, device="cuda"),
-        build_model=build_model, init_lora=init_lora, on_step=on_step)
+    params, got_cfg = train_lib.main(argv, build_model=build_model, init_lora=init_lora,
+                                     on_step=on_step)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     seconds = t_end - t0
+    began = starts[-1]
     peak = max([p for *_, p in steps] + [torch.cuda.max_memory_allocated()]) / 2 ** 30
     flash = _counts()
     q = (qm.matmul_int4.launches, qm.matmul_int4.backward_calls)
     other = qm.matmul_int8.launches + qm.matmul_int8.backward_calls
     name = "QLoRA int4" if bits else "LoRA bf16"
+    read = (f"B13 read from disk in {began['read_s']:.1f} s" if began["read_s"] is not None
+            else "B13 as the first recipe read it")
+    log("train-13b", f"{name} through main() ({LORA_13B_SCRIPT}'s flags"
+                     f"{' --bits 4' if bits else ''}): the start built in "
+                     f"{began['build_s']:.1f} s ({read}, the tower from V336, the projector "
+                     f"from stage 1's file); its language model B13's bytes {began['base']}, "
+                     f"its tower V336's {began['tower']}, its projector the file's bit for bit "
+                     f"{began['projector']}; {got_cfg.num_image_tokens} image tokens at "
+                     f"{got_cfg.vision.image_size} px, a {got_cfg.mm_projector_type} projector")
     for i, (m, dt, tokens, shape, p) in enumerate(steps, 1):
         log("train-13b", f"{name} step {i}: batch {shape[0]} x {shape[1]}, {tokens} non-pad "
                          f"tokens, loss {m['loss']:.4f}, adapter grad_norm {m['grad_norm']:.4f}, "
@@ -6647,7 +6745,7 @@ def _train_13b_recipe(smi, tag, params, cfg, bits, data, root, frozen):
     wq = state.pop("lm")["layers"]["attn"]["wq"]
     kind = ("int4" if isinstance(wq, dict) and "qvalue4" in wq else
             "bf16" if torch.is_tensor(wq) and wq.dtype == torch.bfloat16 else "other")
-    kept = {k: _fingerprints(params[k]) == v for k, v in frozen.items()}
+    kept = {k: _fingerprints(params[k]) == v for k, v in began["frozen"].items()}
     with safe_open(os.path.join(out, "adapter_model.safetensors"), "pt") as f:
         shapes = {k: f.get_slice(k).get_shape() for k in f.keys()}
     shapes_ok = all(v[0 if k.endswith("lora_A.weight") else 1] == r for k, v in shapes.items())
@@ -6657,26 +6755,29 @@ def _train_13b_recipe(smi, tag, params, cfg, bits, data, root, frozen):
     want_flash = (n_steps * 2 * L, n_steps * L, n_steps * L)
     want_q = (n_steps * (2 * 7 * L + 1), n_steps * (7 * L + 1 - 3)) if bits else (0, 0)
     limit = TRAIN_13B_PEAK_GIB[tag]
-    log("train-13b", f"{name}: {len(steps)} steps in {seconds:.1f} s (with the "
+    log("train-13b", f"{name}: {len(steps)} steps in {seconds:.1f} s (with the start, the "
                      f"{'quantization, ' if bits else ''}data and the profile; the export "
                      f"{t_end - state['t_steps']:.1f} s of them); "
                      f"adapters {n_adapter:,} parameters (want {ADAPTERS_13B:,}), leaves unmoved "
                      f"{unmoved} of {len(ad_after)}; base {kind}, its bytes unchanged "
                      f"{base_same}; vision tower / projector bytes unchanged {kept}; export: "
                      f"{n_sd} adapter tensors (rank {r}: {shapes_ok}), {n_export:,} parameters, "
-                     f"non_lora_trainables {sorted(extra)}; launches flash fwd/dkv/dq {flash} "
-                     f"(want {want_flash}); int4 kernel forward launches / backward calls {q} "
-                     f"(want {want_q}), int8 {other}; peak device memory {peak:.2f} GiB (bound "
-                     f"{limit:.1f}); card {smi}")
-    if (len(steps) != n_steps or not all(np.isfinite(m["loss"]) for m, *_ in steps) or unmoved
-            or n_adapter != ADAPTERS_13B or L * r * (11 * D + 3 * F) != ADAPTERS_13B
+                     f"non_lora_trainables {sorted(extra)} (stage 1's projector bit for bit "
+                     f"{_projector_matches(extra, params['mm_projector'])}); launches flash "
+                     f"fwd/dkv/dq {flash} (want {want_flash}); int4 kernel forward launches / "
+                     f"backward calls {q} (want {want_q}), int8 {other}; peak device memory "
+                     f"{peak:.2f} GiB (bound {limit:.1f}); card {smi}")
+    if (not (began["base"] and began["tower"] and began["projector"])
+            or got_cfg.vision != cfg.vision or got_cfg.mm_projector_type != cfg.mm_projector_type
+            or len(steps) != n_steps or not all(np.isfinite(m["loss"]) for m, *_ in steps)
+            or unmoved or n_adapter != ADAPTERS_13B or L * r * (11 * D + 3 * F) != ADAPTERS_13B
             or kind != ("int4" if bits else "bf16") or not base_same or not all(kept.values())
             or n_sd != 2 * 7 * L or not shapes_ok or n_export != ADAPTERS_13B
-            or len(extra) != 4 or flash != want_flash or q != want_q or other
-            or peak > limit):
+            or len(extra) != 4 or not _projector_matches(extra, params["mm_projector"])
+            or flash != want_flash or q != want_q or other or peak > limit):
         raise AssertionError(f"LLaVA-1.5-13B {name} failed its checks")
-    merged = _merge_check_13b(smi, name, params, cfg, ad, lora_lib.LoraConfig(r=r, alpha=2 * r),
-                              bits)
+    merged = _merge_check_13b(smi, name, params, got_cfg, ad,
+                              lora_lib.LoraConfig(r=r, alpha=2 * r), bits)
     return {"flash": flash[0] + merged["flash"], "dkv": flash[1], "dq": flash[2],
             "int4": q[0] + merged["int4"], "int4_backward": q[1]}
 
@@ -6851,6 +6952,10 @@ PLUS7B_SESSIONS = 4
 # gradient accumulation 2 (as phase 10 cuts finetune.sh)
 PLUS7B_BATCH, PLUS7B_ACCUM = 4, 2
 PLUS7B_WORDS = 3000      # the corpora draw their words from w0 .. w2999
+# phase 27's depth: LLaMA-7B's width at PLUS7B_LAYERS of its 32 layers (the
+# run's 45 GiB of writes: B, the export and phase 28's 26 GB base; phase 28
+# trains and phase 26 tunes a base at a whole model's depth, at 13B)
+PLUS7B_LAYERS = 2
 PLUS7B_TOOLS = ("grounding_dino", "sam", "easyocr", "blip2")
 STAGE1_SCRIPT = "pretrain.sh"
 PLUS_SCRIPT = "llava_plus/training_llava_plus_v1_3_7b.sh"
@@ -6966,35 +7071,65 @@ def _dataset_texts(data_path, image_folder, version, size):
     return texts
 
 
-def _write_base(path, lm, text_cfg, tokenizer):
+_SAFETENSORS_DTYPES = {"torch.bfloat16": "BF16", "torch.float16": "F16",
+                       "torch.float32": "F32", "torch.int8": "I8", "torch.int32": "I32",
+                       "torch.int64": "I64"}
+
+
+def _save_safetensors(sd, path, metadata=None):
+    """``sd`` (name -> contiguous host tensor) as one safetensors file,
+    written a tensor at a time, each dropped from ``sd`` once written: the
+    host holds no second copy of the state dict (the safetensors package
+    serializes the whole dict first on some versions: 58.7 GB resident for
+    a 26 GB base on the card's machine). Returns the bytes written."""
+    import torch
+
+    header, offset = {"__metadata__": dict(metadata or {})}, 0
+    for name, x in sd.items():
+        n = x.numel() * x.element_size()
+        header[name] = {"dtype": _SAFETENSORS_DTYPES[str(x.dtype)], "shape": list(x.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)   # the data starts 8-byte aligned
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for name in list(sd):
+            x = sd.pop(name)
+            f.write(memoryview(x.reshape(-1).view(torch.uint8).numpy()))
+    return 8 + len(raw) + offset
+
+
+def _write_base(path, lm, text_cfg, tokenizer=None):
     """A plain HF LLaMA directory (``model.safetensors``, ``config.json``,
-    the tokenizer), as a base model is published: (bytes, seconds)."""
-    from safetensors.torch import save_file
+    the tokenizer if one is given; without one the loaders take their
+    ``DebugTokenizer``), as a base model is published: (bytes, seconds)."""
     from llava_plus_torch.train import checkpoint
 
     t0 = time.perf_counter()
     os.makedirs(path, exist_ok=True)
-    sd = checkpoint.llama_state_dict_from_params(lm, text_cfg)
-    save_file(sd, os.path.join(path, "model.safetensors"), metadata={"format": "pt"})
-    del sd
+    _save_safetensors(checkpoint.llama_state_dict_from_params(lm, text_cfg),
+                      os.path.join(path, "model.safetensors"), {"format": "pt"})
     config = dict(checkpoint._llama_hf_config(text_cfg), architectures=["LlamaForCausalLM"],
                   model_type="llama", torch_dtype="bfloat16")
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(config, f, indent=2)
-    tokenizer.save_pretrained(path)
+    if tokenizer is not None:
+        tokenizer.save_pretrained(path)
     return os.path.getsize(os.path.join(path, "model.safetensors")), time.perf_counter() - t0
 
 
 def _write_tower(path, tower, vision_cfg):
     """An HF ``CLIPVisionModel`` directory (``vision_model.*`` keys and its
     ``config.json``): (bytes, seconds)."""
-    from safetensors.torch import save_file
     from llava_plus_torch.train import checkpoint
 
     t0 = time.perf_counter()
     os.makedirs(path, exist_ok=True)
-    save_file(checkpoint.clip_state_dict_from_params(tower, vision_cfg, prefix="vision_model."),
-              os.path.join(path, "model.safetensors"), metadata={"format": "pt"})
+    _save_safetensors(checkpoint.clip_state_dict_from_params(tower, vision_cfg,
+                                                             prefix="vision_model."),
+                      os.path.join(path, "model.safetensors"), {"format": "pt"})
     config = {"architectures": ["CLIPVisionModel"], "model_type": "clip_vision_model",
               "hidden_size": vision_cfg.hidden_size,
               "intermediate_size": vision_cfg.intermediate_size,
@@ -7036,6 +7171,9 @@ class _TrainRecord:
         self.before, self.steps, self.matrices, self.bos = {}, [], set(), None
         # the last step's device time by class (the device traced alone)
         self.prof = _LastStepProfile(TRAIN_STEPS) if profile else None
+        # on the card, each step's peak device memory since the last report
+        # (the first: since the run began, its load included), in GiB
+        self.peaks = []
 
     def build_model(self, model_args, dtype, device, seed):
         from llava_plus_torch.train import train as train_lib
@@ -7051,14 +7189,28 @@ class _TrainRecord:
     def on_step(self, step, metrics, seconds, arrays):
         tokens = int((arrays["segment_ids"] > 0).sum())
         self.steps.append((metrics, seconds, tokens, arrays["tokens"].shape, time.time()))
+        import torch
+
+        if torch.cuda.is_available():
+            self.peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            torch.cuda.reset_peak_memory_stats()
         if self.prof is not None:
             self.prof.after(step, seconds)
 
+    def peak_gib(self):
+        """The run's peak device memory in GiB (0 off the card)."""
+        import torch
+
+        if not torch.cuda.is_available():
+            return 0.0
+        return max(self.peaks + [torch.cuda.max_memory_allocated() / 2 ** 30])
+
     def lines(self, tag):
         for i, (m, dt, tokens, shape, _) in enumerate(self.steps, 1):
+            peak = "" if not self.peaks else f", peak device memory {self.peaks[i - 1]:.2f} GiB"
             log(tag, f"step {i}: batch {' x '.join(str(d) for d in shape)}, {tokens} non-pad "
                      f"tokens, loss {m['loss']:.4f}, grad_norm {m['grad_norm']:.4f}, host "
-                     f"{dt * 1e3:.1f} ms, {tokens / dt:.0f} non-pad tokens/s")
+                     f"{dt * 1e3:.1f} ms, {tokens / dt:.0f} non-pad tokens/s{peak}")
 
 
 def _trained(rec):
@@ -7077,7 +7229,10 @@ def _worker_child():
     served config's image tokens an image and projector type, the engine's
     prefill dispatches and decode steps and the kernels' launches after
     the build (its warmup not counted), peak device memory and any module
-    of JAX loaded."""
+    of JAX loaded. The process first imports the tokenizer's library and
+    makes the card's context, then waits until the path in
+    ``WORKER_CHILD_AFTER`` exists (the caller writes it when the checkpoint
+    is whole) before ``main``."""
     import torch
     from llava_plus_torch.ops import quant_matmul as qm
     from llava_plus_torch.ops.decode_attention import decode_attention
@@ -7101,7 +7256,20 @@ def _worker_child():
         return backend, names
 
     model_worker.load_backend = timed
-    model_worker.main(sys.argv[1:])
+    # started ahead of its checkpoint: the tokenizer's library imported and
+    # the card's context made, then wait for the file that says the
+    # checkpoint is whole
+    import transformers  # noqa: F401
+
+    after, argv = os.environ["WORKER_CHILD_AFTER"], sys.argv[1:]
+    if "--device" in argv and argv[argv.index("--device") + 1].startswith("cuda"):
+        torch.zeros(1, device=argv[argv.index("--device") + 1])
+    deadline = time.time() + 1800
+    while not os.path.exists(after):
+        if time.time() > deadline:
+            raise SystemExit(f"{after} did not appear within 1800 s")
+        time.sleep(0.2)
+    model_worker.main(argv)
     cuda = torch.cuda.is_initialized()
     if cuda:
         torch.cuda.synchronize()
@@ -7122,9 +7290,10 @@ def _worker_child():
 
 def phase_plus_7b(smi, cfg=None, device="cuda"):
     """Phase 27: LLaVA-Plus-7B (vicuna-7b-v1.3, CLIP ViT-L/14 at 224 px,
-    a linear projector) trained from a base language model and served.
+    a linear projector) trained from a base language model and served, at
+    LLaMA-7B's width and PLUS7B_LAYERS of its 32 layers by default.
 
-    a. B, a plain HF LLaMA-7B directory (random bf16 weights from seed 0,
+    a. B, a plain HF LLaMA directory (random bf16 weights from seed 0,
        the planted decoding chain of phase 18 applied, a word-level
        tokenizer that knows every word of both corpora and of the tool
        turn, with a BOS as LLaMA's), and V, an HF CLIP ViT-L/14-224
@@ -7141,7 +7310,8 @@ def phase_plus_7b(smi, cfg=None, device="cuda"):
        :func:`_plus_corpus`), its batch cut to PLUS7B_BATCH rows with
        gradient accumulation PLUS7B_ACCUM, 2 steps, then the trainer's own
        HF export, its only save (``--save-only-model``: the card's machine
-       ends a call that writes 45 GiB, and the training state is 41 GB):
+       ends a call that writes 45 GiB, and at the whole depth the training
+       state is 41 GB):
        finite losses, every language-model and projector leaf with a
        nonzero first moment (the trainer's optimizer state, kept through a
        wrapper of its ``build_optimizer``) and every matrix moved, the
@@ -7149,7 +7319,8 @@ def phase_plus_7b(smi, cfg=None, device="cuda"):
        class; then B and V are removed.
     d. the export served by the model worker (``--load-8bit``) in a child
        process registered with the port's controller, with phase 18's fake
-       tool worker and web server: PLUS7B_SESSIONS sessions at once each
+       tool worker and web server (all started before b, the worker's
+       process waiting for the export): PLUS7B_SESSIONS sessions at once each
        send phase 18's image turn and a follow-up through ``/api/chat``;
        every turn's events, the planted call dispatched and both rounds'
        texts; the worker's 256 image tokens and linear projector; round 1's
@@ -7169,7 +7340,7 @@ def phase_plus_7b(smi, cfg=None, device="cuda"):
     from llava_plus_torch.mm_utils import process_images
     from llava_plus_torch.models import clip_vit, llama
     from llava_plus_torch.models.builder import load_pretrained_model
-    from llava_plus_torch.models.configs import CLIP_VIT_L_224, LLAVA_15_7B
+    from llava_plus_torch.models.configs import CLIP_VIT_L_224
     from llava_plus_torch.models.convert import tree_map
     from llava_plus_torch.ops import quant_matmul as qm
     from llava_plus_torch.ops.decode_attention import decode_attention
@@ -7183,7 +7354,7 @@ def phase_plus_7b(smi, cfg=None, device="cuda"):
 
     # vicuna-7b-v1.3 is LLaMA-7B (LLaVA-1.5-7B's language model); the tower
     # is CLIP ViT-L/14 at 224 px
-    cfg = cfg or dataclasses.replace(LLAVA_15_7B, vision=CLIP_VIT_L_224,
+    cfg = cfg or dataclasses.replace(_llava_7b(PLUS7B_LAYERS), vision=CLIP_VIT_L_224,
                                      mm_projector_type="linear")
     text_cfg, L, size = cfg.text, cfg.text.num_hidden_layers, cfg.vision.image_size
     cuda = torch.device(device).type == "cuda"
@@ -7200,8 +7371,8 @@ def phase_plus_7b(smi, cfg=None, device="cuda"):
     lm_b, tower_b, proj_b = 2 * n_lm, 2 * n_tower, 2 * n_proj
     # on disk at once: B, V and the export; the export is the run's only
     # save (--save-only-model: the training state, parameters
-    # and AdamW's two moments, would be another 41 GB, past what the card's
-    # machine lets a call write)
+    # and AdamW's two moments, would be three times the export, 41 GB at the
+    # whole depth, past what the card's machine lets a call write)
     export_b = lm_b + tower_b + proj_b
     need = lm_b + tower_b + export_b + 2 ** 30
     free = shutil.disk_usage(root).free
@@ -7246,7 +7417,7 @@ def phase_plus_7b(smi, cfg=None, device="cuda"):
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    log("plus7b", f"B: a plain LLaMA-7B ({L} layers of {text_cfg.hidden_size}, FFN "
+    log("plus7b", f"B: a plain LLaMA of 7B's width ({L} layers of {text_cfg.hidden_size}, FFN "
                   f"{text_cfg.intermediate_size}, vocab {text_cfg.vocab_size}), random bf16 "
                   f"weights with the planted chain of {len(ids) - 1} steps, "
                   f"{b_bytes / 1e9:.2f} GB written in {b_write:.1f} s, with a tokenizer of "
@@ -7254,130 +7425,157 @@ def phase_plus_7b(smi, cfg=None, device="cuda"):
                   f"tool turn; V: CLIP ViT-L/14-{size}, {v_bytes / 1e9:.2f} GB in "
                   f"{v_write:.1f} s")
 
-    # -- b. stage 1 ---------------------------------------------------------
-    out1 = os.path.join(root, "stage1")
-    argv, _ = _script_argv(STAGE1_SCRIPT, model_name_or_path=base, data_path=stage1_data,
-                           image_folder=os.path.dirname(stage1_data), vision_tower=tower_dir,
-                           output_dir=out1, max_steps=TRAIN_STEPS, device=device)
-    rec = _TrainRecord()
-    gc.collect()
-    if cuda:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
-    t0 = time.perf_counter()
-    params, got_cfg = train_lib.main(argv, build_model=rec.build_model, on_step=rec.on_step)
-    stage1_s = time.perf_counter() - t0
-    launched = _counts()
-    peak1 = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
-    after = {k: _named_prints(v) for k, v in params.items()}
-    sd = torch.load(os.path.join(out1, "mm_projector.bin"), weights_only=True)
-    shapes = {k: tuple(v.shape) for k, v in sd.items()}
-    H, M = cfg.hidden_size, cfg.mm_hidden_size
-    want_shapes = {"model.mm_projector.0.weight": (H, M), "model.mm_projector.0.bias": (H,),
-                   "model.mm_projector.2.weight": (H, H), "model.mm_projector.2.bias": (H,)}
-    moved = sum(after["mm_projector"][k] != v for k, v in rec.before["mm_projector"].items())
-    want = (TRAIN_STEPS * 2 * L, TRAIN_STEPS * L, TRAIN_STEPS * L)
-    rec.lines("plus7b stage1")
-    log("plus7b", f"stage 1 ({STAGE1_SCRIPT}'s flags, --vision-tower V) through main() in "
-                  f"{stage1_s:.1f} s: the trainer built {got_cfg.num_image_tokens} image tokens "
-                  f"at {got_cfg.vision.image_size} px, select layer "
-                  f"{got_cfg.vision.select_layer}, a {got_cfg.mm_projector_type} projector "
-                  f"{M} -> {H}; its language model B's bytes "
-                  f"{rec.before['language_model'] == b_prints}, its tower V's "
-                  f"{rec.before['vision_tower'] == v_prints}; after "
-                  f"{len(rec.steps)} steps both unchanged "
-                  f"{after['language_model'] == b_prints and after['vision_tower'] == v_prints}, "
-                  f"projector leaves moved {moved} of {len(after['mm_projector'])}; "
-                  f"mm_projector.bin {shapes}; launches flash fwd/dkv/dq {launched} (want "
-                  f"{want}); peak device memory {peak1:.2f} GiB; card {smi}")
-    if (not _trained(rec) or got_cfg.vision != cfg.vision
-            or got_cfg.mm_projector_type != "mlp2x_gelu"
-            or rec.before["language_model"] != b_prints or rec.before["vision_tower"] != v_prints
-            or after["language_model"] != b_prints or after["vision_tower"] != v_prints
-            or moved != len(after["mm_projector"]) or shapes != want_shapes
-            or (cuda and launched != want)):
-        raise AssertionError("phase 27: stage 1 from the base checkpoint failed its checks")
-    del params, after, sd
-    totals = dict(zip(("flash", "dkv", "dq"), launched))
-
-    # -- c. the LLaVA-Plus tuning ----------------------------------------------
+    # -- the serving side, started before the training: the controller, the
+    # fake tool worker, the web server and the model worker's process, which
+    # imports its modules and takes the card while the training runs, then
+    # waits for the export (so that its start is off the phase's path)
     out2 = os.path.join(root, "tuned")
-    argv, env = _script_argv(PLUS_SCRIPT, model_name_or_path=base, data_path=data_path,
-                             image_folder=folders, vision_tower=tower_dir, output_dir=out2,
-                             per_device_train_batch_size=PLUS7B_BATCH,
-                             gradient_accumulation_steps=PLUS7B_ACCUM, max_steps=TRAIN_STEPS,
-                             save_only_model="true", device=device)
-    if env:
-        raise AssertionError(f"{PLUS_SCRIPT} exports {env}, which this phase does not set")
-    rec = _TrainRecord(profile=cuda)
-    gc.collect()
-    if cuda:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
-    t0 = time.perf_counter()
-    build_optimizer, states = train_lib.build_optimizer, []
-
-    def keeping_state(*args, **kwargs):
-        """The trainer's optimizer, its state kept here (updated in place)."""
-        opt = build_optimizer(*args, **kwargs)
-        init = opt.init
-        opt.init = lambda params: states.append(init(params)) or states[-1]
-        return opt
-
-    train_lib.build_optimizer = keeping_state
-    try:
-        params, got_cfg = train_lib.main(argv, build_model=rec.build_model, on_step=rec.on_step)
-    finally:
-        train_lib.build_optimizer = build_optimizer
-    stage2_s = time.perf_counter() - t0
-    launched = _counts()
-    peak2 = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
-    after = {k: _named_prints(v) for k, v in params.items()}
-    mu = [m for key in ("language_model", "mm_projector") for m in states[0]["mu"][key]]
-    mu_zero, n_mu = sum(int(not bool(m.any())) for m in mu), len(mu)
-    del params, states, mu
-    gc.collect()
-    if cuda:
-        torch.cuda.empty_cache()
     export = os.path.join(out2, "hf_export")
-    # the export's end on the wall clock: its config, written after its
-    # safetensors
-    export_s = os.path.getmtime(os.path.join(export, "config.json")) - rec.steps[-1][4]
-    export_bytes = os.path.getsize(os.path.join(export, "model.safetensors"))
-    saved = sorted(os.listdir(out2))
-    shutil.rmtree(base)
-    shutil.rmtree(tower_dir)
-    unmoved = [k for k, v in rec.before["language_model"].items()
-               if after["language_model"][k] == v and k in rec.matrices]
-    moved_proj = sum(after["mm_projector"][k] != v
-                     for k, v in rec.before["mm_projector"].items())
-    want = (TRAIN_STEPS * PLUS7B_ACCUM * 2 * L, TRAIN_STEPS * PLUS7B_ACCUM * L,
-            TRAIN_STEPS * PLUS7B_ACCUM * L)
-    rec.lines("plus7b tuning")
-    if rec.prof is not None:
-        log("plus7b tuning", rec.prof.line())
-    log("plus7b", f"LLaVA-Plus tuning ({PLUS_SCRIPT}'s flags; --per-device-train-batch-size "
-                  f"{PLUS7B_BATCH} --gradient-accumulation-steps {PLUS7B_ACCUM} for the recipe's "
-                  f"16 a device on 8 cards) through main() in {stage2_s:.1f} s: the trainer "
-                  f"built a {got_cfg.mm_projector_type} projector over V "
-                  f"({got_cfg.num_image_tokens} image tokens), its tower V's bytes "
-                  f"{rec.before['vision_tower'] == v_prints}, kept "
-                  f"{after['vision_tower'] == v_prints}; "
-                  f"leaves with a zero first moment {mu_zero} of {n_mu}; language-model "
-                  f"matrices unmoved {len(unmoved)}; projector leaves moved {moved_proj} of "
-                  f"{len(after['mm_projector'])}; launches flash fwd/dkv/dq {launched} (want "
-                  f"{want}); peak device memory {peak2:.2f} GiB; the export "
-                  f"({export_bytes / 1e9:.2f} GB) written in {export_s:.1f} s, {saved} in the "
-                  f"output directory; card {smi}")
-    if (not _trained(rec) or got_cfg.vision != cfg.vision or got_cfg.mm_projector_type != "linear"
-            or rec.before["vision_tower"] != v_prints or after["vision_tower"] != v_prints
-            or mu_zero or unmoved or moved_proj != len(after["mm_projector"])
-            or saved != ["hf_export"]
-            or (cuda and launched != want)):
-        raise AssertionError("phase 27: the LLaVA-Plus tuning failed its checks")
-    totals = {k: totals[k] + n for k, n in zip(("flash", "dkv", "dq"), launched)}
+    serve_root = os.path.join(root, "serve")
+    ready = os.path.join(serve_root, "export-ready")
+    procs, ctrl, web = _plus_processes(serve_root)
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    worker_log = os.path.join(serve_root, "worker.out")
+    flags = ["--model-path", export, "--model-name", PLUS7B_MODEL, "--load-8bit",
+             "--controller-address", ctrl, "--worker-address", url, "--host", "127.0.0.1",
+             "--port", str(port), "--device", device]
+    with open(worker_log, "w") as logf:
+        worker = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke._worker_child()", *flags],
+            cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE, WORKER_CHILD_AFTER=ready),
+            stdout=logf, stderr=subprocess.STDOUT)
+    try:
+        # -- b. stage 1 ---------------------------------------------------------
+        out1 = os.path.join(root, "stage1")
+        argv, _ = _script_argv(STAGE1_SCRIPT, model_name_or_path=base, data_path=stage1_data,
+                               image_folder=os.path.dirname(stage1_data), vision_tower=tower_dir,
+                               output_dir=out1, max_steps=TRAIN_STEPS, device=device)
+        rec = _TrainRecord()
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        params, got_cfg = train_lib.main(argv, build_model=rec.build_model, on_step=rec.on_step)
+        stage1_s = time.perf_counter() - t0
+        launched = _counts()
+        peak1 = rec.peak_gib()
+        after = {k: _named_prints(v) for k, v in params.items()}
+        sd = torch.load(os.path.join(out1, "mm_projector.bin"), weights_only=True)
+        shapes = {k: tuple(v.shape) for k, v in sd.items()}
+        H, M = cfg.hidden_size, cfg.mm_hidden_size
+        want_shapes = {"model.mm_projector.0.weight": (H, M), "model.mm_projector.0.bias": (H,),
+                       "model.mm_projector.2.weight": (H, H), "model.mm_projector.2.bias": (H,)}
+        moved = sum(after["mm_projector"][k] != v for k, v in rec.before["mm_projector"].items())
+        want = (TRAIN_STEPS * 2 * L, TRAIN_STEPS * L, TRAIN_STEPS * L)
+        rec.lines("plus7b stage1")
+        log("plus7b", f"stage 1 ({STAGE1_SCRIPT}'s flags, --vision-tower V) through main() in "
+                      f"{stage1_s:.1f} s: the trainer built {got_cfg.num_image_tokens} image tokens "
+                      f"at {got_cfg.vision.image_size} px, select layer "
+                      f"{got_cfg.vision.select_layer}, a {got_cfg.mm_projector_type} projector "
+                      f"{M} -> {H}; its language model B's bytes "
+                      f"{rec.before['language_model'] == b_prints}, its tower V's "
+                      f"{rec.before['vision_tower'] == v_prints}; after "
+                      f"{len(rec.steps)} steps both unchanged "
+                      f"{after['language_model'] == b_prints and after['vision_tower'] == v_prints}, "
+                      f"projector leaves moved {moved} of {len(after['mm_projector'])}; "
+                      f"mm_projector.bin {shapes}; launches flash fwd/dkv/dq {launched} (want "
+                      f"{want}); peak device memory {peak1:.2f} GiB; card {smi}")
+        if (not _trained(rec) or got_cfg.vision != cfg.vision
+                or got_cfg.mm_projector_type != "mlp2x_gelu"
+                or rec.before["language_model"] != b_prints or rec.before["vision_tower"] != v_prints
+                or after["language_model"] != b_prints or after["vision_tower"] != v_prints
+                or moved != len(after["mm_projector"]) or shapes != want_shapes
+                or (cuda and launched != want)):
+            raise AssertionError("phase 27: stage 1 from the base checkpoint failed its checks")
+        del params, after, sd
+        totals = dict(zip(("flash", "dkv", "dq"), launched))
+
+        # -- c. the LLaVA-Plus tuning ----------------------------------------------
+        argv, env = _script_argv(PLUS_SCRIPT, model_name_or_path=base, data_path=data_path,
+                                 image_folder=folders, vision_tower=tower_dir, output_dir=out2,
+                                 per_device_train_batch_size=PLUS7B_BATCH,
+                                 gradient_accumulation_steps=PLUS7B_ACCUM, max_steps=TRAIN_STEPS,
+                                 save_only_model="true", device=device)
+        if env:
+            raise AssertionError(f"{PLUS_SCRIPT} exports {env}, which this phase does not set")
+        rec = _TrainRecord(profile=cuda)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        build_optimizer, states = train_lib.build_optimizer, []
+
+        def keeping_state(*args, **kwargs):
+            """The trainer's optimizer, its state kept here (updated in place)."""
+            opt = build_optimizer(*args, **kwargs)
+            init = opt.init
+            opt.init = lambda params: states.append(init(params)) or states[-1]
+            return opt
+
+        train_lib.build_optimizer = keeping_state
+        try:
+            params, got_cfg = train_lib.main(argv, build_model=rec.build_model, on_step=rec.on_step)
+        finally:
+            train_lib.build_optimizer = build_optimizer
+        stage2_s = time.perf_counter() - t0
+        launched = _counts()
+        peak2 = rec.peak_gib()
+        after = {k: _named_prints(v) for k, v in params.items()}
+        mu = [m for key in ("language_model", "mm_projector") for m in states[0]["mu"][key]]
+        mu_zero, n_mu = sum(int(not bool(m.any())) for m in mu), len(mu)
+        del params, states, mu
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        # the export's end on the wall clock: its config, written after its
+        # safetensors
+        export_s = os.path.getmtime(os.path.join(export, "config.json")) - rec.steps[-1][4]
+        export_bytes = os.path.getsize(os.path.join(export, "model.safetensors"))
+        saved = sorted(os.listdir(out2))
+        shutil.rmtree(base)
+        shutil.rmtree(tower_dir)
+        unmoved = [k for k, v in rec.before["language_model"].items()
+                   if after["language_model"][k] == v and k in rec.matrices]
+        moved_proj = sum(after["mm_projector"][k] != v
+                         for k, v in rec.before["mm_projector"].items())
+        want = (TRAIN_STEPS * PLUS7B_ACCUM * 2 * L, TRAIN_STEPS * PLUS7B_ACCUM * L,
+                TRAIN_STEPS * PLUS7B_ACCUM * L)
+        rec.lines("plus7b tuning")
+        if rec.prof is not None:
+            log("plus7b tuning", rec.prof.line())
+        log("plus7b", f"LLaVA-Plus tuning ({PLUS_SCRIPT}'s flags; --per-device-train-batch-size "
+                      f"{PLUS7B_BATCH} --gradient-accumulation-steps {PLUS7B_ACCUM} for the recipe's "
+                      f"16 a device on 8 cards) through main() in {stage2_s:.1f} s: the trainer "
+                      f"built a {got_cfg.mm_projector_type} projector over V "
+                      f"({got_cfg.num_image_tokens} image tokens), its tower V's bytes "
+                      f"{rec.before['vision_tower'] == v_prints}, kept "
+                      f"{after['vision_tower'] == v_prints}; "
+                      f"leaves with a zero first moment {mu_zero} of {n_mu}; language-model "
+                      f"matrices unmoved {len(unmoved)}; projector leaves moved {moved_proj} of "
+                      f"{len(after['mm_projector'])}; launches flash fwd/dkv/dq {launched} (want "
+                      f"{want}); peak device memory {peak2:.2f} GiB; the export "
+                      f"({export_bytes / 1e9:.2f} GB) written in {export_s:.1f} s, {saved} in the "
+                      f"output directory; card {smi}")
+        if (not _trained(rec) or got_cfg.vision != cfg.vision or got_cfg.mm_projector_type != "linear"
+                or rec.before["vision_tower"] != v_prints or after["vision_tower"] != v_prints
+                or mu_zero or unmoved or moved_proj != len(after["mm_projector"])
+                or saved != ["hf_export"]
+                or (cuda and launched != want)):
+            raise AssertionError("phase 27: the LLaVA-Plus tuning failed its checks")
+        totals = {k: totals[k] + n for k, n in zip(("flash", "dkv", "dq"), launched)}
+
+    except BaseException:
+        worker.kill()
+        worker.wait(30)
+        _stop_processes(procs)
+        raise
+    with open(ready, "w"):
+        t_ready = time.perf_counter()
 
     # -- d. the export served: a tool turn ------------------------------------
     with open(os.path.join(export, "config.json")) as f:
@@ -7386,22 +7584,8 @@ def phase_plus_7b(smi, cfg=None, device="cuda"):
             or exported["mm_vision_config"]["image_size"] != size):
         raise AssertionError(f"the export's config names {exported['mm_projector_type']} at "
                              f"{exported['mm_vision_config']['image_size']} px")
-    serve_root = os.path.join(root, "serve")
-    procs, ctrl, web = _plus_processes(serve_root)
-    port = _free_port()
-    url = f"http://127.0.0.1:{port}"
-    worker_log = os.path.join(serve_root, "worker.out")
-    flags = ["--model-path", export, "--model-name", PLUS7B_MODEL, "--load-8bit",
-             "--controller-address", ctrl, "--worker-address", url, "--host", "127.0.0.1",
-             "--port", str(port), "--device", device]
-    worker, code, child = None, None, None
+    code, child = None, None
     try:
-        with open(worker_log, "w") as logf:
-            t_start = time.perf_counter()
-            worker = subprocess.Popen(
-                [sys.executable, "-c", "import chip_smoke; chip_smoke._worker_child()", *flags],
-                cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), stdout=logf,
-                stderr=subprocess.STDOUT)
         # meanwhile, here: the export loaded, the chain's margins, the
         # Generator on the same export with the worker's int8 weights
         t0 = time.perf_counter()
@@ -7449,7 +7633,7 @@ def phase_plus_7b(smi, cfg=None, device="cuda"):
         if g_ids != ids[1:-1] or (cuda and g_launches != g_want):
             raise AssertionError(f"phase 27: the Generator on the export gave {g_ids}, want the "
                                  f"planted chain {ids[1:-1]}; launches {g_launches}")
-        registered_s = _wait_registered(ctrl, PLUS7B_MODEL, worker, t_start)
+        registered_s = _wait_registered(ctrl, PLUS7B_MODEL, worker, t_ready)
         _wait_status(url, worker, 120)
         image_b64 = demo_image_b64("cat")
         results = [None] * PLUS7B_SESSIONS
@@ -7470,8 +7654,9 @@ def phase_plus_7b(smi, cfg=None, device="cuda"):
         if any(t["r1"] != g_text.strip() for r in turns for t in r):
             raise AssertionError("phase 27: the worker's round 1 differs from the Generator's")
         p50 = lambda k, i: float(np.median([r[i][k] for r in turns]))
-        log("plus7b", f"worker (--load-8bit, dense engine) registered {registered_s:.1f} s after "
-                      f"its start; {PLUS7B_SESSIONS} sessions x 2 turns x 2 rounds in "
+        log("plus7b", f"worker (--load-8bit, dense engine; its process started with the "
+                      f"training) registered {registered_s:.1f} s after the export was ready; "
+                      f"{PLUS7B_SESSIONS} sessions x 2 turns x 2 rounds in "
                       f"{burst_s:.2f} s, p50 over sessions: "
                       + "; ".join(f"turn {i + 1}: round-1 TTFT {p50('r1_ttft', i) * 1e3:.1f} ms, "
                                   f"tool dispatch {p50('dispatch', i) * 1e3:.1f} ms, round-2 "
@@ -7513,6 +7698,249 @@ def phase_plus_7b(smi, cfg=None, device="cuda"):
                   quant=g_launches["quant"] + w_launches["quant"])
     totals["flash"] += g_launches["flash"] + w_launches["flash"]
     return totals
+
+
+# ---------------------------------------------------------------------------
+# 28. LLaVA-1.5-13B stage 1 from a base language model
+# ---------------------------------------------------------------------------
+
+# LLaVA-1.5-13B's recipes, run from phase 28's base and tower: stage 1, then
+# LoRA and QLoRA (phase 26) over its mm_projector.bin
+PRETRAIN_13B_SCRIPT = "v1_5/pretrain.sh"
+LORA_13B_SCRIPT = "v1_5/finetune_lora.sh"
+# stage 1's rows at 336 px: 576 image tokens, BOS, a newline and a caption of
+# 10-60 words (590-640 fused tokens), padded to a multiple of 64
+STAGE1_13B_T = 640
+# the peak device memory phase 28 is held under (GiB of the card's 79.6),
+# written before its first run: the bf16 base 24.25 and tower 0.57, 40 remat
+# checkpoints of 32 x 640 x 5,120 bf16 (7.8), the f32 logits' copies (~7.3)
+# and one layer's recompute
+STAGE1_13B_PEAK_GIB = 48.0
+
+
+def _host_peak_gb():
+    """This process's peak resident memory so far, in GB (``ru_maxrss``,
+    KiB on Linux)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def _projector_matches(sd, proj):
+    """A projector state dict (``mm_projector.bin``, or the projector in
+    ``non_lora_trainables.bin``) holds the projector tree ``proj``'s values
+    bit for bit: every ``model.mm_projector.<2i>`` weight the transpose of
+    layer i's ``w`` and its bias ``b``, whatever the file's float type."""
+    import torch
+
+    layers = proj["layers"]
+    if len(sd) != 2 * len(layers):
+        return False
+    for i, lay in enumerate(layers):
+        for name, x in (("weight", lay["w"].T), ("bias", lay["b"])):
+            got = sd.get(f"model.mm_projector.{2 * i}.{name}")
+            if got is None or not torch.equal(got.float(), x.float().cpu()):
+                return False
+    return True
+
+
+def phase_pretrain_13b(smi, cfg=None, device="cuda"):
+    """Phase 28: ``scripts/v1_5/pretrain.sh`` at LLaVA-1.5-13B (40 layers of
+    5,120, 40 heads, FFN 13,824, vocab 32,000; CLIP ViT-L/14 at 336 px; an
+    mlp2x_gelu projector) from a base language model, at full width and
+    depth.
+
+    a. B13, a plain HF LLaMA directory of vicuna-13b-v1.5's shape (random
+       bf16 weights from seed 0, 26 GB; no tokenizer files, so the loaders
+       take their ``DebugTokenizer``, which gives a BOS), and V336, an HF
+       CLIP ViT-L/14-336 directory (seed 1), written by the port's exporters
+       after a check of free disk (B13, V336 and phase 26's two adapter
+       exports lie on disk at once): each write's bytes and seconds, the
+       host's peak resident memory.
+    b. The script's flags through ``train.main`` with
+       ``--model-name-or-path B13 --vision-tower V336``: the trainer loads
+       B13, builds the tower and a fresh projector; 2 steps of 32 image
+       captions at 336 px (rows of STAGE1_13B_T). Checks: every loss
+       finite; the language model and the tower are B13's and V336's bytes
+       and keep them, and none of their leaves holds or takes a gradient;
+       every projector leaf moved; each step differentiates the projector
+       alone and its ``grad_norm`` is those gradients' norm (the trainer's
+       ``grads_and_metrics`` observed); ``mm_projector.bin`` has
+       mlp2x_gelu's keys and shapes and holds the trained projector bit for
+       bit, and reads back through the ``--pretrain-mm-mlp-adapter`` path
+       in bf16 and f32; the launches exact (flash forward 2 x 40 a step,
+       remat; dK/dV and dQ 40; no int8 or int4); the peak device memory under
+       STAGE1_13B_PEAK_GIB. Logs each step's host ms, non-pad tokens/s and
+       peak, and the last step's device time by class.
+
+    Returns the launches by kernel and, under "start", what phase 26 starts
+    from: B13's and V336's paths and fingerprints, ``mm_projector.bin``'s
+    path and the directory that holds them (removed by phase 26)."""
+    import torch
+    from llava_plus_torch.models import clip_vit, hf_import, llama
+    from llava_plus_torch.models.configs import LLAVA_15_13B
+    from llava_plus_torch.ops import quant_matmul as qm
+    from llava_plus_torch.train import optimizer as opt_lib
+    from llava_plus_torch.train import step as step_lib
+    from llava_plus_torch.train import train as train_lib
+
+    cfg = cfg or LLAVA_15_13B
+    text_cfg, L, size = cfg.text, cfg.text.num_hidden_layers, cfg.vision.image_size
+    D, F = cfg.hidden_size, text_cfg.intermediate_size
+    cuda = torch.device(device).type == "cuda"
+    root = os.path.join(SMOKE_DIR, "pretrain_13b")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    base = os.path.join(root, "vicuna-13b-v1.5")
+    tower_dir = os.path.join(root, "clip-vit-large-patch14-336")
+    t_phase = time.perf_counter()
+
+    # -- a. the inputs ------------------------------------------------------
+    n_lm = sum(x.numel() for x in _leaves(llama.init_params(text_cfg, None, "meta")))
+    n_tower = sum(x.numel() for x in _leaves(clip_vit.init_params(cfg.vision, None, "meta")))
+    lm_b, tower_b = 2 * n_lm, 2 * n_tower
+    # phase 26's two PEFT exports (r-128 adapters in f32) are written while
+    # B13 and V336 are still on disk
+    adapters_b = 2 * 4 * L * TRAIN_13B_RANK * (11 * D + 3 * F)
+    need = lm_b + tower_b + adapters_b + 2 ** 30
+    free = shutil.disk_usage(root).free
+    log("pretrain13b", f"disk: {free / 1e9:.1f} GB free under {root}, {need / 1e9:.1f} GB needed "
+                       f"(B13 {lm_b / 1e9:.2f}, V336 {tower_b / 1e9:.2f}, phase 26's adapter "
+                       f"exports {adapters_b / 1e9:.2f} GB; {_written_gb():.1f} GB passed to "
+                       f"write() by this process so far)")
+    if free < need:
+        raise AssertionError(f"{free / 1e9:.1f} GB free on disk, phases 28 and 26 need "
+                             f"{need / 1e9:.1f}")
+    rng = np.random.default_rng(28)
+    data = _write_corpus(os.path.join(root, "captions"), 32 * TRAIN_STEPS, rng, size,
+                         lambda i: [{"from": "human", "value": "<image>\n"},
+                                    {"from": "gpt", "value": _words(rng, int(rng.integers(10, 61)))}])
+    lm = llama.init_params(text_cfg, torch.Generator(device=device).manual_seed(0), device)
+    b_prints = _named_prints(lm)
+    b_bytes, b_write = _write_base(base, lm, text_cfg)
+    del lm
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    b_host = _host_peak_gb()
+    tower = clip_vit.init_params(cfg.vision, torch.Generator(device=device).manual_seed(1),
+                                 device)
+    v_prints = _named_prints(tower)
+    v_bytes, v_write = _write_tower(tower_dir, tower, cfg.vision)
+    del tower
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    log("pretrain13b", f"B13: a plain LLaMA ({L} layers of {D}, {text_cfg.num_attention_heads} "
+                       f"heads, FFN {F}, vocab {text_cfg.vocab_size}), random bf16 weights, "
+                       f"{b_bytes / 1e9:.2f} GB written in {b_write:.1f} s "
+                       f"({b_bytes / 1e9 / b_write:.2f} GB/s; this process's peak resident "
+                       f"memory {b_host:.1f} GB after it); V336: CLIP ViT-L/14-{size}, "
+                       f"{v_bytes / 1e9:.2f} GB in {v_write:.1f} s; {_written_gb():.1f} GB passed "
+                       f"to write() by this process so far")
+
+    # -- b. stage 1 through main() ------------------------------------------------
+    out = os.path.join(root, "stage1")
+    argv, env = _script_argv(PRETRAIN_13B_SCRIPT, model_name_or_path=base, data_path=data,
+                             image_folder=os.path.dirname(data), vision_tower=tower_dir,
+                             output_dir=out, max_steps=TRAIN_STEPS, device=device)
+    if env:
+        raise AssertionError(f"{PRETRAIN_13B_SCRIPT} exports {env}, which this phase does not set")
+    rec = _TrainRecord(profile=cuda)
+    grads_and_metrics, seen = step_lib.grads_and_metrics, []
+
+    def observed(loss_of, params, batch, accum_steps=1, keys=("language_model", "mm_projector")):
+        """The trainer's own gradients, observed: the subtrees a step
+        differentiates and their norm (the optimizer's ``global_norm``)."""
+        grads, metrics = grads_and_metrics(loss_of, params, batch, accum_steps, keys)
+        seen.append((tuple(keys), float(opt_lib.global_norm(
+            [g for k in keys for g in opt_lib.tree_leaves(grads[k])]))))
+        return grads, metrics
+
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    step_lib.grads_and_metrics = observed
+    try:
+        params, got_cfg = train_lib.main(argv, build_model=rec.build_model, on_step=rec.on_step)
+    finally:
+        step_lib.grads_and_metrics = grads_and_metrics
+    if cuda:
+        torch.cuda.synchronize()
+    stage1_s = time.perf_counter() - t0
+    load_host = _host_peak_gb()
+    launched = _counts()
+    quant = (qm.matmul_int8.launches + qm.matmul_int8.backward_calls
+             + qm.matmul_int4.launches + qm.matmul_int4.backward_calls)
+    peak = rec.peak_gib()
+    after = {k: _named_prints(v) for k, v in params.items()}
+    moved = sum(after["mm_projector"][k] != v for k, v in rec.before["mm_projector"].items())
+    taking = sum(x.requires_grad or x.grad is not None
+                 for key in ("language_model", "vision_tower") for x in _leaves(params[key]))
+    sd = torch.load(os.path.join(out, "mm_projector.bin"), weights_only=True)
+    shapes = {k: tuple(v.shape) for k, v in sd.items()}
+    M = cfg.mm_hidden_size
+    want_shapes = {"model.mm_projector.0.weight": (D, M), "model.mm_projector.0.bias": (D,),
+                   "model.mm_projector.2.weight": (D, D), "model.mm_projector.2.bias": (D,)}
+    exact = (_projector_matches(sd, params["mm_projector"])
+             and {v.dtype for v in sd.values()} == {torch.float32})
+    # the file read back as --pretrain-mm-mlp-adapter reads it (the key
+    # prefix stripped), in bf16 and in f32
+    reread = {}
+    for dt in (torch.bfloat16, torch.float32):
+        back = hf_import.projector_params_from_state_dict(
+            {k.replace("model.mm_projector.", ""): v for k, v in sd.items()}, "mlp2x_gelu", dt)
+        reread[str(dt)[6:]] = all(
+            torch.equal(b.cpu(), t.to(dt).cpu())
+            for b, t in zip(_leaves(back), _leaves(params["mm_projector"])))
+    grads_ok = (len(seen) == TRAIN_STEPS
+                and all(keys == ("mm_projector",) and norm == m["grad_norm"]
+                        for (keys, norm), (m, *_) in zip(seen, rec.steps)))
+    shapes_t = {tuple(shape) for _, _, _, shape, _ in rec.steps}
+    want = (TRAIN_STEPS * 2 * L, TRAIN_STEPS * L, TRAIN_STEPS * L)
+    rec.lines("pretrain13b stage1")
+    if rec.prof is not None:
+        log("pretrain13b stage1", rec.prof.line())
+    log("pretrain13b", f"stage 1 ({PRETRAIN_13B_SCRIPT}'s flags, --model-name-or-path B13 "
+                       f"--vision-tower V336) through main() in {stage1_s:.1f} s (B13's load "
+                       f"included; this process's peak resident memory {load_host:.1f} GB after "
+                       f"it): the trainer built {got_cfg.num_image_tokens} image tokens at "
+                       f"{got_cfg.vision.image_size} px, select layer "
+                       f"{got_cfg.vision.select_layer}, a {got_cfg.mm_projector_type} projector "
+                       f"{M} -> {D} -> {D}; batches {sorted(shapes_t)}; its language model B13's "
+                       f"bytes {rec.before['language_model'] == b_prints}, its tower V336's "
+                       f"{rec.before['vision_tower'] == v_prints}; after {len(rec.steps)} steps "
+                       f"both unchanged "
+                       f"{after['language_model'] == b_prints and after['vision_tower'] == v_prints}"
+                       f", their leaves holding or taking a gradient {taking}; projector leaves "
+                       f"moved {moved} of {len(after['mm_projector'])}; each step differentiated "
+                       f"{sorted({k for keys, _ in seen for k in keys})} and its grad_norm is "
+                       f"their norm {grads_ok}; mm_projector.bin {shapes}, the trained "
+                       f"projector bit for bit {exact}, read back as --pretrain-mm-mlp-adapter "
+                       f"{reread}; launches flash fwd/dkv/dq {launched} (want {want}), int8 / "
+                       f"int4 {quant}; peak device memory {peak:.2f} GiB (bound "
+                       f"{STAGE1_13B_PEAK_GIB:.1f}); card {smi}")
+    if (not _trained(rec) or got_cfg.vision != cfg.vision
+            or got_cfg.mm_projector_type != "mlp2x_gelu" or got_cfg.text != text_cfg
+            or rec.before["language_model"] != b_prints or rec.before["vision_tower"] != v_prints
+            or after["language_model"] != b_prints or after["vision_tower"] != v_prints
+            or taking or moved != len(after["mm_projector"]) or not grads_ok
+            or shapes != want_shapes or not exact or not all(reread.values())
+            or (cuda and (launched != want or quant or peak > STAGE1_13B_PEAK_GIB
+                          or shapes_t != {(32, STAGE1_13B_T)}))):
+        raise AssertionError("phase 28: LLaVA-1.5-13B stage 1 from the base failed its checks")
+    del params, after, sd
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    log("pretrain13b", f"phase 28 in {time.perf_counter() - t_phase:.1f} s; card {smi}")
+    return {**dict(zip(("flash", "dkv", "dq"), launched)),
+            "start": {"root": root, "base": base, "tower": tower_dir,
+                      "projector": os.path.join(out, "mm_projector.bin"),
+                      "base_prints": b_prints, "tower_prints": v_prints}}
 
 
 # ---------------------------------------------------------------------------
@@ -7602,6 +8030,8 @@ S13_KERNELS = {"flash_fwd": "flash", "decode_attention[int8]": "decode",
 # the kernels LLaVA-1.5-13B's training runs (phase 26), by their key there
 T13_KERNELS = {"flash_fwd": "flash", "flash_bwd[dkv]": "dkv", "flash_bwd[dq]": "dq",
                "quant_matmul[int4]": "int4"}
+# the kernels LLaVA-1.5-13B's stage 1 from a base runs (phase 28)
+T13S_KERNELS = {"flash_fwd": "flash", "flash_bwd[dkv]": "dkv", "flash_bwd[dq]": "dq"}
 # kernels line entry -> phase 27's count (LLaVA-Plus-7B from a base checkpoint)
 P27_KERNELS = {"flash_fwd": "flash", "flash_bwd[dkv]": "dkv", "flash_bwd[dq]": "dq",
                "decode_attention[bf16]": "decode", "quant_matmul[int8]": "quant"}
@@ -7678,7 +8108,9 @@ def main():
     stage2 = timed("10", phase_train_stage2, smi)
     mpt_stage1 = timed("12", phase_train_mpt_stage1, smi)
     qlora = timed("13", phase_train_qlora, smi)
-    train13 = timed("26", phase_train_13b, smi)   # LLaVA-1.5-13B LoRA, then QLoRA
+    # LLaVA-1.5-13B from a base: stage 1, then LoRA and QLoRA over its projector
+    pre13 = timed("28", phase_pretrain_13b, smi)
+    train13 = timed("26", phase_train_13b, smi, pre13["start"])
     plus7b = timed("27", phase_plus_7b, smi)      # LLaVA-Plus-7B from a base checkpoint
     tools = timed("14", phase_int4_tools)
 
@@ -7707,12 +8139,14 @@ def main():
          single["flash"] + ckpt["flash"] + int8["flash"] + tp1["flash"] + int4["flash"]
          + paged["flash"] + s13["flash"]
          + spec["flash"] + plus["flash"] + evals["flash"] + predictor["flash"]
-         + stage1["flash"] + stage2["flash"] + qlora["flash"] + train13["flash"]
-         + plus7b["flash"]),
+         + stage1["flash"] + stage2["flash"] + qlora["flash"] + pre13["flash"]
+         + train13["flash"] + plus7b["flash"]),
         ("flash_bwd[dkv]", bwd_src, DKV_REPLACES,
-         stage1["dkv"] + stage2["dkv"] + qlora["dkv"] + train13["dkv"] + plus7b["dkv"]),
+         stage1["dkv"] + stage2["dkv"] + qlora["dkv"] + pre13["dkv"] + train13["dkv"]
+         + plus7b["dkv"]),
         ("flash_bwd[dq]", bwd_src, DQ_REPLACES,
-         stage1["dq"] + stage2["dq"] + qlora["dq"] + train13["dq"] + plus7b["dq"]),
+         stage1["dq"] + stage2["dq"] + qlora["dq"] + pre13["dq"] + train13["dq"]
+         + plus7b["dq"]),
         ("decode_attention[bf16]", "llava_plus_torch/csrc/decode_attention.cu",
          DECODE_REPLACES, single["bf16"] + evals["decode"] + predictor["decode"]
          + plus7b["decode"]),
@@ -7767,6 +8201,9 @@ def main():
         if name in T13_KERNELS:
             # of which LLaVA-1.5-13B's LoRA and QLoRA training (phase 26)
             entries[-1]["train_13b_launches"] = train13[T13_KERNELS[name]]
+        if name in T13S_KERNELS:
+            # of which LLaVA-1.5-13B's stage 1 from a base (phase 28)
+            entries[-1]["train_13b_stage1_launches"] = pre13[T13S_KERNELS[name]]
         if name in P27_KERNELS:
             # of which LLaVA-Plus-7B's training from a base checkpoint and
             # its served tool turn (phase 27)

@@ -62,10 +62,15 @@ def load_pretrained_model(
     model_name: Optional[str] = None,
     *,
     dtype="bfloat16",
+    device="cpu",
 ) -> Tuple[object, dict, LlavaConfig, Optional[ClipImageProcessor], int]:
     """(tokenizer, params, cfg, image_processor, context_len) of the
     checkpoint at ``model_path`` (over ``model_base`` for the LoRA and the
-    base + projector shapes); ``dtype`` is a torch dtype or its name."""
+    base + projector shapes); ``dtype`` is a torch dtype or its name. A
+    plain language model (the base a training recipe starts from) is read
+    onto ``device`` and laid out there (a card stacks and transposes its
+    matrices far faster than the host); every other kind is read on the
+    host."""
     path = Path(model_path)
     model_name = model_name or path.name
     is_llava = "llava" in model_name.lower()
@@ -83,7 +88,7 @@ def load_pretrained_model(
         tokenizer = load_tokenizer(model_path)
     else:
         text_cfg = hf_import.llama_config_from_hf(_read_config(path))
-        sd = hf_import.load_state_dict_dir(path)
+        sd = hf_import.load_state_dict_dir(path, device)
         lm = hf_import.llama_params_from_state_dict(sd, text_cfg, dtype=dtype)
         cfg = LlavaConfig(text=text_cfg, mm_projector_type="identity")
         params = {"language_model": lm, "vision_tower": {}, "mm_projector": {}}

@@ -46,10 +46,10 @@ def torch_dtype(dtype) -> torch.dtype:
 # State-dict readers
 # ---------------------------------------------------------------------------
 
-def load_state_dict_dir(path) -> StateDict:
+def load_state_dict_dir(path, device="cpu") -> StateDict:
     """Every ``*.safetensors`` in a checkpoint directory, or else every
     ``pytorch_model*.bin`` (or, without those, every ``*.bin``), merged into
-    one dict of CPU tensors as stored."""
+    one dict of tensors as stored, on ``device``."""
     path = Path(path)
     sd: StateDict = {}
     st_files = sorted(path.glob("*.safetensors"))
@@ -57,11 +57,11 @@ def load_state_dict_dir(path) -> StateDict:
         from safetensors.torch import load_file
 
         for f in st_files:
-            sd.update(load_file(str(f)))
+            sd.update(load_file(str(f), device=str(device)))
         return sd
     bins = sorted(path.glob("pytorch_model*.bin")) or sorted(path.glob("*.bin"))
     for f in bins:
-        sd.update(torch.load(str(f), map_location="cpu", weights_only=True))
+        sd.update(torch.load(str(f), map_location=device, weights_only=True))
     return sd
 
 

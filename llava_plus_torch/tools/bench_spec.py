@@ -47,16 +47,16 @@ CFG = LLAVA_15_7B
 PROMPT = "<image>\n" + " ".join(f"w{i % 24}" for i in range(160))
 
 
-def make_params(device: str):
-    """LLaVA-1.5-7B's tree, random bf16 from seed 0 on ``device``, with the
-    language model quantized to int8 and fused."""
-    params = llava_model.init_params(CFG, torch.Generator(device=device).manual_seed(0), device)
-    return quantize_llava_params(params, CFG.language_model_type, bits=8, fuse=True)
+def make_params(device: str, cfg=CFG):
+    """The tree of ``cfg`` (LLaVA-1.5-7B by default), random bf16 from seed 0
+    on ``device``, with the language model quantized to int8 and fused."""
+    params = llava_model.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    return quantize_llava_params(params, cfg.language_model_type, bits=8, fuse=True)
 
 
 def make_engine(params, speculate: int, spec_chunk: int = 4, *, max_slots: int = 1,
-                tokenizer=None) -> BatchedEngine:
-    return BatchedEngine(params, CFG, tokenizer or DebugTokenizer(vocab_size=CFG.text.vocab_size),
+                tokenizer=None, cfg=CFG) -> BatchedEngine:
+    return BatchedEngine(params, cfg, tokenizer or DebugTokenizer(vocab_size=cfg.text.vocab_size),
                          max_slots=max_slots, max_seq_len=2048, prefill_bucket=256,
                          cache_dtype=torch.int8, speculate=speculate, spec_chunk=spec_chunk)
 
@@ -75,11 +75,11 @@ def _drain(req: Request) -> int:
 
 
 def run(speculate: int, new_tokens: int = 128, spec_chunk: int = 4, *, params,
-        tokenizer=None) -> dict:
+        tokenizer=None, cfg=CFG) -> dict:
     """One greedy stream of ``new_tokens`` after a warm request, on an
-    engine of one slot."""
+    engine of one slot (``params`` of ``cfg``)."""
     rng = np.random.default_rng(0)
-    eng = make_engine(params, speculate, spec_chunk, tokenizer=tokenizer)
+    eng = make_engine(params, speculate, spec_chunk, tokenizer=tokenizer, cfg=cfg)
     try:
         _drain(eng.submit(Request(prompt=PROMPT, images=_image(rng), max_new_tokens=8)))
         steps0, emitted0 = eng.spec_steps, eng.spec_emitted

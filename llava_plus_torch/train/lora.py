@@ -298,12 +298,14 @@ def save_peft_adapter(lora_params: Lora, cfg: LoraConfig, out_dir,
     flat = {}
     for joined, ab in lora_stacked(lora_params).items():
         proj = inv[joined]
-        a, b = (ab[n].detach().float().cpu() for n in ("a", "b"))
+        # transposed where the adapters live (a card lays them out far
+        # faster than the host), then each layer's own host copy
+        a, b = (ab[n].detach().float().transpose(1, 2).contiguous() for n in ("a", "b"))
         block = "self_attn" if "attn" in joined else "mlp"
         for i in range(a.shape[0]):
             prefix = f"base_model.model.model.layers.{i}.{block}.{proj}"
-            flat[f"{prefix}.lora_A.weight"] = a[i].T.contiguous()
-            flat[f"{prefix}.lora_B.weight"] = b[i].T.contiguous()
+            flat[f"{prefix}.lora_A.weight"] = a[i].to("cpu", copy=True)
+            flat[f"{prefix}.lora_B.weight"] = b[i].to("cpu", copy=True)
     save_file(flat, str(out_dir / "adapter_model.safetensors"))
     if extra_trainables:
         torch.save({k: v.detach().cpu() for k, v in extra_trainables.items()},

@@ -246,7 +246,7 @@ def build_model(model_args: ModelArguments, dtype: torch.dtype, device, seed: in
             tok.bos_token_id = None  # MPT tokenizers carry no BOS
     else:
         tok, params, cfg, _, _ = load_pretrained_model(model_args.model_name_or_path,
-                                                       dtype=dtype)
+                                                       dtype=dtype, device=device)
         if model_args.vision_tower is not None and not params["vision_tower"]:
             params, cfg = initialize_vision_modules(params, cfg, model_args, dtype, seed)
         params = tree_map(lambda x: x.to(device), params)
