@@ -4460,16 +4460,9 @@ PLUS_KERNELS = {"flash_fwd": "flash", "quant_matmul[int8]": "quant",
 
 
 def _written_gb():
-    """GB this process has passed to ``write()`` (``/proc/self/io``'s
-    ``wchar``: files, and its few pipe and log lines; the card's machine
-    reports no ``write_bytes``): the machine ends a call that writes more
-    than 45 GiB to its disk, deleted files included."""
-    try:
-        with open("/proc/self/io") as f:
-            return next(int(line.split()[1]) for line in f
-                        if line.startswith("wchar")) / 1e9
-    except (OSError, StopIteration):
-        return float("nan")
+    from llava_plus_torch.tools.common import written_gb
+
+    return written_gb()
 
 
 def _free_port():
@@ -6962,30 +6955,10 @@ PLUS_SCRIPT = "llava_plus/training_llava_plus_v1_3_7b.sh"
 
 
 def _script_argv(name, **flags):
-    """The trainer's flags in the port's launcher ``llava_plus_torch/
-    scripts/<name>`` (its shell variables expanded), each flag of ``flags``
-    (``model_name_or_path=...``) put in place of the launcher's value or
-    added after its flags; and the environment the launcher exports."""
-    import re
-    import shlex
+    """(argv, env) of the launcher ``name``: ``common.script_argv``."""
+    from llava_plus_torch.tools.common import script_argv
 
-    text = open(os.path.join(HERE, "llava_plus_torch", "scripts", name)).read()
-    variables, env = {}, {}
-    for m in re.finditer(r"^(export )?(\w+)=(\S+)$", text, flags=re.M):
-        value = m.group(3).strip("\"'")
-        (env if m.group(1) else variables)[m.group(2)] = value
-    joined = re.sub(r"\\\n", " ", text)
-    cmd = next(line.strip() for line in joined.splitlines()
-               if line.strip().startswith("python -m llava_plus_torch.train.train"))
-    cmd = re.sub(r"\$\{?(\w+)\}?", lambda m: variables[m.group(1)], cmd)
-    argv = shlex.split(cmd)[3:]
-    for key, value in flags.items():
-        flag = "--" + key.replace("_", "-")
-        if flag in argv:
-            argv[argv.index(flag) + 1] = str(value)
-        else:
-            argv += [flag, str(value)]
-    return argv, env
+    return script_argv(name, **flags)
 
 
 def _plus_corpus(root, rng, n_chat, n_tool, size):
@@ -7071,46 +7044,17 @@ def _dataset_texts(data_path, image_folder, version, size):
     return texts
 
 
-_SAFETENSORS_DTYPES = {"torch.bfloat16": "BF16", "torch.float16": "F16",
-                       "torch.float32": "F32", "torch.int8": "I8", "torch.int32": "I32",
-                       "torch.int64": "I64"}
-
-
-def _save_safetensors(sd, path, metadata=None):
-    """``sd`` (name -> contiguous host tensor) as one safetensors file,
-    written a tensor at a time, each dropped from ``sd`` once written: the
-    host holds no second copy of the state dict (the safetensors package
-    serializes the whole dict first on some versions: 58.7 GB resident for
-    a 26 GB base on the card's machine). Returns the bytes written."""
-    import torch
-
-    header, offset = {"__metadata__": dict(metadata or {})}, 0
-    for name, x in sd.items():
-        n = x.numel() * x.element_size()
-        header[name] = {"dtype": _SAFETENSORS_DTYPES[str(x.dtype)], "shape": list(x.shape),
-                        "data_offsets": [offset, offset + n]}
-        offset += n
-    raw = json.dumps(header, separators=(",", ":")).encode()
-    raw += b" " * (-len(raw) % 8)   # the data starts 8-byte aligned
-    with open(path, "wb") as f:
-        f.write(len(raw).to_bytes(8, "little"))
-        f.write(raw)
-        for name in list(sd):
-            x = sd.pop(name)
-            f.write(memoryview(x.reshape(-1).view(torch.uint8).numpy()))
-    return 8 + len(raw) + offset
-
-
 def _write_base(path, lm, text_cfg, tokenizer=None):
     """A plain HF LLaMA directory (``model.safetensors``, ``config.json``,
     the tokenizer if one is given; without one the loaders take their
     ``DebugTokenizer``), as a base model is published: (bytes, seconds)."""
+    from llava_plus_torch.tools.common import save_safetensors
     from llava_plus_torch.train import checkpoint
 
     t0 = time.perf_counter()
     os.makedirs(path, exist_ok=True)
-    _save_safetensors(checkpoint.llama_state_dict_from_params(lm, text_cfg),
-                      os.path.join(path, "model.safetensors"), {"format": "pt"})
+    save_safetensors(checkpoint.llama_state_dict_from_params(lm, text_cfg),
+                     os.path.join(path, "model.safetensors"), {"format": "pt"})
     config = dict(checkpoint._llama_hf_config(text_cfg), architectures=["LlamaForCausalLM"],
                   model_type="llama", torch_dtype="bfloat16")
     with open(os.path.join(path, "config.json"), "w") as f:
@@ -7121,26 +7065,10 @@ def _write_base(path, lm, text_cfg, tokenizer=None):
 
 
 def _write_tower(path, tower, vision_cfg):
-    """An HF ``CLIPVisionModel`` directory (``vision_model.*`` keys and its
-    ``config.json``): (bytes, seconds)."""
-    from llava_plus_torch.train import checkpoint
+    """An HF ``CLIPVisionModel`` directory: ``common.write_tower``."""
+    from llava_plus_torch.tools.common import write_tower
 
-    t0 = time.perf_counter()
-    os.makedirs(path, exist_ok=True)
-    _save_safetensors(checkpoint.clip_state_dict_from_params(tower, vision_cfg,
-                                                             prefix="vision_model."),
-                      os.path.join(path, "model.safetensors"), {"format": "pt"})
-    config = {"architectures": ["CLIPVisionModel"], "model_type": "clip_vision_model",
-              "hidden_size": vision_cfg.hidden_size,
-              "intermediate_size": vision_cfg.intermediate_size,
-              "num_hidden_layers": vision_cfg.num_hidden_layers,
-              "num_attention_heads": vision_cfg.num_attention_heads,
-              "image_size": vision_cfg.image_size, "patch_size": vision_cfg.patch_size,
-              "layer_norm_eps": vision_cfg.layer_norm_eps, "hidden_act": "quick_gelu",
-              "num_channels": 3, "projection_dim": 768, "torch_dtype": "bfloat16"}
-    with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump(config, f, indent=2)
-    return os.path.getsize(os.path.join(path, "model.safetensors")), time.perf_counter() - t0
+    return write_tower(path, tower, vision_cfg)
 
 
 def _layer_leaves(tree):
@@ -7719,11 +7647,9 @@ STAGE1_13B_PEAK_GIB = 48.0
 
 
 def _host_peak_gb():
-    """This process's peak resident memory so far, in GB (``ru_maxrss``,
-    KiB on Linux)."""
-    import resource
+    from llava_plus_torch.tools.common import host_peak_gb
 
-    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+    return host_peak_gb()
 
 
 def _projector_matches(sd, proj):

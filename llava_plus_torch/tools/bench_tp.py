@@ -314,7 +314,6 @@ def compare(ref, res, gap_of):
 ROWS_A_RANK = 4     # chip_smoke phase 10's batch a card
 ACCUM = 2           # its micro-batches a step
 TRAIN_STEPS = 3     # steps a mesh: the first warms up, the others are timed
-GEMM_KEYS = ("gemm", "gemv", "cutlass", "nvjet", "xmma", "splitk", "cublas")
 
 
 def train_batches(cfg, rows: int, steps: int, max_len: int, seed: int = 5):
@@ -411,17 +410,6 @@ def _metrics(m) -> dict:
     return {k: float(m[k]) for k in ("loss", "grad_norm", "tokens")}
 
 
-def kernel_class(name: str) -> str:
-    low = name.lower()
-    if "nccl" in low:
-        return "nccl"
-    if "flash" in low:
-        return "flash"
-    if any(k in low for k in GEMM_KEYS):
-        return "gemm"
-    return "other"
-
-
 GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 
 
@@ -485,15 +473,10 @@ def profile_mesh(cfg, shape, dev, batches, idle, world, bits) -> dict:
     with profile(activities=acts, record_shapes=True, with_flops=True) as prof:
         metrics.append(_metrics(step(batch)))
         _sync(dev)
-    ms = {"gemm": 0.0, "flash": 0.0, "nccl": 0.0, "other": 0.0}
-    launches = dict.fromkeys(ms, 0)
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
-            ms[kernel_class(e.key)] += e.self_device_time_total / 1e3
-            launches[kernel_class(e.key)] += e.count
+    by_class = common.device_ms_by_class(prof)
     events = prof.events()
-    mine = {"device_ms": ms if dev.type == "cuda" else "not measured",
-            "launches": launches if dev.type == "cuda" else "not measured",
+    mine = {"device_ms": by_class["ms"] if dev.type == "cuda" else "not measured",
+            "launches": by_class["launches"] if dev.type == "cuda" else "not measured",
             "gemm_tflop": local_gemm_flops(events) / 1e12,
             "aten_op_calls": sum(e.name.startswith("aten::") for e in events)}
     if dist.get_rank() == 0:
