@@ -215,6 +215,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    ``make_mesh(1, 1, 1)``, saved shard by shard
    (``checkpoint.save_train_state``), restored onto fresh DTensors and into
    one process's plain trees, every leaf bit for bit; seconds and bytes;
+   then (``phase_resume``) ``scripts/v1_5/finetune.sh``'s flags through
+   ``train.main`` at the narrow width, 2 rows x 2 micro-batches a step,
+   cut after its save at step 2 and resumed (``llava_plus_torch/tools/
+   train_resume.py``'s ``cut_run``, both runs in this process): steps 3-4,
+   their sample ids and the state after them bit for bit the run's that
+   was never cut, the restored state bit for bit the state after step 2,
+   exact flash launches;
 16. (run after 5, before 6) a tree of LLaVA-1.5-7B's width at 2 of its 32
    layers (``CKPT_LAYERS``) exported as an HF checkpoint under ``.smoke/``
    (one ``model.safetensors``, 2.0 GB, with a word-level tokenizer that
@@ -5487,6 +5494,85 @@ def phase_sharded_save(smi, device="cuda"):
     return {"save_s": save_s, "bytes": written, "mesh_s": mesh_s, "host_s": host_s}
 
 
+RESUME_ROWS, RESUME_ACCUM = 2, 2   # phase 24's cut run: 4 rows a step
+
+
+def phase_resume(smi, device="cuda"):
+    """Phase 24, second part: ``scripts/v1_5/finetune.sh``'s flags through
+    ``train.main`` at the narrow width (phase 4's LLaMA; its 2-layer tower
+    at 28 px written as an HF directory; a random stage-1
+    ``mm_projector.bin``; the base built in memory by
+    ``train_13b_mesh.in_memory_base``), ``RESUME_ROWS`` rows x
+    ``RESUME_ACCUM`` micro-batches a step, ``--save-steps 2 --max-steps 4``:
+    run A trains steps 1-4 and saves ``checkpoint-2`` on the way, run B
+    restores it and trains steps 3-4, both cut at step 4 before its save
+    (``train_resume.cut_run``; both in this process). Holds B to A
+    (``train_resume.pair_checks``: steps 3-4 bit for bit in loss,
+    ``grad_norm``, non-pad tokens and sample ids, the restored state and
+    the state after step 4 by digest) and each run's flash launches to 2L /
+    L / L a micro-batch."""
+    from pathlib import Path
+
+    import torch
+    from llava_plus_torch.data.debug_tokenizer import DebugTokenizer
+    from llava_plus_torch.models import clip_vit
+    from llava_plus_torch.tools import common
+    from llava_plus_torch.tools import train_13b_mesh as mesh_tool
+    from llava_plus_torch.tools import train_resume
+
+    cfg = _narrow_cfg()
+    L = cfg.text.num_hidden_layers
+    root = os.path.join(SMOKE_DIR, "resume")
+    shutil.rmtree(root, ignore_errors=True)
+    per_step = RESUME_ROWS * RESUME_ACCUM
+    data = mesh_tool.write_corpus(Path(root) / "data", per_step * train_resume.STEPS,
+                                  cfg.vision.image_size, tiny=True)
+    proj = mesh_tool.write_projector(Path(root) / "mm_projector.bin", cfg)
+    common.write_tower(os.path.join(root, "tower"), clip_vit.init_params(
+        cfg.vision, torch.Generator().manual_seed(1), "cpu", torch.float32), cfg.vision)
+    argv, _ = common.script_argv(
+        train_resume.SCRIPT, model_name_or_path=mesh_tool.BASE_NAME, data_path=data,
+        image_folder=data.parent, vision_tower=os.path.join(root, "tower"),
+        pretrain_mm_mlp_adapter=proj, output_dir=os.path.join(root, "out"),
+        per_device_train_batch_size=RESUME_ROWS, gradient_accumulation_steps=RESUME_ACCUM,
+        save_steps=train_resume.SAVE_STEPS, max_steps=train_resume.STEPS,
+        model_max_length=cfg.max_sequence_length, device=device)
+    build_model = mesh_tool.in_memory_base(cfg.text, DebugTokenizer(vocab_size=cfg.text.vocab_size))
+    dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else device
+    w0 = _written_gb()
+    a = train_resume.cut_run(argv, build_model, torch.device(dev))
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    b = train_resume.cut_run(argv, build_model, torch.device(dev))
+    written = _written_gb() - w0
+    shutil.rmtree(root, ignore_errors=True)
+    checks = train_resume.pair_checks(a, b)
+
+    def want(n_steps):
+        micro = n_steps * RESUME_ACCUM
+        return {"fwd": 2 * L * micro, "dkv": L * micro, "dq": L * micro}
+
+    late = [str(s) for s in range(train_resume.SAVE_STEPS + 1, train_resume.STEPS + 1)]
+    checks["launches"] = (a["launches"] == want(train_resume.STEPS)
+                          and b["launches"] == want(len(late)))
+    checks["under_1_gb"] = written < 1.0
+    log("resume", f"finetune.sh's flags through train.main at the narrow width, "
+                  f"{RESUME_ROWS} x {RESUME_ACCUM} rows a step: A steps 1-4 (checkpoint-2 "
+                  f"{a['save']['bytes'] / 2 ** 20:.1f} MiB in {a['save']['seconds']:.2f} s), "
+                  f"B restored it in {b['restore']['seconds']:.2f} s (load "
+                  f"{b['restore']['load_s']:.2f}, copy {b['restore']['copy_s']:.2f}) and ran "
+                  f"steps 3-4; losses A {[round(s['loss'], 6) for s in a['steps'].values()]}, "
+                  f"B {[round(s['loss'], 6) for s in b['steps'].values()]}; sample ids of step "
+                  f"3 {b['steps'][late[0]]['sample_ids'] if late[0] in b['steps'] else None}; "
+                  f"launches A {a['launches']}, B {b['launches']}; {written:.3f} GB written; "
+                  f"checks {checks}; card {smi}")
+    if not all(checks.values()):
+        raise AssertionError(f"the resumed run is not the run that was never cut: {checks}")
+    return {k: a["launches"][v] + b["launches"][v]
+            for k, v in (("flash", "fwd"), ("dkv", "dkv"), ("dq", "dq"))}
+
+
 # ---------------------------------------------------------------------------
 # 11. LLaVA-MPT-7B at full width behind the HTTP worker, dense and paged
 # ---------------------------------------------------------------------------
@@ -8027,6 +8113,7 @@ def main():
     shutil.rmtree(os.path.join(SMOKE_DIR, CKPT_NAME), ignore_errors=True)
     timed("23", phase_native, smi)
     timed("24", phase_sharded_save, smi)
+    resume = timed("24 resume", phase_resume, smi)   # cut after a save and resumed
     mpt = timed("11", serve_mpt_7b, smi)   # before training (the LLaMA weights are gone)
     narrow_alibi_bwd = timed("8", phase_narrow_training)
     narrow_lora = timed("8 lora", phase_narrow_lora)
@@ -8066,13 +8153,13 @@ def main():
          + paged["flash"] + s13["flash"]
          + spec["flash"] + plus["flash"] + evals["flash"] + predictor["flash"]
          + stage1["flash"] + stage2["flash"] + qlora["flash"] + pre13["flash"]
-         + train13["flash"] + plus7b["flash"]),
+         + train13["flash"] + plus7b["flash"] + resume["flash"]),
         ("flash_bwd[dkv]", bwd_src, DKV_REPLACES,
          stage1["dkv"] + stage2["dkv"] + qlora["dkv"] + pre13["dkv"] + train13["dkv"]
-         + plus7b["dkv"]),
+         + plus7b["dkv"] + resume["dkv"]),
         ("flash_bwd[dq]", bwd_src, DQ_REPLACES,
          stage1["dq"] + stage2["dq"] + qlora["dq"] + pre13["dq"] + train13["dq"]
-         + plus7b["dq"]),
+         + plus7b["dq"] + resume["dq"]),
         ("decode_attention[bf16]", "llava_plus_torch/csrc/decode_attention.cu",
          DECODE_REPLACES, single["bf16"] + evals["decode"] + predictor["decode"]
          + plus7b["decode"]),

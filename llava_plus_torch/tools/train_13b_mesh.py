@@ -202,9 +202,10 @@ def state_bytes(cfg: LlavaConfig, mesh) -> dict:
                    for x in tree_leaves(v)) for k, v in tree.items()}
 
 
-def bound(cfg: LlavaConfig, rows: int, T: int, mesh) -> dict:
+def bound(cfg: LlavaConfig, rows: int, T: int, mesh, accum: int = 1) -> dict:
     """The most device memory a rank's step may take at ``rows`` rows of
-    ``T`` (bytes, by part), in bf16:
+    ``T`` a micro-batch, ``accum`` micro-batches a step (bytes, by part),
+    in bf16:
 
     - ``kept``: the trained leaves (the language model and the projector)
       three times (parameter and AdamW's two moments, in the parameters'
@@ -213,16 +214,22 @@ def bound(cfg: LlavaConfig, rows: int, T: int, mesh) -> dict:
     - ``grads``: the trained leaves' gradients, held from the layers'
       backward to the update;
     - ``saved``: each layer's input, kept for the remat backward;
-    - ``head``: the f32 log-softmax the loss keeps, its f32 gradient and
-      its bf16 rounding, at the head's backward, before any layer's
-      gradient exists;
+    - ``head``: at the head's backward, before any layer's gradient
+      exists, the f32 log-softmax the loss keeps, the f32 gradient that
+      ``nll_loss``'s backward gives it and the one that log-softmax's
+      backward makes of the two (three f32 [rows, T, V]), and the final
+      norm's f32 input and product and its bf16 output, kept for its
+      backward (a memory trace of the step at 13B's width shows these);
     - ``layer``: one layer's recompute and its gradients, counted as 3 F-
       and 8 D-wide bf16 activations, twice;
     - ``gathered``: a layer's weights gathered whole and its weight
       gradients before the reduce-scatter, and the whole tower.
 
     ``total`` is ``kept`` + ``saved`` + ``gathered`` + the larger of
-    ``head`` and ``grads`` + ``layer``."""
+    ``head`` and ``grads`` + ``layer``. Under gradient accumulation the
+    summed gradients are held from the first micro-batch on, beside the
+    head's backward of the next: ``grads`` then stands outside the
+    larger."""
     t = cfg.text
     D, F, V, L = t.hidden_size, t.intermediate_size, t.vocab_size, t.num_hidden_layers
     kv = t.num_key_value_heads * t.head_dim
@@ -233,11 +240,12 @@ def bound(cfg: LlavaConfig, rows: int, T: int, mesh) -> dict:
     parts = {"kept": 3 * trained + st["vision_tower"],
              "grads": trained,
              "saved": L * rows * T * D * 2,
-             "head": rows * T * V * (4 + 4 + 2),
+             "head": rows * T * (V * (4 + 4 + 4) + D * (4 + 4 + 2)),
              "layer": 2 * rows * T * (3 * F + 8 * D) * 2,
              "gathered": 2 * layer_params * 2 + whole_tower}
-    parts["total"] = (parts["kept"] + parts["saved"] + parts["gathered"]
-                      + max(parts["head"], parts["grads"] + parts["layer"]))
+    held = parts["grads"] if accum > 1 else 0
+    parts["total"] = (parts["kept"] + parts["saved"] + parts["gathered"] + held
+                      + max(parts["head"], parts["grads"] - held + parts["layer"]))
     return parts
 
 

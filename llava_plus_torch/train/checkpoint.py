@@ -33,6 +33,7 @@ import dataclasses
 import json
 import os
 import re
+import time
 import warnings
 from pathlib import Path
 from typing import Dict, Optional
@@ -70,9 +71,12 @@ def _sharded(tree) -> bool:
 
 
 def save_train_state(ckpt_dir, step: int, params, opt_state=None,
-                     cfg: Optional[LlavaConfig] = None) -> Path:
+                     cfg: Optional[LlavaConfig] = None, position=None) -> Path:
     """Write the training state of ``step`` under ``checkpoint-<step>/``,
-    then ``meta.json``, the marker of a finished save.
+    then ``meta.json``, the marker of a finished save, which holds ``step``
+    and the data ``position`` (``{"epoch", "index"}``: the epoch, and the
+    index in that epoch's order of the first sample no trained step has
+    used), when given.
 
     Trees of DTensors (a run over a mesh): every rank of the mesh calls
     this; each writes only its own shards, the leaves as placed (one copy
@@ -98,7 +102,7 @@ def save_train_state(ckpt_dir, step: int, params, opt_state=None,
         torch.save(state, tmp)
         os.replace(tmp, path / STATE_FILE)
     if rank == 0:
-        (path / "meta.json").write_text(json.dumps({"step": step}))
+        (path / "meta.json").write_text(json.dumps({"step": step, **(position or {})}))
         if cfg is not None:
             cfg.save(path / "config.json")
     return path
@@ -117,6 +121,17 @@ def latest_checkpoint(ckpt_dir) -> Optional[Path]:
                 and ((p / STATE_FILE).exists() or (p / SHARDED_DIR).is_dir())):
             best, best_step = p, int(m.group(1))
     return best
+
+
+def data_position(path, samples_per_step: int):
+    """``(epoch, index)`` where a run resumed from the checkpoint ``path``
+    takes up the data: the position its save recorded, or, for a save that
+    recorded none (before positions were recorded), ``step *
+    samples_per_step`` of the first epoch."""
+    meta = json.loads((Path(path) / "meta.json").read_text())
+    if "epoch" in meta:
+        return int(meta["epoch"]), int(meta["index"])
+    return 0, int(meta["step"]) * samples_per_step
 
 
 def gathered(tree, rank: int = 0):
@@ -163,22 +178,28 @@ def _unflat(like, flat, prefix=""):
     return like if like is None else flat[prefix]
 
 
-def restore_train_state(path, params_like, opt_state_like=None):
+def restore_train_state(path, params_like, opt_state_like=None, timings=None):
     """``({"params", "opt_state"}, step)``: the saved state copied into the
     given trees in place, one leaf at a time. ``state.pt`` is read from a
     memory-mapped file; a sharded save is read by every rank that holds the
     trees (a collective when a process group is up), each reading the parts
     of the saved shards that its own shards cover, so the trees may be
     placed on the saving mesh, on another mesh shape, or be plain tensors
-    in one process."""
+    in one process. ``timings``, a dict, gets the seconds of the load
+    (``load_s``: mapping ``state.pt``, or the whole sharded read) and of the
+    copy into the trees (``copy_s``, which reads the mapped pages)."""
     path = Path(path)
     like = {"params": params_like}
     if opt_state_like is not None:
         like["opt_state"] = opt_state_like
+    timings = {} if timings is None else timings
+    t0 = time.perf_counter()
     if (path / STATE_FILE).exists():
         saved = torch.load(path / STATE_FILE, map_location="cpu", mmap=True,
                            weights_only=True)
+        t1 = time.perf_counter()
         state = {k: _copy_into(v, saved[k]) for k, v in like.items()}
+        timings.update(load_s=t1 - t0, copy_s=time.perf_counter() - t1)
     else:
         import torch.distributed as dist
         import torch.distributed.checkpoint as dcp
@@ -191,6 +212,7 @@ def restore_train_state(path, params_like, opt_state_like=None):
             dcp.load(flat, storage_reader=dcp.FileSystemReader(path / SHARDED_DIR),
                      no_dist=alone)
         state = _unflat(like, flat)
+        timings.update(load_s=time.perf_counter() - t0, copy_s=0.0)
     step = json.loads((path / "meta.json").read_text())["step"]
     return state, step
 

@@ -111,8 +111,12 @@ def grads_and_metrics(loss_of, params, batch, accum_steps: int = 1,
                     h.remove()
         ms.append(m)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, acc)]
+    del acc
     if len(micros) > 1:
-        grads = [(g.float() / len(micros)).to(p.dtype) for p, g in zip(leaves, grads)]
+        # leaf by leaf, each sum dropped as its mean replaces it: a second
+        # whole set of gradients would cost 13.5 GB at 7B
+        for i, p in enumerate(leaves):
+            grads[i] = (grads[i].float() / len(micros)).to(p.dtype)
     out, i = {}, 0
     for key in keys:
         n = len(tree_leaves(params[key]))

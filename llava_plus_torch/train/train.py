@@ -362,20 +362,25 @@ def _prefetched(items, depth: int):
     stop = threading.Event()
     done = object()
 
+    def put(item) -> bool:
+        """Queue ``item``; False once the loop has stopped taking items (a
+        full queue then never drains)."""
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
     def produce():
         try:
             for item in items:
-                while not stop.is_set():
-                    try:
-                        q.put(item, timeout=0.1)
-                        break
-                    except queue.Full:
-                        continue
-                if stop.is_set():
+                if not put(item):
                     return
-            q.put(done)
+            put(done)
         except BaseException as e:  # surfaced in the loop
-            q.put(e)
+            put(e)
 
     t = threading.Thread(target=produce, daemon=True)
     t.start()
@@ -396,7 +401,8 @@ def train(model_args: ModelArguments, data_args: DataArguments,
           training_args: TrainingArguments, tokenizer=None, *,
           build_model: Callable = build_model,
           init_lora: Callable = lora_lib.init_lora_params,
-          on_step: Optional[Callable] = None):
+          on_step: Optional[Callable] = None,
+          on_data: Optional[Callable] = None):
     """Run the recipe; returns (params in the stacked layout, cfg); with
     LoRA the base as it was, and the trained adapters are what the save
     writes. ``build_model(model_args, dtype, device, seed=) -> (params,
@@ -404,8 +410,16 @@ def train(model_args: ModelArguments, data_args: DataArguments,
     ``init_lora(lm_params, lora_cfg, generator)`` the initial stacked
     adapters (updated in place by the training); ``on_step(step, metrics,
     seconds, batch)``, if given, sees every step's metrics (floats), its
-    host time and the batch arrays.
-    Over a mesh the parameters returned are DTensors."""
+    host time and the batch arrays; ``on_data(step, epoch, sample_ids)``
+    the epoch and the dataset indices of the samples the step trained on.
+    Over a mesh the parameters returned are DTensors.
+
+    A run resumed from ``checkpoint-<step>`` (``--resume``, the default)
+    continues where the save left the data: the saved epoch's order (the
+    earlier epochs' orders are drawn from the seeded generator and thrown
+    away) from the first sample no trained step has used, so it trains on
+    the batches of a run that was never cut. (The JAX trainer starts the
+    epoch's order again.)"""
     mesh, rank, device = build_mesh(training_args)
     logger = build_logger("train", "train.log")
     if rank:
@@ -438,7 +452,12 @@ def train(model_args: ModelArguments, data_args: DataArguments,
     logger.info(f"train_dataset size: {len(dataset)}")
 
     batch_size = training_args.per_device_train_batch_size
-    steps_per_epoch = max(len(dataset) // batch_size, 1)
+    accum = max(int(training_args.gradient_accumulation_steps), 1)
+    # optimizer steps an epoch, as HF Trainer counts them (the JAX trainer
+    # counts micro-batches: accum times too many steps, and accum epochs);
+    # packed rows keep its count of rows, since a row holds several samples
+    per_step = batch_size if training_args.pack_sequences else batch_size * accum
+    steps_per_epoch = max(len(dataset) // per_step, 1)
     total_steps = training_args.max_steps or steps_per_epoch * training_args.num_train_epochs
 
     # optimizer -----------------------------------------------------------
@@ -454,7 +473,6 @@ def train(model_args: ModelArguments, data_args: DataArguments,
         train_mm_projector=not training_args.freeze_mm_mlp_adapter,
         train_vision_tower=False,
     )
-    accum = max(int(training_args.gradient_accumulation_steps), 1)
     remat = training_args.gradient_checkpointing
     lora_cfg = lora_params = lora_step = None
     if training_args.lora_enable:
@@ -488,14 +506,16 @@ def train(model_args: ModelArguments, data_args: DataArguments,
                                            mesh=mesh)
 
     # resume --------------------------------------------------------------
-    start_step = 0
+    start_step, epoch, start = 0, 0, 0
     if (training_args.resume and lora_params is None   # a LoRA run saves no state
             and not training_args.save_only_model):
         latest = ckpt_lib.latest_checkpoint(training_args.output_dir)
         if latest is not None:
             state, start_step = ckpt_lib.restore_train_state(latest, params, opt_state)
             opt_state = state["opt_state"]
-            logger.info(f"resumed from {latest} at step {start_step}")
+            epoch, start = ckpt_lib.data_position(latest, batch_size * accum)
+            logger.info(f"resumed from {latest} at step {start_step}, epoch {epoch}, "
+                        f"sample {start} of its order")
 
     # sampler -------------------------------------------------------------
     sampler = None
@@ -506,51 +526,64 @@ def train(model_args: ModelArguments, data_args: DataArguments,
 
     pad_id = getattr(tokenizer, "pad_token_id", 0) or 0
 
-    def epoch_batches(order):
-        """Padded per-sample rows, or (``--pack-sequences``) fixed-shape rows
-        packing a contiguous run of the sampler order."""
+    def epoch_batches(order, start):
+        """``(arrays, sample_ids, end)`` from ``order[start:]``: padded
+        per-sample rows, or (``--pack-sequences``) fixed-shape rows packing a
+        contiguous run of the order; ``end`` is the index in ``order`` of
+        the first sample after them."""
         if training_args.pack_sequences:
             from llava_plus_torch.data.packing import pack_instances
 
-            i = 0
+            i = start
             while i < len(order):
-                window = [dataset[j] for j in order[i:i + batch_size * 16]]
+                ids = order[i:i + batch_size * 16]
                 arrays, consumed = pack_instances(
-                    window, rows=batch_size, max_len=training_args.model_max_length,
+                    [dataset[j] for j in ids], rows=batch_size,
+                    max_len=training_args.model_max_length,
                     num_patches=cfg.num_image_tokens, image_size=cfg.vision.image_size,
                     max_images_per_row=training_args.pack_max_images, pad_token_id=pad_id)
                 if consumed == 0:
                     break
                 i += consumed
-                yield arrays
+                yield arrays, ids[:consumed], i
             return
-        for i in range(0, len(order) - batch_size + 1, batch_size):
-            yield collate_batch([dataset[j] for j in order[i:i + batch_size]],
-                                num_patches=cfg.num_image_tokens,
-                                max_len=training_args.model_max_length,
-                                image_size=cfg.vision.image_size, pad_token_id=pad_id)
+        for i in range(start, len(order) - batch_size + 1, batch_size):
+            ids = order[i:i + batch_size]
+            yield (collate_batch([dataset[j] for j in ids], num_patches=cfg.num_image_tokens,
+                                 max_len=training_args.model_max_length,
+                                 image_size=cfg.vision.image_size, pad_token_id=pad_id),
+                   ids, i + batch_size)
 
-    def grouped_batches(order):
+    def grouped_batches(order, start):
         """Stacked [accum, B, ...] for gradient accumulation (the ragged
-        epoch tail is dropped)."""
+        epoch tail is dropped), with their sample ids and end."""
         if accum == 1:
-            yield from epoch_batches(order)
+            yield from epoch_batches(order, start)
             return
         buf = []
-        for arrays in epoch_batches(order):
-            buf.append(arrays)
+        for arrays, ids, end in epoch_batches(order, start):
+            buf.append((arrays, ids))
             if len(buf) == accum:
-                yield stack_micro_batches(buf, pad_id, training_args.model_max_length)
+                yield (stack_micro_batches([a for a, _ in buf], pad_id,
+                                           training_args.model_max_length),
+                       [j for _, ids in buf for j in ids], end)
                 buf = []
 
     # loop ----------------------------------------------------------------
     step = start_step
     rng = np.random.default_rng(training_args.seed)
+    for _ in range(epoch):   # the orders of the epochs a resumed run has trained
+        rng.permutation(len(dataset))
+    position = {"epoch": epoch, "index": start}   # of the first sample not trained on
     t_last = time.perf_counter()
     while step < total_steps:
-        order = (list(iter(sampler)) if sampler is not None
-                 else list(rng.permutation(len(dataset))))
-        for arrays in _prefetched(grouped_batches(order), training_args.prefetch_batches):
+        if sampler is not None:
+            sampler.set_epoch(epoch)
+            order = list(iter(sampler))
+        else:
+            order = list(rng.permutation(len(dataset)))
+        for arrays, ids, end in _prefetched(grouped_batches(order, start),
+                                            training_args.prefetch_batches):
             if step >= total_steps:
                 break
             batch = MultimodalBatch(**{k: torch.from_numpy(np.asarray(v)).to(device)
@@ -562,6 +595,9 @@ def train(model_args: ModelArguments, data_args: DataArguments,
             else:
                 params, opt_state, metrics = step_fn(params, opt_state, batch)
             step += 1
+            position = {"epoch": epoch, "index": end}
+            if on_data is not None:
+                on_data(step, epoch, [int(j) for j in ids])
             if step % training_args.logging_steps == 0 or on_step is not None:
                 m = {k: float(v) for k, v in metrics.items()}
                 now = time.perf_counter()
@@ -572,19 +608,22 @@ def train(model_args: ModelArguments, data_args: DataArguments,
                     on_step(step, m, dt, arrays)
             if step % training_args.save_steps == 0:
                 _save(params, opt_state, step, cfg, training_args, model_args, tokenizer,
-                      lora_params, lora_cfg, rank=rank)
+                      lora_params, lora_cfg, rank=rank, position=position)
+        epoch, start = epoch + 1, 0
 
     _save(params, opt_state, step, cfg, training_args, model_args, tokenizer, lora_params,
-          lora_cfg, final=True, rank=rank)
+          lora_cfg, final=True, rank=rank, position=position)
     return stacked_params, cfg
 
 
 def _save(params, opt_state, step, cfg, training_args, model_args, tokenizer,
-          lora_params=None, lora_cfg=None, final: bool = False, rank: int = 0):
+          lora_params=None, lora_cfg=None, final: bool = False, rank: int = 0,
+          position=None):
     """The saves of a step, called on every rank. The exports (the adapter,
     the LoRA adapters, the final HF checkpoint) gather their trees to rank 0
     leaf by leaf (``checkpoint.gathered``), which writes them; the training
-    state is written by every rank of a mesh, each its own shards."""
+    state is written by every rank of a mesh, each its own shards, with the
+    data ``position`` the run resumes from."""
     out_dir = Path(training_args.output_dir)
     if model_args.tune_mm_mlp_adapter:
         # adapter-only save
@@ -606,7 +645,8 @@ def _save(params, opt_state, step, cfg, training_args, model_args, tokenizer,
         return
     if not (final and training_args.save_only_model):
         ckpt_lib.save_train_state(out_dir, step, params,
-                                  None if training_args.save_only_model else opt_state, cfg)
+                                  None if training_args.save_only_model else opt_state, cfg,
+                                  position)
     if final:
         params = ckpt_lib.gathered(params, rank)
         if rank == 0:

@@ -271,6 +271,18 @@ def test_lora_over_the_stage1_projector_matches_the_jax_lora_step(dirs, stage1, 
         return run_step
 
     monkeypatch.setattr(jax, "jit", jit)
+
+    class EpochSampler(jax_train.LengthGroupedSampler):
+        """The JAX sampler drawing each epoch's own order, as the port's
+        loop has it draw (``set_epoch`` every epoch; the JAX loop repeats
+        epoch 0's order): step 3 starts the second epoch."""
+
+        def __iter__(self):
+            order = super().__iter__()
+            self.set_epoch(self._epoch + 1)
+            return order
+
+    monkeypatch.setattr(jax_train, "LengthGroupedSampler", EpochSampler)
     jax_train.train(
         jax_train.ModelArguments(version=flag["version"]),
         jax_train.DataArguments(data_path=chats, image_folder=os.path.dirname(chats),
